@@ -1,0 +1,101 @@
+"""Host batches and their copy to the device (port of
+``rgqa_tpu/data/batching.py``'s ``batch_iterator`` and ``device_prefetch``).
+
+``batch_iterator`` pads the final partial batch to the batch size
+(repeat-last-row) and reports how many rows are real, as in the JAX
+package.  ``device_prefetch`` stands in for the JAX feed: on CUDA it
+copies each batch from pinned host memory on a side stream, a few
+batches ahead of the consumer, so the copies overlap the forward.
+Chunked dispatch, the int8 feed and mesh sharding are not ported.
+"""
+
+from __future__ import annotations
+
+import collections
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+__all__ = ["batch_iterator", "pad_batch_to", "to_device", "device_prefetch"]
+
+Item = tuple[list, dict, int]  # (question_ids, batch, real row count)
+
+
+def pad_batch_to(batch: dict, size: int) -> tuple[dict, int]:
+    """Pad every array's leading axis to ``size`` by repeating the last
+    row; returns (padded batch, original length)."""
+    n = next(iter(batch.values())).shape[0]
+    if n == size:
+        return batch, n
+    if n > size:
+        raise ValueError(f"batch {n} larger than pad target {size}")
+    reps = np.concatenate([np.arange(n), np.full(size - n, n - 1, dtype=np.int64)])
+    return {k: np.asarray(v)[reps] for k, v in batch.items()}, n
+
+
+def batch_iterator(encoded, batch_size: int) -> Iterator[Item]:
+    """Yield ``(question_ids, host_batch, real_count)`` in dataset order,
+    the final batch padded to ``batch_size``."""
+    for start in range(0, len(encoded), batch_size):
+        idx = np.arange(start, min(start + batch_size, len(encoded)))
+        qids = [encoded.question_ids[i] for i in idx]
+        batch = encoded.gather_batch(idx)
+        real = len(idx)
+        if real < batch_size:
+            batch, real = pad_batch_to(batch, batch_size)
+        yield qids, batch, real
+
+
+def to_device(batch: dict, device: torch.device | str) -> dict:
+    """numpy batch -> tensors on ``device`` (synchronous)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+_PREFETCH_DEPTH = 2  # batches in flight on the copy stream
+
+
+def device_prefetch(items: Iterable[Item], device: torch.device | str) -> Iterator[Item]:
+    """Move each item's batch to ``device``, two batches ahead.
+
+    On CUDA the host arrays are pinned and copied with ``non_blocking``
+    on a side stream; the consumer's stream waits on each batch's copy
+    before it gets the tensors (and ``record_stream`` keeps the caching
+    allocator from reusing them early).  Elsewhere it copies in line."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for qids, batch, real in items:
+            yield qids, to_device(batch, device), real
+        return
+
+    copy_stream = torch.cuda.Stream(device)
+
+    def issue(item):
+        qids, batch, real = item
+        with torch.cuda.stream(copy_stream):
+            dev = {
+                k: torch.from_numpy(np.ascontiguousarray(v))
+                .pin_memory()
+                .to(device, non_blocking=True)
+                for k, v in batch.items()
+            }
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return qids, dev, real, done
+
+    it = iter(items)
+    pending = collections.deque()
+    for item in it:
+        pending.append(issue(item))
+        if len(pending) >= _PREFETCH_DEPTH:
+            break
+    while pending:
+        qids, dev, real, done = pending.popleft()
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        for t in dev.values():
+            t.record_stream(consumer)
+        nxt = next(it, None)
+        if nxt is not None:
+            pending.append(issue(nxt))
+        yield qids, dev, real

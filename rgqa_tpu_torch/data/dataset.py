@@ -1,0 +1,134 @@
+"""GQA / RGQA question splits and encoded arrays: a numpy-only copy of
+``GQADataset`` and ``EncodedGQA`` from ``rgqa_tpu/data/dataset.py``.
+
+A copy, because ``rgqa_tpu/data/dataset.py`` imports flax (through
+``models.uniter`` for UNITER's box transform) and ``rgqa_tpu.data``'s
+``__init__`` imports jax; the port runs where they are absent.  Only the
+lxmert branch is here: questions tokenized once into (N, T) int32
+arrays and boxes normalized to [0, 1] (``norm4``).  The UNITER, BUTD,
+caption, ViLT-pixel and TreeMix-parse branches and the training targets
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer
+from rgqa_tpu_torch.data.tsv import PackedFeatures
+
+__all__ = ["GQADataset", "EncodedGQA", "UQ_ANSWER", "MAX_LABELS"]
+
+UQ_ANSWER = "UQ"
+MAX_LABELS = 8
+
+
+class GQADataset:
+    """Question splits + answer vocabulary.
+
+    ``splits`` is a comma-separated list; each resolves to
+    ``<root>/<split>.json`` holding rows
+    ``{img_id, question_id, sent[, label: {ans: score}]}``.  ``add_uq``
+    appends the ``'UQ'`` answer as the last class.
+    """
+
+    def __init__(self, root: str, splits: str, *, add_uq: bool = False):
+        self.name = splits
+        self.splits = splits.split(",")
+        self.data: list[dict] = []
+        for split in self.splits:
+            with open(os.path.join(root, f"{split}.json")) as f:
+                self.data.extend(json.load(f))
+        self.id2datum = {d["question_id"]: d for d in self.data}
+
+        with open(os.path.join(root, "trainval_ans2label.json")) as f:
+            self.ans2label: dict[str, int] = json.load(f)
+        with open(os.path.join(root, "trainval_label2ans.json")) as f:
+            self.label2ans: list[str] = json.load(f)
+        if len(self.ans2label) != len(self.label2ans):
+            raise ValueError(f"answer vocab files under {root!r} disagree in length")
+
+        if add_uq and UQ_ANSWER not in self.ans2label:
+            self.ans2label = dict(self.ans2label)
+            self.ans2label[UQ_ANSWER] = len(self.ans2label)
+            self.label2ans = list(self.label2ans) + [UQ_ANSWER]
+        self.num_answers = len(self.ans2label)
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    @property
+    def qid2label(self) -> dict:
+        return {d["question_id"]: d.get("label", {}) for d in self.data}
+
+
+class EncodedGQA:
+    """A dataset encoded into fixed-shape arrays (lxmert inputs).
+
+    Fields: ``question_ids`` (list[str]); ``input_ids / input_mask /
+    segment_ids`` (N, T) int32; ``img_row`` (N,) int32 into the feature
+    pack; ``label_idx`` (N, MAX_LABELS) int32 (-1 = empty) and
+    ``label_score`` (N, MAX_LABELS) f32; ``img_boxes`` (images, K, 4)
+    f32, boxes normalized by image size and clipped to [0, 1].
+    """
+
+    def __init__(
+        self,
+        dataset: GQADataset,
+        features: PackedFeatures,
+        *,
+        tokenizer: WordPieceTokenizer,
+        max_text_len: int = 20,
+    ):
+        self.dataset = dataset
+        self.features = features
+        self.num_answers = dataset.num_answers
+
+        # Questions whose image is not in the pack are dropped.
+        data = [d for d in dataset.data if d["img_id"] in features]
+        n = len(data)
+        self.question_ids = [d["question_id"] for d in data]
+        sents = [d.get("sent") or d.get("question", "") for d in data]
+        self.input_ids, self.input_mask, self.segment_ids = tokenizer.encode_batch(
+            sents, max_text_len
+        )
+        self.img_row = np.asarray(
+            [features.index[d["img_id"]] for d in data], np.int32
+        )
+        self.label_idx = np.full((n, MAX_LABELS), -1, np.int32)
+        self.label_score = np.zeros((n, MAX_LABELS), np.float32)
+        for i, d in enumerate(data):
+            j = 0
+            for ans, score in (d.get("label") or {}).items():
+                if ans in dataset.ans2label and j < MAX_LABELS:
+                    self.label_idx[i, j] = dataset.ans2label[ans]
+                    self.label_score[i, j] = score
+                    j += 1
+
+        # Normalized boxes, computed once per pack and shared by every
+        # split encoded over it.
+        cache = getattr(features, "_box_cache", None)
+        if cache is None:
+            sizes = np.asarray(features.sizes, np.float32)  # (N, 2) h, w
+            boxes = np.asarray(features.boxes, np.float32).copy()
+            boxes[:, :, (0, 2)] /= sizes[:, None, 1:2]
+            boxes[:, :, (1, 3)] /= sizes[:, None, 0:1]
+            cache = features._box_cache = np.clip(boxes, 0.0, 1.0)
+        self.img_boxes = cache
+
+    def __len__(self) -> int:
+        return len(self.question_ids)
+
+    def gather_batch(self, idx: np.ndarray) -> dict:
+        """A dense host batch for row indices ``idx``."""
+        rows = self.img_row[idx]
+        return {
+            "input_ids": self.input_ids[idx],
+            "input_mask": self.input_mask[idx],
+            "segment_ids": self.segment_ids[idx],
+            "feats": np.asarray(self.features.features[rows], np.float32),
+            "boxes": self.img_boxes[rows],
+        }
