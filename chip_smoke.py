@@ -8,16 +8,24 @@ nonzero:
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
    TF32 is turned off for matmuls and convolutions.  No CUDA -> exit 1.
-2. build: compiles ``rgqa_tpu_torch/csrc/fused_attention.cu`` for sm_90a
-   (prints the build time and ptxas' resource report).
-3. kernel: the fused-attention kernel against its plain PyTorch version
-   at LXMERT's four attention shapes (20x20, 36x36, 20x36, 36x20; 12
-   heads of 64), batch 256 and 7, with one fully masked row; bounds
-   |kernel - plain| <= 2e-5 in f32 (summation order differs) and
-   <= 3e-2 + 1e-2 |plain| in bf16 (the kernel rounds P to bf16, the plain
-   version keeps it in f32; the relative term is one bf16 step of
-   outputs above 4, which 3e-2 alone does not cover).  Times both with
-   CUDA events.
+2. build: compiles the three sources of ``rgqa_tpu_torch/csrc`` for sm_90a,
+   one nvcc each, side by side (prints each build time and ptxas' report).
+3. kernels: the four attention kernels against their plain PyTorch
+   versions at LXMERT's four attention shapes (20x20, 36x36, 20x36,
+   36x20; 12 heads of 64), batch 256 and 7, with one fully masked row:
+   #1 forward (bound 2e-5 in f32), #3 backward, #4 dropout forward and #5
+   dropout backward at rate 0.1 (bounds 1e-4 in f32; dbias from bf16
+   inputs 1e-3 + 1e-4 |plain|).  bf16 bound: 3e-2 + 1e-2 |plain| (the
+   kernels round P and dS to bf16 where the plain versions keep f32; the
+   relative term is one bf16 step of values above 4).  Rate 0 of #4 / #5
+   equals #1 / #3 bit for bit; ``<g, out> == <dv, v>`` at rate 0.1 in f32
+   (within 2e-3 relative; bf16 rounds P_drop and the output); the
+   mask #4 applies, read out through a one-hot V, equals
+   ``dropout_keep_mask_ref`` bit for bit, and its kept fraction at batch
+   256 is within 5 sigma of (256 - t) / 256.  Per-call CUDA-event times of
+   each kernel, its plain version and the one PyTorch call that computes
+   the same function (``scaled_dot_product_attention``: forward; forward
+   plus backward less forward; with ``dropout_p``), at batch 256.
 4. model: full-width LxmertForGQA (9/5/5 layers x 768, vocab 30522, 1842
    answers, 36 x 2048 RoI features) in bf16 from a seeded generator at
    batch 256 with padded text (random lengths 4-20), once through the
@@ -25,12 +33,25 @@ nonzero:
    logits within 1e-1 of each other while the text mask alone moves them
    by more than 2e-1 (so the bound sees the bias), and forward
    questions/s.
-5. main path: ``python -m rgqa_tpu_torch.cli.evaluate --synthetic --test
-   testdev --scorer msp`` at full width in a temporary directory, with the
-   kernel's launch count reset before and read after.  Checks the
-   prediction JSON (one row per question) and the AUAF / FF95 / FACC
-   metric dict, and re-scores the split through the plain version.
-6. the kernels' JSON line, the nvidia-smi line, and last
+5. evaluate path: ``python -m rgqa_tpu_torch.cli.evaluate --synthetic
+   --test testdev --scorer msp`` at full width in a temporary directory,
+   with the forward kernel's launch count reset before and read after.
+   Checks the prediction JSON and the AUAF / FF95 / FACC metric dict, and
+   re-scores the split through the plain version.
+6. train steps: full-width LxmertForGQA with f32 master weights and bf16
+   compute, ``--batchSize 32`` with RP pairing (64 rows), the same
+   initial weights and the same 4 batches, run through the kernels and
+   through the plain versions (``use_fused=False``), at dropout 0 (34
+   launches of #1 and ``BWD_PER_STEP`` = 32 of #3 per step, none of #4 /
+   #5; losses within ``LOSS_RTOL``) and at dropout 0.1 (34 of #4 and 32
+   of #5 per step).
+   Times ms per step and rows per second of each.
+7. train path: ``python -m rgqa_tpu_torch.cli.train --synthetic
+   --sample_pair --epochs 1 --batchSize 32`` at full width, dropout 0.1
+   (the default): 8 steps, 34 x 8 launches of #4 and 32 x 8 of #5, finite
+   losses, ``BEST.pth`` and ``LAST.pth`` written; then the evaluate CLI
+   scores testdev from ``--load BEST.pth``.
+8. the kernels' JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs the repository beside it; it imports nothing of JAX.
@@ -38,6 +59,7 @@ Needs the repository beside it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -48,10 +70,36 @@ import time
 
 E, HEADS = 768, 12
 SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))  # (Sq, Skv) per LXMERT call kind
-TOL = {"float32": (2e-5, 0.0), "bfloat16": (3e-2, 1e-2)}  # (atol, rtol)
+# (atol, rtol) per kernel and dtype; see the docstring.
+TOL = {
+    ("fused_attention", "float32"): (2e-5, 0.0),
+    ("float32",): (1e-4, 0.0),
+    ("bfloat16",): (3e-2, 1e-2),
+    ("dbias", "bfloat16"): (1e-3, 1e-4),
+}
+RATE = 0.1  # training's attention dropout
 LOGIT_TOL = 1e-1  # bf16 model, kernel vs plain attention in all 34 calls
 CONF_TOL = 3e-2  # MSP confidence, kernel vs plain, same bf16 weights
 MIN_LABEL_AGREEMENT = 0.9
+# Dropout-off training, kernels vs plain versions, relative per step.
+# Both compute in bf16; the kernels round P and dS to bf16 where the plain
+# versions keep f32, which moves the bf16 logits by up to ~5e-2 (phase 4);
+# the BCE loss is the mean over 64 rows of a sum over 1842 answers (~1e3),
+# and such per-logit errors of either sign move it by ~1e-4 relative.
+LOSS_RTOL = 1e-3
+# Attention backward launches per training step: 34 forward calls, but the
+# last cross layer's vision stream (its vis <- lang cross call and its
+# vision self call) feeds nothing the loss reads (the answer head pools the
+# language stream), so autograd runs no backward for those two.
+BWD_PER_STEP = 32
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory
+BF16_FLOP_PER_S = 989e12  # H100 SXM: dense bf16 tensor cores
+KERNELS = {
+    "fused_attention": ("rgqa_tpu_torch/csrc/fused_attention.cu", "rgqa_tpu/ops/attention.py:250"),
+    "fused_attention_bwd": ("rgqa_tpu_torch/csrc/fused_attention_bwd.cu", "rgqa_tpu/ops/attention.py:448"),
+    "fused_attention_dropout": ("rgqa_tpu_torch/csrc/fused_attention_dropout.cu", "rgqa_tpu/ops/attention.py:641"),
+    "fused_attention_dropout_bwd": ("rgqa_tpu_torch/csrc/fused_attention_dropout.cu", "rgqa_tpu/ops/attention.py:691"),
+}
 
 
 def log(phase: str, msg: str) -> None:
@@ -80,6 +128,21 @@ def in_turns(plain, kernel, **kw) -> tuple[float, float]:
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
+def counters():
+    from rgqa_tpu_torch.ops import attention as att
+
+    return {name: getattr(att, f"{name}_cuda") for name in KERNELS}
+
+
+def reset_counts() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
 def phase_device():
     import torch
 
@@ -98,22 +161,29 @@ def phase_device():
 
 
 def phase_build():
-    from rgqa_tpu_torch.ops._build import NVCC_FLAGS, build
+    from rgqa_tpu_torch.ops._build import NVCC_FLAGS, SOURCES, build_all
 
-    res = build("fused_attention")
-    how = f"built in {res.seconds:.3f} s" if res.seconds else "reused an existing build of this source"
-    log("build", f"rgqa_tpu_torch/csrc/fused_attention.cu -> {res.path.name}: {how} "
+    t0 = time.perf_counter()
+    results = build_all(SOURCES)
+    log("build", f"{len(results)} sources in {time.perf_counter() - t0:.3f} s, side by side "
         f"(nvcc {' '.join(NVCC_FLAGS)})")
-    for line in res.log.splitlines():
-        if line.strip():
-            log("build", line.strip())
-    return res
+    for name, res in results.items():
+        how = f"built in {res.seconds:.3f} s" if res.seconds else "reused an existing build of this source"
+        log("build", f"rgqa_tpu_torch/csrc/{name}.cu -> {res.path.name}: {how}")
+        for line in res.log.splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill", "rror")):
+                log("build", "  " + line.strip())
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels.
+# ---------------------------------------------------------------------------
 
 
 def _attention_inputs(b, sq, skv, dtype, gen):
     """q/k/v as the model makes them: column views of one fused QKV
-    product (self-attention) or of a KV product (cross-attention), and a
-    (B, Skv) -10000 mask with one fully masked row."""
+    product (self-attention) or of a KV product (cross-attention), an
+    output gradient, and a (B, Skv) -10000 mask with one fully masked row."""
     import torch
 
     dev = "cuda"
@@ -122,49 +192,191 @@ def _attention_inputs(b, sq, skv, dtype, gen):
     else:
         q = torch.randn(b, sq, E, generator=gen, device=dev).to(dtype)
         k, v = torch.randn(b, skv, 2 * E, generator=gen, device=dev).to(dtype).split(E, -1)
+    g = torch.randn(b, sq, E, generator=gen, device=dev).to(dtype)
     mask = (torch.rand(b, skv, generator=gen, device=dev) > 0.25).float()
     mask[:, 0] = 1.0
     mask[b // 2] = 0.0  # a fully masked row stays finite
-    return q, k, v, (1.0 - mask) * -10000.0
+    return q, k, v, g, (1.0 - mask) * -10000.0
 
 
-def phase_kernel():
+def _bound_ms(name: str, b: int, sq: int, skv: int, itemsize: int) -> tuple[float, str]:
+    """The least time the card needs for one call: each input read once,
+    each output written once, over the memory rate, against the products'
+    flops over the bf16 tensor-core rate."""
+    d = E // HEADS
+    act = b * (2 * sq + 2 * skv) * E * itemsize  # q, k, v, out (forward)
+    mask = b * skv * 4
+    if name.endswith("bwd"):
+        nbytes = b * (3 * sq + 4 * skv) * E * itemsize + 2 * mask  # + g, dq, dk, dv; bias, dbias
+        flops = 10 * b * HEADS * sq * skv * d  # S, dP, dV, dQ, dK
+    else:
+        nbytes = act + mask
+        flops = 4 * b * HEADS * sq * skv * d  # S, PV
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def _sdpa_calls(q, k, v, g, bias):
+    """The one PyTorch call for each kernel's function, on (B, H, S, D)
+    views: forward, forward + backward, and both with dropout."""
+    import torch
+    import torch.nn.functional as F
+
+    def heads(t):
+        return t.view(t.shape[0], t.shape[1], HEADS, E // HEADS).transpose(1, 2)
+
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    mask = bias.to(q.dtype)[:, None, None, :]
+    gh = heads(g)
+
+    def fwd(p=0.0, grad=False):
+        with torch.set_grad_enabled(grad):
+            return F.scaled_dot_product_attention(*(heads(t) for t in leaves), attn_mask=mask, dropout_p=p)
+
+    def fwd_bwd(p=0.0):
+        return torch.autograd.grad(fwd(p, grad=True), leaves, gh)
+
+    return {
+        "fwd": lambda: fwd(),
+        "fwd_bwd": lambda: fwd_bwd(),
+        "drop": lambda: fwd(RATE),
+        "drop_fwd_bwd": lambda: fwd_bwd(RATE),
+    }
+
+
+def _tol(name: str, part: str, dname: str) -> tuple[float, float]:
+    if part == "dbias":
+        return TOL[("dbias", "bfloat16")] if dname == "bfloat16" else TOL[("float32",)]
+    return TOL.get((name, dname), TOL[(dname,)])
+
+
+def _compare(name, dtype, got, want, errs) -> str:
+    """Raise unless the kernel's outputs are within their bounds of the
+    plain version's; record the worst output error; describe them."""
+    import torch
+
+    dname = str(dtype).split(".")[1]
+    parts = ("dq", "dk", "dv", "dbias") if isinstance(got, tuple) else ("out",)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    msgs = []
+    for part, (a, w) in zip(parts, pairs):
+        atol, rtol = _tol(name, part, dname)
+        if not torch.isfinite(a.float()).all():
+            raise AssertionError(f"{name} {part} not finite")
+        diff = (a.float() - w.float()).abs()
+        err = diff.max().item()
+        if part != "dbias":
+            errs[(name, dname)] = max(errs.get((name, dname), 0.0), err)
+        msgs.append(f"{part} {err:.3e}")
+        if not bool((diff <= atol + rtol * w.float().abs()).all()):
+            raise AssertionError(
+                f"{name} {dname} {part}: max|kernel-plain| {err:.3e} over {atol} + {rtol}|plain|")
+    return f"{name} " + ", ".join(msgs)
+
+
+def _mask_readout(att, gen):
+    """#4's mask, read through q = k = 0 (uniform P) and a one-hot V:
+    out[b, i, h*D + j] = keep(b, h, i, j) * scale / Skv."""
+    import torch
+
+    b, s, d = 256, 36, E // HEADS
+    zeros = torch.zeros(b, s, E, device="cuda")
+    v = torch.zeros(b, s, HEADS, d, device="cuda")
+    v[:, torch.arange(s), :, torch.arange(s)] = 1.0
+    v = v.reshape(b, s, E)
+    bias = torch.zeros(b, s, device="cuda")
+    seed = int(torch.randint(0, 2**62, (), generator=gen, device="cuda"))
+    out = att.fused_attention_dropout_cuda(zeros, zeros, v, bias, HEADS, RATE, seed)
+    got = out.reshape(b, s, HEADS, d)[..., :s].permute(0, 2, 1, 3) > 0
+    want = att.dropout_keep_mask_ref(seed, b, HEADS, s, s, RATE, device="cuda")
+    if not torch.equal(got, want):
+        raise AssertionError(f"#4's mask differs from dropout_keep_mask_ref in {int((got != want).sum())} places")
+    t = round(RATE * 256)
+    keep_p = (256 - t) / 256
+    frac = got.float().mean().item()
+    sigma = math.sqrt(keep_p * (1 - keep_p) / got.numel())
+    log("kernels", f"fused_attention_dropout mask (B=256, 36x36, seed {seed}) equals "
+        f"dropout_keep_mask_ref bit for bit; kept fraction {frac:.6f} vs {keep_p:.6f} "
+        f"({abs(frac - keep_p) / sigma:.2f} sigma, want < 5)")
+    if abs(frac - keep_p) >= 5 * sigma:
+        raise AssertionError("kept fraction outside 5 sigma")
+
+
+def phase_kernels():
     import torch
     from rgqa_tpu_torch.ops import attention as att
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    worst = {}
-    times = {}
+    errs, times = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for b in (256, 7):
             for sq, skv in SHAPES:
-                q, k, v, bias = _attention_inputs(b, sq, skv, dtype, gen)
-                out = att.fused_attention_cuda(q, k, v, bias, HEADS)
-                ref = att.attention_natural_ref(q, k, v, bias, HEADS)
-                torch.cuda.synchronize()
-                if out.shape != ref.shape or out.dtype != dtype:
-                    raise AssertionError(f"kernel output {out.shape} {out.dtype} vs {ref.shape}")
-                if not torch.isfinite(out).all():
-                    raise AssertionError(f"kernel output not finite at {dname} B={b} {sq}x{skv}")
-                diff = (out.float() - ref.float()).abs()
-                atol, rtol = TOL[dname]
-                err = diff.max().item()
-                ok = bool((diff <= atol + rtol * ref.float().abs()).all())
-                worst[dname] = max(worst.get(dname, 0.0), err)
-                msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| = {err:.3e} "
-                       f"(bound {atol:.0e} + {rtol:.0e}|plain|: {'ok' if ok else 'EXCEEDED'})")
-                if b == 256:
-                    plain_ms, kernel_ms = in_turns(
-                        lambda: att.attention_natural_ref(q, k, v, bias, HEADS),
+                q, k, v, g, bias = _attention_inputs(b, sq, skv, dtype, gen)
+                seed = int(torch.randint(0, 2**62, (), generator=gen, device="cuda"))
+                calls = {
+                    "fused_attention": (
                         lambda: att.fused_attention_cuda(q, k, v, bias, HEADS),
+                        lambda: att.attention_natural_ref(q, k, v, bias, HEADS)),
+                    "fused_attention_bwd": (
+                        lambda: att.fused_attention_bwd_cuda(q, k, v, bias, g, HEADS),
+                        lambda: att.attention_bwd_ref(q, k, v, bias, g, HEADS)),
+                    "fused_attention_dropout": (
+                        lambda: att.fused_attention_dropout_cuda(q, k, v, bias, HEADS, RATE, seed),
+                        lambda: att.attention_dropout_ref(q, k, v, bias, HEADS, RATE, seed)),
+                    "fused_attention_dropout_bwd": (
+                        lambda: att.fused_attention_dropout_bwd_cuda(q, k, v, bias, g, HEADS, RATE, seed),
+                        lambda: att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS, RATE, seed)),
+                }
+                msgs = []
+                for name, (kernel, plain) in calls.items():
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    msgs.append(_compare(name, dtype, got, want, errs))
+                # Rate 0 is the deterministic pair, bit for bit.
+                fwd0 = att.fused_attention_dropout_cuda(q, k, v, bias, HEADS, 0.0, seed)
+                bwd0 = att.fused_attention_dropout_bwd_cuda(q, k, v, bias, g, HEADS, 0.0, seed)
+                if not torch.equal(fwd0, calls["fused_attention"][0]()) or not all(
+                    torch.equal(a, c) for a, c in zip(bwd0, calls["fused_attention_bwd"][0]())
+                ):
+                    raise AssertionError(f"rate 0 of #4/#5 differs from #1/#3 at {dname} B={b} {sq}x{skv}")
+                msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + "; ".join(msgs)
+                       + "; rate 0 == #1/#3")
+                if dtype == torch.float32:
+                    # The backward replays the forward's mask: <g, out> ==
+                    # <dv, v> (in f32: bf16 rounds P_drop and out).
+                    out = calls["fused_attention_dropout"][0]()
+                    dv = calls["fused_attention_dropout_bwd"][0]()[2]
+                    lhs = (out.double() * g.double()).sum().item()
+                    rhs = (dv.double() * v.double()).sum().item()
+                    if not abs(lhs - rhs) <= 2e-3 * abs(lhs):
+                        raise AssertionError(f"<g, out> {lhs} != <dv, v> {rhs} at {dname} B={b} {sq}x{skv}")
+                    msg += f"; <g,out>/<dv,v> - 1 = {lhs / rhs - 1:.1e}"
+                if b == 256:
+                    lib = _sdpa_calls(q, k, v, g, bias)
+                    library = {
+                        "fused_attention": cuda_ms(lib["fwd"]),
+                        "fused_attention_bwd": cuda_ms(lib["fwd_bwd"]) - cuda_ms(lib["fwd"]),
+                        "fused_attention_dropout": cuda_ms(lib["drop"]),
+                        "fused_attention_dropout_bwd": cuda_ms(lib["drop_fwd_bwd"]) - cuda_ms(lib["drop"]),
+                    }
+                    for name, (kernel, plain) in calls.items():
+                        plain_ms, kernel_ms = in_turns(plain, kernel)
+                        bound, _ = _bound_ms(name, b, sq, skv, q.element_size())
+                        times[(name, dname, sq, skv)] = (kernel_ms, plain_ms, library[name], bound)
+                    msg += "; us kernel/plain/library/bound: " + ", ".join(
+                        f"{n.replace('fused_attention', '#')} " + "/".join(
+                            f"{x * 1e3:.1f}" for x in times[(n, dname, sq, skv)])
+                        for n in calls
                     )
-                    times[(dname, sq, skv)] = (kernel_ms, plain_ms)
-                    msg += f"; kernel {kernel_ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
-                log("kernel", msg)
-                if not ok:
-                    raise AssertionError(f"kernel disagrees with plain: {msg}")
-    return worst, times
+                log("kernels", msg)
+    _mask_readout(att, gen)
+    return errs, times
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-5: the forward and the evaluate path (slice 1).
+# ---------------------------------------------------------------------------
 
 
 def _padded_text(batch: dict, seed: int = 1) -> dict:
@@ -239,13 +451,32 @@ def phase_model():
         f"plain attention {plain_ms:.3f} ms ({qps_p:.1f} q/s)")
     del model, forward, batch, unmasked, out_k, out_p
     torch.cuda.empty_cache()
-    return qps_k, qps_p
+
+
+def _check_eval_outputs(phase, out_dir, root, results, argv, seconds, launches):
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    with open(os.path.join(out_dir, "testdev_predict.json")) as f:
+        preds = json.load(f)
+    ds = GQADataset(root, "testdev", add_uq=True)
+    log(phase, f"evaluate CLI ({' '.join(argv)}) in {seconds:.2f} s: "
+        f"{len(preds)} predictions for {len(ds)} questions, {launches} forward kernel launches")
+    if launches <= 0:
+        raise AssertionError("the evaluate path never launched the attention kernel")
+    if sorted(p["questionId"] for p in preds) != sorted(d["question_id"] for d in ds.data):
+        raise AssertionError("prediction JSON does not hold one row per question")
+    if not all(0.0 <= p["confidence"] <= 1.0 and p["prediction"] in ds.label2ans for p in preds):
+        raise AssertionError("prediction JSON holds an invalid confidence or answer")
+    for key in ("auaf", "fpr@0.95acc", "full_acc"):
+        if not isinstance(results.get(key), float) or math.isnan(results[key]):
+            raise AssertionError(f"metric {key} missing or NaN: {results}")
+    log(phase, "metrics: " + ", ".join(f"{k} {results[k]:.6f}" for k in ("auaf", "fpr@0.95acc", "full_acc")))
+    return ds, preds
 
 
 def phase_main_path():
     import torch
     from rgqa_tpu_torch.cli import evaluate
-    from rgqa_tpu_torch.data.dataset import GQADataset
     from rgqa_tpu_torch.ops import attention as att
     from rgqa_tpu_torch.runner import GQARunner
     from rgqa_tpu_torch.scorers.core import make_msp_scorer
@@ -254,31 +485,20 @@ def phase_main_path():
         root, out_dir = os.path.join(tmp, "gqa"), os.path.join(tmp, "out")
         argv = ["--synthetic", "--data_root", root, "--test", "testdev",
                 "--scorer", "msp", "--output", out_dir]
-        att.fused_attention_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         results = evaluate.main(argv)["testdev"]
         seconds = time.perf_counter() - t0
-        launches = att.fused_attention_cuda.launches
-
-        with open(os.path.join(out_dir, "testdev_predict.json")) as f:
-            preds = json.load(f)
-        ds = GQADataset(root, "testdev", add_uq=True)
-        log("main", f"evaluate CLI ({' '.join(argv)}) in {seconds:.2f} s: "
-            f"{len(preds)} predictions for {len(ds)} questions, {launches} kernel launches")
-        if launches <= 0:
-            raise AssertionError("the main path never launched the attention kernel")
-        if sorted(p["questionId"] for p in preds) != sorted(d["question_id"] for d in ds.data):
-            raise AssertionError("prediction JSON does not hold one row per question")
-        if not all(0.0 <= p["confidence"] <= 1.0 and p["prediction"] in ds.label2ans for p in preds):
-            raise AssertionError("prediction JSON holds an invalid confidence or answer")
-        for key in ("auaf", "fpr@0.95acc", "full_acc"):
-            if not isinstance(results.get(key), float) or math.isnan(results[key]):
-                raise AssertionError(f"metric {key} missing or NaN: {results}")
-        log("main", "metrics: " + ", ".join(f"{k} {results[k]:.6f}" for k in ("auaf", "fpr@0.95acc", "full_acc")))
+        launches = read_counts()
+        ds, preds = _check_eval_outputs("main", out_dir, root, results, argv, seconds,
+                                        launches["fused_attention"])
+        if any(n for name, n in launches.items() if name != "fused_attention"):
+            raise AssertionError(f"the evaluate path launched a training kernel: {launches}")
 
         # Reference on the same split: the same runner and weights, with
         # every attention call through the plain version.
-        runner = GQARunner(evaluate.parse_args(argv[:-1] + [os.path.join(tmp, "plain")]))
+        cfg, device = evaluate.parse_args(argv[:-1] + [os.path.join(tmp, "plain")])
+        runner = GQARunner(cfg, init_train=False, device=device)
         plain_forward = lambda batch: runner.forward(batch, use_fused=False)  # noqa: E731
         plain = runner.score_split(runner._encode(ds), scorer=make_msp_scorer(plain_forward))
         by_qid = {p["questionId"]: p for p in preds}
@@ -286,11 +506,164 @@ def phase_main_path():
         dconf = max(abs(by_qid[q]["confidence"] - c) for q, (_, c) in plain.items())
         log("main", f"vs plain attention: labels agree on {agree:.4f} of questions "
             f"(want >= {MIN_LABEL_AGREEMENT}), max|confidence diff| {dconf:.3e} (bound {CONF_TOL:.0e})")
-        if att.fused_attention_cuda.launches != launches:
+        if att.fused_attention_cuda.launches != launches["fused_attention"]:
             raise AssertionError("the plain re-scoring launched the kernel")
         if agree < MIN_LABEL_AGREEMENT or not dconf <= CONF_TOL:
             raise AssertionError("main-path output disagrees with the plain version")
         del runner
+        torch.cuda.empty_cache()
+    return launches["fused_attention"]
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-7: training (slice 2).
+# ---------------------------------------------------------------------------
+
+
+def _train_batches(cfg, n: int, b: int = 32):
+    """``n`` full-width batches with padded text and one-hot targets."""
+    import numpy as np
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.models.zoo import example_batch
+
+    out = []
+    for i in range(n):
+        batch = _padded_text(example_batch(cfg, b, seed=10 + i), seed=20 + i)
+        rng = np.random.default_rng(30 + i)
+        target = np.zeros((b, cfg.num_answers), np.float32)
+        target[np.arange(b), rng.integers(0, cfg.num_answers, b)] = 1.0
+        batch.update(target=target, id_mask=np.ones(b, np.float32))
+        out.append(to_device(batch, "cuda"))
+    return out
+
+
+def _train_model(dropout: float):
+    import torch
+    from rgqa_tpu_torch.models.zoo import build_model, default_config
+
+    cfg = default_config()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, hidden_dropout=dropout, attention_dropout=dropout))
+    model, forward = build_model(
+        cfg, use_bf16=True, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0), train=True,
+    )
+    return cfg, model, forward
+
+
+def _run_steps(model, forward, init, batches, use_fused, steps=None):
+    """Steps from ``init`` with a fresh BertAdam; (losses, ms per step of
+    the steps after the first ``len(batches)``)."""
+    import torch
+    from rgqa_tpu_torch.config import OptimConfig
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+    from rgqa_tpu_torch.train.step import make_train_step
+
+    model.load_state_dict(init)
+    steps = steps or len(batches)
+    opt = make_optimizer(OptimConfig(), model.parameters(), t_total=steps)
+    rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
+                     host=torch.Generator().manual_seed(1))
+    step = make_train_step(forward, opt, sample_pair=True, rng=rng, use_fused=use_fused)
+    losses = [step(batch)["loss"] for batch in batches]
+    torch.cuda.synchronize()
+    ms = None
+    if steps > len(batches):
+        t0 = time.perf_counter()
+        for i in range(steps - len(batches)):
+            step(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (steps - len(batches))
+    return [float(x) for x in losses], ms
+
+
+def phase_train_steps():
+    import torch
+
+    n, timed = 4, 10
+    rows = 64  # batch 32 plus its 32 RP pairs
+    result = {}
+    for dropout in (0.0, RATE):
+        cfg, model, forward = _train_model(dropout)
+        batches = _train_batches(cfg, n)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        reset_counts()
+        k_losses, _ = _run_steps(model, forward, init, batches, None)
+        counts = read_counts()
+        p_losses, _ = _run_steps(model, forward, init, batches, False)
+        if read_counts() != counts:
+            raise AssertionError("the plain steps launched a kernel")
+        per_step = {name: c / n for name, c in counts.items()}
+        want = ({"fused_attention": 34, "fused_attention_bwd": BWD_PER_STEP,
+                 "fused_attention_dropout": 0, "fused_attention_dropout_bwd": 0}
+                if dropout == 0.0 else
+                {"fused_attention": 0, "fused_attention_bwd": 0,
+                 "fused_attention_dropout": 34, "fused_attention_dropout_bwd": BWD_PER_STEP})
+        rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
+        if not all(math.isfinite(x) for x in k_losses + p_losses):
+            raise AssertionError(f"non-finite losses {k_losses} {p_losses}")
+        # Time in turns: plain, kernels, kernels, plain.
+        t = [_run_steps(model, forward, init, batches, fused, n + timed)[1]
+             for fused in (False, None, None, False)]
+        plain_ms, kernel_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        log("train", f"dropout {dropout}: batch 32 + RP ({rows} rows), 4 steps from one init: "
+            f"launches per step {per_step}; losses kernels {[round(x, 4) for x in k_losses]}, "
+            f"plain {[round(x, 4) for x in p_losses]}, max relative gap {max(rel):.3e}"
+            + (f" (bound {LOSS_RTOL:.0e})" if dropout == 0.0 else " (same masks: the same seeds and bytes)"))
+        log("train", f"dropout {dropout}: ms per step (mean of {timed} after 4 warm-up, in turns) "
+            f"kernels {kernel_ms:.3f} ({rows * 1e3 / kernel_ms:.1f} rows/s), plain {plain_ms:.3f} "
+            f"({rows * 1e3 / plain_ms:.1f} rows/s)")
+        if per_step != want:
+            raise AssertionError(f"launches per step {per_step}, want {want}")
+        if dropout == 0.0 and not max(rel) <= LOSS_RTOL:
+            raise AssertionError(f"dropout-off losses of the kernels and the plain versions differ by {max(rel)}")
+        result[dropout] = (counts, kernel_ms, plain_ms)
+        del model, forward, batches, init
+        torch.cuda.empty_cache()
+    return result
+
+
+def phase_train_path():
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.cli import train as train_cli
+
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_train_") as tmp:
+        root, out_dir = os.path.join(tmp, "gqa"), os.path.join(tmp, "snap")
+        argv = ["--synthetic", "--data_root", root, "--sample_pair", "--epochs", "1",
+                "--batchSize", "32", "--output", out_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        history = train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(out_dir, "log.log")) as f:
+            epoch_line = f.read().strip().splitlines()[0]
+        log("train", f"train CLI ({' '.join(argv)}) in {seconds:.2f} s: history {history}; "
+            f"launches {launches}; log.log: {epoch_line!r}")
+        steps = 256 // 32
+        for name, per_step in (("fused_attention_dropout", 34),
+                               ("fused_attention_dropout_bwd", BWD_PER_STEP)):
+            if launches[name] != per_step * steps:
+                raise AssertionError(f"{name}: {launches[name]} launches, want {per_step} x {steps}")
+        if launches["fused_attention_bwd"]:
+            raise AssertionError("the dropout-on train path launched the deterministic backward")
+        if not all(math.isfinite(x) for x in history["loss"]):
+            raise AssertionError(f"non-finite training loss {history['loss']}")
+        for name in ("BEST.pth", "LAST.pth", "LAST.state.pt"):
+            if not os.path.isfile(os.path.join(out_dir, name)):
+                raise AssertionError(f"the train CLI wrote no {name}")
+
+        eval_dir = os.path.join(tmp, "eval")
+        eargv = ["--synthetic", "--data_root", root, "--test", "testdev", "--load",
+                 os.path.join(out_dir, "BEST.pth"), "--output", eval_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        results = evaluate.main(eargv)["testdev"]
+        _check_eval_outputs("train", eval_dir, root, results, eargv, time.perf_counter() - t0,
+                            read_counts()["fused_attention"])
         torch.cuda.empty_cache()
     return launches
 
@@ -301,24 +674,37 @@ def main() -> None:
     import torch
 
     phase_build()
-    worst, times = phase_kernel()
+    errs, times = phase_kernels()
     phase_model()
-    launches = phase_main_path()
+    eval_launches = phase_main_path()
+    steps = phase_train_steps()
+    train_launches = phase_train_path()
 
-    bf16 = [times[("bfloat16", sq, skv)] for sq, skv in SHAPES]
-    kernels = {"kernels": [{
-        "name": "fused_attention",
-        "route": "cuda",
-        "source": "rgqa_tpu_torch/csrc/fused_attention.cu",
-        "replaces": "rgqa_tpu/ops/attention.py:250",
-        "launches": launches,
-        # Worst bf16 disagreement over the 4 shapes x batch 256 and 7.
-        "max_abs_err": worst["bfloat16"],
-        # One call at each of the 4 shapes, batch 256, bf16 (CUDA events).
-        "ms": sum(k for k, _ in bf16),
-        "plain_ms": sum(p for _, p in bf16),
-    }]}
-    print(json.dumps(kernels))
+    launches = {
+        "fused_attention": eval_launches,  # the evaluate path
+        "fused_attention_bwd": steps[0.0][0]["fused_attention_bwd"],  # dropout-off steps
+        "fused_attention_dropout": train_launches["fused_attention_dropout"],  # the train CLI
+        "fused_attention_dropout_bwd": train_launches["fused_attention_dropout_bwd"],
+    }
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        # One bf16 call at each of the 4 shapes, batch 256 (CUDA events).
+        per_shape = [times[(name, "bfloat16", sq, skv)] for sq, skv in SHAPES]
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            # Worst bf16 disagreement over the 4 shapes x batch 256 and 7.
+            "max_abs_err": errs[(name, "bfloat16")],
+            "ms": sum(t[0] for t in per_shape),
+            "plain_ms": sum(t[1] for t in per_shape),
+            "bound_ms": sum(t[3] for t in per_shape),
+            "bound_by": _bound_ms(name, 256, 36, 36, 2)[1],
+            "library_ms": sum(t[2] for t in per_shape),
+        })
+    print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,9 +6,9 @@ a port key by a plain rename (:func:`port_key`): path components joined
 with dots, the stacked ``lang_i`` / ``visn_i`` / ``x_i`` layers as
 ``lang_layers.i`` / ``visn_layers.i`` / ``x_layers.i``, and the leaves
 ``kernel`` / ``scale`` / ``embedding`` as ``weight``.  Which paths exist
-comes from ``rgqa_tpu.checkpoint.torch_import.lxmert_key_map``, the JAX
-package's importer, read in reverse; flax kernels are (in, out) and
-transpose to ``nn.Linear``'s (out, in).
+comes from :func:`rgqa_tpu_torch.checkpoint.torch_import.lxmert_key_map`
+(a copy of the JAX package's importer key map), read in reverse; flax
+kernels are (in, out) and transpose to ``nn.Linear``'s (out, in).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from rgqa_tpu.checkpoint.torch_import import load_torch_state_dict, lxmert_key_map
+from rgqa_tpu_torch.checkpoint.torch_import import load_torch_state_dict, lxmert_key_map
 
 __all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict"]
 
@@ -105,8 +105,8 @@ def load_reference_pth(
     path: str, *, l_layers: int = 9, x_layers: int = 5, r_layers: int = 5
 ) -> tuple[dict[str, torch.Tensor], list[str], list[str]]:
     """Load a reference GQA-LXMERT ``.pth`` (``lxrt_encoder.model.bert.*``
-    + ``logit_fc.*``) through the JAX package's ``load_torch_state_dict``
-    (``module.`` strip, gamma/beta renames).  Torch Linear weights are
+    + ``logit_fc.*``) through ``load_torch_state_dict`` (``module.``
+    strip, gamma/beta renames).  Torch Linear weights are
     already (out, in), so nothing transposes.  Returns (state_dict,
     missing reference keys, unused reference keys)."""
     ref = load_torch_state_dict(path)

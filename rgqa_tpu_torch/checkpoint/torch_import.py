@@ -1,0 +1,144 @@
+"""Reference checkpoint key names: a copy of the two pieces of the JAX
+package's ``rgqa_tpu/checkpoint/torch_import.py`` that the port uses.
+
+- :func:`load_torch_state_dict` reads a reference ``.pth`` with the
+  reference's own loading quirks: the ``module.`` DataParallel prefix
+  strip (``src/tasks/gqa.py:259-265``) and the ``gamma``/``beta`` ->
+  LayerNorm weight/bias renames (``src/lxrt/modeling.py:792-801``).
+- :func:`lxmert_key_map` lists every GQA-LXMERT parameter as (reference
+  torch key, flax path, transpose?).  Its layout follows
+  ``src/lxrt/modeling.py`` (BertAttention 295-347, BertAttOutput 350-362,
+  LXRTXLayer 439-488, VisualFeatEncoder 491-517) and
+  ``src/tasks/gqa_model.py:20-27`` (``logit_fc.{0,2,3}``).
+
+``tests/test_torch_port_rules.py`` holds both to their originals.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["load_torch_state_dict", "lxmert_key_map"]
+
+
+def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
+    """Load a ``.pth`` state_dict to numpy, applying the reference's
+    ``module.`` strip and gamma/beta renames."""
+    import torch
+
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(raw, dict) and "state_dict" in raw and not any(
+        hasattr(v, "numpy") for v in raw.values()
+    ):
+        raw = raw["state_dict"]
+    out = {}
+    for key, value in raw.items():
+        if key.startswith("module."):
+            key = key[len("module."):]
+        key = key.replace(".gamma", ".weight").replace(".beta", ".bias")
+        out[key] = value.detach().cpu().numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Key maps.  Each entry: torch key -> (flax path tuple, transpose?).
+# ---------------------------------------------------------------------------
+
+
+def _dense(tkey: str, fpath: tuple) -> list:
+    return [
+        (f"{tkey}.weight", fpath + ("kernel",), True),
+        (f"{tkey}.bias", fpath + ("bias",), False),
+    ]
+
+
+def _ln(tkey: str, fpath: tuple) -> list:
+    return [
+        (f"{tkey}.weight", fpath + ("scale",), False),
+        (f"{tkey}.bias", fpath + ("bias",), False),
+    ]
+
+
+def _bert_layer(tprefix: str, fprefix: tuple) -> list:
+    """One BertLayer: attention.self/output + intermediate + output."""
+    m = []
+    for name in ("query", "key", "value"):
+        m += _dense(f"{tprefix}.attention.self.{name}", fprefix + ("att", name))
+    m += _dense(f"{tprefix}.attention.output.dense", fprefix + ("att", "out"))
+    m += _ln(f"{tprefix}.attention.output.LayerNorm", fprefix + ("att", "out_ln"))
+    m += _dense(f"{tprefix}.intermediate.dense", fprefix + ("mlp", "inter"))
+    m += _dense(f"{tprefix}.output.dense", fprefix + ("mlp", "out"))
+    m += _ln(f"{tprefix}.output.LayerNorm", fprefix + ("mlp", "out_ln"))
+    return m
+
+
+def _att_block(tprefix: str, fprefix: tuple, *, self_attr: str) -> list:
+    """A BertCrossattLayer (att/output) or BertSelfattLayer (self/output)."""
+    m = []
+    for name in ("query", "key", "value"):
+        m += _dense(f"{tprefix}.{self_attr}.{name}", fprefix + (name,))
+    m += _dense(f"{tprefix}.output.dense", fprefix + ("out",))
+    m += _ln(f"{tprefix}.output.LayerNorm", fprefix + ("out_ln",))
+    return m
+
+
+def _embeddings(tprefix: str, fprefix: tuple) -> list:
+    m = []
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
+        m.append((f"{tprefix}.{name}.weight", fprefix + (name, "embedding"), False))
+    m += _ln(f"{tprefix}.LayerNorm", fprefix + ("layer_norm",))
+    return m
+
+
+def lxmert_key_map(
+    l_layers: int = 9,
+    x_layers: int = 5,
+    r_layers: int = 5,
+    *,
+    encoder_prefix: str = "bert.",
+    flax_prefix: tuple = ("lxmert",),
+    answer_head: bool = True,
+    branched: bool = False,
+) -> list[tuple[str, tuple, bool]]:
+    """Key map for GQAModel-style checkpoints.
+
+    Torch model layout: ``lxrt_encoder.model.bert.*`` + ``logit_fc.*``
+    (``gqa_model.py:14-43``); pretraining checkpoints use bare ``bert.*``.
+    """
+    p = encoder_prefix
+    f = flax_prefix
+    m: list = []
+    m += _embeddings(f"{p}embeddings", f + ("embeddings",))
+    # VisualFeatEncoder (modeling.py:491-517).
+    m += _dense(f"{p}encoder.visn_fc.visn_fc", f + ("visual", "feat_proj"))
+    m += _ln(f"{p}encoder.visn_fc.visn_layer_norm", f + ("visual", "feat_ln"))
+    m += _dense(f"{p}encoder.visn_fc.box_fc", f + ("visual", "box_proj"))
+    m += _ln(f"{p}encoder.visn_fc.box_layer_norm", f + ("visual", "box_ln"))
+    for i in range(l_layers):
+        m += _bert_layer(f"{p}encoder.layer.{i}", f + (f"lang_{i}",))
+    for i in range(r_layers):
+        m += _bert_layer(f"{p}encoder.r_layers.{i}", f + (f"visn_{i}",))
+    for i in range(x_layers):
+        t = f"{p}encoder.x_layers.{i}"
+        fx = f + (f"x_{i}",)
+        m += _att_block(f"{t}.visual_attention", fx + ("cross_att",), self_attr="att")
+        m += _att_block(f"{t}.lang_self_att", fx + ("lang_self",), self_attr="self")
+        m += _att_block(f"{t}.visn_self_att", fx + ("visn_self",), self_attr="self")
+        m += _dense(f"{t}.lang_inter.dense", fx + ("lang_mlp", "inter"))
+        m += _dense(f"{t}.lang_output.dense", fx + ("lang_mlp", "out"))
+        m += _ln(f"{t}.lang_output.LayerNorm", fx + ("lang_mlp", "out_ln"))
+        m += _dense(f"{t}.visn_inter.dense", fx + ("visn_mlp", "inter"))
+        m += _dense(f"{t}.visn_output.dense", fx + ("visn_mlp", "out"))
+        m += _ln(f"{t}.visn_output.LayerNorm", fx + ("visn_mlp", "out_ln"))
+    m += _dense(f"{p}pooler.dense", f + ("pooler", "dense"))
+    if answer_head:
+        # logit_fc = Sequential(Linear, GeLU, BertLayerNorm, Linear)
+        # (gqa_model.py:20-27) -> indices 0, 2, 3.
+        m += _dense("logit_fc.0", ("answer_head", "dense"))
+        m += _ln("logit_fc.2", ("answer_head", "ln"))
+        m += _dense("logit_fc.3", ("answer_head", "logits"))
+    if branched:
+        m += _dense("conf_fc.0", ("conf_head", "dense"))
+        m += _ln("conf_fc.2", ("conf_head", "ln"))
+        m += _dense("conf_fc.3", ("conf_head", "logits"))
+    return m

@@ -1,0 +1,33 @@
+"""Training CLI (port of ``rgqa_tpu/cli/train.py``, ``--strategy conf``).
+
+Fine-tunes LXMERT on GQA with the JAX CLI's flags (BCE loss, BertAdam,
+global clip 5.0, ``--sample_pair`` for RP pseudo-UQ pairs, ``--dropout``
+on attention and hidden activations), writes ``BEST.pth``, ``LAST.pth``,
+``LAST.state.pt`` and ``log.log`` under ``--output``, and prints
+``{"final_loss", "valid"}``.  It runs on the card (``--device cuda``, the
+default; raises without one) unless given ``--device cpu``.
+
+Example:
+    python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
+        --sample_pair --epochs 1 --batchSize 32 --output /tmp/gqa_snap
+"""
+
+from __future__ import annotations
+
+import json
+
+from rgqa_tpu_torch.config import parse_cli
+from rgqa_tpu_torch.runner import GQARunner
+
+
+def main(argv=None) -> dict:
+    cfg, ns = parse_cli(argv)
+    runner = GQARunner(cfg, device=ns.device)
+    history = runner.train()
+    print(json.dumps({"final_loss": history["loss"][-1] if history["loss"] else None,
+                      "valid": history["valid"]}))
+    return history
+
+
+if __name__ == "__main__":
+    main()

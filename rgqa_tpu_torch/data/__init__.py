@@ -6,14 +6,16 @@ of the tokenizer, the feature pack reader, the synthetic data generator
 and the dataset encoder, plus a CUDA-side prefetching feed.
 """
 
-from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch, to_device
-from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
+from rgqa_tpu_torch.data.batching import batch_indices, batch_iterator, device_prefetch, to_device
+from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset, build_targets
 from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 
 __all__ = [
+    "batch_indices",
     "batch_iterator",
+    "build_targets",
     "device_prefetch",
     "to_device",
     "EncodedGQA",

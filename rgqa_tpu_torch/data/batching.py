@@ -1,9 +1,11 @@
 """Host batches and their copy to the device (port of
-``rgqa_tpu/data/batching.py``'s ``batch_iterator`` and ``device_prefetch``).
+``rgqa_tpu/data/batching.py``'s ``batch_indices``, ``batch_iterator`` and
+``device_prefetch``).
 
-``batch_iterator`` pads the final partial batch to the batch size
-(repeat-last-row) and reports how many rows are real, as in the JAX
-package.  ``device_prefetch`` stands in for the JAX feed: on CUDA it
+``batch_indices`` draws the same order as the JAX package from the same
+``np.random.Generator`` (the training shuffle).  ``batch_iterator`` pads
+the final partial batch to the batch size (repeat-last-row) and reports
+how many rows are real, as in the JAX package.  ``device_prefetch`` stands in for the JAX feed: on CUDA it
 copies each batch from pinned host memory on a side stream, a few
 batches ahead of the consumer, so the copies overlap the forward.
 Chunked dispatch, the int8 feed and mesh sharding are not ported.
@@ -12,12 +14,12 @@ Chunked dispatch, the int8 feed and mesh sharding are not ported.
 from __future__ import annotations
 
 import collections
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
-__all__ = ["batch_iterator", "pad_batch_to", "to_device", "device_prefetch"]
+__all__ = ["batch_indices", "batch_iterator", "pad_batch_to", "to_device", "device_prefetch"]
 
 Item = tuple[list, dict, int]  # (question_ids, batch, real row count)
 
@@ -34,13 +36,43 @@ def pad_batch_to(batch: dict, size: int) -> tuple[dict, int]:
     return {k: np.asarray(v)[reps] for k, v in batch.items()}, n
 
 
-def batch_iterator(encoded, batch_size: int) -> Iterator[Item]:
-    """Yield ``(question_ids, host_batch, real_count)`` in dataset order,
-    the final batch padded to ``batch_size``."""
-    for start in range(0, len(encoded), batch_size):
-        idx = np.arange(start, min(start + batch_size, len(encoded)))
+def batch_indices(
+    n: int,
+    batch_size: int,
+    *,
+    shuffle: bool = False,
+    rng: Optional[np.random.Generator] = None,
+    drop_last: bool = False,
+) -> Iterator[np.ndarray]:
+    """Yield index arrays of (at most) ``batch_size``."""
+    order = np.arange(n)
+    if shuffle:
+        (rng or np.random.default_rng()).shuffle(order)
+    for start in range(0, n, batch_size):
+        chunk = order[start : start + batch_size]
+        if drop_last and len(chunk) < batch_size:
+            return
+        yield chunk
+
+
+def batch_iterator(
+    encoded,
+    batch_size: int,
+    *,
+    shuffle: bool = False,
+    rng: Optional[np.random.Generator] = None,
+    drop_last: bool = False,
+    with_target: bool = False,
+) -> Iterator[Item]:
+    """Yield ``(question_ids, host_batch, real_count)``, in dataset order
+    or shuffled by ``rng``; a final partial batch is dropped
+    (``drop_last``) or padded to ``batch_size``.  ``with_target`` adds
+    the training targets (``EncodedGQA.gather_batch``)."""
+    for idx in batch_indices(
+        len(encoded), batch_size, shuffle=shuffle, rng=rng, drop_last=drop_last
+    ):
         qids = [encoded.question_ids[i] for i in idx]
-        batch = encoded.gather_batch(idx)
+        batch = encoded.gather_batch(idx, with_target=with_target)
         real = len(idx)
         if real < batch_size:
             batch, real = pad_batch_to(batch, batch_size)

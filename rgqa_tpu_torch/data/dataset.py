@@ -6,8 +6,7 @@ A copy, because ``rgqa_tpu/data/dataset.py`` imports flax (through
 ``__init__`` imports jax; the port runs where they are absent.  Only the
 lxmert branch is here: questions tokenized once into (N, T) int32
 arrays and boxes normalized to [0, 1] (``norm4``).  The UNITER, BUTD,
-caption, ViLT-pixel and TreeMix-parse branches and the training targets
-are not ported yet.
+caption, ViLT-pixel and TreeMix-parse branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import numpy as np
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 
-__all__ = ["GQADataset", "EncodedGQA", "UQ_ANSWER", "MAX_LABELS"]
+__all__ = ["GQADataset", "EncodedGQA", "build_targets", "UQ_ANSWER", "MAX_LABELS"]
 
 UQ_ANSWER = "UQ"
 MAX_LABELS = 8
@@ -63,6 +62,22 @@ class GQADataset:
     @property
     def qid2label(self) -> dict:
         return {d["question_id"]: d.get("label", {}) for d in self.data}
+
+
+def build_targets(
+    label_idx: np.ndarray,
+    label_score: np.ndarray,
+    num_answers: int,
+) -> np.ndarray:
+    """Scatter sparse (B, MAX_LABELS) labels into a dense (B, A) target."""
+    b = label_idx.shape[0]
+    target = np.zeros((b, num_answers), np.float32)
+    rows = np.repeat(np.arange(b), label_idx.shape[1])
+    cols = label_idx.reshape(-1)
+    vals = label_score.reshape(-1)
+    keep = cols >= 0
+    target[rows[keep], cols[keep]] = vals[keep]
+    return target
 
 
 class EncodedGQA:
@@ -122,13 +137,26 @@ class EncodedGQA:
     def __len__(self) -> int:
         return len(self.question_ids)
 
-    def gather_batch(self, idx: np.ndarray) -> dict:
-        """A dense host batch for row indices ``idx``."""
+    def gather_batch(self, idx: np.ndarray, *, with_target: bool = False) -> dict:
+        """A dense host batch for row indices ``idx``.  ``with_target``
+        adds the training targets: ``target``, the answer scores with the
+        appended UQ column sliced off, and ``id_mask`` (B,), 1 for
+        answerable rows (UQ score zero); a vocabulary without UQ keeps
+        every column and marks every row answerable."""
         rows = self.img_row[idx]
-        return {
+        batch = {
             "input_ids": self.input_ids[idx],
             "input_mask": self.input_mask[idx],
             "segment_ids": self.segment_ids[idx],
             "feats": np.asarray(self.features.features[rows], np.float32),
             "boxes": self.img_boxes[rows],
         }
+        if with_target:
+            target = build_targets(self.label_idx[idx], self.label_score[idx], self.num_answers)
+            if self.dataset.label2ans and self.dataset.label2ans[-1] == UQ_ANSWER:
+                batch["target"] = target[:, :-1]
+                batch["id_mask"] = (target[:, -1] == 0).astype(np.float32)
+            else:
+                batch["target"] = target
+                batch["id_mask"] = np.ones((len(idx),), np.float32)
+        return batch

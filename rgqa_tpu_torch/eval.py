@@ -1,17 +1,18 @@
 """Prediction and rejection scoring over a split (port of
-``rgqa_tpu/eval.py``: ``predict``, ``score_split``, ``ood_evaluate``).
+``rgqa_tpu/eval.py``: ``predict``, ``evaluate``, ``score_split``,
+``ood_evaluate``).
 
 ``ScoringMixin`` expects the host class to provide ``cfg``, ``device``,
 ``forward`` and ``label2ans``, i.e. :class:`rgqa_tpu_torch.runner.GQARunner`.
-The metrics and the prediction-JSON dump are the JAX package's own
-(``rgqa_tpu.metrics``), reused as they are.
+The metrics and the prediction-JSON dump are ``rgqa_tpu_torch.metrics``,
+the port's copy of the JAX package's.
 """
 
 from __future__ import annotations
 
 from typing import Iterator, Optional
 
-from rgqa_tpu.metrics import ClosedSetEvaluator, RGQAEvaluator, dump_predictions
+from rgqa_tpu_torch.metrics import ClosedSetEvaluator, RGQAEvaluator, dump_predictions
 from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
 from rgqa_tpu_torch.data.dataset import EncodedGQA
 from rgqa_tpu_torch.scorers.core import make_msp_scorer
@@ -59,6 +60,10 @@ class ScoringMixin:
         if dump:
             ClosedSetEvaluator(encoded.dataset.qid2label).dump_result(quesid2ans, dump)
         return quesid2ans
+
+    def evaluate(self, encoded: EncodedGQA) -> float:
+        """Closed-set soft accuracy on a labeled split."""
+        return ClosedSetEvaluator(encoded.dataset.qid2label).evaluate(self.predict(encoded))
 
     def score_split(self, encoded: EncodedGQA, scorer=None) -> dict:
         """``{qid: (answer, confidence)}`` over a split."""

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from rgqa_tpu.config import ModelConfig
+from rgqa_tpu_torch.config import ModelConfig
+from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.transformer import LayerNorm
 
 __all__ = ["build_model", "default_config", "example_batch", "init_weights"]
@@ -25,7 +26,7 @@ DENSE_INIT_STD = 0.02  # BERT's normal init, flax ``dense_init`` in the JAX pack
 def default_config() -> ModelConfig:
     """The full-width LXMERT GQA configuration: 9 language / 5 vision / 5
     cross layers x 768, 12 heads, vocab 30522, 1842 answers, 36 RoI
-    features of 2048."""
+    features of 2048, dropout 0.1."""
     return ModelConfig()
 
 
@@ -54,14 +55,23 @@ def build_model(
     cfg: ModelConfig,
     *,
     use_bf16: bool = False,
-    device: torch.device | str = "cpu",
+    device: Optional[torch.device | str] = None,
     generator: Optional[torch.Generator] = None,
+    train: bool = False,
 ) -> tuple[nn.Module, Callable[..., dict]]:
-    """Instantiate (module in eval mode, forward adapter) on ``device``.
+    """Instantiate (module, forward adapter) on ``device`` (default CUDA;
+    raises without a card unless ``device`` is the CPU).
 
-    Weights come from ``generator`` (default: seed 0 on ``device``) and
-    are cast to bf16 when ``use_bf16``: the serving convention, no f32
-    master copy at inference."""
+    Weights come from ``generator`` (default: seed 0 on ``device``).
+    ``use_bf16`` makes bf16 the compute dtype.  For inference (``train``
+    False; the module is in eval mode) the weights are cast to bf16 too:
+    the serving convention, no f32 master copy.  For training they stay
+    f32 masters under bf16 compute, as the JAX trainer keeps them, and
+    the module is in training mode.
+
+    ``forward(batch, *, use_fused=None, rng=None)``: ``rng`` is the
+    :class:`~rgqa_tpu_torch.ops.dropout.DropoutRng` a training forward
+    draws its dropout from."""
     if cfg.backbone != "lxmert":
         raise NotImplementedError(
             f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert"
@@ -70,15 +80,16 @@ def build_model(
         raise NotImplementedError("the branched confidence heads are not ported yet")
     from rgqa_tpu_torch.models.lxmert import LxmertForGQA
 
-    device = torch.device(device)
+    device = resolve_device(device)
+    dtype = torch.bfloat16 if use_bf16 else torch.float32
     with device:
-        model = LxmertForGQA(cfg.encoder, cfg.num_answers)
+        model = LxmertForGQA(cfg.encoder, cfg.num_answers, dtype=dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init_weights(model, generator)
-    if use_bf16:
+    if use_bf16 and not train:
         model.to(torch.bfloat16)
-    model.eval()
+    model.train(train)
 
     def forward(batch: dict, **kw) -> dict:
         return model(

@@ -1,18 +1,33 @@
-"""Multi-head attention on the natural (B, S, H*D) layout.
+"""Multi-head attention on the natural (B, S, H*D) layout, forward and
+backward, with and without attention-probability dropout.
 
-Port of ``rgqa_tpu/ops/attention.py``'s inference forward:
+Port of ``rgqa_tpu/ops/attention.py``.  Four hand-written Hopper kernels,
+each with a plain PyTorch version beside it:
 
-- :func:`attention_natural_ref` is the plain PyTorch version, the
-  counterpart of ``_attention_natural_xla``: f32 scores and softmax, the
-  PV product in f32, the result cast back to the input dtype;
-- :func:`fused_attention_cuda` launches the hand-written Hopper kernel
-  ``csrc/fused_attention.cu``, the counterpart of the Pallas
-  ``_fused_kernel`` (P rounded to the input dtype before PV);
-- :func:`fused_attention` dispatches: the plain version for tensors on
-  the CPU or under ``force_xla``, the kernel for everything else.  A
-  CUDA tensor reaches the kernel or raises; there is no fallback.
+| kernel (wrapper) | source | TPU kernel it replaces | plain version |
+| --- | --- | --- | --- |
+| :func:`fused_attention_cuda` | ``csrc/fused_attention.cu`` | ``_fused_kernel`` | :func:`attention_natural_ref` |
+| :func:`fused_attention_bwd_cuda` | ``csrc/fused_attention_bwd.cu`` | ``_fused_bwd_kernel`` | :func:`attention_bwd_ref` |
+| :func:`fused_attention_dropout_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_kernel`` | :func:`attention_dropout_ref` |
+| :func:`fused_attention_dropout_bwd_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_bwd_kernel`` | :func:`attention_dropout_bwd_ref` |
 
-The TPU kernel's VMEM block ladder (``_fit_block``, ``_fwd_plan``) has no
+:func:`fused_attention` and :func:`fused_attention_dropout` are
+``torch.autograd.Function``s (the ``_fused`` / ``_fused_drop``
+custom_vjps): on CUDA tensors their forward and backward launch the
+kernels, on CPU tensors they run the plain versions.  A CUDA tensor
+reaches a kernel or raises; there is no fallback.  ``force_xla=True``
+runs the plain forward under PyTorch's own autograd instead.
+
+The dropout mask is keyed on the element: keep(b, h, i, j) is a pure
+function of a 64-bit seed and (b, h, i, j), one byte of a Philox4x32-10
+draw, kept iff ``byte >= t`` with ``t = round(rate * 256)`` and kept
+probabilities scaled by ``256 / (256 - t)``.  So the backward replays the
+forward's mask exactly, whatever the launch geometry, and
+:func:`dropout_keep_mask_ref` computes the same bits with integer tensor
+ops.  The bits cannot match the TPU's hardware generator: the contract is
+that of ``_attention_dropout_xla`` (quantized rate, exact expectation).
+
+The TPU kernels' VMEM block ladder (``_fit_block``, ``_fwd_plan``) has no
 counterpart: one thread block per (batch row, head) holds its whole
 problem in shared memory.
 """
@@ -27,17 +42,26 @@ from typing import Optional
 import torch
 
 from rgqa_tpu_torch.ops._build import load_library
+from rgqa_tpu_torch.ops.dropout import keep_threshold
 
 __all__ = [
     "MAX_SEQ",
     "MAX_HEAD_DIM",
     "bias_vector",
     "attention_natural_ref",
+    "attention_bwd_ref",
+    "dropout_keep_mask_ref",
+    "attention_dropout_ref",
+    "attention_dropout_bwd_ref",
     "fused_attention",
+    "fused_attention_dropout",
     "fused_attention_cuda",
+    "fused_attention_bwd_cuda",
+    "fused_attention_dropout_cuda",
+    "fused_attention_dropout_bwd_cuda",
 ]
 
-# The kernel's limits (csrc/fused_attention.cu kMaxSeq / kMaxDim).
+# The kernels' limits (csrc/attention_common.cuh kMaxSeq / kMaxDim).
 MAX_SEQ = 64
 MAX_HEAD_DIM = 64
 
@@ -57,72 +81,220 @@ def bias_vector(
     return torch.broadcast_to(bias, (b, skv)).to(torch.float32).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# Plain versions.  The accumulation dtype is f32 for f32 and bf16 inputs
+# (f64 for f64 inputs, for gradcheck).
+# ---------------------------------------------------------------------------
+
+
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    b, s, e = t.shape
+    return t.reshape(b, s, num_heads, e // num_heads)
+
+
+def _probs(q, k, bias_kv, num_heads: int) -> torch.Tensor:
+    """(B, H, Sq, Skv) softmax of the scores as ``_attention_natural_xla``
+    takes them: products in the input dtype, then f32 plus the bias."""
+    d = q.shape[-1] // num_heads
+    scores = torch.einsum("bqhd,bkhd->bhqk", _heads(q, num_heads), _heads(k, num_heads))
+    scores = (scores / math.sqrt(d)).to(_acc(q.dtype)) + bias_kv[:, None, None, :]
+    return torch.softmax(scores, dim=-1)
+
+
+def _pv(probs, v, num_heads: int, out_dtype) -> torch.Tensor:
+    b, skv, e = v.shape
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, _heads(v, num_heads).to(probs.dtype))
+    return out.reshape(b, -1, e).to(out_dtype)
+
+
 def attention_natural_ref(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
     """``softmax(q k^T / sqrt(d) + bias) v`` per head, plain PyTorch
     (``_attention_natural_xla``): scores cast to f32, f32 softmax, PV in
     f32, output in the input dtype."""
+    return _pv(_probs(q, k, bias_kv, num_heads), v, num_heads, q.dtype)
+
+
+def _bwd_ref(q, k, v, bias_kv, g, num_heads: int, drop=None):
+    """The backward of ``_fused_bwd_kernel`` (``drop`` None) or of
+    ``_fused_drop_bwd_kernel`` (``drop = (keep, keep_scale)``), step by
+    step in the accumulation dtype: P recomputed from products of the
+    inputs, dP and dV from g and v in that dtype, dS rounded to the input
+    dtype before the dQ and dK products."""
     b, sq, e = q.shape
     skv = k.shape[1]
     d = e // num_heads
-    qh = q.reshape(b, sq, num_heads, d)
-    kh = k.reshape(b, skv, num_heads, d)
-    vh = v.reshape(b, skv, num_heads, d)
-    scores = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(d)
-    scores = scores.to(torch.float32) + bias_kv[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vh.to(torch.float32))
-    return out.reshape(b, sq, e).to(q.dtype)
+    scale = 1.0 / math.sqrt(d)
+    acc = _acc(q.dtype)
+    qh, kh, vh = (_heads(t, num_heads).to(acc) for t in (q, k, v))
+    gh = _heads(g.to(q.dtype), num_heads).to(acc)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale + bias_kv.to(acc)[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
+    p_v = p
+    if drop is not None:
+        keep, keep_scale = drop
+        p_v = torch.where(keep, p * keep_scale, 0.0)
+        dp = torch.where(keep, dp * keep_scale, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_v, gh)
+    ds_nb = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dbias = ds_nb.sum(dim=(1, 2))  # over heads and query rows
+    ds = (ds_nb * scale).to(q.dtype).to(acc)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+    return (
+        dq.reshape(b, sq, e).to(q.dtype),
+        dk.reshape(b, skv, e).to(k.dtype),
+        dv.reshape(b, skv, e).to(v.dtype),
+        dbias.to(bias_kv.dtype),
+    )
+
+
+def attention_bwd_ref(q, k, v, bias_kv, g, num_heads: int):
+    """(dq, dk, dv, dbias) of :func:`attention_natural_ref` for the output
+    gradient ``g``, as ``_fused_bwd_kernel`` computes them: dP = g V^T and
+    dV = P^T g in f32, dS = P (dP - rowsum(dP P)), dQ = (dS/sqrt(d)) K and
+    dK = (dS/sqrt(d))^T Q with dS rounded to the input dtype, dbias = the
+    sum of dS over heads and query rows (f32, (B, Skv))."""
+    return _bwd_ref(q, k, v, bias_kv, g, num_heads)
+
+
+# Philox4x32-10 (Salmon et al., SC'11): the constants of Random123.
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_MASK32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit halves of the 64-bit product of ``a`` (uint32
+    values in an int64 tensor) and the constant ``m``, without leaving
+    int64: ``m`` is split into 16-bit halves."""
+    p_lo = a * (m & 0xFFFF)
+    p_hi = a * (m >> 16)
+    lo = (((p_hi & 0xFFFF) << 16) + p_lo) & _MASK32
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    return hi, lo
+
+
+def _philox4x32_10(c0, c1, c2, c3, seed: int):
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W[0]) & _MASK32
+        k1 = (k1 + _PHILOX_W[1]) & _MASK32
+    return c0, c1, c2, c3
+
+
+def dropout_keep_mask_ref(
+    seed: int, b: int, h: int, sq: int, skv: int, rate: float,
+    device: Optional[torch.device | str] = None,
+) -> torch.Tensor:
+    """The (B, H, Sq, Skv) bool keep mask the dropout kernels draw.
+
+    Element (b, h, i, j) takes byte ``j % 16`` (little-endian, word
+    ``(j % 16) // 4``) of Philox4x32-10 at counter ``(j // 16, i, h, b)``
+    under key ``(seed & 0xFFFFFFFF, seed >> 32)``, and is kept iff that
+    byte is ``>= round(rate * 256)``.  uint32 arithmetic in int64
+    tensors, masked to 32 bits."""
+    t, _ = keep_threshold(rate)
+    groups = (skv + 15) // 16
+    bb, hh, ii, gg = torch.meshgrid(
+        *(torch.arange(n, dtype=torch.int64, device=device) for n in (b, h, sq, groups)),
+        indexing="ij",
+    )
+    words = torch.stack(_philox4x32_10(gg, ii, hh, bb, int(seed)), dim=-1)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)
+    byte = (words[..., None] >> shifts) & 0xFF  # (B, H, Sq, groups, word, byte)
+    return byte.reshape(b, h, sq, groups * 16)[..., :skv] >= t
+
+
+def _drop(q, k, num_heads: int, rate: float, seed: int):
+    t, keep_p = keep_threshold(rate)
+    keep = dropout_keep_mask_ref(
+        seed, q.shape[0], num_heads, q.shape[1], k.shape[1], rate, device=q.device
+    )
+    return keep, 1.0 / keep_p
+
+
+def attention_dropout_ref(q, k, v, bias_kv, num_heads: int, rate: float, seed: int):
+    """:func:`attention_natural_ref` with the kernels' mask on P: kept
+    probabilities scaled by ``1 / keep_p``, the rest zero."""
+    keep, keep_scale = _drop(q, k, num_heads, rate, seed)
+    probs = _probs(q, k, bias_kv, num_heads)
+    return _pv(torch.where(keep, probs * keep_scale, 0.0), v, num_heads, q.dtype)
+
+
+def attention_dropout_bwd_ref(q, k, v, bias_kv, g, num_heads: int, rate: float, seed: int):
+    """The backward of the dropout kernel (``_fused_drop_bwd_kernel``):
+    dV from the dropped P, dP masked and scaled before dS, the rest as
+    :func:`attention_bwd_ref`."""
+    return _bwd_ref(q, k, v, bias_kv, g, num_heads, drop=_drop(q, k, num_heads, rate, seed))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers (ctypes; see ops/_build.py).
+# ---------------------------------------------------------------------------
+
+_P, _I, _LL, _F, _U64 = (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_ulonglong
+)
+_DROP_ARGS = [_U64, _I, _F]  # seed, threshold, keep scale
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    lib = load_library("fused_attention")
-    fn = lib.rgqa_fused_attention_fwd
+def _entry(source: str, symbol: str, n_pointers: int, dropout: bool):
+    """The C entry ``symbol`` of ``csrc/<source>.cu``:
+    (pointers..., dtype, batch, sq, skv, heads, dim, six strides, scale,
+    [seed, threshold, keep_scale], stream) -> cudaError_t."""
+    lib = load_library(source)
+    fn = getattr(lib, symbol)
     fn.argtypes = (
-        [ctypes.c_void_p] * 5          # q, k, v, bias, out
-        + [ctypes.c_int] * 6           # dtype, batch, sq, skv, heads, dim
-        + [ctypes.c_longlong] * 6      # q/k/v batch and row strides
-        + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+        [_P] * n_pointers + [_I] * 6 + [_LL] * 6 + [_F]
+        + (_DROP_ARGS if dropout else []) + [_P]
     )
-    fn.restype = ctypes.c_int
-    lib.rgqa_cuda_error_string.argtypes = [ctypes.c_int]
+    fn.restype = _I
+    lib.rgqa_cuda_error_string.argtypes = [_I]
     lib.rgqa_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return fn, lib.rgqa_cuda_error_string
 
 
-def _check(q, k, v, bias_kv, num_heads: int) -> None:
-    """Raise on anything the kernel does not take."""
+def _check(name, q, k, v, bias_kv, num_heads: int, g=None) -> None:
+    """Raise on anything the kernels do not take."""
     tensors = {"q": q, "k": k, "v": v}
-    for name, t in tensors.items():
+    for tname, t in tensors.items():
         if t.device.type != "cuda":
-            raise ValueError(f"fused_attention_cuda: {name} is on {t.device}, not CUDA")
+            raise ValueError(f"{name}: {tname} is on {t.device}, not CUDA")
         if t.device != q.device:
-            raise ValueError("fused_attention_cuda: q, k, v on different devices")
+            raise ValueError(f"{name}: q, k, v on different devices")
         if t.dtype not in _DTYPE_CODE:
             raise TypeError(
-                f"fused_attention_cuda: {name} has dtype {t.dtype}; the kernel "
-                "takes float32 or bfloat16"
+                f"{name}: {tname} has dtype {t.dtype}; the kernel takes float32 or bfloat16"
             )
         if t.dtype != q.dtype:
-            raise TypeError("fused_attention_cuda: q, k, v differ in dtype")
+            raise TypeError(f"{name}: q, k, v differ in dtype")
         if t.dim() != 3:
-            raise ValueError(f"fused_attention_cuda: {name} must be (B, S, E), got {tuple(t.shape)}")
+            raise ValueError(f"{name}: {tname} must be (B, S, E), got {tuple(t.shape)}")
         if t.stride(-1) != 1:
-            raise ValueError(f"fused_attention_cuda: {name}'s last dim must be contiguous")
+            raise ValueError(f"{name}: {tname}'s last dim must be contiguous")
     b, sq, e = q.shape
     skv = k.shape[1]
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != e:
         raise ValueError(
-            f"fused_attention_cuda: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not agree"
         )
     if e % num_heads:
-        raise ValueError(f"fused_attention_cuda: width {e} not divisible by {num_heads} heads")
+        raise ValueError(f"{name}: width {e} not divisible by {num_heads} heads")
     d = e // num_heads
     if sq > MAX_SEQ or skv > MAX_SEQ or d > MAX_HEAD_DIM:
         raise ValueError(
-            f"fused_attention_cuda: Sq={sq}, Skv={skv}, D={d} exceed the kernel's "
-            f"limits (sequences <= {MAX_SEQ}, head dim <= {MAX_HEAD_DIM})"
+            f"{name}: Sq={sq}, Skv={skv}, D={d} exceed the kernel's limits "
+            f"(sequences <= {MAX_SEQ}, head dim <= {MAX_HEAD_DIM})"
         )
     if (
         bias_kv.device != q.device
@@ -131,10 +303,41 @@ def _check(q, k, v, bias_kv, num_heads: int) -> None:
         or not bias_kv.is_contiguous()
     ):
         raise ValueError(
-            "fused_attention_cuda: bias must be a contiguous (B, Skv) float32 "
-            f"tensor on {q.device}, got {tuple(bias_kv.shape)} {bias_kv.dtype} "
-            f"on {bias_kv.device}"
+            f"{name}: bias must be a contiguous (B, Skv) float32 tensor on "
+            f"{q.device}, got {tuple(bias_kv.shape)} {bias_kv.dtype} on {bias_kv.device}"
         )
+    if g is not None and (
+        g.device != q.device or g.dtype != q.dtype or g.shape != q.shape
+        or not g.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}: g must be a contiguous {tuple(q.shape)} {q.dtype} tensor on "
+            f"{q.device}, got {tuple(g.shape)} {g.dtype} on {g.device}"
+        )
+
+
+def _dropout_args(name: str, rate: float, seed: int) -> list:
+    t, keep_p = keep_threshold(rate)
+    if t >= 256:
+        raise ValueError(f"{name}: rate {rate} rounds to 256/256; nothing would be kept")
+    if not 0 <= int(seed) < 2**64:
+        raise ValueError(f"{name}: seed {seed} is not a 64-bit unsigned integer")
+    return [int(seed), t, 1.0 / keep_p]
+
+
+def _launch(name, source, symbol, pointers, q, k, v, num_heads, drop=None) -> None:
+    b, sq, e = q.shape
+    d = e // num_heads
+    with torch.cuda.device(q.device):
+        fn, errstr = _entry(source, symbol, len(pointers), drop is not None)
+        err = fn(
+            *pointers, _DTYPE_CODE[q.dtype], b, sq, k.shape[1], num_heads, d,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1), 1.0 / math.sqrt(d), *(drop or []),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed ({err}): {errstr(err).decode()}")
 
 
 def fused_attention_cuda(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
@@ -145,40 +348,171 @@ def fused_attention_cuda(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
     contiguous; ``bias_kv`` is the (B, Skv) f32 additive mask.  Returns a
     new contiguous (B, Sq, E) tensor.  ``fused_attention_cuda.launches``
     counts the launches."""
-    _check(q, k, v, bias_kv, num_heads)
-    b, sq, e = q.shape
-    skv = k.shape[1]
-    d = e // num_heads
-    out = torch.empty((b, sq, e), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        lib = _kernel()
-        err = lib.rgqa_fused_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_kv.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[q.dtype], b, sq, skv, num_heads, d,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-            v.stride(0), v.stride(1), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        msg = lib.rgqa_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_attention kernel launch failed ({err}): {msg}")
+    _check("fused_attention_cuda", q, k, v, bias_kv, num_heads)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(
+        "fused_attention", "fused_attention", "rgqa_fused_attention_fwd",
+        [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_kv.data_ptr(), out.data_ptr()],
+        q, k, v, num_heads,
+    )
     fused_attention_cuda.launches += 1
     return out
 
 
-fused_attention_cuda.launches = 0
+def _bwd_buffers(q, k, num_heads: int):
+    b, skv = k.shape[:2]
+    return (
+        torch.empty(q.shape, dtype=q.dtype, device=q.device),
+        torch.empty(k.shape, dtype=k.dtype, device=q.device),
+        torch.empty(k.shape, dtype=k.dtype, device=q.device),
+        # (B, H, Skv) per-head partial sums, then their (B, Skv) sum
+        torch.empty((b, num_heads, skv), dtype=torch.float32, device=q.device),
+        torch.empty((b, skv), dtype=torch.float32, device=q.device),
+    )
+
+
+def _bwd_pointers(q, k, v, bias_kv, g, buffers):
+    return [t.data_ptr() for t in (q, k, v, bias_kv, g, *buffers)]
+
+
+def fused_attention_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
+    """Launch ``csrc/fused_attention_bwd.cu``: (dq, dk, dv, dbias) of
+    :func:`fused_attention_cuda` for the output gradient ``g``
+    (contiguous, the input dtype).  dq, dk, dv come out contiguous in the
+    input dtype, dbias as (B, Skv) f32, summed over heads in a fixed
+    order (no atomics: two runs give identical gradients).
+    ``fused_attention_bwd_cuda.launches`` counts the launches."""
+    _check("fused_attention_bwd_cuda", q, k, v, bias_kv, num_heads, g=g)
+    buffers = _bwd_buffers(q, k, num_heads)
+    _launch(
+        "fused_attention_bwd", "fused_attention_bwd", "rgqa_fused_attention_bwd",
+        _bwd_pointers(q, k, v, bias_kv, g, buffers), q, k, v, num_heads,
+    )
+    fused_attention_bwd_cuda.launches += 1
+    dq, dk, dv, _, dbias = buffers
+    return dq, dk, dv, dbias
+
+
+def fused_attention_dropout_cuda(q, k, v, bias_kv, num_heads: int, rate: float, seed: int):
+    """Launch the forward of ``csrc/fused_attention_dropout.cu``:
+    :func:`fused_attention_cuda` with the keep mask of
+    :func:`dropout_keep_mask_ref` on P.
+    ``fused_attention_dropout_cuda.launches`` counts the launches."""
+    name = "fused_attention_dropout_cuda"
+    _check(name, q, k, v, bias_kv, num_heads)
+    drop = _dropout_args(name, rate, seed)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(
+        "fused_attention_dropout", "fused_attention_dropout", "rgqa_fused_attention_dropout_fwd",
+        [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_kv.data_ptr(), out.data_ptr()],
+        q, k, v, num_heads, drop,
+    )
+    fused_attention_dropout_cuda.launches += 1
+    return out
+
+
+def fused_attention_dropout_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, rate: float, seed: int):
+    """Launch the backward of ``csrc/fused_attention_dropout.cu``, which
+    replays the forward's mask from ``seed``: (dq, dk, dv, dbias) as
+    :func:`fused_attention_bwd_cuda` returns them.
+    ``fused_attention_dropout_bwd_cuda.launches`` counts the launches."""
+    name = "fused_attention_dropout_bwd_cuda"
+    _check(name, q, k, v, bias_kv, num_heads, g=g)
+    drop = _dropout_args(name, rate, seed)
+    buffers = _bwd_buffers(q, k, num_heads)
+    _launch(
+        "fused_attention_dropout_bwd", "fused_attention_dropout",
+        "rgqa_fused_attention_dropout_bwd",
+        _bwd_pointers(q, k, v, bias_kv, g, buffers), q, k, v, num_heads, drop,
+    )
+    fused_attention_dropout_bwd_cuda.launches += 1
+    dq, dk, dv, _, dbias = buffers
+    return dq, dk, dv, dbias
+
+
+for _wrapper in (
+    fused_attention_cuda, fused_attention_bwd_cuda,
+    fused_attention_dropout_cuda, fused_attention_dropout_bwd_cuda,
+):
+    _wrapper.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Differentiable entry points.
+# ---------------------------------------------------------------------------
+
+
+class _FusedAttention(torch.autograd.Function):
+    """``_fused``'s custom_vjp: kernels #1 / #3 on CUDA, the plain pair
+    on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_kv, num_heads):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, bias_kv)
+        if q.device.type == "cpu":
+            return attention_natural_ref(q, k, v, bias_kv, num_heads)
+        return fused_attention_cuda(q, k, v, bias_kv, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias_kv = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        if q.device.type == "cpu":
+            grads = attention_bwd_ref(q, k, v, bias_kv, g, ctx.num_heads)
+        else:
+            grads = fused_attention_bwd_cuda(q, k, v, bias_kv, g, ctx.num_heads)
+        return (*grads, None)
+
+
+class _FusedAttentionDropout(torch.autograd.Function):
+    """``_fused_drop``'s custom_vjp: kernels #4 / #5 on CUDA, the plain
+    pair on the CPU; the backward replays the mask from the saved seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias_kv, num_heads, rate, seed):
+        ctx.args = (num_heads, rate, seed)
+        ctx.save_for_backward(q, k, v, bias_kv)
+        if q.device.type == "cpu":
+            return attention_dropout_ref(q, k, v, bias_kv, num_heads, rate, seed)
+        return fused_attention_dropout_cuda(q, k, v, bias_kv, num_heads, rate, seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias_kv = ctx.saved_tensors
+        g = g.to(q.dtype).contiguous()
+        if q.device.type == "cpu":
+            grads = attention_dropout_bwd_ref(q, k, v, bias_kv, g, *ctx.args)
+        else:
+            grads = fused_attention_dropout_bwd_cuda(q, k, v, bias_kv, g, *ctx.args)
+        return (*grads, None, None, None)
 
 
 def fused_attention(
     q, k, v, bias=None, *, num_heads: int, force_xla: bool = False
 ) -> torch.Tensor:
-    """Attention on the natural (B, S, H*D) layout.
+    """Attention on the natural (B, S, H*D) layout, differentiable.
 
     ``bias`` is an additive float mask, ``(B, S_kv)`` or ``(B, 1, 1,
-    S_kv)``; None means fully visible.  Tensors on the CPU, or
-    ``force_xla=True``, take :func:`attention_natural_ref`; every other
-    tensor goes to the CUDA kernel, which raises on what it cannot take."""
+    S_kv)``; None means fully visible.  CUDA tensors go to kernels #1 and
+    #3, CPU tensors to their plain versions; ``force_xla=True`` runs
+    :func:`attention_natural_ref` under PyTorch's autograd."""
     bias_kv = bias_vector(bias, q.shape[0], k.shape[1], device=q.device)
-    if force_xla or q.device.type == "cpu":
+    if force_xla:
         return attention_natural_ref(q, k, v, bias_kv, num_heads)
-    return fused_attention_cuda(q, k, v, bias_kv, num_heads)
+    return _FusedAttention.apply(q, k, v, bias_kv, num_heads)
+
+
+def fused_attention_dropout(
+    q, k, v, bias=None, *, num_heads: int, rate: float, seed: int,
+    force_xla: bool = False,
+) -> torch.Tensor:
+    """:func:`fused_attention` with attention-probability dropout at
+    ``rate`` (quantized to 1/256), its mask a pure function of ``seed``
+    and the element.  CUDA tensors go to kernels #4 and #5, CPU tensors
+    to their plain versions; ``force_xla=True`` runs
+    :func:`attention_dropout_ref` under PyTorch's autograd."""
+    bias_kv = bias_vector(bias, q.shape[0], k.shape[1], device=q.device)
+    if force_xla:
+        return attention_dropout_ref(q, k, v, bias_kv, num_heads, float(rate), int(seed))
+    return _FusedAttentionDropout.apply(q, k, v, bias_kv, num_heads, float(rate), int(seed))

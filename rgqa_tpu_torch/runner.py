@@ -1,40 +1,63 @@
-"""GQA runner for evaluation (port of ``rgqa_tpu/runner.py``'s
-construction path, ``GQARunner.__init__`` and ``load``).
+"""GQA runner (port of ``rgqa_tpu/runner.py``: construction, ``load`` and
+``train`` for ``--strategy conf``).
 
 It makes the synthetic data when asked and it is missing, loads the
 feature pack and the tokenizer, sizes the answer head to the dataset's
 answers less the appended ``UQ`` class, initialises the weights from a
 ``torch.Generator`` seeded with ``--seed`` and loads ``--load <reference
-.pth>``.  In bf16 mode (the default; ``--fp32`` turns it off) the
-weights are cast to bf16, the JAX package's serving convention.
+.pth>``.  It runs on the card unless the caller asks for the CPU.
 
-Not ported yet: training, orbax snapshots (reading them needs jax), the
-``--loadLXMERT`` / ``--loadLXMERTQA`` initialisations and every backbone
-but lxmert.  Options that need them raise.
+- ``GQARunner(cfg, init_train=True)`` encodes the train and valid splits
+  and keeps f32 master weights; with bf16 on (the default; ``--fp32``
+  turns it off) every product computes in bf16, as the JAX trainer does.
+  :meth:`GQARunner.train` then fine-tunes: BCE x answers, optional RP
+  pairing (``--sample_pair``), global clip 5.0, BertAdam with warmup,
+  attention and hidden dropout at ``--dropout``; per epoch a validation
+  of the closed-set soft accuracy, ``BEST.pth`` on a better one and a
+  ``log.log`` line in the reference format; ``LAST.pth`` and
+  ``LAST.state.pt`` at the end.
+- ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
+  answer vocabulary of the test splits and bf16 weights (the serving
+  convention).
+
+Not ported yet, and refused by flag name: the other strategies, mixup,
+the MCE, energy and branched losses, ``--uq_as_class``, ``--chart``,
+chunked dispatch, the other optimizers, bf16 moments, orbax snapshots
+(reading them needs jax), the ``--loadLXMERT`` / ``--loadLXMERTQA``
+initialisations and every backbone but lxmert.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
+import time
 from typing import Optional
 
+import numpy as np
 import torch
 
-from rgqa_tpu.config import RunConfig, dump_run_config
 from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+from rgqa_tpu_torch.config import RunConfig, dump_run_config
+from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
 from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
 from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
 from rgqa_tpu_torch.data.tsv import PackedFeatures
+from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.eval import ScoringMixin
 from rgqa_tpu_torch.models.zoo import build_model
+from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.train.optimizer import make_optimizer
+from rgqa_tpu_torch.train.state import load_train_state, save_reference_pth, save_train_state
+from rgqa_tpu_torch.train.step import make_train_step
 
 __all__ = ["GQARunner"]
 
 
-def _check_ported(cfg: RunConfig) -> None:
-    m, d = cfg.model, cfg.data
+def _check_ported(cfg: RunConfig, *, train: bool) -> None:
+    m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
         f"--backbone {m.backbone}": m.backbone != "lxmert",
         "--branched / --branched_layer": m.branched or m.branched_layers,
@@ -43,23 +66,38 @@ def _check_ported(cfg: RunConfig) -> None:
             cfg.load_lxmert or cfg.load_lxmert_qa or cfg.load_gqa
         ),
         "--feed_int8": d.feed_int8,
-        "--eval_chunk > 1": cfg.train.eval_chunk > 1,
+        "--eval_chunk > 1": t.eval_chunk > 1,
     }
+    if train:
+        unported.update({
+            f"--strategy {t.strategy}": t.strategy != "conf",
+            "--mixup_mode": bool(t.mixup_mode),
+            "--mceLoss": t.loss != "bce",
+            "--scorer energy with --m_in (energy margins)": (
+                cfg.ood.scorer == "energy" and t.m_in != 0
+            ),
+            "--chart": t.chart,
+            "--train_chunk > 1": t.train_chunk > 1,
+            f"--optim {t.optim.name}": "bert" not in t.optim.name.lower(),
+            "--bf16_moments": t.optim.bf16_moments,
+            "--update_weight_model": t.update_weight_model,
+            "--teacher_path": bool(cfg.teacher_path),
+        })
     named = [flag for flag, used in unported.items() if used]
     if named:
         raise NotImplementedError(f"not ported yet: {', '.join(named)}")
 
 
 class GQARunner(ScoringMixin):
-    """Evaluation-only GQA runner on one device (default: CUDA when a
-    card is present, else the CPU)."""
+    """GQA task driver on one device (default: the card)."""
 
-    def __init__(self, cfg: RunConfig, *, device: Optional[torch.device | str] = None):
-        _check_ported(cfg)
+    def __init__(
+        self, cfg: RunConfig, *, init_train: bool = True,
+        device: Optional[torch.device | str] = None,
+    ):
+        _check_ported(cfg, train=init_train)
         self.cfg = cfg
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         data = cfg.data
         root = data.data_root
 
@@ -75,17 +113,26 @@ class GQARunner(ScoringMixin):
             self.features = self.features.truncate(5000)
         self.tokenizer = WordPieceTokenizer(load_vocab(os.path.join(root, "vocab.txt")))
 
-        # The answer vocab comes from the splits under evaluation; the
-        # model outputs num_answers - 1 logits, 'UQ' being the appended
+        self.train_set: Optional[EncodedGQA] = None
+        self.valid_set: Optional[EncodedGQA] = None
+        if init_train:
+            self.dataset = GQADataset(root, data.train_splits, add_uq=True)
+            self.train_set = self._encode(self.dataset)
+            if data.valid_splits:
+                self.valid_set = self._encode(GQADataset(root, data.valid_splits, add_uq=True))
+        else:
+            # Evaluation only: the answer vocab comes from the splits
+            # under evaluation.
+            self.dataset = GQADataset(root, data.test_splits or data.valid_splits, add_uq=True)
+        # The model outputs num_answers - 1 logits; 'UQ' is the appended
         # indicator class.
-        self.dataset = GQADataset(root, data.test_splits or data.valid_splits, add_uq=True)
         self.model_cfg = dataclasses.replace(
             cfg.model, num_answers=self.dataset.num_answers - 1
         )
         generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.model, self.forward = build_model(
             self.model_cfg, use_bf16=cfg.train.use_bf16,
-            device=self.device, generator=generator,
+            device=self.device, generator=generator, train=init_train,
         )
         self.label2ans = self.dataset.label2ans
         if cfg.load:
@@ -100,6 +147,10 @@ class GQARunner(ScoringMixin):
             ds, self.features, tokenizer=self.tokenizer,
             max_text_len=self.cfg.model.max_text_len,
         )
+
+    # ------------------------------------------------------------------
+    # Checkpoints
+    # ------------------------------------------------------------------
 
     def load(self, path: str) -> None:
         """Load a reference GQA-LXMERT ``.pth`` into the model (cast to
@@ -118,3 +169,107 @@ class GQARunner(ScoringMixin):
             print(f"Weights not found in ckpt: {missing[:5]}...")
         if unused:
             print(f"Ckpt weights unused: {unused[:5]}...")
+
+    def save(self, name: str) -> str:
+        """``<output>/<name>.pth`` in the reference GQA format."""
+        return save_reference_pth(
+            self.model, self.model_cfg.encoder, os.path.join(self.output, f"{name}.pth")
+        )
+
+    # ------------------------------------------------------------------
+    # Training (gqa_conf.py:140-243)
+    # ------------------------------------------------------------------
+
+    def _validate(self) -> float:
+        self.model.eval()
+        try:
+            return self.evaluate(self.valid_set)
+        finally:
+            self.model.train()
+
+    def _epoch_end(self, epoch, epoch_start, last_loss, history, best_valid) -> float:
+        """History, validation with BEST (and ``--save_all`` EPOCH_n)
+        checkpoints, and the reference's log lines (``gqa.py:214-230``).
+        Returns the updated best valid score."""
+        last_loss = float(last_loss)  # the epoch's one read of a device value
+        history["loss"].append(last_loss)
+        log_str = (
+            f"\nEpoch {epoch}: Train Loss {last_loss:.2f} "
+            f"({time.time() - epoch_start:.1f}s)\n"
+        )
+        if self.valid_set is not None:
+            valid = self._validate()
+            history["valid"].append(valid)
+            if valid > best_valid:
+                best_valid = valid
+                self.save("BEST")
+            log_str += (
+                f"Epoch {epoch}: Valid {valid * 100:.2f}\n"
+                f"Epoch {epoch}: Best {best_valid * 100:.2f}\n"
+            )
+        if self.cfg.train.save_all:
+            self.save(f"EPOCH_{epoch}")
+        print(log_str, end="", flush=True)
+        with open(os.path.join(self.output, "log.log"), "a") as f:
+            f.write(log_str)
+        return best_valid
+
+    def train(self, resume: Optional[str] = None) -> dict:
+        """Fine-tune for ``--epochs``; returns ``{"loss": [...], "valid":
+        [...]}`` (the last step's loss and the valid accuracy of each
+        epoch).  ``resume`` names a checkpoint this runner saved (e.g.
+        "LAST"): its weights, optimizer state (step count included) and
+        generator states are restored before the epochs run."""
+        if self.train_set is None:
+            raise RuntimeError("train() needs a runner built with init_train=True")
+        tcfg = self.cfg.train
+        n_batches = len(self.train_set) // tcfg.batch_size
+        t_total = max(n_batches * tcfg.epochs, 1)
+        optimizer = make_optimizer(tcfg.optim, self.model.parameters(), t_total)
+        rng = DropoutRng(
+            device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
+            host=torch.Generator().manual_seed(tcfg.seed),
+        )
+        shuffle = np.random.default_rng(tcfg.seed)
+        steps = 0
+        if resume:
+            self.load(os.path.join(self.output, f"{resume}.pth"))
+            state = load_train_state(os.path.join(self.output, f"{resume}.state.pt"))
+            # The saved moments and step count; this run's schedule.
+            fresh = [{k: v for k, v in g.items() if k not in ("params", "count")}
+                     for g in optimizer.param_groups]
+            optimizer.load_state_dict(state["optimizer"])
+            for group, hyper in zip(optimizer.param_groups, fresh):
+                group.update(hyper)
+            steps = state["step"]
+            rng.load_state(state["rng"])
+            shuffle.bit_generator.state = state["shuffle"]
+
+        step = make_train_step(
+            self.forward, optimizer, loss=tcfg.loss, sample_pair=tcfg.sample_pair,
+            grad_clip=tcfg.optim.grad_clip, rng=rng,
+        )
+        best_valid = 0.0
+        history = {"loss": [], "valid": []}
+        self.model.train()
+        for epoch in range(tcfg.epochs):
+            last_loss = math.nan
+            epoch_start = time.time()
+            batches = device_prefetch(
+                batch_iterator(
+                    self.train_set, tcfg.batch_size, shuffle=True, rng=shuffle,
+                    drop_last=True, with_target=True,
+                ),
+                self.device,
+            )
+            for _, batch, _ in batches:
+                last_loss = step(batch)["loss"]
+                steps += 1
+            best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid)
+
+        self.save("LAST")
+        save_train_state(
+            os.path.join(self.output, "LAST.state.pt"), optimizer=optimizer, step=steps,
+            rng_state=rng.state(), shuffle=shuffle,
+        )
+        return history

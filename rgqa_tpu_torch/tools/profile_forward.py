@@ -1,11 +1,17 @@
-"""Where the time of the full-width LXMERT forward goes, on one CUDA card.
+"""Where the time of the full-width LXMERT forward, or of a training
+step, goes on one CUDA card.
 
     python -m rgqa_tpu_torch.tools.profile_forward [--batch 256 32]
-        [--iters 20] [--repeats 3] [--out chiprun_out/profile_forward.json]
+        [--iters 20] [--repeats 3] [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --train [--batch 32]
+        [--out FILE.json]
 
 Builds ``LxmertForGQA`` at full width (``zoo.default_config``) in bf16
 from seed 0 and, for each batch size of ``zoo.example_batch``, runs the
-forward through the attention kernel and through the plain version:
+forward through the attention kernel and through the plain version.
+With ``--train`` it runs training steps instead (f32 master weights,
+bf16 compute, RP pairing, BertAdam, dropout 0.1 and 0, kernels and
+plain versions).  For each run:
 
 - wall per forward: the best of ``--repeats`` means over ``--iters``
   forwards, synchronised at both ends, for every run before the first
@@ -15,7 +21,7 @@ forward through the attention kernel and through the plain version:
   one stream, so they do not overlap), and the busy share, device time
   over wall.
 
-Prints one table per run and writes every number to ``--out`` as JSON.
+Prints one table per run and, given ``--out``, writes every number to it as JSON.
 Raises if there is no card or the profiler records no device time.
 """
 
@@ -31,12 +37,14 @@ from collections import defaultdict
 
 import torch
 
+from rgqa_tpu_torch.config import OptimConfig
 from rgqa_tpu_torch.data.batching import to_device
 from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
 from rgqa_tpu_torch.ops import attention as att
 
 # (class, substrings of the lower-cased kernel name), first match wins.
 KERNEL_CLASSES = (
+    ("attention backward", ("fused_attention_bwd", "fused_attention_dbias")),
     ("attention kernel", ("fused_attention",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "wgmma")),
     ("layer norm", ("layer_norm",)),
@@ -79,14 +87,21 @@ def _device_time(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us, count = defaultdict(float), defaultdict(int)
+    us, count, other = defaultdict(float), defaultdict(int), defaultdict(float)
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        # A GPU-side user annotation (e.g. the range "Optimizer.step#...")
+        # spans kernels that are counted on their own.
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
             cls = classify(evt.name)
             us[cls] += evt.time_range.elapsed_us()
             count[cls] += 1
+            if cls == OTHER:
+                other[evt.name] += evt.time_range.elapsed_us()
     if not us:
         raise RuntimeError("torch.profiler recorded no device time")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
+    print("    largest kernels of class other (ms per profiled call): " + "; ".join(
+        f"{ms / 1e3 / iters:.3f} {name[:90]}" for name, ms in top))
     return {cls: (us[cls] / 1e3 / iters, count[cls] / iters) for cls in us}
 
 
@@ -104,21 +119,58 @@ def _summary(size: int, route: str, per_forward: int, wall: float, classes: dict
     }
 
 
-def _print_run(run: dict) -> None:
-    print(f"batch {run['batch']}, {run['route']}: wall {run['wall_ms']:.3f} ms per forward "
+def _print_run(run: dict, unit: str = "forward") -> None:
+    print(f"batch {run['batch']}, {run['route']}: wall {run['wall_ms']:.3f} ms per {unit} "
           f"({run['questions_per_s']:.1f} q/s), device {run['device_ms']:.3f} ms "
           f"({100 * run['busy_share']:.1f}% busy), {run['launches']:.0f} device launches, "
-          f"{run['attention_launches']} through the attention kernel")
+          f"{run['attention_launches']} through the attention kernels")
     for cls, c in run["classes"].items():
         print(f"    {cls:<18} {c['ms']:8.3f} ms  {100 * c['share']:5.1f}%  {c['launches']:6.0f} launches")
 
 
+def _train_cases(sizes) -> dict:
+    """{(batch, "dropout d kernels" | "dropout d plain"): one training
+    step}, each on its own full-width model (f32 masters, bf16 compute)."""
+    import dataclasses
+
+    import numpy as np
+
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+    from rgqa_tpu_torch.train.step import make_train_step
+
+    base = default_config()
+    cases = {}
+    for dropout in (0.1, 0.0):
+        cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+            base.encoder, hidden_dropout=dropout, attention_dropout=dropout))
+        model, forward = build_model(
+            cfg, use_bf16=True, device="cuda", train=True,
+            generator=torch.Generator(device="cuda").manual_seed(0),
+        )
+        opt = make_optimizer(OptimConfig(), model.parameters(), t_total=10**6)
+        rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
+                         host=torch.Generator().manual_seed(1))
+        for size in sizes:
+            batch = example_batch(cfg, size, seed=0)
+            target = np.zeros((size, cfg.num_answers), np.float32)
+            target[np.arange(size), np.arange(size) % cfg.num_answers] = 1.0
+            batch.update(target=target, id_mask=np.ones(size, np.float32))
+            batch = to_device(batch, "cuda")
+            for route, fused in (("kernels", None), ("plain", False)):
+                step = make_train_step(forward, opt, sample_pair=True, rng=rng, use_fused=fused)
+                cases[(size, f"dropout {dropout} {route}")] = functools.partial(step, batch)
+    return cases
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, nargs="+", default=[256, 32])
+    ap.add_argument("--batch", type=int, nargs="+", default=None,
+                    help="batch sizes (default 256 32; with --train 32, doubled by RP)")
+    ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--out", default=os.path.join("chiprun_out", "profile_forward.json"))
+    ap.add_argument("--out", default=None, help="also write every number to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
@@ -128,6 +180,8 @@ def main(argv=None) -> list:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}")
+    if args.train:
+        return _profile(_train_cases(args.batch or [32]), args, smi, args.out, grad=True)
 
     cfg = default_config()
     _, forward = build_model(
@@ -135,34 +189,45 @@ def main(argv=None) -> list:
         generator=torch.Generator(device="cuda").manual_seed(0),
     )
     fns = {}
-    for size in args.batch:
+    for size in args.batch or [256, 32]:
         batch = to_device(example_batch(cfg, size, seed=0), "cuda")
         fns[(size, "kernel")] = functools.partial(forward, batch)
         fns[(size, "plain")] = functools.partial(forward, batch, use_fused=False)
+    with torch.inference_mode():
+        return _profile(fns, args, smi, args.out, grad=False)
+
+
+def _attention_launches() -> int:
+    return sum(fn.launches for fn in (
+        att.fused_attention_cuda, att.fused_attention_bwd_cuda,
+        att.fused_attention_dropout_cuda, att.fused_attention_dropout_bwd_cuda))
+
+
+def _profile(fns: dict, args, smi: str, out: str, *, grad: bool) -> list:
+    unit = "step" if grad else "forward"
     walls = {}
     runs = []
-    with torch.inference_mode():
-        for case, fn in fns.items():
-            for _ in range(3):  # warm-up: cuBLAS heuristics, allocator
-                fn()
-            before = att.fused_attention_cuda.launches
+    for case, fn in fns.items():
+        for _ in range(3):  # warm-up: cuBLAS heuristics, allocator
             fn()
-            torch.cuda.synchronize()
-            per_forward = att.fused_attention_cuda.launches - before
-            walls[case] = (per_forward, _wall_ms(fn, args.iters, args.repeats))
-        # Every wall is taken before the first profile: launches from the
-        # host run slower once the profiler has been on.
-        for case, fn in fns.items():
-            runs.append(_summary(*case, *walls[case], _device_time(fn, args.iters)))
-            _print_run(runs[-1])
-        first = next(iter(fns))
-        after = _wall_ms(fns[first], args.iters, args.repeats)
-    print(f"batch {first[0]}, {first[1]}: wall {after:.3f} ms per forward after the "
+        before = _attention_launches()
+        fn()
+        torch.cuda.synchronize()
+        per_call = _attention_launches() - before
+        walls[case] = (per_call, _wall_ms(fn, args.iters, args.repeats))
+    # Every wall is taken before the first profile: launches from the
+    # host run slower once the profiler has been on.
+    for case, fn in fns.items():
+        runs.append(_summary(*case, *walls[case], _device_time(fn, args.iters)))
+        _print_run(runs[-1], unit)
+    first = next(iter(fns))
+    after = _wall_ms(fns[first], args.iters, args.repeats)
+    print(f"batch {first[0]}, {first[1]}: wall {after:.3f} ms per {unit} after the "
           f"profiles, {walls[first][1]:.3f} ms before")
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump({"device": smi, "torch": torch.__version__, "runs": runs,
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"device": smi, "torch": torch.__version__, "unit": unit, "runs": runs,
                        "first_wall_after_profiles_ms": after}, f, indent=1)
     return runs
 

@@ -127,6 +127,53 @@ def test_encoded_dataset_matches(roots, jax_data, split):
     assert sum(real for _, _, real in port_batches) == len(port_enc)
 
 
+@pytest.mark.parametrize("drop_last", [False, True])
+def test_shuffled_batch_order_and_targets_match(roots, jax_data, drop_last):
+    # The training feed: the same np.random.default_rng(seed) draws the same
+    # order, and the targets drop the UQ column into id_mask.
+    from rgqa_tpu.data.batching import batch_indices as jax_batch_indices
+    from rgqa_tpu.data.tokenizer import load_vocab as jax_load_vocab
+
+    for n in (24, 25):
+        got = list(batching.batch_indices(n, 8, shuffle=True, rng=np.random.default_rng(9),
+                                          drop_last=drop_last))
+        want = list(jax_batch_indices(n, 8, shuffle=True, rng=np.random.default_rng(9),
+                                      drop_last=drop_last))
+        assert [g.tolist() for g in got] == [w.tolist() for w in want]
+
+    root = roots[0]
+    vocab = os.path.join(root, "vocab.txt")
+    port_enc = dataset.EncodedGQA(
+        dataset.GQADataset(root, "testdev", add_uq=True), tsv.PackedFeatures(os.path.join(root, "features")),
+        tokenizer=tokenizer.WordPieceTokenizer(tokenizer.load_vocab(vocab)), max_text_len=12,
+    )
+    jax_enc = jax_data.EncodedGQA(
+        jax_data.GQADataset(root, "testdev", add_uq=True), jax_data.PackedFeatures(os.path.join(root, "features")),
+        tokenizer=jax_data.WordPieceTokenizer(jax_load_vocab(vocab)), max_text_len=12,
+    )
+    port_batches = list(batching.batch_iterator(
+        port_enc, 8, shuffle=True, rng=np.random.default_rng(3), drop_last=drop_last, with_target=True))
+    jax_batches = list(jax_data.batch_iterator(
+        jax_enc, 8, shuffle=True, rng=np.random.default_rng(3), drop_last=drop_last, with_target=True))
+    assert len(port_batches) == len(jax_batches) == (2 if drop_last else 3)
+    for (pq, pb, pr), (jq, jb, jr) in zip(port_batches, jax_batches):
+        assert pq == jq and pr == jr
+        assert {"target", "id_mask"} <= pb.keys() <= jb.keys()
+        for key in pb:
+            np.testing.assert_array_equal(pb[key], jb[key], err_msg=key)
+    uq = [b["id_mask"] for _, b, _ in port_batches]
+    assert 0 < np.concatenate(uq).mean() < 1  # testdev mixes UQ and answerable rows
+
+
+def test_build_targets_matches(jax_data):
+    from rgqa_tpu.data.dataset import build_targets as jax_build_targets
+
+    rng = np.random.default_rng(0)
+    idx = rng.integers(-1, 9, (5, dataset.MAX_LABELS)).astype(np.int32)
+    score = rng.random((5, dataset.MAX_LABELS), dtype=np.float32)
+    np.testing.assert_array_equal(dataset.build_targets(idx, score, 9), jax_build_targets(idx, score, 9))
+
+
 def test_feature_pack_truncate_and_int8_refusal(roots, tmp_path):
     feats = tsv.PackedFeatures(os.path.join(roots[0], "features"))
     view = feats.truncate(5)

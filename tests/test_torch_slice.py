@@ -5,9 +5,10 @@ loaded with the JAX runner's weights through a reference ``.pth``, score
 the same ``testdev`` split with MSP.  Answers are equal, the dumped
 confidences (rounded to 4 dp by the prediction-JSON contract) are equal
 with at most ``MAX_4DP_FLIPS`` rounding flips, and the metric dicts are
-equal.  A subprocess with jax and flax blocked imports every module of
-the port and runs the evaluate CLI, which shows the port runs where jax
-is absent.
+equal.  A subprocess with jax, flax and the JAX package blocked imports
+every module of the port and runs the train and evaluate CLIs, which
+shows the port runs where jax is absent.  The port's runner is built
+from the port's own ``RunConfig`` and asked for the CPU.
 """
 
 import dataclasses
@@ -20,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from rgqa_tpu.config import DataConfig, EncoderConfig, ModelConfig, OODConfig, RunConfig, TrainConfig
 from rgqa_tpu_torch.checkpoint.convert import from_jax_params, to_reference_state_dict
+from rgqa_tpu_torch import config as port_config
 from rgqa_tpu_torch.cli import evaluate
 from rgqa_tpu_torch.data.dataset import GQADataset
 from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
@@ -31,7 +32,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # f32 on both sides; the sums differ only in order, so a confidence may
 # land on the other side of a 4-dp rounding boundary.  None was seen.
 MAX_4DP_FLIPS = 0
-ENC = EncoderConfig(
+ENC = dict(
     hidden_size=32, num_heads=4, intermediate_size=64, vocab_size=256,
     l_layers=1, x_layers=1, r_layers=1, num_objects=10, visual_feat_dim=48,
 )
@@ -40,16 +41,19 @@ SPEC = dict(n_images=16, n_train=16, n_valid=8, n_testdev=45, num_boxes=10, feat
 CLI_SPEC = dict(n_images=6, n_train=8, n_valid=8, n_testdev=20, seed=5)
 TINY_FLAGS = [
     "--fp32", "--llayers", "1", "--xlayers", "1", "--rlayers", "1",
-    "--hidden_size", "32", "--num_heads", "4", "--batchSize", "16",
+    "--hidden_size", "32", "--num_heads", "4", "--batchSize", "16", "--device", "cpu",
 ]
 
 
-def _cfg(root, out, **kw):
-    return RunConfig(
-        model=ModelConfig(backbone="lxmert", encoder=ENC, max_text_len=12),
-        train=TrainConfig(batch_size=16, use_bf16=False, seed=11),
-        ood=OODConfig(scorer="msp"),
-        data=DataConfig(data_root=root, test_splits="testdev", synthetic=True),
+def _cfg(root, out, config=None, **kw):
+    """The tiny run's config, from the port's ``RunConfig`` or from
+    ``config``, the JAX package's module."""
+    c = config or port_config
+    return c.RunConfig(
+        model=c.ModelConfig(backbone="lxmert", encoder=c.EncoderConfig(**ENC), max_text_len=12),
+        train=c.TrainConfig(batch_size=16, use_bf16=False, seed=11),
+        ood=c.OODConfig(scorer="msp"),
+        data=c.DataConfig(data_root=root, test_splits="testdev", synthetic=True),
         output=out,
         **kw,
     )
@@ -59,17 +63,18 @@ def _cfg(root, out, **kw):
 def both(tmp_path_factory):
     """(jax runner, port runner, data root, tmp dir) sharing weights."""
     pytest.importorskip("jax")
+    from rgqa_tpu import config as jax_config
     from rgqa_tpu.runner import GQARunner as JaxRunner
     from rgqa_tpu.runner import np_params
 
     tmp = tmp_path_factory.mktemp("slice")
     root = str(tmp / "gqa")
     make_synthetic_gqa(root, SyntheticSpec(**SPEC))
-    jax_runner = JaxRunner(_cfg(root, str(tmp / "jax")), init_train=False)
+    jax_runner = JaxRunner(_cfg(root, str(tmp / "jax"), jax_config), init_train=False)
     sd = from_jax_params(np_params(jax_runner.params))
     pth = str(tmp / "jax_weights.pth")
     torch.save(to_reference_state_dict(sd, l_layers=1, x_layers=1, r_layers=1), pth)
-    port_runner = GQARunner(_cfg(root, str(tmp / "port"), load=pth), device="cpu")
+    port_runner = GQARunner(_cfg(root, str(tmp / "port"), load=pth), init_train=False, device="cpu")
     return jax_runner, port_runner, root, tmp
 
 
@@ -166,26 +171,30 @@ def test_runner_refuses_orbax_snapshots_and_unported_options(tmp_path):
     root = str(tmp_path / "gqa")
     make_synthetic_gqa(root, SyntheticSpec(**SPEC))
     with pytest.raises(NotImplementedError, match="orbax"):
-        GQARunner(_cfg(root, str(tmp_path / "o"), load=str(tmp_path / "snap_dir")), device="cpu")
+        GQARunner(_cfg(root, str(tmp_path / "o"), load=str(tmp_path / "snap_dir")),
+                  init_train=False, device="cpu")
     cfg = _cfg(root, str(tmp_path / "o"))
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, branched=True))
     with pytest.raises(NotImplementedError, match="--branched"):
-        GQARunner(cfg, device="cpu")
+        GQARunner(cfg, init_train=False, device="cpu")
 
 
 _JAX_FREE = r"""
-import importlib, json, pkgutil, sys
-for name in [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")]:
+import importlib, json, os, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "rgqa_tpu")
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
-for name in ("jax", "jaxlib", "flax", "orbax"):
+for name in BLOCKED:
     sys.modules[name] = None  # any import of them now raises ImportError
 import rgqa_tpu_torch
 for mod in pkgutil.walk_packages(rgqa_tpu_torch.__path__, "rgqa_tpu_torch."):
     importlib.import_module(mod.name)
-from rgqa_tpu_torch.cli.evaluate import main
-results = main(sys.argv[1:])
-loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")]
-print("RESULT", json.dumps({"keys": sorted(results["testdev"]), "loaded": loaded}))
+from rgqa_tpu_torch.cli import evaluate, train
+argv, out = sys.argv[1:], sys.argv[sys.argv.index("--output") + 1]
+history = train.main(argv + ["--epochs", "1", "--sample_pair"])
+results = evaluate.main(argv + ["--test", "testdev", "--load", os.path.join(out, "LAST.pth")])
+loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in BLOCKED]
+print("RESULT", json.dumps({"keys": sorted(results["testdev"]), "loss": history["loss"], "loaded": loaded}))
 """
 
 
@@ -194,7 +203,7 @@ def test_port_runs_with_jax_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _JAX_FREE, "--synthetic", "--data_root", root,
-         "--test", "testdev", "--output", out, *TINY_FLAGS],
+         "--output", out, *TINY_FLAGS],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -202,4 +211,6 @@ def test_port_runs_with_jax_blocked(tmp_path):
     res = json.loads(line[len("RESULT "):])
     assert res["loaded"] == []
     assert {"auaf", "fpr@0.95acc", "full_acc"} <= set(res["keys"])
-    assert os.path.exists(os.path.join(out, "testdev_predict.json"))
+    assert len(res["loss"]) == 1
+    for name in ("LAST.pth", "LAST.state.pt", "log.log", "testdev_predict.json"):
+        assert os.path.exists(os.path.join(out, name)), name
