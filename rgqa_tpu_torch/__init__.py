@@ -8,10 +8,11 @@ copies, each held to its original by a test.  The module layout mirrors
 ``rgqa_tpu``'s, so each module's counterpart has the same path.  Its
 entry points run on the card unless the caller asks for the CPU.
 
-Ported so far: LXMERT GQA inference with MSP rejection (slice 1) and
-LXMERT GQA fine-tuning with RP pseudo-UQ pairs (slice 2).  Every
-attention call runs through hand-written Hopper kernels in ``csrc/``:
-the forward, its backward, and the dropout forward and backward.
+Ported so far: LXMERT GQA inference with MSP rejection (slice 1),
+LXMERT GQA fine-tuning with RP pseudo-UQ pairs (slice 2) and ViLT-B/32
+GQA inference with MSP rejection (slice 3).  Every attention call runs
+through hand-written Hopper kernels in ``csrc/``: the forward (short and
+long streams), its backward, and the dropout forward and backward.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

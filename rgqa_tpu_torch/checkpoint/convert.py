@@ -1,33 +1,46 @@
 """Weights into the port: from the JAX package's flax trees and from
-reference GQA ``.pth`` checkpoints.
+reference GQA ``.pth`` checkpoints, for LXMERT and ViLT.
 
 The port's parameter names follow the flax tree, so a flax path maps to
 a port key by a plain rename (:func:`port_key`): path components joined
-with dots, the stacked ``lang_i`` / ``visn_i`` / ``x_i`` layers as
-``lang_layers.i`` / ``visn_layers.i`` / ``x_layers.i``, and the leaves
-``kernel`` / ``scale`` / ``embedding`` as ``weight``.  Which paths exist
-comes from :func:`rgqa_tpu_torch.checkpoint.torch_import.lxmert_key_map`
-(a copy of the JAX package's importer key map), read in reverse; flax
-kernels are (in, out) and transpose to ``nn.Linear``'s (out, in).
+with dots, the stacked ``lang_i`` / ``visn_i`` / ``x_i`` / ``block_i``
+layers as ``lang_layers.i`` / ``visn_layers.i`` / ``x_layers.i`` /
+``blocks.i``, and the leaves ``kernel`` / ``scale`` / ``embedding`` as
+``weight``.  Which paths exist comes from the key maps of
+:mod:`rgqa_tpu_torch.checkpoint.torch_import` (copies of the JAX
+package's importer key maps), read in reverse.  Flax dense kernels are
+(in, out) and transpose to ``nn.Linear``'s (out, in); ViLT's patch-conv
+kernel (kh, kw, in, out) goes to the reference ``Conv2d`` layout
+(out, in, kh, kw), which the port keeps.  Reference GQAViLT checkpoints
+hold each block's Q/K/V as one fused ``attn.qkv`` (3E rows); the port
+keeps ``query`` / ``key`` / ``value`` apart, split on load and fused on
+export.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
 
-from rgqa_tpu_torch.checkpoint.torch_import import load_torch_state_dict, lxmert_key_map
+from rgqa_tpu_torch.checkpoint.torch_import import (
+    load_torch_state_dict,
+    lxmert_key_map,
+    vilt_key_map,
+)
 
 __all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
-_STACKED = re.compile(r"^(lang|visn|x)_(\d+)$")
+_STACKED = re.compile(r"^(lang|visn|x|block)_(\d+)$")
+_STACK_NAME = {"lang": "lang_layers", "visn": "visn_layers", "x": "x_layers", "block": "blocks"}
 # Reference GQA checkpoints wrap the encoder (gqa_model.py:14-43); the
 # answer head sits at the top level as logit_fc.*.
 _REF_ENCODER_PREFIX = "lxrt_encoder.model."
+_CONV = "#conv"  # vilt_key_map's marker on the patch-conv weight
+_QKV = re.compile(r"^(transformer\.blocks\.\d+\.attn\.)qkv\.(weight|bias)$")
 
 
 def port_key(fpath: tuple) -> str:
@@ -35,8 +48,8 @@ def port_key(fpath: tuple) -> str:
     parts = []
     for p in fpath[:-1]:
         m = _STACKED.match(p)
-        parts.append(f"{m.group(1)}_layers.{m.group(2)}" if m else p)
-    parts.append(_LEAF[fpath[-1]])
+        parts.append(f"{_STACK_NAME[m.group(1)]}.{m.group(2)}" if m else p)
+    parts.append(_LEAF.get(fpath[-1], fpath[-1]))  # cls_token, pos_embed stay
     return ".".join(parts)
 
 
@@ -50,29 +63,42 @@ def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple, Any]:
     return out
 
 
-def _depths(flat: Mapping[tuple, Any]) -> tuple[int, int, int]:
-    names = {p[1] for p in flat if len(p) > 1 and p[0] == "lxmert"}
-
-    def count(stem):
-        return sum(1 for n in names if re.fullmatch(rf"{stem}_\d+", n))
-
-    return count("lang"), count("x"), count("visn")
+def _count(names, stem: str) -> int:
+    return sum(1 for n in names if re.fullmatch(rf"{stem}_\d+", n))
 
 
-def from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
-    """A ``LxmertForGQA`` flax param tree (nested dicts of numpy or jax
-    arrays) -> the port's f32 ``state_dict``.  Raises on a missing
-    parameter and on parameters the port has no place for."""
+def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
+    """(backbone, key map) for a flattened flax tree; the backbone is read
+    off the tree when not given."""
+    if backbone is None:
+        backbone = "vilt" if ("cls_token",) in flat else "lxmert"
+    if backbone == "vilt":
+        return backbone, vilt_key_map(_count({p[0] for p in flat}, "block"))
+    if backbone == "lxmert":
+        names = {p[1] for p in flat if len(p) > 1 and p[0] == "lxmert"}
+        return backbone, lxmert_key_map(
+            _count(names, "lang"), _count(names, "x"), _count(names, "visn")
+        )
+    raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
+
+
+def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str, torch.Tensor]:
+    """A ``LxmertForGQA`` or ``ViltForGQA`` flax param tree (nested dicts
+    of numpy or jax arrays; ``backbone`` None reads which off the tree)
+    -> the port's f32 ``state_dict``.  Raises on a missing parameter and
+    on parameters the port has no place for."""
     flat = _flatten(params)
-    l_layers, x_layers, r_layers = _depths(flat)
+    _, key_map = _key_map(flat, backbone)
     sd = {}
-    for _, fpath, transpose in lxmert_key_map(l_layers, x_layers, r_layers):
+    for tkey, fpath, transpose in key_map:
         if fpath not in flat:
             raise KeyError(f"flax tree has no {'/'.join(fpath)}")
         val = np.asarray(flat.pop(fpath), dtype=np.float32)
-        sd[port_key(fpath)] = torch.from_numpy(  # np.array copies: owned, writable
-            np.array(val.T if transpose else val, order="C")
-        )
+        if tkey.endswith(_CONV):
+            val = val.transpose(3, 2, 0, 1)  # (kh, kw, in, out) -> (out, in, kh, kw)
+        elif transpose:
+            val = val.T
+        sd[port_key(fpath)] = torch.from_numpy(np.array(val, order="C"))  # owned, writable
     if flat:
         raise ValueError(
             "flax parameters the port has no place for: "
@@ -81,37 +107,73 @@ def from_jax_params(params: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-def _reference_pairs(l_layers: int, x_layers: int, r_layers: int):
-    """(reference GQA .pth key, port key) for every parameter."""
+def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int, num_layers: int):
+    """(reference .pth key, port key) for every parameter; ViLT's keys
+    with its Q/K/V apart (``attn.query`` ...)."""
+    if backbone == "vilt":
+        for tkey, fpath, _ in vilt_key_map(num_layers):
+            yield tkey.removesuffix(_CONV), port_key(fpath)
+        return
+    if backbone != "lxmert":
+        raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
     for tkey, fpath, _ in lxmert_key_map(l_layers, x_layers, r_layers):
         rkey = tkey if tkey.startswith("logit_fc") else _REF_ENCODER_PREFIX + tkey
         yield rkey, port_key(fpath)
 
 
 def to_reference_state_dict(
-    sd: Mapping[str, torch.Tensor], *, l_layers: int = 9, x_layers: int = 5,
-    r_layers: int = 5,
+    sd: Mapping[str, torch.Tensor], *, backbone: str = "lxmert", l_layers: int = 9,
+    x_layers: int = 5, r_layers: int = 5, num_layers: int = 12,
 ) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` under the reference GQA model's key
-    names: ``torch.save`` it to hand the weights to the reference code,
-    to the JAX package's importer, or to ``--load``."""
-    return {
+    names (GQA-LXMERT, or GQAViLT with each block's Q/K/V fused into
+    ``attn.qkv``): ``torch.save`` it to hand the weights to the reference
+    code, to the JAX package's importer, or to ``--load``."""
+    out = {
         rkey: sd[pkey].detach().cpu()
-        for rkey, pkey in _reference_pairs(l_layers, x_layers, r_layers)
+        for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers)
     }
+    if backbone == "vilt":
+        for i in range(num_layers):
+            base = f"transformer.blocks.{i}.attn."
+            for leaf in ("weight", "bias"):
+                out[f"{base}qkv.{leaf}"] = torch.cat(
+                    [out.pop(f"{base}{name}.{leaf}") for name in ("query", "key", "value")]
+                )
+    return out
+
+
+def _split_qkv(ref: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """GQAViLT's fused ``attn.qkv`` rows (3E) -> ``attn.{query,key,value}``;
+    HF ``position_ids`` buffers dropped."""
+    out = {}
+    for key, val in ref.items():
+        m = _QKV.match(key)
+        if m:
+            e = val.shape[0] // 3
+            for j, name in enumerate(("query", "key", "value")):
+                out[f"{m.group(1)}{name}.{m.group(2)}"] = val[j * e : (j + 1) * e]
+        elif not key.endswith("position_ids"):
+            out[key] = val
+    return out
 
 
 def load_reference_pth(
-    path: str, *, l_layers: int = 9, x_layers: int = 5, r_layers: int = 5
+    path: str, *, backbone: str = "lxmert", l_layers: int = 9, x_layers: int = 5,
+    r_layers: int = 5, num_layers: int = 12,
 ) -> tuple[dict[str, torch.Tensor], list[str], list[str]]:
-    """Load a reference GQA-LXMERT ``.pth`` (``lxrt_encoder.model.bert.*``
-    + ``logit_fc.*``) through ``load_torch_state_dict`` (``module.``
-    strip, gamma/beta renames).  Torch Linear weights are
-    already (out, in), so nothing transposes.  Returns (state_dict,
-    missing reference keys, unused reference keys)."""
+    """Load a reference GQA-LXMERT (``lxrt_encoder.model.bert.*`` +
+    ``logit_fc.*``) or GQAViLT (``transformer.*``, ``text_embeddings.*``,
+    ``vqa_classifier.*``, ...) ``.pth`` through ``load_torch_state_dict``
+    (``module.`` strip, gamma/beta renames).  Torch Linear and Conv2d
+    weights are already in the port's layout, so nothing transposes;
+    ViLT's fused ``attn.qkv`` is split.  Returns (state_dict, missing
+    reference keys, unused reference keys)."""
     ref = load_torch_state_dict(path)
+    if backbone == "vilt":
+        ref = _split_qkv(ref)
     sd, missing, used = {}, [], set()
-    for rkey, pkey in _reference_pairs(l_layers, x_layers, r_layers):
+    for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers):
         if rkey not in ref:
             missing.append(rkey)
             continue

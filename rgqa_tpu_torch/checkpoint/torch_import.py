@@ -1,4 +1,4 @@
-"""Reference checkpoint key names: a copy of the two pieces of the JAX
+"""Reference checkpoint key names: a copy of the three pieces of the JAX
 package's ``rgqa_tpu/checkpoint/torch_import.py`` that the port uses.
 
 - :func:`load_torch_state_dict` reads a reference ``.pth`` with the
@@ -10,15 +10,21 @@ package's ``rgqa_tpu/checkpoint/torch_import.py`` that the port uses.
   ``src/lxrt/modeling.py`` (BertAttention 295-347, BertAttOutput 350-362,
   LXRTXLayer 439-488, VisualFeatEncoder 491-517) and
   ``src/tasks/gqa_model.py:20-27`` (``logit_fc.{0,2,3}``).
+- :func:`vilt_key_map` lists every GQAViLT parameter likewise
+  (``src/vilt/vilt.py:8-44`` over the vendored timm ViT-B/32), with the
+  fused ``attn.qkv`` tensors split into ``attn.{query,key,value}`` and
+  the patch conv's weight under a ``#conv`` marker (its layout differs
+  from flax's; ``checkpoint/convert.py`` handles both).
 
-``tests/test_torch_port_rules.py`` holds both to their originals.
+``tests/test_torch_port_rules.py`` and ``tests/test_torch_vilt.py`` hold
+them to their originals.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["load_torch_state_dict", "lxmert_key_map"]
+__all__ = ["load_torch_state_dict", "lxmert_key_map", "vilt_key_map"]
 
 
 def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
@@ -141,4 +147,48 @@ def lxmert_key_map(
         m += _dense("conf_fc.0", ("conf_head", "dense"))
         m += _ln("conf_fc.2", ("conf_head", "ln"))
         m += _dense("conf_fc.3", ("conf_head", "logits"))
+    return m
+
+
+def vilt_key_map(num_layers: int = 12) -> list[tuple[str, tuple, bool]]:
+    """Key map for reference GQAViLT checkpoints (``src/vilt/vilt.py:8-44``
+    over the vendored timm ViT-B/32, ``src/vilt/modules/
+    vision_transformer.py``).
+
+    Expects the fused ``attn.qkv`` tensors to have been pre-split into
+    ``attn.{query,key,value}``.
+    """
+    m: list[tuple[str, tuple, bool]] = []
+    m += _embeddings("text_embeddings", ("text_embeddings",))
+    # GQAViLT's own modality token-type table (vilt.py:28-29).
+    m.append(
+        ("token_type_embeddings.weight", ("modality_type", "embedding"), False)
+    )
+    m.append(("transformer.cls_token", ("cls_token",), False))
+    m.append(("transformer.pos_embed", ("pos_embed",), False))
+    # Conv2d weight (out, in, kh, kw) -> flax Conv kernel (kh, kw, in, out):
+    # a custom transpose marker.
+    m.append(
+        ("transformer.patch_embed.proj.weight#conv",
+         ("patch_embed", "proj", "kernel"), False)
+    )
+    m.append(
+        ("transformer.patch_embed.proj.bias",
+         ("patch_embed", "proj", "bias"), False)
+    )
+    for i in range(num_layers):
+        t = f"transformer.blocks.{i}"
+        f = (f"block_{i}",)
+        m += _ln(f"{t}.norm1", f + ("norm1",))
+        for name in ("query", "key", "value"):
+            m += _dense(f"{t}.attn.{name}", f + (name,))
+        m += _dense(f"{t}.attn.proj", f + ("att_out",))
+        m += _ln(f"{t}.norm2", f + ("norm2",))
+        m += _dense(f"{t}.mlp.fc1", f + ("mlp_in",))
+        m += _dense(f"{t}.mlp.fc2", f + ("mlp_out",))
+    m += _ln("transformer.norm", ("norm",))
+    m += _dense("pooler.dense", ("pooler", "dense"))
+    m += _dense("vqa_classifier.0", ("answer_head", "dense"))
+    m += _ln("vqa_classifier.1", ("answer_head", "ln"))
+    m += _dense("vqa_classifier.3", ("answer_head", "logits"))
     return m

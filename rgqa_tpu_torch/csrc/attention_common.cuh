@@ -5,10 +5,15 @@
 //
 // Every kernel runs one block per (batch row, head) and keeps that pair's
 // whole problem in shared memory (LXMERT's sequences are 20 and 36 tokens,
-// heads 64 wide).  The forward and backward bodies are templates on
-// kDrop: the dropout kernels are the same code with the mask applied, so
-// at rate 0 (threshold 0, keep scale 1) they compute bit for bit what the
-// deterministic ones do.
+// heads 64 wide).  The f32 forward body also takes a query tile (kTileQ
+// rows each): fused_attention_long.cu runs it, and a bf16 body of its
+// own, on a (batch row, head, query tile) grid for ViLT's 165-185-token
+// streams, with each tile's complete softmax over every key; at <= 64
+// query rows there is one tile and the body is the short kernel's.  The
+// forward and
+// backward bodies are templates on kDrop: the dropout kernels are the
+// same code with the mask applied, so at rate 0 (threshold 0, keep scale
+// 1) they compute bit for bit what the deterministic ones do.
 //
 // The dropout mask is keyed on the element: keep(b, h, i, j) is byte
 // j % 16 of Philox4x32-10 at counter (j / 16, i, h, b) under the 64-bit
@@ -27,6 +32,11 @@ namespace {
 
 constexpr int kMaxSeq = 64;
 constexpr int kMaxDim = 64;
+// The long-stream forward (fused_attention_long.cu): any number of query
+// rows in tiles of kTileQ, up to kLongMaxKv keys, kLongMaxKv / 32 keys
+// per lane in the softmax.
+constexpr int kTileQ = 64;
+constexpr int kLongMaxKv = 256;
 
 struct Args {
   const void* q;        // (B, Sq, H*D), element strides below
@@ -88,34 +98,46 @@ __device__ __forceinline__ bool dropout_keep(const Args& a, int b, int h, int i,
 // ---------------------------------------------------------------------------
 
 // Row softmax of s (sq x skv, row stride lds) by warps; each lane holds
-// columns lane and lane + 32.  A row whose scores are all large negative
-// (fully masked by -10000) still has a finite max, so every e is finite
-// and the sum >= 1.  emit(i, j, p) stores one probability, for every
-// i < rows and j < cols: rows and columns beyond sq x skv get p = 0 (the
-// zero padding of the tensor-core body).
-template <typename Emit>
+// the kPerLane columns lane, lane + 32, ... (so skv <= 32 kPerLane).  A
+// row whose scores are all large negative (fully masked by -10000) still
+// has a finite max, so every e is finite and the sum >= 1.  emit(i, j, p)
+// stores one probability, for every i < rows and j < cols: rows and
+// columns beyond sq x skv get p = 0 (the zero padding of the tensor-core
+// body).  The max and the lane's sum run over its columns in order.
+template <int kPerLane = 2, typename Emit>
 __device__ __forceinline__ void softmax_rows(const float* s, int lds, int sq, int skv,
                                              int rows, int cols, int warp, int warps,
                                              int lane, Emit emit) {
   for (int i = warp; i < rows; i += warps) {
-    float p0 = 0.f, p1 = 0.f;
+    float p[kPerLane];
+#pragma unroll
+    for (int c = 0; c < kPerLane; ++c) p[c] = 0.f;
     if (i < sq) {
       const float* row = s + i * lds;
-      const float x0 = lane < skv ? row[lane] : -CUDART_INF_F;
-      const float x1 = lane + 32 < skv ? row[lane + 32] : -CUDART_INF_F;
-      float m = fmaxf(x0, x1);
+      float x[kPerLane];
+#pragma unroll
+      for (int c = 0; c < kPerLane; ++c) {
+        x[c] = lane + 32 * c < skv ? row[lane + 32 * c] : -CUDART_INF_F;
+      }
+      float m = x[0];
+#pragma unroll
+      for (int c = 1; c < kPerLane; ++c) m = fmaxf(m, x[c]);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float e0 = lane < skv ? expf(x0 - m) : 0.f;
-      const float e1 = lane + 32 < skv ? expf(x1 - m) : 0.f;
-      float sum = e0 + e1;
+#pragma unroll
+      for (int c = 0; c < kPerLane; ++c) p[c] = lane + 32 * c < skv ? expf(x[c] - m) : 0.f;
+      float sum = p[0];
+#pragma unroll
+      for (int c = 1; c < kPerLane; ++c) sum += p[c];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p0 = e0 / sum;
-      p1 = e1 / sum;
+#pragma unroll
+      for (int c = 0; c < kPerLane; ++c) p[c] = p[c] / sum;
     }
-    if (lane < cols) emit(i, lane, p0);
-    if (lane + 32 < cols) emit(i, lane + 32, p1);
+#pragma unroll
+    for (int c = 0; c < kPerLane; ++c) {
+      if (lane + 32 * c < cols) emit(i, lane + 32 * c, p[c]);
+    }
   }
 }
 
@@ -150,8 +172,21 @@ __device__ __forceinline__ void scores_f32(float* ps, int ldp, const float* qs,
 constexpr int kMmaThreads = 128;
 constexpr int kMmaWarps = kMmaThreads / 32;
 
+// 16 bytes global -> shared without passing through registers; the copy
+// lands once the issuing thread runs cp_async_wait_all().
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // rows_p x dp tile of a strided (rows x d) bf16 source into shared memory,
-// zero outside it; 16-byte copies when the source allows them.
+// zero outside it.  When the source allows 16-byte copies they go out as
+// cp.async, all in flight at once: the caller runs cp_async_wait_all()
+// before the barrier that publishes the tile.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
                                           const __nv_bfloat16* src, long long rs,
                                           int rows, int rows_p, int d, int dp, int tid) {
@@ -161,9 +196,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
     const int chunks = dp / 8;
     for (int i = tid; i < rows_p * chunks; i += kMmaThreads) {
       const int r = i / chunks, c = i % chunks * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r < rows && c < d) val = __ldg(reinterpret_cast<const uint4*>(src + r * rs + c));
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+      if (r < rows && c < d) {
+        cp_async16(dst + r * ld + c, src + r * rs + c);
+      } else {
+        *reinterpret_cast<uint4*>(dst + r * ld + c) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   } else {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
@@ -264,54 +301,92 @@ __device__ __forceinline__ void scores_mma(float* ss, const __nv_bfloat16* qs,
 // Forward.  out[b, :, h*D:(h+1)*D] = softmax(q_h k_h^T * scale + bias) v_h,
 // with P (dropped and scaled when kDrop) rounded to the input dtype before
 // the PV product, as the Pallas _fused_kernel / _fused_drop_kernel.
+//
+// A long-stream block (fwd_tile; the f32 body here, the bf16 one in
+// fused_attention_long.cu), blockIdx.x = (b * heads + h) * tiles + tile,
+// computes the query rows [q0, q0 + rows) with q0 = tile * kTileQ: the
+// tile's Q, the row's whole K and V, and each query row's complete softmax
+// over all skv keys (one pass, no online rescaling), as the Pallas
+// query-tiled grid (_fused_qblocked_raw) does.  The tile index runs
+// fastest, so the tiles of one (row, head) run together.  Shared memory
+// is sized for tile_rows(sq) = min(sq, kTileQ) query rows.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Threads = 256;
+// The long stream's f32 block holds one query tile and a whole row's K
+// and V, so one block fills an SM's shared memory: its warps alone hide
+// the latency of the shared-memory loads, hence four times the threads.
+constexpr int kLongF32Threads = 4 * kF32Threads;
+constexpr int kLongPerLane = kLongMaxKv / 32;
+
+__host__ __device__ inline int tile_rows(int sq) { return sq < kTileQ ? sq : kTileQ; }
+
+// The (batch row, head, query tile) a forward block works on; t is the
+// block's Args with q moved to the tile's first row and sq = its rows.
+struct FwdTile {
+  int b, h, q0;
+  Args t;
+};
+
+__device__ __forceinline__ FwdTile fwd_tile(const Args& a, size_t elem) {
+  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
+  const int bh = blockIdx.x / tiles;
+  FwdTile f;
+  f.b = bh / a.heads;
+  f.h = bh % a.heads;
+  f.q0 = blockIdx.x % tiles * kTileQ;
+  f.t = a;
+  f.t.q = static_cast<const unsigned char*>(a.q) + f.q0 * a.q_rs * elem;
+  f.t.sq = min(a.sq - f.q0, kTileQ);
+  return f;
+}
 
 // f32: CUDA cores (fmaf), exact to the plain version's summation order
 // rather than rounding operands to TF32.  Shared memory, f32: Q (sq x ld),
 // K, V (skv x ld), S/P (sq x (skv + 1)), bias; ld = dim + 1 so that
-// threads walking K rows hit distinct banks.
+// threads walking K rows hit distinct banks; sq = tile_rows(a.sq).
 size_t fwd_f32_smem_bytes(int sq, int skv, int d) {
   const size_t ld = d + 1;
   return sizeof(float) * (sq * ld + 2 * skv * ld + sq * (skv + 1) + skv);
 }
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kF32Threads) fused_attention_f32(Args a) {
+template <bool kDrop, int kPerLane = 2, int kThreads = kF32Threads>
+__global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
   extern __shared__ float smem[];
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int sq = a.sq, skv = a.skv, d = a.dim;
+  const FwdTile f = fwd_tile(a, sizeof(float));
+  const int b = f.b, h = f.h, q0 = f.q0;
+  const int sq = f.t.sq, skv = a.skv, d = a.dim;
   const int ld = d + 1, ldp = skv + 1;
   float* qs = smem;
-  float* ks = qs + sq * ld;
+  float* ks = qs + tile_rows(a.sq) * ld;
   float* vs = ks + skv * ld;
   float* ps = vs + skv * ld;
-  float* bs = ps + sq * ldp;
+  float* bs = ps + tile_rows(a.sq) * ldp;
   const int tid = threadIdx.x;
 
-  load_rows_f32(qs, ld, static_cast<const float*>(a.q) + b * a.q_bs + h * d, a.q_rs, sq, d,
-                tid, kF32Threads);
+  load_rows_f32(qs, ld, static_cast<const float*>(f.t.q) + b * a.q_bs + h * d, a.q_rs, sq, d,
+                tid, kThreads);
   load_rows_f32(ks, ld, static_cast<const float*>(a.k) + b * a.k_bs + h * d, a.k_rs, skv, d,
-                tid, kF32Threads);
+                tid, kThreads);
   load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + h * d, a.v_rs, skv, d,
-                tid, kF32Threads);
-  for (int j = tid; j < skv; j += kF32Threads) bs[j] = a.bias[b * skv + j];
+                tid, kThreads);
+  for (int j = tid; j < skv; j += kThreads) bs[j] = a.bias[b * skv + j];
   __syncthreads();
 
-  scores_f32(ps, ldp, qs, ks, ld, bs, a, tid, kF32Threads);
+  scores_f32(ps, ldp, qs, ks, ld, bs, f.t, tid, kThreads);
   __syncthreads();
 
-  softmax_rows(ps, ldp, sq, skv, sq, skv, tid / 32, kF32Threads / 32, tid % 32,
-               [&](int i, int j, float p) {
-                 if (kDrop) p = dropout_keep(a, b, h, i, j) ? p * a.keep_scale : 0.f;
-                 ps[i * ldp + j] = p;
-               });
+  softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, tid / 32, kThreads / 32, tid % 32,
+                         [&](int i, int j, float p) {
+                           if (kDrop) p = dropout_keep(a, b, h, q0 + i, j) ? p * a.keep_scale : 0.f;
+                           ps[i * ldp + j] = p;
+                         });
   __syncthreads();
 
-  float* out = static_cast<float*>(a.out) + static_cast<long long>(b) * sq * a.heads * d + h * d;
   const long long out_rs = static_cast<long long>(a.heads) * d;
-  for (int idx = tid; idx < sq * d; idx += kF32Threads) {
+  float* out = static_cast<float*>(a.out) + static_cast<long long>(b) * a.sq * out_rs +
+               q0 * out_rs + h * d;
+  for (int idx = tid; idx < sq * d; idx += kThreads) {
     const int i = idx / d, c = idx % d;
     const float* pi = ps + i * ldp;
     float acc = 0.f;
@@ -376,6 +451,7 @@ __global__ void __launch_bounds__(kMmaThreads) fused_attention_bf16(Args a) {
   load_tile(vs, L.ldq, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * d,
             a.v_rs, skv, L.skp, d, L.dp, tid);
   for (int j = tid; j < skv; j += kMmaThreads) bs[j] = a.bias[b * skv + j];
+  cp_async_wait_all();
   __syncthreads();
 
   scores_mma(ss, qs, ks, L.ldq, L.sqp, L.dp, bs, a, warp, lane);
@@ -610,6 +686,7 @@ __global__ void __launch_bounds__(kMmaThreads) fused_attention_bwd_bf16(Args a) 
   load_rows_f32(gf, L.ld, static_cast<const __nv_bfloat16*>(a.g) + b * sq * row + h * d,
                 row, sq, d, tid, kMmaThreads);
   for (int j = tid; j < skv; j += kMmaThreads) bs[j] = a.bias[b * skv + j];
+  cp_async_wait_all();
   __syncthreads();
 
   scores_mma(ps, qs, ks, L.ldq, L.sqp, L.dp, bs, a, warp, lane);
@@ -660,6 +737,13 @@ bool within_limits(int batch, int sq, int skv, int heads, int dim) {
          skv <= kMaxSeq && dim <= kMaxDim;
 }
 
+// The long-stream forward: any sq (in query tiles), skv <= kLongMaxKv.
+bool within_long_limits(int batch, int sq, int skv, int heads, int dim) {
+  return batch > 0 && sq > 0 && skv > 0 && heads > 0 && dim > 0 &&
+         static_cast<long long>(batch) * heads * ((sq + kTileQ - 1) / kTileQ) < (1LL << 31) &&
+         skv <= kLongMaxKv && dim <= kMaxDim;
+}
+
 Args make_args(const void* q, const void* k, const void* v, const void* bias, int sq,
                int skv, int heads, int dim, long long q_bs, long long q_rs, long long k_bs,
                long long k_rs, long long v_bs, long long v_rs, float scale) {
@@ -684,20 +768,21 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias, in
   return a;
 }
 
+// One block per (batch row, head, query tile), the tile fastest.
 template <typename Kernel>
 int launch(Kernel kernel, const Args& a, int batch, int threads, size_t smem,
-           cudaStream_t stream) {
+           cudaStream_t stream, int tiles = 1) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const unsigned blocks = static_cast<unsigned>(batch) * a.heads;
+  const unsigned blocks = static_cast<unsigned>(batch) * a.heads * static_cast<unsigned>(tiles);
   kernel<<<blocks, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16; sq <= kMaxSeq (one query tile).
 template <bool kDrop>
 int launch_fwd(const Args& a, int dtype, int batch, cudaStream_t s) {
   if (dtype == 0) {

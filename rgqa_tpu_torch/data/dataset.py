@@ -3,10 +3,13 @@
 
 A copy, because ``rgqa_tpu/data/dataset.py`` imports flax (through
 ``models.uniter`` for UNITER's box transform) and ``rgqa_tpu.data``'s
-``__init__`` imports jax; the port runs where they are absent.  Only the
-lxmert branch is here: questions tokenized once into (N, T) int32
-arrays and boxes normalized to [0, 1] (``norm4``).  The UNITER, BUTD,
-caption, ViLT-pixel and TreeMix-parse branches are not ported yet.
+``__init__`` imports jax; the port runs where they are absent.  Two branches
+are here: lxmert (questions tokenized once into (N, T) int32 arrays,
+boxes normalized to [0, 1], ``norm4``) and vilt (the same questions;
+pixels per batch from an image source, on the ``u8`` wire as uint8 rows
++ rects + the rect-derived pad-patch mask, on the ``f32`` wire as
+normalized f32 pixels).  The UNITER, BUTD, caption and TreeMix-parse
+branches and train-time image augmentation are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import os
 
 import numpy as np
 
+from rgqa_tpu_torch.data.images import load_image_batch, load_image_batch_u8, rect_patch_mask
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 
@@ -81,13 +85,17 @@ def build_targets(
 
 
 class EncodedGQA:
-    """A dataset encoded into fixed-shape arrays (lxmert inputs).
+    """A dataset encoded into fixed-shape arrays (lxmert and vilt inputs).
 
     Fields: ``question_ids`` (list[str]); ``input_ids / input_mask /
     segment_ids`` (N, T) int32; ``img_row`` (N,) int32 into the feature
     pack; ``label_idx`` (N, MAX_LABELS) int32 (-1 = empty) and
     ``label_score`` (N, MAX_LABELS) f32; ``img_boxes`` (images, K, 4)
     f32, boxes normalized by image size and clipped to [0, 1].
+
+    ``backbone="vilt"`` takes pixels from ``image_source`` (a
+    ``data.images.GQAImageSource`` or ``PixelPack``) on ``pixel_wire``
+    ``"u8"`` or ``"f32"``; ``pixel_patch_size`` sizes the pad-patch mask.
     """
 
     def __init__(
@@ -97,7 +105,21 @@ class EncodedGQA:
         *,
         tokenizer: WordPieceTokenizer,
         max_text_len: int = 20,
+        backbone: str = "lxmert",
+        image_source=None,
+        pixel_wire: str = "f32",
+        pixel_patch_size: int = 32,
     ):
+        if backbone not in ("lxmert", "vilt"):
+            raise NotImplementedError(f"the {backbone} data branch is not ported yet")
+        if pixel_wire not in ("f32", "u8"):
+            raise ValueError(f"pixel_wire must be f32|u8, got {pixel_wire!r}")
+        if backbone == "vilt" and image_source is None:
+            raise ValueError("the vilt branch needs an image_source")
+        self.backbone = backbone
+        self.image_source = image_source
+        self.pixel_wire = pixel_wire
+        self.pixel_patch_size = pixel_patch_size
         self.dataset = dataset
         self.features = features
         self.num_answers = dataset.num_answers
@@ -148,9 +170,23 @@ class EncodedGQA:
             "input_ids": self.input_ids[idx],
             "input_mask": self.input_mask[idx],
             "segment_ids": self.segment_ids[idx],
-            "feats": np.asarray(self.features.features[rows], np.float32),
-            "boxes": self.img_boxes[rows],
         }
+        if self.backbone == "vilt":
+            ids = [self.features.img_ids[r] for r in rows]
+            if self.pixel_wire == "u8":
+                # uint8 rows + rects; the model's adapter normalizes on the
+                # device, and the pad-patch mask ships as geometry.
+                u8, rects = load_image_batch_u8(self.image_source, ids)
+                batch["pixels_u8"] = u8
+                batch["pixel_rect"] = rects
+                batch["pixel_mask"] = rect_patch_mask(
+                    rects, self.image_source.size, self.pixel_patch_size
+                )
+            else:
+                batch["pixels"] = load_image_batch(self.image_source, ids)
+        else:
+            batch["feats"] = np.asarray(self.features.features[rows], np.float32)
+            batch["boxes"] = self.img_boxes[rows]
         if with_target:
             target = build_targets(self.label_idx[idx], self.label_score[idx], self.num_answers)
             if self.dataset.label2ans and self.dataset.label2ans[-1] == UQ_ANSWER:

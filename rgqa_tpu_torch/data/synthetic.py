@@ -6,10 +6,24 @@ A copy, because importing anything under ``rgqa_tpu.data`` runs its
 are absent.  It makes the same draws in the same order, so a root made
 here holds the same question splits, answer vocab, feature pack and
 ``vocab.txt`` as one made by the JAX package (``tests/test_torch_data.py``).
-Left out: the raw JPEGs (ViLT/CLIP paths), ``image2caps.json`` (caption
-matcher), ``objects_vocab.txt`` (FRCNN-coverage scorer) and the VQA
-generator, none of which the port reads yet.  They are drawn last, so
-leaving them out changes no other array.
+
+Images for ViLT.  The JAX generator draws a 32 x 32 uint8 base image per
+image id after every other array and writes it as a 64 x 64 JPEG
+(bicubic), which its image source decodes and resizes to 384 (bicubic
+again).  The machine with the card has no PIL, so the port neither
+writes nor decodes JPEGs: it makes the same base-image draws in the same
+order (so nothing else moves), keeps them in ``synthetic_images_u8.npy``
+and :func:`make_synthetic_pixel_pack` writes them, upsampled by nearest
+neighbour, straight into a pixel pack ``pixels_<size>_<mode>/`` recorded
+as built from ``<root>/images``, which the JAX package's ``PixelPack``
+and runner read unchanged.  These pixels are therefore not the JAX
+generator's JPEG-then-bicubic ones: a parity test feeds both packages
+from one pack.  The images are square, so every rect is the whole image
+in both modes.
+
+Left out: ``image2caps.json`` (caption matcher), ``objects_vocab.txt``
+(FRCNN-coverage scorer) and the VQA generator, none of which the port
+reads yet; they draw nothing, so leaving them out changes no array.
 
 Questions are template-generated over a small object/attribute lexicon;
 each image's "dominant answer" dimension is boosted in its features, so
@@ -26,7 +40,10 @@ import numpy as np
 
 from rgqa_tpu_torch.data.tokenizer import PAD, UNK, CLS, SEP, MASK
 
-__all__ = ["make_synthetic_gqa", "SyntheticSpec"]
+__all__ = ["make_synthetic_gqa", "make_synthetic_pixel_pack", "SyntheticSpec", "BASE_IMAGES"]
+
+# The 32 x 32 base images, (n_images, 32, 32, 3) uint8, under the root.
+BASE_IMAGES = "synthetic_images_u8.npy"
 
 _OBJECTS = [
     "apple", "ball", "car", "dog", "elephant", "fork", "guitar", "hat",
@@ -234,6 +251,16 @@ def make_synthetic_gqa(
     with open(os.path.join(feat_dir, "img_ids.json"), "w") as f:
         json.dump(img_ids, f)
 
+    # Base images for the ViLT path: mean colour encodes the dominant
+    # answer (the JAX generator's draws, before its JPEG step).
+    base = np.empty((n, 32, 32, 3), np.uint8)
+    for i in range(n):
+        img = rng.integers(0, 60, (32, 32, 3)).astype(np.uint8)
+        hue = (dominant[i] * 37) % 256
+        img[..., 0] = np.clip(img[..., 0] + hue, 0, 255)
+        base[i] = img
+    np.save(os.path.join(root, BASE_IMAGES), base)
+
     # WordPiece vocab covering the question lexicon.
     words = sorted(
         set(
@@ -261,3 +288,24 @@ def make_synthetic_gqa(
         "splits": sorted(splits),
         "num_answers": len(answers),
     }
+
+
+def make_synthetic_pixel_pack(root: str, size: int = 384, mode: str = "pad"):
+    """Write ``<root>/pixels_<size>_<mode>/``, a pixelbert pixel pack of the
+    synthetic root's base images upsampled to ``size`` by nearest
+    neighbour, recorded as built from ``<root>/images``; returns it as a
+    :class:`~rgqa_tpu_torch.data.images.PixelPack`."""
+    from rgqa_tpu_torch.data.images import write_pixel_pack
+
+    if mode not in ("pad", "crop"):
+        raise ValueError(f"mode must be pad|crop, got {mode!r}")
+    base = np.load(os.path.join(root, BASE_IMAGES))
+    with open(os.path.join(root, "features", "img_ids.json")) as f:
+        img_ids = json.load(f)
+    src = np.arange(size) * base.shape[1] // size  # nearest source row/column
+    pixels = base[:, src][:, :, src]
+    rects = np.tile(np.asarray([0, 0, size, size], np.int32), (len(img_ids), 1))
+    return write_pixel_pack(
+        os.path.join(root, f"pixels_{size}_{mode}"), os.path.join(root, "images"),
+        img_ids, pixels, rects, size=size, mode=mode,
+    )

@@ -1,9 +1,15 @@
 """Build a backbone + a uniform forward adapter (port of
-``rgqa_tpu/models/zoo.py``, lxmert only).
+``rgqa_tpu/models/zoo.py``: lxmert and vilt).
 
-``forward(batch, **kw) -> dict`` takes a dict batch of tensors with the
-keys ``input_ids``, ``input_mask``, ``segment_ids`` (B, T), ``feats``
-(B, K, 2048) and ``boxes`` (B, K, 4).
+``forward(batch, **kw) -> dict`` takes a dict batch of tensors:
+
+- lxmert: ``input_ids``, ``input_mask``, ``segment_ids`` (B, T),
+  ``feats`` (B, K, 2048) and ``boxes`` (B, K, 4);
+- vilt: ``input_ids``, ``input_mask`` (B, T) and either ``pixels``
+  (B, S, S, 3) f32 (the ``f32`` wire; pad patches masked from content)
+  or ``pixels_u8`` (B, S, S, 3) uint8 + ``pixel_rect`` (B, 4), normalized
+  on the device (the ``u8`` wire), with ``pixel_mask`` (B, patches) when
+  the batch carries one.
 """
 
 from __future__ import annotations
@@ -16,39 +22,62 @@ from torch import nn
 
 from rgqa_tpu_torch.config import ModelConfig
 from rgqa_tpu_torch.device import resolve_device
+from rgqa_tpu_torch.models.lxmert import LxmertForGQA
 from rgqa_tpu_torch.models.transformer import LayerNorm
+from rgqa_tpu_torch.models.vilt import ViltForGQA
+from rgqa_tpu_torch.ops.pixels import pixelbert_normalize
 
 __all__ = ["build_model", "default_config", "example_batch", "init_weights"]
 
 DENSE_INIT_STD = 0.02  # BERT's normal init, flax ``dense_init`` in the JAX package
 
 
-def default_config() -> ModelConfig:
-    """The full-width LXMERT GQA configuration: 9 language / 5 vision / 5
-    cross layers x 768, 12 heads, vocab 30522, 1842 answers, 36 RoI
-    features of 2048, dropout 0.1."""
-    return ModelConfig()
+def default_config(backbone: str = "lxmert") -> ModelConfig:
+    """A full-width GQA configuration.
+
+    - ``"lxmert"``: 9 language / 5 vision / 5 cross layers x 768, 12
+      heads, vocab 30522, 1842 answers, 36 RoI features of 2048, dropout
+      0.1, 20 text tokens.
+    - ``"vilt"``: ViLT-B/32, 12 pre-norm layers x 768, 12 heads, MLP 3072,
+      vocab 30522, 1842 answers, 384 px images in 32 px patches (144 +
+      CLS), 40 text tokens: the reference's 185-token stream
+      (``docs/vilt_images.md``).
+    """
+    if backbone == "lxmert":
+        return ModelConfig()
+    if backbone == "vilt":
+        return ModelConfig(
+            backbone="vilt", max_text_len=40, vilt_patch_size=32, vilt_image_size=384
+        )
+    raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """The JAX package's init: normal(0, 0.02) for dense and embedding
-    weights, zero biases, LayerNorm ones/zeros.  Draws in module order
-    from ``generator``, which must live on the model's device."""
+    weights and ViLT's position table, zero biases and CLS token,
+    LayerNorm ones/zeros.  The ViLT patch conv takes normal(0, 0.02) too
+    (flax's Conv default is lecun-normal, std 1/sqrt(fan_in) = 0.018 at
+    ViT-B/32).  Draws in module order from ``generator``, which must live
+    on the model's device."""
+
+    def normal_(w):
+        w.copy_(
+            torch.randn(w.shape, generator=generator, device=w.device, dtype=torch.float32)
+            * DENSE_INIT_STD
+        )
+
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Embedding)):
-            w = mod.weight
-            w.copy_(
-                torch.randn(
-                    w.shape, generator=generator, device=w.device,
-                    dtype=torch.float32,
-                ) * DENSE_INIT_STD
-            )
-            if isinstance(mod, nn.Linear):
+        if isinstance(mod, (nn.Linear, nn.Embedding, nn.Conv2d)):
+            normal_(mod.weight)
+            if not isinstance(mod, nn.Embedding):
                 mod.bias.zero_()
         elif isinstance(mod, LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
+        elif isinstance(mod, ViltForGQA):
+            normal_(mod.pos_embed)
+            mod.cls_token.zero_()
 
 
 def build_model(
@@ -71,25 +100,40 @@ def build_model(
 
     ``forward(batch, *, use_fused=None, rng=None)``: ``rng`` is the
     :class:`~rgqa_tpu_torch.ops.dropout.DropoutRng` a training forward
-    draws its dropout from."""
-    if cfg.backbone != "lxmert":
+    draws its dropout from.  ViLT is built for inference only: its
+    training needs the long-stream backward and dropout kernels, which
+    are not ported yet."""
+    if cfg.backbone not in ("lxmert", "vilt"):
         raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert"
+            f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert and vilt"
         )
     if cfg.branched or cfg.branched_layers:
         raise NotImplementedError("the branched confidence heads are not ported yet")
-    from rgqa_tpu_torch.models.lxmert import LxmertForGQA
+    if cfg.backbone == "vilt" and train:
+        raise NotImplementedError(
+            "ViLT training is not ported yet (it needs the long-stream attention "
+            "backward and dropout kernels); the port runs ViLT for evaluation"
+        )
 
     device = resolve_device(device)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     with device:
-        model = LxmertForGQA(cfg.encoder, cfg.num_answers, dtype=dtype)
+        if cfg.backbone == "vilt":
+            model = ViltForGQA(
+                cfg.encoder, cfg.num_answers, patch_size=cfg.vilt_patch_size,
+                image_size=cfg.vilt_image_size, dtype=dtype,
+            )
+        else:
+            model = LxmertForGQA(cfg.encoder, cfg.num_answers, dtype=dtype)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init_weights(model, generator)
     if use_bf16 and not train:
         model.to(torch.bfloat16)
     model.train(train)
+
+    if cfg.backbone == "vilt":
+        return model, _vilt_forward(model)
 
     def forward(batch: dict, **kw) -> dict:
         return model(
@@ -100,9 +144,24 @@ def build_model(
     return model, forward
 
 
+def _vilt_forward(model) -> Callable[..., dict]:
+    def forward(batch: dict, **kw) -> dict:
+        pixels = batch.get("pixels")
+        # An explicit pixel_mask wins over the batch's.
+        pixel_mask = kw.pop("pixel_mask", batch.get("pixel_mask"))
+        if pixels is None:
+            # The u8 wire: normalize on the device; the pad-patch mask
+            # rides the batch as rect geometry.
+            pixels = pixelbert_normalize(batch["pixels_u8"], batch["pixel_rect"])
+        return model(batch["input_ids"], batch["input_mask"], pixels, pixel_mask=pixel_mask, **kw)
+
+    return forward
+
+
 def example_batch(cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0) -> dict:
     """A synthetic fixed-shape numpy batch; the same draws as the JAX
-    package's ``example_batch`` for lxmert."""
+    package's ``example_batch`` for lxmert and vilt (f32 ``pixels``,
+    standard normal)."""
     rng = np.random.default_rng(seed)
     t = cfg.max_text_len
     k = cfg.encoder.num_objects
@@ -114,6 +173,10 @@ def example_batch(cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0) -> di
         "input_mask": np.ones((batch_size, t), np.int32),
         "segment_ids": np.zeros((batch_size, t), np.int32),
     }
+    if cfg.backbone == "vilt":
+        s = cfg.vilt_image_size
+        batch["pixels"] = rng.standard_normal((batch_size, s, s, 3), dtype=np.float32)
+        return batch
     batch["feats"] = rng.standard_normal(
         (batch_size, k, cfg.encoder.visual_feat_dim), dtype=np.float32
     )

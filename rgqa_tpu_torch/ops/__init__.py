@@ -13,6 +13,8 @@ from rgqa_tpu_torch.ops.attention import (
     fused_attention_dropout,
     fused_attention_dropout_bwd_cuda,
     fused_attention_dropout_cuda,
+    fused_attention_long_cuda,
+    forward_kernel,
 )
 from rgqa_tpu_torch.ops.dropout import DropoutRng, HiddenDropout, cheap_dropout
 
@@ -29,6 +31,8 @@ __all__ = [
     "fused_attention_dropout",
     "fused_attention_dropout_bwd_cuda",
     "fused_attention_dropout_cuda",
+    "fused_attention_long_cuda",
+    "forward_kernel",
     "DropoutRng",
     "HiddenDropout",
     "cheap_dropout",

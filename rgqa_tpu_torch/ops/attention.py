@@ -1,12 +1,13 @@
 """Multi-head attention on the natural (B, S, H*D) layout, forward and
 backward, with and without attention-probability dropout.
 
-Port of ``rgqa_tpu/ops/attention.py``.  Four hand-written Hopper kernels,
+Port of ``rgqa_tpu/ops/attention.py``.  Five hand-written Hopper kernels,
 each with a plain PyTorch version beside it:
 
 | kernel (wrapper) | source | TPU kernel it replaces | plain version |
 | --- | --- | --- | --- |
 | :func:`fused_attention_cuda` | ``csrc/fused_attention.cu`` | ``_fused_kernel`` | :func:`attention_natural_ref` |
+| :func:`fused_attention_long_cuda` | ``csrc/fused_attention_long.cu`` | ``_fused_kernel`` on the query-tiled grid (``_fused_qblocked_raw``) | :func:`attention_natural_ref` |
 | :func:`fused_attention_bwd_cuda` | ``csrc/fused_attention_bwd.cu`` | ``_fused_bwd_kernel`` | :func:`attention_bwd_ref` |
 | :func:`fused_attention_dropout_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_kernel`` | :func:`attention_dropout_ref` |
 | :func:`fused_attention_dropout_bwd_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_bwd_kernel`` | :func:`attention_dropout_bwd_ref` |
@@ -15,8 +16,13 @@ each with a plain PyTorch version beside it:
 ``torch.autograd.Function``s (the ``_fused`` / ``_fused_drop``
 custom_vjps): on CUDA tensors their forward and backward launch the
 kernels, on CPU tensors they run the plain versions.  A CUDA tensor
-reaches a kernel or raises; there is no fallback.  ``force_xla=True``
-runs the plain forward under PyTorch's own autograd instead.
+reaches a kernel or raises; there is no fallback.  The forward picks its
+kernel by length (:func:`forward_kernel`): Sq, Skv <= 64 the short
+kernel, longer streams (ViLT's 165-185 tokens) the long one; the
+backward and the dropout kernels take <= 64 only, and a longer stream
+raises ``NotImplementedError`` there (their long-stream versions come
+with ViLT training).  ``force_xla=True`` runs the plain forward under
+PyTorch's own autograd instead.
 
 The dropout mask is keyed on the element: keep(b, h, i, j) is a pure
 function of a 64-bit seed and (b, h, i, j), one byte of a Philox4x32-10
@@ -27,8 +33,9 @@ forward's mask exactly, whatever the launch geometry, and
 ops.  The bits cannot match the TPU's hardware generator: the contract is
 that of ``_attention_dropout_xla`` (quantized rate, exact expectation).
 
-The TPU kernels' VMEM block ladder (``_fit_block``, ``_fwd_plan``) has no
-counterpart: one thread block per (batch row, head) holds its whole
+The TPU kernels' VMEM block ladder (``_fit_block``, ``_fwd_plan``,
+``_fit_qblock``) has no counterpart: one thread block per (batch row,
+head), and per query tile of 64 rows in the long forward, holds its whole
 problem in shared memory.
 """
 
@@ -47,6 +54,8 @@ from rgqa_tpu_torch.ops.dropout import keep_threshold
 __all__ = [
     "MAX_SEQ",
     "MAX_HEAD_DIM",
+    "LONG_MAX_KV",
+    "forward_kernel",
     "bias_vector",
     "attention_natural_ref",
     "attention_bwd_ref",
@@ -56,14 +65,18 @@ __all__ = [
     "fused_attention",
     "fused_attention_dropout",
     "fused_attention_cuda",
+    "fused_attention_long_cuda",
     "fused_attention_bwd_cuda",
     "fused_attention_dropout_cuda",
     "fused_attention_dropout_bwd_cuda",
 ]
 
-# The kernels' limits (csrc/attention_common.cuh kMaxSeq / kMaxDim).
+# The kernels' limits (csrc/attention_common.cuh kMaxSeq / kMaxDim /
+# kLongMaxKv): the short kernels take Sq, Skv <= MAX_SEQ; the long
+# forward any Sq and Skv <= LONG_MAX_KV; every kernel D <= MAX_HEAD_DIM.
 MAX_SEQ = 64
 MAX_HEAD_DIM = 64
+LONG_MAX_KV = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -263,8 +276,32 @@ def _entry(source: str, symbol: str, n_pointers: int, dropout: bool):
     return fn, lib.rgqa_cuda_error_string
 
 
-def _check(name, q, k, v, bias_kv, num_heads: int, g=None) -> None:
-    """Raise on anything the kernels do not take."""
+def _check_lengths(name: str, sq: int, skv: int, d: int, *, long: bool) -> None:
+    """Raise ``ValueError`` for lengths the short kernels (or, ``long``,
+    the long-stream forward) do not take, saying why."""
+    max_skv = LONG_MAX_KV if long else MAX_SEQ
+    if (not long and sq > MAX_SEQ) or skv > max_skv or d > MAX_HEAD_DIM:
+        raise ValueError(
+            f"{name}: Sq={sq}, Skv={skv}, D={d} exceed the kernel's limits "
+            f"(Sq <= {'any' if long else MAX_SEQ}, Skv <= {max_skv}, "
+            f"head dim <= {MAX_HEAD_DIM})"
+            + ("; its block keeps a row's whole K and V in shared memory" if long else "")
+        )
+
+
+def forward_kernel(sq: int, skv: int, head_dim: int):
+    """The forward kernel's wrapper for an (Sq, Skv) call with heads
+    ``head_dim`` wide: :func:`fused_attention_cuda` (#1) when both
+    lengths are <= MAX_SEQ, :func:`fused_attention_long_cuda` (#2) for
+    longer streams.  Raises ``ValueError`` beyond #2's limits."""
+    long = sq > MAX_SEQ or skv > MAX_SEQ
+    _check_lengths("fused_attention", sq, skv, head_dim, long=long)
+    return fused_attention_long_cuda if long else fused_attention_cuda
+
+
+def _check(name, q, k, v, bias_kv, num_heads: int, g=None, *, long: bool = False) -> None:
+    """Raise on anything the kernels do not take (``long``: the long
+    forward's limits)."""
     tensors = {"q": q, "k": k, "v": v}
     for tname, t in tensors.items():
         if t.device.type != "cuda":
@@ -290,12 +327,7 @@ def _check(name, q, k, v, bias_kv, num_heads: int, g=None) -> None:
         )
     if e % num_heads:
         raise ValueError(f"{name}: width {e} not divisible by {num_heads} heads")
-    d = e // num_heads
-    if sq > MAX_SEQ or skv > MAX_SEQ or d > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{name}: Sq={sq}, Skv={skv}, D={d} exceed the kernel's limits "
-            f"(sequences <= {MAX_SEQ}, head dim <= {MAX_HEAD_DIM})"
-        )
+    _check_lengths(name, sq, skv, e // num_heads, long=long)
     if (
         bias_kv.device != q.device
         or bias_kv.dtype != torch.float32
@@ -356,6 +388,23 @@ def fused_attention_cuda(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
         q, k, v, num_heads,
     )
     fused_attention_cuda.launches += 1
+    return out
+
+
+def fused_attention_long_cuda(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
+    """Launch ``csrc/fused_attention_long.cu`` on the current stream: the
+    function of :func:`fused_attention_cuda` for any Sq and Skv <=
+    LONG_MAX_KV (query tiles of 64 rows, each row's complete softmax over
+    every key).  The same arguments and result;
+    ``fused_attention_long_cuda.launches`` counts the launches."""
+    _check("fused_attention_long_cuda", q, k, v, bias_kv, num_heads, long=True)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(
+        "fused_attention_long", "fused_attention_long", "rgqa_fused_attention_long_fwd",
+        [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_kv.data_ptr(), out.data_ptr()],
+        q, k, v, num_heads,
+    )
+    fused_attention_long_cuda.launches += 1
     return out
 
 
@@ -431,7 +480,7 @@ def fused_attention_dropout_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, rate: 
 
 
 for _wrapper in (
-    fused_attention_cuda, fused_attention_bwd_cuda,
+    fused_attention_cuda, fused_attention_long_cuda, fused_attention_bwd_cuda,
     fused_attention_dropout_cuda, fused_attention_dropout_bwd_cuda,
 ):
     _wrapper.launches = 0
@@ -442,9 +491,20 @@ for _wrapper in (
 # ---------------------------------------------------------------------------
 
 
+def _short_only(what: str, q, k) -> None:
+    """Raise ``NotImplementedError`` for a CUDA call of a kernel that has
+    no long-stream version yet."""
+    sq, skv = q.shape[1], k.shape[1]
+    if sq > MAX_SEQ or skv > MAX_SEQ:
+        raise NotImplementedError(
+            f"{what} at Sq={sq}, Skv={skv} (> {MAX_SEQ}) has no kernel yet: "
+            "its long-stream version comes with ViLT training"
+        )
+
+
 class _FusedAttention(torch.autograd.Function):
-    """``_fused``'s custom_vjp: kernels #1 / #3 on CUDA, the plain pair
-    on the CPU."""
+    """``_fused``'s custom_vjp: on CUDA kernel #1 (Sq, Skv <= 64) or #2
+    (longer streams) forward and #3 backward, the plain pair on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_kv, num_heads):
@@ -452,7 +512,8 @@ class _FusedAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, bias_kv)
         if q.device.type == "cpu":
             return attention_natural_ref(q, k, v, bias_kv, num_heads)
-        return fused_attention_cuda(q, k, v, bias_kv, num_heads)
+        kernel = forward_kernel(q.shape[1], k.shape[1], q.shape[2] // num_heads)
+        return kernel(q, k, v, bias_kv, num_heads)
 
     @staticmethod
     def backward(ctx, g):
@@ -461,6 +522,7 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             grads = attention_bwd_ref(q, k, v, bias_kv, g, ctx.num_heads)
         else:
+            _short_only("the attention backward", q, k)
             grads = fused_attention_bwd_cuda(q, k, v, bias_kv, g, ctx.num_heads)
         return (*grads, None)
 
@@ -475,6 +537,7 @@ class _FusedAttentionDropout(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, bias_kv)
         if q.device.type == "cpu":
             return attention_dropout_ref(q, k, v, bias_kv, num_heads, rate, seed)
+        _short_only("attention with dropout", q, k)
         return fused_attention_dropout_cuda(q, k, v, bias_kv, num_heads, rate, seed)
 
     @staticmethod
@@ -494,8 +557,9 @@ def fused_attention(
     """Attention on the natural (B, S, H*D) layout, differentiable.
 
     ``bias`` is an additive float mask, ``(B, S_kv)`` or ``(B, 1, 1,
-    S_kv)``; None means fully visible.  CUDA tensors go to kernels #1 and
-    #3, CPU tensors to their plain versions; ``force_xla=True`` runs
+    S_kv)``; None means fully visible.  CUDA tensors go to kernel #1 or,
+    for streams longer than 64, #2 forward and #3 backward (<= 64 only),
+    CPU tensors to their plain versions; ``force_xla=True`` runs
     :func:`attention_natural_ref` under PyTorch's autograd."""
     bias_kv = bias_vector(bias, q.shape[0], k.shape[1], device=q.device)
     if force_xla:

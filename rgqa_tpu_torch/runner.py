@@ -18,13 +18,20 @@ answers less the appended ``UQ`` class, initialises the weights from a
   ``LAST.state.pt`` at the end.
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
-  convention).
+  convention).  It runs lxmert or vilt.
+
+ViLT reads pixels from a pixel pack ``<data_root>/pixels_<size>_<mode>/``
+when one matches this run (built from ``<data_root>/images`` at the
+configured ``--vilt_image_size``, ``--vilt_resize`` and the pixelbert
+transform; the JAX runner checks only the source), else decodes the
+JPEGs under ``<data_root>/images`` (needs PIL).  A synthetic root gets
+its pack made when a ViLT run finds none.
 
 Not ported yet, and refused by flag name: the other strategies, mixup,
 the MCE, energy and branched losses, ``--uq_as_class``, ``--chart``,
 chunked dispatch, the other optimizers, bf16 moments, orbax snapshots
 (reading them needs jax), the ``--loadLXMERT`` / ``--loadLXMERTQA``
-initialisations and every backbone but lxmert.
+initialisations, ViLT training and every backbone but lxmert and vilt.
 """
 
 from __future__ import annotations
@@ -42,7 +49,8 @@ from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
 from rgqa_tpu_torch.config import RunConfig, dump_run_config
 from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
 from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
-from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+from rgqa_tpu_torch.data.images import GQAImageSource, PixelPack, pack_matches
+from rgqa_tpu_torch.data.synthetic import BASE_IMAGES, make_synthetic_gqa, make_synthetic_pixel_pack
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 from rgqa_tpu_torch.device import resolve_device
@@ -59,7 +67,10 @@ __all__ = ["GQARunner"]
 def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
-        f"--backbone {m.backbone}": m.backbone != "lxmert",
+        f"--backbone {m.backbone}": m.backbone not in ("lxmert", "vilt"),
+        "--backbone vilt with training (ViLT is ported for evaluation)": (
+            train and m.backbone == "vilt"
+        ),
         "--branched / --branched_layer": m.branched or m.branched_layers,
         "--uq_as_class": m.uq_as_class,
         "--loadLXMERT / --loadLXMERTQA / --load_gqa": bool(
@@ -105,6 +116,9 @@ class GQARunner(ScoringMixin):
             os.path.join(root, "trainval_ans2label.json")
         ):
             make_synthetic_gqa(root)
+        self.image_source = None
+        if cfg.model.backbone == "vilt":
+            self.image_source = self._image_source()
 
         self.features = PackedFeatures(os.path.join(root, "features"))
         if data.tiny:
@@ -142,10 +156,29 @@ class GQARunner(ScoringMixin):
         os.makedirs(self.output, exist_ok=True)
         dump_run_config(cfg, self.output)
 
+    def _image_source(self):
+        """ViLT's pixels: the pack that matches this run, else the JPEGs."""
+        cfg = self.cfg
+        root, size, mode = cfg.data.data_root, cfg.model.vilt_image_size, cfg.data.vilt_resize
+        img_root = os.path.join(root, "images")
+        pack_dir = os.path.join(root, f"pixels_{size}_{mode}")
+        meta = os.path.join(pack_dir, "meta.json")
+        if cfg.data.synthetic and not os.path.isfile(meta) and os.path.isfile(
+            os.path.join(root, BASE_IMAGES)
+        ):
+            make_synthetic_pixel_pack(root, size, mode)
+        if os.path.isfile(meta):
+            pack = PixelPack(pack_dir)
+            if pack_matches(pack, img_root, size, mode):
+                return pack
+        return GQAImageSource(img_root, size=size, mode=mode)
+
     def _encode(self, ds: GQADataset) -> EncodedGQA:
+        m = self.cfg.model
         return EncodedGQA(
-            ds, self.features, tokenizer=self.tokenizer,
-            max_text_len=self.cfg.model.max_text_len,
+            ds, self.features, tokenizer=self.tokenizer, max_text_len=m.max_text_len,
+            backbone=m.backbone, image_source=self.image_source,
+            pixel_wire=self.cfg.data.pixel_wire, pixel_patch_size=m.vilt_patch_size,
         )
 
     # ------------------------------------------------------------------
@@ -153,8 +186,8 @@ class GQARunner(ScoringMixin):
     # ------------------------------------------------------------------
 
     def load(self, path: str) -> None:
-        """Load a reference GQA-LXMERT ``.pth`` into the model (cast to
-        the model's dtype); keys it lacks stay at their init."""
+        """Load a reference GQA-LXMERT or GQAViLT ``.pth`` into the model
+        (cast to the model's dtype); keys it lacks stay at their init."""
         if not os.path.isfile(path):
             raise NotImplementedError(
                 f"{path!r} is not a .pth file; loading orbax snapshots needs "
@@ -162,7 +195,8 @@ class GQARunner(ScoringMixin):
             )
         enc = self.model_cfg.encoder
         sd, missing, unused = load_reference_pth(
-            path, l_layers=enc.l_layers, x_layers=enc.x_layers, r_layers=enc.r_layers
+            path, backbone=self.model_cfg.backbone, l_layers=enc.l_layers,
+            x_layers=enc.x_layers, r_layers=enc.r_layers, num_layers=enc.num_layers,
         )
         self.model.load_state_dict(sd, strict=False)
         if missing:

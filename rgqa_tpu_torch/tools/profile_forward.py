@@ -1,14 +1,16 @@
-"""Where the time of the full-width LXMERT forward, or of a training
-step, goes on one CUDA card.
+"""Where the time of a full-width LXMERT or ViLT forward, or of an LXMERT
+training step, goes on one CUDA card.
 
-    python -m rgqa_tpu_torch.tools.profile_forward [--batch 256 32]
-        [--iters 20] [--repeats 3] [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward [--backbone vilt]
+        [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train [--batch 32]
         [--out FILE.json]
 
-Builds ``LxmertForGQA`` at full width (``zoo.default_config``) in bf16
-from seed 0 and, for each batch size of ``zoo.example_batch``, runs the
-forward through the attention kernel and through the plain version.
+Builds ``LxmertForGQA`` (or, with ``--backbone vilt``, ViLT-B/32 with
+40-token text, a 185-token stream) at full width
+(``zoo.default_config``) in bf16 from seed 0 and, for each batch size of
+``zoo.example_batch``, runs the forward through the attention kernels
+and through the plain version.
 With ``--train`` it runs training steps instead (f32 master weights,
 bf16 compute, RP pairing, BertAdam, dropout 0.1 and 0, kernels and
 plain versions).  For each run:
@@ -167,7 +169,8 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=None,
                     help="batch sizes (default 256 32; with --train 32, doubled by RP)")
-    ap.add_argument("--train", action="store_true", help="profile training steps")
+    ap.add_argument("--backbone", choices=("lxmert", "vilt"), default="lxmert")
+    ap.add_argument("--train", action="store_true", help="profile training steps (lxmert)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
@@ -181,9 +184,11 @@ def main(argv=None) -> list:
     ).stdout.strip().splitlines()[0]
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}")
     if args.train:
+        if args.backbone != "lxmert":
+            raise SystemExit("profile_forward: --train profiles lxmert (ViLT training is not ported)")
         return _profile(_train_cases(args.batch or [32]), args, smi, args.out, grad=True)
 
-    cfg = default_config()
+    cfg = default_config(args.backbone)
     _, forward = build_model(
         cfg, use_bf16=True, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(0),
@@ -199,7 +204,7 @@ def main(argv=None) -> list:
 
 def _attention_launches() -> int:
     return sum(fn.launches for fn in (
-        att.fused_attention_cuda, att.fused_attention_bwd_cuda,
+        att.fused_attention_cuda, att.fused_attention_long_cuda, att.fused_attention_bwd_cuda,
         att.fused_attention_dropout_cuda, att.fused_attention_dropout_bwd_cuda))
 
 

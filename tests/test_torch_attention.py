@@ -160,9 +160,11 @@ def test_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(cuda):
+    # Beyond 64 tokens the forward takes the long-stream kernel; the short
+    # kernel's own wrapper refuses them.
     q = torch.zeros(2, 65, 768, device=cuda)
     with pytest.raises(ValueError, match="exceed"):
-        att.fused_attention(q, q, q, None, num_heads=12)
+        att.fused_attention_cuda(q, q, q, torch.zeros(2, 65, device=cuda), 12)
     h = torch.zeros(2, 20, 768, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         att.fused_attention(h, h, h, None, num_heads=12)

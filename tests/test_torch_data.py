@@ -43,19 +43,36 @@ def jax_data():
     return data
 
 
+# The 32 x 32 base images the JAX generator hands to PIL before its JPEG
+# step, captured while it writes its root.
+JAX_BASE_IMAGES: list = []
+
+
 @pytest.fixture(scope="module")
 def roots(tmp_path_factory, jax_data):
     """The same synthetic spec written by both packages."""
+    from PIL import Image
+
     port_root = str(tmp_path_factory.mktemp("port_gqa"))
     jax_root = str(tmp_path_factory.mktemp("jax_gqa"))
     synthetic.make_synthetic_gqa(port_root, synthetic.SyntheticSpec(**SPEC))
-    jax_data.make_synthetic_gqa(jax_root, jax_data.SyntheticSpec(**SPEC))
+    fromarray = Image.fromarray
+
+    def capture(arr, *a, **kw):
+        JAX_BASE_IMAGES.append(np.array(arr))
+        return fromarray(arr, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(Image, "fromarray", capture)
+        jax_data.make_synthetic_gqa(jax_root, jax_data.SyntheticSpec(**SPEC))
     return port_root, jax_root
 
 
 def test_synthetic_files_match(roots):
+    # The port keeps the base images as an array where the JAX package
+    # writes JPEGs (its images/ and the other files it alone writes).
     port_root, jax_root = roots
-    port_files = sorted(os.listdir(port_root))
+    port_files = sorted(set(os.listdir(port_root)) - {synthetic.BASE_IMAGES})
     assert set(port_files) <= set(os.listdir(jax_root))
     assert {"testdev.json", "trainval_ans2label.json", "vocab.txt", "features"} <= set(port_files)
     for name in port_files:
@@ -63,6 +80,14 @@ def test_synthetic_files_match(roots):
             continue
         with open(os.path.join(port_root, name), "rb") as a, open(os.path.join(jax_root, name), "rb") as b:
             assert a.read() == b.read(), name
+
+
+def test_synthetic_base_images_are_the_jax_draws(roots):
+    port_root, _ = roots
+    assert len(JAX_BASE_IMAGES) == SPEC["n_images"]
+    np.testing.assert_array_equal(
+        np.load(os.path.join(port_root, synthetic.BASE_IMAGES)), np.stack(JAX_BASE_IMAGES)
+    )
 
 
 def test_synthetic_feature_pack_matches(roots):

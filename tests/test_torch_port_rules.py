@@ -2,8 +2,9 @@
 
 - No module of ``rgqa_tpu_torch`` and not ``chip_smoke.py`` imports the
   JAX package, jax, jaxlib, flax or orbax (an AST scan; the blocked-import
-  subprocess of ``tests/test_torch_slice.py`` runs the CLIs with all of
-  them blocked).
+  subprocesses of ``tests/test_torch_slice.py`` and of this file import
+  every module of the port and run the LXMERT train and evaluate CLIs and
+  the ViLT evaluate CLI with all of them blocked).
 - The entry points run on the card unless asked for the CPU: without a
   card the runner, ``build_model`` and both CLIs raise when not given the
   CPU.
@@ -18,7 +19,10 @@ from __future__ import annotations
 import ast
 import dataclasses
 import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -45,6 +49,44 @@ def test_no_import_of_the_jax_package(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add((node.module or "").split(".")[0])
     assert not roots & FORBIDDEN, f"{path} imports {sorted(roots & FORBIDDEN)}"
+
+
+_VILT_JAX_FREE = r"""
+import importlib, json, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "rgqa_tpu")
+for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
+    del sys.modules[name]
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of them now raises ImportError
+import rgqa_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rgqa_tpu_torch.__path__, "rgqa_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from rgqa_tpu_torch.cli import evaluate
+results = evaluate.main(sys.argv[1:])
+loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in BLOCKED]
+print("RESULT", json.dumps({"modules": names, "keys": sorted(results["testdev"]), "loaded": loaded}))
+"""
+
+
+def test_vilt_evaluate_runs_with_jax_blocked(tmp_path):
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    argv = ["--synthetic", "--data_root", root, "--test", "testdev", "--output", out,
+            "--backbone", "vilt", "--fp32", "--num_layers", "1", "--hidden_size", "32",
+            "--num_heads", "4", "--vilt_image_size", "64", "--vilt_patch_size", "16",
+            "--batchSize", "16", "--device", "cpu"]
+    proc = subprocess.run(
+        [sys.executable, "-c", _VILT_JAX_FREE, *argv], cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    line = next(l for l in proc.stdout.splitlines() if l.startswith("RESULT "))
+    res = json.loads(line[len("RESULT "):])
+    assert res["loaded"] == []
+    assert {"rgqa_tpu_torch.models.vilt", "rgqa_tpu_torch.data.images",
+            "rgqa_tpu_torch.ops.pixels"} <= set(res["modules"])
+    assert {"auaf", "fpr@0.95acc", "full_acc"} <= set(res["keys"])
+    assert os.path.isfile(os.path.join(out, "testdev_predict.json"))
 
 
 # ---------------------------------------------------------------------------
