@@ -8,13 +8,16 @@ nonzero:
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
    TF32 is turned off for matmuls and convolutions.  No CUDA -> exit 1.
-2. build: compiles the four sources of ``rgqa_tpu_torch/csrc`` for sm_90a,
+2. build: compiles the five sources of ``rgqa_tpu_torch/csrc`` for sm_90a,
    one nvcc each, side by side (prints each build time and ptxas' report).
-3. kernels: the five attention kernels against their plain PyTorch
+3. kernels: the six attention kernels against their plain PyTorch
    versions.  #2, the long-stream forward, at ViLT's shapes (165x165,
    185x185, and 65x185 / 185x65 for ragged query tiles), batch 256 and 7,
    f32 and bf16, with pad-patch style masks (padded text, trailing keys
-   masked) and one fully masked row, bounds as #1's.  The other four at
+   masked) and one fully masked row, bounds as #1's.  #3L, the
+   long-stream backward, at the same shapes and at its limit of 256 keys
+   (20x256, 256x256), with the same masks, bounds as #3's, and two runs
+   equal bit for bit.  The other four at
    LXMERT's four attention shapes (20x20, 36x36, 20x36,
    36x20; 12 heads of 64), batch 256 and 7, with one fully masked row:
    #1 forward (bound 2e-5 in f32), #3 backward, #4 dropout forward and #5
@@ -29,7 +32,8 @@ nonzero:
    256 is within 5 sigma of (256 - t) / 256.  Per-call CUDA-event times of
    each kernel, its plain version and the one PyTorch call that computes
    the same function (``scaled_dot_product_attention``: forward; forward
-   plus backward less forward; with ``dropout_p``), at batch 256.
+   plus backward less forward; with ``dropout_p``), at batch 256 (#3L in
+   bf16 only: its f32 body is checked, not timed).
 4. model: full-width LxmertForGQA (9/5/5 layers x 768, vocab 30522, 1842
    answers, 36 x 2048 RoI features) in bf16 from a seeded generator at
    batch 256 with padded text (random lengths 4-20), once through the
@@ -68,9 +72,23 @@ nonzero:
    (the default): 8 steps, 34 x 8 launches of #4 and 32 x 8 of #5, finite
    losses, ``BEST.pth`` and ``LAST.pth`` written; then the evaluate CLI
    scores testdev from ``--load BEST.pth``.
-10. the kernels' JSON line (times: the sum over the LXMERT shapes, and
-   for #2 over 165x165 and 185x185, bf16, batch 256), the nvidia-smi
-   line, and last ``{"ok": true, "device": {...}}``.
+10. vilt train steps: full-width ViltForGQA with f32 master weights and
+   bf16 compute, the train CLI's 20-token text (a 165-token stream), the
+   u8 wire with padded rects, ``--batchSize 32`` with RP pairing (64
+   rows); the same initial weights and 4 batches through the kernels and
+   through the plain versions: 12 launches of #2 and 12 of #3L per step
+   and none of any other kernel (ViLT has no attention dropout), losses
+   within ``LOSS_RTOL`` at dropout 0; ms per step and rows per second of
+   each at dropout 0 and 0.1.
+11. vilt train path: ``python -m rgqa_tpu_torch.cli.train --backbone vilt
+   --synthetic --sample_pair --no_randaug --epochs 1 --batchSize 32`` at
+   full width (the card machine has no PIL for randaug): 8 steps, 12 x 8
+   launches of #3L, 12 per step and per validation forward of #2, none
+   else; finite losses; ``BEST.pth`` and ``LAST.pth`` in the GQAViLT key
+   format; then the evaluate CLI scores testdev from ``--load BEST.pth``.
+12. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+   for #2 and #3L over 165x165 and 185x185, bf16, batch 256), the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Needs the repository beside it; it imports nothing of JAX.
 """
@@ -90,6 +108,7 @@ E, HEADS = 768, 12
 SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))  # (Sq, Skv) per LXMERT call kind
 VILT_SHAPES = ((165, 165), (185, 185))  # ViLT's stream: 20 or 40 text tokens + 144 patches + CLS
 LONG_SHAPES = VILT_SHAPES + ((65, 185), (185, 65))
+LIMIT_SHAPES = ((20, 256), (256, 256))  # the long kernels' limit of 256 keys
 # (atol, rtol) per kernel and dtype; see the docstring.
 TOL = {
     ("fused_attention", "float32"): (2e-5, 0.0),
@@ -121,7 +140,10 @@ KERNELS = {
     "fused_attention_dropout": ("rgqa_tpu_torch/csrc/fused_attention_dropout.cu", "rgqa_tpu/ops/attention.py:641"),
     "fused_attention_dropout_bwd": ("rgqa_tpu_torch/csrc/fused_attention_dropout.cu", "rgqa_tpu/ops/attention.py:691"),
     "fused_attention_long": ("rgqa_tpu_torch/csrc/fused_attention_long.cu", "rgqa_tpu/ops/attention.py:399"),
+    # _fused_bwd_kernel at ViLT's streams (_fit_bwd_block's raised tiers).
+    "fused_attention_long_bwd": ("rgqa_tpu_torch/csrc/fused_attention_long_bwd.cu", "rgqa_tpu/ops/attention.py:448"),
 }
+VILT_TRAIN_TEXT = 20  # the train CLI's --max_text_len: a 165-token stream
 
 
 def log(phase: str, msg: str) -> None:
@@ -413,29 +435,54 @@ def _pad_patch_bias(b, skv, gen):
 
 
 def _long_kernel(att, gen, errs, times):
-    """#2 against its plain version at ViLT's shapes; times at batch 256."""
+    """#2 and #3L against their plain versions at ViLT's shapes and at the
+    limit of 256 keys, #3L's two runs bit for bit; times at batch 256 and
+    ViLT's shapes (#3L in bf16)."""
     import torch
 
-    name = "fused_attention_long"
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for b in (256, 7):
-            for sq, skv in LONG_SHAPES:
+            for sq, skv in LONG_SHAPES + LIMIT_SHAPES:
                 q, k, v, g, _ = _attention_inputs(b, sq, skv, dtype, gen)
                 bias = _pad_patch_bias(b, skv, gen)
-                kernel = lambda: att.fused_attention_long_cuda(q, k, v, bias, HEADS)  # noqa: E731
-                plain = lambda: att.attention_natural_ref(q, k, v, bias, HEADS)  # noqa: E731
-                got, want = kernel(), plain()
-                torch.cuda.synchronize()
-                msg = f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + _compare(name, dtype, got, want, errs)
-                if b == 256:
-                    library = cuda_ms(_sdpa_calls(q, k, v, g, bias)["fwd"])
-                    plain_ms, kernel_ms = in_turns(plain, kernel)
-                    bound, _ = _bound_ms(name, b, sq, skv, q.element_size())
-                    times[(name, dname, sq, skv)] = (kernel_ms, plain_ms, library, bound)
-                    msg += "; us kernel/plain/library/bound: " + "/".join(
-                        f"{x * 1e3:.1f}" for x in times[(name, dname, sq, skv)])
+                calls = {
+                    "fused_attention_long": (
+                        lambda: att.fused_attention_long_cuda(q, k, v, bias, HEADS),
+                        lambda: att.attention_natural_ref(q, k, v, bias, HEADS)),
+                    "fused_attention_long_bwd": (
+                        lambda: att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS),
+                        lambda: att.attention_bwd_ref(q, k, v, bias, g, HEADS)),
+                }
+                msgs = []
+                for name, (kernel, plain) in calls.items():
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    msgs.append(_compare(name, dtype, got, want, errs))
+                if not all(torch.equal(a, c) for a, c in zip(got, calls["fused_attention_long_bwd"][0]())):
+                    raise AssertionError(f"two runs of #3L differ at {dname} B={b} {sq}x{skv}")
+                msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + "; ".join(msgs)
+                       + "; #3L twice: equal bits")
+                if b == 256 and (sq, skv) in LONG_SHAPES:
+                    lib = _sdpa_calls(q, k, v, g, bias)
+                    library = {"fused_attention_long": cuda_ms(lib["fwd"])}
+                    timed = ["fused_attention_long"]
+                    if dtype == torch.bfloat16:
+                        library["fused_attention_long_bwd"] = (
+                            cuda_ms(lib["fwd_bwd"]) - library["fused_attention_long"])
+                        timed.append("fused_attention_long_bwd")
+                    for name in timed:
+                        plain_ms, kernel_ms = in_turns(calls[name][1], calls[name][0])
+                        bound, _ = _bound_ms(name, b, sq, skv, q.element_size())
+                        times[(name, dname, sq, skv)] = (kernel_ms, plain_ms, library[name], bound)
+                    msg += "; us kernel/plain/library/bound: " + ", ".join(
+                        f"{n.replace('fused_attention_long', '#2').replace('#2_bwd', '#3L')} "
+                        + "/".join(f"{x * 1e3:.1f}" for x in times[(n, dname, sq, skv)])
+                        for n in timed
+                    )
                 log("kernels", msg)
+                del q, k, v, g, bias, got, want, calls
+                torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -591,30 +638,10 @@ def phase_main_path(phase="main", extra=(), kernel="fused_attention", per_forwar
 # ---------------------------------------------------------------------------
 
 
-def _vilt_batch(cfg, b: int, seed: int = 0) -> dict:
-    """A full-width ViLT batch on the u8 wire: ``example_batch``'s text cut
-    to random lengths, random uint8 pixels, and in three rows of four the
-    rect of a 2:1, 3:2 or 4:3 image in pad mode, with its patch mask."""
-    import numpy as np
-    from rgqa_tpu_torch.data.images import rect_patch_mask
-    from rgqa_tpu_torch.models.zoo import example_batch
-
-    s = cfg.vilt_image_size
-    batch = _padded_text(example_batch(cfg, b, seed=seed))
-    del batch["pixels"]
-    u8 = np.random.default_rng(seed + 1).integers(0, 256, (b, s, s, 3), dtype=np.uint8)
-    rects = np.tile(np.asarray([0, 0, s, s], np.int32), (b, 1))
-    rects[1::4] = (s // 4, 0, s // 2, s)
-    rects[2::4] = (0, s // 6, s, 2 * s // 3)
-    rects[3::4] = (s // 8, 0, 3 * s // 4, s)
-    return dict(batch, pixels_u8=u8, pixel_rect=rects,
-                pixel_mask=rect_patch_mask(rects, s, cfg.vilt_patch_size))
-
-
 def phase_vilt_model():
     import torch
     from rgqa_tpu_torch.data.batching import to_device
-    from rgqa_tpu_torch.models.zoo import build_model, default_config
+    from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
 
     cfg = default_config("vilt")
     enc = cfg.encoder
@@ -627,7 +654,9 @@ def phase_vilt_model():
     log("vilt", f"ViltForGQA {enc.num_layers} layers x {enc.hidden_size}, vocab {enc.vocab_size}, "
         f"{cfg.num_answers} answers, {cfg.vilt_image_size} px / {cfg.vilt_patch_size} px patches, "
         f"{stream}-token stream, {n_params} params in bf16, built in {time.perf_counter() - t0:.2f} s")
-    host = _vilt_batch(cfg, 256)
+    # The u8 wire: text cut to random lengths, random uint8 pixels, and in
+    # three rows of four the rect of a 2:1, 3:2 or 4:3 image in pad mode.
+    host = _padded_text(example_batch(cfg, 256, seed=0, pixel_wire="u8"))
     batch = to_device(host, "cuda")
     with torch.inference_mode():
         reset_counts()
@@ -670,19 +699,20 @@ def phase_vilt_model():
 
 
 # ---------------------------------------------------------------------------
-# Phases 8-9: training (slice 2).
+# Phases 8-11: training (slices 2 and 4).
 # ---------------------------------------------------------------------------
 
 
 def _train_batches(cfg, n: int, b: int = 32):
-    """``n`` full-width batches with padded text and one-hot targets."""
+    """``n`` full-width batches with padded text and one-hot targets (ViLT:
+    the u8 wire with padded rects)."""
     import numpy as np
     from rgqa_tpu_torch.data.batching import to_device
     from rgqa_tpu_torch.models.zoo import example_batch
 
     out = []
     for i in range(n):
-        batch = _padded_text(example_batch(cfg, b, seed=10 + i), seed=20 + i)
+        batch = _padded_text(example_batch(cfg, b, seed=10 + i, pixel_wire="u8"), seed=20 + i)
         rng = np.random.default_rng(30 + i)
         target = np.zeros((b, cfg.num_answers), np.float32)
         target[np.arange(b), rng.integers(0, cfg.num_answers, b)] = 1.0
@@ -691,11 +721,13 @@ def _train_batches(cfg, n: int, b: int = 32):
     return out
 
 
-def _train_model(dropout: float):
+def _train_model(dropout: float, backbone: str):
     import torch
     from rgqa_tpu_torch.models.zoo import build_model, default_config
 
-    cfg = default_config()
+    cfg = default_config(backbone)
+    if backbone == "vilt":
+        cfg = dataclasses.replace(cfg, max_text_len=VILT_TRAIN_TEXT)
     cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
         cfg.encoder, hidden_dropout=dropout, attention_dropout=dropout))
     model, forward = build_model(
@@ -732,14 +764,30 @@ def _run_steps(model, forward, init, batches, use_fused, steps=None):
     return [float(x) for x in losses], ms
 
 
-def phase_train_steps():
+def _step_launches(backbone: str, dropout: float) -> dict:
+    """Kernel launches per training step: LXMERT's 34 forward and
+    ``BWD_PER_STEP`` backward attention calls, through the dropout pair
+    when dropout is on; ViLT's 12 and 12 through #2 and #3L (no attention
+    dropout)."""
+    want = {name: 0 for name in KERNELS}
+    if backbone == "vilt":
+        want.update({"fused_attention_long": 12, "fused_attention_long_bwd": 12})
+    elif dropout == 0.0:
+        want.update({"fused_attention": 34, "fused_attention_bwd": BWD_PER_STEP})
+    else:
+        want.update({"fused_attention_dropout": 34, "fused_attention_dropout_bwd": BWD_PER_STEP})
+    return want
+
+
+def phase_train_steps(backbone: str = "lxmert"):
     import torch
 
+    phase = "train" if backbone == "lxmert" else f"{backbone}-train"
     n, timed = 4, 10
     rows = 64  # batch 32 plus its 32 RP pairs
     result = {}
     for dropout in (0.0, RATE):
-        cfg, model, forward = _train_model(dropout)
+        cfg, model, forward = _train_model(dropout, backbone)
         batches = _train_batches(cfg, n)
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         reset_counts()
@@ -749,10 +797,7 @@ def phase_train_steps():
         if read_counts() != counts:
             raise AssertionError("the plain steps launched a kernel")
         per_step = {name: c / n for name, c in counts.items()}
-        want = {name: 0 for name in KERNELS}
-        want.update({"fused_attention": 34, "fused_attention_bwd": BWD_PER_STEP}
-                    if dropout == 0.0 else
-                    {"fused_attention_dropout": 34, "fused_attention_dropout_bwd": BWD_PER_STEP})
+        want = _step_launches(backbone, dropout)
         rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
         if not all(math.isfinite(x) for x in k_losses + p_losses):
             raise AssertionError(f"non-finite losses {k_losses} {p_losses}")
@@ -760,11 +805,11 @@ def phase_train_steps():
         t = [_run_steps(model, forward, init, batches, fused, n + timed)[1]
              for fused in (False, None, None, False)]
         plain_ms, kernel_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-        log("train", f"dropout {dropout}: batch 32 + RP ({rows} rows), 4 steps from one init: "
+        log(phase, f"dropout {dropout}: batch 32 + RP ({rows} rows), 4 steps from one init: "
             f"launches per step {per_step}; losses kernels {[round(x, 4) for x in k_losses]}, "
             f"plain {[round(x, 4) for x in p_losses]}, max relative gap {max(rel):.3e}"
             + (f" (bound {LOSS_RTOL:.0e})" if dropout == 0.0 else " (same masks: the same seeds and bytes)"))
-        log("train", f"dropout {dropout}: ms per step (mean of {timed} after 4 warm-up, in turns) "
+        log(phase, f"dropout {dropout}: ms per step (mean of {timed} after 4 warm-up, in turns) "
             f"kernels {kernel_ms:.3f} ({rows * 1e3 / kernel_ms:.1f} rows/s), plain {plain_ms:.3f} "
             f"({rows * 1e3 / plain_ms:.1f} rows/s)")
         if per_step != want:
@@ -821,6 +866,67 @@ def phase_train_path():
     return launches
 
 
+def phase_vilt_train_path():
+    """The ViLT train CLI at full width from the synthetic pixel pack, its
+    launches, checkpoints and an evaluate of its ``BEST.pth``."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    phase = "vilt-train"
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_vilt_train_") as tmp:
+        root, out_dir = os.path.join(tmp, "gqa"), os.path.join(tmp, "snap")
+        argv = ["--backbone", "vilt", "--synthetic", "--data_root", root, "--sample_pair",
+                "--no_randaug", "--epochs", "1", "--batchSize", "32", "--output", out_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        history = train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(out_dir, "log.log")) as f:
+            epoch_lines = f.read().strip().splitlines()
+        log(phase, f"train CLI ({' '.join(argv)}) in {seconds:.2f} s: history {history}; "
+            f"launches {launches}; log.log: {epoch_lines}")
+        cfg, _ = parse_cli(argv)
+        steps = len(GQADataset(root, cfg.data.train_splits)) // 32
+        valid_forwards = math.ceil(len(GQADataset(root, cfg.data.valid_splits)) / 32)
+        want = {name: 0 for name in KERNELS}
+        want.update({"fused_attention_long": 12 * (steps + valid_forwards),
+                     "fused_attention_long_bwd": 12 * steps})
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want} ({steps} steps, "
+                                 f"{valid_forwards} validation forwards)")
+        if not all(math.isfinite(x) for x in history["loss"]):
+            raise AssertionError(f"non-finite training loss {history['loss']}")
+        for name in ("BEST.pth", "LAST.pth", "LAST.state.pt"):
+            if not os.path.isfile(os.path.join(out_dir, name)):
+                raise AssertionError(f"the ViLT train CLI wrote no {name}")
+        for name in ("BEST.pth", "LAST.pth"):
+            keys = torch.load(os.path.join(out_dir, name), map_location="cpu", weights_only=True)
+            if "transformer.blocks.11.attn.qkv.weight" not in keys or any(
+                    k.startswith("lxrt_encoder") for k in keys):
+                raise AssertionError(f"{name} is not in the GQAViLT key format: {sorted(keys)[:4]}")
+        log(phase, f"BEST.pth and LAST.pth in the GQAViLT key format ({len(keys)} tensors, "
+            "fused attn.qkv)")
+
+        eval_dir = os.path.join(tmp, "eval")
+        eargv = ["--backbone", "vilt", "--synthetic", "--data_root", root, "--test", "testdev",
+                 "--load", os.path.join(out_dir, "BEST.pth"), "--output", eval_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        results = evaluate.main(eargv)["testdev"]
+        counts = read_counts()
+        _check_eval_outputs(phase, eval_dir, root, results, eargv, time.perf_counter() - t0,
+                            counts["fused_attention_long"])
+        if any(n for name, n in counts.items() if name != "fused_attention_long"):
+            raise AssertionError(f"the ViLT evaluate path launched another kernel than #2: {counts}")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     kind, smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -834,6 +940,8 @@ def main() -> None:
     vilt_launches = phase_main_path("vilt", ("--backbone", "vilt"), "fused_attention_long", 12)
     steps = phase_train_steps()
     train_launches = phase_train_path()
+    phase_train_steps("vilt")
+    vilt_train_launches = phase_vilt_train_path()
 
     launches = {
         "fused_attention": eval_launches,  # the evaluate path
@@ -841,11 +949,12 @@ def main() -> None:
         "fused_attention_dropout": train_launches["fused_attention_dropout"],  # the train CLI
         "fused_attention_dropout_bwd": train_launches["fused_attention_dropout_bwd"],
         "fused_attention_long": vilt_launches,  # the ViLT evaluate path
+        "fused_attention_long_bwd": vilt_train_launches["fused_attention_long_bwd"],  # the ViLT train CLI
     }
     rows = []
     for name, (source, replaces) in KERNELS.items():
         # One bf16 call at each main-path shape, batch 256 (CUDA events).
-        shapes = VILT_SHAPES if name == "fused_attention_long" else SHAPES
+        shapes = VILT_SHAPES if name.startswith("fused_attention_long") else SHAPES
         per_shape = [times[(name, "bfloat16", sq, skv)] for sq, skv in shapes]
         rows.append({
             "name": name,

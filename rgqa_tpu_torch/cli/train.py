@@ -1,15 +1,22 @@
 """Training CLI (port of ``rgqa_tpu/cli/train.py``, ``--strategy conf``).
 
-Fine-tunes LXMERT on GQA with the JAX CLI's flags (BCE loss, BertAdam,
-global clip 5.0, ``--sample_pair`` for RP pseudo-UQ pairs, ``--dropout``
-on attention and hidden activations), writes ``BEST.pth``, ``LAST.pth``,
-``LAST.state.pt`` and ``log.log`` under ``--output``, and prints
-``{"final_loss", "valid"}``.  It runs on the card (``--device cuda``, the
-default; raises without one) unless given ``--device cpu``.
+Fine-tunes LXMERT or ViLT (``--backbone vilt``) on GQA with the JAX
+CLI's flags (BCE loss, BertAdam, global clip 5.0, ``--sample_pair`` for
+RP pseudo-UQ pairs, ``--dropout`` on attention and hidden activations;
+ViLT has hidden dropout only, and train-time randaug unless
+``--no_randaug``), writes ``BEST.pth``, ``LAST.pth``, ``LAST.state.pt``
+and ``log.log`` under ``--output``, and prints ``{"final_loss",
+"valid"}``.  It runs on the card (``--device cuda``, the default; raises
+without one) unless given ``--device cpu``.
 
-Example:
+Examples:
     python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
         --sample_pair --epochs 1 --batchSize 32 --output /tmp/gqa_snap
+    # ViLT-B/32 from the synthetic root's pixel pack (randaug needs PIL
+    # and JPEGs):
+    python -m rgqa_tpu_torch.cli.train --backbone vilt --synthetic \
+        --data_root /tmp/gqa_vilt --sample_pair --no_randaug --epochs 1 \
+        --batchSize 32 --output /tmp/gqa_vilt_snap
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
 // Device code shared by the port's attention kernels on the natural
 // (B, S, H*D) layout: fused_attention.cu (forward), fused_attention_bwd.cu
-// (backward) and fused_attention_dropout.cu (forward and backward with
-// dropout on the attention probabilities).
+// (backward), fused_attention_dropout.cu (forward and backward with
+// dropout on the attention probabilities), and the long-stream forward
+// and backward (fused_attention_long.cu, fused_attention_long_bwd.cu),
+// which take the loaders, the mma.sync fragment helpers and the dbias
+// head sum from here.
 //
 // Every kernel runs one block per (batch row, head) and keeps that pair's
 // whole problem in shared memory (LXMERT's sequences are 20 and 36 tokens,
@@ -49,6 +52,7 @@ struct Args {
   void* dk;
   void* dv;
   float* dbias_part;    // backward: (B, H, Skv) per-head sums of dS
+  float* stats;         // long backward: (B, H, Sq, 3) f32 row max, sum term, D
   int sq, skv, heads, dim;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;
   float scale;          // 1 / sqrt(dim)
@@ -230,26 +234,53 @@ __device__ __forceinline__ void mma_16x8x16(float (&acc)[4], uint32_t a0, uint32
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ uint32_t pack_f32_pair(float lo, float hi) {
+  return pack_pair(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+// Fragments of mma.sync m16n8k16 from shared memory, one warp (g = lane /
+// 4 the fragment's row or column group, t = 2 (lane % 4)):
+// a_frag: A, the 16 x 16 block at p (row-major, row stride ld);
+// b_frag_rows: B (16 x 8) with B(k, n) at p[n * ld + k] (K^T read from
+//   key rows: k runs along a row);
+// b_frag: B with B(k, n) at p[k * ld + n] (a matrix read from its rows).
+__device__ __forceinline__ void a_frag(uint32_t (&f)[4], const __nv_bfloat16* p, int ld,
+                                       int lane) {
+  const int g = lane >> 2, t = (lane & 3) * 2;
+  f[0] = ld_pair(p + g * ld + t);
+  f[1] = ld_pair(p + (g + 8) * ld + t);
+  f[2] = ld_pair(p + g * ld + t + 8);
+  f[3] = ld_pair(p + (g + 8) * ld + t + 8);
+}
+
+__device__ __forceinline__ void b_frag_rows(uint32_t& b0, uint32_t& b1,
+                                            const __nv_bfloat16* p, int ld, int lane) {
+  const int g = lane >> 2, t = (lane & 3) * 2;
+  b0 = ld_pair(p + g * ld + t);
+  b1 = ld_pair(p + g * ld + t + 8);
+}
+
+__device__ __forceinline__ void b_frag(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* p,
+                                       int ld, int lane) {
+  const int g = lane >> 2, t = (lane & 3) * 2;
+  b0 = pack_pair(p[t * ld + g], p[(t + 1) * ld + g]);
+  b1 = pack_pair(p[(t + 8) * ld + g], p[(t + 9) * ld + g]);
+}
+
 // acc += A (16 x 16, row-major at a, stride lda) x B, one warp, where B
 // is 16 x 8 with element (k, n) at b[n * ldb + k] (b_rows: K^T read from
 // key rows) or at b[k * ldb + n] (!b_rows: a matrix read from its rows).
 template <bool b_rows>
 __device__ __forceinline__ void mma_tile(float (&acc)[4], const __nv_bfloat16* a, int lda,
                                          const __nv_bfloat16* b, int ldb, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  const uint32_t a0 = ld_pair(a + g * lda + t);
-  const uint32_t a1 = ld_pair(a + (g + 8) * lda + t);
-  const uint32_t a2 = ld_pair(a + g * lda + t + 8);
-  const uint32_t a3 = ld_pair(a + (g + 8) * lda + t + 8);
-  uint32_t b0, b1;
+  uint32_t af[4], b0, b1;
+  a_frag(af, a, lda, lane);
   if (b_rows) {
-    b0 = ld_pair(b + g * ldb + t);
-    b1 = ld_pair(b + g * ldb + t + 8);
+    b_frag_rows(b0, b1, b, ldb, lane);
   } else {
-    b0 = pack_pair(b[t * ldb + g], b[(t + 1) * ldb + g]);
-    b1 = pack_pair(b[(t + 8) * ldb + g], b[(t + 9) * ldb + g]);
+    b_frag(b0, b1, b, ldb, lane);
   }
-  mma_16x8x16(acc, a0, a1, a2, a3, b0, b1);
+  mma_16x8x16(acc, af[0], af[1], af[2], af[3], b0, b1);
 }
 
 // C (m_rows_p x n) = A (m_rows_p x k_p, row stride lda) x B (k_p x n,

@@ -8,8 +8,9 @@ are here: lxmert (questions tokenized once into (N, T) int32 arrays,
 boxes normalized to [0, 1], ``norm4``) and vilt (the same questions;
 pixels per batch from an image source, on the ``u8`` wire as uint8 rows
 + rects + the rect-derived pad-patch mask, on the ``f32`` wire as
-normalized f32 pixels).  The UNITER, BUTD, caption and TreeMix-parse
-branches and train-time image augmentation are not ported yet.
+normalized f32 pixels, augmented by ``randaug`` when the runner sets
+``image_augment_rng`` on a train split).  The UNITER, BUTD, caption and
+TreeMix-parse branches are not ported yet.
 """
 
 from __future__ import annotations
@@ -96,6 +97,9 @@ class EncodedGQA:
     ``backbone="vilt"`` takes pixels from ``image_source`` (a
     ``data.images.GQAImageSource`` or ``PixelPack``) on ``pixel_wire``
     ``"u8"`` or ``"f32"``; ``pixel_patch_size`` sizes the pad-patch mask.
+    ``image_augment_rng`` (None: deterministic pixels, every eval split)
+    is the ``np.random.Generator`` that the runner sets on a train split
+    for train-time randaug; each batch's image loads draw from it.
     """
 
     def __init__(
@@ -118,6 +122,7 @@ class EncodedGQA:
             raise ValueError("the vilt branch needs an image_source")
         self.backbone = backbone
         self.image_source = image_source
+        self.image_augment_rng = None
         self.pixel_wire = pixel_wire
         self.pixel_patch_size = pixel_patch_size
         self.dataset = dataset
@@ -173,17 +178,18 @@ class EncodedGQA:
         }
         if self.backbone == "vilt":
             ids = [self.features.img_ids[r] for r in rows]
+            aug_rng = self.image_augment_rng
             if self.pixel_wire == "u8":
                 # uint8 rows + rects; the model's adapter normalizes on the
                 # device, and the pad-patch mask ships as geometry.
-                u8, rects = load_image_batch_u8(self.image_source, ids)
+                u8, rects = load_image_batch_u8(self.image_source, ids, rng=aug_rng)
                 batch["pixels_u8"] = u8
                 batch["pixel_rect"] = rects
                 batch["pixel_mask"] = rect_patch_mask(
                     rects, self.image_source.size, self.pixel_patch_size
                 )
             else:
-                batch["pixels"] = load_image_batch(self.image_source, ids)
+                batch["pixels"] = load_image_batch(self.image_source, ids, rng=aug_rng)
         else:
             batch["feats"] = np.asarray(self.features.features[rows], np.float32)
             batch["boxes"] = self.img_boxes[rows]

@@ -1,15 +1,19 @@
-"""Raw-image feed for ViLT: a numpy-only copy of the serving half of
-``rgqa_tpu/data/images.py``.
+"""Raw-image feed for ViLT: a numpy-only copy of ``rgqa_tpu/data/images.py``
+less ``pack_pixels``.
 
 A copy, because importing anything under ``rgqa_tpu.data`` runs its
 ``__init__``, which imports jax and flax.  The functions and classes
 here compute what their originals compute (``tests/test_torch_vilt.py``
 holds them to each other):
 
+- :func:`randaug`: the train-time photometric RandAugment (the
+  reference ``pixelbert_randaug``), two ops drawn from a
+  ``np.random.Generator``;
 - :func:`pixelbert_u8` / :func:`pixelbert_transform`: a PIL image ->
   uint8 ``(size, size, 3)`` + the real-pixel rect ``(top, left, h, w)``,
   or f32 in [-1, 1]; ``mode="pad"`` (longer side -> size, centered on a
-  zero canvas) or ``"crop"`` (shorter side -> size, center crop);
+  zero canvas) or ``"crop"`` (shorter side -> size, center crop); given
+  an ``rng``, :func:`randaug` runs before the resize;
 - :func:`pixelbert_normalize`: uint8 + rect -> f32, pad pixels 0.0;
 - :func:`rect_patch_mask`: rects -> the (B, n_patches) validity mask;
 - :class:`GQAImageSource` (JPEGs under an image root) and
@@ -23,9 +27,8 @@ data (``data/synthetic.py``) writes a :class:`PixelPack` directly
 that a pack found under a data root may stand in for its images: the
 same source root, and also the same size, mode and transform, which the
 JAX runner's auto-detection (``rgqa_tpu/runner.py:287-295``) does not
-check.  Not ported yet: ``randaug`` (train-time augmentation) and
-``pack_pixels`` (building a pack from JPEGs), which come with ViLT
-training and the prepare-data tool.
+check.  Not ported yet: ``pack_pixels`` (building a pack from JPEGs),
+which comes with the prepare-data tool.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import numpy as np
 __all__ = [
     "pixelbert_transform",
     "pixelbert_u8",
+    "randaug",
     "pixelbert_normalize",
     "rect_patch_mask",
     "load_image_batch",
@@ -61,13 +65,34 @@ def _resize_keep_ratio(img, size: int, *, by: str = "longer"):
     )
 
 
+def randaug(img, rng: np.random.Generator, n_ops: int = 2):
+    """Light RandAugment over photometric PIL ops: ``n_ops`` times, an op
+    of {identity, rotate, brightness, contrast, sharpness, posterize}
+    drawn from ``rng``, then its magnitude."""
+    from PIL import ImageEnhance, ImageOps
+
+    ops = [
+        lambda im, m: im,
+        lambda im, m: im.rotate(m * 10 - 5),
+        lambda im, m: ImageEnhance.Brightness(im).enhance(0.7 + 0.6 * m),
+        lambda im, m: ImageEnhance.Contrast(im).enhance(0.7 + 0.6 * m),
+        lambda im, m: ImageEnhance.Sharpness(im).enhance(0.7 + 0.6 * m),
+        lambda im, m: ImageOps.posterize(im, 4 + int(m * 4)),
+    ]
+    for _ in range(n_ops):
+        op = ops[int(rng.integers(len(ops)))]
+        img = op(img, float(rng.random()))
+    return img
+
+
 def pixelbert_u8(img, size: int = 384, *, rng=None, mode: str = "pad") -> tuple[np.ndarray, np.ndarray]:
     """PIL image -> ``(u8 (size, size, 3), rect (4,) int32)``: resize
-    without normalizing; ``rect = (top, left, h, w)`` marks the real
-    pixels (pad bytes are zero, but only the normalize can zero them)."""
-    if rng is not None:
-        raise NotImplementedError("randaug (train-time augmentation) is not ported yet")
+    (after :func:`randaug` when given an ``rng``) without normalizing;
+    ``rect = (top, left, h, w)`` marks the real pixels (pad bytes are
+    zero, but only the normalize can zero them)."""
     img = img.convert("RGB")
+    if rng is not None:
+        img = randaug(img, rng)
     if mode not in ("pad", "crop"):
         raise ValueError(f"mode must be pad|crop, got {mode!r}")
     img = _resize_keep_ratio(img, size, by="longer" if mode == "pad" else "shorter")

@@ -10,8 +10,9 @@ Linear -> LayerNorm -> GELU -> Linear classifier.
 
 At 384 px and 32 px patches the stream is the text (20 or 40 tokens)
 plus 144 patches plus CLS, 165 or 185 tokens, so every attention call
-goes through the long-stream kernel (``csrc/fused_attention_long.cu``),
-12 per forward.  Each block runs one fused (E, 3E) QKV product whose
+goes through the long-stream kernels, 12 per forward
+(``csrc/fused_attention_long.cu``) and, in training, 12 per backward
+(``csrc/fused_attention_long_bwd.cu``).  Each block runs one fused (E, 3E) QKV product whose
 column views go to the kernel, as ``transformer.AttentionBlock`` does.
 The patch conv (stride = kernel) is a plain product over (kh, kw, in)
 patches, as XLA lowers it in the JAX package; its weight keeps the
@@ -22,7 +23,13 @@ are masked out of attention: by default from the pixel content (a patch
 is valid iff any of its pixels is nonzero, the JAX package's rule), or
 from an explicit ``pixel_mask`` (the u8 wire's rect geometry); CLS is
 always valid.  LayerNorm eps: 1e-12 in the text embeddings, 1e-6 in the
-blocks and the final norm, 1e-5 in the answer head.  ``dtype`` is the
+blocks and the final norm, 1e-5 in the answer head.
+
+In training mode the dropout sites are the JAX model's: hidden dropout
+after ``att_out`` and after ``mlp_out`` in every block and at the end of
+the text embeddings, each drawing from the forward's ``rng``.  There is
+no attention dropout (``ViTBlock`` calls ``fused_attention``, never its
+dropout variant), and none in the pooler or the answer head.  ``dtype`` is the
 compute dtype of every product; the weights keep their own, and the
 embeddings add in PyTorch's type promotion as flax's do in JAX's.
 """

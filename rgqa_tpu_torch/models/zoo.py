@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from rgqa_tpu_torch.config import ModelConfig
+from rgqa_tpu_torch.data.images import rect_patch_mask
 from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.lxmert import LxmertForGQA
 from rgqa_tpu_torch.models.transformer import LayerNorm
@@ -100,20 +101,13 @@ def build_model(
 
     ``forward(batch, *, use_fused=None, rng=None)``: ``rng`` is the
     :class:`~rgqa_tpu_torch.ops.dropout.DropoutRng` a training forward
-    draws its dropout from.  ViLT is built for inference only: its
-    training needs the long-stream backward and dropout kernels, which
-    are not ported yet."""
+    draws its dropout from."""
     if cfg.backbone not in ("lxmert", "vilt"):
         raise NotImplementedError(
             f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert and vilt"
         )
     if cfg.branched or cfg.branched_layers:
         raise NotImplementedError("the branched confidence heads are not ported yet")
-    if cfg.backbone == "vilt" and train:
-        raise NotImplementedError(
-            "ViLT training is not ported yet (it needs the long-stream attention "
-            "backward and dropout kernels); the port runs ViLT for evaluation"
-        )
 
     device = resolve_device(device)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
@@ -158,10 +152,15 @@ def _vilt_forward(model) -> Callable[..., dict]:
     return forward
 
 
-def example_batch(cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0) -> dict:
+def example_batch(
+    cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0, pixel_wire: str = "f32"
+) -> dict:
     """A synthetic fixed-shape numpy batch; the same draws as the JAX
     package's ``example_batch`` for lxmert and vilt (f32 ``pixels``,
-    standard normal)."""
+    standard normal).  ``pixel_wire="u8"`` gives vilt the u8 wire
+    instead: random ``pixels_u8``, and in three rows of four the
+    ``pixel_rect`` of a 2:1, 3:2 or 4:3 image in pad mode, with its
+    ``pixel_mask``."""
     rng = np.random.default_rng(seed)
     t = cfg.max_text_len
     k = cfg.encoder.num_objects
@@ -175,7 +174,16 @@ def example_batch(cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0) -> di
     }
     if cfg.backbone == "vilt":
         s = cfg.vilt_image_size
-        batch["pixels"] = rng.standard_normal((batch_size, s, s, 3), dtype=np.float32)
+        if pixel_wire == "f32":
+            batch["pixels"] = rng.standard_normal((batch_size, s, s, 3), dtype=np.float32)
+            return batch
+        batch["pixels_u8"] = rng.integers(0, 256, (batch_size, s, s, 3), dtype=np.uint8)
+        rects = np.tile(np.asarray([0, 0, s, s], np.int32), (batch_size, 1))
+        rects[1::4] = (s // 4, 0, s // 2, s)
+        rects[2::4] = (0, s // 6, s, 2 * s // 3)
+        rects[3::4] = (s // 8, 0, 3 * s // 4, s)
+        batch["pixel_rect"] = rects
+        batch["pixel_mask"] = rect_patch_mask(rects, s, cfg.vilt_patch_size)
         return batch
     batch["feats"] = rng.standard_normal(
         (batch_size, k, cfg.encoder.visual_feat_dim), dtype=np.float32

@@ -26,7 +26,10 @@ __all__ = ["BuildResult", "SOURCES", "build", "build_all", "load_library", "NVCC
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "rgqa_tpu_torch"
-SOURCES = ("fused_attention", "fused_attention_bwd", "fused_attention_dropout", "fused_attention_long")
+SOURCES = (
+    "fused_attention", "fused_attention_bwd", "fused_attention_dropout", "fused_attention_long",
+    "fused_attention_long_bwd",
+)
 
 # sm_90a (not sm_90) so that later kernels may use wgmma/setmaxnreg;
 # -Xptxas -v reports registers, shared memory and spills per kernel.

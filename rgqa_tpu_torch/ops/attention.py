@@ -1,7 +1,7 @@
 """Multi-head attention on the natural (B, S, H*D) layout, forward and
 backward, with and without attention-probability dropout.
 
-Port of ``rgqa_tpu/ops/attention.py``.  Five hand-written Hopper kernels,
+Port of ``rgqa_tpu/ops/attention.py``.  Six hand-written Hopper kernels,
 each with a plain PyTorch version beside it:
 
 | kernel (wrapper) | source | TPU kernel it replaces | plain version |
@@ -9,6 +9,7 @@ each with a plain PyTorch version beside it:
 | :func:`fused_attention_cuda` | ``csrc/fused_attention.cu`` | ``_fused_kernel`` | :func:`attention_natural_ref` |
 | :func:`fused_attention_long_cuda` | ``csrc/fused_attention_long.cu`` | ``_fused_kernel`` on the query-tiled grid (``_fused_qblocked_raw``) | :func:`attention_natural_ref` |
 | :func:`fused_attention_bwd_cuda` | ``csrc/fused_attention_bwd.cu`` | ``_fused_bwd_kernel`` | :func:`attention_bwd_ref` |
+| :func:`fused_attention_long_bwd_cuda` | ``csrc/fused_attention_long_bwd.cu`` | ``_fused_bwd_kernel`` at long streams (``_fit_bwd_block``'s raised tiers) | :func:`attention_bwd_ref` |
 | :func:`fused_attention_dropout_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_kernel`` | :func:`attention_dropout_ref` |
 | :func:`fused_attention_dropout_bwd_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_bwd_kernel`` | :func:`attention_dropout_bwd_ref` |
 
@@ -16,13 +17,14 @@ each with a plain PyTorch version beside it:
 ``torch.autograd.Function``s (the ``_fused`` / ``_fused_drop``
 custom_vjps): on CUDA tensors their forward and backward launch the
 kernels, on CPU tensors they run the plain versions.  A CUDA tensor
-reaches a kernel or raises; there is no fallback.  The forward picks its
-kernel by length (:func:`forward_kernel`): Sq, Skv <= 64 the short
-kernel, longer streams (ViLT's 165-185 tokens) the long one; the
-backward and the dropout kernels take <= 64 only, and a longer stream
-raises ``NotImplementedError`` there (their long-stream versions come
-with ViLT training).  ``force_xla=True`` runs the plain forward under
-PyTorch's own autograd instead.
+reaches a kernel or raises; there is no fallback.  The forward and the
+backward pick their kernels by length (:func:`forward_kernel`,
+:func:`backward_kernel`): Sq, Skv <= 64 the short kernels, longer
+streams (ViLT's 165-185 tokens) the long ones.  The dropout kernels take
+<= 64 only, and a longer stream raises ``NotImplementedError`` there:
+their long-stream versions are not ported, since no default path runs
+attention dropout beyond 64 tokens.  ``force_xla=True`` runs the plain
+forward under PyTorch's own autograd instead.
 
 The dropout mask is keyed on the element: keep(b, h, i, j) is a pure
 function of a 64-bit seed and (b, h, i, j), one byte of a Philox4x32-10
@@ -34,9 +36,10 @@ ops.  The bits cannot match the TPU's hardware generator: the contract is
 that of ``_attention_dropout_xla`` (quantized rate, exact expectation).
 
 The TPU kernels' VMEM block ladder (``_fit_block``, ``_fwd_plan``,
-``_fit_qblock``) has no counterpart: one thread block per (batch row,
-head), and per query tile of 64 rows in the long forward, holds its whole
-problem in shared memory.
+``_fit_qblock``, ``_fit_bwd_block``) has no counterpart: one thread block
+per (batch row, head), and per query tile of 64 rows in the long forward,
+holds its whole problem in shared memory; the long backward splits its
+work into a pass over query tiles and one over key tiles.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ __all__ = [
     "MAX_HEAD_DIM",
     "LONG_MAX_KV",
     "forward_kernel",
+    "backward_kernel",
     "bias_vector",
     "attention_natural_ref",
     "attention_bwd_ref",
@@ -67,13 +71,15 @@ __all__ = [
     "fused_attention_cuda",
     "fused_attention_long_cuda",
     "fused_attention_bwd_cuda",
+    "fused_attention_long_bwd_cuda",
     "fused_attention_dropout_cuda",
     "fused_attention_dropout_bwd_cuda",
 ]
 
 # The kernels' limits (csrc/attention_common.cuh kMaxSeq / kMaxDim /
 # kLongMaxKv): the short kernels take Sq, Skv <= MAX_SEQ; the long
-# forward any Sq and Skv <= LONG_MAX_KV; every kernel D <= MAX_HEAD_DIM.
+# forward and backward any Sq and Skv <= LONG_MAX_KV; every kernel D <=
+# MAX_HEAD_DIM.
 MAX_SEQ = 64
 MAX_HEAD_DIM = 64
 LONG_MAX_KV = 256
@@ -278,7 +284,7 @@ def _entry(source: str, symbol: str, n_pointers: int, dropout: bool):
 
 def _check_lengths(name: str, sq: int, skv: int, d: int, *, long: bool) -> None:
     """Raise ``ValueError`` for lengths the short kernels (or, ``long``,
-    the long-stream forward) do not take, saying why."""
+    the long-stream forward and backward) do not take, saying why."""
     max_skv = LONG_MAX_KV if long else MAX_SEQ
     if (not long and sq > MAX_SEQ) or skv > max_skv or d > MAX_HEAD_DIM:
         raise ValueError(
@@ -297,6 +303,16 @@ def forward_kernel(sq: int, skv: int, head_dim: int):
     long = sq > MAX_SEQ or skv > MAX_SEQ
     _check_lengths("fused_attention", sq, skv, head_dim, long=long)
     return fused_attention_long_cuda if long else fused_attention_cuda
+
+
+def backward_kernel(sq: int, skv: int, head_dim: int):
+    """The backward kernel's wrapper, chosen as :func:`forward_kernel`
+    chooses: :func:`fused_attention_bwd_cuda` (#3) when both lengths are
+    <= MAX_SEQ, :func:`fused_attention_long_bwd_cuda` (#3L) for longer
+    streams.  Raises ``ValueError`` beyond #3L's limits."""
+    long = sq > MAX_SEQ or skv > MAX_SEQ
+    _check_lengths("the attention backward", sq, skv, head_dim, long=long)
+    return fused_attention_long_bwd_cuda if long else fused_attention_bwd_cuda
 
 
 def _check(name, q, k, v, bias_kv, num_heads: int, g=None, *, long: bool = False) -> None:
@@ -442,6 +458,27 @@ def fused_attention_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
     return dq, dk, dv, dbias
 
 
+def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
+    """Launch ``csrc/fused_attention_long_bwd.cu``: the function of
+    :func:`fused_attention_bwd_cuda` for any Sq and Skv <= LONG_MAX_KV (a
+    pass over query tiles for dq and each row's statistics, a pass over
+    key tiles for dk, dv and the dbias partials, then their head sum; no
+    atomics, so two runs give identical gradients).  The same arguments
+    and results; ``fused_attention_long_bwd_cuda.launches`` counts the
+    launches."""
+    _check("fused_attention_long_bwd_cuda", q, k, v, bias_kv, num_heads, g=g, long=True)
+    buffers = _bwd_buffers(q, k, num_heads)
+    # (B, H, Sq, 3) f32 row statistics that the first pass hands the second.
+    stats = torch.empty((q.shape[0], num_heads, q.shape[1], 3), dtype=torch.float32, device=q.device)
+    _launch(
+        "fused_attention_long_bwd", "fused_attention_long_bwd", "rgqa_fused_attention_long_bwd",
+        _bwd_pointers(q, k, v, bias_kv, g, buffers) + [stats.data_ptr()], q, k, v, num_heads,
+    )
+    fused_attention_long_bwd_cuda.launches += 1
+    dq, dk, dv, _, dbias = buffers
+    return dq, dk, dv, dbias
+
+
 def fused_attention_dropout_cuda(q, k, v, bias_kv, num_heads: int, rate: float, seed: int):
     """Launch the forward of ``csrc/fused_attention_dropout.cu``:
     :func:`fused_attention_cuda` with the keep mask of
@@ -481,7 +518,7 @@ def fused_attention_dropout_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, rate: 
 
 for _wrapper in (
     fused_attention_cuda, fused_attention_long_cuda, fused_attention_bwd_cuda,
-    fused_attention_dropout_cuda, fused_attention_dropout_bwd_cuda,
+    fused_attention_long_bwd_cuda, fused_attention_dropout_cuda, fused_attention_dropout_bwd_cuda,
 ):
     _wrapper.launches = 0
 
@@ -491,20 +528,22 @@ for _wrapper in (
 # ---------------------------------------------------------------------------
 
 
-def _short_only(what: str, q, k) -> None:
-    """Raise ``NotImplementedError`` for a CUDA call of a kernel that has
-    no long-stream version yet."""
+def _short_only(q, k) -> None:
+    """Raise ``NotImplementedError`` for a CUDA call of the dropout
+    kernels at a stream they do not take."""
     sq, skv = q.shape[1], k.shape[1]
     if sq > MAX_SEQ or skv > MAX_SEQ:
         raise NotImplementedError(
-            f"{what} at Sq={sq}, Skv={skv} (> {MAX_SEQ}) has no kernel yet: "
-            "its long-stream version comes with ViLT training"
+            f"attention with dropout at Sq={sq}, Skv={skv} (> {MAX_SEQ}) has no kernel: "
+            "the long-stream dropout pair is not ported, as no default path runs it "
+            "(an AttentionBlock model trained on a stream longer than 64 tokens would)"
         )
 
 
 class _FusedAttention(torch.autograd.Function):
-    """``_fused``'s custom_vjp: on CUDA kernel #1 (Sq, Skv <= 64) or #2
-    (longer streams) forward and #3 backward, the plain pair on the CPU."""
+    """``_fused``'s custom_vjp: on CUDA kernels #1 forward and #3 backward
+    (Sq, Skv <= 64) or #2 and #3L (longer streams), the plain pair on the
+    CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_kv, num_heads):
@@ -522,8 +561,8 @@ class _FusedAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             grads = attention_bwd_ref(q, k, v, bias_kv, g, ctx.num_heads)
         else:
-            _short_only("the attention backward", q, k)
-            grads = fused_attention_bwd_cuda(q, k, v, bias_kv, g, ctx.num_heads)
+            kernel = backward_kernel(q.shape[1], k.shape[1], q.shape[2] // ctx.num_heads)
+            grads = kernel(q, k, v, bias_kv, g, ctx.num_heads)
         return (*grads, None)
 
 
@@ -537,7 +576,7 @@ class _FusedAttentionDropout(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, bias_kv)
         if q.device.type == "cpu":
             return attention_dropout_ref(q, k, v, bias_kv, num_heads, rate, seed)
-        _short_only("attention with dropout", q, k)
+        _short_only(q, k)
         return fused_attention_dropout_cuda(q, k, v, bias_kv, num_heads, rate, seed)
 
     @staticmethod
@@ -557,8 +596,8 @@ def fused_attention(
     """Attention on the natural (B, S, H*D) layout, differentiable.
 
     ``bias`` is an additive float mask, ``(B, S_kv)`` or ``(B, 1, 1,
-    S_kv)``; None means fully visible.  CUDA tensors go to kernel #1 or,
-    for streams longer than 64, #2 forward and #3 backward (<= 64 only),
+    S_kv)``; None means fully visible.  CUDA tensors go to kernels #1
+    forward and #3 backward or, for streams longer than 64, #2 and #3L,
     CPU tensors to their plain versions; ``force_xla=True`` runs
     :func:`attention_natural_ref` under PyTorch's autograd."""
     bias_kv = bias_vector(bias, q.shape[0], k.shape[1], device=q.device)
@@ -573,8 +612,8 @@ def fused_attention_dropout(
 ) -> torch.Tensor:
     """:func:`fused_attention` with attention-probability dropout at
     ``rate`` (quantized to 1/256), its mask a pure function of ``seed``
-    and the element.  CUDA tensors go to kernels #4 and #5, CPU tensors
-    to their plain versions; ``force_xla=True`` runs
+    and the element.  CUDA tensors go to kernels #4 and #5 (Sq, Skv <=
+    64), CPU tensors to their plain versions; ``force_xla=True`` runs
     :func:`attention_dropout_ref` under PyTorch's autograd."""
     bias_kv = bias_vector(bias, q.shape[0], k.shape[1], device=q.device)
     if force_xla:

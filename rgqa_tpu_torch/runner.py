@@ -18,25 +18,35 @@ answers less the appended ``UQ`` class, initialises the weights from a
   ``LAST.state.pt`` at the end.
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
-  convention).  It runs lxmert or vilt.
+  convention).
+
+Both run lxmert or vilt.
 
 ViLT reads pixels from a pixel pack ``<data_root>/pixels_<size>_<mode>/``
 when one matches this run (built from ``<data_root>/images`` at the
 configured ``--vilt_image_size``, ``--vilt_resize`` and the pixelbert
 transform; the JAX runner checks only the source), else decodes the
 JPEGs under ``<data_root>/images`` (needs PIL).  A synthetic root gets
-its pack made when a ViLT run finds none.
+its pack made when a ViLT run finds none.  The train split follows the
+JAX rule (``rgqa_tpu/runner.py:280-325``): with train-time randaug on
+(the default) it decodes the JPEGs, which a pack's pre-resized rows
+cannot stand in for, and draws the augmentation from
+``np.random.default_rng(--seed)``; with ``--no_randaug`` it reads the
+pack like the eval splits.  Randaug needs PIL and the JPEGs; without
+either the runner raises, naming ``--no_randaug`` (the machine with the
+card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
 Not ported yet, and refused by flag name: the other strategies, mixup,
 the MCE, energy and branched losses, ``--uq_as_class``, ``--chart``,
 chunked dispatch, the other optimizers, bf16 moments, orbax snapshots
 (reading them needs jax), the ``--loadLXMERT`` / ``--loadLXMERTQA``
-initialisations, ViLT training and every backbone but lxmert and vilt.
+initialisations and every backbone but lxmert and vilt.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import math
 import os
 import time
@@ -68,9 +78,6 @@ def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
         f"--backbone {m.backbone}": m.backbone not in ("lxmert", "vilt"),
-        "--backbone vilt with training (ViLT is ported for evaluation)": (
-            train and m.backbone == "vilt"
-        ),
         "--branched / --branched_layer": m.branched or m.branched_layers,
         "--uq_as_class": m.uq_as_class,
         "--loadLXMERT / --loadLXMERTQA / --load_gqa": bool(
@@ -131,7 +138,7 @@ class GQARunner(ScoringMixin):
         self.valid_set: Optional[EncodedGQA] = None
         if init_train:
             self.dataset = GQADataset(root, data.train_splits, add_uq=True)
-            self.train_set = self._encode(self.dataset)
+            self.train_set = self._encode(self.dataset, train=True)
             if data.valid_splits:
                 self.valid_set = self._encode(GQADataset(root, data.valid_splits, add_uq=True))
         else:
@@ -173,13 +180,32 @@ class GQARunner(ScoringMixin):
                 return pack
         return GQAImageSource(img_root, size=size, mode=mode)
 
-    def _encode(self, ds: GQADataset) -> EncodedGQA:
-        m = self.cfg.model
-        return EncodedGQA(
+    def _encode(self, ds: GQADataset, *, train: bool = False) -> EncodedGQA:
+        """``ds`` as arrays; for ViLT the train split (``train``) with
+        randaug on reads the JPEGs and gets the augment generator."""
+        m, cfg = self.cfg.model, self.cfg
+        randaug = train and m.backbone == "vilt" and cfg.data.vilt_randaug
+        image_source = self.image_source
+        if randaug:
+            img_root = os.path.join(cfg.data.data_root, "images")
+            missing = [what for what, found in (
+                ("PIL", importlib.util.find_spec("PIL") is not None),
+                (img_root, os.path.isdir(img_root)),
+            ) if not found]
+            if missing:
+                raise RuntimeError(
+                    f"ViLT train-time randaug decodes the JPEGs under {img_root} with PIL; "
+                    f"missing here: {', '.join(missing)}. --no_randaug trains from the pixel pack"
+                )
+            image_source = GQAImageSource(img_root, size=m.vilt_image_size, mode=cfg.data.vilt_resize)
+        encoded = EncodedGQA(
             ds, self.features, tokenizer=self.tokenizer, max_text_len=m.max_text_len,
-            backbone=m.backbone, image_source=self.image_source,
-            pixel_wire=self.cfg.data.pixel_wire, pixel_patch_size=m.vilt_patch_size,
+            backbone=m.backbone, image_source=image_source,
+            pixel_wire=cfg.data.pixel_wire, pixel_patch_size=m.vilt_patch_size,
         )
+        if randaug:
+            encoded.image_augment_rng = np.random.default_rng(cfg.train.seed)
+        return encoded
 
     # ------------------------------------------------------------------
     # Checkpoints
@@ -206,9 +232,7 @@ class GQARunner(ScoringMixin):
 
     def save(self, name: str) -> str:
         """``<output>/<name>.pth`` in the reference GQA format."""
-        return save_reference_pth(
-            self.model, self.model_cfg.encoder, os.path.join(self.output, f"{name}.pth")
-        )
+        return save_reference_pth(self.model, self.model_cfg, os.path.join(self.output, f"{name}.pth"))
 
     # ------------------------------------------------------------------
     # Training (gqa_conf.py:140-243)

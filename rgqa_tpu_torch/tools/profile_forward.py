@@ -1,10 +1,10 @@
-"""Where the time of a full-width LXMERT or ViLT forward, or of an LXMERT
-training step, goes on one CUDA card.
+"""Where the time of a full-width LXMERT or ViLT forward or training step
+goes on one CUDA card.
 
     python -m rgqa_tpu_torch.tools.profile_forward [--backbone vilt]
         [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
-    python -m rgqa_tpu_torch.tools.profile_forward --train [--batch 32]
-        [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone vilt]
+        [--batch 32] [--out FILE.json]
 
 Builds ``LxmertForGQA`` (or, with ``--backbone vilt``, ViLT-B/32 with
 40-token text, a 185-token stream) at full width
@@ -13,7 +13,8 @@ Builds ``LxmertForGQA`` (or, with ``--backbone vilt``, ViLT-B/32 with
 and through the plain version.
 With ``--train`` it runs training steps instead (f32 master weights,
 bf16 compute, RP pairing, BertAdam, dropout 0.1 and 0, kernels and
-plain versions).  For each run:
+plain versions); ViLT trains on the train CLI's 20-token text, a
+165-token stream, on the u8 pixel wire with padded rects.  For each run:
 
 - wall per forward: the best of ``--repeats`` means over ``--iters``
   forwards, synchronised at both ends, for every run before the first
@@ -46,7 +47,7 @@ from rgqa_tpu_torch.ops import attention as att
 
 # (class, substrings of the lower-cased kernel name), first match wins.
 KERNEL_CLASSES = (
-    ("attention backward", ("fused_attention_bwd", "fused_attention_dbias")),
+    ("attention backward", ("fused_attention_bwd", "long_bwd", "fused_attention_dbias")),
     ("attention kernel", ("fused_attention",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "wgmma")),
     ("layer norm", ("layer_norm",)),
@@ -130,7 +131,7 @@ def _print_run(run: dict, unit: str = "forward") -> None:
         print(f"    {cls:<18} {c['ms']:8.3f} ms  {100 * c['share']:5.1f}%  {c['launches']:6.0f} launches")
 
 
-def _train_cases(sizes) -> dict:
+def _train_cases(sizes, backbone: str) -> dict:
     """{(batch, "dropout d kernels" | "dropout d plain"): one training
     step}, each on its own full-width model (f32 masters, bf16 compute)."""
     import dataclasses
@@ -141,7 +142,9 @@ def _train_cases(sizes) -> dict:
     from rgqa_tpu_torch.train.optimizer import make_optimizer
     from rgqa_tpu_torch.train.step import make_train_step
 
-    base = default_config()
+    base = default_config(backbone)
+    if backbone == "vilt":
+        base = dataclasses.replace(base, max_text_len=20)  # the train CLI's stream
     cases = {}
     for dropout in (0.1, 0.0):
         cfg = dataclasses.replace(base, encoder=dataclasses.replace(
@@ -154,7 +157,7 @@ def _train_cases(sizes) -> dict:
         rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
                          host=torch.Generator().manual_seed(1))
         for size in sizes:
-            batch = example_batch(cfg, size, seed=0)
+            batch = example_batch(cfg, size, seed=0, pixel_wire="u8")
             target = np.zeros((size, cfg.num_answers), np.float32)
             target[np.arange(size), np.arange(size) % cfg.num_answers] = 1.0
             batch.update(target=target, id_mask=np.ones(size, np.float32))
@@ -170,7 +173,7 @@ def main(argv=None) -> list:
     ap.add_argument("--batch", type=int, nargs="+", default=None,
                     help="batch sizes (default 256 32; with --train 32, doubled by RP)")
     ap.add_argument("--backbone", choices=("lxmert", "vilt"), default="lxmert")
-    ap.add_argument("--train", action="store_true", help="profile training steps (lxmert)")
+    ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
@@ -184,9 +187,8 @@ def main(argv=None) -> list:
     ).stdout.strip().splitlines()[0]
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}")
     if args.train:
-        if args.backbone != "lxmert":
-            raise SystemExit("profile_forward: --train profiles lxmert (ViLT training is not ported)")
-        return _profile(_train_cases(args.batch or [32]), args, smi, args.out, grad=True)
+        return _profile(_train_cases(args.batch or [32], args.backbone), args, smi, args.out,
+                        grad=True)
 
     cfg = default_config(args.backbone)
     _, forward = build_model(
@@ -205,7 +207,8 @@ def main(argv=None) -> list:
 def _attention_launches() -> int:
     return sum(fn.launches for fn in (
         att.fused_attention_cuda, att.fused_attention_long_cuda, att.fused_attention_bwd_cuda,
-        att.fused_attention_dropout_cuda, att.fused_attention_dropout_bwd_cuda))
+        att.fused_attention_long_bwd_cuda, att.fused_attention_dropout_cuda,
+        att.fused_attention_dropout_bwd_cuda))
 
 
 def _profile(fns: dict, args, smi: str, out: str, *, grad: bool) -> list:

@@ -2,8 +2,10 @@
 ``rgqa_tpu/checkpoint/orbax_io.py``).
 
 - ``<name>.pth``: the weights in the reference GQA ``.pth`` format
-  (``lxrt_encoder.model.bert.*`` + ``logit_fc.*``), which the port's
-  ``--load`` and the JAX package's ``import_lxmert_gqa`` both read.
+  (GQA-LXMERT's ``lxrt_encoder.model.bert.*`` + ``logit_fc.*``, or
+  GQAViLT's ``transformer.*`` ... with fused ``attn.qkv``), which the
+  port's ``--load`` and the JAX package's ``import_lxmert_gqa`` /
+  ``import_vilt_gqa`` read.
 - ``<name>.state.pt``: beside it, what a resume needs besides the
   weights: the optimizer state (moments and step count), the step, and
   the generator states.
@@ -18,15 +20,18 @@ import torch
 from torch import nn
 
 from rgqa_tpu_torch.checkpoint.convert import to_reference_state_dict
-from rgqa_tpu_torch.config import EncoderConfig
+from rgqa_tpu_torch.config import ModelConfig
 
 __all__ = ["save_reference_pth", "save_train_state", "load_train_state"]
 
 
-def save_reference_pth(model: nn.Module, enc: EncoderConfig, path: str) -> str:
-    """Write the model's weights as a reference GQA ``.pth``."""
+def save_reference_pth(model: nn.Module, cfg: ModelConfig, path: str) -> str:
+    """Write the weights of a model built from ``cfg`` (its backbone and
+    depths) as a reference GQA ``.pth``."""
+    enc = cfg.encoder
     sd = to_reference_state_dict(
-        model.state_dict(), l_layers=enc.l_layers, x_layers=enc.x_layers, r_layers=enc.r_layers
+        model.state_dict(), backbone=cfg.backbone, l_layers=enc.l_layers,
+        x_layers=enc.x_layers, r_layers=enc.r_layers, num_layers=enc.num_layers,
     )
     torch.save(sd, path)
     return path

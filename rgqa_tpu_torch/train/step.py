@@ -20,7 +20,9 @@ from rgqa_tpu_torch.train.losses import bce_answer_loss
 __all__ = ["global_norm_clip", "rp_augment", "make_train_step"]
 
 TEXT_KEYS = ("input_ids", "input_mask", "segment_ids")
-VISION_KEYS = ("feats", "boxes")
+# LXMERT's RoI fields and ViLT's pixel fields (both wires, with the
+# pad-patch geometry): each image stays in its row.
+VISION_KEYS = ("feats", "boxes", "pixels", "pixels_u8", "pixel_rect", "pixel_mask")
 
 
 def global_norm_clip(params, max_norm: float) -> torch.Tensor:

@@ -3,8 +3,11 @@
 - No module of ``rgqa_tpu_torch`` and not ``chip_smoke.py`` imports the
   JAX package, jax, jaxlib, flax or orbax (an AST scan; the blocked-import
   subprocesses of ``tests/test_torch_slice.py`` and of this file import
-  every module of the port and run the LXMERT train and evaluate CLIs and
-  the ViLT evaluate CLI with all of them blocked).
+  every module of the port and run the LXMERT and ViLT train and evaluate
+  CLIs with all of them blocked).
+- Every CUDA source under ``csrc/`` is in the build's ``SOURCES``, and
+  ``chip_smoke.py``'s ``KERNELS`` names every kernel wrapper of
+  ``ops.attention``, with its source and the TPU kernel it replaces.
 - The entry points run on the card unless asked for the CPU: without a
   card the runner, ``build_model`` and both CLIs raise when not given the
   CPU.
@@ -62,31 +65,69 @@ import rgqa_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(rgqa_tpu_torch.__path__, "rgqa_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-from rgqa_tpu_torch.cli import evaluate
-results = evaluate.main(sys.argv[1:])
+cli = importlib.import_module(f"rgqa_tpu_torch.cli.{sys.argv[1]}")
+results = cli.main(sys.argv[2:])
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in BLOCKED]
-print("RESULT", json.dumps({"modules": names, "keys": sorted(results["testdev"]), "loaded": loaded}))
+print("RESULT", json.dumps({"modules": names, "keys": sorted(results.get("testdev", results)),
+                            "loaded": loaded}))
 """
 
 
-def test_vilt_evaluate_runs_with_jax_blocked(tmp_path):
-    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
-    argv = ["--synthetic", "--data_root", root, "--test", "testdev", "--output", out,
-            "--backbone", "vilt", "--fp32", "--num_layers", "1", "--hidden_size", "32",
-            "--num_heads", "4", "--vilt_image_size", "64", "--vilt_patch_size", "16",
-            "--batchSize", "16", "--device", "cpu"]
+_VILT_FLAGS = ["--backbone", "vilt", "--fp32", "--num_layers", "1", "--hidden_size", "32",
+               "--num_heads", "4", "--vilt_image_size", "64", "--vilt_patch_size", "16",
+               "--batchSize", "16", "--device", "cpu"]
+
+
+def _run_jax_free(cli: str, argv: list, cwd) -> dict:
     proc = subprocess.run(
-        [sys.executable, "-c", _VILT_JAX_FREE, *argv], cwd=str(tmp_path),
+        [sys.executable, "-c", _VILT_JAX_FREE, cli, *argv], cwd=str(cwd),
         env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = next(l for l in proc.stdout.splitlines() if l.startswith("RESULT "))
     res = json.loads(line[len("RESULT "):])
     assert res["loaded"] == []
+    return res
+
+
+def test_vilt_evaluate_runs_with_jax_blocked(tmp_path):
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    res = _run_jax_free("evaluate", ["--synthetic", "--data_root", root, "--test", "testdev",
+                                     "--output", out, *_VILT_FLAGS], tmp_path)
     assert {"rgqa_tpu_torch.models.vilt", "rgqa_tpu_torch.data.images",
             "rgqa_tpu_torch.ops.pixels"} <= set(res["modules"])
     assert {"auaf", "fpr@0.95acc", "full_acc"} <= set(res["keys"])
     assert os.path.isfile(os.path.join(out, "testdev_predict.json"))
+
+
+def test_vilt_train_runs_with_jax_blocked(tmp_path):
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    res = _run_jax_free("train", ["--synthetic", "--data_root", root, "--sample_pair",
+                                  "--no_randaug", "--epochs", "1", "--output", out, *_VILT_FLAGS],
+                        tmp_path)
+    assert res["keys"] == ["loss", "valid"]
+    for name in ("LAST.pth", "LAST.state.pt"):
+        assert os.path.isfile(os.path.join(out, name)), name
+
+
+def test_every_kernel_source_is_built_and_smoked():
+    import importlib.util
+
+    from rgqa_tpu_torch.ops import _build, attention as att
+
+    sources = sorted(p.stem for p in (REPO / "rgqa_tpu_torch" / "csrc").glob("*.cu"))
+    assert sorted(_build.SOURCES) == sources
+    assert "fused_attention_long_bwd" in sources
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    wrappers = {name.removesuffix("_cuda") for name in att.__all__ if name.endswith("_cuda")}
+    assert set(smoke.KERNELS) == wrappers and "fused_attention_long_bwd" in wrappers
+    for name, (source, replaces) in smoke.KERNELS.items():
+        assert pathlib.Path(source).stem in _build.SOURCES, name
+        assert hasattr(getattr(att, f"{name}_cuda"), "launches"), name
+        path, line = replaces.split(":")
+        assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith("def _fused"), name
 
 
 # ---------------------------------------------------------------------------

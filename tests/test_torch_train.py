@@ -174,6 +174,26 @@ def test_rp_augment_matches_jax(jax):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
 
 
+def test_rp_augment_matches_jax_on_a_vilt_u8_batch(jax):
+    # The u8 wire's four pixel fields pair with the rolled text like the
+    # RoI fields: each image stays in its row.
+    from rgqa_tpu.train.step import rp_augment as jax_rp_augment
+
+    cfg = ModelConfig(backbone="vilt", encoder=_cfg().encoder, num_answers=7, max_text_len=6,
+                      vilt_patch_size=16, vilt_image_size=64)
+    batch = example_batch(cfg, 6, seed=2, pixel_wire="u8")
+    batch["target"] = np.random.default_rng(2).random((6, 7), dtype=np.float32)
+    batch["id_mask"] = np.ones(6, np.float32)
+    key = jax.random.PRNGKey(8)
+    want = jax_rp_augment({k: jax.numpy.asarray(v) for k, v in batch.items()}, key)
+    shift = int(jax.random.randint(key, (), 1, 6))
+    got = tstep.rp_augment(_tensors(batch), shift)
+    assert got.keys() == want.keys() >= {"pixels_u8", "pixel_rect", "pixel_mask"}
+    for k in want:
+        assert got[k].shape[0] == 12, k
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+
+
 def test_bf16_compute_with_f32_masters_matches_flax(jax):
     from rgqa_tpu.models.zoo import build_model as jax_build_model
 

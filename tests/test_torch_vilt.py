@@ -15,7 +15,8 @@ inputs made by numpy from a seed.
   ``to_reference_state_dict`` loads through the JAX ``import_vilt_gqa``
   and the port's ``load_reference_pth`` to the same weights.
 - The images copy against the original (``pixelbert_normalize``,
-  ``rect_patch_mask``, ``PixelPack`` rows, the JPEG decode), the
+  ``rect_patch_mask``, ``PixelPack`` rows, the JPEG decode, the
+  train-time ``randaug`` bit for bit from the same generator seed), the
   on-device normalize against ``pixelbert_normalize_jnp`` (eager, bit
   for bit), a pack of the port's synthetic generator in the JAX
   ``PixelPack``, and the port's pack detection, which also checks size,
@@ -217,6 +218,27 @@ def test_images_copy_matches_the_original(mode):
         np.testing.assert_array_equal(
             port_images.rect_patch_mask(rects, 64, patch), jax_images.rect_patch_mask(rects, 64, patch)
         )
+
+
+@pytest.mark.parametrize("mode", ["pad", "crop"])
+def test_randaug_matches_the_original(mode):
+    pytest.importorskip("PIL")
+    from rgqa_tpu.data import images as jax_images
+
+    img = _img(seed=3, w=120, h=80)
+    plain, _ = port_images.pixelbert_u8(img, 64, mode=mode)
+    ops, changed = set(), False
+    for seed in range(12):  # enough draws to pick every op
+        u8, rect = port_images.pixelbert_u8(img, 64, rng=np.random.default_rng(seed), mode=mode)
+        ju8, jrect = jax_images.pixelbert_u8(img, 64, rng=np.random.default_rng(seed), mode=mode)
+        np.testing.assert_array_equal(u8, ju8, err_msg=f"seed {seed}")
+        np.testing.assert_array_equal(rect, jrect)
+        changed |= not np.array_equal(u8, plain)
+        draws = np.random.default_rng(seed)  # randaug's draws: an op, then its magnitude
+        for _ in range(2):
+            ops.add(int(draws.integers(6)))
+            draws.random()
+    assert ops == set(range(6)) and changed
 
 
 def test_device_normalize_matches_jnp_bit_for_bit():

@@ -8,7 +8,10 @@ reading one pixel pack made by the port's generator (the u8 wire, the
 config default).  Answers are equal, the dumped confidences (4 dp, the
 prediction-JSON contract) are equal with at most ``MAX_4DP_FLIPS``
 rounding flips, and the metric dicts are equal.  The CLI runs the same
-path at a tiny size on the CPU and refuses ViLT training by flag name.
+path at a tiny size on the CPU; the train CLI trains ViLT from the pixel
+pack with ``--no_randaug`` and, without JPEGs for randaug, refuses by
+naming that flag (slice 4 ported ViLT training;
+``tests/test_torch_vilt_train.py`` holds it to the JAX package).
 """
 
 import json
@@ -20,7 +23,7 @@ import torch
 
 from rgqa_tpu_torch import config as port_config
 from rgqa_tpu_torch.checkpoint.convert import from_jax_params, to_reference_state_dict
-from rgqa_tpu_torch.cli import evaluate
+from rgqa_tpu_torch.cli import evaluate, train
 from rgqa_tpu_torch.data.dataset import GQADataset
 from rgqa_tpu_torch.data.images import PixelPack
 from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa, make_synthetic_pixel_pack
@@ -138,6 +141,15 @@ def test_cli_writes_predictions_and_metrics(tmp_path):
 
 
 def test_runner_refuses_vilt_training(tmp_path):
-    cfg = _cfg(str(tmp_path / "gqa"), str(tmp_path / "out"))
-    with pytest.raises(NotImplementedError, match="--backbone vilt with training"):
-        GQARunner(cfg, init_train=True, device="cpu")
+    """What the runner still refuses of ViLT training: randaug (the
+    default) where there are no JPEGs to augment, by naming
+    ``--no_randaug``; with it, the train CLI trains from the pixel pack."""
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    argv = ["--synthetic", "--data_root", root, "--sample_pair", "--epochs", "1",
+            "--output", out, *TINY_FLAGS]
+    with pytest.raises(RuntimeError, match="--no_randaug"):
+        train.main(argv)
+    history = train.main(argv + ["--no_randaug"])
+    assert len(history["loss"]) == 1 and np.isfinite(history["loss"][0])
+    for name in ("LAST.pth", "LAST.state.pt", "log.log"):
+        assert os.path.isfile(os.path.join(out, name)), name
