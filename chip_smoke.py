@@ -86,9 +86,35 @@ nonzero:
    launches of #3L, 12 per step and per validation forward of #2, none
    else; finite losses; ``BEST.pth`` and ``LAST.pth`` in the GQAViLT key
    format; then the evaluate CLI scores testdev from ``--load BEST.pth``.
-12. the kernels' JSON line (times: the sum over the LXMERT shapes, and
-   for #2 and #3L over 165x165 and 185x185, bf16, batch 256), the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+12. experiments (slice 5): the four kernels of the experiment entry
+   points, ``dual_pair`` (6e), ``cat_call`` (6f), ``headfold`` (6d) and
+   ``epi_fused`` (6c), each against its plain version at the
+   experiments' shapes (the cross and self pairs of 20 and 36 tokens;
+   cat at 56 tokens split at 20 in xor and diag mode; headfold at 56x56,
+   36x36, 20x36, 36x20, 20x20 with every (variant, F); the epilogue at
+   LXMERT's four shapes), batch 384 and 7, f32 and bf16, with padded keys
+   (-10000) and one fully masked row: bounds 2e-5 in f32 (1e-4 for the
+   epilogue, a LayerNorm over sums in another order) and ``3e-2 + 1e-2
+   |plain|`` in bf16.  Then each against the shipped composition: dual
+   equals two #1 calls bit for bit (the same body), cat/xor the two cross
+   calls and cat/diag the two self calls, headfold #1 at every F, the
+   epilogue ``split`` (#1, ``addmm``, residual, LayerNorm), within twice
+   the bounds (each side lies within them of the plain version).
+   Per-call times at batch 384 bf16 of each kernel and its shipped form
+   (in turns), its plain version and the PyTorch yardstick (once each:
+   SDPA, one call for cat and headfold, two for dual; SDPA + ``addmm`` +
+   ``layer_norm`` for the epilogue, a composition), beside its bound;
+   dual and cat and their pairs also at batch 32.  Runs ``python -m
+   rgqa_tpu_torch.experiments.{xfuse_exp,headfold_exp,epilogue_exp}
+   --iters 5`` (each must exit 0 and launch each of its kernels), then
+   holds the kernels the other experiments launch (6a, 6b) at their
+   shapes: #1 at 56x56 and #2 at 165x165 (batch 384), #3 at 36x36 and
+   20x36 (batch 384), #3L at 165x165 (batch 128), with times and bounds.
+13. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+   for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
+   four experiment kernels the sum over their shapes and variants at
+   batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Needs the repository beside it; it imports nothing of JAX.
 """
@@ -103,6 +129,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 E, HEADS = 768, 12
 SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))  # (Sq, Skv) per LXMERT call kind
@@ -113,6 +140,9 @@ LIMIT_SHAPES = ((20, 256), (256, 256))  # the long kernels' limit of 256 keys
 TOL = {
     ("fused_attention", "float32"): (2e-5, 0.0),
     ("fused_attention_long", "float32"): (2e-5, 0.0),
+    ("dual_pair", "float32"): (2e-5, 0.0),
+    ("cat_call", "float32"): (2e-5, 0.0),
+    ("headfold", "float32"): (2e-5, 0.0),
     ("float32",): (1e-4, 0.0),
     ("bfloat16",): (3e-2, 1e-2),
     ("dbias", "bfloat16"): (1e-3, 1e-4),
@@ -142,7 +172,14 @@ KERNELS = {
     "fused_attention_long": ("rgqa_tpu_torch/csrc/fused_attention_long.cu", "rgqa_tpu/ops/attention.py:399"),
     # _fused_bwd_kernel at ViLT's streams (_fit_bwd_block's raised tiers).
     "fused_attention_long_bwd": ("rgqa_tpu_torch/csrc/fused_attention_long_bwd.cu", "rgqa_tpu/ops/attention.py:448"),
+    # The experiment entry points' kernels (rgqa_tpu_torch/experiments).
+    "dual_pair": ("rgqa_tpu_torch/csrc/xfuse.cu", "experiments/xfuse_exp.py:83"),
+    "cat_call": ("rgqa_tpu_torch/csrc/xfuse.cu", "experiments/xfuse_exp.py:128"),
+    # One kernel for both head-fold bodies, _concat_kernel and _scratch_kernel.
+    "headfold": ("rgqa_tpu_torch/csrc/headfold.cu", "experiments/headfold_exp.py:62,98"),
+    "epi_fused": ("rgqa_tpu_torch/csrc/epilogue.cu", "experiments/epilogue_exp.py:30"),
 }
+EXPERIMENTS = ("xfuse_exp", "headfold_exp", "epilogue_exp")  # rgqa_tpu_torch.experiments.*
 VILT_TRAIN_TEXT = 20  # the train CLI's --max_text_len: a 165-token stream
 
 
@@ -173,9 +210,12 @@ def in_turns(plain, kernel, **kw) -> tuple[float, float]:
 
 
 def counters():
-    from rgqa_tpu_torch.ops import attention as att
+    import importlib
 
-    return {name: getattr(att, f"{name}_cuda") for name in KERNELS}
+    modules = [importlib.import_module(m) for m in (
+        "rgqa_tpu_torch.ops.attention", *(f"rgqa_tpu_torch.experiments.{e}" for e in EXPERIMENTS))]
+    return {name: next(getattr(m, f"{name}_cuda") for m in modules if hasattr(m, f"{name}_cuda"))
+            for name in KERNELS}
 
 
 def reset_counts() -> None:
@@ -256,6 +296,12 @@ def _bound_ms(name: str, b: int, sq: int, skv: int, itemsize: int) -> tuple[floa
     else:
         nbytes = act + mask
         flops = 4 * b * HEADS * sq * skv * d  # S, PV
+    return _bound(nbytes, flops)
+
+
+def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+    """The larger of moving ``nbytes`` at the memory rate and doing
+    ``flops`` at the bf16 tensor-core rate, in ms, and which it is."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
@@ -927,6 +973,235 @@ def phase_vilt_train_path():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the experiments (slice 5).
+# ---------------------------------------------------------------------------
+
+EXP_ITERS = 20  # launches per timing in phase 12 (33 cases; the kernel and the shipped form in turns)
+
+
+def _exp_stream(b, s, dtype, gen):
+    """q, k, v (B, S, E) and a (B, S) -10000 mask: up to a quarter of each
+    row's keys padded at the end, row B/2 fully masked."""
+    import torch
+
+    q, k, v = (torch.randn(b, s, E, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    pad = torch.randint(0, s // 4 + 1, (b, 1), generator=gen, device="cuda")
+    visible = torch.arange(s, device="cuda")[None, :] < s - pad
+    visible[b // 2] = False
+    return q, k, v, (~visible).float() * -10000.0
+
+
+def _sdpa(q, k, v, mask):
+    """One ``scaled_dot_product_attention`` call on (B, H, S, D) views;
+    ``mask`` (B, Skv) or (B, 1, Sq, Skv) additive."""
+    import torch.nn.functional as F
+
+    def heads(t):
+        return t.view(t.shape[0], t.shape[1], HEADS, E // HEADS).transpose(1, 2)
+
+    m = (mask[:, None, None, :] if mask.dim() == 2 else mask).to(q.dtype)
+    return F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=m)
+
+
+class _Case(typing.NamedTuple):
+    """One call of an experiment kernel: the kernel, its plain version, the
+    shipped form it replaces (its output rearranged as the kernel's), the
+    PyTorch yardstick, and the bytes and products of the call."""
+
+    name: str
+    label: str
+    kernel: object
+    plain: object
+    shipped: object
+    library: object
+    nbytes: int
+    flops: int
+    exact: bool = False  # the kernel equals the shipped form bit for bit
+
+
+def _exp_cases(b, dtype, gen):
+    """Every call of the four kernels at the experiments' shapes."""
+    import torch
+    from rgqa_tpu_torch.experiments import epilogue_exp, headfold_exp, xfuse_exp
+    from rgqa_tpu_torch.ops import attention as att
+
+    d, it = E // HEADS, torch.finfo(dtype).bits // 8
+    lang, vis = _exp_stream(b, 20, dtype, gen), _exp_stream(b, 36, dtype, gen)
+
+    def one(q, k, v, m):
+        return att.fused_attention_cuda(q, k, v, m, HEADS)
+
+    def attn_bytes(sq, skv):
+        return b * (2 * sq + 2 * skv) * E * it + b * skv * 4
+
+    cases = []
+    for label, mode in (("cross", "xor"), ("self", "diag")):
+        pa, pb = xfuse_exp.pair_problems(mode, lang, vis)
+        sa, ska, sb, skb = pa[0].shape[1], pa[1].shape[1], pb[0].shape[1], pb[1].shape[1]
+        flops = 4 * b * HEADS * (sa * ska + sb * skb) * d
+        cases.append(_Case(
+            "dual_pair", label, lambda pa=pa, pb=pb: xfuse_exp.dual_pair_cuda(*pa, *pb),
+            lambda pa=pa, pb=pb: xfuse_exp.dual_pair_ref(*pa, *pb),
+            lambda pa=pa, pb=pb: (one(*pa), one(*pb)),
+            lambda pa=pa, pb=pb: (_sdpa(*pa), _sdpa(*pb)),
+            attn_bytes(sa, ska) + attn_bytes(sb, skb), flops, exact=True))
+        cat = [torch.cat(p, 1) for p in zip(lang, vis)]  # [language; vision]
+        struct = xfuse_exp.cat_struct(56, 20, mode, "cuda")
+        cases.append(_Case(
+            "cat_call", f"{mode} ({label} pair)",
+            lambda cat=cat, mode=mode: xfuse_exp.cat_call_cuda(*cat, 20, mode),
+            lambda cat=cat, mode=mode: xfuse_exp.cat_call_ref(*cat, 20, mode),
+            lambda pa=pa, pb=pb: torch.cat([one(*pa), one(*pb)], 1),
+            lambda cat=cat, struct=struct: _sdpa(*cat[:3], cat[3][:, None, None, :] + struct),
+            attn_bytes(56, 56), 4 * b * HEADS * 56 * 56 * d))
+    for sq, skv in headfold_exp.SHAPES:
+        q, k, v, m = _exp_stream(b, max(sq, skv), dtype, gen)
+        q, k, v, m = q[:, :sq].contiguous(), k[:, :skv].contiguous(), v[:, :skv].contiguous(), m[:, :skv].contiguous()
+        for variant, fold in headfold_exp.CANDIDATES:
+            args = (q, k, v, m, fold, variant)
+            cases.append(_Case(
+                "headfold", f"{sq}x{skv} {variant} F={fold}",
+                lambda args=args: headfold_exp.headfold_cuda(*args),
+                lambda args=args: headfold_exp.headfold_ref(*args),
+                lambda args=args: one(*args[:4]), lambda args=args: _sdpa(*args[:4]),
+                attn_bytes(sq, skv), fold * 4 * b * HEADS * sq * skv * d))
+    for sq, skv in epilogue_exp.SHAPES:
+        q, k, v, m = _exp_stream(b, max(sq, skv), dtype, gen)
+        q, k, v, m = q[:, :sq].contiguous(), k[:, :skv].contiguous(), v[:, :skv].contiguous(), m[:, :skv].contiguous()
+        res = torch.randn(b, sq, E, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(E, E, generator=gen, device="cuda") * 0.02).to(dtype)
+        wb, be = (torch.randn(E, generator=gen, device="cuda") * 0.02 for _ in range(2))
+        g = 1.0 + torch.randn(E, generator=gen, device="cuda") * 0.02
+        args = (q, k, v, m, res, w, wb, g, be)
+        ln = epilogue_exp.layer_norm(g, be)
+
+        def library(args=args):
+            q, k, v, m, res, w, wb, g, be = args
+            ctx = _sdpa(q, k, v, m).transpose(1, 2).reshape(-1, E)
+            y = torch.addmm(wb.to(q.dtype), ctx, w).view(q.shape) + res
+            return torch.nn.functional.layer_norm(y.float(), (E,), g, be, epilogue_exp.EPS).to(q.dtype)
+
+        cases.append(_Case(
+            "epi_fused", f"{sq}x{skv}", lambda args=args: epilogue_exp.epi_fused_cuda(*args),
+            lambda args=args: epilogue_exp.epi_fused_ref(*args),
+            lambda args=args, ln=ln: epilogue_exp.split(*args[:7], ln), library,
+            attn_bytes(sq, skv) + b * sq * E * it + E * E * it + 3 * E * 4,
+            4 * b * HEADS * sq * skv * d + 2 * b * sq * E * E))
+    return cases
+
+
+def _run_experiments() -> dict:
+    """The three entry points, each in its own process: exit 0 and every
+    kernel of its module launched; their launch counts."""
+    launches = {}
+    for exp in EXPERIMENTS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"rgqa_tpu_torch.experiments.{exp}", "--iters", "5"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=300,
+        )
+        if proc.returncode != 0:
+            raise AssertionError(f"{exp} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        counts = json.loads(lines[-1].removeprefix("launches "))
+        log("experiments", f"python -m rgqa_tpu_torch.experiments.{exp} --iters 5: exit 0 in "
+            f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+        for line in lines[:-1]:
+            log("experiments", f"  {line}")
+        if not counts or not all(n > 0 for n in counts.values()):
+            raise AssertionError(f"{exp} did not launch each of its kernels: {counts}")
+        launches.update(counts)
+    return launches
+
+
+def _held_shapes(att, gen, errs):
+    """6a / 6b: the kernels the other experiment entry points launch, at
+    their shapes, against their plain versions; bf16 timed beside SDPA."""
+    import torch
+
+    for name, b, sq, skv in (("fused_attention", 384, 56, 56), ("fused_attention_long", 384, 165, 165),
+                             ("fused_attention_bwd", 384, 36, 36), ("fused_attention_bwd", 384, 20, 36),
+                             ("fused_attention_long_bwd", 128, 165, 165)):
+        msgs = []
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, g, _ = _attention_inputs(b, sq, skv, dtype, gen)
+            bias = _pad_patch_bias(b, skv, gen)
+            kernel = getattr(att, f"{name}_cuda")
+            args = (q, k, v, bias, g, HEADS) if name.endswith("bwd") else (q, k, v, bias, HEADS)
+            plain = att.attention_bwd_ref if name.endswith("bwd") else att.attention_natural_ref
+            got, want = kernel(*args), plain(*args)
+            torch.cuda.synchronize()
+            msgs.append(_compare(name, dtype, got, want, {}))
+            if dtype == torch.bfloat16:
+                plain_ms, kernel_ms = in_turns(lambda: plain(*args), lambda: kernel(*args), iters=EXP_ITERS)
+                bound, _ = _bound_ms(name, b, sq, skv, 2)
+                lib = _sdpa_calls(q, k, v, g, bias)
+                library = cuda_ms(lib["fwd"], iters=EXP_ITERS)
+                if name.endswith("bwd"):
+                    library = cuda_ms(lib["fwd_bwd"], iters=EXP_ITERS) - library
+                msgs.append(f"bf16 us kernel/plain/library/bound {kernel_ms * 1e3:.1f}/{plain_ms * 1e3:.1f}/"
+                            f"{library * 1e3:.1f}/{bound * 1e3:.1f}")
+            del q, k, v, g, bias, got, want
+            torch.cuda.empty_cache()
+        log("experiments", f"6a/6b: {name} B={b} {sq}x{skv}: " + "; ".join(msgs))
+
+
+def phase_experiments(errs, times):
+    """Phase 12; returns the entry points' launch counts."""
+    import torch
+    from rgqa_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for b in (384, 7):
+            for case in _exp_cases(b, dtype, gen):
+                got, want, shipped = case.kernel(), case.plain(), case.shipped()
+                torch.cuda.synchronize()
+                outs = got if isinstance(got, tuple) else (got,)
+                msg = ", ".join(_compare(case.name, dtype, a, w, errs).split(" ", 1)[1]
+                                for a, w in zip(outs, want if isinstance(want, tuple) else (want,)))
+                # The shipped composition, a second check of the plain version.
+                ship = shipped if isinstance(shipped, tuple) else (shipped,)
+                if case.exact:
+                    if not all(torch.equal(a, s) for a, s in zip(outs, ship)):
+                        raise AssertionError(f"{case.name} {case.label} differs from two #1 calls")
+                    sdiff = 0.0
+                else:
+                    # Twice the bound: kernel and shipped form each lie within
+                    # it of the plain version, rounding in their own places.
+                    sdiff = max(float((a.float() - s.float()).abs().max()) for a, s in zip(outs, ship))
+                    atol, rtol = (2 * x for x in _tol(case.name, "out", dname))
+                    if not all(bool(((a.float() - s.float()).abs() <= atol + rtol * s.float().abs()).all())
+                               for a, s in zip(outs, ship)):
+                        raise AssertionError(f"{case.name} {case.label} {dname} B={b}: max|kernel-shipped| "
+                                             f"{sdiff:.3e} over {atol} + {rtol}|shipped|")
+                log("experiments", f"{dname} B={b} {case.name} {case.label}: max|kernel-plain| {msg}; "
+                    f"max|kernel-shipped| {sdiff:.3e}" + (" (bit for bit)" if case.exact else ""))
+            torch.cuda.empty_cache()
+
+    # Times at batch 384 bf16 (and the pair's forms at batch 32).
+    for b in (384, 32):
+        for case in _exp_cases(b, torch.bfloat16, gen):
+            if b == 32 and case.name not in ("dual_pair", "cat_call"):
+                continue
+            shipped_ms, kernel_ms = in_turns(case.shipped, case.kernel, iters=EXP_ITERS)
+            bound, by = _bound(case.nbytes, case.flops)
+            row = {"kernel": kernel_ms, "shipped": shipped_ms, "bound": bound, "bound_by": by}
+            if b == 384:  # yardsticks, timed once each
+                row["plain"] = cuda_ms(case.plain, iters=EXP_ITERS)
+                row["library"] = cuda_ms(case.library, iters=EXP_ITERS)
+                times.setdefault(case.name, []).append(row)
+            log("experiments", f"bf16 B={b} {case.name} {case.label}: us " + ", ".join(
+                f"{k} {v * 1e3:.1f}" for k, v in row.items() if k != "bound_by") + f" (bound by {by})")
+        torch.cuda.empty_cache()
+
+    launches = _run_experiments()
+    _held_shapes(att, gen, errs)
+    return launches
+
+
 def main() -> None:
     kind, smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -942,6 +1217,8 @@ def main() -> None:
     train_launches = phase_train_path()
     phase_train_steps("vilt")
     vilt_train_launches = phase_vilt_train_path()
+    exp_times = {}
+    exp_launches = phase_experiments(errs, exp_times)
 
     launches = {
         "fused_attention": eval_launches,  # the evaluate path
@@ -950,9 +1227,21 @@ def main() -> None:
         "fused_attention_dropout_bwd": train_launches["fused_attention_dropout_bwd"],
         "fused_attention_long": vilt_launches,  # the ViLT evaluate path
         "fused_attention_long_bwd": vilt_train_launches["fused_attention_long_bwd"],  # the ViLT train CLI
+        **exp_launches,  # the experiment entry points
     }
     rows = []
     for name, (source, replaces) in KERNELS.items():
+        if name in exp_times:
+            # One bf16 call of each shape and variant, batch 384 (CUDA events).
+            per = exp_times[name]
+            rows.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": errs[(name, "bfloat16")],
+                "ms": sum(t["kernel"] for t in per), "plain_ms": sum(t["plain"] for t in per),
+                "bound_ms": sum(t["bound"] for t in per), "bound_by": per[-1]["bound_by"],
+                "library_ms": sum(t["library"] for t in per),
+            })
+            continue
         # One bf16 call at each main-path shape, batch 256 (CUDA events).
         shapes = VILT_SHAPES if name.startswith("fused_attention_long") else SHAPES
         per_shape = [times[(name, "bfloat16", sq, skv)] for sq, skv in shapes]

@@ -9,10 +9,12 @@ copies, each held to its original by a test.  The module layout mirrors
 entry points run on the card unless the caller asks for the CPU.
 
 Ported so far: LXMERT GQA inference with MSP rejection (slice 1),
-LXMERT GQA fine-tuning with RP pseudo-UQ pairs (slice 2) and ViLT-B/32
-GQA inference with MSP rejection (slice 3).  Every attention call runs
-through hand-written Hopper kernels in ``csrc/``: the forward (short and
-long streams), its backward, and the dropout forward and backward.
+LXMERT GQA fine-tuning with RP pseudo-UQ pairs (slice 2), ViLT-B/32 GQA
+inference with MSP rejection (slice 3) and fine-tuning (slice 4), and
+the kernel experiments (slice 5, ``experiments/``).  Every attention call
+runs through hand-written Hopper kernels in ``csrc/``: the forward (short
+and long streams), its backward (both), and the dropout forward and
+backward; the experiments run four more (dual, cat, headfold, epilogue).
 """
 
 __version__ = "0.3.0"

@@ -4,7 +4,9 @@
 // dropout on the attention probabilities), and the long-stream forward
 // and backward (fused_attention_long.cu, fused_attention_long_bwd.cu),
 // which take the loaders, the mma.sync fragment helpers and the dbias
-// head sum from here.
+// head sum from here, and the experiments' kernels (xfuse.cu runs the
+// forward bodies below on two problems or with a structural mask;
+// headfold.cu and epilogue.cu build on the helpers).
 //
 // Every kernel runs one block per (batch row, head) and keeps that pair's
 // whole problem in shared memory (LXMERT's sequences are 20 and 36 tokens,
@@ -155,10 +157,21 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const T* src, 
   }
 }
 
+// A structural term added to the scores after the bias, mask(i, j) for
+// the block's query row i and key j (the experiments' kernels: xfuse.cu,
+// headfold.cu); NoMask adds nothing and leaves the code of the other
+// kernels as it was.
+struct NoMask {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ float operator()(int, int) const { return 0.f; }
+};
+
 // S = Q K^T * scale + bias on the CUDA cores, f32 (the f32 bodies).
+template <typename Mask = NoMask>
 __device__ __forceinline__ void scores_f32(float* ps, int ldp, const float* qs,
                                            const float* ks, int ld, const float* bs,
-                                           const Args& a, int tid, int nthreads) {
+                                           const Args& a, int tid, int nthreads,
+                                           const Mask& mask = Mask()) {
   const int skv = a.skv, d = a.dim;
   for (int idx = tid; idx < a.sq * skv; idx += nthreads) {
     const int i = idx / skv, j = idx % skv;
@@ -167,7 +180,9 @@ __device__ __forceinline__ void scores_f32(float* ps, int ldp, const float* qs,
     float acc = 0.f;
 #pragma unroll 8
     for (int c = 0; c < d; ++c) acc = fmaf(qi[c], kj[c], acc);
-    ps[i * ldp + j] = acc * a.scale + bs[j];
+    float x = acc * a.scale + bs[j];
+    if (Mask::kOn) x += mask(i, j);
+    ps[i * ldp + j] = x;
   }
 }
 
@@ -308,9 +323,11 @@ __device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
 
 // S = Q K^T * scale + bias on the tensor cores into ss (sq x (skv + 1)),
 // one (16-row, 8-key) tile per warp task; Qs / Ks zero-padded tiles.
+template <typename Mask = NoMask>
 __device__ __forceinline__ void scores_mma(float* ss, const __nv_bfloat16* qs,
                                            const __nv_bfloat16* ks, int ldq, int sqp, int dp,
-                                           const float* bs, const Args& a, int warp, int lane) {
+                                           const float* bs, const Args& a, int warp, int lane,
+                                           const Mask& mask = Mask()) {
   const int sq = a.sq, skv = a.skv;
   const int g = lane >> 2, t = (lane & 3) * 2;
   const int m_tiles = sqp / 16, n_tiles = (skv + 7) / 8;
@@ -323,7 +340,11 @@ __device__ __forceinline__ void scores_mma(float* ss, const __nv_bfloat16* qs,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = m0 + g + (e >= 2 ? 8 : 0), j = n0 + t + (e & 1);
-      if (i < sq && j < skv) ss[i * (skv + 1) + j] = acc[e] * a.scale + bs[j];
+      if (i < sq && j < skv) {
+        float x = acc[e] * a.scale + bs[j];
+        if (Mask::kOn) x += mask(i, j);
+        ss[i * (skv + 1) + j] = x;
+      }
     }
   }
 }
@@ -359,17 +380,21 @@ struct FwdTile {
   Args t;
 };
 
-__device__ __forceinline__ FwdTile fwd_tile(const Args& a, size_t elem) {
+__device__ __forceinline__ FwdTile fwd_tile(const Args& a, size_t elem, unsigned blk) {
   const int tiles = (a.sq + kTileQ - 1) / kTileQ;
-  const int bh = blockIdx.x / tiles;
+  const int bh = blk / tiles;
   FwdTile f;
   f.b = bh / a.heads;
   f.h = bh % a.heads;
-  f.q0 = blockIdx.x % tiles * kTileQ;
+  f.q0 = blk % tiles * kTileQ;
   f.t = a;
   f.t.q = static_cast<const unsigned char*>(a.q) + f.q0 * a.q_rs * elem;
   f.t.sq = min(a.sq - f.q0, kTileQ);
   return f;
+}
+
+__device__ __forceinline__ FwdTile fwd_tile(const Args& a, size_t elem) {
+  return fwd_tile(a, elem, blockIdx.x);
 }
 
 // f32: CUDA cores (fmaf), exact to the plain version's summation order
@@ -381,10 +406,13 @@ size_t fwd_f32_smem_bytes(int sq, int skv, int d) {
   return sizeof(float) * (sq * ld + 2 * skv * ld + sq * (skv + 1) + skv);
 }
 
-template <bool kDrop, int kPerLane = 2, int kThreads = kF32Threads>
-__global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
-  extern __shared__ float smem[];
-  const FwdTile f = fwd_tile(a, sizeof(float));
+// The body of block blk (blockIdx.x of a kernel that runs only this
+// problem); the experiments' kernels run two problems in one grid, or
+// add a structural mask.
+template <bool kDrop, int kPerLane, int kThreads, typename Mask = NoMask>
+__device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float* smem,
+                                             const Mask& mask = Mask()) {
+  const FwdTile f = fwd_tile(a, sizeof(float), blk);
   const int b = f.b, h = f.h, q0 = f.q0;
   const int sq = f.t.sq, skv = a.skv, d = a.dim;
   const int ld = d + 1, ldp = skv + 1;
@@ -404,7 +432,7 @@ __global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
   for (int j = tid; j < skv; j += kThreads) bs[j] = a.bias[b * skv + j];
   __syncthreads();
 
-  scores_f32(ps, ldp, qs, ks, ld, bs, f.t, tid, kThreads);
+  scores_f32(ps, ldp, qs, ks, ld, bs, f.t, tid, kThreads, mask);
   __syncthreads();
 
   softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, tid / 32, kThreads / 32, tid % 32,
@@ -425,6 +453,12 @@ __global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
     for (int j = 0; j < skv; ++j) acc = fmaf(pi[j], vs[j * ld + c], acc);
     out[i * out_rs + c] = acc;
   }
+}
+
+template <bool kDrop, int kPerLane = 2, int kThreads = kF32Threads>
+__global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
+  extern __shared__ float smem[];
+  fwd_f32_body<kDrop, kPerLane, kThreads>(a, blockIdx.x, smem);
 }
 
 // bf16: both products on the tensor cores.  Shared memory, bf16 unless
@@ -461,10 +495,11 @@ __host__ __device__ inline FwdLayout fwd_layout(int sq, int skv, int d) {
   return L;
 }
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kMmaThreads) fused_attention_bf16(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+template <bool kDrop, typename Mask = NoMask>
+__device__ __forceinline__ void fwd_bf16_body(const Args& a, unsigned blk,
+                                              unsigned char* smem_raw,
+                                              const Mask& mask = Mask()) {
+  const int b = blk / a.heads, h = blk % a.heads;
   const int sq = a.sq, skv = a.skv, d = a.dim;
   const FwdLayout L = fwd_layout(sq, skv, d);
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.q_off);
@@ -485,7 +520,7 @@ __global__ void __launch_bounds__(kMmaThreads) fused_attention_bf16(Args a) {
   cp_async_wait_all();
   __syncthreads();
 
-  scores_mma(ss, qs, ks, L.ldq, L.sqp, L.dp, bs, a, warp, lane);
+  scores_mma(ss, qs, ks, L.ldq, L.sqp, L.dp, bs, a, warp, lane, mask);
   __syncthreads();
 
   // P in bf16 over the whole padded SQP x SKP tile (zeros outside).
@@ -504,6 +539,12 @@ __global__ void __launch_bounds__(kMmaThreads) fused_attention_bf16(Args a) {
   const long long out_rs = static_cast<long long>(a.heads) * d;
   mma_product(ps, L.ldp, vs, L.ldq, L.sqp, L.skp, sq, d, warp, lane,
               [&](int i, int c, float x) { out[i * out_rs + c] = __float2bfloat16(x); });
+}
+
+template <bool kDrop>
+__global__ void __launch_bounds__(kMmaThreads) fused_attention_bf16(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_bf16_body<kDrop>(a, blockIdx.x, smem_raw);
 }
 
 // ---------------------------------------------------------------------------
@@ -799,15 +840,20 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias, in
   return a;
 }
 
+// Let kernel take smem bytes of dynamic shared memory (above 48 KB only
+// by this opt-in); the cudaError_t of the call.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
 // One block per (batch row, head, query tile), the tile fastest.
 template <typename Kernel>
 int launch(Kernel kernel, const Args& a, int batch, int threads, size_t smem,
            cudaStream_t stream, int tiles = 1) {
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (const int err = allow_smem(kernel, smem)) return err;
   const unsigned blocks = static_cast<unsigned>(batch) * a.heads * static_cast<unsigned>(tiles);
   kernel<<<blocks, threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

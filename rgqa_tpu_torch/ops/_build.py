@@ -28,7 +28,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "rgqa_tpu_torch"
 SOURCES = (
     "fused_attention", "fused_attention_bwd", "fused_attention_dropout", "fused_attention_long",
-    "fused_attention_long_bwd",
+    "fused_attention_long_bwd", "xfuse", "headfold", "epilogue",
 )
 
 # sm_90a (not sm_90) so that later kernels may use wgmma/setmaxnreg;

@@ -1,13 +1,15 @@
 """The port's rules, checked on the CPU.
 
 - No module of ``rgqa_tpu_torch`` and not ``chip_smoke.py`` imports the
-  JAX package, jax, jaxlib, flax or orbax (an AST scan; the blocked-import
-  subprocesses of ``tests/test_torch_slice.py`` and of this file import
-  every module of the port and run the LXMERT and ViLT train and evaluate
-  CLIs with all of them blocked).
+  JAX package, the JAX experiments (``experiments/``), jax, jaxlib, flax
+  or orbax (an AST scan; the blocked-import subprocesses of
+  ``tests/test_torch_slice.py`` and of this file import every module of
+  the port and run the LXMERT and ViLT train and evaluate CLIs and the
+  three experiment entry points with all of them blocked).
 - Every CUDA source under ``csrc/`` is in the build's ``SOURCES``, and
   ``chip_smoke.py``'s ``KERNELS`` names every kernel wrapper of
-  ``ops.attention``, with its source and the TPU kernel it replaces.
+  ``ops.attention`` and of ``rgqa_tpu_torch.experiments``, with its
+  source and the TPU kernel it replaces.
 - The entry points run on the card unless asked for the CPU: without a
   card the runner, ``build_model`` and both CLIs raise when not given the
   CPU.
@@ -36,7 +38,8 @@ from rgqa_tpu_torch import metrics as port_metrics
 from rgqa_tpu_torch.checkpoint import torch_import as port_import
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"rgqa_tpu", "jax", "jaxlib", "flax", "orbax"}
+FORBIDDEN = {"rgqa_tpu", "experiments", "jax", "jaxlib", "flax", "orbax"}
+EXPERIMENTS = ("xfuse_exp", "headfold_exp", "epilogue_exp")
 
 
 def _port_sources():
@@ -56,7 +59,7 @@ def test_no_import_of_the_jax_package(path):
 
 _VILT_JAX_FREE = r"""
 import importlib, json, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "orbax", "rgqa_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "rgqa_tpu", "experiments")
 for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 for name in BLOCKED:
@@ -65,7 +68,7 @@ import rgqa_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(rgqa_tpu_torch.__path__, "rgqa_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-cli = importlib.import_module(f"rgqa_tpu_torch.cli.{sys.argv[1]}")
+cli = importlib.import_module(f"rgqa_tpu_torch.{sys.argv[1]}")
 results = cli.main(sys.argv[2:])
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in BLOCKED]
 print("RESULT", json.dumps({"modules": names, "keys": sorted(results.get("testdev", results)),
@@ -78,9 +81,11 @@ _VILT_FLAGS = ["--backbone", "vilt", "--fp32", "--num_layers", "1", "--hidden_si
                "--batchSize", "16", "--device", "cpu"]
 
 
-def _run_jax_free(cli: str, argv: list, cwd) -> dict:
+def _run_jax_free(module: str, argv: list, cwd) -> dict:
+    """Run ``rgqa_tpu_torch.<module>.main(argv)`` with the JAX package,
+    the JAX experiments and jax / flax / orbax blocked."""
     proc = subprocess.run(
-        [sys.executable, "-c", _VILT_JAX_FREE, cli, *argv], cwd=str(cwd),
+        [sys.executable, "-c", _VILT_JAX_FREE, module, *argv], cwd=str(cwd),
         env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -92,7 +97,7 @@ def _run_jax_free(cli: str, argv: list, cwd) -> dict:
 
 def test_vilt_evaluate_runs_with_jax_blocked(tmp_path):
     root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
-    res = _run_jax_free("evaluate", ["--synthetic", "--data_root", root, "--test", "testdev",
+    res = _run_jax_free("cli.evaluate", ["--synthetic", "--data_root", root, "--test", "testdev",
                                      "--output", out, *_VILT_FLAGS], tmp_path)
     assert {"rgqa_tpu_torch.models.vilt", "rgqa_tpu_torch.data.images",
             "rgqa_tpu_torch.ops.pixels"} <= set(res["modules"])
@@ -102,7 +107,7 @@ def test_vilt_evaluate_runs_with_jax_blocked(tmp_path):
 
 def test_vilt_train_runs_with_jax_blocked(tmp_path):
     root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
-    res = _run_jax_free("train", ["--synthetic", "--data_root", root, "--sample_pair",
+    res = _run_jax_free("cli.train", ["--synthetic", "--data_root", root, "--sample_pair",
                                   "--no_randaug", "--epochs", "1", "--output", out, *_VILT_FLAGS],
                         tmp_path)
     assert res["keys"] == ["loss", "valid"]
@@ -110,24 +115,41 @@ def test_vilt_train_runs_with_jax_blocked(tmp_path):
         assert os.path.isfile(os.path.join(out, name)), name
 
 
+@pytest.mark.parametrize("name", EXPERIMENTS)
+def test_experiments_run_with_jax_blocked(name, tmp_path):
+    res = _run_jax_free(f"experiments.{name}", ["--device", "cpu", "--batch", "2", "--iters", "1"],
+                        tmp_path)
+    assert {f"rgqa_tpu_torch.experiments.{e}" for e in EXPERIMENTS} <= set(res["modules"])
+    assert "launches" in res["keys"] and "rows" in res["keys"]
+
+
 def test_every_kernel_source_is_built_and_smoked():
+    import importlib
     import importlib.util
 
     from rgqa_tpu_torch.ops import _build, attention as att
 
     sources = sorted(p.stem for p in (REPO / "rgqa_tpu_torch" / "csrc").glob("*.cu"))
     assert sorted(_build.SOURCES) == sources
-    assert "fused_attention_long_bwd" in sources
+    assert {"fused_attention_long_bwd", "xfuse", "headfold", "epilogue"} <= set(sources)
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    wrappers = {name.removesuffix("_cuda") for name in att.__all__ if name.endswith("_cuda")}
-    assert set(smoke.KERNELS) == wrappers and "fused_attention_long_bwd" in wrappers
+    modules = [att] + [importlib.import_module(f"rgqa_tpu_torch.experiments.{e}") for e in EXPERIMENTS]
+    wrappers = {name.removesuffix("_cuda"): mod for mod in modules for name in mod.__all__
+                if name.endswith("_cuda")}
+    assert set(smoke.KERNELS) == set(wrappers)
+    assert {"fused_attention_long_bwd", "dual_pair", "cat_call", "headfold", "epi_fused"} <= set(wrappers)
     for name, (source, replaces) in smoke.KERNELS.items():
         assert pathlib.Path(source).stem in _build.SOURCES, name
-        assert hasattr(getattr(att, f"{name}_cuda"), "launches"), name
-        path, line = replaces.split(":")
-        assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith("def _fused"), name
+        assert hasattr(getattr(wrappers[name], f"{name}_cuda"), "launches"), name
+        path, lines = replaces.split(":")
+        for line in lines.split(","):
+            text = (REPO / path).read_text().splitlines()[int(line) - 1]
+            if wrappers[name] is att:
+                assert text.startswith("def _fused"), name
+            else:  # an experiment's kernel body
+                assert text.startswith("def _") and "_kernel(" in text, name
 
 
 # ---------------------------------------------------------------------------
