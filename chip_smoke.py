@@ -8,15 +8,19 @@ nonzero:
 
 1. device: the card's name and ``nvidia-smi``'s name and power limit;
    TF32 is turned off for matmuls and convolutions.  No CUDA -> exit 1.
-2. build: compiles the five sources of ``rgqa_tpu_torch/csrc`` for sm_90a,
+2. build: compiles the eight sources of ``rgqa_tpu_torch/csrc`` for sm_90a,
    one nvcc each, side by side (prints each build time and ptxas' report).
 3. kernels: the six attention kernels against their plain PyTorch
-   versions.  #2, the long-stream forward, at ViLT's shapes (165x165,
-   185x185, and 65x185 / 185x65 for ragged query tiles), batch 256 and 7,
-   f32 and bf16, with pad-patch style masks (padded text, trailing keys
-   masked) and one fully masked row, bounds as #1's.  #3L, the
-   long-stream backward, at the same shapes and at its limit of 256 keys
-   (20x256, 256x256), with the same masks, bounds as #3's, and two runs
+   versions.  #2, the long-stream forward, and #3L, the long-stream
+   backward (given #2's row statistics), at ViLT-B/32's shapes (165x165,
+   185x185, and 65x185 / 185x65 for ragged query tiles), either side of
+   256 keys where #2 changes body (20x256, 256x256, 20x257, 257x257) and
+   beyond (277x277: a 512 px image; 597x597, 20x597, 597x20: 16 px
+   patches), at batch 256 (64 at 597 tokens) and 7, f32 and bf16, with
+   pad-patch style masks (padded text, trailing keys masked) and one
+   fully masked row, bounds as #1's and #3's; #2 with its row statistics
+   gives the same output bits as without, and in f32 their log-sum-exp is
+   within 1e-5 + 1e-7 |lse| of the plain scores'; #3L's two runs are
    equal bit for bit.  The other four at
    LXMERT's four attention shapes (20x20, 36x36, 20x36,
    36x20; 12 heads of 64), batch 256 and 7, with one fully masked row:
@@ -32,8 +36,9 @@ nonzero:
    256 is within 5 sigma of (256 - t) / 256.  Per-call CUDA-event times of
    each kernel, its plain version and the one PyTorch call that computes
    the same function (``scaled_dot_product_attention``: forward; forward
-   plus backward less forward; with ``dropout_p``), at batch 256 (#3L in
-   bf16 only: its f32 body is checked, not timed).
+   plus backward less forward; with ``dropout_p``), at batch 256 (#2 and
+   #3L at 165, 185 and 277 tokens, batch 256, and 597 tokens, batch 64;
+   #3L in bf16 only: its f32 body is checked, not timed).
 4. model: full-width LxmertForGQA (9/5/5 layers x 768, vocab 30522, 1842
    answers, 36 x 2048 RoI features) in bf16 from a seeded generator at
    batch 256 with padded text (random lengths 4-20), once through the
@@ -86,7 +91,14 @@ nonzero:
    launches of #3L, 12 per step and per validation forward of #2, none
    else; finite losses; ``BEST.pth`` and ``LAST.pth`` in the GQAViLT key
    format; then the evaluate CLI scores testdev from ``--load BEST.pth``.
-12. experiments (slice 5): the four kernels of the experiment entry
+12. vilt beyond 256 tokens (slice 6), full width: the evaluate CLI at
+   ``--vilt_image_size 512`` (277 tokens), checked and re-scored as phase
+   7, through #2 alone, 12 launches per forward; the train CLI at
+   ``--vilt_patch_size 16`` (597 tokens), checked as phase 11 (12
+   launches of #2 and 12 of #3L per step, none else); two dropout-0 steps
+   at 597 tokens through the kernels and through the plain versions,
+   losses within ``LOSS_RTOL``, ms per step of each (in turns).
+13. experiments (slice 5): the four kernels of the experiment entry
    points, ``dual_pair`` (6e), ``cat_call`` (6f), ``headfold`` (6d) and
    ``epi_fused`` (6c), each against its plain version at the
    experiments' shapes (the cross and self pairs of 20 and 36 tokens;
@@ -110,7 +122,7 @@ nonzero:
    holds the kernels the other experiments launch (6a, 6b) at their
    shapes: #1 at 56x56 and #2 at 165x165 (batch 384), #3 at 36x36 and
    20x36 (batch 384), #3L at 165x165 (batch 128), with times and bounds.
-13. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+14. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -122,6 +134,7 @@ Needs the repository beside it; it imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -135,7 +148,21 @@ E, HEADS = 768, 12
 SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))  # (Sq, Skv) per LXMERT call kind
 VILT_SHAPES = ((165, 165), (185, 185))  # ViLT's stream: 20 or 40 text tokens + 144 patches + CLS
 LONG_SHAPES = VILT_SHAPES + ((65, 185), (185, 65))
-LIMIT_SHAPES = ((20, 256), (256, 256))  # the long kernels' limit of 256 keys
+# Either side of 256 keys, where #2 leaves its whole-row bodies for its
+# key-tiled ones (the old cap of both long kernels).
+LIMIT_SHAPES = ((20, 256), (256, 256), (20, 257), (257, 257))
+# ViLT beyond 256 tokens: a 512 px image (16^2 + 1 + 20 = 277 tokens) and
+# 16 px patches at 384 px (24^2 + 1 + 20 = 597), with ragged pairs.
+BEYOND_SHAPES = ((277, 277), (597, 597), (20, 597), (597, 20))
+# The batch a long shape runs at beside batch 7: at 597 tokens the plain
+# backward's (64, 12, 597, 597) f32 intermediates are ~1.1 GB each.
+def long_batch(sq: int, skv: int) -> int:
+    return 64 if max(sq, skv) > 300 else 256
+
+
+# #2 and #3L are timed (bf16, beside SDPA and the bound) at these shapes.
+LONG_TIMED = VILT_SHAPES + ((277, 277), (597, 597))
+VILT_LONG_FLAGS = (("--vilt_image_size", "512"), ("--vilt_patch_size", "16"))  # 277 / 597 tokens
 # (atol, rtol) per kernel and dtype; see the docstring.
 TOL = {
     ("fused_attention", "float32"): (2e-5, 0.0),
@@ -481,23 +508,26 @@ def _pad_patch_bias(b, skv, gen):
 
 
 def _long_kernel(att, gen, errs, times):
-    """#2 and #3L against their plain versions at ViLT's shapes and at the
-    limit of 256 keys, #3L's two runs bit for bit; times at batch 256 and
-    ViLT's shapes (#3L in bf16)."""
+    """#2 and #3L against their plain versions at ViLT's shapes, either side
+    of 256 keys and beyond (277 and 597 tokens); #2 with its row
+    statistics gives the same output bits, and in f32 their log-sum-exp is
+    the plain scores'; #3L's two runs bit for bit; times at LONG_TIMED
+    (#3L in bf16)."""
     import torch
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for b in (256, 7):
-            for sq, skv in LONG_SHAPES + LIMIT_SHAPES:
+        for sq, skv in LONG_SHAPES + LIMIT_SHAPES + BEYOND_SHAPES:
+            for b in (long_batch(sq, skv), 7):
                 q, k, v, g, _ = _attention_inputs(b, sq, skv, dtype, gen)
                 bias = _pad_patch_bias(b, skv, gen)
+                out, lse = att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)
                 calls = {
                     "fused_attention_long": (
                         lambda: att.fused_attention_long_cuda(q, k, v, bias, HEADS),
                         lambda: att.attention_natural_ref(q, k, v, bias, HEADS)),
                     "fused_attention_long_bwd": (
-                        lambda: att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS),
+                        lambda: att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, lse),
                         lambda: att.attention_bwd_ref(q, k, v, bias, g, HEADS)),
                 }
                 msgs = []
@@ -505,11 +535,15 @@ def _long_kernel(att, gen, errs, times):
                     got, want = kernel(), plain()
                     torch.cuda.synchronize()
                     msgs.append(_compare(name, dtype, got, want, errs))
+                    if name == "fused_attention_long" and not torch.equal(got, out):
+                        raise AssertionError(f"#2 with row statistics differs at {dname} B={b} {sq}x{skv}")
                 if not all(torch.equal(a, c) for a, c in zip(got, calls["fused_attention_long_bwd"][0]())):
                     raise AssertionError(f"two runs of #3L differ at {dname} B={b} {sq}x{skv}")
                 msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + "; ".join(msgs)
-                       + "; #3L twice: equal bits")
-                if b == 256 and (sq, skv) in LONG_SHAPES:
+                       + "; #2 with statistics: equal bits; #3L twice: equal bits")
+                if dtype == torch.float32:
+                    msg += "; " + _lse_check(q, k, bias, lse)
+                if b > 7 and (sq, skv) in LONG_TIMED:
                     lib = _sdpa_calls(q, k, v, g, bias)
                     library = {"fused_attention_long": cuda_ms(lib["fwd"])}
                     timed = ["fused_attention_long"]
@@ -527,8 +561,28 @@ def _long_kernel(att, gen, errs, times):
                         for n in timed
                     )
                 log("kernels", msg)
-                del q, k, v, g, bias, got, want, calls
+                del q, k, v, g, bias, got, want, calls, out, lse
                 torch.cuda.empty_cache()
+
+
+def _lse_check(q, k, bias, lse) -> str:
+    """#2's row statistics (m, log(sum)): their sum against torch.logsumexp
+    of the f32 scores as the plain version takes them, in f64, within 1e-5
+    + 1e-7 |lse| (the fully masked row's scores lie near -1e4, on the f32
+    grid of 2^-10, where a product summed in another order moves a score
+    by a step)."""
+    import torch
+
+    b, sq, _ = q.shape
+    qh, kh = (t.reshape(b, -1, HEADS, E // HEADS) for t in (q, k))
+    scores = (torch.einsum("bqhd,bkhd->bhqk", qh, kh) / math.sqrt(E // HEADS)).float()
+    want = torch.logsumexp((scores + bias[:, None, None, :]).double(), dim=-1)
+    diff = (lse.double().sum(-1) - want).abs()
+    err = diff.max().item()
+    if not bool((diff <= 1e-5 + 1e-7 * want.abs()).all()):
+        raise AssertionError(f"#2's log-sum-exp is {err:.3e} from the plain scores' "
+                             "(bound 1e-5 + 1e-7 |lse|)")
+    return f"max|lse - logsumexp| {err:.1e}"
 
 
 # ---------------------------------------------------------------------------
@@ -767,13 +821,15 @@ def _train_batches(cfg, n: int, b: int = 32):
     return out
 
 
-def _train_model(dropout: float, backbone: str):
+def _train_model(dropout: float, backbone: str, patch: int | None = None):
     import torch
     from rgqa_tpu_torch.models.zoo import build_model, default_config
 
     cfg = default_config(backbone)
     if backbone == "vilt":
         cfg = dataclasses.replace(cfg, max_text_len=VILT_TRAIN_TEXT)
+    if patch is not None:
+        cfg = dataclasses.replace(cfg, vilt_patch_size=patch)
     cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
         cfg.encoder, hidden_dropout=dropout, attention_dropout=dropout))
     model, forward = build_model(
@@ -825,15 +881,18 @@ def _step_launches(backbone: str, dropout: float) -> dict:
     return want
 
 
-def phase_train_steps(backbone: str = "lxmert"):
+def phase_train_steps(backbone: str = "lxmert", patch: int | None = None,
+                      dropouts=(0.0, RATE), n: int = 4, timed: int = 10, phase: str | None = None):
+    """``n`` steps from one init through the kernels and through the plain
+    versions at each dropout rate; ``timed`` more steps of each, in turns.
+    ``patch``: ViLT's patch size (16: the 597-token stream)."""
     import torch
 
-    phase = "train" if backbone == "lxmert" else f"{backbone}-train"
-    n, timed = 4, 10
+    phase = phase or ("train" if backbone == "lxmert" else f"{backbone}-train")
     rows = 64  # batch 32 plus its 32 RP pairs
     result = {}
-    for dropout in (0.0, RATE):
-        cfg, model, forward = _train_model(dropout, backbone)
+    for dropout in dropouts:
+        cfg, model, forward = _train_model(dropout, backbone, patch)
         batches = _train_batches(cfg, n)
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         reset_counts()
@@ -851,11 +910,11 @@ def phase_train_steps(backbone: str = "lxmert"):
         t = [_run_steps(model, forward, init, batches, fused, n + timed)[1]
              for fused in (False, None, None, False)]
         plain_ms, kernel_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-        log(phase, f"dropout {dropout}: batch 32 + RP ({rows} rows), 4 steps from one init: "
+        log(phase, f"dropout {dropout}: batch 32 + RP ({rows} rows), {n} steps from one init: "
             f"launches per step {per_step}; losses kernels {[round(x, 4) for x in k_losses]}, "
             f"plain {[round(x, 4) for x in p_losses]}, max relative gap {max(rel):.3e}"
             + (f" (bound {LOSS_RTOL:.0e})" if dropout == 0.0 else " (same masks: the same seeds and bytes)"))
-        log(phase, f"dropout {dropout}: ms per step (mean of {timed} after 4 warm-up, in turns) "
+        log(phase, f"dropout {dropout}: ms per step (mean of {timed} after {n} warm-up, in turns) "
             f"kernels {kernel_ms:.3f} ({rows * 1e3 / kernel_ms:.1f} rows/s), plain {plain_ms:.3f} "
             f"({rows * 1e3 / plain_ms:.1f} rows/s)")
         if per_step != want:
@@ -912,19 +971,19 @@ def phase_train_path():
     return launches
 
 
-def phase_vilt_train_path():
-    """The ViLT train CLI at full width from the synthetic pixel pack, its
-    launches, checkpoints and an evaluate of its ``BEST.pth``."""
+def phase_vilt_train_path(extra=(), phase: str = "vilt-train"):
+    """The ViLT train CLI at full width from the synthetic pixel pack
+    (``extra`` flags added, to the evaluate too), its launches,
+    checkpoints and an evaluate of its ``BEST.pth``."""
     import torch
     from rgqa_tpu_torch.cli import evaluate
     from rgqa_tpu_torch.cli import train as train_cli
     from rgqa_tpu_torch.config import parse_cli
     from rgqa_tpu_torch.data.dataset import GQADataset
 
-    phase = "vilt-train"
     with tempfile.TemporaryDirectory(prefix="rgqa_smoke_vilt_train_") as tmp:
         root, out_dir = os.path.join(tmp, "gqa"), os.path.join(tmp, "snap")
-        argv = ["--backbone", "vilt", "--synthetic", "--data_root", root, "--sample_pair",
+        argv = ["--backbone", "vilt", *extra, "--synthetic", "--data_root", root, "--sample_pair",
                 "--no_randaug", "--epochs", "1", "--batchSize", "32", "--output", out_dir]
         reset_counts()
         t0 = time.perf_counter()
@@ -959,8 +1018,8 @@ def phase_vilt_train_path():
             "fused attn.qkv)")
 
         eval_dir = os.path.join(tmp, "eval")
-        eargv = ["--backbone", "vilt", "--synthetic", "--data_root", root, "--test", "testdev",
-                 "--load", os.path.join(out_dir, "BEST.pth"), "--output", eval_dir]
+        eargv = ["--backbone", "vilt", *extra, "--synthetic", "--data_root", root, "--test",
+                 "testdev", "--load", os.path.join(out_dir, "BEST.pth"), "--output", eval_dir]
         reset_counts()
         t0 = time.perf_counter()
         results = evaluate.main(eargv)["testdev"]
@@ -974,10 +1033,27 @@ def phase_vilt_train_path():
 
 
 # ---------------------------------------------------------------------------
-# Phase 12: the experiments (slice 5).
+# Phase 12: ViLT beyond 256 tokens (slice 6).
 # ---------------------------------------------------------------------------
 
-EXP_ITERS = 20  # launches per timing in phase 12 (33 cases; the kernel and the shipped form in turns)
+
+def phase_vilt_long():
+    """The evaluate CLI at a 512 px image (277 tokens) through #2 alone, the
+    train CLI with 16 px patches (597 tokens) through #2 and #3L, and two
+    dropout-0 steps at 597 tokens through the kernels and the plain
+    versions; full width, each path's launch counts zeroed before it and
+    read after."""
+    image, patch = VILT_LONG_FLAGS
+    phase_main_path("vilt-277", ("--backbone", "vilt", *image), "fused_attention_long", 12)
+    phase_vilt_train_path(patch, phase="vilt-597")
+    phase_train_steps("vilt", patch=16, dropouts=(0.0,), n=2, timed=4, phase="vilt-597")
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the experiments (slice 5).
+# ---------------------------------------------------------------------------
+
+EXP_ITERS = 20  # launches per timing in phase 13 (33 cases; the kernel and the shipped form in turns)
 
 
 def _exp_stream(b, s, dtype, gen):
@@ -1129,6 +1205,9 @@ def _held_shapes(att, gen, errs):
             bias = _pad_patch_bias(b, skv, gen)
             kernel = getattr(att, f"{name}_cuda")
             args = (q, k, v, bias, g, HEADS) if name.endswith("bwd") else (q, k, v, bias, HEADS)
+            if name == "fused_attention_long_bwd":
+                kernel = functools.partial(
+                    kernel, lse=att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)[1])
             plain = att.attention_bwd_ref if name.endswith("bwd") else att.attention_natural_ref
             got, want = kernel(*args), plain(*args)
             torch.cuda.synchronize()
@@ -1148,7 +1227,7 @@ def _held_shapes(att, gen, errs):
 
 
 def phase_experiments(errs, times):
-    """Phase 12; returns the entry points' launch counts."""
+    """Phase 13; returns the entry points' launch counts."""
     import torch
     from rgqa_tpu_torch.ops import attention as att
 
@@ -1217,6 +1296,7 @@ def main() -> None:
     train_launches = phase_train_path()
     phase_train_steps("vilt")
     vilt_train_launches = phase_vilt_train_path()
+    phase_vilt_long()
     exp_times = {}
     exp_launches = phase_experiments(errs, exp_times)
 

@@ -8,14 +8,16 @@
 // forward bodies below on two problems or with a structural mask;
 // headfold.cu and epilogue.cu build on the helpers).
 //
-// Every kernel runs one block per (batch row, head) and keeps that pair's
-// whole problem in shared memory (LXMERT's sequences are 20 and 36 tokens,
-// heads 64 wide).  The f32 forward body also takes a query tile (kTileQ
-// rows each): fused_attention_long.cu runs it, and a bf16 body of its
-// own, on a (batch row, head, query tile) grid for ViLT's 165-185-token
-// streams, with each tile's complete softmax over every key; at <= 64
-// query rows there is one tile and the body is the short kernel's.  The
-// forward and
+// Every short kernel runs one block per (batch row, head) and keeps that
+// pair's whole problem in shared memory (LXMERT's sequences are 20 and 36
+// tokens, heads 64 wide).  The f32 forward body also takes a query tile
+// (kTileQ rows each): fused_attention_long.cu runs it, and a bf16 body of
+// its own, on a (batch row, head, query tile) grid for streams of up to
+// kLongWholeKv keys (ViLT-B/32's 165-185 tokens), with each tile's
+// complete softmax over every key; at <= 64 query rows there is one tile
+// and the body is the short kernel's.  Longer streams (ViLT at a larger
+// image or a smaller patch) go to the long kernels' key-tiled bodies,
+// which keep no row-wide array.  The forward and
 // backward bodies are templates on kDrop: the dropout kernels are the
 // same code with the mask applied, so at rate 0 (threshold 0, keep scale
 // 1) they compute bit for bit what the deterministic ones do.
@@ -37,11 +39,14 @@ namespace {
 
 constexpr int kMaxSeq = 64;
 constexpr int kMaxDim = 64;
-// The long-stream forward (fused_attention_long.cu): any number of query
-// rows in tiles of kTileQ, up to kLongMaxKv keys, kLongMaxKv / 32 keys
-// per lane in the softmax.
+// The long-stream kernels (fused_attention_long.cu,
+// fused_attention_long_bwd.cu): any number of query rows in tiles of
+// kTileQ and any number of keys.  Up to kLongWholeKv keys the forward
+// runs its whole-row bodies (kLongWholeKv / 32 keys per lane in the f32
+// softmax); beyond, and in the backward, keys come in tiles of kKvTile.
 constexpr int kTileQ = 64;
-constexpr int kLongMaxKv = 256;
+constexpr int kLongWholeKv = 256;
+constexpr int kKvTile = 64;
 
 struct Args {
   const void* q;        // (B, Sq, H*D), element strides below
@@ -54,7 +59,11 @@ struct Args {
   void* dk;
   void* dv;
   float* dbias_part;    // backward: (B, H, Skv) per-head sums of dS
-  float* stats;         // long backward: (B, H, Sq, 3) f32 row max, sum term, D
+  float* lse;           // long forward: (B, H, Sq, 2) f32 row statistics (m, log(sum)):
+                        // the row's max and the log of its softmax sum, whose sum is
+                        // the log-sum-exp of its scores; written when not null;
+                        // long backward: read, P = exp((s - m) - log(sum))
+  float* dsum;          // long backward: (B, H, Sq) f32 D = rowsum(dP P) scratch
   int sq, skv, heads, dim;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;
   float scale;          // 1 / sqrt(dim)
@@ -110,10 +119,17 @@ __device__ __forceinline__ bool dropout_keep(const Args& a, int b, int h, int i,
 // stores one probability, for every i < rows and j < cols: rows and
 // columns beyond sq x skv get p = 0 (the zero padding of the tensor-core
 // body).  The max and the lane's sum run over its columns in order.
-template <int kPerLane = 2, typename Emit>
+// row_stats(i, m, sum), called by lane 0 for each row i < sq, sees the
+// row's max and sum (NoRowStats: nothing).
+struct NoRowStats {
+  __device__ __forceinline__ void operator()(int, float, float) const {}
+};
+
+template <int kPerLane = 2, typename Emit, typename RowStats = NoRowStats>
 __device__ __forceinline__ void softmax_rows(const float* s, int lds, int sq, int skv,
                                              int rows, int cols, int warp, int warps,
-                                             int lane, Emit emit) {
+                                             int lane, Emit emit,
+                                             RowStats row_stats = RowStats()) {
   for (int i = warp; i < rows; i += warps) {
     float p[kPerLane];
 #pragma unroll
@@ -137,6 +153,7 @@ __device__ __forceinline__ void softmax_rows(const float* s, int lds, int sq, in
       for (int c = 1; c < kPerLane; ++c) sum += p[c];
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) row_stats(i, m, sum);
 #pragma unroll
       for (int c = 0; c < kPerLane; ++c) p[c] = p[c] / sum;
     }
@@ -202,6 +219,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// 4 or 8 bytes global -> shared likewise (the f32 bias, row statistics
+// and D of the key-tiled bodies' rings; src and dst aligned to the size).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// cp.async groups: commit the copies issued so far; wait until at most n
+// of this thread's groups are in flight.  The key-tiled bodies and the
+// epilogue's ring commit once per tile (an empty group past the last),
+// so cp_async_wait_group<1>() leaves the prefetch of the next in flight.
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
 // rows_p x dp tile of a strided (rows x d) bf16 source into shared memory,
 // zero outside it.  When the source allows 16-byte copies they go out as
 // cp.async, all in flight at once: the caller runs cp_async_wait_all()
@@ -230,6 +270,28 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
   }
 }
 
+// Key rows k0 .. k0 + kKvTile - 1 of a (batch row, head)'s K and V into
+// ks and vs (bf16, row stride ld, zero past skv) and their bias into bs
+// (f32, -inf past skv), all by cp.async (a plain load of the bias would
+// stall the block for a memory latency): a stage of the key-tiled bodies'
+// rings; the caller commits the group.
+__device__ __forceinline__ void load_kv_tile(const Args& a, int b, int h, int k0,
+                                             __nv_bfloat16* ks, __nv_bfloat16* vs, float* bs,
+                                             int ld, int dp, int tid) {
+  const int nk = min(a.skv - k0, kKvTile), d = a.dim;
+  load_tile(ks, ld, static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d,
+            a.k_rs, nk, kKvTile, d, dp, tid);
+  load_tile(vs, ld, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
+            a.v_rs, nk, kKvTile, d, dp, tid);
+  for (int j = tid; j < kKvTile; j += kMmaThreads) {
+    if (j < nk) {
+      cp_async4(bs + j, a.bias + b * a.skv + k0 + j);
+    } else {
+      bs[j] = -CUDART_INF_F;
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);  // two consecutive bf16, 4-byte aligned
 }
@@ -251,6 +313,55 @@ __device__ __forceinline__ void mma_16x8x16(float (&acc)[4], uint32_t a0, uint32
 
 __device__ __forceinline__ uint32_t pack_f32_pair(float lo, float hi) {
   return pack_pair(__float2bfloat16(lo), __float2bfloat16(hi));
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory, one warp; lane l
+// gives the address of row l % 8 of matrix l / 8 (16-byte aligned), and
+// r[m] holds matrix m in the fragment layout of mma.sync (lane l: row l /
+// 4, columns 2 (l % 4) and + 1; .trans: the transposed matrix).  With p
+// at row m0 + l % 16, column k0 + l / 16 * 8 of a row-major A they are
+// its m16n8k16 A fragment; with trans, at row k0 + l % 16, column n0 + l /
+// 16 * 8 of a row-major B, the B fragments of columns n0 and n0 + 8.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Fragments by ldmatrix from a row-major bf16 tile (row stride ld, a
+// multiple of 8 elements), for mma.sync m16n8k16:
+// lds_a: the A fragment of the 16 x 16 block at p;
+// lds_b_rows: B fragments (b[0], b[1]) and (b[2], b[3]) of the n-tiles
+//   n0 and n0 + 8 with B(k, n) = p[n * ld + k], p at (n0, k0): K^T read
+//   from key rows;
+// lds_b_trans: the same with B(k, n) = p[k * ld + n], p at (k0, n0): a
+//   matrix read from its rows (V in P V).
+__device__ __forceinline__ void lds_a(uint32_t (&f)[4], const __nv_bfloat16* p, int ld,
+                                      int lane) {
+  ldsm_x4(f, p + (lane & 15) * ld + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void lds_b_rows(uint32_t (&b)[4], const __nv_bfloat16* p, int ld,
+                                           int lane) {
+  ldsm_x4(b, p + ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 8);
+}
+
+__device__ __forceinline__ void lds_b_trans(uint32_t (&b)[4], const __nv_bfloat16* p, int ld,
+                                            int lane) {
+  ldsm_x4_trans(b, p + (lane & 15) * ld + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void mma_16x8x16(float (&acc)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  mma_16x8x16(acc, a[0], a[1], a[2], a[3], b0, b1);
 }
 
 // Fragments of mma.sync m16n8k16 from shared memory, one warp (g = lane /
@@ -369,7 +480,7 @@ constexpr int kF32Threads = 256;
 // and V, so one block fills an SM's shared memory: its warps alone hide
 // the latency of the shared-memory loads, hence four times the threads.
 constexpr int kLongF32Threads = 4 * kF32Threads;
-constexpr int kLongPerLane = kLongMaxKv / 32;
+constexpr int kLongPerLane = kLongWholeKv / 32;
 
 __host__ __device__ inline int tile_rows(int sq) { return sq < kTileQ ? sq : kTileQ; }
 
@@ -435,10 +546,17 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
   scores_f32(ps, ldp, qs, ks, ld, bs, f.t, tid, kThreads, mask);
   __syncthreads();
 
+  float* lse = a.lse ? a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0) : nullptr;
   softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, tid / 32, kThreads / 32, tid % 32,
                          [&](int i, int j, float p) {
                            if (kDrop) p = dropout_keep(a, b, h, q0 + i, j) ? p * a.keep_scale : 0.f;
                            ps[i * ldp + j] = p;
+                         },
+                         [&](int i, float m, float sum) {
+                           if (lse) {
+                             lse[2 * i] = m;
+                             lse[2 * i + 1] = logf(sum);
+                           }
                          });
   __syncthreads();
 
@@ -809,11 +927,13 @@ bool within_limits(int batch, int sq, int skv, int heads, int dim) {
          skv <= kMaxSeq && dim <= kMaxDim;
 }
 
-// The long-stream forward: any sq (in query tiles), skv <= kLongMaxKv.
-bool within_long_limits(int batch, int sq, int skv, int heads, int dim) {
+// The long-stream kernels: any sq and skv, in tiles of `tile` rows (the
+// grid's block count stays below 2^31).
+bool within_long_limits(int batch, int sq, int skv, int heads, int dim, int tile = kTileQ) {
+  const int longest = sq > skv ? sq : skv;
   return batch > 0 && sq > 0 && skv > 0 && heads > 0 && dim > 0 &&
-         static_cast<long long>(batch) * heads * ((sq + kTileQ - 1) / kTileQ) < (1LL << 31) &&
-         skv <= kLongMaxKv && dim <= kMaxDim;
+         static_cast<long long>(batch) * heads * ((longest + tile - 1) / tile) < (1LL << 31) &&
+         dim <= kMaxDim;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* bias, int sq,

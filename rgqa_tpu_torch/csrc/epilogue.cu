@@ -155,32 +155,6 @@ __host__ __device__ inline EpiLayout epi_layout(int sq, int skv, int groups) {
   return L;
 }
 
-// cp.async groups: commit the copies issued so far; wait until at most n
-// of this thread's groups are in flight.
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int n>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, lane l giving the address
-// of row l % 8 of matrix l / 8 (16-byte aligned): with p at row m0 + l %
-// 16, column k0 + l / 16 * 8 of a row-major A they are its m16n8k16 A
-// fragment; with trans, at row k0 + l % 16, column n0 + l / 16 * 8 of a
-// row-major B, the B fragments of columns n0 and n0 + 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(s));
-}
-
 // Barrier of attention group grp's 4 warps (named barrier 1 + grp; 0 is
 // __syncthreads').
 __device__ __forceinline__ void group_sync(int grp) {

@@ -7,7 +7,7 @@ each with a plain PyTorch version beside it:
 | kernel (wrapper) | source | TPU kernel it replaces | plain version |
 | --- | --- | --- | --- |
 | :func:`fused_attention_cuda` | ``csrc/fused_attention.cu`` | ``_fused_kernel`` | :func:`attention_natural_ref` |
-| :func:`fused_attention_long_cuda` | ``csrc/fused_attention_long.cu`` | ``_fused_kernel`` on the query-tiled grid (``_fused_qblocked_raw``) | :func:`attention_natural_ref` |
+| :func:`fused_attention_long_cuda` | ``csrc/fused_attention_long.cu`` | ``_fused_kernel`` on the query-tiled grid (``_fused_qblocked_raw``) and at long streams | :func:`attention_natural_ref` |
 | :func:`fused_attention_bwd_cuda` | ``csrc/fused_attention_bwd.cu`` | ``_fused_bwd_kernel`` | :func:`attention_bwd_ref` |
 | :func:`fused_attention_long_bwd_cuda` | ``csrc/fused_attention_long_bwd.cu`` | ``_fused_bwd_kernel`` at long streams (``_fit_bwd_block``'s raised tiers) | :func:`attention_bwd_ref` |
 | :func:`fused_attention_dropout_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_kernel`` | :func:`attention_dropout_ref` |
@@ -20,11 +20,19 @@ kernels, on CPU tensors they run the plain versions.  A CUDA tensor
 reaches a kernel or raises; there is no fallback.  The forward and the
 backward pick their kernels by length (:func:`forward_kernel`,
 :func:`backward_kernel`): Sq, Skv <= 64 the short kernels, longer
-streams (ViLT's 165-185 tokens) the long ones.  The dropout kernels take
-<= 64 only, and a longer stream raises ``NotImplementedError`` there:
-their long-stream versions are not ported, since no default path runs
-attention dropout beyond 64 tokens.  ``force_xla=True`` runs the plain
-forward under PyTorch's own autograd instead.
+streams the long ones, at any length (ViLT-B/32's 165-185 tokens, 277 at
+a 512 px image, 597 with 16 px patches; head dim <= 64 throughout).
+The long forward runs whole-row bodies up to 256 keys and key-tiled
+bodies (an online softmax over tiles of 64 keys) beyond; when autograd
+will need the backward it also writes each row's softmax statistics (max
+and log-sum, whose sum is the log-sum-exp), which the long backward
+takes instead of recomputing the softmax: its dQ pass
+walks the key tiles (once for D = rowsum(dP P), once for dQ), its dK/dV
+pass the query tiles.  The dropout kernels take <= 64 only, and a
+longer stream raises ``NotImplementedError`` there: their long-stream
+versions are not ported, since no default path runs attention dropout
+beyond 64 tokens.  ``force_xla=True`` runs the plain forward under
+PyTorch's own autograd instead.
 
 The dropout mask is keyed on the element: keep(b, h, i, j) is a pure
 function of a 64-bit seed and (b, h, i, j), one byte of a Philox4x32-10
@@ -38,8 +46,12 @@ that of ``_attention_dropout_xla`` (quantized rate, exact expectation).
 The TPU kernels' VMEM block ladder (``_fit_block``, ``_fwd_plan``,
 ``_fit_qblock``, ``_fit_bwd_block``) has no counterpart: one thread block
 per (batch row, head), and per query tile of 64 rows in the long forward,
-holds its whole problem in shared memory; the long backward splits its
-work into a pass over query tiles and one over key tiles.
+holds its whole problem in shared memory, or, at more than 256 keys,
+streams the keys through it in tiles; the long backward splits its work
+into a pass over query tiles and one over key tiles, both key- or
+query-tiled, so no block holds a row-wide array.  What bounds each
+kernel on the H100, and how many blocks share an SM, is in its source's
+header.
 """
 
 from __future__ import annotations
@@ -57,7 +69,6 @@ from rgqa_tpu_torch.ops.dropout import keep_threshold
 __all__ = [
     "MAX_SEQ",
     "MAX_HEAD_DIM",
-    "LONG_MAX_KV",
     "forward_kernel",
     "backward_kernel",
     "bias_vector",
@@ -76,13 +87,11 @@ __all__ = [
     "fused_attention_dropout_bwd_cuda",
 ]
 
-# The kernels' limits (csrc/attention_common.cuh kMaxSeq / kMaxDim /
-# kLongMaxKv): the short kernels take Sq, Skv <= MAX_SEQ; the long
-# forward and backward any Sq and Skv <= LONG_MAX_KV; every kernel D <=
-# MAX_HEAD_DIM.
+# The kernels' limits (csrc/attention_common.cuh kMaxSeq / kMaxDim): the
+# short kernels take Sq, Skv <= MAX_SEQ; the long forward and backward any
+# Sq and Skv; every kernel D <= MAX_HEAD_DIM.
 MAX_SEQ = 64
 MAX_HEAD_DIM = 64
-LONG_MAX_KV = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -284,14 +293,13 @@ def _entry(source: str, symbol: str, n_pointers: int, dropout: bool):
 
 def _check_lengths(name: str, sq: int, skv: int, d: int, *, long: bool) -> None:
     """Raise ``ValueError`` for lengths the short kernels (or, ``long``,
-    the long-stream forward and backward) do not take, saying why."""
-    max_skv = LONG_MAX_KV if long else MAX_SEQ
-    if (not long and sq > MAX_SEQ) or skv > max_skv or d > MAX_HEAD_DIM:
+    the long-stream forward and backward, which take any Sq and Skv) do
+    not take, saying why."""
+    if (not long and (sq > MAX_SEQ or skv > MAX_SEQ)) or d > MAX_HEAD_DIM:
+        limits = "any Sq and Skv" if long else f"Sq, Skv <= {MAX_SEQ}"
         raise ValueError(
             f"{name}: Sq={sq}, Skv={skv}, D={d} exceed the kernel's limits "
-            f"(Sq <= {'any' if long else MAX_SEQ}, Skv <= {max_skv}, "
-            f"head dim <= {MAX_HEAD_DIM})"
-            + ("; its block keeps a row's whole K and V in shared memory" if long else "")
+            f"({limits}, head dim <= {MAX_HEAD_DIM})"
         )
 
 
@@ -299,7 +307,8 @@ def forward_kernel(sq: int, skv: int, head_dim: int):
     """The forward kernel's wrapper for an (Sq, Skv) call with heads
     ``head_dim`` wide: :func:`fused_attention_cuda` (#1) when both
     lengths are <= MAX_SEQ, :func:`fused_attention_long_cuda` (#2) for
-    longer streams.  Raises ``ValueError`` beyond #2's limits."""
+    longer streams, at any length.  Raises ``ValueError`` for heads wider
+    than MAX_HEAD_DIM."""
     long = sq > MAX_SEQ or skv > MAX_SEQ
     _check_lengths("fused_attention", sq, skv, head_dim, long=long)
     return fused_attention_long_cuda if long else fused_attention_cuda
@@ -309,7 +318,8 @@ def backward_kernel(sq: int, skv: int, head_dim: int):
     """The backward kernel's wrapper, chosen as :func:`forward_kernel`
     chooses: :func:`fused_attention_bwd_cuda` (#3) when both lengths are
     <= MAX_SEQ, :func:`fused_attention_long_bwd_cuda` (#3L) for longer
-    streams.  Raises ``ValueError`` beyond #3L's limits."""
+    streams, at any length (it takes the forward's ``lse``).  Raises
+    ``ValueError`` for heads wider than MAX_HEAD_DIM."""
     long = sq > MAX_SEQ or skv > MAX_SEQ
     _check_lengths("the attention backward", sq, skv, head_dim, long=long)
     return fused_attention_long_bwd_cuda if long else fused_attention_bwd_cuda
@@ -407,21 +417,32 @@ def fused_attention_cuda(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
     return out
 
 
-def fused_attention_long_cuda(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
+def fused_attention_long_cuda(q, k, v, bias_kv, num_heads: int, *, lse: bool = False):
     """Launch ``csrc/fused_attention_long.cu`` on the current stream: the
-    function of :func:`fused_attention_cuda` for any Sq and Skv <=
-    LONG_MAX_KV (query tiles of 64 rows, each row's complete softmax over
-    every key).  The same arguments and result;
-    ``fused_attention_long_cuda.launches`` counts the launches."""
+    function of :func:`fused_attention_cuda` for any Sq and Skv (query
+    tiles of 64 rows; each row's complete softmax over every key up to 256
+    keys, an online softmax over key tiles of 64 beyond).  The same
+    arguments and result; with ``lse=True`` it returns ``(out, lse)``,
+    ``lse`` the (B, H, Sq, 2) f32 statistics ``(m, log(sum))`` of each
+    row's scores, their max and the log of their softmax sum, whose sum is
+    the row's log-sum-exp, which :func:`fused_attention_long_bwd_cuda`
+    takes (two parts: a fully masked row's scores lie near -1e4, where one
+    f32 keeps the log-sum-exp only to 2^-10); ``out`` is the same either
+    way.  ``fused_attention_long_cuda.launches`` counts the launches."""
     _check("fused_attention_long_cuda", q, k, v, bias_kv, num_heads, long=True)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    stats = (
+        torch.empty((q.shape[0], num_heads, q.shape[1], 2), dtype=torch.float32, device=q.device)
+        if lse else None
+    )
     _launch(
         "fused_attention_long", "fused_attention_long", "rgqa_fused_attention_long_fwd",
-        [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_kv.data_ptr(), out.data_ptr()],
+        [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_kv.data_ptr(), out.data_ptr(),
+         None if stats is None else stats.data_ptr()],
         q, k, v, num_heads,
     )
     fused_attention_long_cuda.launches += 1
-    return out
+    return (out, stats) if lse else out
 
 
 def _bwd_buffers(q, k, num_heads: int):
@@ -458,21 +479,35 @@ def fused_attention_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
     return dq, dk, dv, dbias
 
 
-def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
+def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse):
     """Launch ``csrc/fused_attention_long_bwd.cu``: the function of
-    :func:`fused_attention_bwd_cuda` for any Sq and Skv <= LONG_MAX_KV (a
-    pass over query tiles for dq and each row's statistics, a pass over
-    key tiles for dk, dv and the dbias partials, then their head sum; no
-    atomics, so two runs give identical gradients).  The same arguments
-    and results; ``fused_attention_long_bwd_cuda.launches`` counts the
-    launches."""
-    _check("fused_attention_long_bwd_cuda", q, k, v, bias_kv, num_heads, g=g, long=True)
+    :func:`fused_attention_bwd_cuda` for any Sq and Skv, given ``lse``,
+    the (B, H, Sq, 2) f32 row statistics of the forward
+    (``fused_attention_long_cuda(..., lse=True)``).  A pass over query
+    tiles walks the key tiles twice, for each row's D = rowsum(dP P) and
+    then for dq; a pass over key tiles walks the query tiles for dk, dv
+    and the dbias partials; then their head sum.  No atomics, so two runs
+    give identical gradients.  The same results as
+    :func:`fused_attention_bwd_cuda`;
+    ``fused_attention_long_bwd_cuda.launches`` counts the launches."""
+    name = "fused_attention_long_bwd_cuda"
+    _check(name, q, k, v, bias_kv, num_heads, g=g, long=True)
+    want = (q.shape[0], num_heads, q.shape[1])
+    if (
+        lse.device != q.device or lse.dtype != torch.float32
+        or tuple(lse.shape) != (*want, 2) or not lse.is_contiguous()
+    ):
+        raise ValueError(
+            f"{name}: lse must be the forward's contiguous {(*want, 2)} float32 tensor on "
+            f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}"
+        )
     buffers = _bwd_buffers(q, k, num_heads)
-    # (B, H, Sq, 3) f32 row statistics that the first pass hands the second.
-    stats = torch.empty((q.shape[0], num_heads, q.shape[1], 3), dtype=torch.float32, device=q.device)
+    # (B, H, Sq) f32 D = rowsum(dP P) that the dQ pass hands the dK/dV pass.
+    dsum = torch.empty(want, dtype=torch.float32, device=q.device)
     _launch(
-        "fused_attention_long_bwd", "fused_attention_long_bwd", "rgqa_fused_attention_long_bwd",
-        _bwd_pointers(q, k, v, bias_kv, g, buffers) + [stats.data_ptr()], q, k, v, num_heads,
+        name.removesuffix("_cuda"), "fused_attention_long_bwd", "rgqa_fused_attention_long_bwd",
+        _bwd_pointers(q, k, v, bias_kv, g, buffers) + [lse.data_ptr(), dsum.data_ptr()],
+        q, k, v, num_heads,
     )
     fused_attention_long_bwd_cuda.launches += 1
     dq, dk, dv, _, dbias = buffers
@@ -543,26 +578,34 @@ def _short_only(q, k) -> None:
 class _FusedAttention(torch.autograd.Function):
     """``_fused``'s custom_vjp: on CUDA kernels #1 forward and #3 backward
     (Sq, Skv <= 64) or #2 and #3L (longer streams), the plain pair on the
-    CPU."""
+    CPU.  On the long route the forward also writes each row's softmax
+    statistics, and saves them for #3L, when an input needs a gradient
+    (``ctx.needs_input_grad``: inside ``forward`` autograd is off, so
+    ``torch.is_grad_enabled()`` says nothing); inference writes none."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_kv, num_heads):
         ctx.num_heads = num_heads
-        ctx.save_for_backward(q, k, v, bias_kv)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias_kv)
             return attention_natural_ref(q, k, v, bias_kv, num_heads)
         kernel = forward_kernel(q.shape[1], k.shape[1], q.shape[2] // num_heads)
+        if kernel is fused_attention_long_cuda and any(ctx.needs_input_grad[:4]):
+            out, lse = kernel(q, k, v, bias_kv, num_heads, lse=True)
+            ctx.save_for_backward(q, k, v, bias_kv, lse)
+            return out
+        ctx.save_for_backward(q, k, v, bias_kv)
         return kernel(q, k, v, bias_kv, num_heads)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias_kv = ctx.saved_tensors
+        q, k, v, bias_kv, *lse = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
         if q.device.type == "cpu":
             grads = attention_bwd_ref(q, k, v, bias_kv, g, ctx.num_heads)
         else:
             kernel = backward_kernel(q.shape[1], k.shape[1], q.shape[2] // ctx.num_heads)
-            grads = kernel(q, k, v, bias_kv, g, ctx.num_heads)
+            grads = kernel(q, k, v, bias_kv, g, ctx.num_heads, *lse)
         return (*grads, None)
 
 

@@ -1,22 +1,26 @@
-"""Per-call times of the attention forward kernels on one CUDA card, for
-A/B runs of kernel variants.
+"""Per-call times of the attention kernels on one CUDA card, for A/B runs
+of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
 
 Times #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36 and #2
 (``fused_attention_long_cuda``) at ViLT's 165x165 and 185x185, batch 256,
-12 heads of 64, bf16 and f32, with q, k, v as column views of one fused
-QKV product and the last quarter of the keys masked: ``chip_smoke.cuda_ms``
-over ``--iters`` launches.  Each line also gives the largest difference
-from the plain version.  The script imports and builds the checkout it
-lies in, so a copy with an edited ``csrc/`` is timed by running that
-copy's script by path; two variants alternate within one run on one
-card: ``A B B A``.
+12 heads of 64, bf16 and f32, and #3L (``fused_attention_long_bwd_cuda``)
+at 165x165 and 185x185, batch 256, bf16, with q, k, v as column views of
+one fused QKV product and the last quarter of the keys masked:
+``chip_smoke.cuda_ms`` over ``--iters`` launches.  Each line also gives
+the largest difference from the plain version.  The script imports and
+builds the checkout it lies in, so a copy with an edited ``csrc/`` is
+timed by running that copy's script by path; two variants alternate
+within one run on one card: ``A B B A``.  It takes #3L's wrapper with or
+without the forward's row statistics (``lse``), so it runs unchanged in
+a checkout from before they existed.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -40,7 +44,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    built = build_all(("fused_attention", "fused_attention_long"))
+    built = build_all(("fused_attention", "fused_attention_long", "fused_attention_long_bwd"))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     e, heads, b = 768, 12, 256
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -57,6 +61,21 @@ def main(argv=None) -> None:
             us = cuda_ms(lambda: kernel(q, k, v, bias, heads), iters=args.iters) * 1e3
             print(f"{str(dtype).split('.')[1]} B={b} {s}x{s} {kernel.__name__}: {us:.1f} us "
                   f"per call, max|kernel-plain| {err:.3e}", flush=True)
+
+    bwd = att.fused_attention_long_bwd_cuda
+    takes_lse = "lse" in inspect.signature(bwd).parameters
+    for s in (165, 185):
+        q, k, v = torch.randn(b, s, 3 * e, generator=gen, device="cuda").bfloat16().split(e, -1)
+        g = torch.randn(b, s, e, generator=gen, device="cuda").bfloat16()
+        bias = torch.zeros(b, s, device="cuda")
+        bias[:, -(s // 4):] = -10000.0
+        extra = (att.fused_attention_long_cuda(q, k, v, bias, heads, lse=True)[1],) if takes_lse else ()
+        got = bwd(q, k, v, bias, g, heads, *extra)
+        want = att.attention_bwd_ref(q, k, v, bias, g, heads)
+        err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got[:3], want[:3]))
+        us = cuda_ms(lambda: bwd(q, k, v, bias, g, heads, *extra), iters=args.iters) * 1e3
+        print(f"bfloat16 B={b} {s}x{s} {bwd.__name__}: {us:.1f} us per call, "
+              f"max|kernel-plain| of dq, dk, dv {err:.3e}", flush=True)
 
 
 if __name__ == "__main__":

@@ -22,13 +22,27 @@ The port's ``autograd.Function`` on CPU tensors at those lengths equals
 PyTorch's autograd through ``attention_natural_ref``; the backward's
 routing (``backward_kernel``) is checked like the forward's.
 
+Beyond 256 keys (ViLT at a 512 px image: 277 tokens; with 16 px patches:
+597), where the JAX package runs its XLA attention and differentiates it:
+the plain versions against ``_attention_natural_xla`` and its
+``jax.vjp``, f32, batch 2, 2 heads of 8, atol 1e-5 forward and 1e-4
+backward.  The kernels' tiling, emulated step by step in plain torch
+(the key-tiled forward's online softmax and ``lse``; the backward's dQ
+pass with its two sweeps over key tiles and its dK/dV pass over query
+tiles, ragged last tiles and a fully masked row included), equals the
+plain versions within 1e-5 in f32.  And the reason the backward's D
+takes a sweep of its own: D from the forward's bf16 output would move
+dbias past its bound at ViLT's widths.
+
 Tests marked ``cuda`` hold the long-stream Hopper kernels
 (``csrc/fused_attention_long.cu``, ``csrc/fused_attention_long_bwd.cu``)
-to the plain versions at ViLT's shapes and at their limit of 256 keys on
-the card, the backward's two runs bit for bit, and skip without one (run
-them there with
+to the plain versions at ViLT's shapes, either side of 256 keys and at
+277 and 597 tokens on the card, the backward's two runs bit for bit, and
+skip without one (run them there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_attention_long.py``).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -42,9 +56,12 @@ CPU_SHAPES = [(70, 70), (65, 130), (130, 65)]
 # ViLT: 20 or 40 text tokens + 144 patches + CLS; cross shapes for the
 # ragged query tiles.
 CARD_SHAPES = [(165, 165), (185, 185), (65, 185), (185, 65)]
-# Up to the long kernel's limit of 256 keys: the bf16 body's widest score
-# registers (32 tiles of 8 keys) and the f32 body's largest shared memory.
-LIMIT_SHAPES = [(20, 256), (256, 256)]
+# Either side of 256 keys, where the forward leaves its whole-row bodies
+# (the bf16 body's widest score registers, 32 tiles of 8 keys) for its
+# key-tiled ones; 277 and 597 tokens are ViLT at a 512 px image and with
+# 16 px patches, with ragged pairs.
+LIMIT_SHAPES = [(20, 256), (256, 256), (300, 257), (257, 257)]
+BEYOND_SHAPES = [(277, 277), (597, 597), (20, 597), (597, 20)]
 # The backward at ViLT's training stream and across ragged tiles.
 BWD_SHAPES = [(165, 165), (65, 185), (185, 65)]
 BWD_H, BWD_D = 2, 8
@@ -127,13 +144,18 @@ def test_plain_matches_full_sequence_pallas_kernel(jax_attention, sq, skv):
         (185, 185, 64, "fused_attention_long"),
         (20, 185, 64, "fused_attention_long"),
         (1000, 256, 64, "fused_attention_long"),
+        # Beyond the old cap of 256 keys.
+        (300, 257, 64, "fused_attention_long"),
+        (277, 277, 64, "fused_attention_long"),
+        (597, 597, 64, "fused_attention_long"),
+        (20, 597, 64, "fused_attention_long"),
     ],
 )
 def test_forward_routing(sq, skv, d, want):
     assert att.forward_kernel(sq, skv, d) is getattr(att, f"{want}_cuda")
 
 
-@pytest.mark.parametrize("sq,skv,d,match", [(300, 257, 64, "257"), (185, 185, 96, "head dim")])
+@pytest.mark.parametrize("sq,skv,d,match", [(185, 185, 96, "head dim")])
 def test_forward_routing_raises_beyond_the_limits(sq, skv, d, match):
     with pytest.raises(ValueError, match=match):
         att.forward_kernel(sq, skv, d)
@@ -154,8 +176,9 @@ def test_long_wrapper_refuses_cpu_tensors():
         att.fused_attention_long_cuda(q, k, v, bias, H)
     assert att.fused_attention_long_cuda.launches == before
     before = att.fused_attention_long_bwd_cuda.launches
+    lse = torch.zeros(2, H, 70, 2)
     with pytest.raises(ValueError, match="not CUDA"):
-        att.fused_attention_long_bwd_cuda(q, k, v, bias, q.clone(), H)
+        att.fused_attention_long_bwd_cuda(q, k, v, bias, q.clone(), H, lse)
     assert att.fused_attention_long_bwd_cuda.launches == before
 
 
@@ -216,16 +239,182 @@ def test_function_matches_autograd_of_plain_forward_at_long_streams(sq, skv):
         (165, 165, "fused_attention_long_bwd"),
         (20, 185, "fused_attention_long_bwd"),
         (1000, 256, "fused_attention_long_bwd"),
+        # Beyond the old cap of 256 keys.
+        (165, 257, "fused_attention_long_bwd"),
+        (300, 257, "fused_attention_long_bwd"),
+        (277, 277, "fused_attention_long_bwd"),
+        (597, 597, "fused_attention_long_bwd"),
+        (597, 20, "fused_attention_long_bwd"),
     ],
 )
 def test_backward_routing(sq, skv, want):
     assert att.backward_kernel(sq, skv, 64) is getattr(att, f"{want}_cuda")
 
 
-@pytest.mark.parametrize("sq,skv,d,match", [(165, 257, 64, "257"), (185, 185, 96, "head dim")])
+@pytest.mark.parametrize("sq,skv,d,match", [(185, 185, 96, "head dim")])
 def test_backward_routing_raises_beyond_the_limits(sq, skv, d, match):
     with pytest.raises(ValueError, match=match):
         att.backward_kernel(sq, skv, d)
+
+
+# ---------------------------------------------------------------------------
+# Beyond 256 keys: the plain versions against the JAX package's XLA
+# attention, and the kernels' tiling emulated in plain torch.
+# ---------------------------------------------------------------------------
+
+XLA_SHAPES = [(277, 277), (597, 597)]
+
+
+@pytest.mark.parametrize("sq,skv", XLA_SHAPES)
+def test_plain_matches_xla_attention_beyond_256(jax_attention, sq, skv):
+    import jax.numpy as jnp
+
+    q, k, v, g, bias = _bwd_inputs(sq, skv, seed=sq)
+    q, k, v, g = (x[:2] for x in (q, k, v, g))
+    bias = bias[:2]
+    want = jax_attention._attention_natural_xla(*(jnp.asarray(a) for a in (q, k, v, bias)), BWD_H)
+    got = att.attention_natural_ref(*(torch.from_numpy(a) for a in (q, k, v, bias)), BWD_H)
+    _assert_matches(got.numpy(), np.asarray(want), v)
+
+
+@pytest.mark.parametrize("sq,skv", XLA_SHAPES)
+def test_bwd_ref_matches_xla_vjp_beyond_256(jax_attention, sq, skv):
+    import jax
+    import jax.numpy as jnp
+
+    q, k, v, g, bias = (x[:2] for x in _bwd_inputs(sq, skv, seed=sq + 1))
+    _, vjp = jax.vjp(lambda *a: jax_attention._attention_natural_xla(*a, BWD_H),
+                     *(jnp.asarray(a) for a in (q, k, v, bias)))
+    want = vjp(jnp.asarray(g))
+    got = att.attention_bwd_ref(*(torch.from_numpy(a) for a in (q, k, v, bias, g)), BWD_H)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a).all(), name  # the fully masked row too
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4, err_msg=name)
+
+
+KV_TILE, Q_TILE, STEP = 64, 64, 16  # the kernels' key and query tiles, and a warp's step
+
+
+def _split_heads(t, h):
+    b, s, e = t.shape
+    return t.reshape(b, s, h, e // h).transpose(1, 2)  # (B, H, S, D)
+
+
+def _merge_heads(t):
+    b, h, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _tiled_forward(scores, vh):
+    """The key-tiled forward (csrc/fused_attention_long.cu), f32, from the
+    (B, H, Sq, Skv) scores: an online softmax over key tiles of 64, O
+    rescaled when the row max moves, O / l at the end; (O, stats), stats
+    (B, H, Sq, 2) = (m, log(l)), the kernels' row statistics."""
+    m = torch.full(scores.shape[:3], -math.inf)
+    l = torch.zeros(scores.shape[:3])
+    o = torch.zeros(scores.shape[:3] + vh.shape[-1:])
+    for k0 in range(0, scores.shape[-1], KV_TILE):
+        s = scores[..., k0:k0 + KV_TILE]
+        mn = torch.maximum(m, s.amax(-1))
+        c = torch.exp(m - mn)
+        p = torch.exp(s - mn[..., None])
+        l = l * c + p.sum(-1)
+        o = o * c[..., None] + p @ vh[:, :, k0:k0 + KV_TILE]
+        m = mn
+    return o / l[..., None], torch.stack([m, torch.log(l)], dim=-1)
+
+
+def _tiled_backward(scores, dps, lse, qh, kh, gh):
+    """The backward's two passes (csrc/fused_attention_long_bwd.cu), f32,
+    tile by tile in the kernels' order, from the scores and dP = g V^T:
+    the dQ pass per query tile sweeps the key tiles for D, then again for
+    dS and dQ, 16 keys at a step; the dK/dV pass per key tile walks the
+    query tiles, 16 queries at a step, for dV, dK and the column sums of
+    dS; dbias adds the heads in order."""
+    b, h, sq, d = qh.shape
+    skv = kh.shape[2]
+    scale = 1.0 / math.sqrt(d)
+
+    def probs(i0, i1, j0, j1):
+        st = lse[:, :, i0:i1, None]
+        p = torch.exp((scores[:, :, i0:i1, j0:j1] - st[..., 0]) - st[..., 1])
+        return p, dps[:, :, i0:i1, j0:j1]
+
+    dq, dsum = torch.zeros(qh.shape), torch.zeros(qh.shape[:3])
+    for i0 in range(0, sq, Q_TILE):
+        i1 = min(i0 + Q_TILE, sq)
+        dd = torch.zeros(b, h, i1 - i0)
+        for j0 in range(0, skv, STEP):  # first sweep: D
+            p, dp = probs(i0, i1, j0, j0 + STEP)
+            dd = dd + (p * dp).sum(-1)
+        dsum[:, :, i0:i1] = dd
+        acc = torch.zeros(b, h, i1 - i0, d)
+        for j0 in range(0, skv, STEP):  # second sweep: dS and dQ
+            p, dp = probs(i0, i1, j0, j0 + STEP)
+            acc = acc + (p * (dp - dd[..., None]) * scale) @ kh[:, :, j0:j0 + STEP]
+        dq[:, :, i0:i1] = acc
+    dk, dv, part = torch.zeros(kh.shape), torch.zeros(kh.shape), torch.zeros(b, h, skv)
+    for j0 in range(0, skv, KV_TILE):
+        j1 = min(j0 + KV_TILE, skv)
+        for i0 in range(0, sq, STEP):
+            p, dp = probs(i0, i0 + STEP, j0, j1)
+            ds = p * (dp - dsum[:, :, i0:i0 + STEP, None])
+            dv[:, :, j0:j1] += p.transpose(-1, -2) @ gh[:, :, i0:i0 + STEP]
+            dk[:, :, j0:j1] += (ds * scale).transpose(-1, -2) @ qh[:, :, i0:i0 + STEP]
+            part[:, :, j0:j1] += ds.sum(-2)
+    dbias = part[:, 0]
+    for hh in range(1, h):
+        dbias = dbias + part[:, hh]
+    return dq, dk, dv, dbias
+
+
+@pytest.mark.parametrize("sq,skv", [(277, 277), (597, 597), (300, 257), (20, 597), (597, 20)])
+def test_tiled_algorithm_matches_plain_versions(sq, skv):
+    # The scores and dP as the plain versions compute them (the fully
+    # masked row's scores sit on the f32 grid of 2^-10 at -1e4, where
+    # products summed in another order would land on other steps); what
+    # the kernels tile, emulated on top.
+    q, k, v, g, bias = (torch.from_numpy(x[:2]) for x in _bwd_inputs(sq, skv, seed=sq * skv))
+    qh, kh, vh, gh = (_split_heads(t, BWD_H) for t in (q, k, v, g))
+    products = torch.einsum("bhqd,bhkd->bhqk", qh, kh)
+    mask = bias[:, None, None, :]
+    o, lse = _tiled_forward(products / math.sqrt(BWD_D) + mask, vh)
+    torch.testing.assert_close(_merge_heads(o), att.attention_natural_ref(q, k, v, bias, BWD_H),
+                               rtol=0, atol=1e-5)
+    want_lse = torch.logsumexp((products / math.sqrt(BWD_D) + mask).double(), dim=-1)
+    torch.testing.assert_close(lse.double().sum(-1), want_lse, rtol=0, atol=1e-5)
+    # The backward's scores as attention_bwd_ref takes them (times 1 /
+    # sqrt(d), where the forward divides: another rounding at d = 8; the
+    # kernels compute one form in both) and their statistics.
+    scores = products * (1.0 / math.sqrt(BWD_D)) + mask
+    _, stats = _tiled_forward(scores, vh)
+    dq, dk, dv, dbias = _tiled_backward(scores, gh @ vh.transpose(-1, -2), stats, qh, kh, gh)
+    want = att.attention_bwd_ref(q, k, v, bias, g, BWD_H)
+    got = (_merge_heads(dq), _merge_heads(dk), _merge_heads(dv), dbias)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5, msg=name)
+
+
+def test_d_from_the_bf16_output_would_break_the_dbias_bound():
+    # ViLT's widths (12 heads of 64), bf16 inputs, pad-patch masks: D from
+    # the forward's bf16 output, rowsum(g o), against D = rowsum(dP P) in
+    # f32, as dbias sees it; the card's bound for bf16 dbias is 1e-3 +
+    # 1e-4 |plain| (chip_smoke.TOL).  Hence the dQ pass's first sweep.
+    rng = np.random.default_rng(0)
+    b, s, heads = 8, 165, 12
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, 768), dtype=np.float32))
+                  .bfloat16().float() for _ in range(4))
+    _, _, _, bias = _inputs(b, s, s, e=768, seed=1)
+    bias = torch.from_numpy(bias)
+    qh, kh, vh, gh = (_split_heads(t, heads) for t in (q, k, v, g))
+    p = torch.softmax(qh @ kh.transpose(-1, -2) / 8 + bias[:, None, None, :], dim=-1)
+    dp = gh @ vh.transpose(-1, -2)
+    d_exact = (p * dp).sum(-1, keepdim=True)
+    d_bf16 = (gh * (p @ vh).bfloat16().float()).sum(-1, keepdim=True)
+    dbias = (p * (dp - d_exact)).sum((1, 2))
+    err = ((p * (dp - d_bf16)).sum((1, 2)) - dbias).abs()
+    assert bool((err > 1e-3 + 1e-4 * dbias.abs()).any())
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +424,7 @@ def test_backward_routing_raises_beyond_the_limits(sq, skv, d, match):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,skv", CARD_SHAPES + LIMIT_SHAPES)
+@pytest.mark.parametrize("sq,skv", CARD_SHAPES + LIMIT_SHAPES + BEYOND_SHAPES)
 def test_long_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
     # ViLT widths: 12 heads of 64; ragged batch 7 with a fully masked row;
     # q, k, v as column views of one fused projection (row stride 3E).
@@ -256,6 +445,9 @@ def test_long_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
     # bf16 in the kernel, kept in f32 by the plain version).
     atol, rtol = {"float32": (2e-5, 0.0), "bfloat16": (3e-2, 1e-2)}[dtype]
     assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
+    # The row statistics change nothing in the output.
+    out, lse = att.fused_attention_long_cuda(tq, tk, tv, tbias, 12, lse=True)
+    assert torch.equal(out, got) and lse.shape == (7, 12, sq, 2) and torch.isfinite(lse).all()
 
 
 # (atol, rtol) of the backward on the card, as the short backward's
@@ -267,7 +459,7 @@ BWD_CARD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (3e-2, 1e-2), "dbias_bf16": 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,skv", CARD_SHAPES + LIMIT_SHAPES)
+@pytest.mark.parametrize("sq,skv", CARD_SHAPES + LIMIT_SHAPES + BEYOND_SHAPES)
 def test_long_bwd_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
     # 12 heads of 64, batch 7 with a fully masked row; self-attention q, k,
     # v as column views of one fused QKV product (row stride 3E).
@@ -281,8 +473,9 @@ def test_long_bwd_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
         tq = torch.from_numpy(q).to(cuda, tdt)
         tk, tv = torch.from_numpy(np.concatenate([k, v], -1)).to(cuda, tdt).split(e, -1)
     tg, tbias = torch.from_numpy(g).to(cuda, tdt), torch.from_numpy(bias).to(cuda)
+    _, lse = att.fused_attention_long_cuda(tq, tk, tv, tbias, 12, lse=True)
     before = att.fused_attention_long_bwd_cuda.launches
-    got = att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12)
+    got = att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12, lse)
     want = att.attention_bwd_ref(tq, tk, tv, tbias, tg, 12)
     torch.cuda.synchronize()
     assert att.fused_attention_long_bwd_cuda.launches == before + 1
@@ -292,16 +485,28 @@ def test_long_bwd_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
         err = (a.float() - w.float()).abs()
         assert bool((err <= atol + rtol * w.float().abs()).all()), (
             f"{name}: max |kernel - plain| {err.max().item():.3e} over {atol} + {rtol}|plain|")
-    again = att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12)
+    again = att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12, lse)
     for a, b in zip(got, again):
         assert torch.equal(a, b)  # deterministic: no float atomics
 
 
 @pytest.mark.cuda
 def test_long_streams_raise_where_no_kernel_exists(cuda):
-    q = torch.zeros(2, 300, 768, device=cuda)
-    with pytest.raises(ValueError, match="257"):
-        att.fused_attention(q, q[:, :257], q[:, :257], None, num_heads=12)
+    # 300 x 257 (past the old cap of 256 keys) runs through #2 and #3L and
+    # matches the plain versions under autograd.
+    q, k, v, bias = _inputs(2, 300, 257, e=768, seed=5)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(q.shape, dtype=np.float32)).to(cuda)
+    inputs = [torch.from_numpy(x).to(cuda).requires_grad_() for x in (q, k, v, bias)]
+    counts = (att.fused_attention_long_cuda.launches, att.fused_attention_long_bwd_cuda.launches)
+    got = att.fused_attention(*inputs, num_heads=12)
+    got_grads = torch.autograd.grad(got, inputs, g)
+    assert (att.fused_attention_long_cuda.launches,
+            att.fused_attention_long_bwd_cuda.launches) == (counts[0] + 1, counts[1] + 1)
+    want = att.attention_natural_ref(*inputs, 12)
+    want_grads = torch.autograd.grad(want, inputs, g)
+    assert ((got - want).abs() <= 2e-5).all()
+    for a, w in zip(got_grads, want_grads):
+        assert ((a - w).abs() <= 1e-4).all()
     # The backward at 165 tokens reaches #3L; attention dropout has no
     # long-stream kernel.
     q = torch.zeros(2, 165, 768, device=cuda, requires_grad=True)

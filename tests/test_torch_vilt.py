@@ -48,12 +48,11 @@ MODEL = dict(backbone="vilt", num_answers=7, max_text_len=6, vilt_patch_size=16,
 RTOL, ATOL = 2e-4, 2e-5
 
 
-def _cfg(config):
-    return config.ModelConfig(encoder=config.EncoderConfig(**ENC), **MODEL)
+def _cfg(config, **kw):
+    return config.ModelConfig(encoder=config.EncoderConfig(**ENC), **dict(MODEL, **kw))
 
 
-@pytest.fixture(scope="module")
-def models():
+def _models(**kw):
     """(jax forward, jax params, port model, port forward) sharing weights."""
     pytest.importorskip("jax")
     import jax
@@ -61,16 +60,28 @@ def models():
     from rgqa_tpu import config as jax_config
     from rgqa_tpu.models import zoo as jax_zoo
 
-    cfg = _cfg(jax_config)
+    cfg = _cfg(jax_config, **kw)
     jmodel, jforward = jax_zoo.build_model(cfg)
     b = jax_zoo.example_batch(cfg, batch_size=2, seed=0)
     params = jmodel.init(
         jax.random.PRNGKey(3), *(jnp.asarray(b[k]) for k in ("input_ids", "input_mask", "pixels"))
     )["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
-    model, forward = build_model(_cfg(port_config), device="cpu")
+    model, forward = build_model(_cfg(port_config, **kw), device="cpu")
     model.load_state_dict(from_jax_params(params))
     return jforward, params, model, forward
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
+@pytest.fixture(scope="module")
+def models_263():
+    """As ``models`` at 256 px images: 16^2 patches + CLS + 6 text tokens,
+    a 263-token stream, past the long kernels' old cap of 256 keys."""
+    return _models(vilt_image_size=256)
 
 
 def _both(models, batch, **kw):
@@ -138,6 +149,42 @@ def test_u8_wire_matches_jax_with_rect_mask(models):
     _assert_close(want, got)
     _, open_ = _both(models, batch, pixel_mask=np.ones((3, 16), np.uint8))
     assert not np.allclose(open_["logits"], want["logits"], rtol=RTOL, atol=ATOL)
+
+
+def test_u8_wire_matches_jax_beyond_256_tokens(models_263):
+    rng = np.random.default_rng(2)
+    ids, mask = _text(rng, 2)
+    u8 = rng.integers(0, 256, (2, 256, 256, 3)).astype(np.uint8)
+    rects = np.asarray([[0, 0, 256, 256], [0, 40, 256, 170]], np.int32)
+    pmask = port_images.rect_patch_mask(rects, 256, 16)
+    assert pmask.shape == (2, 256) and pmask[1].min() == 0  # row 1 has pad patches
+    batch = {"input_ids": ids, "input_mask": mask, "pixels_u8": u8, "pixel_rect": rects,
+             "pixel_mask": pmask}
+    want, got = _both(models_263, batch)
+    _assert_close(want, got)
+    _, open_ = _both(models_263, batch, pixel_mask=np.ones((2, 256), np.uint8))
+    assert not np.allclose(open_["logits"], want["logits"], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_vilt_beyond_256_tokens_matches_plain_on_card():
+    # 512 px images in 16 px patches: 1024 patches + CLS + 6 text tokens,
+    # f32, through #2's key-tiled body against the plain attention.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from rgqa_tpu_torch.ops import attention as att
+
+    cfg = _cfg(port_config, vilt_image_size=512)
+    _, forward = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in example_batch(cfg, 3, seed=1).items()}
+    before = att.fused_attention_long_cuda.launches
+    with torch.no_grad():
+        got, want = forward(batch), forward(batch, use_fused=False)
+    torch.cuda.synchronize()
+    assert att.fused_attention_long_cuda.launches == before + 2  # one per layer
+    for key in ("logits", "pooled"):
+        assert torch.isfinite(got[key]).all()
+        torch.testing.assert_close(got[key], want[key], rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("num_layers", [2, 12])

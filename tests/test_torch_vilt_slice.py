@@ -126,14 +126,18 @@ def test_score_split_confidences_agree(both):
         assert abs(conf - want[qid][1]) <= 1e-5
 
 
-def test_cli_writes_predictions_and_metrics(tmp_path):
+# 64 px: 16 patches + CLS + 20 text tokens; 512 px: 1024 + 1 + 20 = 1045,
+# a stream past the long kernels' old cap of 256 keys (the plain versions
+# on the CPU).
+@pytest.mark.parametrize("image_size", [64, 512])
+def test_cli_writes_predictions_and_metrics(tmp_path, image_size):
     root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
     make_synthetic_gqa(root, SyntheticSpec(n_images=6, n_train=8, n_valid=8, n_testdev=20, seed=5))
     results = evaluate.main([
         "--synthetic", "--data_root", root, "--test", "testdev", "--scorer", "msp",
-        "--output", out, *TINY_FLAGS,
+        "--output", out, *TINY_FLAGS, "--vilt_image_size", str(image_size),
     ])
-    assert os.path.isfile(os.path.join(root, "pixels_64_pad", "meta.json"))  # made on first use
+    assert os.path.isfile(os.path.join(root, f"pixels_{image_size}_pad", "meta.json"))  # made on first use
     with open(os.path.join(out, "testdev_predict.json")) as f:
         rows = json.load(f)
     assert len(rows) == 20

@@ -309,13 +309,15 @@ def test_runner_randaug_without_pil_or_jpegs_names_the_flag(tmp_path, monkeypatc
 
 
 @pytest.mark.cuda
-def test_vilt_train_step_launches_the_long_kernels_on_card():
+@pytest.mark.parametrize("image_size", [128, 512])
+def test_vilt_train_step_launches_the_long_kernels_on_card(image_size):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from rgqa_tpu_torch.ops import attention as att
 
-    # 128 px in 16 px patches: 64 patches + CLS + 8 text tokens = 73 > 64.
-    cfg = dataclasses.replace(_model_cfg(port_config), vilt_image_size=128)
+    # 128 px in 16 px patches: 64 patches + CLS + 8 text tokens = 73 > 64;
+    # 512 px: 1024 + 1 + 8 = 1033, through the long kernels' key tiles.
+    cfg = dataclasses.replace(_model_cfg(port_config), vilt_image_size=image_size)
     model, forward = build_model(cfg, use_bf16=True, device="cuda", train=True)
     opt = optimizer.make_optimizer(port_config.OptimConfig(lr=1e-3), model.parameters(), t_total=2)
     step = tstep.make_train_step(forward, opt, sample_pair=True, rng=DropoutRng())
