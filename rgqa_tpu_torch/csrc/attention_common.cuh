@@ -8,9 +8,11 @@
 // forward bodies below on two problems or with a structural mask;
 // headfold.cu and epilogue.cu build on the helpers).
 //
-// Every short kernel runs one block per (batch row, head) and keeps that
-// pair's whole problem in shared memory (LXMERT's sequences are 20 and 36
-// tokens, heads 64 wide).  The f32 forward body also takes a query tile
+// Every short kernel keeps a (batch row, head)'s whole problem in shared
+// memory (LXMERT's sequences are 20 and 36 tokens, heads 64 wide): the
+// forwards and the f32 backward run one block per (row, head), the bf16
+// backward one block per row and pair of heads, in turn, its products in
+// registers (fused_attention_bwd_short_bf16).  The f32 forward body also takes a query tile
 // (kTileQ rows each): fused_attention_long.cu runs it, and a bf16 body of
 // its own, on a (batch row, head, query tile) grid for streams of up to
 // kLongWholeKv keys (ViLT-B/32's 165-185 tokens), with each tile's
@@ -248,12 +250,13 @@ __device__ __forceinline__ void cp_async_wait_group() {
 // before the barrier that publishes the tile.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
                                           const __nv_bfloat16* src, long long rs,
-                                          int rows, int rows_p, int d, int dp, int tid) {
+                                          int rows, int rows_p, int d, int dp, int tid,
+                                          int nthreads = kMmaThreads) {
   const bool vec = d % 8 == 0 && rs % 8 == 0 &&
                    reinterpret_cast<uintptr_t>(src) % 16 == 0;
   if (vec) {
     const int chunks = dp / 8;
-    for (int i = tid; i < rows_p * chunks; i += kMmaThreads) {
+    for (int i = tid; i < rows_p * chunks; i += nthreads) {
       const int r = i / chunks, c = i % chunks * 8;
       if (r < rows && c < d) {
         cp_async16(dst + r * ld + c, src + r * rs + c);
@@ -263,7 +266,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
     }
   } else {
     const __nv_bfloat16 zero = __float2bfloat16(0.f);
-    for (int i = tid; i < rows_p * dp; i += kMmaThreads) {
+    for (int i = tid; i < rows_p * dp; i += nthreads) {
       const int r = i / dp, c = i % dp;
       dst[r * ld + c] = (r < rows && c < d) ? src[r * rs + c] : zero;
     }
@@ -362,6 +365,39 @@ __device__ __forceinline__ void lds_b_trans(uint32_t (&b)[4], const __nv_bfloat1
 __device__ __forceinline__ void mma_16x8x16(float (&acc)[4], const uint32_t (&a)[4],
                                             uint32_t b0, uint32_t b1) {
   mma_16x8x16(acc, a[0], a[1], a[2], a[3], b0, b1);
+}
+
+// lds_a_trans: the A fragment of the 16 x 16 block A(m, k) = p[k * ld +
+// m], p at (k0, m0): a matrix read along its columns (P^T or dS^T from
+// the rows of P or dS) by ldmatrix.trans.
+__device__ __forceinline__ void lds_a_trans(uint32_t (&f)[4], const __nv_bfloat16* p, int ld,
+                                            int lane) {
+  ldsm_x4_trans(f, p + ((lane & 7) + ((lane >> 4) & 1) * 8) * ld + ((lane >> 3) & 1) * 8);
+}
+
+// acc (16 x DP, n-tiles of 8 columns) += A (16 x 16) Y, Y the 16 rows of
+// y (row-major, read along columns by ldmatrix.trans).
+__device__ __forceinline__ void accumulate_16xd(float (&acc)[kMaxDim / 8][4],
+                                                const uint32_t (&af)[4], const __nv_bfloat16* y,
+                                                int ld, int dp, int lane) {
+#pragma unroll
+  for (int dp2 = 0; dp2 < kMaxDim / 16; ++dp2) {
+    if (dp2 * 16 < dp) {
+      uint32_t bf[4];
+      lds_b_trans(bf, y + dp2 * 16, ld, lane);
+      mma_16x8x16(acc[2 * dp2], af, bf[0], bf[1]);
+      mma_16x8x16(acc[2 * dp2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// The A fragment of a 16 x 16 block held as two accumulator n-tiles, each
+// value times `scale`, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t (&af)[4], const float (&x)[2][4], float scale) {
+  af[0] = pack_f32_pair(x[0][0] * scale, x[0][1] * scale);
+  af[1] = pack_f32_pair(x[0][2] * scale, x[0][3] * scale);
+  af[2] = pack_f32_pair(x[1][0] * scale, x[1][1] * scale);
+  af[3] = pack_f32_pair(x[1][2] * scale, x[1][3] * scale);
 }
 
 // Fragments of mma.sync m16n8k16 from shared memory, one warp (g = lane /
@@ -667,17 +703,17 @@ __global__ void __launch_bounds__(kMmaThreads) fused_attention_bf16(Args a) {
 
 // ---------------------------------------------------------------------------
 // Backward, as the Pallas _fused_bwd_kernel / _fused_drop_bwd_kernel:
-// recompute P; dP = g V^T and dV = P_drop^T g, both in f32 on the CUDA
-// cores (g and v exact in f32); with dropout dP is masked and scaled;
-// dS = P (dP - rowsum(dP P)); dbias = sum over heads and query rows of
-// dS; dS * scale rounded to the input dtype; dQ = dS K, dK = dS^T Q.
+// recompute P; dP = g V^T and dV = P_drop^T g; with dropout dP is masked
+// and scaled; dS = P (dP - rowsum(dP P)); dbias = sum over heads and
+// query rows of dS; dS * scale rounded to the input dtype; dQ = dS K,
+// dK = dS^T Q.  The f32 body runs every product on the CUDA cores; the
+// bf16 body (below it) every product on the tensor cores, in one pass.
 // ---------------------------------------------------------------------------
 
-// The steps both backward bodies share, after P (f32, row stride ldp) is
-// in ps: from f32 G and V (row stride ld) it writes dV to global memory,
+// The f32 body's steps after P (f32, row stride ldp) is in ps: from f32 G and V (row stride ld) it writes dV to global memory,
 // and leaves dS (not yet scaled) in dps and the per-head dbias sums in
 // a.dbias_part.  km holds the dropout mask, one byte per element.
-template <bool kDrop, typename T>
+template <bool kDrop>
 __device__ __forceinline__ void bwd_grads(const Args& a, int b, int h, const float* gs,
                                           const float* vs, int ld, const float* ps,
                                           float* dps, int ldp, float* rs, uint8_t* km,
@@ -700,7 +736,7 @@ __device__ __forceinline__ void bwd_grads(const Args& a, int b, int h, const flo
   }
   __syncthreads();
 
-  T* dv = static_cast<T*>(a.dv) + static_cast<long long>(b) * skv * a.heads * d + h * d;
+  float* dv = static_cast<float*>(a.dv) + static_cast<long long>(b) * skv * a.heads * d + h * d;
   const long long row = static_cast<long long>(a.heads) * d;
   for (int idx = tid; idx < skv * d; idx += nthreads) {
     const int j = idx / d, c = idx % d;
@@ -710,7 +746,7 @@ __device__ __forceinline__ void bwd_grads(const Args& a, int b, int h, const flo
       if (kDrop) p = km[i * skv + j] ? p * a.keep_scale : 0.f;
       acc = fmaf(p, gs[i * ld + c], acc);
     }
-    dv[j * row + c] = from_f32<T>(acc);
+    dv[j * row + c] = acc;
   }
   for (int i = warp; i < sq; i += warps) {
     const float* pi = ps + i * ldp;
@@ -782,7 +818,7 @@ __global__ void __launch_bounds__(kF32Threads) fused_attention_bwd_f32(Args a) {
                [&](int i, int j, float p) { ps[i * ldp + j] = p; });
   __syncthreads();
 
-  bwd_grads<kDrop, float>(a, b, h, gs, vs, ld, ps, dps, ldp, rs, km, tid, kF32Threads);
+  bwd_grads<kDrop>(a, b, h, gs, vs, ld, ps, dps, ldp, rs, km, tid, kF32Threads);
 
   for (int idx = tid; idx < sq * skv; idx += kF32Threads) {
     dps[idx / skv * ldp + idx % skv] *= a.scale;
@@ -808,106 +844,358 @@ __global__ void __launch_bounds__(kF32Threads) fused_attention_bwd_f32(Args a) {
   }
 }
 
-// bf16 body: S, dQ and dK on the tensor cores, dP and dV on the CUDA
-// cores in f32.  Shared memory:
-//   Qs, Ks  bf16 (SQP / SKP x DP, stride DP + 8), zero-padded, as the forward
-//   Gf, Vf  f32 (sq / skv x (dim + 1)), g and v converted exactly
-//   P, dP   f32 (sq x (skv + 1))
-//   dS      bf16 (SQP x SKP, stride SKP + 8), dS^T bf16 (SKP x SQP,
-//           stride SQP + 8), zero-padded
-//   bias f32 (skv), row sums f32 (sq), mask bytes (sq x skv)
-struct BwdLayout {
-  int sqp, skp, dp, ldq, ld, ldp, ldds, ldt;
-  size_t q_off, k_off, g_off, v_off, p_off, dp_off, ds_off, dt_off, b_off, r_off, m_off, bytes;
+// bf16 body (the short backward, #3 and, with kDrop, #5): one pass, every
+// product on the tensor cores (mma.sync m16n8k16, bf16 in, f32
+// accumulate), the score tiles in registers.  At Sq, Skv <= 64 one block
+// sees every query row and every key of its (row, head), so S, P, dP and
+// dS are formed once, with no recomputation and no row statistics: five
+// products per score, the count the bound takes.  A block takes
+// kShortBwdHeads heads of one batch row in turn (the bias is loaded
+// once); the next head's Q, g, K and V are staged by cp.async into the
+// second of two stages while the current head computes.  One warp per 16
+// query rows or keys (2-4 warps), and per head
+//
+// - phase 1, query rows: warp w the 16 rows 16 w .. 16 w + 15, with no
+//   barrier inside the phase: S = Q K^T and dP = g V^T into accumulators
+//   (kNT = SKP / 8 n-tiles of 8 keys), the row softmax by quad shuffles
+//   (P in f32), dP masked and scaled (kDrop), D = rowsum(dP P), dS = P (dP
+//   - D), dQ = round(dS scale) K with dS taken from the accumulators
+//   straight into A fragments; dQ written once, the warp's column sums of
+//   dS (f32) to shared memory;
+// - then, behind a barrier (K and V are dead), P_drop and round(dS scale)
+//   in bf16 into the space of K and V;
+// - phase 2, keys: warp w the 16 keys 16 w .. 16 w + 15: dV = P_drop^T g
+//   and dK = dS^T Q, A fragments by ldmatrix.trans, summed over every
+//   query row in order; dK and dV written once; the dbias column sums
+//   added over the warps in warp order and over the heads in head order.
+//
+// g and V are bf16, so dP's products are exact in f32: dP is the plain
+// version's up to summation order.  P enters dV rounded to bf16, where
+// the TPU kernel keeps it in f32 (as in fused_attention_long_bwd.cu): dV
+// moves by about one bf16 step of its terms, inside the bf16 bound.  The
+// dropout mask: one Philox call per (row, 16 keys), its 16 keep bits in
+// shared memory, drawn while the head's tiles are in flight.  Shared
+// memory (27.6 KB a stage at 36 x 36, 56.5 KB in all), bf16 unless
+// noted, row strides (padded width + 8) elements (ldmatrix rows in
+// distinct banks, 16-byte aligned), per stage:
+//   Qs, Gs (SQP x DP), Ks, Vs (SKP x DP), zero-padded to multiples of 16
+//   (the keys to at least 32, so that kNT = SKP / 8 is 4, 6 or 8);
+//   after phase 1 P_drop and dS scale (SQP x SKP each) over Ks and Vs;
+// then bias f32 (SKP), the warps' dS column sums f32 (SQP / 16 x SKP) and
+// the keep bits u32 (Sq x SKP / 16).
+struct ShortBwdLayout {
+  int sqp, skp, dp, ld, ldp;  // padded extents; row strides of Q/G/K/V and of P/dS
+  size_t g_off, k_off, v_off, ds_off, stage;  // within a stage (P at k_off)
+  size_t b_off, c_off, m_off, bytes;
 };
 
-__host__ __device__ inline BwdLayout bwd_layout(int sq, int skv, int d) {
-  BwdLayout L;
+__host__ __device__ inline ShortBwdLayout short_bwd_layout(int sq, int skv, int d) {
+  ShortBwdLayout L;
   L.sqp = (sq + 15) / 16 * 16;
-  L.skp = (skv + 15) / 16 * 16;
+  L.skp = skv > 16 ? (skv + 15) / 16 * 16 : 32;  // kNT = SKP / 8 is 4, 6 or 8
   L.dp = (d + 15) / 16 * 16;
-  L.ldq = L.dp + 8;
-  L.ld = d + 1;
-  L.ldp = skv + 1;
-  L.ldds = L.skp + 8;
-  L.ldt = L.sqp + 8;
+  L.ld = L.dp + 8;
+  L.ldp = L.skp + 8;
   const size_t bf = sizeof(__nv_bfloat16), f = sizeof(float);
-  L.q_off = 0;
-  L.k_off = align16(L.q_off + bf * L.sqp * L.ldq);
-  L.g_off = align16(L.k_off + bf * L.skp * L.ldq);
-  L.v_off = align16(L.g_off + f * sq * L.ld);
-  L.p_off = align16(L.v_off + f * skv * L.ld);
-  L.dp_off = align16(L.p_off + f * sq * L.ldp);
-  L.ds_off = align16(L.dp_off + f * sq * L.ldp);
-  L.dt_off = align16(L.ds_off + bf * L.sqp * L.ldds);
-  L.b_off = align16(L.dt_off + bf * L.skp * L.ldt);
-  L.r_off = L.b_off + f * skv;
-  L.m_off = L.r_off + f * sq;
-  L.bytes = L.m_off + sq * skv;
+  const size_t kv = 2 * bf * L.skp * L.ld, pds = 2 * bf * L.sqp * L.ldp;
+  L.g_off = bf * L.sqp * L.ld;  // every offset a multiple of 16 bytes
+  L.k_off = 2 * L.g_off;
+  L.v_off = L.k_off + bf * L.skp * L.ld;
+  L.ds_off = L.k_off + bf * L.sqp * L.ldp;
+  L.stage = L.k_off + (kv > pds ? kv : pds);
+  L.b_off = 2 * L.stage;
+  L.c_off = L.b_off + f * L.skp;
+  L.m_off = L.c_off + f * (L.sqp / 16) * L.skp;
+  L.bytes = L.m_off + sizeof(uint32_t) * sq * (L.skp / 16);
   return L;
 }
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kMmaThreads) fused_attention_bwd_bf16(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int sq = a.sq, skv = a.skv, d = a.dim;
+// Head h's Q, g, K and V into the stage at st, by cp.async (not committed).
+__device__ __forceinline__ void stage_head(const Args& a, int b, int h, unsigned char* st,
+                                           const ShortBwdLayout& L, int tid, int nthreads) {
+  const int d = a.dim;
   const long long row = static_cast<long long>(a.heads) * d;
-  const BwdLayout L = bwd_layout(sq, skv, d);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.q_off);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.k_off);
-  float* gf = reinterpret_cast<float*>(smem_raw + L.g_off);
-  float* vf = reinterpret_cast<float*>(smem_raw + L.v_off);
-  float* ps = reinterpret_cast<float*>(smem_raw + L.p_off);
-  float* dps = reinterpret_cast<float*>(smem_raw + L.dp_off);
-  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.ds_off);
-  __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.dt_off);
-  float* bs = reinterpret_cast<float*>(smem_raw + L.b_off);
-  float* rs = reinterpret_cast<float*>(smem_raw + L.r_off);
-  uint8_t* km = smem_raw + L.m_off;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-
-  load_tile(qs, L.ldq, static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * d,
-            a.q_rs, sq, L.sqp, d, L.dp, tid);
-  load_tile(ks, L.ldq, static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * d,
-            a.k_rs, skv, L.skp, d, L.dp, tid);
-  load_rows_f32(vf, L.ld, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * d,
-                a.v_rs, skv, d, tid, kMmaThreads);
-  load_rows_f32(gf, L.ld, static_cast<const __nv_bfloat16*>(a.g) + b * sq * row + h * d,
-                row, sq, d, tid, kMmaThreads);
-  for (int j = tid; j < skv; j += kMmaThreads) bs[j] = a.bias[b * skv + j];
-  cp_async_wait_all();
-  __syncthreads();
-
-  scores_mma(ps, qs, ks, L.ldq, L.sqp, L.dp, bs, a, warp, lane);
-  __syncthreads();
-  softmax_rows(ps, L.ldp, sq, skv, sq, skv, warp, kMmaWarps, lane,
-               [&](int i, int j, float p) { ps[i * L.ldp + j] = p; });
-  __syncthreads();
-
-  bwd_grads<kDrop, __nv_bfloat16>(a, b, h, gf, vf, L.ld, ps, dps, L.ldp, rs, km, tid,
-                                  kMmaThreads);
-
-  // dS * scale in bf16, in both orientations, zero outside sq x skv.
-  for (int idx = tid; idx < L.sqp * L.skp; idx += kMmaThreads) {
-    const int i = idx / L.skp, j = idx % L.skp;
-    const __nv_bfloat16 x =
-        __float2bfloat16(i < sq && j < skv ? dps[i * L.ldp + j] * a.scale : 0.f);
-    dss[i * L.ldds + j] = x;
-    dst[j * L.ldt + i] = x;
-  }
-  __syncthreads();
-
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(a.dq) + static_cast<long long>(b) * sq * row + h * d;
-  mma_product(dss, L.ldds, ks, L.ldq, L.sqp, L.skp, sq, d, warp, lane,
-              [&](int i, int c, float x) { dq[i * row + c] = __float2bfloat16(x); });
-  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(a.dk) + static_cast<long long>(b) * skv * row + h * d;
-  mma_product(dst, L.ldt, qs, L.ldq, L.skp, L.sqp, skv, d, warp, lane,
-              [&](int j, int c, float x) { dk[j * row + c] = __float2bfloat16(x); });
+  load_tile(reinterpret_cast<__nv_bfloat16*>(st), L.ld,
+            static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * d, a.q_rs, a.sq, L.sqp, d,
+            L.dp, tid, nthreads);
+  load_tile(reinterpret_cast<__nv_bfloat16*>(st + L.g_off), L.ld,
+            static_cast<const __nv_bfloat16*>(a.g) + static_cast<long long>(b) * a.sq * row + h * d,
+            row, a.sq, L.sqp, d, L.dp, tid, nthreads);
+  load_tile(reinterpret_cast<__nv_bfloat16*>(st + L.k_off), L.ld,
+            static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * d, a.k_rs, a.skv, L.skp, d,
+            L.dp, tid, nthreads);
+  load_tile(reinterpret_cast<__nv_bfloat16*>(st + L.v_off), L.ld,
+            static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * d, a.v_rs, a.skv, L.skp, d,
+            L.dp, tid, nthreads);
 }
 
-// dbias[b, j] = sum over heads, in head order, of the per-head partials:
-// deterministic, no atomics.
+// The keep bits of keys 16 c .. 16 c + 15 of query row i (bit s for key
+// 16 c + s): one Philox4x32-10 call, bit for bit dropout_keep's.
+__device__ __forceinline__ uint32_t keep_bits16(const Args& a, int b, int h, int i, int c) {
+  const uint4 w = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(i), static_cast<uint32_t>(h),
+                 static_cast<uint32_t>(b)),
+      static_cast<uint32_t>(a.seed), static_cast<uint32_t>(a.seed >> 32));
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int s = 0; s < 16; ++s) {
+    const uint32_t byte = (words[s >> 2] >> (8 * (s & 3))) & 0xFFu;
+    bits |= static_cast<uint32_t>(byte >= static_cast<uint32_t>(a.threshold)) << s;
+  }
+  return bits;
+}
+
+// Rows r0 .. r0 + 15 of a warp's 16 x DP accumulators (columns < d, rows
+// < rows) into out (row stride rs), in bf16; pairs of columns as one
+// 4-byte store when d is even.
+__device__ __forceinline__ void store_16xd(__nv_bfloat16* out, long long rs,
+                                           const float (&acc)[kMaxDim / 8][4], int r0, int rows,
+                                           int d, int lane) {
+  const int g = lane >> 2, t = (lane & 3) * 2;
+#pragma unroll
+  for (int dt = 0; dt < kMaxDim / 8; ++dt) {
+    const int c = dt * 8 + t;
+    if (c >= d) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = r0 + g + 8 * half;
+      if (i >= rows) continue;
+      __nv_bfloat16* o = out + i * rs + c;
+      if ((d & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(o) = pack_f32_pair(acc[dt][2 * half], acc[dt][2 * half + 1]);
+      } else {
+        o[0] = __float2bfloat16(acc[dt][2 * half]);
+        if (c + 1 < d) o[1] = __float2bfloat16(acc[dt][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// Heads per block, and blocks of kMmaThreads per SM that the registers
+// must allow (128 registers a thread; 0-36 bytes spill, at most 4 at
+// 32 keys).  Measured on the H100 against one head per block and other caps
+// (PERF.md section 6): 1, 3, 4 and 12 heads per block, no cap (156-202
+// registers) and caps of 3, 5 and 6 blocks (168, 96 and 80 registers).
+constexpr int kShortBwdHeads = 2;
+constexpr int kShortBwdMinBlocks = 4;
+
+template <bool kDrop, int kNT>
+__global__ void __launch_bounds__(kMmaThreads, kShortBwdMinBlocks)
+    fused_attention_bwd_short_bf16(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sq = a.sq, skv = a.skv, d = a.dim;
+  const ShortBwdLayout L = short_bwd_layout(sq, skv, d);
+  const int groups = (a.heads + kShortBwdHeads - 1) / kShortBwdHeads;
+  const int b = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int h0 = grp * kShortBwdHeads, nh = min(kShortBwdHeads, a.heads - h0);
+  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = (lane & 3) * 2;
+  const int ngr = L.skp >> 4;  // 16-key groups of the keep bits (past skv unused)
+  const long long row = static_cast<long long>(a.heads) * d;  // g, dq, dk, dv row stride
+  float* bs = reinterpret_cast<float*>(smem_raw + L.b_off);
+  float* cs = reinterpret_cast<float*>(smem_raw + L.c_off);
+  uint32_t* km = reinterpret_cast<uint32_t*>(smem_raw + L.m_off);
+
+  for (int j = tid; j < skv; j += nthreads) {
+    cp_async4(bs + j, a.bias + static_cast<long long>(b) * skv + j);
+  }
+  stage_head(a, b, h0, smem_raw, L, tid, nthreads);
+  cp_async_commit();
+  float db = 0.f;  // thread j < skv: key j's dbias over the block's heads
+
+  for (int hi = 0; hi < nh; ++hi) {
+    const int h = h0 + hi;
+    unsigned char* st = smem_raw + (hi & 1) * L.stage;
+    if (kDrop) {
+      for (int idx = tid; idx < sq * ngr; idx += nthreads) {
+        km[idx] = keep_bits16(a, b, h, idx / ngr, idx % ngr);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // head hi's tiles and keep bits; every warp is past head hi - 1
+    if (hi + 1 < nh) {
+      stage_head(a, b, h + 1, smem_raw + ((hi + 1) & 1) * L.stage, L, tid, nthreads);
+      cp_async_commit();
+    }
+    const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(st);
+    const __nv_bfloat16* gs = reinterpret_cast<const __nv_bfloat16*>(st + L.g_off);
+    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(st + L.k_off);
+    const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(st + L.v_off);
+
+    // Phase 1.  A lane holds rows r0 + g (e < 2) and r0 + g + 8 (e >= 2),
+    // keys 8 n + t + (e & 1).  Rows past sq get P = 0, so their dS, P_drop
+    // and column sums are 0.
+    const int r0 = warp * 16;
+    const bool rows_active = r0 < sq;
+    uint32_t pa[kNT / 2][4], sa[kNT / 2][4];  // P_drop and round(dS scale), A fragments of 16 keys
+    if (rows_active) {
+      float s[kNT][4], dp[kNT][4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kMaxDim / 16; ++kk) {
+        if (kk * 16 < L.dp) {
+          uint32_t qa[4], ga[4];
+          lds_a(qa, qs + r0 * L.ld + kk * 16, L.ld, lane);
+          lds_a(ga, gs + r0 * L.ld + kk * 16, L.ld, lane);
+#pragma unroll
+          for (int np = 0; np < kNT / 2; ++np) {
+            uint32_t kb[4], vb[4];
+            lds_b_rows(kb, ks + np * 16 * L.ld + kk * 16, L.ld, lane);
+            lds_b_rows(vb, vs + np * 16 * L.ld + kk * 16, L.ld, lane);
+            mma_16x8x16(s[2 * np], qa, kb[0], kb[1]);
+            mma_16x8x16(s[2 * np + 1], qa, kb[2], kb[3]);
+            mma_16x8x16(dp[2 * np], ga, vb[0], vb[1]);
+            mma_16x8x16(dp[2 * np + 1], ga, vb[2], vb[3]);
+          }
+        }
+      }
+      // The row softmax: scale, bias, max and sum over the quad's lanes.
+      float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = n * 8 + t + (e & 1);
+          const float x = j < skv ? s[n][e] * a.scale + bs[j] : -CUDART_INF_F;
+          s[n][e] = x;
+          if (e < 2) m0 = fmaxf(m0, x); else m1 = fmaxf(m1, x);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+      }
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = __expf(s[n][e] - (e < 2 ? m0 : m1));  // 0 past skv
+          s[n][e] = p;
+          if (e < 2) l0 += p; else l1 += p;
+        }
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float inv0 = r0 + g < sq ? 1.f / l0 : 0.f, inv1 = r0 + g + 8 < sq ? 1.f / l1 : 0.f;
+      // P; dP masked and scaled; P_drop into A fragments; D.
+      float dd0 = 0.f, dd1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        uint32_t bits0 = ~0u, bits1 = ~0u;
+        if (kDrop) {
+          bits0 = r0 + g < sq ? km[(r0 + g) * ngr + (n >> 1)] : 0u;
+          bits1 = r0 + g + 8 < sq ? km[(r0 + g + 8) * ngr + (n >> 1)] : 0u;
+        }
+        float pd[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[n][e] * (e < 2 ? inv0 : inv1);
+          s[n][e] = p;
+          pd[e] = p;
+          if (kDrop) {
+            const bool keep = ((e < 2 ? bits0 : bits1) >> ((n & 1) * 8 + t + (e & 1))) & 1u;
+            dp[n][e] = keep ? dp[n][e] * a.keep_scale : 0.f;
+            pd[e] = keep ? p * a.keep_scale : 0.f;
+          }
+          if (e < 2) dd0 += p * dp[n][e]; else dd1 += p * dp[n][e];
+        }
+        pa[n >> 1][(n & 1) * 2] = pack_f32_pair(pd[0], pd[1]);
+        pa[n >> 1][(n & 1) * 2 + 1] = pack_f32_pair(pd[2], pd[3]);
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        dd0 += __shfl_xor_sync(0xffffffffu, dd0, off);
+        dd1 += __shfl_xor_sync(0xffffffffu, dd1, off);
+      }
+      // dS = P (dP - D): round(dS scale) into A fragments, the column sums
+      // of dS over the warp's 16 rows (lanes of one t, by shuffles).
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - (e < 2 ? dd0 : dd1));
+        sa[n >> 1][(n & 1) * 2] = pack_f32_pair(dp[n][0] * a.scale, dp[n][1] * a.scale);
+        sa[n >> 1][(n & 1) * 2 + 1] = pack_f32_pair(dp[n][2] * a.scale, dp[n][3] * a.scale);
+        float c0 = dp[n][0] + dp[n][2], c1 = dp[n][1] + dp[n][3];
+#pragma unroll
+        for (int off = 4; off <= 16; off <<= 1) {
+          c0 += __shfl_xor_sync(0xffffffffu, c0, off);
+          c1 += __shfl_xor_sync(0xffffffffu, c1, off);
+        }
+        if (g == 0) {
+          cs[warp * L.skp + n * 8 + t] = c0;
+          cs[warp * L.skp + n * 8 + t + 1] = c1;
+        }
+      }
+      // dQ = round(dS scale) K, written once.
+      float dq[kMaxDim / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < kMaxDim / 8; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        accumulate_16xd(dq, sa[np], ks + np * 16 * L.ld, L.ld, L.dp, lane);
+      }
+      store_16xd(static_cast<__nv_bfloat16*>(a.dq) + static_cast<long long>(b) * sq * row + h * d,
+                 row, dq, r0, sq, d, lane);
+    }
+    __syncthreads();  // every warp is done with K and V
+
+    __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(st + L.k_off);
+    __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(st + L.ds_off);
+    if (rows_active) {
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {  // fragment register f: row g + 8 (f & 1), keys + 8 (f >> 1)
+          const int off = (r0 + g + 8 * (f & 1)) * L.ldp + np * 16 + 8 * (f >> 1) + t;
+          *reinterpret_cast<uint32_t*>(ps + off) = pa[np][f];
+          *reinterpret_cast<uint32_t*>(dss + off) = sa[np][f];
+        }
+      }
+    }
+    __syncthreads();  // P_drop, dS and the column sums
+
+    // Phase 2: dV = P_drop^T g and dK = dS^T Q for keys j0 .. j0 + 15.
+    const int j0 = warp * 16;
+    if (j0 < skv) {
+      float dk[kMaxDim / 8][4], dv[kMaxDim / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < kMaxDim / 8; ++dt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+      }
+#pragma unroll
+      for (int kq = 0; kq < kMaxSeq / 16; ++kq) {
+        if (kq * 16 < L.sqp) {
+          uint32_t pf[4], sf[4];
+          lds_a_trans(pf, ps + kq * 16 * L.ldp + j0, L.ldp, lane);
+          lds_a_trans(sf, dss + kq * 16 * L.ldp + j0, L.ldp, lane);
+          accumulate_16xd(dv, pf, gs + kq * 16 * L.ld, L.ld, L.dp, lane);
+          accumulate_16xd(dk, sf, qs + kq * 16 * L.ld, L.ld, L.dp, lane);
+        }
+      }
+      const long long kv0 = static_cast<long long>(b) * skv * row + h * d;
+      store_16xd(static_cast<__nv_bfloat16*>(a.dk) + kv0, row, dk, j0, skv, d, lane);
+      store_16xd(static_cast<__nv_bfloat16*>(a.dv) + kv0, row, dv, j0, skv, d, lane);
+    }
+    if (tid < skv) {
+      for (int w = 0; w < L.sqp / 16; ++w) db += cs[w * L.skp + tid];
+    }
+  }
+  if (tid < skv) a.dbias_part[(static_cast<long long>(b) * groups + grp) * skv + tid] = db;
+}
+
+// dbias[b, j] = sum over heads (or head groups), in order, of the
+// partials: deterministic, no atomics.
 __global__ void fused_attention_dbias_sum(const float* part, float* dbias, int batch,
                                           int heads, int skv) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -993,21 +1281,45 @@ int launch_fwd(const Args& a, int dtype, int batch, cudaStream_t s) {
   return -1;
 }
 
+// fused_attention_dbias_sum over (batch, parts, skv) partials.
+int launch_dbias_sum(const float* part, float* dbias, int batch, int parts, int skv,
+                     cudaStream_t s) {
+  const int n = batch * skv, threads = 256;
+  fused_attention_dbias_sum<<<(n + threads - 1) / threads, threads, 0, s>>>(part, dbias, batch,
+                                                                            parts, skv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The short bf16 backward: batch * ceil(heads / kShortBwdHeads) blocks,
+// their dbias partials (one per head group) into a.dbias_part, added in
+// group order by fused_attention_dbias_sum.  kNT = SKP / 8: accumulators
+// for the padded keys and no more.
+template <bool kDrop, int kNT>
+int launch_bwd_short(const Args& a, float* dbias, int batch, cudaStream_t s) {
+  const auto kernel = fused_attention_bwd_short_bf16<kDrop, kNT>;
+  const ShortBwdLayout L = short_bwd_layout(a.sq, a.skv, a.dim);
+  const int groups = (a.heads + kShortBwdHeads - 1) / kShortBwdHeads;
+  if (const int err = allow_smem(kernel, L.bytes)) return err;
+  const int threads = 2 * max(L.sqp, L.skp);  // one warp per 16 query rows or keys
+  kernel<<<static_cast<unsigned>(batch) * groups, threads, L.bytes, s>>>(a);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  return launch_dbias_sum(a.dbias_part, dbias, batch, groups, a.skv, s);
+}
+
 template <bool kDrop>
 int launch_bwd(const Args& a, float* dbias, int dtype, int batch, cudaStream_t s) {
-  int err = -1;
-  if (dtype == 0) {
-    err = launch(fused_attention_bwd_f32<kDrop>, a, batch, kF32Threads,
-                 bwd_f32_smem_bytes(a.sq, a.skv, a.dim), s);
-  } else if (dtype == 1) {
-    err = launch(fused_attention_bwd_bf16<kDrop>, a, batch, kMmaThreads,
-                 bwd_layout(a.sq, a.skv, a.dim).bytes, s);
+  if (dtype == 1) {
+    switch (short_bwd_layout(a.sq, a.skv, a.dim).skp / 16) {
+      case 2: return launch_bwd_short<kDrop, 4>(a, dbias, batch, s);  // LXMERT's 20 keys
+      case 3: return launch_bwd_short<kDrop, 6>(a, dbias, batch, s);  // its 36
+      default: return launch_bwd_short<kDrop, 8>(a, dbias, batch, s);
+    }
   }
+  if (dtype != 0) return -1;
+  const int err = launch(fused_attention_bwd_f32<kDrop>, a, batch, kF32Threads,
+                         bwd_f32_smem_bytes(a.sq, a.skv, a.dim), s);
   if (err != 0) return err;
-  const int n = batch * a.skv, threads = 256;
-  fused_attention_dbias_sum<<<(n + threads - 1) / threads, threads, 0, s>>>(
-      a.dbias_part, dbias, batch, a.heads, a.skv);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dbias_sum(a.dbias_part, dbias, batch, a.heads, a.skv, s);
 }
 
 }  // namespace

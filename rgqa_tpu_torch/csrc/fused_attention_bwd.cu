@@ -1,34 +1,46 @@
-// Fused multi-head attention backward on the natural (B, S, H*D) layout.
+// Fused multi-head attention backward on the natural (B, S, H*D) layout,
+// Sq, Skv <= 64 (LXMERT's 20- and 36-token streams).
 //
 // Replaces the Pallas TPU kernel rgqa_tpu/ops/attention.py:_fused_bwd_kernel
 // (launched by _fused_bwd_pallas_raw from the _fused custom_vjp).  Per
 // (batch row, head), for the output gradient g, it recomputes P and then
 //
-//     dP = g V^T,  dV = P^T g                   (f32, on the CUDA cores)
+//     dP = g V^T,  dV = P^T g
 //     dS = P (dP - rowsum(dP P))
 //     dQ = (dS/sqrt(D)) K,  dK = (dS/sqrt(D))^T Q   (dS in the input dtype)
 //     dbias[b, j] = sum over heads h and query rows i of dS[h, i, j]
 //
 // in the TPU kernel's dtype contract: dq, dk, dv in the input dtype and
 // dbias in f32.  The plain version is
-// rgqa_tpu_torch.ops.attention.attention_bwd_ref.
+// rgqa_tpu_torch.ops.attention.attention_bwd_ref.  q, k and v may be
+// strided column views (the fused QKV product, row stride 3E); g is
+// contiguous.
 //
-// What bounds it on an H100: like the forward it moves bytes (q, k, v,
-// g in; dq, dk, dv out: 99 MB at 36 x 36, batch 256, bf16, about 30 us at
-// 3.35 TB/s) against a few microseconds of flops.  One block per (row,
-// head) keeps the pair's whole problem in shared memory and writes each
-// gradient once.  dbias sums across heads, i.e. across blocks: on the TPU
-// the head loop inside one kernel carried the sum; here every block writes
-// its head's column sums to a (B, H, Skv) scratch and a second small
-// kernel adds them in head order, so two runs give identical gradients
-// (no float atomics).
+// What bounds it on an H100 (chip_smoke.py's _bound_ms): bytes, q, k, v, g
+// in and dq, dk, dv out, 16.4 / 29.6 / 24.0 / 22.1 us at LXMERT's 20x20 /
+// 36x36 / 20x36 / 36x20, batch 256, bf16, against a few microseconds of
+// products. At these lengths one block sees every query row and every key
+// of its (row, head), so the bf16 body (attention_common.cuh,
+// fused_attention_bwd_short_bf16) forms S, P, dP and dS once, in
+// registers, with every product on the tensor cores: five products per
+// score, the count the bound takes, two phases (warps over query rows,
+// then over keys) and three barriers per head, Q, g, K and V staged once
+// in bf16 by cp.async. A block takes two heads of its row, the second's
+// tiles in flight while the first computes, at 128 registers a thread;
+// measured on an H100 (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6)
+// against one, three, four and twelve heads per block and other register
+// caps, it was within 3% of the fastest variant at LXMERT's shapes at
+// batch 256 and 64 but for 20x20 at batch 64 (one head per block 17%
+// faster): 44-73 us at batch 256, 2.5-2.7x the bound, 3.0-4.6x faster than
+// a first design that ran dP and dV on the CUDA cores from f32 copies of g
+// and V behind eight barriers.
 //
-// Bodies (attention_common.cuh, kDrop = false): f32 runs every product
-// on the CUDA cores in f32; bf16 runs QK^T, dS K and dS^T Q with mma.sync
-// (bf16 in, f32 accumulate) and dP, dV in f32 on the CUDA cores, as the
-// TPU kernel does.  A fully masked row (bias -10000 everywhere) has a
-// uniform P and finite gradients.  Multi-head blocks, cp.async / TMA and
-// wgmma are later work.
+// dbias sums across heads: a block writes its heads' column sums of dS,
+// summed in head order, into a (B, head pairs, Skv) scratch that
+// fused_attention_dbias_sum adds in pair order.  No float atomics, so
+// two runs give identical gradients.  The f32 body runs every product on
+// the CUDA cores in f32 (checked, not timed).  A fully masked row (bias
+// -10000 everywhere) has a uniform P and finite gradients.
 
 #include "attention_common.cuh"
 

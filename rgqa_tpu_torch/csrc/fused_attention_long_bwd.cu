@@ -161,31 +161,6 @@ __device__ __forceinline__ void product_16x16(float (&acc)[2][4],
   }
 }
 
-// acc (16 x DP, n-tiles of 8 columns) += A (16 x 16) Y, Y the 16 rows of
-// y (row-major, read along columns by ldmatrix.trans).
-__device__ __forceinline__ void accumulate_16xd(float (&acc)[kMaxDim / 8][4],
-                                                const uint32_t (&af)[4], const __nv_bfloat16* y,
-                                                int ld, int dp, int lane) {
-#pragma unroll
-  for (int dp2 = 0; dp2 < kMaxDim / 16; ++dp2) {
-    if (dp2 * 16 < dp) {
-      uint32_t bf[4];
-      lds_b_trans(bf, y + dp2 * 16, ld, lane);
-      mma_16x8x16(acc[2 * dp2], af, bf[0], bf[1]);
-      mma_16x8x16(acc[2 * dp2 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// The A fragment of a 16 x 16 block held as two accumulator n-tiles, each
-// value times `scale`, rounded to bf16.
-__device__ __forceinline__ void acc_to_a(uint32_t (&af)[4], const float (&x)[2][4], float scale) {
-  af[0] = pack_f32_pair(x[0][0] * scale, x[0][1] * scale);
-  af[1] = pack_f32_pair(x[0][2] * scale, x[0][3] * scale);
-  af[2] = pack_f32_pair(x[1][0] * scale, x[1][1] * scale);
-  af[3] = pack_f32_pair(x[1][2] * scale, x[1][3] * scale);
-}
-
 // Registers capped for 4 blocks per SM (126 used; 3 blocks: 146 used and
 // 5% slower, PERF.md).
 __global__ void __launch_bounds__(kMmaThreads, 4) long_bwd_dq_bf16(Args a) {
@@ -718,10 +693,7 @@ int launch_long_bwd(const Args& a, float* dbias, int dtype, int batch, cudaStrea
     return -1;
   }
   if (err != 0) return err;
-  const int n = batch * a.skv, threads = 256;
-  fused_attention_dbias_sum<<<(n + threads - 1) / threads, threads, 0, s>>>(
-      a.dbias_part, dbias, batch, a.heads, a.skv);
-  return static_cast<int>(cudaGetLastError());
+  return launch_dbias_sum(a.dbias_part, dbias, batch, a.heads, a.skv, s);
 }
 
 }  // namespace

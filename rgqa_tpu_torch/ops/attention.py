@@ -45,7 +45,8 @@ that of ``_attention_dropout_xla`` (quantized rate, exact expectation).
 
 The TPU kernels' VMEM block ladder (``_fit_block``, ``_fwd_plan``,
 ``_fit_qblock``, ``_fit_bwd_block``) has no counterpart: one thread block
-per (batch row, head), and per query tile of 64 rows in the long forward,
+per (batch row, head), and per query tile of 64 rows in the long forward
+(per batch row and pair of heads, in turn, in the short bf16 backward),
 holds its whole problem in shared memory, or, at more than 256 keys,
 streams the keys through it in tiles; the long backward splits its work
 into a pass over query tiles and one over key tiles, both key- or
@@ -451,7 +452,9 @@ def _bwd_buffers(q, k, num_heads: int):
         torch.empty(q.shape, dtype=q.dtype, device=q.device),
         torch.empty(k.shape, dtype=k.dtype, device=q.device),
         torch.empty(k.shape, dtype=k.dtype, device=q.device),
-        # (B, H, Skv) per-head partial sums, then their (B, Skv) sum
+        # dbias partials, then their (B, Skv) sum in order: (B, H, Skv) per
+        # head (f32 and long bodies), (B, ceil(H / 2), Skv) per head pair
+        # (short bf16 body), in the same scratch
         torch.empty((b, num_heads, skv), dtype=torch.float32, device=q.device),
         torch.empty((b, skv), dtype=torch.float32, device=q.device),
     )

@@ -7,9 +7,18 @@ Times #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36 and #2
 (``fused_attention_long_cuda``) at ViLT's 165x165 and 185x185, batch 256,
 12 heads of 64, bf16 and f32, and #3L (``fused_attention_long_bwd_cuda``)
 at 165x165 and 185x185, batch 256, bf16, with q, k, v as column views of
-one fused QKV product and the last quarter of the keys masked:
+one fused QKV product and the last quarter of the keys masked; then #3
+(``fused_attention_bwd_cuda``) and #5 (``fused_attention_dropout_bwd_cuda``,
+rate 0.1) at LXMERT's four attention shapes (20x20, 36x36, 20x36, 36x20),
+batch 256 and 64 (a training step's 32 + RP rows), bf16, with q, k, v as
+the model hands them (column views of the fused QKV or KV product), a
+quarter of the keys masked and one fully masked row:
 ``chip_smoke.cuda_ms`` over ``--iters`` launches.  Each line also gives
-the largest difference from the plain version.  The script imports and
+the largest difference from the plain version, and the lines of #3 and
+#5 their device time per call, the summed durations of the call's
+kernels under ``torch.profiler`` (at batch 64 the host's cost of a call,
+~60-100 us, exceeds the kernels', and back-to-back CUDA-event times
+measure the host).  The script imports and
 builds the checkout it lies in, so a copy with an edited ``csrc/`` is
 timed by running that copy's script by path; two variants alternate
 within one run on one card: ``A B B A``.  It takes #3L's wrapper with or
@@ -28,6 +37,25 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 
+def device_us(fn, iters: int) -> float:
+    """Device time per call of ``fn``: the durations of the attention
+    kernels it launches, summed over ``iters`` calls under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then records no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in prof.key_averages() if "fused_attention" in e.key)
+        if total:
+            return total / iters
+    raise RuntimeError("torch.profiler recorded no attention kernel in three tries")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50)
@@ -44,7 +72,8 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    built = build_all(("fused_attention", "fused_attention_long", "fused_attention_long_bwd"))
+    built = build_all(("fused_attention", "fused_attention_long", "fused_attention_long_bwd",
+                       "fused_attention_bwd", "fused_attention_dropout"))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     e, heads, b = 768, 12, 256
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -76,6 +105,32 @@ def main(argv=None) -> None:
         us = cuda_ms(lambda: bwd(q, k, v, bias, g, heads, *extra), iters=args.iters) * 1e3
         print(f"bfloat16 B={b} {s}x{s} {bwd.__name__}: {us:.1f} us per call, "
               f"max|kernel-plain| of dq, dk, dv {err:.3e}", flush=True)
+
+    rate, seed = 0.1, 2**40 + 3
+    short = (
+        (att.fused_attention_bwd_cuda, att.attention_bwd_ref, ()),
+        (att.fused_attention_dropout_bwd_cuda, att.attention_dropout_bwd_ref, (rate, seed)),
+    )
+    for batch in (256, 64):
+        for sq, skv in ((20, 20), (36, 36), (20, 36), (36, 20)):
+            if sq == skv:
+                q, k, v = torch.randn(batch, sq, 3 * e, generator=gen, device="cuda").bfloat16().split(e, -1)
+            else:
+                q = torch.randn(batch, sq, e, generator=gen, device="cuda").bfloat16()
+                k, v = torch.randn(batch, skv, 2 * e, generator=gen, device="cuda").bfloat16().split(e, -1)
+            g = torch.randn(batch, sq, e, generator=gen, device="cuda").bfloat16()
+            bias = torch.zeros(batch, skv, device="cuda")
+            bias[:, -(skv // 4):] = -10000.0
+            bias[batch // 2] = -10000.0
+            for kernel, plain, extra in short:
+                got = kernel(q, k, v, bias, g, heads, *extra)
+                want = plain(q, k, v, bias, g, heads, *extra)
+                err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+                call = lambda: kernel(q, k, v, bias, g, heads, *extra)  # noqa: E731
+                us = cuda_ms(call, iters=args.iters) * 1e3
+                print(f"bfloat16 B={batch} {sq}x{skv} {kernel.__name__}: {us:.1f} us per call, "
+                      f"device {device_us(call, args.iters):.1f} us, "
+                      f"max|kernel-plain| of dq, dk, dv, dbias {err:.3e}", flush=True)
 
 
 if __name__ == "__main__":

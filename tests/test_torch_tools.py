@@ -55,6 +55,10 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
         ("void (anonymous namespace)::fused_attention_bf16<true>((anonymous namespace)::Args)", "attention kernel"),
         ("void (anonymous namespace)::fused_attention_bwd_f32<false>((anonymous namespace)::Args)", "attention backward"),
         ("(anonymous namespace)::fused_attention_dbias_sum(float const*, float*, int, int, int)", "attention backward"),
+        ("void (anonymous namespace)::fused_attention_bwd_short_bf16<true, 8>((anonymous namespace)::Args)",
+         "attention backward"),
+        ("void (anonymous namespace)::fused_attention_bwd_short_bf16<false, 6>((anonymous namespace)::Args)",
+         "attention backward"),
         ("void (anonymous namespace)::fused_attention_long_bf16<24>((anonymous namespace)::Args)", "attention kernel"),
         ("void (anonymous namespace)::long_bwd_rows_bf16<24>((anonymous namespace)::Args)", "attention backward"),
         ("(anonymous namespace)::long_bwd_keys_bf16((anonymous namespace)::Args)", "attention backward"),
