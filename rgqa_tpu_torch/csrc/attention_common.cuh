@@ -11,18 +11,19 @@
 // Every short kernel keeps a (batch row, head)'s whole problem in shared
 // memory (LXMERT's sequences are 20 and 36 tokens, heads 64 wide): the
 // forwards and the f32 backward run one block per (row, head), the bf16
-// backward one block per row and pair of heads, in turn, its products in
-// registers (fused_attention_bwd_short_bf16).  The f32 forward body also takes a query tile
-// (kTileQ rows each): fused_attention_long.cu runs it, and a bf16 body of
-// its own, on a (batch row, head, query tile) grid for streams of up to
-// kLongWholeKv keys (ViLT-B/32's 165-185 tokens), with each tile's
-// complete softmax over every key; at <= 64 query rows there is one tile
-// and the body is the short kernel's.  Longer streams (ViLT at a larger
-// image or a smaller patch) go to the long kernels' key-tiled bodies,
-// which keep no row-wide array.  The forward and
-// backward bodies are templates on kDrop: the dropout kernels are the
-// same code with the mask applied, so at rate 0 (threshold 0, keep scale
-// 1) they compute bit for bit what the deterministic ones do.
+// backward one block per row and pair of heads, in turn; both bf16
+// bodies (fused_attention_fwd_short_bf16, fused_attention_bwd_short_bf16)
+// keep the score tiles and every product in registers.  The f32 forward
+// body also takes a query tile (kTileQ rows each): fused_attention_long.cu
+// runs it, and a bf16 body of its own, on a (batch row, head, query tile)
+// grid for streams of up to kLongWholeKv keys (ViLT-B/32's 165-185
+// tokens), with each tile's complete softmax over every key; at <= 64
+// query rows there is one tile and the body is the short kernel's.
+// Longer streams (ViLT at a larger image or a smaller patch) go to the
+// long kernels' key-tiled bodies, which keep no row-wide array.  The
+// forward and backward bodies are templates on kDrop: the dropout kernels
+// are the same code with the mask applied, so at rate 0 (threshold 0, keep
+// scale 1) they compute bit for bit what the deterministic ones do.
 //
 // The dropout mask is keyed on the element: keep(b, h, i, j) is byte
 // j % 16 of Philox4x32-10 at counter (j / 16, i, h, b) under the 64-bit
@@ -499,7 +500,8 @@ __device__ __forceinline__ void scores_mma(float* ss, const __nv_bfloat16* qs,
 // ---------------------------------------------------------------------------
 // Forward.  out[b, :, h*D:(h+1)*D] = softmax(q_h k_h^T * scale + bias) v_h,
 // with P (dropped and scaled when kDrop) rounded to the input dtype before
-// the PV product, as the Pallas _fused_kernel / _fused_drop_kernel.
+// the PV product, as the Pallas _fused_kernel / _fused_drop_kernel.  The
+// f32 body below; the short bf16 body (fwd_short_body) after the backward.
 //
 // A long-stream block (fwd_tile; the f32 body here, the bf16 one in
 // fused_attention_long.cu), blockIdx.x = (b * heads + h) * tiles + tile,
@@ -613,92 +615,6 @@ template <bool kDrop, int kPerLane = 2, int kThreads = kF32Threads>
 __global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
   extern __shared__ float smem[];
   fwd_f32_body<kDrop, kPerLane, kThreads>(a, blockIdx.x, smem);
-}
-
-// bf16: both products on the tensor cores.  Shared memory, bf16 unless
-// noted; every row stride is (padded width + 8) elements, so that the 8
-// rows one fragment load touches start in distinct banks, and rows stay
-// 16-byte aligned:
-//   Qs  (SQP x DP)   query rows, zero-padded to SQP = round_up(sq, 16)
-//                    rows and DP = round_up(dim, 16) columns
-//   Ks  (SKP x DP)   key rows, zero-padded to SKP = round_up(skv, 16)
-//   Vs  (SKP x DP)   value rows, zero-padded likewise
-//   Ps  (SQP x SKP)  probabilities in bf16, zero outside sq x skv
-//   Ss  f32 (sq x (skv + 1)) scores;  bias f32 (skv)
-struct FwdLayout {
-  int sqp, skp, dp;   // padded extents
-  int ldq, ldp;       // row strides (elements) of Qs/Ks/Vs and of Ps
-  size_t q_off, k_off, v_off, p_off, s_off, b_off, bytes;
-};
-
-__host__ __device__ inline FwdLayout fwd_layout(int sq, int skv, int d) {
-  FwdLayout L;
-  L.sqp = (sq + 15) / 16 * 16;
-  L.skp = (skv + 15) / 16 * 16;
-  L.dp = (d + 15) / 16 * 16;
-  L.ldq = L.dp + 8;
-  L.ldp = L.skp + 8;
-  const size_t bf = sizeof(__nv_bfloat16);
-  L.q_off = 0;  // every offset below is a multiple of 16 bytes
-  L.k_off = L.q_off + bf * L.sqp * L.ldq;
-  L.v_off = L.k_off + bf * L.skp * L.ldq;
-  L.p_off = L.v_off + bf * L.skp * L.ldq;
-  L.s_off = L.p_off + bf * L.sqp * L.ldp;
-  L.b_off = L.s_off + sizeof(float) * sq * (skv + 1);
-  L.bytes = L.b_off + sizeof(float) * skv;
-  return L;
-}
-
-template <bool kDrop, typename Mask = NoMask>
-__device__ __forceinline__ void fwd_bf16_body(const Args& a, unsigned blk,
-                                              unsigned char* smem_raw,
-                                              const Mask& mask = Mask()) {
-  const int b = blk / a.heads, h = blk % a.heads;
-  const int sq = a.sq, skv = a.skv, d = a.dim;
-  const FwdLayout L = fwd_layout(sq, skv, d);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.q_off);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.v_off);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.p_off);
-  float* ss = reinterpret_cast<float*>(smem_raw + L.s_off);
-  float* bs = reinterpret_cast<float*>(smem_raw + L.b_off);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-
-  load_tile(qs, L.ldq, static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * d,
-            a.q_rs, sq, L.sqp, d, L.dp, tid);
-  load_tile(ks, L.ldq, static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * d,
-            a.k_rs, skv, L.skp, d, L.dp, tid);
-  load_tile(vs, L.ldq, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * d,
-            a.v_rs, skv, L.skp, d, L.dp, tid);
-  for (int j = tid; j < skv; j += kMmaThreads) bs[j] = a.bias[b * skv + j];
-  cp_async_wait_all();
-  __syncthreads();
-
-  scores_mma(ss, qs, ks, L.ldq, L.sqp, L.dp, bs, a, warp, lane, mask);
-  __syncthreads();
-
-  // P in bf16 over the whole padded SQP x SKP tile (zeros outside).
-  softmax_rows(ss, skv + 1, sq, skv, L.sqp, L.skp, warp, kMmaWarps, lane,
-               [&](int i, int j, float p) {
-                 if (kDrop && i < sq && j < skv) {
-                   p = dropout_keep(a, b, h, i, j) ? p * a.keep_scale : 0.f;
-                 }
-                 ps[i * L.ldp + j] = __float2bfloat16(p);
-               });
-  __syncthreads();
-
-  // O = P V: one (16-row, 8-column) output tile per warp task.
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
-                       static_cast<long long>(b) * sq * a.heads * d + h * d;
-  const long long out_rs = static_cast<long long>(a.heads) * d;
-  mma_product(ps, L.ldp, vs, L.ldq, L.sqp, L.skp, sq, d, warp, lane,
-              [&](int i, int c, float x) { out[i * out_rs + c] = __float2bfloat16(x); });
-}
-
-template <bool kDrop>
-__global__ void __launch_bounds__(kMmaThreads) fused_attention_bf16(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  fwd_bf16_body<kDrop>(a, blockIdx.x, smem_raw);
 }
 
 // ---------------------------------------------------------------------------
@@ -1207,6 +1123,213 @@ __global__ void fused_attention_dbias_sum(const float* part, float* dbias, int b
 }
 
 // ---------------------------------------------------------------------------
+// Short bf16 forward (#1, and #4 with kDrop; xfuse.cu's dual and cat
+// kernels run the same body): Sq, Skv <= 64, one pass in registers.
+//
+// A warp owns a 16-row query strip of one head and keeps its whole row of
+// scores in accumulators: S = Q K^T on the tensor cores (mma.sync
+// m16n8k16, Q's A fragments and K's B fragments by ldmatrix) into kNT =
+// SKP / 8 n-tiles of 8 keys; scale, bias (and the Mask term) added there;
+// the row max and sum by quad shuffles (a row's keys lie on the four
+// lanes of a quad); P = e / sum (__expf, one reciprocal per row), dropped
+// and scaled when kDrop, rounded to bf16 straight into the A fragments of
+// O = P V (V's B fragments by ldmatrix.trans); O written once.  No S or P
+// in shared memory and no barrier but the one that publishes the tiles.
+//
+// One block per (batch row, head), one warp per 16 query rows (2-4
+// warps).  The dropout mask (kDrop) stays in registers: a quad holds two
+// rows, and the 2 x SKP / 16 Philox calls of its (row, 16 keys) are split
+// over its lanes, drawn while the tiles are in flight, and passed round
+// by shuffles (keep_nibbles).  Shared memory, bf16, row stride DP + 8
+// elements (ldmatrix rows in distinct banks, 16-byte aligned): Qs (SQP x
+// DP), Ks and Vs (SKP x DP), zero-padded to multiples of 16 (keys to at
+// least 32, so that kNT is 4, 6 or 8); then the bias, f32 (SKP): 20.7 KB
+// at 36 x 36.
+// ---------------------------------------------------------------------------
+
+// Blocks of kFwdMaxThreads per SM that the registers must allow: 80
+// registers a thread (uncapped 78-103).  Measured on the H100 against no
+// cap and 8 blocks, and against 2 and 4 heads per block, side by side or
+// in turn with the next head's tiles in flight (PERF.md section 6, the
+// forward's variant table): one head per block was the fastest at batch
+// 256 and 64, and this cap gained 0-6% at 256 and tied at 64.
+constexpr int kFwdMaxThreads = kMaxSeq / 16 * 32;
+constexpr int kFwdMinBlocks = 6;
+
+struct FwdShortLayout {
+  int sqp, skp, dp, ld;  // padded extents; the tiles' row stride
+  size_t k_off, v_off, b_off, bytes;
+};
+
+__host__ __device__ inline FwdShortLayout fwd_short_layout(int sq, int skv, int d) {
+  FwdShortLayout L;
+  L.sqp = (sq + 15) / 16 * 16;
+  L.skp = skv > 16 ? (skv + 15) / 16 * 16 : 32;
+  L.dp = (d + 15) / 16 * 16;
+  L.ld = L.dp + 8;
+  const size_t bf = sizeof(__nv_bfloat16);
+  L.k_off = bf * L.sqp * L.ld;  // every offset a multiple of 16 bytes
+  L.v_off = L.k_off + bf * L.skp * L.ld;
+  L.b_off = L.v_off + bf * L.skp * L.ld;
+  L.bytes = L.b_off + sizeof(float) * L.skp;
+  return L;
+}
+
+// kNT for skv keys; the threads of a block for sq query rows.
+inline int fwd_short_nt(int skv) { return fwd_short_layout(1, skv, 16).skp / 8; }
+inline int fwd_short_threads(int sq) { return (sq + 15) / 16 * 32; }
+
+// The keep bits of a lane's scores, rows i and i + 8 (i = r0 + lane / 4)
+// of head h: the quad draws keep_bits16 for (row i + 8 hf, keys 16 c ..)
+// as call k = hf kG + c, lane l of the quad the calls l, l + 4, and
+// passes them round by shuffles.  Nibble k keeps the lane's keys 16 c + t,
+// + 1, + 8, + 9 (t = 2 (lane % 4)): bit (n & 1) 2 + (e & 1) of nibble
+// (e / 2) kG + n / 2 keeps accumulator element e of n-tile n.
+template <int kG>
+__device__ __forceinline__ uint32_t keep_nibbles(const Args& a, int b, int h, int i, int lane) {
+  constexpr int kCalls = 2 * kG, kMine = (kCalls + 3) / 4;
+  const int ql = lane & 3, t = ql * 2;
+  uint32_t mine[kMine];
+#pragma unroll
+  for (int s = 0; s < kMine; ++s) {
+    const int k = ql + 4 * s;
+    mine[s] = k < kCalls ? keep_bits16(a, b, h, i + 8 * (k / kG), k % kG) : 0u;
+  }
+  uint32_t nib = 0;
+#pragma unroll
+  for (int k = 0; k < kCalls; ++k) {
+    const uint32_t w = __shfl_sync(0xffffffffu, mine[k >> 2], (lane & ~3) | (k & 3));
+    nib |= (((w >> t) & 3u) | (((w >> (8 + t)) & 3u) << 2)) << (4 * k);
+  }
+  return nib;
+}
+
+// The body of block blk (blockIdx.x of a kernel that runs only this
+// problem; xfuse.cu's dual kernel runs two problems in one grid, at the
+// larger problem's block size, so warps past this problem's strips idle).
+template <bool kDrop, int kNT, typename Mask = NoMask>
+__device__ __forceinline__ void fwd_short_body(const Args& a, unsigned blk, unsigned char* smem,
+                                               const Mask& mask = Mask()) {
+  constexpr int kG = kNT / 2;  // 16-key groups: the k-steps of P V
+  const int sq = a.sq, skv = a.skv, d = a.dim;
+  const FwdShortLayout L = fwd_short_layout(sq, skv, d);
+  const int b = blk / a.heads, h = blk % a.heads;
+  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = warp * 16, g = lane >> 2, t = (lane & 3) * 2;
+  const bool active = r0 < L.sqp;  // warp-uniform
+  const long long row = static_cast<long long>(a.heads) * d;  // the output's row stride
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L.k_off);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L.v_off);
+  float* bs = reinterpret_cast<float*>(smem + L.b_off);
+
+  for (int j = tid; j < skv; j += nthreads) {
+    cp_async4(bs + j, a.bias + static_cast<long long>(b) * skv + j);
+  }
+  load_tile(qs, L.ld, static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + h * d, a.q_rs, sq,
+            L.sqp, d, L.dp, tid, nthreads);
+  load_tile(ks, L.ld, static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * d, a.k_rs, skv,
+            L.skp, d, L.dp, tid, nthreads);
+  load_tile(vs, L.ld, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * d, a.v_rs, skv,
+            L.skp, d, L.dp, tid, nthreads);
+  uint32_t keep = 0;
+  if (kDrop && active) keep = keep_nibbles<kG>(a, b, h, r0 + g, lane);
+  cp_async_wait_all();
+  __syncthreads();  // the tiles and the bias
+  if (!active) return;
+
+  // S: a lane holds rows r0 + g (e < 2) and r0 + g + 8 (e >= 2), keys
+  // 8 n + t + (e & 1).
+  float s[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kMaxDim / 16; ++kk) {
+    if (kk * 16 < L.dp) {
+      uint32_t qa[4];
+      lds_a(qa, qs + r0 * L.ld + kk * 16, L.ld, lane);
+#pragma unroll
+      for (int np = 0; np < kG; ++np) {
+        uint32_t kb[4];
+        lds_b_rows(kb, ks + np * 16 * L.ld + kk * 16, L.ld, lane);
+        mma_16x8x16(s[2 * np], qa, kb[0], kb[1]);
+        mma_16x8x16(s[2 * np + 1], qa, kb[2], kb[3]);
+      }
+    }
+  }
+  // The row softmax: scale, bias, max and sum over the quad's lanes.
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = n * 8 + t + (e & 1);
+      float x = -CUDART_INF_F;
+      if (j < skv) {
+        x = s[n][e] * a.scale + bs[j];
+        if (Mask::kOn) x += mask(r0 + g + 8 * (e >> 1), j);
+      }
+      s[n][e] = x;
+      if (e < 2) m0 = fmaxf(m0, x); else m1 = fmaxf(m1, x);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __expf(s[n][e] - (e < 2 ? m0 : m1));  // 0 past skv
+      s[n][e] = p;
+      if (e < 2) l0 += p; else l1 += p;
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // a row's max term is 1: sum >= 1
+  // O = P V, 16 keys a step: P (dropped and scaled) rounded to bf16 into
+  // the A fragment of the step.
+  float o[kMaxDim / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kMaxDim / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+#pragma unroll
+  for (int c = 0; c < kG; ++c) {
+    float p[2][4];
+#pragma unroll
+    for (int hn = 0; hn < 2; ++hn) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[2 * c + hn][e] * (e < 2 ? inv0 : inv1);
+        if (kDrop) {
+          const bool kept = (keep >> (4 * ((e >> 1) * kG + c) + 2 * hn + (e & 1))) & 1u;
+          x = kept ? x * a.keep_scale : 0.f;
+        }
+        p[hn][e] = x;
+      }
+    }
+    uint32_t pa[4];
+    acc_to_a(pa, p, 1.f);
+    accumulate_16xd(o, pa, vs + c * 16 * L.ld, L.ld, L.dp, lane);
+  }
+  store_16xd(static_cast<__nv_bfloat16*>(a.out) + static_cast<long long>(b) * sq * row + h * d,
+             row, o, r0, sq, d, lane);
+}
+
+template <bool kDrop, int kNT>
+__global__ void __launch_bounds__(kFwdMaxThreads, kFwdMinBlocks)
+    fused_attention_fwd_short_bf16(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_short_body<kDrop, kNT>(a, blockIdx.x, smem_raw);
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
@@ -1267,6 +1390,16 @@ int launch(Kernel kernel, const Args& a, int batch, int threads, size_t smem,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The short bf16 forward: one block per (batch row, head).
+template <bool kDrop, int kNT>
+int launch_fwd_short(const Args& a, int batch, cudaStream_t s) {
+  const auto kernel = fused_attention_fwd_short_bf16<kDrop, kNT>;
+  const size_t smem = fwd_short_layout(a.sq, a.skv, a.dim).bytes;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<static_cast<unsigned>(batch) * a.heads, fwd_short_threads(a.sq), smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // dtype: 0 = float32, 1 = bfloat16; sq <= kMaxSeq (one query tile).
 template <bool kDrop>
 int launch_fwd(const Args& a, int dtype, int batch, cudaStream_t s) {
@@ -1274,11 +1407,12 @@ int launch_fwd(const Args& a, int dtype, int batch, cudaStream_t s) {
     return launch(fused_attention_f32<kDrop>, a, batch, kF32Threads,
                   fwd_f32_smem_bytes(a.sq, a.skv, a.dim), s);
   }
-  if (dtype == 1) {
-    return launch(fused_attention_bf16<kDrop>, a, batch, kMmaThreads,
-                  fwd_layout(a.sq, a.skv, a.dim).bytes, s);
+  if (dtype != 1) return -1;
+  switch (fwd_short_nt(a.skv)) {
+    case 4: return launch_fwd_short<kDrop, 4>(a, batch, s);  // LXMERT's 20 keys
+    case 6: return launch_fwd_short<kDrop, 6>(a, batch, s);  // its 36
+    default: return launch_fwd_short<kDrop, 8>(a, batch, s);
   }
-  return -1;
 }
 
 // fused_attention_dbias_sum over (batch, parts, skv) partials.

@@ -14,26 +14,28 @@
 // output's magnitude, since one bf16 step of an output above 4 exceeds
 // 3e-2 by itself.
 //
-// What bounds it on an H100: at LXMERT's shapes (20 or 36 tokens, 12
-// heads of 64) one (row, head) pair moves a few KB of operands and does
-// a few hundred KFLOP, so the work is bound by moving bytes (about 1 us
-// of flops at batch 256 against 9-17 us of bytes at 3.35 TB/s): global
-// loads of q/k/v, and shared-memory traffic of the products.  The design
-// keeps everything for one pair in shared memory (Q, K, V, the bias row,
-// the score and probability tiles), reads q/k/v straight out of the
-// projection outputs by stride (no transposes in device memory, no
-// (B, H, Sq, Skv) mask), and writes the output once.
+// What bounds it on an H100: bytes.  At LXMERT's shapes (20 or 36
+// tokens, 12 heads of 64) one (row, head) pair moves a few KB of operands
+// and does a few hundred KFLOP: 9.4 / 16.9 / 13.2 / 13.2 us of bytes at
+// 20x20 / 36x36 / 20x36 / 36x20, batch 256, bf16, at 3.35 TB/s, against
+// about 1 us of products.  q/k/v are read straight out of the projection
+// outputs by stride (no transposes in device memory, no (B, H, Sq, Skv)
+// mask), and the output is written once.
 //
-// Two bodies (attention_common.cuh, fused_attention_f32 / _bf16 with
-// kDrop = false), one block per (batch row, head):
-// - bf16: both products on the tensor cores with mma.sync m16n8k16
-//   (bf16 in, f32 accumulate), operands padded with zeros to whole
-//   16-row / 16-deep tiles in shared memory.  This cuts the shared-memory
-//   traffic of the products, which bounded a first version that ran
-//   them on the CUDA cores.
+// Two bodies (attention_common.cuh, kDrop = false):
+// - bf16 (fused_attention_fwd_short_bf16): one pass in registers.  Q, K
+//   and V are staged in shared memory by cp.async behind one barrier; a
+//   warp owns 16 query rows of a head, S = Q K^T and O = P V run on the
+//   tensor cores (mma.sync m16n8k16, fragments by ldmatrix), the row
+//   softmax in the accumulators by quad shuffles, and P goes from the
+//   accumulators into the A fragments of P V without touching shared
+//   memory.  A first design kept S in f32 and P in bf16 in
+//   shared memory behind three barriers, one warp per row for the
+//   softmax with lanes across keys, and reloaded fragments for every
+//   8-column tile: 4.5-5.7x the bound (PERF.md section 6).
 // - f32: both products on the CUDA cores in f32 (fmaf), which keeps f32
 //   exact to the plain version's summation order rather than rounding
-//   operands to TF32.
+//   operands to TF32 (checked, not timed).
 // wgmma and TMA (Hopper's warpgroup MMA and bulk copies) are later work.
 //
 // Limits: Sq, Skv <= 64 and D <= 64 (the wrapper raises beyond that);

@@ -22,18 +22,21 @@
 // _attention_dropout_xla.
 //
 // What bounds it: the bytes of the deterministic kernels (the mask never
-// touches device memory), plus the integer work of the generator.  The
-// forward (the first design) runs one 10-round Philox per element.
-// The backward runs fused_attention_bwd.cu's one-pass tensor-core body
-// (attention_common.cuh, fused_attention_bwd_short_bf16) with the mask
-// drawn once per (query row, 16 keys): one Philox call gives the 16 keep
-// bits of 16 keys, so a block draws Sq x max(2, ceil(Skv / 16)) calls over
-// its threads (~1 each at 36x36), while its head's tiles are in flight, into
-// a bit array in shared memory from which each lane reads the bits of
-// the scores it holds (one call per key would run the generator 16 times
-// over).  At rate 0 (t = 0, scale 1) both entries compute bit for bit
-// what fused_attention.cu and fused_attention_bwd.cu compute: the bodies
-// are the same templates (attention_common.cuh).
+// touches device memory), plus the integer work of the generator.  Both
+// entries draw the mask once per (query row, 16 keys): one Philox call
+// gives the 16 keep bits of 16 keys (one call per key would run the
+// generator 16 times over), drawn while the tiles are in flight.  The
+// forward runs fused_attention.cu's one-pass body (attention_common.cuh,
+// fused_attention_fwd_short_bf16) with the bits in registers: the four
+// lanes of a quad hold two query rows, split the 2 x ceil(Skv / 16) calls
+// between them and pass the words round by shuffles, so each lane keeps
+// the bits of its own scores.  The backward runs fused_attention_bwd.cu's
+// one-pass body (fused_attention_bwd_short_bf16) with the bits in a bit
+// array in shared memory, Sq x max(2, ceil(Skv / 16)) calls over its
+// threads, from which each lane reads the bits of the scores it holds.
+// At rate 0 (t = 0, scale 1) both entries compute bit for bit what
+// fused_attention.cu and fused_attention_bwd.cu compute: the bodies are
+// the same templates (attention_common.cuh).
 
 #include "attention_common.cuh"
 

@@ -88,7 +88,7 @@
 namespace {
 
 // Shared memory of the bf16 body, bf16 unless noted; row strides DP + 8
-// as in FwdLayout: Qs (kTileQ x DP), Ks and Vs (SKP x DP) zero-padded,
+// as in FwdShortLayout: Qs (kTileQ x DP), Ks and Vs (SKP x DP) zero-padded,
 // bias f32 (SKP, -inf past skv).
 struct LongLayout {
   int skp, dp, ldq;

@@ -6,7 +6,7 @@
 //   problem a (qa (B, Sa, E), ka / va (B, Ska, E), bias (B, Ska)) and
 //   problem b (its own lengths), in one grid.  The first B * H blocks run
 //   problem a, the next B * H problem b; each runs the short kernel's body
-//   (attention_common.cuh fwd_bf16_body / fwd_f32_body, as in
+//   (attention_common.cuh fwd_short_body / fwd_f32_body, as in
 //   fused_attention.cu) on its own Args.  The question it asks on this
 //   card: do two problems of different lengths share the SMs better in one
 //   grid than in two launches, and does a launch saved matter where the
@@ -47,12 +47,16 @@ struct CatMask {
   }
 };
 
-__global__ void __launch_bounds__(kMmaThreads) dual_pair_bf16(Args a, Args b, unsigned blocks_a) {
+// kNT per problem (fwd_short_nt): the same instantiation of the body as
+// the one-problem kernel runs, so each half is bit for bit its #1 call.
+template <int kNTa, int kNTb>
+__global__ void __launch_bounds__(kFwdMaxThreads, kFwdMinBlocks)
+    dual_pair_bf16(Args a, Args b, unsigned blocks_a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   if (blockIdx.x < blocks_a) {
-    fwd_bf16_body<false>(a, blockIdx.x, smem_raw);
+    fwd_short_body<false, kNTa>(a, blockIdx.x, smem_raw);
   } else {
-    fwd_bf16_body<false>(b, blockIdx.x - blocks_a, smem_raw);
+    fwd_short_body<false, kNTb>(b, blockIdx.x - blocks_a, smem_raw);
   }
 }
 
@@ -65,9 +69,10 @@ __global__ void __launch_bounds__(kF32Threads) dual_pair_f32(Args a, Args b, uns
   }
 }
 
-__global__ void __launch_bounds__(kMmaThreads) cat_bf16(Args a, CatMask m) {
+template <int kNT>
+__global__ void __launch_bounds__(kFwdMaxThreads, kFwdMinBlocks) cat_bf16(Args a, CatMask m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  fwd_bf16_body<false>(a, blockIdx.x, smem_raw, m);
+  fwd_short_body<false, kNT>(a, blockIdx.x, smem_raw, m);
 }
 
 __global__ void __launch_bounds__(kF32Threads) cat_f32(Args a, CatMask m) {
@@ -75,9 +80,35 @@ __global__ void __launch_bounds__(kF32Threads) cat_f32(Args a, CatMask m) {
   fwd_f32_body<false, 2, kF32Threads>(a, blockIdx.x, smem, m);
 }
 
-size_t fwd_smem(const Args& a, int dtype) {
-  return dtype == 0 ? fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim)
-                    : fwd_layout(a.sq, a.skv, a.dim).bytes;
+// The bf16 dual launch: one block size for both problems (the larger).
+template <int kNTa, int kNTb>
+int launch_dual_bf16(const Args& a, const Args& b, unsigned blocks_a, cudaStream_t s) {
+  const auto kernel = dual_pair_bf16<kNTa, kNTb>;
+  const size_t sa = fwd_short_layout(a.sq, a.skv, a.dim).bytes;
+  const size_t sb = fwd_short_layout(b.sq, b.skv, b.dim).bytes;
+  const size_t smem = sa > sb ? sa : sb;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  const int threads = max(fwd_short_threads(a.sq), fwd_short_threads(b.sq));
+  kernel<<<2 * blocks_a, threads, smem, s>>>(a, b, blocks_a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kNTa>
+int launch_dual_bf16_b(const Args& a, const Args& b, unsigned blocks_a, cudaStream_t s) {
+  switch (fwd_short_nt(b.skv)) {
+    case 4: return launch_dual_bf16<kNTa, 4>(a, b, blocks_a, s);
+    case 6: return launch_dual_bf16<kNTa, 6>(a, b, blocks_a, s);
+    default: return launch_dual_bf16<kNTa, 8>(a, b, blocks_a, s);
+  }
+}
+
+template <int kNT>
+int launch_cat_bf16(const Args& a, const CatMask& m, unsigned blocks, cudaStream_t s) {
+  const auto kernel = cat_bf16<kNT>;
+  const size_t smem = fwd_short_layout(a.sq, a.skv, a.dim).bytes;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<blocks, fwd_short_threads(a.sq), smem, s>>>(a, m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -107,18 +138,20 @@ int rgqa_dual_pair(
   Args b = make_args(qb, kb, vb, mb, sqb, skvb, heads, dim, qb_bs, qb_rs, kb_bs, kb_rs, vb_bs,
                      vb_rs, scale);
   b.out = ob;
-  const size_t sa = fwd_smem(a, dtype), sb = fwd_smem(b, dtype);
-  const size_t smem = sa > sb ? sa : sb;
-  const unsigned blocks_a = static_cast<unsigned>(batch) * heads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
+  const unsigned blocks_a = static_cast<unsigned>(batch) * heads;
   if (dtype == 1) {
-    if ((err = allow_smem(dual_pair_bf16, smem)) != 0) return err;
-    dual_pair_bf16<<<2 * blocks_a, kMmaThreads, smem, s>>>(a, b, blocks_a);
-  } else {
-    if ((err = allow_smem(dual_pair_f32, smem)) != 0) return err;
-    dual_pair_f32<<<2 * blocks_a, kF32Threads, smem, s>>>(a, b, blocks_a);
+    switch (fwd_short_nt(a.skv)) {
+      case 4: return launch_dual_bf16_b<4>(a, b, blocks_a, s);
+      case 6: return launch_dual_bf16_b<6>(a, b, blocks_a, s);
+      default: return launch_dual_bf16_b<8>(a, b, blocks_a, s);
+    }
   }
+  const size_t sa = fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim);
+  const size_t sb = fwd_f32_smem_bytes(tile_rows(b.sq), b.skv, b.dim);
+  const size_t smem = sa > sb ? sa : sb;
+  if (const int err = allow_smem(dual_pair_f32, smem)) return err;
+  dual_pair_f32<<<2 * blocks_a, kF32Threads, smem, s>>>(a, b, blocks_a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -137,17 +170,18 @@ int rgqa_cat_call(
   Args a = make_args(q, k, v, bias, s, s, heads, dim, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, scale);
   a.out = out;
   const CatMask m{split, mode};
-  const size_t smem = fwd_smem(a, dtype);
-  const unsigned blocks = static_cast<unsigned>(batch) * heads;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
+  const unsigned blocks = static_cast<unsigned>(batch) * heads;
   if (dtype == 1) {
-    if ((err = allow_smem(cat_bf16, smem)) != 0) return err;
-    cat_bf16<<<blocks, kMmaThreads, smem, st>>>(a, m);
-  } else {
-    if ((err = allow_smem(cat_f32, smem)) != 0) return err;
-    cat_f32<<<blocks, kF32Threads, smem, st>>>(a, m);
+    switch (fwd_short_nt(s)) {
+      case 4: return launch_cat_bf16<4>(a, m, blocks, st);
+      case 6: return launch_cat_bf16<6>(a, m, blocks, st);
+      default: return launch_cat_bf16<8>(a, m, blocks, st);
+    }
   }
+  const size_t smem = fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim);
+  if (const int err = allow_smem(cat_f32, smem)) return err;
+  cat_f32<<<blocks, kF32Threads, smem, st>>>(a, m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,28 +2,39 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
+        [--only long short_fwd short_bwd]
 
-Times #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36 and #2
-(``fused_attention_long_cuda``) at ViLT's 165x165 and 185x185, batch 256,
-12 heads of 64, bf16 and f32, and #3L (``fused_attention_long_bwd_cuda``)
-at 165x165 and 185x185, batch 256, bf16, with q, k, v as column views of
-one fused QKV product and the last quarter of the keys masked; then #3
-(``fused_attention_bwd_cuda``) and #5 (``fused_attention_dropout_bwd_cuda``,
-rate 0.1) at LXMERT's four attention shapes (20x20, 36x36, 20x36, 36x20),
-batch 256 and 64 (a training step's 32 + RP rows), bf16, with q, k, v as
-the model hands them (column views of the fused QKV or KV product), a
-quarter of the keys masked and one fully masked row:
-``chip_smoke.cuda_ms`` over ``--iters`` launches.  Each line also gives
-the largest difference from the plain version, and the lines of #3 and
-#5 their device time per call, the summed durations of the call's
-kernels under ``torch.profiler`` (at batch 64 the host's cost of a call,
-~60-100 us, exceeds the kernels', and back-to-back CUDA-event times
-measure the host).  The script imports and
-builds the checkout it lies in, so a copy with an edited ``csrc/`` is
-timed by running that copy's script by path; two variants alternate
-within one run on one card: ``A B B A``.  It takes #3L's wrapper with or
-without the forward's row statistics (``lse``), so it runs unchanged in
-a checkout from before they existed.
+Three groups, all by default (``--only`` picks some):
+
+- ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36 and
+  #2 (``fused_attention_long_cuda``) at ViLT's 165x165 and 185x185, batch
+  256, 12 heads of 64, bf16 and f32, and #3L
+  (``fused_attention_long_bwd_cuda``) at 165x165 and 185x185, batch 256,
+  bf16, with q, k, v as column views of one fused QKV product and the
+  last quarter of the keys masked;
+- ``short_fwd``: #1 and #4 (``fused_attention_dropout_cuda``, rate 0.1)
+  at LXMERT's four attention shapes (20x20, 36x36, 20x36, 36x20), batch
+  256 and 64 (a training step's 32 + RP rows), bf16, each beside the one
+  PyTorch call that computes its function (``scaled_dot_product_attention``,
+  with ``dropout_p`` for #4), timed alike, its device time summed over
+  every device event of the call;
+- ``short_bwd``: #3 (``fused_attention_bwd_cuda``) and #5
+  (``fused_attention_dropout_bwd_cuda``, rate 0.1) at the same shapes and
+  batches, bf16;
+
+the short groups with q, k, v as the model hands them (column views of
+the fused QKV or KV product), a quarter of the keys masked and one fully
+masked row.  Each line gives ``chip_smoke.cuda_ms`` over ``--iters``
+launches and the largest difference from the plain version; the short
+groups' lines also their device time per call, the summed durations of
+the call's kernels under ``torch.profiler`` (at batch 64 the host's cost
+of a call, ~60-100 us, exceeds the kernels', and back-to-back CUDA-event
+times measure the host).  The script imports and builds the checkout it
+lies in, so a copy with an edited ``csrc/`` is timed by running that
+copy's script by path; two variants alternate within one run on one
+card: ``A B B A``.  It takes #3L's wrapper with or without the forward's
+row statistics (``lse``), so it runs unchanged in a checkout from before
+they existed.
 """
 
 from __future__ import annotations
@@ -36,33 +47,64 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
+from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
-def device_us(fn, iters: int) -> float:
-    """Device time per call of ``fn``: the durations of the attention
-    kernels it launches, summed over ``iters`` calls under torch.profiler."""
+
+GROUPS = ("long", "short_fwd", "short_bwd")
+E, HEADS = 768, 12
+
+
+def device_us(fn, iters: int, match: str | None = "fused_attention") -> float | None:
+    """Device time per call of ``fn``: the durations of the device events
+    it causes whose name holds ``match`` (all of them when None), summed
+    over ``iters`` calls under torch.profiler, after a warm-up step of as
+    many calls that the profiler traces and discards (the first events of
+    a profile are now and then lost).  A profile whose matching events are
+    not a whole multiple of the calls lost some and is taken again; None
+    when three in a row did."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then records no device event
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.device_time_total for e in prof.key_averages() if "fused_attention" in e.key)
-        if total:
-            return total / iters
-    raise RuntimeError("torch.profiler recorded no attention kernel in three tries")
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [e for e in prof.key_averages()
+                if e.device_time_total > 0 and (match is None or match in e.key)]
+        events = sum(e.count for e in rows)
+        if events and events % iters == 0:
+            return sum(e.device_time_total for e in rows) / iters
+    return None
+
+
+def _device(us: float | None) -> str:
+    return "not measured (the profiler lost events)" if us is None else f"{us:.1f} us"
+
+
+def _sdpa(q, k, v, bias, rate: float):
+    """The one PyTorch call for #1 (#4 with ``rate``): scaled_dot_product_attention
+    on (B, H, S, D) views of the same inputs, the mask in their dtype."""
+    import torch.nn.functional as F
+
+    def heads(t):
+        return t.view(t.shape[0], t.shape[1], HEADS, E // HEADS).transpose(1, 2)
+
+    mask = bias.to(q.dtype)[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask,
+                                                   dropout_p=rate)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS)
     args = ap.parse_args(argv)
     import torch
 
-    from chip_smoke import cuda_ms
     from rgqa_tpu_torch.ops import attention as att
     from rgqa_tpu_torch.ops._build import build_all
 
@@ -72,65 +114,96 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    built = build_all(("fused_attention", "fused_attention_long", "fused_attention_long_bwd",
-                       "fused_attention_bwd", "fused_attention_dropout"))
+    sources = {"long": ("fused_attention", "fused_attention_long", "fused_attention_long_bwd"),
+               "short_fwd": ("fused_attention", "fused_attention_dropout"),
+               "short_bwd": ("fused_attention_bwd", "fused_attention_dropout")}
+    built = build_all(tuple(dict.fromkeys(n for grp in args.only for n in sources[grp])))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
-    e, heads, b = 768, 12, 256
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if "long" in args.only:
+        _long(att, gen, args.iters)
+    rate, seed = 0.1, 2**40 + 3
+    short = {
+        "short_fwd": (
+            (att.fused_attention_cuda, att.attention_natural_ref, ()),
+            (att.fused_attention_dropout_cuda, att.attention_dropout_ref, (rate, seed)),
+        ),
+        "short_bwd": (
+            (att.fused_attention_bwd_cuda, att.attention_bwd_ref, ()),
+            (att.fused_attention_dropout_bwd_cuda, att.attention_dropout_bwd_ref, (rate, seed)),
+        ),
+    }
+    for group in ("short_fwd", "short_bwd"):
+        if group in args.only:
+            _short(short[group], group == "short_bwd", gen, args.iters)
 
+
+def _long(att, gen, iters: int) -> None:
+    import torch
+
+    b = 256
     cases = ((20, att.fused_attention_cuda), (36, att.fused_attention_cuda),
              (165, att.fused_attention_long_cuda), (185, att.fused_attention_long_cuda))
     for dtype in (torch.bfloat16, torch.float32):
         for s, kernel in cases:
-            q, k, v = torch.randn(b, s, 3 * e, generator=gen, device="cuda").to(dtype).split(e, -1)
+            q, k, v = torch.randn(b, s, 3 * E, generator=gen, device="cuda").to(dtype).split(E, -1)
             bias = torch.zeros(b, s, device="cuda")
             bias[:, -(s // 4):] = -10000.0
-            err = (kernel(q, k, v, bias, heads).float()
-                   - att.attention_natural_ref(q, k, v, bias, heads).float()).abs().max().item()
-            us = cuda_ms(lambda: kernel(q, k, v, bias, heads), iters=args.iters) * 1e3
+            err = (kernel(q, k, v, bias, HEADS).float()
+                   - att.attention_natural_ref(q, k, v, bias, HEADS).float()).abs().max().item()
+            us = cuda_ms(lambda: kernel(q, k, v, bias, HEADS), iters=iters) * 1e3
             print(f"{str(dtype).split('.')[1]} B={b} {s}x{s} {kernel.__name__}: {us:.1f} us "
                   f"per call, max|kernel-plain| {err:.3e}", flush=True)
 
     bwd = att.fused_attention_long_bwd_cuda
     takes_lse = "lse" in inspect.signature(bwd).parameters
     for s in (165, 185):
-        q, k, v = torch.randn(b, s, 3 * e, generator=gen, device="cuda").bfloat16().split(e, -1)
-        g = torch.randn(b, s, e, generator=gen, device="cuda").bfloat16()
+        q, k, v = torch.randn(b, s, 3 * E, generator=gen, device="cuda").bfloat16().split(E, -1)
+        g = torch.randn(b, s, E, generator=gen, device="cuda").bfloat16()
         bias = torch.zeros(b, s, device="cuda")
         bias[:, -(s // 4):] = -10000.0
-        extra = (att.fused_attention_long_cuda(q, k, v, bias, heads, lse=True)[1],) if takes_lse else ()
-        got = bwd(q, k, v, bias, g, heads, *extra)
-        want = att.attention_bwd_ref(q, k, v, bias, g, heads)
+        extra = (att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)[1],) if takes_lse else ()
+        got = bwd(q, k, v, bias, g, HEADS, *extra)
+        want = att.attention_bwd_ref(q, k, v, bias, g, HEADS)
         err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got[:3], want[:3]))
-        us = cuda_ms(lambda: bwd(q, k, v, bias, g, heads, *extra), iters=args.iters) * 1e3
+        us = cuda_ms(lambda: bwd(q, k, v, bias, g, HEADS, *extra), iters=iters) * 1e3
         print(f"bfloat16 B={b} {s}x{s} {bwd.__name__}: {us:.1f} us per call, "
               f"max|kernel-plain| of dq, dk, dv {err:.3e}", flush=True)
 
-    rate, seed = 0.1, 2**40 + 3
-    short = (
-        (att.fused_attention_bwd_cuda, att.attention_bwd_ref, ()),
-        (att.fused_attention_dropout_bwd_cuda, att.attention_dropout_bwd_ref, (rate, seed)),
-    )
+
+def _short(pairs, backward: bool, gen, iters: int) -> None:
+    """(kernel, plain, extra args) pairs at LXMERT's four shapes, batch 256
+    and 64, bf16; the backward pairs take an output gradient."""
+    import torch
+
     for batch in (256, 64):
         for sq, skv in ((20, 20), (36, 36), (20, 36), (36, 20)):
             if sq == skv:
-                q, k, v = torch.randn(batch, sq, 3 * e, generator=gen, device="cuda").bfloat16().split(e, -1)
+                q, k, v = torch.randn(batch, sq, 3 * E, generator=gen, device="cuda").bfloat16().split(E, -1)
             else:
-                q = torch.randn(batch, sq, e, generator=gen, device="cuda").bfloat16()
-                k, v = torch.randn(batch, skv, 2 * e, generator=gen, device="cuda").bfloat16().split(e, -1)
-            g = torch.randn(batch, sq, e, generator=gen, device="cuda").bfloat16()
+                q = torch.randn(batch, sq, E, generator=gen, device="cuda").bfloat16()
+                k, v = torch.randn(batch, skv, 2 * E, generator=gen, device="cuda").bfloat16().split(E, -1)
+            g = torch.randn(batch, sq, E, generator=gen, device="cuda").bfloat16()
             bias = torch.zeros(batch, skv, device="cuda")
             bias[:, -(skv // 4):] = -10000.0
             bias[batch // 2] = -10000.0
-            for kernel, plain, extra in short:
-                got = kernel(q, k, v, bias, g, heads, *extra)
-                want = plain(q, k, v, bias, g, heads, *extra)
-                err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
-                call = lambda: kernel(q, k, v, bias, g, heads, *extra)  # noqa: E731
-                us = cuda_ms(call, iters=args.iters) * 1e3
+            args = (q, k, v, bias, g, HEADS) if backward else (q, k, v, bias, HEADS)
+            for kernel, plain, extra in pairs:
+                got = kernel(*args, *extra)
+                want = plain(*args, *extra)
+                pairs_out = zip(got, want) if backward else [(got, want)]
+                err = max((a.float() - w.float()).abs().max().item() for a, w in pairs_out)
+                call = lambda: kernel(*args, *extra)  # noqa: E731
+                us = cuda_ms(call, iters=iters) * 1e3
+                what = "dq, dk, dv, dbias" if backward else "out"
                 print(f"bfloat16 B={batch} {sq}x{skv} {kernel.__name__}: {us:.1f} us per call, "
-                      f"device {device_us(call, args.iters):.1f} us, "
-                      f"max|kernel-plain| of dq, dk, dv, dbias {err:.3e}", flush=True)
+                      f"device {_device(device_us(call, iters))}, "
+                      f"max|kernel-plain| of {what} {err:.3e}", flush=True)
+                if not backward:  # the library yardstick: every device event of the call
+                    lib = _sdpa(q, k, v, bias, extra[0] if extra else 0.0)
+                    print(f"bfloat16 B={batch} {sq}x{skv} sdpa{' dropout' if extra else ''}: "
+                          f"{cuda_ms(lib, iters=iters) * 1e3:.1f} us per call, "
+                          f"device {_device(device_us(lib, iters, match=None))}", flush=True)
 
 
 if __name__ == "__main__":

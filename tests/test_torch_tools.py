@@ -1,6 +1,7 @@
 """The port's card scripts, as far as the CPU reaches them: ``chip_smoke.py``
 refuses to run without a card or without the repository and imports
-nothing of JAX, and the forward profile's kernel classes."""
+nothing of JAX, ``tools/time_attention.py`` refuses to run without a card
+and takes its groups by name, and the forward profile's kernel classes."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from rgqa_tpu_torch.tools.profile_forward import classify
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "chip_smoke.py")
+TIME_ATTENTION = os.path.join(REPO, "rgqa_tpu_torch", "tools", "time_attention.py")
 
 
 def test_chip_smoke_imports_nothing_of_jax():
@@ -48,11 +50,65 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
     assert '"ok"' not in proc.stdout
 
 
+@pytest.mark.parametrize("only", [[], ["short_fwd"], ["long", "short_bwd"]])
+def test_time_attention_needs_a_card(only):
+    if __import__("torch").cuda.is_available():
+        pytest.skip("a card is present: the timing would run")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, TIME_ATTENTION, *(["--only", *only] if only else []), "--iters", "1"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "us per call" not in proc.stdout
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_time_attention_library_call_computes_the_forward(rate):
+    # The SDPA yardstick beside #1 / #4 takes the kernels' inputs as the
+    # model hands them (column views of one QKV product, a (B, Skv) f32
+    # bias) and computes attention_natural_ref's function.
+    import importlib.util
+
+    import torch
+
+    from rgqa_tpu_torch.ops import attention as att
+
+    spec = importlib.util.spec_from_file_location("time_attention", TIME_ATTENTION)
+    ta = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ta)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = torch.randn(2, 20, 3 * ta.E, generator=gen).split(ta.E, -1)
+    bias = torch.zeros(2, 20)
+    bias[:, -5:] = -10000.0
+    got = ta._sdpa(q, k, v, bias, rate)()
+    assert got.shape == (2, ta.HEADS, 20, ta.E // ta.HEADS)
+    if rate == 0.0:
+        want = att.attention_natural_ref(q, k, v, bias, ta.HEADS)
+        torch.testing.assert_close(got.transpose(1, 2).reshape(2, 20, ta.E), want, atol=1e-5, rtol=1e-5)
+    else:  # dropout_p reaches the call: some probabilities dropped
+        assert not torch.allclose(got, ta._sdpa(q, k, v, bias, 0.0)())
+
+
+def test_time_attention_refuses_unknown_groups():
+    proc = subprocess.run(
+        [sys.executable, TIME_ATTENTION, "--only", "short"], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 2
+    assert "invalid choice" in proc.stderr
+
+
 @pytest.mark.parametrize(
     "name, cls",
     [
         ("(anonymous namespace)::fused_attention_bf16((anonymous namespace)::Args)", "attention kernel"),
         ("void (anonymous namespace)::fused_attention_bf16<true>((anonymous namespace)::Args)", "attention kernel"),
+        ("void (anonymous namespace)::fused_attention_fwd_short_bf16<true, 6>((anonymous namespace)::Args)",
+         "attention kernel"),
+        ("void (anonymous namespace)::fused_attention_fwd_short_bf16<false, 4>((anonymous namespace)::Args)",
+         "attention kernel"),
         ("void (anonymous namespace)::fused_attention_bwd_f32<false>((anonymous namespace)::Args)", "attention backward"),
         ("(anonymous namespace)::fused_attention_dbias_sum(float const*, float*, int, int, int)", "attention backward"),
         ("void (anonymous namespace)::fused_attention_bwd_short_bf16<true, 8>((anonymous namespace)::Args)",
