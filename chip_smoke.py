@@ -10,6 +10,12 @@ nonzero:
    TF32 is turned off for matmuls and convolutions.  No CUDA -> exit 1.
 2. build: compiles the eight sources of ``rgqa_tpu_torch/csrc`` for sm_90a,
    one nvcc each, side by side (prints each build time and ptxas' report).
+   Since slice 9 the head-fold kernel's bf16 body (6d) runs on ``wgmma``:
+   one line gives each of its instances' registers, spills and shared
+   memory (static from ptxas, dynamic from the window's layout), and,
+   where the toolkit has ``cuobjdump``, each instance's count of
+   ``HGMMA`` instructions in its SASS (an instance the experiment's
+   shapes use with none fails the phase).
 3. kernels: the six attention kernels against their plain PyTorch
    versions.  #2, the long-stream forward, and #3L, the long-stream
    backward (given #2's row statistics), at ViLT-B/32's shapes (165x165,
@@ -120,8 +126,10 @@ nonzero:
    parameter), cat/xor the two cross
    calls and cat/diag the two self calls, headfold #1 at every F, the
    epilogue ``split`` (#1, ``addmm``, residual, LayerNorm), within twice
-   the bounds (each side lies within them of the plain version).
-   Per-call times at batch 384 bf16 of each kernel and its shipped form
+   the bounds (each side lies within them of the plain version).  Slice
+   9 redesigned headfold's bf16 body (``wgmma``, each tile of whole heads'
+   stacked query rows against those heads' keys): these checks hold it as
+   they held the first design.  Per-call times at batch 384 bf16 of each kernel and its shipped form
    (in turns), its plain version and the PyTorch yardstick (once each:
    SDPA, one call for cat and headfold, two for dual; SDPA + ``addmm`` +
    ``layer_norm`` for the epilogue, a composition), beside its bound;
@@ -147,6 +155,7 @@ import functools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -291,8 +300,86 @@ def phase_build():
         how = f"built in {res.seconds:.3f} s" if res.seconds else "reused an existing build of this source"
         log("build", f"rgqa_tpu_torch/csrc/{name}.cu -> {res.path.name}: {how}")
         for line in res.log.splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill", "rror")):
+            if any(w in line for w in ("entry function", "registers", "spill", "rror", "Performance Loss")):
                 log("build", "  " + line.strip())
+    _wgmma_report(results["headfold"])
+
+
+WGMMA_KERNEL = re.compile(r"headfold_wgmmaILi(\d+)E")  # headfold_wgmma<kNP>, kNP keys in the window
+
+
+def _ptxas_resources(text: str) -> dict:
+    """Per entry function of a ``-Xptxas -v`` log: registers, spill stores
+    and loads (bytes) and static shared memory (bytes)."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {"registers": None, "spill_stores": 0, "spill_loads": 0, "smem": 0})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn]["spill_stores"], out[fn]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[fn]["smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def _sass_hgmma(path) -> dict | None:
+    """``cuobjdump -sass``'s count of HGMMA instructions per function of a
+    built library; None where the toolkit has no cuobjdump."""
+    from rgqa_tpu_torch.ops._build import cuda_tool
+
+    tool = cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def _wgmma_report(res) -> None:
+    """The bf16 head-fold body's instances (one per window size): registers,
+    spills and shared memory from the build log, and HGMMA in their SASS."""
+    from rgqa_tpu_torch.experiments import headfold_exp
+
+    if not res.log:
+        log("build", "headfold bf16 body: reused build, no ptxas log to read")
+        return
+    used = sorted({headfold_exp.fold_plan(sq, skv, f).n for sq, skv in headfold_exp.SHAPES
+                   for _, f in headfold_exp.CANDIDATES})
+    res_by_n = {int(m.group(1)): r for fn, r in _ptxas_resources(res.log).items()
+                if (m := WGMMA_KERNEL.search(fn))}
+    sass = _sass_hgmma(res.path)
+    hgmma = None if sass is None else {int(m.group(1)): c for fn, c in sass.items()
+                                       if (m := WGMMA_KERNEL.search(fn))}
+    parts = []
+    for n in sorted(res_by_n):
+        r = res_by_n[n]
+        part = (f"N={n}{' (used at the experiment shapes)' if n in used else ''}: {r['registers']} registers, "
+                f"spill {r['spill_stores']}/{r['spill_loads']} B stores/loads, smem {r['smem']} B static + "
+                f"{headfold_exp.window_smem_bytes(n)} B dynamic")
+        if hgmma is not None:
+            part += f", {hgmma.get(n, 0)} HGMMA in SASS"
+        parts.append(part)
+    log("build", "headfold bf16 body (headfold_wgmma<N>, wgmma): " + "; ".join(parts)
+        + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
+    if hgmma is not None and not all(hgmma.get(n, 0) > 0 for n in used):
+        raise AssertionError(f"headfold's bf16 body issues no HGMMA at some used N: {hgmma}")
 
 
 # ---------------------------------------------------------------------------

@@ -18,26 +18,35 @@ same-parity heads ((0, 2), (4, 6), ..., (1, 3), ...); ``scratch`` stacks
 F consecutive heads, F in {2, 3, 4, 6}.  Here both are one kernel
 (``csrc/headfold.cu``) that takes F and the head order.  The TPU
 script's block size ``bt`` and scoped-VMEM limit ``vmem_mb`` are gone:
-they sized Mosaic's VMEM blocks (ROADMAP "Not to port"), while the CUDA
-kernel sizes its query tile from shared memory itself.  The shipped form
-is kernel #1 (F = 1), timed beside every (variant, F).
+they sized Mosaic's VMEM blocks (ROADMAP "Not to port").  The kernel's
+bf16 body runs on Hopper's warpgroup products: one tile of stacked query
+rows per block, as many whole heads as fit in ``wgmma``'s 64 rows,
+against the keys of those heads only (:func:`fold_plan`); the keys
+outside the window carry the -1e9 and are dropped, which leaves the
+function as it is (:func:`headfold_window_ref` computes it that way).
+The shipped form is kernel #1 (F = 1), timed beside every (variant, F).
 """
 
 from __future__ import annotations
+
+import typing
 
 import torch
 
 from rgqa_tpu_torch import experiments as X
 from rgqa_tpu_torch.ops import attention as att
 
-__all__ = ["headfold", "headfold_ref", "headfold_cuda", "head_order", "SHAPES", "CANDIDATES", "main"]
+__all__ = ["headfold", "headfold_ref", "headfold_window_ref", "headfold_cuda", "head_order", "fold_plan",
+           "FoldPlan", "window_smem_bytes", "SHAPES", "CANDIDATES", "main"]
 
 SHAPES = ((56, 56), (36, 36), (20, 36), (36, 20), (20, 20))  # the TPU script's (:237)
 CANDIDATES = (("concat", 2), ("scratch", 2), ("scratch", 3), ("scratch", 4), ("scratch", 6))
 FOLDS = (2, 3, 4, 6)
-MAX_STACKED_KEYS = 384  # csrc/headfold.cu kFoldMaxKeys
+MAX_STACKED_KEYS = 384  # csrc/headfold.cu kFoldMaxKeys: the f32 body's F Skv
+TILE_ROWS = 64  # csrc/headfold.cu kFoldTileRows: wgmma's M, the most stacked query rows per block
+MAX_WINDOW_KEYS = 256  # csrc/headfold.cu kFoldMaxWindowKeys: wgmma's largest N
 
-_ARGS = (X.P_,) * 5 + (X.I_,) * 7 + (X.P_,) + (X.LL_,) * 6 + (X.F_, X.P_)
+_ARGS = (X.P_,) * 5 + (X.I_,) * 8 + (X.P_,) + (X.LL_,) * 6 + (X.F_, X.P_)
 
 
 def head_order(num_heads: int, fold: int, variant: str) -> list:
@@ -57,12 +66,53 @@ def head_order(num_heads: int, fold: int, variant: str) -> list:
     raise ValueError(f"headfold: variant {variant!r} is neither 'scratch' nor 'concat'")
 
 
-def headfold_ref(q, k, v, bias, fold: int, variant: str = "scratch", num_heads: int = X.H):
-    """The plain version of :func:`headfold_cuda`, the TPU body's stacked
-    product step by step: per group the F heads' q, k, v stacked along the
-    rows, scores in f32 plus the bias repeated per head plus -1e9 off the
-    head-diagonal blocks, softmax in f32, P rounded to the input dtype, the
-    stacked PV product in f32, each head's rows back to its columns."""
+class FoldPlan(typing.NamedTuple):
+    """How the bf16 body cuts a group's stack: ``tiles`` holds (q0, rows,
+    h0) per tile of at most ``TILE_ROWS`` stacked query rows, h0 the first
+    of the ``heads`` group positions in its key window; ``keys`` = heads x
+    Skv; ``n`` the keys rounded up to 16 (``wgmma``'s N for S = Q K^T and
+    the 16-key steps of P V)."""
+
+    tiles: tuple
+    heads: int
+    keys: int
+    n: int
+
+
+def fold_plan(sq: int, skv: int, fold: int) -> FoldPlan:
+    """The tiles of a group's stacked query rows and their key windows, as
+    ``csrc/headfold.cu`` launches them (it is handed ``heads`` and checks
+    the rest): each tile holds W whole heads, the most that fit in
+    ``wgmma``'s 64 rows (one head of more than 32 rows) with W Skv keys
+    within its largest N (256), and its window is those W heads, shifted
+    back to stay inside the group in a last tile of fewer heads.  Each
+    row's own head lies in its tile's window.  Measured on the H100
+    against tiles of 64 rows cut across heads, with windows of every head
+    they touch (PERF.md section 6): whole heads win or tie at 24 of the
+    experiment's 25 (shape, F) cases."""
+    heads = max(1, min(fold, TILE_ROWS // sq, MAX_WINDOW_KEYS // skv))
+    rows, stacked = heads * sq, fold * sq
+    tiles = tuple((q0, min(rows, stacked - q0), min(q0 // sq, fold - heads)) for q0 in range(0, stacked, rows))
+    keys = heads * skv
+    return FoldPlan(tiles, heads, keys, -(-keys // 16) * 16)
+
+
+def window_smem_bytes(n: int) -> int:
+    """The bf16 body's dynamic shared memory for a window of ``n`` keys (a
+    multiple of 16), from the built kernel (builds ``csrc/headfold.cu``)."""
+    fn, _ = X.bind("headfold", "rgqa_headfold_window_smem", (X.I_,))
+    nbytes = fn(n)
+    if nbytes < 0:
+        raise ValueError(f"window_smem_bytes: {n} keys is not a window of the bf16 body")
+    return nbytes
+
+
+def _fold(q, k, v, bias, fold: int, variant: str, num_heads: int, tiles, window: int):
+    """Per group of F heads stacked along the rows, per tile (q0, rows, h0)
+    of stacked query rows against the keys of group positions h0 .. h0 +
+    window - 1: scores in f32 plus the bias repeated per head plus -1e9
+    off the row's head, softmax in f32, P rounded to the input dtype, the
+    PV product in f32, each head's rows back to its columns."""
     order = head_order(num_heads, fold, variant)
     b, sq, e = q.shape
     skv, d = k.shape[1], e // num_heads
@@ -76,39 +126,61 @@ def headfold_ref(q, k, v, bias, fold: int, variant: str = "scratch", num_heads: 
         return heads.reshape(b, s, groups, fold, d).permute(0, 2, 3, 1, 4).reshape(b, groups, fold * s, d)
 
     qs, ks, vs = stack(q), stack(k), stack(v)
-    rowg = torch.arange(fold * sq, device=q.device) // sq
-    colg = torch.arange(fold * skv, device=q.device) // skv
-    struct = torch.where(rowg[:, None] == colg[None, :], 0.0, -1e9).to(acc)
-    s = torch.einsum("bgqd,bgkd->bgqk", qs, ks) * (1.0 / d ** 0.5)
-    s = s + bias.to(acc).repeat(1, fold)[:, None, None, :] + struct
-    ex = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = (ex / ex.sum(dim=-1, keepdim=True)).to(q.dtype).to(acc)
-    o = torch.einsum("bgqk,bgkd->bgqd", p, vs)  # (B, G, F*Sq, D)
+    bias_win = bias.to(acc).repeat(1, window)[:, None, None, :]
+    colg = torch.arange(window * skv, device=q.device) // skv
+    o = torch.empty_like(qs)
+    for q0, rows, h0 in tiles:
+        rowg = torch.arange(q0, q0 + rows, device=q.device) // sq - h0
+        struct = torch.where(rowg[:, None] == colg[None, :], 0.0, -1e9).to(acc)
+        keys = slice(h0 * skv, (h0 + window) * skv)
+        s = torch.einsum("bgqd,bgkd->bgqk", qs[:, :, q0:q0 + rows], ks[:, :, keys]) * (1.0 / d ** 0.5)
+        s = s + bias_win + struct
+        ex = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = (ex / ex.sum(dim=-1, keepdim=True)).to(q.dtype).to(acc)
+        o[:, :, q0:q0 + rows] = torch.einsum("bgqk,bgkd->bgqd", p, vs[:, :, keys])
     o = o.reshape(b, groups, fold, sq, d).permute(0, 3, 1, 2, 4).reshape(b, sq, num_heads, d)
     out = torch.empty_like(o)
     out[:, :, idx] = o
     return out.reshape(b, sq, e).to(q.dtype)
 
 
+def headfold_ref(q, k, v, bias, fold: int, variant: str = "scratch", num_heads: int = X.H):
+    """The plain version of :func:`headfold_cuda`, the TPU body's stacked
+    product step by step: per group the F heads' q, k, v stacked along the
+    rows, one (F Sq) x (F Skv) score product with -1e9 off the
+    head-diagonal blocks, softmax, P rounded to the input dtype, the
+    stacked PV product (see ``_fold``)."""
+    return _fold(q, k, v, bias, fold, variant, num_heads, ((0, fold * q.shape[1], 0),), fold)
+
+
+def headfold_window_ref(q, k, v, bias, fold: int, variant: str = "scratch", num_heads: int = X.H):
+    """:func:`headfold_ref` computed as the bf16 body cuts it: each tile of
+    :func:`fold_plan` over its key window only."""
+    plan = fold_plan(q.shape[1], k.shape[1], fold)
+    return _fold(q, k, v, bias, fold, variant, num_heads, plan.tiles, plan.heads)
+
+
 def headfold_cuda(q, k, v, bias, fold: int, variant: str = "scratch", num_heads: int = X.H):
     """Launch ``csrc/headfold.cu``: each head's attention, F heads stacked
-    per block as :func:`headfold_ref` describes.  q, k, v may be strided
-    views with a contiguous last dim; ``bias`` a contiguous (B, Skv) f32
-    tensor; Sq, Skv <= 64 and F Skv <= 384.  Returns a new contiguous
-    (B, Sq, E) tensor; ``headfold_cuda.launches`` counts the launches."""
+    as :func:`headfold_ref` describes (bf16: per tile of whole heads over
+    its key window, :func:`fold_plan`).  q, k, v may be strided views with
+    a contiguous last dim; ``bias`` a contiguous (B, Skv) f32 tensor; Sq,
+    Skv <= 64 and F Skv <= 384.  Returns a new contiguous (B, Sq, E)
+    tensor; ``headfold_cuda.launches`` counts the launches."""
     name = "headfold_cuda"
     att._check(name, q, k, v, bias, num_heads)
     order = head_order(num_heads, fold, variant)
-    if fold * k.shape[1] > MAX_STACKED_KEYS:
-        raise ValueError(f"{name}: {fold} x {k.shape[1]} stacked keys exceed {MAX_STACKED_KEYS}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     b, sq, e = q.shape
-    d = e // num_heads
+    skv, d = k.shape[1], e // num_heads
+    if fold * skv > MAX_STACKED_KEYS:
+        raise ValueError(f"{name}: {fold} x {skv} stacked keys exceed {MAX_STACKED_KEYS}")
+    plan = fold_plan(sq, skv, fold)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     order_c = (X.I_ * num_heads)(*order)
     X.call(
         name, "headfold", "rgqa_headfold", _ARGS, q.device,
         *(t.data_ptr() for t in (q, k, v, bias, out)),
-        X.dtype_code(q), b, sq, k.shape[1], num_heads, d, fold, order_c,
+        X.dtype_code(q), b, sq, skv, num_heads, d, fold, plan.heads, order_c,
         *X.strides(q, k, v), d ** -0.5,
     )
     headfold_cuda.launches += 1

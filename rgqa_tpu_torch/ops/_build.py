@@ -21,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["BuildResult", "SOURCES", "build", "build_all", "load_library", "NVCC_FLAGS"]
+__all__ = ["BuildResult", "SOURCES", "build", "build_all", "cuda_tool", "load_library", "NVCC_FLAGS"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -47,19 +47,28 @@ class BuildResult:
     log: str  # nvcc's output (ptxas resource usage); empty when reused
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str | None:
+    """The CUDA toolkit's ``name`` (nvcc, cuobjdump, ...): under CUDA_HOME
+    or CUDA_PATH, on PATH, or under /usr/local/cuda; None if absent."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in (
-        os.path.join(home, "bin", "nvcc") if home else None,
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
+        os.path.join(home, "bin", name) if home else None,
+        shutil.which(name),
+        f"/usr/local/cuda/bin/{name}",
     ):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError(
-        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
-        "CUDA kernels are built from rgqa_tpu_torch/csrc at first use"
-    )
+    return None
+
+
+def _nvcc() -> str:
+    nvcc = cuda_tool("nvcc")
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
+            "CUDA kernels are built from rgqa_tpu_torch/csrc at first use"
+        )
+    return nvcc
 
 
 def _target(name: str) -> tuple[Path, Path]:

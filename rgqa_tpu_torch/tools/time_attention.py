@@ -2,9 +2,9 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
-        [--only long short_fwd short_bwd]
+        [--only long short_fwd short_bwd headfold]
 
-Three groups, all by default (``--only`` picks some):
+Four groups, all by default (``--only`` picks some):
 
 - ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36 and
   #2 (``fused_attention_long_cuda``) at ViLT's 165x165 and 185x185, batch
@@ -21,6 +21,12 @@ Three groups, all by default (``--only`` picks some):
 - ``short_bwd``: #3 (``fused_attention_bwd_cuda``) and #5
   (``fused_attention_dropout_bwd_cuda``, rate 0.1) at the same shapes and
   batches, bf16;
+- ``headfold``: 6d (``experiments.headfold_exp.headfold_cuda``) at every
+  (variant, F) of the experiment, beside #1 (F = 1) and one
+  ``scaled_dot_product_attention`` call, at the experiment's five shapes
+  (56x56, 36x36, 20x36, 36x20, 20x20), batch 384 and 64, bf16, q, k, v
+  contiguous, up to a quarter of each row's keys masked and one fully
+  masked row, as the smoke's phase 13;
 
 the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
@@ -50,7 +56,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
 
-GROUPS = ("long", "short_fwd", "short_bwd")
+GROUPS = ("long", "short_fwd", "short_bwd", "headfold")
 E, HEADS = 768, 12
 
 
@@ -116,7 +122,8 @@ def main(argv=None) -> None:
     ).stdout.strip().splitlines()[0]
     sources = {"long": ("fused_attention", "fused_attention_long", "fused_attention_long_bwd"),
                "short_fwd": ("fused_attention", "fused_attention_dropout"),
-               "short_bwd": ("fused_attention_bwd", "fused_attention_dropout")}
+               "short_bwd": ("fused_attention_bwd", "fused_attention_dropout"),
+               "headfold": ("fused_attention", "headfold")}
     built = build_all(tuple(dict.fromkeys(n for grp in args.only for n in sources[grp])))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -136,6 +143,8 @@ def main(argv=None) -> None:
     for group in ("short_fwd", "short_bwd"):
         if group in args.only:
             _short(short[group], group == "short_bwd", gen, args.iters)
+    if "headfold" in args.only:
+        _headfold(att, gen, args.iters)
 
 
 def _long(att, gen, iters: int) -> None:
@@ -204,6 +213,37 @@ def _short(pairs, backward: bool, gen, iters: int) -> None:
                     print(f"bfloat16 B={batch} {sq}x{skv} sdpa{' dropout' if extra else ''}: "
                           f"{cuda_ms(lib, iters=iters) * 1e3:.1f} us per call, "
                           f"device {_device(device_us(lib, iters, match=None))}", flush=True)
+
+
+def _headfold(att, gen, iters: int) -> None:
+    """6d at every (variant, F), #1 and SDPA, at the experiment's shapes."""
+    import torch
+
+    from rgqa_tpu_torch.experiments import headfold_exp as hf
+
+    for batch in (384, 64):
+        for sq, skv in hf.SHAPES:
+            s = max(sq, skv)
+            q, k, v = (torch.randn(batch, s, E, generator=gen, device="cuda").bfloat16()[:, :n].contiguous()
+                       for n in (sq, skv, skv))
+            pad = torch.randint(0, skv // 4 + 1, (batch, 1), generator=gen, device="cuda")
+            bias = (torch.arange(skv, device="cuda")[None, :] >= skv - pad).float() * -10000.0
+            bias[batch // 2] = -10000.0
+            calls = [("fused_attention_cuda (F = 1)", lambda: att.fused_attention_cuda(q, k, v, bias, HEADS),
+                      lambda: att.attention_natural_ref(q, k, v, bias, HEADS), "fused_attention")]
+            for variant, fold in hf.CANDIDATES:
+                calls.append((f"headfold_cuda {variant} F = {fold}",
+                              lambda a=(q, k, v, bias, fold, variant): hf.headfold_cuda(*a),
+                              lambda a=(q, k, v, bias, fold, variant): hf.headfold_ref(*a), "headfold"))
+            for label, call, plain, match in calls:
+                err = (call().float() - plain().float()).abs().max().item()
+                print(f"bfloat16 B={batch} {sq}x{skv} {label}: {cuda_ms(call, iters=iters) * 1e3:.1f} us per call, "
+                      f"device {_device(device_us(call, iters, match))}, max|kernel-plain| {err:.3e}", flush=True)
+            lib = _sdpa(q, k, v, bias, 0.0)
+            print(f"bfloat16 B={batch} {sq}x{skv} sdpa: {cuda_ms(lib, iters=iters) * 1e3:.1f} us per call, "
+                  f"device {_device(device_us(lib, iters, match=None))}", flush=True)
+            del q, k, v, bias
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

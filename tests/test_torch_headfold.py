@@ -10,7 +10,12 @@ inputs: B = 2, E = 768 in 12 heads, f32, each row with its last keys
 padded (-10000); atol 1e-5.  Every shape of the script (56x56, 36x36,
 20x36, 36x20, 20x20) with every (variant, F) it runs.  The plain version
 is also held to #1's plain version (the shipped form, F = 1), and the
-entry point runs on the CPU.
+entry point runs on the CPU.  The bf16 body's plan (``fold_plan``: tiles
+of whole heads, at most 64 stacked query rows, each against a key window
+of its own heads) covers every row's head and fits ``wgmma``; the plain
+version computed tile by tile over those windows
+(``headfold_window_ref``) equals the TPU bodies and the stacked plain
+version, a fully masked row included.
 
 Tests marked ``cuda`` hold the Hopper kernel to the plain version on the
 card (``python -m pytest --noconftest -m cuda tests/test_torch_headfold.py``)
@@ -68,13 +73,16 @@ def _t(arrays, device="cpu", dtype=torch.float32):
     return q.to(dtype), k.to(dtype), v.to(dtype), m
 
 
-@pytest.mark.parametrize("variant,fold", port.CANDIDATES, ids=lambda x: str(x))
-@pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
-def test_plain_matches_the_tpu_body(jax_exp, sq, skv, variant, fold):
+@functools.lru_cache(maxsize=None)
+def _tpu_body(sq, skv, variant, fold):
+    """The inputs and the TPU body's output on them (Pallas interpret mode,
+    the whole batch in one grid step); one run per case and process."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
+
+    from experiments import headfold_exp as jax_exp
 
     q, k, v, m = _inputs(2, sq, skv, seed=sq * 100 + skv)
     if variant == "concat":
@@ -90,9 +98,80 @@ def test_plain_matches_the_tpu_body(jax_exp, sq, skv, variant, fold):
         kernel, grid=(1,), interpret=True, scratch_shapes=scratch,
         out_shape=jax.ShapeDtypeStruct(q.shape, jnp.float32),
     )(q, k, v, m)
-    got = port.headfold_ref(*_t((q, k, v, m)), fold, variant)
+    return (q, k, v, m), np.asarray(want)
+
+
+@pytest.mark.parametrize("variant,fold", port.CANDIDATES, ids=lambda x: str(x))
+@pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
+def test_plain_matches_the_tpu_body(jax_exp, sq, skv, variant, fold):
+    args, want = _tpu_body(sq, skv, variant, fold)
+    got = port.headfold_ref(*_t(args), fold, variant)
     assert torch.isfinite(got).all()
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("variant,fold", port.CANDIDATES, ids=lambda x: str(x))
+@pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
+def test_window_plain_matches_the_tpu_body(jax_exp, sq, skv, variant, fold):
+    """Each tile over its key window only, against the TPU body's stacked
+    product over every key of the group."""
+    args, want = _tpu_body(sq, skv, variant, fold)
+    got = port.headfold_window_ref(*_t(args), fold, variant)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
+def test_window_plain_matches_the_stacked_plain(sq, skv):
+    """Dropping the keys outside each tile's window changes nothing: every
+    (variant, F), with a fully masked row (its own-head scores near
+    -10000, the dropped ones near -1e9)."""
+    q, k, v, m = _inputs(3, sq, skv, seed=11)
+    m[1] = -10000.0
+    args = _t((q, k, v, m))
+    for variant, fold in port.CANDIDATES:
+        got = port.headfold_window_ref(*args, fold, variant)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, port.headfold_ref(*args, fold, variant), atol=TOL, rtol=0)
+
+
+def _check_plan(sq, skv, fold):
+    """The plan's tiles hold whole heads, at most 64 rows, and cover the
+    stack in order; each row's own head lies in its tile's window, which
+    lies in the group; N fits wgmma (a multiple of 8, at most 256) and P
+    V's 16-key steps."""
+    plan = port.fold_plan(sq, skv, fold)
+    assert plan.keys == plan.heads * skv and 1 <= plan.heads <= fold
+    assert plan.n % 16 == 0 and plan.keys <= plan.n < plan.keys + 16 and plan.n <= port.MAX_WINDOW_KEYS
+    rows = plan.heads * sq
+    assert rows <= port.TILE_ROWS
+    assert [q0 for q0, _, _ in plan.tiles] == list(range(0, fold * sq, rows))
+    for q0, n_rows, h0 in plan.tiles:
+        assert n_rows == min(rows, fold * sq - q0)
+        assert 0 <= h0 and h0 + plan.heads <= fold
+        for r in range(q0, q0 + n_rows):
+            assert h0 <= r // sq < h0 + plan.heads, (q0, r)
+    return plan
+
+
+@pytest.mark.parametrize("variant,fold", port.CANDIDATES, ids=lambda x: str(x))
+@pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
+def test_fold_plan_fits_wgmma(sq, skv, variant, fold):
+    port.head_order(H, fold, variant)
+    plan = _check_plan(sq, skv, fold)
+    assert plan.heads == (1 if sq > 32 else min(fold, 3))  # the experiment's 20-row heads: 3 to a tile
+    assert plan.heads <= -(-(port.TILE_ROWS - 1) // sq) + 1
+
+
+def test_fold_plan_at_every_length():
+    """Every Sq, Skv <= 64 the wrapper takes, at every F: the plan covers
+    the stack within wgmma's shapes, so the bf16 body refuses none; the
+    window narrows below 64 // Sq heads only where their keys would pass
+    256."""
+    for fold in port.FOLDS:
+        for sq in range(1, 65):
+            for skv in range(1, 65):
+                assert _check_plan(sq, skv, fold).heads == min(fold, 64 // sq, 256 // skv)
 
 
 @pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
@@ -132,10 +211,11 @@ def test_main_raises_without_a_card(no_card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [7, 384])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
-def test_kernel_matches_plain_on_the_card(cuda, sq, skv, dtype):
-    q, k, v, m = _inputs(7, sq, skv, seed=3)
+def test_kernel_matches_plain_on_the_card(cuda, sq, skv, dtype, batch):
+    q, k, v, m = _inputs(batch, sq, skv, seed=3)
     m[3] = -10000.0  # a fully masked row stays finite
     args = _t((q, k, v, m), cuda, dtype)
     atol, rtol = (2e-5, 0.0) if dtype == torch.float32 else (3e-2, 1e-2)
@@ -147,3 +227,19 @@ def test_kernel_matches_plain_on_the_card(cuda, sq, skv, dtype):
         torch.testing.assert_close(got.float(), port.headfold_ref(*args, fold, variant).float(),
                                    atol=atol, rtol=rtol)
         torch.testing.assert_close(got.float(), shipped.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sq,skv,fold", [(8, 64, 6), (13, 50, 4), (64, 64, 2), (3, 17, 6), (33, 7, 3)],
+                         ids=lambda x: str(x))
+def test_kernel_matches_plain_at_other_lengths(cuda, sq, skv, fold, dtype):
+    """Beyond the experiment's shapes: windows narrowed to 256 keys (8x64,
+    F = 6: 4 heads a tile, the last tile's window shifted back), a whole
+    group in one tile (13x50, 3x17), one head a tile (64x64, 33x7)."""
+    q, k, v, m = _inputs(5, sq, skv, seed=4)
+    m[2] = -10000.0
+    args = _t((q, k, v, m), cuda, dtype)
+    atol, rtol = (2e-5, 0.0) if dtype == torch.float32 else (3e-2, 1e-2)
+    got = port.headfold(*args, fold)
+    torch.testing.assert_close(got.float(), port.headfold_ref(*args, fold).float(), atol=atol, rtol=rtol)
