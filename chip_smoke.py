@@ -139,7 +139,59 @@ nonzero:
    holds the kernels the other experiments launch (6a, 6b) at their
    shapes: #1 at 56x56 and #2 at 165x165 (batch 384), #3 at 36x36 and
    20x36 (batch 384), #3L at 165x165 (batch 128), with times and bounds.
-14. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+14. scorers (slice 10): full-width LxmertForGQA in bf16 from a seeded
+   generator, batch 256 with padded text, each scorer through the kernels
+   and through the plain versions (``use_fused=False``) on the same
+   batches: msp, energy, ODIN (``ODIN_T`` 1000, step ``ODIN_NOISE``
+   1e-2), Mahalanobis un-noised and noised (``MAHA_NOISE``) and
+   MC-dropout (``SEED_LIST``, dropout 0.1).  Launches per batch of 256:
+   34 of #1 for msp, energy and un-noised Mahalanobis; for ODIN and
+   noised Mahalanobis 68 of #1 (the gradient pass and the rescore) and 23
+   of #3 (the input gradient runs the backward of the attentions on a
+   path from the RoI inputs to the pooled output only: 5 vision layers,
+   4 per cross layer but the last, whose vision pair feeds nothing
+   pooled, and its 2 language calls); for MC-dropout 34 of #4 per pass
+   (170) and none of #1; no other kernel.  Labels agree on
+   ``MIN_LABEL_AGREEMENT`` and scores within ``SCORE_TOL`` (see there;
+   for ODIN and noised Mahalanobis on the rows whose gradient passes made
+   the same decision: elsewhere the two paths perturb toward different
+   losses).
+   ODIN's and noised Mahalanobis' input gradients (``g_feats``,
+   ``g_boxes``) through the kernels are held to the plain path's:
+   relative L2 error within ``GRAD_RTOL`` (see there) and the same sign wherever
+   |g| is above round-off (``GRAD_SIGN_FLOOR``), on the rows where both
+   gradient passes made the same decision (at least
+   ``MIN_LABEL_AGREEMENT`` of them).  The pooled features the
+   Mahalanobis scorers score agree within ``POOLED_TOL`` (phase 4's
+   bound), and the noised scores differ from the un-noised ones.  The
+   estimator is fitted (``FIT_BATCHES`` batches of 256, ``FIT_CLASSES``
+   classes that the pooled features separate: see ``_fit_batches``)
+   through the kernels in eval mode, timed per batch, its precision's
+   eigenvalue range printed; no scorer leaves the model in
+   training mode.  ms per batch and questions/s of each, kernels and
+   plain in turns.  The phase reports every failed check at its end.
+15. scorer CLI (slice 10): ``python -m rgqa_tpu_torch.cli.evaluate
+   --synthetic --test testdev --batchSize 256`` at full width with
+   ``--scorer energy``, ``odin``, ``dropout``, ``maha`` (on a root of
+   ``MAHA_ROOT``'s 8192 labeled train questions; the first run fits and
+   writes ``sample_estimates.pkl``, the second reads it),
+   ``--target_acc`` (at half the accuracy the favoured answer reaches)
+   and ``--load a.pth,b.pth`` (an ensemble), from seeded weights written
+   as reference ``.pth`` files (``a.pth``'s answer bias favours testdev's
+   most frequent answer, so some answers are right); then ViLT with
+   ``--scorer dropout`` and ``energy`` through #2.  Each run's launches
+   equal the counts of phase 14 per scored batch (plus 34 of #1 per
+   train batch of the fit), its prediction JSON holds one row per
+   question with a known answer and a finite confidence, and its metric
+   dict (or tau) is finite.  As phase 5, each run is then re-scored with
+   its own runner, weights and options through the plain versions: the
+   answers agree on ``MIN_LABEL_AGREEMENT`` of the questions and the
+   confidences within the scorer's ``SCORE_TOL`` plus the 1e-4 step of
+   the prediction JSON's 4 dp (``--target_acc``, whose dump is at full
+   precision: against the plain re-score under its own tau).  The
+   Mahalanobis runs hold their answers, not their scores (see
+   ``phase_scorer_cli``); the cached run's JSON equals the first run's.
+16. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -225,6 +277,63 @@ KERNELS = {
     "epi_fused": ("rgqa_tpu_torch/csrc/epilogue.cu", "experiments/epilogue_exp.py:30"),
 }
 EXPERIMENTS = ("xfuse_exp", "headfold_exp", "epilogue_exp")  # rgqa_tpu_torch.experiments.*
+# Phase 14, the scorers: batches of 256 scored; the Mahalanobis fit's
+# batches and classes (4 classes of ~1024 rows: the sampling noise of the
+# class means, which the precision amplifies into the class gaps, falls
+# as 1 / sqrt(rows per class); with 16 classes of ~256 rows the two paths'
+# labels agreed on 0.897 of the rows); MC-dropout's seeds; ODIN's temperature
+# and step, and the noised Mahalanobis step (1e-2: at bf16's resolution
+# of the RoI feats, which the model casts to bf16 in its first product;
+# a smaller step rounds away there, and at T 1e5 every ODIN score is 0.5
+# to f32's resolution); timed calls per scorer.
+SCORE_BATCHES = 2
+FIT_BATCHES = 16
+FIT_CLASSES = 4
+SEED_LIST = (0, 1, 2, 3, 4)
+ODIN_T, ODIN_NOISE = 1000.0, 1e-2
+MAHA_NOISE = 1e-2
+SCORER_ITERS = {"msp": 20, "energy": 20, "maha": 20, "odin": 10, "dropout": 5}
+# (atol, rtol) of a scorer's scores, kernels against plain versions, the
+# same bf16 weights.  msp, MC-dropout (the same masks: #4's keyed mask is
+# the plain version's, and the hidden-dropout bytes come from the same
+# seeded generators) and the ensemble (the mean of two MSP vectors): the
+# MSP confidence bound.  Energy: softplus has slope <= 1 and the top-2
+# logits move by at most LOGIT_TOL each.  ODIN: sigmoid(l / T) has slope
+# <= 1 / (4 T); the rescore's logits differ by up to LOGIT_TOL through
+# the attention and by up to LOGIT_TOL more through the inputs whose
+# gradient sign flipped at round-off.  Mahalanobis: relative (scores
+# ~-840..-200): the precision's small eigenvalues (see GRAD_RTOL) amplify
+# the pooled features' bf16 difference (up to 4.5% of a score measured
+# on the H100).  Noised, twice that: the two paths' inputs also differ
+# where the gradient's sign flipped at round-off (~4% of the elements,
+# each by 2 x MAHA_NOISE), and the step toward the top class shrinks
+# |score| but not the round-off term (up to 5.4% measured).
+SCORE_TOL = {
+    "msp": (CONF_TOL, 0.0), "dropout": (CONF_TOL, 0.0), "ensemble": (CONF_TOL, 0.0),
+    "energy": (2 * LOGIT_TOL, 0.0), "odin": (LOGIT_TOL / (2 * ODIN_T), 0.0),
+    "maha": (0.0, 5e-2), "maha_noised": (0.0, 1e-1),
+}
+# The pooled features a Mahalanobis scorer scores, kernels against plain
+# versions: phase 4's bf16 bound.
+POOLED_TOL = LOGIT_TOL
+# The input gradient of ODIN and noised Mahalanobis (g_feats, g_boxes),
+# kernels against plain versions, at batch 256 in bf16: relative L2 error
+# at most GRAD_RTOL, and the same sign01 wherever |g_plain| exceeds
+# GRAD_SIGN_FLOOR of its largest magnitude (below that the sign is
+# round-off: both paths compute the backward in bf16, the kernels round
+# dS to bf16 where the plain version keeps f32).  A zero gradient has
+# relative error 1, one of the wrong sign 2.  ODIN's loss reads the
+# logits; the Mahalanobis loss's gradient at the pooled output is
+# P (f - mu), so the precision's small eigenvalues (within-class variances
+# to ~6e-5: a random model's pooled features collapse onto few
+# directions, at any number of fit rows) amplify the pooled features'
+# bf16 difference into it (1.3e-1 measured on the H100, ODIN's 2e-2).
+GRAD_RTOL = {"odin": 0.1, "maha": 0.25}
+GRAD_SIGN_FLOOR = 0.1
+# Phase 15's root for the Mahalanobis runs: 8192 labeled train questions
+# on 256 images (the default root's 256 rows leave the covariance of 768
+# dimensions singular).
+MAHA_ROOT = dict(n_images=256, n_train=8192)
 VILT_TRAIN_TEXT = 20  # the train CLI's --max_text_len: a 165-token stream
 
 
@@ -818,7 +927,7 @@ def phase_main_path(phase="main", extra=(), kernel="fused_attention", per_forwar
                                         launches[kernel])
         if any(n for name, n in launches.items() if name != kernel):
             raise AssertionError(f"the evaluate path launched another kernel than {kernel}: {launches}")
-        cfg, device = evaluate.parse_args(argv[:-1] + [os.path.join(tmp, "plain")])
+        cfg, device, _ = evaluate.parse_args(argv[:-1] + [os.path.join(tmp, "plain")])
         forwards = math.ceil(len(ds) / cfg.train.batch_size)
         if launches[kernel] != per_forward * forwards:
             raise AssertionError(
@@ -828,7 +937,7 @@ def phase_main_path(phase="main", extra=(), kernel="fused_attention", per_forwar
         # Reference on the same split: the same runner and weights, with
         # every attention call through the plain version.
         runner = GQARunner(cfg, init_train=False, device=device)
-        plain_forward = lambda batch: runner.forward(batch, use_fused=False)  # noqa: E731
+        plain_forward = lambda batch, **kw: runner.forward(batch, use_fused=False, **kw)  # noqa: E731
         plain = runner.score_split(runner._encode(ds), scorer=make_msp_scorer(plain_forward))
         by_qid = {p["questionId"]: p for p in preds}
         agree = sum(by_qid[q]["prediction"] == a for q, (a, _) in plain.items()) / len(plain)
@@ -1392,6 +1501,452 @@ def phase_experiments(errs, times):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-15: the rejection scorers (slice 10).
+# ---------------------------------------------------------------------------
+
+
+def _scorer_launches(name: str, enc, passes: int) -> dict:
+    """Kernel launches per batch of 256 of each LXMERT scorer (see the
+    docstring, phase 14)."""
+    per_forward = enc.l_layers + enc.r_layers + 4 * enc.x_layers  # 34
+    bwd = enc.r_layers + 4 * (enc.x_layers - 1) + 2  # 23: on a path from the RoI inputs to pooled
+    want = {k: 0 for k in KERNELS}
+    if name in ("odin", "maha_noised"):
+        want.update(fused_attention=2 * per_forward, fused_attention_bwd=bwd)
+    elif name == "dropout":
+        want["fused_attention_dropout"] = passes * per_forward
+    else:
+        want["fused_attention"] = per_forward
+    return want
+
+
+def _fit_batches(cfg, forward, n: int, classes: int):
+    """``n`` batches of 256 with padded text, on the card, each row's
+    one-hot target the class of its pooled feature (``forward``'s):
+    the largest of ``classes`` seeded random projections of the feature
+    less the mean over all rows.  Classes the features separate, as a
+    trained model's answers are: with random targets the class means
+    differ by sampling noise alone, which the precision amplifies, and
+    the top-2 gap of most rows sits at bf16 round-off whichever path
+    computes it."""
+    import torch
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.models.zoo import example_batch
+
+    out = [to_device(_padded_text(example_batch(cfg, 256, seed=40 + i), seed=50 + i), "cuda")
+           for i in range(n)]
+    with torch.no_grad():
+        pooled = torch.stack([forward(b, deterministic=True)["pooled"].float() for b in out])
+    proj = torch.randn(pooled.shape[-1], classes, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(90))
+    cls = ((pooled - pooled.mean(dim=(0, 1))) @ proj).argmax(-1)  # (n, 256)
+    for b, c in zip(out, cls):
+        b["target"] = torch.nn.functional.one_hot(c, cfg.num_answers).float()
+    return out, torch.bincount(cls.flatten(), minlength=classes)
+
+
+def _recording(fwd):
+    """``fwd`` keeping, of each call made outside autograd (a scorer's
+    scoring pass), the f32 pooled output, and of each call inside it (its
+    gradient pass), the gradient that reaches ``feats`` and ``boxes`` and
+    the f32 logits and pooled output."""
+    import torch
+
+    pooled, grads = [], []
+
+    def forward(batch, **kw):
+        record = torch.is_grad_enabled() and batch["feats"].requires_grad
+        if record:
+            got = {}
+            grads.append(got)
+            for key in ("feats", "boxes"):
+                batch[key].register_hook(lambda g, key=key: got.__setitem__(key, g.detach().clone()))
+        out = fwd(batch, **kw)
+        if record:
+            got.update(logits=out["logits"].detach().float(), pooled=out["pooled"].detach().float())
+        else:
+            pooled.append(out["pooled"].float())
+        return out
+
+    return forward, pooled, grads
+
+
+def _grad_check(gk: list, gp: list, same: list, rtol: float) -> tuple[list, str]:
+    """The input gradients of the kernels' path against the plain path's
+    (per batch, ``feats`` and ``boxes``), on the rows ``same`` where both
+    paths' gradient passes made the same decision (elsewhere the loss is
+    another function and so is its gradient; it must be
+    ``MIN_LABEL_AGREEMENT`` of the rows): relative L2 error at most
+    ``rtol``, and no sign01 flip above ``GRAD_SIGN_FLOOR`` of the largest
+    |g_plain|.  Returns (faults, a line of the numbers)."""
+    import torch
+
+    rows, total = sum(int(m.sum()) for m in same), sum(m.numel() for m in same)
+    faults, parts = [], [f"rows of the same decision {rows} of {total}"]
+    if rows < MIN_LABEL_AGREEMENT * total:
+        faults.append(f"the gradient passes decide alike on {rows} of {total} rows")
+    for key in ("feats", "boxes"):
+        k = torch.cat([g[key][m].flatten() for g, m in zip(gk, same)]).double()
+        p = torch.cat([g[key][m].flatten() for g, m in zip(gp, same)]).double()
+        scale = p.abs().max().item() if p.numel() else 0.0
+        rel = ((k - p).norm() / p.norm()).item() if scale > 0 else math.inf
+        flips = (k >= 0) != (p >= 0)
+        above = flips & (p.abs() > GRAD_SIGN_FLOOR * scale)
+        worst = (p.abs()[flips].max().item() / scale) if flips.any() and scale > 0 else 0.0
+        parts.append(f"g_{key}: max|plain| {scale:.3e}, relative L2 error {rel:.3e} (bound {rtol:.2g}), "
+                     f"sign flips {int(flips.sum())} of {flips.numel()} (largest at {worst:.3e} of max|g|; "
+                     f"{int(above.sum())} above {GRAD_SIGN_FLOOR:.0e})")
+        if not scale > 0:
+            faults.append(f"no gradient reached {key}")
+        if not rel <= rtol:
+            faults.append(f"g_{key} relative error {rel:.3e}")
+        if above.any():
+            faults.append(f"g_{key}: {int(above.sum())} sign flips above round-off")
+    return faults, "; ".join(parts)
+
+
+def phase_scorers() -> None:
+    """Each scorer at full-width LXMERT, bf16, batch 256, through the
+    kernels and through the plain versions: launches per batch, agreement,
+    input gradients, questions/s (phase 14)."""
+    import torch
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
+    from rgqa_tpu_torch.scorers import make_scorer
+    from rgqa_tpu_torch.scorers.maha import _gaussian_scores, accumulate_moments, estimator_from_moments
+
+    cfg = default_config()
+    enc = cfg.encoder
+    model, forward = build_model(cfg, use_bf16=True, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+    plain = lambda batch, **kw: forward(batch, use_fused=False, **kw)  # noqa: E731
+    batches = [to_device(_padded_text(example_batch(cfg, 256, seed=70 + i), seed=80 + i), "cuda")
+               for i in range(SCORE_BATCHES)]
+
+    # The Mahalanobis fit: pooled features of FIT_BATCHES train-like
+    # batches through the kernels (eval mode), accumulated on the card;
+    # the rows' classes from the plain path's features.
+    fit, class_rows = _fit_batches(cfg, plain, FIT_BATCHES, FIT_CLASSES)
+
+    def pooled(fwd):
+        for b in fit:
+            with torch.no_grad():
+                yield fwd(b, deterministic=True)["pooled"], b["target"]
+
+    def timed_fit(fwd):
+        """(estimator, ms per train batch of the pass on the card, ms of
+        the host's covariance and pinvh, paid once per fit)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moments = accumulate_moments(pooled(fwd), cfg.num_answers, enc.hidden_size)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        est = estimator_from_moments(*moments)
+        return est, (t1 - t0) * 1e3 / FIT_BATCHES, (time.perf_counter() - t1) * 1e3
+
+    timed_fit(forward)  # warm-up
+    reset_counts()
+    est, fit_ms, once_ms = timed_fit(forward)
+    fit_counts = read_counts()
+    _, fit_ms_plain, _ = timed_fit(plain)
+    eig = torch.linalg.eigvalsh(est.precision.double())
+    log("scorers", f"Mahalanobis fit on {FIT_BATCHES} batches of 256 ({FIT_CLASSES} classes): wall per "
+        f"train batch (forward and the sums on the card) {fit_ms:.3f} ms through the kernels, "
+        f"{fit_ms_plain:.3f} plain; once per fit (the host's covariance and pinvh) {once_ms:.3f} "
+        f"ms; launches {fit_counts['fused_attention']} of #1 (want {34 * FIT_BATCHES}); rows per class "
+        f"{class_rows.min().item()} .. {class_rows.max().item()}; precision eigenvalues "
+        f"{eig.min().item():.3e} .. {eig.max().item():.3e}")
+    if fit_counts != {**{k: 0 for k in KERNELS}, "fused_attention": 34 * FIT_BATCHES}:
+        raise AssertionError(f"the fit launched {fit_counts}")
+    if not (torch.isfinite(est.precision).all() and torch.isfinite(est.class_mean).all()):
+        raise AssertionError("the fitted estimator is not finite")
+    if model.training:
+        raise AssertionError("the fit left the model in training mode")
+
+    def odin_decision(rec):  # the argmax column and its pseudo-label
+        idx = rec["logits"].argmax(-1)
+        return 2 * idx + (rec["logits"].gather(-1, idx[:, None])[:, 0] >= 0)
+
+    def maha_decision(rec):  # the top class
+        return _gaussian_scores(rec["pooled"], est.class_mean, est.precision).argmax(-1)
+
+    decisions = {"odin": odin_decision, "maha": maha_decision}
+    opts = dict(seed_list=SEED_LIST, estimator=est)
+    kinds = {"msp": ("msp", {}), "energy": ("energy", {}),
+             "odin": ("odin", {"temperature": ODIN_T, "noise": ODIN_NOISE}),
+             "maha": ("maha", {}), "maha_noised": ("maha", {"noise": MAHA_NOISE}),
+             "dropout": ("dropout", {})}
+    faults, maha_scores = [], {}
+    for name, (kind, extra) in kinds.items():
+        rec_k, pooled_k, grads_k = _recording(forward)
+        rec_p, pooled_p, grads_p = _recording(plain)
+        check_k = make_scorer(kind, rec_k, **opts, **extra)
+        check_p = make_scorer(kind, rec_p, **opts, **extra)
+        check_k(batches[0])  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        pooled_k.clear()
+        grads_k.clear()
+        out_k = [check_k(b) for b in batches]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        out_p = [check_p(b) for b in batches]
+        torch.cuda.synchronize()
+        if read_counts() != counts:
+            raise AssertionError(f"{name}: the plain versions launched a kernel")
+        if model.training:
+            raise AssertionError(f"{name} left the model in training mode")
+        launched = {k: v / SCORE_BATCHES for k, v in counts.items()}
+        want = _scorer_launches(name, enc, len(SEED_LIST))
+        lk = torch.cat([o["label"] for o in out_k])
+        lp = torch.cat([o["label"] for o in out_p])
+        sk = torch.cat([o["score"] for o in out_k]).float()
+        sp = torch.cat([o["score"] for o in out_p]).float()
+        diff = (sk - sp).abs()
+        agree = (lk == lp).float().mean().item()
+        extra_line, bad = "", []
+        # Scores are held on every row, but for ODIN and noised
+        # Mahalanobis on the rows whose gradient passes decided alike:
+        # elsewhere the perturbation descends another loss, and the two
+        # paths score different inputs.
+        held = torch.ones_like(sk, dtype=torch.bool)
+        if len(grads_k) != len(grads_p):
+            bad.append(f"{len(grads_k)} gradient passes through the kernels, {len(grads_p)} plain")
+        elif grads_p:
+            same = [decisions[kind](k) == decisions[kind](p) for k, p in zip(grads_k, grads_p)]
+            held = torch.cat(same)
+            bad_g, line = _grad_check(grads_k, grads_p, same, GRAD_RTOL[kind])
+            bad += bad_g
+            extra_line += f"; input gradient: {line}"
+        atol, rtol = SCORE_TOL.get(name, SCORE_TOL[kind])
+        excess = (diff - atol - rtol * sp.abs())[held].max().item()
+        if kind == "maha":
+            dpool = (torch.cat(pooled_k) - torch.cat(pooled_p)).abs().max().item()
+            extra_line += f"; max|pooled kernel-plain| {dpool:.3e} (bound {POOLED_TOL:.0e})"
+            if not dpool <= POOLED_TOL:
+                bad.append(f"pooled features differ by {dpool:.3e}")
+            maha_scores[name] = sk
+        # Timed without the recording (its copies and hooks are not the
+        # scorer's work).
+        score_k = make_scorer(kind, forward, **opts, **extra)
+        score_p = make_scorer(kind, plain, **opts, **extra)
+        plain_ms, kernel_ms = in_turns(lambda: score_p(batches[0]), lambda: score_k(batches[0]),
+                                       iters=SCORER_ITERS[kind], warmup=2)
+        log("scorers", f"{name}: launches per batch {({k: v for k, v in launched.items() if v})} "
+            f"(want {({k: v for k, v in want.items() if v})}); labels agree on {agree:.4f} "
+            f"(want >= {MIN_LABEL_AGREEMENT}); max|score kernel-plain| {diff.max().item():.3e}, "
+            f"scores {sp.min().item():.7g} .. {sp.max().item():.7g} (bound {atol:.1e} + {rtol:.0e} "
+            f"|plain| on {int(held.sum())} rows; worst excess {excess:.3e}){extra_line}; ms per batch "
+            f"of 256 (in turns): kernels {kernel_ms:.3f} ({256e3 / kernel_ms:.1f} q/s), plain "
+            f"{plain_ms:.3f} ({256e3 / plain_ms:.1f} q/s)")
+        if launched != want:
+            bad.append(f"launches per batch {launched}, want {want}")
+        if not torch.isfinite(sk).all() or lk.shape != (256 * SCORE_BATCHES,):
+            bad.append("scores not finite / wrong shape")
+        if agree < MIN_LABEL_AGREEMENT or excess > 0:
+            bad.append("kernel and plain scores disagree")
+        faults += [f"{name}: {b}" for b in bad]
+    if torch.equal(maha_scores["maha_noised"], maha_scores["maha"]):
+        faults.append("maha_noised: the perturbation moved no score")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    del model, forward, batches, fit, est
+    torch.cuda.empty_cache()
+
+
+def _favoured_pth(path: str, root: str, seed: int, favour: bool) -> str:
+    """A seeded full-width LXMERT as a reference ``.pth``; ``favour``
+    raises the answer bias of testdev's most frequent answer, so the
+    random model answers some questions right (``--target_acc`` needs a
+    reachable accuracy)."""
+    import collections
+
+    import torch
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.models.zoo import build_model, default_config
+    from rgqa_tpu_torch.train.state import save_reference_pth
+
+    ds = GQADataset(root, "testdev", add_uq=True)
+    cfg = dataclasses.replace(default_config(), num_answers=ds.num_answers - 1)
+    model, _ = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
+    if favour:
+        top = collections.Counter(a for d in ds.data for a in d["label"] if a != "UQ").most_common(1)[0][0]
+        with torch.no_grad():
+            model.answer_head.logits.bias[ds.label2ans.index(top)] += 8.0
+    save_reference_pth(model, cfg, path)
+    del model
+    return path
+
+
+def _check_scored_outputs(phase, out_dir, root, results, argv, seconds, launches, want) -> dict:
+    """A scorer run of the evaluate CLI: one row per question with a
+    known answer and a finite confidence, the metric dict, and the
+    launches ``want``.  Returns ``{qid: (answer, confidence)}``."""
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    with open(os.path.join(out_dir, "testdev_predict.json")) as f:
+        preds = json.load(f)
+    ds = GQADataset(root, "testdev", add_uq=True)
+    shown = {k: v for k, v in launches.items() if v}
+    log(phase, f"evaluate CLI ({' '.join(argv)}) in {seconds:.2f} s: launches {shown}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    if "tau" in results:  # --target_acc: {qid: [answer, confidence]}
+        rows = {q: tuple(v) for q, v in preds.items()}
+        if not (math.isfinite(results["tau"]) and any(a == "UQ" for a, _ in rows.values())):
+            raise AssertionError(f"--target_acc gave tau {results['tau']} and no rejection")
+        log(phase, f"tau {results['tau']:.6f}; {sum(a == 'UQ' for a, _ in rows.values())} of "
+            f"{len(rows)} answers rejected")
+    else:
+        rows = {p["questionId"]: (p["prediction"], p["confidence"]) for p in preds}
+        for key in ("auaf", "fpr@0.95acc", "full_acc"):
+            if not isinstance(results.get(key), float) or math.isnan(results[key]):
+                raise AssertionError(f"metric {key} missing or NaN: {results}")
+        log(phase, "metrics: " + ", ".join(f"{k} {results[k]:.6f}" for k in ("auaf", "fpr@0.95acc", "full_acc")))
+    if len(rows) != len(preds) or sorted(rows) != sorted(d["question_id"] for d in ds.data):
+        raise AssertionError("prediction JSON does not hold one row per question")
+    if not all(math.isfinite(c) and a in ds.label2ans for a, c in rows.values()):
+        raise AssertionError("prediction JSON holds an invalid confidence or answer")
+    return rows
+
+
+def _plain_rescore(phase, argv, root, rows, kind) -> None:
+    """Re-score the split as the CLI run ``argv`` did (its runner, its
+    weights, its options, the same ``sample_estimates.pkl``) with every
+    attention call through the plain version; hold the CLI's answers and
+    confidences ``rows`` to it (``SCORE_TOL[kind]``, plus the 1e-4 step
+    of the prediction JSON's rounded confidences; ``kind`` None: the
+    answers alone)."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.runner import GQARunner
+
+    before = read_counts()
+    cfg, device, plan = evaluate.parse_args(argv)
+    runner = GQARunner(cfg, init_train=False, device=device)
+    fused = runner.forward
+    runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
+    encoded = runner._encode(GQADataset(root, "testdev", add_uq=True))
+    if plan["target_acc"] is not None:
+        plain = runner.predict_with_thresh(encoded)["quesid2ans"]
+    elif plan["scorer"] == "ensemble":
+        path = os.path.join(cfg.output, "plain_predict.json")
+        runner.ensemble_ood_evaluate(encoded, plan["ensemble"], dump=path)
+        with open(path) as f:
+            plain = {p["questionId"]: (p["prediction"], p["confidence"]) for p in json.load(f)}
+    else:
+        plain = runner.score_split(encoded)
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError(f"{phase}: the plain re-score launched a kernel")
+    agree = sum(rows[q][0] == a for q, (a, _) in plain.items()) / len(plain)
+    dconf = max(abs(rows[q][1] - c) for q, (_, c) in plain.items())
+    drel = max(abs(rows[q][1] - c) / max(abs(c), 1e-30) for q, (_, c) in plain.items())
+    if kind is None:
+        excess, bound = -math.inf, "not held: see phase_scorer_cli"
+    else:
+        atol, rtol = SCORE_TOL[kind]
+        if plan["target_acc"] is None:
+            atol += 1e-4  # the prediction JSON's confidences are rounded to 4 dp
+        excess = max(abs(rows[q][1] - c) - atol - rtol * abs(c) for q, (_, c) in plain.items())
+        bound = f"bound {atol:.1e} + {rtol:.0e} |plain|; worst excess {excess:.3e}"
+    log(phase, f"vs plain attention: answers agree on {agree:.4f} of questions (want >= "
+        f"{MIN_LABEL_AGREEMENT}), max|confidence diff| {dconf:.3e}, relative {drel:.3e} ({bound})")
+    if sorted(plain) != sorted(rows):
+        raise AssertionError(f"{phase}: the plain re-score scored other questions")
+    if agree < MIN_LABEL_AGREEMENT or excess > 0:
+        raise AssertionError(f"{phase}: the CLI's answers disagree with the plain re-score")
+    del runner
+    torch.cuda.empty_cache()
+
+
+def phase_scorer_cli() -> None:
+    """The evaluate CLI with each new scorer flag at full width, batch
+    256, each run held to a plain re-score (phase 15)."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
+
+    seeds = ["--seed_list", ",".join(map(str, SEED_LIST))]
+    s = len(SEED_LIST)
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_scorers_") as tmp:
+        root, maha_root = os.path.join(tmp, "gqa"), os.path.join(tmp, "gqa_maha")
+        make_synthetic_gqa(root)
+        # The Mahalanobis fit needs many more labeled train rows than the
+        # 768 dimensions, or its precision blows up round-off (phase 14).
+        make_synthetic_gqa(maha_root, SyntheticSpec(**MAHA_ROOT))
+        a = _favoured_pth(os.path.join(tmp, "a.pth"), root, 1, favour=True)
+        b = _favoured_pth(os.path.join(tmp, "b.pth"), root, 2, favour=False)
+        n = math.ceil(len(GQADataset(root, "testdev", add_uq=True)) / 256)  # scored batches
+        n_maha = math.ceil(len(GQADataset(maha_root, "testdev", add_uq=True)) / 256)
+        fits = math.ceil(len(GQADataset(maha_root, "train", add_uq=True)) / 256)  # the fit's batches
+        target = f"{_reachable_acc(root) / 2:.6f}"
+
+        def want(**counts):
+            return {**{k: 0 for k in KERNELS}, **counts}
+
+        grad = dict(fused_attention=68 * n, fused_attention_bwd=23 * n)
+        grad_maha = dict(fused_attention=68 * n_maha, fused_attention_bwd=23 * n_maha)
+        odin = ["--temperature", str(ODIN_T), "--noise", str(ODIN_NOISE)]
+        maha = ["--scorer", "maha", "--noise", str(MAHA_NOISE), "--load", a]
+        # (name, scorer kind of SCORE_TOL, flags, launches).  The
+        # Mahalanobis runs' scores are not held to the plain re-score:
+        # the synthetic answers do not separate a random model's pooled
+        # features, so the fitted precision amplifies their bf16
+        # round-off into the scores (phase 14 holds the scores, with
+        # classes the features separate).  Their answers are held, and
+        # the second run, which reads the first run's estimator back,
+        # must give the first run's prediction JSON bit for bit.
+        runs = [
+            ("energy", "energy", ["--scorer", "energy", "--load", a], want(fused_attention=34 * n)),
+            ("odin", "odin", ["--scorer", "odin", *odin, "--load", a], want(**grad)),
+            ("dropout", "dropout", ["--scorer", "dropout", *seeds, "--load", a],
+             want(fused_attention_dropout=34 * s * n)),
+            ("maha", None, maha, want(**dict(grad_maha, fused_attention=34 * fits + 68 * n_maha))),
+            ("maha-cached", None, maha, want(**grad_maha)),
+            ("target_acc", "msp", ["--target_acc", target, "--load", a], want(fused_attention=34 * n)),
+            ("ensemble", "ensemble", ["--load", f"{a},{b}"], want(fused_attention=2 * 34 * n)),
+            ("vilt-dropout", "dropout", ["--backbone", "vilt", "--scorer", "dropout", *seeds],
+             want(fused_attention_long=12 * s * n)),
+            ("vilt-energy", "energy", ["--backbone", "vilt", "--scorer", "energy"],
+             want(fused_attention_long=12 * n)),
+        ]
+        for name, kind, extra, launches in runs:
+            out_dir = os.path.join(tmp, "out_" + name.removesuffix("-cached"))
+            data = maha_root if name.startswith("maha") else root
+            argv = ["--synthetic", "--data_root", data, *extra, "--test", "testdev",
+                    "--batchSize", "256", "--output", out_dir]
+            reset_counts()
+            t0 = time.perf_counter()
+            results = evaluate.main(argv)["testdev"]
+            torch.cuda.synchronize()
+            rows = _check_scored_outputs("scorer-cli", out_dir, data, results, argv,
+                                         time.perf_counter() - t0, read_counts(), launches)
+            if name == "maha" and not os.path.isfile(os.path.join(out_dir, "sample_estimates.pkl")):
+                raise AssertionError("--scorer maha wrote no sample_estimates.pkl")
+            if name == "maha":
+                fitted = rows
+            if name == "maha-cached" and rows != fitted:
+                raise AssertionError("--scorer maha with the cached estimator changed the predictions")
+            _plain_rescore("scorer-cli", argv, data, rows, kind)
+        torch.cuda.empty_cache()
+
+
+def _reachable_acc(root: str) -> float:
+    """The accuracy (the acc-fpr curve's: correct over answerable) of
+    answering testdev's most frequent answer to every question."""
+    import collections
+
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    golds = [next(iter(d["label"]), "UQ") for d in GQADataset(root, "testdev", add_uq=True).data]
+    answerable = [g for g in golds if g != "UQ"]
+    return collections.Counter(answerable).most_common(1)[0][1] / len(answerable)
+
+
 def main() -> None:
     kind, smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -1410,6 +1965,8 @@ def main() -> None:
     phase_vilt_long()
     exp_times = {}
     exp_launches = phase_experiments(errs, exp_times)
+    phase_scorers()
+    phase_scorer_cli()
 
     launches = {
         "fused_attention": eval_launches,  # the evaluate path

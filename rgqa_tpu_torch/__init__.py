@@ -10,8 +10,11 @@ entry points run on the card unless the caller asks for the CPU.
 
 Ported so far: LXMERT GQA inference with MSP rejection (slice 1),
 LXMERT GQA fine-tuning with RP pseudo-UQ pairs (slice 2), ViLT-B/32 GQA
-inference with MSP rejection (slice 3) and fine-tuning (slice 4), and
-the kernel experiments (slice 5, ``experiments/``).  Every attention call
+inference with MSP rejection (slice 3) and fine-tuning (slice 4), the
+kernel experiments (slice 5, ``experiments/``), ViLT beyond 256 tokens
+(slice 6) and the rejection scorers (slice 10, ``scorers/``: energy,
+ODIN, Mahalanobis, MC-dropout, branched, ensembles, a calibrated
+threshold).  Every attention call
 runs through hand-written Hopper kernels in ``csrc/``: the forward (short
 and long streams), its backward (both), and the dropout forward and
 backward; the experiments run four more (dual, cat, headfold, epilogue).

@@ -4,9 +4,10 @@ reference GQA ``.pth`` checkpoints, for LXMERT and ViLT.
 The port's parameter names follow the flax tree, so a flax path maps to
 a port key by a plain rename (:func:`port_key`): path components joined
 with dots, the stacked ``lang_i`` / ``visn_i`` / ``x_i`` / ``block_i``
-layers as ``lang_layers.i`` / ``visn_layers.i`` / ``x_layers.i`` /
-``blocks.i``, and the leaves ``kernel`` / ``scale`` / ``embedding`` as
-``weight``.  Which paths exist comes from the key maps of
+layers (and the branched heads' ``proj_i``) as ``lang_layers.i`` /
+``visn_layers.i`` / ``x_layers.i`` / ``blocks.i`` (``projectors.i``), and
+the leaves ``kernel`` / ``scale`` / ``embedding`` as ``weight``.  Which
+paths exist comes from the key maps of
 :mod:`rgqa_tpu_torch.checkpoint.torch_import` (copies of the JAX
 package's importer key maps), read in reverse.  Flax dense kernels are
 (in, out) and transpose to ``nn.Linear``'s (out, in); ViLT's patch-conv
@@ -34,11 +35,14 @@ from rgqa_tpu_torch.checkpoint.torch_import import (
 __all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
-_STACKED = re.compile(r"^(lang|visn|x|block)_(\d+)$")
-_STACK_NAME = {"lang": "lang_layers", "visn": "visn_layers", "x": "x_layers", "block": "blocks"}
+_STACKED = re.compile(r"^(lang|visn|x|block|proj)_(\d+)$")
+_STACK_NAME = {"lang": "lang_layers", "visn": "visn_layers", "x": "x_layers", "block": "blocks",
+               "proj": "projectors"}
 # Reference GQA checkpoints wrap the encoder (gqa_model.py:14-43); the
-# answer head sits at the top level as logit_fc.*.
+# answer head and the branched confidence head sit at the top level as
+# logit_fc.* and conf_fc.*.
 _REF_ENCODER_PREFIX = "lxrt_encoder.model."
+_REF_TOP_LEVEL = ("logit_fc", "conf_fc")
 _CONV = "#conv"  # vilt_key_map's marker on the patch-conv weight
 _QKV = re.compile(r"^(transformer\.blocks\.\d+\.attn\.)qkv\.(weight|bias)$")
 
@@ -76,9 +80,17 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
         return backbone, vilt_key_map(_count({p[0] for p in flat}, "block"))
     if backbone == "lxmert":
         names = {p[1] for p in flat if len(p) > 1 and p[0] == "lxmert"}
-        return backbone, lxmert_key_map(
-            _count(names, "lang"), _count(names, "x"), _count(names, "visn")
+        key_map = lxmert_key_map(
+            _count(names, "lang"), _count(names, "x"), _count(names, "visn"),
+            branched=("conf_head", "logits", "kernel") in flat,
         )
+        # --branched_layer's heads have no reference keys (the JAX importer
+        # has none either): flax paths only.
+        for i in range(_count({p[0] for p in flat}, "proj")):
+            key_map += [(f"proj_{i}", (f"proj_{i}", leaf), leaf == "kernel") for leaf in ("kernel", "bias")]
+        if ("layer_conf", "kernel") in flat:
+            key_map += [("layer_conf", ("layer_conf", leaf), leaf == "kernel") for leaf in ("kernel", "bias")]
+        return backbone, key_map
     raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
 
 
@@ -107,17 +119,19 @@ def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str
     return sd
 
 
-def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int, num_layers: int):
+def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int, num_layers: int,
+                     branched: bool = False):
     """(reference .pth key, port key) for every parameter; ViLT's keys
-    with its Q/K/V apart (``attn.query`` ...)."""
+    with its Q/K/V apart (``attn.query`` ...); ``branched`` adds
+    LXMERT's ``conf_fc.{0,2,3}``."""
     if backbone == "vilt":
         for tkey, fpath, _ in vilt_key_map(num_layers):
             yield tkey.removesuffix(_CONV), port_key(fpath)
         return
     if backbone != "lxmert":
         raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
-    for tkey, fpath, _ in lxmert_key_map(l_layers, x_layers, r_layers):
-        rkey = tkey if tkey.startswith("logit_fc") else _REF_ENCODER_PREFIX + tkey
+    for tkey, fpath, _ in lxmert_key_map(l_layers, x_layers, r_layers, branched=branched):
+        rkey = tkey if tkey.startswith(_REF_TOP_LEVEL) else _REF_ENCODER_PREFIX + tkey
         yield rkey, port_key(fpath)
 
 
@@ -126,12 +140,15 @@ def to_reference_state_dict(
     x_layers: int = 5, r_layers: int = 5, num_layers: int = 12,
 ) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` under the reference GQA model's key
-    names (GQA-LXMERT, or GQAViLT with each block's Q/K/V fused into
+    names (GQA-LXMERT, with ``conf_fc.*`` when ``sd`` holds the branched
+    ``conf_head``, or GQAViLT with each block's Q/K/V fused into
     ``attn.qkv``): ``torch.save`` it to hand the weights to the reference
-    code, to the JAX package's importer, or to ``--load``."""
+    code, to the JAX package's importer, or to ``--load``.
+    ``--branched_layer``'s heads have no reference keys and are left out."""
+    branched = "conf_head.logits.weight" in sd
     out = {
         rkey: sd[pkey].detach().cpu()
-        for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers)
+        for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers, branched)
     }
     if backbone == "vilt":
         for i in range(num_layers):
@@ -160,20 +177,21 @@ def _split_qkv(ref: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
 
 def load_reference_pth(
     path: str, *, backbone: str = "lxmert", l_layers: int = 9, x_layers: int = 5,
-    r_layers: int = 5, num_layers: int = 12,
+    r_layers: int = 5, num_layers: int = 12, branched: bool = False,
 ) -> tuple[dict[str, torch.Tensor], list[str], list[str]]:
     """Load a reference GQA-LXMERT (``lxrt_encoder.model.bert.*`` +
     ``logit_fc.*``) or GQAViLT (``transformer.*``, ``text_embeddings.*``,
     ``vqa_classifier.*``, ...) ``.pth`` through ``load_torch_state_dict``
     (``module.`` strip, gamma/beta renames).  Torch Linear and Conv2d
     weights are already in the port's layout, so nothing transposes;
-    ViLT's fused ``attn.qkv`` is split.  Returns (state_dict, missing
-    reference keys, unused reference keys)."""
+    ViLT's fused ``attn.qkv`` is split; ``branched`` reads LXMERT's
+    ``conf_fc.{0,2,3}`` too.  Returns (state_dict, missing reference
+    keys, unused reference keys)."""
     ref = load_torch_state_dict(path)
     if backbone == "vilt":
         ref = _split_qkv(ref)
     sd, missing, used = {}, [], set()
-    for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers):
+    for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers, branched):
         if rkey not in ref:
             missing.append(rkey)
             continue

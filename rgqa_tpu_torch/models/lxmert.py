@@ -53,8 +53,9 @@ class VisualFeatEncoder(nn.Module):
 
 
 class LxmertModel(nn.Module):
-    """The language / vision / cross encoder, returning
-    ``{"lang", "visn", "pooled"}``."""
+    """The language / vision / cross encoder, returning ``{"lang",
+    "visn", "pooled", "lang_layers"}``; ``lang_layers`` holds the
+    language output of each cross layer (the taps of ``--branched_layer``)."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -89,9 +90,11 @@ class LxmertModel(nn.Module):
             lang = layer(lang, bias=lang_bias, **kw)
         for layer in self.visn_layers:
             visn = layer(visn, bias=visn_bias, **kw)
+        lang_layers = []
         for layer in self.x_layers:
             lang, visn = layer(lang, lang_bias, visn, visn_bias, **kw)
-        return {"lang": lang, "visn": visn, "pooled": self.pooler(lang)}
+            lang_layers.append(lang)
+        return {"lang": lang, "visn": visn, "pooled": self.pooler(lang), "lang_layers": lang_layers}
 
 
 class AnswerHead(nn.Module):
@@ -108,12 +111,30 @@ class AnswerHead(nn.Module):
 
 
 class LxmertForGQA(nn.Module):
-    """LXMERT + GQA answer head; returns ``{"logits", "pooled"}``."""
+    """LXMERT + GQA answer head; returns ``{"logits", "pooled"[,
+    "conf"]}`` (``rgqa_tpu/models/lxmert.py:189-226``).
 
-    def __init__(self, cfg: EncoderConfig, num_answers: int, dtype: torch.dtype = torch.float32):
+    ``branched``: ``conf`` is a one-logit ``AnswerHead`` on the pooled
+    output (``gqa_model_branched.py:28-51``).  ``branched_layers``: each
+    cross layer's language CLS goes through its own ``Dense(E,
+    project_size)`` and tanh, and ``layer_conf`` maps their concatenation
+    to one logit (``gqa_branched_layer.py:48-60``); it wins when both are
+    set, as in the JAX model."""
+
+    def __init__(
+        self, cfg: EncoderConfig, num_answers: int, dtype: torch.dtype = torch.float32,
+        *, branched: bool = False, branched_layers: bool = False, project_size: int = 128,
+    ):
         super().__init__()
         self.lxmert = LxmertModel(cfg, dtype)
         self.answer_head = AnswerHead(num_answers, cfg.hidden_size, dtype)
+        self.conf_head = AnswerHead(1, cfg.hidden_size, dtype) if branched else None
+        self.projectors = self.layer_conf = None
+        if branched_layers:
+            self.projectors = nn.ModuleList(
+                Dense(cfg.hidden_size, project_size, dtype) for _ in range(cfg.x_layers)
+            )
+            self.layer_conf = Dense(project_size * cfg.x_layers, 1, dtype)
 
     def forward(
         self, input_ids, input_mask, segment_ids, feats, boxes,
@@ -122,4 +143,10 @@ class LxmertForGQA(nn.Module):
         enc = self.lxmert(
             input_ids, input_mask, segment_ids, feats, boxes, use_fused=use_fused, rng=rng
         )
-        return {"logits": self.answer_head(enc["pooled"]), "pooled": enc["pooled"]}
+        out = {"logits": self.answer_head(enc["pooled"]), "pooled": enc["pooled"]}
+        if self.conf_head is not None:
+            out["conf"] = self.conf_head(enc["pooled"])[:, 0]
+        if self.projectors is not None:
+            taps = [torch.tanh(proj(lang[:, 0])) for proj, lang in zip(self.projectors, enc["lang_layers"])]
+            out["conf"] = self.layer_conf(torch.cat(taps, dim=-1))[:, 0]
+        return out

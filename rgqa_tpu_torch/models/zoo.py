@@ -14,6 +14,7 @@
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -28,7 +29,7 @@ from rgqa_tpu_torch.models.transformer import LayerNorm
 from rgqa_tpu_torch.models.vilt import ViltForGQA
 from rgqa_tpu_torch.ops.pixels import pixelbert_normalize
 
-__all__ = ["build_model", "default_config", "example_batch", "init_weights"]
+__all__ = ["build_model", "default_config", "example_batch", "init_weights", "module_mode"]
 
 DENSE_INIT_STD = 0.02  # BERT's normal init, flax ``dense_init`` in the JAX package
 
@@ -99,15 +100,24 @@ def build_model(
     f32 masters under bf16 compute, as the JAX trainer keeps them, and
     the module is in training mode.
 
-    ``forward(batch, *, use_fused=None, rng=None)``: ``rng`` is the
-    :class:`~rgqa_tpu_torch.ops.dropout.DropoutRng` a training forward
-    draws its dropout from."""
+    ``forward(batch, *, deterministic=None, use_fused=None, rng=None)``:
+    ``rng`` is the :class:`~rgqa_tpu_torch.ops.dropout.DropoutRng` a
+    stochastic forward draws its dropout from; ``deterministic`` True runs
+    the call in eval mode, False in training mode (dropout on), None in
+    the module's own mode, which is restored after the call either way.
+
+    ``cfg.branched`` / ``cfg.branched_layers`` add LXMERT's confidence
+    heads (the forward returns ``conf``); ViLT has none, in the JAX
+    package too, and raises."""
     if cfg.backbone not in ("lxmert", "vilt"):
         raise NotImplementedError(
             f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert and vilt"
         )
-    if cfg.branched or cfg.branched_layers:
-        raise NotImplementedError("the branched confidence heads are not ported yet")
+    if cfg.backbone == "vilt" and (cfg.branched or cfg.branched_layers):
+        raise NotImplementedError(
+            "--branched / --branched_layer: ViLT has no branched confidence head "
+            "(nor has the JAX package's ViLT)"
+        )
 
     device = resolve_device(device)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
@@ -118,7 +128,10 @@ def build_model(
                 image_size=cfg.vilt_image_size, dtype=dtype,
             )
         else:
-            model = LxmertForGQA(cfg.encoder, cfg.num_answers, dtype=dtype)
+            model = LxmertForGQA(
+                cfg.encoder, cfg.num_answers, dtype=dtype, branched=cfg.branched,
+                branched_layers=cfg.branched_layers, project_size=cfg.project_size,
+            )
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init_weights(model, generator)
@@ -129,27 +142,46 @@ def build_model(
     if cfg.backbone == "vilt":
         return model, _vilt_forward(model)
 
-    def forward(batch: dict, **kw) -> dict:
-        return model(
-            batch["input_ids"], batch["input_mask"], batch["segment_ids"],
-            batch["feats"], batch["boxes"], **kw,
-        )
+    def forward(batch: dict, *, deterministic: Optional[bool] = None, **kw) -> dict:
+        with module_mode(model, deterministic):
+            return model(
+                batch["input_ids"], batch["input_mask"], batch["segment_ids"],
+                batch["feats"], batch["boxes"], **kw,
+            )
 
     return model, forward
 
 
+@contextlib.contextmanager
+def module_mode(model: nn.Module, deterministic: Optional[bool]):
+    """The JAX adapters' ``deterministic`` as a module mode: True -> eval,
+    False -> training, None -> as it is; the mode before is restored."""
+    before = model.training
+    if deterministic is not None:
+        model.train(not deterministic)
+    try:
+        yield
+    finally:
+        model.train(before)
+
+
 def _vilt_forward(model) -> Callable[..., dict]:
-    def forward(batch: dict, **kw) -> dict:
-        pixels = batch.get("pixels")
-        # An explicit pixel_mask wins over the batch's.
-        pixel_mask = kw.pop("pixel_mask", batch.get("pixel_mask"))
-        if pixels is None:
-            # The u8 wire: normalize on the device; the pad-patch mask
-            # rides the batch as rect geometry.
-            pixels = pixelbert_normalize(batch["pixels_u8"], batch["pixel_rect"])
-        return model(batch["input_ids"], batch["input_mask"], pixels, pixel_mask=pixel_mask, **kw)
+    def forward(batch: dict, *, deterministic: Optional[bool] = None, **kw) -> dict:
+        with module_mode(model, deterministic):
+            return _vilt_call(model, batch, **kw)
 
     return forward
+
+
+def _vilt_call(model, batch: dict, **kw) -> dict:
+    pixels = batch.get("pixels")
+    # An explicit pixel_mask wins over the batch's.
+    pixel_mask = kw.pop("pixel_mask", batch.get("pixel_mask"))
+    if pixels is None:
+        # The u8 wire: normalize on the device; the pad-patch mask rides
+        # the batch as rect geometry.
+        pixels = pixelbert_normalize(batch["pixels_u8"], batch["pixel_rect"])
+    return model(batch["input_ids"], batch["input_mask"], pixels, pixel_mask=pixel_mask, **kw)
 
 
 def example_batch(

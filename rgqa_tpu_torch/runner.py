@@ -18,9 +18,14 @@ answers less the appended ``UQ`` class, initialises the weights from a
   ``LAST.state.pt`` at the end.
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
-  convention).
+  convention).  ``--scorer maha`` evaluates with it too: the estimator's
+  fit encodes the train split when it first runs.  The module is in eval mode outside :meth:`GQARunner.train`; the
+  scorers' forwards set the mode they need and restore it.
 
-Both run lxmert or vilt.
+Both run lxmert or vilt.  For evaluation LXMERT also takes the branched
+confidence heads (``--branched`` / ``--branched_layer``) and, with
+``--strategy separate`` (the evaluate CLI's ``--scorer separate``), a
+one-logit answerability head.
 
 ViLT reads pixels from a pixel pack ``<data_root>/pixels_<size>_<mode>/``
 when one matches this run (built from ``<data_root>/images`` at the
@@ -36,11 +41,12 @@ pack like the eval splits.  Randaug needs PIL and the JPEGs; without
 either the runner raises, naming ``--no_randaug`` (the machine with the
 card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
-Not ported yet, and refused by flag name: the other strategies, mixup,
-the MCE, energy and branched losses, ``--uq_as_class``, ``--chart``,
-chunked dispatch, the other optimizers, bf16 moments, orbax snapshots
-(reading them needs jax), the ``--loadLXMERT`` / ``--loadLXMERTQA``
-initialisations and every backbone but lxmert and vilt.
+Not ported yet, and refused by flag name: training with the other
+strategies, mixup, the MCE, energy and branched losses, ``--uq_as_class``,
+``--chart``, chunked dispatch, the other optimizers, bf16 moments, orbax
+snapshots (reading them needs jax), the ``--loadLXMERT`` /
+``--loadLXMERTQA`` initialisations, the caption strategy and every
+backbone but lxmert and vilt.
 """
 
 from __future__ import annotations
@@ -78,17 +84,18 @@ def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
         f"--backbone {m.backbone}": m.backbone not in ("lxmert", "vilt"),
-        "--branched / --branched_layer": m.branched or m.branched_layers,
         "--uq_as_class": m.uq_as_class,
-        "--loadLXMERT / --loadLXMERTQA / --load_gqa": bool(
-            cfg.load_lxmert or cfg.load_lxmert_qa or cfg.load_gqa
-        ),
+        "--loadLXMERT / --loadLXMERTQA": bool(cfg.load_lxmert or cfg.load_lxmert_qa),
         "--feed_int8": d.feed_int8,
         "--eval_chunk > 1": t.eval_chunk > 1,
+        f"--strategy {t.strategy}": t.strategy == "caption",  # the caps backbone
     }
     if train:
         unported.update({
             f"--strategy {t.strategy}": t.strategy != "conf",
+            "--branched / --branched_layer (training the branched losses)": bool(
+                m.branched or m.branched_layers
+            ),
             "--mixup_mode": bool(t.mixup_mode),
             "--mceLoss": t.loss != "bce",
             "--scorer energy with --m_in (energy margins)": (
@@ -146,15 +153,15 @@ class GQARunner(ScoringMixin):
             # under evaluation.
             self.dataset = GQADataset(root, data.test_splits or data.valid_splits, add_uq=True)
         # The model outputs num_answers - 1 logits; 'UQ' is the appended
-        # indicator class.
-        self.model_cfg = dataclasses.replace(
-            cfg.model, num_answers=self.dataset.num_answers - 1
-        )
+        # indicator class.  A separate detector has one logit.
+        num_real = 1 if cfg.train.strategy == "separate" else self.dataset.num_answers - 1
+        self.model_cfg = dataclasses.replace(cfg.model, num_answers=num_real)
         generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.model, self.forward = build_model(
             self.model_cfg, use_bf16=cfg.train.use_bf16,
             device=self.device, generator=generator, train=init_train,
         )
+        self.model.eval()  # train() switches it to training mode for its epochs
         self.label2ans = self.dataset.label2ans
         if cfg.load:
             self.load(cfg.load)
@@ -223,6 +230,7 @@ class GQARunner(ScoringMixin):
         sd, missing, unused = load_reference_pth(
             path, backbone=self.model_cfg.backbone, l_layers=enc.l_layers,
             x_layers=enc.x_layers, r_layers=enc.r_layers, num_layers=enc.num_layers,
+            branched=self.model_cfg.branched,
         )
         self.model.load_state_dict(sd, strict=False)
         if missing:
@@ -310,20 +318,23 @@ class GQARunner(ScoringMixin):
         best_valid = 0.0
         history = {"loss": [], "valid": []}
         self.model.train()
-        for epoch in range(tcfg.epochs):
-            last_loss = math.nan
-            epoch_start = time.time()
-            batches = device_prefetch(
-                batch_iterator(
-                    self.train_set, tcfg.batch_size, shuffle=True, rng=shuffle,
-                    drop_last=True, with_target=True,
-                ),
-                self.device,
-            )
-            for _, batch, _ in batches:
-                last_loss = step(batch)["loss"]
-                steps += 1
-            best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid)
+        try:
+            for epoch in range(tcfg.epochs):
+                last_loss = math.nan
+                epoch_start = time.time()
+                batches = device_prefetch(
+                    batch_iterator(
+                        self.train_set, tcfg.batch_size, shuffle=True, rng=shuffle,
+                        drop_last=True, with_target=True,
+                    ),
+                    self.device,
+                )
+                for _, batch, _ in batches:
+                    last_loss = step(batch)["loss"]
+                    steps += 1
+                best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid)
+        finally:
+            self.model.eval()
 
         self.save("LAST")
         save_train_state(

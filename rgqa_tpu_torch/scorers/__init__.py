@@ -1,5 +1,61 @@
-"""Rejection scorers (msp so far)."""
+"""Rejection scorer registry (port of ``rgqa_tpu/scorers/__init__.py``).
 
-from rgqa_tpu_torch.scorers.core import make_msp_scorer
+Every scorer is ``score_fn(batch) -> {"label", "score"[, "probs"]}``
+built from a backbone's forward adapter: msp, energy, odin, dropout
+(MC-dropout), branched and maha; ``ensemble_merge`` merges per-model
+sigmoid vectors, and ``calibrate_tau`` / ``apply_tau`` set the
+``--target_acc`` threshold.  The host-side scorers of the JAX package
+(FRCNN coverage, CLIP and caption matching) and the LXMERT match scorer
+are not ported: the evaluate CLI refuses ``--scorer frcnn``, ``clip``,
+``match`` and ``caption`` by name.
+"""
 
-__all__ = ["make_msp_scorer"]
+from rgqa_tpu_torch.scorers.calibrate import apply_tau, calibrate_tau
+from rgqa_tpu_torch.scorers.core import (
+    ensemble_merge,
+    majority_vote,
+    make_branched_scorer,
+    make_dropout_scorer,
+    make_energy_scorer,
+    make_msp_scorer,
+    make_odin_scorer,
+)
+from rgqa_tpu_torch.scorers.maha import MahaEstimator, fit_estimator, make_maha_scorer
+
+__all__ = [
+    "make_msp_scorer",
+    "make_energy_scorer",
+    "make_odin_scorer",
+    "make_dropout_scorer",
+    "make_branched_scorer",
+    "majority_vote",
+    "ensemble_merge",
+    "MahaEstimator",
+    "fit_estimator",
+    "make_maha_scorer",
+    "calibrate_tau",
+    "apply_tau",
+    "make_scorer",
+]
+
+
+def make_scorer(name: str, forward, **opts):
+    """Build a scorer by name (the ``--scorer`` flag), with the JAX
+    package's defaults: topk 2, temperature 1e5, noise 1e-4, seed list
+    (0, 1, 2, 3, 4); ``maha`` needs ``estimator``."""
+    name = name.lower()
+    if name == "msp":
+        return make_msp_scorer(forward)
+    if name == "energy":
+        return make_energy_scorer(forward, topk=opts.get("topk", 2))
+    if name == "odin":
+        return make_odin_scorer(
+            forward, temperature=opts.get("temperature", 1e5), noise=opts.get("noise", 1e-4)
+        )
+    if name == "dropout":
+        return make_dropout_scorer(forward, opts.get("seed_list", (0, 1, 2, 3, 4)))
+    if name == "branched":
+        return make_branched_scorer(forward, mix=opts.get("mix", False))
+    if name == "maha":
+        return make_maha_scorer(forward, opts["estimator"], noise=opts.get("noise", 0.0))
+    raise ValueError(f"unknown scorer {name!r}")

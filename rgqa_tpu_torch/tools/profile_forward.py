@@ -5,6 +5,8 @@ goes on one CUDA card.
         [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone vilt]
         [--batch 32] [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
+        [--out FILE.json]
 
 Builds ``LxmertForGQA`` (or, with ``--backbone vilt``, ViLT-B/32 with
 40-token text, a 185-token stream) at full width
@@ -14,7 +16,13 @@ and through the plain version.
 With ``--train`` it runs training steps instead (f32 master weights,
 bf16 compute, RP pairing, BertAdam, dropout 0.1 and 0, kernels and
 plain versions); ViLT trains on the train CLI's 20-token text, a
-165-token stream, on the u8 pixel wire with padded rects.  For each run:
+165-token stream, on the u8 pixel wire with padded rects.  With
+``--scorers`` it runs one scorer call per batch of full-width LXMERT
+(bf16 serving weights), kernels and plain versions: msp, energy, ODIN
+(T 1e5, noise 1e-4), Mahalanobis un-noised and noised (1e-2; the
+estimator fitted on four batches of pooled features with one-hot
+targets over 16 answers) and MC-dropout (seeds 0-4, dropout 0.1).  For
+each run:
 
 - wall per forward: the best of ``--repeats`` means over ``--iters``
   forwards, synchronised at both ends, for every run before the first
@@ -168,12 +176,47 @@ def _train_cases(sizes, backbone: str) -> dict:
     return cases
 
 
+def _scorer_cases(sizes) -> dict:
+    """{(batch, "<scorer> kernels" | "<scorer> plain"): one scorer call}
+    on one full-width LXMERT with bf16 serving weights."""
+    from rgqa_tpu_torch.scorers import fit_estimator, make_scorer
+
+    cfg = default_config()
+    _, forward = build_model(cfg, use_bf16=True, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+    plain = functools.partial(forward, use_fused=False)
+
+    def fit_batches(size):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        for i in range(4):
+            batch = to_device(example_batch(cfg, size, seed=1 + i), "cuda")
+            with torch.no_grad():
+                pooled = forward(batch, deterministic=True)["pooled"]
+            target = torch.zeros((size, cfg.num_answers), device="cuda")
+            target[torch.arange(size, device="cuda"),
+                   torch.randint(0, 16, (size,), device="cuda", generator=gen)] = 1.0
+            yield pooled, target
+
+    cases = {}
+    for size in sizes:
+        est = fit_estimator(fit_batches(size), cfg.num_answers, cfg.encoder.hidden_size)
+        batch = to_device(example_batch(cfg, size, seed=0), "cuda")
+        for name, kind, extra in (("msp", "msp", {}), ("energy", "energy", {}), ("odin", "odin", {}),
+                                  ("maha", "maha", {}), ("maha noised", "maha", {"noise": 1e-2}),
+                                  ("dropout", "dropout", {})):
+            for route, fwd in (("kernels", forward), ("plain", plain)):
+                scorer = make_scorer(kind, fwd, estimator=est, seed_list=(0, 1, 2, 3, 4), **extra)
+                cases[(size, f"{name} {route}")] = functools.partial(scorer, batch)
+    return cases
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=None,
                     help="batch sizes (default 256 32; with --train 32, doubled by RP)")
     ap.add_argument("--backbone", choices=("lxmert", "vilt"), default="lxmert")
     ap.add_argument("--train", action="store_true", help="profile training steps")
+    ap.add_argument("--scorers", action="store_true", help="profile the rejection scorers (LXMERT)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
@@ -188,7 +231,9 @@ def main(argv=None) -> list:
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}")
     if args.train:
         return _profile(_train_cases(args.batch or [32], args.backbone), args, smi, args.out,
-                        grad=True)
+                        unit="step")
+    if args.scorers:
+        return _profile(_scorer_cases(args.batch or [256]), args, smi, args.out, unit="scorer call")
 
     cfg = default_config(args.backbone)
     _, forward = build_model(
@@ -201,7 +246,7 @@ def main(argv=None) -> list:
         fns[(size, "kernel")] = functools.partial(forward, batch)
         fns[(size, "plain")] = functools.partial(forward, batch, use_fused=False)
     with torch.inference_mode():
-        return _profile(fns, args, smi, args.out, grad=False)
+        return _profile(fns, args, smi, args.out, unit="forward")
 
 
 def _attention_launches() -> int:
@@ -211,8 +256,7 @@ def _attention_launches() -> int:
         att.fused_attention_dropout_bwd_cuda))
 
 
-def _profile(fns: dict, args, smi: str, out: str, *, grad: bool) -> list:
-    unit = "step" if grad else "forward"
+def _profile(fns: dict, args, smi: str, out: str, *, unit: str) -> list:
     walls = {}
     runs = []
     for case, fn in fns.items():

@@ -140,7 +140,12 @@ def test_from_jax_params_refuses_unported_heads():
     batch = _batch(cfg)
     args = [batch[k] for k in ("input_ids", "input_mask", "segment_ids", "feats", "boxes")]
     params = model.init(jax.random.PRNGKey(0), *args)["params"]
-    with pytest.raises(ValueError, match="conf_head"):
+    # The branched confidence head is ported (slice 10) ...
+    assert from_jax_params(params)["conf_head.logits.weight"].shape == (1, 64)
+    # ... a pretraining head is not.
+    params = dict(params, matched_head={"kernel": np.zeros((32, 2), np.float32),
+                                        "bias": np.zeros((2,), np.float32)})
+    with pytest.raises(ValueError, match="matched_head"):
         from_jax_params(params)
 
 

@@ -155,9 +155,9 @@ def test_cli_writes_predictions_and_metrics(tmp_path):
 @pytest.mark.parametrize(
     "extra, match",
     [
-        (["--scorer", "energy"], "--scorer energy is not ported"),
-        (["--load", "a.pth,b.pth"], "ensemble"),
-        (["--target_acc", "0.9"], "--target_acc"),
+        (["--scorer", "frcnn"], "--scorer frcnn is not ported"),
+        (["--scorer", "match"], "--scorer match is not ported"),
+        (["--scorer", "caption"], "--scorer caption is not ported"),
     ],
 )
 def test_cli_refuses_unported_options(tmp_path, extra, match):
@@ -174,8 +174,8 @@ def test_runner_refuses_orbax_snapshots_and_unported_options(tmp_path):
         GQARunner(_cfg(root, str(tmp_path / "o"), load=str(tmp_path / "snap_dir")),
                   init_train=False, device="cpu")
     cfg = _cfg(root, str(tmp_path / "o"))
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, branched=True))
-    with pytest.raises(NotImplementedError, match="--branched"):
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, uq_as_class=True))
+    with pytest.raises(NotImplementedError, match="--uq_as_class"):
         GQARunner(cfg, init_train=False, device="cpu")
 
 

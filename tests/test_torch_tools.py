@@ -132,3 +132,13 @@ def test_time_attention_refuses_unknown_groups():
 )
 def test_profile_kernel_classes(name, cls):
     assert classify(name) == cls
+
+
+@pytest.mark.parametrize("flags", [[], ["--train"], ["--scorers"]], ids=["forward", "train", "scorers"])
+def test_profile_forward_needs_a_card(flags):
+    if __import__("torch").cuda.is_available():
+        pytest.skip("a card is present: the profile would run")
+    from rgqa_tpu_torch.tools import profile_forward
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        profile_forward.main([*flags, "--iters", "1"])
