@@ -412,9 +412,11 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers", "spill", "rror", "Performance Loss")):
                 log("build", "  " + line.strip())
     _wgmma_report(results["headfold"])
+    _long_wgmma_report(results["fused_attention_long"])
 
 
 WGMMA_KERNEL = re.compile(r"headfold_wgmmaILi(\d+)E")  # headfold_wgmma<kNP>, kNP keys in the window
+LONG_WGMMA_KERNEL = re.compile(r"fused_attention_long_wgmmaILi(\d+)E")  # <kWG> warpgroups a block
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -489,6 +491,38 @@ def _wgmma_report(res) -> None:
         + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
     if hgmma is not None and not all(hgmma.get(n, 0) > 0 for n in used):
         raise AssertionError(f"headfold's bf16 body issues no HGMMA at some used N: {hgmma}")
+
+
+def _long_wgmma_report(res) -> None:
+    """#2's bf16 body (slice 11, ``fused_attention_long_wgmma<kWG>``, one
+    instance per warpgroups a block): registers, spills and shared memory
+    from the build log, and HGMMA in its SASS; an instance without HGMMA
+    fails the phase."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(res.path))
+    lib.rgqa_fused_attention_long_smem.argtypes = [ctypes.c_int]
+    lib.rgqa_fused_attention_long_smem.restype = ctypes.c_int
+    res_by_wg = {int(m.group(1)): r for fn, r in _ptxas_resources(res.log).items()
+                 if (m := LONG_WGMMA_KERNEL.search(fn))}
+    sass = _sass_hgmma(res.path)
+    hgmma = None if sass is None else {int(m.group(1)): c for fn, c in sass.items()
+                                       if (m := LONG_WGMMA_KERNEL.search(fn))}
+    parts = []
+    for wg in sorted(set(res_by_wg) | set(hgmma or {})):
+        part = f"{wg} warpgroups: {lib.rgqa_fused_attention_long_smem(wg)} B dynamic smem"
+        if wg in res_by_wg:
+            r = res_by_wg[wg]
+            part += (f", {r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "
+                     f"stores/loads, {r['smem']} B static smem")
+        if hgmma is not None:
+            part += f", {hgmma.get(wg, 0)} HGMMA in SASS"
+        parts.append(part)
+    log("build", "#2 bf16 body (fused_attention_long_wgmma<kWG>, wgmma): " + "; ".join(parts)
+        + ("" if res.log else "; reused build, no ptxas log to read")
+        + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
+    if hgmma is not None and (not hgmma or not all(hgmma.values())):
+        raise AssertionError(f"#2's bf16 body has no HGMMA in some instance: {hgmma}")
 
 
 # ---------------------------------------------------------------------------
@@ -1821,11 +1855,10 @@ def _plain_rescore(phase, argv, root, rows, kind) -> None:
     import torch
     from rgqa_tpu_torch.cli import evaluate
     from rgqa_tpu_torch.data.dataset import GQADataset
-    from rgqa_tpu_torch.runner import GQARunner
 
     before = read_counts()
     cfg, device, plan = evaluate.parse_args(argv)
-    runner = GQARunner(cfg, init_train=False, device=device)
+    runner = evaluate.make_runner(cfg, device, plan["scorer"])
     fused = runner.forward
     runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
     encoded = runner._encode(GQADataset(root, "testdev", add_uq=True))

@@ -73,10 +73,19 @@ def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
     return cfg, ns.device, {"scorer": scorer, "ensemble": ensemble, "target_acc": ns.target_acc}
 
 
+def make_runner(cfg: RunConfig, device: str, scorer: str) -> GQARunner:
+    """The runner that scores: an evaluation runner (bf16 serving
+    weights under bf16), but for ``maha`` a training runner, as the JAX
+    CLI builds it (``init_train=scorer_name == "maha"``): its f32 master
+    weights fit the estimator that ``sample_estimates.pkl`` keeps for
+    every later run, and score under bf16 compute."""
+    return GQARunner(cfg, init_train=scorer == "maha", device=device)
+
+
 def main(argv=None) -> dict:
     cfg, device, plan = parse_args(argv)
     scorer = plan["scorer"]
-    runner = GQARunner(cfg, init_train=False, device=device)
+    runner = make_runner(cfg, device, scorer)
     answerer = None
     if scorer == "separate":
         answerer = GQARunner(

@@ -15,12 +15,11 @@
 // bodies (fused_attention_fwd_short_bf16, fused_attention_bwd_short_bf16)
 // keep the score tiles and every product in registers.  The f32 forward
 // body also takes a query tile (kTileQ rows each): fused_attention_long.cu
-// runs it, and a bf16 body of its own, on a (batch row, head, query tile)
-// grid for streams of up to kLongWholeKv keys (ViLT-B/32's 165-185
-// tokens), with each tile's complete softmax over every key; at <= 64
-// query rows there is one tile and the body is the short kernel's.
-// Longer streams (ViLT at a larger image or a smaller patch) go to the
-// long kernels' key-tiled bodies, which keep no row-wide array.  The
+// runs it on a (batch row, head, query tile) grid for f32 streams of up
+// to kLongWholeKv keys, with each tile's complete softmax over every key;
+// at <= 64 query rows there is one tile and the body is the short
+// kernel's.  Longer f32 streams, every bf16 stream beyond 64 tokens (a
+// wgmma body of its own) and the long backward walk key tiles.  The
 // forward and backward bodies are templates on kDrop: the dropout kernels
 // are the same code with the mask applied, so at rate 0 (threshold 0, keep
 // scale 1) they compute bit for bit what the deterministic ones do.
@@ -44,9 +43,10 @@ constexpr int kMaxSeq = 64;
 constexpr int kMaxDim = 64;
 // The long-stream kernels (fused_attention_long.cu,
 // fused_attention_long_bwd.cu): any number of query rows in tiles of
-// kTileQ and any number of keys.  Up to kLongWholeKv keys the forward
-// runs its whole-row bodies (kLongWholeKv / 32 keys per lane in the f32
-// softmax); beyond, and in the backward, keys come in tiles of kKvTile.
+// kTileQ and any number of keys.  Up to kLongWholeKv keys the f32
+// forward runs its whole-row body (kLongWholeKv / 32 keys per lane in the
+// softmax); beyond, in the bf16 forward and in the backward, keys come in
+// tiles of kKvTile.
 constexpr int kTileQ = 64;
 constexpr int kLongWholeKv = 256;
 constexpr int kKvTile = 64;
@@ -277,7 +277,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
 // Key rows k0 .. k0 + kKvTile - 1 of a (batch row, head)'s K and V into
 // ks and vs (bf16, row stride ld, zero past skv) and their bias into bs
 // (f32, -inf past skv), all by cp.async (a plain load of the bias would
-// stall the block for a memory latency): a stage of the key-tiled bodies'
+// stall the block for a memory latency): a stage of the long backward's
 // rings; the caller commits the group.
 __device__ __forceinline__ void load_kv_tile(const Args& a, int b, int h, int k0,
                                              __nv_bfloat16* ks, __nv_bfloat16* vs, float* bs,

@@ -10,73 +10,70 @@
 //
 //     out[b, :, h*D:(h+1)*D] = softmax(q_h k_h^T / sqrt(D) + bias[b]) v_h
 //
-// with the numerics of the short kernel (fused_attention.cu): products of
-// input-dtype operands with f32 accumulation, scores and softmax in f32,
-// P rounded to the input dtype before the PV product.  When the caller
-// passes lse (training: the backward's row statistics), each query row
-// also gets (m, log(sum)), its scores' max and the log of its softmax sum,
-// in a (B, H, Sq, 2) f32 tensor: their sum is the row's log-sum-exp, kept
-// in two parts because a fully masked row's scores lie near -1e4, where
-// one f32 holds the sum only to 2^-10, and exp(s - lse) would then scale
-// the whole row's P by up to 5e-4; exp((s - m) - log(sum)) is exact to a
-// few ulp.  Without lse the output is unchanged.
-//
-// One block per (batch row, head, query tile of kTileQ = 64 rows), the
-// tile index fastest so that the tiles of a row run together.  Two bodies
-// per dtype, chosen by Skv:
-//
-// Skv <= kLongWholeKv = 256, the whole-row bodies (ViLT-B/32's path): the
-// block holds the row's whole K and V in shared memory next to its query
-// tile, and each query row gets its complete softmax in one pass.
-// - bf16 (fused_attention_long_bf16): each of the 4 warps owns 16 query
-//   rows and keeps their scores in registers, in the accumulator layout
-//   of mma.sync m16n8k16 (kNT tiles of 8 keys, 4 values each per lane):
-//   S = Q K^T on the tensor cores, the row max and sum by quad shuffles,
-//   P rounded to bf16 straight into the A fragments of the PV product
-//   (the layouts coincide), O = P V on the tensor cores, the output
-//   written once.  Nothing but Q, K, V and the bias touches shared
-//   memory, and after the loads there is no barrier.  The kernel is bound
-//   by its instruction stream, not by bytes, so the softmax takes exp as
-//   ex2.approx (__expf) and 1/sum once per row, whose f32 errors (a few
-//   ulp) are far below the bf16 rounding of P, and the registers are
-//   capped so that 3 blocks share an SM: each step cut the time at batch
-//   256 by 1.2-1.4x (PERF.md).  A first version kept the tile's scores
-//   and probabilities in shared memory (the short kernel's body with
-//   query tiles): one block of 4 warps per SM, every phase behind a
-//   barrier, 2.6-3.2 ms per call at batch 256.
-// - f32: the short kernel's CUDA-core body (attention_common.cuh,
-//   fused_attention_f32) with query tiles, kLongPerLane = 8 keys per lane
-//   in the softmax and kLongF32Threads = 1024 threads, exact to the plain
-//   version's order.
-//
-// Skv > 256, the key-tiled bodies: the whole-row bodies hold a row's K
-// and V in shared memory and, in bf16, each warp's scores for every key
-// in registers, which caps them at 256 keys.  These walk the keys in
-// tiles of kKvTile = 64 with an online softmax: a running max m and sum l
-// per row, O rescaled by exp(m_old - m_new) when the max moves, O / l
-// once at the end.
-// - bf16 (fused_attention_long_tiled_bf16): K, V and bias tiles stream
-//   through a double-buffered cp.async ring (tile t + 1 in flight while
-//   tile t is computed, one barrier pair per tile, no plain global load); each warp keeps its
-//   16 rows' Q fragments, O (16 x 64 f32) and (m, l) in registers; S = Q
-//   K^T and O += P V on the tensor cores with every fragment loaded by
-//   ldmatrix (.trans for V); P = exp(S - m) rounded to bf16 unnormalised.
-//   128 registers (capped for 4 blocks per SM; 36 bytes spilled) and
-//   46.6 KB of shared memory at D = 64.
-// - f32 (fused_attention_long_tiled_f32): the same algorithm on the CUDA
-//   cores (scores in shared memory by tile, expf, fmaf in key order),
-//   checked, not timed.
+// with products of input-dtype operands and f32 accumulation, scores and
+// softmax in f32, P rounded to the input dtype before the PV product.
+// When the caller passes lse (training: the backward's row statistics),
+// each query row also gets (m, log(sum)), its scores' max and the log of
+// its softmax sum, in a (B, H, Sq, 2) f32 tensor: their sum is the row's
+// log-sum-exp, kept in two parts because a fully masked row's scores lie
+// near -1e4, where one f32 holds the sum only to 2^-10, and exp(s - lse)
+// would then scale the whole row's P by up to 5e-4; exp((s - m) -
+// log(sum)) is exact to a few ulp.  Without lse the output is unchanged.
 //
 // What bounds it on an H100 (bf16, 12 heads of 64; chip_smoke.py's
 // _bound_ms): at 165-185 tokens, batch 256, a call moves 260-291 MB (q,
 // k, v read once, the output written once) against 21-27 GFLOP, so bytes
 // bound it, 78-87 us at 3.35 TB/s; at 277 tokens 436 MB, 130 us (61 us of
 // products); at 597 tokens, batch 64, 235 MB (70.1 us) against 70 GFLOP
-// (70.9 us): the products.  q, k and v are read by stride straight out
-// of the fused QKV projection (cp.async, no transposes, no (B, H, Sq,
-// Skv) mask in device memory); each query tile re-reads its row's K and
-// V (from L2 while the row's tiles run together).  wgmma and TMA are
-// later work.
+// (70.9 us): the products.
+//
+// bf16 (fused_attention_long_wgmma<kWG>), one body for every length, on
+// Hopper's warpgroup products (wgmma.cuh).  One block per (batch row,
+// head, group of kWG = 2 query tiles of kTileQ = 64 rows; 1 when Sq <=
+// 64): warpgroup w owns query tile w of the group, 64 rows, wgmma's
+// native M.  The block walks the row's keys in tiles of kKvTile = 64
+// with an online softmax (a running max m and sum l per row, O rescaled
+// by exp(m_old - m_new) when the max moves, O / l once at the end), and
+// - K, V and the bias stream through a ring of kRingStages = 3 stages
+//   that every thread of the block fills by cp.async, straight from the
+//   strided q, k, v of the fused QKV product into the 128-byte swizzle
+//   that wgmma reads (no copies in device memory): the loads of tiles
+//   kt + 1 and kt + 2 are in flight while tile kt is computed, one
+//   barrier per tile; the group's two query tiles share each K / V load;
+// - S = Q K^T as wgmma m64n64k16 from shared memory, in registers (32 f32
+//   a thread, the m16n8 C layout); the row max and sum by quad shuffles,
+//   exp as ex2.approx (__expf), whose f32 errors are far below the bf16
+//   rounding of P; P = exp(S - m) rounded to bf16 straight into the
+//   register A fragments of O += P V, wgmma m64n64k16 with V MN-major
+//   from the stage; O (32 f32 a thread) in registers, written once.
+// S and P never touch shared memory.  Ragged tiles: the key tiles past
+// skv are zero with a -inf bias (P = 0), query rows past sq are zero and
+// not written, and a warpgroup whose tile lies past sq only loads and
+// syncs.  The body holds 118 registers and 67 KB of shared memory, so
+// two blocks share an SM: 4 warpgroups, which hide each other's softmax
+// and loads.  Measured on the H100 (PERF.md, device time at batch 256,
+// 165 / 185 / 277 tokens; 597 at batch 64): 2 warpgroups a block
+// 181-184 / 182-183 / 410 / 346 us; 3 a block (every query tile of a
+// 165-185-token row in one block, K and V read once per row and head;
+// 153 registers, one block an SM) 198-201 / 202 / 476 / 420; 1 a block
+// (3 blocks an SM, by shared memory) 185-190 / 188-189 / 455 / 423; ring
+// depth 2 or 4 instead of 3, 2-6% slower at 165-277 tokens, even at 597.
+// TMA is not used: at 3 stages the loads already hide behind the
+// products (the depth does not move the time), and cp.async writes the
+// same swizzled layout without a tensor map (no libcuda, no -lcuda).
+// The bf16 bodies this one replaced (mma.sync m16n8k16, 463-473 us at
+// 165-185 tokens): a whole-row body up to 256 keys, one block of 4 warps
+// per (row, head, query tile) that loaded the row's whole K and V and
+// waited for every load before its first product (each query tile
+// re-read K and V), and a key-tiled body beyond, 64-key tiles through a
+// double-buffered ring with ldmatrix fragments (36 bytes spilled).
+//
+// f32, checked, not timed, on the CUDA cores: up to kLongWholeKv = 256
+// keys the short kernel's body (attention_common.cuh, fused_attention_f32)
+// with query tiles, kLongPerLane = 8 keys per lane in the softmax and
+// kLongF32Threads = 1024 threads, exact to the plain version's order;
+// beyond, fused_attention_long_tiled_f32, the online softmax over key
+// tiles (scores in shared memory by tile, expf, fmaf in key order).
 //
 // Limits: any Sq and Skv, D <= 64 (the wrapper raises beyond that); f32
 // and bf16 inputs; the bias is a (B, Skv) f32 additive mask.  A fully
@@ -84,358 +81,315 @@
 // lse and output.
 
 #include "attention_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-// Shared memory of the bf16 body, bf16 unless noted; row strides DP + 8
-// as in FwdShortLayout: Qs (kTileQ x DP), Ks and Vs (SKP x DP) zero-padded,
-// bias f32 (SKP, -inf past skv).
-struct LongLayout {
-  int skp, dp, ldq;
+// ---------------------------------------------------------------------------
+// bf16: wgmma over a ring of key tiles.
+// ---------------------------------------------------------------------------
+
+// Build-time knobs of the bf16 body, for A/B builds of variants
+// (tools/time_attention.py --only long_variants): RGQA_LONG_WG fixes the
+// warpgroups of a block (0: launch_long_bf16's choice, below),
+// RGQA_LONG_STAGES the key tiles the ring holds, RGQA_LONG_NO_STREAM 1
+// loads only the ring's first fill (later tiles compute on stale stages:
+// wrong output, the time of the body without its K / V stream), and
+// RGQA_LONG_PERSISTENT 1 launches as many blocks as the card holds at
+// once, each walking work items (0: one block per item).
+#ifndef RGQA_LONG_WG
+#define RGQA_LONG_WG 0
+#endif
+#ifndef RGQA_LONG_STAGES
+#define RGQA_LONG_STAGES 3
+#endif
+#ifndef RGQA_LONG_NO_STREAM
+#define RGQA_LONG_NO_STREAM 0
+#endif
+#ifndef RGQA_LONG_PERSISTENT
+#define RGQA_LONG_PERSISTENT 0
+#endif
+
+constexpr int kRingStages = RGQA_LONG_STAGES;
+static_assert(kRingStages >= 2, "the ring needs a stage in flight beside the one computed");
+constexpr int kRow = 64;                   // bf16 values in one 128-byte swizzled row
+constexpr unsigned kSwizzlePeriod = 1024;  // bytes: 8 swizzled rows
+constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * kRow * kTileQ;  // a 64-row tile, 8 KB
+
+// Shared memory of a block of `wg` warpgroups: kRingStages slots of
+// their Q tiles (one per work item whose tiles the ring may hold), then
+// the ring's K and V stages (each tile on a 1024-byte boundary, the
+// swizzle's period), then the ring's bias stages (kKvTile f32 each, -inf
+// past skv).  The launch adds one period so that the kernel can align
+// the tiles itself.
+struct RingLayout {
   size_t k_off, v_off, b_off, bytes;
 };
 
-__host__ __device__ inline LongLayout long_layout(int skv, int d) {
-  LongLayout L;
-  L.skp = (skv + 15) / 16 * 16;
-  L.dp = (d + 15) / 16 * 16;
-  L.ldq = L.dp + 8;
-  const size_t bf = sizeof(__nv_bfloat16);
-  L.k_off = bf * kTileQ * L.ldq;  // every offset a multiple of 16 bytes
-  L.v_off = L.k_off + bf * L.skp * L.ldq;
-  L.b_off = L.v_off + bf * L.skp * L.ldq;
-  L.bytes = L.b_off + sizeof(float) * L.skp;
+__host__ __device__ inline RingLayout ring_layout(int wg) {
+  RingLayout L;
+  L.k_off = kTileBytes * wg * kRingStages;
+  L.v_off = L.k_off + kTileBytes * kRingStages;
+  L.b_off = L.v_off + kTileBytes * kRingStages;
+  L.bytes = L.b_off + sizeof(float) * kKvTile * kRingStages;
   return L;
 }
 
-// kNT: tiles of 8 keys each thread holds scores for (skv <= 8 kNT, even).
-template <int kNT>
-__global__ void __launch_bounds__(kMmaThreads, 3) fused_attention_long_bf16(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FwdTile f = fwd_tile(a, sizeof(__nv_bfloat16));
-  const int b = f.b, h = f.h, q0 = f.q0;
-  const int sq = f.t.sq, skv = a.skv, d = a.dim;
-  const LongLayout L = long_layout(skv, d);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.v_off);
-  float* bs = reinterpret_cast<float*>(smem_raw + L.b_off);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+size_t ring_smem_bytes(int wg) { return ring_layout(wg).bytes + kSwizzlePeriod; }
 
-  load_tile(qs, L.ldq, static_cast<const __nv_bfloat16*>(f.t.q) + b * a.q_bs + h * d, a.q_rs,
-            sq, kTileQ, d, L.dp, tid);
-  load_tile(ks, L.ldq, static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + h * d, a.k_rs,
-            skv, L.skp, d, L.dp, tid);
-  load_tile(vs, L.ldq, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * d, a.v_rs,
-            skv, L.skp, d, L.dp, tid);
-  for (int j = tid; j < L.skp; j += kMmaThreads) {
-    bs[j] = j < skv ? a.bias[b * skv + j] : -CUDART_INF_F;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  const int r0 = warp * 16;  // the warp's first row in the tile
-  if (r0 >= sq) return;      // no barrier follows: idle warps of a ragged tile stop
-  const int g = lane >> 2, t = (lane & 3) * 2;
-
-  // S = Q K^T * scale + bias for rows r0 + g (s[nt][0..1]) and r0 + g + 8
-  // (s[nt][2..3]), keys nt * 8 + t and + 1; -inf past skv.
-  uint32_t qa[kMaxDim / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kMaxDim / 16; ++kk) {
-    if (kk * 16 < L.dp) {
-      const __nv_bfloat16* qrow = qs + (r0 + g) * L.ldq + kk * 16 + t;
-      qa[kk][0] = ld_pair(qrow);
-      qa[kk][1] = ld_pair(qrow + 8 * L.ldq);
-      qa[kk][2] = ld_pair(qrow + 8);
-      qa[kk][3] = ld_pair(qrow + 8 * L.ldq + 8);
-    }
-  }
-  float s[kNT][4];
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    if (nt * 8 < skv) {
-#pragma unroll
-      for (int kk = 0; kk < kMaxDim / 16; ++kk) {
-        if (kk * 16 < L.dp) {
-          const __nv_bfloat16* krow = ks + (nt * 8 + g) * L.ldq + kk * 16 + t;
-          mma_16x8x16(s[nt], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], ld_pair(krow),
-                      ld_pair(krow + 8));
-        }
+// `rows` rows (< kTileQ: the rest zero) of d values of a strided bf16
+// source, row stride rs, into a 64-row tile at dst in the 128-byte
+// swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8), zero past d.
+// cp.async where the source allows 16-byte copies; the caller commits,
+// waits, fences (fence_proxy_async) and syncs before wgmma reads it.
+__device__ __forceinline__ void load_swizzled(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                              long long rs, int d, int rows, int tid,
+                                              int nthreads) {
+  const bool vec = d % 8 == 0 && rs % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  for (int i = tid; i < kTileQ * 8; i += nthreads) {
+    const int r = i >> 3, c = i & 7;
+    __nv_bfloat16* chunk = dst + r * kRow + ((c ^ (r & 7)) << 3);
+    if (r < rows && c * 8 < d) {
+      const __nv_bfloat16* s = src + r * rs + c * 8;
+      if (vec) {
+        cp_async16(chunk, s);
+      } else {
+        for (int e = 0; e < 8; ++e) chunk[e] = c * 8 + e < d ? s[e] : __float2bfloat16(0.f);
       }
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = nt * 8 + t + (e & 1);
-      s[nt][e] = j < skv ? s[nt][e] * a.scale + bs[j] : -CUDART_INF_F;
-    }
-    m0 = fmaxf(m0, fmaxf(s[nt][0], s[nt][1]));
-    m1 = fmaxf(m1, fmaxf(s[nt][2], s[nt][3]));
-  }
-  // A row's values sit in the 4 lanes of a quad.  A fully masked row
-  // (all -10000) still has a finite max, so every e is finite, sum >= 1.
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = nt * 8 + t + (e & 1);
-      s[nt][e] = j < skv ? __expf(s[nt][e] - (e < 2 ? m0 : m1)) : 0.f;
-    }
-    sum0 += s[nt][0] + s[nt][1];
-    sum1 += s[nt][2] + s[nt][3];
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
-  if (a.lse != nullptr && (lane & 3) == 0) {
-    float* lse = a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0 + r0 + g);
-    if (r0 + g < sq) {
-      lse[0] = m0;
-      lse[1] = logf(sum0);
-    }
-    if (r0 + g + 8 < sq) {
-      lse[16] = m1;
-      lse[17] = logf(sum1);
-    }
-  }
-
-  // O = P V, P = e * (1 / sum) in bf16: the accumulators of key tiles 2kk and
-  // 2kk + 1 are the A fragment of the k-step over keys 16kk .. 16kk + 15.
-  float o[kMaxDim / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kMaxDim / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kNT / 2; ++kk) {
-    if (kk * 16 < skv) {
-      const int lo = 2 * kk, hi = 2 * kk + 1;
-      const uint32_t a0 = pack_pair(__float2bfloat16(s[lo][0] * inv0), __float2bfloat16(s[lo][1] * inv0));
-      const uint32_t a1 = pack_pair(__float2bfloat16(s[lo][2] * inv1), __float2bfloat16(s[lo][3] * inv1));
-      const uint32_t a2 = pack_pair(__float2bfloat16(s[hi][0] * inv0), __float2bfloat16(s[hi][1] * inv0));
-      const uint32_t a3 = pack_pair(__float2bfloat16(s[hi][2] * inv1), __float2bfloat16(s[hi][3] * inv1));
-      const __nv_bfloat16* vrow = vs + (kk * 16 + t) * L.ldq + g;
-#pragma unroll
-      for (int dt = 0; dt < kMaxDim / 8; ++dt) {
-        if (dt * 8 < d) {
-          const __nv_bfloat16* v = vrow + dt * 8;
-          mma_16x8x16(o[dt], a0, a1, a2, a3, pack_pair(v[0], v[L.ldq]),
-                      pack_pair(v[8 * L.ldq], v[9 * L.ldq]));
-        }
-      }
-    }
-  }
-
-  const long long out_rs = static_cast<long long>(a.heads) * d;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
-                       static_cast<long long>(b) * a.sq * out_rs + q0 * out_rs + h * d;
-#pragma unroll
-  for (int dt = 0; dt < kMaxDim / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = r0 + g + (e >= 2 ? 8 : 0), c = dt * 8 + t + (e & 1);
-      if (i < sq && c < d) out[i * out_rs + c] = __float2bfloat16(o[dt][e]);
+    } else {
+      *reinterpret_cast<uint4*>(chunk) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// Key-tiled bodies (Skv > kLongWholeKv).
-// ---------------------------------------------------------------------------
-
-// Shared memory of the key-tiled bf16 body, bf16 unless noted, row stride
-// DP + 8 (144 bytes at D = 64: the 8 rows an ldmatrix reads start in
-// distinct banks, every row 16-byte aligned): Qs (kTileQ x DP), then two
-// stages of Ks, Vs (kKvTile x DP) and bias f32 (kKvTile, -inf past skv).
-struct TiledLayout {
-  int dp, ld;
-  size_t k_off, v_off, b_off, bytes;
+// A work item: (batch row, head, group of kWG query tiles), item = (b
+// heads + h) groups + group.
+struct Item {
+  int b, h, first;  // first: the group's first query tile
 };
 
-__host__ __device__ inline TiledLayout tiled_layout(int d) {
-  TiledLayout L;
-  L.dp = (d + 15) / 16 * 16;
-  L.ld = L.dp + 8;
-  const size_t bf = sizeof(__nv_bfloat16);
-  L.k_off = bf * kTileQ * L.ld;  // every offset a multiple of 16 bytes
-  L.v_off = L.k_off + 2 * bf * kKvTile * L.ld;
-  L.b_off = L.v_off + 2 * bf * kKvTile * L.ld;
-  L.bytes = L.b_off + 2 * sizeof(float) * kKvTile;
-  return L;
+__device__ __forceinline__ Item item_at(const Args& a, int item, int groups, int wg) {
+  const int bh = item / groups;
+  return Item{bh / a.heads, bh % a.heads, item % groups * wg};
 }
 
-// Key tile kt into stage `stage` (load_kv_tile), committed as one group
-// (an empty one when kt is past the last tile).
-__device__ __forceinline__ void stage_kv_tile(const Args& a, int b, int h, int kt,
-                                              unsigned char* smem_raw, const TiledLayout& L,
-                                              int stage, int tid) {
-  const int k0 = kt * kKvTile;
-  if (k0 < a.skv) {
-    load_kv_tile(a, b, h, k0,
-                 reinterpret_cast<__nv_bfloat16*>(smem_raw + L.k_off) + stage * kKvTile * L.ld,
-                 reinterpret_cast<__nv_bfloat16*>(smem_raw + L.v_off) + stage * kKvTile * L.ld,
-                 reinterpret_cast<float*>(smem_raw + L.b_off) + stage * kKvTile, L.ld, L.dp, tid);
+// The block's stream of key tiles: items blockIdx.x, + gridDim.x, ...,
+// each item's key tiles in order, tile p of the stream in ring stage p %
+// kRingStages.  The loads run kRingStages - 1 tiles ahead of the
+// products, across items, and an item's first tile brings its Q tiles
+// into Q slot (the item's place in the block's list) % kRingStages.
+struct Stream {
+  int item, kt, slot, pos;  // the next tile to load, its item's Q slot, its place in the stream
+};
+
+// Start the loads of the next tile of the stream (K, V, bias; with its item's Q tiles
+// when it is the item's first) as one cp.async group, an empty one past
+// the block's last item, and step the stream.
+template <int kWG>
+__device__ __forceinline__ void stream_next(const Args& a, Stream& st, int items, int groups,
+                                            int ktiles, unsigned char* smem, const RingLayout& L,
+                                            int tid) {
+  constexpr int kThreads = kWG * kMmaThreads;
+  const int d = a.dim;
+  if (st.item < items && (!RGQA_LONG_NO_STREAM || st.pos < kRingStages - 1)) {
+    const Item it = item_at(a, st.item, groups, kWG);
+    if (st.kt == 0) {
+      #pragma unroll
+      for (int w = 0; w < kWG; ++w) {
+        const int t0 = (it.first + w) * kTileQ;
+        load_swizzled(
+            reinterpret_cast<__nv_bfloat16*>(smem + (st.slot * kWG + w) * kTileBytes),
+            static_cast<const __nv_bfloat16*>(a.q) + it.b * a.q_bs + t0 * a.q_rs + it.h * d,
+            a.q_rs, d, max(0, min(kTileQ, a.sq - t0)), tid, kThreads);
+      }
+    }
+    const int stage = st.pos % kRingStages, k0 = st.kt * kKvTile, nk = min(a.skv - k0, kKvTile);
+    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.k_off + stage * kTileBytes),
+                  static_cast<const __nv_bfloat16*>(a.k) + it.b * a.k_bs + k0 * a.k_rs + it.h * d,
+                  a.k_rs, d, nk, tid, kThreads);
+    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.v_off + stage * kTileBytes),
+                  static_cast<const __nv_bfloat16*>(a.v) + it.b * a.v_bs + k0 * a.v_rs + it.h * d,
+                  a.v_rs, d, nk, tid, kThreads);
+    float* bs = reinterpret_cast<float*>(smem + L.b_off) + stage * kKvTile;
+    for (int j = tid; j < kKvTile; j += kThreads) {
+      if (j < nk) {
+        cp_async4(bs + j, a.bias + static_cast<long long>(it.b) * a.skv + k0 + j);
+      } else {
+        bs[j] = -CUDART_INF_F;
+      }
+    }
   }
   cp_async_commit();
+  ++st.pos;
+  if (++st.kt == ktiles) {
+    st.kt = 0;
+    st.item += gridDim.x;
+    st.slot = (st.slot + 1) % kRingStages;
+  }
 }
 
-__global__ void __launch_bounds__(kMmaThreads, 4) fused_attention_long_tiled_bf16(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const FwdTile f = fwd_tile(a, sizeof(__nv_bfloat16));
-  const int b = f.b, h = f.h, q0 = f.q0;
-  const int sq = f.t.sq, d = a.dim;
-  const TiledLayout L = tiled_layout(d);
-  const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(smem_raw);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+// Blocks of kWG warpgroups an SM should hold (__launch_bounds__): 4
+// warpgroups of at most 128 registers a thread, or one block of 3 (an
+// A/B build's, RGQA_LONG_WG=3).
+constexpr int ring_min_blocks(int wg) { return wg == 1 ? 4 : wg == 2 ? 2 : 1; }
+
+// Work items (batch row, head, group of kWG query tiles), item `items`
+// in all, blockIdx.x, + gridDim.x, ... to a block: warpgroup w owns the
+// item's query tile first + w (rows past sq: it only loads and syncs),
+// and the block's threads stream the item's key tiles through the ring
+// together, so K and V are read once per group.  An item's Q slot is
+// free again when it is reused: kRingStages items later, after a barrier
+// that every warpgroup reached past that item's last tile.
+template <int kWG>
+__global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
+    fused_attention_long_wgmma(Args a, int items) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to the swizzle's period below
+  unsigned char* smem =
+      smem_raw + ((kSwizzlePeriod - smem_u32(smem_raw) % kSwizzlePeriod) % kSwizzlePeriod);
+  const RingLayout L = ring_layout(kWG);
+  const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
+  const int d = a.dim, tid = threadIdx.x, wg = tid / kMmaThreads;
   const int ktiles = (a.skv + kKvTile - 1) / kKvTile;
+  Stream st{static_cast<int>(blockIdx.x), 0, 0, 0};
+  #pragma unroll
+  for (int p = 0; p < kRingStages - 1; ++p) stream_next<kWG>(a, st, items, groups, ktiles, smem, L, tid);
 
-  load_tile(reinterpret_cast<__nv_bfloat16*>(smem_raw), L.ld,
-            static_cast<const __nv_bfloat16*>(f.t.q) + b * a.q_bs + h * d, a.q_rs, sq, kTileQ, d,
-            L.dp, tid);
-  stage_kv_tile(a, b, h, 0, smem_raw, L, 0, tid);  // one group: Q and tile 0
+  // A thread holds rows i0 = 16 warp + g and i0 + 8 of its warpgroup's
+  // tile, columns 8 n + tq + (e & 1) in element 4 n + e of s (keys) and
+  // o (head dims); e >= 2 is row i0 + 8 (wgmma.cuh).
+  const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, tq = (lane & 3) * 2;
+  int pos = 0, slot = 0;  // the stream's next tile to compute, its item's Q slot
+  for (int item = blockIdx.x; item < items; item += gridDim.x, slot = (slot + 1) % kRingStages) {
+    const Item it = item_at(a, item, groups, kWG);
+    const int b = it.b, h = it.h, q0 = (it.first + wg) * kTileQ;
+    const bool active = q0 < a.sq;
+    const uint64_t dq = wgmma_desc_sw128(smem + (slot * kWG + wg) * kTileBytes);
+    float o[32];
+    #pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
-  // Warp w owns query rows r0 .. r0 + 15; a lane holds rows r0 + g (e < 2)
-  // and r0 + g + 8 (e >= 2), keys / columns 8 nt + t + (e & 1).  Warps
-  // past the tile's rows take part in the loads and barriers only.
-  const int r0 = warp * 16;
-  const bool active = r0 < sq;
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  uint32_t qa[kMaxDim / 16][4];
-  float o[kMaxDim / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kMaxDim / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt, ++pos) {
+      // Tile pos has landed (this thread's copies), is visible to wgmma
+      // (the fence) and everyone's (the barrier), and every warpgroup is
+      // done with tile pos - 1, whose stage the next load takes.
+      cp_async_wait_group<kRingStages - 2>();
+      fence_proxy_async();
+      __syncthreads();
+      stream_next<kWG>(a, st, items, groups, ktiles, smem, L, tid);
+      if (!active) continue;
+      const int stage = pos % kRingStages;
 
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int stage = kt & 1;
-    // Tile kt + 1 goes into the other stage, which every warp left at the
-    // barrier that ended step kt - 1.
-    stage_kv_tile(a, b, h, kt + 1, smem_raw, L, stage ^ 1, tid);
-    cp_async_wait_group<1>();
-    __syncthreads();
-    if (active) {
-      const __nv_bfloat16* ks =
-          reinterpret_cast<const __nv_bfloat16*>(smem_raw + L.k_off) + stage * kKvTile * L.ld;
-      const __nv_bfloat16* vs =
-          reinterpret_cast<const __nv_bfloat16*>(smem_raw + L.v_off) + stage * kKvTile * L.ld;
-      const float* bs = reinterpret_cast<const float*>(smem_raw + L.b_off) + stage * kKvTile;
-      if (kt == 0) {
-#pragma unroll
-        for (int kk = 0; kk < kMaxDim / 16; ++kk) {
-          if (kk * 16 < L.dp) lds_a(qa[kk], qs + r0 * L.ld + kk * 16, L.ld, lane);
-        }
-      }
-      // S = Q K^T * scale + bias, -inf past skv (the bias stage says so).
-      float s[kKvTile / 8][4];
-#pragma unroll
-      for (int nt = 0; nt < kKvTile / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kMaxDim / 16; ++kk) {
-        if (kk * 16 < L.dp) {
-#pragma unroll
-          for (int np = 0; np < kKvTile / 16; ++np) {
-            uint32_t bf[4];
-            lds_b_rows(bf, ks + np * 16 * L.ld + kk * 16, L.ld, lane);
-            mma_16x8x16(s[2 * np], qa[kk], bf[0], bf[1]);
-            mma_16x8x16(s[2 * np + 1], qa[kk], bf[2], bf[3]);
-          }
-        }
-      }
-      float tm0 = -CUDART_INF_F, tm1 = -CUDART_INF_F;
-#pragma unroll
-      for (int nt = 0; nt < kKvTile / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = s[nt][e] * a.scale + bs[nt * 8 + t + (e & 1)];
-        tm0 = fmaxf(tm0, fmaxf(s[nt][0], s[nt][1]));
-        tm1 = fmaxf(tm1, fmaxf(s[nt][2], s[nt][3]));
-      }
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        tm0 = fmaxf(tm0, __shfl_xor_sync(0xffffffffu, tm0, off));
-        tm1 = fmaxf(tm1, __shfl_xor_sync(0xffffffffu, tm1, off));
-      }
+      // S = Q K^T (wgmma m64n64k16, both from shared memory), 4 steps of 16.
+      float s[32];
+      #pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      const uint64_t dk = wgmma_desc_sw128(smem + L.k_off + stage * kTileBytes);
+      wgmma_fence();
+      #pragma unroll
+      for (int kk = 0; kk < kMaxDim / 16; ++kk) WgmmaSS<64>::mma(s, dq + 2 * kk, dk + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(s);
+
+      // Scale and bias (-inf past skv), the tile's row max by quad shuffles.
       // Every tile holds a key below skv, whose score is finite: so is the
-      // new max, and the first step's rescale is exp(-inf) = 0.
-      const float n0 = fmaxf(m0, tm0), n1 = fmaxf(m1, tm1);
+      // new max, and the first tile's rescale is exp(-inf) = 0.
+      const float* bs = reinterpret_cast<const float*>(smem + L.b_off) + stage * kKvTile;
+      float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
+      #pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[4 * n + e] * a.scale + bs[8 * n + tq + (e & 1)];
+          s[4 * n + e] = x;
+          if (e < 2) t0 = fmaxf(t0, x); else t1 = fmaxf(t1, x);
+        }
+      }
+      #pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
+        t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
+      }
+      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
       const float c0 = __expf(m0 - n0), c1 = __expf(m1 - n1);
       m0 = n0;
       m1 = n1;
       l0 *= c0;
       l1 *= c1;
-#pragma unroll
-      for (int dt = 0; dt < kMaxDim / 8; ++dt) {
-        o[dt][0] *= c0;
-        o[dt][1] *= c0;
-        o[dt][2] *= c1;
-        o[dt][3] *= c1;
+      #pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? c1 : c0;
+
+      // P = exp(S - m), unnormalised, its row sums in f32, P rounded to bf16
+      // into the A fragments of P V: keys 16 c .. 16 c + 15 are the
+      // accumulators of column tiles 2 c and 2 c + 1.
+      #pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float p = __expf(s[i] - ((i & 2) ? m1 : m0));
+        s[i] = p;
+        if (i & 2) l1 += p; else l0 += p;
       }
-#pragma unroll
-      for (int nt = 0; nt < kKvTile / 8; ++nt) {
-        s[nt][0] = __expf(s[nt][0] - m0);
-        s[nt][1] = __expf(s[nt][1] - m0);
-        s[nt][2] = __expf(s[nt][2] - m1);
-        s[nt][3] = __expf(s[nt][3] - m1);
-        l0 += s[nt][0] + s[nt][1];
-        l1 += s[nt][2] + s[nt][3];
+      uint32_t pa[4][4];
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        pa[c][0] = pack_f32_pair(s[8 * c], s[8 * c + 1]);
+        pa[c][1] = pack_f32_pair(s[8 * c + 2], s[8 * c + 3]);
+        pa[c][2] = pack_f32_pair(s[8 * c + 4], s[8 * c + 5]);
+        pa[c][3] = pack_f32_pair(s[8 * c + 6], s[8 * c + 7]);
       }
-      // O += P V: the accumulators of key tiles 2kk and 2kk + 1 are the A
-      // fragment of the k-step over keys 16kk .. 16kk + 15.
-#pragma unroll
-      for (int kk = 0; kk < kKvTile / 16; ++kk) {
-        const uint32_t pa[4] = {pack_f32_pair(s[2 * kk][0], s[2 * kk][1]),
-                                pack_f32_pair(s[2 * kk][2], s[2 * kk][3]),
-                                pack_f32_pair(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_f32_pair(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dp2 = 0; dp2 < kMaxDim / 16; ++dp2) {
-          if (dp2 * 16 < L.dp) {
-            uint32_t bf[4];
-            lds_b_trans(bf, vs + kk * 16 * L.ld + dp2 * 16, L.ld, lane);
-            mma_16x8x16(o[2 * dp2], pa, bf[0], bf[1]);
-            mma_16x8x16(o[2 * dp2 + 1], pa, bf[2], bf[3]);
-          }
+
+      // O += P V: wgmma m64n64k16, P from registers, V (MN-major: key rows
+      // of 64 values, the transpose bit) from the stage, 16 key rows a step.
+      const uint64_t dv = wgmma_desc_sw128(smem + L.v_off + stage * kTileBytes);
+      wgmma_fence();
+      #pragma unroll
+      for (int c = 0; c < 4; ++c) WgmmaRS64::mma(o, pa[c], dv + c * 16 * 8, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operands(o);
+      fence_operands(pa);
+    }
+    if (!active) continue;
+
+    #pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // a row's max term is 1: sum >= 1
+    const int i0 = warp * 16 + g;
+    const long long out_rs = static_cast<long long>(a.heads) * d;
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                         (static_cast<long long>(b) * a.sq + q0) * out_rs + h * d;
+    #pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = i0 + 8 * half;
+      if (q0 + i >= a.sq) continue;
+      const float inv = half ? inv1 : inv0;
+      __nv_bfloat16* row = out + i * out_rs;
+      #pragma unroll
+      for (int n = 0; n < kMaxDim / 8; ++n) {
+        const int c = n * 8 + tq;
+        if (c >= d) continue;
+        const float x0 = o[4 * n + 2 * half] * inv, x1 = o[4 * n + 2 * half + 1] * inv;
+        if ((d & 1) == 0) {
+          *reinterpret_cast<uint32_t*>(row + c) = pack_f32_pair(x0, x1);
+        } else {
+          row[c] = __float2bfloat16(x0);
+          if (c + 1 < d) row[c + 1] = __float2bfloat16(x1);
         }
       }
     }
-    __syncthreads();  // the stage is free for tile kt + 2
-  }
-  if (!active) return;
-
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const long long out_rs = static_cast<long long>(a.heads) * d;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
-                       static_cast<long long>(b) * a.sq * out_rs + q0 * out_rs + h * d;
-#pragma unroll
-  for (int dt = 0; dt < kMaxDim / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = r0 + g + (e >= 2 ? 8 : 0), c = dt * 8 + t + (e & 1);
-      if (i < sq && c < d) out[i * out_rs + c] = __float2bfloat16(o[dt][e] * (e < 2 ? inv0 : inv1));
-    }
-  }
-  if (a.lse != nullptr && (lane & 3) == 0) {
-    float* lse = a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0 + r0 + g);
-    if (r0 + g < sq) {
-      lse[0] = m0;
-      lse[1] = logf(l0);
-    }
-    if (r0 + g + 8 < sq) {
-      lse[16] = m1;
-      lse[17] = logf(l1);
+    if (a.lse != nullptr && (lane & 3) == 0) {
+      float* lse = a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0 + i0);
+      if (q0 + i0 < a.sq) {
+        lse[0] = m0;
+        lse[1] = logf(l0);
+      }
+      if (q0 + i0 + 8 < a.sq) {
+        lse[16] = m1;
+        lse[17] = logf(l1);
+      }
     }
   }
 }
@@ -477,7 +431,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
     rl[i] = 0.f;
   }
   float o[kTiledF32Elems];
-#pragma unroll
+  #pragma unroll
   for (int e = 0; e < kTiledF32Elems; ++e) o[e] = 0.f;
 
   for (int k0 = 0; k0 < skv; k0 += kKvTile) {
@@ -508,7 +462,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
       const float x0 = lane < nk ? pi[lane] : -CUDART_INF_F;
       const float x1 = lane + 32 < nk ? pi[lane + 32] : -CUDART_INF_F;
       float mt = fmaxf(x0, x1);
-#pragma unroll
+      #pragma unroll
       for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float mn = fmaxf(rm[i], mt);
       const float p0 = lane < nk ? expf(x0 - mn) : 0.f;
@@ -516,7 +470,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
       if (lane < nk) pi[lane] = p0;
       if (lane + 32 < nk) pi[lane + 32] = p1;
       float sum = p0 + p1;
-#pragma unroll
+      #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       __syncwarp();
       if (lane == 0) {
@@ -528,7 +482,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
     }
     __syncthreads();
 
-#pragma unroll
+    #pragma unroll
     for (int e = 0; e < kTiledF32Elems; ++e) {
       const int idx = tid + e * kThreads;
       if (idx < sq * d) {
@@ -545,7 +499,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
   const long long out_rs = static_cast<long long>(a.heads) * d;
   float* out = static_cast<float*>(a.out) + static_cast<long long>(b) * a.sq * out_rs +
                q0 * out_rs + h * d;
-#pragma unroll
+  #pragma unroll
   for (int e = 0; e < kTiledF32Elems; ++e) {
     const int idx = tid + e * kThreads;
     if (idx < sq * d) {
@@ -562,20 +516,41 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
   }
 }
 
+template <int kWG>
+int launch_ring(const Args& a, int batch, cudaStream_t s) {
+  const auto kernel = fused_attention_long_wgmma<kWG>;
+  const size_t smem = ring_smem_bytes(kWG);
+  if (const int err = allow_smem(kernel, smem)) return err;
+  const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
+  const int items = batch * a.heads * groups;  // < 2^31: within_long_limits
+  int grid = items;
+  if (RGQA_LONG_PERSISTENT) {
+    static int resident = 0;  // blocks of this instance the card holds at once
+    if (resident == 0) {
+      int dev = 0, sms = 0, per_sm = 0;
+      if (const int err = static_cast<int>(cudaGetDevice(&dev))) return err;
+      if (const int err = static_cast<int>(
+              cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) {
+        return err;
+      }
+      if (const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, kernel, kWG * kMmaThreads, smem))) {
+        return err;
+      }
+      resident = sms * per_sm;
+    }
+    grid = items < resident ? items : resident;
+  }
+  kernel<<<grid, kWG * kMmaThreads, smem, s>>>(a, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Two warpgroups a block (one when there is one query tile): at 118
+// registers two blocks share an SM, 4 warpgroups, where 3 a block hold
+// 153 and one block an SM (slower at every timed shape; PERF.md).
 int launch_long_bf16(const Args& a, int batch, cudaStream_t s) {
-  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
-  if (a.skv > kLongWholeKv) {
-    return launch(fused_attention_long_tiled_bf16, a, batch, kMmaThreads,
-                  tiled_layout(a.dim).bytes, s, tiles);
-  }
-  const LongLayout L = long_layout(a.skv, a.dim);
-  if (a.skv <= 128) {
-    return launch(fused_attention_long_bf16<16>, a, batch, kMmaThreads, L.bytes, s, tiles);
-  }
-  if (a.skv <= 192) {
-    return launch(fused_attention_long_bf16<24>, a, batch, kMmaThreads, L.bytes, s, tiles);
-  }
-  return launch(fused_attention_long_bf16<32>, a, batch, kMmaThreads, L.bytes, s, tiles);
+  if (RGQA_LONG_WG == 0 && a.sq <= kTileQ) return launch_ring<1>(a, batch, s);
+  return launch_ring<(RGQA_LONG_WG > 0 ? RGQA_LONG_WG : 2)>(a, batch, s);
 }
 
 }  // namespace
@@ -609,6 +584,12 @@ int rgqa_fused_attention_long_fwd(
   }
   return launch(fused_attention_f32<false, kLongPerLane, kLongF32Threads>, a, batch,
                 kLongF32Threads, fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim), s, tiles);
+}
+
+// The bf16 body's dynamic shared memory with wg (1 .. 3) warpgroups per
+// block, as launched; -1 outside that.
+int rgqa_fused_attention_long_smem(int wg) {
+  return wg < 1 || wg > 3 ? -1 : static_cast<int>(ring_smem_bytes(wg));
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 and ``predict_with_thresh``).
 
 ``ScoringMixin`` expects the host class to provide ``cfg``, ``device``,
-``forward``, ``model_cfg``, ``label2ans``, ``train_set``, ``output``,
+``model``, ``forward``, ``model_cfg``, ``label2ans``, ``train_set``, ``output``,
 ``_encode`` and ``load``, i.e. :class:`rgqa_tpu_torch.runner.GQARunner`.
 The metrics and the prediction-JSON dump are ``rgqa_tpu_torch.metrics``,
 the port's copy of the JAX package's.  ``predict`` stands in for the JAX
@@ -173,12 +173,21 @@ class ScoringMixin:
         as the JAX package writes it (numpy ``{"mean", "precision"}``), so
         a cache from either package loads in the other.  The pooled
         features come from deterministic forwards (eval mode) on exact
-        f32 feats."""
+        f32 feats and f32 weights (bf16 compute keeps f32 masters, as the
+        JAX evaluate CLI's training runner does): every later run reads
+        the cache, so a fit from bf16 serving weights is refused."""
         cache = os.path.join(self.output, "sample_estimates.pkl")
         if os.path.exists(cache):
             with open(cache, "rb") as f:
                 data = pickle.load(f)
             return estimator_from_numpy(data["mean"], data["precision"], self.device)
+        dtypes = {p.dtype for p in self.model.parameters()}
+        if dtypes != {torch.float32}:
+            raise RuntimeError(
+                f"the Mahalanobis fit is cached for later runs and needs f32 weights, this model's "
+                f"are {sorted(map(str, dtypes))}: build the runner with init_train=True (bf16 "
+                "compute on f32 masters), as the evaluate CLI does for --scorer maha"
+            )
         train_set = self.train_set
         if train_set is None:  # an evaluation runner encodes the split for the fit alone
             data = self.cfg.data

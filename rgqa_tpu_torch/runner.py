@@ -18,9 +18,14 @@ answers less the appended ``UQ`` class, initialises the weights from a
   ``LAST.state.pt`` at the end.
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
-  convention).  ``--scorer maha`` evaluates with it too: the estimator's
-  fit encodes the train split when it first runs.  The module is in eval mode outside :meth:`GQARunner.train`; the
-  scorers' forwards set the mode they need and restore it.
+  convention).  ``--scorer maha`` evaluates on a training runner, as the
+  JAX CLI does: the estimator is fitted, and cached for later runs, from
+  f32 weights; an evaluation runner refuses the fit under bf16 (at
+  ``--fp32`` it encodes the train split when the fit first runs).  Both
+  runners take the answer vocabulary from ``trainval_ans2label.json``,
+  whichever splits they encode, so the two agree on it.  The module is
+  in eval mode outside :meth:`GQARunner.train`; the scorers' forwards
+  set the mode they need and restore it.
 
 Both run lxmert or vilt.  For evaluation LXMERT also takes the branched
 confidence heads (``--branched`` / ``--branched_layer``) and, with

@@ -34,11 +34,17 @@ plain versions within 1e-5 in f32.  And the reason the backward's D
 takes a sweep of its own: D from the forward's bf16 output would move
 dbias past its bound at ViLT's widths.
 
+The bf16 forward's order (``csrc/fused_attention_long.cu``: key tiles
+of 64, the running max and sum, O rescaled, P rounded to bf16
+unnormalised), emulated on bf16 inputs at 165, 185, 65 x 185 and 277
+tokens, is held to the plain version and to the Pallas query-tiled
+kernel in interpret mode within P's and the output's bf16 rounding.
+
 Tests marked ``cuda`` hold the long-stream Hopper kernels
 (``csrc/fused_attention_long.cu``, ``csrc/fused_attention_long_bwd.cu``)
-to the plain versions at ViLT's shapes, either side of 256 keys and at
-277 and 597 tokens on the card, the backward's two runs bit for bit, and
-skip without one (run them there with
+to the plain versions at ViLT's shapes, either side of 256 keys, at
+277 and 597 tokens and (the forward) across the bf16 body's grid on the
+card, the backward's two runs bit for bit, and skip without one (run them there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_attention_long.py``).
 """
 
@@ -62,6 +68,10 @@ CARD_SHAPES = [(165, 165), (185, 185), (65, 185), (185, 65)]
 # 16 px patches, with ragged pairs.
 LIMIT_SHAPES = [(20, 256), (256, 256), (300, 257), (257, 257)]
 BEYOND_SHAPES = [(277, 277), (597, 597), (20, 597), (597, 20)]
+# The bf16 body's grid: 4 query tiles (two blocks of 2 warpgroups), 7
+# (2 warpgroups, one idle in the last block) over a 65-key row (a last
+# key tile of one key), and one key tile under two query tiles.
+RING_SHAPES = [(200, 200), (400, 65), (128, 64)]
 # The backward at ViLT's training stream and across ragged tiles.
 BWD_SHAPES = [(165, 165), (65, 185), (185, 65)]
 BWD_H, BWD_D = 2, 8
@@ -305,11 +315,13 @@ def _merge_heads(t):
     return t.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _tiled_forward(scores, vh):
+def _tiled_forward(scores, vh, p_dtype=None):
     """The key-tiled forward (csrc/fused_attention_long.cu), f32, from the
     (B, H, Sq, Skv) scores: an online softmax over key tiles of 64, O
     rescaled when the row max moves, O / l at the end; (O, stats), stats
-    (B, H, Sq, 2) = (m, log(l)), the kernels' row statistics."""
+    (B, H, Sq, 2) = (m, log(l)), the kernels' row statistics.  With
+    ``p_dtype`` (bf16: the bf16 body's order) each tile's unnormalised P
+    is rounded to it before the PV product, its row sum taken before."""
     m = torch.full(scores.shape[:3], -math.inf)
     l = torch.zeros(scores.shape[:3])
     o = torch.zeros(scores.shape[:3] + vh.shape[-1:])
@@ -319,6 +331,8 @@ def _tiled_forward(scores, vh):
         c = torch.exp(m - mn)
         p = torch.exp(s - mn[..., None])
         l = l * c + p.sum(-1)
+        if p_dtype is not None:
+            p = p.to(p_dtype).float()
         o = o * c[..., None] + p @ vh[:, :, k0:k0 + KV_TILE]
         m = mn
     return o / l[..., None], torch.stack([m, torch.log(l)], dim=-1)
@@ -396,6 +410,47 @@ def test_tiled_algorithm_matches_plain_versions(sq, skv):
         torch.testing.assert_close(a, w, rtol=0, atol=1e-5, msg=name)
 
 
+# The bf16 forward at ViLT's streams (165 / 185 training / serving, 65 x
+# 185 ragged, 277 at 512 px), 2 heads of 16, batch 3 with a fully
+# masked row.
+BF16_SHAPES = [(165, 165), (185, 185), (65, 185), (277, 277)]
+
+
+@pytest.mark.parametrize("sq,skv", BF16_SHAPES)
+def test_bf16_ring_order_matches_plain_and_pallas(jax_attention, sq, skv):
+    # The bf16 body's order emulated on bf16 inputs: products in f32, the
+    # scores scaled and biased, key tiles of 64 with the running max and
+    # sum, O rescaled, P rounded to bf16 unnormalised, O / l rounded to
+    # bf16.  Against the plain version, which keeps P in f32: P's
+    # rounding (2^-9 relative) moves a row by at most 2^-9 max|v|, and
+    # the outputs' own rounding by a bf16 step (at most 2^-7 |out|); the
+    # fully masked row's scores sit on the f32 grid of 2^-10 at -1e4,
+    # another 2^-9 max|v| (``_assert_matches``).  The Pallas kernel rounds
+    # P normalised: the same bound.
+    import jax.numpy as jnp
+
+    q, k, v, bias = _inputs(3, sq, skv, seed=sq * 3 + skv)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    tbias = torch.from_numpy(bias)
+    qh, kh, vh = (_split_heads(t.float(), H) for t in (tq, tk, tv))
+    scores = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (1.0 / math.sqrt(D)) + tbias[:, None, None, :]
+    o, _ = _tiled_forward(scores, vh, torch.bfloat16)
+    got = _merge_heads(o).bfloat16().float()
+    assert torch.isfinite(got).all()
+    vmax = float(tv.float().abs().max())
+    plain = att.attention_natural_ref(tq, tk, tv, tbias, H).float()
+    bt, _ = jax_attention._fit_qblock(3, sq, skv, E, 2)
+    assert bt > 0  # the query-tiled grid
+    pallas = torch.from_numpy(np.array(jax_attention._fused_qblocked_raw(
+        *(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (tq, tk, tv)), jnp.asarray(bias), H
+    ).astype(jnp.float32)))
+    rows = torch.arange(3) != FULLY_MASKED
+    for want in (plain, pallas):
+        err = (got - want).abs()
+        assert bool((err[rows] <= 2.0**-9 * vmax + 2.0**-7 * want[rows].abs()).all())
+        assert bool((err[FULLY_MASKED] <= 2.0**-8 * vmax + 2.0**-7 * want[FULLY_MASKED].abs()).all())
+
+
 def test_d_from_the_bf16_output_would_break_the_dbias_bound():
     # ViLT's widths (12 heads of 64), bf16 inputs, pad-patch masks: D from
     # the forward's bf16 output, rowsum(g o), against D = rowsum(dP P) in
@@ -424,7 +479,7 @@ def test_d_from_the_bf16_output_would_break_the_dbias_bound():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,skv", CARD_SHAPES + LIMIT_SHAPES + BEYOND_SHAPES)
+@pytest.mark.parametrize("sq,skv", CARD_SHAPES + LIMIT_SHAPES + BEYOND_SHAPES + RING_SHAPES)
 def test_long_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
     # ViLT widths: 12 heads of 64; ragged batch 7 with a fully masked row;
     # q, k, v as column views of one fused projection (row stride 3E).

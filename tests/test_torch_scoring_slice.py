@@ -473,6 +473,51 @@ def test_cli_matches_jax_cli(cli_env, case):
             np.testing.assert_array_equal(pickle.load(f)["precision"], cached["precision"])
 
 
+# bf16: the class means and the precision of the CLI's fit against the
+# JAX training runner's, as fractions of the largest entry.  Both
+# packages round every product to bf16, in other orders (measured at this
+# width: 7.6e-3 and 2.4e-2).
+MAHA_BF16_TOL = {"mean": 2e-2, "precision": 5e-2}
+
+
+def test_cli_maha_fits_from_f32_weights_under_bf16(cli_env, monkeypatch):
+    """Under bf16 (the default, no ``--fp32``) the evaluate CLI fits the
+    Mahalanobis estimator it caches from f32 weights under bf16 compute,
+    as the JAX CLI's training runner does (``init_train=scorer_name ==
+    "maha"``), and the fit agrees with that runner's
+    ``fit_maha_estimator`` on the same weights.  An evaluation runner's
+    bf16 serving weights would round every weight the fit reads in f32
+    (LayerNorm's) and write the result into ``sample_estimates.pkl`` for
+    every later run."""
+    from rgqa_tpu import config as jax_config
+    from rgqa_tpu.runner import GQARunner as JaxRunner
+    from rgqa_tpu_torch.eval import ScoringMixin
+
+    root, tmp, paths = cli_env
+    fitted_from = []
+    fit = ScoringMixin.fit_maha_estimator
+
+    def recording_fit(self):
+        fitted_from.append({p.dtype for p in self.model.parameters()})
+        return fit(self)
+
+    monkeypatch.setattr(ScoringMixin, "fit_maha_estimator", recording_fit)
+    bf16 = [f for f in TINY_FLAGS if f != "--fp32"]
+    out = str(tmp / "port_maha_bf16")
+    evaluate.main(_cli_argv(root, out, paths, "maha") + bf16)
+    assert fitted_from == [{torch.float32}]
+    with open(os.path.join(out, "sample_estimates.pkl"), "rb") as f:
+        got = pickle.load(f)
+    flags = [f for f in bf16 if f not in ("--device", "cpu")]
+    cfg, _ = jax_config.parse_cli(_cli_argv(root, str(tmp / "jax_maha_bf16"), paths, "maha") + flags)
+    assert cfg.train.use_bf16
+    want = JaxRunner(cfg, init_train=True).fit_maha_estimator()
+    for name, w in (("mean", want.class_mean), ("precision", want.precision)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[name], w, rtol=0, atol=MAHA_BF16_TOL[name] * np.abs(w).max(),
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize(
     "extra, match",
     [
