@@ -15,12 +15,16 @@ nonzero:
    memory (static from ptxas, dynamic from the window's layout), and,
    where the toolkit has ``cuobjdump``, each instance's count of
    ``HGMMA`` instructions in its SASS (an instance the experiment's
-   shapes use with none fails the phase).
+   shapes use with none fails the phase).  #2's bf16 body
+   (``fused_attention_long_wgmma<kWG>``, kWG warpgroups a block) runs on
+   ``wgmma`` too: the same line for each of its instances, and an
+   instance without HGMMA fails the phase.
 3. kernels: the six attention kernels against their plain PyTorch
    versions.  #2, the long-stream forward, and #3L, the long-stream
    backward (given #2's row statistics), at ViLT-B/32's shapes (165x165,
    185x185, and 65x185 / 185x65 for ragged query tiles), either side of
-   256 keys where #2 changes body (20x256, 256x256, 20x257, 257x257) and
+   256 keys where #2's f32 body changes (20x256, 256x256, 20x257,
+   257x257; the bf16 body walks key tiles of 64 at every length) and
    beyond (277x277: a 512 px image; 597x597, 20x597, 597x20: 16 px
    patches), at batch 256 (64 at 597 tokens) and 7, f32 and bf16, with
    pad-patch style masks (padded text, trailing keys masked) and one
@@ -218,8 +222,8 @@ E, HEADS = 768, 12
 SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))  # (Sq, Skv) per LXMERT call kind
 VILT_SHAPES = ((165, 165), (185, 185))  # ViLT's stream: 20 or 40 text tokens + 144 patches + CLS
 LONG_SHAPES = VILT_SHAPES + ((65, 185), (185, 65))
-# Either side of 256 keys, where #2 leaves its whole-row bodies for its
-# key-tiled ones (the old cap of both long kernels).
+# Either side of 256 keys, where #2's f32 body leaves its whole-row form
+# for its key-tiled one (the old cap of both long kernels).
 LIMIT_SHAPES = ((20, 256), (256, 256), (20, 257), (257, 257))
 # ViLT beyond 256 tokens: a 512 px image (16^2 + 1 + 20 = 277 tokens) and
 # 16 px patches at 384 px (24^2 + 1 + 20 = 597), with ragged pairs.
@@ -494,8 +498,8 @@ def _wgmma_report(res) -> None:
 
 
 def _long_wgmma_report(res) -> None:
-    """#2's bf16 body (slice 11, ``fused_attention_long_wgmma<kWG>``, one
-    instance per warpgroups a block): registers, spills and shared memory
+    """#2's bf16 body (``fused_attention_long_wgmma<kWG>``, one instance
+    per warpgroups a block): registers, spills and shared memory
     from the build log, and HGMMA in its SASS; an instance without HGMMA
     fails the phase."""
     import ctypes

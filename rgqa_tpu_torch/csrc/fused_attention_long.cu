@@ -51,16 +51,23 @@
 // not written, and a warpgroup whose tile lies past sq only loads and
 // syncs.  The body holds 118 registers and 67 KB of shared memory, so
 // two blocks share an SM: 4 warpgroups, which hide each other's softmax
-// and loads.  Measured on the H100 (PERF.md, device time at batch 256,
-// 165 / 185 / 277 tokens; 597 at batch 64): 2 warpgroups a block
-// 181-184 / 182-183 / 410 / 346 us; 3 a block (every query tile of a
-// 165-185-token row in one block, K and V read once per row and head;
-// 153 registers, one block an SM) 198-201 / 202 / 476 / 420; 1 a block
-// (3 blocks an SM, by shared memory) 185-190 / 188-189 / 455 / 423; ring
-// depth 2 or 4 instead of 3, 2-6% slower at 165-277 tokens, even at 597.
-// TMA is not used: at 3 stages the loads already hide behind the
-// products (the depth does not move the time), and cp.async writes the
-// same swizzled layout without a tensor map (no libcuda, no -lcuda).
+// and loads.  Measured on the H100 (PERF.md; tools/time_attention.py
+// --only long_variants, device time at batch 256, 165 / 185 / 277
+// tokens, and 597 at batch 64): 2 warpgroups a block 181-184 / 183-185 /
+// 410-413 / 347 us; 3 a block (every query tile of a 165-185-token row
+// in one block, K and V read once per row and head, but one block an
+// SM) 199-202 / 203-205 / 476 / 420; 1 a block (3 blocks an SM, by
+// shared memory) 185-188 / 187-189 / 453 / 423; a ring of 2 or 4 stages
+// instead of 3, 0-4% slower.  A persistent grid (as many blocks as the
+// card holds, each streaming its work items' key tiles through one ring)
+// was 2-13% slower than one block per item.  Without its K / V stream
+// (RGQA_LONG_NO_STREAM) the body takes 167-169 / 167 / 348 / 280 us: the
+// stream costs 8-9% at 165-185 tokens and 15-19% at 277-597, where 3-5
+// blocks read each row's K and V.  A deeper ring does not buy that back,
+// so TMA, which makes the same copies from one thread, is not used
+// (cp.async writes the same swizzled layout, without a tensor map or
+// libcuda); one load multicast to a row's blocks (a cluster) would cut
+// the re-reads.
 // The bf16 bodies this one replaced (mma.sync m16n8k16, 463-473 us at
 // 165-185 tokens): a whole-row body up to 256 keys, one block of 4 warps
 // per (row, head, query tile) that loaded the row's whole K and V and
@@ -92,11 +99,9 @@ namespace {
 // Build-time knobs of the bf16 body, for A/B builds of variants
 // (tools/time_attention.py --only long_variants): RGQA_LONG_WG fixes the
 // warpgroups of a block (0: launch_long_bf16's choice, below),
-// RGQA_LONG_STAGES the key tiles the ring holds, RGQA_LONG_NO_STREAM 1
-// loads only the ring's first fill (later tiles compute on stale stages:
-// wrong output, the time of the body without its K / V stream), and
-// RGQA_LONG_PERSISTENT 1 launches as many blocks as the card holds at
-// once, each walking work items (0: one block per item).
+// RGQA_LONG_STAGES the key tiles the ring holds, and RGQA_LONG_NO_STREAM
+// 1 loads only the ring's first fill (later tiles compute on stale
+// stages: wrong output, the time of the body without its K / V stream).
 #ifndef RGQA_LONG_WG
 #define RGQA_LONG_WG 0
 #endif
@@ -106,9 +111,6 @@ namespace {
 #ifndef RGQA_LONG_NO_STREAM
 #define RGQA_LONG_NO_STREAM 0
 #endif
-#ifndef RGQA_LONG_PERSISTENT
-#define RGQA_LONG_PERSISTENT 0
-#endif
 
 constexpr int kRingStages = RGQA_LONG_STAGES;
 static_assert(kRingStages >= 2, "the ring needs a stage in flight beside the one computed");
@@ -116,9 +118,8 @@ constexpr int kRow = 64;                   // bf16 values in one 128-byte swizzl
 constexpr unsigned kSwizzlePeriod = 1024;  // bytes: 8 swizzled rows
 constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * kRow * kTileQ;  // a 64-row tile, 8 KB
 
-// Shared memory of a block of `wg` warpgroups: kRingStages slots of
-// their Q tiles (one per work item whose tiles the ring may hold), then
-// the ring's K and V stages (each tile on a 1024-byte boundary, the
+// Shared memory of a block of `wg` warpgroups: their Q tiles, then the
+// ring's K and V stages (each tile on a 1024-byte boundary, the
 // swizzle's period), then the ring's bias stages (kKvTile f32 each, -inf
 // past skv).  The launch adds one period so that the kernel can align
 // the tiles itself.
@@ -128,7 +129,7 @@ struct RingLayout {
 
 __host__ __device__ inline RingLayout ring_layout(int wg) {
   RingLayout L;
-  L.k_off = kTileBytes * wg * kRingStages;
+  L.k_off = kTileBytes * wg;
   L.v_off = L.k_off + kTileBytes * kRingStages;
   L.b_off = L.v_off + kTileBytes * kRingStages;
   L.bytes = L.b_off + sizeof(float) * kKvTile * kRingStages;
@@ -162,70 +163,31 @@ __device__ __forceinline__ void load_swizzled(__nv_bfloat16* dst, const __nv_bfl
   }
 }
 
-// A work item: (batch row, head, group of kWG query tiles), item = (b
-// heads + h) groups + group.
-struct Item {
-  int b, h, first;  // first: the group's first query tile
-};
-
-__device__ __forceinline__ Item item_at(const Args& a, int item, int groups, int wg) {
-  const int bh = item / groups;
-  return Item{bh / a.heads, bh % a.heads, item % groups * wg};
-}
-
-// The block's stream of key tiles: items blockIdx.x, + gridDim.x, ...,
-// each item's key tiles in order, tile p of the stream in ring stage p %
-// kRingStages.  The loads run kRingStages - 1 tiles ahead of the
-// products, across items, and an item's first tile brings its Q tiles
-// into Q slot (the item's place in the block's list) % kRingStages.
-struct Stream {
-  int item, kt, slot, pos;  // the next tile to load, its item's Q slot, its place in the stream
-};
-
-// Start the loads of the next tile of the stream (K, V, bias; with its item's Q tiles
-// when it is the item's first) as one cp.async group, an empty one past
-// the block's last item, and step the stream.
-template <int kWG>
-__device__ __forceinline__ void stream_next(const Args& a, Stream& st, int items, int groups,
-                                            int ktiles, unsigned char* smem, const RingLayout& L,
-                                            int tid) {
-  constexpr int kThreads = kWG * kMmaThreads;
-  const int d = a.dim;
-  if (st.item < items && (!RGQA_LONG_NO_STREAM || st.pos < kRingStages - 1)) {
-    const Item it = item_at(a, st.item, groups, kWG);
-    if (st.kt == 0) {
-      #pragma unroll
-      for (int w = 0; w < kWG; ++w) {
-        const int t0 = (it.first + w) * kTileQ;
-        load_swizzled(
-            reinterpret_cast<__nv_bfloat16*>(smem + (st.slot * kWG + w) * kTileBytes),
-            static_cast<const __nv_bfloat16*>(a.q) + it.b * a.q_bs + t0 * a.q_rs + it.h * d,
-            a.q_rs, d, max(0, min(kTileQ, a.sq - t0)), tid, kThreads);
-      }
-    }
-    const int stage = st.pos % kRingStages, k0 = st.kt * kKvTile, nk = min(a.skv - k0, kKvTile);
-    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.k_off + stage * kTileBytes),
-                  static_cast<const __nv_bfloat16*>(a.k) + it.b * a.k_bs + k0 * a.k_rs + it.h * d,
-                  a.k_rs, d, nk, tid, kThreads);
-    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.v_off + stage * kTileBytes),
-                  static_cast<const __nv_bfloat16*>(a.v) + it.b * a.v_bs + k0 * a.v_rs + it.h * d,
-                  a.v_rs, d, nk, tid, kThreads);
-    float* bs = reinterpret_cast<float*>(smem + L.b_off) + stage * kKvTile;
-    for (int j = tid; j < kKvTile; j += kThreads) {
+// Key tile kt (keys kt * kKvTile ..) of a (batch row, head) into ring
+// stage kt % kRingStages: K, V and the bias; one cp.async group, an empty
+// one when kt is past the last tile.
+__device__ __forceinline__ void stage_ring(const Args& a, int b, int h, int kt,
+                                           unsigned char* smem, const RingLayout& L, int tid,
+                                           int nthreads) {
+  const int k0 = kt * kKvTile;
+  if (k0 < a.skv && (!RGQA_LONG_NO_STREAM || kt < kRingStages - 1)) {
+    const int st = kt % kRingStages, nk = min(a.skv - k0, kKvTile), d = a.dim;
+    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.k_off + st * kTileBytes),
+                  static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d,
+                  a.k_rs, d, nk, tid, nthreads);
+    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.v_off + st * kTileBytes),
+                  static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
+                  a.v_rs, d, nk, tid, nthreads);
+    float* bs = reinterpret_cast<float*>(smem + L.b_off) + st * kKvTile;
+    for (int j = tid; j < kKvTile; j += nthreads) {
       if (j < nk) {
-        cp_async4(bs + j, a.bias + static_cast<long long>(it.b) * a.skv + k0 + j);
+        cp_async4(bs + j, a.bias + static_cast<long long>(b) * a.skv + k0 + j);
       } else {
         bs[j] = -CUDART_INF_F;
       }
     }
   }
   cp_async_commit();
-  ++st.pos;
-  if (++st.kt == ktiles) {
-    st.kt = 0;
-    st.item += gridDim.x;
-    st.slot = (st.slot + 1) % kRingStages;
-  }
 }
 
 // Blocks of kWG warpgroups an SM should hold (__launch_bounds__): 4
@@ -233,163 +195,168 @@ __device__ __forceinline__ void stream_next(const Args& a, Stream& st, int items
 // A/B build's, RGQA_LONG_WG=3).
 constexpr int ring_min_blocks(int wg) { return wg == 1 ? 4 : wg == 2 ? 2 : 1; }
 
-// Work items (batch row, head, group of kWG query tiles), item `items`
-// in all, blockIdx.x, + gridDim.x, ... to a block: warpgroup w owns the
-// item's query tile first + w (rows past sq: it only loads and syncs),
-// and the block's threads stream the item's key tiles through the ring
-// together, so K and V are read once per group.  An item's Q slot is
-// free again when it is reused: kRingStages items later, after a barrier
-// that every warpgroup reached past that item's last tile.
+// One block per (batch row, head, group of kWG query tiles): warpgroup w
+// owns query tile group * kWG + w (rows past sq: it only loads and
+// syncs), and the block's threads stream the row's key tiles through the
+// ring together, so K and V are read once per group.
 template <int kWG>
 __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
-    fused_attention_long_wgmma(Args a, int items) {
+    fused_attention_long_wgmma(Args a) {
+  constexpr int kThreads = kWG * kMmaThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to the swizzle's period below
   unsigned char* smem =
       smem_raw + ((kSwizzlePeriod - smem_u32(smem_raw) % kSwizzlePeriod) % kSwizzlePeriod);
   const RingLayout L = ring_layout(kWG);
   const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
+  const int bh = blockIdx.x / groups, b = bh / a.heads, h = bh % a.heads;
+  const int first = blockIdx.x % groups * kWG;  // the group's first query tile
   const int d = a.dim, tid = threadIdx.x, wg = tid / kMmaThreads;
   const int ktiles = (a.skv + kKvTile - 1) / kKvTile;
-  Stream st{static_cast<int>(blockIdx.x), 0, 0, 0};
-  #pragma unroll
-  for (int p = 0; p < kRingStages - 1; ++p) stream_next<kWG>(a, st, items, groups, ktiles, smem, L, tid);
+
+#pragma unroll
+  for (int w = 0; w < kWG; ++w) {
+    const int t0 = (first + w) * kTileQ;
+    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + w * kTileBytes),
+                  static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + t0 * a.q_rs + h * d,
+                  a.q_rs, d, max(0, min(kTileQ, a.sq - t0)), tid, kThreads);
+  }
+#pragma unroll
+  for (int kt = 0; kt < kRingStages - 1; ++kt) {
+    stage_ring(a, b, h, kt, smem, L, tid, kThreads);  // the Q tiles ride in tile 0's group
+  }
 
   // A thread holds rows i0 = 16 warp + g and i0 + 8 of its warpgroup's
   // tile, columns 8 n + tq + (e & 1) in element 4 n + e of s (keys) and
   // o (head dims); e >= 2 is row i0 + 8 (wgmma.cuh).
+  const int q0 = (first + wg) * kTileQ;
+  const bool active = q0 < a.sq;
   const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, tq = (lane & 3) * 2;
-  int pos = 0, slot = 0;  // the stream's next tile to compute, its item's Q slot
-  for (int item = blockIdx.x; item < items; item += gridDim.x, slot = (slot + 1) % kRingStages) {
-    const Item it = item_at(a, item, groups, kWG);
-    const int b = it.b, h = it.h, q0 = (it.first + wg) * kTileQ;
-    const bool active = q0 < a.sq;
-    const uint64_t dq = wgmma_desc_sw128(smem + (slot * kWG + wg) * kTileBytes);
-    float o[32];
-    #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
-    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  const uint64_t dq = wgmma_desc_sw128(smem + wg * kTileBytes);
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
 
-    for (int kt = 0; kt < ktiles; ++kt, ++pos) {
-      // Tile pos has landed (this thread's copies), is visible to wgmma
-      // (the fence) and everyone's (the barrier), and every warpgroup is
-      // done with tile pos - 1, whose stage the next load takes.
-      cp_async_wait_group<kRingStages - 2>();
-      fence_proxy_async();
-      __syncthreads();
-      stream_next<kWG>(a, st, items, groups, ktiles, smem, L, tid);
-      if (!active) continue;
-      const int stage = pos % kRingStages;
-
-      // S = Q K^T (wgmma m64n64k16, both from shared memory), 4 steps of 16.
-      float s[32];
-      #pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
-      const uint64_t dk = wgmma_desc_sw128(smem + L.k_off + stage * kTileBytes);
-      wgmma_fence();
-      #pragma unroll
-      for (int kk = 0; kk < kMaxDim / 16; ++kk) WgmmaSS<64>::mma(s, dq + 2 * kk, dk + 2 * kk, 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(s);
-
-      // Scale and bias (-inf past skv), the tile's row max by quad shuffles.
-      // Every tile holds a key below skv, whose score is finite: so is the
-      // new max, and the first tile's rescale is exp(-inf) = 0.
-      const float* bs = reinterpret_cast<const float*>(smem + L.b_off) + stage * kKvTile;
-      float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
-      #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[4 * n + e] * a.scale + bs[8 * n + tq + (e & 1)];
-          s[4 * n + e] = x;
-          if (e < 2) t0 = fmaxf(t0, x); else t1 = fmaxf(t1, x);
-        }
-      }
-      #pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
-        t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
-      }
-      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
-      const float c0 = __expf(m0 - n0), c1 = __expf(m1 - n1);
-      m0 = n0;
-      m1 = n1;
-      l0 *= c0;
-      l1 *= c1;
-      #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? c1 : c0;
-
-      // P = exp(S - m), unnormalised, its row sums in f32, P rounded to bf16
-      // into the A fragments of P V: keys 16 c .. 16 c + 15 are the
-      // accumulators of column tiles 2 c and 2 c + 1.
-      #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const float p = __expf(s[i] - ((i & 2) ? m1 : m0));
-        s[i] = p;
-        if (i & 2) l1 += p; else l0 += p;
-      }
-      uint32_t pa[4][4];
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        pa[c][0] = pack_f32_pair(s[8 * c], s[8 * c + 1]);
-        pa[c][1] = pack_f32_pair(s[8 * c + 2], s[8 * c + 3]);
-        pa[c][2] = pack_f32_pair(s[8 * c + 4], s[8 * c + 5]);
-        pa[c][3] = pack_f32_pair(s[8 * c + 6], s[8 * c + 7]);
-      }
-
-      // O += P V: wgmma m64n64k16, P from registers, V (MN-major: key rows
-      // of 64 values, the transpose bit) from the stage, 16 key rows a step.
-      const uint64_t dv = wgmma_desc_sw128(smem + L.v_off + stage * kTileBytes);
-      wgmma_fence();
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) WgmmaRS64::mma(o, pa[c], dv + c * 16 * 8, 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operands(o);
-      fence_operands(pa);
-    }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    // Tile kt has landed (this thread's copies), is visible to wgmma
+    // (the fence) and everyone's (the barrier), and every warpgroup is
+    // done with tile kt - 1, whose stage the next load takes.
+    cp_async_wait_group<kRingStages - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    stage_ring(a, b, h, kt + kRingStages - 1, smem, L, tid, kThreads);
     if (!active) continue;
+    const int st = kt % kRingStages;
 
-    #pragma unroll
+    // S = Q K^T (wgmma m64n64k16, both from shared memory), 4 steps of 16.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const uint64_t dk = wgmma_desc_sw128(smem + L.k_off + st * kTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kMaxDim / 16; ++kk) WgmmaSS<64>::mma(s, dq + 2 * kk, dk + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+
+    // Scale and bias (-inf past skv), the tile's row max by quad shuffles.
+    // Every tile holds a key below skv, whose score is finite: so is the
+    // new max, and the first tile's rescale is exp(-inf) = 0.
+    const float* bs = reinterpret_cast<const float*>(smem + L.b_off) + st * kKvTile;
+    float t0 = -CUDART_INF_F, t1 = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s[4 * n + e] * a.scale + bs[8 * n + tq + (e & 1)];
+        s[4 * n + e] = x;
+        if (e < 2) t0 = fmaxf(t0, x); else t1 = fmaxf(t1, x);
+      }
+    }
+#pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
+      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
     }
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // a row's max term is 1: sum >= 1
-    const int i0 = warp * 16 + g;
-    const long long out_rs = static_cast<long long>(a.heads) * d;
-    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
-                         (static_cast<long long>(b) * a.sq + q0) * out_rs + h * d;
-    #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = i0 + 8 * half;
-      if (q0 + i >= a.sq) continue;
-      const float inv = half ? inv1 : inv0;
-      __nv_bfloat16* row = out + i * out_rs;
-      #pragma unroll
-      for (int n = 0; n < kMaxDim / 8; ++n) {
-        const int c = n * 8 + tq;
-        if (c >= d) continue;
-        const float x0 = o[4 * n + 2 * half] * inv, x1 = o[4 * n + 2 * half + 1] * inv;
-        if ((d & 1) == 0) {
-          *reinterpret_cast<uint32_t*>(row + c) = pack_f32_pair(x0, x1);
-        } else {
-          row[c] = __float2bfloat16(x0);
-          if (c + 1 < d) row[c + 1] = __float2bfloat16(x1);
-        }
+    const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+    const float c0 = __expf(m0 - n0), c1 = __expf(m1 - n1);
+    m0 = n0;
+    m1 = n1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= (i & 2) ? c1 : c0;
+
+    // P = exp(S - m), unnormalised, its row sums in f32, P rounded to bf16
+    // into the A fragments of P V: keys 16 c .. 16 c + 15 are the
+    // accumulators of column tiles 2 c and 2 c + 1.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = __expf(s[i] - ((i & 2) ? m1 : m0));
+      s[i] = p;
+      if (i & 2) l1 += p; else l0 += p;
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      pa[c][0] = pack_f32_pair(s[8 * c], s[8 * c + 1]);
+      pa[c][1] = pack_f32_pair(s[8 * c + 2], s[8 * c + 3]);
+      pa[c][2] = pack_f32_pair(s[8 * c + 4], s[8 * c + 5]);
+      pa[c][3] = pack_f32_pair(s[8 * c + 6], s[8 * c + 7]);
+    }
+
+    // O += P V: wgmma m64n64k16, P from registers, V (MN-major: key rows
+    // of 64 values, the transpose bit) from the stage, 16 key rows a step.
+    const uint64_t dv = wgmma_desc_sw128(smem + L.v_off + st * kTileBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) WgmmaRS64::mma(o, pa[c], dv + c * 16 * 8, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+    fence_operands(pa);
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // a row's max term is 1: sum >= 1
+  const int i0 = warp * 16 + g;
+  const long long out_rs = static_cast<long long>(a.heads) * d;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
+                       (static_cast<long long>(b) * a.sq + q0) * out_rs + h * d;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + 8 * half;
+    if (q0 + i >= a.sq) continue;
+    const float inv = half ? inv1 : inv0;
+    __nv_bfloat16* row = out + i * out_rs;
+#pragma unroll
+    for (int n = 0; n < kMaxDim / 8; ++n) {
+      const int c = n * 8 + tq;
+      if (c >= d) continue;
+      const float x0 = o[4 * n + 2 * half] * inv, x1 = o[4 * n + 2 * half + 1] * inv;
+      if ((d & 1) == 0) {
+        *reinterpret_cast<uint32_t*>(row + c) = pack_f32_pair(x0, x1);
+      } else {
+        row[c] = __float2bfloat16(x0);
+        if (c + 1 < d) row[c + 1] = __float2bfloat16(x1);
       }
     }
-    if (a.lse != nullptr && (lane & 3) == 0) {
-      float* lse = a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0 + i0);
-      if (q0 + i0 < a.sq) {
-        lse[0] = m0;
-        lse[1] = logf(l0);
-      }
-      if (q0 + i0 + 8 < a.sq) {
-        lse[16] = m1;
-        lse[17] = logf(l1);
-      }
+  }
+  if (a.lse != nullptr && (lane & 3) == 0) {
+    float* lse = a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0 + i0);
+    if (q0 + i0 < a.sq) {
+      lse[0] = m0;
+      lse[1] = logf(l0);
+    }
+    if (q0 + i0 + 8 < a.sq) {
+      lse[16] = m1;
+      lse[17] = logf(l1);
     }
   }
 }
@@ -431,7 +398,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
     rl[i] = 0.f;
   }
   float o[kTiledF32Elems];
-  #pragma unroll
+#pragma unroll
   for (int e = 0; e < kTiledF32Elems; ++e) o[e] = 0.f;
 
   for (int k0 = 0; k0 < skv; k0 += kKvTile) {
@@ -462,7 +429,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
       const float x0 = lane < nk ? pi[lane] : -CUDART_INF_F;
       const float x1 = lane + 32 < nk ? pi[lane + 32] : -CUDART_INF_F;
       float mt = fmaxf(x0, x1);
-      #pragma unroll
+#pragma unroll
       for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
       const float mn = fmaxf(rm[i], mt);
       const float p0 = lane < nk ? expf(x0 - mn) : 0.f;
@@ -470,7 +437,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
       if (lane < nk) pi[lane] = p0;
       if (lane + 32 < nk) pi[lane + 32] = p1;
       float sum = p0 + p1;
-      #pragma unroll
+#pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       __syncwarp();
       if (lane == 0) {
@@ -482,7 +449,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
     }
     __syncthreads();
 
-    #pragma unroll
+#pragma unroll
     for (int e = 0; e < kTiledF32Elems; ++e) {
       const int idx = tid + e * kThreads;
       if (idx < sq * d) {
@@ -499,7 +466,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
   const long long out_rs = static_cast<long long>(a.heads) * d;
   float* out = static_cast<float*>(a.out) + static_cast<long long>(b) * a.sq * out_rs +
                q0 * out_rs + h * d;
-  #pragma unroll
+#pragma unroll
   for (int e = 0; e < kTiledF32Elems; ++e) {
     const int idx = tid + e * kThreads;
     if (idx < sq * d) {
@@ -522,26 +489,8 @@ int launch_ring(const Args& a, int batch, cudaStream_t s) {
   const size_t smem = ring_smem_bytes(kWG);
   if (const int err = allow_smem(kernel, smem)) return err;
   const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
-  const int items = batch * a.heads * groups;  // < 2^31: within_long_limits
-  int grid = items;
-  if (RGQA_LONG_PERSISTENT) {
-    static int resident = 0;  // blocks of this instance the card holds at once
-    if (resident == 0) {
-      int dev = 0, sms = 0, per_sm = 0;
-      if (const int err = static_cast<int>(cudaGetDevice(&dev))) return err;
-      if (const int err = static_cast<int>(
-              cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) {
-        return err;
-      }
-      if (const int err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm, kernel, kWG * kMmaThreads, smem))) {
-        return err;
-      }
-      resident = sms * per_sm;
-    }
-    grid = items < resident ? items : resident;
-  }
-  kernel<<<grid, kWG * kMmaThreads, smem, s>>>(a, items);
+  const unsigned blocks = static_cast<unsigned>(batch) * a.heads * static_cast<unsigned>(groups);
+  kernel<<<blocks, kWG * kMmaThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

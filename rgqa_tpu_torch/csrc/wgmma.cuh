@@ -1,7 +1,8 @@
 // Hopper's warpgroup matrix multiply (wgmma.mma_async, sm_90a) by inline
 // PTX: the descriptors of bf16 tiles in shared memory, the fences, and one
-// instruction wrapper per shape a kernel of the port issues.  headfold.cu
-// (the head-fold experiment's bf16 body) is the first user.
+// instruction wrapper per shape a kernel of the port runs: headfold.cu
+// (the head-fold experiment's bf16 body) and fused_attention_long.cu (the
+// long-stream forward's bf16 body).
 //
 // A warpgroup (4 warps, 128 threads) issues each instruction together: a
 // 64-row A (shared memory or registers) times a 16-deep B (shared memory),

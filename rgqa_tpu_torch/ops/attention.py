@@ -22,8 +22,9 @@ backward pick their kernels by length (:func:`forward_kernel`,
 :func:`backward_kernel`): Sq, Skv <= 64 the short kernels, longer
 streams the long ones, at any length (ViLT-B/32's 165-185 tokens, 277 at
 a 512 px image, 597 with 16 px patches; head dim <= 64 throughout).
-The long forward runs whole-row bodies up to 256 keys and key-tiled
-bodies (an online softmax over tiles of 64 keys) beyond; when autograd
+The long forward runs an online softmax over tiles of 64 keys (in bf16
+on Hopper's warpgroup products at every length; in f32 over whole rows
+up to 256 keys and key tiles beyond); when autograd
 will need the backward it also writes each row's softmax statistics (max
 and log-sum, whose sum is the log-sum-exp), which the long backward
 takes instead of recomputing the softmax: its dQ pass
@@ -421,8 +422,8 @@ def fused_attention_cuda(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:
 def fused_attention_long_cuda(q, k, v, bias_kv, num_heads: int, *, lse: bool = False):
     """Launch ``csrc/fused_attention_long.cu`` on the current stream: the
     function of :func:`fused_attention_cuda` for any Sq and Skv (query
-    tiles of 64 rows; each row's complete softmax over every key up to 256
-    keys, an online softmax over key tiles of 64 beyond).  The same
+    tiles of 64 rows, an online softmax over key tiles of 64; in f32 each
+    row's complete softmax up to 256 keys).  The same
     arguments and result; with ``lse=True`` it returns ``(out, lse)``,
     ``lse`` the (B, H, Sq, 2) f32 statistics ``(m, log(sum))`` of each
     row's scores, their max and the log of their softmax sum, whose sum is

@@ -39,8 +39,9 @@ Five groups, all but ``long_variants`` by default (``--only`` picks some):
 the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
 masked row.  Each line gives ``chip_smoke.cuda_ms`` over ``--iters``
-launches and the largest difference from the plain version; the short
-groups' lines also their device time per call, the summed durations of
+launches and the largest difference from the plain version; the
+``long`` and short groups' lines also their device time per call (the
+variants' lines only that), the summed durations of
 the call's kernels under ``torch.profiler`` (at batch 64 the host's cost
 of a call, ~60-100 us, exceeds the kernels', and back-to-back CUDA-event
 times measure the host).  The script imports and builds the checkout it
@@ -220,10 +221,8 @@ def _long(att, gen, iters: int) -> None:
 # its build-time knobs (-DRGQA_LONG_<knob>; unnamed knobs at the source's
 # defaults): WG warpgroups a block (0: the body's own choice), STAGES in
 # the ring, NO_STREAM 1 loads no key tile past the ring's first fill (the
-# body's time without its K / V stream; its output is wrong), PERSISTENT
-# 1 launches as many blocks as the card holds, each walking work items.
-LONG_VARIANTS = ({}, {"WG": 1}, {"WG": 3}, {"STAGES": 2}, {"STAGES": 4}, {"NO_STREAM": 1},
-                 {"PERSISTENT": 1})
+# body's time without its K / V stream; its output is wrong).
+LONG_VARIANTS = ({}, {"WG": 1}, {"WG": 3}, {"STAGES": 2}, {"STAGES": 4}, {"NO_STREAM": 1})
 
 
 def _variant(knobs: dict) -> str:

@@ -62,10 +62,9 @@ CPU_SHAPES = [(70, 70), (65, 130), (130, 65)]
 # ViLT: 20 or 40 text tokens + 144 patches + CLS; cross shapes for the
 # ragged query tiles.
 CARD_SHAPES = [(165, 165), (185, 185), (65, 185), (185, 65)]
-# Either side of 256 keys, where the forward leaves its whole-row bodies
-# (the bf16 body's widest score registers, 32 tiles of 8 keys) for its
-# key-tiled ones; 277 and 597 tokens are ViLT at a 512 px image and with
-# 16 px patches, with ragged pairs.
+# Either side of 256 keys, where the f32 forward leaves its whole-row
+# body for its key-tiled one; 277 and 597 tokens are ViLT at a 512 px
+# image and with 16 px patches, with ragged pairs.
 LIMIT_SHAPES = [(20, 256), (256, 256), (300, 257), (257, 257)]
 BEYOND_SHAPES = [(277, 277), (597, 597), (20, 597), (597, 20)]
 # The bf16 body's grid: 4 query tiles (two blocks of 2 warpgroups), 7
