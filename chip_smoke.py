@@ -497,16 +497,21 @@ def _wgmma_report(res) -> None:
         raise AssertionError(f"headfold's bf16 body issues no HGMMA at some used N: {hgmma}")
 
 
+def _long_ring_smem(wg: int) -> int:
+    """Dynamic shared memory of #2's bf16 body with ``wg`` warpgroups a
+    block, as ``ring_smem_bytes`` in ``csrc/fused_attention_long.cu``
+    lays it out: ``wg`` Q tiles and 3 ring stages each of K and V (64 x
+    64 bf16 a tile), 3 stages of 64 f32 bias, and one 1024-byte swizzle
+    period for the alignment."""
+    tile, stages = 64 * 64 * 2, 3
+    return tile * (wg + 2 * stages) + 4 * 64 * stages + 1024
+
+
 def _long_wgmma_report(res) -> None:
     """#2's bf16 body (``fused_attention_long_wgmma<kWG>``, one instance
-    per warpgroups a block): registers, spills and shared memory
-    from the build log, and HGMMA in its SASS; an instance without HGMMA
-    fails the phase."""
-    import ctypes
-
-    lib = ctypes.CDLL(str(res.path))
-    lib.rgqa_fused_attention_long_smem.argtypes = [ctypes.c_int]
-    lib.rgqa_fused_attention_long_smem.restype = ctypes.c_int
+    per warpgroups a block): registers, spills and static shared memory
+    from the build log, the dynamic shared memory of its layout, and
+    HGMMA in its SASS; an instance without HGMMA fails the phase."""
     res_by_wg = {int(m.group(1)): r for fn, r in _ptxas_resources(res.log).items()
                  if (m := LONG_WGMMA_KERNEL.search(fn))}
     sass = _sass_hgmma(res.path)
@@ -514,7 +519,7 @@ def _long_wgmma_report(res) -> None:
                                        if (m := LONG_WGMMA_KERNEL.search(fn))}
     parts = []
     for wg in sorted(set(res_by_wg) | set(hgmma or {})):
-        part = f"{wg} warpgroups: {lib.rgqa_fused_attention_long_smem(wg)} B dynamic smem"
+        part = f"{wg} warpgroups: {_long_ring_smem(wg)} B dynamic smem"
         if wg in res_by_wg:
             r = res_by_wg[wg]
             part += (f", {r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "

@@ -74,12 +74,14 @@ def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
 
 
 def make_runner(cfg: RunConfig, device: str, scorer: str) -> GQARunner:
-    """The runner that scores: an evaluation runner (bf16 serving
-    weights under bf16), but for ``maha`` a training runner, as the JAX
-    CLI builds it (``init_train=scorer_name == "maha"``): its f32 master
-    weights fit the estimator that ``sample_estimates.pkl`` keeps for
-    every later run, and score under bf16 compute."""
-    return GQARunner(cfg, init_train=scorer == "maha", device=device)
+    """The runner that scores: an evaluation runner, with bf16 serving
+    weights under bf16, but for ``maha`` with f32 weights under bf16
+    compute, as the JAX CLI's training runner keeps them
+    (``init_train=scorer_name == "maha"``): they fit the estimator that
+    ``sample_estimates.pkl`` keeps for every later run.  It stays an
+    evaluation runner, so the evaluation flags (``--branched``,
+    ``--strategy``, ...) pass as with the other scorers."""
+    return GQARunner(cfg, init_train=False, f32_weights=scorer == "maha", device=device)
 
 
 def main(argv=None) -> dict:

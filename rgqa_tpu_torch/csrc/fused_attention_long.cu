@@ -51,23 +51,21 @@
 // not written, and a warpgroup whose tile lies past sq only loads and
 // syncs.  The body holds 118 registers and 67 KB of shared memory, so
 // two blocks share an SM: 4 warpgroups, which hide each other's softmax
-// and loads.  Measured on the H100 (PERF.md; tools/time_attention.py
-// --only long_variants, device time at batch 256, 165 / 185 / 277
-// tokens, and 597 at batch 64): 2 warpgroups a block 181-184 / 183-185 /
-// 410-413 / 347 us; 3 a block (every query tile of a 165-185-token row
-// in one block, K and V read once per row and head, but one block an
-// SM) 199-202 / 203-205 / 476 / 420; 1 a block (3 blocks an SM, by
-// shared memory) 185-188 / 187-189 / 453 / 423; a ring of 2 or 4 stages
-// instead of 3, 0-4% slower.  A persistent grid (as many blocks as the
-// card holds, each streaming its work items' key tiles through one ring)
-// was 2-13% slower than one block per item.  Without its K / V stream
-// (RGQA_LONG_NO_STREAM) the body takes 167-169 / 167 / 348 / 280 us: the
-// stream costs 8-9% at 165-185 tokens and 15-19% at 277-597, where 3-5
-// blocks read each row's K and V.  A deeper ring does not buy that back,
-// so TMA, which makes the same copies from one thread, is not used
-// (cp.async writes the same swizzled layout, without a tensor map or
-// libcuda); one load multicast to a row's blocks (a cluster) would cut
-// the re-reads.
+// and loads.
+// Tried on the H100 in A/B builds of this file and dropped (PERF.md §6):
+// 3 warpgroups a block (every query tile of a 165-185-token row in one
+// block, K and V read once per row and head, but 153 registers and one
+// block an SM), 9-21% slower; 1 a block (3 blocks an SM, by shared
+// memory), 2-22% slower; a ring of 2 or 4 stages instead of 3, -0.5% to
+// +3.0%; a persistent grid (as many blocks as the card holds, each
+// streaming its work items' key tiles through one ring), 2-13% slower.
+// A build that loaded no key tile past the ring's first fill (wrong
+// output; the body's time without its K / V stream) was 8-9% faster at
+// 165-185 tokens and 15-19% at 277-597, where 3-5 blocks read each row's
+// K and V.  A deeper ring does not buy that back, so TMA, which makes the
+// same copies from one thread, is not used (cp.async writes the same
+// swizzled layout, without a tensor map or libcuda); one load multicast
+// to a row's blocks (a cluster) would cut the re-reads.
 // The bf16 bodies this one replaced (mma.sync m16n8k16, 463-473 us at
 // 165-185 tokens): a whole-row body up to 256 keys, one block of 4 warps
 // per (row, head, query tile) that loaded the row's whole K and V and
@@ -96,23 +94,7 @@ namespace {
 // bf16: wgmma over a ring of key tiles.
 // ---------------------------------------------------------------------------
 
-// Build-time knobs of the bf16 body, for A/B builds of variants
-// (tools/time_attention.py --only long_variants): RGQA_LONG_WG fixes the
-// warpgroups of a block (0: launch_long_bf16's choice, below),
-// RGQA_LONG_STAGES the key tiles the ring holds, and RGQA_LONG_NO_STREAM
-// 1 loads only the ring's first fill (later tiles compute on stale
-// stages: wrong output, the time of the body without its K / V stream).
-#ifndef RGQA_LONG_WG
-#define RGQA_LONG_WG 0
-#endif
-#ifndef RGQA_LONG_STAGES
-#define RGQA_LONG_STAGES 3
-#endif
-#ifndef RGQA_LONG_NO_STREAM
-#define RGQA_LONG_NO_STREAM 0
-#endif
-
-constexpr int kRingStages = RGQA_LONG_STAGES;
+constexpr int kRingStages = 3;            // key tiles the ring holds
 static_assert(kRingStages >= 2, "the ring needs a stage in flight beside the one computed");
 constexpr int kRow = 64;                   // bf16 values in one 128-byte swizzled row
 constexpr unsigned kSwizzlePeriod = 1024;  // bytes: 8 swizzled rows
@@ -170,7 +152,7 @@ __device__ __forceinline__ void stage_ring(const Args& a, int b, int h, int kt,
                                            unsigned char* smem, const RingLayout& L, int tid,
                                            int nthreads) {
   const int k0 = kt * kKvTile;
-  if (k0 < a.skv && (!RGQA_LONG_NO_STREAM || kt < kRingStages - 1)) {
+  if (k0 < a.skv) {
     const int st = kt % kRingStages, nk = min(a.skv - k0, kKvTile), d = a.dim;
     load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.k_off + st * kTileBytes),
                   static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d,
@@ -191,9 +173,8 @@ __device__ __forceinline__ void stage_ring(const Args& a, int b, int h, int kt,
 }
 
 // Blocks of kWG warpgroups an SM should hold (__launch_bounds__): 4
-// warpgroups of at most 128 registers a thread, or one block of 3 (an
-// A/B build's, RGQA_LONG_WG=3).
-constexpr int ring_min_blocks(int wg) { return wg == 1 ? 4 : wg == 2 ? 2 : 1; }
+// warpgroups of at most 128 registers a thread.
+constexpr int ring_min_blocks(int wg) { return 4 / wg; }
 
 // One block per (batch row, head, group of kWG query tiles): warpgroup w
 // owns query tile group * kWG + w (rows past sq: it only loads and
@@ -202,6 +183,7 @@ constexpr int ring_min_blocks(int wg) { return wg == 1 ? 4 : wg == 2 ? 2 : 1; }
 template <int kWG>
 __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
     fused_attention_long_wgmma(Args a) {
+  static_assert(kWG == 1 || kWG == 2, "1 or 2 warpgroups a block");
   constexpr int kThreads = kWG * kMmaThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to the swizzle's period below
   unsigned char* smem =
@@ -495,11 +477,9 @@ int launch_ring(const Args& a, int batch, cudaStream_t s) {
 }
 
 // Two warpgroups a block (one when there is one query tile): at 118
-// registers two blocks share an SM, 4 warpgroups, where 3 a block hold
-// 153 and one block an SM (slower at every timed shape; PERF.md).
+// registers two blocks share an SM, 4 warpgroups.
 int launch_long_bf16(const Args& a, int batch, cudaStream_t s) {
-  if (RGQA_LONG_WG == 0 && a.sq <= kTileQ) return launch_ring<1>(a, batch, s);
-  return launch_ring<(RGQA_LONG_WG > 0 ? RGQA_LONG_WG : 2)>(a, batch, s);
+  return a.sq <= kTileQ ? launch_ring<1>(a, batch, s) : launch_ring<2>(a, batch, s);
 }
 
 }  // namespace
@@ -533,12 +513,6 @@ int rgqa_fused_attention_long_fwd(
   }
   return launch(fused_attention_f32<false, kLongPerLane, kLongF32Threads>, a, batch,
                 kLongF32Threads, fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim), s, tiles);
-}
-
-// The bf16 body's dynamic shared memory with wg (1 .. 3) warpgroups per
-// block, as launched; -1 outside that.
-int rgqa_fused_attention_long_smem(int wg) {
-  return wg < 1 || wg > 3 ? -1 : static_cast<int>(ring_smem_bytes(wg));
 }
 
 }  // extern "C"

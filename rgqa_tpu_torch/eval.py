@@ -173,9 +173,10 @@ class ScoringMixin:
         as the JAX package writes it (numpy ``{"mean", "precision"}``), so
         a cache from either package loads in the other.  The pooled
         features come from deterministic forwards (eval mode) on exact
-        f32 feats and f32 weights (bf16 compute keeps f32 masters, as the
-        JAX evaluate CLI's training runner does): every later run reads
-        the cache, so a fit from bf16 serving weights is refused."""
+        f32 feats and f32 weights (under bf16 compute a runner built with
+        ``f32_weights=True`` keeps them, as the JAX evaluate CLI's
+        training runner does): every later run reads the cache, so a fit
+        from bf16 serving weights is refused."""
         cache = os.path.join(self.output, "sample_estimates.pkl")
         if os.path.exists(cache):
             with open(cache, "rb") as f:
@@ -185,8 +186,8 @@ class ScoringMixin:
         if dtypes != {torch.float32}:
             raise RuntimeError(
                 f"the Mahalanobis fit is cached for later runs and needs f32 weights, this model's "
-                f"are {sorted(map(str, dtypes))}: build the runner with init_train=True (bf16 "
-                "compute on f32 masters), as the evaluate CLI does for --scorer maha"
+                f"are {sorted(map(str, dtypes))}: build the runner with f32_weights=True (bf16 "
+                "compute on f32 weights), as the evaluate CLI does for --scorer maha"
             )
         train_set = self.train_set
         if train_set is None:  # an evaluation runner encodes the split for the fit alone

@@ -18,14 +18,17 @@ answers less the appended ``UQ`` class, initialises the weights from a
   ``LAST.state.pt`` at the end.
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
-  convention).  ``--scorer maha`` evaluates on a training runner, as the
-  JAX CLI does: the estimator is fitted, and cached for later runs, from
-  f32 weights; an evaluation runner refuses the fit under bf16 (at
-  ``--fp32`` it encodes the train split when the fit first runs).  Both
-  runners take the answer vocabulary from ``trainval_ans2label.json``,
-  whichever splits they encode, so the two agree on it.  The module is
-  in eval mode outside :meth:`GQARunner.train`; the scorers' forwards
-  set the mode they need and restore it.
+  convention).  With ``f32_weights=True`` it keeps f32 weights under
+  bf16 compute, as a training runner does, and takes the evaluation
+  flags all the same: the evaluate CLI builds ``--scorer maha``'s runner
+  so (the JAX CLI builds a training runner, ``init_train=scorer_name ==
+  "maha"``), because the estimator is fitted, and cached for every later
+  run, from f32 weights; the fit encodes the train split when it first
+  runs and is refused on bf16 weights.  Both runners take the answer
+  vocabulary from ``trainval_ans2label.json``, whichever splits they
+  encode, so the two agree on it.  The module is in eval mode outside
+  :meth:`GQARunner.train`; the scorers' forwards set the mode they need
+  and restore it.
 
 Both run lxmert or vilt.  For evaluation LXMERT also takes the branched
 confidence heads (``--branched`` / ``--branched_layer``) and, with
@@ -122,7 +125,7 @@ class GQARunner(ScoringMixin):
     """GQA task driver on one device (default: the card)."""
 
     def __init__(
-        self, cfg: RunConfig, *, init_train: bool = True,
+        self, cfg: RunConfig, *, init_train: bool = True, f32_weights: bool = False,
         device: Optional[torch.device | str] = None,
     ):
         _check_ported(cfg, train=init_train)
@@ -164,7 +167,7 @@ class GQARunner(ScoringMixin):
         generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.model, self.forward = build_model(
             self.model_cfg, use_bf16=cfg.train.use_bf16,
-            device=self.device, generator=generator, train=init_train,
+            device=self.device, generator=generator, train=init_train or f32_weights,
         )
         self.model.eval()  # train() switches it to training mode for its epochs
         self.label2ans = self.dataset.label2ans

@@ -2,9 +2,9 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
-        [--only long long_variants short_fwd short_bwd headfold]
+        [--only long short_fwd short_bwd headfold]
 
-Five groups, all but ``long_variants`` by default (``--only`` picks some):
+Four groups, all by default (``--only`` picks some):
 
 - ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36,
   batch 256; #2 (``fused_attention_long_cuda``) at ViLT's 165x165,
@@ -14,12 +14,6 @@ Five groups, all but ``long_variants`` by default (``--only`` picks some):
   (``fused_attention_long_bwd_cuda``) at 165x165 and 185x185, batch 256;
   bf16, q, k, v as column views of one fused QKV product, the last
   quarter of the keys masked and one fully masked row;
-- ``long_variants``: #2's bf16 body built from
-  ``csrc/fused_attention_long.cu`` with each of ``LONG_VARIANTS`` (its
-  build-time knobs: warpgroups per block, ring stages; one nvcc each,
-  side by side, into ``build/rgqa_tpu_torch/variants/``), registers and
-  spills from ptxas, device time per call at ``LONG_CASES``, the
-  variants in turns (A B ... B A);
 - ``short_fwd``: #1 and #4 (``fused_attention_dropout_cuda``, rate 0.1)
   at LXMERT's four attention shapes (20x20, 36x36, 20x36, 36x20), batch
   256 and 64 (a training step's 32 + RP rows), bf16, each beside the one
@@ -40,8 +34,8 @@ the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
 masked row.  Each line gives ``chip_smoke.cuda_ms`` over ``--iters``
 launches and the largest difference from the plain version; the
-``long`` and short groups' lines also their device time per call (the
-variants' lines only that), the summed durations of
+``long`` and short groups' lines also their device time per call, the
+summed durations of
 the call's kernels under ``torch.profiler`` (at batch 64 the host's cost
 of a call, ~60-100 us, exceeds the kernels', and back-to-back CUDA-event
 times measure the host).  The script imports and builds the checkout it
@@ -65,7 +59,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
 
-GROUPS = ("long", "long_variants", "short_fwd", "short_bwd", "headfold")
+GROUPS = ("long", "short_fwd", "short_bwd", "headfold")
 E, HEADS = 768, 12
 
 
@@ -116,8 +110,7 @@ def _sdpa(q, k, v, bias, rate: float):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=50)
-    ap.add_argument("--only", nargs="+", choices=GROUPS,
-                    default=[g for g in GROUPS if g != "long_variants"])
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS)
     args = ap.parse_args(argv)
     import torch
 
@@ -131,7 +124,6 @@ def main(argv=None) -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     sources = {"long": ("fused_attention", "fused_attention_long", "fused_attention_long_bwd"),
-               "long_variants": (),
                "short_fwd": ("fused_attention", "fused_attention_dropout"),
                "short_bwd": ("fused_attention_bwd", "fused_attention_dropout"),
                "headfold": ("fused_attention", "headfold")}
@@ -140,8 +132,6 @@ def main(argv=None) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "long" in args.only:
         _long(att, gen, args.iters)
-    if "long_variants" in args.only:
-        _long_variants(att, gen, args.iters)
     rate, seed = 0.1, 2**40 + 3
     short = {
         "short_fwd": (
@@ -215,79 +205,6 @@ def _long(att, gen, iters: int) -> None:
         us = cuda_ms(lambda: bwd(q, k, v, bias, g, HEADS, *extra), iters=iters) * 1e3
         print(f"bfloat16 B={b} {s}x{s} {bwd.__name__}: {us:.1f} us per call, "
               f"max|kernel-plain| of dq, dk, dv {err:.3e}", flush=True)
-
-
-# Variants of #2's bf16 body, built from csrc/fused_attention_long.cu with
-# its build-time knobs (-DRGQA_LONG_<knob>; unnamed knobs at the source's
-# defaults): WG warpgroups a block (0: the body's own choice), STAGES in
-# the ring, NO_STREAM 1 loads no key tile past the ring's first fill (the
-# body's time without its K / V stream; its output is wrong).
-LONG_VARIANTS = ({}, {"WG": 1}, {"WG": 3}, {"STAGES": 2}, {"STAGES": 4}, {"NO_STREAM": 1})
-
-
-def _variant(knobs: dict) -> str:
-    return " ".join(f"{k}={v}" for k, v in knobs.items()) or "as shipped"
-
-
-def _long_variants(att, gen, iters: int) -> None:
-    """#2's bf16 body built with each of ``LONG_VARIANTS``, device time
-    per call at ``LONG_CASES``, in turns."""
-    import ctypes
-
-    import torch
-
-    from chip_smoke import _ptxas_resources
-    from rgqa_tpu_torch.ops import _build
-
-    nvcc = _build.cuda_tool("nvcc")
-    src = _build.CSRC_DIR / "fused_attention_long.cu"
-    out_dir = _build.BUILD_DIR / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, knobs in enumerate(LONG_VARIANTS):
-        lib = out_dir / f"libfused_attention_long_v{i}.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, *(f"-DRGQA_LONG_{k}={v}" for k, v in knobs.items()),
-               "-o", str(lib), str(src)]
-        procs[i] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for i, (lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on variant {_variant(LONG_VARIANTS[i])}:\n{log}")
-        res = [f"{fn}: {r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B"
-               for fn, r in _ptxas_resources(log).items() if "wgmma" in fn]
-        fn = ctypes.CDLL(str(lib)).rgqa_fused_attention_long_fwd
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 6 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns[i] = fn
-        print(f"variant {_variant(LONG_VARIANTS[i])}: " + "; ".join(res), flush=True)
-    for s, b in LONG_CASES:
-        q, k, v, bias = _long_inputs(gen, s, b)
-        want = att.attention_natural_ref(q, k, v, bias, HEADS).float()
-        out = torch.empty(q.shape, dtype=q.dtype, device="cuda")
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def launch(fn):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(), None,
-                     1, b, s, s, HEADS, E // HEADS, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                     v.stride(0), v.stride(1), 1.0 / 8.0, stream)
-            if err != 0:
-                raise RuntimeError(f"variant launch failed ({err})")
-
-        times = {key: [] for key in fns}
-        for turn in range(2):  # A B ... B A
-            for key in (list(fns) if turn == 0 else list(fns)[::-1]):
-                launch(fns[key])
-                torch.cuda.synchronize()
-                err = (out.float() - want).abs().max().item()
-                times[key].append((device_us(lambda: launch(fns[key]), iters, match="fused_attention_long"), err))
-        for key, runs in times.items():
-            us = [t for t, _ in runs]
-            print(f"bfloat16 B={b} {s}x{s} variant {_variant(LONG_VARIANTS[key])}: device "
-                  + " / ".join(_device(t) for t in us) + f", max|kernel-plain| {runs[0][1]:.3e}", flush=True)
-        del q, k, v, bias, out
-        torch.cuda.empty_cache()
 
 
 def _short(pairs, backward: bool, gen, iters: int) -> None:

@@ -116,7 +116,7 @@ def test_time_attention_refuses_unknown_groups():
         ("void (anonymous namespace)::fused_attention_bwd_short_bf16<false, 6>((anonymous namespace)::Args)",
          "attention backward"),
         ("void (anonymous namespace)::fused_attention_long_bf16<24>((anonymous namespace)::Args)", "attention kernel"),
-        ("void (anonymous namespace)::fused_attention_long_wgmma<3>((anonymous namespace)::Args)", "attention kernel"),
+        ("void (anonymous namespace)::fused_attention_long_wgmma<2>((anonymous namespace)::Args)", "attention kernel"),
         ("void (anonymous namespace)::long_bwd_rows_bf16<24>((anonymous namespace)::Args)", "attention backward"),
         ("(anonymous namespace)::long_bwd_keys_bf16((anonymous namespace)::Args)", "attention backward"),
         ("(anonymous namespace)::long_bwd_keys_f32((anonymous namespace)::Args)", "attention backward"),
