@@ -195,7 +195,34 @@ nonzero:
    precision: against the plain re-score under its own tau).  The
    Mahalanobis runs hold their answers, not their scores (see
    ``phase_scorer_cli``); the cached run's JSON equals the first run's.
-16. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+16. prepare (slice 12): builds the port's native TSV decoder with g++
+   (a failed build fails the phase), writes a TSV from the synthetic
+   root's feature pack (every image at 36 boxes, one at 50, whose extra
+   boxes the packer truncates, and one extra image at 10, which it
+   zero-pads) and packs it through the native decoder (its decode counted:
+   a fallback to the numpy decoder fails the phase) and through the numpy
+   decoder: the two packs are equal file for file, and the synthetic
+   images' rows equal the synthetic pack's.  Then ``python -m
+   rgqa_tpu_torch.cli.prepare_data`` writes a fresh data root from the
+   TSV and the synthetic root's JSONs and vocabulary.
+17. serve (slice 12): ``rgqa_tpu_torch.cli.serve.main`` on one JSONL
+   stream (``SERVE_RECORDS`` good records, a malformed line, a line that
+   is not an object, a record without fields, an unknown ``img_id`` and
+   two records that share a question id) at full width, batch 256, bf16:
+   LXMERT ``--scorer msp`` on the prepared root, one output line per
+   record (the four error records among them), the two records of the
+   shared id each answered, 34 launches of #1 per forward and no other
+   kernel, the ``--serve_stats`` count equal to the records scored, the
+   same lines as a serve on the synthetic root the TSV came from, labels
+   and confidences held to a plain-attention re-score of the same rows
+   (``MIN_LABEL_AGREEMENT``, ``CONF_TOL`` plus the 4 dp step); ``--scorer
+   maha`` (bf16 compute), whose fit reads f32 weights (checked on the
+   runner the fit runs on) and whose launches are 34 of #1 per fit batch
+   and per forward; ``--backbone vilt`` msp, 12 launches of #2 per
+   forward and none else; and a latency tier at ``--batchSize 8``,
+   ``LATENCY_RECORDS`` records arriving one every ``LATENCY_INTERVAL`` s,
+   whose p50 / p95 / p99 it prints.
+18. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -339,6 +366,12 @@ GRAD_SIGN_FLOOR = 0.1
 # dimensions singular).
 MAHA_ROOT = dict(n_images=256, n_train=8192)
 VILT_TRAIN_TEXT = 20  # the train CLI's --max_text_len: a 165-token stream
+# Phases 16-17, prepare and serve: good records of the serve stream (two
+# forwards at batch 256), the extra boxes of the TSV's long row and the
+# boxes of its short one, and the latency tier's arrivals.
+SERVE_RECORDS = 300
+LONG_ROW_BOXES, SHORT_ROW_BOXES = 50, 10
+LATENCY_RECORDS, LATENCY_INTERVAL = 20, 0.1
 
 
 def log(phase: str, msg: str) -> None:
@@ -1977,6 +2010,212 @@ def phase_scorer_cli() -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-17: data preparation and the scoring service (slice 12).
+# ---------------------------------------------------------------------------
+
+
+def _files(directory) -> dict:
+    return {name: open(os.path.join(directory, name), "rb").read() for name in sorted(os.listdir(directory))}
+
+
+def phase_prepare(tmp: str) -> tuple[str, str]:
+    """The native decoder, the two packers and the prepare-data CLI (phase
+    16); returns (the synthetic root, the prepared root)."""
+    import numpy as np
+    from rgqa_tpu_torch import native
+    from rgqa_tpu_torch.cli import prepare_data
+    from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+    from rgqa_tpu_torch.data.tsv import PackedFeatures, pack_obj_tsv
+    from rgqa_tpu_torch.tools.profile_serve import write_obj_tsv
+
+    t0 = time.perf_counter()
+    lib = native.build(force=True)
+    log("prepare", f"native TSV decoder built with g++ in {time.perf_counter() - t0:.3f} s: "
+        f"{os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))}")
+    synth, prepared = os.path.join(tmp, "gqa"), os.path.join(tmp, "gqa_prepared")
+    make_synthetic_gqa(synth)
+    pack = PackedFeatures(os.path.join(synth, "features"))
+    names = ("objects_id", "objects_conf", "attrs_id", "attrs_conf", "boxes", "features")
+    rows = [dict({k: getattr(pack, k)[i] for k in names}, img_id=img_id, img_h=pack.sizes[i, 0],
+                 img_w=pack.sizes[i, 1]) for i, img_id in enumerate(pack.img_ids)]
+    extra = LONG_ROW_BOXES - len(rows[0]["boxes"])  # boxes past 36 on the first image: truncated
+    rows[0] = dict(rows[0], **{k: np.concatenate([v, v[:extra] * 0.5 + 1.0]) for k, v in rows[0].items()
+                               if k in names})
+    short = {k: v[:SHORT_ROW_BOXES] for k, v in rows[1].items() if k in names}
+    rows.append(dict(short, img_id="short_row", img_h=300, img_w=400))  # zero-padded to 36
+    tsv_path = os.path.join(tmp, "obj.tsv")
+    nbytes = write_obj_tsv(tsv_path, rows)
+    native.decode_obj_tsv_native.decodes = 0
+    walls = {}
+    for name, use_native in (("native", True), ("numpy", False)):
+        t0 = time.perf_counter()
+        pack_obj_tsv(tsv_path, os.path.join(tmp, f"pack_{name}"), use_native=use_native)
+        walls[name] = time.perf_counter() - t0
+    if native.decode_obj_tsv_native.decodes != 1:
+        raise AssertionError("pack_obj_tsv fell back to the numpy decoder: the native decoder did not run")
+    got, want = _files(os.path.join(tmp, "pack_native")), _files(os.path.join(tmp, "pack_numpy"))
+    if got != want:
+        raise AssertionError(f"the native and numpy packs differ: {[k for k in want if got.get(k) != want[k]]}")
+    packed = PackedFeatures(os.path.join(tmp, "pack_native"))
+    n = len(pack.img_ids)
+    for name in PackedFeatures.ARRAYS:
+        if not np.array_equal(getattr(packed, name)[:n], getattr(pack, name)):
+            raise AssertionError(f"the pack's {name} differs from the synthetic pack's")
+    if packed.img_ids[-1] != "short_row" or packed.features[n, SHORT_ROW_BOXES:].any():
+        raise AssertionError("the short row is not zero-padded")
+    log("prepare", f"TSV of {len(rows)} rows ({nbytes / 1e6:.1f} MB; boxes {LONG_ROW_BOXES} on one "
+        f"row, {SHORT_ROW_BOXES} on one): native {walls['native']:.3f} s, numpy "
+        f"{walls['numpy']:.3f} s; the packs are equal file for file and hold the synthetic pack")
+    t0 = time.perf_counter()
+    done = prepare_data.main(["--tsv", tsv_path, "--json_dir", synth, "--vocab",
+                              os.path.join(synth, "vocab.txt"), "--out", prepared])
+    if native.decode_obj_tsv_native.decodes != 2 or _files(os.path.join(prepared, "features")) != got:
+        raise AssertionError("prepare_data did not write the native decoder's pack")
+    log("prepare", f"prepare_data wrote {prepared} ({done['images']} images) in "
+        f"{time.perf_counter() - t0:.3f} s: {sorted(os.listdir(prepared))}")
+    return synth, prepared
+
+
+def _serve_stream(root: str) -> tuple[list, list]:
+    """The phase-17 stream: good records, the four bad lines, two records
+    sharing a question id; returns (lines, the records that score, in
+    order)."""
+    from rgqa_tpu_torch.tools.profile_serve import records
+
+    with open(os.path.join(root, "testdev.json")) as f:
+        rows = json.load(f)
+    good = records(rows, SERVE_RECORDS)
+    shared = [json.dumps({"question_id": "shared", "sent": r["sent"], "img_id": r["img_id"]})
+              for r in rows[:2]]
+    bad = ["{not json", "[1, 2]", json.dumps({"sent": "what is it ?"}),
+           json.dumps({"question_id": "q_unknown", "sent": "what is it ?", "img_id": "no_such_image"})]
+    half = SERVE_RECORDS // 2
+    scored = good[:half] + shared + good[half:]
+    return good[:half] + bad + shared + good[half:], [json.loads(line) for line in scored]
+
+
+def _served(phase, lines, out, stats, good) -> list:
+    """Hold one serve run's output: a line per record, the four errors,
+    a finite answer per good record in their order (the two of the
+    shared id both answered), ``--serve_stats`` counting each; returns
+    the answers."""
+    rows = [json.loads(line) for line in out]
+    errors = [r for r in rows if "error" in r]
+    answers = [r for r in rows if "error" not in r]
+    if len(rows) != len(lines) or len(errors) != len(lines) - len(good):
+        raise AssertionError(f"{phase}: {len(rows)} lines ({len(errors)} errors) for {len(lines)} records")
+    if [r["questionId"] for r in answers] != [g["question_id"] for g in good]:
+        raise AssertionError(f"{phase}: the answers are not one per good record, in order")
+    if not all(math.isfinite(r["confidence"]) for r in answers):
+        raise AssertionError(f"{phase}: a confidence is not finite")
+    if stats is not None and stats["count"] != len(good):
+        raise AssertionError(f"{phase}: --serve_stats counted {stats['count']} records, {len(good)} scored")
+    return answers
+
+
+def phase_serve(tmp: str, synth: str, prepared: str) -> None:
+    """The scoring service at full width on the prepared root (phase 17)."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.runner import GQARunner
+    from rgqa_tpu_torch.scorers.core import make_msp_scorer
+    from rgqa_tpu_torch.tools.profile_serve import records, serve_lines
+
+    lines, good = _serve_stream(prepared)
+    forwards = math.ceil(len(good) / 256)
+    flags = ["--test", "testdev", "--batchSize", "256", "--wave_timeout", "0", "--serve_stats"]
+
+    def run(name, argv, want):
+        reset_counts()
+        t0 = time.perf_counter()
+        out, stats = serve_lines(argv, lines)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        answers = _served(f"serve {name}", lines, out, stats, good)
+        log("serve", f"{name} ({' '.join(argv)}) in {time.perf_counter() - t0:.2f} s: {len(out)} lines, "
+            f"{len(good)} answered; launches {({k: v for k, v in launches.items() if v})}; latency {stats}")
+        if launches != {**{k: 0 for k in KERNELS}, **want}:
+            raise AssertionError(f"serve {name}: launches {launches}, want {want}")
+        return out, answers
+
+    argv = ["--data_root", prepared, "--scorer", "msp", *flags, "--output", os.path.join(tmp, "serve_msp")]
+    out, answers = run("lxmert msp, prepared root", argv, {"fused_attention": 34 * forwards})
+    synth_out, _ = run("lxmert msp, synthetic root", ["--synthetic", "--data_root", synth, "--scorer", "msp",
+                                                      *flags, "--output", os.path.join(tmp, "serve_synth")],
+                       {"fused_attention": 34 * forwards})
+    if synth_out != out:
+        raise AssertionError("serve on the prepared root answers otherwise than on the synthetic root")
+
+    # The same rows re-scored by the same runner through the plain version.
+    cfg, ns = parse_cli(argv)
+    runner = evaluate.make_runner(cfg, ns.device, "msp")
+    fused = runner.forward
+    plain_forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)  # noqa: E731
+    vocab = runner.dataset
+    ds = GQADataset.from_rows([dict(r, label={}) for r in good], ans2label=vocab.ans2label,
+                              label2ans=vocab.label2ans, name="plain")
+    before = read_counts()
+    plain = runner.score_rows(runner._encode(ds), scorer=make_msp_scorer(plain_forward))
+    torch.cuda.synchronize()
+    if read_counts() != before or len(plain) != len(answers):
+        raise AssertionError("the plain re-score launched a kernel or scored other rows")
+    agree = sum(a["prediction"] == p for a, (p, _) in zip(answers, plain)) / len(plain)
+    dconf = max(abs(a["confidence"] - c) for a, (_, c) in zip(answers, plain))
+    log("serve", f"vs plain attention: labels agree on {agree:.4f} of records (want >= "
+        f"{MIN_LABEL_AGREEMENT}), max|confidence diff| {dconf:.3e} (bound {CONF_TOL:.0e} + 1e-4, the 4 dp step)")
+    if agree < MIN_LABEL_AGREEMENT or not dconf <= CONF_TOL + 1e-4:
+        raise AssertionError("serve disagrees with the plain re-score")
+    del runner, fused
+    torch.cuda.empty_cache()
+
+    # Mahalanobis under bf16 compute: the fit reads f32 weights.
+    fitted = []
+    fit = GQARunner.fit_maha_estimator
+
+    def recording_fit(self):
+        fitted.append(({str(p.dtype) for p in self.model.parameters()}, self.cfg.train.use_bf16))
+        return fit(self)
+
+    fits = math.ceil(len(GQADataset(prepared, cfg.data.train_splits, add_uq=True)) / 256)
+    GQARunner.fit_maha_estimator = recording_fit
+    try:
+        run("lxmert maha", ["--data_root", prepared, "--scorer", "maha", *flags,
+                            "--output", os.path.join(tmp, "serve_maha")],
+            {"fused_attention": 34 * (fits + forwards)})
+    finally:
+        GQARunner.fit_maha_estimator = fit
+    log("serve", f"maha: the fit read weights of {fitted} (dtypes, bf16 compute)")
+    if fitted != [({"torch.float32"}, True)]:
+        raise AssertionError(f"the Mahalanobis fit under serve read {fitted}, want f32 weights under bf16")
+    if not os.path.isfile(os.path.join(tmp, "serve_maha", "sample_estimates.pkl")):
+        raise AssertionError("serve --scorer maha wrote no sample_estimates.pkl")
+
+    run("vilt msp, synthetic root", ["--backbone", "vilt", "--synthetic", "--data_root", synth, "--scorer",
+                                     "msp", *flags, "--output", os.path.join(tmp, "serve_vilt")],
+        {"fused_attention_long": 12 * forwards})
+
+    # The latency tier: records arriving one at a time, batch 8.
+    with open(os.path.join(prepared, "testdev.json")) as f:
+        stream = records(json.load(f), LATENCY_RECORDS)
+
+    def arriving():
+        for line in stream:
+            yield line
+            time.sleep(LATENCY_INTERVAL)
+
+    out, stats = serve_lines(["--data_root", prepared, "--test", "testdev", "--batchSize", "8",
+                              "--serve_stats", "--output", os.path.join(tmp, "serve_b8")], arriving())
+    log("serve", f"latency tier, batch 8, one record every {LATENCY_INTERVAL} s: {len(out)} lines; "
+        f"p50 {stats['p50_ms']} ms, p95 {stats['p95_ms']} ms, p99 {stats['p99_ms']} ms, max "
+        f"{stats['max_ms']} ms ({stats['count']} records)")
+    if len(out) != LATENCY_RECORDS or stats["count"] != LATENCY_RECORDS:
+        raise AssertionError("the latency tier did not answer every record")
+    torch.cuda.empty_cache()
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -2009,6 +2248,8 @@ def main() -> None:
     exp_launches = phase_experiments(errs, exp_times)
     phase_scorers()
     phase_scorer_cli()
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_serve_") as tmp:
+        phase_serve(tmp, *phase_prepare(tmp))
 
     launches = {
         "fused_attention": eval_launches,  # the evaluate path

@@ -43,13 +43,9 @@ NOT_PORTED = {
 ROI_SCORERS = ("odin", "maha")
 
 
-def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
-    """The JAX CLI's flags -> (``RunConfig``, ``--device``, the run's
-    plan: ``scorer``, ``ensemble`` paths, ``target_acc``); exits on what
-    is not ported."""
-    cfg, ns = parse_cli(argv)
-    if not cfg.data.test_splits:
-        raise SystemExit("--test <split[,split...]> is required")
+def refuse_unported(cfg: RunConfig) -> None:
+    """Exit on a ``--scorer`` that is not ported, or that needs RoI inputs
+    on ViLT (the serve CLI refuses the same)."""
     scorer = cfg.ood.scorer
     if scorer in NOT_PORTED:
         raise SystemExit(f"--scorer {scorer} is not ported yet ({NOT_PORTED[scorer]})")
@@ -58,6 +54,17 @@ def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
             f"--scorer {scorer} perturbs the RoI feats and boxes; --backbone vilt has none "
             "(the JAX package cannot run it there either)"
         )
+
+
+def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
+    """The JAX CLI's flags -> (``RunConfig``, ``--device``, the run's
+    plan: ``scorer``, ``ensemble`` paths, ``target_acc``); exits on what
+    is not ported."""
+    cfg, ns = parse_cli(argv)
+    if not cfg.data.test_splits:
+        raise SystemExit("--test <split[,split...]> is required")
+    refuse_unported(cfg)
+    scorer = cfg.ood.scorer
     ensemble = None
     if cfg.load and "," in cfg.load:
         scorer, ensemble = "ensemble", cfg.load.split(",")

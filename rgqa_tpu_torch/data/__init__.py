@@ -2,7 +2,7 @@
 
 ``rgqa_tpu.data`` cannot be imported where jax is absent (its
 ``__init__`` pulls in jax and flax), so the port carries its own copies
-of the tokenizer, the feature pack reader, the synthetic data generator
+of the tokenizer, the feature pack reader and packer, the synthetic data generator
 and the dataset encoder, plus a CUDA-side prefetching feed.
 """
 

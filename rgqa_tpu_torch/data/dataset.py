@@ -61,6 +61,22 @@ class GQADataset:
             self.label2ans = list(self.label2ans) + [UQ_ANSWER]
         self.num_answers = len(self.ans2label)
 
+    @classmethod
+    def from_rows(
+        cls, rows: list[dict], *, ans2label: dict, label2ans: list, name: str = "in_memory",
+    ) -> "GQADataset":
+        """An in-memory dataset over already-loaded rows (reference
+        ``GQADataset_v2``, ``gqa_data.py:70-108``): the serving waves."""
+        ds = cls.__new__(cls)
+        ds.name = name
+        ds.splits = [name]
+        ds.data = list(rows)
+        ds.id2datum = {d["question_id"]: d for d in ds.data}
+        ds.ans2label = dict(ans2label)
+        ds.label2ans = list(label2ans)
+        ds.num_answers = len(ds.ans2label)
+        return ds
+
     def __len__(self) -> int:
         return len(self.data)
 

@@ -1,5 +1,4 @@
-"""Raw-image feed for ViLT: a numpy-only copy of ``rgqa_tpu/data/images.py``
-less ``pack_pixels``.
+"""Raw-image feed for ViLT: a numpy-only copy of ``rgqa_tpu/data/images.py``.
 
 A copy, because importing anything under ``rgqa_tpu.data`` runs its
 ``__init__``, which imports jax and flax.  The functions and classes
@@ -18,7 +17,9 @@ holds them to each other):
 - :func:`rect_patch_mask`: rects -> the (B, n_patches) validity mask;
 - :class:`GQAImageSource` (JPEGs under an image root) and
   :class:`PixelPack` (pre-decoded uint8 rows on a memory map), with
-  :func:`load_image_batch` / :func:`load_image_batch_u8`.
+  :func:`load_image_batch` / :func:`load_image_batch_u8`;
+- :func:`pack_pixels`: every JPEG under an image root decoded once into a
+  pixelbert :class:`PixelPack` (``prepare_data --pack_pixels``).
 
 PIL is imported only inside the functions that decode JPEGs, as in the
 original: the machine with the card has no PIL, and the port's synthetic
@@ -27,8 +28,8 @@ data (``data/synthetic.py``) writes a :class:`PixelPack` directly
 that a pack found under a data root may stand in for its images: the
 same source root, and also the same size, mode and transform, which the
 JAX runner's auto-detection (``rgqa_tpu/runner.py:287-295``) does not
-check.  Not ported yet: ``pack_pixels`` (building a pack from JPEGs),
-which comes with the prepare-data tool.
+check.  ``pack_pixels``' ``transform="clip"`` (CLIP's shortest-edge
+resize and center crop) comes with the CLIP slice and raises here.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ __all__ = [
     "GQAImageSource",
     "PixelPack",
     "pack_matches",
+    "pack_pixels",
     "write_pixel_pack",
 ]
 
@@ -228,19 +230,7 @@ def pack_matches(pack: PixelPack, img_root: str, size: int, mode: str) -> bool:
     )
 
 
-def write_pixel_pack(
-    out_dir: str, img_root: str, img_ids: Sequence[str], pixels: np.ndarray,
-    rects: np.ndarray, *, size: int, mode: Optional[str],
-) -> PixelPack:
-    """Write uint8 ``pixels`` (N, size, size, 3) and ``rects`` (N, 4) as a
-    pixelbert :class:`PixelPack` of ``img_ids``, recorded as built from
-    ``img_root``; the layout ``rgqa_tpu.data.images.pack_pixels`` writes."""
-    img_ids = list(img_ids)
-    if pixels.shape != (len(img_ids), size, size, 3) or rects.shape != (len(img_ids), 4):
-        raise ValueError(f"pixels {pixels.shape} / rects {rects.shape} do not fit {len(img_ids)} images")
-    os.makedirs(out_dir, exist_ok=True)
-    np.ascontiguousarray(pixels, np.uint8).tofile(os.path.join(out_dir, "pixels_u8.bin"))
-    np.ascontiguousarray(rects, np.int32).tofile(os.path.join(out_dir, "rects.bin"))
+def _write_meta(out_dir: str, img_root: str, img_ids: list, *, size: int, mode: Optional[str]) -> PixelPack:
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump(
             {"size": size, "mode": mode, "transform": "pixelbert",
@@ -248,6 +238,60 @@ def write_pixel_pack(
             f,
         )
     return PixelPack(out_dir)
+
+
+def write_pixel_pack(
+    out_dir: str, img_root: str, img_ids: Sequence[str], pixels: np.ndarray,
+    rects: np.ndarray, *, size: int, mode: Optional[str],
+) -> PixelPack:
+    """Write uint8 ``pixels`` (N, size, size, 3) and ``rects`` (N, 4) as a
+    pixelbert :class:`PixelPack` of ``img_ids``, recorded as built from
+    ``img_root``; the layout :func:`pack_pixels` writes."""
+    img_ids = list(img_ids)
+    if pixels.shape != (len(img_ids), size, size, 3) or rects.shape != (len(img_ids), 4):
+        raise ValueError(f"pixels {pixels.shape} / rects {rects.shape} do not fit {len(img_ids)} images")
+    os.makedirs(out_dir, exist_ok=True)
+    np.ascontiguousarray(pixels, np.uint8).tofile(os.path.join(out_dir, "pixels_u8.bin"))
+    np.ascontiguousarray(rects, np.int32).tofile(os.path.join(out_dir, "rects.bin"))
+    return _write_meta(out_dir, img_root, img_ids, size=size, mode=mode)
+
+
+def pack_pixels(
+    img_root: str,
+    out_dir: str,
+    *,
+    size: int = 384,
+    mode: Optional[str] = "pad",
+    transform: str = "pixelbert",
+    img_ids: Optional[Sequence[str]] = None,
+) -> PixelPack:
+    """Decode every JPEG under ``img_root`` (or ``img_ids`` of them) once
+    into a pixelbert :class:`PixelPack` of ViLT rows (pad / crop + rect),
+    one image at a time into the pack's memory maps.  Needs PIL.
+    ``transform="clip"`` raises: CLIP's rows come with the CLIP slice."""
+    if transform == "clip":
+        raise NotImplementedError(
+            "pack_pixels(transform='clip') is not ported: CLIP's resize and crop come with "
+            "the CLIP scorer and backbone"
+        )
+    if transform != "pixelbert":
+        raise ValueError(f"transform must be pixelbert|clip, got {transform!r}")
+    source = GQAImageSource(img_root, size=size, mode=mode)
+    if img_ids is None:
+        img_ids = sorted(
+            os.path.splitext(f)[0] for f in os.listdir(img_root) if f.lower().endswith(".jpg")
+        )
+    img_ids = list(img_ids)
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(img_ids)
+    px = np.memmap(os.path.join(out_dir, "pixels_u8.bin"), np.uint8, "w+", shape=(n, size, size, 3))
+    rects = np.memmap(os.path.join(out_dir, "rects.bin"), np.int32, "w+", shape=(n, 4))
+    for i, img_id in enumerate(img_ids):
+        px[i], rects[i] = source.load_u8(img_id)
+    px.flush()
+    rects.flush()
+    del px, rects
+    return _write_meta(out_dir, img_root, img_ids, size=size, mode=mode)
 
 
 def load_image_batch(source, img_ids: Sequence[str], *, rng=None) -> np.ndarray:

@@ -2,7 +2,8 @@
 ``rgqa_tpu/eval.py``: ``predict``, ``evaluate``, ``make_scorer``,
 ``score_split``, ``ood_evaluate``, ``gated_ood_evaluate``,
 ``ensemble_ood_evaluate``, ``fit_maha_estimator``, ``get_pseudo_labels``
-and ``predict_with_thresh``).
+and ``predict_with_thresh``; ``score_rows``, the answers by row, for the
+serving waves).
 
 ``ScoringMixin`` expects the host class to provide ``cfg``, ``device``,
 ``model``, ``forward``, ``model_cfg``, ``label2ans``, ``train_set``, ``output``,
@@ -103,14 +104,19 @@ class ScoringMixin:
         """Closed-set soft accuracy on a labeled split."""
         return ClosedSetEvaluator(encoded.dataset.qid2label).evaluate(self.predict(encoded))
 
+    def score_rows(self, encoded: EncodedGQA, scorer=None) -> list:
+        """``[(answer, confidence)]``, one per encoded row in row order
+        (rows that share a question id keep their own answers)."""
+        scorer = scorer or self.make_scorer()
+        rows = []
+        for _, out, real in self._map_eval(encoded, scorer, ("label", "score")):
+            for label, score in zip(out["label"][:real], out["score"][:real]):
+                rows.append((self.label2ans[int(label)], float(score)))
+        return rows
+
     def score_split(self, encoded: EncodedGQA, scorer=None) -> dict:
         """``{qid: (answer, confidence)}`` over a split."""
-        scorer = scorer or self.make_scorer()
-        quesid2ans = {}
-        for qids, out, real in self._map_eval(encoded, scorer, ("label", "score")):
-            for qid, label, score in zip(qids, out["label"][:real], out["score"][:real]):
-                quesid2ans[qid] = (self.label2ans[int(label)], float(score))
-        return quesid2ans
+        return dict(zip(encoded.question_ids, self.score_rows(encoded, scorer)))
 
     def _rejection_results(self, encoded: EncodedGQA, quesid2ans: dict, dump: Optional[str]) -> dict:
         results = RGQAEvaluator(encoded.dataset.qid2label, tau=self.cfg.ood.tau).evaluate_quesid2ans(

@@ -4,15 +4,16 @@
   JAX package, the JAX experiments (``experiments/``), jax, jaxlib, flax
   or orbax (an AST scan; the blocked-import subprocesses of
   ``tests/test_torch_slice.py`` and of this file import every module of
-  the port and run the LXMERT and ViLT train and evaluate CLIs and the
-  three experiment entry points with all of them blocked).
+  the port and run the LXMERT and ViLT train and evaluate CLIs, the serve
+  and prepare-data CLIs and the three experiment entry points with all of
+  them blocked).
 - Every CUDA source under ``csrc/`` is in the build's ``SOURCES``, and
   ``chip_smoke.py``'s ``KERNELS`` names every kernel wrapper of
   ``ops.attention`` and of ``rgqa_tpu_torch.experiments``, with its
   source and the TPU kernel it replaces.
 - The entry points run on the card unless asked for the CPU: without a
-  card the runner, ``build_model`` and both CLIs raise when not given the
-  CPU.
+  card the runner, ``build_model`` and the train, evaluate and serve CLIs
+  raise when not given the CPU (prepare-data runs no device code).
 - The port's copies of framework-free JAX-package modules are held to
   their originals on the same inputs: the config parser (equal
   ``dataclasses.asdict``), the metrics (equal dicts, byte-equal dumps) and
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import io
 import json
 import os
 import pathlib
@@ -36,6 +38,7 @@ import torch
 from rgqa_tpu_torch import config as port_config
 from rgqa_tpu_torch import metrics as port_metrics
 from rgqa_tpu_torch.checkpoint import torch_import as port_import
+from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"rgqa_tpu", "experiments", "jax", "jaxlib", "flax", "orbax"}
@@ -70,9 +73,9 @@ for name in names:
     importlib.import_module(name)
 cli = importlib.import_module(f"rgqa_tpu_torch.{sys.argv[1]}")
 results = cli.main(sys.argv[2:])
+keys = sorted(results.get("testdev", results)) if isinstance(results, dict) else results
 loaded = [m for m, v in sys.modules.items() if v is not None and m.split(".")[0] in BLOCKED]
-print("RESULT", json.dumps({"modules": names, "keys": sorted(results.get("testdev", results)),
-                            "loaded": loaded}))
+print("RESULT", json.dumps({"modules": names, "keys": keys, "loaded": loaded}))
 """
 
 
@@ -81,17 +84,19 @@ _VILT_FLAGS = ["--backbone", "vilt", "--fp32", "--num_layers", "1", "--hidden_si
                "--batchSize", "16", "--device", "cpu"]
 
 
-def _run_jax_free(module: str, argv: list, cwd) -> dict:
+def _run_jax_free(module: str, argv: list, cwd, stdin: str | None = None) -> dict:
     """Run ``rgqa_tpu_torch.<module>.main(argv)`` with the JAX package,
-    the JAX experiments and jax / flax / orbax blocked."""
+    the JAX experiments and jax / flax / orbax blocked (``stdin``: its
+    standard input); the result has its other output lines as ``out``."""
     proc = subprocess.run(
-        [sys.executable, "-c", _VILT_JAX_FREE, module, *argv], cwd=str(cwd),
+        [sys.executable, "-c", _VILT_JAX_FREE, module, *argv], cwd=str(cwd), input=stdin,
         env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     line = next(l for l in proc.stdout.splitlines() if l.startswith("RESULT "))
     res = json.loads(line[len("RESULT "):])
     assert res["loaded"] == []
+    res["out"] = [l for l in proc.stdout.splitlines() if not l.startswith("RESULT ")]
     return res
 
 
@@ -113,6 +118,40 @@ def test_vilt_train_runs_with_jax_blocked(tmp_path):
     assert res["keys"] == ["loss", "valid"]
     for name in ("LAST.pth", "LAST.state.pt"):
         assert os.path.isfile(os.path.join(out, name)), name
+
+
+def test_serve_runs_with_jax_blocked(tmp_path):
+    from test_torch_slice import TINY_FLAGS
+
+    root = str(tmp_path / "gqa")
+    make_synthetic_gqa(root)
+    with open(os.path.join(root, "testdev.json")) as f:
+        rows = json.load(f)[:3]
+    lines = [json.dumps({k: r[k] for k in ("question_id", "sent", "img_id")}) for r in rows]
+    res = _run_jax_free("cli.serve", ["--synthetic", "--data_root", root, "--test", "testdev",
+                                      "--output", str(tmp_path / "out"), *TINY_FLAGS],
+                        tmp_path, stdin="\n".join(lines + ["{not json"]) + "\n")
+    assert "rgqa_tpu_torch.cli.serve" in res["modules"] and res["keys"] == 3
+    out = [json.loads(line) for line in res["out"] if line.startswith("{")]
+    assert [r.get("questionId") for r in out] == [None] + [r["question_id"] for r in rows]
+
+
+def test_prepare_data_runs_with_jax_blocked(tmp_path):
+    from rgqa_tpu_torch.tools.profile_serve import random_rows, write_obj_tsv
+
+    tsv = str(tmp_path / "obj.tsv")
+    write_obj_tsv(tsv, random_rows([36, 10, 50], feat_dim=8))
+    (tmp_path / "json").mkdir()
+    (tmp_path / "json" / "testdev.json").write_text("[]")
+    (tmp_path / "vocab.txt").write_text("[PAD]\n[UNK]\n")
+    out = tmp_path / "root"
+    res = _run_jax_free("cli.prepare_data", ["--tsv", tsv, "--json_dir", str(tmp_path / "json"),
+                                             "--vocab", str(tmp_path / "vocab.txt"), "--out", str(out)],
+                        tmp_path)
+    assert {"rgqa_tpu_torch.cli.prepare_data", "rgqa_tpu_torch.native"} <= set(res["modules"])
+    assert res["keys"] == ["images", "pixels"]
+    assert len(json.loads((out / "features" / "img_ids.json").read_text())) == 3
+    assert (out / "testdev.json").is_file() and (out / "vocab.txt").is_file()
 
 
 @pytest.mark.parametrize("name", EXPERIMENTS)
@@ -164,7 +203,7 @@ def no_card():
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
-    from rgqa_tpu_torch.cli import evaluate, train
+    from rgqa_tpu_torch.cli import evaluate, serve, train
     from rgqa_tpu_torch.models.zoo import build_model
     from rgqa_tpu_torch.runner import GQARunner
 
@@ -179,6 +218,9 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
                             "--output", str(tmp_path / "t")]),
         lambda: evaluate.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
                                "--test", "testdev", "--output", str(tmp_path / "e")]),
+        lambda: serve.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
+                            "--test", "testdev", "--output", str(tmp_path / "s")],
+                           stdin=io.StringIO(""), stdout=io.StringIO()),
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             make()

@@ -143,3 +143,34 @@ def test_profile_forward_needs_a_card(flags):
 
     with pytest.raises(SystemExit, match="no CUDA device"):
         profile_forward.main([*flags, "--iters", "1"])
+
+
+def test_profile_serve_needs_a_card():
+    if __import__("torch").cuda.is_available():
+        pytest.skip("a card is present: the profile would run")
+    from rgqa_tpu_torch.tools import profile_serve
+
+    with pytest.raises(RuntimeError, match="runs on a CUDA card"):
+        profile_serve.main(["--records", "1"])
+
+
+def test_profile_serve_runs_its_steps_on_the_cpu(tmp_path):
+    """The serve profile's steps at a tiny size on the CPU: the decoders
+    (equal packs), LXMERT and ViLT throughput in one wave each (no device
+    time there) and a latency tier, all numbers written to ``--out``."""
+    import json
+
+    from rgqa_tpu_torch.tools import profile_serve
+
+    out = str(tmp_path / "serve.json")
+    res = profile_serve.main(["--device", "cpu", "--tiny", "--tsv_rows", "4", "--records", "40",
+                              "--batch", "16", "--latency_records", "3", "--interval", "0.01",
+                              "--latency_batches", "8", "--out", out])
+    with open(out) as f:
+        assert json.load(f) == json.loads(json.dumps(res))
+    assert res["decoder"]["rows"] == 4 and res["decoder"]["numpy_mb_per_s"] > 0
+    for name in ("throughput_lxmert", "throughput_vilt"):
+        run = res[name]
+        assert run["records"] == 40 and run["waves"] == 1 and run["device_ms"] is None
+        assert run["q_per_s"] > 0 and run["encode_s"] > 0 and run["score_s"] > 0
+    assert res["latency_batch8"]["count"] == 3
