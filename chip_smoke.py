@@ -195,16 +195,14 @@ nonzero:
    precision: against the plain re-score under its own tau).  The
    Mahalanobis runs hold their answers, not their scores (see
    ``phase_scorer_cli``); the cached run's JSON equals the first run's.
-16. prepare (slice 12): builds the port's native TSV decoder with g++
-   (a failed build fails the phase), writes a TSV from the synthetic
-   root's feature pack (every image at 36 boxes, one at 50, whose extra
-   boxes the packer truncates, and one extra image at 10, which it
-   zero-pads) and packs it through the native decoder (its decode counted:
-   a fallback to the numpy decoder fails the phase) and through the numpy
-   decoder: the two packs are equal file for file, and the synthetic
-   images' rows equal the synthetic pack's.  Then ``python -m
+16. prepare (slice 12): writes a TSV from the synthetic root's feature
+   pack (every image at 36 boxes, one at 50, whose extra boxes the
+   packer truncates, and one extra image at 10, which it zero-pads) and
+   packs it (``data.tsv.pack_obj_tsv``): the synthetic images' rows equal
+   the synthetic pack's, the short row is zero-padded.  Then ``python -m
    rgqa_tpu_torch.cli.prepare_data`` writes a fresh data root from the
-   TSV and the synthetic root's JSONs and vocabulary.
+   TSV and the synthetic root's JSONs and vocabulary, whose feature pack
+   equals the first pack file for file.
 17. serve (slice 12): ``rgqa_tpu_torch.cli.serve.main`` on one JSONL
    stream (``SERVE_RECORDS`` good records, a malformed line, a line that
    is not an object, a record without fields, an unknown ``img_id`` and
@@ -2020,19 +2018,13 @@ def _files(directory) -> dict:
 
 
 def phase_prepare(tmp: str) -> tuple[str, str]:
-    """The native decoder, the two packers and the prepare-data CLI (phase
-    16); returns (the synthetic root, the prepared root)."""
+    """The packer and the prepare-data CLI (phase 16); returns (the
+    synthetic root, the prepared root)."""
     import numpy as np
-    from rgqa_tpu_torch import native
     from rgqa_tpu_torch.cli import prepare_data
     from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
-    from rgqa_tpu_torch.data.tsv import PackedFeatures, pack_obj_tsv
-    from rgqa_tpu_torch.tools.profile_serve import write_obj_tsv
+    from rgqa_tpu_torch.data.tsv import PackedFeatures, pack_obj_tsv, write_obj_tsv
 
-    t0 = time.perf_counter()
-    lib = native.build(force=True)
-    log("prepare", f"native TSV decoder built with g++ in {time.perf_counter() - t0:.3f} s: "
-        f"{os.path.relpath(lib, os.path.dirname(os.path.abspath(__file__)))}")
     synth, prepared = os.path.join(tmp, "gqa"), os.path.join(tmp, "gqa_prepared")
     make_synthetic_gqa(synth)
     pack = PackedFeatures(os.path.join(synth, "features"))
@@ -2046,18 +2038,9 @@ def phase_prepare(tmp: str) -> tuple[str, str]:
     rows.append(dict(short, img_id="short_row", img_h=300, img_w=400))  # zero-padded to 36
     tsv_path = os.path.join(tmp, "obj.tsv")
     nbytes = write_obj_tsv(tsv_path, rows)
-    native.decode_obj_tsv_native.decodes = 0
-    walls = {}
-    for name, use_native in (("native", True), ("numpy", False)):
-        t0 = time.perf_counter()
-        pack_obj_tsv(tsv_path, os.path.join(tmp, f"pack_{name}"), use_native=use_native)
-        walls[name] = time.perf_counter() - t0
-    if native.decode_obj_tsv_native.decodes != 1:
-        raise AssertionError("pack_obj_tsv fell back to the numpy decoder: the native decoder did not run")
-    got, want = _files(os.path.join(tmp, "pack_native")), _files(os.path.join(tmp, "pack_numpy"))
-    if got != want:
-        raise AssertionError(f"the native and numpy packs differ: {[k for k in want if got.get(k) != want[k]]}")
-    packed = PackedFeatures(os.path.join(tmp, "pack_native"))
+    t0 = time.perf_counter()
+    packed = pack_obj_tsv(tsv_path, os.path.join(tmp, "pack"))
+    wall = time.perf_counter() - t0
     n = len(pack.img_ids)
     for name in PackedFeatures.ARRAYS:
         if not np.array_equal(getattr(packed, name)[:n], getattr(pack, name)):
@@ -2065,13 +2048,12 @@ def phase_prepare(tmp: str) -> tuple[str, str]:
     if packed.img_ids[-1] != "short_row" or packed.features[n, SHORT_ROW_BOXES:].any():
         raise AssertionError("the short row is not zero-padded")
     log("prepare", f"TSV of {len(rows)} rows ({nbytes / 1e6:.1f} MB; boxes {LONG_ROW_BOXES} on one "
-        f"row, {SHORT_ROW_BOXES} on one): native {walls['native']:.3f} s, numpy "
-        f"{walls['numpy']:.3f} s; the packs are equal file for file and hold the synthetic pack")
+        f"row, {SHORT_ROW_BOXES} on one) packed in {wall:.3f} s; the pack holds the synthetic pack")
     t0 = time.perf_counter()
     done = prepare_data.main(["--tsv", tsv_path, "--json_dir", synth, "--vocab",
                               os.path.join(synth, "vocab.txt"), "--out", prepared])
-    if native.decode_obj_tsv_native.decodes != 2 or _files(os.path.join(prepared, "features")) != got:
-        raise AssertionError("prepare_data did not write the native decoder's pack")
+    if _files(os.path.join(prepared, "features")) != _files(os.path.join(tmp, "pack")):
+        raise AssertionError("prepare_data wrote another feature pack than pack_obj_tsv")
     log("prepare", f"prepare_data wrote {prepared} ({done['images']} images) in "
         f"{time.perf_counter() - t0:.3f} s: {sorted(os.listdir(prepared))}")
     return synth, prepared
@@ -2081,11 +2063,11 @@ def _serve_stream(root: str) -> tuple[list, list]:
     """The phase-17 stream: good records, the four bad lines, two records
     sharing a question id; returns (lines, the records that score, in
     order)."""
-    from rgqa_tpu_torch.tools.profile_serve import records
+    from rgqa_tpu_torch.data.synthetic import serve_records
 
     with open(os.path.join(root, "testdev.json")) as f:
         rows = json.load(f)
-    good = records(rows, SERVE_RECORDS)
+    good = serve_records(rows, SERVE_RECORDS)
     shared = [json.dumps({"question_id": "shared", "sent": r["sent"], "img_id": r["img_id"]})
               for r in rows[:2]]
     bad = ["{not json", "[1, 2]", json.dumps({"sent": "what is it ?"}),
@@ -2118,11 +2100,12 @@ def phase_serve(tmp: str, synth: str, prepared: str) -> None:
     """The scoring service at full width on the prepared root (phase 17)."""
     import torch
     from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.cli.serve import serve_lines
     from rgqa_tpu_torch.config import parse_cli
     from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.data.synthetic import serve_records
     from rgqa_tpu_torch.runner import GQARunner
     from rgqa_tpu_torch.scorers.core import make_msp_scorer
-    from rgqa_tpu_torch.tools.profile_serve import records, serve_lines
 
     lines, good = _serve_stream(prepared)
     forwards = math.ceil(len(good) / 256)
@@ -2131,7 +2114,7 @@ def phase_serve(tmp: str, synth: str, prepared: str) -> None:
     def run(name, argv, want):
         reset_counts()
         t0 = time.perf_counter()
-        out, stats = serve_lines(argv, lines)
+        out, stats, _ = serve_lines(argv, lines)
         torch.cuda.synchronize()
         launches = read_counts()
         answers = _served(f"serve {name}", lines, out, stats, good)
@@ -2199,14 +2182,14 @@ def phase_serve(tmp: str, synth: str, prepared: str) -> None:
 
     # The latency tier: records arriving one at a time, batch 8.
     with open(os.path.join(prepared, "testdev.json")) as f:
-        stream = records(json.load(f), LATENCY_RECORDS)
+        stream = serve_records(json.load(f), LATENCY_RECORDS)
 
     def arriving():
         for line in stream:
             yield line
             time.sleep(LATENCY_INTERVAL)
 
-    out, stats = serve_lines(["--data_root", prepared, "--test", "testdev", "--batchSize", "8",
+    out, stats, _ = serve_lines(["--data_root", prepared, "--test", "testdev", "--batchSize", "8",
                               "--serve_stats", "--output", os.path.join(tmp, "serve_b8")], arriving())
     log("serve", f"latency tier, batch 8, one record every {LATENCY_INTERVAL} s: {len(out)} lines; "
         f"p50 {stats['p50_ms']} ms, p95 {stats['p95_ms']} ms, p99 {stats['p99_ms']} ms, max "

@@ -8,10 +8,9 @@ reference download layout -> the data root the port reads.
 
 Writes the same root as the JAX CLI: the split JSONs and answer vocabulary
 of ``--json_dir`` (copied), ``vocab.txt`` and ``features/`` (the f32
-feature pack, decoded once by the native decoder, which g++ builds into
-``build/rgqa_tpu_torch/`` at first use; the numpy decoder where it cannot
-build), plus ``pixels_<size>_<mode>/`` under ``--pack_pixels`` (a ViLT
-pixel pack; needs PIL).  It runs no device code, so it takes no
+feature pack, decoded once by ``data.tsv.pack_obj_tsv``), plus
+``pixels_<size>_<mode>/`` under ``--pack_pixels`` (a ViLT pixel pack;
+needs PIL).  It runs no device code, so it takes no
 ``--device``.  Not ported, and refused by name: ``--int8`` (the int8
 feature pack) and ``--pixel_transform clip`` (CLIP's pixel rows).
 """

@@ -46,6 +46,8 @@ Example:
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import queue as _queue
 import sys
@@ -203,6 +205,40 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     if stats is not None:
         print(json.dumps({"latency": stats.summary()}), file=sys.stderr)
     return served
+
+
+class _ClockedOut(io.StringIO):
+    """An output stream that keeps the time of its last write."""
+
+    last = None
+
+    def write(self, text):
+        n = super().write(text)
+        self.last = time.perf_counter()
+        return n
+
+
+def serve_lines(argv, lines) -> tuple[list, dict | None, float]:
+    """:func:`main` in this process on ``lines`` (records without their
+    newlines): returns the output lines, the ``--serve_stats`` latency
+    dict (None without the flag) and the stream's window in seconds, from
+    the first record's arrival (the reader thread taking it) to the last
+    line written."""
+    first = []
+
+    def stdin():
+        for line in lines:
+            if not first:
+                first.append(time.perf_counter())
+            yield line + "\n"
+
+    out, err = _ClockedOut(), io.StringIO()
+    with contextlib.redirect_stderr(err):
+        main(argv, stdin=stdin(), stdout=out)
+    stats = [json.loads(line)["latency"] for line in err.getvalue().splitlines()
+             if line.startswith('{"latency"')]
+    window = out.last - first[0] if first and out.last is not None else 0.0
+    return out.getvalue().splitlines(), (stats[0] if stats else None), window
 
 
 if __name__ == "__main__":

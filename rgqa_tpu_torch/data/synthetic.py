@@ -28,6 +28,10 @@ reads yet; they draw nothing, so leaving them out changes no array.
 Questions are template-generated over a small object/attribute lexicon;
 each image's "dominant answer" dimension is boosted in its features, so
 a model has something learnable.
+
+Beyond the JAX module: :func:`random_obj_rows` (seeded rows for a test
+TSV, see ``data.tsv.write_obj_tsv``) and :func:`serve_records` (a split's
+rows as JSONL records for ``cli.serve``).
 """
 
 from __future__ import annotations
@@ -309,3 +313,24 @@ def make_synthetic_pixel_pack(root: str, size: int = 384, mode: str = "pad"):
         os.path.join(root, f"pixels_{size}_{mode}"), os.path.join(root, "images"),
         img_ids, pixels, rects, size=size, mode=mode,
     )
+
+
+def random_obj_rows(boxes, *, feat_dim: int = 2048, seed: int = 0):
+    """Seeded rows for :func:`~rgqa_tpu_torch.data.tsv.write_obj_tsv`, one
+    per entry of ``boxes`` with that many RoIs (ids ``img000000``, ...)."""
+    rng = np.random.default_rng(seed)
+    for i, n in enumerate(boxes):
+        yield {
+            "img_id": f"img{i:06d}", "img_h": int(rng.integers(200, 800)), "img_w": int(rng.integers(200, 800)),
+            "objects_id": rng.integers(0, 1600, n), "objects_conf": rng.random(n),
+            "attrs_id": rng.integers(0, 400, n), "attrs_conf": rng.random(n),
+            "boxes": rng.random((n, 4)) * 500,
+            "features": rng.standard_normal((n, feat_dim), dtype=np.float32),
+        }
+
+
+def serve_records(rows: list, n: int) -> list:
+    """``n`` JSONL records for ``cli.serve``: the split rows ``rows`` over
+    and over, each record with its own question id."""
+    return [json.dumps({"question_id": f"s{i:06d}", "sent": rows[i % len(rows)]["sent"],
+                        "img_id": rows[i % len(rows)]["img_id"]}) for i in range(n)]

@@ -6,12 +6,12 @@ A copy, because importing anything under ``rgqa_tpu.data`` runs its
 are absent.  The bottom-up-attention TSV holds rows of ``[img_id, img_h,
 img_w, objects_id, objects_conf, attrs_id, attrs_conf, num_boxes, boxes,
 features]`` with base64 numpy payloads (reference ``src/utils.py:12-54``).
-:func:`pack_obj_tsv` decodes it once into contiguous ``.npy`` arrays
-(``python -m rgqa_tpu_torch.cli.prepare_data``), through the native
-decoder (``rgqa_tpu_torch.native``, built with g++ at first use) or,
-where that cannot build, the numpy decoder (:func:`iter_obj_tsv`);
-:class:`PackedFeatures` memory-maps the pack.  Only the f32 pack is
-written and read: the int8 pack (``--int8``) is not ported.
+:func:`pack_obj_tsv` decodes it once, through the numpy decoder
+(:func:`iter_obj_tsv`), into contiguous ``.npy`` arrays (``python -m
+rgqa_tpu_torch.cli.prepare_data``); :class:`PackedFeatures` memory-maps
+the pack; :func:`write_obj_tsv` writes rows in the TSV's layout.  Only
+the f32 pack is written and read: the int8 pack (``--int8``) is not
+ported, and neither is the JAX package's g++ decoder.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["OBJ_TSV_FIELDS", "PackedFeatures", "iter_obj_tsv", "load_obj_tsv", "pack_obj_tsv"]
+__all__ = ["OBJ_TSV_FIELDS", "PackedFeatures", "iter_obj_tsv", "load_obj_tsv", "pack_obj_tsv",
+           "write_obj_tsv"]
 
 OBJ_TSV_FIELDS = [
     "img_id",
@@ -143,49 +144,21 @@ class PackedFeatures:
         return view
 
 
-def _write_pack(out_dir: str, arrays: dict, img_ids: list) -> PackedFeatures:
-    os.makedirs(out_dir, exist_ok=True)
-    for stale in ("features_q.npy", "features_scale.npy"):  # an int8 pack's, as the JAX packer drops them
-        if os.path.exists(os.path.join(out_dir, stale)):
-            os.remove(os.path.join(out_dir, stale))
-    for name in PackedFeatures.ARRAYS:
-        np.save(os.path.join(out_dir, f"{name}.npy"), arrays[name])
-    with open(os.path.join(out_dir, "img_ids.json"), "w") as f:
-        json.dump(img_ids, f)
-    return PackedFeatures(out_dir)
-
-
 def pack_obj_tsv(
     tsv_path: str,
     out_dir: str,
     topk: int | None = None,
     num_boxes: int = 36,
-    feat_dim: int | None = None,
-    use_native: bool = True,
     int8: bool = False,
 ) -> PackedFeatures:
     """One-time TSV -> packed-array conversion (the offline converter).
 
     Rows with another box count than ``num_boxes`` are zero-padded or
-    truncated to it (the RGQA pipeline uses 36 RoIs).  Uses the native
-    decoder when it builds and prints why it did not otherwise; the numpy
-    decoder is the fallback and writes the same bytes.  ``int8`` raises
-    ``NotImplementedError``: the int8 pack is not ported."""
+    truncated to it (the RGQA pipeline uses 36 RoIs).  Writes the same
+    bytes as the JAX packer, with either of its decoders.  ``int8``
+    raises ``NotImplementedError``: the int8 pack is not ported."""
     if int8:
         raise NotImplementedError(_INT8_REFUSAL)
-    if use_native:
-        try:
-            from rgqa_tpu_torch import native
-
-            if feat_dim is None:
-                feat_dim = next(iter_obj_tsv(tsv_path))["features"].shape[1]
-            arrays = native.decode_obj_tsv_native(
-                tsv_path, topk=topk, num_boxes=num_boxes, feat_dim=feat_dim
-            )
-            return _write_pack(out_dir, arrays, arrays.pop("img_ids"))
-        except Exception as e:
-            print(f"native TSV decoder unavailable ({e}); using numpy path")
-
     rows = []
     for row in iter_obj_tsv(tsv_path):
         rows.append(row)
@@ -210,4 +183,33 @@ def pack_obj_tsv(
         for name in ("features", "boxes", "objects_id", "objects_conf", "attrs_id", "attrs_conf"):
             arrays[name][i, :k] = row[name][:k]
         arrays["sizes"][i] = (row["img_h"], row["img_w"])
-    return _write_pack(out_dir, arrays, [row["img_id"] for row in rows])
+
+    os.makedirs(out_dir, exist_ok=True)
+    for stale in ("features_q.npy", "features_scale.npy"):  # an int8 pack's, as the JAX packer drops them
+        if os.path.exists(os.path.join(out_dir, stale)):
+            os.remove(os.path.join(out_dir, stale))
+    for name in PackedFeatures.ARRAYS:
+        np.save(os.path.join(out_dir, f"{name}.npy"), arrays[name])
+    with open(os.path.join(out_dir, "img_ids.json"), "w") as f:
+        json.dump([row["img_id"] for row in rows], f)
+    return PackedFeatures(out_dir)
+
+
+def write_obj_tsv(path: str, rows) -> int:
+    """Write rows in the bottom-up-attention TSV's layout, the inverse of
+    :func:`iter_obj_tsv`: dicts of ``img_id``, ``img_h``, ``img_w`` and the
+    numpy payloads ``objects_id`` (i64), ``objects_conf``, ``attrs_id``
+    (i64), ``attrs_conf``, ``boxes`` (n, 4) and ``features`` (n, d), f32;
+    ``num_boxes`` is the payloads' n.  Returns the bytes written."""
+    def b64(a, dtype):
+        return base64.b64encode(np.ascontiguousarray(a, dtype).tobytes()).decode()
+
+    with open(path, "w") as f:
+        for r in rows:
+            f.write("\t".join([
+                r["img_id"], str(int(r["img_h"])), str(int(r["img_w"])),
+                b64(r["objects_id"], np.int64), b64(r["objects_conf"], np.float32),
+                b64(r["attrs_id"], np.int64), b64(r["attrs_conf"], np.float32),
+                str(len(r["boxes"])), b64(r["boxes"], np.float32), b64(r["features"], np.float32),
+            ]) + "\n")
+    return os.path.getsize(path)

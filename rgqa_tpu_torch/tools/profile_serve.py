@@ -10,17 +10,19 @@ answers, 36 x 2048 RoIs; ViLT-B/32), bf16 weights from the runner's
 seeded generator, on a synthetic root in a temporary directory:
 
 1. decoder: a TSV of ``--tsv_rows`` rows (36 x 2048 f32 features, seeded)
-   packed by ``pack_obj_tsv`` through the native decoder and through the
-   numpy decoder (the two packs must be equal), wall and MB/s of TSV, and
-   each decoder alone (no pack written);
+   packed by ``pack_obj_tsv``, wall and MB/s of TSV, and its decoder
+   alone (``load_obj_tsv``, no pack written);
 2. throughput: a stream of ``--records`` records (the testdev questions
    over and over, each with its own id) through ``serve.main`` at
    ``--batch``, ``--scorer msp``, in one wave (``--wave_timeout 0``):
-   questions/s, and the wave's wall split into host encode
-   (``runner._encode``: tokenize, image lookup) and the scoring loop
-   (``runner.score_rows``: batch gather, copy, forward, fetch), beside
-   the scoring loop's device time (``torch.profiler``, a second run) and
-   busy share, and the loop's feed alone over the wave's encoded rows
+   questions/s over the stream's window (from the first record's arrival
+   to the last answer written: reading, parsing, encoding, scoring and
+   writing), and within it the host encode (``runner._encode``: tokenize,
+   image lookup) and the scoring loop (``runner.score_rows``: batch
+   gather, copy, forward, fetch); a second run profiles only the scoring
+   loop (``torch.profiler`` around each ``score_rows`` call) for its
+   device time and busy share (that device time over the first run's
+   loop wall); and the loop's feed alone over the wave's encoded rows
    (the host gather of every batch; the gather with the pinned copy to
    the card); then the same with ``--backbone vilt`` (165 tokens: the
    CLI's 20 text tokens and 144 patches at 384 px);
@@ -37,109 +39,24 @@ for a 1-layer, 32-wide model; no device time is measured there).
 from __future__ import annotations
 
 import argparse
-import base64
 import contextlib
-import io
 import json
 import os
 import subprocess
 import tempfile
 import time
 
-import numpy as np
 import torch
 
 from rgqa_tpu_torch.cli import serve
 from rgqa_tpu_torch.data import tsv
 from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
-from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa, random_obj_rows, serve_records
 from rgqa_tpu_torch.eval import ScoringMixin
 from rgqa_tpu_torch.runner import GQARunner
 
 TINY = ["--fp32", "--llayers", "1", "--xlayers", "1", "--rlayers", "1", "--num_layers", "1",
         "--hidden_size", "32", "--num_heads", "4"]
-
-
-def write_obj_tsv(path: str, rows) -> int:
-    """Write bottom-up-attention TSV rows (dicts of ``img_id``, ``img_h``,
-    ``img_w`` and the numpy payloads ``objects_id`` (i64),
-    ``objects_conf``, ``attrs_id`` (i64), ``attrs_conf``, ``boxes`` (n, 4)
-    and ``features`` (n, d), f32); returns the bytes written."""
-    def b64(a, dtype):
-        return base64.b64encode(np.ascontiguousarray(a, dtype).tobytes()).decode()
-
-    with open(path, "w") as f:
-        for r in rows:
-            f.write("\t".join([
-                r["img_id"], str(int(r["img_h"])), str(int(r["img_w"])),
-                b64(r["objects_id"], np.int64), b64(r["objects_conf"], np.float32),
-                b64(r["attrs_id"], np.int64), b64(r["attrs_conf"], np.float32),
-                str(len(r["boxes"])), b64(r["boxes"], np.float32), b64(r["features"], np.float32),
-            ]) + "\n")
-    return os.path.getsize(path)
-
-
-def random_rows(boxes, *, feat_dim: int = 2048, seed: int = 0):
-    """Seeded TSV rows, one per entry of ``boxes`` with that many RoIs."""
-    rng = np.random.default_rng(seed)
-    for i, n in enumerate(boxes):
-        yield {
-            "img_id": f"img{i:06d}", "img_h": int(rng.integers(200, 800)), "img_w": int(rng.integers(200, 800)),
-            "objects_id": rng.integers(0, 1600, n), "objects_conf": rng.random(n),
-            "attrs_id": rng.integers(0, 400, n), "attrs_conf": rng.random(n),
-            "boxes": rng.random((n, 4)) * 500,
-            "features": rng.standard_normal((n, feat_dim), dtype=np.float32),
-        }
-
-
-def records(rows: list, n: int) -> list:
-    """``n`` serve records: ``rows`` (split rows) over and over, each with
-    its own question id."""
-    return [json.dumps({"question_id": f"s{i:06d}", "sent": rows[i % len(rows)]["sent"],
-                        "img_id": rows[i % len(rows)]["img_id"]}) for i in range(n)]
-
-
-def serve_lines(argv: list, lines) -> tuple[list, dict | None]:
-    """``serve.main(argv)`` on ``lines`` (an iterable of records); returns
-    its output lines and the ``--serve_stats`` latency dict (None without
-    the flag)."""
-    out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stderr(err):
-        serve.main(argv, stdin=(line + "\n" for line in lines), stdout=out)
-    stats = [json.loads(line)["latency"] for line in err.getvalue().splitlines()
-             if line.startswith('{"latency"')]
-    return out.getvalue().splitlines(), (stats[0] if stats else None)
-
-
-@contextlib.contextmanager
-def timed_waves():
-    """Record the wall of each wave's host encode (``GQARunner._encode``)
-    and scoring loop (``ScoringMixin.score_rows``, synchronised) while
-    open: yields ``{"encode": [s], "score": [s], "encoded": [the
-    waves' encoded rows]}``."""
-    walls = {"encode": [], "score": [], "encoded": []}
-    originals = (GQARunner._encode, ScoringMixin.score_rows)
-
-    def encode(self, *a, **kw):
-        t0 = time.perf_counter()
-        out = originals[0](self, *a, **kw)
-        walls["encode"].append(time.perf_counter() - t0)
-        walls["encoded"].append(out)
-        return out
-
-    def score_rows(self, *a, **kw):
-        t0 = time.perf_counter()
-        out = originals[1](self, *a, **kw)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        walls["score"].append(time.perf_counter() - t0)
-        return out
-
-    GQARunner._encode, ScoringMixin.score_rows = encode, score_rows
-    try:
-        yield walls
-    finally:
-        GQARunner._encode, ScoringMixin.score_rows = originals
 
 
 def device_ms(fn) -> float:
@@ -158,36 +75,58 @@ def device_ms(fn) -> float:
     return us / 1e3
 
 
-def _decoder(n_rows: int, tmp: str) -> dict:
-    from rgqa_tpu_torch import native
+@contextlib.contextmanager
+def timed_waves(profiled: bool = False):
+    """Record the wall of each wave's host encode (``GQARunner._encode``)
+    and scoring loop (``ScoringMixin.score_rows``, synchronised) while
+    open, and with ``profiled`` each scoring loop's device time under
+    ``torch.profiler``: yields ``{"encode": [s], "score": [s],
+    "device_ms": [ms], "encoded": [the waves' encoded rows]}``."""
+    walls = {"encode": [], "score": [], "device_ms": [], "encoded": []}
+    originals = (GQARunner._encode, ScoringMixin.score_rows)
 
+    def encode(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = originals[0](self, *a, **kw)
+        walls["encode"].append(time.perf_counter() - t0)
+        walls["encoded"].append(out)
+        return out
+
+    def score_rows(self, *a, **kw):
+        out = []
+        t0 = time.perf_counter()
+        if profiled:
+            walls["device_ms"].append(device_ms(lambda: out.append(originals[1](self, *a, **kw))))
+        else:
+            out.append(originals[1](self, *a, **kw))
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        walls["score"].append(time.perf_counter() - t0)
+        return out[0]
+
+    GQARunner._encode, ScoringMixin.score_rows = encode, score_rows
+    try:
+        yield walls
+    finally:
+        GQARunner._encode, ScoringMixin.score_rows = originals
+
+
+def _decoder(n_rows: int, tmp: str) -> dict:
     path = os.path.join(tmp, "obj.tsv")
-    nbytes = write_obj_tsv(path, random_rows([36] * n_rows))
-    native.build()
+    nbytes = tsv.write_obj_tsv(path, random_obj_rows([36] * n_rows))
     walls = {}
-    for name, use_native in (("native", True), ("numpy", False), ("native_again", True)):
-        t0 = time.perf_counter()
-        tsv.pack_obj_tsv(path, os.path.join(tmp, f"pack_{name}"), use_native=use_native)
-        walls[name] = time.perf_counter() - t0
-    # The decoders alone, without writing the pack.
-    for name, decode in (("decode_native", lambda: native.decode_obj_tsv_native(path)),
-                         ("decode_numpy", lambda: tsv.load_obj_tsv(path))):
-        t0 = time.perf_counter()
-        decode()
-        walls[name] = time.perf_counter() - t0
-    for f in os.listdir(os.path.join(tmp, "pack_native")):
-        with open(os.path.join(tmp, "pack_native", f), "rb") as a, open(os.path.join(tmp, "pack_numpy", f), "rb") as b:
-            if a.read() != b.read():
-                raise AssertionError(f"the native and numpy packs differ in {f}")
+    t0 = time.perf_counter()
+    tsv.pack_obj_tsv(path, os.path.join(tmp, "pack"))
+    walls["pack"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tsv.load_obj_tsv(path)  # the decoder alone, no pack written
+    walls["decode"] = time.perf_counter() - t0
     mb = nbytes / 1e6
     res = {"rows": n_rows, "tsv_mb": mb, **{f"{k}_s": v for k, v in walls.items()},
            **{f"{k}_mb_per_s": mb / v for k, v in walls.items()}}
-    print(f"decoder: {n_rows} rows, {mb:.1f} MB of TSV; native {walls['native']:.3f} s "
-          f"({res['native_mb_per_s']:.1f} MB/s), again {walls['native_again']:.3f} s "
-          f"({res['native_again_mb_per_s']:.1f} MB/s); numpy {walls['numpy']:.3f} s "
-          f"({res['numpy_mb_per_s']:.1f} MB/s); the packs are equal; decoding alone: native "
-          f"{walls['decode_native']:.3f} s ({res['decode_native_mb_per_s']:.1f} MB/s), numpy "
-          f"{walls['decode_numpy']:.3f} s ({res['decode_numpy_mb_per_s']:.1f} MB/s)", flush=True)
+    print(f"decoder: {n_rows} rows, {mb:.1f} MB of TSV; pack {walls['pack']:.3f} s "
+          f"({res['pack_mb_per_s']:.1f} MB/s); decoding alone {walls['decode']:.3f} s "
+          f"({res['decode_mb_per_s']:.1f} MB/s)", flush=True)
     return res
 
 
@@ -209,29 +148,27 @@ def feed_walls(encoded, batch: int, device: str) -> tuple[float, float]:
 
 def _throughput(name: str, argv: list, lines: list, on_card: bool, batch: int) -> dict:
     with timed_waves() as walls:
-        t0 = time.perf_counter()
-        out, _ = serve_lines(argv, lines)
-        total = time.perf_counter() - t0
+        out, _, window = serve.serve_lines(argv, lines)
     if len(out) != len(lines) or any('"error"' in line for line in out):
         raise AssertionError(f"{name}: {len(out)} lines for {len(lines)} records, or an error record")
     enc, score = sum(walls["encode"]), sum(walls["score"])
     gather, feed = feed_walls(walls["encoded"][0], batch, "cuda" if on_card else "cpu")
-    res = {"records": len(lines), "waves": len(walls["score"]), "total_s": total, "encode_s": enc,
-           "score_s": score, "q_per_s": len(lines) / (enc + score), "gather_s": gather, "feed_s": feed,
-           "device_ms": None, "busy": None}
+    res = {"records": len(lines), "waves": len(walls["score"]), "stream_s": window,
+           "q_per_s": len(lines) / window, "encode_s": enc, "score_s": score, "gather_s": gather,
+           "feed_s": feed, "device_ms": None, "profiled_score_s": None, "busy": None}
     if on_card:
-        # A second run under the profiler: the scoring loop's device time.
-        def profiled():
-            res["device_ms"] = device_ms(lambda: serve_lines(argv, lines))
-
-        with timed_waves():
-            profiled()
+        # A second run, the scoring loop alone under the profiler.
+        with timed_waves(profiled=True) as prof:
+            serve.serve_lines(argv, lines)
+        res["device_ms"], res["profiled_score_s"] = sum(prof["device_ms"]), sum(prof["score"])
         res["busy"] = res["device_ms"] / 1e3 / score
-    dev = "not measured" if res["device_ms"] is None else f"{res['device_ms']:.3f} ms ({100 * res['busy']:.1f}% of the scoring loop)"
-    print(f"{name}: {len(lines)} records in {res['waves']} wave(s): {res['q_per_s']:.1f} q/s "
-          f"(encode {1e3 * enc:.3f} ms + scoring loop {1e3 * score:.3f} ms; serve.main "
-          f"{total:.3f} s with set-up); device {dev}; the feed alone: gather {1e3 * gather:.3f} ms, "
-          f"gather + pinned copy {1e3 * feed:.3f} ms", flush=True)
+    dev = "not measured" if res["device_ms"] is None else (
+        f"{res['device_ms']:.3f} ms ({100 * res['busy']:.1f}% of the scoring loop; that loop "
+        f"{1e3 * res['profiled_score_s']:.3f} ms under the profiler)")
+    print(f"{name}: {len(lines)} records in {res['waves']} wave(s): {res['q_per_s']:.1f} q/s over "
+          f"the stream's {1e3 * window:.3f} ms (encode {1e3 * enc:.3f} ms, scoring loop "
+          f"{1e3 * score:.3f} ms); the scoring loop's device time {dev}; the feed alone: gather "
+          f"{1e3 * gather:.3f} ms, gather + pinned copy {1e3 * feed:.3f} ms", flush=True)
     return res
 
 
@@ -242,7 +179,7 @@ def _latency(argv: list, lines: list, interval: float) -> dict:
             time.sleep(interval)
 
     with timed_waves() as walls:
-        out, stats = serve_lines(argv + ["--serve_stats"], arriving())
+        out, stats, _ = serve.serve_lines(argv + ["--serve_stats"], arriving())
     if len(out) != len(lines) or stats["count"] != len(lines):
         raise AssertionError(f"latency: {len(out)} lines, count {stats['count']}, for {len(lines)} records")
     waves = len(walls["score"])
@@ -281,12 +218,12 @@ def main(argv=None) -> dict:
         make_synthetic_gqa(root)
         with open(os.path.join(root, "testdev.json")) as f:
             rows = json.load(f)
-        stream = records(rows, args.records)
+        stream = serve_records(rows, args.records)
         base = ["--synthetic", "--data_root", root, "--test", "testdev", "--scorer", "msp", *size]
         for name, extra in (("lxmert", []), ("vilt", ["--backbone", "vilt"])):
             argv = base + extra + ["--batchSize", str(args.batch), "--wave_timeout", "0",
                                    "--output", os.path.join(tmp, f"out_{name}")]
-            serve_lines(argv, stream[: args.batch])  # first forwards: kernel loads, the allocator, ViLT's pack
+            serve.serve_lines(argv, stream[: args.batch])  # first forwards: kernel loads, the allocator, ViLT's pack
             results[f"throughput_{name}"] = _throughput(f"throughput {name}, batch {args.batch}", argv,
                                                         stream, on_card, args.batch)
         for b in args.latency_batches:

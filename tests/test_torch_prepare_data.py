@@ -1,15 +1,14 @@
-"""The port's data preparation (``rgqa_tpu_torch/native``,
-``data/tsv.py``'s decoder and packer, ``data/images.py::pack_pixels``,
-``cli/prepare_data.py``) against the JAX package's, on the CPU.
+"""The port's data preparation (``data/tsv.py``'s decoder, packer and
+writer, ``data/images.py::pack_pixels``, ``cli/prepare_data.py``) against
+the JAX package's, on the CPU.
 
 A TSV written here from a numpy seed, with rows of 36, 10 and 50 boxes
-(padded and truncated to 36), goes through the port's packer (native and
-numpy decoders) and the JAX packer's native decoder, with and without
-``topk``; every ``.npy`` and ``img_ids.json`` equals the JAX numpy
-packer's byte for byte.  The native cases skip where g++ is absent.  The
-prepare-data CLI writes the JAX CLI's root file for file; ``pack_pixels``
-(pixelbert, pad and crop) writes the JAX one's pack byte for byte where
-PIL is present.
+(padded and truncated to 36), goes through the port's packer and the JAX
+packer's g++ decoder, with and without ``topk``; every ``.npy`` and
+``img_ids.json`` equals the JAX numpy packer's byte for byte (the g++
+cases skip where g++ is absent).  The prepare-data CLI writes the
+JAX CLI's root file for file; ``pack_pixels`` (pixelbert, pad and crop)
+writes the JAX one's pack byte for byte where PIL is present.
 """
 
 from __future__ import annotations
@@ -21,19 +20,16 @@ import pathlib
 import numpy as np
 import pytest
 
-from rgqa_tpu_torch import native
 from rgqa_tpu_torch.cli import prepare_data
 from rgqa_tpu_torch.data import tsv
-from rgqa_tpu_torch.ops._build import BUILD_DIR
-from rgqa_tpu_torch.tools.profile_serve import random_rows, write_obj_tsv
+from rgqa_tpu_torch.data.synthetic import random_obj_rows
 
-REPO = pathlib.Path(__file__).resolve().parent.parent
 BOXES = (36, 10, 50, 36, 36, 10, 50)  # boxes per row: as packed, zero-padded, truncated
 FEAT_DIM = 24
 
 
 def _write_tsv(path) -> str:
-    write_obj_tsv(path, random_rows(BOXES, feat_dim=FEAT_DIM))
+    tsv.write_obj_tsv(path, random_obj_rows(BOXES, feat_dim=FEAT_DIM))
     return path
 
 
@@ -48,27 +44,19 @@ def tsv_path(tmp_path_factory):
     return _write_tsv(str(tmp_path_factory.mktemp("tsv") / "obj.tsv"))
 
 
-def _native_or_skip(side):
-    if side == "jax":
-        from rgqa_tpu import native as jax_native
-
-        ok = jax_native.available()
-    else:
-        ok = native.available()
-    if not ok:
-        pytest.skip("g++ not available")
-
-
 @pytest.mark.parametrize("topk", [None, 4])
-@pytest.mark.parametrize("packer", ["port-native", "port-numpy", "jax-native"])
+@pytest.mark.parametrize("packer", ["port-numpy", "jax-native"])
 def test_packs_equal_the_jax_numpy_pack_byte_for_byte(tsv_path, tmp_path, packer, topk):
     from rgqa_tpu.data import tsv as jax_tsv
 
-    side, decoder = packer.split("-")
-    if decoder == "native":
-        _native_or_skip(side)
-    pack = (tsv.pack_obj_tsv if side == "port" else jax_tsv.pack_obj_tsv)
-    got = pack(tsv_path, str(tmp_path / "got"), topk=topk, use_native=decoder == "native")
+    if packer == "jax-native":
+        from rgqa_tpu import native as jax_native
+
+        if not jax_native.available():
+            pytest.skip("g++ not available")
+        got = jax_tsv.pack_obj_tsv(tsv_path, str(tmp_path / "got"), topk=topk, use_native=True)
+    else:
+        got = tsv.pack_obj_tsv(tsv_path, str(tmp_path / "got"), topk=topk)
     jax_tsv.pack_obj_tsv(tsv_path, str(tmp_path / "want"), topk=topk, use_native=False)
     assert len(got) == (topk or len(BOXES))
     want = _tree(tmp_path / "want")
@@ -77,34 +65,33 @@ def test_packs_equal_the_jax_numpy_pack_byte_for_byte(tsv_path, tmp_path, packer
     assert got.features.shape == (topk or len(BOXES), 36, FEAT_DIM)
 
 
-def test_native_decoder_builds_into_the_build_directory():
-    """The port's copy of the decoder builds into ``build/rgqa_tpu_torch``,
-    nothing beside its source, and is the JAX decoder's source."""
-    _native_or_skip("port")
-    path = native.build()
-    assert path.parent == BUILD_DIR == REPO / "build" / "rgqa_tpu_torch"
-    assert sorted(p.name for p in native.SOURCE.parent.iterdir() if not p.name.startswith("__")) == [
-        "tsv_decoder.cpp"]
-    original = (REPO / "rgqa_tpu" / "native" / "tsv_decoder.cpp").read_text()
-    copy = native.SOURCE.read_text()
-    assert copy.startswith("// Copy of rgqa_tpu/native/tsv_decoder.cpp") and copy.endswith(original)
+@pytest.mark.parametrize("boxes", [BOXES, (1,), (50, 10)])
+def test_written_rows_read_back_through_the_jax_reader(tmp_path, boxes):
+    """``write_obj_tsv`` is the inverse of the TSV reader: the JAX
+    package's reader returns the rows it was given, with ``num_boxes``
+    their length."""
+    from rgqa_tpu.data import tsv as jax_tsv
+
+    rows = list(random_obj_rows(boxes, feat_dim=FEAT_DIM, seed=3))
+    path = str(tmp_path / "rows.tsv")
+    assert tsv.write_obj_tsv(path, rows) == os.path.getsize(path)
+    got = jax_tsv.load_obj_tsv(path)
+    assert [r["img_id"] for r in got] == [r["img_id"] for r in rows]
+    for g, r in zip(got, rows):
+        assert (g["num_boxes"], g["img_h"], g["img_w"]) == (len(r["boxes"]), r["img_h"], r["img_w"])
+        for key, dtype in (("objects_id", np.int64), ("objects_conf", np.float32), ("attrs_id", np.int64),
+                           ("attrs_conf", np.float32), ("boxes", np.float32), ("features", np.float32)):
+            np.testing.assert_array_equal(g[key], np.asarray(r[key], dtype).reshape(g[key].shape), err_msg=key)
 
 
-def test_native_decodes_are_counted_and_the_fallback_says_why(tsv_path, tmp_path, monkeypatch, capsys):
-    _native_or_skip("port")
-    before = native.decode_obj_tsv_native.decodes
-    tsv.pack_obj_tsv(tsv_path, str(tmp_path / "native"))
-    assert native.decode_obj_tsv_native.decodes == before + 1
+def test_empty_tsv_is_refused_as_the_jax_packer_refuses_it(tmp_path):
+    from rgqa_tpu.data import tsv as jax_tsv
 
-    def no_compiler(force=False):
-        raise FileNotFoundError("g++")
-
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "build", no_compiler)
-    tsv.pack_obj_tsv(tsv_path, str(tmp_path / "fallback"))
-    assert "native TSV decoder unavailable" in capsys.readouterr().out
-    assert native.decode_obj_tsv_native.decodes == before + 1
-    assert _tree(tmp_path / "fallback") == _tree(tmp_path / "native")
+    path = tmp_path / "empty.tsv"
+    path.write_text("")
+    for pack in (tsv.pack_obj_tsv, lambda *a: jax_tsv.pack_obj_tsv(*a, use_native=False)):
+        with pytest.raises(ValueError, match="no rows decoded"):
+            pack(str(path), str(tmp_path / "out"))
 
 
 def test_rows_decode_as_the_jax_decoder_decodes_them(tsv_path):

@@ -156,6 +156,28 @@ def test_serve_stats_line(env, capsys):
     assert 0.0 <= stats["p50_ms"] <= stats["p95_ms"] <= stats["p99_ms"] <= stats["max_ms"]
 
 
+def test_serve_lines_returns_the_lines_the_stats_and_the_window(env):
+    """``serve_lines`` (the in-process serve of the smoke and the serve
+    profile): the lines ``main`` writes, the latency line's dict, and a
+    window from the first record's arrival to the last line written, so
+    it holds a pause in the input."""
+    pause = 0.3
+    root, _, tmp, paths, rows = env
+    argv = _argv(root, str(tmp / "serve_lines"), paths["a"], "--wave_timeout", "0", *TINY_FLAGS)
+    lines = [_record(r) for r in rows[:4]] + BAD_LINES[:1]
+
+    def arriving():
+        yield from lines[:2]
+        time.sleep(pause)
+        yield from lines[2:]
+
+    out, stats, window = serve.serve_lines(argv + ["--serve_stats"], arriving())
+    assert out == _serve(serve, argv, lines)
+    assert stats["count"] == 4
+    assert window >= pause
+    assert serve.serve_lines(argv, lines[:1])[1] is None
+
+
 def test_serve_counts_each_record_of_a_shared_qid_with_its_own_latency(env, capsys):
     """Two records of one wave share a question id and arrive ``GAP`` s
     apart: each is counted with its own arrival, so the larger latency

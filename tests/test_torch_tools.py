@@ -155,9 +155,10 @@ def test_profile_serve_needs_a_card():
 
 
 def test_profile_serve_runs_its_steps_on_the_cpu(tmp_path):
-    """The serve profile's steps at a tiny size on the CPU: the decoders
-    (equal packs), LXMERT and ViLT throughput in one wave each (no device
-    time there) and a latency tier, all numbers written to ``--out``."""
+    """The serve profile's steps at a tiny size on the CPU: the packer and
+    its decoder, LXMERT and ViLT throughput in one wave each (no device
+    time there; the stream's window holds the wave's encode and scoring
+    loop) and a latency tier, all numbers written to ``--out``."""
     import json
 
     from rgqa_tpu_torch.tools import profile_serve
@@ -168,9 +169,12 @@ def test_profile_serve_runs_its_steps_on_the_cpu(tmp_path):
                               "--latency_batches", "8", "--out", out])
     with open(out) as f:
         assert json.load(f) == json.loads(json.dumps(res))
-    assert res["decoder"]["rows"] == 4 and res["decoder"]["numpy_mb_per_s"] > 0
+    assert res["decoder"]["rows"] == 4 and res["decoder"]["pack_mb_per_s"] > 0
+    assert res["decoder"]["decode_mb_per_s"] > 0
     for name in ("throughput_lxmert", "throughput_vilt"):
         run = res[name]
         assert run["records"] == 40 and run["waves"] == 1 and run["device_ms"] is None
-        assert run["q_per_s"] > 0 and run["encode_s"] > 0 and run["score_s"] > 0
+        assert run["encode_s"] > 0 and run["score_s"] > 0
+        assert run["stream_s"] > run["encode_s"] + run["score_s"]
+        assert run["q_per_s"] == pytest.approx(40 / run["stream_s"])
     assert res["latency_batch8"]["count"] == 3
