@@ -18,7 +18,10 @@ nonzero:
    shapes use with none fails the phase).  #2's bf16 body
    (``fused_attention_long_wgmma<kWG>``, kWG warpgroups a block) runs on
    ``wgmma`` too: the same line for each of its instances, and an
-   instance without HGMMA fails the phase.
+   instance without HGMMA fails the phase.  Since slice 13 so does the
+   epilogue's bf16 body (``epilogue_bf16<kNP>``, kNP keys in a window):
+   the same line for each instance, and an instance without
+   HGMMA or with spilled registers fails the phase.
 3. kernels: the six attention kernels against their plain PyTorch
    versions.  #2, the long-stream forward, and #3L, the long-stream
    backward (given #2's row statistics), at ViLT-B/32's shapes (165x165,
@@ -121,7 +124,8 @@ nonzero:
    experiments' shapes (the cross and self pairs of 20 and 36 tokens;
    cat at 56 tokens split at 20 in xor and diag mode; headfold at 56x56,
    36x36, 20x36, 36x20, 20x20 with every (variant, F); the epilogue at
-   LXMERT's four shapes), batch 384 and 7, f32 and bf16, with padded keys
+   LXMERT's four shapes and 7x36, a short query that spans ten batch rows
+   a block), batch 384 and 7, f32 and bf16, with padded keys
    (-10000) and one fully masked row: bounds 2e-5 in f32 (1e-4 for the
    epilogue, a LayerNorm over sums in another order) and ``3e-2 + 1e-2
    |plain|`` in bf16.  Then each against the shipped composition: dual
@@ -133,7 +137,9 @@ nonzero:
    the bounds (each side lies within them of the plain version).  Slice
    9 redesigned headfold's bf16 body (``wgmma``, each tile of whole heads'
    stacked query rows against those heads' keys): these checks hold it as
-   they held the first design.  Per-call times at batch 384 bf16 of each kernel and its shipped form
+   they held the first design, and since slice 13 they hold the
+   epilogue's redesigned bf16 body (``wgmma``, W and the residual by TMA)
+   the same way.  Per-call times at batch 384 bf16 of each kernel and its shipped form
    (in turns), its plain version and the PyTorch yardstick (once each:
    SDPA, one call for cat and headfold, two for dual; SDPA + ``addmm`` +
    ``layer_norm`` for the epilogue, a composition), beside its bound;
@@ -448,10 +454,12 @@ def phase_build():
                 log("build", "  " + line.strip())
     _wgmma_report(results["headfold"])
     _long_wgmma_report(results["fused_attention_long"])
+    _epilogue_report(results["epilogue"])
 
 
 WGMMA_KERNEL = re.compile(r"headfold_wgmmaILi(\d+)E")  # headfold_wgmma<kNP>, kNP keys in the window
 LONG_WGMMA_KERNEL = re.compile(r"fused_attention_long_wgmmaILi(\d+)E")  # <kWG> warpgroups a block
+EPI_KERNEL = re.compile(r"epilogue_bf16ILi(\d+)E")  # epilogue_bf16<kNP>, kNP keys in a window
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -563,6 +571,39 @@ def _long_wgmma_report(res) -> None:
         + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
     if hgmma is not None and (not hgmma or not all(hgmma.values())):
         raise AssertionError(f"#2's bf16 body has no HGMMA in some instance: {hgmma}")
+
+
+def _epilogue_report(res) -> None:
+    """The epilogue's bf16 body (``epilogue_bf16<kNP>``, kNP keys in a
+    window): registers, spills and static shared memory from the build log,
+    its dynamic shared memory (``epilogue_exp.epi_smem_bytes``), and HGMMA
+    in its SASS; an instance without HGMMA, or one that spills, fails the
+    phase."""
+    from rgqa_tpu_torch.experiments import epilogue_exp
+
+    used = sorted({epilogue_exp.epi_plan(b, sq, skv).keys for b in (384, 7) for sq, skv in EPI_SHAPES})
+    res_by = {int(m.group(1)): r for fn, r in _ptxas_resources(res.log).items() if (m := EPI_KERNEL.search(fn))}
+    sass = _sass_hgmma(res.path)
+    hgmma = None if sass is None else {int(m.group(1)): c for fn, c in sass.items() if (m := EPI_KERNEL.search(fn))}
+    parts = []
+    for n in sorted(set(res_by) | set(hgmma or {})):
+        part = (f"N={n}{' (used at the smoke shapes)' if n in used else ''}: "
+                f"{epilogue_exp.epi_smem_bytes(n)} B dynamic smem")
+        if n in res_by:
+            r = res_by[n]
+            part += (f", {r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "
+                     f"stores/loads, {r['smem']} B static smem")
+        if hgmma is not None:
+            part += f", {hgmma.get(n, 0)} HGMMA in SASS"
+        parts.append(part)
+    log("build", "epilogue bf16 body (epilogue_bf16<N>, wgmma + TMA): " + "; ".join(parts)
+        + ("" if res.log else "; reused build, no ptxas log to read")
+        + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
+    if hgmma is not None and (not hgmma or not all(hgmma.values())):
+        raise AssertionError(f"the epilogue's bf16 body has no HGMMA in some instance: {hgmma}")
+    spilled = {n: r for n, r in res_by.items() if r["spill_stores"] or r["spill_loads"]}
+    if spilled:
+        raise AssertionError(f"the epilogue's bf16 body spills registers: {spilled}")
 
 
 # ---------------------------------------------------------------------------
@@ -1347,7 +1388,10 @@ def phase_vilt_long():
 # Phase 13: the experiments (slice 5).
 # ---------------------------------------------------------------------------
 
-EXP_ITERS = 20  # launches per timing in phase 13 (33 cases; the kernel and the shipped form in turns)
+EXP_ITERS = 20  # launches per timing in phase 13 (34 cases; the kernel and the shipped form in turns)
+# The epilogue's shapes: LXMERT's four and a short query (7 rows) whose
+# block spans ten batch rows, in five key windows a head.
+EPI_SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20), (7, 36))
 
 
 def _exp_stream(b, s, dtype, gen):
@@ -1436,7 +1480,7 @@ def _exp_cases(b, dtype, gen):
                 lambda args=args: headfold_exp.headfold_ref(*args),
                 lambda args=args: one(*args[:4]), lambda args=args: _sdpa(*args[:4]),
                 attn_bytes(sq, skv), fold * 4 * b * HEADS * sq * skv * d))
-    for sq, skv in epilogue_exp.SHAPES:
+    for sq, skv in EPI_SHAPES:
         q, k, v, m = _exp_stream(b, max(sq, skv), dtype, gen)
         q, k, v, m = q[:, :sq].contiguous(), k[:, :skv].contiguous(), v[:, :skv].contiguous(), m[:, :skv].contiguous()
         res = torch.randn(b, sq, E, generator=gen, device="cuda").to(dtype)

@@ -235,9 +235,10 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
 }
 
 // cp.async groups: commit the copies issued so far; wait until at most n
-// of this thread's groups are in flight.  The key-tiled bodies and the
-// epilogue's ring commit once per tile (an empty group past the last),
-// so cp_async_wait_group<1>() leaves the prefetch of the next in flight.
+// of this thread's groups are in flight.  The key-tiled bodies commit once
+// per tile and the epilogue's bf16 body once per K or V window (an empty
+// group past the last), so cp_async_wait_group<1>() leaves the prefetch
+// of the next in flight.
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 template <int n>
@@ -294,10 +295,6 @@ __device__ __forceinline__ void load_kv_tile(const Args& a, int b, int h, int k0
       bs[j] = -CUDART_INF_F;
     }
   }
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);  // two consecutive bf16, 4-byte aligned
 }
 
 __device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -399,102 +396,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&af)[4], const float (&x)[2][
   af[1] = pack_f32_pair(x[0][2] * scale, x[0][3] * scale);
   af[2] = pack_f32_pair(x[1][0] * scale, x[1][1] * scale);
   af[3] = pack_f32_pair(x[1][2] * scale, x[1][3] * scale);
-}
-
-// Fragments of mma.sync m16n8k16 from shared memory, one warp (g = lane /
-// 4 the fragment's row or column group, t = 2 (lane % 4)):
-// a_frag: A, the 16 x 16 block at p (row-major, row stride ld);
-// b_frag_rows: B (16 x 8) with B(k, n) at p[n * ld + k] (K^T read from
-//   key rows: k runs along a row);
-// b_frag: B with B(k, n) at p[k * ld + n] (a matrix read from its rows).
-__device__ __forceinline__ void a_frag(uint32_t (&f)[4], const __nv_bfloat16* p, int ld,
-                                       int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  f[0] = ld_pair(p + g * ld + t);
-  f[1] = ld_pair(p + (g + 8) * ld + t);
-  f[2] = ld_pair(p + g * ld + t + 8);
-  f[3] = ld_pair(p + (g + 8) * ld + t + 8);
-}
-
-__device__ __forceinline__ void b_frag_rows(uint32_t& b0, uint32_t& b1,
-                                            const __nv_bfloat16* p, int ld, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  b0 = ld_pair(p + g * ld + t);
-  b1 = ld_pair(p + g * ld + t + 8);
-}
-
-__device__ __forceinline__ void b_frag(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* p,
-                                       int ld, int lane) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  b0 = pack_pair(p[t * ld + g], p[(t + 1) * ld + g]);
-  b1 = pack_pair(p[(t + 8) * ld + g], p[(t + 9) * ld + g]);
-}
-
-// acc += A (16 x 16, row-major at a, stride lda) x B, one warp, where B
-// is 16 x 8 with element (k, n) at b[n * ldb + k] (b_rows: K^T read from
-// key rows) or at b[k * ldb + n] (!b_rows: a matrix read from its rows).
-template <bool b_rows>
-__device__ __forceinline__ void mma_tile(float (&acc)[4], const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int ldb, int lane) {
-  uint32_t af[4], b0, b1;
-  a_frag(af, a, lda, lane);
-  if (b_rows) {
-    b_frag_rows(b0, b1, b, ldb, lane);
-  } else {
-    b_frag(b0, b1, b, ldb, lane);
-  }
-  mma_16x8x16(acc, af[0], af[1], af[2], af[3], b0, b1);
-}
-
-// C (m_rows_p x n) = A (m_rows_p x k_p, row stride lda) x B (k_p x n,
-// row-major, stride ldb), by (16-row, 8-column) tiles over the block's
-// warps; store(i, c, value) for i < m and c < n.
-template <typename Store>
-__device__ __forceinline__ void mma_product(const __nv_bfloat16* a, int lda,
-                                            const __nv_bfloat16* b, int ldb, int m_p, int k_p,
-                                            int m, int n, int warp, int lane, Store store) {
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  const int m_tiles = m_p / 16, n_tiles = (n + 7) / 8;
-  for (int task = warp; task < m_tiles * n_tiles; task += kMmaWarps) {
-    const int m0 = task / n_tiles * 16, n0 = task % n_tiles * 8;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < k_p; k0 += 16) {
-      mma_tile<false>(acc, a + m0 * lda + k0, lda, b + k0 * ldb + n0, ldb, lane);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = m0 + g + (e >= 2 ? 8 : 0), c = n0 + t + (e & 1);
-      if (i < m && c < n) store(i, c, acc[e]);
-    }
-  }
-}
-
-// S = Q K^T * scale + bias on the tensor cores into ss (sq x (skv + 1)),
-// one (16-row, 8-key) tile per warp task; Qs / Ks zero-padded tiles.
-template <typename Mask = NoMask>
-__device__ __forceinline__ void scores_mma(float* ss, const __nv_bfloat16* qs,
-                                           const __nv_bfloat16* ks, int ldq, int sqp, int dp,
-                                           const float* bs, const Args& a, int warp, int lane,
-                                           const Mask& mask = Mask()) {
-  const int sq = a.sq, skv = a.skv;
-  const int g = lane >> 2, t = (lane & 3) * 2;
-  const int m_tiles = sqp / 16, n_tiles = (skv + 7) / 8;
-  for (int task = warp; task < m_tiles * n_tiles; task += kMmaWarps) {
-    const int m0 = task / n_tiles * 16, n0 = task % n_tiles * 8;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < dp; k0 += 16) {
-      mma_tile<true>(acc, qs + m0 * ldq + k0, ldq, ks + n0 * ldq + k0, ldq, lane);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = m0 + g + (e >= 2 ? 8 : 0), j = n0 + t + (e & 1);
-      if (i < sq && j < skv) {
-        float x = acc[e] * a.scale + bs[j];
-        if (Mask::kOn) x += mask(i, j);
-        ss[i * (skv + 1) + j] = x;
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -12,30 +12,66 @@
 //     out = (y - mean(y)) / sqrt(var(y) + eps) * gamma + beta, in the input dtype
 //
 // with the statistics over E columns in f32.  The out-projection is the
-// kernel's own (mma.sync in bf16), not a library GEMM.
+// kernel's own (wgmma in bf16), not a library GEMM.
 //
-// Design (bf16, epilogue_bf16): LayerNorm needs whole rows, so a block owns
-// kEpiRows = 64 consecutive rows of the flattened (B Sq, E) output, which
-// may span several batch rows ("segments"); packing rows rather than batch
-// rows keeps every block full and cuts the re-reads of W (1.18 MB in bf16,
-// read once per block from L2: ~140-250 MB at batch 384, against ~60-110
-// MB of inputs and outputs in device memory).  Two phases:
-//   1. attention: four groups of 4 warps share out the (head, segment)
-//      tasks, each group behind barriers of its own, and run the short
-//      kernel's bf16 body on each
-//      (attention_common.cuh: Q, K, V tiles by cp.async, S and P through
-//      shared memory, P in bf16, O = P V on the tensor cores), writing
-//      o_h into the block's 64 x 768 bf16 context in shared memory; so no
-//      head's context reaches device memory, and no accumulator is live;
-//   2. projection: the 64 x 768 x 768 product of the context and W on the
-//      tensor cores (ldmatrix fragments, mma.sync), W streamed through a
-//      ring of two 32-row slices by cp.async (the next slice lands while
-//      this one is multiplied), into a 64 x 768 f32 accumulator in
-//      registers, 48 columns per warp (4 x 6 mma tiles).
-// Then each thread adds b and res to its values, the row sums cross the
-// warps through shared memory (two passes: the mean, then the squared
-// deviations), and the normalised rows are written once, in bf16.  The
-// attention scratch and the W ring share their shared memory.
+// Design (bf16, epilogue_bf16<kNP>), on Hopper's warpgroup products
+// (wgmma.cuh) and its tensor memory accelerator (TMA).  LayerNorm needs
+// whole rows, so a block of 4 warpgroups owns kEpiRows = 64 consecutive
+// rows of the flattened (B Sq, E) output, wgmma's M, which may span
+// several batch rows ("segments").  Its shared memory holds one 64 x 768
+// bf16 tile in 12 chunks of 64 columns, each one 128-byte swizzle atom
+// wide (8 KB): first the block's queries (chunk h = head h's Q), then its
+// context (head h's attention writes o_h over chunk h), then the
+// residual, then the output.  No head's context reaches device memory.
+//   1. attention: warpgroup w takes heads w, w + 4, w + 8.  Per head it
+//      walks windows of whole segments, at most kMaxWindowKeys = 96 keys
+//      (epilogue_exp.epi_plan: spw segments a window, kNP keys padded to
+//      16; the window's scores are kNP / 2 registers a thread, and at 112
+//      keys the body spilled): S = Q_h
+//      K_win^T as wgmma m64nNk16, all 64 query rows against the window's
+//      keys, the scores of other segments' keys at -inf (6d's stacked
+//      form), the softmax on the accumulators by quad shuffles, P =
+//      exp(S - m) unnormalised and rounded to bf16 into the register A
+//      fragments of O = P V (m64n64k16) as #2's body does, O / l written
+//      over chunk h for the window's rows.  K, V and the bias come
+//      by cp.async into the warpgroup's own swizzled buffers: the next
+//      window's K loads while this one's softmax and P V run, its V while
+//      the next S runs.
+//   2. projection: acc = b + ctx W, each warpgroup 192 output columns as
+//      m64n192k16 from shared memory (W MN-major, the transpose bit), 96
+//      f32 accumulators a thread.  W streams through a ring of kStages = 5
+//      items of 24 KB: item i is warpgroup i % 4's 192 columns of W's rows
+//      64 (i / 4) .. + 63, three 64 x 64 boxes in the 128-byte swizzle,
+//      one TMA each, completing the item's own mbarrier (one per item, so
+//      a warpgroup ahead of the others never waits on a later fill of the
+//      same stage).  A warpgroup refills the stage it has just used with
+//      item i + 5 itself, after a barrier of its own 4 warps: nothing
+//      waits on another warpgroup to free a stage (a single filling thread
+//      that did so left the ring, and the products, waiting on it).  The
+//      attention buffers and the ring share memory (stages clear of the
+//      buffers are filled at the start).  Once every warpgroup is done
+//      with context chunk c (an mbarrier per chunk), warpgroup 3's thread
+//      0 loads the residual's chunk c over it by TMA (rows past the
+//      output's end read as zero).
+//   3. LayerNorm from the accumulators: res added, the row sums across
+//      the warpgroups through shared memory (the mean, then the squared
+//      deviations), f32 statistics, eps.  The ring, free by then, takes
+//      gamma, beta and each thread's second row, so that one row's 48
+//      values at a time are in registers: with all 96 and the row's loads
+//      the body spilled, and with 224 KB of shared memory a spill goes to
+//      L2.  The bf16 rows are written over the residual in shared memory
+//      and stored by TMA, 12 boxes of 64 x 64 (rows past the output's end
+//      are clipped).  0 bytes spilled at every kNP (chip_smoke.py's build
+//      report).
+// Tried on the H100 and dropped: a cluster of 2 or 4 row blocks sharing
+// each W load by TMA multicast (slower at every shape: each stage's
+// refill then waits on the slowest block of the cluster); ring stages of
+// 16 rows of all 768 columns (12 boxes of 2 KB) refilled by one thread
+// (the W stream then ran several times slower); three K / V
+// buffers a warpgroup with windows of at most 80 keys, so that the next
+// window's K and V both load during the current one (no faster: the
+// attention phase streams K and V at device-memory rate, all blocks
+// reading at once).
 //
 // f32 (epilogue_f32): the same function on the CUDA cores for the check at
 // 1e-4: 16 rows a block, every head's context in shared memory, the
@@ -43,33 +79,43 @@
 //
 // What bounds it on an H100: at LXMERT's shapes and batch 384 a call moves
 // 60-110 MB and does 9-17 GFLOP (mostly the projection), so bytes bound
-// it (18-32 us) ahead of the tensor cores (9-17 us); the re-reads of W come
-// from L2.  Measured, it runs at ~8-10x that bound, most of it in the
-// attention phase, which is latency-bound: one block of 16 warps per SM
-// runs the short kernel's barrier-separated body (PERF.md section 6).  A
-// first version interleaved the heads' attention with their projections,
-// kept the accumulator live throughout, spilled it at the 128-register cap
-// and ran 2x slower; synchronising the attention groups apart made the
-// phases of the four groups overlap (1.06-1.22x).
+// it (18-32 us) ahead of the tensor cores (9-17 us).  Every block reads
+// all of W (1.18 MB) from L2: 141.6-254.8 MB a call at batch 384.
 //
 // Limits: E = 768 (12 heads of 64); Sq, Skv <= 64; f32 and bf16.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime (no -lcuda)
+
 #include "attention_common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr int kEpiE = 768;
 constexpr int kEpiDim = 64;
 constexpr int kEpiHeads = kEpiE / kEpiDim;
-constexpr int kEpiWarps = 16;
-constexpr int kEpiThreads = kEpiWarps * 32;
-constexpr int kEpiGroups = kEpiWarps / kMmaWarps;  // attention groups of 4 warps
-constexpr int kEpiMT = 4;                          // 16-row mma tiles per block
-constexpr int kEpiRows = 16 * kEpiMT;
-constexpr int kEpiNT = kEpiE / kEpiWarps / 8;      // 8-column mma tiles per warp
-constexpr int kEpiLd = kEpiE + 8;                  // row stride (elements) of the context and W slices
-constexpr int kEpiSlice = 32;                      // W rows per streamed slice
 constexpr size_t kSmemMax = 232448;  // 227 KB, the most a block may take
+
+// ---- bf16: wgmma ----
+
+constexpr int kEpiRows = 64;                          // a block's output rows: wgmma's M
+constexpr int kEpiWG = 4;                             // warpgroups a block
+constexpr int kEpiThreads = kEpiWG * kMmaThreads;
+constexpr int kColAtoms = kEpiE / kEpiWG / 64;        // 64-column atoms of a warpgroup's 192 columns
+constexpr int kMaxWindowKeys = 96;                    // a window's keys, padded (registers: S is kNP / 2 a thread)
+constexpr int kKBlock = 64;                           // W rows a ring item holds: one context chunk, 4 k steps
+constexpr int kItems = kEpiE / kKBlock * kEpiWG;      // items: (K block, warpgroup), the warpgroup fastest
+constexpr int kStages = 5;                            // the W ring
+constexpr uint32_t kSwizzlePeriod = 1024;             // bytes: 8 swizzled rows
+constexpr uint32_t kRowBytes = 128;                   // one swizzled row: 64 bf16
+constexpr uint32_t kChunkBytes = kEpiRows * kRowBytes;  // 64 rows of 64 columns
+constexpr uint32_t kCtxBytes = kChunkBytes * kEpiHeads;
+constexpr uint32_t kBoxBytes = kKBlock * kRowBytes;   // one TMA box of W: 64 rows x 64 columns
+constexpr uint32_t kStageBytes = kBoxBytes * kColAtoms;  // an item: a warpgroup's 192 columns
+constexpr uint32_t kRingBytes = kStageBytes * kStages;
+static_assert(kEpiHeads % kEpiWG == 0, "each warpgroup takes as many heads");
+static_assert(kItems >= kStages, "the ring is filled from W's first items");
+static_assert((kItems + 1 + kEpiHeads) * 8 <= 512, "the mbarriers fit their 512 bytes");
 
 struct EpiArgs {
   const void* q;
@@ -82,13 +128,14 @@ struct EpiArgs {
   const float* gamma;
   const float* beta;
   void* out;          // contiguous (B Sq, E)
-  int batch, sq, skv, groups;
+  int batch, sq, skv;
+  int spw;            // bf16: segments a window (epilogue_exp.epi_plan)
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;
   float scale, eps;
 };
 
 // The rows [r0, r0 + rows) of the flattened output a block owns, and the
-// batch rows they span.
+// batch rows they span (none for a block past the end).
 struct EpiRows {
   long long r0;
   int rows, b_first, segments;
@@ -98,9 +145,9 @@ __device__ __forceinline__ EpiRows epi_rows(const EpiArgs& a, int per_block) {
   EpiRows r;
   const long long total = static_cast<long long>(a.batch) * a.sq;
   r.r0 = static_cast<long long>(blockIdx.x) * per_block;
-  r.rows = static_cast<int>(min(static_cast<long long>(per_block), total - r.r0));
+  r.rows = static_cast<int>(max(0LL, min(static_cast<long long>(per_block), total - r.r0)));
   r.b_first = static_cast<int>(r.r0 / a.sq);
-  r.segments = static_cast<int>((r.r0 + r.rows - 1) / a.sq) - r.b_first + 1;
+  r.segments = r.rows > 0 ? static_cast<int>((r.r0 + r.rows - 1) / a.sq) - r.b_first + 1 : 0;
   return r;
 }
 
@@ -121,244 +168,496 @@ __device__ __forceinline__ Segment segment(const EpiArgs& a, const EpiRows& r, i
   return g;
 }
 
-// bf16 shared memory: the context (kEpiRows x kEpiLd), the LayerNorm
-// partial sums (kEpiWarps x kEpiRows f32), then a region that the
-// attention phase and the projection use in turn: per attention group Q,
-// whose space P takes once the scores are out (SQP x 72, or SQP x (SKP +
-// 8)), K, V (SKP x 72), S (sqs x (skv + 1) f32) and the bias row (skv
-// f32), sqs = min(sq, kEpiRows); then the ring of two W slices
-// (kEpiSlice x kEpiLd each).
+// bf16 shared memory (from a 1024-byte boundary): the 64 x 768 tile
+// (kCtxBytes), then a region that the ring of W items (kRingBytes), the
+// attention buffers before it and the LayerNorm's gamma, beta and second
+// rows after it share, the attention buffers at its end: per warpgroup K
+// and V (kNP swizzled rows each) and two bias rows (kNP f32 each),
+// rounded to the swizzle's period; then the mbarriers (kItems full, the
+// residual's, kEpiHeads context chunks done: 512 bytes) and the
+// LayerNorm's partial sums (2 x kEpiWG x kEpiRows f32).  `prefetch` ring
+// stages lie clear of the attention buffers.
 struct EpiLayout {
-  int sqs, skp, ldq, ldp;
-  size_t k_off, v_off, s_off, b_off, group_bytes;  // within a group
-  size_t part_off, u_off, bytes;
+  uint32_t attn_off, wg_bytes, bar_off, part_off, bytes;
+  int prefetch;
 };
 
-__host__ __device__ inline EpiLayout epi_layout(int sq, int skv, int groups) {
+__host__ __device__ inline EpiLayout epi_layout(int np) {
   EpiLayout L;
-  L.sqs = sq < kEpiRows ? sq : kEpiRows;
-  const int sqp = (L.sqs + 15) / 16 * 16;
-  L.skp = (skv + 15) / 16 * 16;
-  L.ldq = kEpiDim + 8;
-  L.ldp = L.skp + 8;
-  const size_t bf = sizeof(__nv_bfloat16), f = sizeof(float);
-  const size_t q_bytes = bf * sqp * L.ldq, p_bytes = bf * sqp * L.ldp;
-  L.k_off = align16(q_bytes > p_bytes ? q_bytes : p_bytes);
-  L.v_off = L.k_off + bf * L.skp * L.ldq;
-  L.s_off = L.v_off + bf * L.skp * L.ldq;
-  L.b_off = align16(L.s_off + f * L.sqs * (skv + 1));
-  L.group_bytes = align16(L.b_off + f * skv);
-  L.part_off = bf * kEpiRows * kEpiLd;
-  L.u_off = L.part_off + f * kEpiWarps * kEpiRows;
-  const size_t attn = L.group_bytes * groups, ring = 2 * bf * kEpiSlice * kEpiLd;
-  L.bytes = L.u_off + (attn > ring ? attn : ring);
+  L.wg_bytes = (2 * kRowBytes * np + 2 * sizeof(float) * np + kSwizzlePeriod - 1) / kSwizzlePeriod *
+               kSwizzlePeriod;
+  const uint32_t attn = L.wg_bytes * kEpiWG;
+  const uint32_t region = attn > kRingBytes ? attn : kRingBytes;
+  L.attn_off = kCtxBytes + region - attn;
+  const int clear = static_cast<int>((L.attn_off - kCtxBytes) / kStageBytes);
+  L.prefetch = clear < kStages ? clear : kStages;
+  L.bar_off = kCtxBytes + region;
+  L.part_off = L.bar_off + 512;
+  L.bytes = L.part_off + 2 * kEpiWG * kEpiRows * sizeof(float);
   return L;
 }
 
-// Barrier of attention group grp's 4 warps (named barrier 1 + grp; 0 is
-// __syncthreads').
-__device__ __forceinline__ void group_sync(int grp) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(kMmaThreads) : "memory");
+// As launched: one swizzle period more, so that the kernel can align.
+size_t epi_smem_bytes(int np) { return epi_layout(np).bytes + kSwizzlePeriod; }
+
+// ---- mbarriers and TMA (inline PTX) ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ float2 bf16_pair(const __nv_bfloat16* p) {
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive, and expect `bytes` more of TMA transfers in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Whether the phase of parity `parity` has completed (no waiting).
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The box at (x, y) (elements along the rows, rows) of a 2D tensor map into
+// dst (1024-byte aligned), completing its bytes on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The box at src (1024-byte aligned shared memory) to (x, y) of the map's
+// tensor; rows past its end are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int x, int y) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(x), "r"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\ncp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Barrier of warpgroup wg's 128 threads (named barrier 1 + wg; 0 is
+// __syncthreads').
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kMmaThreads) : "memory");
+}
+
+__device__ __forceinline__ float2 bf16_pair(const void* p) {
   const uint32_t x = *reinterpret_cast<const uint32_t*>(p);
   return make_float2(__bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(x & 0xFFFFu))),
                      __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(x >> 16))));
 }
 
-__global__ void __launch_bounds__(kEpiThreads, 1) epilogue_bf16(EpiArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const EpiLayout L = epi_layout(a.sq, a.skv, a.groups);
-  __nv_bfloat16* ctx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* part = reinterpret_cast<float*>(smem_raw + L.part_off);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.u_off);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int grp = warp / kMmaWarps, gwarp = warp % kMmaWarps, gtid = tid % kMmaThreads;
-  unsigned char* gsm = smem_raw + L.u_off + L.group_bytes * (grp < a.groups ? grp : 0);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(gsm);
-  __nv_bfloat16* ps = qs;  // P overwrites Q once the scores are out
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(gsm + L.k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(gsm + L.v_off);
-  float* ss = reinterpret_cast<float*>(gsm + L.s_off);
-  float* bs = reinterpret_cast<float*>(gsm + L.b_off);
+// One 16-byte piece (c = 0..7 of a 128-byte row) of a bf16 source into a
+// swizzled row of dst: cp.async when the source allows 16-byte copies.
+__device__ __forceinline__ void piece16(unsigned char* dst, const __nv_bfloat16* src, bool vec) {
+  if (vec) {
+    cp_async16(dst, src);
+  } else {
+    __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(dst);
+    for (int e = 0; e < 8; ++e) d[e] = src[e];
+  }
+}
+
+// The keys of a window (segments b0, b0 + 1, ... of skv keys each, nk in
+// all) of one head (src at the head's first column) into np swizzled rows
+// at dst, zero past nk: thread t (of a warpgroup) takes piece t % 8 of rows
+// t / 8, + 16, ..., stepping the row's segment rather than dividing.
+__device__ __forceinline__ void load_window(unsigned char* dst, const __nv_bfloat16* src, long long bs,
+                                            long long rs, int b0, int skv, int nk, int np, int t,
+                                            bool vec) {
+  constexpr int kStep = kMmaThreads / 8;
+  const int c = t & 7;
+  int r = t >> 3, sb = r / skv, kk = r - sb * skv;
+  for (; r < np; r += kStep) {
+    unsigned char* d = dst + r * kRowBytes + ((c ^ (r & 7)) << 4);
+    if (r < nk) {
+      piece16(d, src + static_cast<long long>(b0 + sb) * bs + kk * rs + c * 8, vec);
+    } else {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    for (kk += kStep; kk >= skv; kk -= skv) ++sb;
+  }
+}
+
+template <int kNP>
+__global__ void __launch_bounds__(kEpiThreads, 1)
+    epilogue_bf16(const __grid_constant__ CUtensorMap wmap, const __grid_constant__ CUtensorMap rmap,
+                  const __grid_constant__ CUtensorMap omap, EpiArgs a) {
+  static_assert(kNP % 16 == 0 && kNP <= kMaxWindowKeys, "a window is whole 16-key steps");
+  constexpr int kNT = kNP / 8;   // 8-key column tiles of S
+  constexpr int kKS = kNP / 16;  // 16-key steps of P V
+  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to the swizzle's period below
+  unsigned char* smem = smem_raw + ((kSwizzlePeriod - smem_u32(smem_raw) % kSwizzlePeriod) % kSwizzlePeriod);
+  const EpiLayout L = epi_layout(kNP);
+  unsigned char* ring = smem + kCtxBytes;
+  // mbarriers, each used once (phase 0): full[i] item i has landed; the
+  // residual has landed; cdone[c] every warpgroup is done with context chunk c.
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  uint64_t* resbar = full + kItems;
+  uint64_t* cdone = resbar + 1;
+  float* part = reinterpret_cast<float*>(smem + L.part_off);  // [2][kEpiWG][kEpiRows]
+  const int tid = threadIdx.x, wg = tid / kMmaThreads, t = tid % kMmaThreads;
+  const int lane = tid & 31, warp = t >> 5, g = lane >> 2, tq = (lane & 3) * 2;
   const EpiRows R = epi_rows(a, kEpiRows);
-  const int tasks = kEpiHeads * R.segments;
-  const int skv = a.skv;
+  const int r0 = static_cast<int>(R.r0);  // the launch keeps every row index below 2^31
+  const int sq = a.sq, skv = a.skv;
+
+  if (tid == 0) {
+    for (int i = 0; i < kItems; ++i) mbar_init(full + i, 1);
+    mbar_init(resbar, 1);
+    for (int c = 0; c < kEpiHeads; ++c) mbar_init(cdone + c, kEpiWG);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  // Item i of W into stage i % kStages: rows 64 (i / 4) .. + 63 of
+  // warpgroup i % 4's 192 columns, three 64 x 64 boxes.
+  const auto fill = [&](int i) {
+    const int st = i % kStages;
+    mbar_expect_tx(full + i, kStageBytes);
+    for (int box = 0; box < kColAtoms; ++box) {
+      tma_load(ring + st * kStageBytes + box * kBoxBytes, &wmap, 64 * (kColAtoms * (i % kEpiWG) + box),
+               kKBlock * (i / kEpiWG), full + i);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < L.prefetch; ++i) fill(i);
+  }
+
+  // The block's queries into the tile (chunk h: head h), zero past its
+  // rows; each warpgroup's first window.
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
-
-  // Rows past the output's end (the last block) stay zero.
-  for (int i = tid; i < kEpiRows * kEpiLd / 8; i += kEpiThreads) {
-    reinterpret_cast<uint4*>(ctx)[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  Args t{};
-  t.skv = skv;
-  t.scale = a.scale;
-
-  // The rows past the output's end are zero before any group writes.
-  __syncthreads();
-
-  // 1. Attention: task = head * segments + segment; group grp takes tasks
-  // grp, grp + groups, ... and synchronises its own 4 warps only (named
-  // barrier 1 + grp), so the groups' phases overlap.
-  if (grp < a.groups) {
-    for (int task = grp; task < tasks; task += a.groups) {
-      const int h = task / R.segments;
-      const Segment g = segment(a, R, task % R.segments);
-      const int rows_p = (g.rows + 15) / 16 * 16;
-      load_tile(qs, L.ldq, q + g.b * a.q_bs + g.i0 * a.q_rs + h * kEpiDim, a.q_rs, g.rows, rows_p,
-                kEpiDim, kEpiDim, gtid);
-      load_tile(ks, L.ldq, k + g.b * a.k_bs + h * kEpiDim, a.k_rs, skv, L.skp, kEpiDim, kEpiDim,
-                gtid);
-      load_tile(vs, L.ldq, v + g.b * a.v_bs + h * kEpiDim, a.v_rs, skv, L.skp, kEpiDim, kEpiDim,
-                gtid);
-      for (int j = gtid; j < skv; j += kMmaThreads) bs[j] = a.bias[g.b * skv + j];
-      cp_async_wait_all();
-      group_sync(grp);
-      t.sq = g.rows;
-      scores_mma(ss, qs, ks, L.ldq, rows_p, kEpiDim, bs, t, gwarp, lane);
-      group_sync(grp);
-      softmax_rows(ss, skv + 1, g.rows, skv, rows_p, L.skp, gwarp, kMmaWarps, lane,
-                   [&](int i, int j, float p) { ps[i * L.ldp + j] = __float2bfloat16(p); });
-      group_sync(grp);
-      mma_product(ps, L.ldp, vs, L.ldq, rows_p, L.skp, g.rows, kEpiDim, gwarp, lane,
-                  [&](int i, int c, float x) {
-                    ctx[(g.c0 + i) * kEpiLd + h * kEpiDim + c] = __float2bfloat16(x);
-                  });
-      group_sync(grp);  // before the next task's loads overwrite Q, K, V
+  const bool qvec = ((a.q_bs | a.q_rs) & 7) == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  const bool kvec = ((a.k_bs | a.k_rs) & 7) == 0 && (reinterpret_cast<uintptr_t>(k) & 15) == 0;
+  const bool vvec = ((a.v_bs | a.v_rs) & 7) == 0 && (reinterpret_cast<uintptr_t>(v) & 15) == 0;
+  for (int p = tid; p < kEpiRows * kEpiHeads * 8; p += kEpiThreads) {
+    const int row = p / (kEpiHeads * 8), h = p / 8 % kEpiHeads, c = p % 8;
+    unsigned char* dst = smem + h * kChunkBytes + row * kRowBytes + ((c ^ (row & 7)) << 4);
+    if (row < R.rows) {
+      const int gr = r0 + row, b = gr / sq;
+      piece16(dst, q + b * a.q_bs + (gr - b * sq) * a.q_rs + h * kEpiDim + c * 8, qvec);
+    } else {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
-  __syncthreads();
 
-  // 2. acc = ctx W: this warp's 48 columns of all kEpiRows rows, W's
-  // slices through the ring (the attention scratch is free now).
-  const auto issue = [&](int slice) {
-    __nv_bfloat16* dst = ring + (slice & 1) * kEpiSlice * kEpiLd;
-    const __nv_bfloat16* src = w + static_cast<long long>(slice) * kEpiSlice * kEpiE;
-    for (int i = tid; i < kEpiSlice * (kEpiE / 8); i += kEpiThreads) {
-      const int r = i / (kEpiE / 8), c = i % (kEpiE / 8) * 8;
-      cp_async16(dst + r * kEpiLd + c, src + r * kEpiE + c);
+  // Unit u of this warpgroup: head wg + kEpiWG * (u / nwin), window u % nwin
+  // (segments w spw .. w spw + spw - 1 of the block).
+  const int nwin = (R.segments + a.spw - 1) / a.spw;
+  const int units = kEpiHeads / kEpiWG * nwin;
+  unsigned char* kbuf = smem + L.attn_off + wg * L.wg_bytes;
+  unsigned char* vbuf = kbuf + kRowBytes * kNP;
+  float* bbuf = reinterpret_cast<float*>(vbuf + kRowBytes * kNP);  // two rows of kNP
+  const auto unit_head = [&](int u) { return wg + kEpiWG * (u / nwin); };
+  const auto unit_s0 = [&](int u) { return u % nwin * a.spw; };
+  const auto unit_keys = [&](int u) { return (min(unit_s0(u) + a.spw, R.segments) - unit_s0(u)) * skv; };
+  // K and the bias of unit u (bias row u % 2), one cp.async group (empty past the last).
+  const auto load_k = [&](int u) {
+    if (u < units) {
+      const int b0 = R.b_first + unit_s0(u), nk = unit_keys(u);
+      load_window(kbuf, k + unit_head(u) * kEpiDim, a.k_bs, a.k_rs, b0, skv, nk, kNP, t, kvec);
+      float* bs = bbuf + (u & 1) * kNP;
+      for (int j = t; j < nk; j += kMmaThreads) cp_async4(bs + j, a.bias + static_cast<long long>(b0) * skv + j);
     }
     cp_async_commit();
   };
-  float acc[kEpiMT][kEpiNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kEpiMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kEpiNT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  const int n_base = warp * kEpiNT * 8;
-  constexpr int kSlices = kEpiE / kEpiSlice;
-  issue(0);
-  for (int slice = 0; slice < kSlices; ++slice) {
-    if (slice + 1 < kSlices) {
-      issue(slice + 1);  // its buffer was last read before the previous barrier
-    } else {
-      cp_async_commit();  // an empty group keeps the count below uniform
+  const auto load_v = [&](int u) {
+    if (u < units) {
+      load_window(vbuf, v + unit_head(u) * kEpiDim, a.v_bs, a.v_rs, R.b_first + unit_s0(u), skv, unit_keys(u),
+                  kNP, t, vvec);
     }
-    cp_async_wait_group<1>();  // this slice has landed
-    __syncthreads();
-    const __nv_bfloat16* wslice = ring + (slice & 1) * kEpiSlice * kEpiLd;
+    cp_async_commit();
+  };
+  load_k(0);  // the queries ride in this group
+  load_v(0);
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+
+  // 1. Attention.  A thread holds rows i0 = 16 warp + g and i0 + 8 of the
+  // block (e >= 2: i0 + 8), keys 8 n + tq + (e & 1) in s[4 n + e], head
+  // columns likewise in o; seg: the block's segment of each row.
+  const int i0 = warp * 16 + g;
+  int seg[2];
 #pragma unroll
-    for (int kt = 0; kt < kEpiSlice / 16; ++kt) {
-      const int k0 = slice * kEpiSlice + kt * 16;
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + 8 * half;
+    seg[half] = i < R.rows ? (r0 + i) / sq - R.b_first : -1;
+  }
+  for (int u = 0; u < units; ++u) {
+    const int h = unit_head(u), s0 = unit_s0(u), s1 = min(s0 + a.spw, R.segments);
+    unsigned char* chunk = smem + h * kChunkBytes;
+
+    // S = Q_h K^T: every row of the block against the window's keys.
+    float s[4 * kNT];
 #pragma unroll
-      for (int np = 0; np < kEpiNT / 2; ++np) {
-        uint32_t bf[4];  // B fragments of columns n and n + 8
-        ldsm_x4_trans(bf, wslice + (kt * 16 + lane % 16) * kEpiLd + n_base + np * 16 + lane / 16 * 8);
+    for (int i = 0; i < 4 * kNT; ++i) s[i] = 0.f;
+    const uint64_t dq = wgmma_desc_sw128(chunk), dk = wgmma_desc_sw128(kbuf);
+    wgmma_fence();
 #pragma unroll
-        for (int mt = 0; mt < kEpiMT; ++mt) {
-          uint32_t af[4];
-          ldsm_x4(af, ctx + (mt * 16 + lane % 16) * kEpiLd + k0 + lane / 16 * 8);
-          mma_16x8x16(acc[mt][2 * np], af[0], af[1], af[2], af[3], bf[0], bf[1]);
-          mma_16x8x16(acc[mt][2 * np + 1], af[0], af[1], af[2], af[3], bf[2], bf[3]);
-        }
+    for (int kk = 0; kk < kEpiDim / 16; ++kk) WgmmaSS<kNP>::mma(s, dq + 2 * kk, dk + 2 * kk, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(s);
+    wg_sync(wg);  // every warp is done with K
+    load_k(u + 1);
+
+    // The row softmax over the keys of the row's own segment (lo .. lo +
+    // skv - 1 of the window); a row outside the window gets P = 0.
+    const float* bs = bbuf + (u & 1) * kNP;
+    int lo[2];
+    bool in[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      in[half] = seg[half] >= s0 && seg[half] < s1;
+      lo[half] = in[half] ? (seg[half] - s0) * skv : -2 * kMaxSeq;
+    }
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = n * 8 + tq + (e & 1), l = lo[e >> 1];
+        const float x = j >= l && j < l + skv ? s[4 * n + e] * a.scale + bs[j] : -CUDART_INF_F;
+        s[4 * n + e] = x;
+        if (e < 2) m0 = fmaxf(m0, x); else m1 = fmaxf(m1, x);
       }
     }
-    __syncthreads();  // before the next issue overwrites the other slice
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    m0 = in[0] ? m0 : 0.f;
+    m1 = in[1] ? m1 : 0.f;
+    // P = exp(S - m), unnormalised (as #2's body), rounded to bf16 into the
+    // A fragments of P V as it is made, so the scores die as P grows: keys
+    // 16 c .. 16 c + 15 are the accumulators of column tiles 2 c, 2 c + 1.
+    // O / l at the end.
+    float l0 = 0.f, l1 = 0.f;
+    uint32_t pa[kKS][4];
+#pragma unroll
+    for (int c = 0; c < kKS; ++c) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        p[e] = __expf(s[8 * c + e] - ((e & 2) ? m1 : m0));  // 0 off the row's segment
+        if (e & 2) l1 += p[e]; else l0 += p[e];
+      }
+      pa[c][0] = pack_f32_pair(p[0], p[1]);
+      pa[c][1] = pack_f32_pair(p[2], p[3]);
+      pa[c][2] = pack_f32_pair(p[4], p[5]);
+      pa[c][3] = pack_f32_pair(p[6], p[7]);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = in[0] ? 1.f / l0 : 0.f, inv1 = in[1] ? 1.f / l1 : 0.f;  // a row's max term is 1
+
+    // O = P V once V has landed (the group before K's).
+    cp_async_wait_group<1>();
+    fence_proxy_async();
+    wg_sync(wg);
+    float o[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    const uint64_t dv = wgmma_desc_sw128(vbuf);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kKS; ++c) WgmmaRS64::mma(o, pa[c], dv + c * 16 * 8, 1);  // 16 rows down
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(o);
+    fence_operands(pa);
+
+    // The window's rows of o_h over their queries in chunk h.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!in[half]) continue;
+      const int i = i0 + 8 * half;
+      const float inv = half ? inv1 : inv0;
+#pragma unroll
+      for (int n = 0; n < kEpiDim / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(chunk + i * kRowBytes + ((n ^ (i & 7)) << 4) + tq * 2) =
+            pack_f32_pair(o[4 * n + 2 * half] * inv, o[4 * n + 2 * half + 1] * inv);
+      }
+    }
+    wg_sync(wg);  // every warp is done with V
+    load_v(u + 1);
+    cp_async_wait_group<1>();  // the next K and its bias
+    fence_proxy_async();       // and this thread's context rows, for wgmma
+    wg_sync(wg);
+  }
+  __syncthreads();  // the attention buffers are free for the ring
+  if (tid == 0) {
+    for (int i = L.prefetch; i < kStages; ++i) fill(i);
   }
 
-  // y = acc + b + res; each thread holds rows mt * 16 + gr (+ 8) and
-  // columns n_base + nt * 8 + tq (+ 1) of the mma accumulator layout.
-  const int gr = lane / 4, tq = lane % 4 * 2;
-  const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(a.res) + R.r0 * kEpiE;
-  float stat[kEpiMT][2];
+  // 2. acc = ctx W: this warpgroup's 192 columns, its items wg, wg + 4, ...
+  // (context chunk kb against W's rows 64 kb .. 64 kb + 63), 4 k steps an
+  // item.  Once its products on item i are done, the warpgroup itself
+  // refills the stage with item i + kStages (its thread 0 issues the TMA
+  // after a barrier of its 4 warps): no thread waits for another
+  // warpgroup to free a stage.  Each warpgroup arrives on cdone[kb] after
+  // its item on chunk kb; warpgroup 3's thread 0 loads the residual's
+  // chunk c over context chunk c once every warpgroup has arrived
+  // (polling after each of its items, waiting at the end).
+  int res_next = 0;  // warpgroup 3's thread 0: the next residual chunk to load
+  const auto load_res = [&](bool wait) {
+    while (res_next < kEpiHeads && (wait || mbar_test(cdone + res_next, 0))) {
+      mbar_wait(cdone + res_next, 0);
+      if (res_next == 0) mbar_expect_tx(resbar, kCtxBytes);
+      tma_load(smem + res_next * kChunkBytes, &rmap, 64 * res_next, r0, resbar);
+      ++res_next;
+    }
+  };
+  // The accumulators start at b (element 4 n + e: column wg 192 + 8 n + tq
+  // + (e & 1)), so that y = acc + res after the products.
+  float acc[96];
 #pragma unroll
-  for (int mt = 0; mt < kEpiMT; ++mt) {
+  for (int n = 0; n < 24; ++n) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = mt * 16 + gr + 8 * half;
-      float sum = 0.f;
+    for (int e = 0; e < 4; ++e) acc[4 * n + e] = __ldg(a.wb + wg * kColAtoms * 64 + 8 * n + tq + (e & 1));
+  }
+  const uint64_t da0 = wgmma_desc_sw128(smem);
+  for (int kb = 0; kb < kEpiE / kKBlock; ++kb) {
+    const int i = kb * kEpiWG + wg, st = i % kStages;
+    mbar_wait(full + i, 0);
+    const uint64_t db = wgmma_desc_sw128_mn(ring + st * kStageBytes, kBoxBytes);
+    wgmma_fence();
 #pragma unroll
-      for (int nt = 0; nt < kEpiNT; ++nt) {
-        const int col = n_base + nt * 8 + tq;
-        float2 y = make_float2(0.f, 0.f);
-        if (row < R.rows) {
-          const float2 r2 = bf16_pair(res + row * kEpiE + col);
-          y.x = acc[mt][nt][2 * half] + a.wb[col] + r2.x;
-          y.y = acc[mt][nt][2 * half + 1] + a.wb[col + 1] + r2.y;
-        }
-        acc[mt][nt][2 * half] = y.x;
-        acc[mt][nt][2 * half + 1] = y.y;
-        sum += y.x + y.y;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (lane % 4 == 0) part[warp * kEpiRows + row] = sum;
+    for (int kk = 0; kk < kKBlock / 16; ++kk) {
+      WgmmaSST192::mma(acc, da0 + kb * (kChunkBytes >> 4) + 2 * kk, db + kk * (16 * kRowBytes >> 4), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wg_sync(wg);  // the warpgroup's products on the stage are done
+    if (t == 0) {
+      if (i + kStages < kItems) fill(i + kStages);
+      mbar_arrive(cdone + kb);
+      if (wg == kEpiWG - 1) load_res(false);
     }
   }
+  fence_operands(acc);
+  if (wg == kEpiWG - 1 && t == 0) load_res(true);
+
+  // 3. LayerNorm.  y = acc + res; element 4 n + e of acc is row i0 + 8 (e /
+  // 2), column wg 192 + 8 n + tq + (e & 1); res (then out) at that element
+  // of the tile's chunks.  The ring is free: it takes gamma and beta, and
+  // each thread's second row (e >= 2), so that one row at a time is in
+  // registers (96 accumulators and the row's loads leave too few of the
+  // 128 registers otherwise, and with 224 KB of shared memory a spill goes
+  // to L2).
+  __syncthreads();  // every warp is done with the ring
+  float* vec = reinterpret_cast<float*>(ring);  // [2][kEpiE]: gamma, beta
+  float2* stash = reinterpret_cast<float2*>(ring + 2 * kEpiE * sizeof(float));  // [24][kEpiThreads]
+  for (int i = tid; i < 2 * kEpiE; i += kEpiThreads) vec[i] = i < kEpiE ? a.gamma[i] : a.beta[i - kEpiE];
+#pragma unroll
+  for (int n = 0; n < 24; ++n) stash[n * kEpiThreads + tid] = make_float2(acc[4 * n + 2], acc[4 * n + 3]);
   __syncthreads();
+  mbar_wait(resbar, 0);
+  // Column 8 n + tq of the thread's rows is in chunk wg 3 + n / 8, piece
+  // (n % 8) ^ g of the row (i & 7 = g): an address from a row base and one
+  // xor.
+  unsigned char* row0 = smem + wg * kColAtoms * kChunkBytes + i0 * kRowBytes + tq * 2;
+  const uint32_t gx = static_cast<uint32_t>(g) << 4;
+  const auto at = [&](int n, int half) {
+    return row0 + half * 8 * kRowBytes + (n >> 3) * kChunkBytes + (((n & 7) << 4) ^ gx);
+  };
+  const float* vg = vec + wg * kColAtoms * 64 + tq;  // gamma of column 8 n + tq at vg[8 n], beta kEpiE on
+  float* sums = part;                       // [kEpiWG][kEpiRows]
+  float* devs = part + kEpiWG * kEpiRows;   // likewise
 #pragma unroll
-  for (int mt = 0; mt < kEpiMT; ++mt) {
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + 8 * half;
+    if (half == 1) {
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = mt * 16 + gr + 8 * half;
-      float sum = 0.f;
-      for (int w2 = 0; w2 < kEpiWarps; ++w2) sum += part[w2 * kEpiRows + row];
-      stat[mt][half] = sum / kEpiE;  // the mean
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int mt = 0; mt < kEpiMT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = mt * 16 + gr + 8 * half;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kEpiNT; ++nt) {
-        const float d0 = acc[mt][nt][2 * half] - stat[mt][half];
-        const float d1 = acc[mt][nt][2 * half + 1] - stat[mt][half];
-        sum += d0 * d0 + d1 * d1;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (lane % 4 == 0) part[warp * kEpiRows + row] = sum;
-    }
-  }
-  __syncthreads();
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) + R.r0 * kEpiE;
-#pragma unroll
-  for (int mt = 0; mt < kEpiMT; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = mt * 16 + gr + 8 * half;
-      if (row >= R.rows) continue;
-      float var = 0.f;
-      for (int w2 = 0; w2 < kEpiWarps; ++w2) var += part[w2 * kEpiRows + row];
-      const float mean = stat[mt][half], rstd = rsqrtf(var / kEpiE + a.eps);
-#pragma unroll
-      for (int nt = 0; nt < kEpiNT; ++nt) {
-        const int col = n_base + nt * 8 + tq;
-        const float z0 = (acc[mt][nt][2 * half] - mean) * rstd * a.gamma[col] + a.beta[col];
-        const float z1 = (acc[mt][nt][2 * half + 1] - mean) * rstd * a.gamma[col + 1] + a.beta[col + 1];
-        *reinterpret_cast<uint32_t*>(out + row * kEpiE + col) = pack_f32_pair(z0, z1);
+      for (int n = 0; n < 24; ++n) {
+        const float2 y = stash[n * kEpiThreads + tid];
+        acc[4 * n] = y.x;
+        acc[4 * n + 1] = y.y;
       }
     }
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 24; ++n) {
+      const float2 r2 = bf16_pair(at(n, half));
+      acc[4 * n] += r2.x;
+      acc[4 * n + 1] += r2.y;
+      sum += acc[4 * n] + acc[4 * n + 1];
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if ((lane & 3) == 0) sums[wg * kEpiRows + i] = sum;
+    __syncthreads();
+    sum = 0.f;
+#pragma unroll
+    for (int w2 = 0; w2 < kEpiWG; ++w2) sum += sums[w2 * kEpiRows + i];
+    const float mean = sum / kEpiE;
+    float dev = 0.f;
+#pragma unroll
+    for (int n = 0; n < 24; ++n) {
+      const float d0 = acc[4 * n] - mean, d1 = acc[4 * n + 1] - mean;
+      dev += d0 * d0 + d1 * d1;
+    }
+    dev += __shfl_xor_sync(0xffffffffu, dev, 1);
+    dev += __shfl_xor_sync(0xffffffffu, dev, 2);
+    if ((lane & 3) == 0) devs[wg * kEpiRows + i] = dev;
+    __syncthreads();
+    float var = 0.f;
+#pragma unroll
+    for (int w2 = 0; w2 < kEpiWG; ++w2) var += devs[w2 * kEpiRows + i];
+    const float rstd = rsqrtf(var / kEpiE + a.eps);
+#pragma unroll
+    for (int n = 0; n < 24; ++n) {
+      const float2 g2 = *reinterpret_cast<const float2*>(vg + 8 * n);
+      const float2 e2 = *reinterpret_cast<const float2*>(vg + kEpiE + 8 * n);
+      const float z0 = (acc[4 * n] - mean) * rstd * g2.x + e2.x;
+      const float z1 = (acc[4 * n + 1] - mean) * rstd * g2.y + e2.y;
+      *reinterpret_cast<uint32_t*>(at(n, half)) = pack_f32_pair(z0, z1);
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0 && R.rows > 0) {
+    for (int c = 0; c < kEpiHeads; ++c) tma_store(&omap, smem + c * kChunkBytes, 64 * c, r0);
+    tma_store_drain();
   }
 }
 
@@ -468,6 +767,7 @@ __global__ void __launch_bounds__(kEpiF32Threads) epilogue_f32(EpiArgs a) {
   }
 }
 
+
 template <typename Kernel>
 int launch_epi(Kernel kernel, const EpiArgs& a, int rows_per_block, int threads, size_t smem,
                cudaStream_t stream) {
@@ -479,19 +779,85 @@ int launch_epi(Kernel kernel, const EpiArgs& a, int rows_per_block, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- bf16 launch: tensor maps and the body for a window of np keys ----
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (the
+// library is not linked against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                      : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kNoEncoder = -2;   // libcuda has no cuTensorMapEncodeTiled
+constexpr int kMapRefused = -3;  // it refused a tensor map
+
+// A contiguous (rows, 768) bf16 tensor at base, read or written in boxes of
+// box_rows x 64 in the 128-byte swizzle (rows past the end read as zero).
+int map_rows(CUtensorMap* map, const void* base, long long rows, unsigned box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kEpiE), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {sizeof(__nv_bfloat16) * kEpiE};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+                            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapRefused;
+}
+
+template <int kNP>
+int launch_bf16(const EpiArgs& a, int np, cudaStream_t stream) {
+  if constexpr (kNP < kMaxWindowKeys) {
+    if (np > kNP) return launch_bf16<kNP + 16>(a, np, stream);
+  }
+  CUtensorMap maps[3];
+  const long long rows = static_cast<long long>(a.batch) * a.sq;
+  if (rows > (1LL << 31) - kEpiRows) return -1;  // row indices (and TMA's coordinates) are 32-bit
+  if (int err = map_rows(&maps[0], a.w, kEpiE, kKBlock)) return err;
+  if (int err = map_rows(&maps[1], a.res, rows, kEpiRows)) return err;
+  if (int err = map_rows(&maps[2], a.out, rows, kEpiRows)) return err;
+  const auto kernel = epilogue_bf16<kNP>;
+  const size_t smem = epi_smem_bytes(kNP);
+  if (smem > kSmemMax) return -1;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  const unsigned blocks = static_cast<unsigned>((rows + kEpiRows - 1) / kEpiRows);
+  kernel<<<blocks, kEpiThreads, smem, stream>>>(maps[0], maps[1], maps[2], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, res, w and the output; bias,
 // b, gamma, beta f32).  Strides of q, k, v in elements, their last
-// dimension contiguous; res, w and the output contiguous.  Returns the
-// cudaError_t of the launch (0 on success); -1 for arguments outside the
-// kernel's limits.
+// dimension contiguous; res, w and the output contiguous (bf16: 16-byte
+// aligned).  spw, np: the bf16 body's segments a window and its window's
+// keys padded to 16 (epilogue_exp.epi_plan; the f32 body takes neither).
+// Returns the
+// cudaError_t of the launch (0 on success); negative for arguments
+// outside the kernel's limits (-1) or a tensor map libcuda cannot
+// encode (-2, -3).
 int rgqa_epilogue(
     const void* q, const void* k, const void* v, const void* bias, const void* res,
     const void* w, const void* wb, const void* gamma, const void* beta, void* out,
-    int dtype, int batch, int sq, int skv, int heads, int dim,
+    int dtype, int batch, int sq, int skv, int heads, int dim, int spw, int np,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, float scale, float eps, void* stream) {
   if (!within_limits(batch, sq, skv, heads, dim) || heads != kEpiHeads || dim != kEpiDim) {
@@ -511,6 +877,7 @@ int rgqa_epilogue(
   a.batch = batch;
   a.sq = sq;
   a.skv = skv;
+  a.spw = spw;
   a.q_bs = q_bs;
   a.q_rs = q_rs;
   a.k_bs = k_bs;
@@ -521,15 +888,22 @@ int rgqa_epilogue(
   a.eps = eps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    // As many attention groups as shared memory takes, at most four.
-    a.groups = kEpiGroups;
-    while (a.groups > 1 && epi_layout(sq, skv, a.groups).bytes > kSmemMax) --a.groups;
-    return launch_epi(epilogue_bf16, a, kEpiRows, kEpiThreads, epi_layout(sq, skv, a.groups).bytes, s);
+    const bool aligned = (reinterpret_cast<uintptr_t>(res) | reinterpret_cast<uintptr_t>(w) |
+                          reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+    if (spw < 1 || np % 16 != 0 || np < 16 || np > kMaxWindowKeys || spw * skv > np || !aligned) return -1;
+    return launch_bf16<16>(a, np, s);
   }
   if (dtype == 0) return launch_epi(epilogue_f32, a, kEpiF32Rows, kEpiF32Threads, epi_f32_bytes(skv), s);
   return -1;
 }
 
-}  // extern "C"
+const char* rgqa_cuda_error_string(int err) {
+  switch (err) {
+    case -1: return "argument outside the kernel's limits";
+    case kNoEncoder: return "libcuda has no cuTensorMapEncodeTiled";
+    case kMapRefused: return "cuTensorMapEncodeTiled refused a tensor map";
+    default: return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
+}
 
-RGQA_CUDA_ERROR_STRING
+}  // extern "C"

@@ -1,8 +1,9 @@
 // Hopper's warpgroup matrix multiply (wgmma.mma_async, sm_90a) by inline
 // PTX: the descriptors of bf16 tiles in shared memory, the fences, and one
 // instruction wrapper per shape a kernel of the port runs: headfold.cu
-// (the head-fold experiment's bf16 body) and fused_attention_long.cu (the
-// long-stream forward's bf16 body).
+// (the head-fold experiment's bf16 body), fused_attention_long.cu (the
+// long-stream forward's bf16 body) and epilogue.cu (the attention
+// epilogue's bf16 body).
 //
 // A warpgroup (4 warps, 128 threads) issues each instruction together: a
 // 64-row A (shared memory or registers) times a 16-deep B (shared memory),
@@ -15,13 +16,22 @@
 //
 // The shared-memory tiles here have 128-byte rows (64 bf16 values) in the
 // 128-byte swizzle (16-byte chunk c of row r stored at chunk c ^ (r % 8))
-// and start on 1024-byte boundaries, the swizzle's period.  One descriptor
-// form reads them all: a K-major operand (rows along M or N, the 64 values
-// along K: Q, K) and an MN-major one (rows along K, the values along N: V
-// in P V, with the transpose bit).  Groups of 8 rows lie 1024 bytes apart
-// (the stride byte offset); the leading byte offset is unused by both (K
-// spans one row; N = 64 is one swizzle atom).  K advances by 16 values
-// within a row by adding 32 bytes to the start address.
+// and start on 1024-byte boundaries, the swizzle's period.  Two
+// descriptor forms read them:
+// - wgmma_desc_sw128, one swizzle atom wide: a K-major operand (rows
+//   along M or N, the 64 values along K: Q, K, the epilogue's context)
+//   and an MN-major one of N = 64 (rows along K, the values along N: V in
+//   P V, with the transpose bit).  Groups of 8 rows lie 1024 bytes apart
+//   (the stride byte offset); the leading byte offset is unused (K spans
+//   one row; N = 64 is one atom).  K advances by 16 values within a row by
+//   adding 32 bytes to the start address.
+// - wgmma_desc_sw128_mn, an MN-major operand several atoms wide (the
+//   epilogue's W slices, N = 192): atom a (values 64 a .. 64 a + 63 of N)
+//   holds the slice's K rows at start + a * lbo, 128 bytes a row, so the
+//   leading byte offset is the step from one 64-value atom of N to the
+//   next and the stride byte offset (1024) the step from one group of 8
+//   K rows to the next, as a TMA box of 64 values x K rows in the 128-byte
+//   swizzle lays them out.
 
 #pragma once
 
@@ -42,6 +52,16 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* p) {
   const uint64_t addr = smem_u32(p);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor of an MN-major operand of several swizzle atoms along N
+// at p (1024-byte aligned): atom a at p + a * lbo (lbo a multiple of 16
+// bytes, below 256 KB), groups of 8 K rows 1024 bytes apart within an
+// atom, the 128-byte swizzle.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128_mn(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         ((1024ull >> 4) << 32) | (1ull << 62);
 }
 
 // Writes to shared memory by ordinary stores or cp.async are made visible
@@ -384,6 +404,28 @@ struct WgmmaRS64 {
         "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : RGQA_D8(0), RGQA_D8(8), RGQA_D8(16), RGQA_D8(24)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+
+// d (64 x 192, f32) = (acc ? d : 0) + A B: A (64 x 16) K-major at
+// descriptor da, B (16 x 192) MN-major at db (wgmma_desc_sw128_mn: K rows
+// of N values, the transpose bit), both bf16: the epilogue's projection,
+// a warpgroup's 192 output columns of ctx W.
+struct WgmmaSST192 {
+  static __device__ __forceinline__ void mma(float (&d)[96], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+        : RGQA_D8(0), RGQA_D8(8), RGQA_D8(16), RGQA_D8(24), RGQA_D8(32), RGQA_D8(40),
+          RGQA_D8(48), RGQA_D8(56), RGQA_D8(64), RGQA_D8(72), RGQA_D8(80), RGQA_D8(88)
+        : "l"(da), "l"(db), "r"(acc));
   }
 };
 

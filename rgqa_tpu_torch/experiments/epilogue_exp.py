@@ -10,16 +10,21 @@ attention shapes at batch 384 it times
   ``torch.addmm`` for the out-projection, the residual add and the port's
   ``LayerNorm`` (``models/transformer.py``), as a model layer runs them;
 - ``fused``: :func:`epi_fused` (``csrc/epilogue.cu``, replacing
-  ``_epi_kernel``), which keeps each head's context on chip, adds its
-  out-projection to a per-block accumulator on the tensor cores, and
-  normalises the rows before it writes them once.
+  ``_epi_kernel``), which keeps each 64-row block's context on chip in
+  the layout the tensor cores read, projects it with ``wgmma`` while W
+  streams in by TMA, and normalises the rows before it writes them once.
 
 The question on this card: do the LayerNorm, residual and projection
 passes that ``split`` runs over device memory cost more than the fused
-kernel's re-reads of W and its one block of 16 warps per SM?
+kernel's re-reads of W from L2 (every block reads all of it) and its one
+block per SM?
 """
 
 from __future__ import annotations
+
+import functools
+import math
+import typing
 
 import numpy as np
 import torch
@@ -28,12 +33,66 @@ from rgqa_tpu_torch import experiments as X
 from rgqa_tpu_torch.models.transformer import LayerNorm
 from rgqa_tpu_torch.ops import attention as att
 
-__all__ = ["epi_fused", "epi_fused_ref", "epi_fused_cuda", "split", "SHAPES", "EPS", "main"]
+__all__ = ["epi_fused", "epi_fused_ref", "epi_fused_cuda", "epi_plan", "epi_smem_bytes", "EpiPlan",
+           "split", "SHAPES", "EPS", "main"]
 
 SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))
 EPS = 1e-12
+ROWS = 64  # csrc/epilogue.cu kEpiRows: a block's output rows, wgmma's M
+MAX_WINDOW_KEYS = 96  # kMaxWindowKeys: a window's keys, padded to 16
+SMEM_MAX = 232448  # 227 KB, the most shared memory a block may take
 
-_ARGS = (X.P_,) * 10 + (X.I_,) * 6 + (X.LL_,) * 6 + (X.F_, X.F_, X.P_)
+_ARGS = (X.P_,) * 10 + (X.I_,) * 8 + (X.LL_,) * 6 + (X.F_, X.F_, X.P_)
+
+
+class EpiPlan(typing.NamedTuple):
+    """The bf16 body's launch: ``blocks`` of ``ROWS`` output rows, the
+    most batch rows (segments) one spans, ``per_window`` segments a key
+    window, the window's ``keys`` padded to 16, and the block's dynamic
+    shared memory in bytes."""
+
+    blocks: int
+    segments: int
+    per_window: int
+    keys: int
+    smem: int
+
+
+def _block_segments(total: int, sq: int, blk: int) -> range:
+    """The batch rows block ``blk`` of the flattened (B Sq) rows spans."""
+    r0 = blk * ROWS
+    return range(r0 // sq, (min(r0 + ROWS, total) - 1) // sq + 1)
+
+
+def epi_smem_bytes(keys: int) -> int:
+    """The bf16 body's dynamic shared memory for a window of ``keys`` (a
+    multiple of 16), as ``epi_layout`` in ``csrc/epilogue.cu`` lays it
+    out: the 64 x 768 bf16 tile (96 KB); a region of max(the W ring, 5
+    items of 64 x 192 bf16; the attention buffers, per warpgroup K and V
+    of ``keys`` 128-byte rows and two bias rows of ``keys`` f32, rounded to
+    1 KB); 512 bytes of mbarriers; the LayerNorm's 2 x 4 x 64 f32 partial
+    sums; one more KB to align."""
+    ring = 5 * 64 * 192 * 2
+    attn = 4 * -(-(2 * 128 * keys + 2 * 4 * keys) // 1024) * 1024
+    return 96 * 1024 + max(ring, attn) + 512 + 2 * 4 * ROWS * 4 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def epi_plan(batch: int, sq: int, skv: int) -> EpiPlan:
+    """The windows of whole segments the bf16 body walks, per head, in each
+    block: as many segments as fit ``MAX_WINDOW_KEYS`` keys (a register
+    budget: the body holds the window's scores), spread evenly over as
+    few windows as the widest block needs.  The blocks' row offsets repeat
+    every ``sq / gcd(64, sq)`` blocks, so those and the last block give the
+    widest."""
+    total = batch * sq
+    blocks = -(-total // ROWS)
+    period = sq // math.gcd(ROWS, sq)
+    segments = max(len(_block_segments(total, sq, j)) for j in (*range(min(blocks, period)), blocks - 1))
+    most = max(1, min(segments, MAX_WINDOW_KEYS // skv))
+    per_window = -(-segments // -(-segments // most))
+    keys = -(-per_window * skv // 16) * 16
+    return EpiPlan(blocks, segments, per_window, keys, epi_smem_bytes(keys))
 
 
 def epi_fused_ref(q, k, v, mask, res, w, b, g, be, num_heads: int = X.H):
@@ -73,13 +132,17 @@ def epi_fused_cuda(q, k, v, mask, res, w, b, g, be, num_heads: int = X.H):
     ``epi_fused_cuda.launches`` counts the launches."""
     name = "epi_fused_cuda"
     _check_epilogue(name, q, k, v, mask, res, w, b, g, be, num_heads)
+    if res.data_ptr() % 16:
+        raise ValueError(f"{name}: res must be 16-byte aligned")
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     bsz, sq, e = q.shape
     d = e // num_heads
+    plan = epi_plan(bsz, sq, k.shape[1])
     X.call(
         name, "epilogue", "rgqa_epilogue", _ARGS, q.device,
         *(t.data_ptr() for t in (q, k, v, mask, res, w, b, g, be, out)),
-        X.dtype_code(q), bsz, sq, k.shape[1], num_heads, d, *X.strides(q, k, v), d ** -0.5, EPS,
+        X.dtype_code(q), bsz, sq, k.shape[1], num_heads, d, plan.per_window, plan.keys,
+        *X.strides(q, k, v), d ** -0.5, EPS,
     )
     epi_fused_cuda.launches += 1
     return out

@@ -2,9 +2,9 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
-        [--only long short_fwd short_bwd headfold]
+        [--only long short_fwd short_bwd headfold epilogue]
 
-Four groups, all by default (``--only`` picks some):
+Five groups, all by default (``--only`` picks some):
 
 - ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36,
   batch 256; #2 (``fused_attention_long_cuda``) at ViLT's 165x165,
@@ -29,6 +29,13 @@ Four groups, all by default (``--only`` picks some):
   (56x56, 36x36, 20x36, 36x20, 20x20), batch 384 and 64, bf16, q, k, v
   contiguous, up to a quarter of each row's keys masked and one fully
   masked row, as the smoke's phase 13;
+- ``epilogue``: 6c (``experiments.epilogue_exp.epi_fused_cuda``), the
+  shipped ``split`` (#1, ``addmm``, the residual add, the port's
+  LayerNorm) and the library composition (SDPA, ``addmm``, the residual
+  add, ``layer_norm``) at LXMERT's four shapes, batch 384 and 64, bf16,
+  the inputs of the smoke's phase 13, each beside the bound
+  (``chip_smoke._bound``); device time summed over every device event of
+  the call;
 
 the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
@@ -59,7 +66,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
 
-GROUPS = ("long", "short_fwd", "short_bwd", "headfold")
+GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue")
 E, HEADS = 768, 12
 
 
@@ -126,7 +133,8 @@ def main(argv=None) -> None:
     sources = {"long": ("fused_attention", "fused_attention_long", "fused_attention_long_bwd"),
                "short_fwd": ("fused_attention", "fused_attention_dropout"),
                "short_bwd": ("fused_attention_bwd", "fused_attention_dropout"),
-               "headfold": ("fused_attention", "headfold")}
+               "headfold": ("fused_attention", "headfold"),
+               "epilogue": ("fused_attention", "epilogue")}
     built = build_all(tuple(dict.fromkeys(n for grp in args.only for n in sources[grp])))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -148,6 +156,8 @@ def main(argv=None) -> None:
             _short(short[group], group == "short_bwd", gen, args.iters)
     if "headfold" in args.only:
         _headfold(att, gen, args.iters)
+    if "epilogue" in args.only:
+        _epilogue(gen, args.iters)
 
 
 # #2's timed shapes: ViLT-B/32 at 384 px (165 training, 185 serving) and
@@ -270,6 +280,49 @@ def _headfold(att, gen, iters: int) -> None:
             print(f"bfloat16 B={batch} {sq}x{skv} sdpa: {cuda_ms(lib, iters=iters) * 1e3:.1f} us per call, "
                   f"device {_device(device_us(lib, iters, match=None))}", flush=True)
             del q, k, v, bias
+            torch.cuda.empty_cache()
+
+
+def _epilogue(gen, iters: int) -> None:
+    """6c, ``split`` and the library composition at LXMERT's four shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import _bound, _exp_stream
+    from rgqa_tpu_torch.experiments import epilogue_exp as ep
+
+    for batch in (384, 64):
+        for sq, skv in ep.SHAPES:
+            q, k, v, m = _exp_stream(batch, max(sq, skv), torch.bfloat16, gen)
+            q, k, v, m = (t[:, :n].contiguous() for t, n in ((q, sq), (k, skv), (v, skv), (m, skv)))
+            res = torch.randn(batch, sq, E, generator=gen, device="cuda").bfloat16()
+            w = (torch.randn(E, E, generator=gen, device="cuda") * 0.02).bfloat16()
+            wb, be = (torch.randn(E, generator=gen, device="cuda") * 0.02 for _ in range(2))
+            g = 1.0 + torch.randn(E, generator=gen, device="cuda") * 0.02
+            args = (q, k, v, m, res, w, wb, g, be)
+            ln = ep.layer_norm(g, be)
+            sdpa = _sdpa(q, k, v, m, 0.0)
+
+            def library():
+                ctx = sdpa().transpose(1, 2).reshape(-1, E)
+                y = torch.addmm(wb.to(q.dtype), ctx, w).view(q.shape) + res
+                return F.layer_norm(y.float(), (E,), g, be, ep.EPS).to(q.dtype)
+
+            want = ep.epi_fused_ref(*args)
+            it = 2
+            nbytes = batch * (2 * sq + 2 * skv) * E * it + batch * skv * 4 + batch * sq * E * it + E * E * it + 3 * E * 4
+            flops = 4 * batch * HEADS * sq * skv * (E // HEADS) + 2 * batch * sq * E * E
+            bound, by = _bound(nbytes, flops)
+            for label, call, match in (("epi_fused_cuda", lambda: ep.epi_fused_cuda(*args), "epilogue"),
+                                       ("split", lambda: ep.split(*args[:7], ln), None),
+                                       ("library", library, None)):
+                with torch.inference_mode():
+                    err = (call().float() - want.float()).abs().max().item()
+                    us = cuda_ms(call, iters=iters) * 1e3
+                    dev = device_us(call, iters, match)
+                print(f"bfloat16 B={batch} {sq}x{skv} {label}: {us:.1f} us per call, device {_device(dev)}, "
+                      f"bound {bound * 1e3:.1f} us ({by}), max|this-plain| {err:.3e}", flush=True)
+            del q, k, v, m, res, args
             torch.cuda.empty_cache()
 
 

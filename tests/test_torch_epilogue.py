@@ -11,9 +11,18 @@ order).  The plain version is also held to ``split``, the shipped form
 (#1's plain version, ``torch.addmm``, the residual add, the port's
 LayerNorm), and the entry point runs on the CPU.
 
+The bf16 body's plan (``epi_plan``: key windows of whole batch rows per
+64-row block) is held to a brute-force walk of every block: each output
+row in exactly one window, each window at most 96 keys (within
+``wgmma``'s 256) of whole segments, the shared memory within 227 KB.
+
 Tests marked ``cuda`` hold the Hopper kernel to the plain version on the
 card (``python -m pytest --noconftest -m cuda tests/test_torch_epilogue.py``)
-and skip without one.
+and skip without one: LXMERT's four shapes and the edges of the bf16
+body's layout (one row or one key, a window of one segment, a block that
+is one segment, rows that straddle blocks), batches 1, 7 and 130 (the
+last block runs past the output's end), q, k, v contiguous or as column
+views of one fused product, padded keys and a fully masked row.
 """
 
 import functools
@@ -104,13 +113,88 @@ def test_main_raises_without_a_card(no_card):
         port.main(["--batch", "2"])
 
 
+EDGE_SHAPES = ((1, 1), (1, 64), (7, 13), (16, 16), (33, 64), (64, 64), (64, 1))
+PLAN_BATCHES = (1, 7, 130, 384)
+
+
+def _windows(plan, batch, sq, blk):
+    """Block ``blk``'s key windows as ``csrc/epilogue.cu`` walks them
+    (``per_window`` consecutive batch rows of the block at a time): per
+    window its batch rows and its query rows, block-relative [c0, c1)."""
+    total, r0 = batch * sq, blk * port.ROWS
+    r1 = min(r0 + port.ROWS, total)
+    segs = list(range(r0 // sq, (r1 - 1) // sq + 1))
+    return [(segs[w:w + plan.per_window], max(r0, segs[w] * sq) - r0,
+             min(r1, (segs[min(w + plan.per_window, len(segs)) - 1] + 1) * sq) - r0)
+            for w in range(0, len(segs), plan.per_window)]
+
+
+@pytest.mark.parametrize("sq,skv", port.SHAPES + EDGE_SHAPES, ids=lambda x: str(x))
+def test_plan_covers_every_row_once_in_whole_segment_windows(sq, skv):
+    for batch in PLAN_BATCHES:
+        plan = port.epi_plan(batch, sq, skv)
+        total = batch * sq
+        assert plan.blocks * port.ROWS >= total > (plan.blocks - 1) * port.ROWS
+        assert plan.keys % 16 == 0 and 16 <= plan.keys <= port.MAX_WINDOW_KEYS <= 256
+        assert plan.per_window * skv <= plan.keys and plan.smem <= port.SMEM_MAX
+        covered = []
+        widest = 0
+        for blk in range(plan.blocks):
+            r0 = blk * port.ROWS
+            rows = list(range(r0, min(r0 + port.ROWS, total)))
+            segs = sorted({r // sq for r in rows})  # the block's batch rows, by brute force
+            widest = max(widest, len(segs))
+            windows = _windows(plan, batch, sq, blk)
+            assert [b for w, _, _ in windows for b in w] == segs  # whole segments, each once, in order
+            for w, c0, c1 in windows:
+                assert len(w) <= plan.per_window and len(w) * skv <= plan.keys
+                # the window's query rows are exactly the block's rows of its segments
+                assert list(range(r0 + c0, r0 + c1)) == [r for r in rows if r // sq in w]
+                covered += range(r0 + c0, r0 + c1)
+        assert covered == list(range(total))
+        assert widest == plan.segments
+
+
+def test_plan_windows_at_lxmerts_shapes():
+    # One window a head at 20x20 and 36x20; two at 36x36 (three batch rows
+    # of 36 keys: 108 > 96) and 20x36 (four of 36: two windows of 72);
+    # N = 80 / 80 / 80 / 64 keys.
+    plans = [port.epi_plan(384, sq, skv) for sq, skv in port.SHAPES]
+    assert [(p.segments, p.per_window, p.keys) for p in plans] == [(4, 4, 80), (3, 2, 80), (4, 2, 80), (3, 3, 64)]
+    assert [p.blocks for p in plans] == [120, 216, 120, 216]
+
+
+@pytest.mark.parametrize("keys", range(16, port.MAX_WINDOW_KEYS + 1, 16))
+def test_shared_memory_fits_the_block(keys):
+    # The tile (96 KB), the ring of five 24 KB W slices or the attention
+    # buffers, whichever is larger, the barriers and partial sums.
+    nbytes = port.epi_smem_bytes(keys)
+    assert 96 * 1024 + 5 * 24 * 1024 < nbytes <= port.SMEM_MAX
+
+
+def _fused_views(args, sq, skv):
+    """q, k, v as column views of one (B, S, 3E) product when Sq == Skv,
+    else q alone and k, v views of one (B, Skv, 2E) product."""
+    q, k, v = args[:3]
+    if sq == skv:
+        q, k, v = torch.cat([q, k, v], -1).split(E, -1)
+    else:
+        k, v = torch.cat([k, v], -1).split(E, -1)
+    assert k.stride(1) in (2 * E, 3 * E)
+    return [q, k, v, *args[3:]]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "fused"])
+@pytest.mark.parametrize("batch", [1, 7, 130])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("sq,skv", port.SHAPES, ids=lambda x: str(x))
-def test_kernel_matches_plain_on_the_card(cuda, sq, skv, dtype):
-    # Batch 7: the rows of the last block run past the output's end.
-    args = _inputs(7, sq, skv, cuda, dtype, seed=2)
-    args[3][3] = -10000.0  # a fully masked row stays finite
+@pytest.mark.parametrize("sq,skv", port.SHAPES + EDGE_SHAPES, ids=lambda x: str(x))
+def test_kernel_matches_plain_on_the_card(cuda, sq, skv, dtype, batch, layout):
+    # Batches 7 and 130: the rows of the last block run past the output's end.
+    args = _inputs(batch, sq, skv, cuda, dtype, seed=2)
+    args[3][batch // 2] = -10000.0  # a fully masked row stays finite
+    if layout == "fused":
+        args = _fused_views(args, sq, skv)
     atol, rtol = (1e-4, 0.0) if dtype == torch.float32 else (3e-2, 1e-2)
     before = port.epi_fused_cuda.launches
     got = port.epi_fused(*args)

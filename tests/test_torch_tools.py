@@ -50,7 +50,7 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("only", [[], ["short_fwd"], ["long", "short_bwd"], ["headfold"]])
+@pytest.mark.parametrize("only", [[], ["short_fwd"], ["long", "short_bwd"], ["headfold"], ["epilogue"]])
 def test_time_attention_needs_a_card(only):
     if __import__("torch").cuda.is_available():
         pytest.skip("a card is present: the timing would run")
