@@ -226,7 +226,28 @@ nonzero:
    forward and none else; and a latency tier at ``--batchSize 8``,
    ``LATENCY_RECORDS`` records arriving one every ``LATENCY_INTERVAL`` s,
    whose p50 / p95 / p99 it prints.
-18. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+18-22. UNITER (slice 14), full width (12 layers x 768 over 20 text
+   tokens + 36 RoI features, a 56-token stream whose text pads sit in the
+   middle of the keys), bf16: the forward at batch 256 (phase 4's checks,
+   12 launches of #1 a forward); the evaluate CLI with ``--backbone
+   uniter --scorer msp --batchSize 256`` (phase 5's, 12 of #1 a
+   forward); the scorers through the evaluate CLI as phase 15 (energy,
+   ODIN: 24 of #1 and 12 of #3 a batch, MC-dropout: 12 of #4 a pass,
+   noised Mahalanobis fitted then read back, the ensemble), each
+   re-scored through the plain versions; training steps as phases 8-9
+   (12 launches of #1 and #3 a step at dropout 0 with the losses held to
+   the plain versions', 12 of #4 and #5 at 0.1); the train CLI (RP,
+   dropout 0.1, batch 32: 12 of #4 and #5 a step, 12 of #1 a validation
+   forward), its ``BEST.pth`` / ``LAST.pth`` in GQA-UNITER's key format
+   (``encoder.model.uniter.*`` + ``logit_fc.*``) and an evaluate of
+   ``BEST.pth``; one serve wave (phase 17's stream, msp, batch 256: 12 of
+   #1 a forward); and ``tools.profile_forward`` at batch 256 and for a
+   training step (32 + RP), kernels and plain: device time by kernel
+   class, the attention share and the idle share.  Phase 2 reports the
+   short bf16 bodies' registers and spills (kNT 8: 37-64 keys, UNITER's
+   56) and phase 3 checks #1 / #3 / #4 / #5 at 56x56 under UNITER's mask
+   (and #4's mask at 56 keys) as at LXMERT's shapes.
+23. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -251,6 +272,9 @@ import typing
 
 E, HEADS = 768, 12
 SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))  # (Sq, Skv) per LXMERT call kind
+# UNITER's single stream: 20 text tokens + 36 RoI features, each
+# question's text pads between its words and the image keys.
+UNITER, UNITER_TEXT = (56, 56), 20
 VILT_SHAPES = ((165, 165), (185, 185))  # ViLT's stream: 20 or 40 text tokens + 144 patches + CLS
 LONG_SHAPES = VILT_SHAPES + ((65, 185), (185, 65))
 # Either side of 256 keys, where #2's f32 body leaves its whole-row form
@@ -455,11 +479,14 @@ def phase_build():
     _wgmma_report(results["headfold"])
     _long_wgmma_report(results["fused_attention_long"])
     _epilogue_report(results["epilogue"])
+    _short_body_report(results)
 
 
 WGMMA_KERNEL = re.compile(r"headfold_wgmmaILi(\d+)E")  # headfold_wgmma<kNP>, kNP keys in the window
 LONG_WGMMA_KERNEL = re.compile(r"fused_attention_long_wgmmaILi(\d+)E")  # <kWG> warpgroups a block
 EPI_KERNEL = re.compile(r"epilogue_bf16ILi(\d+)E")  # epilogue_bf16<kNP>, kNP keys in a window
+# The short bf16 bodies of #1 / #4 and #3 / #5: <kDrop, kNT>, kNT = SKP / 8.
+SHORT_BODY = re.compile(r"(fused_attention_(?:fwd|bwd)_short_bf16)ILb([01])ELi(\d+)E")
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -534,6 +561,23 @@ def _wgmma_report(res) -> None:
         + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
     if hgmma is not None and not all(hgmma.get(n, 0) > 0 for n in used):
         raise AssertionError(f"headfold's bf16 body issues no HGMMA at some used N: {hgmma}")
+
+
+def _short_body_report(results) -> None:
+    """Registers and spills of the short bf16 bodies' instances (#1 / #4
+    forward, #3 / #5 backward; kNT 4 at 20 keys, 6 at 36, 8 at 37-64:
+    UNITER's 56), from the build log; reported, not held."""
+    parts = []
+    for src in ("fused_attention", "fused_attention_bwd", "fused_attention_dropout"):
+        if not results[src].log:
+            parts.append(f"{src}.cu: reused build, no ptxas log")
+            continue
+        for fn, r in sorted(_ptxas_resources(results[src].log).items()):
+            if m := SHORT_BODY.search(fn):
+                parts.append(f"{src}.cu {m.group(1)}<drop {m.group(2)}, kNT {m.group(3)}>: "
+                             f"{r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "
+                             "stores/loads")
+    log("build", "short bf16 bodies (kNT 8 runs UNITER's 56 keys): " + "; ".join(parts))
 
 
 def _long_ring_smem(wg: int) -> int:
@@ -614,7 +658,9 @@ def _epilogue_report(res) -> None:
 def _attention_inputs(b, sq, skv, dtype, gen):
     """q/k/v as the model makes them: column views of one fused QKV
     product (self-attention) or of a KV product (cross-attention), an
-    output gradient, and a (B, Skv) -10000 mask with one fully masked row."""
+    output gradient, and a (B, Skv) -10000 mask with one fully masked row
+    (a quarter of the keys masked at random; at UNITER's shape its mask,
+    ``_uniter_bias``)."""
     import torch
 
     dev = "cuda"
@@ -624,10 +670,25 @@ def _attention_inputs(b, sq, skv, dtype, gen):
         q = torch.randn(b, sq, E, generator=gen, device=dev).to(dtype)
         k, v = torch.randn(b, skv, 2 * E, generator=gen, device=dev).to(dtype).split(E, -1)
     g = torch.randn(b, sq, E, generator=gen, device=dev).to(dtype)
+    if (sq, skv) == UNITER:
+        return q, k, v, g, _uniter_bias(b, gen)
     mask = (torch.rand(b, skv, generator=gen, device=dev) > 0.25).float()
     mask[:, 0] = 1.0
     mask[b // 2] = 0.0  # a fully masked row stays finite
     return q, k, v, g, (1.0 - mask) * -10000.0
+
+
+def _uniter_bias(b, gen):
+    """UNITER's (B, 56) -10000 mask: questions of 4-20 tokens, the pads
+    after each masked in the middle of the keys, the 36 image keys kept;
+    row b // 2 fully masked."""
+    import torch
+
+    lengths = torch.randint(4, UNITER_TEXT + 1, (b,), generator=gen, device="cuda")
+    bias = torch.zeros(b, UNITER[1], device="cuda")
+    bias[:, :UNITER_TEXT][torch.arange(UNITER_TEXT, device="cuda")[None, :] >= lengths[:, None]] = -10000.0
+    bias[b // 2] = -10000.0
+    return bias
 
 
 def _bound_ms(name: str, b: int, sq: int, skv: int, itemsize: int) -> tuple[float, str]:
@@ -711,12 +772,12 @@ def _compare(name, dtype, got, want, errs) -> str:
     return f"{name} " + ", ".join(msgs)
 
 
-def _mask_readout(att, gen):
-    """#4's mask, read through q = k = 0 (uniform P) and a one-hot V:
-    out[b, i, h*D + j] = keep(b, h, i, j) * scale / Skv."""
+def _mask_readout(att, gen, s: int = 36):
+    """#4's mask at ``s`` x ``s``, read through q = k = 0 (uniform P) and a
+    one-hot V: out[b, i, h*D + j] = keep(b, h, i, j) * scale / Skv."""
     import torch
 
-    b, s, d = 256, 36, E // HEADS
+    b, d = 256, E // HEADS
     zeros = torch.zeros(b, s, E, device="cuda")
     v = torch.zeros(b, s, HEADS, d, device="cuda")
     v[:, torch.arange(s), :, torch.arange(s)] = 1.0
@@ -732,7 +793,7 @@ def _mask_readout(att, gen):
     keep_p = (256 - t) / 256
     frac = got.float().mean().item()
     sigma = math.sqrt(keep_p * (1 - keep_p) / got.numel())
-    log("kernels", f"fused_attention_dropout mask (B=256, 36x36, seed {seed}) equals "
+    log("kernels", f"fused_attention_dropout mask (B=256, {s}x{s}, seed {seed}) equals "
         f"dropout_keep_mask_ref bit for bit; kept fraction {frac:.6f} vs {keep_p:.6f} "
         f"({abs(frac - keep_p) / sigma:.2f} sigma, want < 5)")
     if abs(frac - keep_p) >= 5 * sigma:
@@ -748,7 +809,7 @@ def phase_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         for b in (256, 64, 7):
-            for sq, skv in SHAPES:
+            for sq, skv in SHAPES + (UNITER,):
                 q, k, v, g, bias = _attention_inputs(b, sq, skv, dtype, gen)
                 seed = int(torch.randint(0, 2**62, (), generator=gen, device="cuda"))
                 calls = {
@@ -777,9 +838,10 @@ def phase_kernels():
                     torch.equal(a, c) for a, c in zip(bwd0, calls["fused_attention_bwd"][0]())
                 ):
                     raise AssertionError(f"rate 0 of #4/#5 differs from #1/#3 at {dname} B={b} {sq}x{skv}")
-                msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + "; ".join(msgs)
+                what = " (UNITER's mask)" if (sq, skv) == UNITER else ""
+                msg = (f"{dname} B={b} {sq}x{skv}{what}: max|kernel-plain| " + "; ".join(msgs)
                        + "; rate 0 == #1/#3")
-                if (sq, skv) == (36, 36):
+                if (sq, skv) in ((36, 36), UNITER):
                     # No float atomics: two runs give identical bits.
                     for name, (kernel, _) in calls.items():
                         first, again = kernel(), kernel()
@@ -823,6 +885,7 @@ def phase_kernels():
                     )
                 log("kernels", msg)
     _mask_readout(att, gen)
+    _mask_readout(att, gen, UNITER[1])  # 56 keys: 16-key groups past the last key
     _long_kernel(att, gen, errs, times)
     return errs, times
 
@@ -939,21 +1002,26 @@ def _padded_text(batch: dict, seed: int = 1) -> dict:
     return dict(batch, input_ids=ids, input_mask=mask)
 
 
-def phase_model():
+def phase_model(backbone: str = "lxmert", per_forward: int = 34, phase: str = "model"):
+    """The full-width forward at batch 256, bf16, with padded questions:
+    ``per_forward`` launches of #1, logits held to the plain version, the
+    text mask's effect, kernels and plain timed in turns."""
     import numpy as np
     import torch
     from rgqa_tpu_torch.data.batching import to_device
     from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
     from rgqa_tpu_torch.ops import attention as att
 
-    cfg = default_config()
+    cfg = default_config(backbone)
     enc = cfg.encoder
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     model, forward = build_model(cfg, use_bf16=True, device="cuda", generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log("model", f"LxmertForGQA {enc.l_layers}/{enc.r_layers}/{enc.x_layers} layers x "
+    depth = (f"{enc.l_layers}/{enc.r_layers}/{enc.x_layers}" if backbone == "lxmert"
+             else f"{enc.num_layers} ({cfg.max_text_len} + {enc.num_objects} tokens)")
+    log(phase, f"{type(model).__name__} {depth} layers x "
         f"{enc.hidden_size}, vocab {enc.vocab_size}, {cfg.num_answers} answers, "
         f"{n_params} params in bf16, built in {time.perf_counter() - t0:.2f} s")
     padded = _padded_text(example_batch(cfg, 256, seed=0))
@@ -976,13 +1044,13 @@ def phase_model():
         # would be off by.
         unmasked = to_device(dict(padded, input_mask=np.ones_like(padded["input_mask"])), "cuda")
         effect = (forward(unmasked)["logits"].float() - lk).abs().max().item()
-        log("model", f"text lengths {int(padded['input_mask'].sum(1).min())}-"
+        log(phase, f"text lengths {int(padded['input_mask'].sum(1).min())}-"
             f"{padded['input_mask'].shape[1]}; kernel launches per forward = "
-            f"{launches} (want 34); max|logits kernel-plain| = {err:.3e} (bound "
+            f"{launches} (want {per_forward}); max|logits kernel-plain| = {err:.3e} (bound "
             f"{LOGIT_TOL:.0e}, max|logit| {lp.abs().max().item():.3f}); the text "
             f"mask moves the logits by {effect:.3e} (want > {2 * LOGIT_TOL:.0e})")
-        if launches != 34:
-            raise AssertionError(f"{launches} kernel launches per forward, want 34")
+        if launches != per_forward:
+            raise AssertionError(f"{launches} kernel launches per forward, want {per_forward}")
         if not err <= LOGIT_TOL:
             raise AssertionError(f"logits disagree: {err}")
         if not effect > 2 * LOGIT_TOL:
@@ -993,7 +1061,7 @@ def phase_model():
             iters=10, warmup=2,
         )
     qps_k, qps_p = 256e3 / kernel_ms, 256e3 / plain_ms
-    log("model", f"forward at batch 256 bf16: kernel {kernel_ms:.3f} ms ({qps_k:.1f} q/s), "
+    log(phase, f"forward at batch 256 bf16: kernel {kernel_ms:.3f} ms ({qps_k:.1f} q/s), "
         f"plain attention {plain_ms:.3f} ms ({qps_p:.1f} q/s)")
     del model, forward, batch, unmasked, out_k, out_p
     torch.cuda.empty_cache()
@@ -1203,12 +1271,17 @@ def _run_steps(model, forward, init, batches, use_fused, steps=None):
 
 def _step_launches(backbone: str, dropout: float) -> dict:
     """Kernel launches per training step: LXMERT's 34 forward and
-    ``BWD_PER_STEP`` backward attention calls, through the dropout pair
-    when dropout is on; ViLT's 12 and 12 through #2 and #3L (no attention
-    dropout)."""
+    ``BWD_PER_STEP`` backward attention calls, UNITER's 12 and 12, through
+    the dropout pair when dropout is on; ViLT's 12 and 12 through #2 and
+    #3L (no attention dropout)."""
     want = {name: 0 for name in KERNELS}
     if backbone == "vilt":
         want.update({"fused_attention_long": 12, "fused_attention_long_bwd": 12})
+    elif backbone == "uniter":
+        # Every layer's keys feed the pooled CLS: 12 backward calls too.
+        pair = ("fused_attention", "fused_attention_bwd") if dropout == 0.0 else (
+            "fused_attention_dropout", "fused_attention_dropout_bwd")
+        want.update(dict.fromkeys(pair, 12))
     elif dropout == 0.0:
         want.update({"fused_attention": 34, "fused_attention_bwd": BWD_PER_STEP})
     else:
@@ -1873,8 +1946,8 @@ def phase_scorers() -> None:
     torch.cuda.empty_cache()
 
 
-def _favoured_pth(path: str, root: str, seed: int, favour: bool) -> str:
-    """A seeded full-width LXMERT as a reference ``.pth``; ``favour``
+def _favoured_pth(path: str, root: str, seed: int, favour: bool, backbone: str = "lxmert") -> str:
+    """A seeded full-width model as a reference ``.pth``; ``favour``
     raises the answer bias of testdev's most frequent answer, so the
     random model answers some questions right (``--target_acc`` needs a
     reachable accuracy)."""
@@ -1886,7 +1959,7 @@ def _favoured_pth(path: str, root: str, seed: int, favour: bool) -> str:
     from rgqa_tpu_torch.train.state import save_reference_pth
 
     ds = GQADataset(root, "testdev", add_uq=True)
-    cfg = dataclasses.replace(default_config(), num_answers=ds.num_answers - 1)
+    cfg = dataclasses.replace(default_config(backbone), num_answers=ds.num_answers - 1)
     model, _ = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(seed))
     if favour:
         top = collections.Counter(a for d in ds.data for a in d["label"] if a != "UQ").most_common(1)[0][0]
@@ -1979,11 +2052,39 @@ def _plain_rescore(phase, argv, root, rows, kind) -> None:
     torch.cuda.empty_cache()
 
 
+def _scorer_runs(phase, runs, root, maha_root, tmp) -> None:
+    """Each (name, scorer kind of SCORE_TOL, flags, launches) of ``runs``
+    through the evaluate CLI at batch 256, its outputs and launches
+    checked and re-scored through the plain versions; the Mahalanobis
+    run's cached rerun (``maha-cached``) must give its JSON bit for bit."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+
+    fitted = None
+    for name, kind, extra, launches in runs:
+        out_dir = os.path.join(tmp, "out_" + name.removesuffix("-cached"))
+        data = maha_root if "maha" in name else root
+        argv = ["--synthetic", "--data_root", data, *extra, "--test", "testdev",
+                "--batchSize", "256", "--output", out_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        results = evaluate.main(argv)["testdev"]
+        torch.cuda.synchronize()
+        rows = _check_scored_outputs(phase, out_dir, data, results, argv,
+                                     time.perf_counter() - t0, read_counts(), launches)
+        if name.endswith("maha"):
+            if not os.path.isfile(os.path.join(out_dir, "sample_estimates.pkl")):
+                raise AssertionError("--scorer maha wrote no sample_estimates.pkl")
+            fitted = rows
+        if name.endswith("maha-cached") and rows != fitted:
+            raise AssertionError("--scorer maha with the cached estimator changed the predictions")
+        _plain_rescore(phase, argv, data, rows, kind)
+    torch.cuda.empty_cache()
+
+
 def phase_scorer_cli() -> None:
     """The evaluate CLI with each new scorer flag at full width, batch
     256, each run held to a plain re-score (phase 15)."""
-    import torch
-    from rgqa_tpu_torch.cli import evaluate
     from rgqa_tpu_torch.data.dataset import GQADataset
     from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
 
@@ -2031,25 +2132,7 @@ def phase_scorer_cli() -> None:
             ("vilt-energy", "energy", ["--backbone", "vilt", "--scorer", "energy"],
              want(fused_attention_long=12 * n)),
         ]
-        for name, kind, extra, launches in runs:
-            out_dir = os.path.join(tmp, "out_" + name.removesuffix("-cached"))
-            data = maha_root if name.startswith("maha") else root
-            argv = ["--synthetic", "--data_root", data, *extra, "--test", "testdev",
-                    "--batchSize", "256", "--output", out_dir]
-            reset_counts()
-            t0 = time.perf_counter()
-            results = evaluate.main(argv)["testdev"]
-            torch.cuda.synchronize()
-            rows = _check_scored_outputs("scorer-cli", out_dir, data, results, argv,
-                                         time.perf_counter() - t0, read_counts(), launches)
-            if name == "maha" and not os.path.isfile(os.path.join(out_dir, "sample_estimates.pkl")):
-                raise AssertionError("--scorer maha wrote no sample_estimates.pkl")
-            if name == "maha":
-                fitted = rows
-            if name == "maha-cached" and rows != fitted:
-                raise AssertionError("--scorer maha with the cached estimator changed the predictions")
-            _plain_rescore("scorer-cli", argv, data, rows, kind)
-        torch.cuda.empty_cache()
+        _scorer_runs("scorer-cli", runs, root, maha_root, tmp)
 
 
 # ---------------------------------------------------------------------------
@@ -2243,6 +2326,171 @@ def phase_serve(tmp: str, synth: str, prepared: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phases 18-22: UNITER (slice 14).
+# ---------------------------------------------------------------------------
+
+UNITER_PER_FORWARD = 12  # one self-attention a layer over the whole stream
+
+
+def phase_uniter_scorers() -> None:
+    """The evaluate CLI with UNITER's scorers at full width, batch 256,
+    each held to a plain re-score (as phase 15)."""
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
+
+    per, s = UNITER_PER_FORWARD, len(SEED_LIST)
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_uniter_scorers_") as tmp:
+        root, maha_root = os.path.join(tmp, "gqa"), os.path.join(tmp, "gqa_maha")
+        make_synthetic_gqa(root)
+        make_synthetic_gqa(maha_root, SyntheticSpec(**MAHA_ROOT))
+        a = _favoured_pth(os.path.join(tmp, "a.pth"), root, 1, favour=True, backbone="uniter")
+        b = _favoured_pth(os.path.join(tmp, "b.pth"), root, 2, favour=False, backbone="uniter")
+        n = math.ceil(len(GQADataset(root, "testdev", add_uq=True)) / 256)
+        n_maha = math.ceil(len(GQADataset(maha_root, "testdev", add_uq=True)) / 256)
+        fits = math.ceil(len(GQADataset(maha_root, "train", add_uq=True)) / 256)
+
+        def want(**counts):
+            return {**{k: 0 for k in KERNELS}, **counts}
+
+        # ODIN and noised Mahalanobis: a forward with the input gradient
+        # (every layer's backward: the RoI inputs reach every layer) and
+        # the scoring forward.
+        grad_maha = dict(fused_attention=2 * per * n_maha, fused_attention_bwd=per * n_maha)
+        uniter = ["--backbone", "uniter"]
+        maha = [*uniter, "--scorer", "maha", "--noise", str(MAHA_NOISE), "--load", a]
+        runs = [
+            ("uniter-energy", "energy", [*uniter, "--scorer", "energy", "--load", a],
+             want(fused_attention=per * n)),
+            ("uniter-odin", "odin", [*uniter, "--scorer", "odin", "--temperature", str(ODIN_T), "--noise",
+                                     str(ODIN_NOISE), "--load", a],
+             want(fused_attention=2 * per * n, fused_attention_bwd=per * n)),
+            ("uniter-dropout", "dropout", [*uniter, "--scorer", "dropout", "--seed_list",
+                                           ",".join(map(str, SEED_LIST)), "--load", a],
+             want(fused_attention_dropout=per * s * n)),
+            ("uniter-maha", None, maha, want(**dict(grad_maha, fused_attention=per * fits + 2 * per * n_maha))),
+            ("uniter-maha-cached", None, maha, want(**grad_maha)),
+            ("uniter-ensemble", "ensemble", [*uniter, "--load", f"{a},{b}"], want(fused_attention=2 * per * n)),
+        ]
+        _scorer_runs("uniter-scorers", runs, root, maha_root, tmp)
+
+
+def phase_uniter_train_path() -> None:
+    """The UNITER train CLI at full width (RP, dropout 0.1, batch 32): its
+    launches, GQA-UNITER checkpoints and an evaluate of its ``BEST.pth``."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    phase, per = "uniter-train", UNITER_PER_FORWARD
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_uniter_train_") as tmp:
+        root, out_dir = os.path.join(tmp, "gqa"), os.path.join(tmp, "snap")
+        argv = ["--backbone", "uniter", "--synthetic", "--data_root", root, "--sample_pair",
+                "--epochs", "1", "--batchSize", "32", "--output", out_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        history = train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        with open(os.path.join(out_dir, "log.log")) as f:
+            epoch_lines = f.read().strip().splitlines()
+        log(phase, f"train CLI ({' '.join(argv)}) in {seconds:.2f} s: history {history}; "
+            f"launches {launches}; log.log: {epoch_lines}")
+        cfg, _ = parse_cli(argv)
+        steps = len(GQADataset(root, cfg.data.train_splits)) // 32
+        valid_forwards = math.ceil(len(GQADataset(root, cfg.data.valid_splits)) / 32)
+        want = {name: 0 for name in KERNELS}
+        want.update({"fused_attention_dropout": per * steps, "fused_attention_dropout_bwd": per * steps,
+                     "fused_attention": per * valid_forwards})
+        if launches != want:
+            raise AssertionError(f"launches {launches}, want {want} ({steps} steps, "
+                                 f"{valid_forwards} validation forwards)")
+        if not all(math.isfinite(x) for x in history["loss"]):
+            raise AssertionError(f"non-finite training loss {history['loss']}")
+        for name in ("BEST.pth", "LAST.pth", "LAST.state.pt"):
+            if not os.path.isfile(os.path.join(out_dir, name)):
+                raise AssertionError(f"the UNITER train CLI wrote no {name}")
+        for name in ("BEST.pth", "LAST.pth"):
+            keys = torch.load(os.path.join(out_dir, name), map_location="cpu", weights_only=True)
+            if "encoder.model.uniter.encoder.layer.11.attention.self.query.weight" not in keys or not all(
+                    k.startswith(("encoder.model.uniter.", "logit_fc.")) for k in keys):
+                raise AssertionError(f"{name} is not in the GQA-UNITER key format: {sorted(keys)[:4]}")
+        log(phase, f"BEST.pth and LAST.pth in the GQA-UNITER key format ({len(keys)} tensors, "
+            "encoder.model.uniter.* + logit_fc.*)")
+
+        eval_dir = os.path.join(tmp, "eval")
+        eargv = ["--backbone", "uniter", "--synthetic", "--data_root", root, "--test", "testdev",
+                 "--load", os.path.join(out_dir, "BEST.pth"), "--output", eval_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        results = evaluate.main(eargv)["testdev"]
+        counts = read_counts()
+        _check_eval_outputs(phase, eval_dir, root, results, eargv, time.perf_counter() - t0,
+                            counts["fused_attention"])
+        if any(n for name, n in counts.items() if name != "fused_attention"):
+            raise AssertionError(f"the UNITER evaluate path launched another kernel than #1: {counts}")
+        torch.cuda.empty_cache()
+
+
+def phase_uniter_serve() -> None:
+    """One serve wave through UNITER at full width (phase 17's stream,
+    msp, batch 256)."""
+    import torch
+    from rgqa_tpu_torch.cli.serve import serve_lines
+    from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_uniter_serve_") as tmp:
+        root = os.path.join(tmp, "gqa")
+        make_synthetic_gqa(root)
+        lines, good = _serve_stream(root)
+        argv = ["--backbone", "uniter", "--synthetic", "--data_root", root, "--test", "testdev",
+                "--scorer", "msp", "--batchSize", "256", "--wave_timeout", "0", "--serve_stats",
+                "--output", os.path.join(tmp, "serve")]
+        reset_counts()
+        t0 = time.perf_counter()
+        out, stats, _ = serve_lines(argv, lines)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        _served("serve uniter", lines, out, stats, good)
+        want = {**{k: 0 for k in KERNELS}, "fused_attention": UNITER_PER_FORWARD * math.ceil(len(good) / 256)}
+        log("uniter-serve", f"msp ({' '.join(argv)}) in {time.perf_counter() - t0:.2f} s: {len(out)} lines, "
+            f"{len(good)} answered; launches {({k: v for k, v in launches.items() if v})}; latency {stats}")
+        if launches != want:
+            raise AssertionError(f"serve uniter: launches {launches}, want {want}")
+        torch.cuda.empty_cache()
+
+
+def phase_uniter_profile() -> None:
+    """``tools.profile_forward`` for UNITER: the forward at batch 256 and a
+    training step (32 + RP), kernels and plain; the attention share and
+    the idle share (1 - device time over wall) of each."""
+    from rgqa_tpu_torch.tools import profile_forward
+
+    for unit, argv in (("forward", ["--batch", "256", "--iters", "10", "--repeats", "2"]),
+                       ("step", ["--train", "--iters", "5", "--repeats", "2"])):
+        for run in profile_forward.main(["--backbone", "uniter", *argv]):
+            attention = sum(c["ms"] for cls, c in run["classes"].items() if cls.startswith("attention"))
+            log("uniter-profile", f"batch {run['batch']} {run['route']}: device {run['device_ms']:.3f} ms "
+                f"per {unit}, wall {run['wall_ms']:.3f} ms; attention share "
+                f"{attention / run['device_ms']:.4f}, idle share {1 - run['busy_share']:.4f}")
+
+
+def phase_uniter() -> int:
+    """Phases 18-22; returns the evaluate path's launches of #1."""
+    phase_model("uniter", UNITER_PER_FORWARD, phase="uniter-model")
+    launches = phase_main_path("uniter", ("--backbone", "uniter", "--batchSize", "256"), "fused_attention",
+                               UNITER_PER_FORWARD)
+    phase_uniter_scorers()
+    phase_train_steps("uniter", timed=6)
+    phase_uniter_train_path()
+    phase_uniter_serve()
+    phase_uniter_profile()
+    return launches
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -2277,6 +2525,7 @@ def main() -> None:
     phase_scorer_cli()
     with tempfile.TemporaryDirectory(prefix="rgqa_smoke_serve_") as tmp:
         phase_serve(tmp, *phase_prepare(tmp))
+    phase_uniter()
 
     launches = {
         "fused_attention": eval_launches,  # the evaluate path

@@ -1,11 +1,12 @@
 """Weights into the port: from the JAX package's flax trees and from
-reference GQA ``.pth`` checkpoints, for LXMERT and ViLT.
+reference GQA ``.pth`` checkpoints, for LXMERT, UNITER and ViLT.
 
 The port's parameter names follow the flax tree, so a flax path maps to
 a port key by a plain rename (:func:`port_key`): path components joined
-with dots, the stacked ``lang_i`` / ``visn_i`` / ``x_i`` / ``block_i``
-layers (and the branched heads' ``proj_i``) as ``lang_layers.i`` /
-``visn_layers.i`` / ``x_layers.i`` / ``blocks.i`` (``projectors.i``), and
+with dots, the stacked ``lang_i`` / ``visn_i`` / ``x_i`` / ``block_i`` /
+``layer_i`` layers (and the branched heads' ``proj_i``) as
+``lang_layers.i`` / ``visn_layers.i`` / ``x_layers.i`` / ``blocks.i`` /
+``layers.i`` (``projectors.i``), and
 the leaves ``kernel`` / ``scale`` / ``embedding`` as ``weight``.  Which
 paths exist comes from the key maps of
 :mod:`rgqa_tpu_torch.checkpoint.torch_import` (copies of the JAX
@@ -15,7 +16,9 @@ kernel (kh, kw, in, out) goes to the reference ``Conv2d`` layout
 (out, in, kh, kw), which the port keeps.  Reference GQAViLT checkpoints
 hold each block's Q/K/V as one fused ``attn.qkv`` (3E rows); the port
 keeps ``query`` / ``key`` / ``value`` apart, split on load and fused on
-export.
+export.  GQA-UNITER checkpoints wrap the encoder as
+``encoder.model.uniter.*`` beside ``logit_fc.*``; pretrained UNITER
+encoders come as ``uniter.*`` or ``bert.*``, without a head.
 """
 
 from __future__ import annotations
@@ -29,20 +32,22 @@ import torch
 from rgqa_tpu_torch.checkpoint.torch_import import (
     load_torch_state_dict,
     lxmert_key_map,
+    uniter_key_map,
     vilt_key_map,
 )
 
 __all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
-_STACKED = re.compile(r"^(lang|visn|x|block|proj)_(\d+)$")
+_STACKED = re.compile(r"^(lang|visn|x|block|layer|proj)_(\d+)$")
 _STACK_NAME = {"lang": "lang_layers", "visn": "visn_layers", "x": "x_layers", "block": "blocks",
-               "proj": "projectors"}
+               "layer": "layers", "proj": "projectors"}
 # Reference GQA checkpoints wrap the encoder (gqa_model.py:14-43); the
 # answer head and the branched confidence head sit at the top level as
 # logit_fc.* and conf_fc.*.
 _REF_ENCODER_PREFIX = "lxrt_encoder.model."
 _REF_TOP_LEVEL = ("logit_fc", "conf_fc")
+_REF_UNITER_PREFIX = "encoder.model.uniter."  # GQA-UNITER (uniter/entry.py + uniter.py)
 _CONV = "#conv"  # vilt_key_map's marker on the patch-conv weight
 _QKV = re.compile(r"^(transformer\.blocks\.\d+\.attn\.)qkv\.(weight|bias)$")
 
@@ -75,9 +80,12 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
     """(backbone, key map) for a flattened flax tree; the backbone is read
     off the tree when not given."""
     if backbone is None:
-        backbone = "vilt" if ("cls_token",) in flat else "lxmert"
+        top = {p[0] for p in flat}
+        backbone = "vilt" if "cls_token" in top else "uniter" if "uniter" in top else "lxmert"
     if backbone == "vilt":
         return backbone, vilt_key_map(_count({p[0] for p in flat}, "block"))
+    if backbone == "uniter":
+        return backbone, uniter_key_map(_count({p[1] for p in flat if p[0] == "uniter"}, "layer"))
     if backbone == "lxmert":
         names = {p[1] for p in flat if len(p) > 1 and p[0] == "lxmert"}
         key_map = lxmert_key_map(
@@ -95,7 +103,7 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
 
 
 def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str, torch.Tensor]:
-    """A ``LxmertForGQA`` or ``ViltForGQA`` flax param tree (nested dicts
+    """A ``LxmertForGQA``, ``UniterForGQA`` or ``ViltForGQA`` flax param tree (nested dicts
     of numpy or jax arrays; ``backbone`` None reads which off the tree)
     -> the port's f32 ``state_dict``.  Raises on a missing parameter and
     on parameters the port has no place for."""
@@ -123,10 +131,13 @@ def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int,
                      branched: bool = False):
     """(reference .pth key, port key) for every parameter; ViLT's keys
     with its Q/K/V apart (``attn.query`` ...); ``branched`` adds
-    LXMERT's ``conf_fc.{0,2,3}``."""
+    LXMERT's ``conf_fc.{0,2,3}``; UNITER's are GQA-UNITER's."""
     if backbone == "vilt":
         for tkey, fpath, _ in vilt_key_map(num_layers):
             yield tkey.removesuffix(_CONV), port_key(fpath)
+        return
+    if backbone == "uniter":
+        yield from _uniter_pairs(num_layers, _REF_UNITER_PREFIX, answer_head=True)
         return
     if backbone != "lxmert":
         raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
@@ -135,13 +146,28 @@ def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int,
         yield rkey, port_key(fpath)
 
 
+def _uniter_prefix(keys) -> str:
+    """A UNITER checkpoint's encoder prefix, as ``import_uniter_gqa``
+    reads it: GQA-UNITER's, else a pretrained encoder's ``uniter.`` or
+    ``bert.``."""
+    if any(k.startswith("encoder.model.") for k in keys):
+        return _REF_UNITER_PREFIX
+    return "uniter." if any(k.startswith("uniter.") for k in keys) else "bert."
+
+
+def _uniter_pairs(num_layers: int, prefix: str, *, answer_head: bool):
+    for tkey, fpath, _ in uniter_key_map(num_layers, encoder_prefix=prefix, answer_head=answer_head):
+        yield tkey, port_key(fpath)
+
+
 def to_reference_state_dict(
     sd: Mapping[str, torch.Tensor], *, backbone: str = "lxmert", l_layers: int = 9,
     x_layers: int = 5, r_layers: int = 5, num_layers: int = 12,
 ) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` under the reference GQA model's key
     names (GQA-LXMERT, with ``conf_fc.*`` when ``sd`` holds the branched
-    ``conf_head``, or GQAViLT with each block's Q/K/V fused into
+    ``conf_head``; GQA-UNITER, ``encoder.model.uniter.*`` + ``logit_fc.*``;
+    or GQAViLT with each block's Q/K/V fused into
     ``attn.qkv``): ``torch.save`` it to hand the weights to the reference
     code, to the JAX package's importer, or to ``--load``.
     ``--branched_layer``'s heads have no reference keys and are left out."""
@@ -180,7 +206,11 @@ def load_reference_pth(
     r_layers: int = 5, num_layers: int = 12, branched: bool = False,
 ) -> tuple[dict[str, torch.Tensor], list[str], list[str]]:
     """Load a reference GQA-LXMERT (``lxrt_encoder.model.bert.*`` +
-    ``logit_fc.*``) or GQAViLT (``transformer.*``, ``text_embeddings.*``,
+    ``logit_fc.*``), UNITER (GQA-UNITER's ``encoder.model.uniter.*`` +
+    ``logit_fc.*``, or a pretrained encoder's ``uniter.*`` / ``bert.*``,
+    the prefix read off the keys as the JAX package's
+    ``import_uniter_gqa`` does; the answer head only where ``logit_fc`` is
+    there) or GQAViLT (``transformer.*``, ``text_embeddings.*``,
     ``vqa_classifier.*``, ...) ``.pth`` through ``load_torch_state_dict``
     (``module.`` strip, gamma/beta renames).  Torch Linear and Conv2d
     weights are already in the port's layout, so nothing transposes;
@@ -190,8 +220,13 @@ def load_reference_pth(
     ref = load_torch_state_dict(path)
     if backbone == "vilt":
         ref = _split_qkv(ref)
+    if backbone == "uniter":
+        pairs = _uniter_pairs(num_layers, _uniter_prefix(ref),
+                              answer_head=any(k.startswith("logit_fc") for k in ref))
+    else:
+        pairs = _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers, branched)
     sd, missing, used = {}, [], set()
-    for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers, branched):
+    for rkey, pkey in pairs:
         if rkey not in ref:
             missing.append(rkey)
             continue

@@ -1,4 +1,4 @@
-"""Reference checkpoint key names: a copy of the three pieces of the JAX
+"""Reference checkpoint key names: a copy of the four pieces of the JAX
 package's ``rgqa_tpu/checkpoint/torch_import.py`` that the port uses.
 
 - :func:`load_torch_state_dict` reads a reference ``.pth`` with the
@@ -10,21 +10,25 @@ package's ``rgqa_tpu/checkpoint/torch_import.py`` that the port uses.
   ``src/lxrt/modeling.py`` (BertAttention 295-347, BertAttOutput 350-362,
   LXRTXLayer 439-488, VisualFeatEncoder 491-517) and
   ``src/tasks/gqa_model.py:20-27`` (``logit_fc.{0,2,3}``).
+- :func:`uniter_key_map` lists every UNITER parameter likewise
+  (``src/uniter/modeling.py:560-655``: BERT's embeddings and layers, the
+  image embeddings' img / pos linears and their LayerNorms), under the
+  encoder prefix a checkpoint uses, with the GQA head ``logit_fc.*``.
 - :func:`vilt_key_map` lists every GQAViLT parameter likewise
   (``src/vilt/vilt.py:8-44`` over the vendored timm ViT-B/32), with the
   fused ``attn.qkv`` tensors split into ``attn.{query,key,value}`` and
   the patch conv's weight under a ``#conv`` marker (its layout differs
   from flax's; ``checkpoint/convert.py`` handles both).
 
-``tests/test_torch_port_rules.py`` and ``tests/test_torch_vilt.py`` hold
-them to their originals.
+``tests/test_torch_port_rules.py``, ``tests/test_torch_vilt.py`` and
+``tests/test_torch_uniter.py`` hold them to their originals.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["load_torch_state_dict", "lxmert_key_map", "vilt_key_map"]
+__all__ = ["load_torch_state_dict", "lxmert_key_map", "uniter_key_map", "vilt_key_map"]
 
 
 def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
@@ -147,6 +151,38 @@ def lxmert_key_map(
         m += _dense("conf_fc.0", ("conf_head", "dense"))
         m += _ln("conf_fc.2", ("conf_head", "ln"))
         m += _dense("conf_fc.3", ("conf_head", "logits"))
+    return m
+
+
+def uniter_key_map(
+    num_layers: int = 12,
+    *,
+    encoder_prefix: str = "uniter.",
+    flax_prefix: tuple = ("uniter",),
+    answer_head: bool = True,
+) -> list[tuple[str, tuple, bool]]:
+    """Key map for UNITER checkpoints (``src/uniter/modeling.py:560-655``).
+
+    ``UniterEncoder.load`` renames ``bert.`` -> ``uniter.``
+    (``entry.py:101-119``); embeddings/encoder follow BERT layout, image
+    embeddings add img/pos linears + their LayerNorms.
+    """
+    p = encoder_prefix
+    f = flax_prefix
+    m: list = []
+    m += _embeddings(f"{p}embeddings", f + ("embeddings",))
+    m += _dense(f"{p}img_embeddings.img_linear", f + ("img_embeddings", "img_linear"))
+    m += _ln(f"{p}img_embeddings.img_layer_norm", f + ("img_embeddings", "img_ln"))
+    m += _dense(f"{p}img_embeddings.pos_linear", f + ("img_embeddings", "pos_linear"))
+    m += _ln(f"{p}img_embeddings.pos_layer_norm", f + ("img_embeddings", "pos_ln"))
+    m += _ln(f"{p}img_embeddings.LayerNorm", f + ("img_embeddings", "ln"))
+    for i in range(num_layers):
+        m += _bert_layer(f"{p}encoder.layer.{i}", f + (f"layer_{i}",))
+    m += _dense(f"{p}pooler.dense", f + ("pooler", "dense"))
+    if answer_head:
+        m += _dense("logit_fc.0", ("answer_head", "dense"))
+        m += _ln("logit_fc.2", ("answer_head", "ln"))
+        m += _dense("logit_fc.3", ("answer_head", "logits"))
     return m
 
 

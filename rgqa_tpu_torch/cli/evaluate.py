@@ -15,13 +15,17 @@ Scorers:
   ``--target_acc`` calibrates tau on the split and dumps ``{qid:
   [answer, confidence]}`` (full precision) with the tau in the result.
 
-``odin`` and ``maha`` perturb the RoI feats and boxes, which ViLT has
-none of: on ViLT they exit with a message.  Not ported, and refused by
+``--backbone`` lxmert (the default), uniter or vilt.  ``odin`` and
+``maha`` perturb the RoI feats and boxes, which LXMERT and UNITER read
+and ViLT has none of: on ViLT they exit with a message.  ``--branched``
+is LXMERT's (UNITER and ViLT have no confidence head and raise).  Not ported, and refused by
 name: ``--scorer frcnn``, ``clip``, ``match`` and ``caption``.
 
 Example:
     python -m rgqa_tpu_torch.cli.evaluate --synthetic --data_root /tmp/gqa \
         --test testdev --scorer energy --output /tmp/gqa_out
+    python -m rgqa_tpu_torch.cli.evaluate --backbone uniter --synthetic \
+        --data_root /tmp/gqa --test testdev --scorer odin --output /tmp/gqa_uniter
 """
 
 from __future__ import annotations

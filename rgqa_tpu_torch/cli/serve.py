@@ -17,7 +17,8 @@ never stops the stream.  ``served N questions`` goes to stderr at the end.
 
 It takes the JAX CLI's flags (the port's ``parse_cli``) and runs on the
 card (``--device cuda``, the default; raises without one) unless given
-``--device cpu``.  ``--test <split>`` names the answer vocabulary.  The
+``--device cpu``.  ``--test <split>`` names the answer vocabulary; ``--backbone`` is lxmert,
+uniter or vilt.  The
 scorer is any that ``make_scorer`` builds (``--scorer`` msp, energy,
 odin, maha, dropout, branched); the evaluate CLI's refusals hold
 (``frcnn``, ``clip``, ``match``, ``caption``; odin / maha on ViLT), and

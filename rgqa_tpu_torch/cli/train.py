@@ -1,7 +1,8 @@
 """Training CLI (port of ``rgqa_tpu/cli/train.py``, ``--strategy conf``).
 
-Fine-tunes LXMERT or ViLT (``--backbone vilt``) on GQA with the JAX
-CLI's flags (BCE loss, BertAdam, global clip 5.0, ``--sample_pair`` for
+Fine-tunes LXMERT, UNITER (``--backbone uniter``; ``--loadLXMERT`` takes
+a pretrained UNITER encoder) or ViLT (``--backbone vilt``) on GQA with
+the JAX CLI's flags (BCE loss, BertAdam, global clip 5.0, ``--sample_pair`` for
 RP pseudo-UQ pairs, ``--dropout`` on attention and hidden activations;
 ViLT has hidden dropout only, and train-time randaug unless
 ``--no_randaug``), writes ``BEST.pth``, ``LAST.pth``, ``LAST.state.pt``
@@ -12,6 +13,9 @@ without one) unless given ``--device cpu``.
 Examples:
     python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
         --sample_pair --epochs 1 --batchSize 32 --output /tmp/gqa_snap
+    python -m rgqa_tpu_torch.cli.train --backbone uniter --synthetic \
+        --data_root /tmp/gqa --sample_pair --epochs 1 --batchSize 32 \
+        --output /tmp/gqa_uniter_snap
     # ViLT-B/32 from the synthetic root's pixel pack (randaug needs PIL
     # and JPEGs):
     python -m rgqa_tpu_torch.cli.train --backbone vilt --synthetic \

@@ -3,13 +3,14 @@
 
 A copy, because ``rgqa_tpu/data/dataset.py`` imports flax (through
 ``models.uniter`` for UNITER's box transform) and ``rgqa_tpu.data``'s
-``__init__`` imports jax; the port runs where they are absent.  Two branches
+``__init__`` imports jax; the port runs where they are absent.  Three branches
 are here: lxmert (questions tokenized once into (N, T) int32 arrays,
-boxes normalized to [0, 1], ``norm4``) and vilt (the same questions;
+boxes normalized to [0, 1], ``norm4``), uniter (the same questions, the
+pixel boxes through UNITER's 7-d transform, ``uniter7``) and vilt (the same questions;
 pixels per batch from an image source, on the ``u8`` wire as uint8 rows
 + rects + the rect-derived pad-patch mask, on the ``f32`` wire as
 normalized f32 pixels, augmented by ``randaug`` when the runner sets
-``image_augment_rng`` on a train split).  The UNITER, BUTD, caption and
+``image_augment_rng`` on a train split).  The BUTD, caption and
 TreeMix-parse branches are not ported yet.
 """
 
@@ -23,6 +24,7 @@ import numpy as np
 from rgqa_tpu_torch.data.images import load_image_batch, load_image_batch_u8, rect_patch_mask
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer
 from rgqa_tpu_torch.data.tsv import PackedFeatures
+from rgqa_tpu_torch.models.uniter import uniter_box_transform
 
 __all__ = ["GQADataset", "EncodedGQA", "build_targets", "UQ_ANSWER", "MAX_LABELS"]
 
@@ -102,13 +104,17 @@ def build_targets(
 
 
 class EncodedGQA:
-    """A dataset encoded into fixed-shape arrays (lxmert and vilt inputs).
+    """A dataset encoded into fixed-shape arrays (lxmert, uniter and vilt inputs).
 
     Fields: ``question_ids`` (list[str]); ``input_ids / input_mask /
     segment_ids`` (N, T) int32; ``img_row`` (N,) int32 into the feature
     pack; ``label_idx`` (N, MAX_LABELS) int32 (-1 = empty) and
     ``label_score`` (N, MAX_LABELS) f32; ``img_boxes`` (images, K, 4)
-    f32, boxes normalized by image size and clipped to [0, 1].
+    f32, boxes normalized by image size and clipped to [0, 1], or for
+    ``backbone="uniter"`` (images, K, 7), UNITER's transform of the pixel
+    boxes.  Either is computed once per feature pack and kept on it by
+    kind (``features._box_cache["norm4" | "uniter7"]``), shared by every
+    split of that kind encoded over the pack.
 
     ``backbone="vilt"`` takes pixels from ``image_source`` (a
     ``data.images.GQAImageSource`` or ``PixelPack``) on ``pixel_wire``
@@ -130,7 +136,7 @@ class EncodedGQA:
         pixel_wire: str = "f32",
         pixel_patch_size: int = 32,
     ):
-        if backbone not in ("lxmert", "vilt"):
+        if backbone not in ("lxmert", "uniter", "vilt"):
             raise NotImplementedError(f"the {backbone} data branch is not ported yet")
         if pixel_wire not in ("f32", "u8"):
             raise ValueError(f"pixel_wire must be f32|u8, got {pixel_wire!r}")
@@ -166,16 +172,22 @@ class EncodedGQA:
                     self.label_score[i, j] = score
                     j += 1
 
-        # Normalized boxes, computed once per pack and shared by every
-        # split encoded over it.
+        # The position features, computed once per pack and kind and
+        # shared by every split of that kind encoded over it.
+        kind = "uniter7" if backbone == "uniter" else "norm4"
         cache = getattr(features, "_box_cache", None)
         if cache is None:
-            sizes = np.asarray(features.sizes, np.float32)  # (N, 2) h, w
-            boxes = np.asarray(features.boxes, np.float32).copy()
-            boxes[:, :, (0, 2)] /= sizes[:, None, 1:2]
-            boxes[:, :, (1, 3)] /= sizes[:, None, 0:1]
-            cache = features._box_cache = np.clip(boxes, 0.0, 1.0)
-        self.img_boxes = cache
+            cache = features._box_cache = {}
+        if kind not in cache:
+            if kind == "uniter7":
+                cache[kind] = uniter_box_transform(np.asarray(features.boxes))
+            else:
+                sizes = np.asarray(features.sizes, np.float32)  # (N, 2) h, w
+                boxes = np.asarray(features.boxes, np.float32).copy()
+                boxes[:, :, (0, 2)] /= sizes[:, None, 1:2]
+                boxes[:, :, (1, 3)] /= sizes[:, None, 0:1]
+                cache[kind] = np.clip(boxes, 0.0, 1.0)
+        self.img_boxes = cache[kind]
 
     def __len__(self) -> int:
         return len(self.question_ids)

@@ -1,5 +1,6 @@
 """Prediction and rejection scoring over a split (port of
-``rgqa_tpu/eval.py``: ``predict``, ``evaluate``, ``make_scorer``,
+``rgqa_tpu/eval.py``: ``predict``, ``evaluate``, ``topk_predict``,
+``oracle_score``, ``dump_attention``, ``make_scorer``,
 ``score_split``, ``ood_evaluate``, ``gated_ood_evaluate``,
 ``ensemble_ood_evaluate``, ``fit_maha_estimator``, ``get_pseudo_labels``
 and ``predict_with_thresh``; ``score_rows``, the answers by row, for the
@@ -103,6 +104,65 @@ class ScoringMixin:
     def evaluate(self, encoded: EncodedGQA) -> float:
         """Closed-set soft accuracy on a labeled split."""
         return ClosedSetEvaluator(encoded.dataset.qid2label).evaluate(self.predict(encoded))
+
+    def topk_predict(self, encoded: EncodedGQA, k: int = 4, dump: Optional[str] = None) -> float:
+        """Top-k oracle accuracy: the gold answer counts as correct when it
+        is among the ``k`` highest f32 logits (``gqa.py:196-217``)."""
+
+        def topk_step(batch):
+            with torch.inference_mode():
+                logits = self.forward(batch, deterministic=True)["logits"].float()
+                return {"topk": torch.topk(logits, k, dim=-1).indices}
+
+        quesid2ans = {}
+        for qids, out, real in self._map_eval(encoded, topk_step, ("topk",)):
+            for qid, proposals in zip(qids, out["topk"][:real]):
+                label = encoded.dataset.id2datum[qid].get("label") or {}
+                gold = next(iter(label), None)
+                names = [self.label2ans[int(p)] for p in proposals]
+                quesid2ans[qid] = gold if gold in names else names[0]
+        evaluator = ClosedSetEvaluator(encoded.dataset.qid2label)
+        if dump:
+            evaluator.dump_result(quesid2ans, dump)
+        return evaluator.evaluate(quesid2ans)
+
+    @staticmethod
+    def oracle_score(encoded: EncodedGQA) -> float:
+        """Upper-bound accuracy from the targets alone (``gqa.py:244-253``)."""
+        quesid2ans = {}
+        for qid in encoded.question_ids:
+            label = encoded.dataset.id2datum[qid].get("label") or {}
+            quesid2ans[qid] = max(label, key=label.get) if label else ""
+        return ClosedSetEvaluator(encoded.dataset.qid2label).evaluate(quesid2ans)
+
+    def dump_attention(self, encoded: EncodedGQA, out_dir: str, limit: Optional[int] = None) -> int:
+        """Dump LXMERT's cross-modal attention maps per question
+        (reference ``gqa_vis_att.py:263-299``, through ``output_probs``):
+        ``<out_dir>/<qid>.npz`` with ``lang2visn_{i}`` / ``visn2lang_{i}``
+        (heads, Sq, Skv) arrays per cross layer, in the compute dtype's
+        values as f32.  Returns the count written (at most ``limit``)."""
+        if self.model_cfg.backbone != "lxmert":
+            raise NotImplementedError(
+                "dump_attention reads LXMERT's cross-modal attention; "
+                f"--backbone {self.model_cfg.backbone} has none")
+        os.makedirs(out_dir, exist_ok=True)
+        n_layers = self.model_cfg.encoder.x_layers
+
+        def viz_step(batch):
+            with torch.inference_mode():
+                probs = self.forward(batch, deterministic=True, output_probs=True)["x_attention_probs"]
+            return {f"{name}_{i}": p.float() for i, pair in enumerate(probs)
+                    for name, p in zip(("lang2visn", "visn2lang"), pair)}
+
+        keys = tuple(f"{name}_{i}" for i in range(n_layers) for name in ("lang2visn", "visn2lang"))
+        written = 0
+        for qids, out, real in self._map_eval(encoded, viz_step, keys):
+            for row, qid in enumerate(qids[:real]):
+                np.savez(os.path.join(out_dir, f"{qid}.npz"), **{key: out[key][row] for key in keys})
+                written += 1
+                if limit and written >= limit:
+                    return written
+        return written
 
     def score_rows(self, encoded: EncodedGQA, scorer=None) -> list:
         """``[(answer, confidence)]``, one per encoded row in row order

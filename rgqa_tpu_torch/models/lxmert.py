@@ -7,8 +7,9 @@ training with attention dropout, ``fused_attention_dropout``): 34 per
 forward at the default depths (9 + 5 + 4 per cross layer).  ``dtype`` is
 the compute dtype of every block; the weights keep their own.
 
-Not ported yet: the branched confidence heads, the pretraining heads and
-the attention-probs output (``output_probs``).
+``output_probs`` returns the cross layers' attention maps as
+``x_attention_probs`` (``dump_attention``'s), computed through the plain
+product for those calls alone.  Not ported yet: the pretraining heads.
 """
 
 from __future__ import annotations
@@ -55,7 +56,9 @@ class VisualFeatEncoder(nn.Module):
 class LxmertModel(nn.Module):
     """The language / vision / cross encoder, returning ``{"lang",
     "visn", "pooled", "lang_layers"}``; ``lang_layers`` holds the
-    language output of each cross layer (the taps of ``--branched_layer``)."""
+    language output of each cross layer (the taps of ``--branched_layer``).
+    ``output_probs`` adds ``x_attention_probs``: per cross layer the
+    (lang <- visn, visn <- lang) probabilities, each (B, H, Sq, Skv)."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -78,6 +81,7 @@ class LxmertModel(nn.Module):
         *,
         use_fused: Optional[bool] = None,
         rng: Optional[DropoutRng] = None,
+        output_probs: bool = False,
     ) -> dict:
         dt = self.compute_dtype
         lang_bias = mask_to_bias(input_mask, dt)
@@ -90,11 +94,18 @@ class LxmertModel(nn.Module):
             lang = layer(lang, bias=lang_bias, **kw)
         for layer in self.visn_layers:
             visn = layer(visn, bias=visn_bias, **kw)
-        lang_layers = []
+        lang_layers, all_probs = [], []
         for layer in self.x_layers:
-            lang, visn = layer(lang, lang_bias, visn, visn_bias, **kw)
+            if output_probs:
+                lang, visn, probs = layer(lang, lang_bias, visn, visn_bias, output_probs=True, **kw)
+                all_probs.append(probs)
+            else:
+                lang, visn = layer(lang, lang_bias, visn, visn_bias, **kw)
             lang_layers.append(lang)
-        return {"lang": lang, "visn": visn, "pooled": self.pooler(lang), "lang_layers": lang_layers}
+        out = {"lang": lang, "visn": visn, "pooled": self.pooler(lang), "lang_layers": lang_layers}
+        if output_probs:
+            out["x_attention_probs"] = all_probs
+        return out
 
 
 class AnswerHead(nn.Module):
@@ -139,9 +150,11 @@ class LxmertForGQA(nn.Module):
     def forward(
         self, input_ids, input_mask, segment_ids, feats, boxes,
         *, use_fused: Optional[bool] = None, rng: Optional[DropoutRng] = None,
+        output_probs: bool = False,
     ) -> dict:
         enc = self.lxmert(
-            input_ids, input_mask, segment_ids, feats, boxes, use_fused=use_fused, rng=rng
+            input_ids, input_mask, segment_ids, feats, boxes, use_fused=use_fused, rng=rng,
+            output_probs=output_probs,
         )
         out = {"logits": self.answer_head(enc["pooled"]), "pooled": enc["pooled"]}
         if self.conf_head is not None:
@@ -149,4 +162,6 @@ class LxmertForGQA(nn.Module):
         if self.projectors is not None:
             taps = [torch.tanh(proj(lang[:, 0])) for proj, lang in zip(self.projectors, enc["lang_layers"])]
             out["conf"] = self.layer_conf(torch.cat(taps, dim=-1))[:, 0]
+        if output_probs:
+            out["x_attention_probs"] = enc["x_attention_probs"]
         return out

@@ -16,8 +16,11 @@ dropout kernels and the hidden-dropout sites draw from the ``rng``
 Parameter names follow the flax tree (``query``/``key``/``value``/``out``/
 ``out_ln``, ``inter``/``out``), so the checkpoint converter
 (``rgqa_tpu_torch.checkpoint.convert``) is a plain rename plus the
-(in, out) -> (out, in) kernel transpose.  The attention-probs output and
-the adversarial input deltas are not ported yet.
+(in, out) -> (out, in) kernel transpose.  ``output_probs`` (LXMERT's
+cross-attention maps, for ``dump_attention``) computes the probabilities
+explicitly through the plain product, as the JAX package does; every
+other call keeps the kernels.  The adversarial input deltas are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rgqa_tpu_torch.config import EncoderConfig
-from rgqa_tpu_torch.ops.attention import fused_attention, fused_attention_dropout
+from rgqa_tpu_torch.ops.attention import attention_probs, fused_attention, fused_attention_dropout
 from rgqa_tpu_torch.ops.dropout import DropoutRng, HiddenDropout
 
 __all__ = [
@@ -137,7 +140,9 @@ class AttentionBlock(nn.Module):
     attention dropout the call goes to :func:`fused_attention_dropout`,
     seeded from ``rng.host``; otherwise to :func:`fused_attention`.
     ``use_fused``: None or True runs the kernels on CUDA, False their
-    plain versions.
+    plain versions.  ``output_probs`` (eval mode only) computes the
+    (B, H, Sq, Skv) probabilities explicitly, in the compute dtype, and
+    returns ``(out, probs)``.
     """
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
@@ -155,8 +160,8 @@ class AttentionBlock(nn.Module):
 
     def forward(
         self, x, kv=None, bias=None, *, use_fused: Optional[bool] = None,
-        rng: Optional[DropoutRng] = None,
-    ) -> torch.Tensor:
+        rng: Optional[DropoutRng] = None, output_probs: bool = False,
+    ):
         e = x.shape[-1]
         dt = self.compute_dtype
         if kv is None:
@@ -169,7 +174,15 @@ class AttentionBlock(nn.Module):
             b = torch.cat([self.key.bias, self.value.bias]).to(dt)
             k, v = F.linear(kv.to(dt), w, b).split(e, dim=-1)
         force_xla = use_fused is False
-        if self.training and self.attention_dropout > 0.0:
+        probs = None
+        if output_probs:
+            if self.training and self.attention_dropout > 0.0:
+                raise NotImplementedError("output_probs with attention dropout (training mode)")
+            b, sq, skv, h = x.shape[0], x.shape[1], k.shape[1], self.num_heads
+            probs = attention_probs(q, k, bias, h).to(dt)
+            ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v.reshape(b, skv, h, e // h))
+            ctx = ctx.reshape(b, sq, e)
+        elif self.training and self.attention_dropout > 0.0:
             seed = (rng or DropoutRng()).seed()
             ctx = fused_attention_dropout(
                 q, k, v, bias, num_heads=self.num_heads,
@@ -179,8 +192,8 @@ class AttentionBlock(nn.Module):
             ctx = fused_attention(
                 q, k, v, bias, num_heads=self.num_heads, force_xla=force_xla
             )
-        out = self.dropout(self.out(ctx), rng)
-        return self.out_ln(out + x)
+        out = self.out_ln(self.dropout(self.out(ctx), rng) + x)
+        return (out, probs) if output_probs else out
 
 
 class MLPBlock(nn.Module):
@@ -224,14 +237,20 @@ class CrossModalLayer(nn.Module):
 
     def forward(
         self, lang, lang_bias, visn, visn_bias, *, use_fused: Optional[bool] = None,
-        rng: Optional[DropoutRng] = None,
+        rng: Optional[DropoutRng] = None, output_probs: bool = False,
     ):
+        """``(lang, visn)``; with ``output_probs`` also the cross
+        attention's ``(lang <- visn, visn <- lang)`` probabilities."""
         kw = dict(use_fused=use_fused, rng=rng)
-        lang_x = self.cross_att(lang, kv=visn, bias=visn_bias, **kw)
-        visn_x = self.cross_att(visn, kv=lang, bias=lang_bias, **kw)
+        cross = dict(kw, output_probs=output_probs)
+        lang_x = self.cross_att(lang, kv=visn, bias=visn_bias, **cross)
+        visn_x = self.cross_att(visn, kv=lang, bias=lang_bias, **cross)
+        if output_probs:
+            (lang_x, l_probs), (visn_x, v_probs) = lang_x, visn_x
         lang_x = self.lang_self(lang_x, bias=lang_bias, **kw)
         visn_x = self.visn_self(visn_x, bias=visn_bias, **kw)
-        return self.lang_mlp(lang_x, rng=rng), self.visn_mlp(visn_x, rng=rng)
+        out = self.lang_mlp(lang_x, rng=rng), self.visn_mlp(visn_x, rng=rng)
+        return (*out, (l_probs, v_probs)) if output_probs else out
 
 
 class Pooler(nn.Module):

@@ -1,10 +1,11 @@
 """Build a backbone + a uniform forward adapter (port of
-``rgqa_tpu/models/zoo.py``: lxmert and vilt).
+``rgqa_tpu/models/zoo.py``: lxmert, uniter and vilt).
 
 ``forward(batch, **kw) -> dict`` takes a dict batch of tensors:
 
 - lxmert: ``input_ids``, ``input_mask``, ``segment_ids`` (B, T),
   ``feats`` (B, K, 2048) and ``boxes`` (B, K, 4);
+- uniter: the same keys, ``boxes`` (B, K, 7) UNITER's box transform;
 - vilt: ``input_ids``, ``input_mask`` (B, T) and either ``pixels``
   (B, S, S, 3) f32 (the ``f32`` wire; pad patches masked from content)
   or ``pixels_u8`` (B, S, S, 3) uint8 + ``pixel_rect`` (B, 4), normalized
@@ -26,6 +27,7 @@ from rgqa_tpu_torch.data.images import rect_patch_mask
 from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.lxmert import LxmertForGQA
 from rgqa_tpu_torch.models.transformer import LayerNorm
+from rgqa_tpu_torch.models.uniter import UNITER_POS_DIM, UniterForGQA
 from rgqa_tpu_torch.models.vilt import ViltForGQA
 from rgqa_tpu_torch.ops.pixels import pixelbert_normalize
 
@@ -40,13 +42,16 @@ def default_config(backbone: str = "lxmert") -> ModelConfig:
     - ``"lxmert"``: 9 language / 5 vision / 5 cross layers x 768, 12
       heads, vocab 30522, 1842 answers, 36 RoI features of 2048, dropout
       0.1, 20 text tokens.
+    - ``"uniter"``: UNITER-base, 12 layers x 768, 12 heads, MLP 3072,
+      the same vocab, answers, RoI features, dropout and text length: a
+      56-token stream.
     - ``"vilt"``: ViLT-B/32, 12 pre-norm layers x 768, 12 heads, MLP 3072,
       vocab 30522, 1842 answers, 384 px images in 32 px patches (144 +
       CLS), 40 text tokens: the reference's 185-token stream
       (``docs/vilt_images.md``).
     """
-    if backbone == "lxmert":
-        return ModelConfig()
+    if backbone in ("lxmert", "uniter"):
+        return ModelConfig(backbone=backbone)
     if backbone == "vilt":
         return ModelConfig(
             backbone="vilt", max_text_len=40, vilt_patch_size=32, vilt_image_size=384
@@ -107,16 +112,17 @@ def build_model(
     the module's own mode, which is restored after the call either way.
 
     ``cfg.branched`` / ``cfg.branched_layers`` add LXMERT's confidence
-    heads (the forward returns ``conf``); ViLT has none, in the JAX
-    package too, and raises."""
-    if cfg.backbone not in ("lxmert", "vilt"):
+    heads (the forward returns ``conf``); UNITER and ViLT have none, in
+    the JAX package too, and raise."""
+    if cfg.backbone not in ("lxmert", "uniter", "vilt"):
         raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert and vilt"
+            f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert, uniter and vilt"
         )
-    if cfg.backbone == "vilt" and (cfg.branched or cfg.branched_layers):
+    if cfg.backbone != "lxmert" and (cfg.branched or cfg.branched_layers):
+        name = {"uniter": "UNITER", "vilt": "ViLT"}[cfg.backbone]
         raise NotImplementedError(
-            "--branched / --branched_layer: ViLT has no branched confidence head "
-            "(nor has the JAX package's ViLT)"
+            f"--branched / --branched_layer: {name} has no branched confidence head "
+            f"(nor has the JAX package's {name})"
         )
 
     device = resolve_device(device)
@@ -127,6 +133,8 @@ def build_model(
                 cfg.encoder, cfg.num_answers, patch_size=cfg.vilt_patch_size,
                 image_size=cfg.vilt_image_size, dtype=dtype,
             )
+        elif cfg.backbone == "uniter":
+            model = UniterForGQA(cfg.encoder, cfg.num_answers, dtype=dtype)
         else:
             model = LxmertForGQA(
                 cfg.encoder, cfg.num_answers, dtype=dtype, branched=cfg.branched,
@@ -188,8 +196,8 @@ def example_batch(
     cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0, pixel_wire: str = "f32"
 ) -> dict:
     """A synthetic fixed-shape numpy batch; the same draws as the JAX
-    package's ``example_batch`` for lxmert and vilt (f32 ``pixels``,
-    standard normal).  ``pixel_wire="u8"`` gives vilt the u8 wire
+    package's ``example_batch`` for lxmert, uniter (7-d ``boxes``) and
+    vilt (f32 ``pixels``, standard normal).  ``pixel_wire="u8"`` gives vilt the u8 wire
     instead: random ``pixels_u8``, and in three rows of four the
     ``pixel_rect`` of a 2:1, 3:2 or 4:3 image in pad mode, with its
     ``pixel_mask``."""
@@ -220,5 +228,6 @@ def example_batch(
     batch["feats"] = rng.standard_normal(
         (batch_size, k, cfg.encoder.visual_feat_dim), dtype=np.float32
     )
-    batch["boxes"] = rng.random((batch_size, k, 4), dtype=np.float32)
+    pos_dim = UNITER_POS_DIM if cfg.backbone == "uniter" else 4
+    batch["boxes"] = rng.random((batch_size, k, pos_dim), dtype=np.float32)
     return batch

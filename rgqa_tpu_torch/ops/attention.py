@@ -74,6 +74,7 @@ __all__ = [
     "forward_kernel",
     "backward_kernel",
     "bias_vector",
+    "attention_probs",
     "attention_natural_ref",
     "attention_bwd_ref",
     "dropout_keep_mask_ref",
@@ -139,6 +140,18 @@ def _pv(probs, v, num_heads: int, out_dtype) -> torch.Tensor:
     b, skv, e = v.shape
     out = torch.einsum("bhqk,bkhd->bqhd", probs, _heads(v, num_heads).to(probs.dtype))
     return out.reshape(b, -1, e).to(out_dtype)
+
+
+def attention_probs(q, k, bias, num_heads: int) -> torch.Tensor:
+    """(B, H, Sq, Skv) f32 attention probabilities of natural-layout q, k
+    (the JAX package's ``attention_probs``, for the visualisation path):
+    the scores in the input dtype plus ``bias`` (None or broadcastable to
+    the scores, e.g. ``(B, 1, 1, Skv)``), the softmax in f32."""
+    d = q.shape[-1] // num_heads
+    scores = torch.einsum("bqhd,bkhd->bhqk", _heads(q, num_heads), _heads(k, num_heads)) / math.sqrt(d)
+    if bias is not None:
+        scores = scores + bias
+    return torch.softmax(scores.float(), dim=-1)
 
 
 def attention_natural_ref(q, k, v, bias_kv, num_heads: int) -> torch.Tensor:

@@ -30,7 +30,7 @@ answers less the appended ``UQ`` class, initialises the weights from a
   :meth:`GQARunner.train`; the scorers' forwards set the mode they need
   and restore it.
 
-Both run lxmert or vilt.  For evaluation LXMERT also takes the branched
+Both run lxmert, uniter or vilt.  For evaluation LXMERT also takes the branched
 confidence heads (``--branched`` / ``--branched_layer``) and, with
 ``--strategy separate`` (the evaluate CLI's ``--scorer separate``), a
 one-logit answerability head.
@@ -52,9 +52,13 @@ card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 Not ported yet, and refused by flag name: training with the other
 strategies, mixup, the MCE, energy and branched losses, ``--uq_as_class``,
 ``--chart``, chunked dispatch, the other optimizers, bf16 moments, orbax
-snapshots (reading them needs jax), the ``--loadLXMERT`` /
+snapshots (reading them needs jax), the ``--loadLXMERT`` (on LXMERT) /
 ``--loadLXMERTQA`` initialisations, the caption strategy and every
-backbone but lxmert and vilt.
+backbone but lxmert, uniter and vilt.  ``--loadLXMERT`` with
+``--backbone uniter`` loads a pretrained UNITER encoder (``uniter.*`` or
+``bert.*`` keys, or a GQA-UNITER ``.pth``'s encoder and head), as the JAX
+runner does; keys it lacks, the answer head of a bare encoder among
+them, stay at their init.
 """
 
 from __future__ import annotations
@@ -91,9 +95,10 @@ __all__ = ["GQARunner"]
 def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
-        f"--backbone {m.backbone}": m.backbone not in ("lxmert", "vilt"),
+        f"--backbone {m.backbone}": m.backbone not in ("lxmert", "uniter", "vilt"),
         "--uq_as_class": m.uq_as_class,
-        "--loadLXMERT / --loadLXMERTQA": bool(cfg.load_lxmert or cfg.load_lxmert_qa),
+        "--loadLXMERT (LXMERT's pretrained encoder)": bool(cfg.load_lxmert) and m.backbone != "uniter",
+        "--loadLXMERTQA": bool(cfg.load_lxmert_qa),
         "--feed_int8": d.feed_int8,
         "--eval_chunk > 1": t.eval_chunk > 1,
         f"--strategy {t.strategy}": t.strategy == "caption",  # the caps backbone
@@ -173,6 +178,8 @@ class GQARunner(ScoringMixin):
         self.label2ans = self.dataset.label2ans
         if cfg.load:
             self.load(cfg.load)
+        elif cfg.load_lxmert:  # --backbone uniter (_check_ported refuses the rest)
+            print(f"Loaded UNITER encoder ({len(self.load(cfg.load_lxmert))} keys left at init)")
 
         self.output = cfg.output
         os.makedirs(self.output, exist_ok=True)
@@ -226,9 +233,10 @@ class GQARunner(ScoringMixin):
     # Checkpoints
     # ------------------------------------------------------------------
 
-    def load(self, path: str) -> None:
-        """Load a reference GQA-LXMERT or GQAViLT ``.pth`` into the model
-        (cast to the model's dtype); keys it lacks stay at their init."""
+    def load(self, path: str) -> list[str]:
+        """Load a reference GQA-LXMERT, UNITER or GQAViLT ``.pth`` into
+        the model (cast to the model's dtype); keys it lacks stay at their
+        init.  Returns the reference keys it lacked."""
         if not os.path.isfile(path):
             raise NotImplementedError(
                 f"{path!r} is not a .pth file; loading orbax snapshots needs "
@@ -245,6 +253,7 @@ class GQARunner(ScoringMixin):
             print(f"Weights not found in ckpt: {missing[:5]}...")
         if unused:
             print(f"Ckpt weights unused: {unused[:5]}...")
+        return missing
 
     def save(self, name: str) -> str:
         """``<output>/<name>.pth`` in the reference GQA format."""

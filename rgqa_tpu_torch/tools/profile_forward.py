@@ -1,14 +1,15 @@
-"""Where the time of a full-width LXMERT or ViLT forward or training step
-goes on one CUDA card.
+"""Where the time of a full-width LXMERT, UNITER or ViLT forward or
+training step goes on one CUDA card.
 
-    python -m rgqa_tpu_torch.tools.profile_forward [--backbone vilt]
+    python -m rgqa_tpu_torch.tools.profile_forward [--backbone uniter|vilt]
         [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
-    python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone vilt]
+    python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone uniter|vilt]
         [--batch 32] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
         [--out FILE.json]
 
-Builds ``LxmertForGQA`` (or, with ``--backbone vilt``, ViLT-B/32 with
+Builds ``LxmertForGQA`` (or, with ``--backbone uniter``, UNITER-base over
+its 56-token stream, or with ``--backbone vilt``, ViLT-B/32 with
 40-token text, a 185-token stream) at full width
 (``zoo.default_config``) in bf16 from seed 0 and, for each batch size of
 ``zoo.example_batch``, runs the forward through the attention kernels
@@ -214,7 +215,7 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=None,
                     help="batch sizes (default 256 32; with --train 32, doubled by RP)")
-    ap.add_argument("--backbone", choices=("lxmert", "vilt"), default="lxmert")
+    ap.add_argument("--backbone", choices=("lxmert", "uniter", "vilt"), default="lxmert")
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--scorers", action="store_true", help="profile the rejection scorers (LXMERT)")
     ap.add_argument("--iters", type=int, default=20)

@@ -2,9 +2,9 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
-        [--only long short_fwd short_bwd headfold epilogue]
+        [--only long short_fwd short_bwd headfold epilogue uniter]
 
-Five groups, all by default (``--only`` picks some):
+Six groups, all by default (``--only`` picks some):
 
 - ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36,
   batch 256; #2 (``fused_attention_long_cuda``) at ViLT's 165x165,
@@ -36,6 +36,15 @@ Five groups, all by default (``--only`` picks some):
   the inputs of the smoke's phase 13, each beside the bound
   (``chip_smoke._bound``); device time summed over every device event of
   the call;
+- ``uniter``: #1, #4, #3 and #5 at UNITER's 56x56 stream (20 text tokens
+  + 36 RoI features), batch 256 (inference) and 64 (a training step's 32
+  + RP rows), bf16, q, k, v as column views of one fused QKV product, the
+  keys masked as UNITER's are (the pads of questions of 4-20 tokens
+  between the words and the image keys, one fully masked row); each
+  beside its bound (``chip_smoke._bound_ms``: bytes at 3.35 TB/s against
+  the products at the bf16 tensor-core rate) and the one PyTorch call
+  for its function (``scaled_dot_product_attention``; for #3 / #5 its
+  forward and backward less its forward, as the smoke reckons it);
 
 the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
@@ -66,7 +75,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
 
-GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue")
+GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue", "uniter")
 E, HEADS = 768, 12
 
 
@@ -134,7 +143,8 @@ def main(argv=None) -> None:
                "short_fwd": ("fused_attention", "fused_attention_dropout"),
                "short_bwd": ("fused_attention_bwd", "fused_attention_dropout"),
                "headfold": ("fused_attention", "headfold"),
-               "epilogue": ("fused_attention", "epilogue")}
+               "epilogue": ("fused_attention", "epilogue"),
+               "uniter": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout")}
     built = build_all(tuple(dict.fromkeys(n for grp in args.only for n in sources[grp])))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -158,6 +168,8 @@ def main(argv=None) -> None:
         _headfold(att, gen, args.iters)
     if "epilogue" in args.only:
         _epilogue(gen, args.iters)
+    if "uniter" in args.only:
+        _uniter(att, gen, args.iters, rate, seed)
 
 
 # #2's timed shapes: ViLT-B/32 at 384 px (165 training, 185 serving) and
@@ -324,6 +336,58 @@ def _epilogue(gen, iters: int) -> None:
                       f"bound {bound * 1e3:.1f} us ({by}), max|this-plain| {err:.3e}", flush=True)
             del q, k, v, m, res, args
             torch.cuda.empty_cache()
+
+
+
+def _uniter_inputs(gen, b: int):
+    """bf16 q, k, v (column views of one fused QKV product), an output
+    gradient and UNITER's (B, 56) mask (``chip_smoke._uniter_bias``)."""
+    import torch
+
+    from chip_smoke import UNITER, _uniter_bias
+
+    s = UNITER[0]
+    q, k, v = torch.randn(b, s, 3 * E, generator=gen, device="cuda").bfloat16().split(E, -1)
+    g = torch.randn(b, s, E, generator=gen, device="cuda").bfloat16()
+    return q, k, v, g, _uniter_bias(b, gen)
+
+
+def _uniter(att, gen, iters: int, rate: float, seed: int) -> None:
+    """#1 / #4 / #3 / #5 at 56x56, batch 256 and 64, beside bound and SDPA."""
+    import torch
+
+    from chip_smoke import _bound_ms, _sdpa_calls
+
+    for b in (256, 64):
+        q, k, v, g, bias = _uniter_inputs(gen, b)
+        lib = _sdpa_calls(q, k, v, g, bias)
+        cases = (
+            (att.fused_attention_cuda, att.attention_natural_ref, (q, k, v, bias, HEADS), "fwd", None),
+            (att.fused_attention_dropout_cuda, att.attention_dropout_ref,
+             (q, k, v, bias, HEADS, rate, seed), "drop", None),
+            (att.fused_attention_bwd_cuda, att.attention_bwd_ref, (q, k, v, bias, g, HEADS),
+             "fwd_bwd", "fwd"),
+            (att.fused_attention_dropout_bwd_cuda, att.attention_dropout_bwd_ref,
+             (q, k, v, bias, g, HEADS, rate, seed), "drop_fwd_bwd", "drop"),
+        )
+        for kernel, plain, args, lib_all, lib_less in cases:
+            got, want = kernel(*args), plain(*args)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            err = max((a.float() - w.float()).abs().max().item() for a, w in pairs)
+            call = lambda: kernel(*args)  # noqa: E731
+            name = kernel.__name__.removesuffix("_cuda")
+            bound, by = _bound_ms(name, b, 56, 56, 2)
+            lib_us = cuda_ms(lib[lib_all], iters=iters) * 1e3
+            lib_dev = device_us(lib[lib_all], iters, match=None)
+            if lib_less:
+                lib_us -= cuda_ms(lib[lib_less], iters=iters) * 1e3
+                less = device_us(lib[lib_less], iters, match=None)
+                lib_dev = None if lib_dev is None or less is None else lib_dev - less
+            print(f"bfloat16 B={b} 56x56 uniter-mask {kernel.__name__}: {cuda_ms(call, iters=iters) * 1e3:.1f} "
+                  f"us per call, device {_device(device_us(call, iters))}, bound {bound * 1e3:.1f} us ({by}), "
+                  f"max|kernel-plain| {err:.3e}; sdpa {lib_us:.1f} us, device {_device(lib_dev)}", flush=True)
+        del q, k, v, g, bias, lib
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

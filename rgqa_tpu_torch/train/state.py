@@ -2,10 +2,11 @@
 ``rgqa_tpu/checkpoint/orbax_io.py``).
 
 - ``<name>.pth``: the weights in the reference GQA ``.pth`` format
-  (GQA-LXMERT's ``lxrt_encoder.model.bert.*`` + ``logit_fc.*``, or
-  GQAViLT's ``transformer.*`` ... with fused ``attn.qkv``), which the
-  port's ``--load`` and the JAX package's ``import_lxmert_gqa`` /
-  ``import_vilt_gqa`` read.
+  (GQA-LXMERT's ``lxrt_encoder.model.bert.*`` + ``logit_fc.*``,
+  GQA-UNITER's ``encoder.model.uniter.*`` + ``logit_fc.*``, or GQAViLT's
+  ``transformer.*`` ... with fused ``attn.qkv``), which the port's
+  ``--load`` and the JAX package's ``import_lxmert_gqa`` /
+  ``import_uniter_gqa`` / ``import_vilt_gqa`` read.
 - ``<name>.state.pt``: beside it, what a resume needs besides the
   weights: the optimizer state (moments and step count), the step, and
   the generator states.

@@ -33,6 +33,8 @@ import torch
 from rgqa_tpu_torch.ops import attention as att
 from rgqa_tpu_torch.ops.dropout import keep_threshold
 
+from test_torch_attention_fwd_short import UNITER, _uniter_bias
+
 H, D = 12, 64
 E = H * D
 BOUNDS = {"dq": (3e-2, 1e-2), "dk": (3e-2, 1e-2), "dv": (3e-2, 1e-2), "dbias": (1e-3, 1e-4)}
@@ -181,7 +183,11 @@ CARD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (3e-2, 1e-2)}
 
 
 def _card_inputs(cuda, b, sq, skv, dtype, seed=0):
+    """As the model hands them; at UNITER's shape its mask (the text pads
+    of each question between its words and the image keys)."""
     q, k, v, g, bias = _inputs(b, sq, skv, seed=seed)
+    if (sq, skv) == UNITER:
+        bias = _uniter_bias(b, seed)
     tq, tk, tv, tg = (torch.from_numpy(a).to(cuda, getattr(torch, dtype)) for a in (q, k, v, g))
     if sq == skv:  # self-attention: column views of one fused QKV product
         tq, tk, tv = torch.cat([tq, tk, tv], dim=-1).split(E, dim=-1)
@@ -222,7 +228,7 @@ def test_short_bwd_kernels_match_plain_at_ragged_lengths_on_card(cuda, sq, skv, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [64, 256])
-@pytest.mark.parametrize("sq,skv", [(20, 20), (36, 36), (20, 36), (36, 20)])
+@pytest.mark.parametrize("sq,skv", [(20, 20), (36, 36), (20, 36), (36, 20), UNITER])
 def test_short_bwd_kernels_match_plain_at_training_batches_on_card(cuda, sq, skv, batch):
     # The blocks' heads-per-block variant at LXMERT's shapes and the
     # batches the training step (32 + RP) and the smoke time.

@@ -41,6 +41,10 @@ E = H * D
 ATOL, RTOL = 3e-2, 1e-2  # bf16: the body rounds P to bf16 where the plain version keeps f32
 RATE, SEED = 0.1, 2**40 + 3
 SHAPES = [(20, 20), (36, 36), (20, 36), (36, 20)]
+# UNITER's single stream, 20 text tokens + 36 RoI features.  On the card
+# its keys are masked as UNITER's are (``_uniter_bias``): each question's
+# text pads sit between its words and the image tokens.
+UNITER, UNITER_TEXT = (56, 56), 20
 WARP_ROWS = 16  # query rows of a warp's strip
 
 
@@ -193,10 +197,25 @@ CARD_TOL = {"float32": (2e-5, 0.0), "bfloat16": (ATOL, RTOL)}
 DROP_TOL = {"float32": (1e-4, 0.0), "bfloat16": (ATOL, RTOL)}
 
 
+def _uniter_bias(b, seed=0):
+    """(B, 56) -10000 mask of UNITER's stream: question lengths 4-20, the
+    pads after each question masked, the 36 image keys kept; row b // 2
+    fully masked."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones((b, UNITER[1]), np.float32)
+    lengths = rng.integers(4, UNITER_TEXT + 1, b)
+    mask[:, :UNITER_TEXT] = np.arange(UNITER_TEXT)[None, :] < lengths[:, None]
+    mask[b // 2] = 0.0
+    return (1.0 - mask) * -10000.0
+
+
 def _card_inputs(cuda, b, sq, skv, dtype, e=CARD_E, seed=0):
     """q, k, v as the model hands them: column views of one fused QKV
-    product (Sq == Skv) or q alone and k, v views of a KV product."""
+    product (Sq == Skv) or q alone and k, v views of a KV product; at
+    UNITER's shape its mask."""
     q, k, v, bias = _inputs(b, sq, skv, e=e, seed=seed)
+    if (sq, skv) == UNITER:
+        bias = _uniter_bias(b, seed)
     tq, tk, tv = (torch.from_numpy(a).to(cuda, getattr(torch, dtype)) for a in (q, k, v))
     if sq == skv:
         tq, tk, tv = torch.cat([tq, tk, tv], dim=-1).split(e, dim=-1)
@@ -235,7 +254,7 @@ def test_short_fwd_kernels_match_plain_at_ragged_lengths_on_card(cuda, sq, skv, 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [256, 64, 7])
-@pytest.mark.parametrize("sq,skv", SHAPES)
+@pytest.mark.parametrize("sq,skv", SHAPES + [UNITER])
 def test_short_fwd_kernels_match_plain_at_model_batches_on_card(cuda, sq, skv, batch):
     _check_pair(*_card_inputs(cuda, batch, sq, skv, "bfloat16", seed=batch + sq), CARD_H, "bfloat16")
 
@@ -251,7 +270,7 @@ def test_short_fwd_kernels_take_any_head_count_on_card(cuda, heads, sq, skv):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,skv", SHAPES)
+@pytest.mark.parametrize("sq,skv", SHAPES + [UNITER])
 def test_short_fwd_dropout_mask_reads_out_on_card(cuda, sq, skv):
     # q = k = 0 gives a uniform P, and a one-hot V reads the mask out:
     # out[b, i, h*D + j] = keep(b, h, i, j) * keep_scale / Skv.

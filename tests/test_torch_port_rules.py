@@ -4,7 +4,8 @@
   JAX package, the JAX experiments (``experiments/``), jax, jaxlib, flax
   or orbax (an AST scan; the blocked-import subprocesses of
   ``tests/test_torch_slice.py`` and of this file import every module of
-  the port and run the LXMERT and ViLT train and evaluate CLIs, the serve
+  the port and run the LXMERT and ViLT train and evaluate CLIs, the
+  UNITER evaluate CLI, the serve
   and prepare-data CLIs and the three experiment entry points with all of
   them blocked).
 - Every CUDA source under ``csrc/`` is in the build's ``SOURCES``, and
@@ -12,12 +13,15 @@
   ``ops.attention`` and of ``rgqa_tpu_torch.experiments``, with its
   source and the TPU kernel it replaces.
 - The entry points run on the card unless asked for the CPU: without a
-  card the runner, ``build_model`` and the train, evaluate and serve CLIs
-  raise when not given the CPU (prepare-data runs no device code).
+  card the runner, ``build_model`` (LXMERT, UNITER and ViLT) and the
+  train, evaluate and serve CLIs raise when not given the CPU
+  (prepare-data runs no device code).
 - The port's copies of framework-free JAX-package modules are held to
   their originals on the same inputs: the config parser (equal
-  ``dataclasses.asdict``), the metrics (equal dicts, byte-equal dumps) and
-  the checkpoint key map (equal lists, equal loads).
+  ``dataclasses.asdict``), the metrics (equal dicts, byte-equal dumps),
+  the checkpoint key maps (equal lists, equal loads; UNITER's in
+  ``tests/test_torch_uniter.py``) and ``cli/plot_attention.py`` (the same
+  figures, byte for byte, in ``tests/test_torch_uniter_slice.py``).
 """
 
 from __future__ import annotations
@@ -120,6 +124,18 @@ def test_vilt_train_runs_with_jax_blocked(tmp_path):
         assert os.path.isfile(os.path.join(out, name)), name
 
 
+def test_uniter_evaluate_runs_with_jax_blocked(tmp_path):
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    res = _run_jax_free("cli.evaluate", ["--synthetic", "--data_root", root, "--test", "testdev",
+                                         "--output", out, "--backbone", "uniter", "--scorer", "odin",
+                                         "--fp32", "--num_layers", "1", "--hidden_size", "32",
+                                         "--num_heads", "4", "--batchSize", "16", "--device", "cpu"],
+                        tmp_path)
+    assert {"rgqa_tpu_torch.models.uniter", "rgqa_tpu_torch.cli.plot_attention"} <= set(res["modules"])
+    assert {"auaf", "fpr@0.95acc", "full_acc"} <= set(res["keys"])
+    assert os.path.isfile(os.path.join(out, "testdev_predict.json"))
+
+
 def test_serve_runs_with_jax_blocked(tmp_path):
     from test_torch_slice import TINY_FLAGS
 
@@ -205,7 +221,7 @@ def no_card():
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
     from rgqa_tpu_torch.cli import evaluate, serve, train
-    from rgqa_tpu_torch.models.zoo import build_model
+    from rgqa_tpu_torch.models.zoo import build_model, default_config
     from rgqa_tpu_torch.runner import GQARunner
 
     cfg, ns = port_config.parse_cli(["--data_root", str(tmp_path / "gqa"), "--synthetic",
@@ -215,6 +231,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
         lambda: GQARunner(cfg),
         lambda: GQARunner(cfg, init_train=False),
         lambda: build_model(cfg.model),
+        lambda: build_model(default_config("uniter")),
+        lambda: build_model(default_config("vilt")),
         lambda: train.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
                             "--output", str(tmp_path / "t")]),
         lambda: evaluate.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
