@@ -247,7 +247,37 @@ nonzero:
    short bf16 bodies' registers and spills (kNT 8: 37-64 keys, UNITER's
    56) and phase 3 checks #1 / #3 / #4 / #5 at 56x56 under UNITER's mask
    (and #4's mask at 56 keys) as at LXMERT's shapes.
-23. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+23-27. BUTD and the caption matcher, full width.  BUTD
+   (GloVe-300 rows at random init, a GRU-1024 over 40 front-padded
+   tokens, 36 RoIs of 2048 + 4, the 2 x 1024 classifier over the root's
+   answers) keeps f32 weights and products, no TF32, and launches none
+   of the attention kernels (each of its phases asserts every count 0):
+   23, its forward at batch 256 held to the same weights on the CPU
+   (labels agree on ``BUTD_MIN_AGREEMENT`` of the rows, confidences
+   within ``BUTD_CONF_TOL``); 24, the train CLI (RP, batch 32, the
+   model's dropouts) whose ``BEST.pth`` is in GQA-BUTD's key format and
+   loads back with no key missing or unused; 25, the evaluate CLI with
+   msp, energy, ODIN, Mahalanobis (fitted, then read back), MC-dropout,
+   ``--branched`` and an ensemble (``--load BEST.pth,LAST.pth``) from
+   that run (a seeded branched ``.pth`` for ``--branched``), each re-scored by the same runner's options on
+   the CPU (``BUTD_SCORE_TOL`` plus the 4 dp step; Mahalanobis and
+   MC-dropout hold their answers and a rerun's JSON bit for bit, as
+   the CPU's dropout draws are not the card's), and one serve wave.
+   The caption matcher (BERT-base, 12 x 768 over 20 tokens of
+   ``[CLS] caption [SEP] question [SEP]``, pads at the end of the keys),
+   bf16: 26, training steps as phases 8-9 (batch 32, no RP, the binary
+   loss; 12 launches of #1 and #3 a step at dropout 0 with the losses
+   held to the plain versions' within ``CAPS_LOSS_RTOL``, 12 of #4 and
+   #5 at 0.1); 27, the train
+   CLI ``--strategy caption`` on the train split and its UQ pairs
+   (dropout 0.1: 12 of #4 and #5 a step, 12 of #1 a validation
+   forward), its ``LAST.pth`` a trained GQABERT
+   (``encoder.*`` + ``logit_fc.*``); then the evaluate CLI ``--scorer
+   caption --load <LAST.pth> --load_gqa <BUTD's BEST.pth> --ans_backbone
+   butd`` (12 of #1 a matcher forward, none else), re-scored through the
+   plain versions (answers equal, confidences within ``CONF_TOL``).
+   Their times: ``tools.profile_forward --backbone butd | caps``.
+28. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -313,6 +343,12 @@ MIN_LABEL_AGREEMENT = 0.9
 # the BCE loss is the mean over 64 rows of a sum over 1842 answers (~1e3),
 # and such per-logit errors of either sign move it by ~1e-4 relative.
 LOSS_RTOL = 1e-3
+# The caption matcher's binary loss is the mean over 32 rows of ONE
+# logit's BCE (~1): nothing averages a row's bf16 logit error (up to
+# LOGIT_TOL, slope |sigmoid - target| <= 1) away but the 32 rows, so
+# errors of either sign move it by ~LOGIT_TOL / sqrt(32) ~ 2e-2 relative;
+# 2.0e-3 measured on the H100, the first step 6e-4.
+CAPS_LOSS_RTOL = 1e-2
 # Attention backward launches per training step: 34 forward calls, but the
 # last cross layer's vision stream (its vis <- lang cross call and its
 # vision self call) feeds nothing the loss reads (the answer head pools the
@@ -1208,7 +1244,8 @@ def phase_vilt_model():
 
 def _train_batches(cfg, n: int, b: int = 32):
     """``n`` full-width batches with padded text and one-hot targets (ViLT:
-    the u8 wire with padded rects)."""
+    the u8 wire with padded rects; the caption matcher: pairs, segment 1
+    from the question on, a third of the rows unanswerable)."""
     import numpy as np
     from rgqa_tpu_torch.data.batching import to_device
     from rgqa_tpu_torch.models.zoo import example_batch
@@ -1220,8 +1257,22 @@ def _train_batches(cfg, n: int, b: int = 32):
         target = np.zeros((b, cfg.num_answers), np.float32)
         target[np.arange(b), rng.integers(0, cfg.num_answers, b)] = 1.0
         batch.update(target=target, id_mask=np.ones(b, np.float32))
+        if cfg.backbone == "caps":
+            batch.update(_caps_pairs(batch, rng), id_mask=(np.arange(b) % 3 != 0).astype(np.float32))
         out.append(to_device(batch, "cuda"))
     return out
+
+
+def _caps_pairs(batch: dict, rng) -> dict:
+    """Segment ids of ``[CLS] caption [SEP] question [SEP]`` pairs over a
+    padded batch: 1 from a caption of 3-7 pieces on, to the last real
+    token."""
+    import numpy as np
+
+    mask = batch["input_mask"]
+    cap = rng.integers(3, 8, mask.shape[0])
+    seg = (np.arange(mask.shape[1])[None, :] >= cap[:, None] + 2) & (mask == 1)
+    return {"segment_ids": seg.astype(np.int32)}
 
 
 def _train_model(dropout: float, backbone: str, patch: int | None = None):
@@ -1231,6 +1282,8 @@ def _train_model(dropout: float, backbone: str, patch: int | None = None):
     cfg = default_config(backbone)
     if backbone == "vilt":
         cfg = dataclasses.replace(cfg, max_text_len=VILT_TRAIN_TEXT)
+    if backbone == "caps":
+        cfg = dataclasses.replace(cfg, num_answers=1)  # the match logit
     if patch is not None:
         cfg = dataclasses.replace(cfg, vilt_patch_size=patch)
     cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
@@ -1242,9 +1295,10 @@ def _train_model(dropout: float, backbone: str, patch: int | None = None):
     return cfg, model, forward
 
 
-def _run_steps(model, forward, init, batches, use_fused, steps=None):
-    """Steps from ``init`` with a fresh BertAdam; (losses, ms per step of
-    the steps after the first ``len(batches)``)."""
+def _run_steps(model, forward, init, batches, use_fused, steps=None, binary=False):
+    """Steps from ``init`` with a fresh BertAdam, RP pairs or (``binary``,
+    the caption strategy) the binary loss; (losses, ms per step of the
+    steps after the first ``len(batches)``)."""
     import torch
     from rgqa_tpu_torch.config import OptimConfig
     from rgqa_tpu_torch.ops.dropout import DropoutRng
@@ -1256,7 +1310,8 @@ def _run_steps(model, forward, init, batches, use_fused, steps=None):
     opt = make_optimizer(OptimConfig(), model.parameters(), t_total=steps)
     rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
                      host=torch.Generator().manual_seed(1))
-    step = make_train_step(forward, opt, sample_pair=True, rng=rng, use_fused=use_fused)
+    step = make_train_step(forward, opt, sample_pair=not binary, binary=binary, rng=rng,
+                           use_fused=use_fused)
     losses = [step(batch)["loss"] for batch in batches]
     torch.cuda.synchronize()
     ms = None
@@ -1277,7 +1332,7 @@ def _step_launches(backbone: str, dropout: float) -> dict:
     want = {name: 0 for name in KERNELS}
     if backbone == "vilt":
         want.update({"fused_attention_long": 12, "fused_attention_long_bwd": 12})
-    elif backbone == "uniter":
+    elif backbone in ("uniter", "caps"):
         # Every layer's keys feed the pooled CLS: 12 backward calls too.
         pair = ("fused_attention", "fused_attention_bwd") if dropout == 0.0 else (
             "fused_attention_dropout", "fused_attention_dropout_bwd")
@@ -1297,16 +1352,18 @@ def phase_train_steps(backbone: str = "lxmert", patch: int | None = None,
     import torch
 
     phase = phase or ("train" if backbone == "lxmert" else f"{backbone}-train")
-    rows = 64  # batch 32 plus its 32 RP pairs
+    binary = backbone == "caps"  # the caption strategy: no RP, the binary loss
+    rows = 32 if binary else 64  # batch 32 plus its 32 RP pairs
+    loss_rtol = CAPS_LOSS_RTOL if binary else LOSS_RTOL
     result = {}
     for dropout in dropouts:
         cfg, model, forward = _train_model(dropout, backbone, patch)
         batches = _train_batches(cfg, n)
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         reset_counts()
-        k_losses, _ = _run_steps(model, forward, init, batches, None)
+        k_losses, _ = _run_steps(model, forward, init, batches, None, binary=binary)
         counts = read_counts()
-        p_losses, _ = _run_steps(model, forward, init, batches, False)
+        p_losses, _ = _run_steps(model, forward, init, batches, False, binary=binary)
         if read_counts() != counts:
             raise AssertionError("the plain steps launched a kernel")
         per_step = {name: c / n for name, c in counts.items()}
@@ -1315,19 +1372,19 @@ def phase_train_steps(backbone: str = "lxmert", patch: int | None = None,
         if not all(math.isfinite(x) for x in k_losses + p_losses):
             raise AssertionError(f"non-finite losses {k_losses} {p_losses}")
         # Time in turns: plain, kernels, kernels, plain.
-        t = [_run_steps(model, forward, init, batches, fused, n + timed)[1]
+        t = [_run_steps(model, forward, init, batches, fused, n + timed, binary=binary)[1]
              for fused in (False, None, None, False)]
         plain_ms, kernel_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-        log(phase, f"dropout {dropout}: batch 32 + RP ({rows} rows), {n} steps from one init: "
+        log(phase, f"dropout {dropout}: batch 32{'' if binary else ' + RP'} ({rows} rows), {n} steps from one init: "
             f"launches per step {per_step}; losses kernels {[round(x, 4) for x in k_losses]}, "
             f"plain {[round(x, 4) for x in p_losses]}, max relative gap {max(rel):.3e}"
-            + (f" (bound {LOSS_RTOL:.0e})" if dropout == 0.0 else " (same masks: the same seeds and bytes)"))
+            + (f" (bound {loss_rtol:.0e})" if dropout == 0.0 else " (same masks: the same seeds and bytes)"))
         log(phase, f"dropout {dropout}: ms per step (mean of {timed} after {n} warm-up, in turns) "
             f"kernels {kernel_ms:.3f} ({rows * 1e3 / kernel_ms:.1f} rows/s), plain {plain_ms:.3f} "
             f"({rows * 1e3 / plain_ms:.1f} rows/s)")
         if per_step != want:
             raise AssertionError(f"launches per step {per_step}, want {want}")
-        if dropout == 0.0 and not max(rel) <= LOSS_RTOL:
+        if dropout == 0.0 and not max(rel) <= loss_rtol:
             raise AssertionError(f"dropout-off losses of the kernels and the plain versions differ by {max(rel)}")
         result[dropout] = (counts, kernel_ms, plain_ms)
         del model, forward, batches, init
@@ -2491,6 +2548,374 @@ def phase_uniter() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 23-27: BUTD and the caption matcher.
+# ---------------------------------------------------------------------------
+
+CAPS_PER_FORWARD = 12  # one self-attention a layer over the 20-token pair
+# BUTD on the card against the same weights on the CPU, both f32 without
+# TF32: the order of the sums and cuDNN's gate arithmetic differ, and the
+# GRU carries the difference through its 40 steps: 1.2e-5 on logits of
+# up to 0.1, 1.7e-5 on the pooled feature, 3.0e-6 on the confidences at
+# batch 256 on the H100 (weights of unit-norm rows, _spread_butd).  The
+# bounds leave a tenfold margin.
+BUTD_MIN_AGREEMENT = 0.99
+BUTD_LOGIT_TOL = 1e-4
+BUTD_CONF_TOL = 3e-5
+# (atol, rtol) of a BUTD scorer's scores, card against CPU: the logit
+# bound through each scorer's slope (sigmoid <= 1/4, softplus <= 1 on two
+# logits, ODIN's sigmoid(l / T) 1 / (4 T), plus phase 15's sign-flip term).
+BUTD_SCORE_TOL = {
+    "msp": (BUTD_CONF_TOL, 0.0), "branched": (BUTD_CONF_TOL, 0.0), "ensemble": (BUTD_CONF_TOL, 0.0),
+    "energy": (2 * BUTD_LOGIT_TOL, 0.0), "odin": (LOGIT_TOL / (2 * ODIN_T), 0.0),
+}
+
+
+def _no_launches(phase: str, what: str) -> None:
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: {what} launched an attention kernel: {counts}")
+
+
+def _spread_butd(ref: dict) -> dict:
+    """A GQA-BUTD state_dict with each weight-normed layer's gain ``g``
+    times sqrt(its output width): rows of unit norm.  At BUTD's init
+    (``g`` = 1, the whole matrix of unit norm) a random or briefly
+    trained model's logits are ~1e-4, its confidences 0.5 to 4 dp, and
+    no check would see a difference."""
+    return {k: (v * math.sqrt(ref[k[: -len("g")] + "v"].shape[0]) if k.endswith("weight_g") else v)
+            for k, v in ref.items()}
+
+
+def _front_padded(batch: dict, pad: int, seed: int) -> dict:
+    """BUTD's questions front-padded to 40 tokens, 3-20 words each."""
+    import numpy as np
+
+    ids = batch["token_ids"].copy()
+    lengths = np.random.default_rng(seed).integers(3, 21, ids.shape[0])
+    ids[np.arange(ids.shape[1])[None, :] < ids.shape[1] - lengths[:, None]] = pad
+    return dict(batch, token_ids=ids)
+
+
+def phase_butd_model() -> None:
+    """BUTD's forward at full width, batch 256, on the card against the
+    same weights on the CPU (phase 23)."""
+    import torch
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
+
+    phase = "butd-model"
+    cfg = default_config("butd")
+    t0 = time.perf_counter()
+    model, forward = build_model(cfg, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():  # unit-norm rows (see _spread_butd)
+        for mod in model.modules():
+            if hasattr(mod, "g") and hasattr(mod, "v"):
+                mod.g.fill_(math.sqrt(mod.v.shape[0]))
+    cpu_model, cpu_forward = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    n_params = sum(p.numel() for p in model.parameters())
+    log(phase, f"ButdForGQA: GRU {cfg.butd_hidden_dim} over 40 tokens, embeddings {cfg.butd_embed_dim} x "
+        f"{cfg.butd_vocab_size + 1}, {cfg.encoder.num_objects} RoIs x {cfg.encoder.visual_feat_dim} + 4, "
+        f"{cfg.num_answers} answers; {n_params} params in f32, built in {time.perf_counter() - t0:.2f} s")
+    batch = _front_padded(example_batch(cfg, 256, seed=0), cfg.butd_vocab_size, 1)
+    card = to_device(batch, "cuda")
+    reset_counts()
+    tf32 = torch.backends.cudnn.allow_tf32
+    with torch.inference_mode():
+        out = forward(card)
+        torch.cuda.synchronize()
+        # PyTorch's default lets cuDNN's GRU round to TF32: the model turns
+        # it off for itself, so the same call gives the same bits.
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            again = forward(card)
+            torch.cuda.synchronize()
+            reset_flag = torch.backends.cudnn.allow_tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        ms = cuda_ms(lambda: forward(card), iters=20, warmup=3)
+        _no_launches(phase, "the forward")
+        ref = cpu_forward(to_device(batch, "cpu"))
+    logits, want = out["logits"].float().cpu(), ref["logits"]
+    if logits.shape != (256, cfg.num_answers) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{phase}: logits {tuple(logits.shape)} not finite / wrong shape")
+    dlogit = (logits - want).abs().max().item()
+    dpooled = (out["pooled"].cpu() - ref["pooled"]).abs().max().item()
+    agree = (logits.argmax(-1) == want.argmax(-1)).float().mean().item()
+    dconf = (torch.sigmoid(logits).amax(-1) - torch.sigmoid(want).amax(-1)).abs().max().item()
+    same = torch.equal(again["logits"], out["logits"])
+    log(phase, f"card vs CPU (f32, same weights): labels agree on {agree:.4f} (want >= {BUTD_MIN_AGREEMENT}), "
+        f"max|logits diff| {dlogit:.3e} (bound {BUTD_LOGIT_TOL:.0e}, max|logit| "
+        f"{want.abs().max().item():.3f}), max|pooled diff| {dpooled:.3e}, max|confidence diff| {dconf:.3e} "
+        f"(bound {BUTD_CONF_TOL:.0e}); with cuDNN's TF32 on the call gives the same bits: {same}, "
+        f"the switch restored: {reset_flag}; {ms:.3f} ms per forward ({256e3 / ms:.1f} q/s); "
+        "no attention kernel launched")
+    if not (agree >= BUTD_MIN_AGREEMENT and dlogit <= BUTD_LOGIT_TOL and dconf <= BUTD_CONF_TOL):
+        raise AssertionError(f"{phase}: the card disagrees with the CPU")
+    if not same or not reset_flag:
+        raise AssertionError(f"{phase}: the forward's products follow the global TF32 switch")
+    del model, forward, card, out, again
+    torch.cuda.empty_cache()
+
+
+def phase_butd_train(tmp: str, root: str) -> str:
+    """The BUTD train CLI (RP, batch 32): its ``BEST.pth`` in GQA-BUTD's
+    key format, loaded back whole (phase 24).  Returns its path."""
+    import torch
+    from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.runner import GQARunner
+
+    phase = "butd-train"
+    out_dir = os.path.join(tmp, "butd_snap")
+    argv = ["--backbone", "butd", "--synthetic", "--data_root", root, "--sample_pair", "--epochs", "1",
+            "--batchSize", "32", "--output", out_dir]
+    reset_counts()
+    t0 = time.perf_counter()
+    history = train_cli.main(argv)
+    torch.cuda.synchronize()
+    log(phase, f"train CLI ({' '.join(argv)}) in {time.perf_counter() - t0:.2f} s: history {history}")
+    _no_launches(phase, "the train CLI")
+    if not all(math.isfinite(x) for x in history["loss"]):
+        raise AssertionError(f"{phase}: non-finite training loss {history['loss']}")
+    best = os.path.join(out_dir, "BEST.pth")
+    for name in ("BEST.pth", "LAST.pth", "LAST.state.pt"):
+        if not os.path.isfile(os.path.join(out_dir, name)):
+            raise AssertionError(f"{phase}: the BUTD train CLI wrote no {name}")
+    ref = torch.load(best, map_location="cpu", weights_only=True)
+    if ("w_emb.emb.weight" not in ref or ref["q_enc.rnn.weight_hh_l0"].shape != (3072, 1024)
+            or ref["ans_classifier.3.weight_g"].shape != ()):
+        raise AssertionError(f"{phase}: BEST.pth is not in GQA-BUTD's key format: {sorted(ref)[:4]}")
+    sd, missing, unused = load_reference_pth(best, backbone="butd")
+    cfg, _ = parse_cli([*argv, "--load", best])
+    loaded = GQARunner(cfg, init_train=False).model.state_dict()
+    if missing or unused or loaded.keys() != sd.keys() or any(
+            not torch.equal(loaded[k].cpu(), v) for k, v in sd.items()):
+        raise AssertionError(f"{phase}: BEST.pth loads back with missing {missing}, unused {unused}, "
+                             "or into other weights")
+    log(phase, f"BEST.pth in GQA-BUTD's key format ({len(ref)} tensors: w_emb.emb.weight "
+        f"{tuple(ref['w_emb.emb.weight'].shape)}, q_enc.rnn.*_l0, weight_g 0-d / weight_v / bias), "
+        "loads back with no key missing or unused")
+    return best
+
+
+def _cpu_rescore(phase, argv, root, rows, kind) -> None:
+    """Re-score the split as the CLI run ``argv`` did (its options, its
+    weights, the same ``sample_estimates.pkl``) on the CPU; hold the
+    answers to ``BUTD_MIN_AGREEMENT`` (ODIN's to ``MIN_LABEL_AGREEMENT``:
+    where an input gradient is round-off, its sign, and with it the
+    perturbed input, differs between the two devices, and a near tie can
+    change its answer; 1 of 64 did on the H100) and, unless ``kind`` is
+    None, the confidences to ``BUTD_SCORE_TOL[kind]`` plus the 4 dp step."""
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    cfg, _, plan = evaluate.parse_args(argv)
+    runner = evaluate.make_runner(cfg, "cpu", plan["scorer"])
+    encoded = runner._encode(GQADataset(root, "testdev", add_uq=True))
+    if plan["scorer"] == "ensemble":
+        path = os.path.join(cfg.output, "cpu_predict.json")
+        runner.ensemble_ood_evaluate(encoded, plan["ensemble"], dump=path)
+        with open(path) as f:
+            plain = {p["questionId"]: (p["prediction"], p["confidence"]) for p in json.load(f)}
+    else:
+        plain = runner.score_split(encoded)
+    if sorted(plain) != sorted(rows):
+        raise AssertionError(f"{phase}: the CPU re-score scored other questions")
+    agree = sum(rows[q][0] == a for q, (a, _) in plain.items()) / len(plain)
+    dconf = max(abs(rows[q][1] - c) for q, (_, c) in plain.items())
+    if kind is None:
+        excess, bound = -math.inf, "answers held"
+    else:
+        atol, rtol = BUTD_SCORE_TOL[kind]
+        atol += 1e-4  # the prediction JSON's 4 dp
+        excess = max(abs(rows[q][1] - c) - atol - rtol * abs(c) for q, (_, c) in plain.items())
+        bound = f"bound {atol:.1e} + {rtol:.0e} |cpu|; worst excess {excess:.3e}"
+    min_agree = MIN_LABEL_AGREEMENT if kind == "odin" else BUTD_MIN_AGREEMENT
+    log(phase, f"vs the CPU: answers agree on {agree:.4f} (want >= {min_agree}), "
+        f"max|confidence diff| {dconf:.3e} ({bound})")
+    if agree < min_agree or excess > 0:
+        raise AssertionError(f"{phase}: the card's answers disagree with the CPU's")
+
+
+def phase_butd_scorers(tmp: str, root: str, best: str) -> None:
+    """The BUTD evaluate CLI with each scorer, batch 256, and a serve wave
+    (phase 25)."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.cli.serve import serve_lines
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.runner import GQARunner
+
+    phase = "butd-scorers"
+    butd = ["--backbone", "butd", "--synthetic", "--data_root", root, "--test", "testdev", "--batchSize", "256"]
+    cfg, _ = parse_cli([*butd, "--branched", "--seed", "2", "--output", os.path.join(tmp, "butd_branched")])
+    branched = GQARunner(cfg, init_train=False).save("branched")
+    last = best.replace("BEST.pth", "LAST.pth")
+    for path in (best, last, branched):  # unit-norm rows: confidences apart from 0.5
+        spread = path.replace(".pth", "_spread.pth")
+        torch.save(_spread_butd(torch.load(path, map_location="cpu", weights_only=True)), spread)
+    best, last, branched = (p.replace(".pth", "_spread.pth") for p in (best, last, branched))
+    zero = {k: 0 for k in KERNELS}
+    runs = [
+        ("msp", "msp", ["--scorer", "msp", "--load", best]),
+        ("energy", "energy", ["--scorer", "energy", "--load", best]),
+        ("odin", "odin", ["--scorer", "odin", "--temperature", str(ODIN_T), "--noise", str(ODIN_NOISE),
+                          "--load", best]),
+        ("maha", None, ["--scorer", "maha", "--load", best]),
+        ("maha-cached", None, ["--scorer", "maha", "--load", best]),
+        ("dropout", None, ["--scorer", "dropout", "--seed_list", ",".join(map(str, SEED_LIST)), "--load", best]),
+        ("dropout-again", None, ["--scorer", "dropout", "--seed_list", ",".join(map(str, SEED_LIST)),
+                                 "--load", best]),
+        ("branched", "branched", ["--branched", "--scorer", "branched", "--load", branched]),
+        ("ensemble", "ensemble", ["--load", f"{best},{last}"]),
+    ]
+    scored = {}
+    for name, kind, extra in runs:
+        out_dir = os.path.join(tmp, "butd_out_" + name.split("-")[0])
+        argv = [*butd, *extra, "--output", out_dir]
+        reset_counts()
+        t0 = time.perf_counter()
+        results = evaluate.main(argv)["testdev"]
+        torch.cuda.synchronize()
+        rows = _check_scored_outputs(phase, out_dir, root, results, argv, time.perf_counter() - t0,
+                                     read_counts(), zero)
+        if name.endswith(("-cached", "-again")):
+            if rows != scored[name.split("-")[0]]:
+                raise AssertionError(f"{phase}: {name} changed the predictions")
+            log(phase, f"{name}: the same prediction JSON as the first run")
+            continue
+        scored[name] = rows
+        if name != "dropout":
+            _cpu_rescore(phase, argv, root, rows, kind)
+    if all(scored["dropout"][q][1] == c for q, (_, c) in scored["msp"].items()):
+        raise AssertionError(f"{phase}: MC-dropout scored as msp: the dropout did not run")
+
+    lines, good = _serve_stream(root)
+    argv = [*butd, "--scorer", "msp", "--load", best, "--wave_timeout", "0", "--serve_stats",
+            "--output", os.path.join(tmp, "butd_serve")]
+    reset_counts()
+    t0 = time.perf_counter()
+    out, stats, _ = serve_lines(argv, lines)
+    torch.cuda.synchronize()
+    answers = _served("serve butd", lines, out, stats, good)
+    _no_launches(phase, "serve")
+    # Record s<i> asks testdev's question i mod the split's length.
+    with open(os.path.join(root, "testdev.json")) as f:
+        qids = [r["question_id"] for r in json.load(f)]
+    msp = {f"s{i:06d}": scored["msp"][qids[i % len(qids)]] for i in range(SERVE_RECORDS)}
+    pairs = [(a, msp[a["questionId"]]) for a in answers if a["questionId"] in msp]
+    agree = sum(a["prediction"] == p for a, (p, _) in pairs)
+    dconf = max(abs(a["confidence"] - c) for a, (_, c) in pairs)
+    n = len(pairs)
+    log(phase, f"serve msp ({' '.join(argv)}) in {time.perf_counter() - t0:.2f} s: {len(out)} lines, "
+        f"{len(good)} answered; latency {stats}; vs the evaluate CLI's msp: answers agree on {agree} of "
+        f"{n}, max|confidence diff| {dconf:.3e} (bound {BUTD_CONF_TOL:.0e} + 1e-4, the 4 dp step)")
+    if agree < BUTD_MIN_AGREEMENT * n or not dconf <= BUTD_CONF_TOL + 1e-4:
+        raise AssertionError(f"{phase}: serve answers otherwise than the evaluate CLI")
+    torch.cuda.empty_cache()
+
+
+def phase_caps_path(tmp: str, root: str, butd_best: str) -> None:
+    """The caption-strategy train CLI on the train split and its UQ
+    pairs (a third of the rows unanswerable, so the matcher's confidences
+    spread), then ``--scorer caption`` gating the BUTD answerer,
+    re-scored through the plain versions (phase 27)."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.runner import GQARunner
+
+    phase, per = "caps", CAPS_PER_FORWARD
+    out_dir = os.path.join(tmp, "caps_snap")
+    argv = ["--backbone", "caps", "--strategy", "caption", "--synthetic", "--data_root", root,
+            "--train", "train,train_uq", "--epochs", "1", "--batchSize", "32", "--output", out_dir]
+    reset_counts()
+    t0 = time.perf_counter()
+    history = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cfg, _ = parse_cli(argv)
+    steps = len(GQADataset(root, cfg.data.train_splits)) // 32
+    valid = math.ceil(len(GQADataset(root, cfg.data.valid_splits)) / 32)
+    log(phase, f"train CLI ({' '.join(argv)}) in {time.perf_counter() - t0:.2f} s: history {history}; "
+        f"launches {({k: v for k, v in launches.items() if v})}")
+    want = {**{k: 0 for k in KERNELS}, "fused_attention_dropout": per * steps,
+            "fused_attention_dropout_bwd": per * steps, "fused_attention": per * valid}
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, want {want} ({steps} steps, {valid} "
+                             "validation forwards)")
+    if not all(math.isfinite(x) for x in history["loss"]):
+        raise AssertionError(f"{phase}: non-finite training loss {history['loss']}")
+    last = os.path.join(out_dir, "LAST.pth")
+    keys = torch.load(last, map_location="cpu", weights_only=True)
+    if ("encoder.encoder.layer.11.attention.self.query.weight" not in keys
+            or keys["logit_fc.3.weight"].shape != (1, 1536)
+            or not all(k.startswith(("encoder.", "logit_fc.")) for k in keys)):
+        raise AssertionError(f"{phase}: LAST.pth is not a trained GQABERT: {sorted(keys)[:4]}")
+    log(phase, f"LAST.pth a trained GQABERT ({len(keys)} tensors, encoder.* + logit_fc.*, one match logit)")
+
+    eval_dir = os.path.join(tmp, "caps_eval")
+    eargv = ["--backbone", "caps", "--scorer", "caption", "--load", last, "--load_gqa", butd_best,
+             "--ans_backbone", "butd", "--synthetic", "--data_root", root, "--test", "testdev",
+             "--batchSize", "256", "--output", eval_dir]
+    forwards = math.ceil(len(GQADataset(root, "testdev", add_uq=True)) / 256)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = evaluate.main(eargv)["testdev"]
+    torch.cuda.synchronize()
+    rows = _check_scored_outputs(phase, eval_dir, root, results, eargv, time.perf_counter() - t0, read_counts(),
+                                 {**{k: 0 for k in KERNELS}, "fused_attention": per * forwards})
+    # The same matcher and answerer with every attention call through the
+    # plain version.
+    before = read_counts()
+    ecfg, device, plan = evaluate.parse_args(eargv)
+    runner = evaluate.make_runner(ecfg, device, plan["scorer"])
+    fused = runner.forward
+    runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
+    answerer = GQARunner(ecfg.replace(load=ecfg.load_gqa, model=plan["answerer_model"],
+                                      train=dataclasses.replace(ecfg.train, strategy="conf"),
+                                      output=os.path.join(tmp, "caps_plain_answerer")),
+                         init_train=False, device=device)
+    path = os.path.join(tmp, "caps_plain.json")
+    runner.gated_ood_evaluate(runner._encode(GQADataset(root, "testdev", add_uq=True)), answerer, dump=path)
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError(f"{phase}: the plain re-score launched a kernel")
+    with open(path) as f:
+        plain = {p["questionId"]: (p["prediction"], p["confidence"]) for p in json.load(f)}
+    same = all(rows[q][0] == a for q, (a, _) in plain.items()) and sorted(plain) == sorted(rows)
+    dconf = max(abs(rows[q][1] - c) for q, (_, c) in plain.items())
+    confs = sorted(c for _, c in rows.values())
+    log(phase, f"vs plain attention: the BUTD answerer's answers equal: {same}; match confidences "
+        f"{confs[0]:.4f}-{confs[-1]:.4f} ({len(set(confs))} distinct), max|diff| {dconf:.3e} (bound "
+        f"{CONF_TOL:.0e} + 1e-4, the 4 dp step); {per} launches of #1 per matcher forward x {forwards}")
+    if not same or not dconf <= CONF_TOL + 1e-4:
+        raise AssertionError(f"{phase}: the caption scorer disagrees with the plain re-score")
+    if len(set(confs)) < 2:
+        raise AssertionError(f"{phase}: every match confidence is {confs[0]}: the re-score would see nothing")
+    del runner, answerer, fused
+    torch.cuda.empty_cache()
+
+
+def phase_butd_caps() -> None:
+    """Phases 23-27."""
+    from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+
+    phase_butd_model()
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_butd_") as tmp:
+        root = os.path.join(tmp, "gqa")
+        make_synthetic_gqa(root)
+        best = phase_butd_train(tmp, root)
+        phase_butd_scorers(tmp, root, best)
+        phase_train_steps("caps", timed=6)
+        phase_caps_path(tmp, root, best)
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -2526,6 +2951,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="rgqa_smoke_serve_") as tmp:
         phase_serve(tmp, *phase_prepare(tmp))
     phase_uniter()
+    phase_butd_caps()
 
     launches = {
         "fused_attention": eval_launches,  # the evaluate path

@@ -1,5 +1,6 @@
 """Weights into the port: from the JAX package's flax trees and from
-reference GQA ``.pth`` checkpoints, for LXMERT, UNITER and ViLT.
+reference GQA ``.pth`` checkpoints, for LXMERT, UNITER, ViLT, BUTD and the
+caption matcher.
 
 The port's parameter names follow the flax tree, so a flax path maps to
 a port key by a plain rename (:func:`port_key`): path components joined
@@ -19,6 +20,16 @@ keeps ``query`` / ``key`` / ``value`` apart, split on load and fused on
 export.  GQA-UNITER checkpoints wrap the encoder as
 ``encoder.model.uniter.*`` beside ``logit_fc.*``; pretrained UNITER
 encoders come as ``uniter.*`` or ``bert.*``, without a head.
+GQA-BUTD checkpoints (``w_emb.emb.*``, ``q_enc.rnn.*_l0``, ...) hold
+each weight-normed layer as ``weight_g`` / ``weight_v`` / ``bias``
+(the port's ``g`` / ``v`` / ``b``); PyTorch's ``weight_norm(dim=None)``
+writes ``weight_g`` 0-d, older checkpoints with singleton dims: both
+load, and the port writes it 0-d.  The JAX tree's ``gru_*`` leaves are
+the port's ``torch.nn.GRU`` tensors ``gru.*_l0``.  The caption matcher
+loads a plain HF ``BertModel`` (``embeddings.*`` ...), a ``bert.``-
+prefixed task model or a trained GQABERT (``encoder.*`` + ``logit_fc.*``),
+or a directory holding ``pytorch_model.bin``, and is written as a
+trained GQABERT.
 """
 
 from __future__ import annotations
@@ -30,6 +41,10 @@ import numpy as np
 import torch
 
 from rgqa_tpu_torch.checkpoint.torch_import import (
+    bert_caps_key_map,
+    butd_key_map,
+    caps_checkpoint_file,
+    caps_layout,
     load_torch_state_dict,
     lxmert_key_map,
     uniter_key_map,
@@ -48,12 +63,18 @@ _STACK_NAME = {"lang": "lang_layers", "visn": "visn_layers", "x": "x_layers", "b
 _REF_ENCODER_PREFIX = "lxrt_encoder.model."
 _REF_TOP_LEVEL = ("logit_fc", "conf_fc")
 _REF_UNITER_PREFIX = "encoder.model.uniter."  # GQA-UNITER (uniter/entry.py + uniter.py)
+_REF_CAPS_PREFIX = "encoder."  # the trained GQABERT matcher (caps.py:14-28)
+# BUTD's GRU leaves in the flax tree -> the port's torch.nn.GRU tensors.
+_RENAMED = {(f"gru_{w}_{g}",): f"gru.{'weight' if w[0] == 'w' else 'bias'}_{g}_l0"
+            for w in ("w", "b") for g in ("ih", "hh")}
 _CONV = "#conv"  # vilt_key_map's marker on the patch-conv weight
 _QKV = re.compile(r"^(transformer\.blocks\.\d+\.attn\.)qkv\.(weight|bias)$")
 
 
 def port_key(fpath: tuple) -> str:
     """Flax parameter path -> the port's ``state_dict`` key."""
+    if tuple(fpath) in _RENAMED:
+        return _RENAMED[tuple(fpath)]
     parts = []
     for p in fpath[:-1]:
         m = _STACKED.match(p)
@@ -81,7 +102,12 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
     off the tree when not given."""
     if backbone is None:
         top = {p[0] for p in flat}
-        backbone = "vilt" if "cls_token" in top else "uniter" if "uniter" in top else "lxmert"
+        backbone = ("vilt" if "cls_token" in top else "uniter" if "uniter" in top
+                    else "butd" if "gru_w_ih" in top else "caps" if "match_head" in top else "lxmert")
+    if backbone == "butd":
+        return backbone, butd_key_map(branched=("conf_fc1", "v") in flat)
+    if backbone == "caps":
+        return backbone, bert_caps_key_map(_count({p[0] for p in flat}, "layer"), match_head=True)
     if backbone == "vilt":
         return backbone, vilt_key_map(_count({p[0] for p in flat}, "block"))
     if backbone == "uniter":
@@ -103,7 +129,8 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
 
 
 def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str, torch.Tensor]:
-    """A ``LxmertForGQA``, ``UniterForGQA`` or ``ViltForGQA`` flax param tree (nested dicts
+    """A ``LxmertForGQA``, ``UniterForGQA``, ``ViltForGQA``, ``ButdForGQA`` or
+    ``CaptionMatcher`` flax param tree (nested dicts
     of numpy or jax arrays; ``backbone`` None reads which off the tree)
     -> the port's f32 ``state_dict``.  Raises on a missing parameter and
     on parameters the port has no place for."""
@@ -131,7 +158,15 @@ def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int,
                      branched: bool = False):
     """(reference .pth key, port key) for every parameter; ViLT's keys
     with its Q/K/V apart (``attn.query`` ...); ``branched`` adds
-    LXMERT's ``conf_fc.{0,2,3}``; UNITER's are GQA-UNITER's."""
+    LXMERT's ``conf_fc.{0,2,3}``, BUTD's ``conf_classifier.{0,3}``; UNITER's
+    are GQA-UNITER's, the caption matcher's a trained GQABERT's."""
+    if backbone == "butd":
+        for tkey, fpath, _ in butd_key_map(branched=branched):
+            yield tkey, port_key(fpath)
+        return
+    if backbone == "caps":
+        yield from _caps_pairs(num_layers, _REF_CAPS_PREFIX, match_head=True)
+        return
     if backbone == "vilt":
         for tkey, fpath, _ in vilt_key_map(num_layers):
             yield tkey.removesuffix(_CONV), port_key(fpath)
@@ -160,6 +195,11 @@ def _uniter_pairs(num_layers: int, prefix: str, *, answer_head: bool):
         yield tkey, port_key(fpath)
 
 
+def _caps_pairs(num_layers: int, prefix: str, *, match_head: bool):
+    for tkey, fpath, _ in bert_caps_key_map(num_layers, match_head=match_head):
+        yield (tkey if tkey.startswith("logit_fc") else prefix + tkey), port_key(fpath)
+
+
 def to_reference_state_dict(
     sd: Mapping[str, torch.Tensor], *, backbone: str = "lxmert", l_layers: int = 9,
     x_layers: int = 5, r_layers: int = 5, num_layers: int = 12,
@@ -167,11 +207,13 @@ def to_reference_state_dict(
     """The port's ``state_dict`` under the reference GQA model's key
     names (GQA-LXMERT, with ``conf_fc.*`` when ``sd`` holds the branched
     ``conf_head``; GQA-UNITER, ``encoder.model.uniter.*`` + ``logit_fc.*``;
-    or GQAViLT with each block's Q/K/V fused into
+    GQA-BUTD, with ``conf_classifier.*`` when ``sd`` holds the confidence
+    head and each ``weight_g`` 0-d; the trained GQABERT matcher,
+    ``encoder.*`` + ``logit_fc.*``; or GQAViLT with each block's Q/K/V fused into
     ``attn.qkv``): ``torch.save`` it to hand the weights to the reference
     code, to the JAX package's importer, or to ``--load``.
     ``--branched_layer``'s heads have no reference keys and are left out."""
-    branched = "conf_head.logits.weight" in sd
+    branched = "conf_head.logits.weight" in sd or "conf_fc1.v" in sd
     out = {
         rkey: sd[pkey].detach().cpu()
         for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers, branched)
@@ -216,11 +258,25 @@ def load_reference_pth(
     weights are already in the port's layout, so nothing transposes;
     ViLT's fused ``attn.qkv`` is split; ``branched`` reads LXMERT's
     ``conf_fc.{0,2,3}`` too.  Returns (state_dict, missing reference
-    keys, unused reference keys)."""
+    keys, unused reference keys).
+
+    BUTD reads GQA-BUTD's keys (``branched``: ``conf_classifier.*`` too),
+    each ``weight_g`` 0-d or with singleton dims; the caption matcher
+    reads the three layouts of the JAX package's ``import_bert_caps``
+    (the prefix and the head read off the keys; ``position_ids``
+    buffers dropped; ``path`` may be an HF checkpoint directory)."""
+    if backbone == "caps":
+        path = caps_checkpoint_file(path)
     ref = load_torch_state_dict(path)
     if backbone == "vilt":
         ref = _split_qkv(ref)
-    if backbone == "uniter":
+    if backbone == "butd":
+        ref = {k: (v.reshape(()) if k.endswith("weight_g") else v) for k, v in ref.items()}
+    if backbone == "caps":
+        ref = {k: v for k, v in ref.items() if not k.endswith("position_ids")}
+        prefix, head = caps_layout(ref)
+        pairs = _caps_pairs(num_layers, prefix, match_head=head)
+    elif backbone == "uniter":
         pairs = _uniter_pairs(num_layers, _uniter_prefix(ref),
                               answer_head=any(k.startswith("logit_fc") for k in ref))
     else:
@@ -230,6 +286,7 @@ def load_reference_pth(
         if rkey not in ref:
             missing.append(rkey)
             continue
-        sd[pkey] = torch.from_numpy(np.ascontiguousarray(ref[rkey]))
+        value = ref[rkey]  # ascontiguousarray lifts a 0-d weight_g to (1,): keep its shape
+        sd[pkey] = torch.from_numpy(np.ascontiguousarray(value).reshape(np.shape(value)))
         used.add(rkey)
     return sd, missing, [k for k in ref if k not in used]

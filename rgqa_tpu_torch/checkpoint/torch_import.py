@@ -19,16 +19,27 @@ package's ``rgqa_tpu/checkpoint/torch_import.py`` that the port uses.
   fused ``attn.qkv`` tensors split into ``attn.{query,key,value}`` and
   the patch conv's weight under a ``#conv`` marker (its layout differs
   from flax's; ``checkpoint/convert.py`` handles both).
+- :func:`butd_key_map` lists every GQA-BUTD parameter likewise
+  (``src/butd/butd.py:107-221``: ``weight_norm(..., dim=None)``'s
+  ``weight_g`` / ``weight_v`` pairs, the GRU's ``*_l0`` tensors).
+- :func:`bert_caps_key_map` lists every parameter of the Q-C matcher
+  likewise (a plain HF ``BertModel``'s keys, with the trained GQABERT's
+  ``logit_fc`` head when asked), and :func:`caps_layout` reads which of
+  ``import_bert_caps``'s three layouts a state_dict is in.
 
-``tests/test_torch_port_rules.py``, ``tests/test_torch_vilt.py`` and
-``tests/test_torch_uniter.py`` hold them to their originals.
+``tests/test_torch_port_rules.py``, ``tests/test_torch_vilt.py``,
+``tests/test_torch_uniter.py``, ``tests/test_torch_butd.py`` and
+``tests/test_torch_caps.py`` hold them to their originals.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["load_torch_state_dict", "lxmert_key_map", "uniter_key_map", "vilt_key_map"]
+import os
+
+__all__ = ["load_torch_state_dict", "lxmert_key_map", "uniter_key_map", "vilt_key_map",
+           "butd_key_map", "bert_caps_key_map", "caps_checkpoint_file", "caps_layout"]
 
 
 def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
@@ -228,3 +239,91 @@ def vilt_key_map(num_layers: int = 12) -> list[tuple[str, tuple, bool]]:
     m += _ln("vqa_classifier.1", ("answer_head", "ln"))
     m += _dense("vqa_classifier.3", ("answer_head", "logits"))
     return m
+
+
+def butd_key_map(*, branched: bool = False) -> list[tuple[str, tuple, bool]]:
+    """Key map for BUTD checkpoints (``src/butd/butd.py:107-221``).
+
+    torch ``weight_norm(..., dim=None)`` stores ``weight_g`` (scalar norm
+    gain) + ``weight_v``; these map onto WeightNormDense's ``g``/``v``
+    (same parameterization, ``w = g * v / ||v||_F``).  The GRU's
+    ``weight_ih_l0``/``weight_hh_l0`` are already (3H, in) — no transpose.
+    """
+
+    def wn(tkey: str, fpath: tuple) -> list:
+        return [
+            (f"{tkey}.weight_g", fpath + ("g",), False),
+            (f"{tkey}.weight_v", fpath + ("v",), False),
+            (f"{tkey}.bias", fpath + ("b",), False),
+        ]
+
+    m: list = [
+        ("w_emb.emb.weight", ("w_emb", "embedding"), False),
+        ("q_enc.rnn.weight_ih_l0", ("gru_w_ih",), False),
+        ("q_enc.rnn.weight_hh_l0", ("gru_w_hh",), False),
+        ("q_enc.rnn.bias_ih_l0", ("gru_b_ih",), False),
+        ("q_enc.rnn.bias_hh_l0", ("gru_b_hh",), False),
+    ]
+    m += wn("att.image_proj.mlp.0", ("att", "image_proj"))
+    m += wn("att.question_proj.mlp.0", ("att", "question_proj"))
+    m += wn("att.linear", ("att", "linear"))
+    m += wn("q_project.mlp.0", ("q_project",))
+    m += wn("img_project.mlp.0", ("img_project",))
+    m += wn("ans_classifier.0", ("ans_fc1",))
+    m += wn("ans_classifier.3", ("ans_fc2",))
+    if branched:
+        m += wn("conf_classifier.0", ("conf_fc1",))
+        m += wn("conf_classifier.3", ("conf_fc2",))
+    return m
+
+
+def bert_caps_key_map(
+    num_layers: int = 12, *, pooler: bool = True, match_head: bool = False
+) -> list[tuple[str, tuple, bool]]:
+    """Key map for a plain HF ``BertModel`` state_dict onto the caption
+    matcher (the Q-C matcher's
+    ``BertModel.from_pretrained("bert-base-uncased")`` init,
+    ``src/caps/caps.py:17``).  ``match_head`` additionally maps a trained
+    GQABERT checkpoint's ``logit_fc`` head (``caps.py:23-28``)."""
+    m: list = []
+    m += _embeddings("embeddings", ("embeddings",))
+    for i in range(num_layers):
+        m += _bert_layer(f"encoder.layer.{i}", (f"layer_{i}",))
+    if pooler:
+        m += _dense("pooler.dense", ("pooler", "dense"))
+    if match_head:
+        m += _dense("logit_fc.0", ("match_head", "dense"))
+        m += _ln("logit_fc.2", ("match_head", "ln"))
+        m += _dense("logit_fc.3", ("match_head", "logits"))
+    return m
+
+
+def caps_checkpoint_file(path: str) -> str:
+    """``path``, or for an HF checkpoint directory the
+    ``pytorch_model.bin`` (or ``model.bin``) in it, as
+    ``import_bert_caps`` resolves it."""
+    if os.path.isdir(path):
+        for name in ("pytorch_model.bin", "model.bin"):
+            cand = os.path.join(path, name)
+            if os.path.exists(cand):
+                return cand
+        raise FileNotFoundError(
+            f"no pytorch_model.bin/model.bin under {path!r} "
+            "(safetensors-only checkpoints are not supported here)"
+        )
+    return path
+
+
+def caps_layout(keys) -> tuple[str, bool]:
+    """(encoder prefix, whether the ``logit_fc`` head is there) of a
+    caption-matcher state_dict, as ``import_bert_caps`` reads them: the
+    trained GQABERT's ``encoder.``, a task model's ``bert.``, or a bare
+    ``BertModel``'s none."""
+    keys = list(keys)
+    if any(k.startswith("encoder.embeddings.") for k in keys):
+        prefix = "encoder."  # trained GQABERT (caps.py wraps BertModel)
+    elif any(k.startswith("bert.") for k in keys):
+        prefix = "bert."
+    else:
+        prefix = ""
+    return prefix, any(k.startswith("logit_fc") for k in keys)

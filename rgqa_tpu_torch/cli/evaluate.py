@@ -12,20 +12,29 @@ Scorers:
   ensemble  -- ``--load a.pth,b.pth,...`` (``--ensemble_method``)
   separate  -- a one-logit detector (``--load``) gating the answers of a
                GQA model (``--load_gqa``)
+  caption   -- the Q-C matcher (``--backbone caps``; ``--load`` a trained
+               GQABERT) gating the answers of a GQA model (``--load_gqa``)
   ``--target_acc`` calibrates tau on the split and dumps ``{qid:
   [answer, confidence]}`` (full precision) with the tau in the result.
 
-``--backbone`` lxmert (the default), uniter or vilt.  ``odin`` and
-``maha`` perturb the RoI feats and boxes, which LXMERT and UNITER read
-and ViLT has none of: on ViLT they exit with a message.  ``--branched``
-is LXMERT's (UNITER and ViLT have no confidence head and raise).  Not ported, and refused by
-name: ``--scorer frcnn``, ``clip``, ``match`` and ``caption``.
+``--backbone`` lxmert (the default), uniter, vilt, butd or caps.  ``odin``
+and ``maha`` perturb the RoI feats and boxes, which LXMERT, UNITER and
+BUTD read and ViLT and the caption matcher have none of: there they exit
+with a message.  ``--branched`` is LXMERT's and BUTD's (UNITER, ViLT and
+the matcher have no confidence head and raise).  The gated scorers
+(``separate``, ``caption``) take any detector and, with
+``--ans_backbone``, any answerer (default: the detector's backbone, for
+the caption matcher lxmert, as the JAX CLI).  Not ported, and refused by
+name: ``--scorer frcnn``, ``clip`` and ``match``.
 
 Example:
     python -m rgqa_tpu_torch.cli.evaluate --synthetic --data_root /tmp/gqa \
         --test testdev --scorer energy --output /tmp/gqa_out
     python -m rgqa_tpu_torch.cli.evaluate --backbone uniter --synthetic \
         --data_root /tmp/gqa --test testdev --scorer odin --output /tmp/gqa_uniter
+    python -m rgqa_tpu_torch.cli.evaluate --backbone caps --scorer caption \
+        --synthetic --data_root /tmp/gqa --test testdev --load_gqa BEST.pth \
+        --ans_backbone butd --output /tmp/gqa_caps
 """
 
 from __future__ import annotations
@@ -42,28 +51,30 @@ NOT_PORTED = {
     "frcnn": "the FRCNN object-coverage scorer",
     "clip": "the CLIP scorer and backbone",
     "match": "the LXMERT pretraining heads",
-    "caption": "the caps backbone",
 }
 ROI_SCORERS = ("odin", "maha")
+GATED_SCORERS = ("separate", "caption")
+NO_ROI_BACKBONES = ("vilt", "caps")
 
 
 def refuse_unported(cfg: RunConfig) -> None:
     """Exit on a ``--scorer`` that is not ported, or that needs RoI inputs
-    on ViLT (the serve CLI refuses the same)."""
+    on ViLT or the caption matcher (the serve CLI refuses the same)."""
     scorer = cfg.ood.scorer
     if scorer in NOT_PORTED:
         raise SystemExit(f"--scorer {scorer} is not ported yet ({NOT_PORTED[scorer]})")
-    if scorer in ROI_SCORERS and cfg.model.backbone == "vilt":
+    if scorer in ROI_SCORERS and cfg.model.backbone in NO_ROI_BACKBONES:
         raise SystemExit(
-            f"--scorer {scorer} perturbs the RoI feats and boxes; --backbone vilt has none "
-            "(the JAX package cannot run it there either)"
+            f"--scorer {scorer} perturbs the RoI feats and boxes; --backbone {cfg.model.backbone} "
+            "has none (the JAX package cannot run it there either)"
         )
 
 
 def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
     """The JAX CLI's flags -> (``RunConfig``, ``--device``, the run's
-    plan: ``scorer``, ``ensemble`` paths, ``target_acc``); exits on what
-    is not ported."""
+    plan: ``scorer``, ``ensemble`` paths, ``target_acc``, and for the
+    gated scorers the answerer's ``answerer_model`` config); exits on
+    what is not ported."""
     cfg, ns = parse_cli(argv)
     if not cfg.data.test_splits:
         raise SystemExit("--test <split[,split...]> is required")
@@ -73,15 +84,25 @@ def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
     if cfg.load and "," in cfg.load:
         scorer, ensemble = "ensemble", cfg.load.split(",")
         cfg = cfg.replace(load=ensemble[0])
-    if scorer == "separate":
+    answerer_model = None
+    if scorer in GATED_SCORERS:
         if not cfg.load_gqa:
-            raise SystemExit("--scorer separate needs --load_gqa <GQA model .pth>")
-        if cfg.model.backbone != "lxmert" or (ns.ans_backbone or "lxmert") != "lxmert":
-            raise SystemExit("--scorer separate is ported for --backbone lxmert (detector and answerer)")
+            raise SystemExit(f"--scorer {scorer} needs --load_gqa <GQA model .pth>")
+        # The answerer's backbone: --ans_backbone, else the detector's; a
+        # caption matcher defaults to an lxmert answerer (JAX
+        # cli/evaluate.py:102-111).
+        answerer_model = cfg.model
+        if ns.ans_backbone:
+            answerer_model = dataclasses.replace(answerer_model, backbone=ns.ans_backbone)
+        elif answerer_model.backbone == "caps":
+            answerer_model = dataclasses.replace(answerer_model, backbone="lxmert")
+        if answerer_model.backbone == "caps":
+            raise SystemExit("--ans_backbone caps: the caption matcher gives no answers")
         # The detector has a one-logit head; the runner reads its shape
         # off the strategy.
-        cfg = cfg.replace(train=dataclasses.replace(cfg.train, strategy="separate"))
-    return cfg, ns.device, {"scorer": scorer, "ensemble": ensemble, "target_acc": ns.target_acc}
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, strategy=scorer))
+    return cfg, ns.device, {"scorer": scorer, "ensemble": ensemble, "target_acc": ns.target_acc,
+                            "answerer_model": answerer_model}
 
 
 def make_runner(cfg: RunConfig, device: str, scorer: str) -> GQARunner:
@@ -100,10 +121,11 @@ def main(argv=None) -> dict:
     scorer = plan["scorer"]
     runner = make_runner(cfg, device, scorer)
     answerer = None
-    if scorer == "separate":
+    if scorer in GATED_SCORERS:
         answerer = GQARunner(
             cfg.replace(
-                load=cfg.load_gqa, train=dataclasses.replace(cfg.train, strategy="conf"),
+                load=cfg.load_gqa, model=plan["answerer_model"],
+                train=dataclasses.replace(cfg.train, strategy="conf"),
                 output=os.path.join(cfg.output, "answerer"),
             ),
             init_train=False, device=device,
@@ -116,7 +138,7 @@ def main(argv=None) -> dict:
             results = {"tau": runner.predict_with_thresh(encoded, dump=dump)["tau"]}
         elif scorer == "ensemble":
             results = runner.ensemble_ood_evaluate(encoded, plan["ensemble"], dump=dump)
-        elif scorer == "separate":
+        elif scorer in GATED_SCORERS:
             results = runner.gated_ood_evaluate(encoded, answerer, dump=dump)
         else:
             results = runner.ood_evaluate(encoded, dump=dump)

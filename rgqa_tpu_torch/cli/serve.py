@@ -18,11 +18,12 @@ never stops the stream.  ``served N questions`` goes to stderr at the end.
 It takes the JAX CLI's flags (the port's ``parse_cli``) and runs on the
 card (``--device cuda``, the default; raises without one) unless given
 ``--device cpu``.  ``--test <split>`` names the answer vocabulary; ``--backbone`` is lxmert,
-uniter or vilt.  The
+uniter, vilt or butd.  The
 scorer is any that ``make_scorer`` builds (``--scorer`` msp, energy,
 odin, maha, dropout, branched); the evaluate CLI's refusals hold
-(``frcnn``, ``clip``, ``match``, ``caption``; odin / maha on ViLT), and
-``separate`` and ensembles (``--load a,b``) are the evaluate CLI's.  The
+(``frcnn``, ``clip``, ``match``; odin / maha on ViLT and the caption
+matcher), and the gated scorers (``separate``, ``caption``: two models)
+and ensembles (``--load a,b``) are the evaluate CLI's.  The
 runner is the evaluate CLI's (``evaluate.make_runner``): bf16 serving
 weights under bf16, but for ``maha`` f32 weights under bf16 compute, so
 the estimator that ``<output>/sample_estimates.pkl`` keeps for every
@@ -55,7 +56,7 @@ import sys
 import threading
 import time
 
-from rgqa_tpu_torch.cli.evaluate import make_runner, refuse_unported
+from rgqa_tpu_torch.cli.evaluate import GATED_SCORERS, make_runner, refuse_unported
 from rgqa_tpu_torch.config import parse_cli
 from rgqa_tpu_torch.data.dataset import GQADataset
 
@@ -172,9 +173,9 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     if not cfg.data.test_splits:
         raise SystemExit("--test <split> is required (answer-vocabulary source)")
     refuse_unported(cfg)
-    if cfg.ood.scorer == "separate" or (cfg.load and "," in cfg.load):
+    if cfg.ood.scorer in GATED_SCORERS or (cfg.load and "," in cfg.load):
         raise SystemExit("--scorer separate and ensembles (--load a,b) are scored by the evaluate "
-                         "CLI; serve scores with one model")
+                         "CLI, as is --scorer caption; serve scores with one model")
 
     runner = make_runner(cfg, ns.device, cfg.ood.scorer)
     scorer = runner.make_scorer()

@@ -1,14 +1,21 @@
-"""Training CLI (port of ``rgqa_tpu/cli/train.py``, ``--strategy conf``).
+"""Training CLI (port of ``rgqa_tpu/cli/train.py``: ``--strategy conf``,
+``separate`` and ``caption``).
 
 Fine-tunes LXMERT, UNITER (``--backbone uniter``; ``--loadLXMERT`` takes
-a pretrained UNITER encoder) or ViLT (``--backbone vilt``) on GQA with
-the JAX CLI's flags (BCE loss, BertAdam, global clip 5.0, ``--sample_pair`` for
-RP pseudo-UQ pairs, ``--dropout`` on attention and hidden activations;
-ViLT has hidden dropout only, and train-time randaug unless
-``--no_randaug``), writes ``BEST.pth``, ``LAST.pth``, ``LAST.state.pt``
-and ``log.log`` under ``--output``, and prints ``{"final_loss",
-"valid"}``.  It runs on the card (``--device cuda``, the default; raises
-without one) unless given ``--device cpu``.
+a pretrained UNITER encoder), ViLT (``--backbone vilt``) or BUTD
+(``--backbone butd``; f32 whatever ``--bf16`` says, its dropouts the
+model's fixed 0.2 / 0.5) on GQA with the JAX CLI's flags (BCE loss,
+BertAdam, global clip 5.0, ``--sample_pair`` for RP pseudo-UQ pairs,
+``--dropout`` on attention and hidden activations; ViLT has hidden
+dropout only, and train-time randaug unless ``--no_randaug``).
+``--strategy separate`` trains a one-logit detector, and ``--backbone
+caps --strategy caption`` the Q-C caption matcher (``--load_bert``: a
+local HF BERT to start from), both with the binary loss against the
+answerable indicator.  It writes ``BEST.pth``, ``LAST.pth`` (the
+reference ``.pth`` format of the backbone), ``LAST.state.pt`` and
+``log.log`` under ``--output``, and prints ``{"final_loss",
+"valid"}``.  It runs on the card (``--device cuda``, the default;
+raises without one) unless given ``--device cpu``.
 
 Examples:
     python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
@@ -21,6 +28,12 @@ Examples:
     python -m rgqa_tpu_torch.cli.train --backbone vilt --synthetic \
         --data_root /tmp/gqa_vilt --sample_pair --no_randaug --epochs 1 \
         --batchSize 32 --output /tmp/gqa_vilt_snap
+    python -m rgqa_tpu_torch.cli.train --backbone butd --synthetic \
+        --data_root /tmp/gqa --sample_pair --epochs 1 --batchSize 32 \
+        --output /tmp/gqa_butd_snap
+    python -m rgqa_tpu_torch.cli.train --backbone caps --strategy caption \
+        --synthetic --data_root /tmp/gqa --epochs 1 --batchSize 32 \
+        --output /tmp/gqa_caps_snap
 """
 
 from __future__ import annotations

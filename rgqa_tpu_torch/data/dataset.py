@@ -10,20 +10,26 @@ pixel boxes through UNITER's 7-d transform, ``uniter7``) and vilt (the same ques
 pixels per batch from an image source, on the ``u8`` wire as uint8 rows
 + rects + the rect-derived pad-patch mask, on the ``f32`` wire as
 normalized f32 pixels, augmented by ``randaug`` when the runner sets
-``image_augment_rng`` on a train split).  The BUTD, caption and
-TreeMix-parse branches are not ported yet.
+``image_augment_rng`` on a train split), butd (each question front-
+padded into (N, 40) word indices, ``token_ids``, through BUTD's own
+dictionary; ``norm4`` boxes) and the caption branch (given
+``image2caps``: the first caption of each question's image paired with
+the question, ``[CLS] caption [SEP] question [SEP]``; no RoI inputs).
+The TreeMix-parse branch is not ported yet.
 """
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
 from rgqa_tpu_torch.data.images import load_image_batch, load_image_batch_u8, rect_patch_mask
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer
 from rgqa_tpu_torch.data.tsv import PackedFeatures
+from rgqa_tpu_torch.models.butd import tokenize_front_padded
 from rgqa_tpu_torch.models.uniter import uniter_box_transform
 
 __all__ = ["GQADataset", "EncodedGQA", "build_targets", "UQ_ANSWER", "MAX_LABELS"]
@@ -104,10 +110,12 @@ def build_targets(
 
 
 class EncodedGQA:
-    """A dataset encoded into fixed-shape arrays (lxmert, uniter and vilt inputs).
+    """A dataset encoded into fixed-shape arrays (lxmert, uniter, vilt,
+    butd and caps inputs).
 
     Fields: ``question_ids`` (list[str]); ``input_ids / input_mask /
-    segment_ids`` (N, T) int32; ``img_row`` (N,) int32 into the feature
+    segment_ids`` (N, T) int32, or for ``backbone="butd"`` ``token_ids``
+    (N, 40) int32 from ``butd_word2idx``; ``img_row`` (N,) int32 into the feature
     pack; ``label_idx`` (N, MAX_LABELS) int32 (-1 = empty) and
     ``label_score`` (N, MAX_LABELS) f32; ``img_boxes`` (images, K, 4)
     f32, boxes normalized by image size and clipped to [0, 1], or for
@@ -122,6 +130,11 @@ class EncodedGQA:
     ``image_augment_rng`` (None: deterministic pixels, every eval split)
     is the ``np.random.Generator`` that the runner sets on a train split
     for train-time randaug; each batch's image loads draw from it.
+
+    ``image2caps`` (``{img_id: [caption, ...]}``, the caption matcher's)
+    pair-encodes each question after its image's first caption (an
+    image without one pairs with the empty caption); the batches then
+    carry the text fields alone.
     """
 
     def __init__(
@@ -135,14 +148,19 @@ class EncodedGQA:
         image_source=None,
         pixel_wire: str = "f32",
         pixel_patch_size: int = 32,
+        butd_word2idx: Optional[Mapping[str, int]] = None,
+        image2caps: Optional[Mapping[str, Sequence[str]]] = None,
     ):
-        if backbone not in ("lxmert", "uniter", "vilt"):
-            raise NotImplementedError(f"the {backbone} data branch is not ported yet")
+        if backbone not in ("lxmert", "uniter", "vilt", "butd", "caps"):
+            raise ValueError(f"unknown backbone {backbone!r}")
+        if backbone == "butd" and butd_word2idx is None:
+            raise ValueError("the butd branch needs butd_word2idx (the runner's dictionary)")
         if pixel_wire not in ("f32", "u8"):
             raise ValueError(f"pixel_wire must be f32|u8, got {pixel_wire!r}")
         if backbone == "vilt" and image_source is None:
             raise ValueError("the vilt branch needs an image_source")
         self.backbone = backbone
+        self.captions = image2caps is not None
         self.image_source = image_source
         self.image_augment_rng = None
         self.pixel_wire = pixel_wire
@@ -156,9 +174,19 @@ class EncodedGQA:
         n = len(data)
         self.question_ids = [d["question_id"] for d in data]
         sents = [d.get("sent") or d.get("question", "") for d in data]
-        self.input_ids, self.input_mask, self.segment_ids = tokenizer.encode_batch(
-            sents, max_text_len
-        )
+        if backbone == "butd":
+            self.token_ids = tokenize_front_padded(sents, butd_word2idx)
+        elif self.captions:
+            # Q-C caption matching (reference GQACaptionDataset,
+            # gqa_data.py:402-491): pair-encode (caption, question).
+            caps = [" ".join(image2caps.get(d["img_id"], [""])[:1]) for d in data]
+            self.input_ids, self.input_mask, self.segment_ids = tokenizer.encode_batch(
+                caps, max_text_len, text_pairs=sents
+            )
+        else:
+            self.input_ids, self.input_mask, self.segment_ids = tokenizer.encode_batch(
+                sents, max_text_len
+            )
         self.img_row = np.asarray(
             [features.index[d["img_id"]] for d in data], np.int32
         )
@@ -199,11 +227,14 @@ class EncodedGQA:
         answerable rows (UQ score zero); a vocabulary without UQ keeps
         every column and marks every row answerable."""
         rows = self.img_row[idx]
-        batch = {
-            "input_ids": self.input_ids[idx],
-            "input_mask": self.input_mask[idx],
-            "segment_ids": self.segment_ids[idx],
-        }
+        if self.backbone == "butd":
+            batch = {"token_ids": self.token_ids[idx]}
+        else:
+            batch = {
+                "input_ids": self.input_ids[idx],
+                "input_mask": self.input_mask[idx],
+                "segment_ids": self.segment_ids[idx],
+            }
         if self.backbone == "vilt":
             ids = [self.features.img_ids[r] for r in rows]
             aug_rng = self.image_augment_rng
@@ -218,7 +249,7 @@ class EncodedGQA:
                 )
             else:
                 batch["pixels"] = load_image_batch(self.image_source, ids, rng=aug_rng)
-        else:
+        elif not self.captions:  # the caption matcher reads the text pair alone
             batch["feats"] = np.asarray(self.features.features[rows], np.float32)
             batch["boxes"] = self.img_boxes[rows]
         if with_target:

@@ -21,9 +21,10 @@ generator's JPEG-then-bicubic ones: a parity test feeds both packages
 from one pack.  The images are square, so every rect is the whole image
 in both modes.
 
-Left out: ``image2caps.json`` (caption matcher), ``objects_vocab.txt``
-(FRCNN-coverage scorer) and the VQA generator, none of which the port
-reads yet; they draw nothing, so leaving them out changes no array.
+Left out: ``objects_vocab.txt`` (FRCNN-coverage scorer) and the VQA
+generator, neither of which the port reads yet; they draw nothing, so
+leaving them out changes no array.  ``image2caps.json`` (the caption
+matcher's captions, one per image) is written as by the JAX package.
 
 Questions are template-generated over a small object/attribute lexicon;
 each image's "dominant answer" dimension is boosted in its features, so
@@ -264,6 +265,14 @@ def make_synthetic_gqa(
         img[..., 0] = np.clip(img[..., 0] + hue, 0, 255)
         base[i] = img
     np.save(os.path.join(root, BASE_IMAGES), base)
+
+    # Captions for the Q-C matcher (reference data/gqa/image2caps.json).
+    image2caps = {
+        img_id: [f"a photo of the {img2answer[i]}"]
+        for i, img_id in enumerate(img_ids)
+    }
+    with open(os.path.join(root, "image2caps.json"), "w") as f:
+        json.dump(image2caps, f)
 
     # WordPiece vocab covering the question lexicon.
     words = sorted(

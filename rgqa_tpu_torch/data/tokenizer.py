@@ -5,8 +5,9 @@ The module itself needs no jax, but importing it from the JAX package runs
 ``rgqa_tpu.parallel`` (jax) and ``data/dataset.py`` (flax, through
 ``models.uniter``).  The port runs where jax is absent, so it carries
 this copy; ``tests/test_torch_data.py`` holds it to the original.
-Left out: ``build_vocab`` (a vocab from a corpus), id-to-token lookup
-and sentence-pair encoding (the caption matcher's input).
+Left out: ``build_vocab`` (a vocab from a corpus) and id-to-token
+lookup.  Sentence pairs (the caption matcher's ``[CLS] caption [SEP]
+question [SEP]``) encode as in the original.
 
 Basic tokenization + greedy longest-match-first WordPiece, matching the
 reference's vendored tokenizer: lower-casing with accent stripping,
@@ -175,28 +176,49 @@ class WordPieceTokenizer:
 
     # -- model-facing encoding ----------------------------------------------
 
-    def encode(self, text: str, max_len: int) -> tuple[list[int], list[int], list[int]]:
-        """``[CLS] text [SEP]`` with padding, the text truncated to
-        ``max_len - 2`` pieces (the reference's convention,
-        ``src/lxrt/entry.py:36-71``).  Sentence pairs (the caption
-        matcher's input) are not ported."""
-        tokens = [CLS] + self.tokenize(text)[: max_len - 2] + [SEP]
-        segments = [0] * len(tokens)
+    def encode(
+        self, text: str, max_len: int, text_pair: str | None = None
+    ) -> tuple[list[int], list[int], list[int]]:
+        """``[CLS] a [SEP]`` (or ``[CLS] a [SEP] b [SEP]``) with padding.
+
+        The first segment alone is truncated to ``max_len - 2`` pieces
+        (the reference's convention, ``src/lxrt/entry.py:36-71``); a pair
+        is truncated longest-first to ``max_len - 3`` pieces, popping from
+        the end of the longer segment (of ``a`` on a tie), and its second
+        segment with its closing ``[SEP]`` takes segment id 1.
+        """
+        a = self.tokenize(text)
+        if text_pair is None:
+            a = a[: max_len - 2]
+            tokens = [CLS] + a + [SEP]
+            segments = [0] * len(tokens)
+        else:
+            b = self.tokenize(text_pair)
+            budget = max_len - 3
+            # Longest-first truncation (BERT pair convention).
+            while len(a) + len(b) > budget:
+                (a if len(a) >= len(b) else b).pop()
+            tokens = [CLS] + a + [SEP] + b + [SEP]
+            segments = [0] * (len(a) + 2) + [1] * (len(b) + 1)
         ids = self.convert_tokens_to_ids(tokens)
         mask = [1] * len(ids)
         pad = max_len - len(ids)
         return ids + [self.pad_id] * pad, mask + [0] * pad, segments + [0] * pad
 
     def encode_batch(
-        self, texts: Iterable[str], max_len: int
+        self,
+        texts: Iterable[str],
+        max_len: int,
+        text_pairs: Iterable[str] | None = None,
     ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         texts = list(texts)
+        pairs = list(text_pairs) if text_pairs is not None else [None] * len(texts)
         n = len(texts)
         ids = np.zeros((n, max_len), dtype=np.int32)
         mask = np.zeros((n, max_len), dtype=np.int32)
         seg = np.zeros((n, max_len), dtype=np.int32)
-        for i, t in enumerate(texts):
-            ids[i], mask[i], seg[i] = self.encode(t, max_len)
+        for i, (t, p) in enumerate(zip(texts, pairs)):
+            ids[i], mask[i], seg[i] = self.encode(t, max_len, p)
         return ids, mask, seg
 
 

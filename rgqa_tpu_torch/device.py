@@ -1,12 +1,14 @@
-"""Where the port runs: the card unless the caller asks for the CPU."""
+"""Where the port runs (the card unless the caller asks for the CPU), and
+at what f32 precision where it must match the JAX package's f32."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "exact_f32"]
 
 
 def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
@@ -21,3 +23,18 @@ def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
             "the CPU"
         )
     return device
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """f32 products at full precision inside the block: no TF32 in cuBLAS
+    (PyTorch's default already) nor in cuDNN (PyTorch's default allows
+    it, e.g. for a GRU).  The caller's settings are restored after it."""
+    cudnn, precision = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.set_float32_matmul_precision(precision)

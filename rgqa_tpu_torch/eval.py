@@ -18,7 +18,11 @@ The feed hands every scorer exact f32 RoI feats (the models cast them to
 their compute dtype inside the first product).  The JAX feed casts them
 to bf16 on the host for a bf16 model unless a scorer carries
 ``needs_f32_inputs`` (ODIN, Mahalanobis and its fit); the port keeps the
-flag on those scorers and never casts.
+flag on those scorers and never casts.  BUTD is the exception: it
+computes in f32 under ``--bf16`` too, so the only bf16 rounding of its
+run is the JAX feed's, which ``_map_eval`` makes on the device (the
+feats rounded to bf16 and back for every step function without
+``needs_f32_inputs``).
 """
 
 from __future__ import annotations
@@ -61,8 +65,12 @@ class ScoringMixin:
         batches = device_prefetch(
             batch_iterator(encoded, self.cfg.train.batch_size), self.device
         )
+        round_feats = (self.model_cfg.backbone == "butd" and self.cfg.train.use_bf16
+                       and not getattr(step_fn, "needs_f32_inputs", False))
         pending = None
         for qids, batch, real in batches:
+            if round_feats:  # the JAX feed's bf16 feats, promoted to f32 in the model
+                batch = dict(batch, feats=batch["feats"].to(torch.bfloat16).float())
             out = step_fn(batch)
             current = (qids, {k: out[k] for k in select}, real)
             if pending is not None:
@@ -269,9 +277,11 @@ class ScoringMixin:
                     pooled = self.forward(batch, deterministic=True)["pooled"]
                 yield pooled[:real], batch["target"][:real]
 
+        mcfg = self.model_cfg
         est = fit_estimator(
-            batches(), num_classes=self.model_cfg.num_answers,
-            feat_dim=self.model_cfg.encoder.hidden_size, device=self.device,
+            batches(), num_classes=mcfg.num_answers,
+            feat_dim=mcfg.butd_hidden_dim if mcfg.backbone == "butd" else mcfg.encoder.hidden_size,
+            device=self.device,
         )
         with open(cache, "wb") as f:
             pickle.dump(

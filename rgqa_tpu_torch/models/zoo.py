@@ -1,5 +1,5 @@
 """Build a backbone + a uniform forward adapter (port of
-``rgqa_tpu/models/zoo.py``: lxmert, uniter and vilt).
+``rgqa_tpu/models/zoo.py``: lxmert, uniter, vilt, butd and caps).
 
 ``forward(batch, **kw) -> dict`` takes a dict batch of tensors:
 
@@ -10,7 +10,11 @@
   (B, S, S, 3) f32 (the ``f32`` wire; pad patches masked from content)
   or ``pixels_u8`` (B, S, S, 3) uint8 + ``pixel_rect`` (B, 4), normalized
   on the device (the ``u8`` wire), with ``pixel_mask`` (B, patches) when
-  the batch carries one.
+  the batch carries one;
+- butd: ``token_ids`` (B, 40) front-padded word indices, ``feats`` and
+  ``boxes`` (B, K, 4);
+- caps: ``input_ids``, ``input_mask``, ``segment_ids`` (B, T) of the
+  ``[CLS] caption [SEP] question [SEP]`` pair.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from torch import nn
 from rgqa_tpu_torch.config import ModelConfig
 from rgqa_tpu_torch.data.images import rect_patch_mask
 from rgqa_tpu_torch.device import resolve_device
+from rgqa_tpu_torch.models.butd import MAX_GQA_LENGTH, ButdForGQA, init_butd_weights
+from rgqa_tpu_torch.models.caps import CaptionMatcher
 from rgqa_tpu_torch.models.lxmert import LxmertForGQA
 from rgqa_tpu_torch.models.transformer import LayerNorm
 from rgqa_tpu_torch.models.uniter import UNITER_POS_DIM, UniterForGQA
@@ -49,8 +55,15 @@ def default_config(backbone: str = "lxmert") -> ModelConfig:
       vocab 30522, 1842 answers, 384 px images in 32 px patches (144 +
       CLS), 40 text tokens: the reference's 185-token stream
       (``docs/vilt_images.md``).
+    - ``"butd"``: GloVe-300 embeddings, a GRU-1024 over 40 front-padded
+      tokens, 36 RoIs of 2048 + 4, the 2 x 1024 classifier over 1842
+      answers, a 2941-word question vocabulary (the runner takes the
+      size of its dictionary instead).
+    - ``"caps"``: the caption matcher, BERT-base (12 x 768, 12 heads, MLP
+      3072, vocab 30522, two token types) over 20 tokens of the
+      caption-question pair, one match logit.
     """
-    if backbone in ("lxmert", "uniter"):
+    if backbone in ("lxmert", "uniter", "butd", "caps"):
         return ModelConfig(backbone=backbone)
     if backbone == "vilt":
         return ModelConfig(
@@ -66,7 +79,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     LayerNorm ones/zeros.  The ViLT patch conv takes normal(0, 0.02) too
     (flax's Conv default is lecun-normal, std 1/sqrt(fan_in) = 0.018 at
     ViT-B/32).  Draws in module order from ``generator``, which must live
-    on the model's device."""
+    on the model's device.  BUTD takes its own init
+    (:func:`~rgqa_tpu_torch.models.butd.init_butd_weights`)."""
+    if isinstance(model, ButdForGQA):
+        init_butd_weights(model, generator)
+        return
 
     def normal_(w):
         w.copy_(
@@ -112,23 +129,48 @@ def build_model(
     the module's own mode, which is restored after the call either way.
 
     ``cfg.branched`` / ``cfg.branched_layers`` add LXMERT's confidence
-    heads (the forward returns ``conf``); UNITER and ViLT have none, in
-    the JAX package too, and raise."""
-    if cfg.backbone not in ("lxmert", "uniter", "vilt"):
-        raise NotImplementedError(
-            f"backbone {cfg.backbone!r} is not ported yet; the port has lxmert, uniter and vilt"
+    heads (the forward returns ``conf``); ``cfg.branched`` adds BUTD's.
+    UNITER, ViLT and the caption matcher have none, in the JAX package
+    too, and raise, as does ``branched_layers`` on BUTD (the JAX
+    package's ``_build_butd`` ignores it).
+
+    BUTD keeps f32 weights and f32 compute whatever ``use_bf16`` says,
+    as the JAX package's BUTD does; its adapter carries ``precision``,
+    the model's context for its products
+    (:func:`~rgqa_tpu_torch.device.exact_f32`), which a training step
+    holds over its backward too.  The caption matcher's
+    logits are (B,)."""
+    if cfg.backbone not in ("lxmert", "uniter", "vilt", "butd", "caps"):
+        raise ValueError(
+            f"unknown backbone {cfg.backbone!r}; have butd, caps, lxmert, uniter and vilt"
         )
-    if cfg.backbone != "lxmert" and (cfg.branched or cfg.branched_layers):
-        name = {"uniter": "UNITER", "vilt": "ViLT"}[cfg.backbone]
+    names = {"uniter": "UNITER", "vilt": "ViLT", "caps": "the caption matcher"}
+    if cfg.backbone in names and (cfg.branched or cfg.branched_layers):
+        name = names[cfg.backbone]
         raise NotImplementedError(
             f"--branched / --branched_layer: {name} has no branched confidence head "
             f"(nor has the JAX package's {name})"
         )
+    if cfg.backbone == "butd" and cfg.branched_layers:
+        raise NotImplementedError(
+            "--branched_layer: BUTD has no layer taps (the JAX package's _build_butd ignores the "
+            "flag); --branched adds its confidence head"
+        )
 
     device = resolve_device(device)
+    if cfg.backbone == "butd":
+        use_bf16 = False  # f32 weights and products (the JAX _build_butd ignores the dtype)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     with device:
-        if cfg.backbone == "vilt":
+        if cfg.backbone == "butd":
+            model = ButdForGQA(
+                cfg.butd_vocab_size, cfg.num_answers, embed_dim=cfg.butd_embed_dim,
+                hidden=cfg.butd_hidden_dim, visual_dim=cfg.encoder.visual_feat_dim,
+                branched=cfg.branched,
+            )
+        elif cfg.backbone == "caps":
+            model = CaptionMatcher(cfg.encoder, dtype=dtype)
+        elif cfg.backbone == "vilt":
             model = ViltForGQA(
                 cfg.encoder, cfg.num_answers, patch_size=cfg.vilt_patch_size,
                 image_size=cfg.vilt_image_size, dtype=dtype,
@@ -149,6 +191,10 @@ def build_model(
 
     if cfg.backbone == "vilt":
         return model, _vilt_forward(model)
+    if cfg.backbone == "butd":
+        return model, _butd_forward(model)
+    if cfg.backbone == "caps":
+        return model, _caps_forward(model)
 
     def forward(batch: dict, *, deterministic: Optional[bool] = None, **kw) -> dict:
         with module_mode(model, deterministic):
@@ -171,6 +217,24 @@ def module_mode(model: nn.Module, deterministic: Optional[bool]):
         yield
     finally:
         model.train(before)
+
+
+def _butd_forward(model) -> Callable[..., dict]:
+    def forward(batch: dict, *, deterministic: Optional[bool] = None, use_fused=None, **kw) -> dict:
+        # use_fused is the attention kernels' switch: BUTD has no attention.
+        with module_mode(model, deterministic):
+            return model(batch["token_ids"], batch["feats"], batch["boxes"], **kw)
+
+    forward.precision = lambda: model.precision()
+    return forward
+
+
+def _caps_forward(model) -> Callable[..., dict]:
+    def forward(batch: dict, *, deterministic: Optional[bool] = None, **kw) -> dict:
+        with module_mode(model, deterministic):
+            return model(batch["input_ids"], batch["input_mask"], batch["segment_ids"], **kw)
+
+    return forward
 
 
 def _vilt_forward(model) -> Callable[..., dict]:
@@ -196,22 +260,29 @@ def example_batch(
     cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0, pixel_wire: str = "f32"
 ) -> dict:
     """A synthetic fixed-shape numpy batch; the same draws as the JAX
-    package's ``example_batch`` for lxmert, uniter (7-d ``boxes``) and
-    vilt (f32 ``pixels``, standard normal).  ``pixel_wire="u8"`` gives vilt the u8 wire
+    package's ``example_batch`` for lxmert, uniter (7-d ``boxes``), vilt
+    (f32 ``pixels``, standard normal), butd (``token_ids`` (B, 40) in
+    place of the text fields) and caps (the text fields alone).  ``pixel_wire="u8"`` gives vilt the u8 wire
     instead: random ``pixels_u8``, and in three rows of four the
     ``pixel_rect`` of a 2:1, 3:2 or 4:3 image in pad mode, with its
     ``pixel_mask``."""
     rng = np.random.default_rng(seed)
     t = cfg.max_text_len
     k = cfg.encoder.num_objects
-    low = min(1000, cfg.encoder.vocab_size // 2)
-    ids = rng.integers(low, cfg.encoder.vocab_size, (batch_size, t), dtype=np.int32)
-    ids[:, 0] = min(101, cfg.encoder.vocab_size - 1)  # [CLS]
-    batch: dict[str, Any] = {
-        "input_ids": ids,
-        "input_mask": np.ones((batch_size, t), np.int32),
-        "segment_ids": np.zeros((batch_size, t), np.int32),
-    }
+    batch: dict[str, Any] = {}
+    if cfg.backbone == "butd":
+        batch["token_ids"] = rng.integers(
+            0, cfg.butd_vocab_size, (batch_size, MAX_GQA_LENGTH), dtype=np.int32
+        )
+    else:
+        low = min(1000, cfg.encoder.vocab_size // 2)
+        ids = rng.integers(low, cfg.encoder.vocab_size, (batch_size, t), dtype=np.int32)
+        ids[:, 0] = min(101, cfg.encoder.vocab_size - 1)  # [CLS]
+        batch["input_ids"] = ids
+        batch["input_mask"] = np.ones((batch_size, t), np.int32)
+        batch["segment_ids"] = np.zeros((batch_size, t), np.int32)
+    if cfg.backbone == "caps":
+        return batch
     if cfg.backbone == "vilt":
         s = cfg.vilt_image_size
         if pixel_wire == "f32":

@@ -1,5 +1,5 @@
 """GQA runner (port of ``rgqa_tpu/runner.py``: construction, ``load`` and
-``train`` for ``--strategy conf``).
+``train`` for ``--strategy conf``, ``separate`` and ``caption``).
 
 It makes the synthetic data when asked and it is missing, loads the
 feature pack and the tokenizer, sizes the answer head to the dataset's
@@ -30,10 +30,22 @@ answers less the appended ``UQ`` class, initialises the weights from a
   :meth:`GQARunner.train`; the scorers' forwards set the mode they need
   and restore it.
 
-Both run lxmert, uniter or vilt.  For evaluation LXMERT also takes the branched
-confidence heads (``--branched`` / ``--branched_layer``) and, with
-``--strategy separate`` (the evaluate CLI's ``--scorer separate``), a
-one-logit answerability head.
+Both run lxmert, uniter, vilt, butd or caps.  For evaluation LXMERT also
+takes the branched confidence heads (``--branched`` / ``--branched_layer``)
+and BUTD its confidence head (``--branched``).  ``--strategy separate``
+and ``caption`` (the evaluate CLI's ``--scorer separate`` / ``caption``)
+give any backbone a one-logit answerability head, and train it with the
+binary loss: sigmoid BCE of the one logit against ``id_mask``.
+
+BUTD builds its word dictionary over the question splits, cached as
+``<data_root>/butd/dictionary.json``, and loads GloVe-300 rows into its
+embedding from ``--glove`` (default ``<data_root>/butd/glove.6B.300d.txt``;
+absent, the random init stands), the matrix cached as
+``<data_root>/butd/glove.npy`` + ``.meta.json``: the JAX runner's files,
+so a cache from either package loads in the other.  The caption matcher
+(``--backbone caps``) pairs each question with its image's caption from
+``<data_root>/image2caps.json``; ``--load_bert`` initialises it from a
+local HF BERT (a ``.bin`` or a directory holding ``pytorch_model.bin``).
 
 ViLT reads pixels from a pixel pack ``<data_root>/pixels_<size>_<mode>/``
 when one matches this run (built from ``<data_root>/images`` at the
@@ -49,13 +61,12 @@ pack like the eval splits.  Randaug needs PIL and the JPEGs; without
 either the runner raises, naming ``--no_randaug`` (the machine with the
 card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
-Not ported yet, and refused by flag name: training with the other
-strategies, mixup, the MCE, energy and branched losses, ``--uq_as_class``,
-``--chart``, chunked dispatch, the other optimizers, bf16 moments, orbax
-snapshots (reading them needs jax), the ``--loadLXMERT`` (on LXMERT) /
-``--loadLXMERTQA`` initialisations, the caption strategy and every
-backbone but lxmert, uniter and vilt.  ``--loadLXMERT`` with
-``--backbone uniter`` loads a pretrained UNITER encoder (``uniter.*`` or
+Not ported yet, and refused by flag name: training with the strategies
+but conf, separate and caption, mixup, the MCE, energy and branched
+losses, ``--uq_as_class``, ``--chart``, chunked dispatch, the other
+optimizers, bf16 moments, orbax snapshots (reading them needs jax) and
+the ``--loadLXMERT`` (on LXMERT) / ``--loadLXMERTQA`` initialisations.
+``--loadLXMERT`` with ``--backbone uniter`` loads a pretrained UNITER encoder (``uniter.*`` or
 ``bert.*`` keys, or a GQA-UNITER ``.pth``'s encoder and head), as the JAX
 runner does; keys it lacks, the answer head of a bare encoder among
 them, stay at their init.
@@ -64,7 +75,9 @@ them, stay at their init.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib.util
+import json
 import math
 import os
 import time
@@ -83,6 +96,7 @@ from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.eval import ScoringMixin
+from rgqa_tpu_torch.models.butd import build_glove_matrix, butd_split
 from rgqa_tpu_torch.models.zoo import build_model
 from rgqa_tpu_torch.ops.dropout import DropoutRng
 from rgqa_tpu_torch.train.optimizer import make_optimizer
@@ -95,17 +109,15 @@ __all__ = ["GQARunner"]
 def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
-        f"--backbone {m.backbone}": m.backbone not in ("lxmert", "uniter", "vilt"),
         "--uq_as_class": m.uq_as_class,
         "--loadLXMERT (LXMERT's pretrained encoder)": bool(cfg.load_lxmert) and m.backbone != "uniter",
         "--loadLXMERTQA": bool(cfg.load_lxmert_qa),
         "--feed_int8": d.feed_int8,
         "--eval_chunk > 1": t.eval_chunk > 1,
-        f"--strategy {t.strategy}": t.strategy == "caption",  # the caps backbone
     }
     if train:
         unported.update({
-            f"--strategy {t.strategy}": t.strategy != "conf",
+            f"--strategy {t.strategy}": t.strategy not in ("conf", "separate", "caption"),
             "--branched / --branched_layer (training the branched losses)": bool(
                 m.branched or m.branched_layers
             ),
@@ -143,6 +155,11 @@ class GQARunner(ScoringMixin):
             os.path.join(root, "trainval_ans2label.json")
         ):
             make_synthetic_gqa(root)
+        self.butd_word2idx = self._butd_dictionary(root) if cfg.model.backbone == "butd" else None
+        self.image2caps = None
+        if cfg.model.backbone == "caps":
+            with open(os.path.join(root, "image2caps.json")) as f:
+                self.image2caps = json.load(f)
         self.image_source = None
         if cfg.model.backbone == "vilt":
             self.image_source = self._image_source()
@@ -166,9 +183,13 @@ class GQARunner(ScoringMixin):
             # under evaluation.
             self.dataset = GQADataset(root, data.test_splits or data.valid_splits, add_uq=True)
         # The model outputs num_answers - 1 logits; 'UQ' is the appended
-        # indicator class.  A separate detector has one logit.
-        num_real = 1 if cfg.train.strategy == "separate" else self.dataset.num_answers - 1
+        # indicator class.  A separate detector or a caption matcher has
+        # one logit.
+        binary = cfg.train.strategy in ("separate", "caption")
+        num_real = 1 if binary else self.dataset.num_answers - 1
         self.model_cfg = dataclasses.replace(cfg.model, num_answers=num_real)
+        if self.butd_word2idx is not None:
+            self.model_cfg = dataclasses.replace(self.model_cfg, butd_vocab_size=len(self.butd_word2idx))
         generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.model, self.forward = build_model(
             self.model_cfg, use_bf16=cfg.train.use_bf16,
@@ -176,14 +197,95 @@ class GQARunner(ScoringMixin):
         )
         self.model.eval()  # train() switches it to training mode for its epochs
         self.label2ans = self.dataset.label2ans
+        if self.butd_word2idx is not None:
+            self._load_glove_embeddings(root)
         if cfg.load:
             self.load(cfg.load)
         elif cfg.load_lxmert:  # --backbone uniter (_check_ported refuses the rest)
             print(f"Loaded UNITER encoder ({len(self.load(cfg.load_lxmert))} keys left at init)")
+        elif cfg.load_bert and cfg.model.backbone == "caps":
+            # The matcher's pretrained-BERT start (BertModel.from_pretrained,
+            # caps.py:17); the match head stays at its init.
+            print(f"Loaded BERT encoder ({len(self.load(cfg.load_bert))} keys left at init)")
 
         self.output = cfg.output
         os.makedirs(self.output, exist_ok=True)
         dump_run_config(cfg, self.output)
+
+    def _butd_dictionary(self, root: str) -> dict[str, int]:
+        """BUTD's word dictionary over the question splits
+        (``butd/preprocess.py:54-123``): the configured train / valid /
+        test / pos / neg splits and the standard names, each word in
+        order of first appearance.  Cached as ``<root>/butd/
+        dictionary.json`` keyed on the split names and on which of their
+        files exist, in the JAX runner's format."""
+        data = self.cfg.data
+        names = {"train", "valid", "testdev"}
+        for spec in (data.train_splits, data.valid_splits, data.test_splits, data.train_pos,
+                     data.train_neg):
+            if spec:
+                names.update(spec.split(","))
+        key = sorted(names)
+        found = [n for n in key if os.path.exists(os.path.join(root, f"{n}.json"))]
+        cache = os.path.join(root, "butd", "dictionary.json")
+        if os.path.exists(cache):
+            with open(cache) as f:
+                cached = json.load(f)
+            if cached.get("splits") == key and cached.get("found", key) == found:
+                return dict(cached["words"])
+        words: dict[str, int] = {}
+        for name in found:
+            with open(os.path.join(root, f"{name}.json")) as f:
+                for row in json.load(f):
+                    for tok in butd_split(row.get("sent", "")):
+                        words.setdefault(tok, len(words))
+        os.makedirs(os.path.dirname(cache), exist_ok=True)
+        with open(cache, "w") as f:
+            json.dump({"splits": key, "found": found, "words": words}, f)
+        return words
+
+    def _load_glove_embeddings(self, root: str) -> None:
+        """GloVe-300 rows into BUTD's word embedding (reference
+        ``preprocess.py:100-123``), the matrix cached as ``<root>/butd/
+        glove.npy`` with a ``.meta.json`` fingerprint of the GloVe file
+        and the dictionary (the JAX runner's).  Without a GloVe file the
+        random init stands."""
+        dim = self.model_cfg.butd_embed_dim
+        path = self.cfg.data.glove_path or os.path.join(root, "butd", "glove.6B.300d.txt")
+        if not os.path.exists(path):
+            return
+        cache = os.path.join(root, "butd", "glove.npy")
+        meta_path = cache + ".meta.json"
+        st = os.stat(path)
+        meta = {
+            "glove_path": os.path.abspath(path),
+            "glove_mtime": st.st_mtime,
+            "glove_size": st.st_size,
+            "vocab_fprint": hashlib.md5(
+                json.dumps(sorted(self.butd_word2idx.items())).encode()
+            ).hexdigest(),
+            "dim": dim,
+        }
+        mat = None
+        if os.path.exists(cache) and os.path.exists(meta_path):
+            with open(meta_path) as f:
+                if json.load(f) == meta:
+                    m = np.load(cache)
+                    if m.shape == (len(self.butd_word2idx) + 1, dim):
+                        mat = m
+        if mat is None:
+            mat = build_glove_matrix(self.butd_word2idx, path, dim=dim)
+            os.makedirs(os.path.dirname(cache), exist_ok=True)
+            np.save(cache, mat)
+            with open(meta_path, "w") as f:
+                json.dump(meta, f)
+        emb = self.model.w_emb.weight
+        if tuple(emb.shape) != mat.shape:
+            print(f"WARNING: GloVe matrix {mat.shape} does not match the BUTD embedding "
+                  f"{tuple(emb.shape)}; keeping random init")
+            return
+        with torch.no_grad():
+            emb.copy_(torch.from_numpy(mat))
 
     def _image_source(self):
         """ViLT's pixels: the pack that matches this run, else the JPEGs."""
@@ -224,6 +326,7 @@ class GQARunner(ScoringMixin):
             ds, self.features, tokenizer=self.tokenizer, max_text_len=m.max_text_len,
             backbone=m.backbone, image_source=image_source,
             pixel_wire=cfg.data.pixel_wire, pixel_patch_size=m.vilt_patch_size,
+            butd_word2idx=self.butd_word2idx, image2caps=self.image2caps,
         )
         if randaug:
             encoded.image_augment_rng = np.random.default_rng(cfg.train.seed)
@@ -234,10 +337,13 @@ class GQARunner(ScoringMixin):
     # ------------------------------------------------------------------
 
     def load(self, path: str) -> list[str]:
-        """Load a reference GQA-LXMERT, UNITER or GQAViLT ``.pth`` into
-        the model (cast to the model's dtype); keys it lacks stay at their
-        init.  Returns the reference keys it lacked."""
-        if not os.path.isfile(path):
+        """Load a reference GQA-LXMERT, UNITER, GQAViLT or GQA-BUTD ``.pth``
+        or, for the caption matcher, an HF BERT / trained GQABERT (a file,
+        or a directory holding ``pytorch_model.bin``) into the model (cast
+        to the model's dtype); keys it lacks stay at their init.  Returns
+        the reference keys it lacked."""
+        caps_dir = self.model_cfg.backbone == "caps" and os.path.isdir(path)
+        if not os.path.isfile(path) and not caps_dir:
             raise NotImplementedError(
                 f"{path!r} is not a .pth file; loading orbax snapshots needs "
                 "jax and is not ported yet"
@@ -330,7 +436,7 @@ class GQARunner(ScoringMixin):
 
         step = make_train_step(
             self.forward, optimizer, loss=tcfg.loss, sample_pair=tcfg.sample_pair,
-            grad_clip=tcfg.optim.grad_clip, rng=rng,
+            binary=tcfg.strategy in ("separate", "caption"), grad_clip=tcfg.optim.grad_clip, rng=rng,
         )
         best_valid = 0.0
         history = {"loss": [], "valid": []}

@@ -17,12 +17,12 @@ them outside any Pallas kernel too.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Iterable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from rgqa_tpu_torch.device import exact_f32
 from rgqa_tpu_torch.scorers.core import roi_input_grad, require_roi_inputs, sign01
 
 __all__ = [
@@ -32,25 +32,12 @@ __all__ = [
     "estimator_from_numpy",
     "fit_estimator",
     "make_maha_scorer",
-    "exact_f32_matmul",
 ]
 
 
 class MahaEstimator(NamedTuple):
     class_mean: torch.Tensor  # (C, D) f32
     precision: torch.Tensor  # (D, D) f32
-
-
-@contextlib.contextmanager
-def exact_f32_matmul():
-    """f32 products at full precision (no TF32) inside the block; the
-    caller's setting is restored after it."""
-    before = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(before)
 
 
 def accumulate_moments(
@@ -68,7 +55,7 @@ def accumulate_moments(
     (``gqa_maha.py:155-168``).  Batches are tensors or arrays;
     ``device`` defaults to the first batch's."""
     sums = counts = second = None
-    with exact_f32_matmul():
+    with exact_f32():
         for feats, targets in feature_batches:
             f = torch.as_tensor(feats, device=device).to(torch.float32)
             t = (torch.as_tensor(targets, device=f.device) > 0).to(torch.float32)  # (B, C)
@@ -162,7 +149,7 @@ def make_maha_scorer(forward, estimator: MahaEstimator, *, noise: float = 0.0) -
 
     def score_fn(batch: dict) -> dict:
         require_roi_inputs(batch, "maha")
-        with exact_f32_matmul():
+        with exact_f32():
             feats = batch["feats"].to(torch.float32)
             boxes = batch["boxes"].to(torch.float32)
             if noise:

@@ -1,9 +1,9 @@
-"""Where the time of a full-width LXMERT, UNITER or ViLT forward or
-training step goes on one CUDA card.
+"""Where the time of a full-width LXMERT, UNITER, ViLT, BUTD or caption-
+matcher forward or training step goes on one CUDA card.
 
-    python -m rgqa_tpu_torch.tools.profile_forward [--backbone uniter|vilt]
+    python -m rgqa_tpu_torch.tools.profile_forward [--backbone uniter|vilt|butd|caps]
         [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
-    python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone uniter|vilt]
+    python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone uniter|vilt|butd|caps]
         [--batch 32] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
         [--out FILE.json]
@@ -17,7 +17,16 @@ and through the plain version.
 With ``--train`` it runs training steps instead (f32 master weights,
 bf16 compute, RP pairing, BertAdam, dropout 0.1 and 0, kernels and
 plain versions); ViLT trains on the train CLI's 20-token text, a
-165-token stream, on the u8 pixel wire with padded rects.  With
+165-token stream, on the u8 pixel wire with padded rects.  BUTD
+(``--backbone butd``: GloVe-300, GRU-1024 over 40 tokens, 36 RoIs, 1842
+answers; f32 weights and products whatever the run's ``--bf16``) has no
+attention kernel: its two routes are ``f32``, as it ships (no TF32 in
+cuDNN's GRU or cuBLAS), and ``tf32``, the same call with TF32 allowed
+in both, which prices the exact products; its training step is RP at
+the model's own dropouts (0.2 / 0.5).  The caption matcher (``--backbone
+caps``: BERT-base over 20 tokens) runs bf16 like the others, and its
+training step is the caption strategy's (no RP; the binary loss
+against the answerable indicator; dropout 0.1 and 0).  With
 ``--scorers`` it runs one scorer call per batch of full-width LXMERT
 (bf16 serving weights), kernels and plain versions: msp, energy, ODIN
 (T 1e5, noise 1e-4), Mahalanobis un-noised and noised (1e-2; the
@@ -40,6 +49,7 @@ Raises if there is no card or the profiler records no device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -51,11 +61,13 @@ import torch
 
 from rgqa_tpu_torch.config import OptimConfig
 from rgqa_tpu_torch.data.batching import to_device
+from rgqa_tpu_torch.device import exact_f32
 from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
 from rgqa_tpu_torch.ops import attention as att
 
 # (class, substrings of the lower-cased kernel name), first match wins.
 KERNEL_CLASSES = (
+    ("recurrent (cuDNN)", ("rnn", "gru")),  # BUTD's GRU
     ("attention backward", ("fused_attention_bwd", "long_bwd", "fused_attention_dbias")),
     ("attention kernel", ("fused_attention",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas", "wgmma")),
@@ -140,6 +152,35 @@ def _print_run(run: dict, unit: str = "forward") -> None:
         print(f"    {cls:<18} {c['ms']:8.3f} ms  {100 * c['share']:5.1f}%  {c['launches']:6.0f} launches")
 
 
+@contextlib.contextmanager
+def _tf32():
+    """TF32 allowed in cuDNN and cuBLAS for the block (BUTD's ``tf32``
+    route), the switches as they were after it."""
+    cudnn, precision = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.set_float32_matmul_precision(precision)
+
+
+def _with_tf32(model, fn):
+    """``fn`` run with BUTD ``model``'s precision context swapped for
+    :func:`_tf32` (its forward's and, through the adapter, a training
+    step's backward)."""
+
+    def run():
+        model.precision = _tf32
+        try:
+            return fn()
+        finally:
+            model.precision = exact_f32
+
+    return run
+
+
 def _train_cases(sizes, backbone: str) -> dict:
     """{(batch, "dropout d kernels" | "dropout d plain"): one training
     step}, each on its own full-width model (f32 masters, bf16 compute)."""
@@ -154,9 +195,13 @@ def _train_cases(sizes, backbone: str) -> dict:
     base = default_config(backbone)
     if backbone == "vilt":
         base = dataclasses.replace(base, max_text_len=20)  # the train CLI's stream
+    binary = backbone == "caps"  # the caption strategy: one logit, no RP
+    if binary:
+        base = dataclasses.replace(base, num_answers=1)
     cases = {}
-    for dropout in (0.1, 0.0):
-        cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+    # BUTD's dropouts are the model's own (0.2 / 0.5): one model.
+    for dropout in (0.1, 0.0) if backbone != "butd" else (None,):
+        cfg = base if dropout is None else dataclasses.replace(base, encoder=dataclasses.replace(
             base.encoder, hidden_dropout=dropout, attention_dropout=dropout))
         model, forward = build_model(
             cfg, use_bf16=True, device="cuda", train=True,
@@ -169,11 +214,20 @@ def _train_cases(sizes, backbone: str) -> dict:
             batch = example_batch(cfg, size, seed=0, pixel_wire="u8")
             target = np.zeros((size, cfg.num_answers), np.float32)
             target[np.arange(size), np.arange(size) % cfg.num_answers] = 1.0
-            batch.update(target=target, id_mask=np.ones(size, np.float32))
+            id_mask = (np.arange(size) % 3 != 0).astype(np.float32)  # a third unanswerable
+            batch.update(target=target, id_mask=id_mask)
             batch = to_device(batch, "cuda")
-            for route, fused in (("kernels", None), ("plain", False)):
-                step = make_train_step(forward, opt, sample_pair=True, rng=rng, use_fused=fused)
-                cases[(size, f"dropout {dropout} {route}")] = functools.partial(step, batch)
+            label = "model's dropout" if dropout is None else f"dropout {dropout}"
+
+            steps = {fused: functools.partial(make_train_step(
+                forward, opt, sample_pair=not binary, binary=binary, rng=rng, use_fused=fused), batch)
+                for fused in (None, False)}
+            if backbone == "butd":
+                cases[(size, f"{label} f32")] = steps[None]
+                cases[(size, f"{label} tf32")] = _with_tf32(model, steps[None])
+            else:
+                cases[(size, f"{label} kernels")] = steps[None]
+                cases[(size, f"{label} plain")] = steps[False]
     return cases
 
 
@@ -215,7 +269,8 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=None,
                     help="batch sizes (default 256 32; with --train 32, doubled by RP)")
-    ap.add_argument("--backbone", choices=("lxmert", "uniter", "vilt"), default="lxmert")
+    ap.add_argument("--backbone", choices=("lxmert", "uniter", "vilt", "butd", "caps"),
+                    default="lxmert")
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--scorers", action="store_true", help="profile the rejection scorers (LXMERT)")
     ap.add_argument("--iters", type=int, default=20)
@@ -237,15 +292,19 @@ def main(argv=None) -> list:
         return _profile(_scorer_cases(args.batch or [256]), args, smi, args.out, unit="scorer call")
 
     cfg = default_config(args.backbone)
-    _, forward = build_model(
+    model, forward = build_model(
         cfg, use_bf16=True, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(0),
     )
     fns = {}
     for size in args.batch or [256, 32]:
         batch = to_device(example_batch(cfg, size, seed=0), "cuda")
-        fns[(size, "kernel")] = functools.partial(forward, batch)
-        fns[(size, "plain")] = functools.partial(forward, batch, use_fused=False)
+        call = functools.partial(forward, batch)
+        if args.backbone == "butd":
+            fns[(size, "f32")], fns[(size, "tf32")] = call, _with_tf32(model, call)
+        else:
+            fns[(size, "kernel")] = call
+            fns[(size, "plain")] = functools.partial(forward, batch, use_fused=False)
     with torch.inference_mode():
         return _profile(fns, args, smi, args.out, unit="forward")
 

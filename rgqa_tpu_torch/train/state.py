@@ -3,10 +3,13 @@
 
 - ``<name>.pth``: the weights in the reference GQA ``.pth`` format
   (GQA-LXMERT's ``lxrt_encoder.model.bert.*`` + ``logit_fc.*``,
-  GQA-UNITER's ``encoder.model.uniter.*`` + ``logit_fc.*``, or GQAViLT's
-  ``transformer.*`` ... with fused ``attn.qkv``), which the port's
-  ``--load`` and the JAX package's ``import_lxmert_gqa`` /
-  ``import_uniter_gqa`` / ``import_vilt_gqa`` read.
+  GQA-UNITER's ``encoder.model.uniter.*`` + ``logit_fc.*``, GQAViLT's
+  ``transformer.*`` ... with fused ``attn.qkv``, GQA-BUTD's
+  ``w_emb.emb.weight``, ``q_enc.rnn.*_l0`` and ``weight_g`` /
+  ``weight_v`` pairs, or the trained GQABERT matcher's ``encoder.*`` +
+  ``logit_fc.*``), which the port's ``--load`` and the JAX package's
+  ``import_lxmert_gqa`` / ``import_uniter_gqa`` / ``import_vilt_gqa`` /
+  ``import_butd_gqa`` / ``import_bert_caps`` read.
 - ``<name>.state.pt``: beside it, what a resume needs besides the
   weights: the optimizer state (moments and step count), the step, and
   the generator states.

@@ -117,6 +117,28 @@ def test_tokenizer_matches(roots, jax_data, max_len):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("max_len", [8, 20])
+def test_tokenizer_pairs_match(roots, jax_data, max_len):
+    """Sentence pairs (the caption matcher's ``[CLS] caption [SEP]
+    question [SEP]``): longest-first truncation, ties popping the first
+    segment, segment id 1 on the second."""
+    from rgqa_tpu.data.tokenizer import load_vocab as jax_load_vocab
+
+    vocab_path = os.path.join(roots[0], "vocab.txt")
+    port_tok = tokenizer.WordPieceTokenizer(tokenizer.load_vocab(vocab_path))
+    jax_tok = jax_data.WordPieceTokenizer(jax_load_vocab(vocab_path))
+    captions = [f"a photo of the {w}" for w in ("apple", "shiny red guitar", "", "kite")]
+    firsts, seconds = captions + SENTENCES, SENTENCES + captions
+    got = port_tok.encode_batch(firsts, max_len, text_pairs=seconds)
+    want = jax_tok.encode_batch(firsts, max_len, text_pairs=seconds)
+    for g, w in zip(got, want):
+        assert g.dtype == np.int32
+        np.testing.assert_array_equal(g, w)
+    assert got[2].any() and got[2].max() == 1
+    for i, (a, b) in enumerate(zip(firsts, seconds)):
+        assert port_tok.encode(a, max_len, b) == tuple(jax_tok.encode(a, max_len, b)), i
+
+
 @pytest.mark.parametrize("split", ["testdev", "train,valid"])
 def test_encoded_dataset_matches(roots, jax_data, split):
     from rgqa_tpu.data.tokenizer import load_vocab as jax_load_vocab

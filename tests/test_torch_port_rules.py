@@ -20,8 +20,11 @@
   their originals on the same inputs: the config parser (equal
   ``dataclasses.asdict``), the metrics (equal dicts, byte-equal dumps),
   the checkpoint key maps (equal lists, equal loads; UNITER's in
-  ``tests/test_torch_uniter.py``) and ``cli/plot_attention.py`` (the same
-  figures, byte for byte, in ``tests/test_torch_uniter_slice.py``).
+  ``tests/test_torch_uniter.py``; BUTD's and the caption matcher's here,
+  their loads in ``tests/test_torch_butd.py`` / ``test_torch_caps.py``),
+  BUTD's tokenizer, word splitter and GloVe reader (equal arrays) and
+  ``cli/plot_attention.py`` (the same figures, byte for byte, in
+  ``tests/test_torch_uniter_slice.py``).
 """
 
 from __future__ import annotations
@@ -233,6 +236,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
         lambda: build_model(cfg.model),
         lambda: build_model(default_config("uniter")),
         lambda: build_model(default_config("vilt")),
+        lambda: build_model(default_config("butd")),
+        lambda: build_model(default_config("caps")),
         lambda: train.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
                             "--output", str(tmp_path / "t")]),
         lambda: evaluate.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
@@ -343,3 +348,58 @@ def test_state_dict_loader_copy_matches_the_original(tmp_path):
     assert got.keys() == want.keys()
     for key in want:
         np.testing.assert_array_equal(got[key], want[key])
+
+
+@pytest.mark.parametrize("kw", [{}, {"branched": True}], ids=["default", "branched"])
+def test_butd_key_map_copy_matches_the_original(kw):
+    from rgqa_tpu.checkpoint import torch_import as jax_import
+
+    assert port_import.butd_key_map(**kw) == jax_import.butd_key_map(**kw)
+
+
+@pytest.mark.parametrize(
+    "kw", [{}, {"num_layers": 2, "match_head": True}, {"num_layers": 3, "pooler": False}],
+    ids=["default", "head", "no_pooler"],
+)
+def test_bert_caps_key_map_copy_matches_the_original(kw):
+    from rgqa_tpu.checkpoint import torch_import as jax_import
+
+    assert port_import.bert_caps_key_map(**kw) == jax_import.bert_caps_key_map(**kw)
+
+
+BUTD_SENTENCES = [
+    "What color is the zebra's hat?", "is there a car , or a bus ?", "", "  ", "Which ONE's bigger?",
+    " ".join(["word"] * 45) + "?", "unknownword is here",
+]
+
+
+@pytest.mark.parametrize("max_len", [40, 6])
+def test_butd_tokenizer_copies_match_the_originals(max_len):
+    from rgqa_tpu.models import butd as jax_butd
+
+    from rgqa_tpu_torch.models import butd as port_butd
+
+    word2idx = {}
+    for sent in BUTD_SENTENCES[:-1]:
+        assert port_butd.butd_split(sent) == jax_butd.butd_split(sent)
+        for tok in port_butd.butd_split(sent):
+            word2idx.setdefault(tok, len(word2idx))
+    got = port_butd.tokenize_front_padded(BUTD_SENTENCES, word2idx, max_len)
+    want = jax_butd.tokenize_front_padded(BUTD_SENTENCES, word2idx, max_len)
+    assert got.dtype == np.int32 and got.shape == (len(BUTD_SENTENCES), max_len)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_glove_matrix_copy_matches_the_original(tmp_path):
+    from rgqa_tpu.models import butd as jax_butd
+
+    from rgqa_tpu_torch.models import butd as port_butd
+
+    rng = np.random.default_rng(0)
+    path = tmp_path / "glove.txt"
+    lines = [f"{w} " + " ".join(f"{x:.6f}" for x in rng.standard_normal(8)) for w in ("the", "zebra", "a")]
+    path.write_text("\n".join(lines + ["bad 1.0 2.0", "zebra"]) + "\n", encoding="utf-8")
+    word2idx = {"zebra": 0, "the": 1, "missing": 2}
+    got = port_butd.build_glove_matrix(word2idx, str(path), dim=8)
+    np.testing.assert_array_equal(got, jax_butd.build_glove_matrix(word2idx, str(path), dim=8))
+    assert got.shape == (4, 8) and got[0].any() and not got[2:].any()

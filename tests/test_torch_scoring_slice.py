@@ -569,7 +569,7 @@ def test_cli_maha_takes_the_evaluation_flags_under_bf16(cli_env):
         (["--scorer", "frcnn"], "--scorer frcnn is not ported"),
         (["--scorer", "clip"], "--scorer clip is not ported"),
         (["--scorer", "match"], "--scorer match is not ported"),
-        (["--scorer", "caption"], "--scorer caption is not ported"),
+        (["--scorer", "caption"], "--scorer caption needs --load_gqa"),
         (["--scorer", "odin", "--backbone", "vilt"], "--scorer odin perturbs the RoI"),
         (["--scorer", "maha", "--backbone", "vilt"], "--scorer maha perturbs the RoI"),
         (["--scorer", "separate"], "--load_gqa"),

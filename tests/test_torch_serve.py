@@ -297,7 +297,7 @@ def test_waves(case):
         (["--scorer", "frcnn"], SystemExit, "--scorer frcnn is not ported"),
         (["--scorer", "clip"], SystemExit, "--scorer clip is not ported"),
         (["--scorer", "match"], SystemExit, "--scorer match is not ported"),
-        (["--scorer", "caption"], SystemExit, "--scorer caption is not ported"),
+        (["--scorer", "caption"], SystemExit, "as is --scorer caption"),
         (["--scorer", "odin", "--backbone", "vilt"], SystemExit, "--scorer odin perturbs the RoI"),
         (["--scorer", "maha", "--backbone", "vilt"], SystemExit, "--scorer maha perturbs the RoI"),
         (["--scorer", "separate"], SystemExit, "--scorer separate and ensembles"),

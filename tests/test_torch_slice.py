@@ -157,7 +157,7 @@ def test_cli_writes_predictions_and_metrics(tmp_path):
     [
         (["--scorer", "frcnn"], "--scorer frcnn is not ported"),
         (["--scorer", "match"], "--scorer match is not ported"),
-        (["--scorer", "caption"], "--scorer caption is not ported"),
+        (["--scorer", "maha", "--backbone", "caps"], "--backbone caps has none"),
     ],
 )
 def test_cli_refuses_unported_options(tmp_path, extra, match):

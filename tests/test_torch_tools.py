@@ -129,6 +129,9 @@ def test_time_attention_refuses_unknown_groups():
         ("void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda>", "copy / cast"),
         ("Memcpy HtoD (Pageable -> Device)", "memcpy / memset"),
         ("void at::native::indexSelectLargeIndex<c10::BFloat16, long>", "other"),
+        ("RNN_blockPersist_fp_GRU<float, float, float, 128>", "recurrent (cuDNN)"),
+        ("void elemWiseRNNcell<float, float, float, (cudnnRNNMode_t)3, (cudnnRNNBiasMode_t)2>",
+         "recurrent (cuDNN)"),
     ],
 )
 def test_profile_kernel_classes(name, cls):
