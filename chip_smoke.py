@@ -277,7 +277,32 @@ nonzero:
    butd`` (12 of #1 a matcher forward, none else), re-scored through the
    plain versions (answers equal, confidences within ``CONF_TOL``).
    Their times: ``tools.profile_forward --backbone butd | caps``.
-28. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+28-31. CLIP and the LXMERT match scorer, full width.  28:
+   CLIP ViT-B/32 (vision 12 x 768 over 49 patches + CLS at 224 px, text
+   12 x 512 over 77 tokens, projection 512) in f32 from a seeded init at
+   batch 256: 12 launches of #1 an image forward at 50x50 and none in the
+   causal text tower (plain attention); the cosine held to the plain
+   version and to the same weights on the CPU (``CLIP_COS_TOL``, TF32
+   off), the features' relative errors printed, and the same bits with
+   TF32 switched on around the call (the model holds it off); the scorer
+   forward timed, kernels and plain.  Phase 3 also holds #1 at 50x50
+   with no mask, f32 and bf16, batch 256 and 7, to its plain version,
+   and times it at batch 256 beside unmasked SDPA and the bound (CUDA
+   events and device time).  29: the evaluate CLI ``--scorer clip
+   --clip_path <a random full-width HF CLIP directory> --load <phase 9's
+   BEST.pth> --fp32 --batchSize 256`` on phase 9's root, its CLIP pack
+   ``pixels_clip_224/`` written by the run from the base images: 12
+   launches of #1 a CLIP forward beside the answerer's 34; re-scored
+   through the plain versions (answers equal, cosines within
+   ``CLIP_COS_TOL`` plus the 4 dp step).  30: a random full-width
+   ``model_LXRT.pth`` in the reference layout, loaded back with no key
+   missing or unused, and the evaluate CLI ``--scorer match --loadLXMERT
+   <it>`` from the same answerer: 34 launches of #1 a match forward
+   beside the answerer's 34, f32, re-scored likewise
+   (``MATCH_CONF_TOL``).  31: ``tools.profile_forward --backbone clip``
+   at batch 256 and 32: device time by kernel class, #1's share and the
+   idle share.
+32. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -294,6 +319,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -305,6 +331,8 @@ SHAPES = ((20, 20), (36, 36), (20, 36), (36, 20))  # (Sq, Skv) per LXMERT call k
 # UNITER's single stream: 20 text tokens + 36 RoI features, each
 # question's text pads between its words and the image keys.
 UNITER, UNITER_TEXT = (56, 56), 20
+# CLIP ViT-B/32's vision stream at 224 px: 49 patches + CLS, no mask.
+CLIP_SHAPE = (50, 50)
 VILT_SHAPES = ((165, 165), (185, 185))  # ViLT's stream: 20 or 40 text tokens + 144 patches + CLS
 LONG_SHAPES = VILT_SHAPES + ((65, 185), (185, 65))
 # Either side of 256 keys, where #2's f32 body leaves its whole-row form
@@ -356,6 +384,7 @@ CAPS_LOSS_RTOL = 1e-2
 BWD_PER_STEP = 32
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM: device memory
 BF16_FLOP_PER_S = 989e12  # H100 SXM: dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12  # H100 SXM: float32 outside the tensor cores (#1's f32 body)
 KERNELS = {
     "fused_attention": ("rgqa_tpu_torch/csrc/fused_attention.cu", "rgqa_tpu/ops/attention.py:250"),
     "fused_attention_bwd": ("rgqa_tpu_torch/csrc/fused_attention_bwd.cu", "rgqa_tpu/ops/attention.py:448"),
@@ -730,7 +759,8 @@ def _uniter_bias(b, gen):
 def _bound_ms(name: str, b: int, sq: int, skv: int, itemsize: int) -> tuple[float, str]:
     """The least time the card needs for one call: each input read once,
     each output written once, over the memory rate, against the products'
-    flops over the bf16 tensor-core rate."""
+    flops over the peak rate of their type (bf16 tensor cores; f32
+    outside them)."""
     d = E // HEADS
     act = b * (2 * sq + 2 * skv) * E * itemsize  # q, k, v, out (forward)
     mask = b * skv * 4
@@ -740,13 +770,14 @@ def _bound_ms(name: str, b: int, sq: int, skv: int, itemsize: int) -> tuple[floa
     else:
         nbytes = act + mask
         flops = 4 * b * HEADS * sq * skv * d  # S, PV
-    return _bound(nbytes, flops)
+    return _bound(nbytes, flops, F32_FLOP_PER_S if itemsize == 4 else BF16_FLOP_PER_S)
 
 
-def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+def _bound(nbytes: int, flops: int, flop_rate: float = BF16_FLOP_PER_S) -> tuple[float, str]:
     """The larger of moving ``nbytes`` at the memory rate and doing
-    ``flops`` at the bf16 tensor-core rate, in ms, and which it is."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    ``flops`` at ``flop_rate`` (default the bf16 tensor-core rate), in ms,
+    and which it is."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
@@ -922,8 +953,53 @@ def phase_kernels():
                 log("kernels", msg)
     _mask_readout(att, gen)
     _mask_readout(att, gen, UNITER[1])  # 56 keys: 16-key groups past the last key
+    _clip_kernel(att, gen, errs, times)
     _long_kernel(att, gen, errs, times)
     return errs, times
+
+
+def _us(us) -> str:
+    return "not measured (the profiler lost events)" if us is None else f"{us:.1f} us"
+
+
+def _clip_kernel(att, gen, errs, times):
+    """#1 at CLIP's 50x50 with no mask (the zero (B, 50) bias the vision
+    tower's ``bias=None`` becomes), f32 and bf16, batch 256 and 7, q, k, v
+    column views of one fused QKV product, held to the plain version; at
+    batch 256 timed beside one unmasked SDPA call and the bound, CUDA
+    events (kernel and plain in turns) and the profiler's device time."""
+    import torch
+    import torch.nn.functional as F
+    from rgqa_tpu_torch.tools.time_attention import device_us
+
+    sq, skv = CLIP_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for b in (256, 7):
+            q, k, v = torch.randn(b, sq, 3 * E, generator=gen, device="cuda").to(dtype).split(E, -1)
+            bias = att.bias_vector(None, b, skv, device="cuda")
+            kernel = lambda: att.fused_attention_cuda(q, k, v, bias, HEADS)  # noqa: E731
+            plain = lambda: att.attention_natural_ref(q, k, v, bias, HEADS)  # noqa: E731
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            msg = f"{dname} B={b} 50x50 (CLIP's vision tower, no mask): max|kernel-plain| " + _compare(
+                "fused_attention", dtype, got, want, errs)
+            if b == 256:
+                def heads(t):
+                    return t.view(b, skv, HEADS, E // HEADS).transpose(1, 2)
+
+                sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
+                plain_ms, kernel_ms = in_turns(plain, kernel)
+                bound, by = _bound_ms("fused_attention", b, sq, skv, q.element_size())
+                times[("fused_attention", dname, sq, skv)] = (kernel_ms, plain_ms, cuda_ms(sdpa), bound)
+                dev = {name: device_us(fn, 50, match=match) for name, fn, match in (
+                    ("kernel", kernel, "fused_attention"), ("sdpa", sdpa, None))}
+                msg += ("; us kernel/plain/library/bound: " + "/".join(
+                    f"{x * 1e3:.1f}" for x in times[("fused_attention", dname, sq, skv)])
+                    + f" ({by}); device time kernel {_us(dev['kernel'])}, sdpa {_us(dev['sdpa'])}")
+            log("kernels", msg)
+            del q, k, v, bias, got, want
+    torch.cuda.empty_cache()
 
 
 def _pad_patch_bias(b, skv, gen):
@@ -1392,7 +1468,9 @@ def phase_train_steps(backbone: str = "lxmert", patch: int | None = None,
     return result
 
 
-def phase_train_path():
+def phase_train_path(keep: str):
+    """The train CLI and an evaluate of its ``BEST.pth`` (phase 9); the
+    root and ``BEST.pth`` are copied into ``keep`` for phases 29-30."""
     import torch
     from rgqa_tpu_torch.cli import evaluate
     from rgqa_tpu_torch.cli import train as train_cli
@@ -1432,6 +1510,8 @@ def phase_train_path():
         results = evaluate.main(eargv)["testdev"]
         _check_eval_outputs("train", eval_dir, root, results, eargv, time.perf_counter() - t0,
                             read_counts()["fused_attention"])
+        shutil.copytree(root, os.path.join(keep, "gqa"))
+        shutil.copy(os.path.join(out_dir, "BEST.pth"), os.path.join(keep, "BEST.pth"))
         torch.cuda.empty_cache()
     return launches
 
@@ -2916,6 +2996,294 @@ def phase_butd_caps() -> None:
         phase_caps_path(tmp, root, best)
 
 
+# ---------------------------------------------------------------------------
+# Phases 28-31: CLIP and the LXMERT match scorer.
+# ---------------------------------------------------------------------------
+
+CLIP_PER_FORWARD = 12  # one vision self-attention a layer; the text tower's are plain
+MATCH_PER_FORWARD = 34  # the pretraining encoder's, as the answerer's
+# CLIP in f32 without TF32, the card against the same weights on the CPU
+# and kernel #1 against its plain version: both sides are exact f32 sums
+# in other orders (#1's f32 body holds 2e-5 of the plain attention at
+# O(1) inputs; 12 pre-norm layers carry that as relative error), and
+# the embeddings are L2-normalized, so a cosine moves by about the
+# features' relative error (1e-6 to 1e-5).  The bound leaves a tenfold
+# margin and more.
+CLIP_COS_TOL = 1e-4
+# The match confidence softmax(matched)[:, 1] in f32 (slope <= 1/4 in
+# the logit gap): the same argument, through 34 attention calls.
+MATCH_CONF_TOL = 1e-4
+
+
+def _hf_clip_dir(path: str, seed: int) -> str:
+    """A full-width ViT-B/32 HF CLIP checkpoint directory from a seeded
+    init: ``pytorch_model.bin`` (with HF's ``position_ids`` buffers),
+    ``config.json`` and a byte-level BPE vocabulary (the byte alphabet
+    and a few merges; EOT its highest id, as in CLIP's, so the original
+    configs' argmax pooling finds it)."""
+    import torch
+    from rgqa_tpu_torch.data.clip_tokenizer import bytes_to_unicode
+    from rgqa_tpu_torch.models.clip import ClipConfig, ClipModel, init_clip_weights
+
+    cfg = ClipConfig()
+    with torch.device("cuda"):
+        model = ClipModel(cfg)
+    init_clip_weights(model, torch.Generator(device="cuda").manual_seed(seed))
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    sd["vision_model.embeddings.position_ids"] = torch.arange(cfg.num_patches + 1)[None]
+    sd["text_model.embeddings.position_ids"] = torch.arange(cfg.max_text_len)[None]
+    os.makedirs(path, exist_ok=True)
+    torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"projection_dim": 512, "logit_scale_init_value": 2.6592,
+                   "text_config": {"hidden_size": 512, "num_hidden_layers": 12, "num_attention_heads": 8,
+                                   "intermediate_size": 2048, "vocab_size": 49408,
+                                   "max_position_embeddings": 77, "eos_token_id": 2},
+                   "vision_config": {"hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+                                     "intermediate_size": 3072, "image_size": 224, "patch_size": 32}}, f)
+    b2u = bytes_to_unicode()
+    merges = [("t", "h"), ("th", "e</w>"), ("i", "s</w>"), ("w", "h"), ("wh", "a"), ("wha", "t</w>")]
+    tokens = list(b2u.values()) + [t + "</w>" for t in b2u.values()] + [a + b for a, b in merges]
+    tokens += ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(path, "vocab.json"), "w") as f:
+        json.dump({t: i for i, t in enumerate(dict.fromkeys(tokens))}, f)
+    with open(os.path.join(path, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    del model
+    return path
+
+
+def phase_clip_model() -> None:
+    """CLIP ViT-B/32 at full width, f32, batch 256 (phase 28): 12
+    launches of #1 an image forward at 50x50 and none in the text tower;
+    the cosine, image and text features held to the plain version on the
+    card and to the same weights on the CPU; TF32 switched on around the
+    call changes no bit (the model holds it off); timed."""
+    import torch
+    from rgqa_tpu_torch.models.clip import ClipConfig, ClipModel, example_inputs, init_clip_weights
+    from rgqa_tpu_torch.ops.pixels import clip_normalize
+    from rgqa_tpu_torch.tools import profile_forward
+
+    phase = "clip-model"
+    cfg = ClipConfig()
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        model = ClipModel(cfg)
+    init_clip_weights(model, torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    cpu = ClipModel(cfg)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(phase, f"ClipModel ViT-B/32: vision 12 x 768 over {cfg.num_patches} + 1 tokens at {cfg.image_size} px, "
+        f"text 12 x 512 over {cfg.max_text_len} tokens, projection {cfg.projection_dim}; {n_params} params "
+        f"in f32, built in {time.perf_counter() - t0:.2f} s")
+    ids, mask, u8 = example_inputs(cfg, 256, seed=0)
+    card = [torch.from_numpy(a).cuda() for a in (ids, mask, u8)]
+    with torch.inference_mode():
+        reset_counts()
+        img = model.image_features(clip_normalize(card[2]))
+        torch.cuda.synchronize()
+        per_image = read_counts()
+        txt = model.text_features(card[0], card[1])
+        torch.cuda.synchronize()
+        text_launches = sum(read_counts().values()) - sum(per_image.values())
+        cos = model.cosine(*card[:2], clip_normalize(card[2]))
+        before = read_counts()
+        cos_plain = model.cosine(*card[:2], clip_normalize(card[2]), use_fused=False)
+        torch.cuda.synchronize()
+        if read_counts() != before:
+            raise AssertionError(f"{phase}: the plain forward launched a kernel")
+        with profile_forward._tf32():  # TF32 allowed in cuBLAS and cuDNN around the call
+            cos_tf32 = model.cosine(*card[:2], clip_normalize(card[2]))
+            torch.cuda.synchronize()
+        plain_ms, kernel_ms = in_turns(
+            lambda: model.cosine(*card[:2], clip_normalize(card[2]), use_fused=False),
+            lambda: model.cosine(*card[:2], clip_normalize(card[2])), iters=10, warmup=2)
+        t0 = time.perf_counter()
+        cpu_u8 = torch.from_numpy(u8)
+        cpu_img = cpu.image_features(clip_normalize(cpu_u8))
+        cpu_txt = cpu.text_features(torch.from_numpy(ids), torch.from_numpy(mask))
+        cpu_cos = cpu.cosine(torch.from_numpy(ids), torch.from_numpy(mask), clip_normalize(cpu_u8))
+        cpu_s = time.perf_counter() - t0
+    want = {**{k: 0 for k in KERNELS}, "fused_attention": CLIP_PER_FORWARD}
+    if per_image != want or text_launches:
+        raise AssertionError(f"{phase}: launches per image forward {per_image}, want {want}; "
+                             f"text tower {text_launches}, want 0")
+    cos, cos_plain, cos_tf32 = (c.float().cpu() for c in (cos, cos_plain, cos_tf32))
+    if cos.shape != (256,) or not torch.isfinite(cos).all():
+        raise AssertionError(f"{phase}: cosines {tuple(cos.shape)} not finite / wrong shape")
+
+    def rel(a, b):
+        return ((a.float().cpu() - b).norm() / b.norm()).item()
+
+    d_plain = (cos - cos_plain).abs().max().item()
+    d_cpu = (cos - cpu_cos).abs().max().item()
+    log(phase, f"12 launches of #1 an image forward at 50x50, none in the text tower: {per_image['fused_attention']}"
+        f"/{text_launches}; cosines {cos.min().item():.4f}..{cos.max().item():.4f}; kernel vs plain "
+        f"max|cos diff| {d_plain:.3e}; card vs CPU (f32, TF32 off, same weights): max|cos diff| {d_cpu:.3e} "
+        f"(bound {CLIP_COS_TOL:.0e} each), image features relative error {rel(img, cpu_img):.3e}, text "
+        f"{rel(txt, cpu_txt):.3e}; with TF32 allowed the call gives the same bits: "
+        f"{torch.equal(cos, cos_tf32)}; CPU forward {cpu_s:.2f} s")
+    if not (d_plain <= CLIP_COS_TOL and d_cpu <= CLIP_COS_TOL):
+        raise AssertionError(f"{phase}: the cosines disagree")
+    if not torch.equal(cos, cos_tf32):
+        raise AssertionError(f"{phase}: the f32 model's products follow the global TF32 switches")
+    log(phase, f"scorer forward (normalize, both towers, cosine) at batch 256, f32: kernel {kernel_ms:.3f} ms "
+        f"({256e3 / kernel_ms:.1f} pairs/s), plain attention {plain_ms:.3f} ms ({256e3 / plain_ms:.1f} pairs/s)")
+    del model, cpu, card, img, txt
+    torch.cuda.empty_cache()
+
+
+def _scorer_cli(phase, argv, root, per_batch) -> tuple[dict, int]:
+    """An evaluate CLI run (f32, batch 256) with ``per_batch`` launches of
+    #1 a batch of 256 besides the answerer's 34; its outputs checked.
+    Returns ``{qid: (answer, confidence)}`` and the launches of #1."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    out_dir = argv[argv.index("--output") + 1]
+    batches = math.ceil(len(GQADataset(root, "testdev", add_uq=True)) / 256)
+    reset_counts()
+    t0 = time.perf_counter()
+    results = evaluate.main(argv)["testdev"]
+    torch.cuda.synchronize()
+    want = {**{k: 0 for k in KERNELS}, "fused_attention": (34 + per_batch) * batches}
+    launches = read_counts()
+    rows = _check_scored_outputs(phase, out_dir, root, results, argv, time.perf_counter() - t0, launches, want)
+    confs = sorted(c for _, c in rows.values())
+    if len(set(confs)) < 2:
+        raise AssertionError(f"{phase}: every confidence is {confs[0]}: the re-score would see nothing")
+    return rows, launches["fused_attention"]
+
+
+def _held_to_plain(phase, rows, plain_path, bound) -> None:
+    with open(plain_path) as f:
+        plain = {p["questionId"]: (p["prediction"], p["confidence"]) for p in json.load(f)}
+    same = sorted(plain) == sorted(rows) and all(rows[q][0] == a for q, (a, _) in plain.items())
+    dconf = max(abs(rows[q][1] - c) for q, (_, c) in plain.items())
+    confs = sorted(c for _, c in rows.values())
+    log(phase, f"vs the plain versions: answers equal: {same}; confidences {confs[0]:.4f}..{confs[-1]:.4f} "
+        f"({len(set(confs))} distinct), max|diff| {dconf:.3e} (bound {bound:.0e} + 1e-4, the 4 dp step)")
+    if not same or not dconf <= bound + 1e-4:
+        raise AssertionError(f"{phase}: the scorer disagrees with the plain re-score")
+
+
+def phase_clip_cli(tmp: str, root: str, best: str) -> int:
+    """``--scorer clip`` through the evaluate CLI (phase 29): the train
+    CLI's LXMERT answerer (``--fp32``), a full-width random HF CLIP
+    checkpoint, the synthetic root's CLIP pack (written by the run),
+    batch 256; 12 launches of #1 a CLIP forward beside the answerer's 34;
+    re-scored with every attention call through the plain versions.
+    Returns the run's launches of #1."""
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.scorers.clip import ClipScorer
+
+    phase = "clip-cli"
+    clip_dir = _hf_clip_dir(os.path.join(tmp, "clip-vit-b32"), seed=1)
+    argv = ["--synthetic", "--data_root", root, "--test", "testdev", "--fp32", "--load", best,
+            "--scorer", "clip", "--clip_path", clip_dir, "--batchSize", "256",
+            "--output", os.path.join(tmp, "clip_eval")]
+    rows, launches = _scorer_cli(phase, argv, root, CLIP_PER_FORWARD)
+    if not os.path.isfile(os.path.join(root, "pixels_clip_224", "meta.json")):
+        raise AssertionError(f"{phase}: the run wrote no CLIP pack")
+    before = read_counts()
+    cfg, device, plan = evaluate.parse_args(argv)
+    runner = evaluate.make_runner(cfg, device, plan["scorer"])
+    fused = runner.forward
+    runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
+    scorer = ClipScorer(clip_dir, batch_size=256, device=device, use_fused=False)
+    path = os.path.join(tmp, "clip_plain.json")
+    runner.clip_ood_evaluate(runner._encode(GQADataset(root, "testdev", add_uq=True)), scorer.scores,
+                             os.path.join(root, "images"), dump=path, batch_size=256)
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError(f"{phase}: the plain re-score launched a kernel")
+    _held_to_plain(phase, rows, path, CLIP_COS_TOL)
+    del runner, scorer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_match_cli(tmp: str, root: str, best: str) -> int:
+    """``--scorer match`` through the evaluate CLI (phase 30): a random
+    full-width ``model_LXRT.pth`` in the reference layout (loaded back
+    with no key missing or unused), the train CLI's answerer
+    (``--fp32``), batch 256; 34 launches of #1 a match forward beside the
+    answerer's 34, f32; re-scored through the plain versions.  Returns
+    the run's launches of #1."""
+    import torch
+    from rgqa_tpu_torch.checkpoint.convert import load_reference_pth, to_reference_state_dict
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.models.lxmert import LxmertPretraining
+    from rgqa_tpu_torch.models.zoo import default_config, init_weights, load_pretraining
+
+    phase = "match-cli"
+    enc = default_config().encoder
+    with torch.device("cuda"):
+        model = LxmertPretraining(enc)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(5))
+    with torch.no_grad():  # a random matched head of std 0.02 gives confidences ~0.5 to 4 dp
+        model.cls.seq_relationship.weight.mul_(10.0)
+    pth = os.path.join(tmp, "model_LXRT.pth")
+    torch.save(to_reference_state_dict(model.state_dict(), backbone="lxmert_pretrain"), pth)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    _, missing, unused = load_reference_pth(pth, backbone="lxmert_pretrain")
+    log(phase, f"model_LXRT.pth: LXMERT 9/5/5 x 768 with the MLM, matched, visual and 9500-answer QA heads, "
+        f"{n_params} params ({os.path.getsize(pth) / 1e6:.1f} MB); loaded back: {len(missing)} keys missing, "
+        f"{len(unused)} unused")
+    if missing or unused:
+        raise AssertionError(f"{phase}: missing {missing[:3]}, unused {unused[:3]}")
+    argv = ["--synthetic", "--data_root", root, "--test", "testdev", "--fp32", "--load", best,
+            "--scorer", "match", "--loadLXMERT", pth, "--batchSize", "256",
+            "--output", os.path.join(tmp, "match_eval")]
+    rows, launches = _scorer_cli(phase, argv, root, MATCH_PER_FORWARD)
+    before = read_counts()
+    cfg, device, plan = evaluate.parse_args(argv)
+    runner = evaluate.make_runner(cfg, device, plan["scorer"])
+    fused = runner.forward
+    runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
+    _, pretrain = load_pretraining(pth, runner.model_cfg.encoder, device=device)
+    path = os.path.join(tmp, "match_plain.json")
+    runner.match_ood_evaluate(runner._encode(GQADataset(root, "testdev", add_uq=True)),
+                              lambda batch, **kw: pretrain(batch, use_fused=False, **kw), dump=path)
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError(f"{phase}: the plain re-score launched a kernel")
+    _held_to_plain(phase, rows, path, MATCH_CONF_TOL)
+    del runner, pretrain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_clip_profile() -> None:
+    """``tools.profile_forward --backbone clip`` (phase 31): the CLIP
+    scorer forward at batch 256 and 32, kernels and plain; device time
+    by kernel class, #1's share and the idle share."""
+    from rgqa_tpu_torch.tools import profile_forward
+
+    for run in profile_forward.main(["--backbone", "clip", "--batch", "256", "32", "--iters", "10",
+                                     "--repeats", "2"]):
+        attention = sum(c["ms"] for cls, c in run["classes"].items() if cls.startswith("attention"))
+        log("clip-profile", f"batch {run['batch']} {run['route']}: device {run['device_ms']:.3f} ms per forward, "
+            f"wall {run['wall_ms']:.3f} ms; #1 share {attention / run['device_ms']:.4f}, idle share "
+            f"{1 - run['busy_share']:.4f}; {run['attention_launches']} attention launches")
+
+
+def phase_clip_match(keep: str) -> None:
+    """Phases 28-31, each timed."""
+    root, best = os.path.join(keep, "gqa"), os.path.join(keep, "BEST.pth")
+    timed("28 clip model", phase_clip_model)
+    timed("29 clip CLI", phase_clip_cli, keep, root, best)
+    timed("30 match CLI", phase_match_cli, keep, root, best)
+    timed("31 clip profile", phase_clip_profile)
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -2928,30 +3296,51 @@ def _reachable_acc(root: str) -> float:
     return collections.Counter(answerable).most_common(1)[0][1] / len(answerable)
 
 
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its run time logged under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log("time", f"{name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_prepare_serve():
+    """Phases 16-17 in one temporary directory."""
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_serve_") as tmp:
+        phase_serve(tmp, *phase_prepare(tmp))
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     kind, smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
-    phase_build()
-    errs, times = phase_kernels()
-    phase_model()
-    eval_launches = phase_main_path()
-    phase_vilt_model()
-    vilt_launches = phase_main_path("vilt", ("--backbone", "vilt"), "fused_attention_long", 12)
-    steps = phase_train_steps()
-    train_launches = phase_train_path()
-    phase_train_steps("vilt")
-    vilt_train_launches = phase_vilt_train_path()
-    phase_vilt_long()
-    exp_times = {}
-    exp_launches = phase_experiments(errs, exp_times)
-    phase_scorers()
-    phase_scorer_cli()
-    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_serve_") as tmp:
-        phase_serve(tmp, *phase_prepare(tmp))
-    phase_uniter()
-    phase_butd_caps()
+    timed("2 build", phase_build)
+    errs, times = timed("3 kernels", phase_kernels)
+    timed("4 model", phase_model)
+    eval_launches = timed("5 evaluate", phase_main_path)
+    timed("6 vilt model", phase_vilt_model)
+    vilt_launches = timed("7 vilt evaluate", phase_main_path, "vilt", ("--backbone", "vilt"),
+                          "fused_attention_long", 12)
+    steps = timed("8 train steps", phase_train_steps)
+    keep = tempfile.mkdtemp(prefix="rgqa_smoke_keep_")  # the train CLI's root and BEST.pth
+    try:
+        train_launches = timed("9 train", phase_train_path, keep)
+        timed("10 vilt train steps", phase_train_steps, "vilt")
+        vilt_train_launches = timed("11 vilt train", phase_vilt_train_path)
+        timed("12 vilt long", phase_vilt_long)
+        exp_times = {}
+        exp_launches = timed("13 experiments", phase_experiments, errs, exp_times)
+        timed("14 scorers", phase_scorers)
+        timed("15 scorer CLI", phase_scorer_cli)
+        timed("16-17 prepare and serve", phase_prepare_serve)
+        timed("18-22 UNITER", phase_uniter)
+        timed("23-27 BUTD and caps", phase_butd_caps)
+        timed("28-31 CLIP and match", phase_clip_match, keep)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    log("time", f"all phases: {time.perf_counter() - t0:.1f} s")
 
     launches = {
         "fused_attention": eval_launches,  # the evaluate path

@@ -30,6 +30,16 @@ loads a plain HF ``BertModel`` (``embeddings.*`` ...), a ``bert.``-
 prefixed task model or a trained GQABERT (``encoder.*`` + ``logit_fc.*``),
 or a directory holding ``pytorch_model.bin``, and is written as a
 trained GQABERT.
+
+Two trees keep their reference names in the port, so their checkpoints
+load with no rename at all: CLIP (``models/clip.py`` carries HF
+``CLIPModel``'s names; :func:`load_clip_state_dict` reads an HF
+checkpoint, less its ``position_ids`` buffers) and the pretraining heads
+of ``LxmertPretraining`` (``cls.*``, ``obj_predict_head.*``,
+``answer_head.logit_fc.*``, beside the port's ``lxmert.*`` encoder; a
+reference ``model_LXRT.pth`` holds the encoder as ``bert.*`` and a tied
+``cls.predictions.decoder.weight``, which is dropped on load and
+written from the word table on export).
 """
 
 from __future__ import annotations
@@ -43,15 +53,19 @@ import torch
 from rgqa_tpu_torch.checkpoint.torch_import import (
     bert_caps_key_map,
     butd_key_map,
-    caps_checkpoint_file,
+    CLIP_WEIGHTS,
     caps_layout,
+    clip_key_map,
+    hf_checkpoint_file,
     load_torch_state_dict,
     lxmert_key_map,
+    lxmert_pretrain_key_map,
     uniter_key_map,
     vilt_key_map,
 )
 
-__all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict"]
+__all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict",
+           "load_clip_state_dict"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 _STACKED = re.compile(r"^(lang|visn|x|block|layer|proj)_(\d+)$")
@@ -67,7 +81,8 @@ _REF_CAPS_PREFIX = "encoder."  # the trained GQABERT matcher (caps.py:14-28)
 # BUTD's GRU leaves in the flax tree -> the port's torch.nn.GRU tensors.
 _RENAMED = {(f"gru_{w}_{g}",): f"gru.{'weight' if w[0] == 'w' else 'bias'}_{g}_l0"
             for w in ("w", "b") for g in ("ih", "hh")}
-_CONV = "#conv"  # vilt_key_map's marker on the patch-conv weight
+_CONV = "#conv"  # vilt_key_map's and clip_key_map's marker on the patch-conv weight
+_TIED_DECODER = "cls.predictions.decoder.weight"  # model_LXRT.pth's copy of the word table
 _QKV = re.compile(r"^(transformer\.blocks\.\d+\.attn\.)qkv\.(weight|bias)$")
 
 
@@ -103,7 +118,16 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
     if backbone is None:
         top = {p[0] for p in flat}
         backbone = ("vilt" if "cls_token" in top else "uniter" if "uniter" in top
-                    else "butd" if "gru_w_ih" in top else "caps" if "match_head" in top else "lxmert")
+                    else "butd" if "gru_w_ih" in top else "caps" if "match_head" in top
+                    else "clip" if "vision_model" in top else "lxmert_pretrain" if "mlm_head" in top
+                    else "lxmert")
+    if backbone == "clip":
+        return backbone, clip_key_map(_count({p[1] for p in flat if p[0] == "vision_model"}, "layers"),
+                                      _count({p[1] for p in flat if p[0] == "text_model"}, "layers"))
+    if backbone == "lxmert_pretrain":
+        names = {p[1] for p in flat if len(p) > 1 and p[0] == "lxmert"}
+        return backbone, lxmert_pretrain_key_map(
+            _count(names, "lang"), _count(names, "x"), _count(names, "visn"))
     if backbone == "butd":
         return backbone, butd_key_map(branched=("conf_fc1", "v") in flat)
     if backbone == "caps":
@@ -128,14 +152,25 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
     raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
 
 
+def _port_name(backbone: str, tkey: str, fpath: tuple) -> str:
+    """The port's key of a key-map entry: CLIP's and the pretraining
+    heads' are the reference names, every other the flax path renamed."""
+    if backbone == "clip":
+        return tkey.removesuffix(_CONV)
+    if backbone == "lxmert_pretrain" and not tkey.startswith("bert."):
+        return tkey
+    return port_key(fpath)
+
+
 def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str, torch.Tensor]:
-    """A ``LxmertForGQA``, ``UniterForGQA``, ``ViltForGQA``, ``ButdForGQA`` or
-    ``CaptionMatcher`` flax param tree (nested dicts
-    of numpy or jax arrays; ``backbone`` None reads which off the tree)
-    -> the port's f32 ``state_dict``.  Raises on a missing parameter and
-    on parameters the port has no place for."""
+    """A ``LxmertForGQA``, ``UniterForGQA``, ``ViltForGQA``, ``ButdForGQA``,
+    ``CaptionMatcher``, ``ClipModel`` or ``LxmertPretraining`` flax param
+    tree (nested dicts of numpy or jax arrays; ``backbone`` None reads
+    which off the tree; ``"clip"`` and ``"lxmert_pretrain"`` name the last
+    two) -> the port's f32 ``state_dict``.  Raises on a missing parameter
+    and on parameters the port has no place for."""
     flat = _flatten(params)
-    _, key_map = _key_map(flat, backbone)
+    backbone, key_map = _key_map(flat, backbone)
     sd = {}
     for tkey, fpath, transpose in key_map:
         if fpath not in flat:
@@ -145,7 +180,7 @@ def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str
             val = val.transpose(3, 2, 0, 1)  # (kh, kw, in, out) -> (out, in, kh, kw)
         elif transpose:
             val = val.T
-        sd[port_key(fpath)] = torch.from_numpy(np.array(val, order="C"))  # owned, writable
+        sd[_port_name(backbone, tkey, fpath)] = torch.from_numpy(np.array(val, order="C"))  # owned, writable
     if flat:
         raise ValueError(
             "flax parameters the port has no place for: "
@@ -173,6 +208,10 @@ def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int,
         return
     if backbone == "uniter":
         yield from _uniter_pairs(num_layers, _REF_UNITER_PREFIX, answer_head=True)
+        return
+    if backbone == "lxmert_pretrain":
+        for tkey, fpath, _ in lxmert_pretrain_key_map(l_layers, x_layers, r_layers):
+            yield tkey, _port_name(backbone, tkey, fpath)
         return
     if backbone != "lxmert":
         raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
@@ -209,15 +248,19 @@ def to_reference_state_dict(
     ``conf_head``; GQA-UNITER, ``encoder.model.uniter.*`` + ``logit_fc.*``;
     GQA-BUTD, with ``conf_classifier.*`` when ``sd`` holds the confidence
     head and each ``weight_g`` 0-d; the trained GQABERT matcher,
-    ``encoder.*`` + ``logit_fc.*``; or GQAViLT with each block's Q/K/V fused into
-    ``attn.qkv``): ``torch.save`` it to hand the weights to the reference
-    code, to the JAX package's importer, or to ``--load``.
+    ``encoder.*`` + ``logit_fc.*``; GQAViLT with each block's Q/K/V fused into
+    ``attn.qkv``; or, for ``"lxmert_pretrain"``, a ``model_LXRT.pth`` with
+    its tied decoder weight): ``torch.save`` it to hand the weights to the
+    reference code, to the JAX package's importer, or to ``--load``
+    (``--loadLXMERT``).
     ``--branched_layer``'s heads have no reference keys and are left out."""
     branched = "conf_head.logits.weight" in sd or "conf_fc1.v" in sd
     out = {
         rkey: sd[pkey].detach().cpu()
         for rkey, pkey in _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers, branched)
     }
+    if backbone == "lxmert_pretrain":
+        out[_TIED_DECODER] = out["bert.embeddings.word_embeddings.weight"].clone()
     if backbone == "vilt":
         for i in range(num_layers):
             base = f"transformer.blocks.{i}.attn."
@@ -264,10 +307,14 @@ def load_reference_pth(
     each ``weight_g`` 0-d or with singleton dims; the caption matcher
     reads the three layouts of the JAX package's ``import_bert_caps``
     (the prefix and the head read off the keys; ``position_ids``
-    buffers dropped; ``path`` may be an HF checkpoint directory)."""
+    buffers dropped; ``path`` may be an HF checkpoint directory);
+    ``"lxmert_pretrain"`` reads a reference ``model_LXRT.pth`` as
+    ``import_lxmert_pretraining`` does, its tied decoder weight dropped."""
     if backbone == "caps":
-        path = caps_checkpoint_file(path)
+        path = hf_checkpoint_file(path)
     ref = load_torch_state_dict(path)
+    if backbone == "lxmert_pretrain":
+        ref.pop(_TIED_DECODER, None)
     if backbone == "vilt":
         ref = _split_qkv(ref)
     if backbone == "butd":
@@ -290,3 +337,14 @@ def load_reference_pth(
         sd[pkey] = torch.from_numpy(np.ascontiguousarray(value).reshape(np.shape(value)))
         used.add(rkey)
     return sd, missing, [k for k in ref if k not in used]
+
+
+def load_clip_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """An HF ``CLIPModel`` checkpoint (a ``.bin`` / ``.pth`` file, or a
+    checkpoint directory holding ``pytorch_model.bin``, ``model.bin`` or
+    ``pytorch_model.pth``) -> the port's ``ClipModel`` state_dict: the
+    same names, the ``position_ids`` buffers dropped, nothing
+    transposed."""
+    ref = load_torch_state_dict(hf_checkpoint_file(path, CLIP_WEIGHTS))
+    return {k: torch.from_numpy(np.ascontiguousarray(v).reshape(np.shape(v)))
+            for k, v in ref.items() if not k.endswith("position_ids")}

@@ -26,10 +26,18 @@ package's ``rgqa_tpu/checkpoint/torch_import.py`` that the port uses.
   likewise (a plain HF ``BertModel``'s keys, with the trained GQABERT's
   ``logit_fc`` head when asked), and :func:`caps_layout` reads which of
   ``import_bert_caps``'s three layouts a state_dict is in.
+- :func:`lxmert_pretrain_key_map` lists every parameter of a reference
+  pretraining checkpoint (``model_LXRT.pth``: the encoder as ``bert.*``,
+  the masked-LM, matched, visual and QA heads).
+- :func:`clip_key_map` lists every parameter of an HF ``CLIPModel``
+  checkpoint, the patch conv's weight under a ``#conv`` marker.
+- :func:`hf_checkpoint_file` finds the weights file of an HF checkpoint
+  directory as ``import_bert_caps`` and ``import_clip`` do.
 
 ``tests/test_torch_port_rules.py``, ``tests/test_torch_vilt.py``,
-``tests/test_torch_uniter.py``, ``tests/test_torch_butd.py`` and
-``tests/test_torch_caps.py`` hold them to their originals.
+``tests/test_torch_uniter.py``, ``tests/test_torch_butd.py``,
+``tests/test_torch_caps.py``, ``tests/test_torch_clip.py`` and
+``tests/test_torch_match.py`` hold them to their originals.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ import numpy as np
 import os
 
 __all__ = ["load_torch_state_dict", "lxmert_key_map", "uniter_key_map", "vilt_key_map",
-           "butd_key_map", "bert_caps_key_map", "caps_checkpoint_file", "caps_layout"]
+           "butd_key_map", "bert_caps_key_map", "hf_checkpoint_file", "caps_layout",
+           "lxmert_pretrain_key_map", "clip_key_map", "CAPS_WEIGHTS", "CLIP_WEIGHTS"]
 
 
 def load_torch_state_dict(path: str) -> dict[str, np.ndarray]:
@@ -298,17 +307,22 @@ def bert_caps_key_map(
     return m
 
 
-def caps_checkpoint_file(path: str) -> str:
-    """``path``, or for an HF checkpoint directory the
-    ``pytorch_model.bin`` (or ``model.bin``) in it, as
-    ``import_bert_caps`` resolves it."""
+# The weights files an HF checkpoint directory may hold, as the JAX
+# importers look for them: import_bert_caps and import_clip.
+CAPS_WEIGHTS = ("pytorch_model.bin", "model.bin")
+CLIP_WEIGHTS = ("pytorch_model.bin", "model.bin", "pytorch_model.pth")
+
+
+def hf_checkpoint_file(path: str, names=CAPS_WEIGHTS) -> str:
+    """``path``, or for an HF checkpoint directory the first of ``names``
+    in it."""
     if os.path.isdir(path):
-        for name in ("pytorch_model.bin", "model.bin"):
+        for name in names:
             cand = os.path.join(path, name)
             if os.path.exists(cand):
                 return cand
         raise FileNotFoundError(
-            f"no pytorch_model.bin/model.bin under {path!r} "
+            f"no {'/'.join(names)} under {path!r} "
             "(safetensors-only checkpoints are not supported here)"
         )
     return path
@@ -327,3 +341,99 @@ def caps_layout(keys) -> tuple[str, bool]:
     else:
         prefix = ""
     return prefix, any(k.startswith("logit_fc") for k in keys)
+
+
+def lxmert_pretrain_key_map(
+    l_layers: int = 9, x_layers: int = 5, r_layers: int = 5
+) -> list[tuple[str, tuple, bool]]:
+    """Key map for LXRTPretraining checkpoints (``model_LXRT.pth``;
+    reference ``modeling.py:889-921``): the encoder plus MLM head
+    (``cls.predictions``), matched head (``cls.seq_relationship``), visual
+    heads (``obj_predict_head``), and the 9500-answer QA head."""
+    m = lxmert_key_map(l_layers, x_layers, r_layers, answer_head=False)
+    m += _dense("cls.predictions.transform.dense", ("mlm_head", "dense"))
+    m += _ln("cls.predictions.transform.LayerNorm", ("mlm_head", "ln"))
+    m.append(("cls.predictions.bias", ("mlm_head", "bias"), False))
+    m += _dense("cls.seq_relationship", ("matched_head",))
+    m += _dense("obj_predict_head.transform.dense", ("obj_head", "dense"))
+    m += _ln("obj_predict_head.transform.LayerNorm", ("obj_head", "ln"))
+    for key in ("obj", "attr", "feat"):
+        m += _dense(
+            f"obj_predict_head.decoder_dict.{key}",
+            ("obj_head", f"decoder_{key}"),
+        )
+    m += _dense("answer_head.logit_fc.0", ("answer_head", "dense"))
+    m += _ln("answer_head.logit_fc.2", ("answer_head", "ln"))
+    m += _dense("answer_head.logit_fc.3", ("answer_head", "logits"))
+    return m
+
+
+def clip_key_map(
+    vision_layers: int = 12, text_layers: int = 12
+) -> list[tuple[str, tuple, bool]]:
+    """Key map for HF ``CLIPModel`` checkpoints
+    (``openai/clip-vit-base-patch32``; reference loads them in
+    ``src/tasks/gqa_clip.py:76-79`` / ``gqa_weight.py:80``).
+
+    The patch-embedding Conv2d weight (out, in, kh, kw) is pre-transposed
+    by :func:`import_clip` (marker ``#conv``); projections are bias-free.
+    """
+
+    def clip_layer(tprefix: str, fprefix: tuple) -> list:
+        m: list = []
+        m += _ln(f"{tprefix}.layer_norm1", fprefix + ("layer_norm1",))
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            m += _dense(f"{tprefix}.self_attn.{name}", fprefix + (name,))
+        m += _ln(f"{tprefix}.layer_norm2", fprefix + ("layer_norm2",))
+        m += _dense(f"{tprefix}.mlp.fc1", fprefix + ("fc1",))
+        m += _dense(f"{tprefix}.mlp.fc2", fprefix + ("fc2",))
+        return m
+
+    m: list = [("logit_scale", ("logit_scale",), False)]
+    # Text tower.
+    m.append(
+        ("text_model.embeddings.token_embedding.weight",
+         ("text_model", "token_embedding", "embedding"), False)
+    )
+    m.append(
+        ("text_model.embeddings.position_embedding.weight",
+         ("text_model", "position_embedding", "embedding"), False)
+    )
+    for i in range(text_layers):
+        m += clip_layer(
+            f"text_model.encoder.layers.{i}", ("text_model", f"layers_{i}")
+        )
+    m += _ln(
+        "text_model.final_layer_norm", ("text_model", "final_layer_norm")
+    )
+    m.append(
+        ("text_projection.weight", ("text_projection", "kernel"), True)
+    )
+    # Vision tower.
+    m.append(
+        ("vision_model.embeddings.class_embedding",
+         ("vision_model", "class_embedding"), False)
+    )
+    m.append(
+        ("vision_model.embeddings.patch_embedding.weight#conv",
+         ("vision_model", "patch_embedding", "kernel"), False)
+    )
+    m.append(
+        ("vision_model.embeddings.position_embedding.weight",
+         ("vision_model", "position_embedding", "embedding"), False)
+    )
+    # HF spells it "pre_layrnorm" (sic).
+    m += _ln("vision_model.pre_layrnorm", ("vision_model", "pre_layernorm"))
+    for i in range(vision_layers):
+        m += clip_layer(
+            f"vision_model.encoder.layers.{i}",
+            ("vision_model", f"layers_{i}"),
+        )
+    m += _ln(
+        "vision_model.post_layernorm", ("vision_model", "post_layernorm")
+    )
+    m.append(
+        ("visual_projection.weight", ("visual_projection", "kernel"), True)
+    )
+    return m
+

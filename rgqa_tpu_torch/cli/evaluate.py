@@ -14,6 +14,16 @@ Scorers:
                GQA model (``--load_gqa``)
   caption   -- the Q-C matcher (``--backbone caps``; ``--load`` a trained
                GQABERT) gating the answers of a GQA model (``--load_gqa``)
+  clip      -- the CLIP image-question cosine from a local HF CLIP
+               checkpoint directory (``--clip_path``), answers from the
+               ``--load`` model; pixels from ``<data_root>/pixels_clip_<size>/``
+               (``prepare_data --pixel_transform clip``; a synthetic root
+               writes its own) or the JPEGs under ``<data_root>/images``
+               (PIL); f32, ``--batchSize`` questions a CLIP forward
+  match     -- ``softmax(matched)[:, 1]`` of LXMERT's pretraining heads
+               from a reference ``model_LXRT.pth`` (``--loadLXMERT``; an
+               orbax directory is refused), f32, answers from the ``--load``
+               model
   ``--target_acc`` calibrates tau on the split and dumps ``{qid:
   [answer, confidence]}`` (full precision) with the tau in the result.
 
@@ -25,7 +35,7 @@ the matcher have no confidence head and raise).  The gated scorers
 (``separate``, ``caption``) take any detector and, with
 ``--ans_backbone``, any answerer (default: the detector's backbone, for
 the caption matcher lxmert, as the JAX CLI).  Not ported, and refused by
-name: ``--scorer frcnn``, ``clip`` and ``match``.
+name: ``--scorer frcnn``.
 
 Example:
     python -m rgqa_tpu_torch.cli.evaluate --synthetic --data_root /tmp/gqa \
@@ -49,8 +59,6 @@ from rgqa_tpu_torch.runner import GQARunner
 
 NOT_PORTED = {
     "frcnn": "the FRCNN object-coverage scorer",
-    "clip": "the CLIP scorer and backbone",
-    "match": "the LXMERT pretraining heads",
 }
 ROI_SCORERS = ("odin", "maha")
 GATED_SCORERS = ("separate", "caption")
@@ -80,6 +88,10 @@ def parse_args(argv=None) -> tuple[RunConfig, str, dict]:
         raise SystemExit("--test <split[,split...]> is required")
     refuse_unported(cfg)
     scorer = cfg.ood.scorer
+    if scorer == "clip" and not cfg.ood.clip_path:
+        raise SystemExit("--scorer clip needs --clip_path <local CLIP checkpoint dir> (nothing is downloaded)")
+    if scorer == "match" and not cfg.load_lxmert:
+        raise SystemExit("--scorer match needs --loadLXMERT <pretraining .pth>")
     ensemble = None
     if cfg.load and "," in cfg.load:
         scorer, ensemble = "ensemble", cfg.load.split(",")
@@ -130,6 +142,15 @@ def main(argv=None) -> dict:
             ),
             init_train=False, device=device,
         )
+    clip = pretrain_forward = None
+    if scorer == "clip":
+        from rgqa_tpu_torch.scorers.clip import ClipScorer
+
+        clip = ClipScorer(cfg.ood.clip_path, batch_size=cfg.train.batch_size, device=device)
+    elif scorer == "match":
+        from rgqa_tpu_torch.models.zoo import load_pretraining
+
+        _, pretrain_forward = load_pretraining(cfg.load_lxmert, runner.model_cfg.encoder, device=device)
     all_results = {}
     for split in cfg.data.test_splits.split(","):
         encoded = runner._encode(GQADataset(cfg.data.data_root, split, add_uq=True))
@@ -140,6 +161,13 @@ def main(argv=None) -> dict:
             results = runner.ensemble_ood_evaluate(encoded, plan["ensemble"], dump=dump)
         elif scorer in GATED_SCORERS:
             results = runner.gated_ood_evaluate(encoded, answerer, dump=dump)
+        elif scorer == "clip":
+            results = runner.clip_ood_evaluate(
+                encoded, clip.scores, os.path.join(cfg.data.data_root, "images"), dump=dump,
+                batch_size=cfg.train.batch_size,
+            )
+        elif scorer == "match":
+            results = runner.match_ood_evaluate(encoded, pretrain_forward, dump=dump)
         else:
             results = runner.ood_evaluate(encoded, dump=dump)
         all_results[split] = results

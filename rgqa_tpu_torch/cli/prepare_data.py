@@ -9,10 +9,12 @@ reference download layout -> the data root the port reads.
 Writes the same root as the JAX CLI: the split JSONs and answer vocabulary
 of ``--json_dir`` (copied), ``vocab.txt`` and ``features/`` (the f32
 feature pack, decoded once by ``data.tsv.pack_obj_tsv``), plus
-``pixels_<size>_<mode>/`` under ``--pack_pixels`` (a ViLT pixel pack;
-needs PIL).  It runs no device code, so it takes no
+``pixels_<size>_<mode>/`` under ``--pack_pixels`` (a ViLT pixel pack,
+default 384 px; needs PIL), or with ``--pixel_transform clip``
+``pixels_clip_<size>/`` (the CLIP scorer's rows, default 224 px; no
+``--pixel_mode``).  It runs no device code, so it takes no
 ``--device``.  Not ported, and refused by name: ``--int8`` (the int8
-feature pack) and ``--pixel_transform clip`` (CLIP's pixel rows).
+feature pack).
 """
 
 from __future__ import annotations
@@ -43,18 +45,19 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="also decode the JPEGs under IMG_ROOT once into a uint8 "
         "pixel pack, <out>/pixels_<size>_<mode> (needs PIL)",
     )
-    p.add_argument("--pixel_size", type=int, default=None, help="default 384")
+    p.add_argument("--pixel_size", type=int, default=None, help="default 384 (clip: 224)")
     p.add_argument("--pixel_mode", choices=("pad", "crop"), default=None, help="default pad")
     p.add_argument(
         "--pixel_transform", choices=("pixelbert", "clip"), default="pixelbert",
-        help="pixelbert = ViLT rows (pad/crop + rect); clip: not ported (refused)",
+        help="pixelbert = ViLT rows (pad/crop + rect); clip = CLIP shortest-edge + "
+        "center-crop rows for the CLIP scorer",
     )
     args = p.parse_args(argv)
     if args.int8:
         raise SystemExit("--int8 is not ported (the int8 feature pack); the port packs f32 features")
-    if args.pixel_transform == "clip":
-        raise SystemExit("--pixel_transform clip is not ported (CLIP's pixel rows come with the "
-                         "CLIP scorer and backbone)")
+    if args.pixel_transform == "clip" and args.pixel_mode is not None:
+        raise SystemExit("--pixel_mode applies to --pixel_transform pixelbert only (clip always "
+                         "resizes shortest-edge + center crops)")
     return args
 
 
@@ -76,9 +79,13 @@ def main(argv=None) -> dict:
     if args.pack_pixels:
         from rgqa_tpu_torch.data.images import pack_pixels
 
-        size, mode = args.pixel_size or 384, args.pixel_mode or "pad"
-        pdir = os.path.join(args.out, f"pixels_{size}_{mode}")
-        pack = pack_pixels(args.pack_pixels, pdir, size=size, mode=mode)
+        if args.pixel_transform == "clip":
+            size, mode = args.pixel_size or 224, None
+            pdir = os.path.join(args.out, f"pixels_clip_{size}")
+        else:
+            size, mode = args.pixel_size or 384, args.pixel_mode or "pad"
+            pdir = os.path.join(args.out, f"pixels_{size}_{mode}")
+        pack = pack_pixels(args.pack_pixels, pdir, size=size, mode=mode, transform=args.pixel_transform)
         print(f"packed {len(pack.img_ids)} images (uint8 pixels) into {pdir}")
         done["pixels"] = len(pack.img_ids)
     return done

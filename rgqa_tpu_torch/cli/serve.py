@@ -20,15 +20,23 @@ card (``--device cuda``, the default; raises without one) unless given
 ``--device cpu``.  ``--test <split>`` names the answer vocabulary; ``--backbone`` is lxmert,
 uniter, vilt or butd.  The
 scorer is any that ``make_scorer`` builds (``--scorer`` msp, energy,
-odin, maha, dropout, branched); the evaluate CLI's refusals hold
-(``frcnn``, ``clip``, ``match``; odin / maha on ViLT and the caption
-matcher), and the gated scorers (``separate``, ``caption``: two models)
-and ensembles (``--load a,b``) are the evaluate CLI's.  The
-runner is the evaluate CLI's (``evaluate.make_runner``): bf16 serving
-weights under bf16, but for ``maha`` f32 weights under bf16 compute, so
-the estimator that ``<output>/sample_estimates.pkl`` keeps for every
-later serve or evaluate run is fitted from f32 weights (the JAX serve
-casts the weights to bf16 before the fit, ``rgqa_tpu/cli/serve.py:177-180``).
+odin, maha, dropout, branched); the evaluate CLI's refusals hold (odin /
+maha on ViLT and the caption matcher), and the gated scorers
+(``separate``, ``caption``: two models) and ensembles (``--load a,b``)
+are the evaluate CLI's.  ``--scorer clip``, ``match`` and ``frcnn`` are
+refused by name: the JAX serve builds its scorer through ``make_scorer``,
+which knows none of them (``ValueError: unknown scorer``,
+``rgqa_tpu/scorers/__init__.py:75``); the evaluate CLI scores the first
+two.  The runner is the evaluate CLI's (``evaluate.make_runner``): bf16
+serving weights under bf16, but for ``maha`` f32 weights under bf16
+compute, so the estimator that ``<output>/sample_estimates.pkl`` keeps
+for every later serve or evaluate run is fitted from f32 weights (the JAX
+serve casts the weights to bf16 before the fit,
+``rgqa_tpu/cli/serve.py:177-180``).  BUTD is served in f32, as its
+evaluate CLI scores it: the JAX serve's cast under ``--bf16`` rounds every
+f32 leaf, BUTD's weights too (``rgqa_tpu/cli/serve.py:177-179``), though
+its ``_build_butd`` keeps BUTD in f32 and its evaluate CLI never casts; a
+port-vs-JAX serve comparison on BUTD must name that divergence.
 
 Latency: ``--wave_timeout`` (default 50 ms) bounds how long a pending
 record waits for its wave to fill (``_waves``); a lone record's wave
@@ -64,6 +72,8 @@ from rgqa_tpu_torch.data.dataset import GQADataset
 # the lag-1 fetch to reach steady state, few enough to bound latency and
 # host memory.
 _WAVE_BATCHES = 64
+# Scorers the JAX serve cannot build (its make_scorer knows none of them).
+NOT_SERVED = ("clip", "match", "frcnn")
 
 
 def _normalize(rec: dict) -> dict:
@@ -172,6 +182,9 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     # vocabulary's split must be a deliberate choice in a deployment.
     if not cfg.data.test_splits:
         raise SystemExit("--test <split> is required (answer-vocabulary source)")
+    if cfg.ood.scorer in NOT_SERVED:
+        raise SystemExit(f"--scorer {cfg.ood.scorer} is not served: the JAX serve builds its scorer through "
+                         "make_scorer, which has no such scorer; the evaluate CLI scores clip and match")
     refuse_unported(cfg)
     if cfg.ood.scorer in GATED_SCORERS or (cfg.load and "," in cfg.load):
         raise SystemExit("--scorer separate and ensembles (--load a,b) are scored by the evaluate "

@@ -19,7 +19,8 @@ holds them to each other):
   :class:`PixelPack` (pre-decoded uint8 rows on a memory map), with
   :func:`load_image_batch` / :func:`load_image_batch_u8`;
 - :func:`pack_pixels`: every JPEG under an image root decoded once into a
-  pixelbert :class:`PixelPack` (``prepare_data --pack_pixels``).
+  pixelbert or CLIP :class:`PixelPack` (``prepare_data --pack_pixels
+  [--pixel_transform clip]``).
 
 PIL is imported only inside the functions that decode JPEGs, as in the
 original: the machine with the card has no PIL, and the port's synthetic
@@ -28,8 +29,9 @@ data (``data/synthetic.py``) writes a :class:`PixelPack` directly
 that a pack found under a data root may stand in for its images: the
 same source root, and also the same size, mode and transform, which the
 JAX runner's auto-detection (``rgqa_tpu/runner.py:287-295``) does not
-check.  ``pack_pixels``' ``transform="clip"`` (CLIP's shortest-edge
-resize and center crop) comes with the CLIP slice and raises here.
+check.  A CLIP pack (``transform="clip"``: CLIP's shortest-edge bicubic
+resize and center crop, ``scorers.clip.clip_resize_crop``, mode None, full
+rects) lives in ``pixels_clip_<size>/`` and feeds the CLIP scorer.
 """
 
 from __future__ import annotations
@@ -230,30 +232,38 @@ def pack_matches(pack: PixelPack, img_root: str, size: int, mode: str) -> bool:
     )
 
 
-def _write_meta(out_dir: str, img_root: str, img_ids: list, *, size: int, mode: Optional[str]) -> PixelPack:
+def _write_meta(out_dir: str, img_root: str, img_ids: list, *, size: int, mode: Optional[str],
+                transform: str) -> PixelPack:
     with open(os.path.join(out_dir, "meta.json"), "w") as f:
         json.dump(
-            {"size": size, "mode": mode, "transform": "pixelbert",
+            {"size": size, "mode": mode, "transform": transform,
              "img_root": os.path.abspath(img_root), "img_ids": img_ids},
             f,
         )
     return PixelPack(out_dir)
 
 
+def _require_pil(what: str) -> None:
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(f"{what} decodes JPEGs with PIL, which is not installed here") from e
+
+
 def write_pixel_pack(
     out_dir: str, img_root: str, img_ids: Sequence[str], pixels: np.ndarray,
-    rects: np.ndarray, *, size: int, mode: Optional[str],
+    rects: np.ndarray, *, size: int, mode: Optional[str], transform: str = "pixelbert",
 ) -> PixelPack:
     """Write uint8 ``pixels`` (N, size, size, 3) and ``rects`` (N, 4) as a
-    pixelbert :class:`PixelPack` of ``img_ids``, recorded as built from
-    ``img_root``; the layout :func:`pack_pixels` writes."""
+    :class:`PixelPack` of ``img_ids`` (pixelbert or clip rows), recorded as
+    built from ``img_root``; the layout :func:`pack_pixels` writes."""
     img_ids = list(img_ids)
     if pixels.shape != (len(img_ids), size, size, 3) or rects.shape != (len(img_ids), 4):
         raise ValueError(f"pixels {pixels.shape} / rects {rects.shape} do not fit {len(img_ids)} images")
     os.makedirs(out_dir, exist_ok=True)
     np.ascontiguousarray(pixels, np.uint8).tofile(os.path.join(out_dir, "pixels_u8.bin"))
     np.ascontiguousarray(rects, np.int32).tofile(os.path.join(out_dir, "rects.bin"))
-    return _write_meta(out_dir, img_root, img_ids, size=size, mode=mode)
+    return _write_meta(out_dir, img_root, img_ids, size=size, mode=mode, transform=transform)
 
 
 def pack_pixels(
@@ -266,17 +276,27 @@ def pack_pixels(
     img_ids: Optional[Sequence[str]] = None,
 ) -> PixelPack:
     """Decode every JPEG under ``img_root`` (or ``img_ids`` of them) once
-    into a pixelbert :class:`PixelPack` of ViLT rows (pad / crop + rect),
-    one image at a time into the pack's memory maps.  Needs PIL.
-    ``transform="clip"`` raises: CLIP's rows come with the CLIP slice."""
+    into a :class:`PixelPack`, one image at a time into the pack's memory
+    maps: ``transform="pixelbert"`` ViLT rows (pad / crop + rect),
+    ``"clip"`` CLIP rows (shortest-edge bicubic resize + center crop at
+    ``size``, HF ``CLIPImageProcessor``'s geometry; mode None, full
+    rects).  Needs PIL."""
     if transform == "clip":
-        raise NotImplementedError(
-            "pack_pixels(transform='clip') is not ported: CLIP's resize and crop come with "
-            "the CLIP scorer and backbone"
-        )
-    if transform != "pixelbert":
+        from rgqa_tpu_torch.scorers.clip import clip_resize_crop
+
+        mode = None  # one geometry: shortest edge + center crop
+        full = np.asarray([0, 0, size, size], np.int32)
+
+        def load_u8(img_id):
+            from PIL import Image
+
+            with Image.open(os.path.join(img_root, f"{img_id}.jpg")) as im:
+                return clip_resize_crop(im, size), full
+    elif transform == "pixelbert":
+        load_u8 = GQAImageSource(img_root, size=size, mode=mode).load_u8
+    else:
         raise ValueError(f"transform must be pixelbert|clip, got {transform!r}")
-    source = GQAImageSource(img_root, size=size, mode=mode)
+    _require_pil(f"pack_pixels(transform={transform!r})")
     if img_ids is None:
         img_ids = sorted(
             os.path.splitext(f)[0] for f in os.listdir(img_root) if f.lower().endswith(".jpg")
@@ -287,11 +307,11 @@ def pack_pixels(
     px = np.memmap(os.path.join(out_dir, "pixels_u8.bin"), np.uint8, "w+", shape=(n, size, size, 3))
     rects = np.memmap(os.path.join(out_dir, "rects.bin"), np.int32, "w+", shape=(n, 4))
     for i, img_id in enumerate(img_ids):
-        px[i], rects[i] = source.load_u8(img_id)
+        px[i], rects[i] = load_u8(img_id)
     px.flush()
     rects.flush()
     del px, rects
-    return _write_meta(out_dir, img_root, img_ids, size=size, mode=mode)
+    return _write_meta(out_dir, img_root, img_ids, size=size, mode=mode, transform=transform)
 
 
 def load_image_batch(source, img_ids: Sequence[str], *, rng=None) -> np.ndarray:

@@ -16,10 +16,11 @@ order (so nothing else moves), keeps them in ``synthetic_images_u8.npy``
 and :func:`make_synthetic_pixel_pack` writes them, upsampled by nearest
 neighbour, straight into a pixel pack ``pixels_<size>_<mode>/`` recorded
 as built from ``<root>/images``, which the JAX package's ``PixelPack``
-and runner read unchanged.  These pixels are therefore not the JAX
-generator's JPEG-then-bicubic ones: a parity test feeds both packages
-from one pack.  The images are square, so every rect is the whole image
-in both modes.
+and runner read unchanged.  The CLIP scorer's pack,
+``pixels_clip_<size>/``, is written from the same base images the same
+way.  These pixels are therefore not the JAX generator's
+JPEG-then-bicubic ones: a parity test feeds both packages from one pack.
+The images are square, so every rect is the whole image in every mode.
 
 Left out: ``objects_vocab.txt`` (FRCNN-coverage scorer) and the VQA
 generator, neither of which the port reads yet; they draw nothing, so
@@ -303,14 +304,22 @@ def make_synthetic_gqa(
     }
 
 
-def make_synthetic_pixel_pack(root: str, size: int = 384, mode: str = "pad"):
+def make_synthetic_pixel_pack(root: str, size: int = 384, mode: Optional[str] = "pad",
+                              transform: str = "pixelbert"):
     """Write ``<root>/pixels_<size>_<mode>/``, a pixelbert pixel pack of the
     synthetic root's base images upsampled to ``size`` by nearest
     neighbour, recorded as built from ``<root>/images``; returns it as a
-    :class:`~rgqa_tpu_torch.data.images.PixelPack`."""
+    :class:`~rgqa_tpu_torch.data.images.PixelPack`.  ``transform="clip"``
+    writes the same rows as CLIP's pack, ``<root>/pixels_clip_<size>/``
+    (mode None: the images are square, so CLIP's center crop keeps them
+    whole)."""
     from rgqa_tpu_torch.data.images import write_pixel_pack
 
-    if mode not in ("pad", "crop"):
+    if transform == "clip":
+        mode, out_dir = None, os.path.join(root, f"pixels_clip_{size}")
+    elif mode in ("pad", "crop"):
+        out_dir = os.path.join(root, f"pixels_{size}_{mode}")
+    else:
         raise ValueError(f"mode must be pad|crop, got {mode!r}")
     base = np.load(os.path.join(root, BASE_IMAGES))
     with open(os.path.join(root, "features", "img_ids.json")) as f:
@@ -319,8 +328,8 @@ def make_synthetic_pixel_pack(root: str, size: int = 384, mode: str = "pad"):
     pixels = base[:, src][:, :, src]
     rects = np.tile(np.asarray([0, 0, size, size], np.int32), (len(img_ids), 1))
     return write_pixel_pack(
-        os.path.join(root, f"pixels_{size}_{mode}"), os.path.join(root, "images"),
-        img_ids, pixels, rects, size=size, mode=mode,
+        out_dir, os.path.join(root, "images"), img_ids, pixels, rects, size=size, mode=mode,
+        transform=transform,
     )
 
 

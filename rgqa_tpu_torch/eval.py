@@ -2,9 +2,9 @@
 ``rgqa_tpu/eval.py``: ``predict``, ``evaluate``, ``topk_predict``,
 ``oracle_score``, ``dump_attention``, ``make_scorer``,
 ``score_split``, ``ood_evaluate``, ``gated_ood_evaluate``,
-``ensemble_ood_evaluate``, ``fit_maha_estimator``, ``get_pseudo_labels``
-and ``predict_with_thresh``; ``score_rows``, the answers by row, for the
-serving waves).
+``ensemble_ood_evaluate``, ``clip_ood_evaluate``, ``match_ood_evaluate``,
+``fit_maha_estimator``, ``get_pseudo_labels`` and ``predict_with_thresh``;
+``score_rows``, the answers by row, for the serving waves).
 
 ``ScoringMixin`` expects the host class to provide ``cfg``, ``device``,
 ``model``, ``forward``, ``model_cfg``, ``label2ans``, ``train_set``, ``output``,
@@ -22,7 +22,15 @@ flag on those scorers and never casts.  BUTD is the exception: it
 computes in f32 under ``--bf16`` too, so the only bf16 rounding of its
 run is the JAX feed's, which ``_map_eval`` makes on the device (the
 feats rounded to bf16 and back for every step function without
-``needs_f32_inputs``).
+``needs_f32_inputs``).  So does the match scorer's f32 pretraining model
+(its step carries ``bf16_feed``).
+
+The CLIP scorer reads images, not RoI feats: ``clip_ood_evaluate`` feeds
+it uint8 rows from a CLIP pixel pack beside the image root when one
+matches (``pixels_clip_<size>/``, checked for transform, size and source;
+a synthetic root writes its own), else JPEGs decoded with PIL; where it
+can do neither it raises, naming the pack and the ``prepare_data``
+command that builds it.
 """
 
 from __future__ import annotations
@@ -38,11 +46,14 @@ import torch
 from rgqa_tpu_torch.metrics import ClosedSetEvaluator, RGQAEvaluator, dump_predictions
 from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
 from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
+from rgqa_tpu_torch.data.images import GQAImageSource, PixelPack
+from rgqa_tpu_torch.data.synthetic import BASE_IMAGES, make_synthetic_pixel_pack
 from rgqa_tpu_torch.scorers import (
     apply_tau,
     calibrate_tau,
     ensemble_merge,
     fit_estimator,
+    make_match_scorer,
     make_msp_scorer,
     make_scorer,
 )
@@ -65,8 +76,8 @@ class ScoringMixin:
         batches = device_prefetch(
             batch_iterator(encoded, self.cfg.train.batch_size), self.device
         )
-        round_feats = (self.model_cfg.backbone == "butd" and self.cfg.train.use_bf16
-                       and not getattr(step_fn, "needs_f32_inputs", False))
+        round_feats = (self.cfg.train.use_bf16 and not getattr(step_fn, "needs_f32_inputs", False)
+                       and (self.model_cfg.backbone == "butd" or getattr(step_fn, "bf16_feed", False)))
         pending = None
         for qids, batch, real in batches:
             if round_feats:  # the JAX feed's bf16 feats, promoted to f32 in the model
@@ -240,6 +251,74 @@ class ScoringMixin:
         }
         return self._rejection_results(encoded, quesid2ans, dump)
 
+    def _clip_pack(self, owner, image_root: str) -> tuple[Optional[PixelPack], Optional[str]]:
+        """(the CLIP pack that may stand in for ``image_root``'s JPEGs or
+        None, the pack's directory or None) for a scorer ``owner``: only a
+        scorer that declares ``consumes_uint8_rows`` takes pack rows, and
+        only from ``<root>/pixels_clip_<its image_size>/`` built from this
+        very image root with the clip transform at that size.  A synthetic
+        root without the pack gets it written from its base images."""
+        size = getattr(owner, "image_size", None)
+        if not size or not getattr(owner, "consumes_uint8_rows", False):
+            return None, None
+        root = os.path.dirname(os.path.abspath(image_root))
+        pack_dir = os.path.join(root, f"pixels_clip_{size}")
+        meta = os.path.join(pack_dir, "meta.json")
+        if self.cfg.data.synthetic and not os.path.isfile(meta) and os.path.isfile(
+            os.path.join(root, BASE_IMAGES)
+        ):
+            make_synthetic_pixel_pack(root, size, transform="clip")
+        if os.path.isfile(meta):
+            pack = PixelPack(pack_dir)
+            if pack.transform == "clip" and pack.size == size and pack.matches_source(image_root):
+                return pack, pack_dir
+        return None, pack_dir
+
+    def clip_ood_evaluate(
+        self, encoded: EncodedGQA, similarity, image_root: str, dump: Optional[str] = None,
+        batch_size: int = 32,
+    ) -> dict:
+        """CLIP-score rejection (``gqa_clip.py:76-110``): answers from this
+        model's argmax, confidence = the image-question cosine from
+        ``similarity(images, texts) -> scores`` (usually a bound
+        ``scorers.clip.ClipScorer.scores``), ``batch_size`` questions a
+        call.  Images come from a matching CLIP pixel pack
+        (:meth:`_clip_pack`) where it holds them, else from the JPEGs
+        under ``image_root`` through PIL; a question whose image neither
+        can give raises before anything is scored."""
+        owner = getattr(similarity, "__self__", similarity)
+        pack, pack_dir = self._clip_pack(owner, image_root)
+        ds = encoded.dataset
+        qids = list(encoded.question_ids)
+        img_ids = [ds.id2datum[q]["img_id"] for q in qids]
+        source = GQAImageSource(image_root)
+        decode = sorted({i for i in img_ids if pack is None or i not in pack})
+        if decode:
+            _check_decodable(decode, source, image_root, pack_dir, getattr(owner, "image_size", None))
+        answers = self.predict(encoded)
+        quesid2ans = {}
+        for s in range(0, len(qids), batch_size):
+            chunk = qids[s : s + batch_size]
+            imgs = [pack.load_u8(i)[0] if pack is not None and i in pack else _decode_rgb(source, i)
+                    for i in img_ids[s : s + batch_size]]
+            scores = similarity(imgs, [ds.id2datum[q]["sent"] for q in chunk])
+            for qid, score in zip(chunk, scores):
+                quesid2ans[qid] = (answers[qid], float(score))
+        return self._rejection_results(encoded, quesid2ans, dump)
+
+    def match_ood_evaluate(self, encoded: EncodedGQA, pretrain_forward, dump: Optional[str] = None) -> dict:
+        """LXMERT cross-modal match rejection (``gqa_lxrcap.py:98-120``):
+        answers from this fine-tuned model, confidence =
+        ``softmax(matched)[:, 1]`` in f32 of the pretraining model behind
+        ``pretrain_forward`` (``models.zoo.load_pretraining``'s adapter),
+        fed the JAX feed's bf16-rounded feats under ``--bf16``."""
+        answers = self.predict(encoded)
+        quesid2ans = {}
+        for qids, out, real in self._map_eval(encoded, make_match_scorer(pretrain_forward), ("score",)):
+            for qid, score in zip(qids, out["score"][:real]):
+                quesid2ans[qid] = (answers[qid], float(score))
+        return self._rejection_results(encoded, quesid2ans, dump)
+
     def fit_maha_estimator(self) -> MahaEstimator:
         """Per-class means and the shared precision over the train split
         (``gqa_maha.py:120-189``; an evaluation runner encodes it here),
@@ -327,6 +406,36 @@ class ScoringMixin:
             with open(dump, "w") as f:
                 json.dump({q: [ans, float(score)] for q, (ans, score) in out.items()}, f)
         return {"tau": tau, "quesid2ans": out}
+
+
+def _check_decodable(img_ids, source, image_root: str, pack_dir: Optional[str], size) -> None:
+    """Raise unless PIL and every JPEG of ``img_ids`` are there."""
+    missing = []
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError:
+        missing.append("PIL")
+    absent = [i for i in img_ids if i not in source]
+    if absent:
+        missing.append(f"{len(absent)} JPEGs under {image_root} (e.g. {absent[0]}.jpg)")
+    if not missing:
+        return
+    where = (f"no CLIP pixel pack {pack_dir} (size {size}, built from {image_root}) holds them" if pack_dir
+             else "this scorer takes no pixel pack")
+    raise RuntimeError(
+        f"--scorer clip has no pixels for {len(img_ids)} images: {where}, and decoding "
+        f"the JPEGs needs {', '.join(missing)}. Build the pack where PIL and the JPEGs are: python -m "
+        f"rgqa_tpu_torch.cli.prepare_data --tsv <tsv> --json_dir <json_dir> --vocab <vocab.txt> "
+        f"--out {os.path.dirname(os.path.abspath(image_root))} --pack_pixels {image_root} "
+        f"--pixel_transform clip --pixel_size {size or 224}"
+    )
+
+
+def _decode_rgb(source: GQAImageSource, img_id: str):
+    from PIL import Image
+
+    with Image.open(source.path(img_id)) as im:
+        return im.convert("RGB")
 
 
 def _fetch(item):

@@ -9,7 +9,16 @@ the compute dtype of every block; the weights keep their own.
 
 ``output_probs`` returns the cross layers' attention maps as
 ``x_attention_probs`` (``dump_attention``'s), computed through the plain
-product for those calls alone.  Not ported yet: the pretraining heads.
+product for those calls alone.
+
+:class:`LxmertPretraining` is the encoder with the pretraining heads
+(reference ``modeling.py:889-1002``): the masked-LM head decoding onto the
+tied word table, the visual heads, the matched head and the 9500-answer
+QA head.  Its matched head backs the LXMERT match rejection scorer
+(``match_score``).  The heads keep the reference ``model_LXRT.pth`` names
+(``cls.predictions.*``, ``cls.seq_relationship``, ``obj_predict_head.*``,
+``answer_head.logit_fc.*``); the encoder is the port's ``lxmert.*``, as in
+:class:`LxmertForGQA`.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from rgqa_tpu_torch.models.transformer import (
 )
 from rgqa_tpu_torch.ops.dropout import DropoutRng, HiddenDropout
 
-__all__ = ["VisualFeatEncoder", "LxmertModel", "AnswerHead", "LxmertForGQA"]
+__all__ = ["VisualFeatEncoder", "LxmertModel", "AnswerHead", "LxmertForGQA", "MLMHead", "VisualObjHead",
+           "LxmertPretraining"]
 
 
 class VisualFeatEncoder(nn.Module):
@@ -165,3 +175,111 @@ class LxmertForGQA(nn.Module):
         if output_probs:
             out["x_attention_probs"] = enc["x_attention_probs"]
         return out
+
+
+class _HeadTransform(nn.Module):
+    """Dense -> GELU -> LayerNorm (reference ``BertPredictionHeadTransform``)."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
+        super().__init__()
+        self.dense = Dense(cfg.hidden_size, cfg.hidden_size, dtype)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(gelu(self.dense(x)))
+
+
+class MLMHead(nn.Module):
+    """Masked-LM head (``cls.predictions``; reference
+    ``BertLMPredictionHead``, ``modeling.py:601-625``): the transform, then
+    the decoder that shares the word-embedding matrix, plus a free bias."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.transform = _HeadTransform(cfg, dtype)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+    def forward(self, hidden: torch.Tensor, word_table: torch.Tensor) -> torch.Tensor:
+        h = self.transform(hidden)
+        return h @ word_table.T.to(h.dtype) + self.bias
+
+
+class _PretrainingHeads(nn.Module):
+    """``cls``: the masked-LM head and the matched head."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype):
+        super().__init__()
+        self.predictions = MLMHead(cfg, dtype)
+        self.seq_relationship = Dense(cfg.hidden_size, 2, dtype)
+
+
+class VisualObjHead(nn.Module):
+    """Masked-object heads (``obj_predict_head``; reference
+    ``BertVisualObjHead``, ``modeling.py:628-650``): the shared transform,
+    one decoder per visual loss."""
+
+    def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.transform = _HeadTransform(cfg, dtype)
+        self.decoder_dict = nn.ModuleDict({
+            "obj": Dense(cfg.hidden_size, cfg.obj_vocab_size, dtype),
+            "attr": Dense(cfg.hidden_size, cfg.attr_vocab_size, dtype),
+            "feat": Dense(cfg.hidden_size, cfg.visual_feat_dim, dtype),
+        })
+
+    def forward(self, hidden: torch.Tensor) -> dict:
+        h = self.transform(hidden)
+        return {name: dec(h) for name, dec in self.decoder_dict.items()}
+
+
+class _GeLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu(x)
+
+
+class _QAHead(nn.Module):
+    """``answer_head.logit_fc``: Linear, GeLU, LayerNorm, Linear (the
+    reference ``BertVisualAnswerHead``), indices 0, 2, 3 holding weights."""
+
+    def __init__(self, cfg: EncoderConfig, num_answers: int, dtype: torch.dtype):
+        super().__init__()
+        e = cfg.hidden_size
+        self.logit_fc = nn.Sequential(
+            Dense(e, 2 * e, dtype), _GeLU(), LayerNorm(2 * e, cfg.layer_norm_eps),
+            Dense(2 * e, num_answers, dtype),
+        )
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        return self.logit_fc(pooled)
+
+
+class LxmertPretraining(nn.Module):
+    """LXMERT with the pretraining heads (``rgqa_tpu/models/lxmert.py:285``);
+    returns ``{"mlm", "visn", "matched", "qa", "pooled"}`` of raw logits
+    (``visn``: ``{"obj", "attr", "feat"}``)."""
+
+    def __init__(self, cfg: EncoderConfig, num_answers: int = 9500, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.lxmert = LxmertModel(cfg, dtype)
+        self.cls = _PretrainingHeads(cfg, dtype)
+        self.obj_predict_head = VisualObjHead(cfg, dtype)
+        self.answer_head = _QAHead(cfg, num_answers, dtype)
+
+    def forward(
+        self, input_ids, input_mask, segment_ids, feats, boxes, *, use_fused: Optional[bool] = None,
+        rng: Optional[DropoutRng] = None,
+    ) -> dict:
+        enc = self.lxmert(input_ids, input_mask, segment_ids, feats, boxes, use_fused=use_fused, rng=rng)
+        return {
+            "mlm": self.cls.predictions(enc["lang"], self.lxmert.embeddings.word_embeddings.weight),
+            "visn": self.obj_predict_head(enc["visn"]),
+            "matched": self.cls.seq_relationship(enc["pooled"]),
+            "qa": self.answer_head(enc["pooled"]),
+            "pooled": enc["pooled"],
+        }
+
+    def match_score(self, input_ids, input_mask, segment_ids, feats, boxes, **kw) -> torch.Tensor:
+        """Cross-modal match probability, ``softmax(matched)[:, 1]`` in f32
+        (the ``lxrcap`` rejection scorer, ``gqa_lxrcap.py:98-120``)."""
+        out = self(input_ids, input_mask, segment_ids, feats, boxes, **kw)
+        return torch.softmax(out["matched"].float(), dim=-1)[:, 1]

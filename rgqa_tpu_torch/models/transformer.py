@@ -66,13 +66,14 @@ class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype``: input, weight and bias are
     cast to it at use (flax ``nn.Dense(dtype=...)``)."""
 
-    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int, dtype: torch.dtype = torch.float32,
+                 *, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):

@@ -15,29 +15,36 @@
   ``boxes`` (B, K, 4);
 - caps: ``input_ids``, ``input_mask``, ``segment_ids`` (B, T) of the
   ``[CLS] caption [SEP] question [SEP]`` pair.
+
+:func:`load_pretraining` builds LXMERT with its pretraining heads from a
+reference ``model_LXRT.pth`` (the match scorer's ``--loadLXMERT``), with
+an adapter over LXMERT's batch keys.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from rgqa_tpu_torch.config import ModelConfig
+from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+from rgqa_tpu_torch.config import EncoderConfig, ModelConfig
 from rgqa_tpu_torch.data.images import rect_patch_mask
 from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.butd import MAX_GQA_LENGTH, ButdForGQA, init_butd_weights
 from rgqa_tpu_torch.models.caps import CaptionMatcher
-from rgqa_tpu_torch.models.lxmert import LxmertForGQA
+from rgqa_tpu_torch.models.lxmert import LxmertForGQA, LxmertPretraining
 from rgqa_tpu_torch.models.transformer import LayerNorm
 from rgqa_tpu_torch.models.uniter import UNITER_POS_DIM, UniterForGQA
 from rgqa_tpu_torch.models.vilt import ViltForGQA
 from rgqa_tpu_torch.ops.pixels import pixelbert_normalize
 
-__all__ = ["build_model", "default_config", "example_batch", "init_weights", "module_mode"]
+__all__ = ["build_model", "default_config", "example_batch", "init_weights", "module_mode",
+           "load_pretraining"]
 
 DENSE_INIT_STD = 0.02  # BERT's normal init, flax ``dense_init`` in the JAX package
 
@@ -202,6 +209,44 @@ def build_model(
                 batch["input_ids"], batch["input_mask"], batch["segment_ids"],
                 batch["feats"], batch["boxes"], **kw,
             )
+
+    return model, forward
+
+
+def load_pretraining(
+    path: str, cfg: EncoderConfig, *, device: Optional[torch.device | str] = None,
+) -> tuple[LxmertPretraining, Callable[..., dict]]:
+    """LXMERT with its pretraining heads, f32 weights and compute, in eval
+    mode on ``device`` (default CUDA), from a reference pretraining
+    ``.pth`` (``model_LXRT.pth``, as ``import_lxmert_pretraining`` reads
+    it: the tied decoder weight dropped), at ``cfg``'s depths; the QA
+    head's width is the checkpoint's (9500 answers in the reference's).
+    Raises on a key the checkpoint lacks, and on an orbax snapshot
+    directory (the JAX CLI's ``--loadLXMERT``; reading orbax needs jax).
+    Returns the module and its forward adapter (LXMERT's batch keys,
+    ``deterministic`` and ``use_fused`` as :func:`build_model`'s)."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"--loadLXMERT {path!r} is a directory: the JAX CLI reads an orbax snapshot there, which "
+            "needs jax and is not ported; give the reference pretraining .pth (model_LXRT.pth)"
+        )
+    sd, missing, unused = load_reference_pth(
+        path, backbone="lxmert_pretrain", l_layers=cfg.l_layers, x_layers=cfg.x_layers,
+        r_layers=cfg.r_layers,
+    )
+    if missing:
+        raise ValueError(f"pretraining checkpoint {path!r} is missing keys: {missing[:5]}")
+    if unused:
+        print(f"Ckpt weights unused: {unused[:5]}...")
+    with resolve_device(device):
+        model = LxmertPretraining(cfg, num_answers=sd["answer_head.logit_fc.3.weight"].shape[0])
+    model.load_state_dict(sd)
+    model.eval()
+
+    def forward(batch: dict, *, deterministic: Optional[bool] = None, **kw) -> dict:
+        with module_mode(model, deterministic):
+            return model(batch["input_ids"], batch["input_mask"], batch["segment_ids"],
+                         batch["feats"], batch["boxes"], **kw)
 
     return model, forward
 

@@ -66,6 +66,9 @@ but conf, separate and caption, mixup, the MCE, energy and branched
 losses, ``--uq_as_class``, ``--chart``, chunked dispatch, the other
 optimizers, bf16 moments, orbax snapshots (reading them needs jax) and
 the ``--loadLXMERT`` (on LXMERT) / ``--loadLXMERTQA`` initialisations.
+An evaluation runner for ``--scorer match`` with ``--load`` takes
+``--loadLXMERT`` (the match scorer's pretraining checkpoint, which the
+evaluate CLI loads) and leaves it out of the answerer.
 ``--loadLXMERT`` with ``--backbone uniter`` loads a pretrained UNITER encoder (``uniter.*`` or
 ``bert.*`` keys, or a GQA-UNITER ``.pth``'s encoder and head), as the JAX
 runner does; keys it lacks, the answer head of a bare encoder among
@@ -110,7 +113,11 @@ def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
         "--uq_as_class": m.uq_as_class,
-        "--loadLXMERT (LXMERT's pretrained encoder)": bool(cfg.load_lxmert) and m.backbone != "uniter",
+        # --scorer match reads --loadLXMERT as its scorer's checkpoint (the
+        # evaluate CLI loads it); without --load the JAX runner would also
+        # initialise the answerer's encoder from it, which is not ported.
+        "--loadLXMERT (LXMERT's pretrained encoder)": bool(cfg.load_lxmert) and m.backbone != "uniter"
+        and not (not train and cfg.ood.scorer == "match" and cfg.load),
         "--loadLXMERTQA": bool(cfg.load_lxmert_qa),
         "--feed_int8": d.feed_int8,
         "--eval_chunk > 1": t.eval_chunk > 1,

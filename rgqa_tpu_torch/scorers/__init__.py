@@ -4,10 +4,12 @@ Every scorer is ``score_fn(batch) -> {"label", "score"[, "probs"]}``
 built from a backbone's forward adapter: msp, energy, odin, dropout
 (MC-dropout), branched and maha; ``ensemble_merge`` merges per-model
 sigmoid vectors, and ``calibrate_tau`` / ``apply_tau`` set the
-``--target_acc`` threshold.  The host-side scorers of the JAX package
-(FRCNN coverage, CLIP and caption matching) and the LXMERT match scorer
-are not ported: the evaluate CLI refuses ``--scorer frcnn``, ``clip``,
-``match`` and ``caption`` by name.
+``--target_acc`` threshold.  ``make_match_scorer`` (the LXMERT match
+scorer, from a pretraining model's forward) and ``scorers.clip``
+(``ClipScorer``, the CLIP image-question cosine) back the evaluate CLI's
+``--scorer match`` and ``clip``, which ``make_scorer`` does not build, as
+in the JAX package.  Not ported: the FRCNN coverage scorer (``--scorer
+frcnn`` is refused by name).
 """
 
 from rgqa_tpu_torch.scorers.calibrate import apply_tau, calibrate_tau
@@ -16,6 +18,7 @@ from rgqa_tpu_torch.scorers.core import (
     majority_vote,
     make_branched_scorer,
     make_dropout_scorer,
+    make_match_scorer,
     make_energy_scorer,
     make_msp_scorer,
     make_odin_scorer,
@@ -28,6 +31,7 @@ __all__ = [
     "make_odin_scorer",
     "make_dropout_scorer",
     "make_branched_scorer",
+    "make_match_scorer",
     "majority_vote",
     "ensemble_merge",
     "MahaEstimator",

@@ -18,8 +18,10 @@ raise.  Their ``needs_f32_inputs`` flag says the feed must hand them
 exact f32 feats (the port's feed always does; the JAX feed casts to bf16
 otherwise).
 
-The LXMERT match scorer (``make_match_scorer``) needs the pretraining
-heads, which are not ported.
+The LXMERT match scorer (:func:`make_match_scorer`) reads the matched
+head of ``LxmertPretraining``, an f32 model: its ``bf16_feed`` flag says
+that under ``--bf16`` it takes the JAX feed's bf16-rounded feats, which
+the scoring loop rounds on the device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ __all__ = [
     "make_odin_scorer",
     "make_dropout_scorer",
     "make_branched_scorer",
+    "make_match_scorer",
     "majority_vote",
     "ensemble_merge",
     "sign01",
@@ -205,6 +208,24 @@ def make_branched_scorer(forward, *, mix: bool = False) -> Callable[[dict], dict
             msp = torch.amax(probs, dim=-1)
             return {"label": torch.argmax(probs, dim=-1), "score": msp * conf if mix else conf}
 
+    return score_fn
+
+
+def make_match_scorer(forward, answer_forward=None) -> Callable[[dict], dict]:
+    """LXMERT cross-modal match score (``gqa_lxrcap.py:98-120``):
+    ``softmax(matched)[:, 1]`` in f32 from the pretraining model's
+    ``forward``; the label from ``answer_forward`` (a fine-tuned GQA
+    model) when given, else from the pretraining QA head."""
+
+    def score_fn(batch: dict) -> dict:
+        with torch.inference_mode():
+            out = forward(batch, deterministic=True)
+            score = torch.softmax(out["matched"].to(torch.float32), dim=-1)[:, 1]
+            answers = answer_forward(batch, deterministic=True) if answer_forward else {"logits": out["qa"]}
+            logits = _logits(answers)
+            return {"label": torch.argmax(logits, dim=-1), "score": score}
+
+    score_fn.bf16_feed = True
     return score_fn
 
 

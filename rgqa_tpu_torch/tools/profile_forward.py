@@ -1,7 +1,7 @@
-"""Where the time of a full-width LXMERT, UNITER, ViLT, BUTD or caption-
-matcher forward or training step goes on one CUDA card.
+"""Where the time of a full-width LXMERT, UNITER, ViLT, BUTD, caption-
+matcher or CLIP forward or training step goes on one CUDA card.
 
-    python -m rgqa_tpu_torch.tools.profile_forward [--backbone uniter|vilt|butd|caps]
+    python -m rgqa_tpu_torch.tools.profile_forward [--backbone uniter|vilt|butd|caps|clip]
         [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone uniter|vilt|butd|caps]
         [--batch 32] [--out FILE.json]
@@ -26,7 +26,13 @@ in both, which prices the exact products; its training step is RP at
 the model's own dropouts (0.2 / 0.5).  The caption matcher (``--backbone
 caps``: BERT-base over 20 tokens) runs bf16 like the others, and its
 training step is the caption strategy's (no RP; the binary loss
-against the answerable indicator; dropout 0.1 and 0).  With
+against the answerable indicator; dropout 0.1 and 0).  CLIP
+(``--backbone clip``: ViT-B/32 at 224 px, 50 tokens through #1, and the
+12 x 512 causal text tower over 77 tokens, plain attention) runs one
+scorer forward, the normalize of uint8 pixels on the card and both
+towers to the image-question cosine, in f32 without TF32, as the CLIP
+scorer ships (``models.clip.example_inputs``: texts of 4-20 tokens);
+its routes are ``kernel`` and ``plain``.  With
 ``--scorers`` it runs one scorer call per batch of full-width LXMERT
 (bf16 serving weights), kernels and plain versions: msp, energy, ODIN
 (T 1e5, noise 1e-4), Mahalanobis un-noised and noised (1e-2; the
@@ -265,11 +271,31 @@ def _scorer_cases(sizes) -> dict:
     return cases
 
 
+def _clip_cases(sizes) -> dict:
+    """{(batch, "kernel" | "plain"): one CLIP scorer forward} on a
+    full-width ViT-B/32 CLIP, f32, seeded."""
+    from rgqa_tpu_torch.models.clip import ClipConfig, ClipModel, example_inputs, init_clip_weights
+    from rgqa_tpu_torch.ops.pixels import clip_normalize
+
+    cfg = ClipConfig()
+    with torch.device("cuda"):
+        model = ClipModel(cfg)
+    init_clip_weights(model, torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    cases = {}
+    for size in sizes:
+        ids, mask, u8 = (torch.from_numpy(a).cuda() for a in example_inputs(cfg, size, seed=0))
+        for route, fused in (("kernel", None), ("plain", False)):
+            cases[(size, route)] = functools.partial(
+                lambda i, m, px, f: model.cosine(i, m, clip_normalize(px), use_fused=f), ids, mask, u8, fused)
+    return cases
+
+
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=None,
                     help="batch sizes (default 256 32; with --train 32, doubled by RP)")
-    ap.add_argument("--backbone", choices=("lxmert", "uniter", "vilt", "butd", "caps"),
+    ap.add_argument("--backbone", choices=("lxmert", "uniter", "vilt", "butd", "caps", "clip"),
                     default="lxmert")
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--scorers", action="store_true", help="profile the rejection scorers (LXMERT)")
@@ -291,6 +317,9 @@ def main(argv=None) -> list:
     if args.scorers:
         return _profile(_scorer_cases(args.batch or [256]), args, smi, args.out, unit="scorer call")
 
+    if args.backbone == "clip":
+        with torch.inference_mode():
+            return _profile(_clip_cases(args.batch or [256, 32]), args, smi, args.out, unit="forward")
     cfg = default_config(args.backbone)
     model, forward = build_model(
         cfg, use_bf16=True, device="cuda",

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from rgqa_tpu_torch.ops import attention as att
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 H, D = 4, 8
 E = H * D

@@ -34,6 +34,7 @@ from rgqa_tpu_torch.ops import attention as att
 from rgqa_tpu_torch.ops.dropout import keep_threshold
 
 from test_torch_attention_fwd_short import UNITER, _uniter_bias
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 H, D = 12, 64
 E = H * D

@@ -35,6 +35,7 @@ import torch
 
 from rgqa_tpu_torch.ops import attention as att
 from rgqa_tpu_torch.ops.dropout import keep_threshold
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 H, D = 4, 64
 E = H * D

@@ -36,6 +36,7 @@ from rgqa_tpu_torch.models.zoo import build_model, example_batch
 from rgqa_tpu_torch.train import step as tstep
 
 from test_torch_train import _tensors
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 VOCAB, HIDDEN, EMBED, FEAT, ROIS, ANSWERS = 50, 32, 12, 16, 5, 9
 INPUTS = ("token_ids", "feats", "boxes")

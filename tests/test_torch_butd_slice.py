@@ -44,6 +44,7 @@ import test_torch_caps as caps_t
 from test_torch_scoring_slice import CONF_ATOL, _same_dumps, _same_results
 from test_torch_slice import CLI_SPEC
 from test_torch_train import _tensors
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 BUTD = ["--backbone", "butd", "--batchSize", "16"]
 CAPS = ["--backbone", "caps", "--num_layers", "2", "--hidden_size", "32", "--num_heads", "4",
@@ -246,7 +247,12 @@ def test_twelve_step_caption_trajectory_matches_jax():
 
 def test_serve_answers_as_the_butd_evaluate_cli(cli_env):
     """The serve CLI with ``--backbone butd``: the evaluate CLI's msp
-    answers and confidences (the 4 dp dump) for the records it serves."""
+    answers and confidences (the 4 dp dump) for the records it serves.
+    It is held to the port's evaluate CLI, not to the JAX serve: under
+    ``--bf16`` the JAX serve rounds BUTD's f32 weights to bf16
+    (``rgqa_tpu/cli/serve.py:177-179``), a divergence from the JAX
+    package's own BUTD and evaluate CLI that the port does not copy
+    (``rgqa_tpu_torch/cli/serve.py``'s docstring)."""
     from rgqa_tpu_torch.cli.serve import serve_lines
 
     root, tmp, paths = cli_env

@@ -48,6 +48,7 @@ from rgqa_tpu_torch.scorers import make_dropout_scorer, make_msp_scorer
 from rgqa_tpu_torch.train import optimizer, step as tstep
 
 from test_torch_train import _tensors
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 LAYERS, TEXT = 2, 20
 ENC = dict(hidden_size=32, num_heads=4, intermediate_size=64, vocab_size=200, num_layers=LAYERS)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from rgqa_tpu_torch.data import batching, dataset, synthetic, tokenizer, tsv
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 SPEC = dict(n_images=12, n_train=24, n_valid=8, n_testdev=21, num_boxes=6, feat_dim=40, seed=3)
 SENTENCES = [

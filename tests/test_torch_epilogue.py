@@ -32,6 +32,7 @@ import pytest
 import torch
 
 from rgqa_tpu_torch.experiments import epilogue_exp as port
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 E, H = 768, 12
 TOL = 1e-4

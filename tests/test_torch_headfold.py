@@ -30,6 +30,7 @@ import torch
 
 from rgqa_tpu_torch.experiments import headfold_exp as port
 from rgqa_tpu_torch.ops import attention as att
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 E, H, D = 768, 12, 64
 TOL = 1e-5

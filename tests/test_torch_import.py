@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from rgqa_tpu.config import EncoderConfig, ModelConfig
 from rgqa_tpu.models.zoo import build_model, example_batch
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 
 def _stub_boto3():

@@ -23,6 +23,7 @@ from rgqa_tpu_torch.models import transformer as tt
 from rgqa_tpu_torch.models.zoo import build_model, example_batch
 from rgqa_tpu_torch.ops import attention as att
 from rgqa_tpu_torch.ops.dropout import HiddenDropout
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 DEPTHS = [(1, 1, 1), (2, 1, 2)]  # (language, cross, vision) layers
 

@@ -46,6 +46,7 @@ from rgqa_tpu_torch import config as port_config
 from rgqa_tpu_torch import metrics as port_metrics
 from rgqa_tpu_torch.checkpoint import torch_import as port_import
 from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"rgqa_tpu", "experiments", "jax", "jaxlib", "flax", "orbax"}

@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 import os
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ import pytest
 from rgqa_tpu_torch.cli import prepare_data
 from rgqa_tpu_torch.data import tsv
 from rgqa_tpu_torch.data.synthetic import random_obj_rows
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 BOXES = (36, 10, 50, 36, 36, 10, 50)  # boxes per row: as packed, zero-padded, truncated
 FEAT_DIM = 24
@@ -165,7 +167,7 @@ def test_cli_writes_the_jax_cli_root(tsv_path, json_dir, tmp_path, case):
 
 @pytest.mark.parametrize("extra, match", [
     (["--int8"], "--int8 is not ported"),
-    (["--pixel_transform", "clip"], "--pixel_transform clip is not ported"),
+    (["--pixel_transform", "clip", "--pixel_mode", "pad"], "--pixel_mode applies to --pixel_transform pixelbert"),
 ])
 def test_cli_refuses_by_name(tsv_path, json_dir, tmp_path, extra, match):
     argv = ["--tsv", tsv_path, "--json_dir", str(json_dir), "--vocab", str(json_dir / "vocab.txt"),
@@ -189,10 +191,15 @@ def test_pack_pixels_matches_the_jax_pack(tmp_path, mode):
     assert pack.img_ids == ["img0000", "img0001", "img0002"]
 
 
-def test_pack_pixels_refuses_the_clip_transform(tmp_path):
+def test_pack_pixels_refuses_the_clip_transform(tmp_path, monkeypatch):
+    """Where PIL is absent (the machine with the card), the CLIP pack is
+    refused by name before anything is written; the synthetic root's
+    pack stands in there."""
     from rgqa_tpu_torch.data.images import pack_pixels
 
-    with pytest.raises(NotImplementedError, match="transform='clip'"):
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    with pytest.raises(RuntimeError, match=r"pack_pixels\(transform='clip'\) decodes JPEGs with PIL"):
         pack_pixels(str(tmp_path), str(tmp_path / "out"), transform="clip")
     assert not (tmp_path / "out").exists()
 

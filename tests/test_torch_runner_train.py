@@ -26,6 +26,7 @@ from rgqa_tpu_torch.checkpoint.convert import from_jax_params, to_reference_stat
 from rgqa_tpu_torch.cli import evaluate
 from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
 from rgqa_tpu_torch.runner import GQARunner
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 # Shapes the CLIs can express (36 x 2048 RoI features, the BERT vocab,
 # intermediate 4 x hidden), so that the evaluate CLI can load BEST.pth.

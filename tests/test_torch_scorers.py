@@ -42,6 +42,7 @@ from rgqa_tpu_torch.checkpoint.convert import from_jax_params
 from rgqa_tpu_torch.models.zoo import build_model
 from rgqa_tpu_torch.ops import attention as att
 from rgqa_tpu_torch.scorers import maha as port_maha
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy

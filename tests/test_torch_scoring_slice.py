@@ -53,6 +53,7 @@ from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
 from rgqa_tpu_torch.runner import GQARunner
 
 from test_torch_slice import CLI_SPEC, ENC, REPO, SPEC, TINY_FLAGS
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 CONF_ATOL = 1e-5
 # The Mahalanobis scores go through an f32 precision matrix whose
@@ -567,8 +568,8 @@ def test_cli_maha_takes_the_evaluation_flags_under_bf16(cli_env):
     "extra, match",
     [
         (["--scorer", "frcnn"], "--scorer frcnn is not ported"),
-        (["--scorer", "clip"], "--scorer clip is not ported"),
-        (["--scorer", "match"], "--scorer match is not ported"),
+        (["--scorer", "clip"], "--scorer clip needs --clip_path"),
+        (["--scorer", "match"], "--scorer match needs --loadLXMERT"),
         (["--scorer", "caption"], "--scorer caption needs --load_gqa"),
         (["--scorer", "odin", "--backbone", "vilt"], "--scorer odin perturbs the RoI"),
         (["--scorer", "maha", "--backbone", "vilt"], "--scorer maha perturbs the RoI"),

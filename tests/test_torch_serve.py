@@ -42,6 +42,7 @@ from rgqa_tpu_torch.train.state import save_reference_pth
 
 from test_torch_scoring_slice import MAHA_F32_WEIGHTS_TOL, _fit_error
 from test_torch_slice import CLI_SPEC, MAX_4DP_FLIPS, TINY_FLAGS
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 JAX_FLAGS = [f for f in TINY_FLAGS if f not in ("--device", "cpu")]
 BF16_FLAGS = [f for f in TINY_FLAGS if f != "--fp32"]
@@ -294,9 +295,9 @@ def test_waves(case):
 @pytest.mark.parametrize(
     "extra, error, match",
     [
-        (["--scorer", "frcnn"], SystemExit, "--scorer frcnn is not ported"),
-        (["--scorer", "clip"], SystemExit, "--scorer clip is not ported"),
-        (["--scorer", "match"], SystemExit, "--scorer match is not ported"),
+        (["--scorer", "frcnn"], SystemExit, "--scorer frcnn is not served"),
+        (["--scorer", "clip"], SystemExit, "--scorer clip is not served"),
+        (["--scorer", "match"], SystemExit, "--scorer match is not served"),
         (["--scorer", "caption"], SystemExit, "as is --scorer caption"),
         (["--scorer", "odin", "--backbone", "vilt"], SystemExit, "--scorer odin perturbs the RoI"),
         (["--scorer", "maha", "--backbone", "vilt"], SystemExit, "--scorer maha perturbs the RoI"),

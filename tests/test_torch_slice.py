@@ -27,6 +27,7 @@ from rgqa_tpu_torch.cli import evaluate
 from rgqa_tpu_torch.data.dataset import GQADataset
 from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
 from rgqa_tpu_torch.runner import GQARunner
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # f32 on both sides; the sums differ only in order, so a confidence may
@@ -156,7 +157,7 @@ def test_cli_writes_predictions_and_metrics(tmp_path):
     "extra, match",
     [
         (["--scorer", "frcnn"], "--scorer frcnn is not ported"),
-        (["--scorer", "match"], "--scorer match is not ported"),
+        (["--scorer", "match"], "--scorer match needs --loadLXMERT"),
         (["--scorer", "maha", "--backbone", "caps"], "--backbone caps has none"),
     ],
 )

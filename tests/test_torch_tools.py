@@ -14,6 +14,7 @@ import sys
 import pytest
 
 from rgqa_tpu_torch.tools.profile_forward import classify
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "chip_smoke.py")

@@ -34,6 +34,7 @@ from rgqa_tpu_torch.config import EncoderConfig, ModelConfig, OptimConfig
 from rgqa_tpu_torch.models.zoo import build_model, example_batch
 from rgqa_tpu_torch.ops.dropout import DropoutRng, HiddenDropout, cheap_dropout
 from rgqa_tpu_torch.train import losses, optimizer, step as tstep
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 N_STEPS = 12
 

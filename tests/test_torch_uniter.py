@@ -43,6 +43,7 @@ from rgqa_tpu_torch.ops.dropout import DropoutRng
 from rgqa_tpu_torch.train import optimizer, step as tstep
 
 from test_torch_train import _tensors
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 LAYERS = 3
 ENC = dict(hidden_size=64, num_heads=4, intermediate_size=128, vocab_size=200, num_layers=LAYERS,

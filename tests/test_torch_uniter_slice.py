@@ -40,6 +40,7 @@ from rgqa_tpu_torch.runner import GQARunner
 
 from test_torch_scoring_slice import CONF_ATOL, _same_dumps, _same_results, _spread
 from test_torch_slice import CLI_SPEC
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 LAYERS = 2
 UNITER_FLAGS = ["--backbone", "uniter", "--fp32", "--num_layers", str(LAYERS), "--hidden_size", "32",

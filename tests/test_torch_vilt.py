@@ -42,6 +42,7 @@ from rgqa_tpu_torch.data import images as port_images
 from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa, make_synthetic_pixel_pack
 from rgqa_tpu_torch.models.zoo import build_model, example_batch
 from rgqa_tpu_torch.ops.pixels import pixelbert_normalize
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 ENC = dict(hidden_size=32, num_heads=4, intermediate_size=64, vocab_size=256, num_layers=2)
 MODEL = dict(backbone="vilt", num_answers=7, max_text_len=6, vilt_patch_size=16, vilt_image_size=64)

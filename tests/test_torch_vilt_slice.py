@@ -28,6 +28,7 @@ from rgqa_tpu_torch.data.dataset import GQADataset
 from rgqa_tpu_torch.data.images import PixelPack
 from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa, make_synthetic_pixel_pack
 from rgqa_tpu_torch.runner import GQARunner
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 # f32 on both sides; the sums differ only in order, so a confidence may
 # land on the other side of a 4-dp rounding boundary.  None was seen.

@@ -47,6 +47,7 @@ from rgqa_tpu_torch.models.zoo import build_model, example_batch
 from rgqa_tpu_torch.ops.dropout import DropoutRng
 from rgqa_tpu_torch.runner import GQARunner
 from rgqa_tpu_torch.train import optimizer, step as tstep
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 N_STEPS = 12
 

@@ -21,6 +21,7 @@ import torch
 
 from rgqa_tpu_torch.experiments import xfuse_exp as port
 from rgqa_tpu_torch.ops import attention as att
+from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 E, H = 768, 12
 SL, SV = 20, 36
