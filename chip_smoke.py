@@ -302,7 +302,29 @@ nonzero:
    (``MATCH_CONF_TOL``).  31: ``tools.profile_forward --backbone clip``
    at batch 256 and 32: device time by kernel class, #1's share and the
    idle share.
-32. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+32-34. the single-loader strategies and the coverage scorer, full
+   width, on a synthetic root.  32: LXMERT steps at batch 32 for each
+   of ``STRATEGY_STEPS`` (``mixup_v1``, ``treemix_v2`` with the root's
+   TreeMix spans, ``treemix_both``, ``--branched``, ``--branched_layer``,
+   the energy hinge with ``--mceLoss``, ``--uq_as_class`` with
+   ``mixup_v1`` over 1843 answers), each from one init and one set of
+   host draws per batch (``train.step.draw_mixup``): at dropout 0
+   through the kernels and the plain versions (34 launches of #1 and
+   ``BWD_PER_STEP`` of #3 a step, losses within ``LOSS_RTOL``), at
+   dropout 0.1 through #4 / #5 (34 and ``BWD_PER_STEP`` a step), ms per
+   step.  33: the train CLI with the flags of
+   ``scripts/lxmert/train/{mixup,branched,energy,ood_finetune}.sh``
+   (``--chart`` on the last) and of UNITER's and BUTD's ``mixup.sh``,
+   one epoch each: launches of #4 / #5 a step and #1 a validation
+   forward (BUTD none), a ``BEST.pth`` that loads back with no key
+   missing or unused, the chart pickle.  34: the evaluate CLI
+   ``--scorer frcnn`` from phase 9's ``BEST.pth`` (``--fp32``, batch
+   256): 34 launches of #1 a batch and none else, answers equal a plain
+   re-score, confidences the host's coverage computed again.  Phase 3
+   also times #1's f32 body at LXMERT's four shapes under LXMERT's mask,
+   batch 256, CUDA events and device time beside f32 SDPA's and the
+   bound (the match scorer and ``--fp32`` answerers run it).
+35. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -953,6 +975,7 @@ def phase_kernels():
                 log("kernels", msg)
     _mask_readout(att, gen)
     _mask_readout(att, gen, UNITER[1])  # 56 keys: 16-key groups past the last key
+    _f32_lxmert_kernel(att, gen, times)
     _clip_kernel(att, gen, errs, times)
     _long_kernel(att, gen, errs, times)
     return errs, times
@@ -960,6 +983,36 @@ def phase_kernels():
 
 def _us(us) -> str:
     return "not measured (the profiler lost events)" if us is None else f"{us:.1f} us"
+
+
+def _f32_lxmert_kernel(att, gen, times):
+    """#1's f32 body at LXMERT's four shapes under LXMERT's mask, batch
+    256 (the match scorer's pretraining model and any ``--fp32``
+    answerer run it, 34 a forward): the CUDA-event times the loop above
+    took (kernel and plain in turns, f32 SDPA once) and the profiler's
+    device time of the kernel and of f32 SDPA, beside the bound (bytes at
+    the memory rate or the products at the f32 rate)."""
+    import torch
+    import torch.nn.functional as F
+    from rgqa_tpu_torch.tools.time_attention import device_us
+
+    for sq, skv in SHAPES:
+        q, k, v, _, bias = _attention_inputs(256, sq, skv, torch.float32, gen)
+        mask = bias[:, None, None, :]
+
+        def heads(t):
+            return t.view(256, t.shape[1], HEADS, E // HEADS).transpose(1, 2)
+
+        dev = {name: device_us(fn, 50, match=match) for name, fn, match in (
+            ("kernel", lambda: att.fused_attention_cuda(q, k, v, bias, HEADS), "fused_attention"),
+            ("sdpa", lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask), None))}
+        kernel_ms, plain_ms, sdpa_ms, bound = times[("fused_attention", "float32", sq, skv)]
+        by = _bound_ms("fused_attention", 256, sq, skv, 4)[1]
+        log("kernels", f"float32 B=256 {sq}x{skv} (LXMERT's mask; #1's f32 body): events us kernel/plain/sdpa "
+            f"{kernel_ms * 1e3:.1f}/{plain_ms * 1e3:.1f}/{sdpa_ms * 1e3:.1f}, bound {bound * 1e3:.1f} ({by}); "
+            f"device time kernel {_us(dev['kernel'])}, sdpa {_us(dev['sdpa'])}")
+        del q, k, v, bias, mask
+    torch.cuda.empty_cache()
 
 
 def _clip_kernel(att, gen, errs, times):
@@ -3284,6 +3337,301 @@ def phase_clip_match(keep: str) -> None:
     timed("31 clip profile", phase_clip_profile)
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-34: the single-loader strategies and the coverage scorer.
+# ---------------------------------------------------------------------------
+
+
+# Phase 32's steps: each strategy's step flags, its model's options, and
+# whether the UQ answer is a class (targets keep their UQ column).  The
+# energy margins are scripts/lxmert/train/energy.sh's.
+STRATEGY_STEPS = {
+    "mixup_v1": dict(step=dict(mixup_mode="mixup_v1", mixup_beta=5.0)),
+    "treemix_v2": dict(step=dict(mixup_mode="treemix_v2")),
+    "treemix_both": dict(step=dict(mixup_mode="treemix_both")),
+    "branched": dict(step=dict(branched=True), model=dict(branched=True)),
+    "branched_layer": dict(step=dict(branched=True), model=dict(branched_layers=True)),
+    "energy_mce": dict(step=dict(loss="mce", energy=True, m_in=25.0, m_out=0.0)),
+    "uq_as_class": dict(step=dict(mixup_mode="mixup_v1", mixup_beta=5.0, uq_as_class=True), uq=True),
+}
+# Phase 33's train CLI runs: the scripts' flags (scripts/<backbone>/train/)
+# on the synthetic root, one epoch at the scripts' learning rate.
+STRATEGY_CLIS = {
+    "lxmert mixup.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
+                        "--mixup_mode", "mixup_v1", "--mixup_beta", "5", "--batchSize", "32", "--save_all"],
+    "lxmert branched.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
+                           "--branched", "--batchSize", "64"],
+    "lxmert energy.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
+                         "--scorer", "energy", "--m_in", "25", "--m_out", "0", "--batchSize", "64"],
+    "lxmert ood_finetune.sh": ["--train", "GQAUQ_train_questions_unsup_hard",
+                               "--valid", "GQAUQ_valid_questions_unsup_hard", "--uq_as_class",
+                               "--batchSize", "32", "--chart"],
+    "uniter mixup.sh": ["--backbone", "uniter", "--train",
+                        "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup", "--mixup_mode", "mixup_v1",
+                        "--mixup_beta", "5", "--batchSize", "32", "--save_all"],
+    "butd mixup.sh": ["--backbone", "butd", "--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
+                      "--mixup_mode", "mixup_v1", "--mixup_beta", "5", "--batchSize", "32", "--save_all"],
+}
+
+
+def _strategy_batches(root: str, n: int, answers: int, uq: bool, b: int = 32) -> list:
+    """``n`` full-width batches of ``b`` rows from the synthetic root's
+    train split and its UQ rows: the encoded questions with their TreeMix
+    spans (20 tokens), the pack's 36 x 2048 RoIs, one-hot targets over
+    ``answers`` answers on the answerable rows (with ``uq`` the last
+    column is the UQ answer), ``id_mask`` 0 on the UQ rows."""
+    import numpy as np
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
+    from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
+    from rgqa_tpu_torch.data.tsv import PackedFeatures
+
+    tok = WordPieceTokenizer(load_vocab(os.path.join(root, "vocab.txt")))
+    enc = EncodedGQA(GQADataset(root, "train,train_uq", add_uq=True), PackedFeatures(os.path.join(root, "features")),
+                     tokenizer=tok, max_text_len=20)
+    rng = np.random.default_rng(40)
+    out = []
+    for _ in range(n):
+        idx = rng.choice(len(enc), b, replace=False)
+        batch = enc.gather_batch(idx)
+        is_uq = np.array([enc.dataset.id2datum[enc.question_ids[i]]["label"] == {"UQ": 1.0} for i in idx])
+        target = np.zeros((b, answers), np.float32)
+        target[np.arange(b), rng.integers(0, answers - 1 if uq else answers, b)] = 1.0
+        target[is_uq] = 0.0
+        if uq:
+            target[is_uq, -1] = 1.0
+        batch.update(target=target, id_mask=(~is_uq).astype(np.float32))
+        out.append(to_device(batch, "cuda"))
+    return out
+
+
+def _strategy_model(dropout: float, answers: int, **model_kw):
+    import torch
+    from rgqa_tpu_torch.models.zoo import build_model, default_config
+
+    cfg = dataclasses.replace(default_config(), num_answers=answers, **model_kw)
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, hidden_dropout=dropout, attention_dropout=dropout))
+    model, forward = build_model(cfg, use_bf16=True, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(0), train=True)
+    return model, forward
+
+
+def _strategy_steps(model, forward, init, batches, draws, use_fused, step_kw, extra: int = 0):
+    """Steps from ``init`` with a fresh BertAdam, each batch with its
+    host draws; (losses, ms per step of ``extra`` more steps after)."""
+    import torch
+    from rgqa_tpu_torch.config import OptimConfig
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+    from rgqa_tpu_torch.train.step import make_train_step
+
+    model.load_state_dict(init)
+    opt = make_optimizer(OptimConfig(), model.parameters(), t_total=len(batches) + extra)
+    rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1), host=torch.Generator().manual_seed(1))
+    step = make_train_step(forward, opt, rng=rng, use_fused=use_fused, **step_kw)
+    losses = [step(batch, draws=d)["loss"] for batch, d in zip(batches, draws)]
+    torch.cuda.synchronize()
+    ms = None
+    if extra:
+        t0 = time.perf_counter()
+        for i in range(extra):
+            step(batches[i % len(batches)], draws=draws[i % len(batches)])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / extra
+    return [float(x) for x in losses], ms
+
+
+def phase_strategy_steps(root: str, n: int = 4) -> None:
+    """Each strategy's steps at full width, batch 32 (phase 32): from one
+    init and one set of host draws per batch (``draw_mixup`` from a
+    seeded host generator), through the kernels and the plain versions
+    at dropout 0 (34 launches of #1 and ``BWD_PER_STEP`` of #3 a step;
+    losses within ``LOSS_RTOL``), and through #4 / #5 at dropout 0.1 (34
+    and ``BWD_PER_STEP`` a step, none else; ms per step)."""
+    import torch
+    from rgqa_tpu_torch.train.step import draw_mixup
+
+    phase = "strategy-steps"
+    for name, spec in STRATEGY_STEPS.items():
+        kw, uq = spec["step"], spec.get("uq", False)
+        answers = 1842 + (1 if uq else 0)  # LXMERT's head, and the UQ class
+        batches = _strategy_batches(root, n, answers, uq)
+        host = torch.Generator().manual_seed(7)
+        draws = [draw_mixup(b, kw["mixup_mode"], kw.get("mixup_alpha", 1.0), kw.get("mixup_beta", 1.0), host)
+                 if "mixup_mode" in kw else None for b in batches]
+        coins = [d["coin"] for d in draws if d and "coin" in d]
+        rows = 64 if "mixup_mode" in kw else 32
+        model, forward = _strategy_model(0.0, answers, **spec.get("model", {}))
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        reset_counts()
+        k_losses, _ = _strategy_steps(model, forward, init, batches, draws, None, kw)
+        counts = read_counts()
+        p_losses, _ = _strategy_steps(model, forward, init, batches, draws, False, kw)
+        if read_counts() != counts:
+            raise AssertionError(f"{phase} {name}: the plain steps launched a kernel")
+        want = _step_launches("lxmert", 0.0)
+        per_step = {k: c / n for k, c in counts.items()}
+        rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
+        del model, forward
+        model, forward = _strategy_model(RATE, answers, **spec.get("model", {}))
+        init_d = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        reset_counts()
+        d_losses, _ = _strategy_steps(model, forward, init_d, batches[:2], draws[:2], None, kw)
+        d_per_step = {k: c / 2 for k, c in read_counts().items()}
+        _, ms = _strategy_steps(model, forward, init_d, batches, draws, None, kw, extra=8)
+        log(phase, f"{name} ({', '.join(f'{k}={v}' for k, v in kw.items())}; {answers} answers, {rows} rows"
+            + (f"; coins {coins}" if coins else "") + f"): dropout 0 losses kernels "
+            f"{[round(x, 4) for x in k_losses]}, plain {[round(x, 4) for x in p_losses]}, max relative gap "
+            f"{max(rel):.3e} (bound {LOSS_RTOL:.0e}); launches a step {_shown(per_step)}; dropout {RATE}: "
+            f"losses {[round(x, 4) for x in d_losses]}, launches a step {_shown(d_per_step)}, "
+            f"{ms:.3f} ms a step (mean of 8 after 4)")
+        if per_step != want:
+            raise AssertionError(f"{phase} {name}: launches a step {per_step}, want {want}")
+        if d_per_step != _step_launches("lxmert", RATE):
+            raise AssertionError(f"{phase} {name}: dropout launches a step {d_per_step}")
+        if not all(math.isfinite(x) for x in k_losses + p_losses + d_losses) or not max(rel) <= LOSS_RTOL:
+            raise AssertionError(f"{phase} {name}: losses {k_losses} vs plain {p_losses}")
+        del model, forward, batches, init, init_d
+        torch.cuda.empty_cache()
+
+
+def _shown(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def phase_strategy_cli(tmp: str) -> None:
+    """The train CLI with the strategy scripts' flags at full width, one
+    epoch each (phase 33): launches of #4 / #5 a step and #1 a
+    validation forward (LXMERT 34 / ``BWD_PER_STEP`` / 34, UNITER 12 /
+    12 / 12, BUTD none), finite losses, a ``BEST.pth`` that loads back
+    with no key missing or unused (the UQ answer a class of the head
+    under ``--uq_as_class``; ``LAST.pth`` where the validation accuracy
+    stayed 0, so that no ``BEST.pth`` was written), and ``--chart``'s
+    pickle of every trained question."""
+    import pickle
+
+    import torch
+    from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.models.zoo import default_config
+
+    phase = "strategy-cli"
+    root = os.path.join(tmp, "gqa")
+    for name, flags in STRATEGY_CLIS.items():
+        out = os.path.join(tmp, name.replace(" ", "_"))
+        argv = ["--synthetic", "--data_root", root, "--epochs", "1", "--output", out, *flags]
+        cfg, _ = parse_cli(argv)
+        backbone, batch = cfg.model.backbone, cfg.train.batch_size
+        reset_counts()
+        t0 = time.perf_counter()
+        history = train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        train_ds = GQADataset(root, cfg.data.train_splits, add_uq=True)
+        steps = len(train_ds) // batch
+        forwards = math.ceil(len(GQADataset(root, cfg.data.valid_splits)) / batch)
+        per = {"lxmert": (34, BWD_PER_STEP, 34), "uniter": (12, 12, 12), "butd": (0, 0, 0)}[backbone]
+        want = {k: 0 for k in KERNELS}
+        want.update({"fused_attention_dropout": per[0] * steps, "fused_attention_dropout_bwd": per[1] * steps,
+                     "fused_attention": per[2] * forwards})
+        best = os.path.join(out, "BEST.pth")
+        log(phase, f"{name}: train CLI ({' '.join(argv)}) in {seconds:.2f} s: {steps} steps, history {history}; "
+            f"launches {_shown(launches)}")
+        if launches != want:
+            raise AssertionError(f"{phase} {name}: launches {launches}, want {want}")
+        if not all(math.isfinite(x) for x in history["loss"]):
+            raise AssertionError(f"{phase} {name}: non-finite loss {history['loss']}")
+        if not os.path.isfile(best):
+            # BEST.pth is written on a validation accuracy above the last
+            # best (0 at the start): ood_finetune.sh's half-UQ training
+            # can answer UQ to every (answerable) validation question.
+            if max(history["valid"]) > 0:
+                raise AssertionError(f"{phase} {name}: no BEST.pth (valid {history['valid']})")
+            log(phase, f"{name}: validation accuracy stayed 0, so no BEST.pth; LAST.pth loads back instead")
+            best = os.path.join(out, "LAST.pth")
+        enc = default_config(backbone).encoder
+        _, missing, unused = load_reference_pth(best, backbone=backbone, l_layers=enc.l_layers,
+                                                x_layers=enc.x_layers, r_layers=enc.r_layers,
+                                                num_layers=enc.num_layers, branched=cfg.model.branched)
+        heads = {k: tuple(v.shape) for k, v in torch.load(best, map_location="cpu", weights_only=True).items()
+                 if k.startswith(("logit_fc.3", "conf_head", "layer_conf"))}
+        msg = (f"{name}: {os.path.basename(best)} loads back, {len(missing)} keys missing, {len(unused)} unused; "
+               f"heads {heads}")
+        if missing or unused:
+            raise AssertionError(f"{phase} {msg}: {missing[:3]} {unused[:3]}")
+        if cfg.model.uq_as_class and (train_ds.num_answers,) not in [s[:1] for s in heads.values()]:
+            raise AssertionError(f"{phase} {msg}: the UQ answer is not a class of the head")
+        if cfg.train.chart:
+            with open(os.path.join(out, "chart", "epoch_0.pkl"), "rb") as f:
+                chart = pickle.load(f)
+            if len(chart) != steps * batch or not all(0.0 <= s <= 1.0 for s, _, _ in chart.values()):
+                raise AssertionError(f"{phase} {name}: chart of {len(chart)} rows, want {steps * batch}")
+            msg += f"; chart/epoch_0.pkl holds {len(chart)} questions"
+        log(phase, msg)
+        torch.cuda.empty_cache()
+
+
+def phase_frcnn_cli(keep: str) -> int:
+    """``--scorer frcnn`` through the evaluate CLI (phase 34): phase 9's
+    ``BEST.pth`` answering, ``--fp32``, batch 256, 34 launches of #1 a
+    batch and none else; the answers equal a re-score through the plain
+    versions and the confidences (0 or 1) the coverage of the root's
+    questions against its pack's ``objects_id``, computed again on the
+    host.  Returns the run's launches of #1."""
+    import numpy as np
+    import torch
+    from rgqa_tpu_torch.cli import evaluate
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.data.tsv import PackedFeatures
+    from rgqa_tpu_torch.scorers import coverage_scores, load_object_vocab
+
+    phase = "frcnn-cli"
+    root, best = os.path.join(keep, "gqa"), os.path.join(keep, "BEST.pth")
+    argv = ["--synthetic", "--data_root", root, "--test", "testdev", "--fp32", "--load", best,
+            "--scorer", "frcnn", "--batchSize", "256", "--output", os.path.join(keep, "frcnn_eval")]
+    rows, launches = _scorer_cli(phase, argv, root, 0)
+    before = read_counts()
+    cfg, device, plan = evaluate.parse_args(argv)
+    runner = evaluate.make_runner(cfg, device, plan["scorer"])
+    fused = runner.forward
+    runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
+    path = os.path.join(keep, "frcnn_plain.json")
+    runner.coverage_ood_evaluate(runner._encode(GQADataset(root, "testdev", add_uq=True)),
+                                 os.path.join(root, "objects_vocab.txt"), dump=path)
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError(f"{phase}: the plain re-score launched a kernel")
+    _held_to_plain(phase, rows, path, 0.0)
+    feats = PackedFeatures(os.path.join(root, "features"))
+    data = GQADataset(root, "testdev", add_uq=True).data
+    host = coverage_scores([d["sent"] for d in data], [np.asarray(feats.objects_id[feats.index[d["img_id"]]])
+                                                       for d in data],
+                           load_object_vocab(os.path.join(root, "objects_vocab.txt")))
+    same = all(rows[d["question_id"]][1] == float(c) for d, c in zip(data, host))
+    log(phase, f"confidences equal the host's coverage of {len(data)} questions: {same} "
+        f"({int(host.sum())} covered)")
+    if not same:
+        raise AssertionError(f"{phase}: the confidences differ from the host's coverage")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_strategies(keep: str) -> None:
+    """Phases 32-34, each timed."""
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_strategies_") as tmp:
+        from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+
+        make_synthetic_gqa(os.path.join(tmp, "gqa"))
+        timed("32 strategy steps", phase_strategy_steps, os.path.join(tmp, "gqa"))
+        timed("33 strategy CLIs", phase_strategy_cli, tmp)
+    timed("34 frcnn CLI", phase_frcnn_cli, keep)
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -3338,6 +3686,7 @@ def main() -> None:
         timed("18-22 UNITER", phase_uniter)
         timed("23-27 BUTD and caps", phase_butd_caps)
         timed("28-31 CLIP and match", phase_clip_match, keep)
+        timed("32-34 strategies and frcnn", phase_strategies, keep)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")

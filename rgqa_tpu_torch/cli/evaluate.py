@@ -24,6 +24,10 @@ Scorers:
                from a reference ``model_LXRT.pth`` (``--loadLXMERT``; an
                orbax directory is refused), f32, answers from the ``--load``
                model
+  frcnn     -- object coverage: 1 iff every noun of the question names
+               an object the detector found in its image (the pack's
+               ``objects_id`` against ``<data_root>/objects_vocab.txt``),
+               answers from the ``--load`` model
   ``--target_acc`` calibrates tau on the split and dumps ``{qid:
   [answer, confidence]}`` (full precision) with the tau in the result.
 
@@ -34,8 +38,7 @@ with a message.  ``--branched`` is LXMERT's and BUTD's (UNITER, ViLT and
 the matcher have no confidence head and raise).  The gated scorers
 (``separate``, ``caption``) take any detector and, with
 ``--ans_backbone``, any answerer (default: the detector's backbone, for
-the caption matcher lxmert, as the JAX CLI).  Not ported, and refused by
-name: ``--scorer frcnn``.
+the caption matcher lxmert, as the JAX CLI).
 
 Example:
     python -m rgqa_tpu_torch.cli.evaluate --synthetic --data_root /tmp/gqa \
@@ -57,20 +60,15 @@ from rgqa_tpu_torch.config import RunConfig, parse_cli
 from rgqa_tpu_torch.data.dataset import GQADataset
 from rgqa_tpu_torch.runner import GQARunner
 
-NOT_PORTED = {
-    "frcnn": "the FRCNN object-coverage scorer",
-}
 ROI_SCORERS = ("odin", "maha")
 GATED_SCORERS = ("separate", "caption")
 NO_ROI_BACKBONES = ("vilt", "caps")
 
 
 def refuse_unported(cfg: RunConfig) -> None:
-    """Exit on a ``--scorer`` that is not ported, or that needs RoI inputs
-    on ViLT or the caption matcher (the serve CLI refuses the same)."""
+    """Exit on a ``--scorer`` that needs RoI inputs on ViLT or the caption
+    matcher (the serve CLI refuses the same)."""
     scorer = cfg.ood.scorer
-    if scorer in NOT_PORTED:
-        raise SystemExit(f"--scorer {scorer} is not ported yet ({NOT_PORTED[scorer]})")
     if scorer in ROI_SCORERS and cfg.model.backbone in NO_ROI_BACKBONES:
         raise SystemExit(
             f"--scorer {scorer} perturbs the RoI feats and boxes; --backbone {cfg.model.backbone} "
@@ -168,6 +166,9 @@ def main(argv=None) -> dict:
             )
         elif scorer == "match":
             results = runner.match_ood_evaluate(encoded, pretrain_forward, dump=dump)
+        elif scorer == "frcnn":
+            results = runner.coverage_ood_evaluate(
+                encoded, os.path.join(cfg.data.data_root, "objects_vocab.txt"), dump=dump)
         else:
             results = runner.ood_evaluate(encoded, dump=dump)
         all_results[split] = results

@@ -184,7 +184,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
         raise SystemExit("--test <split> is required (answer-vocabulary source)")
     if cfg.ood.scorer in NOT_SERVED:
         raise SystemExit(f"--scorer {cfg.ood.scorer} is not served: the JAX serve builds its scorer through "
-                         "make_scorer, which has no such scorer; the evaluate CLI scores clip and match")
+                         "make_scorer, which has no such scorer; the evaluate CLI scores clip, match and frcnn")
     refuse_unported(cfg)
     if cfg.ood.scorer in GATED_SCORERS or (cfg.load and "," in cfg.load):
         raise SystemExit("--scorer separate and ensembles (--load a,b) are scored by the evaluate "

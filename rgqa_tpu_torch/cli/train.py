@@ -1,5 +1,5 @@
 """Training CLI (port of ``rgqa_tpu/cli/train.py``: ``--strategy conf``,
-``separate`` and ``caption``).
+``separate`` and ``caption``, with the single-loader strategies' flags).
 
 Fine-tunes LXMERT, UNITER (``--backbone uniter``; ``--loadLXMERT`` takes
 a pretrained UNITER encoder), ViLT (``--backbone vilt``) or BUTD
@@ -11,10 +11,17 @@ dropout only, and train-time randaug unless ``--no_randaug``).
 ``--strategy separate`` trains a one-logit detector, and ``--backbone
 caps --strategy caption`` the Q-C caption matcher (``--load_bert``: a
 local HF BERT to start from), both with the binary loss against the
-answerable indicator.  It writes ``BEST.pth``, ``LAST.pth`` (the
-reference ``.pth`` format of the backbone), ``LAST.state.pt`` and
-``log.log`` under ``--output``, and prints ``{"final_loss",
-"valid"}``.  It runs on the card (``--device cuda``, the default;
+answerable indicator.  The strategy scripts' flags
+(``scripts/*/train/{mixup,branched,energy,ood_finetune}.sh``) pass
+through to the runner's step: ``--mixup_mode`` (``--mixup_alpha``,
+``--mixup_beta``, ``--lam1``, ``--lam2``; the RoI swap, perturb, the
+weighted sums and TreeMix), ``--mceLoss``, ``--scorer energy --m_in
+--m_out`` (the energy hinge), ``--branched`` / ``--branched_layer``
+(LXMERT's, and BUTD's ``--branched``), ``--uq_as_class`` and
+``--chart``.  It writes ``BEST.pth``, ``LAST.pth`` (the reference
+``.pth`` format of the backbone), ``LAST.state.pt`` and ``log.log``
+(and with ``--chart`` ``chart/epoch_<n>.pkl``) under ``--output``, and
+prints ``{"final_loss", "valid"}``.  It runs on the card (``--device cuda``, the default;
 raises without one) unless given ``--device cpu``.
 
 Examples:
@@ -31,6 +38,9 @@ Examples:
     python -m rgqa_tpu_torch.cli.train --backbone butd --synthetic \
         --data_root /tmp/gqa --sample_pair --epochs 1 --batchSize 32 \
         --output /tmp/gqa_butd_snap
+    python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
+        --mixup_mode mixup_v1 --mixup_beta 5 --epochs 1 --batchSize 32 \
+        --output /tmp/gqa_mixup_snap
     python -m rgqa_tpu_torch.cli.train --backbone caps --strategy caption \
         --synthetic --data_root /tmp/gqa --epochs 1 --batchSize 32 \
         --output /tmp/gqa_caps_snap

@@ -15,7 +15,9 @@ padded into (N, 40) word indices, ``token_ids``, through BUTD's own
 dictionary; ``norm4`` boxes) and the caption branch (given
 ``image2caps``: the first caption of each question's image paired with
 the question, ``[CLS] caption [SEP] question [SEP]``; no RoI inputs).
-The TreeMix-parse branch is not ported yet.
+Rows that carry a constituency ``parse`` get TreeMix's candidate spans
+(``data.parse.encode_parse_spans``) once, at encode time, on every
+backbone but BUTD and the caption branch.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 
 from rgqa_tpu_torch.data.images import load_image_batch, load_image_batch_u8, rect_patch_mask
+from rgqa_tpu_torch.data.parse import encode_parse_spans
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 from rgqa_tpu_torch.models.butd import tokenize_front_padded
@@ -135,6 +138,15 @@ class EncodedGQA:
     pair-encodes each question after its image's first caption (an
     image without one pairs with the empty caption); the batches then
     carry the text fields alone.
+
+    ``parse_spans`` (N, K, 2), ``parse_span_words`` (N, K) and
+    ``parse_n_words`` (N,) int32 are TreeMix's candidate subtrees in
+    wordpiece coordinates (``data.parse.encode_parse_spans``), or None:
+    they exist when the backbone is not BUTD (its front-padded word
+    indices have other coordinates), there are no captions and some row
+    carries a ``parse``; the batches then carry them too.
+    ``keep_uq_target`` (``--uq_as_class``) keeps the UQ column as a
+    target like any answer.
     """
 
     def __init__(
@@ -150,6 +162,7 @@ class EncodedGQA:
         pixel_patch_size: int = 32,
         butd_word2idx: Optional[Mapping[str, int]] = None,
         image2caps: Optional[Mapping[str, Sequence[str]]] = None,
+        keep_uq_target: bool = False,
     ):
         if backbone not in ("lxmert", "uniter", "vilt", "butd", "caps"):
             raise ValueError(f"unknown backbone {backbone!r}")
@@ -161,6 +174,7 @@ class EncodedGQA:
             raise ValueError("the vilt branch needs an image_source")
         self.backbone = backbone
         self.captions = image2caps is not None
+        self.keep_uq_target = keep_uq_target
         self.image_source = image_source
         self.image_augment_rng = None
         self.pixel_wire = pixel_wire
@@ -186,6 +200,11 @@ class EncodedGQA:
         else:
             self.input_ids, self.input_mask, self.segment_ids = tokenizer.encode_batch(
                 sents, max_text_len
+            )
+        self.parse_spans = self.parse_span_words = self.parse_n_words = None
+        if backbone != "butd" and not self.captions and any(d.get("parse") for d in data):
+            self.parse_spans, self.parse_span_words, self.parse_n_words = encode_parse_spans(
+                [d.get("parse") for d in data], sents, tokenizer, max_text_len
             )
         self.img_row = np.asarray(
             [features.index[d["img_id"]] for d in data], np.int32
@@ -224,8 +243,9 @@ class EncodedGQA:
         """A dense host batch for row indices ``idx``.  ``with_target``
         adds the training targets: ``target``, the answer scores with the
         appended UQ column sliced off, and ``id_mask`` (B,), 1 for
-        answerable rows (UQ score zero); a vocabulary without UQ keeps
-        every column and marks every row answerable."""
+        answerable rows (UQ score zero); a vocabulary without UQ, or
+        ``keep_uq_target``, keeps every column and marks every row
+        answerable."""
         rows = self.img_row[idx]
         if self.backbone == "butd":
             batch = {"token_ids": self.token_ids[idx]}
@@ -235,6 +255,10 @@ class EncodedGQA:
                 "input_mask": self.input_mask[idx],
                 "segment_ids": self.segment_ids[idx],
             }
+        if self.parse_spans is not None:
+            batch["parse_spans"] = self.parse_spans[idx]
+            batch["parse_span_words"] = self.parse_span_words[idx]
+            batch["parse_n_words"] = self.parse_n_words[idx]
         if self.backbone == "vilt":
             ids = [self.features.img_ids[r] for r in rows]
             aug_rng = self.image_augment_rng
@@ -254,7 +278,8 @@ class EncodedGQA:
             batch["boxes"] = self.img_boxes[rows]
         if with_target:
             target = build_targets(self.label_idx[idx], self.label_score[idx], self.num_answers)
-            if self.dataset.label2ans and self.dataset.label2ans[-1] == UQ_ANSWER:
+            if (not self.keep_uq_target and self.dataset.label2ans
+                    and self.dataset.label2ans[-1] == UQ_ANSWER):
                 batch["target"] = target[:, :-1]
                 batch["id_mask"] = (target[:, -1] == 0).astype(np.float32)
             else:

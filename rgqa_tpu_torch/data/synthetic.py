@@ -22,10 +22,12 @@ way.  These pixels are therefore not the JAX generator's
 JPEG-then-bicubic ones: a parity test feeds both packages from one pack.
 The images are square, so every rect is the whole image in every mode.
 
-Left out: ``objects_vocab.txt`` (FRCNN-coverage scorer) and the VQA
-generator, neither of which the port reads yet; they draw nothing, so
-leaving them out changes no array.  ``image2caps.json`` (the caption
-matcher's captions, one per image) is written as by the JAX package.
+``objects_vocab.txt`` (the FRCNN coverage scorer's detector classes:
+the lexicon's object names, then ``thing0000`` ... up to 1600 rows) and
+``image2caps.json`` (the caption matcher's captions, one per image) are
+written as by the JAX package.  Left out: the VQA generator, which the
+port does not read yet; it draws nothing, so leaving it out changes no
+array.
 
 Questions are template-generated over a small object/attribute lexicon;
 each image's "dominant answer" dimension is boosted in its features, so
@@ -244,8 +246,13 @@ def make_synthetic_gqa(
         "attrs_conf": rng.random((n, k), dtype=np.float32),
         "sizes": sizes,
     }
-    # Each image's first box detects its dominant object (when that is
-    # an object), as in the JAX package's pack.
+    # The detector's class names for the FRCNN coverage scorer (reference
+    # data/vg_gqa_imgfeat/objects_vocab.txt): the lexicon's objects, then
+    # filler classes.  Each image's first box detects its dominant object
+    # (when that is an object), so coverage carries signal.
+    obj_vocab = list(_OBJECTS) + [f"thing{i:04d}" for i in range(1600 - len(_OBJECTS))]
+    with open(os.path.join(root, "objects_vocab.txt"), "w") as f:
+        f.write("\n".join(obj_vocab) + "\n")
     obj2idx = {o: i for i, o in enumerate(_OBJECTS)}
     for i in range(n):
         ans = img2answer[i]

@@ -3,11 +3,13 @@
 ``oracle_score``, ``dump_attention``, ``make_scorer``,
 ``score_split``, ``ood_evaluate``, ``gated_ood_evaluate``,
 ``ensemble_ood_evaluate``, ``clip_ood_evaluate``, ``match_ood_evaluate``,
+``coverage_ood_evaluate``,
 ``fit_maha_estimator``, ``get_pseudo_labels`` and ``predict_with_thresh``;
 ``score_rows``, the answers by row, for the serving waves).
 
 ``ScoringMixin`` expects the host class to provide ``cfg``, ``device``,
 ``model``, ``forward``, ``model_cfg``, ``label2ans``, ``train_set``, ``output``,
+``features``,
 ``_encode`` and ``load``, i.e. :class:`rgqa_tpu_torch.runner.GQARunner`.
 The metrics and the prediction-JSON dump are ``rgqa_tpu_torch.metrics``,
 the port's copy of the JAX package's.  ``predict`` stands in for the JAX
@@ -51,8 +53,10 @@ from rgqa_tpu_torch.data.synthetic import BASE_IMAGES, make_synthetic_pixel_pack
 from rgqa_tpu_torch.scorers import (
     apply_tau,
     calibrate_tau,
+    coverage_scores,
     ensemble_merge,
     fit_estimator,
+    load_object_vocab,
     make_match_scorer,
     make_msp_scorer,
     make_scorer,
@@ -317,6 +321,22 @@ class ScoringMixin:
         for qids, out, real in self._map_eval(encoded, make_match_scorer(pretrain_forward), ("score",)):
             for qid, score in zip(qids, out["score"][:real]):
                 quesid2ans[qid] = (answers[qid], float(score))
+        return self._rejection_results(encoded, quesid2ans, dump)
+
+    def coverage_ood_evaluate(self, encoded: EncodedGQA, objects_vocab_path: str,
+                              dump: Optional[str] = None) -> dict:
+        """FRCNN object-coverage rejection (``gqa_fasterrcnn.py:105-133``):
+        answers from this model's MSP argmax (:meth:`predict`), confidence
+        1.0 iff every noun stem of the question names an object detected
+        in its image (the pack's ``objects_id`` row against the stemmed
+        ``objects_vocab_path``), else 0.0; the dump at full precision."""
+        vocab = load_object_vocab(objects_vocab_path)
+        answers = self.predict(encoded)
+        qids = list(encoded.question_ids)
+        sents = [encoded.dataset.id2datum[q]["sent"] for q in qids]
+        objects = [np.asarray(self.features.objects_id[r]) for r in encoded.img_row]
+        scores = coverage_scores(sents, objects, vocab)
+        quesid2ans = {qid: (answers[qid], float(s)) for qid, s in zip(qids, scores)}
         return self._rejection_results(encoded, quesid2ans, dump)
 
     def fit_maha_estimator(self) -> MahaEstimator:

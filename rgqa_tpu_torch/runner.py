@@ -1,5 +1,6 @@
 """GQA runner (port of ``rgqa_tpu/runner.py``: construction, ``load`` and
-``train`` for ``--strategy conf``, ``separate`` and ``caption``).
+``train`` for ``--strategy conf``, ``separate`` and ``caption`` with the
+single-loader strategies' flags).
 
 It makes the synthetic data when asked and it is missing, loads the
 feature pack and the tokenizer, sizes the answer head to the dataset's
@@ -10,12 +11,19 @@ answers less the appended ``UQ`` class, initialises the weights from a
 - ``GQARunner(cfg, init_train=True)`` encodes the train and valid splits
   and keeps f32 master weights; with bf16 on (the default; ``--fp32``
   turns it off) every product computes in bf16, as the JAX trainer does.
-  :meth:`GQARunner.train` then fine-tunes: BCE x answers, optional RP
-  pairing (``--sample_pair``), global clip 5.0, BertAdam with warmup,
-  attention and hidden dropout at ``--dropout``; per epoch a validation
-  of the closed-set soft accuracy, ``BEST.pth`` on a better one and a
-  ``log.log`` line in the reference format; ``LAST.pth`` and
-  ``LAST.state.pt`` at the end.
+  :meth:`GQARunner.train` then fine-tunes: BCE (or ``--mceLoss``'s
+  softmax CE) x answers, RP pairing (``--sample_pair``) or mixup /
+  TreeMix pseudo-UQ rows (``--mixup_mode`` with ``--mixup_alpha`` /
+  ``--mixup_beta`` / ``--lam1`` / ``--lam2``), the branched loss
+  (``--branched`` / ``--branched_layer``), the energy hinge (``--scorer
+  energy`` with ``--m_in`` nonzero, ``--m_out``), global clip 5.0,
+  BertAdam with warmup, attention and hidden dropout at ``--dropout``;
+  per epoch a validation of the closed-set soft accuracy, ``BEST.pth`` on
+  a better one and a ``log.log`` line in the reference format, and with
+  ``--chart`` ``<output>/chart/epoch_<n>.pkl``, ``{qid: (score, label,
+  predicted answer)}`` of the epoch's steps; ``LAST.pth`` and
+  ``LAST.state.pt`` at the end.  ``--uq_as_class`` trains the UQ answer
+  as a class of the head (the targets keep their UQ column).
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
   convention).  With ``f32_weights=True`` it keeps f32 weights under
@@ -62,10 +70,10 @@ either the runner raises, naming ``--no_randaug`` (the machine with the
 card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
 Not ported yet, and refused by flag name: training with the strategies
-but conf, separate and caption, mixup, the MCE, energy and branched
-losses, ``--uq_as_class``, ``--chart``, chunked dispatch, the other
-optimizers, bf16 moments, orbax snapshots (reading them needs jax) and
-the ``--loadLXMERT`` (on LXMERT) / ``--loadLXMERTQA`` initialisations.
+but conf, separate and caption (adv, the dual-loader strategies, weight,
+online distillation), chunked dispatch, the other optimizers, bf16
+moments, orbax snapshots (reading them needs jax) and the
+``--loadLXMERT`` (on LXMERT) / ``--loadLXMERTQA`` initialisations.
 An evaluation runner for ``--scorer match`` with ``--load`` takes
 ``--loadLXMERT`` (the match scorer's pretraining checkpoint, which the
 evaluate CLI loads) and leaves it out of the answerer.
@@ -83,6 +91,7 @@ import importlib.util
 import json
 import math
 import os
+import pickle
 import time
 from typing import Optional
 
@@ -112,7 +121,6 @@ __all__ = ["GQARunner"]
 def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
-        "--uq_as_class": m.uq_as_class,
         # --scorer match reads --loadLXMERT as its scorer's checkpoint (the
         # evaluate CLI loads it); without --load the JAX runner would also
         # initialise the answerer's encoder from it, which is not ported.
@@ -125,15 +133,6 @@ def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     if train:
         unported.update({
             f"--strategy {t.strategy}": t.strategy not in ("conf", "separate", "caption"),
-            "--branched / --branched_layer (training the branched losses)": bool(
-                m.branched or m.branched_layers
-            ),
-            "--mixup_mode": bool(t.mixup_mode),
-            "--mceLoss": t.loss != "bce",
-            "--scorer energy with --m_in (energy margins)": (
-                cfg.ood.scorer == "energy" and t.m_in != 0
-            ),
-            "--chart": t.chart,
             "--train_chunk > 1": t.train_chunk > 1,
             f"--optim {t.optim.name}": "bert" not in t.optim.name.lower(),
             "--bf16_moments": t.optim.bf16_moments,
@@ -190,10 +189,11 @@ class GQARunner(ScoringMixin):
             # under evaluation.
             self.dataset = GQADataset(root, data.test_splits or data.valid_splits, add_uq=True)
         # The model outputs num_answers - 1 logits; 'UQ' is the appended
-        # indicator class.  A separate detector or a caption matcher has
-        # one logit.
-        binary = cfg.train.strategy in ("separate", "caption")
-        num_real = 1 if binary else self.dataset.num_answers - 1
+        # indicator class, unless --uq_as_class trains it as a class.  A
+        # separate detector or a caption matcher has one logit.
+        num_real = self.dataset.num_answers - (0 if cfg.model.uq_as_class else 1)
+        if cfg.train.strategy in ("separate", "caption"):
+            num_real = 1
         self.model_cfg = dataclasses.replace(cfg.model, num_answers=num_real)
         if self.butd_word2idx is not None:
             self.model_cfg = dataclasses.replace(self.model_cfg, butd_vocab_size=len(self.butd_word2idx))
@@ -334,6 +334,7 @@ class GQARunner(ScoringMixin):
             backbone=m.backbone, image_source=image_source,
             pixel_wire=cfg.data.pixel_wire, pixel_patch_size=m.vilt_patch_size,
             butd_word2idx=self.butd_word2idx, image2caps=self.image2caps,
+            keep_uq_target=m.uq_as_class,
         )
         if randaug:
             encoded.image_augment_rng = np.random.default_rng(cfg.train.seed)
@@ -383,9 +384,20 @@ class GQARunner(ScoringMixin):
         finally:
             self.model.train()
 
-    def _epoch_end(self, epoch, epoch_start, last_loss, history, best_valid) -> float:
+    def _chart_rows(self, chart: list) -> dict:
+        """``{qid: (score, gold label dict, predicted answer)}`` of an
+        epoch's steps (``gqa.py:141-150``): each step's first rows, the
+        batch's own questions (the appended pseudo-UQ rows have none)."""
+        rows = {}
+        for qids, score, label in chart:
+            for qid, s, l in zip(qids, score.tolist(), label.tolist()):
+                rows[qid] = (float(s), self.dataset.id2datum[qid].get("label"), self.label2ans[int(l)])
+        return rows
+
+    def _epoch_end(self, epoch, epoch_start, last_loss, history, best_valid, chart=None) -> float:
         """History, validation with BEST (and ``--save_all`` EPOCH_n)
-        checkpoints, and the reference's log lines (``gqa.py:214-230``).
+        checkpoints, the reference's log lines (``gqa.py:214-230``) and,
+        given the epoch's ``chart`` steps, ``chart/epoch_<n>.pkl``.
         Returns the updated best valid score."""
         last_loss = float(last_loss)  # the epoch's one read of a device value
         history["loss"].append(last_loss)
@@ -408,6 +420,9 @@ class GQARunner(ScoringMixin):
         print(log_str, end="", flush=True)
         with open(os.path.join(self.output, "log.log"), "a") as f:
             f.write(log_str)
+        if chart is not None:
+            with open(os.path.join(self.output, "chart", f"epoch_{epoch}.pkl"), "wb") as f:
+                pickle.dump(self._chart_rows(chart), f, protocol=pickle.HIGHEST_PROTOCOL)
         return best_valid
 
     def train(self, resume: Optional[str] = None) -> dict:
@@ -441,10 +456,17 @@ class GQARunner(ScoringMixin):
             rng.load_state(state["rng"])
             shuffle.bit_generator.state = state["shuffle"]
 
+        m = self.cfg.model
         step = make_train_step(
             self.forward, optimizer, loss=tcfg.loss, sample_pair=tcfg.sample_pair,
+            mixup_mode=tcfg.mixup_mode, mixup_alpha=tcfg.mixup_alpha, mixup_beta=tcfg.mixup_beta,
+            lam1=tcfg.lam1, lam2=tcfg.lam2,
+            energy=self.cfg.ood.scorer == "energy" and tcfg.m_in != 0, m_in=tcfg.m_in, m_out=tcfg.m_out,
+            branched=m.branched or m.branched_layers, uq_as_class=m.uq_as_class,
             binary=tcfg.strategy in ("separate", "caption"), grad_clip=tcfg.optim.grad_clip, rng=rng,
         )
+        if tcfg.chart:
+            os.makedirs(os.path.join(self.output, "chart"), exist_ok=True)
         best_valid = 0.0
         history = {"loss": [], "valid": []}
         self.model.train()
@@ -452,6 +474,9 @@ class GQARunner(ScoringMixin):
             for epoch in range(tcfg.epochs):
                 last_loss = math.nan
                 epoch_start = time.time()
+                # --chart: each step's (qids, score, label), read back at the
+                # epoch's end, so no step waits on the device.
+                chart = [] if tcfg.chart else None
                 batches = device_prefetch(
                     batch_iterator(
                         self.train_set, tcfg.batch_size, shuffle=True, rng=shuffle,
@@ -459,10 +484,13 @@ class GQARunner(ScoringMixin):
                     ),
                     self.device,
                 )
-                for _, batch, _ in batches:
-                    last_loss = step(batch)["loss"]
+                for qids, batch, _ in batches:
+                    aux = step(batch)
+                    last_loss = aux["loss"]
+                    if chart is not None:
+                        chart.append((qids, aux["score"][: len(qids)], aux["label"][: len(qids)]))
                     steps += 1
-                best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid)
+                best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid, chart)
         finally:
             self.model.eval()
 

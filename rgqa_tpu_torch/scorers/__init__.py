@@ -7,9 +7,10 @@ sigmoid vectors, and ``calibrate_tau`` / ``apply_tau`` set the
 ``--target_acc`` threshold.  ``make_match_scorer`` (the LXMERT match
 scorer, from a pretraining model's forward) and ``scorers.clip``
 (``ClipScorer``, the CLIP image-question cosine) back the evaluate CLI's
-``--scorer match`` and ``clip``, which ``make_scorer`` does not build, as
-in the JAX package.  Not ported: the FRCNN coverage scorer (``--scorer
-frcnn`` is refused by name).
+``--scorer match`` and ``clip``, and ``coverage_scores`` /
+``load_object_vocab`` (the FRCNN object-coverage scorer, host-side, on
+the port's Porter stemmer) back ``--scorer frcnn``; ``make_scorer``
+builds none of these three, as in the JAX package.
 """
 
 from rgqa_tpu_torch.scorers.calibrate import apply_tau, calibrate_tau
@@ -23,6 +24,7 @@ from rgqa_tpu_torch.scorers.core import (
     make_msp_scorer,
     make_odin_scorer,
 )
+from rgqa_tpu_torch.scorers.coverage import coverage_scores, load_object_vocab, noun_tokens
 from rgqa_tpu_torch.scorers.maha import MahaEstimator, fit_estimator, make_maha_scorer
 
 __all__ = [
@@ -39,6 +41,9 @@ __all__ = [
     "make_maha_scorer",
     "calibrate_tau",
     "apply_tau",
+    "coverage_scores",
+    "load_object_vocab",
+    "noun_tokens",
     "make_scorer",
 ]
 

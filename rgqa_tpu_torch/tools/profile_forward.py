@@ -4,7 +4,7 @@ matcher or CLIP forward or training step goes on one CUDA card.
     python -m rgqa_tpu_torch.tools.profile_forward [--backbone uniter|vilt|butd|caps|clip]
         [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone uniter|vilt|butd|caps]
-        [--batch 32] [--out FILE.json]
+        [--batch 32] [--mixup_mode MODE [--mixup_beta B] | --branched] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
         [--out FILE.json]
 
@@ -26,7 +26,12 @@ in both, which prices the exact products; its training step is RP at
 the model's own dropouts (0.2 / 0.5).  The caption matcher (``--backbone
 caps``: BERT-base over 20 tokens) runs bf16 like the others, and its
 training step is the caption strategy's (no RP; the binary loss
-against the answerable indicator; dropout 0.1 and 0).  CLIP
+against the answerable indicator; dropout 0.1 and 0).  The strategy
+flags swap RP for the train CLI's step with them, as
+``scripts/lxmert/train/{mixup,branched}.sh`` run it (no RP):
+``--mixup_mode`` with ``--mixup_beta`` (the rows doubled by the
+pseudo-UQ rows) or ``--branched`` (LXMERT's confidence head and the
+branched loss).  CLIP
 (``--backbone clip``: ViT-B/32 at 224 px, 50 tokens through #1, and the
 12 x 512 causal text tower over 77 tokens, plain attention) runs one
 scorer forward, the normalize of uint8 pixels on the card and both
@@ -187,9 +192,10 @@ def _with_tf32(model, fn):
     return run
 
 
-def _train_cases(sizes, backbone: str) -> dict:
+def _train_cases(sizes, backbone: str, strategy: dict = None) -> dict:
     """{(batch, "dropout d kernels" | "dropout d plain"): one training
-    step}, each on its own full-width model (f32 masters, bf16 compute)."""
+    step}, each on its own full-width model (f32 masters, bf16 compute);
+    ``strategy``, the step's mixup or branched options, replaces RP."""
     import dataclasses
 
     import numpy as np
@@ -204,6 +210,8 @@ def _train_cases(sizes, backbone: str) -> dict:
     binary = backbone == "caps"  # the caption strategy: one logit, no RP
     if binary:
         base = dataclasses.replace(base, num_answers=1)
+    strategy = strategy or {}
+    base = dataclasses.replace(base, branched=strategy.get("branched", False))
     cases = {}
     # BUTD's dropouts are the model's own (0.2 / 0.5): one model.
     for dropout in (0.1, 0.0) if backbone != "butd" else (None,):
@@ -226,8 +234,8 @@ def _train_cases(sizes, backbone: str) -> dict:
             label = "model's dropout" if dropout is None else f"dropout {dropout}"
 
             steps = {fused: functools.partial(make_train_step(
-                forward, opt, sample_pair=not binary, binary=binary, rng=rng, use_fused=fused), batch)
-                for fused in (None, False)}
+                forward, opt, sample_pair=not (binary or strategy), binary=binary, rng=rng, use_fused=fused,
+                **strategy), batch) for fused in (None, False)}
             if backbone == "butd":
                 cases[(size, f"{label} f32")] = steps[None]
                 cases[(size, f"{label} tf32")] = _with_tf32(model, steps[None])
@@ -299,6 +307,9 @@ def main(argv=None) -> list:
                     default="lxmert")
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--scorers", action="store_true", help="profile the rejection scorers (LXMERT)")
+    ap.add_argument("--mixup_mode", default=None, help="with --train: the mixup / TreeMix step, no RP")
+    ap.add_argument("--mixup_beta", type=float, default=1.0)
+    ap.add_argument("--branched", action="store_true", help="with --train: the branched loss, no RP")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
@@ -312,7 +323,9 @@ def main(argv=None) -> list:
     ).stdout.strip().splitlines()[0]
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}")
     if args.train:
-        return _profile(_train_cases(args.batch or [32], args.backbone), args, smi, args.out,
+        strategy = ({"mixup_mode": args.mixup_mode, "mixup_beta": args.mixup_beta} if args.mixup_mode
+                    else {"branched": True} if args.branched else {})
+        return _profile(_train_cases(args.batch or [32], args.backbone, strategy), args, smi, args.out,
                         unit="step")
     if args.scorers:
         return _profile(_scorer_cases(args.batch or [256]), args, smi, args.out, unit="scorer call")

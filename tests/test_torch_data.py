@@ -75,7 +75,8 @@ def test_synthetic_files_match(roots):
     port_root, jax_root = roots
     port_files = sorted(set(os.listdir(port_root)) - {synthetic.BASE_IMAGES})
     assert set(port_files) <= set(os.listdir(jax_root))
-    assert {"testdev.json", "trainval_ans2label.json", "vocab.txt", "features"} <= set(port_files)
+    assert {"testdev.json", "trainval_ans2label.json", "vocab.txt", "objects_vocab.txt",
+            "features"} <= set(port_files)
     for name in port_files:
         if name == "features":
             continue

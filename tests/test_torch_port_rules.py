@@ -1,13 +1,14 @@
 """The port's rules, checked on the CPU.
 
 - No module of ``rgqa_tpu_torch`` and not ``chip_smoke.py`` imports the
-  JAX package, the JAX experiments (``experiments/``), jax, jaxlib, flax
-  or orbax (an AST scan; the blocked-import subprocesses of
+  JAX package, the JAX experiments (``experiments/``), jax, jaxlib, flax,
+  orbax or nltk (an AST scan; the blocked-import subprocesses of
   ``tests/test_torch_slice.py`` and of this file import every module of
   the port and run the LXMERT and ViLT train and evaluate CLIs, the
-  UNITER evaluate CLI, the serve
+  UNITER evaluate CLI, ``--scorer frcnn``, a ``--mixup_mode mixup_v1``
+  training, the serve
   and prepare-data CLIs and the three experiment entry points with all of
-  them blocked).
+  them blocked: the machine with the card has none of them).
 - Every CUDA source under ``csrc/`` is in the build's ``SOURCES``, and
   ``chip_smoke.py``'s ``KERNELS`` names every kernel wrapper of
   ``ops.attention`` and of ``rgqa_tpu_torch.experiments``, with its
@@ -22,7 +23,9 @@
   the checkpoint key maps (equal lists, equal loads; UNITER's in
   ``tests/test_torch_uniter.py``; BUTD's and the caption matcher's here,
   their loads in ``tests/test_torch_butd.py`` / ``test_torch_caps.py``),
-  BUTD's tokenizer, word splitter and GloVe reader (equal arrays) and
+  BUTD's tokenizer, word splitter and GloVe reader (equal arrays), the
+  TreeMix parse utilities (``data/parse.py``: equal trees, spans and
+  arrays) and
   ``cli/plot_attention.py`` (the same figures, byte for byte, in
   ``tests/test_torch_uniter_slice.py``).
 """
@@ -49,7 +52,7 @@ from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
 from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"rgqa_tpu", "experiments", "jax", "jaxlib", "flax", "orbax"}
+FORBIDDEN = {"rgqa_tpu", "experiments", "jax", "jaxlib", "flax", "orbax", "nltk"}
 EXPERIMENTS = ("xfuse_exp", "headfold_exp", "epilogue_exp")
 
 
@@ -70,7 +73,7 @@ def test_no_import_of_the_jax_package(path):
 
 _VILT_JAX_FREE = r"""
 import importlib, json, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "orbax", "rgqa_tpu", "experiments")
+BLOCKED = ("jax", "jaxlib", "flax", "orbax", "rgqa_tpu", "experiments", "nltk")
 for name in [m for m in sys.modules if m.split(".")[0] in BLOCKED]:
     del sys.modules[name]
 for name in BLOCKED:
@@ -124,6 +127,30 @@ def test_vilt_train_runs_with_jax_blocked(tmp_path):
                                   "--no_randaug", "--epochs", "1", "--output", out, *_VILT_FLAGS],
                         tmp_path)
     assert res["keys"] == ["loss", "valid"]
+    for name in ("LAST.pth", "LAST.state.pt"):
+        assert os.path.isfile(os.path.join(out, name)), name
+
+
+_TINY_LXMERT = ["--fp32", "--llayers", "1", "--xlayers", "1", "--rlayers", "1", "--hidden_size", "32",
+                "--num_heads", "4", "--batchSize", "16", "--device", "cpu"]
+
+
+def test_frcnn_evaluate_runs_with_jax_and_nltk_blocked(tmp_path):
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    res = _run_jax_free("cli.evaluate", ["--synthetic", "--data_root", root, "--test", "testdev",
+                                         "--scorer", "frcnn", "--output", out, *_TINY_LXMERT], tmp_path)
+    assert {"rgqa_tpu_torch.scorers.coverage", "rgqa_tpu_torch.scorers.porter"} <= set(res["modules"])
+    assert {"auaf", "fpr@0.95acc", "full_acc"} <= set(res["keys"])
+    with open(os.path.join(out, "testdev_predict.json")) as f:
+        assert {r["confidence"] for r in json.load(f)} <= {0.0, 1.0}
+
+
+def test_mixup_train_runs_with_jax_blocked(tmp_path):
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    res = _run_jax_free("cli.train", ["--synthetic", "--data_root", root, "--mixup_mode", "mixup_v1",
+                                      "--mixup_beta", "5", "--epochs", "1", "--output", out, *_TINY_LXMERT],
+                        tmp_path)
+    assert res["keys"] == ["loss", "valid"] and "rgqa_tpu_torch.data.parse" in res["modules"]
     for name in ("LAST.pth", "LAST.state.pt"):
         assert os.path.isfile(os.path.join(out, name)), name
 
@@ -404,3 +431,39 @@ def test_glove_matrix_copy_matches_the_original(tmp_path):
     got = port_butd.build_glove_matrix(word2idx, str(path), dim=8)
     np.testing.assert_array_equal(got, jax_butd.build_glove_matrix(word2idx, str(path), dim=8))
     assert got.shape == (4, 8) and got[0].any() and not got[2:].any()
+
+
+PARSES = ["(ROOT (S (NP (DT the) (NN cat)) (VP (VBZ is) (ADJP (JJ red))) (. ?)))", "(S (W a))", "(S (W a)",
+          "(S (W a)) extra", "", None, "(ROOT (S (NP (W Which) (W ONE's)) (W bigger?)))"]
+
+
+def test_parse_copy_matches_the_original(tmp_path):
+    from rgqa_tpu.data import parse as jax_parse
+
+    from rgqa_tpu_torch.data import parse as port_parse
+    from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
+
+    root = str(tmp_path / "gqa")
+    make_synthetic_gqa(root)
+    with open(os.path.join(root, "train.json")) as f:
+        rows = json.load(f)
+    parses = [r["parse"] for r in rows] + PARSES
+    sents = [r["sent"] for r in rows] + ["the cat is red ?", "a", "a", "a", "", "x", "which one's bigger?"]
+    for parse in parses[:-6] + PARSES[:2] + PARSES[-1:]:
+        tree = port_parse.parse_tree(parse)
+        assert tree == jax_parse.parse_tree(parse)
+        assert port_parse.tree_leaves(tree) == jax_parse.tree_leaves(tree)
+        assert port_parse.subtree_spans(tree) == jax_parse.subtree_spans(tree)
+    for bad in PARSES[2:4]:
+        for module in (port_parse, jax_parse):
+            with pytest.raises((ValueError, IndexError)):
+                module.parse_tree(bad)
+    tok = WordPieceTokenizer(load_vocab(os.path.join(root, "vocab.txt")))
+    for max_len, max_spans in ((20, port_parse.MAX_PARSE_SPANS), (8, 3)):
+        got = port_parse.encode_parse_spans(parses, sents, tok, max_len, max_spans=max_spans)
+        want = jax_parse.encode_parse_spans(parses, sents, tok, max_len, max_spans=max_spans)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+        assert (got[2] > 0).sum() >= (len(rows) // 2 if max_len == 20 else 1)  # usable parses
+    assert port_parse.MAX_PARSE_SPANS == jax_parse.MAX_PARSE_SPANS

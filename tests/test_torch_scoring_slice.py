@@ -567,7 +567,7 @@ def test_cli_maha_takes_the_evaluation_flags_under_bf16(cli_env):
 @pytest.mark.parametrize(
     "extra, match",
     [
-        (["--scorer", "frcnn"], "--scorer frcnn is not ported"),
+        (["--scorer", "odin", "--backbone", "caps"], "--scorer odin perturbs the RoI"),
         (["--scorer", "clip"], "--scorer clip needs --clip_path"),
         (["--scorer", "match"], "--scorer match needs --loadLXMERT"),
         (["--scorer", "caption"], "--scorer caption needs --load_gqa"),
@@ -621,8 +621,9 @@ def test_cli_scorers_run_with_jax_blocked(cli_env):
 def test_runner_takes_branched_heads_for_evaluation_only(env):
     root, tmp, paths, _ = env
     cfg = _cfg(root, str(tmp / "br_train"), branched=True)
-    with pytest.raises(NotImplementedError, match="--branched"):
-        GQARunner(cfg, init_train=True, device="cpu")
+    # Training the branched losses is ported since slice 17: a training
+    # runner builds the confidence head too.
+    assert GQARunner(cfg, init_train=True, device="cpu").model.conf_head is not None
     runner = GQARunner(dataclasses.replace(cfg, load=paths["branched"]), init_train=False, device="cpu")
     ref = torch.load(paths["branched"], weights_only=True)  # the conf head comes from the .pth
     torch.testing.assert_close(runner.model.state_dict()["conf_head.logits.weight"], ref["conf_fc.3.weight"])

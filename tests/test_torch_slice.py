@@ -11,7 +11,6 @@ shows the port runs where jax is absent.  The port's runner is built
 from the port's own ``RunConfig`` and asked for the CPU.
 """
 
-import dataclasses
 import json
 import os
 import subprocess
@@ -156,7 +155,7 @@ def test_cli_writes_predictions_and_metrics(tmp_path):
 @pytest.mark.parametrize(
     "extra, match",
     [
-        (["--scorer", "frcnn"], "--scorer frcnn is not ported"),
+        (["--scorer", "clip"], "--scorer clip needs --clip_path"),
         (["--scorer", "match"], "--scorer match needs --loadLXMERT"),
         (["--scorer", "maha", "--backbone", "caps"], "--backbone caps has none"),
     ],
@@ -174,9 +173,8 @@ def test_runner_refuses_orbax_snapshots_and_unported_options(tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         GQARunner(_cfg(root, str(tmp_path / "o"), load=str(tmp_path / "snap_dir")),
                   init_train=False, device="cpu")
-    cfg = _cfg(root, str(tmp_path / "o"))
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, uq_as_class=True))
-    with pytest.raises(NotImplementedError, match="--uq_as_class"):
+    cfg = _cfg(root, str(tmp_path / "o"), load_lxmert_qa=str(tmp_path / "qa.pth"))
+    with pytest.raises(NotImplementedError, match="--loadLXMERTQA"):
         GQARunner(cfg, init_train=False, device="cpu")
 
 

@@ -354,16 +354,13 @@ def test_runner_config_gate_names_unported_training_flags(tmp_path):
 
     for flags, match in [
         (["--strategy", "adv"], "--strategy adv"),
-        (["--mixup_mode", "mixup_v1"], "--mixup_mode"),
-        (["--mceLoss"], "--mceLoss"),
-        (["--scorer", "energy"], "energy margins"),
-        (["--chart"], "--chart"),
+        (["--strategy", "poem"], "--strategy poem"),
         (["--train_chunk", "2"], "--train_chunk"),
         (["--optim", "adam"], "--optim adam"),
         (["--bf16_moments"], "--bf16_moments"),
         (["--loadLXMERT", "x"], "--loadLXMERT"),
-        (["--uq_as_class"], "--uq_as_class"),
-        (["--branched"], "--branched"),
+        (["--loadLXMERTQA", "x"], "--loadLXMERTQA"),
+        (["--teacher_path", "x"], "--teacher_path"),
     ]:
         cfg, _ = parse_cli(["--synthetic", "--data_root", str(tmp_path), *flags])
         with pytest.raises(NotImplementedError, match=match):
