@@ -324,7 +324,29 @@ nonzero:
    also times #1's f32 body at LXMERT's four shapes under LXMERT's mask,
    batch 256, CUDA events and device time beside f32 SDPA's and the
    bound (the match scorer and ``--fp32`` answerers run it).
-35. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+35-36. the train CLI's remaining strategies, full width, on a synthetic
+   root.  35: LXMERT steps at batch 32 of VILLA (``--strategy adv``: a
+   clean forward through #1, three inner passes), the dual-loader
+   min-max (``resampling``, ``woods``: a forward pair on two batches),
+   ``distill_online`` (a second full-width LXMERT, bf16 weights, eval
+   mode, as the teacher; ``mixup_v1``) and ``weight`` (the weighted
+   pairs), each from one init and one set of host draws
+   (``tools/strategy_steps.py``): at dropout 0 through the kernels and
+   the plain versions (losses within ``LOSS_RTOL``), launches per step
+   at dropout 0 and 0.1 held to ``NEW_STEP_LAUNCHES``, the wall and then
+   the device time per step (``torch.profiler``).  36: the train CLI with the
+   flags of ``scripts/lxmert/train/{adv,resampling,poem,woods,
+   distill_online,weight}.sh``, one epoch each on a root of 128 train
+   questions (the teacher a vanilla
+   run's ``LAST``; ``weight`` with a random full-width HF CLIP
+   directory, its pixels from the root's CLIP pack): launches per step
+   and per validation forward, finite losses, a ``LAST.pth`` that loads
+   back whole; ``--loadLXMERTQA`` from a random full-width 9500-answer
+   ``<prefix>_LXRT.pth`` and an ``all_ans.json`` written here, the
+   printed loaded / zeroed counts held to the files and the runner's
+   weights to the file's before its first step, then its epoch; one
+   step of each ``--optim`` and of ``--bf16_moments`` (bf16 moments).
+37. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -3632,6 +3654,309 @@ def phase_strategies(keep: str) -> None:
     timed("34 frcnn CLI", phase_frcnn_cli, keep)
 
 
+# ---------------------------------------------------------------------------
+# Phases 35-36: the train CLI's remaining strategies.
+# ---------------------------------------------------------------------------
+
+
+def _launches(**counts) -> dict:
+    want = {name: 0 for name in KERNELS}
+    want.update(counts)
+    return want
+
+
+# Launches per LXMERT step (34 attention calls a forward, BWD_PER_STEP
+# backward calls a step): VILLA's clean forward and three inner passes;
+# the min-max and weighted pairs' two forwards; distillation's teacher
+# forward (eval, #1) beside the student's step.
+NEW_STEP_LAUNCHES = {
+    "adv": {0.0: _launches(fused_attention=34 + 3 * 34, fused_attention_bwd=3 * BWD_PER_STEP),
+            RATE: _launches(fused_attention=34, fused_attention_dropout=3 * 34,
+                            fused_attention_dropout_bwd=3 * BWD_PER_STEP)},
+    "distill_online": {0.0: _launches(fused_attention=2 * 34, fused_attention_bwd=BWD_PER_STEP),
+                       RATE: _launches(fused_attention=34, fused_attention_dropout=34,
+                                       fused_attention_dropout_bwd=BWD_PER_STEP)},
+}
+for _pair in ("resampling", "woods", "weight"):
+    NEW_STEP_LAUNCHES[_pair] = {
+        0.0: _launches(fused_attention=2 * 34, fused_attention_bwd=2 * BWD_PER_STEP),
+        RATE: _launches(fused_attention_dropout=2 * 34, fused_attention_dropout_bwd=2 * BWD_PER_STEP)}
+# Phase 36's train CLI runs: scripts/lxmert/train/<name>'s flags, one epoch.
+MINMAX_FLAGS = ["--train_pos", "GQAUQ_train_questions_unsup", "--train_neg", "GQAUQ_train_questions_unsup_hard",
+                "--batchSize", "32", "--lr", "1e-5", "--lr_w", "0.1"]
+NEW_STRATEGY_CLIS = {
+    "adv.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup", "--strategy", "adv",
+               "--adv_steps", "3", "--adv_lr_txt", "1e-3", "--adv_lr_img", "1e-3", "--adv_kl_weight", "1.5",
+               "--batchSize", "32", "--lr", "1e-5"],
+    "resampling.sh": ["--strategy", "resampling", *MINMAX_FLAGS],
+    "poem.sh": ["--strategy", "poem", *MINMAX_FLAGS],
+    "woods.sh": ["--strategy", "woods", *MINMAX_FLAGS],
+    "distill_online.sh": ["--strategy", "distill_online", "--teacher_path", "{vanilla}/LAST", "--mixup_mode",
+                          "mixup_v1", "--lam", "0.5", "--batchSize", "32", "--lr", "1e-5"],
+    "weight.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup", "--strategy", "weight",
+                  "--clip_path", "{clip}", "--batchSize", "32", "--lr", "1e-5"],
+}
+OPTIMS = (("adam", False), ("adamw", False), ("adamax", False), ("sgd", False), ("rms", False), ("bert", True))
+
+
+def _strategy_run(name, model, init, step_args, use_fused, forward, teacher_forward, extra: int = 0):
+    """Steps of ``name`` from ``init`` with a fresh BertAdam over
+    ``step_args``; (losses, the step)."""
+    import torch
+    from rgqa_tpu_torch.config import OptimConfig
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.tools.strategy_steps import make_strategy_step
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+
+    model.load_state_dict(init)
+    opt = make_optimizer(OptimConfig(), model.parameters(), t_total=len(step_args) + extra)
+    rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1), host=torch.Generator().manual_seed(1))
+    step = make_strategy_step(name, forward, opt, rng=rng, use_fused=use_fused, teacher_forward=teacher_forward)
+    losses = [step(*args)["loss"] for args in step_args]
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], step
+
+
+def phase_new_strategy_steps(root: str, n: int = 3) -> None:
+    """Phase 35: each new strategy's step at full width, batch 32, from
+    one init and one set of host draws: at dropout 0, ``n`` steps through
+    the kernels and the plain versions (losses within ``LOSS_RTOL``,
+    launches a step ``NEW_STEP_LAUNCHES``); at dropout 0.1 through #4 /
+    #5 (and the teacher's or the clean forward's #1), after a warm-up
+    step: launches a step and the wall over 4 steps, then the device
+    time a step (``torch.profiler``, 2 steps)."""
+    import torch
+    from rgqa_tpu_torch.models.zoo import build_model, default_config
+    from rgqa_tpu_torch.tools.profile_forward import _device_time
+    from rgqa_tpu_torch.tools.strategy_steps import STRATEGIES, strategy_inputs
+
+    phase = "new-strategy-steps"
+    batches = _strategy_batches(root, n + 1, 1842, False)
+    _, teacher = build_model(default_config(), use_bf16=True, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(2))
+    for name in STRATEGIES:
+        step_args = strategy_inputs(name, batches)[:n]
+        teacher_forward = teacher if name == "distill_online" else None
+        model, forward = _strategy_model(0.0, 1842)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        reset_counts()
+        k_losses, _ = _strategy_run(name, model, init, step_args, None, forward, teacher_forward)
+        counts = read_counts()
+        p_losses, _ = _strategy_run(name, model, init, step_args, False, forward, teacher_forward)
+        if read_counts() != counts:
+            raise AssertionError(f"{phase} {name}: the plain steps launched a kernel")
+        per_step = {k: c / n for k, c in counts.items()}
+        rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
+        del model, forward
+        model, forward = _strategy_model(RATE, 1842)
+        init_d = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        d_losses, step = _strategy_run(name, model, init_d, step_args[:1], None, forward, teacher_forward,
+                                       extra=8)
+        reset_counts()
+        t0 = time.perf_counter()
+        for i in range(4):
+            step(*step_args[i % n])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 4
+        d_per_step = {k: c / 4 for k, c in read_counts().items()}
+        classes = _device_time(lambda: step(*step_args[0]), 2)
+        device_ms = sum(ms for ms, _ in classes.values())
+        attention = sum(ms for cls, (ms, _) in classes.items() if cls.startswith("attention"))
+        log(phase, f"{name}: dropout 0 losses kernels {[round(x, 4) for x in k_losses]}, plain "
+            f"{[round(x, 4) for x in p_losses]}, max relative gap {max(rel):.3e} (bound {LOSS_RTOL:.0e}); "
+            f"launches a step {_shown(per_step)}; dropout {RATE}: first loss {d_losses[0]:.4f}, "
+            f"launches a step {_shown(d_per_step)}; device {device_ms:.3f} ms a step (attention "
+            f"{attention:.3f}), wall {wall:.3f} ms (before the profile), idle share {1 - device_ms / wall:.4f}")
+        if per_step != NEW_STEP_LAUNCHES[name][0.0]:
+            raise AssertionError(f"{phase} {name}: launches a step {per_step}")
+        if d_per_step != NEW_STEP_LAUNCHES[name][RATE]:
+            raise AssertionError(f"{phase} {name}: dropout launches a step {d_per_step}")
+        if not all(math.isfinite(x) for x in k_losses + p_losses + d_losses) or not max(rel) <= LOSS_RTOL:
+            raise AssertionError(f"{phase} {name}: losses {k_losses} vs plain {p_losses}")
+        del model, forward, init, init_d, step
+        torch.cuda.empty_cache()
+
+
+def _pretraining_pth(path: str, seed: int) -> str:
+    """A random full-width 9500-answer ``model_LXRT.pth``."""
+    import torch
+    from rgqa_tpu_torch.checkpoint.convert import to_reference_state_dict
+    from rgqa_tpu_torch.models.lxmert import LxmertPretraining
+    from rgqa_tpu_torch.models.zoo import default_config, init_weights
+
+    with torch.device("cuda"):
+        model = LxmertPretraining(default_config().encoder)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
+    torch.save(to_reference_state_dict(model.state_dict(), backbone="lxmert_pretrain"), path)
+    del model
+    return path
+
+
+def _load_lxmert_qa_run(tmp: str, root: str) -> None:
+    """``--loadLXMERTQA <prefix>``: the ``_LXRT.pth`` suffix rule, the
+    counts printed against ``all_ans.json`` and the GQA answers, the
+    runner's weights against the file's before its first step; then its
+    epoch (34 #4 / 32 #5 a step)."""
+    import contextlib
+    import io
+
+    import torch
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.pretrain import AnswerTable
+    from rgqa_tpu_torch.runner import GQARunner
+
+    phase = "new-strategy-cli"
+    prefix = os.path.join(tmp, "qa_pretrained")
+    _pretraining_pth(prefix + "_LXRT.pth", seed=6)
+    with open(os.path.join(root, "trainval_label2ans.json")) as f:
+        answers = json.load(f)
+    table = ["man", "woman"] + answers[::2]
+    with open(os.path.join(root, "all_ans.json"), "w") as f:
+        json.dump([{"ans": a, "dsets": ["gqa"]} for a in table], f)
+    argv = ["--synthetic", "--data_root", root, "--epochs", "1", "--batchSize", "32",
+            "--output", os.path.join(tmp, "loadLXMERTQA"), "--loadLXMERTQA", prefix]
+    cfg, _ = parse_cli(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        runner = GQARunner(cfg)
+    printed = out.getvalue()
+    real = [AnswerTable.convert_ans(a) for a in runner.label2ans[: runner.model_cfg.num_answers]]  # UQ: no logit
+    loaded = sum(a in set(table) for a in real)
+    line = f"Loaded {loaded} answers from LXRTQA pre-training and {len(real) - loaded} not"
+    ref = torch.load(prefix + "_LXRT.pth", map_location="cpu", weights_only=True)
+    ids = {a: i for i, a in enumerate(table)}
+    sd = {k: v.detach().float().cpu() for k, v in runner.model.state_dict().items()}
+    want_w = torch.stack([ref["answer_head.logit_fc.3.weight"][ids[a]] if a in ids
+                          else torch.zeros(ref["answer_head.logit_fc.3.weight"].shape[1]) for a in real])
+    same = {
+        "word embeddings": torch.equal(sd["lxmert.embeddings.word_embeddings.weight"],
+                                       ref["bert.embeddings.word_embeddings.weight"]),
+        "last cross layer": torch.equal(sd["lxmert.x_layers.4.visn_mlp.out.weight"],
+                                        ref["bert.encoder.x_layers.4.visn_output.dense.weight"]),
+        "head dense": torch.equal(sd["answer_head.dense.weight"], ref["answer_head.logit_fc.0.weight"]),
+        "head rows": torch.equal(sd["answer_head.logits.weight"], want_w),
+    }
+    log(phase, f"--loadLXMERTQA {prefix} (the _LXRT.pth file, all_ans.json of {len(table)} answers): printed "
+        f"{printed.strip()!r}, want {line!r}; the file's weights before the first step: {same}")
+    if line not in printed or not all(same.values()):
+        raise AssertionError(f"{phase}: --loadLXMERTQA printed {printed!r}, weights {same}")
+    reset_counts()
+    history = runner.train()
+    torch.cuda.synchronize()
+    steps = len(runner.train_set) // 32
+    forwards = math.ceil(len(runner.valid_set) / 32)
+    want = _launches(fused_attention_dropout=34 * steps, fused_attention_dropout_bwd=BWD_PER_STEP * steps,
+                     fused_attention=34 * forwards)
+    launches = read_counts()
+    log(phase, f"--loadLXMERTQA epoch: history {history}, launches {_shown(launches)}")
+    if launches != want or not all(math.isfinite(x) for x in history["loss"]):
+        raise AssertionError(f"{phase}: --loadLXMERTQA launches {launches}, want {want}; {history}")
+    del runner
+    torch.cuda.empty_cache()
+
+
+def _optim_steps(root: str) -> None:
+    """One RP step at full width, batch 32, dropout 0.1, of each
+    ``--optim`` and of ``--bf16_moments``, from one init: finite losses,
+    every parameter that takes a gradient moved, the moments' dtype."""
+    import torch
+    from rgqa_tpu_torch.config import OptimConfig
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+    from rgqa_tpu_torch.train.step import make_train_step
+
+    phase = "new-strategy-cli"
+    batch = _strategy_batches(root, 1, 1842, False)[0]
+    model, forward = _strategy_model(RATE, 1842)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for name, bf16 in OPTIMS:
+        model.load_state_dict(init)
+        opt = make_optimizer(OptimConfig(name=name, lr=1e-4, bf16_moments=bf16), model.parameters())
+        rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
+                         host=torch.Generator().manual_seed(1))
+        step = make_train_step(forward, opt, sample_pair=True, rng=rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(step(batch)["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = sum(not torch.equal(p.detach(), init[k]) for k, p in model.named_parameters() if p.grad is not None)
+        graded = sum(p.grad is not None for p in model.parameters())
+        dtypes = sorted({str(v.dtype) for s in opt.state.values() for v in s.values() if torch.is_tensor(v)
+                         and v.dim() > 0})
+        log(phase, f"--optim {name}{' --bf16_moments' if bf16 else ''}: {type(opt).__name__}, loss {loss:.4f}, "
+            f"{moved} of {graded} parameters with a gradient moved, state {dtypes}, first step {ms:.1f} ms")
+        if not math.isfinite(loss) or moved != graded or (bf16 and dtypes != ["torch.bfloat16"]):
+            raise AssertionError(f"{phase}: --optim {name} (bf16 {bf16}): loss {loss}, moved {moved} of {graded}")
+    del model, forward, init
+    torch.cuda.empty_cache()
+
+
+def phase_new_strategy_cli(tmp: str) -> None:
+    """Phase 36: the strategy scripts' train CLIs at full width, one epoch
+    each, held to their launches a step and a validation forward (the
+    weight run's CLIP image forwards add 12 #1 each), finite losses and a
+    ``LAST.pth`` that loads back whole; ``--loadLXMERTQA``; each
+    ``--optim``."""
+    import torch
+    from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    phase = "new-strategy-cli"
+    root = os.path.join(tmp, "gqa")
+    vanilla = os.path.join(tmp, "vanilla")
+    train_cli.main(["--synthetic", "--data_root", root, "--epochs", "1", "--batchSize", "32", "--output", vanilla])
+    clip = _hf_clip_dir(os.path.join(tmp, "clip"), seed=3)
+    per_step = {"adv.sh": NEW_STEP_LAUNCHES["adv"][RATE], "distill_online.sh":
+                NEW_STEP_LAUNCHES["distill_online"][RATE], "weight.sh": NEW_STEP_LAUNCHES["weight"][RATE]}
+    for name, flags in NEW_STRATEGY_CLIS.items():
+        out = os.path.join(tmp, name.replace(".sh", ""))
+        flags = [f.format(vanilla=vanilla, clip=clip) for f in flags]
+        argv = ["--synthetic", "--data_root", root, "--epochs", "1", "--output", out, *flags]
+        cfg, _ = parse_cli(argv)
+        batch = cfg.train.batch_size
+        reset_counts()
+        t0 = time.perf_counter()
+        history = train_cli.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_counts()
+        minmax = cfg.train.strategy in ("resampling", "poem", "woods")
+        split = cfg.data.train_pos if minmax else cfg.data.train_splits
+        steps = len(GQADataset(root, split, add_uq=True)) // batch
+        forwards = math.ceil(len(GQADataset(root, cfg.data.valid_splits)) / batch)
+        one = per_step.get(name, NEW_STEP_LAUNCHES["resampling"][RATE])
+        want = {k: v * steps for k, v in one.items()}
+        want["fused_attention"] += 34 * forwards
+        clip_calls = (launches["fused_attention"] - want["fused_attention"]) / 12 if name == "weight.sh" else 0
+        if name == "weight.sh":  # the CLIP image forwards: 12 #1 each, at least one
+            want["fused_attention"] = launches["fused_attention"]
+        log(phase, f"{name}: train CLI ({' '.join(argv)}) in {seconds:.2f} s: {steps} steps, history {history}; "
+            f"launches {_shown(launches)}" + (f" ({clip_calls:g} CLIP image forwards)" if clip_calls else ""))
+        if launches != want or (name == "weight.sh" and not (clip_calls >= 1 and clip_calls == int(clip_calls))):
+            raise AssertionError(f"{phase} {name}: launches {launches}, want {want}")
+        if not all(math.isfinite(x) for x in history["loss"]):
+            raise AssertionError(f"{phase} {name}: non-finite loss {history['loss']}")
+        _, missing, unused = load_reference_pth(os.path.join(out, "LAST.pth"))
+        if missing or unused:
+            raise AssertionError(f"{phase} {name}: LAST.pth missing {missing[:3]}, unused {unused[:3]}")
+        torch.cuda.empty_cache()
+    _load_lxmert_qa_run(tmp, root)
+    _optim_steps(root)
+
+
+def phase_new_strategies() -> None:
+    """Phases 35-36 in one temporary directory, each timed."""
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_new_strategies_") as tmp:
+        from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
+
+        # Half the default root's questions: 4 steps an epoch at batch 32.
+        make_synthetic_gqa(os.path.join(tmp, "gqa"), SyntheticSpec(n_train=128, n_valid=32))
+        timed("35 new strategy steps", phase_new_strategy_steps, os.path.join(tmp, "gqa"))
+        timed("36 new strategy CLIs", phase_new_strategy_cli, tmp)
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -3687,6 +4012,7 @@ def main() -> None:
         timed("23-27 BUTD and caps", phase_butd_caps)
         timed("28-31 CLIP and match", phase_clip_match, keep)
         timed("32-34 strategies and frcnn", phase_strategies, keep)
+        timed("35-36 new strategies", phase_new_strategies)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")

@@ -39,7 +39,10 @@ of ``LxmertPretraining`` (``cls.*``, ``obj_predict_head.*``,
 ``answer_head.logit_fc.*``, beside the port's ``lxmert.*`` encoder; a
 reference ``model_LXRT.pth`` holds the encoder as ``bert.*`` and a tied
 ``cls.predictions.decoder.weight``, which is dropped on load and
-written from the word table on export).
+written from the word table on export).  ``--loadLXMERT`` on LXMERT
+and ``--loadLXMERTQA`` read such a file into ``LxmertForGQA``
+(:func:`load_lxmert_pretrained`, :func:`load_lxmert_qa`) through the
+same pretraining key map.
 """
 
 from __future__ import annotations
@@ -65,7 +68,7 @@ from rgqa_tpu_torch.checkpoint.torch_import import (
 )
 
 __all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict",
-           "load_clip_state_dict"]
+           "load_clip_state_dict", "load_lxmert_pretrained", "load_lxmert_qa"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 _STACKED = re.compile(r"^(lang|visn|x|block|layer|proj)_(\d+)$")
@@ -328,6 +331,12 @@ def load_reference_pth(
                               answer_head=any(k.startswith("logit_fc") for k in ref))
     else:
         pairs = _reference_pairs(backbone, l_layers, x_layers, r_layers, num_layers, branched)
+    return _select(ref, pairs)
+
+
+def _select(ref: Mapping[str, np.ndarray], pairs) -> tuple[dict[str, torch.Tensor], list[str], list[str]]:
+    """(port state_dict, missing reference keys, unused reference keys)
+    of ``ref`` read through (reference key, port key) ``pairs``."""
     sd, missing, used = {}, [], set()
     for rkey, pkey in pairs:
         if rkey not in ref:
@@ -337,6 +346,67 @@ def load_reference_pth(
         sd[pkey] = torch.from_numpy(np.ascontiguousarray(value).reshape(np.shape(value)))
         used.add(rkey)
     return sd, missing, [k for k in ref if k not in used]
+
+
+def _pretrained_pairs(l_layers: int, x_layers: int, r_layers: int, heads: tuple[str, ...]):
+    """(``model_LXRT.pth`` key, ``LxmertForGQA`` key) of the encoder
+    (``bert.*``) and of the QA head's entries under ``heads``: the
+    pretraining key map read with the GQA model's names (its QA head
+    ``answer_head.logit_fc.{0,2,3}`` is the GQA head's ``answer_head.
+    {dense,ln,logits}`` in the flax tree of both)."""
+    for tkey, fpath, _ in lxmert_pretrain_key_map(l_layers, x_layers, r_layers):
+        if tkey.startswith(("bert.", *heads)):
+            yield tkey, port_key(fpath)
+
+
+def load_lxmert_pretrained(
+    path: str, *, l_layers: int = 9, x_layers: int = 5, r_layers: int = 5,
+) -> tuple[dict[str, torch.Tensor], list[str], list[str]]:
+    """``--loadLXMERT`` on LXMERT: the encoder of a reference pretraining
+    ``.pth`` (``model_LXRT.pth``, keys ``bert.*``) as ``LxmertForGQA``
+    weights, as the JAX package's ``import_lxmert_gqa(from_pretrain=True)``
+    reads it; the answer head stays at its init.  Returns (state_dict,
+    missing encoder keys, unused keys of the file)."""
+    return _select(load_torch_state_dict(path), _pretrained_pairs(l_layers, x_layers, r_layers, ()))
+
+
+def load_lxmert_qa(
+    path: str, label2ans, logits_weight: torch.Tensor, logits_bias: torch.Tensor, *,
+    src_ans2id: Mapping[str, int], convert_ans=None, l_layers: int = 9, x_layers: int = 5,
+    r_layers: int = 5,
+) -> tuple[dict[str, torch.Tensor], int, int]:
+    """``--loadLXMERTQA``: the answer-head transplant from a QA-pretrained
+    LXMERT (reference ``load_lxmert_qa``, ``qa_answer_table.py:84-158``;
+    the JAX package's ``load_lxmert_qa``).  The encoder (``bert.*``) and
+    the pretraining answer head's dense + LayerNorm load as they are; the
+    final layer's row of each GQA answer (``label2ans``, a list or a
+    ``{label: answer}`` mapping; labels past the head's width skipped)
+    whose ``convert_ans`` form is in ``src_ans2id`` is the pretraining
+    row of that answer, every other row and its bias zero.  The head's
+    current ``logits_weight`` (A, 2H) / ``logits_bias`` (A,) are the
+    start.  Returns (state_dict, rows loaded, rows zeroed)."""
+    ref = load_torch_state_dict(path)
+    heads = ("answer_head.logit_fc.0", "answer_head.logit_fc.2")
+    sd, _, _ = _select(ref, _pretrained_pairs(l_layers, x_layers, r_layers, heads))
+    ans_w, ans_b = ref["answer_head.logit_fc.3.weight"], ref["answer_head.logit_fc.3.bias"]
+    weight = logits_weight.detach().to("cpu", torch.float32).clone()
+    bias = logits_bias.detach().to("cpu", torch.float32).clone()
+    items = label2ans.items() if isinstance(label2ans, Mapping) else enumerate(label2ans)
+    loaded = zeroed = 0
+    for label, ans in items:
+        if label >= weight.shape[0]:
+            continue
+        key = convert_ans(ans) if convert_ans else ans
+        if key in src_ans2id:
+            weight[label] = torch.from_numpy(np.asarray(ans_w[src_ans2id[key]], np.float32))
+            bias[label] = float(ans_b[src_ans2id[key]])
+            loaded += 1
+        else:
+            weight[label] = 0.0
+            bias[label] = 0.0
+            zeroed += 1
+    sd["answer_head.logits.weight"], sd["answer_head.logits.bias"] = weight, bias
+    return sd, loaded, zeroed
 
 
 def load_clip_state_dict(path: str) -> dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
-"""Training CLI (port of ``rgqa_tpu/cli/train.py``: ``--strategy conf``,
-``separate`` and ``caption``, with the single-loader strategies' flags).
+"""Training CLI (port of ``rgqa_tpu/cli/train.py``: every ``--strategy``
+but ``weight --update_weight_model``).
 
 Fine-tunes LXMERT, UNITER (``--backbone uniter``; ``--loadLXMERT`` takes
 a pretrained UNITER encoder), ViLT (``--backbone vilt``) or BUTD
@@ -18,7 +18,20 @@ through to the runner's step: ``--mixup_mode`` (``--mixup_alpha``,
 weighted sums and TreeMix), ``--mceLoss``, ``--scorer energy --m_in
 --m_out`` (the energy hinge), ``--branched`` / ``--branched_layer``
 (LXMERT's, and BUTD's ``--branched``), ``--uq_as_class`` and
-``--chart``.  It writes ``BEST.pth``, ``LAST.pth`` (the reference
+``--chart``.  The strategy scripts with a step of their own
+(``scripts/lxmert/train/{adv,resampling,poem,woods,distill_online,
+weight}.sh``): ``--strategy adv`` (VILLA, LXMERT only: ``--adv_steps``,
+``--adv_lr_txt``, ``--adv_lr_img``, ``--adv_max_norm``,
+``--adv_kl_weight``, ``--norm_type``), ``resampling`` / ``poem`` /
+``woods`` (``--train_pos``, ``--train_neg``, ``--lr_w``; no resume),
+``distill_online`` (``--teacher_path`` a ``.pth``, or the path less its
+``.pth``; ``--lam``, ``--mixup_mode``), ``weight`` (``--clip_path`` and
+``--temperature``; without a CLIP checkpoint the root's captions, else
+uniform weights).  ``--optim`` bert (``--bf16_moments``), adam, adamw,
+adamax, sgd or rms; ``--loadLXMERT`` / ``--loadLXMERTQA`` start LXMERT
+from a reference ``model_LXRT.pth`` (``--loadLXMERTQA`` matches the
+answer head through ``<data_root>/all_ans.json`` or
+``data/lxmert/all_ans.json``).  It writes ``BEST.pth``, ``LAST.pth`` (the reference
 ``.pth`` format of the backbone), ``LAST.state.pt`` and ``log.log``
 (and with ``--chart`` ``chart/epoch_<n>.pkl``) under ``--output``, and
 prints ``{"final_loss", "valid"}``.  It runs on the card (``--device cuda``, the default;
@@ -44,6 +57,13 @@ Examples:
     python -m rgqa_tpu_torch.cli.train --backbone caps --strategy caption \
         --synthetic --data_root /tmp/gqa --epochs 1 --batchSize 32 \
         --output /tmp/gqa_caps_snap
+    python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
+        --strategy resampling --train_pos GQAUQ_train_questions_unsup \
+        --train_neg GQAUQ_train_questions_unsup_hard --lr_w 0.1 --epochs 1 \
+        --batchSize 32 --output /tmp/gqa_resampling_snap
+    python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
+        --strategy distill_online --teacher_path /tmp/gqa_snap/BEST \
+        --mixup_mode mixup_v1 --epochs 1 --batchSize 32 --output /tmp/gqa_distill_snap
 """
 
 from __future__ import annotations

@@ -303,7 +303,7 @@ class ScoringMixin:
         quesid2ans = {}
         for s in range(0, len(qids), batch_size):
             chunk = qids[s : s + batch_size]
-            imgs = [pack.load_u8(i)[0] if pack is not None and i in pack else _decode_rgb(source, i)
+            imgs = [pack.load_u8(i)[0] if pack is not None and i in pack else decode_rgb(source, i)
                     for i in img_ids[s : s + batch_size]]
             scores = similarity(imgs, [ds.id2datum[q]["sent"] for q in chunk])
             for qid, score in zip(chunk, scores):
@@ -451,7 +451,7 @@ def _check_decodable(img_ids, source, image_root: str, pack_dir: Optional[str], 
     )
 
 
-def _decode_rgb(source: GQAImageSource, img_id: str):
+def decode_rgb(source: GQAImageSource, img_id: str):
     from PIL import Image
 
     with Image.open(source.path(img_id)) as im:

@@ -68,7 +68,10 @@ class LxmertModel(nn.Module):
     "visn", "pooled", "lang_layers"}``; ``lang_layers`` holds the
     language output of each cross layer (the taps of ``--branched_layer``).
     ``output_probs`` adds ``x_attention_probs``: per cross layer the
-    (lang <- visn, visn <- lang) probabilities, each (B, H, Sq, Skv)."""
+    (lang <- visn, visn <- lang) probabilities, each (B, H, Sq, Skv).
+    VILLA's perturbations (the reference's ``src/lxrt_adv`` fork):
+    ``txt_delta`` (B, T, H) is added to the summed word embeddings before
+    their LayerNorm, ``img_delta`` (B, K, F) to the RoI features."""
 
     def __init__(self, cfg: EncoderConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -92,13 +95,17 @@ class LxmertModel(nn.Module):
         use_fused: Optional[bool] = None,
         rng: Optional[DropoutRng] = None,
         output_probs: bool = False,
+        txt_delta: Optional[torch.Tensor] = None,
+        img_delta: Optional[torch.Tensor] = None,
     ) -> dict:
         dt = self.compute_dtype
         lang_bias = mask_to_bias(input_mask, dt)
         visn_bias = mask_to_bias(visn_mask, dt) if visn_mask is not None else None
         kw = dict(use_fused=use_fused, rng=rng)
 
-        lang = self.embeddings(input_ids, segment_ids, rng=rng)
+        lang = self.embeddings(input_ids, segment_ids, delta=txt_delta, rng=rng)
+        if img_delta is not None:
+            feats = feats + img_delta.to(feats.dtype)
         visn = self.visual(feats, boxes, rng=rng)
         for layer in self.lang_layers:
             lang = layer(lang, bias=lang_bias, **kw)
@@ -160,11 +167,12 @@ class LxmertForGQA(nn.Module):
     def forward(
         self, input_ids, input_mask, segment_ids, feats, boxes,
         *, use_fused: Optional[bool] = None, rng: Optional[DropoutRng] = None,
-        output_probs: bool = False,
+        output_probs: bool = False, txt_delta: Optional[torch.Tensor] = None,
+        img_delta: Optional[torch.Tensor] = None,
     ) -> dict:
         enc = self.lxmert(
             input_ids, input_mask, segment_ids, feats, boxes, use_fused=use_fused, rng=rng,
-            output_probs=output_probs,
+            output_probs=output_probs, txt_delta=txt_delta, img_delta=img_delta,
         )
         out = {"logits": self.answer_head(enc["pooled"]), "pooled": enc["pooled"]}
         if self.conf_head is not None:

@@ -114,7 +114,10 @@ class TextEmbeddings(nn.Module):
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
         self.dropout = HiddenDropout(cfg.hidden_dropout)
 
-    def forward(self, input_ids, token_type_ids=None, *, rng: Optional[DropoutRng] = None):
+    def forward(self, input_ids, token_type_ids=None, *, delta: Optional[torch.Tensor] = None,
+                rng: Optional[DropoutRng] = None):
+        """``delta`` (B, T, H), VILLA's text perturbation, is added to the
+        summed embeddings before the LayerNorm, in the compute dtype."""
         dt = self.compute_dtype
         input_ids = input_ids.long()
         seq_len = input_ids.shape[-1]
@@ -128,6 +131,8 @@ class TextEmbeddings(nn.Module):
             + self.position_embeddings(pos).to(dt)
             + self.token_type_embeddings(token_type_ids.long()).to(dt)
         )
+        if delta is not None:
+            x = x + delta.to(dt)
         return self.dropout(self.layer_norm(x), rng)
 
 

@@ -1,12 +1,15 @@
-"""GQA runner (port of ``rgqa_tpu/runner.py``: construction, ``load`` and
-``train`` for ``--strategy conf``, ``separate`` and ``caption`` with the
-single-loader strategies' flags).
+"""GQA runner (port of ``rgqa_tpu/runner.py``: construction, ``load``,
+the pretrained starts and ``train`` for every ``--strategy`` of the JAX
+train CLI but ``--update_weight_model``'s).
 
 It makes the synthetic data when asked and it is missing, loads the
 feature pack and the tokenizer, sizes the answer head to the dataset's
 answers less the appended ``UQ`` class, initialises the weights from a
 ``torch.Generator`` seeded with ``--seed`` and loads ``--load <reference
-.pth>``.  It runs on the card unless the caller asks for the CPU.
+.pth>``, else a pretrained start: ``--loadLXMERTQA`` (LXMERT: the
+encoder and the answer head transplanted by answer string through
+``all_ans.json``) or ``--loadLXMERT`` (LXMERT's or UNITER's pretrained
+encoder).  It runs on the card unless the caller asks for the CPU.
 
 - ``GQARunner(cfg, init_train=True)`` encodes the train and valid splits
   and keeps f32 master weights; with bf16 on (the default; ``--fp32``
@@ -17,13 +20,19 @@ answers less the appended ``UQ`` class, initialises the weights from a
   ``--mixup_beta`` / ``--lam1`` / ``--lam2``), the branched loss
   (``--branched`` / ``--branched_layer``), the energy hinge (``--scorer
   energy`` with ``--m_in`` nonzero, ``--m_out``), global clip 5.0,
-  BertAdam with warmup, attention and hidden dropout at ``--dropout``;
+  ``--optim`` (BertAdam with warmup, ``--bf16_moments``; adam, adamw,
+  adamax, sgd, rms as optax defines them), attention and hidden dropout
+  at ``--dropout``;
   per epoch a validation of the closed-set soft accuracy, ``BEST.pth`` on
   a better one and a ``log.log`` line in the reference format, and with
   ``--chart`` ``<output>/chart/epoch_<n>.pkl``, ``{qid: (score, label,
   predicted answer)}`` of the epoch's steps; ``LAST.pth`` and
   ``LAST.state.pt`` at the end.  ``--uq_as_class`` trains the UQ answer
-  as a class of the head (the targets keep their UQ column).
+  as a class of the head (the targets keep their UQ column).  The
+  strategies with a step of their own: ``adv`` (VILLA), ``distill_online``
+  (``--teacher_path``), ``weight`` (CLIP-weighted RP) and, through
+  :meth:`GQARunner.train_minmax`, ``resampling`` / ``poem`` / ``woods``
+  (``--train_pos`` / ``--train_neg`` / ``--lr_w``).
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
   convention).  With ``f32_weights=True`` it keeps f32 weights under
@@ -69,18 +78,21 @@ pack like the eval splits.  Randaug needs PIL and the JPEGs; without
 either the runner raises, naming ``--no_randaug`` (the machine with the
 card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
-Not ported yet, and refused by flag name: training with the strategies
-but conf, separate and caption (adv, the dual-loader strategies, weight,
-online distillation), chunked dispatch, the other optimizers, bf16
-moments, orbax snapshots (reading them needs jax) and the
-``--loadLXMERT`` (on LXMERT) / ``--loadLXMERTQA`` initialisations.
-An evaluation runner for ``--scorer match`` with ``--load`` takes
-``--loadLXMERT`` (the match scorer's pretraining checkpoint, which the
-evaluate CLI loads) and leaves it out of the answerer.
+Refused by flag name (:func:`_check_ported`): chunked dispatch
+(``--train_chunk`` / ``--eval_chunk``), ``--feed_int8``,
+``--update_weight_model`` with ``--strategy weight`` (the CLIP weight
+model's joint step), orbax inputs (reading them needs jax), and where
+the JAX package fails: ``--strategy adv`` off LXMERT and the min-max
+strategies on the caption matcher.  An evaluation runner for ``--scorer
+match`` with ``--load`` takes ``--loadLXMERT`` (the match scorer's
+pretraining checkpoint, which the evaluate CLI loads) and leaves it out
+of the answerer; without ``--load`` it is refused.
 ``--loadLXMERT`` with ``--backbone uniter`` loads a pretrained UNITER encoder (``uniter.*`` or
 ``bert.*`` keys, or a GQA-UNITER ``.pth``'s encoder and head), as the JAX
 runner does; keys it lacks, the answer head of a bare encoder among
-them, stay at their init.
+them, stay at their init.  Where the JAX runner ignores them
+(``--loadLXMERTQA`` off LXMERT, ``--loadLXMERT`` on ViLT, BUTD and the
+caption matcher), the port does too, and says so.
 """
 
 from __future__ import annotations
@@ -93,24 +105,30 @@ import math
 import os
 import pickle
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+from rgqa_tpu_torch.checkpoint.convert import load_lxmert_pretrained, load_lxmert_qa, load_reference_pth
 from rgqa_tpu_torch.config import RunConfig, dump_run_config
-from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
+from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch, to_device
 from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
 from rgqa_tpu_torch.data.images import GQAImageSource, PixelPack, pack_matches
 from rgqa_tpu_torch.data.synthetic import BASE_IMAGES, make_synthetic_gqa, make_synthetic_pixel_pack
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 from rgqa_tpu_torch.device import resolve_device
-from rgqa_tpu_torch.eval import ScoringMixin
+from rgqa_tpu_torch.eval import ScoringMixin, decode_rgb
 from rgqa_tpu_torch.models.butd import build_glove_matrix, butd_split
 from rgqa_tpu_torch.models.zoo import build_model
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.pretrain.answer_table import AnswerTable
+from rgqa_tpu_torch.scorers.clip import ClipScorer
+from rgqa_tpu_torch.train.adversarial import AdvConfig, make_adv_train_step
+from rgqa_tpu_torch.train.dual_loader import NegativeWeights, make_minmax_step, sample_negative_indices
+from rgqa_tpu_torch.train.online_distill import make_online_distill_step
 from rgqa_tpu_torch.train.optimizer import make_optimizer
 from rgqa_tpu_torch.train.state import load_train_state, save_reference_pth, save_train_state
 from rgqa_tpu_torch.train.step import make_train_step
@@ -118,27 +136,47 @@ from rgqa_tpu_torch.train.step import make_train_step
 __all__ = ["GQARunner"]
 
 
+# The dual-loader min-max strategies (train_minmax).
+MINMAX = ("resampling", "poem", "woods")
+
+
 def _check_ported(cfg: RunConfig, *, train: bool) -> None:
+    """Refuse, by flag, what the port does not run: chunked dispatch (not
+    to port: one step a launch sequence here), the int8 feed, the
+    CLIP weight model's training and orbax inputs (reading orbax needs
+    jax); and where the JAX package fails: ``--strategy adv`` off LXMERT
+    (its delta hooks are LXMERT's), the min-max strategies on the
+    caption matcher (its one logit does not broadcast with the answer
+    targets in JAX ``train_minmax``); and ``--scorer match`` without
+    ``--load``, whose answerer would start from the scorer's checkpoint."""
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
-        # --scorer match reads --loadLXMERT as its scorer's checkpoint (the
-        # evaluate CLI loads it); without --load the JAX runner would also
-        # initialise the answerer's encoder from it, which is not ported.
-        "--loadLXMERT (LXMERT's pretrained encoder)": bool(cfg.load_lxmert) and m.backbone != "uniter"
-        and not (not train and cfg.ood.scorer == "match" and cfg.load),
-        "--loadLXMERTQA": bool(cfg.load_lxmert_qa),
         "--feed_int8": d.feed_int8,
         "--eval_chunk > 1": t.eval_chunk > 1,
+        # --scorer match reads --loadLXMERT as its scorer's checkpoint (the
+        # evaluate CLI loads it); without --load the JAX runner would also
+        # start the answerer from it.
+        "--loadLXMERT as --scorer match's answerer (give the answerer with --load)":
+            not train and cfg.ood.scorer == "match" and bool(cfg.load_lxmert) and not cfg.load,
     }
     if train:
         unported.update({
-            f"--strategy {t.strategy}": t.strategy not in ("conf", "separate", "caption"),
             "--train_chunk > 1": t.train_chunk > 1,
-            f"--optim {t.optim.name}": "bert" not in t.optim.name.lower(),
-            "--bf16_moments": t.optim.bf16_moments,
-            "--update_weight_model": t.update_weight_model,
-            "--teacher_path": bool(cfg.teacher_path),
+            "--update_weight_model (the CLIP weight model's joint step)":
+                t.update_weight_model and t.strategy == "weight",
+            f"--strategy adv on --backbone {m.backbone} (VILLA's text and RoI deltas are LXMERT's "
+            "hooks; the JAX package's UNITER, ViLT, BUTD and caption matcher take none)":
+                t.strategy == "adv" and m.backbone != "lxmert",
+            f"--strategy {t.strategy} on --backbone caps (the JAX train_minmax fails there: the "
+            "matcher's one logit does not broadcast with the answer targets)":
+                t.strategy in MINMAX and m.backbone == "caps",
+            "--teacher_path an orbax snapshot directory (reading orbax needs jax; give a .pth)":
+                t.strategy == "distill_online" and bool(cfg.teacher_path) and os.path.isdir(cfg.teacher_path),
         })
+    for flag, path in (("--loadLXMERTQA", cfg.load_lxmert_qa), ("--loadLXMERT", cfg.load_lxmert)):
+        unported[f"{flag} an orbax snapshot directory (reading orbax needs jax; give the .pth)"] = (
+            bool(path) and os.path.isdir(path) and m.backbone == "lxmert"
+        )
     named = [flag for flag, used in unported.items() if used]
     if named:
         raise NotImplementedError(f"not ported yet: {', '.join(named)}")
@@ -206,18 +244,67 @@ class GQARunner(ScoringMixin):
         self.label2ans = self.dataset.label2ans
         if self.butd_word2idx is not None:
             self._load_glove_embeddings(root)
-        if cfg.load:
-            self.load(cfg.load)
-        elif cfg.load_lxmert:  # --backbone uniter (_check_ported refuses the rest)
-            print(f"Loaded UNITER encoder ({len(self.load(cfg.load_lxmert))} keys left at init)")
-        elif cfg.load_bert and cfg.model.backbone == "caps":
-            # The matcher's pretrained-BERT start (BertModel.from_pretrained,
-            # caps.py:17); the match head stays at its init.
-            print(f"Loaded BERT encoder ({len(self.load(cfg.load_bert))} keys left at init)")
+        self._load_initial_weights()
 
         self.output = cfg.output
         os.makedirs(self.output, exist_ok=True)
         dump_run_config(cfg, self.output)
+
+    def _load_initial_weights(self) -> None:
+        """``--load``, else the pretrained starts (JAX
+        ``_load_initial_weights``, ``rgqa_tpu/runner.py:349-420``):
+        ``--loadLXMERTQA`` and ``--loadLXMERT`` on LXMERT, ``--loadLXMERT``
+        on UNITER, ``--load_bert`` on the caption matcher.  Elsewhere the
+        JAX runner ignores those flags, and so does the port (it says so)."""
+        cfg = self.cfg
+        backbone = cfg.model.backbone
+        if cfg.load:
+            self.load(cfg.load)
+        elif cfg.load_lxmert_qa and backbone == "lxmert":
+            self._load_lxmert_qa(cfg.load_lxmert_qa)
+        elif cfg.load_lxmert and backbone == "lxmert":
+            enc = self.model_cfg.encoder
+            sd, missing, _ = load_lxmert_pretrained(
+                cfg.load_lxmert, l_layers=enc.l_layers, x_layers=enc.x_layers, r_layers=enc.r_layers)
+            self.model.load_state_dict(sd, strict=False)
+            print(f"Loaded LXMERT encoder ({len(missing)} keys left at init)")
+        elif cfg.load_lxmert and backbone == "uniter":
+            print(f"Loaded UNITER encoder ({len(self.load(cfg.load_lxmert))} keys left at init)")
+        elif cfg.load_bert and backbone == "caps":
+            # The matcher's pretrained-BERT start (BertModel.from_pretrained,
+            # caps.py:17); the match head stays at its init.
+            print(f"Loaded BERT encoder ({len(self.load(cfg.load_bert))} keys left at init)")
+        elif cfg.load_lxmert_qa or cfg.load_lxmert:
+            flag = "--loadLXMERTQA" if cfg.load_lxmert_qa else "--loadLXMERT"
+            print(f"{flag} ignored on --backbone {backbone}, as in the JAX runner")
+
+    def _load_lxmert_qa(self, path: str) -> None:
+        """``--loadLXMERTQA``: the reference's ``%s_LXRT.pth`` suffix, the
+        answer table from ``<data_root>/all_ans.json`` else
+        ``data/lxmert/all_ans.json``, the transplant by answer string
+        (:func:`~rgqa_tpu_torch.checkpoint.convert.load_lxmert_qa`); with
+        neither table, the encoder and the head's dense + LayerNorm alone."""
+        cfg, enc = self.cfg, self.model_cfg.encoder
+        layers = dict(l_layers=enc.l_layers, x_layers=enc.x_layers, r_layers=enc.r_layers)
+        if not path.endswith(".pth") and os.path.exists(path + "_LXRT.pth"):
+            path = path + "_LXRT.pth"  # the reference's "%s_LXRT.pth" suffix
+        table = None
+        for cand in (os.path.join(cfg.data.data_root, "all_ans.json"), "data/lxmert/all_ans.json"):
+            if os.path.exists(cand):
+                table = AnswerTable(path=cand)
+                break
+        if table is None:
+            print("WARNING: all_ans.json not found — loading encoder + answer-head transform only, "
+                  "no per-answer transplant")
+            sd, _, _ = load_lxmert_pretrained(path, **layers)
+            self.model.load_state_dict(sd, strict=False)
+            return
+        head = self.model.answer_head.logits
+        sd, loaded, zeroed = load_lxmert_qa(
+            path, self.label2ans, head.weight, head.bias, src_ans2id=table.ans2id_map(),
+            convert_ans=table.convert_ans, **layers)
+        self.model.load_state_dict(sd, strict=False)
+        print(f"Loaded {loaded} answers from LXRTQA pre-training and {zeroed} not")
 
     def _butd_dictionary(self, root: str) -> dict[str, int]:
         """BUTD's word dictionary over the question splits
@@ -426,14 +513,37 @@ class GQARunner(ScoringMixin):
         return best_valid
 
     def train(self, resume: Optional[str] = None) -> dict:
-        """Fine-tune for ``--epochs``; returns ``{"loss": [...], "valid":
-        [...]}`` (the last step's loss and the valid accuracy of each
-        epoch).  ``resume`` names a checkpoint this runner saved (e.g.
-        "LAST"): its weights, optimizer state (step count included) and
-        generator states are restored before the epochs run."""
+        """Fine-tune for ``--epochs`` with ``--strategy``'s step (JAX
+        ``train``, ``rgqa_tpu/runner.py:503-645``); returns ``{"loss":
+        [...], "valid": [...]}`` (the last step's loss and the valid
+        accuracy of each epoch).  ``resume`` names a checkpoint this runner
+        saved (e.g. "LAST"): its weights, optimizer state (step count
+        included) and generator states are restored before the epochs run.
+
+        ``adv`` takes VILLA's step (:mod:`~rgqa_tpu_torch.train.
+        adversarial`), ``distill_online`` the teacher's blended targets
+        (:mod:`~rgqa_tpu_torch.train.online_distill`; ``--teacher_path``
+        a ``.pth``, built as an evaluation runner of this config), ``weight``
+        the CLIP-weighted RP loss with per-batch weights from
+        :meth:`_weight_similarity`, the min-max strategies
+        :meth:`train_minmax`; every other strategy the train step."""
         if self.train_set is None:
             raise RuntimeError("train() needs a runner built with init_train=True")
         tcfg = self.cfg.train
+        if tcfg.update_weight_model and tcfg.strategy != "weight":
+            # Before any dispatch: the flag is never dropped in silence.
+            warnings.warn(
+                f"--update_weight_model only applies with --strategy weight (got --strategy "
+                f"{tcfg.strategy}); the CLIP weight model will NOT be trained",
+                RuntimeWarning, stacklevel=2,
+            )
+        if tcfg.strategy in MINMAX:
+            if resume:
+                raise NotImplementedError(
+                    f"resume under --strategy {tcfg.strategy}: the JAX train_minmax takes no resume "
+                    "(its negative weights are not checkpointed)"
+                )
+            return self.train_minmax()
         n_batches = len(self.train_set) // tcfg.batch_size
         t_total = max(n_batches * tcfg.epochs, 1)
         optimizer = make_optimizer(tcfg.optim, self.model.parameters(), t_total)
@@ -456,15 +566,8 @@ class GQARunner(ScoringMixin):
             rng.load_state(state["rng"])
             shuffle.bit_generator.state = state["shuffle"]
 
-        m = self.cfg.model
-        step = make_train_step(
-            self.forward, optimizer, loss=tcfg.loss, sample_pair=tcfg.sample_pair,
-            mixup_mode=tcfg.mixup_mode, mixup_alpha=tcfg.mixup_alpha, mixup_beta=tcfg.mixup_beta,
-            lam1=tcfg.lam1, lam2=tcfg.lam2,
-            energy=self.cfg.ood.scorer == "energy" and tcfg.m_in != 0, m_in=tcfg.m_in, m_out=tcfg.m_out,
-            branched=m.branched or m.branched_layers, uq_as_class=m.uq_as_class,
-            binary=tcfg.strategy in ("separate", "caption"), grad_clip=tcfg.optim.grad_clip, rng=rng,
-        )
+        step = self._strategy_step(optimizer, rng)
+        similarity = self._weight_similarity() if tcfg.strategy == "weight" else None
         if tcfg.chart:
             os.makedirs(os.path.join(self.output, "chart"), exist_ok=True)
         best_valid = 0.0
@@ -485,7 +588,8 @@ class GQARunner(ScoringMixin):
                     self.device,
                 )
                 for qids, batch, _ in batches:
-                    aux = step(batch)
+                    kw = self._negative_weights(qids, similarity, shuffle) if similarity else {}
+                    aux = step(batch, **kw)
                     last_loss = aux["loss"]
                     if chart is not None:
                         chart.append((qids, aux["score"][: len(qids)], aux["label"][: len(qids)]))
@@ -499,4 +603,194 @@ class GQARunner(ScoringMixin):
             os.path.join(self.output, "LAST.state.pt"), optimizer=optimizer, step=steps,
             rng_state=rng.state(), shuffle=shuffle,
         )
+        return history
+
+    def _strategy_step(self, optimizer, rng: DropoutRng):
+        """The step of ``--strategy`` (JAX ``runner.py:576-640``)."""
+        cfg, tcfg, m = self.cfg, self.cfg.train, self.cfg.model
+        if tcfg.strategy == "distill_online":
+            teacher = self._teacher()
+            return make_online_distill_step(
+                self.forward, teacher.forward, optimizer, lam=tcfg.lam,
+                mixup_mode=tcfg.mixup_mode or "mixup_v1", mixup_alpha=tcfg.mixup_alpha,
+                mixup_beta=tcfg.mixup_beta, lam1=tcfg.lam1, lam2=tcfg.lam2,
+                grad_clip=tcfg.optim.grad_clip, rng=rng,
+            )
+        if tcfg.strategy == "adv":
+            hidden = self.model_cfg.encoder.hidden_size
+            adv = AdvConfig(steps=tcfg.adv_steps, lr_txt=tcfg.adv_lr_txt, lr_img=tcfg.adv_lr_img,
+                            max_norm=tcfg.adv_max_norm, kl_weight=tcfg.adv_kl_weight,
+                            norm_type=tcfg.adv_norm_type)
+            return make_adv_train_step(self.forward, optimizer, lambda b: (*b["input_ids"].shape, hidden),
+                                       adv, grad_clip=tcfg.optim.grad_clip, rng=rng)
+        return make_train_step(
+            self.forward, optimizer, loss=tcfg.loss, sample_pair=tcfg.sample_pair,
+            mixup_mode=tcfg.mixup_mode, mixup_alpha=tcfg.mixup_alpha, mixup_beta=tcfg.mixup_beta,
+            lam1=tcfg.lam1, lam2=tcfg.lam2,
+            energy=cfg.ood.scorer == "energy" and tcfg.m_in != 0, m_in=tcfg.m_in, m_out=tcfg.m_out,
+            branched=m.branched or m.branched_layers, uq_as_class=m.uq_as_class,
+            binary=tcfg.strategy in ("separate", "caption"), weighted_rp=tcfg.strategy == "weight",
+            grad_clip=tcfg.optim.grad_clip, rng=rng,
+        )
+
+    def _teacher(self) -> "GQARunner":
+        """``distill_online``'s frozen teacher: an evaluation runner of
+        this config (so at the student's precision) loading
+        ``--teacher_path`` (a ``.pth``; ``<path>.pth`` when ``<path>``
+        is missing, as the strategy script's ``vanilla/BEST`` names a
+        run's output)."""
+        cfg = self.cfg
+        path = cfg.teacher_path
+        if not path:
+            raise ValueError("--strategy distill_online needs --teacher_path")
+        if not os.path.exists(path) and os.path.isfile(path + ".pth"):
+            path += ".pth"
+        return GQARunner(
+            dataclasses.replace(cfg, load=path, output=os.path.join(cfg.output, "teacher"),
+                                train=dataclasses.replace(cfg.train, strategy="conf")),
+            init_train=False, device=self.device,
+        )
+
+    def _negative_weights(self, qids: list, similarity, rng: np.random.Generator) -> dict:
+        """``--strategy weight``'s per-batch host work (``runner.py:665-676``):
+        the roll ``shift`` from the run's shuffle generator, the anchor x
+        rolled-question similarities and their weights ``exp((s - max s) /
+        --temperature)``, normalized."""
+        shift = int(rng.integers(1, len(qids)))
+        neg_qids = qids[-shift:] + qids[:-shift]  # np.roll order
+        sims = similarity(qids, neg_qids)
+        w = np.exp((sims - sims.max()) / self.cfg.ood.temperature)
+        weights = torch.from_numpy(np.ascontiguousarray(w / w.sum(), np.float32))
+        return {"shift": shift, "neg_weights": weights.to(self.device, non_blocking=True)}
+
+    def _weight_similarity(self):
+        """Image x question similarity for ``--strategy weight``
+        (``runner.py:980-1068``, ``gqa_weight.py``): CLIP's when
+        :meth:`_clip_weight_similarity` has a model and pixels, else the
+        caption / question word overlap of ``<data_root>/image2caps.json``,
+        else zeros (uniform weights: a plain RP run, with a warning)."""
+        clip_sim = self._clip_weight_similarity()
+        if clip_sim is not None:
+            return clip_sim
+        caps_path = os.path.join(self.cfg.data.data_root, "image2caps.json")
+        image2caps = {}
+        if os.path.exists(caps_path):
+            with open(caps_path) as f:
+                image2caps = json.load(f)
+
+        def overlap_similarity(anchor_qids, neg_qids):
+            sims = np.zeros(len(anchor_qids), np.float32)
+            for i, (aq, nq) in enumerate(zip(anchor_qids, neg_qids)):
+                img_id = self.dataset.id2datum[aq]["img_id"]
+                cap = " ".join(image2caps.get(img_id, [""])).lower().split()
+                sent = self.dataset.id2datum[nq]["sent"].lower().split()
+                if cap and sent:
+                    sims[i] = len(set(cap) & set(sent)) / len(set(sent))
+            return sims
+
+        if image2caps:
+            return overlap_similarity
+        warnings.warn(
+            "--strategy weight: no CLIP checkpoint (--clip_path) and no "
+            f"{caps_path} found - negative-pair weights fall back to "
+            "UNIFORM, making this a plain RP run. Provide a local CLIP "
+            "checkpoint or an image2caps.json for real similarity "
+            "weighting.",
+            RuntimeWarning, stacklevel=2,
+        )
+        return lambda a, n: np.zeros(len(a), np.float32)
+
+    def _clip_weight_similarity(self):
+        """CLIP anchor-image x rolled-question similarity
+        (``gqa_weight.py:154-186``): the normalized embeddings' inner
+        product times ``logit_scale.exp()``, each image embedded once (a
+        cache), f32.  Needs ``--clip_path`` and pixels: a matching CLIP
+        pixel pack (:meth:`_clip_pack`; a synthetic root writes its own)
+        or the JPEGs under ``<data_root>/images`` (the JAX runner reads
+        only the JPEGs; the machine with the card has packs, not PIL).
+        Returns None without either."""
+        clip_path = self.cfg.ood.clip_path
+        if not clip_path:
+            return None
+        image_root = os.path.join(self.cfg.data.data_root, "images")
+        scorer = ClipScorer(clip_path, batch_size=min(self.cfg.train.batch_size, 64), device=self.device)
+        pack, _ = self._clip_pack(scorer, image_root)
+        if pack is None and not os.path.isdir(image_root):
+            return None
+        source = GQAImageSource(image_root)
+        embed_cache: dict[str, np.ndarray] = {}
+
+        def similarity(anchor_qids, neg_qids):
+            img_ids = [self.dataset.id2datum[q]["img_id"] for q in anchor_qids]
+            sents = [self.dataset.id2datum[q]["sent"] for q in neg_qids]
+            fresh = [i for i in dict.fromkeys(img_ids) if i not in embed_cache]
+            if fresh:
+                imgs = [pack.load_u8(i)[0] if pack is not None and i in pack else decode_rgb(source, i)
+                        for i in fresh]
+                for img_id, e in zip(fresh, scorer.image_embeds(imgs)):
+                    embed_cache[img_id] = e
+            txt = scorer.text_embeds(sents)
+            img = np.stack([embed_cache[i] for i in img_ids])
+            return np.sum(img * txt, -1) * scorer.logit_scale
+
+        return similarity
+
+    def train_minmax(self) -> dict:
+        """The dual-loader min-max training of ``--strategy resampling``,
+        ``poem`` and ``woods`` (JAX ``train_minmax``, ``runner.py:1071-1141``;
+        ``gqa_resampling.py`` / ``gqa_poem.py`` / ``gqa_woods.py``).
+        Positive batches stream shuffled from ``--train_pos``; each step's
+        negative batch (``--train_neg``'s pseudo-UQ rows) is drawn by the
+        learned weights (:class:`~rgqa_tpu_torch.train.dual_loader.
+        NegativeWeights`, SGD at ``--lr_w``; WOODS keeps them uniform), both
+        from the run's one numpy generator, as in JAX.  Per epoch a
+        validation with ``BEST.pth``; ``LAST.pth`` at the end."""
+        cfg, tcfg = self.cfg, self.cfg.train
+        root = cfg.data.data_root
+        pos_ds = GQADataset(root, cfg.data.train_pos, add_uq=True)
+        neg_ds = GQADataset(root, cfg.data.train_neg, add_uq=True)
+        pos_set, neg_set = self._encode(pos_ds, train=True), self._encode(neg_ds, train=True)
+        self.dataset = pos_ds
+        t_total = max(len(pos_set) // tcfg.batch_size * tcfg.epochs, 1)
+        optimizer = make_optimizer(tcfg.optim, self.model.parameters(), t_total)
+        rng = DropoutRng(
+            device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
+            host=torch.Generator().manual_seed(tcfg.seed),
+        )
+        weighted = tcfg.strategy != "woods"
+        step = make_minmax_step(self.forward, optimizer, weighted=weighted, grad_clip=tcfg.optim.grad_clip,
+                                rng=rng)
+        weights = NegativeWeights(len(neg_set), tcfg.lr_w, device=self.device)
+        shuffle = np.random.default_rng(tcfg.seed)
+        best_valid = 0.0
+        history = {"loss": [], "valid": []}
+        self.model.train()
+        try:
+            for epoch in range(tcfg.epochs):
+                sampling_w = weights.sampling_weights()
+                last = math.nan
+                for _, pos, _ in batch_iterator(pos_set, tcfg.batch_size, shuffle=True, rng=shuffle,
+                                                drop_last=True, with_target=True):
+                    wids = sample_negative_indices(shuffle, sampling_w, tcfg.batch_size)
+                    neg = neg_set.gather_batch(wids, with_target=True)
+                    w_grads, aux = step(weights.values, to_device(pos, self.device), to_device(neg, self.device),
+                                        torch.from_numpy(wids).to(self.device))
+                    if weighted:
+                        weights.apply(w_grads)
+                    last = aux["loss"]
+                history["loss"].append(float(last))
+                log_str = f"\nEpoch {epoch}: Train Loss {float(last):.2f}\n"
+                if self.valid_set is not None:
+                    valid = self._validate()
+                    history["valid"].append(valid)
+                    if valid > best_valid:
+                        best_valid = valid
+                        self.save("BEST")
+                    log_str += f"Epoch {epoch}: Valid {valid * 100:.2f}\n"
+                print(log_str, end="", flush=True)
+                with open(os.path.join(self.output, "log.log"), "a") as f:
+                    f.write(log_str)
+        finally:
+            self.model.eval()
+        self.save("LAST")
         return history

@@ -5,6 +5,8 @@ matcher or CLIP forward or training step goes on one CUDA card.
         [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone uniter|vilt|butd|caps]
         [--batch 32] [--mixup_mode MODE [--mixup_beta B] | --branched] [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --train --strategy
+        adv|resampling|woods|distill_online|weight [--batch 32] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
         [--out FILE.json]
 
@@ -31,7 +33,11 @@ flags swap RP for the train CLI's step with them, as
 ``scripts/lxmert/train/{mixup,branched}.sh`` run it (no RP):
 ``--mixup_mode`` with ``--mixup_beta`` (the rows doubled by the
 pseudo-UQ rows) or ``--branched`` (LXMERT's confidence head and the
-branched loss).  CLIP
+branched loss).  ``--strategy`` runs LXMERT's step of one of the
+strategies with a step of their own (``tools/strategy_steps.py``: VILLA,
+the min-max pair of forwards on two batches, online distillation with a
+second full-width model in eval mode as the teacher, the CLIP-weighted
+pairs; batch 32).  CLIP
 (``--backbone clip``: ViT-B/32 at 224 px, 50 tokens through #1, and the
 12 x 512 causal text tower over 77 tokens, plain attention) runs one
 scorer forward, the normalize of uint8 pixels on the card and both
@@ -192,6 +198,51 @@ def _with_tf32(model, fn):
     return run
 
 
+def _strategy_cases(sizes, name: str) -> dict:
+    """{(batch, "dropout d kernels" | "dropout d plain"): one step of
+    ``name`` (``tools/strategy_steps.py``)} on full-width LXMERT (f32
+    masters, bf16 compute); the teacher of ``distill_online``, a second
+    LXMERT with bf16 weights in eval mode."""
+    import dataclasses
+
+    import numpy as np
+
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.tools.strategy_steps import make_strategy_step, strategy_inputs
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+
+    base = default_config()
+    teacher_forward = None
+    if name == "distill_online":
+        _, teacher_forward = build_model(base, use_bf16=True, device="cuda",
+                                         generator=torch.Generator(device="cuda").manual_seed(2))
+    cases = {}
+    for dropout in (0.1, 0.0):
+        cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+            base.encoder, hidden_dropout=dropout, attention_dropout=dropout))
+        model, forward = build_model(cfg, use_bf16=True, device="cuda", train=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+        opt = make_optimizer(OptimConfig(), model.parameters(), t_total=10**6)
+        rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
+                         host=torch.Generator().manual_seed(1))
+        for size in sizes:
+            batches = []
+            for seed in (0, 1):
+                batch = example_batch(cfg, size, seed=seed)
+                target = np.zeros((size, cfg.num_answers), np.float32)
+                target[np.arange(size), (np.arange(size) + seed) % cfg.num_answers] = 1.0
+                id_mask = (np.arange(size) % 3 != 0).astype(np.float32)  # a third unanswerable
+                target[id_mask == 0] = 0.0
+                batch.update(target=target, id_mask=id_mask)
+                batches.append(to_device(batch, "cuda"))
+            args = strategy_inputs(name, batches)[0]
+            for fused, route in ((None, "kernels"), (False, "plain")):
+                step = make_strategy_step(name, forward, opt, rng=rng, use_fused=fused,
+                                          teacher_forward=teacher_forward)
+                cases[(size, f"dropout {dropout} {route}")] = functools.partial(step, *args)
+    return cases
+
+
 def _train_cases(sizes, backbone: str, strategy: dict = None) -> dict:
     """{(batch, "dropout d kernels" | "dropout d plain"): one training
     step}, each on its own full-width model (f32 masters, bf16 compute);
@@ -310,6 +361,9 @@ def main(argv=None) -> list:
     ap.add_argument("--mixup_mode", default=None, help="with --train: the mixup / TreeMix step, no RP")
     ap.add_argument("--mixup_beta", type=float, default=1.0)
     ap.add_argument("--branched", action="store_true", help="with --train: the branched loss, no RP")
+    ap.add_argument("--strategy", default=None,
+                    choices=("adv", "resampling", "woods", "distill_online", "weight"),
+                    help="with --train: that strategy's own step (LXMERT)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
@@ -322,6 +376,8 @@ def main(argv=None) -> list:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}")
+    if args.train and args.strategy:
+        return _profile(_strategy_cases(args.batch or [32], args.strategy), args, smi, args.out, unit="step")
     if args.train:
         strategy = ({"mixup_mode": args.mixup_mode, "mixup_beta": args.mixup_beta} if args.mixup_mode
                     else {"branched": True} if args.branched else {})

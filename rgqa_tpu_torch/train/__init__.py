@@ -1,5 +1,7 @@
-"""Training (port of ``rgqa_tpu/train``): losses, BertAdam, the train
-step with RP pairing, and checkpoint state."""
+"""Training (port of ``rgqa_tpu/train``): losses, BertAdam and the other
+optimizers, the train step (RP pairing, mixup, the weighted RP loss),
+VILLA (``adversarial``), the dual-loader min-max (``dual_loader``),
+online distillation (``online_distill``) and checkpoint state."""
 
 from rgqa_tpu_torch.train.losses import bce_answer_loss, optax_sigmoid_bce
 from rgqa_tpu_torch.train.optimizer import BertAdam, make_optimizer, warmup_linear

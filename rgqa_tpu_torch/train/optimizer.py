@@ -1,4 +1,5 @@
-"""BertAdam and its schedules (port of ``rgqa_tpu/train/optimizer.py``).
+"""BertAdam, its schedules and the other ``--optim`` choices (port of
+``rgqa_tpu/train/optimizer.py``).
 
 The reference optimizer of every RGQA fine-tune
 (``src/lxrt/optimization.py:52-180``), as a ``torch.optim.Optimizer``:
@@ -14,8 +15,19 @@ The reference optimizer of every RGQA fine-tune
 The schedule arithmetic runs in float32 on the host, as the JAX package
 runs it on the device, so the two learning rates agree bit for bit.  The
 moment and parameter updates use ``torch._foreach`` ops: a few launches
-per step for all parameters rather than a few per parameter.  bf16
-moments (``--bf16_moments``) and the other optimizers are not ported yet.
+per step for all parameters rather than a few per parameter.
+``--bf16_moments`` keeps BertAdam's moments in bf16 and does their
+arithmetic in f32, a cast in and a cast out, as the JAX package does.
+
+The other ``--optim`` choices follow the JAX package's optax definitions
+(``make_optimizer``), not ``torch.optim``'s defaults: ``adamax`` and
+``sgd`` are the ``torch.optim`` classes at optax's hyper-parameters,
+where the two agree; ``adam`` / ``adamw`` (weight decay 0, the same
+update) are :class:`OptaxAdam` and ``rms`` :class:`OptaxRMSprop`,
+written out, because ``torch.optim.Adam`` computes its bias corrections
+in float64 (optax's are f32 and move the first steps by ~1e-5 relative)
+and ``torch.optim.RMSprop`` decays by 0.99 with eps outside the square
+root.
 """
 
 from __future__ import annotations
@@ -27,7 +39,8 @@ import torch
 
 from rgqa_tpu_torch.config import OptimConfig
 
-__all__ = ["warmup_linear", "warmup_constant", "warmup_cosine", "BertAdam", "make_optimizer"]
+__all__ = ["warmup_linear", "warmup_constant", "warmup_cosine", "BertAdam", "OptaxAdam",
+           "OptaxRMSprop", "make_optimizer"]
 
 
 def _f32(x) -> np.float32:
@@ -68,7 +81,10 @@ SCHEDULES = {
 class BertAdam(torch.optim.Optimizer):
     """The reference BertAdam.  Each parameter group keeps its step
     ``count`` (pre-increment, saved in ``state_dict``); each parameter
-    its moments ``mu`` and ``nu``, in the parameter's dtype."""
+    its moments ``mu`` and ``nu``, in the parameter's dtype, or with
+    ``bf16_moments`` in bf16: the moment updates and the step then read
+    them in f32 and the new moments are stored rounded to bf16 (the JAX
+    ``bert_adam(moment_dtype=jnp.bfloat16)``)."""
 
     def __init__(
         self,
@@ -82,12 +98,13 @@ class BertAdam(torch.optim.Optimizer):
         b2: float = 0.999,
         eps: float = 1e-6,
         weight_decay: float = 0.01,
+        bf16_moments: bool = False,
     ):
         if schedule not in SCHEDULES:
             raise ValueError(f"unknown schedule {schedule!r}; have {sorted(SCHEDULES)}")
         defaults = dict(
             lr=lr, warmup=warmup, t_total=t_total, schedule=schedule, b1=b1, b2=b2,
-            eps=eps, weight_decay=weight_decay, count=0,
+            eps=eps, weight_decay=weight_decay, count=0, bf16_moments=bf16_moments,
         )
         super().__init__(params, defaults)
 
@@ -111,17 +128,27 @@ class BertAdam(torch.optim.Optimizer):
             # gradient, as in the JAX update: its moments decay and its
             # weight decay still applies.
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            bf16 = group.get("bf16_moments", False)
             for p in params:
                 if not self.state[p]:
-                    self.state[p]["mu"] = torch.zeros_like(p)
-                    self.state[p]["nu"] = torch.zeros_like(p)
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
+                    dtype = torch.bfloat16 if bf16 else p.dtype
+                    self.state[p]["mu"] = torch.zeros_like(p, dtype=dtype)
+                    self.state[p]["nu"] = torch.zeros_like(p, dtype=dtype)
+            stored_mu = [self.state[p]["mu"] for p in params]
+            stored_nu = [self.state[p]["nu"] for p in params]
+            # bf16 moments: the arithmetic on f32 copies, stored back rounded.
+            mus = [m.float() for m in stored_mu] if bf16 else stored_mu
+            nus = [v.float() for v in stored_nu] if bf16 else stored_nu
             b1, b2 = group["b1"], group["b2"]
             torch._foreach_mul_(mus, b1)
             torch._foreach_add_(mus, grads, alpha=1.0 - b1)
             torch._foreach_mul_(nus, b2)
             torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+            if bf16:
+                torch._foreach_copy_(stored_mu, mus)
+                torch._foreach_copy_(stored_nu, nus)
+                mus = [m.float() for m in stored_mu]
+                nus = [v.float() for v in stored_nu]
             denom = torch._foreach_sqrt(nus)
             torch._foreach_add_(denom, group["eps"])
             updates = torch._foreach_div(mus, denom)
@@ -132,14 +159,113 @@ class BertAdam(torch.optim.Optimizer):
         return loss
 
 
-def make_optimizer(cfg: OptimConfig, params, t_total: int = -1) -> BertAdam:
-    """The optimizer of ``--optim`` (``src/param.py:11-30``): BertAdam
-    with warmup over ``t_total`` steps.  The others raise."""
-    if "bert" not in cfg.name.lower():
-        raise NotImplementedError(f"--optim {cfg.name} is not ported yet; the port has bert")
-    if cfg.bf16_moments:
-        raise NotImplementedError("--bf16_moments is not ported yet")
-    return BertAdam(
-        params, cfg.lr, warmup=cfg.warmup, t_total=t_total, schedule=cfg.schedule,
-        weight_decay=cfg.weight_decay,
-    )
+def _grads(params) -> list:
+    """Each parameter's gradient; one the loss does not reach (no
+    ``.grad``) takes a zero gradient, as in the JAX update."""
+    return [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """``optax.adam(lr)`` (the JAX package's ``--optim adam``, and
+    ``adamw`` at weight decay 0): ``mu`` and ``nu`` as Adam's, the bias
+    corrections ``1 - b**t`` in float32, as optax rounds them (the first
+    step's ``1 - 0.999`` is 1.00005e-3 there; ``torch.optim.Adam``'s
+    float64 corrections move the first updates by ~1e-5 relative), then
+    ``p += -lr * mu_hat / (sqrt(nu_hat) + eps)`` with b1 0.9, b2 0.999,
+    eps 1e-8.  Each parameter keeps ``mu``, ``nu`` and its step ``count``."""
+
+    def __init__(self, params, lr: float, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = group["params"]
+            grads = _grads(params)
+            for p in params:
+                if not self.state[p]:
+                    self.state[p].update(mu=torch.zeros_like(p), nu=torch.zeros_like(p), count=0)
+            mus = [self.state[p]["mu"] for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            b1, b2 = group["b1"], group["b2"]
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+            count = self.state[params[0]]["count"] + 1
+            for p in params:
+                self.state[p]["count"] = count
+            bc1 = float(_f32(1.0) - _f32(b1) ** np.int32(count))
+            bc2 = float(_f32(1.0) - _f32(b2) ** np.int32(count))
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(mus, bc1)
+            torch._foreach_div_(updates, denom)
+            torch._foreach_mul_(updates, -group["lr"])
+            torch._foreach_add_(params, updates)
+        return loss
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr)`` (the JAX package's ``--optim rms``):
+    ``nu = decay nu + (1 - decay) g^2``, then ``p -= lr g / sqrt(nu +
+    eps)``, with decay 0.9 and eps 1e-8 inside the square root (optax's
+    ``eps_in_sqrt=True``), ``nu`` starting at 0.  ``torch.optim.RMSprop``
+    decays by 0.99 and adds eps outside the square root, so it takes
+    other steps wherever ``nu`` is small; hence this class.  Each
+    parameter keeps ``nu`` (in its dtype); a parameter without ``.grad``
+    takes a zero gradient, as in the JAX update."""
+
+    def __init__(self, params, lr: float, *, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = group["params"]
+            grads = _grads(params)
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+            nus = [self.state[p]["nu"] for p in params]
+            decay = group["decay"]
+            torch._foreach_mul_(nus, decay)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - decay)
+            denom = torch._foreach_add(nus, group["eps"])
+            torch._foreach_sqrt_(denom)
+            torch._foreach_addcdiv_(params, grads, denom, value=-group["lr"])
+        return loss
+
+
+def make_optimizer(cfg: OptimConfig, params, t_total: int = -1) -> torch.optim.Optimizer:
+    """The optimizer of ``--optim`` (``src/param.py:11-30``, as the JAX
+    package's ``make_optimizer`` maps it): ``bert`` (any name holding it)
+    BertAdam with warmup over ``t_total`` steps, bf16 moments with
+    ``--bf16_moments``; ``adam``, ``adamw`` (weight decay 0), ``adamax``
+    and ``sgd`` at optax's defaults (b1 0.9, b2 0.999, eps 1e-8; no
+    momentum), the first two as :class:`OptaxAdam`; ``rms``
+    :class:`OptaxRMSprop`.  Any other name raises."""
+    name = cfg.name.lower()
+    if "bert" in name:
+        return BertAdam(
+            params, cfg.lr, warmup=cfg.warmup, t_total=t_total, schedule=cfg.schedule,
+            weight_decay=cfg.weight_decay, bf16_moments=cfg.bf16_moments,
+        )
+    if name in ("adam", "adamw"):  # optax.adamw at weight decay 0 takes Adam's steps
+        return OptaxAdam(params, cfg.lr)
+    if name == "adamax":
+        return torch.optim.Adamax(params, cfg.lr, betas=(0.9, 0.999), eps=1e-8)
+    if name == "sgd":
+        return torch.optim.SGD(params, cfg.lr)
+    if name == "rms":
+        return OptaxRMSprop(params, cfg.lr)
+    raise ValueError(f"unknown optimizer {cfg.name!r}")

@@ -1,7 +1,7 @@
 """The train step (port of ``rgqa_tpu/train/step.py``: ``global_norm_clip``,
 ``rp_augment``, ``mixup_augment`` with the TreeMix splice, and
 ``make_train_step`` for the BCE, MCE, branched, energy and binary
-losses).
+losses and the CLIP-weighted RP loss).
 
 One step: augmentation (RP pairs with ``--sample_pair``, else the mixup
 or TreeMix pseudo-UQ rows of ``--mixup_mode``) -> forward in training
@@ -36,6 +36,7 @@ from rgqa_tpu_torch.train.losses import (
     branched_loss,
     energy_regularizer,
     mce_answer_loss,
+    optax_sigmoid_bce,
 )
 
 __all__ = ["global_norm_clip", "rp_augment", "draw_mixup", "mixup_apply", "make_train_step"]
@@ -290,13 +291,22 @@ def make_train_step(
     branched: bool = False,
     uq_as_class: bool = False,
     binary: bool = False,
+    weighted_rp: bool = False,
     grad_clip: float = 5.0,
     rng: Optional[DropoutRng] = None,
     use_fused: Optional[bool] = None,
 ):
-    """``step(batch, shift=None, draws=None) -> {"loss", "score",
-    "label"}``, tensors on the batch's device, for a model in training
-    mode whose parameters ``optimizer`` holds (JAX ``make_train_step``).
+    """``step(batch, shift=None, draws=None, neg_weights=None) -> {"loss",
+    "score", "label"}``, tensors on the batch's device, for a model in
+    training mode whose parameters ``optimizer`` holds (JAX
+    ``make_train_step``).
+
+    ``weighted_rp`` (``--strategy weight``, JAX ``weighted_rp_loss``,
+    ``gqa_weight.py:130-245``): the loss is ``0.5 x (pos BCE + weighted
+    negative BCE)``, the negatives the batch's images under its text
+    fields rolled by the host-chosen ``shift``, each negative row's BCE
+    against zero targets weighted by ``neg_weights`` (B,) (normalized by
+    their sum); two forwards a step.
 
     Augmentation: RP pairs (``sample_pair``; ``shift`` overrides the roll,
     drawn from ``rng.host`` otherwise), else ``mixup_mode``'s pseudo-UQ
@@ -317,7 +327,28 @@ def make_train_step(
     params = [p for group in optimizer.param_groups for p in group["params"]]
     precision = getattr(forward, "precision", contextlib.nullcontext)
 
-    def step(batch: dict, shift: Optional[int] = None, draws: Optional[dict] = None) -> dict:
+    def weighted_rp_loss(batch: dict, shift: int, neg_weights: torch.Tensor):
+        lp = forward(batch, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
+        k = lp.shape[-1]
+        loss_pos = torch.mean(optax_sigmoid_bce(lp, batch["target"])) * k
+        neg = dict(batch)
+        for key in TEXT_KEYS:
+            if key in batch:
+                neg[key] = torch.roll(batch[key], shift, dims=0)
+        ln = forward(neg, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
+        per_row = torch.mean(optax_sigmoid_bce(ln, torch.zeros_like(ln)), dim=-1) * k
+        w = neg_weights.to(torch.float32)
+        loss_neg = torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1e-8)
+        return 0.5 * (loss_pos + loss_neg), lp
+
+    def step(batch: dict, shift: Optional[int] = None, draws: Optional[dict] = None,
+             neg_weights: Optional[torch.Tensor] = None) -> dict:
+        if weighted_rp:
+            with precision():
+                total, logits = weighted_rp_loss(batch, shift, neg_weights)
+                optimizer.zero_grad(set_to_none=True)
+                total.backward()
+            return _update(total, logits)
         if sample_pair:
             b = next(batch[k] for k in TEXT_KEYS if k in batch).shape[0]
             batch = rp_augment(batch, rng.shift(b) if shift is None else shift)
@@ -343,6 +374,9 @@ def make_train_step(
                 total = total + energy_regularizer(logits, id_mask, m_in, m_out, mce=mce)
             optimizer.zero_grad(set_to_none=True)
             total.backward()
+        return _update(total, logits)
+
+    def _update(total: torch.Tensor, logits: torch.Tensor) -> dict:
         if grad_clip and grad_clip > 0:
             global_norm_clip(params, grad_clip)
         optimizer.step()

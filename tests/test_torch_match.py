@@ -363,10 +363,24 @@ def test_serve_refuses_what_the_jax_serve_cannot_build(tmp_path, scorer):
                    stdout=io.StringIO())
 
 
-def test_training_still_refuses_loadLXMERT(tmp_path):
-    cfg = _cfg(str(tmp_path / "gqa"), str(tmp_path / "out"), load="a.pth", load_lxmert="x.pth")
-    with pytest.raises(NotImplementedError, match="--loadLXMERT"):
-        GQARunner(cfg, init_train=True, device="cpu")
+def test_training_still_refuses_loadLXMERT(pretrained, tmp_path):
+    # --loadLXMERT on a training runner is ported (the pretrained encoder,
+    # tests/test_torch_pretrained_init.py); beside --load, --load wins, as
+    # in the JAX runner's _load_initial_weights.
+    path, _, _ = pretrained
+    root = str(tmp_path / "gqa")
+    make_synthetic_gqa(root, SyntheticSpec(**SPEC))
+    base = GQARunner(_cfg(root, str(tmp_path / "a")), init_train=True, device="cpu")
+    with torch.no_grad():
+        for p in base.model.parameters():
+            p.add_(0.01)
+    gqa_pth = base.save("A")
+    runner = GQARunner(_cfg(root, str(tmp_path / "out"), load=gqa_pth, load_lxmert=path), init_train=True,
+                       device="cpu")
+    got, want = runner.model.state_dict(), base.model.state_dict()
+    assert got.keys() == want.keys()
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, msg=key)
 
 
 def test_scorer_match_runs_with_jax_blocked(tmp_path):

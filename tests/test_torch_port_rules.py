@@ -25,7 +25,8 @@
   their loads in ``tests/test_torch_butd.py`` / ``test_torch_caps.py``),
   BUTD's tokenizer, word splitter and GloVe reader (equal arrays), the
   TreeMix parse utilities (``data/parse.py``: equal trees, spans and
-  arrays) and
+  arrays), the pretraining answer table (``pretrain/answer_table.py``,
+  ``--loadLXMERTQA``'s: equal tables and normalized answers) and
   ``cli/plot_attention.py`` (the same figures, byte for byte, in
   ``tests/test_torch_uniter_slice.py``).
 """
@@ -467,3 +468,26 @@ def test_parse_copy_matches_the_original(tmp_path):
             np.testing.assert_array_equal(g, w)
         assert (got[2] > 0).sum() >= (len(rows) // 2 if max_len == 20 else 1)  # usable parses
     assert port_parse.MAX_PARSE_SPANS == jax_parse.MAX_PARSE_SPANS
+
+
+ANSWERS = ["yes", "man", "2", "gray", "Apple.", "the kite", "a woman", "One", "grey", "ten", "an", ""]
+
+
+@pytest.mark.parametrize("dsets", [None, ["gqa"], ["vqa", "vg"]])
+def test_answer_table_copy_matches_the_original(tmp_path, dsets):
+    from rgqa_tpu.pretrain import answer_table as jax_table
+
+    from rgqa_tpu_torch.pretrain import answer_table as port_table
+
+    rows = [{"ans": a, "dsets": [("gqa", "vqa", "vg")[i % 3]]} for i, a in enumerate(ANSWERS) if a]
+    path = tmp_path / "all_ans.json"
+    path.write_text(json.dumps(rows))
+    got, want = port_table.AnswerTable(dsets, path=str(path)), jax_table.AnswerTable(dsets, path=str(path))
+    assert got.all_answers() == want.all_answers() and got.ans2id_map() == want.ans2id_map()
+    assert got.num_answers == want.num_answers and got.ans_set == want.ans_set
+    for ans in ANSWERS:
+        assert port_table.AnswerTable.convert_ans(ans) == jax_table.AnswerTable.convert_ans(ans), ans
+        assert got.used(ans) == want.used(ans)
+    assert port_table.ANS_CONVERT == jax_table.ANS_CONVERT
+    with pytest.raises(FileNotFoundError):
+        port_table.AnswerTable(path=str(tmp_path / "missing.json"))

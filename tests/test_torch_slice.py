@@ -173,8 +173,11 @@ def test_runner_refuses_orbax_snapshots_and_unported_options(tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         GQARunner(_cfg(root, str(tmp_path / "o"), load=str(tmp_path / "snap_dir")),
                   init_train=False, device="cpu")
-    cfg = _cfg(root, str(tmp_path / "o"), load_lxmert_qa=str(tmp_path / "qa.pth"))
-    with pytest.raises(NotImplementedError, match="--loadLXMERTQA"):
+    # --loadLXMERTQA reads a .pth (tests/test_torch_pretrained_init.py);
+    # an orbax snapshot directory stays refused by name.
+    (tmp_path / "qa_snapshot").mkdir()
+    cfg = _cfg(root, str(tmp_path / "o"), load_lxmert_qa=str(tmp_path / "qa_snapshot"))
+    with pytest.raises(NotImplementedError, match="--loadLXMERTQA an orbax"):
         GQARunner(cfg, init_train=False, device="cpu")
 
 

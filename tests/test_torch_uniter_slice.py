@@ -158,12 +158,17 @@ def test_load_lxmert_reads_a_bert_prefixed_encoder(cli_env):
     [
         (["--backbone", "uniter", "--branched"], False, "UNITER has no branched confidence head"),
         (["--backbone", "uniter", "--branched_layer"], False, "UNITER has no branched confidence head"),
-        (["--loadLXMERT", "x.pth"], True, "--loadLXMERT"),
-        (["--backbone", "uniter", "--loadLXMERTQA", "x.pth"], True, "--loadLXMERTQA"),
+        # LXMERT's pretrained starts read .pth files now; an orbax
+        # snapshot directory ({dir}) stays refused.
+        (["--loadLXMERT", "{dir}"], True, "--loadLXMERT an orbax"),
+        (["--loadLXMERTQA", "{dir}"], True, "--loadLXMERTQA an orbax"),
+        (["--backbone", "uniter", "--strategy", "adv"], True, "--strategy adv on --backbone uniter"),
     ],
-    ids=["branched", "branched_layer", "loadLXMERT-lxmert", "loadLXMERTQA"],
+    ids=["branched", "branched_layer", "loadLXMERT-lxmert", "loadLXMERTQA", "adv-uniter"],
 )
 def test_refusals_by_name(tmp_path, extra, train, match):
+    (tmp_path / "snapshot").mkdir()
+    extra = [str(tmp_path / "snapshot") if e == "{dir}" else e for e in extra]
     cfg, _ = port_config.parse_cli(["--synthetic", "--data_root", str(tmp_path / "gqa"), "--test",
                                     "testdev", "--output", str(tmp_path / "out"), "--num_layers", "1",
                                     "--hidden_size", "32", "--num_heads", "4", *extra])
