@@ -286,9 +286,9 @@ nonzero:
    off), the features' relative errors printed, and the same bits with
    TF32 switched on around the call (the model holds it off); the scorer
    forward timed, kernels and plain.  Phase 3 also holds #1 at 50x50
-   with no mask, f32 and bf16, batch 256 and 7, to its plain version,
-   and times it at batch 256 beside unmasked SDPA and the bound (CUDA
-   events and device time).  29: the evaluate CLI ``--scorer clip
+   with no mask, f32 and bf16, batch 256, 32 and 7, to its plain
+   version, and times it at batch 256 and 32 beside unmasked SDPA and
+   the bound (CUDA events and device time).  29: the evaluate CLI ``--scorer clip
    --clip_path <a random full-width HF CLIP directory> --load <phase 9's
    BEST.pth> --fp32 --batchSize 256`` on phase 9's root, its CLIP pack
    ``pixels_clip_224/`` written by the run from the base images: 12
@@ -300,8 +300,8 @@ nonzero:
    <it>`` from the same answerer: 34 launches of #1 a match forward
    beside the answerer's 34, f32, re-scored likewise
    (``MATCH_CONF_TOL``).  31: ``tools.profile_forward --backbone clip``
-   at batch 256 and 32: device time by kernel class, #1's share and the
-   idle share.
+   at batch 256 (and 32 until slice 19): device time by kernel class,
+   #1's share and the idle share.
 32-34. the single-loader strategies and the coverage scorer, full
    width, on a synthetic root.  32: LXMERT steps at batch 32 for each
    of ``STRATEGY_STEPS`` (``mixup_v1``, ``treemix_v2`` with the root's
@@ -346,13 +346,38 @@ nonzero:
    printed loaded / zeroed counts held to the files and the runner's
    weights to the file's before its first step, then its epoch; one
    step of each ``--optim`` and of ``--bf16_moments`` (bf16 moments).
-37. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+37-41. the CLIP weight model's training, the cartography distillation
+   and the statement verifier (slice 19), full width, on a root of 128
+   train questions.  37: the joint step of ``--strategy weight
+   --update_weight_model`` (``train.step.make_weighted_clip_train_step``),
+   LXMERT at batch 32 beside a random full-width ViT-B/32 CLIP whose
+   vision tower trains through #1 forward and #3 backward at 50x50, in
+   bf16 (the default) and under ``--fp32``: at dropout 0 through the
+   kernels and the plain versions from one init (``loss`` and ``loss_w``
+   within ``LOSS_RTOL``), launches a step ``WEIGHT_MODEL_LAUNCHES`` (80
+   #1 and 76 #3 at dropout 0; 12 #1, 12 #3, 68 #4 and 64 #5 at 0.1),
+   the wall and device time a step and the peak device memory.  38:
+   ``scripts/lxmert/train/weight.sh --update_weight_model``'s train CLI,
+   one epoch (launches a step and a validation forward; ``LAST.pth``,
+   ``LAST_clip.pth`` and ``clip_params/``, the export equal to the
+   trained tower and moved off ``--clip_path``), then the evaluate CLI
+   ``--scorer clip --clip_path <out>/clip_params`` as phase 29.  39: the
+   distillation CLI from that ``LAST.pth`` (MC-dropout passes through
+   #4, one pass held to its plain version on the same seeds; the
+   ensemble of two ``.pth`` teachers through #1).  40: the verifier's
+   ``train`` (3 x 32 statements a step through #4 / #5 beside the
+   answerer's #1) and ``ood_evaluate`` (#1), launches counted.  41:
+   ``cli.compute_param`` for every backbone.  Phase 3 also holds #3 at
+   50x50 (no mask, f32 and bf16, batch 256 and 32) to its plain version
+   and times #1 and #3 there beside SDPA and the bound.
+42. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
 
-Needs the repository beside it; it imports nothing of JAX.
+Needs the repository beside it; it imports nothing of JAX.  It must end
+within 1200 s on one H100, the kernels' build included.
 """
 
 from __future__ import annotations
@@ -460,7 +485,7 @@ FIT_CLASSES = 4
 SEED_LIST = (0, 1, 2, 3, 4)
 ODIN_T, ODIN_NOISE = 1000.0, 1e-2
 MAHA_NOISE = 1e-2
-SCORER_ITERS = {"msp": 20, "energy": 20, "maha": 20, "odin": 10, "dropout": 5}
+SCORER_ITERS = {"msp": 10, "energy": 10, "maha": 10, "odin": 5, "dropout": 3}
 # (atol, rtol) of a scorer's scores, kernels against plain versions, the
 # same bf16 weights.  msp, MC-dropout (the same masks: #4's keyed mask is
 # the plain version's, and the hidden-dropout bytes come from the same
@@ -1038,11 +1063,14 @@ def _f32_lxmert_kernel(att, gen, times):
 
 
 def _clip_kernel(att, gen, errs, times):
-    """#1 at CLIP's 50x50 with no mask (the zero (B, 50) bias the vision
-    tower's ``bias=None`` becomes), f32 and bf16, batch 256 and 7, q, k, v
-    column views of one fused QKV product, held to the plain version; at
-    batch 256 timed beside one unmasked SDPA call and the bound, CUDA
-    events (kernel and plain in turns) and the profiler's device time."""
+    """#1 and #3 at CLIP's 50x50 with no mask (the zero (B, 50) bias the
+    vision tower's ``bias=None`` becomes), f32 and bf16, q, k, v column
+    views of one fused QKV product, held to the plain versions: #1 at
+    batch 256, 32 and 7, #3 (the CLIP tower's backward under
+    ``--update_weight_model``, slice 19) at batch 256 and 32.  At batch
+    256 and 32 each is timed beside the unmasked SDPA call (#3: forward +
+    backward less forward) and the bound, CUDA events (kernel and plain
+    in turns) and the profiler's device time."""
     import torch
     import torch.nn.functional as F
     from rgqa_tpu_torch.tools.time_attention import device_us
@@ -1050,30 +1078,52 @@ def _clip_kernel(att, gen, errs, times):
     sq, skv = CLIP_SHAPE
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for b in (256, 7):
+        for b in (256, 32, 7):
             q, k, v = torch.randn(b, sq, 3 * E, generator=gen, device="cuda").to(dtype).split(E, -1)
+            g = torch.randn(b, sq, E, generator=gen, device="cuda").to(dtype)
             bias = att.bias_vector(None, b, skv, device="cuda")
-            kernel = lambda: att.fused_attention_cuda(q, k, v, bias, HEADS)  # noqa: E731
-            plain = lambda: att.attention_natural_ref(q, k, v, bias, HEADS)  # noqa: E731
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            msg = f"{dname} B={b} 50x50 (CLIP's vision tower, no mask): max|kernel-plain| " + _compare(
-                "fused_attention", dtype, got, want, errs)
-            if b == 256:
+            calls = {"fused_attention": (lambda: att.fused_attention_cuda(q, k, v, bias, HEADS),
+                                         lambda: att.attention_natural_ref(q, k, v, bias, HEADS))}
+            if b != 7:
+                calls["fused_attention_bwd"] = (lambda: att.fused_attention_bwd_cuda(q, k, v, bias, g, HEADS),
+                                                lambda: att.attention_bwd_ref(q, k, v, bias, g, HEADS))
+            msgs = []
+            for name, (kernel, plain) in calls.items():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                msgs.append(_compare(name, dtype, got, want, errs))
+            msg = f"{dname} B={b} 50x50 (CLIP's vision tower, no mask): max|kernel-plain| " + "; ".join(msgs)
+            if b in (256, 32):
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
                 def heads(t):
                     return t.view(b, skv, HEADS, E // HEADS).transpose(1, 2)
 
-                sdpa = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v))  # noqa: E731
-                plain_ms, kernel_ms = in_turns(plain, kernel)
-                bound, by = _bound_ms("fused_attention", b, sq, skv, q.element_size())
-                times[("fused_attention", dname, sq, skv)] = (kernel_ms, plain_ms, cuda_ms(sdpa), bound)
-                dev = {name: device_us(fn, 50, match=match) for name, fn, match in (
-                    ("kernel", kernel, "fused_attention"), ("sdpa", sdpa, None))}
-                msg += ("; us kernel/plain/library/bound: " + "/".join(
-                    f"{x * 1e3:.1f}" for x in times[("fused_attention", dname, sq, skv)])
-                    + f" ({by}); device time kernel {_us(dev['kernel'])}, sdpa {_us(dev['sdpa'])}")
+                def sdpa(grad=False):
+                    with torch.set_grad_enabled(grad):
+                        return F.scaled_dot_product_attention(*(heads(t) for t in leaves))
+
+                library = {"fused_attention": sdpa,
+                           "fused_attention_bwd": lambda: torch.autograd.grad(sdpa(True), leaves, heads(g))}
+                parts = []
+                for name, (kernel, plain) in calls.items():
+                    plain_ms, kernel_ms = in_turns(plain, kernel)
+                    lib_ms = cuda_ms(library[name]) - (cuda_ms(sdpa) if name.endswith("bwd") else 0.0)
+                    bound, by = _bound_ms(name, b, sq, skv, q.element_size())
+                    key = (name, dname, sq, skv) if b == 256 else (name, dname, sq, skv, b)
+                    times[key] = (kernel_ms, plain_ms, lib_ms, bound)
+                    dev_k = device_us(kernel, 50)
+                    dev_lib = device_us(library[name], 50, match=None)
+                    if name.endswith("bwd") and dev_lib is not None:
+                        fwd_dev = device_us(sdpa, 50, match=None)
+                        dev_lib = None if fwd_dev is None else dev_lib - fwd_dev
+                    parts.append(f"{name.replace('fused_attention', '#')} us kernel/plain/library/bound " + "/".join(
+                        f"{x * 1e3:.1f}" for x in times[key]) + f" ({by}); device time kernel {_us(dev_k)}, "
+                        f"sdpa {_us(dev_lib)}")
+                msg += "; " + "; ".join(parts)
+                del leaves
             log("kernels", msg)
-            del q, k, v, bias, got, want
+            del q, k, v, g, bias
     torch.cuda.empty_cache()
 
 
@@ -3245,23 +3295,22 @@ def _held_to_plain(phase, rows, plain_path, bound) -> None:
         raise AssertionError(f"{phase}: the scorer disagrees with the plain re-score")
 
 
-def phase_clip_cli(tmp: str, root: str, best: str) -> int:
+def phase_clip_cli(tmp: str, root: str, best: str, clip_dir: str | None = None, phase: str = "clip-cli") -> int:
     """``--scorer clip`` through the evaluate CLI (phase 29): the train
     CLI's LXMERT answerer (``--fp32``), a full-width random HF CLIP
-    checkpoint, the synthetic root's CLIP pack (written by the run),
-    batch 256; 12 launches of #1 a CLIP forward beside the answerer's 34;
-    re-scored with every attention call through the plain versions.
-    Returns the run's launches of #1."""
+    checkpoint (or ``clip_dir``), the synthetic root's CLIP pack (written
+    by the run), batch 256; 12 launches of #1 a CLIP forward beside the
+    answerer's 34; re-scored with every attention call through the plain
+    versions.  Returns the run's launches of #1."""
     import torch
     from rgqa_tpu_torch.cli import evaluate
     from rgqa_tpu_torch.data.dataset import GQADataset
     from rgqa_tpu_torch.scorers.clip import ClipScorer
 
-    phase = "clip-cli"
-    clip_dir = _hf_clip_dir(os.path.join(tmp, "clip-vit-b32"), seed=1)
+    clip_dir = clip_dir or _hf_clip_dir(os.path.join(tmp, "clip-vit-b32"), seed=1)
     argv = ["--synthetic", "--data_root", root, "--test", "testdev", "--fp32", "--load", best,
             "--scorer", "clip", "--clip_path", clip_dir, "--batchSize", "256",
-            "--output", os.path.join(tmp, "clip_eval")]
+            "--output", os.path.join(tmp, f"{phase}_eval")]
     rows, launches = _scorer_cli(phase, argv, root, CLIP_PER_FORWARD)
     if not os.path.isfile(os.path.join(root, "pixels_clip_224", "meta.json")):
         raise AssertionError(f"{phase}: the run wrote no CLIP pack")
@@ -3271,7 +3320,7 @@ def phase_clip_cli(tmp: str, root: str, best: str) -> int:
     fused = runner.forward
     runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
     scorer = ClipScorer(clip_dir, batch_size=256, device=device, use_fused=False)
-    path = os.path.join(tmp, "clip_plain.json")
+    path = os.path.join(tmp, f"{phase}_plain.json")
     runner.clip_ood_evaluate(runner._encode(GQADataset(root, "testdev", add_uq=True)), scorer.scores,
                              os.path.join(root, "images"), dump=path, batch_size=256)
     torch.cuda.synchronize()
@@ -3338,11 +3387,12 @@ def phase_match_cli(tmp: str, root: str, best: str) -> int:
 
 def phase_clip_profile() -> None:
     """``tools.profile_forward --backbone clip`` (phase 31): the CLIP
-    scorer forward at batch 256 and 32, kernels and plain; device time
-    by kernel class, #1's share and the idle share."""
+    scorer forward at batch 256, kernels and plain; device time by kernel
+    class, #1's share and the idle share (batch 32 since slice 19 only in
+    ``profile_forward``'s own default run)."""
     from rgqa_tpu_torch.tools import profile_forward
 
-    for run in profile_forward.main(["--backbone", "clip", "--batch", "256", "32", "--iters", "10",
+    for run in profile_forward.main(["--backbone", "clip", "--batch", "256", "--iters", "5",
                                      "--repeats", "2"]):
         attention = sum(c["ms"] for cls, c in run["classes"].items() if cls.startswith("attention"))
         log("clip-profile", f"batch {run['batch']} {run['route']}: device {run['device_ms']:.3f} ms per forward, "
@@ -3717,7 +3767,7 @@ def _strategy_run(name, model, init, step_args, use_fused, forward, teacher_forw
     return [float(x) for x in losses], step
 
 
-def phase_new_strategy_steps(root: str, n: int = 3) -> None:
+def phase_new_strategy_steps(root: str, n: int = 2) -> None:
     """Phase 35: each new strategy's step at full width, batch 32, from
     one init and one set of host draws: at dropout 0, ``n`` steps through
     the kernels and the plain versions (losses within ``LOSS_RTOL``,
@@ -3957,6 +4007,336 @@ def phase_new_strategies() -> None:
         timed("36 new strategy CLIs", phase_new_strategy_cli, tmp)
 
 
+# ---------------------------------------------------------------------------
+# Phases 37-41: the CLIP weight model's training, distillation, the
+# verifier, compute_param.
+# ---------------------------------------------------------------------------
+
+# Launches per joint step of --strategy weight --update_weight_model: the
+# CLIP vision tower's forward (12 of #1) and backward (12 of #3) beside
+# the weighted pair's two LXMERT forwards and backwards.
+WEIGHT_MODEL_LAUNCHES = {
+    0.0: _launches(fused_attention=CLIP_PER_FORWARD + 2 * 34,
+                   fused_attention_bwd=CLIP_PER_FORWARD + 2 * BWD_PER_STEP),
+    RATE: _launches(fused_attention=CLIP_PER_FORWARD, fused_attention_bwd=CLIP_PER_FORWARD,
+                    fused_attention_dropout=2 * 34, fused_attention_dropout_bwd=2 * BWD_PER_STEP),
+}
+# The parameter counts of compute_param (ModelConfig defaults), equal to
+# the JAX package's (tests/test_torch_surfaces.py, on the CPU).
+PARAM_COUNTS = {"butd": 17_134_306, "caps": 110_668_033, "lxmert": 211_952_178, "uniter": 115_082_034,
+                "vilt": 115_972_914}
+
+
+def _joint_step(model, forward, clip, init, clip_init, step_args, use_fused):
+    """A fresh joint step from ``init`` / ``clip_init`` (BertAdam for the
+    model, the strategy's Adam for CLIP) and its losses over
+    ``step_args``; (losses, loss_w, the step)."""
+    import torch
+    from rgqa_tpu_torch.config import OptimConfig
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.tools.strategy_steps import make_strategy_step
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+
+    model.load_state_dict(init)
+    clip.load_state_dict(clip_init)
+    opt = make_optimizer(OptimConfig(), model.parameters(), t_total=100)
+    rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1), host=torch.Generator().manual_seed(1))
+    step = make_strategy_step("weight_model", forward, opt, rng=rng, use_fused=use_fused, clip_model=clip)
+    aux = [step(*args) for args in step_args]
+    torch.cuda.synchronize()
+    return [float(a["loss"]) for a in aux], [float(a["loss_w"]) for a in aux], step
+
+
+def phase_weight_model_steps(root: str, n: int = 2) -> None:
+    """Phase 37: the joint step of ``--strategy weight
+    --update_weight_model`` at full width, batch 32: LXMERT 9/5/5 x 768
+    and a full-width ViT-B/32 CLIP (f32 weights; bf16 compute, then
+    ``--fp32``), from one init and one set of roll shifts: at dropout 0,
+    ``n`` steps through the kernels and through the plain versions
+    (``loss`` and ``loss_w`` within ``LOSS_RTOL``; launches a step
+    ``WEIGHT_MODEL_LAUNCHES``); at dropout 0.1, launches a step, the wall
+    over 4 steps, the device time a step (``torch.profiler``, 2 steps)
+    and the peak device memory."""
+    import torch
+    from rgqa_tpu_torch.models.clip import ClipConfig, ClipModel, init_clip_weights
+    from rgqa_tpu_torch.models.zoo import build_model, default_config
+    from rgqa_tpu_torch.tools.profile_forward import _device_time
+    from rgqa_tpu_torch.tools.strategy_steps import strategy_inputs, with_clip_inputs
+
+    phase = "weight-model-steps"
+    ccfg = ClipConfig()
+    batches = [with_clip_inputs(b, ccfg, seed=i) for i, b in enumerate(_strategy_batches(root, n + 1, 1842, False))]
+    step_args = strategy_inputs("weight_model", batches)
+    for fp32 in (False, True):
+        what = "--fp32" if fp32 else "bf16"
+        with torch.device("cuda"):
+            clip = ClipModel(ccfg, torch.float32 if fp32 else torch.bfloat16)
+        init_clip_weights(clip, torch.Generator(device="cuda").manual_seed(3))
+        clip.train()
+        clip_init = {k: v.detach().clone() for k, v in clip.state_dict().items()}
+        results = {}
+        for dropout in (0.0, RATE):
+            cfg = dataclasses.replace(default_config(), num_answers=1842)
+            cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+                cfg.encoder, hidden_dropout=dropout, attention_dropout=dropout))
+            model, forward = build_model(cfg, use_bf16=not fp32, device="cuda", train=True,
+                                         generator=torch.Generator(device="cuda").manual_seed(0))
+            init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            if dropout == 0.0:
+                reset_counts()
+                k_loss, k_w, _ = _joint_step(model, forward, clip, init, clip_init, step_args[:n], None)
+                counts = read_counts()
+                p_loss, p_w, _ = _joint_step(model, forward, clip, init, clip_init, step_args[:n], False)
+                if read_counts() != counts:
+                    raise AssertionError(f"{phase} {what}: the plain steps launched a kernel")
+                rel = [abs(a - b) / abs(b) for a, b in zip(k_loss + k_w, p_loss + p_w)]
+                results[0.0] = {k: c / n for k, c in counts.items()}
+                log(phase, f"{what} dropout 0: loss kernels {[round(x, 4) for x in k_loss]}, plain "
+                    f"{[round(x, 4) for x in p_loss]}; loss_w kernels {[round(x, 4) for x in k_w]}, plain "
+                    f"{[round(x, 4) for x in p_w]}; max relative gap {max(rel):.3e} (bound {LOSS_RTOL:.0e}); "
+                    f"launches a step {_shown(results[0.0])}")
+                if not all(math.isfinite(x) for x in k_loss + p_loss + k_w + p_w) or not max(rel) <= LOSS_RTOL:
+                    raise AssertionError(f"{phase} {what}: losses {k_loss}/{k_w} vs plain {p_loss}/{p_w}")
+                if len(set(round(x, 6) for x in k_w)) < 2:
+                    raise AssertionError(f"{phase} {what}: loss_w never moved: {k_w}")
+            else:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                d_loss, d_w, step = _joint_step(model, forward, clip, init, clip_init, step_args[:1], None)
+                reset_counts()
+                t0 = time.perf_counter()
+                for i in range(4):
+                    step(*step_args[i % n])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / 4
+                results[RATE] = {k: c / 4 for k, c in read_counts().items()}
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                classes = _device_time(lambda: step(*step_args[0]), 2)
+                device_ms = sum(ms for ms, _ in classes.values())
+                top = ", ".join(f"{c} {ms:.3f}" for c, (ms, _) in sorted(classes.items(), key=lambda kv: -kv[1][0])[:6])
+                log(phase, f"{what} dropout {RATE}: first loss {d_loss[0]:.4f}, loss_w {d_w[0]:.4f}; launches a "
+                    f"step {_shown(results[RATE])}; device {device_ms:.3f} ms a step ({top}), wall {wall:.3f} ms "
+                    f"(before the profile), idle share {1 - device_ms / wall:.4f}; peak device memory "
+                    f"{peak:.2f} GiB")
+                if not all(math.isfinite(x) for x in d_loss + d_w):
+                    raise AssertionError(f"{phase} {what}: non-finite dropout losses {d_loss} {d_w}")
+            del model, forward, init
+            torch.cuda.empty_cache()
+        for rate, want in WEIGHT_MODEL_LAUNCHES.items():
+            if results[rate] != want:
+                raise AssertionError(f"{phase} {what}: launches a step at dropout {rate} {results[rate]}, want {want}")
+        del clip, clip_init
+        torch.cuda.empty_cache()
+
+
+def phase_weight_model_cli(tmp: str, root: str) -> tuple[str, str]:
+    """Phase 38: ``scripts/lxmert/train/weight.sh --update_weight_model``
+    at full width, one epoch on the 128-question root, CLIP a random
+    full-width HF directory, its pixels the root's CLIP pack: launches
+    ``WEIGHT_MODEL_LAUNCHES`` a step at dropout 0.1 and 34 of #1 a
+    validation forward; ``LAST.pth`` loads back whole; ``LAST_clip.pth``
+    holds the trained tower, which ``clip_params/`` exports and which
+    moved off the source; then ``--scorer clip --clip_path
+    <out>/clip_params`` through the evaluate CLI scores with that tower
+    (phase 29's checks, re-scored through the plain versions).  Returns
+    (the run's directory, its ``LAST.pth``)."""
+    import torch
+    from rgqa_tpu_torch.checkpoint.convert import load_clip_state_dict, load_reference_pth
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    phase = "weight-model-cli"
+    clip = _hf_clip_dir(os.path.join(tmp, "clip"), seed=4)
+    out = os.path.join(tmp, "weight_model")
+    flags = [f.format(clip=clip) for f in NEW_STRATEGY_CLIS["weight.sh"]]
+    argv = ["--synthetic", "--data_root", root, "--epochs", "1", "--output", out, *flags, "--update_weight_model"]
+    cfg, _ = parse_cli(argv)
+    reset_counts()
+    t0 = time.perf_counter()
+    history = train_cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    steps = len(GQADataset(root, cfg.data.train_splits, add_uq=True)) // cfg.train.batch_size
+    forwards = math.ceil(len(GQADataset(root, cfg.data.valid_splits)) / cfg.train.batch_size)
+    want = {k: v * steps for k, v in WEIGHT_MODEL_LAUNCHES[RATE].items()}
+    want["fused_attention"] += 34 * forwards
+    log(phase, f"weight.sh --update_weight_model: train CLI ({' '.join(argv)}) in {seconds:.2f} s: {steps} steps, "
+        f"history {history}; launches {_shown(launches)}")
+    if launches != want or not all(math.isfinite(x) for x in history["loss"]):
+        raise AssertionError(f"{phase}: launches {launches}, want {want}; history {history}")
+    _, missing, unused = load_reference_pth(os.path.join(out, "LAST.pth"))
+    if missing or unused:
+        raise AssertionError(f"{phase}: LAST.pth missing {missing[:3]}, unused {unused[:3]}")
+    trained = torch.load(os.path.join(out, "LAST_clip.pth"), map_location="cpu", weights_only=True)
+    exported = load_clip_state_dict(os.path.join(out, "clip_params"))
+    source = load_clip_state_dict(clip)
+    same = all(torch.equal(exported[k], v.float()) for k, v in trained["params"].items())
+    moved = sum(not torch.equal(source[k], v) for k, v in exported.items())
+    log(phase, f"LAST_clip.pth: step {trained['step']}, Adam state of {len(trained['optimizer']['state'])} "
+        f"tensors; clip_params/ holds its params: {same}; {moved} of {len(exported)} tensors moved off --clip_path")
+    if not same or trained["step"] != steps or moved < len(exported) // 2:
+        raise AssertionError(f"{phase}: the exported tower is not the trained one (same {same}, moved {moved})")
+    phase_clip_cli(tmp, root, os.path.join(out, "LAST.pth"), os.path.join(out, "clip_params"),
+                   phase="weight-model-clip-cli")
+    torch.cuda.empty_cache()
+    return out, os.path.join(out, "LAST.pth")
+
+
+def phase_distill_cli(tmp: str, root: str, teacher: str) -> None:
+    """Phase 39: the distillation CLI at full width from ``teacher`` (phase
+    38's ``LAST.pth``), batch 256: ``--n_candidates 256 --passes 2`` at
+    dropout 0.1 (34 launches of #4 a pass and batch, none else), the
+    split written; one pass of the candidates through #4 held to its
+    plain version on the same seeds (answers on ``MIN_LABEL_AGREEMENT``,
+    confidences within ``CONF_TOL``); then ``--teacher_path a,b`` (the
+    ensemble: 34 launches of #1 a batch and teacher)."""
+    import torch
+    from rgqa_tpu_torch import distill
+    from rgqa_tpu_torch.cli import distill as distill_cli
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.runner import GQARunner
+    from rgqa_tpu_torch.scorers.core import make_dropout_scorer
+
+    import numpy as np
+
+    phase = "distill-cli"
+    base = ["--synthetic", "--data_root", root, "--batchSize", "256", "--output", os.path.join(tmp, "distill")]
+    # tau_aq_c 0 / tau_aq_v 1: every candidate the teacher is not sure is
+    # unanswerable becomes a pseudo-AQ row (a random teacher's confidences
+    # straddle no default threshold).
+    argv = base + ["--load", teacher, "--n_candidates", "256", "--passes", "2", "--output_name", "distill_train",
+                   "--tau_aq_c", "0", "--tau_aq_v", "1"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = distill_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = _launches(fused_attention_dropout=34 * 2)
+    labels = [next(iter(r["label"])) for r in rows]
+    log(phase, f"distill CLI ({' '.join(argv)}) in {time.perf_counter() - t0:.2f} s: {len(rows)} rows "
+        f"({labels.count('UQ')} pseudo-UQ); launches {_shown(launches)}")
+    with open(os.path.join(root, "distill_train.json")) as f:
+        written = json.load(f)
+    if launches != want or written != rows or not rows:
+        raise AssertionError(f"{phase}: launches {launches}, want {want}; {len(rows)} rows, {len(written)} written")
+
+    cfg, _ = parse_cli(base + ["--load", teacher])
+    runner = GQARunner(cfg)
+    cands = distill.sample_repaired(runner.dataset.data, np.random.default_rng(0), 256)
+    encoded = runner._encode(GQADataset.from_rows(cands, ans2label=runner.dataset.ans2label,
+                                                  label2ans=runner.dataset.label2ans))
+    reset_counts()
+    kernel = runner.score_split(encoded, scorer=make_dropout_scorer(runner.forward, seed_list=(0,)))
+    k_launches = read_counts()
+    fused = runner.forward
+    runner.forward = lambda batch, **kw: fused(batch, use_fused=False, **kw)
+    plain = runner.score_split(encoded, scorer=make_dropout_scorer(runner.forward, seed_list=(0,)))
+    if read_counts() != k_launches:
+        raise AssertionError(f"{phase}: the plain pass launched a kernel")
+    agree = sum(kernel[q][0] == plain[q][0] for q in kernel) / len(kernel)
+    dconf = max(abs(kernel[q][1] - plain[q][1]) for q in kernel)
+    log(phase, f"one MC-dropout pass (seed 0, dropout {RATE}) of {len(kernel)} candidates through #4 "
+        f"({_shown(k_launches)}) vs plain: answers agree on {agree:.4f} (want >= {MIN_LABEL_AGREEMENT}), "
+        f"max|conf diff| {dconf:.3e} (bound {CONF_TOL:.0e})")
+    if k_launches != _launches(fused_attention_dropout=34) or agree < MIN_LABEL_AGREEMENT or not dconf <= CONF_TOL:
+        raise AssertionError(f"{phase}: the kernel pass disagrees with the plain pass")
+    del runner
+
+    second = os.path.join(tmp, "teacher_b.pth")
+    shutil.copy(teacher, second)
+    ens = base + ["--teacher_path", f"{teacher},{second}", "--output_name", "ensemble_train"]
+    n_rows = len({d["question_id"] for d in GQADataset(root, parse_cli(base)[0].data.train_splits).data})
+    reset_counts()
+    rows = distill_cli.main(ens)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = _launches(fused_attention=34 * 2 * math.ceil(n_rows / 256))
+    scores = [next(iter(r["label"].values())) for r in rows]
+    log(phase, f"ensemble ({' '.join(ens)}): {len(rows)} rows, scores {min(scores):.4f}..{max(scores):.4f}; "
+        f"launches {_shown(launches)}")
+    if launches != want or len(rows) != n_rows or not all(0.0 <= x <= 1.0 for x in scores):
+        raise AssertionError(f"{phase}: ensemble launches {launches}, want {want}; {len(rows)} rows of {n_rows}")
+    torch.cuda.empty_cache()
+
+
+def phase_verifier(tmp: str, root: str, answerer_pth: str) -> None:
+    """Phase 40: the statement verifier at full width: the answerer an
+    evaluation runner (bf16) loading ``answerer_pth``, the verifier a
+    one-logit LXMERT at dropout 0.1; ``VerifierTrainer.train`` one epoch at
+    32 questions a step (3 x 32 statement rows: 34 #1 the answerer's top-k
+    forward, 34 #4 and ``BWD_PER_STEP`` #5 the verifier's step), then
+    ``ood_evaluate`` on testdev (34 #1 a batch for the answers and 34 for
+    the verifier's scores); finite losses and metrics."""
+    import torch
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.runner import GQARunner
+    from rgqa_tpu_torch.verifier import VerifierTrainer
+
+    phase = "verifier"
+    base = ["--synthetic", "--data_root", root, "--batchSize", "32"]
+    acfg, _ = parse_cli(base + ["--load", answerer_pth, "--output", os.path.join(tmp, "answerer")])
+    vcfg, _ = parse_cli(base + ["--strategy", "separate", "--output", os.path.join(tmp, "verifier")])
+    answerer, ver = GQARunner(acfg, init_train=False), GQARunner(vcfg)
+    trainer = VerifierTrainer(ver, answerer, topk=5, seed=0)
+    encoded = ver._encode(GQADataset(root, "train,train_uq", add_uq=True))
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = trainer.train(encoded, epochs=1, batch_size=32)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = len(encoded) // 32
+    t_launches = read_counts()
+    want = _launches(fused_attention=34 * steps, fused_attention_dropout=34 * steps,
+                     fused_attention_dropout_bwd=BWD_PER_STEP * steps)
+    test = ver._encode(GQADataset(root, "testdev", add_uq=True))
+    reset_counts()
+    results = trainer.ood_evaluate(test, dump=os.path.join(tmp, "verifier_predict.json"))
+    torch.cuda.synchronize()
+    e_launches = read_counts()
+    e_want = _launches(fused_attention=2 * 34 * math.ceil(len(test) / 32))
+    log(phase, f"train: {steps} steps of 3 x 32 statements in {train_s:.2f} s, losses "
+        f"{[round(x, 4) for x in losses]}, launches {_shown(t_launches)}; ood_evaluate on {len(test)} questions: "
+        f"auaf {results['auaf']:.4f}, fpr@0.95acc {results['fpr@0.95acc']:.4f}, full_acc {results['full_acc']:.4f}, "
+        f"launches {_shown(e_launches)}")
+    if t_launches != want or e_launches != e_want:
+        raise AssertionError(f"{phase}: launches {t_launches} / {e_launches}, want {want} / {e_want}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses) or not all(
+            math.isfinite(results[k]) for k in ("auaf", "fpr@0.95acc", "full_acc")):
+        raise AssertionError(f"{phase}: losses {losses}, results {results}")
+    del answerer, ver, trainer
+    torch.cuda.empty_cache()
+
+
+def phase_compute_param() -> None:
+    """Phase 41: ``cli.compute_param`` for every backbone (the models on the
+    ``meta`` device: nothing allocated), held to ``PARAM_COUNTS``."""
+    from rgqa_tpu_torch.cli import compute_param
+
+    counts = compute_param.main([])
+    log("compute-param", f"trainable parameters: {counts}")
+    if counts != PARAM_COUNTS:
+        raise AssertionError(f"compute-param: {counts}, want {PARAM_COUNTS}")
+
+
+def phase_slice19() -> None:
+    """Phases 37-41 in one temporary directory (the 128-question root of
+    phases 35-36), each timed."""
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_weight_model_") as tmp:
+        from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
+
+        root = os.path.join(tmp, "gqa")
+        make_synthetic_gqa(root, SyntheticSpec(n_train=128, n_valid=32))
+        timed("37 weight-model steps", phase_weight_model_steps, root)
+        _, last = timed("38 weight-model CLI", phase_weight_model_cli, tmp, root)
+        timed("39 distill CLI", phase_distill_cli, tmp, root, last)
+        timed("40 verifier", phase_verifier, tmp, root, last)
+        timed("41 compute_param", phase_compute_param)
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -4013,6 +4393,7 @@ def main() -> None:
         timed("28-31 CLIP and match", phase_clip_match, keep)
         timed("32-34 strategies and frcnn", phase_strategies, keep)
         timed("35-36 new strategies", phase_new_strategies)
+        timed("37-41 weight model, distill, verifier, compute_param", phase_slice19)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")

@@ -43,11 +43,21 @@ written from the word table on export).  ``--loadLXMERT`` on LXMERT
 and ``--loadLXMERTQA`` read such a file into ``LxmertForGQA``
 (:func:`load_lxmert_pretrained`, :func:`load_lxmert_qa`) through the
 same pretraining key map.
+
+A CLIP tower trained by ``--update_weight_model`` is exported as an HF
+checkpoint directory (:func:`save_clip_dir`): the source directory's
+``config.json`` and tokenizer files beside ``pytorch_model.bin`` in HF's
+names, which the port's ``ClipScorer`` and the JAX package's (through
+its torch importer, when no ``jax_params/`` tree is there) both read.
+The run's resume sibling ``<tag>_clip.pth`` (:func:`save_clip_state`)
+holds the CLIP params, the CLIP optimizer's state and the step.
 """
 
 from __future__ import annotations
 
+import os
 import re
+import shutil
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -68,7 +78,8 @@ from rgqa_tpu_torch.checkpoint.torch_import import (
 )
 
 __all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict",
-           "load_clip_state_dict", "load_lxmert_pretrained", "load_lxmert_qa"]
+           "load_clip_state_dict", "save_clip_dir", "save_clip_state", "load_clip_state",
+           "load_lxmert_pretrained", "load_lxmert_qa"]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
 _STACKED = re.compile(r"^(lang|visn|x|block|layer|proj)_(\d+)$")
@@ -418,3 +429,40 @@ def load_clip_state_dict(path: str) -> dict[str, torch.Tensor]:
     ref = load_torch_state_dict(hf_checkpoint_file(path, CLIP_WEIGHTS))
     return {k: torch.from_numpy(np.ascontiguousarray(v).reshape(np.shape(v)))
             for k, v in ref.items() if not k.endswith("position_ids")}
+
+
+CLIP_DIR_FILES = ("config.json", "vocab.json", "merges.txt", "tokenizer.json")
+
+
+def save_clip_dir(model, src_clip_path: str, out: str) -> str:
+    """Write ``model`` (a port ``ClipModel``) as an HF CLIP checkpoint
+    directory ``out`` (JAX ``_export_clip_params``): ``src_clip_path``'s
+    ``config.json``, ``vocab.json``, ``merges.txt`` and ``tokenizer.json``
+    where present, and ``pytorch_model.bin``, the f32 state_dict in HF's
+    names.  ``src_clip_path`` may be ``out`` itself (a run continued from
+    its own export): files already in place are left as they are."""
+    os.makedirs(out, exist_ok=True)
+    for name in CLIP_DIR_FILES:
+        src, dst = os.path.join(src_clip_path, name), os.path.join(out, name)
+        if os.path.exists(src) and not (os.path.exists(dst) and os.path.samefile(src, dst)):
+            shutil.copy(src, dst)
+    sd = {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in model.state_dict().items()}
+    torch.save(sd, os.path.join(out, "pytorch_model.bin"))
+    return out
+
+
+def save_clip_state(path: str, model, optimizer, step: int) -> str:
+    """The CLIP side of a ``--update_weight_model`` checkpoint: its params
+    (HF names), its optimizer's state and the step."""
+    torch.save({"params": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                "optimizer": optimizer.state_dict(), "step": int(step)}, path)
+    return path
+
+
+def load_clip_state(path: str, model, optimizer) -> int:
+    """Restore :func:`save_clip_state`'s file into ``model`` and
+    ``optimizer`` (strictly); returns its step."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(state["params"], strict=True)
+    optimizer.load_state_dict(state["optimizer"])
+    return state["step"]

@@ -1,5 +1,4 @@
-"""Training CLI (port of ``rgqa_tpu/cli/train.py``: every ``--strategy``
-but ``weight --update_weight_model``).
+"""Training CLI (port of ``rgqa_tpu/cli/train.py``: every ``--strategy``).
 
 Fine-tunes LXMERT, UNITER (``--backbone uniter``; ``--loadLXMERT`` takes
 a pretrained UNITER encoder), ViLT (``--backbone vilt``) or BUTD
@@ -27,7 +26,8 @@ weight}.sh``): ``--strategy adv`` (VILLA, LXMERT only: ``--adv_steps``,
 ``distill_online`` (``--teacher_path`` a ``.pth``, or the path less its
 ``.pth``; ``--lam``, ``--mixup_mode``), ``weight`` (``--clip_path`` and
 ``--temperature``; without a CLIP checkpoint the root's captions, else
-uniform weights).  ``--optim`` bert (``--bf16_moments``), adam, adamw,
+uniform weights; with ``--update_weight_model`` CLIP is trained beside
+the answerer and written as ``LAST_clip.pth`` and ``clip_params/``).  ``--optim`` bert (``--bf16_moments``), adam, adamw,
 adamax, sgd or rms; ``--loadLXMERT`` / ``--loadLXMERTQA`` start LXMERT
 from a reference ``model_LXRT.pth`` (``--loadLXMERTQA`` matches the
 answer head through ``<data_root>/all_ans.json`` or
@@ -64,6 +64,11 @@ Examples:
     python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
         --strategy distill_online --teacher_path /tmp/gqa_snap/BEST \
         --mixup_mode mixup_v1 --epochs 1 --batchSize 32 --output /tmp/gqa_distill_snap
+    # The CLIP weight model trained beside the answerer (CLIP_DIR: a local
+    # HF CLIP checkpoint; pixels from the root's CLIP pack):
+    python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
+        --strategy weight --update_weight_model --clip_path CLIP_DIR \
+        --epochs 1 --batchSize 32 --output /tmp/gqa_weight_model_snap
 """
 
 from __future__ import annotations

@@ -428,8 +428,10 @@ class ScoringMixin:
         return {"tau": tau, "quesid2ans": out}
 
 
-def _check_decodable(img_ids, source, image_root: str, pack_dir: Optional[str], size) -> None:
-    """Raise unless PIL and every JPEG of ``img_ids`` are there."""
+def _check_decodable(img_ids, source, image_root: str, pack_dir: Optional[str], size,
+                     what: str = "--scorer clip") -> None:
+    """Raise unless PIL and every JPEG of ``img_ids`` are there; the
+    message names ``what`` wants the pixels."""
     missing = []
     try:
         import PIL.Image  # noqa: F401
@@ -443,7 +445,7 @@ def _check_decodable(img_ids, source, image_root: str, pack_dir: Optional[str], 
     where = (f"no CLIP pixel pack {pack_dir} (size {size}, built from {image_root}) holds them" if pack_dir
              else "this scorer takes no pixel pack")
     raise RuntimeError(
-        f"--scorer clip has no pixels for {len(img_ids)} images: {where}, and decoding "
+        f"{what} has no pixels for {len(img_ids)} images: {where}, and decoding "
         f"the JPEGs needs {', '.join(missing)}. Build the pack where PIL and the JPEGs are: python -m "
         f"rgqa_tpu_torch.cli.prepare_data --tsv <tsv> --json_dir <json_dir> --vocab <vocab.txt> "
         f"--out {os.path.dirname(os.path.abspath(image_root))} --pack_pixels {image_root} "

@@ -355,14 +355,14 @@ def init_clip_weights(model: ClipModel, generator: torch.Generator) -> None:
 
 def example_inputs(cfg: ClipConfig, batch_size: int, *, seed: int = 0):
     """Seeded numpy inputs at ``cfg``'s shapes: ``(ids, mask)`` (B,
-    max_text_len) int32 of texts of 4-20 tokens, BOT first and EOT (the
+    max_text_len) int32 of texts of 4-20 tokens (at most max_text_len), BOT first and EOT (the
     vocabulary's highest id, as in CLIP's) last, padded with EOT as HF's
     tokenizer pads; uint8 pixels (B, image_size, image_size, 3)."""
     rng = np.random.default_rng(seed)
     eot = cfg.vocab_size - 1
     ids = np.full((batch_size, cfg.max_text_len), eot, np.int32)
     mask = np.zeros((batch_size, cfg.max_text_len), np.int32)
-    for i, n in enumerate(rng.integers(4, 21, batch_size)):
+    for i, n in enumerate(rng.integers(4, min(21, cfg.max_text_len + 1), batch_size)):
         ids[i, 0] = eot - 1
         ids[i, 1 : n - 1] = rng.integers(1, eot - 1, n - 2)
         mask[i, :n] = 1

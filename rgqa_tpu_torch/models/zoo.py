@@ -120,7 +120,9 @@ def build_model(
     train: bool = False,
 ) -> tuple[nn.Module, Callable[..., dict]]:
     """Instantiate (module, forward adapter) on ``device`` (default CUDA;
-    raises without a card unless ``device`` is the CPU).
+    raises without a card unless ``device`` is the CPU).  On the ``meta``
+    device it returns ``(module, None)``: parameter shapes, no storage and
+    no init.
 
     Weights come from ``generator`` (default: seed 0 on ``device``).
     ``use_bf16`` makes bf16 the compute dtype.  For inference (``train``
@@ -189,6 +191,8 @@ def build_model(
                 cfg.encoder, cfg.num_answers, dtype=dtype, branched=cfg.branched,
                 branched_layers=cfg.branched_layers, project_size=cfg.project_size,
             )
+    if device.type == "meta":  # shapes only (cli/compute_param.py): nothing to draw
+        return model, None
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     init_weights(model, generator)

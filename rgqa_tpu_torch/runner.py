@@ -1,6 +1,6 @@
 """GQA runner (port of ``rgqa_tpu/runner.py``: construction, ``load``,
 the pretrained starts and ``train`` for every ``--strategy`` of the JAX
-train CLI but ``--update_weight_model``'s).
+train CLI, ``--update_weight_model``'s joint CLIP step among them).
 
 It makes the synthetic data when asked and it is missing, loads the
 feature pack and the tokenizer, sizes the answer head to the dataset's
@@ -32,7 +32,9 @@ encoder).  It runs on the card unless the caller asks for the CPU.
   strategies with a step of their own: ``adv`` (VILLA), ``distill_online``
   (``--teacher_path``), ``weight`` (CLIP-weighted RP) and, through
   :meth:`GQARunner.train_minmax`, ``resampling`` / ``poem`` / ``woods``
-  (``--train_pos`` / ``--train_neg`` / ``--lr_w``).
+  (``--train_pos`` / ``--train_neg`` / ``--lr_w``).  ``weight`` with
+  ``--update_weight_model`` trains the CLIP weight model beside the
+  answerer (:meth:`GQARunner.train_weight_model`).
 - ``GQARunner(cfg, init_train=False)`` is the evaluation runner: the
   answer vocabulary of the test splits and bf16 weights (the serving
   convention).  With ``f32_weights=True`` it keeps f32 weights under
@@ -79,12 +81,10 @@ either the runner raises, naming ``--no_randaug`` (the machine with the
 card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
 Refused by flag name (:func:`_check_ported`): chunked dispatch
-(``--train_chunk`` / ``--eval_chunk``), ``--feed_int8``,
-``--update_weight_model`` with ``--strategy weight`` (the CLIP weight
-model's joint step), orbax inputs (reading them needs jax), and where
-the JAX package fails: ``--strategy adv`` off LXMERT and the min-max
-strategies on the caption matcher.  An evaluation runner for ``--scorer
-match`` with ``--load`` takes ``--loadLXMERT`` (the match scorer's
+(``--train_chunk`` / ``--eval_chunk``), ``--feed_int8``, orbax inputs
+(reading them needs jax), and where the JAX package fails:
+``--strategy adv`` off LXMERT and the min-max strategies on the caption
+matcher.  An evaluation runner for ``--scorer match`` with ``--load`` takes ``--loadLXMERT`` (the match scorer's
 pretraining checkpoint, which the evaluate CLI loads) and leaves it out
 of the answerer; without ``--load`` it is refused.
 ``--loadLXMERT`` with ``--backbone uniter`` loads a pretrained UNITER encoder (``uniter.*`` or
@@ -111,7 +111,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rgqa_tpu_torch.checkpoint.convert import load_lxmert_pretrained, load_lxmert_qa, load_reference_pth
+from rgqa_tpu_torch.checkpoint.convert import (
+    load_clip_state,
+    load_lxmert_pretrained,
+    load_lxmert_qa,
+    load_reference_pth,
+    save_clip_dir,
+    save_clip_state,
+)
 from rgqa_tpu_torch.config import RunConfig, dump_run_config
 from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch, to_device
 from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
@@ -120,18 +127,18 @@ from rgqa_tpu_torch.data.synthetic import BASE_IMAGES, make_synthetic_gqa, make_
 from rgqa_tpu_torch.data.tokenizer import WordPieceTokenizer, load_vocab
 from rgqa_tpu_torch.data.tsv import PackedFeatures
 from rgqa_tpu_torch.device import resolve_device
-from rgqa_tpu_torch.eval import ScoringMixin, decode_rgb
+from rgqa_tpu_torch.eval import ScoringMixin, _check_decodable, decode_rgb
 from rgqa_tpu_torch.models.butd import build_glove_matrix, butd_split
 from rgqa_tpu_torch.models.zoo import build_model
 from rgqa_tpu_torch.ops.dropout import DropoutRng
 from rgqa_tpu_torch.pretrain.answer_table import AnswerTable
-from rgqa_tpu_torch.scorers.clip import ClipScorer
+from rgqa_tpu_torch.scorers.clip import ClipScorer, clip_resize_crop
 from rgqa_tpu_torch.train.adversarial import AdvConfig, make_adv_train_step
 from rgqa_tpu_torch.train.dual_loader import NegativeWeights, make_minmax_step, sample_negative_indices
 from rgqa_tpu_torch.train.online_distill import make_online_distill_step
-from rgqa_tpu_torch.train.optimizer import make_optimizer
+from rgqa_tpu_torch.train.optimizer import OptaxAdam, make_optimizer
 from rgqa_tpu_torch.train.state import load_train_state, save_reference_pth, save_train_state
-from rgqa_tpu_torch.train.step import make_train_step
+from rgqa_tpu_torch.train.step import make_train_step, make_weighted_clip_train_step
 
 __all__ = ["GQARunner"]
 
@@ -142,13 +149,13 @@ MINMAX = ("resampling", "poem", "woods")
 
 def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     """Refuse, by flag, what the port does not run: chunked dispatch (not
-    to port: one step a launch sequence here), the int8 feed, the
-    CLIP weight model's training and orbax inputs (reading orbax needs
-    jax); and where the JAX package fails: ``--strategy adv`` off LXMERT
-    (its delta hooks are LXMERT's), the min-max strategies on the
-    caption matcher (its one logit does not broadcast with the answer
-    targets in JAX ``train_minmax``); and ``--scorer match`` without
-    ``--load``, whose answerer would start from the scorer's checkpoint."""
+    to port: one step a launch sequence here), the int8 feed and orbax
+    inputs (reading orbax needs jax); and where the JAX package fails:
+    ``--strategy adv`` off LXMERT (its delta hooks are LXMERT's), the
+    min-max strategies on the caption matcher (its one logit does not
+    broadcast with the answer targets in JAX ``train_minmax``); and
+    ``--scorer match`` without ``--load``, whose answerer would start
+    from the scorer's checkpoint."""
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
         "--feed_int8": d.feed_int8,
@@ -162,8 +169,6 @@ def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     if train:
         unported.update({
             "--train_chunk > 1": t.train_chunk > 1,
-            "--update_weight_model (the CLIP weight model's joint step)":
-                t.update_weight_model and t.strategy == "weight",
             f"--strategy adv on --backbone {m.backbone} (VILLA's text and RoI deltas are LXMERT's "
             "hooks; the JAX package's UNITER, ViLT, BUTD and caption matcher take none)":
                 t.strategy == "adv" and m.backbone != "lxmert",
@@ -481,11 +486,13 @@ class GQARunner(ScoringMixin):
                 rows[qid] = (float(s), self.dataset.id2datum[qid].get("label"), self.label2ans[int(l)])
         return rows
 
-    def _epoch_end(self, epoch, epoch_start, last_loss, history, best_valid, chart=None) -> float:
+    def _epoch_end(self, epoch, epoch_start, last_loss, history, best_valid, chart=None,
+                   extra_save=None) -> float:
         """History, validation with BEST (and ``--save_all`` EPOCH_n)
         checkpoints, the reference's log lines (``gqa.py:214-230``) and,
         given the epoch's ``chart`` steps, ``chart/epoch_<n>.pkl``.
-        Returns the updated best valid score."""
+        ``extra_save(tag)`` writes a strategy's sibling state beside each
+        checkpoint it saves.  Returns the updated best valid score."""
         last_loss = float(last_loss)  # the epoch's one read of a device value
         history["loss"].append(last_loss)
         log_str = (
@@ -497,13 +504,13 @@ class GQARunner(ScoringMixin):
             history["valid"].append(valid)
             if valid > best_valid:
                 best_valid = valid
-                self.save("BEST")
+                self._save_with("BEST", extra_save)
             log_str += (
                 f"Epoch {epoch}: Valid {valid * 100:.2f}\n"
                 f"Epoch {epoch}: Best {best_valid * 100:.2f}\n"
             )
         if self.cfg.train.save_all:
-            self.save(f"EPOCH_{epoch}")
+            self._save_with(f"EPOCH_{epoch}", extra_save)
         print(log_str, end="", flush=True)
         with open(os.path.join(self.output, "log.log"), "a") as f:
             f.write(log_str)
@@ -511,6 +518,11 @@ class GQARunner(ScoringMixin):
             with open(os.path.join(self.output, "chart", f"epoch_{epoch}.pkl"), "wb") as f:
                 pickle.dump(self._chart_rows(chart), f, protocol=pickle.HIGHEST_PROTOCOL)
         return best_valid
+
+    def _save_with(self, tag: str, extra_save=None) -> None:
+        self.save(tag)
+        if extra_save is not None:
+            extra_save(tag)
 
     def train(self, resume: Optional[str] = None) -> dict:
         """Fine-tune for ``--epochs`` with ``--strategy``'s step (JAX
@@ -525,7 +537,8 @@ class GQARunner(ScoringMixin):
         (:mod:`~rgqa_tpu_torch.train.online_distill`; ``--teacher_path``
         a ``.pth``, built as an evaluation runner of this config), ``weight``
         the CLIP-weighted RP loss with per-batch weights from
-        :meth:`_weight_similarity`, the min-max strategies
+        :meth:`_weight_similarity` (with ``--update_weight_model``,
+        :meth:`train_weight_model`), the min-max strategies
         :meth:`train_minmax`; every other strategy the train step."""
         if self.train_set is None:
             raise RuntimeError("train() needs a runner built with init_train=True")
@@ -544,28 +557,9 @@ class GQARunner(ScoringMixin):
                     "(its negative weights are not checkpointed)"
                 )
             return self.train_minmax()
-        n_batches = len(self.train_set) // tcfg.batch_size
-        t_total = max(n_batches * tcfg.epochs, 1)
-        optimizer = make_optimizer(tcfg.optim, self.model.parameters(), t_total)
-        rng = DropoutRng(
-            device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
-            host=torch.Generator().manual_seed(tcfg.seed),
-        )
-        shuffle = np.random.default_rng(tcfg.seed)
-        steps = 0
-        if resume:
-            self.load(os.path.join(self.output, f"{resume}.pth"))
-            state = load_train_state(os.path.join(self.output, f"{resume}.state.pt"))
-            # The saved moments and step count; this run's schedule.
-            fresh = [{k: v for k, v in g.items() if k not in ("params", "count")}
-                     for g in optimizer.param_groups]
-            optimizer.load_state_dict(state["optimizer"])
-            for group, hyper in zip(optimizer.param_groups, fresh):
-                group.update(hyper)
-            steps = state["step"]
-            rng.load_state(state["rng"])
-            shuffle.bit_generator.state = state["shuffle"]
-
+        if tcfg.strategy == "weight" and tcfg.update_weight_model:
+            return self.train_weight_model(resume)
+        optimizer, rng, shuffle, steps = self._train_state(resume)
         step = self._strategy_step(optimizer, rng)
         similarity = self._weight_similarity() if tcfg.strategy == "weight" else None
         if tcfg.chart:
@@ -604,6 +598,179 @@ class GQARunner(ScoringMixin):
             rng_state=rng.state(), shuffle=shuffle,
         )
         return history
+
+    def _train_state(self, resume: Optional[str]):
+        """(the model's optimizer of ``--optim``, the dropout generators, the
+        shuffle generator, the step count) of a run; ``resume`` restores
+        the checkpoint's weights, moments, step count and generator
+        states (this run's schedule)."""
+        tcfg = self.cfg.train
+        t_total = max(len(self.train_set) // tcfg.batch_size * tcfg.epochs, 1)
+        optimizer = make_optimizer(tcfg.optim, self.model.parameters(), t_total)
+        rng = DropoutRng(
+            device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
+            host=torch.Generator().manual_seed(tcfg.seed),
+        )
+        shuffle = np.random.default_rng(tcfg.seed)
+        steps = 0
+        if resume:
+            self.load(os.path.join(self.output, f"{resume}.pth"))
+            state = load_train_state(os.path.join(self.output, f"{resume}.state.pt"))
+            fresh = [{k: v for k, v in g.items() if k not in ("params", "count")}
+                     for g in optimizer.param_groups]
+            optimizer.load_state_dict(state["optimizer"])
+            for group, hyper in zip(optimizer.param_groups, fresh):
+                group.update(hyper)
+            steps = state["step"]
+            rng.load_state(state["rng"])
+            shuffle.bit_generator.state = state["shuffle"]
+        return optimizer, rng, shuffle, steps
+
+    def train_weight_model(self, resume: Optional[str] = None) -> dict:
+        """CLIP-weighted RP with an adversarially trained weight model
+        (``--strategy weight --update_weight_model``, ``gqa_weight.py``;
+        JAX ``train_weight_model``, ``rgqa_tpu/runner.py:741-951``): each
+        step's negative-pair weights come from the current CLIP params,
+        the answerer minimizes ``0.5 x (pos + weighted neg)`` while CLIP
+        maximizes the weighted negative loss (Adam at 1e-5, both clipped
+        at norm 5.0), one backward a step
+        (:func:`~rgqa_tpu_torch.train.step.make_weighted_clip_train_step`).
+
+        CLIP is ``--clip_path`` (an HF checkpoint directory, or an earlier
+        run's ``clip_params/``), computing in bf16 over f32 weights unless
+        ``--fp32``; its vision tower runs #1 forward and #3 backward on the
+        card.  The anchor pixels come from the root's CLIP pack where it
+        holds them, else from the JPEGs under ``<data_root>/images`` (PIL;
+        decoded once into ``<output>/clip_pixels_u8.npy``, removed at the
+        end); with neither the run raises, naming what is missing.  The
+        shuffle and each batch's roll come from one
+        ``np.random.default_rng(--seed)``, as in the JAX runner.  Every
+        model checkpoint gets a ``<tag>_clip.pth`` sibling (CLIP params,
+        Adam state, step); ``resume`` restores both sides (without the
+        sibling CLIP restarts from ``--clip_path``, with a warning).  At
+        the end: ``LAST.pth``, ``LAST.state.pt``, ``LAST_clip.pth`` and
+        the trained tower as ``<output>/clip_params/``
+        (:meth:`_export_clip_params`)."""
+        cfg, tcfg = self.cfg, self.cfg.train
+        clip_path = cfg.ood.clip_path
+        if not clip_path:
+            raise RuntimeError(
+                "--update_weight_model needs --clip_path (a local HF CLIP checkpoint directory): the CLIP "
+                "towers are trained, so there is no caption-overlap or uniform fallback in this mode "
+                "(gqa_weight.py:80-81)"
+            )
+        scorer = ClipScorer(clip_path, batch_size=tcfg.batch_size, use_bf16=tcfg.use_bf16, device=self.device)
+        clip_model = scorer.model
+        anchor_pixels, cleanup = self._anchor_pixels(scorer)
+        optimizer, rng, shuffle, steps = self._train_state(resume)
+        # torch.optim.Adam's defaults in the reference (lr 1e-5,
+        # gqa_weight.py:105), as optax.adam.
+        clip_optimizer = OptaxAdam(clip_model.parameters(), lr=1e-5)
+        if resume:
+            clip_file = os.path.join(self.output, f"{resume}_clip.pth")
+            if os.path.isfile(clip_file):
+                load_clip_state(clip_file, clip_model, clip_optimizer)
+            else:
+                warnings.warn(
+                    f"resume {resume!r}: no {resume}_clip.pth checkpoint - the CLIP weight model restarts "
+                    "from --clip_path and the min-max trajectory will diverge from an uninterrupted run",
+                    RuntimeWarning, stacklevel=2,
+                )
+        step = make_weighted_clip_train_step(
+            self.forward, clip_model, optimizer, clip_optimizer, temperature=cfg.ood.temperature,
+            grad_clip=tcfg.optim.grad_clip, rng=rng,
+        )
+
+        def with_clip_inputs(items):
+            for qids, batch, real in items:
+                datums = [self.dataset.id2datum[q] for q in qids]
+                ids, mask = scorer.tokenizer.encode_batch([d["sent"] for d in datums], scorer.cfg.max_text_len)
+                pixels = anchor_pixels([d["img_id"] for d in datums])
+                yield qids, dict(batch, clip_ids=ids, clip_mask=mask, clip_pixels=pixels), real
+
+        def save_clip(tag: str) -> None:
+            save_clip_state(os.path.join(self.output, f"{tag}_clip.pth"), clip_model, clip_optimizer, steps)
+
+        if tcfg.chart:
+            os.makedirs(os.path.join(self.output, "chart"), exist_ok=True)
+        best_valid = 0.0
+        history = {"loss": [], "valid": []}
+        self.model.train()
+        clip_model.train()
+        try:
+            for epoch in range(tcfg.epochs):
+                last_loss = math.nan
+                epoch_start = time.time()
+                chart = [] if tcfg.chart else None
+                batches = device_prefetch(with_clip_inputs(batch_iterator(
+                    self.train_set, tcfg.batch_size, shuffle=True, rng=shuffle, drop_last=True,
+                    with_target=True)), self.device)
+                for qids, batch, _ in batches:
+                    aux = step(batch, int(shuffle.integers(1, len(qids))))
+                    last_loss = aux["loss"]
+                    if chart is not None:
+                        chart.append((qids, aux["score"], aux["label"]))
+                    steps += 1
+                best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid, chart,
+                                             extra_save=save_clip)
+        finally:
+            self.model.eval()
+            clip_model.eval()
+            cleanup()
+        self.save("LAST")
+        save_train_state(
+            os.path.join(self.output, "LAST.state.pt"), optimizer=optimizer, step=steps,
+            rng_state=rng.state(), shuffle=shuffle,
+        )
+        save_clip("LAST")
+        self._export_clip_params(clip_path, clip_model)
+        return history
+
+    def _export_clip_params(self, src_clip_path: str, clip_model) -> str:
+        """The trained tower as a reloadable HF checkpoint directory,
+        ``<output>/clip_params/`` (:func:`~rgqa_tpu_torch.checkpoint.
+        convert.save_clip_dir`): a later ``--strategy weight --clip_path
+        <output>/clip_params`` run, or ``--scorer clip``, scores with it,
+        in this package or the JAX one."""
+        return save_clip_dir(clip_model, src_clip_path, os.path.join(self.output, "clip_params"))
+
+    def _anchor_pixels(self, scorer):
+        """(``pixels(img_ids) -> (B, S, S, 3) uint8``, a clean-up) for the
+        train split's anchor images at ``scorer``'s size: the root's CLIP
+        pack rows (:meth:`_clip_pack`), and for images the pack lacks the
+        JPEGs, each decoded once (PIL) into a memmap under ``--output``,
+        which the clean-up removes.  Raises before any step when neither
+        can give an image, naming the pack and the command that builds
+        it."""
+        image_root = os.path.join(self.cfg.data.data_root, "images")
+        pack, pack_dir = self._clip_pack(scorer, image_root)
+        uniq = sorted({self.dataset.id2datum[q]["img_id"] for q in self.train_set.question_ids})
+        decode = [i for i in uniq if pack is None or i not in pack]
+        if not decode:
+            return (lambda img_ids: np.stack([pack.load_u8(i)[0] for i in img_ids])), (lambda: None)
+        source = GQAImageSource(image_root)
+        _check_decodable(decode, source, image_root, pack_dir, scorer.image_size, what="--update_weight_model")
+        size = scorer.image_size
+        row = {img_id: i for i, img_id in enumerate(decode)}
+        cache_path = os.path.join(self.output, "clip_pixels_u8.npy")
+        cache = np.lib.format.open_memmap(cache_path, mode="w+", dtype=np.uint8, shape=(len(decode), size, size, 3))
+        cached = np.zeros(len(decode), bool)
+
+        def one(img_id: str) -> np.ndarray:
+            if img_id not in row:
+                return pack.load_u8(img_id)[0]
+            r = row[img_id]
+            if not cached[r]:
+                cache[r] = clip_resize_crop(decode_rgb(source, img_id), size)
+                cached[r] = True
+            return cache[r]
+
+        def cleanup() -> None:
+            nonlocal cache
+            del cache
+            os.remove(cache_path)
+
+        return (lambda img_ids: np.stack([one(i) for i in img_ids])), cleanup
 
     def _strategy_step(self, optimizer, rng: DropoutRng):
         """The step of ``--strategy`` (JAX ``runner.py:576-640``)."""

@@ -7,6 +7,8 @@ matcher or CLIP forward or training step goes on one CUDA card.
         [--batch 32] [--mixup_mode MODE [--mixup_beta B] | --branched] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train --strategy
         adv|resampling|woods|distill_online|weight [--batch 32] [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --train --strategy weight
+        --update_weight_model [--fp32] [--batch 32] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
         [--out FILE.json]
 
@@ -37,7 +39,11 @@ branched loss).  ``--strategy`` runs LXMERT's step of one of the
 strategies with a step of their own (``tools/strategy_steps.py``: VILLA,
 the min-max pair of forwards on two batches, online distillation with a
 second full-width model in eval mode as the teacher, the CLIP-weighted
-pairs; batch 32).  CLIP
+pairs; batch 32); with ``--update_weight_model`` the joint step of
+``weight --update_weight_model`` beside a full-width ViT-B/32 CLIP
+trained with it (bf16 compute over f32 weights, or under ``--fp32`` f32
+products without TF32 in both models), plus the CLIP side alone (its
+cosine forward and backward, no optimizer) to price its share.  CLIP
 (``--backbone clip``: ViT-B/32 at 224 px, 50 tokens through #1, and the
 12 x 512 causal text tower over 77 tokens, plain attention) runs one
 scorer forward, the normalize of uint8 pixels on the card and both
@@ -93,6 +99,7 @@ KERNEL_CLASSES = (
     ("softmax", ("softmax",)),
     ("weight concat", ("catarray",)),
     ("copy / cast", ("copy",)),
+    ("optimizer (foreach)", ("multi_tensor",)),
     ("memcpy / memset", ("memcpy", "memset")),
 )
 OTHER = "other"
@@ -243,6 +250,57 @@ def _strategy_cases(sizes, name: str) -> dict:
     return cases
 
 
+def _weight_model_cases(sizes, fp32: bool) -> dict:
+    """{(batch, "dropout d kernels" | "dropout d plain" | "clip side"): one
+    joint step of ``weight --update_weight_model``} on full-width LXMERT
+    and a full-width ViT-B/32 CLIP (f32 weights; bf16 compute unless
+    ``fp32``), and the CLIP side alone: the cosine's forward and backward
+    through the kernels."""
+    import dataclasses
+
+    import numpy as np
+
+    from rgqa_tpu_torch.models.clip import ClipConfig, ClipModel, init_clip_weights
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.ops.pixels import clip_normalize
+    from rgqa_tpu_torch.tools.strategy_steps import make_strategy_step, strategy_inputs, with_clip_inputs
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+
+    base, ccfg = default_config(), ClipConfig()
+    dtype = torch.float32 if fp32 else torch.bfloat16
+    with torch.device("cuda"):
+        clip_model = ClipModel(ccfg, dtype)
+    init_clip_weights(clip_model, torch.Generator(device="cuda").manual_seed(3))
+    cases = {}
+    for dropout in (0.1, 0.0):
+        cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+            base.encoder, hidden_dropout=dropout, attention_dropout=dropout))
+        model, forward = build_model(cfg, use_bf16=not fp32, device="cuda", train=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+        opt = make_optimizer(OptimConfig(), model.parameters(), t_total=10**6)
+        rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
+                         host=torch.Generator().manual_seed(1))
+        for size in sizes:
+            batch = example_batch(cfg, size, seed=0)
+            target = np.zeros((size, cfg.num_answers), np.float32)
+            target[np.arange(size), np.arange(size) % cfg.num_answers] = 1.0
+            batch = with_clip_inputs(to_device(dict(batch, target=target), "cuda"), ccfg)
+            args = strategy_inputs("weight_model", [batch])[0]
+            for fused, route in ((None, "kernels"), (False, "plain")):
+                step = make_strategy_step("weight_model", forward, opt, rng=rng, use_fused=fused,
+                                          clip_model=clip_model)
+                cases[(size, f"dropout {dropout} {route}")] = functools.partial(step, *args)
+            if dropout == 0.0:
+                def clip_side(b=batch):
+                    with exact_f32() if fp32 else contextlib.nullcontext():
+                        cos = clip_model.cosine(b["clip_ids"], b["clip_mask"], clip_normalize(b["clip_pixels"]))
+                        cos.sum().backward()
+                    clip_model.zero_grad(set_to_none=True)
+
+                cases[(size, "clip side")] = clip_side
+    return cases
+
+
 def _train_cases(sizes, backbone: str, strategy: dict = None) -> dict:
     """{(batch, "dropout d kernels" | "dropout d plain"): one training
     step}, each on its own full-width model (f32 masters, bf16 compute);
@@ -364,6 +422,9 @@ def main(argv=None) -> list:
     ap.add_argument("--strategy", default=None,
                     choices=("adv", "resampling", "woods", "distill_online", "weight"),
                     help="with --train: that strategy's own step (LXMERT)")
+    ap.add_argument("--update_weight_model", action="store_true",
+                    help="with --train --strategy weight: the joint step that trains CLIP too")
+    ap.add_argument("--fp32", action="store_true", help="with --update_weight_model: f32 compute")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
@@ -376,6 +437,8 @@ def main(argv=None) -> list:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(f"{torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}")
+    if args.train and args.strategy == "weight" and args.update_weight_model:
+        return _profile(_weight_model_cases(args.batch or [32], args.fp32), args, smi, args.out, unit="step")
     if args.train and args.strategy:
         return _profile(_strategy_cases(args.batch or [32], args.strategy), args, smi, args.out, unit="step")
     if args.train:

@@ -1,7 +1,9 @@
 """The train step (port of ``rgqa_tpu/train/step.py``: ``global_norm_clip``,
-``rp_augment``, ``mixup_augment`` with the TreeMix splice, and
+``rp_augment``, ``mixup_augment`` with the TreeMix splice,
 ``make_train_step`` for the BCE, MCE, branched, energy and binary
-losses and the CLIP-weighted RP loss).
+losses and the CLIP-weighted RP loss, and
+``make_weighted_clip_train_step``, the joint step of ``--strategy weight
+--update_weight_model``).
 
 One step: augmentation (RP pairs with ``--sample_pair``, else the mixup
 or TreeMix pseudo-UQ rows of ``--mixup_mode``) -> forward in training
@@ -29,7 +31,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from rgqa_tpu_torch.device import exact_f32
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.ops.pixels import clip_normalize
 from rgqa_tpu_torch.train.losses import (
     bce_answer_loss,
     binary_loss,
@@ -39,7 +43,8 @@ from rgqa_tpu_torch.train.losses import (
     optax_sigmoid_bce,
 )
 
-__all__ = ["global_norm_clip", "rp_augment", "draw_mixup", "mixup_apply", "make_train_step"]
+__all__ = ["global_norm_clip", "rp_augment", "draw_mixup", "mixup_apply", "make_train_step",
+           "make_weighted_clip_train_step"]
 
 TEXT_KEYS = ("input_ids", "input_mask", "segment_ids", "token_ids")  # token_ids: BUTD's
 # LXMERT's RoI fields and ViLT's pixel fields (both wires, with the
@@ -328,18 +333,8 @@ def make_train_step(
     precision = getattr(forward, "precision", contextlib.nullcontext)
 
     def weighted_rp_loss(batch: dict, shift: int, neg_weights: torch.Tensor):
-        lp = forward(batch, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
-        k = lp.shape[-1]
-        loss_pos = torch.mean(optax_sigmoid_bce(lp, batch["target"])) * k
-        neg = dict(batch)
-        for key in TEXT_KEYS:
-            if key in batch:
-                neg[key] = torch.roll(batch[key], shift, dims=0)
-        ln = forward(neg, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
-        per_row = torch.mean(optax_sigmoid_bce(ln, torch.zeros_like(ln)), dim=-1) * k
-        w = neg_weights.to(torch.float32)
-        loss_neg = torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1e-8)
-        return 0.5 * (loss_pos + loss_neg), lp
+        loss_pos, per_row, lp = _pair_losses(forward, batch, shift, rng, use_fused)
+        return 0.5 * (loss_pos + _weighted_mean(per_row, neg_weights.to(torch.float32))), lp
 
     def step(batch: dict, shift: Optional[int] = None, draws: Optional[dict] = None,
              neg_weights: Optional[torch.Tensor] = None) -> dict:
@@ -380,11 +375,97 @@ def make_train_step(
         if grad_clip and grad_clip > 0:
             global_norm_clip(params, grad_clip)
         optimizer.step()
-        probs = torch.sigmoid(logits.detach())
-        return {
-            "loss": total.detach(),
-            "score": torch.amax(probs, dim=-1),
-            "label": torch.argmax(probs, dim=-1),
-        }
+        return _aux(total, logits)
+
+    return step
+
+
+def _aux(total: torch.Tensor, logits: torch.Tensor) -> dict:
+    probs = torch.sigmoid(logits.detach())
+    return {"loss": total.detach(), "score": torch.amax(probs, dim=-1), "label": torch.argmax(probs, dim=-1)}
+
+
+def _pair_losses(forward, batch: dict, shift: int, rng: DropoutRng, use_fused: Optional[bool]):
+    """The weighted strategies' two forwards (JAX ``weighted_rp_loss``):
+    (the positive rows' BCE x answers, each negative row's BCE x answers
+    against zero targets, the positive f32 logits); the negatives are the
+    batch's images under its text fields rolled by ``shift``."""
+    lp = forward(batch, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
+    k = lp.shape[-1]
+    loss_pos = torch.mean(optax_sigmoid_bce(lp, batch["target"])) * k
+    neg = dict(batch)
+    for key in TEXT_KEYS:
+        if key in batch:
+            neg[key] = torch.roll(batch[key], shift, dims=0)
+    ln = forward(neg, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
+    per_row = torch.mean(optax_sigmoid_bce(ln, torch.zeros_like(ln)), dim=-1) * k
+    return loss_pos, per_row, lp
+
+
+def _weighted_mean(per_row: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1e-8)
+
+
+def make_weighted_clip_train_step(
+    forward: Callable,
+    clip_model,
+    optimizer: torch.optim.Optimizer,
+    clip_optimizer: torch.optim.Optimizer,
+    *,
+    temperature: float = 1.0,
+    grad_clip: float = 5.0,
+    clip_grad_clip: float = 5.0,
+    rng: Optional[DropoutRng] = None,
+    use_fused: Optional[bool] = None,
+):
+    """``step(batch, shift) -> {"loss", "loss_w", "score", "label"}``: the
+    joint min-max step of ``--strategy weight --update_weight_model``
+    (JAX ``make_weighted_clip_train_step``, ``gqa_weight.py:125-238``).
+
+    The negative-pair weights come from the current CLIP params
+    (``clip_model``, a :class:`~rgqa_tpu_torch.models.clip.ClipModel`
+    whose parameters ``clip_optimizer`` holds): the anchor pixels
+    (``batch["clip_pixels"]``, uint8 rows normalized here, or f32) against
+    the anchor questions' CLIP tokens (``clip_ids`` / ``clip_mask``)
+    rolled by ``shift``, the model's own negative roll, the cosine times
+    the frozen ``exp(logit_scale)``, then a softmax over the batch at
+    ``temperature``.  The model minimizes ``0.5 x (pos BCE + weighted
+    negative BCE)`` with the weights detached; CLIP maximizes the
+    weighted negative loss (``loss_w``) with the per-row losses detached.
+    One backward runs over the sum (each objective's gradient with
+    respect to the other's parameters is zero), then each side is clipped
+    by its global norm (``grad_clip``, ``clip_grad_clip``) and takes its
+    optimizer's step.  A CLIP model computing in f32 runs the step, its
+    backward included, without TF32 (:func:`~rgqa_tpu_torch.device.
+    exact_f32`).  ``use_fused=False`` runs the attention's plain
+    versions in both models."""
+    rng = rng or DropoutRng()
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    clip_params = [p for group in clip_optimizer.param_groups for p in group["params"]]
+    precision = getattr(forward, "precision", contextlib.nullcontext)
+    clip_precision = exact_f32 if clip_model.compute_dtype == torch.float32 else contextlib.nullcontext
+
+    def step(batch: dict, shift: int) -> dict:
+        pixels = batch["clip_pixels"]
+        if pixels.dtype == torch.uint8:
+            pixels = clip_normalize(pixels)
+        with clip_precision(), precision():
+            cos = clip_model.cosine(torch.roll(batch["clip_ids"], shift, dims=0),
+                                    torch.roll(batch["clip_mask"], shift, dims=0), pixels, use_fused=use_fused)
+            sim = cos.to(torch.float32) * torch.exp(clip_model.logit_scale.detach().to(torch.float32))
+            w = torch.softmax(sim / temperature, dim=0)
+            loss_pos, per_row, lp = _pair_losses(forward, batch, shift, rng, use_fused)
+            loss_model = 0.5 * (loss_pos + _weighted_mean(per_row, w.detach()))
+            loss_clip = -_weighted_mean(per_row.detach(), w)
+            optimizer.zero_grad(set_to_none=True)
+            clip_optimizer.zero_grad(set_to_none=True)
+            (loss_model + loss_clip).backward()
+        if grad_clip and grad_clip > 0:
+            global_norm_clip(params, grad_clip)
+        if clip_grad_clip and clip_grad_clip > 0:
+            global_norm_clip(clip_params, clip_grad_clip)
+        optimizer.step()
+        clip_optimizer.step()
+        return dict(_aux(loss_model, lp), loss_w=-loss_clip.detach())
 
     return step

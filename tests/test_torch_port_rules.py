@@ -28,7 +28,12 @@
   arrays), the pretraining answer table (``pretrain/answer_table.py``,
   ``--loadLXMERTQA``'s: equal tables and normalized answers) and
   ``cli/plot_attention.py`` (the same figures, byte for byte, in
-  ``tests/test_torch_uniter_slice.py``).
+  ``tests/test_torch_uniter_slice.py``); since slice 19 the
+  distillation's pure functions (``distill.py``), the verifier's
+  statement rules (``verifier.py``) and ``metrics/compute_accfpr.py``,
+  source for source.
+- The distillation CLI and ``--strategy weight --update_weight_model``
+  run with the JAX package blocked.
 """
 
 from __future__ import annotations
@@ -156,6 +161,29 @@ def test_mixup_train_runs_with_jax_blocked(tmp_path):
         assert os.path.isfile(os.path.join(out, name)), name
 
 
+def test_distill_runs_with_jax_blocked(tmp_path):
+    root = str(tmp_path / "gqa")
+    res = _run_jax_free("cli.distill", ["--synthetic", "--data_root", root, "--output", str(tmp_path / "out"),
+                                        "--n_candidates", "20", "--passes", "2", "--tau_aq_c", "0",
+                                        "--tau_aq_v", "1", *_TINY_LXMERT], tmp_path)
+    assert "rgqa_tpu_torch.distill" in res["modules"] and res["keys"]
+    with open(os.path.join(root, "distill_train.json")) as f:
+        assert json.load(f) == res["keys"]
+
+
+def test_weight_model_train_runs_with_jax_blocked(tmp_path):
+    from test_torch_clip import write_clip_dir
+
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    clip = write_clip_dir(tmp_path / "clip")
+    res = _run_jax_free("cli.train", ["--synthetic", "--data_root", root, "--strategy", "weight",
+                                      "--update_weight_model", "--clip_path", clip, "--epochs", "1",
+                                      "--output", out, *_TINY_LXMERT], tmp_path)
+    assert res["keys"] == ["loss", "valid"]
+    for name in ("LAST.pth", "LAST_clip.pth", "clip_params/pytorch_model.bin", "clip_params/config.json"):
+        assert os.path.isfile(os.path.join(out, name)), name
+
+
 def test_uniter_evaluate_runs_with_jax_blocked(tmp_path):
     root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
     res = _run_jax_free("cli.evaluate", ["--synthetic", "--data_root", root, "--test", "testdev",
@@ -252,7 +280,7 @@ def no_card():
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
-    from rgqa_tpu_torch.cli import evaluate, serve, train
+    from rgqa_tpu_torch.cli import distill, evaluate, serve, train
     from rgqa_tpu_torch.models.zoo import build_model, default_config
     from rgqa_tpu_torch.runner import GQARunner
 
@@ -274,6 +302,8 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
         lambda: serve.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
                             "--test", "testdev", "--output", str(tmp_path / "s")],
                            stdin=io.StringIO(""), stdout=io.StringIO()),
+        lambda: distill.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
+                              "--output", str(tmp_path / "d")]),
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             make()
@@ -491,3 +521,20 @@ def test_answer_table_copy_matches_the_original(tmp_path, dsets):
     assert port_table.ANS_CONVERT == jax_table.ANS_CONVERT
     with pytest.raises(FileNotFoundError):
         port_table.AnswerTable(path=str(tmp_path / "missing.json"))
+
+
+# The slice-19 copies: each function's source equals its original's.
+COPIED = [("distill", n) for n in ("sample_repaired", "stats_from_charts", "cartography_stats", "select_distill")]
+COPIED += [("verifier", n) for n in ("statement_with_rule", "question_to_statement", "fill_statement")]
+COPIED += [("metrics.compute_accfpr", "main")]
+
+
+@pytest.mark.parametrize("module,name", COPIED, ids=lambda x: x)
+def test_slice_19_copies_match_their_originals(module, name):
+    import importlib
+    import inspect
+
+    mine, theirs = (importlib.import_module(f"{pkg}.{module}") for pkg in ("rgqa_tpu_torch", "rgqa_tpu"))
+    assert inspect.getsource(getattr(mine, name)) == inspect.getsource(getattr(theirs, name))
+    if module == "verifier":
+        assert (mine._AUX, mine._PRONOUNS) == (theirs._AUX, theirs._PRONOUNS)

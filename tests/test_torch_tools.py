@@ -133,13 +133,18 @@ def test_time_attention_refuses_unknown_groups():
         ("RNN_blockPersist_fp_GRU<float, float, float, 128>", "recurrent (cuDNN)"),
         ("void elemWiseRNNcell<float, float, float, (cudnnRNNMode_t)3, (cudnnRNNBiasMode_t)2>",
          "recurrent (cuDNN)"),
+        ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::(anonymous namespace)"
+         "::TensorListMetadata<3>, at::native::(anonymous namespace)::BinaryOpListAlphaFunctor<float, 3, 2, 2>, "
+         "std::plus<float>, float>", "optimizer (foreach)"),
     ],
 )
 def test_profile_kernel_classes(name, cls):
     assert classify(name) == cls
 
 
-@pytest.mark.parametrize("flags", [[], ["--train"], ["--scorers"]], ids=["forward", "train", "scorers"])
+@pytest.mark.parametrize("flags", [[], ["--train"], ["--scorers"],
+                                   ["--train", "--strategy", "weight", "--update_weight_model"]],
+                         ids=["forward", "train", "scorers", "weight_model"])
 def test_profile_forward_needs_a_card(flags):
     if __import__("torch").cuda.is_available():
         pytest.skip("a card is present: the profile would run")

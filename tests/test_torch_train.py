@@ -365,7 +365,6 @@ def test_runner_config_gate_names_unported_training_flags(tmp_path):
         (["--strategy", "adv", "--backbone", "vilt"], "--strategy adv on --backbone vilt"),
         (["--strategy", "poem", "--backbone", "caps"], "--strategy poem on --backbone caps"),
         (["--train_chunk", "2"], "--train_chunk"),
-        (["--strategy", "weight", "--update_weight_model"], "--update_weight_model"),
         (["--loadLXMERT", str(orbax)], "--loadLXMERT an orbax"),
         (["--loadLXMERTQA", str(orbax)], "--loadLXMERTQA an orbax"),
         (["--strategy", "distill_online", "--teacher_path", str(orbax)], "--teacher_path an orbax"),

@@ -489,7 +489,6 @@ def test_runner_refuses_what_stays_unported(cli_root, tmp_path):
         (["--train_chunk", "2"], "--train_chunk"),
         (["--eval_chunk", "2"], "--eval_chunk"),
         (["--feed_int8"], "--feed_int8"),
-        (["--strategy", "weight", "--update_weight_model"], "--update_weight_model"),
         (["--strategy", "adv", "--backbone", "uniter"], "--strategy adv on --backbone uniter"),
         (["--strategy", "adv", "--backbone", "butd"], "--strategy adv on --backbone butd"),
         (["--strategy", "poem", "--backbone", "caps"], "--strategy poem on --backbone caps"),
