@@ -21,7 +21,13 @@ nonzero:
    instance without HGMMA fails the phase.  Since slice 13 so does the
    epilogue's bf16 body (``epilogue_bf16<kNP>``, kNP keys in a window):
    the same line for each instance, and an instance without
-   HGMMA or with spilled registers fails the phase.
+   HGMMA or with spilled registers fails the phase.  A line gives
+   the short f32 bodies' instances (#1 / #4
+   ``fused_attention_fwd_short_f32<kDrop, kPerLane>``, #3 / #5
+   ``fused_attention_bwd_short_f32<kDrop, kPerLane>``, one softmax key a
+   lane up to 32 keys): registers and spills from ptxas, and the dynamic
+   shared memory of their layouts at 20x20 (one key a lane), 36x36 and
+   50x50, as the short bf16 bodies' line (reported, not held).
 3. kernels: the six attention kernels against their plain PyTorch
    versions.  #2, the long-stream forward, and #3L, the long-stream
    backward (given #2's row statistics), at ViLT-B/32's shapes (165x165,
@@ -58,7 +64,12 @@ nonzero:
    redesigned #1 / #4's bf16 body (one pass in registers, the dropout
    mask drawn once per 16 keys): the checks above hold it as they held
    the first design, #1 and #4 are timed at batch 64 in bf16 too, and
-   two runs of #1 and #4 at 36x36 give identical bits as well.
+   two runs of #1 and #4 at 36x36 give identical bits as well.  The
+   f32 bodies of #1 / #4 and #3 / #5 (4 x 4 register tiles of exact f32
+   FMAs since their redesign): the same checks hold them, and one line per
+   LXMERT shape gives all four f32 kernels' CUDA-event times (kernel /
+   plain / library) and the profiler's device time beside f32 SDPA's and
+   the bound (``_bound_ms`` at the f32 rate).
 4. model: full-width LxmertForGQA (9/5/5 layers x 768, vocab 30522, 1842
    answers, 36 x 2048 RoI features) in bf16 from a seeded generator at
    batch 256 with padded text (random lengths 4-20), once through the
@@ -621,6 +632,8 @@ LONG_WGMMA_KERNEL = re.compile(r"fused_attention_long_wgmmaILi(\d+)E")  # <kWG> 
 EPI_KERNEL = re.compile(r"epilogue_bf16ILi(\d+)E")  # epilogue_bf16<kNP>, kNP keys in a window
 # The short bf16 bodies of #1 / #4 and #3 / #5: <kDrop, kNT>, kNT = SKP / 8.
 SHORT_BODY = re.compile(r"(fused_attention_(?:fwd|bwd)_short_bf16)ILb([01])ELi(\d+)E")
+# Their f32 bodies: <kDrop, kPerLane>, one softmax key a lane up to 32 keys.
+SHORT_F32_BODY = re.compile(r"(fused_attention_(?:fwd|bwd)_short_f32)ILb([01])ELi(\d)E")
 
 
 def _ptxas_resources(text: str) -> dict:
@@ -712,6 +725,34 @@ def _short_body_report(results) -> None:
                              f"{r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "
                              "stores/loads")
     log("build", "short bf16 bodies (kNT 8 runs UNITER's 56 keys): " + "; ".join(parts))
+    parts = []
+    for src in ("fused_attention", "fused_attention_bwd", "fused_attention_dropout"):
+        for fn, r in sorted(_ptxas_resources(results[src].log).items()):
+            if m := SHORT_F32_BODY.search(fn):
+                bwd, per_lane = "bwd" in m.group(1), int(m.group(3))
+                sizes = (20,) if per_lane == 1 else (36, 50)
+                smem = ", ".join(f"{s}x{s} {_short_f32_smem(s, s, E // HEADS, bwd)}" for s in sizes)
+                parts.append(f"{src}.cu {m.group(1)}<drop {m.group(2)}, {per_lane} a lane>: {r['registers']} registers, "
+                             f"spill {r['spill_stores']}/{r['spill_loads']} B stores/loads, "
+                             f"{r['smem']} B static smem, dynamic B {smem}")
+    log("build", "short f32 bodies: " + ("; ".join(parts) or "reused builds, no ptxas log"))
+
+
+def _f32_ld(n: int) -> int:
+    """``f32_ld`` of ``csrc/attention_common.cuh``: n rounded up to 4,
+    plus 4 when that is an even number of 16-byte chunks."""
+    r = (n + 3) // 4 * 4
+    return r if (r // 4) % 2 else r + 4
+
+
+def _short_f32_smem(sq: int, skv: int, d: int, backward: bool) -> int:
+    """Dynamic shared memory of a short f32 body, as ``fwd_f32_layout`` /
+    ``bwd_f32_layout`` lay it out (f32 words, the keep bits u32)."""
+    ld, ldp, ngr = _f32_ld(d), _f32_ld(skv), (skv + 15) // 16
+    small = (skv + 3) // 4 * 4 + (sq + 3) // 4 * 4 * backward + sq * ngr
+    if backward:
+        return 4 * (2 * sq * ld + skv * ld + max(skv * ld, sq * ldp) + sq * ldp + small)
+    return 4 * (sq * max(ld, ldp) + 2 * skv * ld + small)
 
 
 def _long_ring_smem(wg: int) -> int:
@@ -1033,32 +1074,45 @@ def _us(us) -> str:
 
 
 def _f32_lxmert_kernel(att, gen, times):
-    """#1's f32 body at LXMERT's four shapes under LXMERT's mask, batch
-    256 (the match scorer's pretraining model and any ``--fp32``
-    answerer run it, 34 a forward): the CUDA-event times the loop above
-    took (kernel and plain in turns, f32 SDPA once) and the profiler's
-    device time of the kernel and of f32 SDPA, beside the bound (bytes at
-    the memory rate or the products at the f32 rate)."""
+    """#1 / #3 / #4 / #5's f32 bodies at LXMERT's four shapes under
+    LXMERT's mask, batch 256 (the match scorer's pretraining model and any
+    ``--fp32`` answerer run #1, 34 a forward; ``--fp32`` training #3, #4
+    and #5): the CUDA-event times the loop above took (kernel and plain in
+    turns, the library call once) and the profiler's device time of each
+    kernel and of its f32 SDPA call (#3 / #5: forward and backward less
+    forward), beside the bound (bytes at the memory rate or the products
+    at the f32 rate)."""
     import torch
-    import torch.nn.functional as F
     from rgqa_tpu_torch.tools.time_attention import device_us
 
     for sq, skv in SHAPES:
-        q, k, v, _, bias = _attention_inputs(256, sq, skv, torch.float32, gen)
-        mask = bias[:, None, None, :]
-
-        def heads(t):
-            return t.view(256, t.shape[1], HEADS, E // HEADS).transpose(1, 2)
-
-        dev = {name: device_us(fn, 50, match=match) for name, fn, match in (
-            ("kernel", lambda: att.fused_attention_cuda(q, k, v, bias, HEADS), "fused_attention"),
-            ("sdpa", lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask), None))}
-        kernel_ms, plain_ms, sdpa_ms, bound = times[("fused_attention", "float32", sq, skv)]
-        by = _bound_ms("fused_attention", 256, sq, skv, 4)[1]
-        log("kernels", f"float32 B=256 {sq}x{skv} (LXMERT's mask; #1's f32 body): events us kernel/plain/sdpa "
-            f"{kernel_ms * 1e3:.1f}/{plain_ms * 1e3:.1f}/{sdpa_ms * 1e3:.1f}, bound {bound * 1e3:.1f} ({by}); "
-            f"device time kernel {_us(dev['kernel'])}, sdpa {_us(dev['sdpa'])}")
-        del q, k, v, bias, mask
+        q, k, v, g, bias = _attention_inputs(256, sq, skv, torch.float32, gen)
+        seed = int(torch.randint(0, 2**62, (), generator=gen, device="cuda"))
+        lib = _sdpa_calls(q, k, v, g, bias)
+        kernels = {
+            "fused_attention": (lambda: att.fused_attention_cuda(q, k, v, bias, HEADS), "fwd", None),
+            "fused_attention_bwd": (lambda: att.fused_attention_bwd_cuda(q, k, v, bias, g, HEADS),
+                                    "fwd_bwd", "fwd"),
+            "fused_attention_dropout": (lambda: att.fused_attention_dropout_cuda(q, k, v, bias, HEADS, RATE, seed),
+                                        "drop", None),
+            "fused_attention_dropout_bwd": (
+                lambda: att.fused_attention_dropout_bwd_cuda(q, k, v, bias, g, HEADS, RATE, seed),
+                "drop_fwd_bwd", "drop"),
+        }
+        lib_dev = {name: device_us(fn, 50, match=None) for name, fn in lib.items()}
+        parts = []
+        for name, (kernel, lib_all, lib_less) in kernels.items():
+            kernel_ms, plain_ms, lib_ms, bound = times[(name, "float32", sq, skv)]
+            sdpa = lib_dev[lib_all]
+            if lib_less:
+                sdpa = None if sdpa is None or lib_dev[lib_less] is None else sdpa - lib_dev[lib_less]
+            by = _bound_ms(name, 256, sq, skv, 4)[1]
+            parts.append(f"{name.replace('fused_attention', '#')} events us kernel/plain/sdpa "
+                         f"{kernel_ms * 1e3:.1f}/{plain_ms * 1e3:.1f}/{lib_ms * 1e3:.1f}, bound "
+                         f"{bound * 1e3:.1f} ({by}), device time kernel {_us(device_us(kernel, 50))}, "
+                         f"sdpa {_us(sdpa)}")
+        log("kernels", f"float32 B=256 {sq}x{skv} (LXMERT's mask; the f32 bodies): " + "; ".join(parts))
+        del q, k, v, g, bias, lib
     torch.cuda.empty_cache()
 
 

@@ -111,6 +111,23 @@ __device__ __forceinline__ bool dropout_keep(const Args& a, int b, int h, int i,
   return ((word >> (8 * (s & 3))) & 0xFFu) >= static_cast<uint32_t>(a.threshold);
 }
 
+// The keep bits of keys 16 c .. 16 c + 15 of query row i (bit s for key
+// 16 c + s): one Philox4x32-10 call, bit for bit dropout_keep's.
+__device__ __forceinline__ uint32_t keep_bits16(const Args& a, int b, int h, int i, int c) {
+  const uint4 w = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(i), static_cast<uint32_t>(h),
+                 static_cast<uint32_t>(b)),
+      static_cast<uint32_t>(a.seed), static_cast<uint32_t>(a.seed >> 32));
+  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int s = 0; s < 16; ++s) {
+    const uint32_t byte = (words[s >> 2] >> (8 * (s & 3))) & 0xFFu;
+    bits |= static_cast<uint32_t>(byte >= static_cast<uint32_t>(a.threshold)) << s;
+  }
+  return bits;
+}
+
 // ---------------------------------------------------------------------------
 // Pieces of both bodies.
 // ---------------------------------------------------------------------------
@@ -402,7 +419,9 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&af)[4], const float (&x)[2][
 // Forward.  out[b, :, h*D:(h+1)*D] = softmax(q_h k_h^T * scale + bias) v_h,
 // with P (dropped and scaled when kDrop) rounded to the input dtype before
 // the PV product, as the Pallas _fused_kernel / _fused_drop_kernel.  The
-// f32 body below; the short bf16 body (fwd_short_body) after the backward.
+// whole-row f32 body of the long stream and of the experiments below; the
+// short f32 bodies of #1 / #4 and #3 / #5 after it; the short bf16 body
+// (fwd_short_body) after the backward.
 //
 // A long-stream block (fwd_tile; the f32 body here, the bf16 one in
 // fused_attention_long.cu), blockIdx.x = (b * heads + h) * tiles + tile,
@@ -448,9 +467,10 @@ __device__ __forceinline__ FwdTile fwd_tile(const Args& a, size_t elem) {
 }
 
 // f32: CUDA cores (fmaf), exact to the plain version's summation order
-// rather than rounding operands to TF32.  Shared memory, f32: Q (sq x ld),
-// K, V (skv x ld), S/P (sq x (skv + 1)), bias; ld = dim + 1 so that
-// threads walking K rows hit distinct banks; sq = tile_rows(a.sq).
+// rather than rounding operands to TF32, one thread per output element.
+// Shared memory, f32: Q (sq x ld), K, V (skv x ld), S/P (sq x (skv + 1)),
+// bias; ld = dim + 1 so that threads walking K rows hit distinct banks;
+// sq = tile_rows(a.sq).
 size_t fwd_f32_smem_bytes(int sq, int skv, int d) {
   const size_t ld = d + 1;
   return sizeof(float) * (sq * ld + 2 * skv * ld + sq * (skv + 1) + skv);
@@ -459,7 +479,7 @@ size_t fwd_f32_smem_bytes(int sq, int skv, int d) {
 // The body of block blk (blockIdx.x of a kernel that runs only this
 // problem); the experiments' kernels run two problems in one grid, or
 // add a structural mask.
-template <bool kDrop, int kPerLane, int kThreads, typename Mask = NoMask>
+template <int kPerLane, int kThreads, typename Mask = NoMask>
 __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float* smem,
                                              const Mask& mask = Mask()) {
   const FwdTile f = fwd_tile(a, sizeof(float), blk);
@@ -487,10 +507,7 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
 
   float* lse = a.lse ? a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0) : nullptr;
   softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, tid / 32, kThreads / 32, tid % 32,
-                         [&](int i, int j, float p) {
-                           if (kDrop) p = dropout_keep(a, b, h, q0 + i, j) ? p * a.keep_scale : 0.f;
-                           ps[i * ldp + j] = p;
-                         },
+                         [&](int i, int j, float p) { ps[i * ldp + j] = p; },
                          [&](int i, float m, float sum) {
                            if (lse) {
                              lse[2 * i] = m;
@@ -512,10 +529,359 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
   }
 }
 
-template <bool kDrop, int kPerLane = 2, int kThreads = kF32Threads>
+template <int kPerLane, int kThreads>
 __global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
   extern __shared__ float smem[];
-  fwd_f32_body<kDrop, kPerLane, kThreads>(a, blockIdx.x, smem);
+  fwd_f32_body<kPerLane, kThreads>(a, blockIdx.x, smem);
+}
+
+// ---------------------------------------------------------------------------
+// Short f32 bodies: #1 (and #4 with kDrop), fused_attention_fwd_short_f32,
+// and #3 (and #5), fused_attention_bwd_short_f32; Sq, Skv <= 64.
+//
+// Every product runs on the CUDA cores in f32 (fmaf; no TF32, no tensor
+// core), each output one fmaf chain over its reduction index in ascending
+// order from 0, and the row softmax is softmax_rows over S in shared
+// memory: so every output is bit for bit what the one-thread-per-output
+// body these replace computed (checked on the H100 against it, PERF.md
+// section 6).  That body read both operands of every fmaf from shared
+// memory, which capped an SM at 16 f32 FMAs a clock of its 128 lanes.
+// Here each thread owns a 4 x 4 tile of outputs in registers and reads
+// its operands as float4 (16-byte) loads, 8 FMAs a load and 16
+// independent chains a thread.  A warp's float4 load most likely takes
+// four wavefronts, which would cap the products near half the f32 rate;
+// 8 x 4 tiles (128 registers, spills, half the warps) were slower at
+// every shape on the H100.  The products and their tiles:
+//
+//   S = Q K^T, dP = G V^T (reduce over the head dim): rows i = rg + RG m,
+//     keys j = kg + KG n (m, n < 4; RG, KG = ceil(rows / 4), ceil(keys /
+//     4)), key groups fastest, so a warp's float4 reads of K (V) hit
+//     consecutive rows;
+//   O = P V, dQ = dS K (reduce over keys): rows i = rg + RG m, columns
+//     4 cg .. 4 cg + 3, column groups fastest;
+//   dV = P_drop^T G, dK = dS^T Q (reduce over query rows): keys 4 jg ..
+//     4 jg + 3, columns 4 cg .. 4 cg + 3.
+//
+// Rows past the problem are clamped to its last row when loaded (their
+// outputs are not stored).  Row strides (f32_ld) are multiples of 4 floats
+// with an odd count of 16-byte chunks, so the float4 reads of 8
+// consecutive rows at one column fall in 8 distinct bank groups.  Q, K, V
+// (and G) are staged by cp.async in two groups: the second (V; G and V in
+// the backward) lands while the first product runs.  The dropout mask
+// (kDrop) is drawn as keep_bits16 (one Philox call per row and 16 keys,
+// bit for bit dropout_keep) into shared memory while the tiles are in
+// flight.
+//
+// Forward: one block per (batch row, head), RG x 16 threads (RG x max(KG,
+// DG)): the S pass, a barrier, S over Q, the softmax (dropout in its
+// emit; one key a lane up to 32 keys, kPerLane), P V, O written once.  Splitting a head's query rows over blocks
+// re-reads K and V for each split and measured no faster at any batch
+// (PERF.md section 6), so there is no query tiling.
+//
+// Backward: one block per (batch row, head) in phases over query rows,
+// then keys, as the bf16 body: S (into its own space) and dP (held in
+// registers across the barrier after which V is dead, then over V); the
+// softmax; D = rowsum(dP P) by warps over rows (the first body's code) and
+// dV; dS = P (dP - D) by columns, its column sums (dbias, unscaled, in
+// row order) and dS scale in place; dQ and dK, each written once.
+//
+// Per SM at CLIP's 50 x 50 (224 threads a block): the forward 4 blocks
+// (64 registers; 41.8 KB of shared memory would allow 5), the backward 3
+// (80 registers, 66.0 KB).
+// ---------------------------------------------------------------------------
+
+// A row stride of f32 tiles holding n columns: n rounded up to 4, plus 4
+// when that is an even number of 16-byte chunks.
+__host__ __device__ inline int f32_ld(int n) {
+  const int r = (n + 3) / 4 * 4;
+  return (r / 4) % 2 ? r : r + 4;
+}
+
+// rows x d of a strided f32 source into shared memory (row stride ld, a
+// multiple of 4), by cp.async 16 bytes a copy where the source allows
+// (not committed), else one plain load at a time.
+__device__ __forceinline__ void stage_rows_f32(float* dst, int ld, const float* src,
+                                               long long rs, int rows, int d, int tid,
+                                               int nthreads) {
+  if (d % 4 == 0 && rs % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    const int chunks = d / 4;
+    for (int i = tid; i < rows * chunks; i += nthreads) {
+      const int r = i / chunks, c = i % chunks * 4;
+      cp_async16(dst + r * ld + c, src + r * rs + c);
+    }
+  } else {
+    for (int i = tid; i < rows * d; i += nthreads) {
+      const int r = i / d, c = i % d;
+      dst[r * ld + c] = src[r * rs + c];
+    }
+  }
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float f4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void zero_tile(float (&acc)[4][4]) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+}
+
+// acc[m][n] = sum over c < d, in order, of x[xr[m]][c] y[yr[n]][c]: a
+// 4 x 4 tile of X Y^T (S, dP), rows of X and Y (row stride ld) in shared
+// memory; four terms a step from float4 reads, then the tail of d.
+__device__ __forceinline__ void tile_xyt(float (&acc)[4][4], const float* x, const float* y,
+                                         int ld, const int (&xr)[4], const int (&yr)[4],
+                                         int d) {
+  zero_tile(acc);
+  const int d4 = d & ~3;
+#pragma unroll 1
+  for (int c = 0; c < d4; c += 4) {
+    float4 xv[4], yv[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) xv[m] = lds4(x + xr[m] * ld + c);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) yv[n] = lds4(y + yr[n] * ld + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(f4(xv[m], e), f4(yv[n], e), acc[m][n]);
+      }
+    }
+  }
+  for (int c = d4; c < d; ++c) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[m][n] = fmaf(x[xr[m] * ld + c], y[yr[n] * ld + c], acc[m][n]);
+    }
+  }
+}
+
+// acc[m][u] = sum over j < n, in order, of x[xr[m]][j] y[j][c0 + u]: a
+// 4 x 4 tile of X Y (O = P V, dQ = dS K), X's rows (stride ldx) read four
+// terms a step as float4, Y's rows (stride ldy) at columns c0 .. c0 + 3.
+__device__ __forceinline__ void tile_xy(float (&acc)[4][4], const float* x, int ldx,
+                                        const int (&xr)[4], const float* y, int ldy, int c0,
+                                        int n) {
+  zero_tile(acc);
+  const int n4 = n & ~3;
+#pragma unroll 1
+  for (int j = 0; j < n4; j += 4) {
+    float4 xv[4], yv[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) xv[m] = lds4(x + xr[m] * ldx + j);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) yv[e] = lds4(y + (j + e) * ldy + c0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const float xm = f4(xv[m], e);
+        acc[m][0] = fmaf(xm, yv[e].x, acc[m][0]);
+        acc[m][1] = fmaf(xm, yv[e].y, acc[m][1]);
+        acc[m][2] = fmaf(xm, yv[e].z, acc[m][2]);
+        acc[m][3] = fmaf(xm, yv[e].w, acc[m][3]);
+      }
+    }
+  }
+  for (int j = n4; j < n; ++j) {
+    const float4 yv = lds4(y + j * ldy + c0);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float xm = x[xr[m] * ldx + j];
+      acc[m][0] = fmaf(xm, yv.x, acc[m][0]);
+      acc[m][1] = fmaf(xm, yv.y, acc[m][1]);
+      acc[m][2] = fmaf(xm, yv.z, acc[m][2]);
+      acc[m][3] = fmaf(xm, yv.w, acc[m][3]);
+    }
+  }
+}
+
+// acc[n][u] = sum over i < rows, in order, of x'[i][j0 + n] y[i][c0 + u]
+// with x' = drop(i, x[i][j0 .. j0 + 3]): a 4 x 4 tile of X^T Y (dV = P_drop^T
+// G, dK = dS^T Q), both read as float4 along their rows, one row a step.
+struct NoDrop {
+  __device__ __forceinline__ void operator()(int, float4&) const {}
+};
+
+template <typename Drop>
+__device__ __forceinline__ void tile_xty(float (&acc)[4][4], const float* x, int ldx, int j0,
+                                         const float* y, int ldy, int c0, int rows,
+                                         const Drop& drop) {
+  zero_tile(acc);
+#pragma unroll 4
+  for (int i = 0; i < rows; ++i) {
+    float4 xv = lds4(x + i * ldx + j0);
+    drop(i, xv);
+    const float4 yv = lds4(y + i * ldy + c0);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const float xn = f4(xv, n);
+      acc[n][0] = fmaf(xn, yv.x, acc[n][0]);
+      acc[n][1] = fmaf(xn, yv.y, acc[n][1]);
+      acc[n][2] = fmaf(xn, yv.z, acc[n][2]);
+      acc[n][3] = fmaf(xn, yv.w, acc[n][3]);
+    }
+  }
+}
+
+// A thread's tile acc[m][u] (row r0 + rstep m, columns c0 .. c0 + 3) into
+// global memory (row stride rs): rows < rows, columns < d; one float4
+// store a row when d and rs are multiples of 4 and out is 16-byte aligned.
+__device__ __forceinline__ void store_tile_f32(float* out, long long rs, const float (&acc)[4][4],
+                                               int r0, int rstep, int rows, int c0, int d) {
+  const bool vec = d % 4 == 0 && rs % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int r = r0 + rstep * m;
+    if (r >= rows) continue;
+    float* o = out + r * rs + c0;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (c0 + u < d) o[u] = acc[m][u];
+      }
+    }
+  }
+}
+
+// Keep bit of key j in a row's keep_bits16 words (ngr words a row).
+__device__ __forceinline__ bool keep_bit(const uint32_t* km, int ngr, int i, int j) {
+  return (km[i * ngr + (j >> 4)] >> (j & 15)) & 1u;
+}
+
+// The keep bits of every query row and key group into km.
+__device__ __forceinline__ void draw_keep_bits(const Args& a, int b, int h, uint32_t* km,
+                                               int ngr, int tid, int nthreads) {
+  for (int idx = tid; idx < a.sq * ngr; idx += nthreads) {
+    km[idx] = keep_bits16(a, b, h, idx / ngr, idx % ngr);
+  }
+}
+
+// Blocks of at most kShortF32Threads (16 x 16 tiles of 4 x 4 cover 64 x
+// 64); the blocks per SM that the registers must allow.
+constexpr int kShortF32Threads = 256;
+constexpr int kFwdF32MinBlocks = 4;  // <= 64 registers a thread
+constexpr int kBwdF32MinBlocks = 3;  // <= 80
+
+__host__ __device__ inline int groups4(int n) { return (n + 3) / 4; }
+
+__host__ __device__ inline int round_warps(int n) { return n < 32 ? 32 : (n + 31) / 32 * 32; }
+
+// Shared memory of the short f32 forward, f32 offsets (each a multiple of
+// 4): Q (sq x ld), then S / P over it (sq x ldp); K, V (skv x ld); bias
+// (skv, rounded to 4); the keep bits (sq x ngr u32).  41.8 KB at 50 x 50,
+// 30.0 KB at 36 x 36, 16.6 KB at 20 x 20.
+struct FwdF32Layout {
+  int ld, ldp, ngr;
+  size_t k_off, v_off, b_off, m_off, bytes;
+};
+
+__host__ __device__ inline FwdF32Layout fwd_f32_layout(int sq, int skv, int d) {
+  FwdF32Layout L;
+  L.ld = f32_ld(d);
+  L.ldp = f32_ld(skv);
+  L.ngr = (skv + 15) / 16;
+  L.k_off = static_cast<size_t>(sq) * (L.ld > L.ldp ? L.ld : L.ldp);
+  L.v_off = L.k_off + static_cast<size_t>(skv) * L.ld;
+  L.b_off = L.v_off + static_cast<size_t>(skv) * L.ld;
+  L.m_off = L.b_off + groups4(skv) * 4;
+  L.bytes = sizeof(float) * (L.m_off + static_cast<size_t>(sq) * L.ngr);
+  return L;
+}
+
+inline int fwd_f32_threads(int sq, int skv, int d) {
+  const int kg = groups4(skv), dg = groups4(d);
+  return round_warps(groups4(sq) * (kg > dg ? kg : dg));
+}
+
+template <bool kDrop, int kPerLane>
+__global__ void __launch_bounds__(kShortF32Threads, kFwdF32MinBlocks)
+    fused_attention_fwd_short_f32(Args a) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int sq = a.sq, skv = a.skv, d = a.dim;
+  const FwdF32Layout L = fwd_f32_layout(sq, skv, d);
+  const int ld = L.ld, ldp = L.ldp;
+  float* qs = smem_f32;
+  float* ps = smem_f32;  // S / P over Q once the scores are in registers
+  float* ks = smem_f32 + L.k_off;
+  float* vs = smem_f32 + L.v_off;
+  float* bs = smem_f32 + L.b_off;
+  uint32_t* km = reinterpret_cast<uint32_t*>(smem_f32 + L.m_off);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int rg_n = groups4(sq), kg_n = groups4(skv), dg_n = groups4(d);
+
+  stage_rows_f32(qs, ld, static_cast<const float*>(a.q) + b * a.q_bs + h * d, a.q_rs, sq, d,
+                 tid, nthreads);
+  stage_rows_f32(ks, ld, static_cast<const float*>(a.k) + b * a.k_bs + h * d, a.k_rs, skv, d,
+                 tid, nthreads);
+  for (int j = tid; j < skv; j += nthreads) {
+    cp_async4(bs + j, a.bias + static_cast<long long>(b) * skv + j);
+  }
+  cp_async_commit();
+  stage_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + h * d, a.v_rs, skv, d,
+                 tid, nthreads);
+  cp_async_commit();
+  if (kDrop) draw_keep_bits(a, b, h, km, L.ngr, tid, nthreads);
+  cp_async_wait_group<1>();
+  __syncthreads();  // Q, K and the bias
+
+  // S = Q K^T, this thread's rows rg + RG m and keys kg + KG n.
+  float acc[4][4];
+  const bool s_tile = tid < rg_n * kg_n;
+  const int rg = tid / kg_n, kg = tid % kg_n;
+  if (s_tile) {
+    int xr[4], yr[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      xr[m] = min(rg + rg_n * m, sq - 1);
+      yr[m] = min(kg + kg_n * m, skv - 1);
+    }
+    tile_xyt(acc, qs, ks, ld, xr, yr, d);
+  }
+  cp_async_wait_all();
+  __syncthreads();  // every thread is past Q; V has landed
+  if (s_tile) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = rg + rg_n * m, j = kg + kg_n * n;
+        if (i < sq && j < skv) {
+          float x = acc[m][n] * a.scale + bs[j];
+          ps[i * ldp + j] = x;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, tid / 32, nthreads / 32, tid % 32,
+                         [&](int i, int j, float p) {
+                           if (kDrop) p = keep_bit(km, L.ngr, i, j) ? p * a.keep_scale : 0.f;
+                           ps[i * ldp + j] = p;
+                         });
+  __syncthreads();
+
+  // O = P V, rows rg + RG m, columns 4 cg ..
+  if (tid < rg_n * dg_n) {
+    const int org = tid / dg_n, cg = tid % dg_n;
+    int xr[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) xr[m] = min(org + rg_n * m, sq - 1);
+    tile_xy(acc, ps, ldp, xr, vs, ld, 4 * cg, skv);
+    const long long out_rs = static_cast<long long>(a.heads) * d;
+    store_tile_f32(static_cast<float*>(a.out) + static_cast<long long>(b) * sq * out_rs + h * d,
+                   out_rs, acc, org, rg_n, sq, 4 * cg, d);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -523,48 +889,134 @@ __global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
 // recompute P; dP = g V^T and dV = P_drop^T g; with dropout dP is masked
 // and scaled; dS = P (dP - rowsum(dP P)); dbias = sum over heads and
 // query rows of dS; dS * scale rounded to the input dtype; dQ = dS K,
-// dK = dS^T Q.  The f32 body runs every product on the CUDA cores; the
-// bf16 body (below it) every product on the tensor cores, in one pass.
+// dK = dS^T Q.  The f32 body (fused_attention_bwd_short_f32) runs every
+// product on the CUDA cores; the bf16 body (below it) every product on the
+// tensor cores, in one pass.
 // ---------------------------------------------------------------------------
 
-// The f32 body's steps after P (f32, row stride ldp) is in ps: from f32 G and V (row stride ld) it writes dV to global memory,
-// and leaves dS (not yet scaled) in dps and the per-head dbias sums in
-// a.dbias_part.  km holds the dropout mask, one byte per element.
-template <bool kDrop>
-__device__ __forceinline__ void bwd_grads(const Args& a, int b, int h, const float* gs,
-                                          const float* vs, int ld, const float* ps,
-                                          float* dps, int ldp, float* rs, uint8_t* km,
-                                          int tid, int nthreads) {
-  const int sq = a.sq, skv = a.skv, d = a.dim;
-  const int warp = tid / 32, warps = nthreads / 32, lane = tid % 32;
-  for (int idx = tid; idx < sq * skv; idx += nthreads) {
-    const int i = idx / skv, j = idx % skv;
-    const float* gi = gs + i * ld;
-    const float* vj = vs + j * ld;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < d; ++c) acc = fmaf(gi[c], vj[c], acc);
-    if (kDrop) {
-      const bool keep = dropout_keep(a, b, h, i, j);
-      km[idx] = keep;
-      acc = keep ? acc * a.keep_scale : 0.f;
-    }
-    dps[i * ldp + j] = acc;
-  }
-  __syncthreads();
+// Shared memory of the short f32 backward, f32 offsets (each a multiple
+// of 4): Q, G (sq x ld); K (skv x ld); V, then dP / dS over it (skv x ld
+// or sq x ldp, the larger); P (sq x ldp); bias (skv), D (sq), rounded to
+// 4; the keep bits (sq x ngr u32).  66.0 KB at 50 x 50, 45.1 KB at 36 x
+// 36, 23.7 KB at 20 x 20.
+struct BwdF32Layout {
+  int ld, ldp, ngr;
+  size_t g_off, k_off, v_off, p_off, b_off, r_off, m_off, bytes;
+};
 
-  float* dv = static_cast<float*>(a.dv) + static_cast<long long>(b) * skv * a.heads * d + h * d;
-  const long long row = static_cast<long long>(a.heads) * d;
-  for (int idx = tid; idx < skv * d; idx += nthreads) {
-    const int j = idx / d, c = idx % d;
-    float acc = 0.f;
-    for (int i = 0; i < sq; ++i) {
-      float p = ps[i * ldp + j];
-      if (kDrop) p = km[i * skv + j] ? p * a.keep_scale : 0.f;
-      acc = fmaf(p, gs[i * ld + c], acc);
-    }
-    dv[j * row + c] = acc;
+__host__ __device__ inline BwdF32Layout bwd_f32_layout(int sq, int skv, int d) {
+  BwdF32Layout L;
+  L.ld = f32_ld(d);
+  L.ldp = f32_ld(skv);
+  L.ngr = (skv + 15) / 16;
+  const size_t v = static_cast<size_t>(skv) * L.ld, dp = static_cast<size_t>(sq) * L.ldp;
+  L.g_off = static_cast<size_t>(sq) * L.ld;
+  L.k_off = 2 * L.g_off;
+  L.v_off = L.k_off + static_cast<size_t>(skv) * L.ld;
+  L.p_off = L.v_off + (v > dp ? v : dp);
+  L.b_off = L.p_off + dp;
+  L.r_off = L.b_off + groups4(skv) * 4;
+  L.m_off = L.r_off + groups4(sq) * 4;
+  L.bytes = sizeof(float) * (L.m_off + static_cast<size_t>(sq) * L.ngr);
+  return L;
+}
+
+inline int bwd_f32_threads(int sq, int skv, int d) {
+  const int rg = groups4(sq), kg = groups4(skv), dg = groups4(d);
+  int n = rg * kg;
+  if (rg * dg > n) n = rg * dg;
+  if (kg * dg > n) n = kg * dg;
+  return round_warps(n);
+}
+
+template <bool kDrop, int kPerLane>
+__global__ void __launch_bounds__(kShortF32Threads, kBwdF32MinBlocks)
+    fused_attention_bwd_short_f32(Args a) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
+  const int sq = a.sq, skv = a.skv, d = a.dim;
+  const BwdF32Layout L = bwd_f32_layout(sq, skv, d);
+  const int ld = L.ld, ldp = L.ldp;
+  const long long row = static_cast<long long>(a.heads) * d;  // g, dq, dk, dv row stride
+  float* qs = smem_f32;
+  float* gs = smem_f32 + L.g_off;
+  float* ks = smem_f32 + L.k_off;
+  float* vs = smem_f32 + L.v_off;
+  float* dps = vs;  // dP, then dS scale, once V is dead
+  float* ps = smem_f32 + L.p_off;
+  float* bs = smem_f32 + L.b_off;
+  float* rs = smem_f32 + L.r_off;
+  uint32_t* km = reinterpret_cast<uint32_t*>(smem_f32 + L.m_off);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid / 32, warps = nthreads / 32, lane = tid % 32;
+  const int rg_n = groups4(sq), kg_n = groups4(skv), dg_n = groups4(d);
+
+  stage_rows_f32(qs, ld, static_cast<const float*>(a.q) + b * a.q_bs + h * d, a.q_rs, sq, d,
+                 tid, nthreads);
+  stage_rows_f32(ks, ld, static_cast<const float*>(a.k) + b * a.k_bs + h * d, a.k_rs, skv, d,
+                 tid, nthreads);
+  for (int j = tid; j < skv; j += nthreads) {
+    cp_async4(bs + j, a.bias + static_cast<long long>(b) * skv + j);
   }
+  cp_async_commit();
+  stage_rows_f32(gs, ld, static_cast<const float*>(a.g) + b * sq * row + h * d, row, sq, d, tid,
+                 nthreads);
+  stage_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + h * d, a.v_rs, skv, d,
+                 tid, nthreads);
+  cp_async_commit();
+  if (kDrop) draw_keep_bits(a, b, h, km, L.ngr, tid, nthreads);
+  cp_async_wait_group<1>();
+  __syncthreads();  // Q, K and the bias
+
+  // Phase 1, query rows.  S = Q K^T * scale + bias into P's space, then
+  // dP = G V^T (masked and scaled with kDrop) in registers.
+  float acc[4][4];
+  const bool s_tile = tid < rg_n * kg_n;
+  const int rg = tid / kg_n, kg = tid % kg_n;
+  int xr[4], yr[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    xr[m] = min(rg + rg_n * m, sq - 1);
+    yr[m] = min(kg + kg_n * m, skv - 1);
+  }
+  if (s_tile) {
+    tile_xyt(acc, qs, ks, ld, xr, yr, d);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = rg + rg_n * m, j = kg + kg_n * n;
+        if (i < sq && j < skv) {
+          float x = acc[m][n] * a.scale + bs[j];
+          ps[i * ldp + j] = x;
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();  // G and V; S
+  if (s_tile) tile_xyt(acc, gs, vs, ld, xr, yr, d);
+  __syncthreads();  // every thread is past V
+  if (s_tile) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int i = rg + rg_n * m, j = kg + kg_n * n;
+        if (i < sq && j < skv) {
+          float x = acc[m][n];
+          if (kDrop) x = keep_bit(km, L.ngr, i, j) ? x * a.keep_scale : 0.f;
+          dps[i * ldp + j] = x;
+        }
+      }
+    }
+  }
+  softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, warp, warps, lane,
+                         [&](int i, int j, float p) { ps[i * ldp + j] = p; });
+  __syncthreads();  // P and dP
+
+  // D = rowsum(dP P) by warps over rows (the first body's code); dV =
+  // P_drop^T G, keys 4 jg ..
   for (int i = warp; i < sq; i += warps) {
     const float* pi = ps + i * ldp;
     const float* dpi = dps + i * ldp;
@@ -574,90 +1026,54 @@ __device__ __forceinline__ void bwd_grads(const Args& a, int b, int h, const flo
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     if (lane == 0) rs[i] = s;
   }
-  __syncthreads();
-
-  for (int idx = tid; idx < sq * skv; idx += nthreads) {
-    const int i = idx / skv, j = idx % skv;
-    dps[i * ldp + j] = ps[i * ldp + j] * (dps[i * ldp + j] - rs[i]);
+  const long long kv0 = static_cast<long long>(b) * skv * row + h * d;
+  const bool kv_tile = tid < kg_n * dg_n;
+  const int jg = tid / dg_n, cg = tid % dg_n;
+  if (kv_tile) {
+    if (kDrop) {
+      const int grp = (4 * jg) >> 4, sh = (4 * jg) & 15;
+      tile_xty(acc, ps, ldp, 4 * jg, gs, ld, 4 * cg, sq, [&](int i, float4& p) {
+        const uint32_t bits = km[i * L.ngr + grp] >> sh;
+        p.x = bits & 1u ? p.x * a.keep_scale : 0.f;
+        p.y = bits & 2u ? p.y * a.keep_scale : 0.f;
+        p.z = bits & 4u ? p.z * a.keep_scale : 0.f;
+        p.w = bits & 8u ? p.w * a.keep_scale : 0.f;
+      });
+    } else {
+      tile_xty(acc, ps, ldp, 4 * jg, gs, ld, 4 * cg, sq, NoDrop());
+    }
+    store_tile_f32(static_cast<float*>(a.dv) + kv0, row, acc, 4 * jg, 1, skv, 4 * cg, d);
   }
-  __syncthreads();
+  __syncthreads();  // D
 
+  // dS = P (dP - D) down each key's column: its sum over the rows in order
+  // (the head's dbias partial), then dS scale in place.
   float* part = a.dbias_part + (static_cast<long long>(b) * a.heads + h) * skv;
   for (int j = tid; j < skv; j += nthreads) {
     float s = 0.f;
-    for (int i = 0; i < sq; ++i) s += dps[i * ldp + j];
+    for (int i = 0; i < sq; ++i) {
+      const float v = ps[i * ldp + j] * (dps[i * ldp + j] - rs[i]);
+      s += v;
+      dps[i * ldp + j] = v * a.scale;
+    }
     part[j] = s;
   }
-  __syncthreads();
-}
+  __syncthreads();  // dS scale
 
-// f32 body, CUDA cores.  Shared memory, f32: Q, G (sq x ld), K, V
-// (skv x ld), P and dP/dS (sq x (skv + 1)), bias (skv), row sums (sq),
-// then the mask bytes (sq x skv).
-size_t bwd_f32_smem_bytes(int sq, int skv, int d) {
-  const size_t ld = d + 1;
-  return sizeof(float) * (2 * sq * ld + 2 * skv * ld + 2 * sq * (skv + 1) + skv + sq) +
-         sq * skv;
-}
-
-template <bool kDrop>
-__global__ void __launch_bounds__(kF32Threads) fused_attention_bwd_f32(Args a) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
-  const int sq = a.sq, skv = a.skv, d = a.dim;
-  const int ld = d + 1, ldp = skv + 1;
-  const long long row = static_cast<long long>(a.heads) * d;
-  float* qs = smem;
-  float* gs = qs + sq * ld;
-  float* ks = gs + sq * ld;
-  float* vs = ks + skv * ld;
-  float* ps = vs + skv * ld;
-  float* dps = ps + sq * ldp;
-  float* bs = dps + sq * ldp;
-  float* rs = bs + skv;
-  uint8_t* km = reinterpret_cast<uint8_t*>(rs + sq);
-  const int tid = threadIdx.x;
-
-  load_rows_f32(qs, ld, static_cast<const float*>(a.q) + b * a.q_bs + h * d, a.q_rs, sq, d,
-                tid, kF32Threads);
-  load_rows_f32(ks, ld, static_cast<const float*>(a.k) + b * a.k_bs + h * d, a.k_rs, skv, d,
-                tid, kF32Threads);
-  load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + h * d, a.v_rs, skv, d,
-                tid, kF32Threads);
-  load_rows_f32(gs, ld, static_cast<const float*>(a.g) + b * sq * row + h * d, row, sq, d,
-                tid, kF32Threads);
-  for (int j = tid; j < skv; j += kF32Threads) bs[j] = a.bias[b * skv + j];
-  __syncthreads();
-
-  scores_f32(ps, ldp, qs, ks, ld, bs, a, tid, kF32Threads);
-  __syncthreads();
-  softmax_rows(ps, ldp, sq, skv, sq, skv, tid / 32, kF32Threads / 32, tid % 32,
-               [&](int i, int j, float p) { ps[i * ldp + j] = p; });
-  __syncthreads();
-
-  bwd_grads<kDrop>(a, b, h, gs, vs, ld, ps, dps, ldp, rs, km, tid, kF32Threads);
-
-  for (int idx = tid; idx < sq * skv; idx += kF32Threads) {
-    dps[idx / skv * ldp + idx % skv] *= a.scale;
+  // Phase 2: dQ = (dS scale) K, rows rg + RG m; dK = (dS scale)^T Q, keys
+  // 4 jg ..
+  if (tid < rg_n * dg_n) {
+    const int qrg = tid / dg_n, qcg = tid % dg_n;
+    int qr[4];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) qr[m] = min(qrg + rg_n * m, sq - 1);
+    tile_xy(acc, dps, ldp, qr, ks, ld, 4 * qcg, skv);
+    store_tile_f32(static_cast<float*>(a.dq) + static_cast<long long>(b) * sq * row + h * d, row,
+                   acc, qrg, rg_n, sq, 4 * qcg, d);
   }
-  __syncthreads();
-
-  float* dq = static_cast<float*>(a.dq) + static_cast<long long>(b) * sq * row + h * d;
-  for (int idx = tid; idx < sq * d; idx += kF32Threads) {
-    const int i = idx / d, c = idx % d;
-    const float* dsi = dps + i * ldp;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < skv; ++j) acc = fmaf(dsi[j], ks[j * ld + c], acc);
-    dq[i * row + c] = acc;
-  }
-  float* dk = static_cast<float*>(a.dk) + static_cast<long long>(b) * skv * row + h * d;
-  for (int idx = tid; idx < skv * d; idx += kF32Threads) {
-    const int j = idx / d, c = idx % d;
-    float acc = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < sq; ++i) acc = fmaf(dps[i * ldp + j], qs[i * ld + c], acc);
-    dk[j * row + c] = acc;
+  if (kv_tile) {
+    tile_xty(acc, dps, ldp, 4 * jg, qs, ld, 4 * cg, sq, NoDrop());
+    store_tile_f32(static_cast<float*>(a.dk) + kv0, row, acc, 4 * jg, 1, skv, 4 * cg, d);
   }
 }
 
@@ -744,23 +1160,6 @@ __device__ __forceinline__ void stage_head(const Args& a, int b, int h, unsigned
   load_tile(reinterpret_cast<__nv_bfloat16*>(st + L.v_off), L.ld,
             static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + h * d, a.v_rs, a.skv, L.skp, d,
             L.dp, tid, nthreads);
-}
-
-// The keep bits of keys 16 c .. 16 c + 15 of query row i (bit s for key
-// 16 c + s): one Philox4x32-10 call, bit for bit dropout_keep's.
-__device__ __forceinline__ uint32_t keep_bits16(const Args& a, int b, int h, int i, int c) {
-  const uint4 w = philox4x32_10(
-      make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(i), static_cast<uint32_t>(h),
-                 static_cast<uint32_t>(b)),
-      static_cast<uint32_t>(a.seed), static_cast<uint32_t>(a.seed >> 32));
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-  uint32_t bits = 0;
-#pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    const uint32_t byte = (words[s >> 2] >> (8 * (s & 3))) & 0xFFu;
-    bits |= static_cast<uint32_t>(byte >= static_cast<uint32_t>(a.threshold)) << s;
-  }
-  return bits;
 }
 
 // Rows r0 .. r0 + 15 of a warp's 16 x DP accumulators (columns < d, rows
@@ -1301,12 +1700,24 @@ int launch_fwd_short(const Args& a, int batch, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = float32, 1 = bfloat16; sq <= kMaxSeq (one query tile).
+// The short f32 forward: one block per (batch row, head).  Up to 32 keys
+// the softmax takes one key a lane (softmax_rows<1>): the second key a
+// lane of softmax_rows<2> is empty there and adds an exact 0, so the
+// probabilities are the same bits with half the softmax's work.
+template <bool kDrop, int kPerLane>
+int launch_fwd_f32(const Args& a, int batch, cudaStream_t s) {
+  const auto kernel = fused_attention_fwd_short_f32<kDrop, kPerLane>;
+  const size_t smem = fwd_f32_layout(a.sq, a.skv, a.dim).bytes;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<static_cast<unsigned>(batch) * a.heads, fwd_f32_threads(a.sq, a.skv, a.dim), smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: 0 = float32, 1 = bfloat16; sq <= kMaxSeq.
 template <bool kDrop>
 int launch_fwd(const Args& a, int dtype, int batch, cudaStream_t s) {
   if (dtype == 0) {
-    return launch(fused_attention_f32<kDrop>, a, batch, kF32Threads,
-                  fwd_f32_smem_bytes(a.sq, a.skv, a.dim), s);
+    return a.skv <= 32 ? launch_fwd_f32<kDrop, 1>(a, batch, s) : launch_fwd_f32<kDrop, 2>(a, batch, s);
   }
   if (dtype != 1) return -1;
   switch (fwd_short_nt(a.skv)) {
@@ -1351,9 +1762,12 @@ int launch_bwd(const Args& a, float* dbias, int dtype, int batch, cudaStream_t s
     }
   }
   if (dtype != 0) return -1;
-  const int err = launch(fused_attention_bwd_f32<kDrop>, a, batch, kF32Threads,
-                         bwd_f32_smem_bytes(a.sq, a.skv, a.dim), s);
-  if (err != 0) return err;
+  const auto kernel = a.skv <= 32 ? fused_attention_bwd_short_f32<kDrop, 1>  // as launch_fwd_f32
+                                  : fused_attention_bwd_short_f32<kDrop, 2>;
+  const size_t smem = bwd_f32_layout(a.sq, a.skv, a.dim).bytes;
+  if (const int err = allow_smem(kernel, smem)) return err;
+  kernel<<<static_cast<unsigned>(batch) * a.heads, bwd_f32_threads(a.sq, a.skv, a.dim), smem, s>>>(a);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
   return launch_dbias_sum(a.dbias_part, dbias, batch, a.heads, a.skv, s);
 }
 

@@ -38,9 +38,17 @@
 // dbias sums across heads: a block writes its heads' column sums of dS,
 // summed in head order, into a (B, head pairs, Skv) scratch that
 // fused_attention_dbias_sum adds in pair order.  No float atomics, so
-// two runs give identical gradients.  The f32 body runs every product on
-// the CUDA cores in f32 (checked, not timed).  A fully masked row (bias
-// -10000 everywhere) has a uniform P and finite gradients.
+// two runs give identical gradients.  The f32 body
+// (fused_attention_bwd_short_f32) runs every product on the CUDA cores in
+// exact f32 (fmaf, no TF32), each output one fmaf chain in the plain
+// order, so its outputs are bit for bit those of one thread per output:
+// one block per (row, head) in two phases (query rows: S, dP, softmax, D,
+// dS; then keys: dV, dK; dQ beside dK), each thread a 4 x 4 register
+// tile of each product with float4 operand reads (8 FMAs a shared-memory
+// load where one thread per output does 0.5), its dbias partials per head
+// (fused_attention_dbias_sum adds them in head order); on an H100 1.7-2.9x
+// faster than one thread per output (PERF.md section 6).  A fully masked
+// row (bias -10000 everywhere) has a uniform P and finite gradients.
 
 #include "attention_common.cuh"
 

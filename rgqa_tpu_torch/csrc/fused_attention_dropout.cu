@@ -34,9 +34,12 @@
 // one-pass body (fused_attention_bwd_short_bf16) with the bits in a bit
 // array in shared memory, Sq x max(2, ceil(Skv / 16)) calls over its
 // threads, from which each lane reads the bits of the scores it holds.
-// At rate 0 (t = 0, scale 1) both entries compute bit for bit what
-// fused_attention.cu and fused_attention_bwd.cu compute: the bodies are
-// the same templates (attention_common.cuh).
+// In f32 both entries run the short f32 bodies (fused_attention_fwd_short_f32,
+// fused_attention_bwd_short_f32) with the same per-16-key bits, drawn
+// into shared memory while the tiles are in flight.  At rate 0 (t = 0,
+// scale 1) both entries compute bit for bit what fused_attention.cu and
+// fused_attention_bwd.cu compute: the bodies are the same templates
+// (attention_common.cuh).
 
 #include "attention_common.cuh"
 

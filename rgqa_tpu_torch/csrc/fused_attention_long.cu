@@ -73,8 +73,8 @@
 // re-read K and V), and a key-tiled body beyond, 64-key tiles through a
 // double-buffered ring with ldmatrix fragments (36 bytes spilled).
 //
-// f32, checked, not timed, on the CUDA cores: up to kLongWholeKv = 256
-// keys the short kernel's body (attention_common.cuh, fused_attention_f32)
+// f32, on the CUDA cores: up to kLongWholeKv = 256 keys the whole-row
+// body (attention_common.cuh, fused_attention_f32, one thread per output)
 // with query tiles, kLongPerLane = 8 keys per lane in the softmax and
 // kLongF32Threads = 1024 threads, exact to the plain version's order;
 // beyond, fused_attention_long_tiled_f32, the online softmax over key
@@ -511,7 +511,7 @@ int rgqa_fused_attention_long_fwd(
     return launch(fused_attention_long_tiled_f32, a, batch, kTiledF32Threads,
                   tiled_f32_smem_bytes(a.dim), s, tiles);
   }
-  return launch(fused_attention_f32<false, kLongPerLane, kLongF32Threads>, a, batch,
+  return launch(fused_attention_f32<kLongPerLane, kLongF32Threads>, a, batch,
                 kLongF32Threads, fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim), s, tiles);
 }
 

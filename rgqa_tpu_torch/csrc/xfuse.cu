@@ -63,9 +63,9 @@ __global__ void __launch_bounds__(kFwdMaxThreads, kFwdMinBlocks)
 __global__ void __launch_bounds__(kF32Threads) dual_pair_f32(Args a, Args b, unsigned blocks_a) {
   extern __shared__ float smem[];
   if (blockIdx.x < blocks_a) {
-    fwd_f32_body<false, 2, kF32Threads>(a, blockIdx.x, smem);
+    fwd_f32_body<2, kF32Threads>(a, blockIdx.x, smem);
   } else {
-    fwd_f32_body<false, 2, kF32Threads>(b, blockIdx.x - blocks_a, smem);
+    fwd_f32_body<2, kF32Threads>(b, blockIdx.x - blocks_a, smem);
   }
 }
 
@@ -77,7 +77,7 @@ __global__ void __launch_bounds__(kFwdMaxThreads, kFwdMinBlocks) cat_bf16(Args a
 
 __global__ void __launch_bounds__(kF32Threads) cat_f32(Args a, CatMask m) {
   extern __shared__ float smem[];
-  fwd_f32_body<false, 2, kF32Threads>(a, blockIdx.x, smem, m);
+  fwd_f32_body<2, kF32Threads>(a, blockIdx.x, smem, m);
 }
 
 // The bf16 dual launch: one block size for both problems (the larger).

@@ -2,9 +2,9 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
-        [--only long short_fwd short_bwd headfold epilogue uniter]
+        [--only long short_fwd short_bwd headfold epilogue uniter f32]
 
-Six groups, all by default (``--only`` picks some):
+Seven groups, all by default (``--only`` picks some):
 
 - ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36,
   batch 256; #2 (``fused_attention_long_cuda``) at ViLT's 165x165,
@@ -45,6 +45,15 @@ Six groups, all by default (``--only`` picks some):
   the products at the bf16 tensor-core rate) and the one PyTorch call
   for its function (``scaled_dot_product_attention``; for #3 / #5 its
   forward and backward less its forward, as the smoke reckons it);
+- ``f32``: #1, #3, #4 and #5 in f32 at LXMERT's four shapes under
+  LXMERT's mask (``chip_smoke._attention_inputs``: a quarter of the keys
+  masked at random, one fully masked row), batch 256 and 64, and at
+  CLIP's 50x50 without a mask (q, k, v column views of one fused QKV
+  product, the zero bias), batch 256 and 32; each beside f32 SDPA's
+  device time and the bound (``chip_smoke._bound_ms`` at the f32 rate),
+  with a digest of the kernel's outputs: the inputs come from a generator
+  seeded for this group alone, so two checkouts' equal digests mean
+  bit-identical outputs;
 
 the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
@@ -65,6 +74,7 @@ they existed.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import inspect
 import subprocess
 import sys
@@ -75,7 +85,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
 
-GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue", "uniter")
+GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue", "uniter", "f32")
 E, HEADS = 768, 12
 
 
@@ -144,7 +154,8 @@ def main(argv=None) -> None:
                "short_bwd": ("fused_attention_bwd", "fused_attention_dropout"),
                "headfold": ("fused_attention", "headfold"),
                "epilogue": ("fused_attention", "epilogue"),
-               "uniter": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout")}
+               "uniter": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout"),
+               "f32": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout")}
     built = build_all(tuple(dict.fromkeys(n for grp in args.only for n in sources[grp])))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -170,6 +181,8 @@ def main(argv=None) -> None:
         _epilogue(gen, args.iters)
     if "uniter" in args.only:
         _uniter(att, gen, args.iters, rate, seed)
+    if "f32" in args.only:
+        _f32(att, args.iters, rate, seed)
 
 
 # #2's timed shapes: ViLT-B/32 at 384 px (165 training, 185 serving) and
@@ -386,6 +399,64 @@ def _uniter(att, gen, iters: int, rate: float, seed: int) -> None:
             print(f"bfloat16 B={b} 56x56 uniter-mask {kernel.__name__}: {cuda_ms(call, iters=iters) * 1e3:.1f} "
                   f"us per call, device {_device(device_us(call, iters))}, bound {bound * 1e3:.1f} us ({by}), "
                   f"max|kernel-plain| {err:.3e}; sdpa {lib_us:.1f} us, device {_device(lib_dev)}", flush=True)
+        del q, k, v, g, bias, lib
+        torch.cuda.empty_cache()
+
+
+def _digest(out) -> str:
+    """The first 12 hex digits of the SHA-1 of an output's (or outputs')
+    bytes."""
+    h = hashlib.sha1()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+# The f32 group's cases: (batch, sq, skv, mask) with LXMERT's mask at its
+# four shapes, none at CLIP's 50x50.
+F32_CASES = tuple((b, sq, skv, "LXMERT's mask") for b in (256, 64)
+                  for sq, skv in ((20, 20), (36, 36), (20, 36), (36, 20))) + tuple(
+    (b, 50, 50, "no mask") for b in (256, 32))
+
+
+def _f32(att, iters: int, rate: float, seed: int) -> None:
+    """#1 / #3 / #4 / #5 in f32 beside f32 SDPA and the bound."""
+    import torch
+
+    from chip_smoke import _attention_inputs, _bound_ms, _sdpa_calls
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for b, sq, skv, mask in F32_CASES:
+        if mask == "no mask":
+            q, k, v = torch.randn(b, sq, 3 * E, generator=gen, device="cuda").split(E, -1)
+            g = torch.randn(b, sq, E, generator=gen, device="cuda")
+            bias = att.bias_vector(None, b, skv, device="cuda")
+        else:
+            q, k, v, g, bias = _attention_inputs(b, sq, skv, torch.float32, gen)
+        lib = _sdpa_calls(q, k, v, g, bias)
+        cases = (
+            ("#1", att.fused_attention_cuda, att.attention_natural_ref, (q, k, v, bias, HEADS), "fwd", None),
+            ("#3", att.fused_attention_bwd_cuda, att.attention_bwd_ref, (q, k, v, bias, g, HEADS),
+             "fwd_bwd", "fwd"),
+            ("#4", att.fused_attention_dropout_cuda, att.attention_dropout_ref,
+             (q, k, v, bias, HEADS, rate, seed), "drop", None),
+            ("#5", att.fused_attention_dropout_bwd_cuda, att.attention_dropout_bwd_ref,
+             (q, k, v, bias, g, HEADS, rate, seed), "drop_fwd_bwd", "drop"),
+        )
+        for label, kernel, plain, args, lib_all, lib_less in cases:
+            got, want = kernel(*args), plain(*args)
+            pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+            err = max((a.float() - w.float()).abs().max().item() for a, w in pairs)
+            call = lambda: kernel(*args)  # noqa: E731
+            bound, by = _bound_ms(kernel.__name__.removesuffix("_cuda"), b, sq, skv, 4)
+            lib_dev = device_us(lib[lib_all], iters, match=None)
+            if lib_less:
+                less = device_us(lib[lib_less], iters, match=None)
+                lib_dev = None if lib_dev is None or less is None else lib_dev - less
+            print(f"float32 B={b} {sq}x{skv} ({mask}) {label} {kernel.__name__}: device "
+                  f"{_device(device_us(call, iters))}, events {cuda_ms(call, iters=iters) * 1e3:.1f} us; "
+                  f"sdpa device {_device(lib_dev)}; bound {bound * 1e3:.1f} us ({by}); "
+                  f"max|kernel-plain| {err:.3e}; digest {_digest(got)}", flush=True)
         del q, k, v, g, bias, lib
         torch.cuda.empty_cache()
 

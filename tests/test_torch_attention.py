@@ -4,8 +4,10 @@ On the CPU the port's plain version is held to the Pallas kernel
 ``_fused_pallas_raw`` run in interpret mode (as ``tests/test_ops.py``
 runs it) and to the XLA reference, on the same numpy inputs, at
 LXMERT's four attention shapes with a ragged batch and a fully masked
-row: atol 1e-5 in f32, 3e-2 in bf16 (the Pallas kernel rounds P to bf16
-before PV, the plain version keeps it in f32).
+row, at CLIP's 50 x 50 with a zero bias (its vision tower passes no
+mask) and at the short kernels' 64 x 64 limit: atol 1e-5 in f32, 3e-2 in
+bf16 (the Pallas kernel rounds P to bf16 before PV, the plain version
+keeps it in f32).
 
 Tests marked ``cuda`` hold the Hopper kernel to the plain version on the
 card and skip without one (run them there with ``python -m pytest
@@ -22,6 +24,8 @@ from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thr
 H, D = 4, 8
 E = H * D
 SHAPES = [(20, 20), (36, 36), (20, 36), (36, 20)]  # lang self, visn self, cross both ways
+CLIP = (50, 50)  # CLIP ViT-B/32's vision stream: 49 patches + CLS, no mask
+LIMIT = (64, 64)  # the short kernels' longest streams
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
@@ -57,11 +61,13 @@ def _to_torch(arrays, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,skv", SHAPES)
+@pytest.mark.parametrize("sq,skv", SHAPES + [CLIP, LIMIT])
 def test_plain_matches_pallas_kernel(jax_attention, sq, skv, dtype):
     import jax.numpy as jnp
 
     q, k, v, bias = _inputs(5, sq, skv, seed=sq * 100 + skv)
+    if (sq, skv) == CLIP:
+        bias = np.zeros_like(bias)
     jq, jk, jv = (jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v))
     want = jax_attention._fused_pallas_raw(jq, jk, jv, jnp.asarray(bias), H)
     tq, tk, tv = _to_torch((q, k, v), getattr(torch, dtype))
@@ -157,6 +163,27 @@ def test_kernel_matches_plain_on_card(cuda, sq, skv, dtype):
     # bf16 in the kernel, kept in f32 by the plain version).
     atol, rtol = {"float32": (2e-5, 0.0), "bfloat16": (3e-2, 1e-2)}[dtype]
     assert ((got.float() - want.float()).abs() <= atol + rtol * want.float().abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [32, 256])
+@pytest.mark.parametrize("sq,skv", [CLIP, LIMIT])
+def test_f32_kernel_matches_plain_on_card_at_batch(cuda, sq, skv, b):
+    # The f32 body at CLIP's 50 x 50 (zero bias) and the 64 x 64 limit,
+    # at the batches that change its grid (query tiles at 32, one tile a
+    # (row, head) at 256); q, k, v column views of one fused QKV product.
+    e = 768
+    q, k, v, bias = _inputs(b, sq, skv, e=e, seed=b + sq)
+    if (sq, skv) == CLIP:
+        bias = np.zeros_like(bias)
+    qkv = torch.from_numpy(np.concatenate([q, k, v], axis=-1)).to(cuda)
+    tq, tk, tv = qkv.split(e, dim=-1)
+    tbias = torch.from_numpy(bias).to(cuda)
+    got = att.fused_attention_cuda(tq, tk, tv, tbias, 12)
+    want = att.attention_natural_ref(tq, tk, tv, tbias, 12)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-5
 
 
 @pytest.mark.cuda

@@ -5,9 +5,11 @@ On the CPU:
   ``_fused``, whose custom_vjp runs the Pallas backward
   ``_fused_bwd_pallas_raw`` in interpret mode (as ``tests/test_ops.py``
   runs it), at LXMERT's four attention shapes with a ragged batch and a
-  fully masked row: atol 1e-4 in f32 (the bar of ``tests/test_ops.py``),
-  3e-2 in bf16 (dS is rounded to bf16 on both sides, so a rounding flip
-  moves a gradient by one bf16 step);
+  fully masked row, at CLIP's 50 x 50 with a zero bias and at the 64 x 64
+  limit: atol 1e-4 in f32 (the bar of ``tests/test_ops.py``), 3e-2 in
+  bf16 (dS is rounded to bf16 on both sides, so a rounding flip moves a
+  gradient by one bf16 step); at those two shapes the plain dropout pair
+  at rate 0 against the same JAX kernels (1e-5 forward, 1e-4 gradients);
 - the port's ``autograd.Function`` on CPU tensors against PyTorch's
   autograd through ``attention_natural_ref``, and ``gradcheck`` of the
   plain pairs in f64;
@@ -36,6 +38,8 @@ from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thr
 H, D = 4, 8
 E = H * D
 SHAPES = [(20, 20), (36, 36), (20, 36), (36, 20)]  # lang self, visn self, cross both ways
+CLIP = (50, 50)  # CLIP ViT-B/32's vision stream: 49 patches + CLS, no mask
+LIMIT = (64, 64)  # the short kernels' longest streams
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -71,13 +75,20 @@ def _torch(arrays, dtype, device="cpu"):
     return [torch.from_numpy(a).to(device=device, dtype=dtype) for a in arrays]
 
 
+def _oracle_inputs(sq, skv):
+    q, k, v, g, bias = _inputs(5, sq, skv, seed=sq * 100 + skv)
+    if (sq, skv) == CLIP:
+        bias = np.zeros_like(bias)
+    return q, k, v, g, bias
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,skv", SHAPES)
+@pytest.mark.parametrize("sq,skv", SHAPES + [CLIP, LIMIT])
 def test_bwd_ref_matches_pallas_backward(jax_attention, sq, skv, dtype):
     import jax
     import jax.numpy as jnp
 
-    q, k, v, g, bias = _inputs(5, sq, skv, seed=sq * 100 + skv)
+    q, k, v, g, bias = _oracle_inputs(sq, skv)
     jdt = getattr(jnp, dtype)
     jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
     _, vjp = jax.vjp(lambda *a: jax_attention._fused(*a, H), jq, jk, jv, jnp.asarray(bias))
@@ -90,6 +101,37 @@ def test_bwd_ref_matches_pallas_backward(jax_attention, sq, skv, dtype):
         np.testing.assert_allclose(
             a.float().numpy(), np.asarray(w, np.float32), atol=TOL[dtype], err_msg=name
         )
+
+
+@pytest.mark.parametrize("sq,skv", [CLIP, LIMIT])
+def test_plain_dropout_pair_at_rate_zero_matches_pallas(jax_attention, sq, skv):
+    # The dropout Pallas kernels have no CPU lowering; at rate 0 the pair
+    # is the deterministic function, held to the Pallas forward and the
+    # vjp through its backward (interpret mode), f32.
+    import jax
+    import jax.numpy as jnp
+
+    q, k, v, g, bias = _oracle_inputs(sq, skv)
+    jq, jk, jv, jg, jb = (jnp.asarray(a) for a in (q, k, v, g, bias))
+    want_out, vjp = jax.vjp(lambda *a: jax_attention._fused(*a, H), jq, jk, jv, jb)
+    want = vjp(jg)
+    tq, tk, tv, tg, tb = _torch((q, k, v, g, bias), torch.float32)
+    out = att.attention_dropout_ref(tq, tk, tv, tb, H, 0.0, 99)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), atol=1e-5)
+    got = att.attention_dropout_bwd_ref(tq, tk, tv, tb, tg, H, 0.0, 99)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("sq,skv", [CLIP, LIMIT])
+def test_plain_dropout_backward_replays_the_mask_at(sq, skv):
+    # <g, out> == <dv, v> at rate 0.5 (see the test below), f32.
+    q, k, v, g, bias = _torch(_oracle_inputs(sq, skv), torch.float32)
+    out = att.attention_dropout_ref(q, k, v, bias, H, 0.5, 4321)
+    dv = att.attention_dropout_bwd_ref(q, k, v, bias, g, H, 0.5, 4321)[2]
+    lhs = float((out.double() * g.double()).sum())
+    rhs = float((dv.double() * v.double()).sum())
+    np.testing.assert_allclose(lhs, rhs, rtol=2e-3)
 
 
 @pytest.mark.parametrize("sq,skv", SHAPES)
@@ -292,6 +334,30 @@ def test_dropout_kernels_match_plain_on_card(cuda, sq, skv, dtype):
         att.fused_attention_bwd_cuda(q, k, v, bias, g, 12),
     ):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [32, 256])
+@pytest.mark.parametrize("sq,skv", [CLIP, LIMIT])
+def test_f32_bwd_and_dropout_kernels_match_plain_on_card_at_batch(cuda, sq, skv, b):
+    # #3 / #4 / #5's f32 bodies at CLIP's 50 x 50 (zero bias) and the 64 x
+    # 64 limit, batch 32 and 256.
+    q, k, v, g, bias = _card_inputs(cuda, sq, skv, "float32", b=b)
+    if (sq, skv) == CLIP:
+        bias = torch.zeros_like(bias)
+    rate, seed = 0.1, 2**40 + 7
+    pairs = [
+        (att.fused_attention_bwd_cuda(q, k, v, bias, g, 12), att.attention_bwd_ref(q, k, v, bias, g, 12)),
+        ((att.fused_attention_dropout_cuda(q, k, v, bias, 12, rate, seed),),
+         (att.attention_dropout_ref(q, k, v, bias, 12, rate, seed),)),
+        (att.fused_attention_dropout_bwd_cuda(q, k, v, bias, g, 12, rate, seed),
+         att.attention_dropout_bwd_ref(q, k, v, bias, g, 12, rate, seed)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        for name, a, w in zip(("dq", "dk", "dv", "dbias") if len(got) == 4 else ("out",), got, want):
+            assert torch.isfinite(a).all(), name
+            assert _close(a, w, "float32", name)
 
 
 @pytest.mark.cuda
