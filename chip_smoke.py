@@ -381,7 +381,31 @@ nonzero:
    ``cli.compute_param`` for every backbone.  Phase 3 also holds #3 at
    50x50 (no mask, f32 and bf16, batch 256 and 32) to its plain version
    and times #1 and #3 there beside SDPA and the bound.
-42. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+42-45. LXMERT pretraining, the VQA task and NLVR2 (slice 21), full
+   width (49.1 s together on the H100).  42: the pretraining step
+   (``LxmertPretraining``, 9500 answers, f32 masters and bf16 compute)
+   at batch 256 on one set of host-drawn masks (BERT's special ids):
+   at dropout 0 one step through
+   the kernels and one through the plain versions from one init, the six
+   losses within ``PRETRAIN_LOSS_RTOL`` and 34 launches of #1 and of #3
+   (``PRETRAIN_LAUNCHES``: the RoI losses read the vision stream, so all
+   34 calls take a backward); at dropout 0.1 34 of #4 and of #5 a step,
+   the wall over 4 steps and the device time a step.  43: ``cli.pretrain``
+   with ``scripts/lxmert/train/pretrain.sh``'s task flags on a synthetic
+   root, one epoch, batch 32: its launches (34 #4 and #5 a step, 34 #1
+   an eval batch), finite eval losses,
+   ``BEST_EVAL_LOSS_LXRT.pth`` and ``Epoch00_LXRT.pth`` complete.  44:
+   ``cli.vqa`` on a synthetic VQA root, ``--train train,nominival --valid
+   minival --loadLXMERTQA <43>/BEST_EVAL_LOSS`` (answer rows through an
+   ``all_ans.json``; the printed counts held), one epoch at batch 32 (34
+   #4, 32 #5 a step, 34 #1 a validation forward); ``--test minival
+   --load BEST.pth --fp32`` on the card and with ``--device cpu``
+   (accuracies within ``VQA_ACC_TOL``), ``--test test``: dumps with one
+   integer-id row per question.  45: ``Nlvr2Runner``, batch 32 (64
+   encoder rows), one epoch on 128 synthetic pairs (34 #4, 32 #5 a step),
+   ``evaluate`` and ``dump_csv`` (34 #1 a forward), one batch's f32 logits
+   through the kernels and the plain versions within ``LOGIT_TOL``.
+46. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -4391,6 +4415,368 @@ def phase_slice19() -> None:
         timed("41 compute_param", phase_compute_param)
 
 
+# Phases 42-45: LXMERT pretraining, the VQA task and NLVR2 (slice 21).
+PRETRAIN_BATCH = 256  # scripts/lxmert/train/pretrain.sh's batch
+# Launches a pretraining step: the six losses read the language stream (the
+# masked LM, and through the pooled CLS the matched and QA heads) and the
+# vision stream (the RoI heads), so every one of the 34 attention calls
+# takes its backward (an RP step's answer head reads the language stream
+# alone: BWD_PER_STEP).
+PRETRAIN_LAUNCHES = {0.0: _launches(fused_attention=34, fused_attention_bwd=34),
+                     RATE: _launches(fused_attention_dropout=34, fused_attention_dropout_bwd=34)}
+# Dropout-off pretraining step, kernels vs plain versions, each of the six
+# losses, relative: phase 8's bound.  Five are means over many terms (the
+# masked tokens' 30522-way CE, 9216 RoIs' CE and SmoothL1, 256 rows' QA
+# CE) of per-logit bf16 errors of either sign, as phase 8's BCE is; the
+# matched CE is the mean over 256 rows of a 2-way CE (~0.69), whose two
+# logits a random init's pooled features barely move.
+PRETRAIN_LOSS_RTOL = LOSS_RTOL
+NLVR2_BATCH = 32  # scripts' batch: 64 (sentence, image) rows through the encoder
+VQA_ACC_TOL = 1e-3  # the card's f32 minival accuracy against the CPU's
+
+
+def _pretrain_batch(b: int, seed: int) -> dict:
+    """A full-width pretraining batch on the card: BERT-vocabulary text of
+    4-20 tokens ([CLS] ... [SEP], padding after), 36 x 2048 RoIs, detector
+    ids, QA answers over ``PRETRAIN_ANSWERS`` (a quarter -1)."""
+    import numpy as np
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.models.zoo import default_config, example_batch
+    from rgqa_tpu_torch.tools.profile_forward import PRETRAIN_ANSWERS
+
+    batch = _padded_text(example_batch(default_config(), b, seed=seed), seed=seed + 1)
+    lengths = batch["input_mask"].sum(1)
+    batch["input_ids"][np.arange(b), lengths - 1] = 102  # [SEP]
+    rng = np.random.default_rng(seed + 2)
+    batch.update(obj_id=rng.integers(0, 1600, (b, 36)).astype(np.int32),
+                 attr_id=rng.integers(0, 400, (b, 36)).astype(np.int32),
+                 ans=np.where(rng.random(b) < 0.25, -1, rng.integers(0, PRETRAIN_ANSWERS, b)).astype(np.int32))
+    return to_device(batch, "cuda")
+
+
+def _pretrain_model(dropout: float):
+    import torch
+    from rgqa_tpu_torch.models.lxmert import LxmertPretraining
+    from rgqa_tpu_torch.models.zoo import default_config, init_weights
+    from rgqa_tpu_torch.tools.profile_forward import PRETRAIN_ANSWERS
+
+    enc = dataclasses.replace(default_config().encoder, hidden_dropout=dropout, attention_dropout=dropout)
+    with torch.device("cuda"):
+        model = LxmertPretraining(enc, PRETRAIN_ANSWERS, dtype=torch.bfloat16)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+def _pretrain_step(model, init, use_fused, steps: int = 1):
+    import torch
+    from rgqa_tpu_torch.config import OptimConfig
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.pretrain.trainer import make_pretrain_step
+    from rgqa_tpu_torch.tools.profile_forward import BERT_MASK, BERT_SPECIALS
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+
+    model.load_state_dict(init)
+    opt = make_optimizer(OptimConfig(lr=1e-4), model.parameters(), t_total=100)
+    rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1), host=torch.Generator().manual_seed(1))
+    step, _ = make_pretrain_step(model, opt, mask_id=BERT_MASK, special_ids=BERT_SPECIALS, rng=rng,
+                                 use_fused=use_fused)
+    return step
+
+
+def phase_pretrain_steps() -> None:
+    """Phase 42: the pretraining step at full width (``LxmertPretraining``,
+    9 / 5 / 5 x 768, vocab 30522, 9500 answers; f32 masters, bf16
+    compute), batch 256, all six tasks, one set of host-drawn masks: at
+    dropout 0 one step through the kernels and one through the plain
+    versions from one init (the six losses within ``PRETRAIN_LOSS_RTOL``,
+    launches ``PRETRAIN_LAUNCHES``); at dropout 0.1 launches a step, the
+    wall over 4 steps and the device time a step (``torch.profiler``)."""
+    import torch
+    from rgqa_tpu_torch.pretrain import draw_pretrain_masks
+    from rgqa_tpu_torch.pretrain.trainer import ALL_TASKS
+    from rgqa_tpu_torch.tools.profile_forward import _device_time
+
+    phase = "pretrain-steps"
+    batch = _pretrain_batch(PRETRAIN_BATCH, seed=50)
+    draws = draw_pretrain_masks(batch, ALL_TASKS, vocab_size=30522, generator=torch.Generator().manual_seed(2))
+    counts = {}
+    for dropout in (0.0, RATE):
+        model = _pretrain_model(dropout)
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        step = _pretrain_step(model, init, None)
+        reset_counts()
+        parts = {k: float(v) for k, v in step(batch, draws).items()}
+        torch.cuda.synchronize()
+        counts[dropout] = read_counts()
+        if dropout == 0.0:
+            plain = {k: float(v) for k, v in _pretrain_step(model, init, False)(batch, draws).items()}
+            if read_counts() != counts[dropout]:
+                raise AssertionError(f"{phase}: the plain step launched a kernel")
+            rel = {k: abs(parts[k] - plain[k]) / abs(plain[k]) for k in parts}
+            log(phase, f"dropout 0, batch {PRETRAIN_BATCH}, one step from one init and one set of masks: losses "
+                f"kernels {parts}, plain {plain}; relative gaps {rel} (bound {PRETRAIN_LOSS_RTOL:.0e}); launches "
+                f"{_shown(counts[dropout])}")
+            if list(parts) != list(ALL_TASKS) or not all(math.isfinite(v) for v in [*parts.values(), *plain.values()]):
+                raise AssertionError(f"{phase}: losses {parts} / {plain}")
+            if max(rel.values()) > PRETRAIN_LOSS_RTOL:
+                raise AssertionError(f"{phase}: kernel and plain losses differ by {rel}")
+        else:
+            for _ in range(2):  # warm-up
+                step(batch, draws)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                step(batch, draws)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 4
+            classes = _device_time(lambda: step(batch, draws), 2)
+            device_ms = sum(ms for ms, _ in classes.values())
+            top = ", ".join(f"{c} {ms:.3f}" for c, (ms, _) in sorted(classes.items(), key=lambda kv: -kv[1][0])[:6])
+            log(phase, f"dropout {RATE}: losses {parts}; launches a step {_shown(counts[dropout])}; device "
+                f"{device_ms:.3f} ms a step ({top}), wall {wall:.3f} ms (before the profile), idle share "
+                f"{1 - device_ms / wall:.4f}; {PRETRAIN_BATCH * 1e3 / wall:.1f} rows/s")
+            if not all(math.isfinite(v) for v in parts.values()):
+                raise AssertionError(f"{phase}: non-finite dropout losses {parts}")
+        if counts[dropout] != PRETRAIN_LAUNCHES[dropout]:
+            raise AssertionError(f"{phase}: launches a step at dropout {dropout} {counts[dropout]}, want "
+                                 f"{PRETRAIN_LAUNCHES[dropout]}")
+        del model, init, step
+        torch.cuda.empty_cache()
+
+
+def phase_pretrain_cli(tmp: str) -> str:
+    """Phase 43: ``python -m rgqa_tpu_torch.cli.pretrain`` on a synthetic
+    root at full width, one epoch, batch 32, all tasks (dropout 0.1): 34
+    launches of #4 and of #5 a step, 34 of #1 an eval batch and none else,
+    finite eval losses, ``BEST_EVAL_LOSS_LXRT.pth`` and
+    ``Epoch00_LXRT.pth`` written, complete reference files.  Returns the
+    output directory."""
+    import torch
+    from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+    from rgqa_tpu_torch.cli import pretrain
+    from rgqa_tpu_torch.data.dataset import GQADataset
+
+    phase = "pretrain-cli"
+    root, out = os.path.join(tmp, "gqa"), os.path.join(tmp, "pretrain")
+    # scripts/lxmert/train/pretrain.sh's flags (all six tasks), one epoch at batch 32.
+    argv = ["--synthetic", "--data_root", root, "--taskMaskLM", "--taskMatched", "--taskObjPredict", "--taskQA",
+            "--visualLosses", "obj,attr,feat", "--epochs", "1", "--batchSize", "32", "--lr", "1e-4",
+            "--output", out]
+    reset_counts()
+    t0 = time.perf_counter()
+    history = pretrain.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    steps = len(GQADataset(root, "train")) // 32
+    evals = len(GQADataset(root, "valid")) // 32
+    want = _launches(fused_attention=34 * evals, fused_attention_dropout=34 * steps,
+                     fused_attention_dropout_bwd=34 * steps)
+    log(phase, f"pretrain CLI ({' '.join(argv)}) in {seconds:.2f} s: {steps} steps, {evals} eval batches, history "
+        f"{history}; launches {_shown(launches)}")
+    if launches != want:
+        raise AssertionError(f"{phase}: launches {launches}, want {want}")
+    if not history["eval"] or not all(math.isfinite(x) for x in history["eval"]):
+        raise AssertionError(f"{phase}: eval losses {history['eval']}")
+    for name in ("BEST_EVAL_LOSS_LXRT.pth", "Epoch00_LXRT.pth"):
+        _, missing, unused = load_reference_pth(os.path.join(out, name), backbone="lxmert_pretrain")
+        if missing or unused:
+            raise AssertionError(f"{phase}: {name} missing {missing[:3]}, unused {unused[:3]}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vqa_cli(phase, argv, want_launches=None) -> tuple:
+    """``cli.vqa.main(argv)`` with its printed lines and its launches."""
+    import contextlib
+    import io
+
+    import torch
+    from rgqa_tpu_torch.cli import vqa
+
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = vqa.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    lines = out.getvalue().strip().splitlines()
+    log(phase, f"vqa CLI ({' '.join(argv)}) in {seconds:.2f} s: {lines[-1]}; launches {_shown(launches)}")
+    if want_launches is not None and launches != want_launches:
+        raise AssertionError(f"{phase}: launches {launches}, want {want_launches}")
+    return result, lines
+
+
+def _vqa_dump(path: str, n: int) -> list:
+    with open(path) as f:
+        rows = json.load(f)
+    if len(rows) != n or not all(isinstance(r["question_id"], int) and isinstance(r["answer"], str) for r in rows):
+        raise AssertionError(f"vqa-cli: {path} holds {len(rows)} rows, want {n} with integer ids")
+    return rows
+
+
+def phase_vqa_cli(tmp: str, pretrained: str) -> None:
+    """Phase 44: ``python -m rgqa_tpu_torch.cli.vqa`` at full width on a
+    synthetic VQA root: ``--train train,nominival --valid minival
+    --batchSize 32 --epochs 1 --loadLXMERTQA <phase 43>/BEST_EVAL_LOSS``
+    (answer rows transplanted through an ``all_ans.json`` of the
+    pretraining answers), 34 #4 and 32 #5 a step and 34 #1 a validation
+    forward; then ``--test minival --load BEST.pth --fp32`` on the card
+    and with ``--device cpu`` (accuracies within ``VQA_ACC_TOL``, 34 #1 a
+    forward on the card), and ``--test test`` (predict-only): each dump
+    valid JSON with one integer-id row per question."""
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.data.synthetic import make_synthetic_vqa
+    from rgqa_tpu_torch.pretrain import AnswerTable
+
+    phase = "vqa-cli"
+    root, out = os.path.join(tmp, "vqa"), os.path.join(tmp, "vqa_snap")
+    make_synthetic_vqa(root)
+    with open(os.path.join(tmp, "gqa", "trainval_label2ans.json")) as f:
+        table = json.load(f)  # the pretraining run's answer table: the GQA root's vocabulary
+    with open(os.path.join(root, "all_ans.json"), "w") as f:
+        json.dump([{"ans": a, "dsets": ["gqa"]} for a in table], f)
+    with open(os.path.join(root, "trainval_label2ans.json")) as f:
+        answers = json.load(f)
+    loaded = sum(AnswerTable.convert_ans(a) in set(table) for a in answers)
+    n = {s: len(GQADataset(root, s)) for s in ("train,nominival", "minival", "test")}
+    steps, forwards = n["train,nominival"] // 32, math.ceil(n["minival"] / 32)
+    # scripts/vqa/train/vanilla.sh's flags, one epoch.
+    argv = ["--synthetic", "--data_root", root, "--train", "train,nominival", "--valid", "minival", "--batchSize",
+            "32", "--epochs", "1", "--lr", "5e-5", "--loadLXMERTQA", os.path.join(pretrained, "BEST_EVAL_LOSS"),
+            "--output", out]
+    history, lines = _vqa_cli(phase, argv, _launches(
+        fused_attention=34 * forwards, fused_attention_dropout=34 * steps,
+        fused_attention_dropout_bwd=BWD_PER_STEP * steps))
+    line = f"Loaded {loaded} answers from LXRTQA pre-training and {len(answers) - loaded} not"
+    if line not in lines or not any(l.startswith("Valid Oracle: ") for l in lines):
+        raise AssertionError(f"{phase}: printed {lines[:4]}, want {line!r} and the oracle line")
+    if not all(math.isfinite(x) for x in history["loss"]) or not os.path.isfile(os.path.join(out, "BEST.pth")):
+        raise AssertionError(f"{phase}: history {history}, BEST.pth written: "
+                             f"{os.path.isfile(os.path.join(out, 'BEST.pth'))}")
+    best = os.path.join(out, "BEST.pth")
+    accs = {}
+    for device in ("cuda", "cpu"):
+        test_out = os.path.join(tmp, f"vqa_minival_{device}")
+        argv = ["--data_root", root, "--test", "minival", "--load", best, "--fp32", "--batchSize", "32",
+                "--output", test_out, "--device", device]
+        want = _launches(fused_attention=34 * forwards) if device == "cuda" else _launches()
+        _, lines = _vqa_cli(phase, argv, want)
+        accs[device] = json.loads(lines[-1])["accuracy"]
+        rows = _vqa_dump(os.path.join(test_out, "minival_predict.json"), n["minival"])
+        accs[f"{device} answers"] = {r["question_id"]: r["answer"] for r in rows}
+    same = sum(accs["cuda answers"][q] == a for q, a in accs["cpu answers"].items())
+    log(phase, f"minival accuracy, f32: card {accs['cuda']}, CPU {accs['cpu']} (bound {VQA_ACC_TOL}); "
+        f"{same} of {n['minival']} answers equal")
+    if abs(accs["cuda"] - accs["cpu"]) > VQA_ACC_TOL:
+        raise AssertionError(f"{phase}: the card's minival accuracy {accs['cuda']} vs the CPU's {accs['cpu']}")
+    test_out = os.path.join(tmp, "vqa_test")
+    _, lines = _vqa_cli(phase, ["--data_root", root, "--test", "test", "--load", best, "--batchSize", "32",
+                                "--output", test_out],
+                        _launches(fused_attention=34 * math.ceil(n["test"] / 32)))
+    if json.loads(lines[-1]) != {"split": "test", "dumped": True}:
+        raise AssertionError(f"{phase}: --test test printed {lines[-1]}")
+    _vqa_dump(os.path.join(test_out, "test_predict.json"), n["test"])
+
+
+def _nlvr2_rows(root: str, split: str, n: int, seed: int) -> list:
+    """``n`` NLVR2 pairs over the synthetic root's images, the sentences
+    of its ``split`` questions, labels from a seeded generator."""
+    import numpy as np
+
+    with open(os.path.join(root, f"{split}.json")) as f:
+        questions = json.load(f)
+    with open(os.path.join(root, "features", "img_ids.json")) as f:
+        img_ids = json.load(f)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        a, b = rng.choice(len(img_ids), 2, replace=False)
+        rows.append({"uid": f"{split}-{i:04d}", "img0": img_ids[a], "img1": img_ids[b],
+                     "sent": questions[i % len(questions)]["sent"], "label": int(rng.integers(2))})
+    return rows
+
+
+def phase_nlvr2(tmp: str) -> None:
+    """Phase 45: ``Nlvr2Runner`` at full width (LXMERT 9 / 5 / 5 x 768 over
+    two images a sentence, bf16 over f32 weights), batch 32 (64 encoder
+    rows), one epoch on 128 synthetic pairs (34 #4 and 32 #5 a step, 34
+    #1 a forward of the validation), then ``evaluate`` and ``dump_csv``
+    (34 #1 a forward, none else; one line a pair); one validation batch's
+    logits in f32 through the kernels and through the plain versions
+    (the trained weights in an f32 copy) within ``LOGIT_TOL``."""
+    import torch
+    from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+    from rgqa_tpu_torch.models.nlvr2 import Nlvr2Model
+    from rgqa_tpu_torch.nlvr2_task import Nlvr2Runner
+
+    phase = "nlvr2"
+    root = os.path.join(tmp, "gqa")
+    if not os.path.isdir(root):
+        make_synthetic_gqa(root)
+    splits = {"train": _nlvr2_rows(root, "train", 128, 0), "valid": _nlvr2_rows(root, "valid", 64, 1)}
+    cfg, _ = parse_cli(["--data_root", root, "--batchSize", str(NLVR2_BATCH), "--epochs", "1", "--lr", "5e-5",
+                        "--output", os.path.join(tmp, "nlvr2")])  # the reference NLVR2 fine-tune's lr
+    runner = Nlvr2Runner(cfg, splits)
+    steps, forwards = 128 // NLVR2_BATCH, math.ceil(64 / NLVR2_BATCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    history = runner.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    want = _launches(fused_attention=34 * forwards, fused_attention_dropout=34 * steps,
+                     fused_attention_dropout_bwd=BWD_PER_STEP * steps)
+    log(phase, f"train, {steps} steps of {NLVR2_BATCH} pairs ({2 * NLVR2_BATCH} encoder rows), one validation, "
+        f"in {seconds:.2f} s: history {history}; launches {_shown(launches)}")
+    if launches != want or not all(math.isfinite(x) for x in history["loss"]):
+        raise AssertionError(f"{phase}: launches {launches}, want {want}; history {history}")
+    reset_counts()
+    acc = runner.evaluate("valid")
+    csv = os.path.join(tmp, "nlvr2", "valid.csv")
+    runner.dump_csv("valid", csv)
+    launches = read_counts()
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    log(phase, f"evaluate: accuracy {acc}; dump_csv {len(lines)} lines ({lines[0]!r}); launches {_shown(launches)}")
+    if launches != _launches(fused_attention=2 * 34 * forwards):
+        raise AssertionError(f"{phase}: evaluate + dump_csv launched {launches}")
+    if len(lines) != 64 or {l.split(",")[1] for l in lines} - {"True", "False"} or not 0 <= acc <= 1:
+        raise AssertionError(f"{phase}: dump {lines[:2]}, accuracy {acc}")
+    with torch.device("cuda"):
+        f32 = Nlvr2Model(cfg.model.encoder, torch.float32)
+    f32.load_state_dict(runner.model.state_dict())
+    f32.eval()
+    _, batch, _ = next(iter(runner._batches(runner.splits["valid"], NLVR2_BATCH)))
+    args = [batch[k] for k in ("input_ids", "input_mask", "segment_ids", "feats", "boxes")]
+    with torch.inference_mode():
+        reset_counts()
+        kernel = f32(*args)["logits"]
+        torch.cuda.synchronize()
+        counted = read_counts()
+        plain = f32(*args, use_fused=False)["logits"]
+    gap = float((kernel - plain).abs().max())
+    log(phase, f"one validation batch in f32: max |logits kernels - plain| {gap:.3e} (bound {LOGIT_TOL}); "
+        f"launches {_shown(counted)}")
+    if gap > LOGIT_TOL or counted != _launches(fused_attention=34):
+        raise AssertionError(f"{phase}: f32 logits differ by {gap}, launches {counted}")
+    del runner, f32
+    torch.cuda.empty_cache()
+
+
+def phase_slice21() -> None:
+    """Phases 42-45 in one temporary directory, each timed."""
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_pretrain_vqa_") as tmp:
+        timed("42 pretrain steps", phase_pretrain_steps)
+        pretrained = timed("43 pretrain CLI", phase_pretrain_cli, tmp)
+        timed("44 vqa CLI", phase_vqa_cli, tmp, pretrained)
+        timed("45 nlvr2", phase_nlvr2, tmp)
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -4448,6 +4834,7 @@ def main() -> None:
         timed("32-34 strategies and frcnn", phase_strategies, keep)
         timed("35-36 new strategies", phase_new_strategies)
         timed("37-41 weight model, distill, verifier, compute_param", phase_slice19)
+        timed("42-45 pretraining, VQA and NLVR2", phase_slice21)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")

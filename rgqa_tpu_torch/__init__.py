@@ -14,7 +14,9 @@ inference with MSP rejection (slice 3) and fine-tuning (slice 4), the
 kernel experiments (slice 5, ``experiments/``), ViLT beyond 256 tokens
 (slice 6) and the rejection scorers (slice 10, ``scorers/``: energy,
 ODIN, Mahalanobis, MC-dropout, branched, ensembles, a calibrated
-threshold).  Every attention call
+threshold); since then every path of the JAX package's GQA runner and
+CLIs, and (slice 21) LXMERT pretraining, the VQA task and NLVR2.  Every
+attention call
 runs through hand-written Hopper kernels in ``csrc/``: the forward (short
 and long streams), its backward (both), and the dropout forward and
 backward; the experiments run four more (dual, cat, headfold, epilogue).

@@ -44,6 +44,12 @@ and ``--loadLXMERTQA`` read such a file into ``LxmertForGQA``
 (:func:`load_lxmert_pretrained`, :func:`load_lxmert_qa`) through the
 same pretraining key map.
 
+The NLVR2 model (``models/nlvr2.py``) keeps LXMERT's encoder names and
+its head ``fc1`` / ``ln`` / ``fc2`` (the flax tree's); its ``.pth`` is the
+port's own layout after the reference NLVR2 model's names
+(:func:`nlvr2_key_map`: ``lxrt_encoder.model.bert.*`` and
+``logit_fc.{0,2,3}``), which the JAX package never reads.
+
 A CLIP tower trained by ``--update_weight_model`` is exported as an HF
 checkpoint directory (:func:`save_clip_dir`): the source directory's
 ``config.json`` and tokenizer files beside ``pytorch_model.bin`` in HF's
@@ -77,7 +83,7 @@ from rgqa_tpu_torch.checkpoint.torch_import import (
     vilt_key_map,
 )
 
-__all__ = ["port_key", "from_jax_params", "load_reference_pth", "to_reference_state_dict",
+__all__ = ["port_key", "from_jax_params", "nlvr2_key_map", "load_reference_pth", "to_reference_state_dict",
            "load_clip_state_dict", "save_clip_dir", "save_clip_state", "load_clip_state",
            "load_lxmert_pretrained", "load_lxmert_qa"]
 
@@ -98,6 +104,19 @@ _RENAMED = {(f"gru_{w}_{g}",): f"gru.{'weight' if w[0] == 'w' else 'bias'}_{g}_l
 _CONV = "#conv"  # vilt_key_map's and clip_key_map's marker on the patch-conv weight
 _TIED_DECODER = "cls.predictions.decoder.weight"  # model_LXRT.pth's copy of the word table
 _QKV = re.compile(r"^(transformer\.blocks\.\d+\.attn\.)qkv\.(weight|bias)$")
+# NLVR2's head (nlvr2_model.py:26-31): logit_fc.0 / .2 / .3 are the flax
+# tree's fc1 / ln / fc2, where the GQA head's are answer_head.*.
+_NLVR2_HEAD = {"dense": "fc1", "ln": "ln", "logits": "fc2"}
+
+
+def nlvr2_key_map(l_layers: int = 9, x_layers: int = 5, r_layers: int = 5) -> list[tuple[str, tuple, bool]]:
+    """The NLVR2 model's key map: LXMERT's encoder (``bert.*``, written
+    under ``lxrt_encoder.model.``) and the head as the reference
+    ``logit_fc.{0,2,3}``, in the flax tree ``fc1`` / ``ln`` / ``fc2``.  The
+    ``.pth`` layout is the port's own after the reference NLVR2 model's
+    names: the JAX package reads no NLVR2 ``.pth``."""
+    return [(tkey, (_NLVR2_HEAD[fpath[1]], *fpath[2:]) if fpath[0] == "answer_head" else fpath, transpose)
+            for tkey, fpath, transpose in lxmert_key_map(l_layers, x_layers, r_layers)]
 
 
 def port_key(fpath: tuple) -> str:
@@ -134,7 +153,7 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
         backbone = ("vilt" if "cls_token" in top else "uniter" if "uniter" in top
                     else "butd" if "gru_w_ih" in top else "caps" if "match_head" in top
                     else "clip" if "vision_model" in top else "lxmert_pretrain" if "mlm_head" in top
-                    else "lxmert")
+                    else "nlvr2" if "fc1" in top else "lxmert")
     if backbone == "clip":
         return backbone, clip_key_map(_count({p[1] for p in flat if p[0] == "vision_model"}, "layers"),
                                       _count({p[1] for p in flat if p[0] == "text_model"}, "layers"))
@@ -142,6 +161,9 @@ def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
         names = {p[1] for p in flat if len(p) > 1 and p[0] == "lxmert"}
         return backbone, lxmert_pretrain_key_map(
             _count(names, "lang"), _count(names, "x"), _count(names, "visn"))
+    if backbone == "nlvr2":
+        names = {p[1] for p in flat if len(p) > 1 and p[0] == "lxmert"}
+        return backbone, nlvr2_key_map(_count(names, "lang"), _count(names, "x"), _count(names, "visn"))
     if backbone == "butd":
         return backbone, butd_key_map(branched=("conf_fc1", "v") in flat)
     if backbone == "caps":
@@ -178,7 +200,7 @@ def _port_name(backbone: str, tkey: str, fpath: tuple) -> str:
 
 def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str, torch.Tensor]:
     """A ``LxmertForGQA``, ``UniterForGQA``, ``ViltForGQA``, ``ButdForGQA``,
-    ``CaptionMatcher``, ``ClipModel`` or ``LxmertPretraining`` flax param
+    ``CaptionMatcher``, ``ClipModel``, ``LxmertPretraining`` or ``Nlvr2Model`` flax param
     tree (nested dicts of numpy or jax arrays; ``backbone`` None reads
     which off the tree; ``"clip"`` and ``"lxmert_pretrain"`` name the last
     two) -> the port's f32 ``state_dict``.  Raises on a missing parameter
@@ -227,9 +249,11 @@ def _reference_pairs(backbone: str, l_layers: int, x_layers: int, r_layers: int,
         for tkey, fpath, _ in lxmert_pretrain_key_map(l_layers, x_layers, r_layers):
             yield tkey, _port_name(backbone, tkey, fpath)
         return
-    if backbone != "lxmert":
+    if backbone not in ("lxmert", "nlvr2"):
         raise NotImplementedError(f"backbone {backbone!r} is not ported yet")
-    for tkey, fpath, _ in lxmert_key_map(l_layers, x_layers, r_layers, branched=branched):
+    key_map = (nlvr2_key_map(l_layers, x_layers, r_layers) if backbone == "nlvr2"
+               else lxmert_key_map(l_layers, x_layers, r_layers, branched=branched))
+    for tkey, fpath, _ in key_map:
         rkey = tkey if tkey.startswith(_REF_TOP_LEVEL) else _REF_ENCODER_PREFIX + tkey
         yield rkey, port_key(fpath)
 
@@ -263,8 +287,9 @@ def to_reference_state_dict(
     GQA-BUTD, with ``conf_classifier.*`` when ``sd`` holds the confidence
     head and each ``weight_g`` 0-d; the trained GQABERT matcher,
     ``encoder.*`` + ``logit_fc.*``; GQAViLT with each block's Q/K/V fused into
-    ``attn.qkv``; or, for ``"lxmert_pretrain"``, a ``model_LXRT.pth`` with
-    its tied decoder weight): ``torch.save`` it to hand the weights to the
+    ``attn.qkv``; for ``"lxmert_pretrain"``, a ``model_LXRT.pth`` with
+    its tied decoder weight; for ``"nlvr2"``, :func:`nlvr2_key_map`'s
+    names): ``torch.save`` it to hand the weights to the
     reference code, to the JAX package's importer, or to ``--load``
     (``--loadLXMERT``).
     ``--branched_layer``'s heads have no reference keys and are left out."""

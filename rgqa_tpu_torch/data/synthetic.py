@@ -25,9 +25,9 @@ The images are square, so every rect is the whole image in every mode.
 ``objects_vocab.txt`` (the FRCNN coverage scorer's detector classes:
 the lexicon's object names, then ``thing0000`` ... up to 1600 rows) and
 ``image2caps.json`` (the caption matcher's captions, one per image) are
-written as by the JAX package.  Left out: the VQA generator, which the
-port does not read yet; it draws nothing, so leaving it out changes no
-array.
+written as by the JAX package.  :func:`make_synthetic_vqa`, the VQA-v2
+tree (integer question ids, soft scores, no images), is the JAX
+function's source unchanged.
 
 Questions are template-generated over a small object/attribute lexicon;
 each image's "dominant answer" dimension is boosted in its features, so
@@ -48,7 +48,8 @@ import numpy as np
 
 from rgqa_tpu_torch.data.tokenizer import PAD, UNK, CLS, SEP, MASK
 
-__all__ = ["make_synthetic_gqa", "make_synthetic_pixel_pack", "SyntheticSpec", "BASE_IMAGES"]
+__all__ = ["make_synthetic_gqa", "make_synthetic_vqa", "make_synthetic_pixel_pack", "SyntheticSpec",
+           "BASE_IMAGES"]
 
 # The 32 x 32 base images, (n_images, 32, 32, 3) uint8, under the root.
 BASE_IMAGES = "synthetic_images_u8.npy"
@@ -338,6 +339,126 @@ def make_synthetic_pixel_pack(root: str, size: int = 384, mode: Optional[str] = 
         out_dir, os.path.join(root, "images"), img_ids, pixels, rects, size=size, mode=mode,
         transform=transform,
     )
+
+
+def make_synthetic_vqa(root: str, spec: Optional[SyntheticSpec] = None) -> dict:
+    """Write a synthetic VQA-v2-format tree under ``root``.
+
+    Mirrors the reference's on-disk contract (``src/tasks/vqa_data.py``):
+
+    - ``<split>.json`` rows ``{answer_type, img_id, label: {ans: score},
+      question_id: int, question_type, sent}`` — note **integer**
+      question ids and 10-annotator soft scores in {0.3, 0.6, 0.9, 1.0}
+      (``vqa_data.py:34-45``); the ``test`` split carries no labels
+      (``vqa_data.py:143-150``);
+    - ``trainval_ans2label.json`` / ``trainval_label2ans.json``;
+    - the same packed-feature layout as GQA (MSCOCO obj36 in the
+      reference, ``vqa_data.py:75-80``) and a WordPiece ``vocab.txt``.
+    """
+    spec = spec or SyntheticSpec()
+    rng = np.random.default_rng(spec.seed + 7)
+    os.makedirs(root, exist_ok=True)
+
+    img_ids = [f"COCO_synth_{i:012d}" for i in range(spec.n_images)]
+    answers = _answers()
+    ans2label = {a: i for i, a in enumerate(answers)}
+    dominant = rng.integers(0, len(answers), spec.n_images)
+    img2answer = [answers[d] for d in dominant]
+    qtypes = ["what is the", "is there a", "how many"]
+
+    def vqa_rows(n, prefix_base, *, with_labels=True):
+        rows = []
+        for i in range(n):
+            img_idx = int(rng.integers(len(img_ids)))
+            obj = _OBJECTS[rng.integers(len(_OBJECTS))]
+            attr = _ATTRIBUTES[rng.integers(len(_ATTRIBUTES))]
+            tmpl = _TEMPLATES[rng.integers(len(_TEMPLATES))]
+            row = {
+                "answer_type": "other",
+                "img_id": img_ids[img_idx],
+                "question_id": prefix_base + i,
+                "question_type": qtypes[int(rng.integers(len(qtypes)))],
+                "sent": tmpl.format(obj=obj, attr=attr),
+            }
+            if with_labels:
+                # Annotator agreement: dominant answer near 1.0, sometimes
+                # a runner-up at a lower soft score.
+                label = {img2answer[img_idx]: float(rng.choice([0.9, 1.0]))}
+                if rng.random() < 0.3:
+                    alt = answers[int(rng.integers(len(answers)))]
+                    if alt not in label:
+                        label[alt] = float(rng.choice([0.3, 0.6]))
+                row["label"] = label
+            rows.append(row)
+        return rows
+
+    splits = {
+        "train": vqa_rows(spec.n_train, 1_000_000),
+        "minival": vqa_rows(spec.n_valid, 2_000_000),
+        "nominival": vqa_rows(spec.n_valid, 3_000_000),
+        "test": vqa_rows(spec.n_testdev, 4_000_000, with_labels=False),
+    }
+    for name, rows in splits.items():
+        with open(os.path.join(root, f"{name}.json"), "w") as f:
+            json.dump(rows, f)
+    with open(os.path.join(root, "trainval_ans2label.json"), "w") as f:
+        json.dump(ans2label, f)
+    with open(os.path.join(root, "trainval_label2ans.json"), "w") as f:
+        json.dump(answers, f)
+
+    # Feature pack: same learnable dominant-dimension signal as GQA.
+    feat_dir = os.path.join(root, "features")
+    os.makedirs(feat_dir, exist_ok=True)
+    n, k, d = spec.n_images, spec.num_boxes, spec.feat_dim
+    feats = rng.standard_normal((n, k, d), dtype=np.float32) * 0.1
+    feats[np.arange(n), :, dominant] += 2.0
+    boxes = np.zeros((n, k, 4), np.float32)
+    x1 = rng.random((n, k), dtype=np.float32) * 400
+    y1 = rng.random((n, k), dtype=np.float32) * 400
+    boxes[..., 0] = x1
+    boxes[..., 1] = y1
+    boxes[..., 2] = x1 + 10 + rng.random((n, k), dtype=np.float32) * 100
+    boxes[..., 3] = y1 + 10 + rng.random((n, k), dtype=np.float32) * 100
+    arrays = {
+        "features": feats,
+        "boxes": boxes,
+        "objects_id": rng.integers(0, 1600, (n, k)).astype(np.int64),
+        "objects_conf": rng.random((n, k), dtype=np.float32),
+        "attrs_id": rng.integers(0, 400, (n, k)).astype(np.int64),
+        "attrs_conf": rng.random((n, k), dtype=np.float32),
+        "sizes": np.full((n, 2), 512, np.int32),
+    }
+    for name, arr in arrays.items():
+        np.save(os.path.join(feat_dir, f"{name}.npy"), arr)
+    with open(os.path.join(feat_dir, "img_ids.json"), "w") as f:
+        json.dump(img_ids, f)
+
+    words = sorted(
+        set(
+            w
+            for tmpl in _TEMPLATES
+            for w in tmpl.replace("{obj}", "").replace("{attr}", "").split()
+        )
+        | set(_OBJECTS)
+        | set(_ATTRIBUTES)
+    )
+    vocab_path = os.path.join(root, "vocab.txt")
+    with open(vocab_path, "w") as f:
+        for tok in [PAD, UNK, CLS, SEP, MASK]:
+            f.write(tok + "\n")
+        for ch in sorted(set("".join(words))):
+            f.write(ch + "\n")
+            f.write("##" + ch + "\n")
+        for w in words:
+            f.write(w + "\n")
+
+    return {
+        "root": root,
+        "features": feat_dir,
+        "vocab": vocab_path,
+        "splits": sorted(splits),
+        "num_answers": len(answers),
+    }
 
 
 def random_obj_rows(boxes, *, feat_dim: int = 2048, seed: int = 0):

@@ -80,7 +80,7 @@ pack like the eval splits.  Randaug needs PIL and the JPEGs; without
 either the runner raises, naming ``--no_randaug`` (the machine with the
 card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
-Refused by flag name (:func:`_check_ported`): chunked dispatch
+Refused by flag name (:func:`check_ported`): chunked dispatch
 (``--train_chunk`` / ``--eval_chunk``), ``--feed_int8``, orbax inputs
 (reading them needs jax), and where the JAX package fails:
 ``--strategy adv`` off LXMERT and the min-max strategies on the caption
@@ -140,14 +140,14 @@ from rgqa_tpu_torch.train.optimizer import OptaxAdam, make_optimizer
 from rgqa_tpu_torch.train.state import load_train_state, save_reference_pth, save_train_state
 from rgqa_tpu_torch.train.step import make_train_step, make_weighted_clip_train_step
 
-__all__ = ["GQARunner"]
+__all__ = ["GQARunner", "check_ported"]
 
 
 # The dual-loader min-max strategies (train_minmax).
 MINMAX = ("resampling", "poem", "woods")
 
 
-def _check_ported(cfg: RunConfig, *, train: bool) -> None:
+def check_ported(cfg: RunConfig, *, train: bool, extra: Optional[dict] = None) -> None:
     """Refuse, by flag, what the port does not run: chunked dispatch (not
     to port: one step a launch sequence here), the int8 feed and orbax
     inputs (reading orbax needs jax); and where the JAX package fails:
@@ -155,7 +155,9 @@ def _check_ported(cfg: RunConfig, *, train: bool) -> None:
     min-max strategies on the caption matcher (its one logit does not
     broadcast with the answer targets in JAX ``train_minmax``); and
     ``--scorer match`` without ``--load``, whose answerer would start
-    from the scorer's checkpoint."""
+    from the scorer's checkpoint.  ``extra`` maps a caller's own refusals
+    (a flag's name) to whether they apply; the pretraining, VQA and NLVR2
+    runners share these checks."""
     m, d, t = cfg.model, cfg.data, cfg.train
     unported = {
         "--feed_int8": d.feed_int8,
@@ -182,6 +184,7 @@ def _check_ported(cfg: RunConfig, *, train: bool) -> None:
         unported[f"{flag} an orbax snapshot directory (reading orbax needs jax; give the .pth)"] = (
             bool(path) and os.path.isdir(path) and m.backbone == "lxmert"
         )
+    unported.update(extra or {})
     named = [flag for flag, used in unported.items() if used]
     if named:
         raise NotImplementedError(f"not ported yet: {', '.join(named)}")
@@ -194,7 +197,7 @@ class GQARunner(ScoringMixin):
         self, cfg: RunConfig, *, init_train: bool = True, f32_weights: bool = False,
         device: Optional[torch.device | str] = None,
     ):
-        _check_ported(cfg, train=init_train)
+        check_ported(cfg, train=init_train)
         self.cfg = cfg
         self.device = resolve_device(device)
         data = cfg.data

@@ -11,6 +11,8 @@ matcher or CLIP forward or training step goes on one CUDA card.
         --update_weight_model [--fp32] [--batch 32] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
         [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --pretrain [--batch 256] [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --vqa [--batch 32] [--out FILE.json]
 
 Builds ``LxmertForGQA`` (or, with ``--backbone uniter``, UNITER-base over
 its 56-token stream, or with ``--backbone vilt``, ViLT-B/32 with
@@ -54,8 +56,14 @@ its routes are ``kernel`` and ``plain``.  With
 (bf16 serving weights), kernels and plain versions: msp, energy, ODIN
 (T 1e5, noise 1e-4), Mahalanobis un-noised and noised (1e-2; the
 estimator fitted on four batches of pooled features with one-hot
-targets over 16 answers) and MC-dropout (seeds 0-4, dropout 0.1).  For
-each run:
+targets over 16 answers) and MC-dropout (seeds 0-4, dropout 0.1).
+``--pretrain`` runs the LXMERT pretraining step (``LxmertPretraining``
+with the reference's 9500-answer QA head, all six tasks, one set of
+host-drawn masks with BERT's special ids; batch 256, as
+``scripts/lxmert/train/pretrain.sh``) and ``--vqa`` the VQA fine-tuning
+step (LXMERT with VQA v2's 3129-answer head, BCE over soft targets, no
+RP; batch 32, as ``scripts/vqa/train/vanilla.sh``), each at dropout 0.1
+and 0, kernels and plain.  For each run:
 
 - wall per forward: the best of ``--repeats`` means over ``--iters``
   forwards, synchronised at both ends, for every run before the first
@@ -354,6 +362,88 @@ def _train_cases(sizes, backbone: str, strategy: dict = None) -> dict:
     return cases
 
 
+PRETRAIN_ANSWERS = 9500  # the reference pretraining's QA head
+VQA_ANSWERS = 3129  # VQA v2's answer vocabulary in the reference
+BERT_SPECIALS, BERT_MASK = (0, 100, 101, 102, 103), 103  # [PAD] [UNK] [CLS] [SEP] [MASK] in BERT's vocabulary
+
+
+def _pretrain_cases(sizes) -> dict:
+    """{(batch, "dropout d kernels" | "dropout d plain"): one pretraining
+    step} on full-width ``LxmertPretraining`` (f32 masters, bf16 compute),
+    all six tasks, one set of masks per batch size."""
+    import dataclasses
+
+    import numpy as np
+
+    from rgqa_tpu_torch.models.lxmert import LxmertPretraining
+    from rgqa_tpu_torch.models.zoo import init_weights
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.pretrain import draw_pretrain_masks
+    from rgqa_tpu_torch.pretrain.trainer import ALL_TASKS, make_pretrain_step
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+
+    base = default_config()
+    cases = {}
+    for dropout in (0.1, 0.0):
+        enc = dataclasses.replace(base.encoder, hidden_dropout=dropout, attention_dropout=dropout)
+        with torch.device("cuda"):
+            model = LxmertPretraining(enc, PRETRAIN_ANSWERS, dtype=torch.bfloat16)
+        init_weights(model, torch.Generator(device="cuda").manual_seed(0))
+        opt = make_optimizer(OptimConfig(), model.parameters(), t_total=10**6)
+        rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
+                         host=torch.Generator().manual_seed(1))
+        for size in sizes:
+            batch = example_batch(base, size, seed=0)
+            rows = np.random.default_rng(1)
+            batch.update(obj_id=rows.integers(0, 1600, (size, 36)).astype(np.int32),
+                         attr_id=rows.integers(0, 400, (size, 36)).astype(np.int32),
+                         ans=rows.integers(-1, PRETRAIN_ANSWERS, size).astype(np.int32))
+            batch = to_device(batch, "cuda")
+            draws = draw_pretrain_masks(batch, ALL_TASKS, vocab_size=enc.vocab_size,
+                                        generator=torch.Generator().manual_seed(2))
+            for fused, route in ((None, "kernels"), (False, "plain")):
+                step, _ = make_pretrain_step(model, opt, mask_id=BERT_MASK, special_ids=BERT_SPECIALS, rng=rng,
+                                             use_fused=fused)
+                cases[(size, f"dropout {dropout} {route}")] = functools.partial(step, batch, draws)
+    return cases
+
+
+def _vqa_cases(sizes) -> dict:
+    """{(batch, "dropout d kernels" | "dropout d plain"): one VQA step}:
+    full-width LXMERT over ``VQA_ANSWERS`` answers (f32 masters, bf16
+    compute), BCE x answers over soft targets (two answers a row, scores
+    1.0 and 0.3), no RP."""
+    import dataclasses
+
+    import numpy as np
+
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.train.optimizer import make_optimizer
+    from rgqa_tpu_torch.train.step import make_train_step
+
+    base = dataclasses.replace(default_config(), num_answers=VQA_ANSWERS)
+    cases = {}
+    for dropout in (0.1, 0.0):
+        cfg = dataclasses.replace(base, encoder=dataclasses.replace(
+            base.encoder, hidden_dropout=dropout, attention_dropout=dropout))
+        model, forward = build_model(cfg, use_bf16=True, device="cuda", train=True,
+                                     generator=torch.Generator(device="cuda").manual_seed(0))
+        opt = make_optimizer(OptimConfig(), model.parameters(), t_total=10**6)
+        rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
+                         host=torch.Generator().manual_seed(1))
+        for size in sizes:
+            batch = example_batch(cfg, size, seed=0)
+            target = np.zeros((size, VQA_ANSWERS), np.float32)
+            target[np.arange(size), np.arange(size) % VQA_ANSWERS] = 1.0
+            target[np.arange(size), (np.arange(size) + 7) % VQA_ANSWERS] = 0.3
+            batch = to_device(dict(batch, target=target), "cuda")
+            for fused in (None, False):
+                step = make_train_step(forward, opt, rng=rng, use_fused=fused)
+                cases[(size, f"dropout {dropout} {'kernels' if fused is None else 'plain'}")] = functools.partial(
+                    step, batch)
+    return cases
+
+
 def _scorer_cases(sizes) -> dict:
     """{(batch, "<scorer> kernels" | "<scorer> plain"): one scorer call}
     on one full-width LXMERT with bf16 serving weights."""
@@ -416,6 +506,8 @@ def main(argv=None) -> list:
                     default="lxmert")
     ap.add_argument("--train", action="store_true", help="profile training steps")
     ap.add_argument("--scorers", action="store_true", help="profile the rejection scorers (LXMERT)")
+    ap.add_argument("--pretrain", action="store_true", help="profile the LXMERT pretraining step")
+    ap.add_argument("--vqa", action="store_true", help="profile the VQA fine-tuning step")
     ap.add_argument("--mixup_mode", default=None, help="with --train: the mixup / TreeMix step, no RP")
     ap.add_argument("--mixup_beta", type=float, default=1.0)
     ap.add_argument("--branched", action="store_true", help="with --train: the branched loss, no RP")
@@ -448,6 +540,10 @@ def main(argv=None) -> list:
                         unit="step")
     if args.scorers:
         return _profile(_scorer_cases(args.batch or [256]), args, smi, args.out, unit="scorer call")
+    if args.pretrain:
+        return _profile(_pretrain_cases(args.batch or [256]), args, smi, args.out, unit="step")
+    if args.vqa:
+        return _profile(_vqa_cases(args.batch or [32]), args, smi, args.out, unit="step")
 
     if args.backbone == "clip":
         with torch.inference_mode():

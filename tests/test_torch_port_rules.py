@@ -7,16 +7,18 @@
   the port and run the LXMERT and ViLT train and evaluate CLIs, the
   UNITER evaluate CLI, ``--scorer frcnn``, a ``--mixup_mode mixup_v1``
   training, the serve
-  and prepare-data CLIs and the three experiment entry points with all of
-  them blocked: the machine with the card has none of them).
+  and prepare-data CLIs, the three experiment entry points and, since
+  slice 21, the pretraining and VQA CLIs with all of them blocked: the
+  machine with the card has none of them).
 - Every CUDA source under ``csrc/`` is in the build's ``SOURCES``, and
   ``chip_smoke.py``'s ``KERNELS`` names every kernel wrapper of
   ``ops.attention`` and of ``rgqa_tpu_torch.experiments``, with its
   source and the TPU kernel it replaces.
 - The entry points run on the card unless asked for the CPU: without a
-  card the runner, ``build_model`` (LXMERT, UNITER and ViLT) and the
-  train, evaluate and serve CLIs raise when not given the CPU
-  (prepare-data runs no device code).
+  card the runner, ``build_model`` (LXMERT, UNITER and ViLT), the
+  train, evaluate and serve CLIs, and since slice 21 the pretraining,
+  VQA and NLVR2 runners and the pretraining and VQA CLIs raise when not
+  given the CPU (prepare-data runs no device code).
 - The port's copies of framework-free JAX-package modules are held to
   their originals on the same inputs: the config parser (equal
   ``dataclasses.asdict``), the metrics (equal dicts, byte-equal dumps),
@@ -31,7 +33,9 @@
   ``tests/test_torch_uniter_slice.py``); since slice 19 the
   distillation's pure functions (``distill.py``), the verifier's
   statement rules (``verifier.py``) and ``metrics/compute_accfpr.py``,
-  source for source.
+  source for source; since slice 21 ``make_synthetic_vqa`` and
+  ``VQAEvaluator``, source for source (the files the generator writes
+  are compared in ``tests/test_torch_vqa.py``).
 - The distillation CLI and ``--strategy weight --update_weight_model``
   run with the JAX package blocked.
 """
@@ -184,6 +188,26 @@ def test_weight_model_train_runs_with_jax_blocked(tmp_path):
         assert os.path.isfile(os.path.join(out, name)), name
 
 
+def test_pretrain_runs_with_jax_blocked(tmp_path):
+    root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
+    res = _run_jax_free("cli.pretrain", ["--synthetic", "--data_root", root, "--epochs", "1", "--output", out,
+                                         *_TINY_LXMERT], tmp_path)
+    assert {"rgqa_tpu_torch.pretrain.trainer", "rgqa_tpu_torch.cli.pretrain"} <= set(res["modules"])
+    assert res["keys"] == ["eval", "train"] and res["out"][-1].startswith('{"eval_loss": [')
+    for name in ("BEST_EVAL_LOSS_LXRT.pth", "Epoch00_LXRT.pth"):
+        assert os.path.isfile(os.path.join(out, name)), name
+
+
+def test_vqa_runs_with_jax_blocked(tmp_path):
+    root, out = str(tmp_path / "vqa"), str(tmp_path / "out")
+    res = _run_jax_free("cli.vqa", ["--synthetic", "--data_root", root, "--train", "train,nominival", "--valid",
+                                    "minival", "--epochs", "1", "--output", out, *_TINY_LXMERT], tmp_path)
+    assert {"rgqa_tpu_torch.vqa_task", "rgqa_tpu_torch.cli.vqa"} <= set(res["modules"])
+    assert res["keys"] == ["loss", "train", "valid"]
+    for name in ("BEST.pth", "LAST.pth"):
+        assert os.path.isfile(os.path.join(out, name)), name
+
+
 def test_uniter_evaluate_runs_with_jax_blocked(tmp_path):
     root, out = str(tmp_path / "gqa"), str(tmp_path / "out")
     res = _run_jax_free("cli.evaluate", ["--synthetic", "--data_root", root, "--test", "testdev",
@@ -280,9 +304,12 @@ def no_card():
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
-    from rgqa_tpu_torch.cli import distill, evaluate, serve, train
+    from rgqa_tpu_torch.cli import distill, evaluate, pretrain, serve, train, vqa
     from rgqa_tpu_torch.models.zoo import build_model, default_config
+    from rgqa_tpu_torch.nlvr2_task import Nlvr2Runner
+    from rgqa_tpu_torch.pretrain.trainer import PretrainRunner
     from rgqa_tpu_torch.runner import GQARunner
+    from rgqa_tpu_torch.vqa_task import VQARunner
 
     cfg, ns = port_config.parse_cli(["--data_root", str(tmp_path / "gqa"), "--synthetic",
                                      "--output", str(tmp_path / "out")])
@@ -304,6 +331,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
                            stdin=io.StringIO(""), stdout=io.StringIO()),
         lambda: distill.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
                               "--output", str(tmp_path / "d")]),
+        lambda: PretrainRunner(cfg),
+        lambda: VQARunner(cfg),
+        lambda: VQARunner(cfg, init_train=False),
+        lambda: Nlvr2Runner(cfg, {"train": []}),
+        lambda: pretrain.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
+                               "--output", str(tmp_path / "p")]),
+        lambda: vqa.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
+                          "--output", str(tmp_path / "v")]),
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             make()
@@ -521,6 +556,16 @@ def test_answer_table_copy_matches_the_original(tmp_path, dsets):
     assert port_table.ANS_CONVERT == jax_table.ANS_CONVERT
     with pytest.raises(FileNotFoundError):
         port_table.AnswerTable(path=str(tmp_path / "missing.json"))
+
+
+@pytest.mark.parametrize("module,name", [("data.synthetic", "make_synthetic_vqa"), ("vqa_task", "VQAEvaluator")],
+                         ids=lambda x: x)
+def test_slice_21_copies_match_their_originals(module, name):
+    import importlib
+    import inspect
+
+    mine, theirs = (importlib.import_module(f"{pkg}.{module}") for pkg in ("rgqa_tpu_torch", "rgqa_tpu"))
+    assert inspect.getsource(getattr(mine, name)) == inspect.getsource(getattr(theirs, name))
 
 
 # The slice-19 copies: each function's source equals its original's.

@@ -143,8 +143,9 @@ def test_profile_kernel_classes(name, cls):
 
 
 @pytest.mark.parametrize("flags", [[], ["--train"], ["--scorers"],
-                                   ["--train", "--strategy", "weight", "--update_weight_model"]],
-                         ids=["forward", "train", "scorers", "weight_model"])
+                                   ["--train", "--strategy", "weight", "--update_weight_model"],
+                                   ["--pretrain"], ["--vqa"]],
+                         ids=["forward", "train", "scorers", "weight_model", "pretrain", "vqa"])
 def test_profile_forward_needs_a_card(flags):
     if __import__("torch").cuda.is_available():
         pytest.skip("a card is present: the profile would run")
