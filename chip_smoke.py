@@ -4682,24 +4682,6 @@ def phase_vqa_cli(tmp: str, pretrained: str) -> None:
     _vqa_dump(os.path.join(test_out, "test_predict.json"), n["test"])
 
 
-def _nlvr2_rows(root: str, split: str, n: int, seed: int) -> list:
-    """``n`` NLVR2 pairs over the synthetic root's images, the sentences
-    of its ``split`` questions, labels from a seeded generator."""
-    import numpy as np
-
-    with open(os.path.join(root, f"{split}.json")) as f:
-        questions = json.load(f)
-    with open(os.path.join(root, "features", "img_ids.json")) as f:
-        img_ids = json.load(f)
-    rng = np.random.default_rng(seed)
-    rows = []
-    for i in range(n):
-        a, b = rng.choice(len(img_ids), 2, replace=False)
-        rows.append({"uid": f"{split}-{i:04d}", "img0": img_ids[a], "img1": img_ids[b],
-                     "sent": questions[i % len(questions)]["sent"], "label": int(rng.integers(2))})
-    return rows
-
-
 def phase_nlvr2(tmp: str) -> None:
     """Phase 45: ``Nlvr2Runner`` at full width (LXMERT 9 / 5 / 5 x 768 over
     two images a sentence, bf16 over f32 weights), batch 32 (64 encoder
@@ -4713,12 +4695,13 @@ def phase_nlvr2(tmp: str) -> None:
     from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
     from rgqa_tpu_torch.models.nlvr2 import Nlvr2Model
     from rgqa_tpu_torch.nlvr2_task import Nlvr2Runner
+    from rgqa_tpu_torch.tools.ddp_check import nlvr2_rows
 
     phase = "nlvr2"
     root = os.path.join(tmp, "gqa")
     if not os.path.isdir(root):
         make_synthetic_gqa(root)
-    splits = {"train": _nlvr2_rows(root, "train", 128, 0), "valid": _nlvr2_rows(root, "valid", 64, 1)}
+    splits = {"train": nlvr2_rows(root, "train", 128, 0), "valid": nlvr2_rows(root, "valid", 64, 1)}
     cfg, _ = parse_cli(["--data_root", root, "--batchSize", str(NLVR2_BATCH), "--epochs", "1", "--lr", "5e-5",
                         "--output", os.path.join(tmp, "nlvr2")])  # the reference NLVR2 fine-tune's lr
     runner = Nlvr2Runner(cfg, splits)
@@ -4777,6 +4760,268 @@ def phase_slice21() -> None:
         timed("45 nlvr2", phase_nlvr2, tmp)
 
 
+# Data parallel (phases 46-48).  The card machine has one card and NCCL
+# takes one rank a card: (a) the train CLI under torchrun at world 1 on
+# NCCL, (b)-(c) two gloo ranks on cuda:0 through tools/ddp_check.py, each
+# against one process at the same global batch.  The torchrun run and the
+# two ranks start first and run beside this process's one-process runs.
+DP_SPEC = "64,96,32,64"  # the roots' images / train / valid / testdev rows: 3 RP steps of 32, 2 pretraining of 64
+DP_PATHS = "rp,mixup_v1,pretrain,eval_msp,eval_maha,rp_drop"
+NCCL_RTOL = 1e-6  # torchrun at world 1 against one process (or the noise floor of two one-process runs)
+DP_RTOL = 1e-4  # two ranks against one process, f32; also the maha fit's moments
+DP_CONF_TOL = 1e-5  # the evaluate paths' confidences, two ranks against one process
+DP_MAHA_FLOOR = 2.0  # maha's confidences: ranks within this x one process's own batch-16-vs-32 gap
+RP_STEP = _launches(fused_attention=34, fused_attention_bwd=BWD_PER_STEP)  # dropout 0, per rank
+
+
+def _train_cli_rank(argv: list) -> None:
+    """Child mode of phase 46 (``chip_smoke.py --train-cli-rank ARGV``, run
+    by torchrun): the train CLI's ``main`` with every step recorded; one
+    ``TRAIN_CLI {json}`` line."""
+    import torch
+    import torch.distributed as dist
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.tools.ddp_check import Recorder, recording
+
+    rec = Recorder(torch.device("cuda"))
+    with recording(rec):
+        history = train_cli.main(argv)
+    print("TRAIN_CLI " + json.dumps({"steps": rec.steps, "history": history, "world": dist.get_world_size(),
+                                     "backend": str(dist.get_backend())}), flush=True)
+    dist.destroy_process_group()
+
+
+def _recorded_cli(argv: list) -> dict:
+    """``cli.train.main(argv)`` in this process, every step recorded."""
+    import torch
+    from rgqa_tpu_torch.cli import train as train_cli
+    from rgqa_tpu_torch.tools.ddp_check import Recorder, recording
+
+    rec = Recorder(torch.device("cuda"))
+    with recording(rec):
+        history = train_cli.main(argv)
+    return {"steps": rec.steps, "history": history}
+
+
+def _same_counts(got: dict, want: dict) -> bool:
+    """Equal launch counts, a kernel absent from one dict counting 0."""
+    return all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+
+
+def _step_losses(record: dict) -> list:
+    out = []
+    for step in record["steps"]:
+        loss = step["loss"]
+        out.extend(loss.values() if isinstance(loss, dict) else [loss])
+    return out
+
+
+def _max_rel(got, want) -> float:
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
+
+
+def _start_torchrun(tmp: str):
+    """Phase 46's root, its train CLI arguments, and its run under
+    ``python -m torch.distributed.run --nproc_per_node 1`` started (the
+    output to files, read once it ends)."""
+    from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
+    from rgqa_tpu_torch.tools.ddp_check import free_port
+
+    n_images, n_train, n_valid, n_testdev = (int(x) for x in DP_SPEC.split(","))
+    root = os.path.join(tmp, "nccl_gqa")
+    make_synthetic_gqa(root, SyntheticSpec(n_images=n_images, n_train=n_train, n_valid=n_valid,
+                                           n_testdev=n_testdev, seed=3))
+    argv = ["--data_root", root, "--sample_pair", "--epochs", "1", "--batchSize", "32"]
+    out, err = (open(os.path.join(tmp, f"torchrun.{k}"), "w+") for k in ("out", "err"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", "1",
+         "--master_addr", "127.0.0.1", "--master_port", str(free_port()), os.path.abspath(__file__),
+         "--train-cli-rank", *argv, "--output", os.path.join(tmp, "nccl_torchrun")],
+        stdout=out, stderr=err, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+    return argv, proc, (out, err), time.perf_counter()
+
+
+def phase_nccl_world1(tmp: str, started) -> None:
+    """Phase 46: the train CLI at full width (9 / 5 / 5 x 768, 36 x 2048
+    RoIs, bf16), batch 32, one epoch of 3 RP steps at dropout 0.1, under
+    ``python -m torch.distributed.run --nproc_per_node 1`` (NCCL, world 1;
+    ``started`` by :func:`_start_torchrun`) and twice without torchrun in
+    this process: the torchrun run's step losses within ``NCCL_RTOL`` of
+    the first (or of the two one-process runs' own spread, the card's
+    floor, where that is larger), 34 #4 and 32 #5 a step."""
+    phase = "dp-nccl"
+    argv, proc, (out, err), t0 = started
+    n_train = int(DP_SPEC.split(",")[1])
+    try:
+        runs, walls = [], []
+        for i in range(2):
+            t1 = time.perf_counter()
+            runs.append(_recorded_cli([*argv, "--output", os.path.join(tmp, f"nccl_one_{i}")]))
+            walls.append(time.perf_counter() - t1)
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    walls.append(time.perf_counter() - t0)
+    with out, err:
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    line = next((l for l in stdout.splitlines() if l.startswith("TRAIN_CLI ")), None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"{phase}: torchrun exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    ranked = json.loads(line[len("TRAIN_CLI "):])
+    one, again, tr = (_step_losses(r) for r in (*runs, ranked))
+    floor = _max_rel(again, one)
+    gap = _max_rel(tr, one)
+    log(phase, f"step losses, one process: {one}; again: {again} (max rel {floor:.3e}, the floor); torchrun "
+        f"world {ranked['world']} on {ranked['backend']}: {tr} (max rel {gap:.3e}, bound "
+        f"{max(NCCL_RTOL, floor):.1e}); walls {walls[0]:.1f} s, {walls[1]:.1f} s one process, {walls[2]:.1f} s "
+        f"torchrun (the torchrun run and phases 47-48's two ranks beside them)")
+    want = _launches(fused_attention_dropout=34, fused_attention_dropout_bwd=BWD_PER_STEP)
+    for name, record in (("one process", runs[0]), ("torchrun", ranked)):
+        per_step = [step["launches"] for step in record["steps"]]
+        log(phase, f"{name}: launches a step {_shown(per_step[0])}; step times (CUDA events) "
+            f"{[step['ms'] and round(step['ms'], 2) for step in record['steps']]} ms")
+        if len(per_step) != n_train // 32 or not all(_same_counts(l, want) for l in per_step):
+            raise AssertionError(f"{phase}: {name} launched {per_step}, want {want} a step")
+    if ranked["world"] != 1 or ranked["backend"] != "nccl" or len(tr) != len(one):
+        raise AssertionError(f"{phase}: torchrun ran world {ranked['world']} on {ranked['backend']}, {len(tr)} steps")
+    if gap > max(NCCL_RTOL, floor) or not all(math.isfinite(x) for x in tr):
+        raise AssertionError(f"{phase}: torchrun's losses {tr} vs {one}: max rel {gap}")
+
+
+def _moment_gaps(got: str, want: str) -> tuple[bool, float, float, tuple]:
+    """Two fits' moments (``ddp_check``'s ``maha_moments.pt``): whether
+    the counts are equal, the sums' and the second moment's largest
+    difference over their largest entry, and the eigenvalues of the
+    covariance of ``want`` (largest, smallest, the count below 1e-6 of
+    the largest)."""
+    import numpy as np
+    import torch
+
+    (gs, gc, g2), (ws, wc, w2) = (torch.load(p, weights_only=True) for p in (got, want))
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max())
+
+    counts = wc.double().numpy()
+    mean = ws.double().numpy() / np.maximum(counts, 1.0)[:, None]
+    cov = (w2.double().numpy() - (counts[:, None] * mean).T @ mean) / max(counts.sum(), 1.0)
+    ev = np.linalg.eigvalsh(cov)
+    return bool(torch.equal(gc, wc)), rel(gs, ws), rel(g2, w2), (ev[-1], ev[0], int((ev < 1e-6 * ev[-1]).sum()))
+
+
+def phase_two_ranks(tmp: str, argv: list, spawn, t0: float) -> None:
+    """Phases 47-48: two gloo ranks on cuda:0 (``tools/ddp_check.py``, both
+    ranks on the one card; gloo's collectives staged through pinned host
+    memory; ``spawn`` the future of their :func:`ddp_check.launch`,
+    started at ``t0``) against one process at the same global batch, f32,
+    full width, dropout 0: 3 RP and 3 ``mixup_v1`` steps of 32 (16 a
+    rank), 2 pretraining steps of 64, all six tasks; the evaluate CLI
+    with ``--scorer msp`` and ``--scorer maha``; RP at dropout 0.1.
+    Losses within ``DP_RTOL`` (pretraining ``PRETRAIN_LOSS_RTOL``), the
+    dumps' ids and answers equal and the confidences within
+    ``DP_CONF_TOL``; per rank 34 #1 / 32 #3 an RP step and 34 / 34 a
+    pretraining step; at dropout 0.1 the ranks' attention seeds differ and
+    their shifts and batches agree.  Mahalanobis: the fit's moments (the
+    gathered features' sums, counts and second moment) within
+    ``DP_RTOL`` of one process's, the counts equal; its confidences pass
+    through the covariance's inverse, whose small eigenvalues turn the
+    forwards' batch-dependent round-off into ~1e-3, so they are held to
+    ``DP_MAHA_FLOOR`` x the gap between one process scored at the rank's
+    batch, 16, and at 32 (or ``DP_CONF_TOL``)."""
+    import torch
+    from rgqa_tpu_torch.tools import ddp_check
+
+    phase = "dp-ranks"
+    t1 = time.perf_counter()
+    one = ddp_check.run(ddp_check._parser().parse_args([*argv, "--out", os.path.join(tmp, "dp_one")]))
+    one_wall = time.perf_counter() - t1
+    floor_out = os.path.join(tmp, "dp_floor")
+    os.makedirs(os.path.join(floor_out, "rp"))
+    shutil.copy(os.path.join(tmp, "dp_one", "rp", "INIT.pth"), os.path.join(floor_out, "rp", "INIT.pth"))
+    floor_argv = [a if a != DP_PATHS else "eval_maha" for a in argv]
+    floor_argv[floor_argv.index("--batch") + 1] = "16"
+    floor = ddp_check.run(ddp_check._parser().parse_args([*floor_argv, "--out", floor_out]))["eval_maha"]
+    two = [r["paths"] for r in spawn.result()]
+    two_wall = time.perf_counter() - t0
+    log(phase, f"one process {one_wall:.1f} s; two gloo ranks on cuda:0 {two_wall:.1f} s (both ranks' "
+        f"processes, their start included, beside phase 46 and the one-process runs); seconds a path, one "
+        f"process {({k: round(v['seconds'], 1) for k, v in one.items()})}, rank 0 "
+        f"{({k: round(v['seconds'], 1) for k, v in two[0].items()})}")
+    for path, bound, per_step in (("rp", DP_RTOL, RP_STEP), ("mixup_v1", DP_RTOL, RP_STEP),
+                                  ("pretrain", PRETRAIN_LOSS_RTOL, PRETRAIN_LAUNCHES[0.0])):
+        want = _step_losses(one[path])
+        got = [_step_losses(r[path]) for r in two]
+        gap = max(_max_rel(g, want) for g in got)
+        times = {name: [s["ms"] and round(s["ms"], 2) for s in rec["steps"]]
+                 for name, rec in (("one", one[path]), ("rank 0", two[0][path]), ("rank 1", two[1][path]))}
+        launches = [[s["launches"] for s in r[path]["steps"]] for r in two]
+        log(phase, f"{path}: {len(want)} losses, one process {want}; ranks max rel {gap:.3e} (bound {bound}); "
+            f"step times (CUDA events, ms) {times}; launches a step per rank {_shown(launches[0][0])}")
+        if gap > bound or got[0] != got[1] or not all(math.isfinite(x) for x in want):
+            raise AssertionError(f"{phase}: {path} losses {got} vs {want}")
+        if not all(_same_counts(l, per_step) for rank in launches for l in rank):
+            raise AssertionError(f"{phase}: {path} launched {launches}, want {per_step} a step on each rank")
+
+    def rel_gap(a, b) -> float:
+        return max(abs(x[2] - y[2]) / max(abs(y[2]), 1e-12) for x, y in zip(a["scores"], b["scores"]))
+
+    counts_equal, sums_rel, second_rel, (ev_max, ev_min, n_small) = _moment_gaps(
+        two[0]["eval_maha"]["moments"], one["eval_maha"]["moments"])
+    log(phase, f"eval_maha fit: counts equal {counts_equal}; sums max rel {sums_rel:.3e}, second moment "
+        f"{second_rel:.3e} (bound {DP_RTOL}); one process's covariance: eigenvalues {ev_max:.3e} to "
+        f"{ev_min:.3e}, {n_small} below 1e-6 of the largest")
+    if not counts_equal or max(sums_rel, second_rel) > DP_RTOL:
+        raise AssertionError(f"{phase}: eval_maha's fit differs from one process's")
+    floor_rel = rel_gap(floor, one["eval_maha"])
+    for path in ("eval_msp", "eval_maha"):
+        want, got = one[path], two[0][path]
+        same = [row[:2] for row in got["dump"]] == [row[:2] for row in want["dump"]]
+        gap = max(abs(a[2] - b[2]) for a, b in zip(got["scores"], want["scores"]))
+        rel = rel_gap(got, want)
+        bound = DP_CONF_TOL if path == "eval_msp" else max(DP_CONF_TOL, DP_MAHA_FLOOR * floor_rel)
+        dump_gap = max(abs(a[2] - b[2]) for a, b in zip(got["dump"], want["dump"]))
+        log(phase, f"{path}: {len(got['dump'])} rows, ids and answers as one process: {same}; confidences max "
+            f"|d| {gap:.3e} (rel {rel:.3e}; dump {dump_gap:.1e}; bound {bound:.3e}"
+            + (f": one process at batch 16 against 32 rel {floor_rel:.3e}" if path == "eval_maha" else "")
+            + f"); launches rank 0 {_shown(got['launches'])}, one process {_shown(want['launches'])}")
+        if not same or rel > bound or [r[:2] for r in got["scores"]] != [r[:2] for r in want["scores"]]:
+            raise AssertionError(f"{phase}: {path} differs from one process")
+    d0, d1 = two[0]["rp_drop"], two[1]["rp_drop"]
+    log(phase, f"rp at dropout 0.1: shifts {d0['shifts']} / {d1['shifts']}; first seeds {d0['seeds'][:2]} / "
+        f"{d1['seeds'][:2]} ({len(d0['seeds'])} a rank); losses {_step_losses(d0)}")
+    if d0["shifts"] != d1["shifts"] or d0["qids"] != d1["qids"] or any(
+            a == b for a, b in zip(d0["seeds"], d1["seeds"])) or not d0["seeds"]:
+        raise AssertionError(f"{phase}: dropout streams: shifts {d0['shifts']} / {d1['shifts']}, seeds alike")
+    torch.cuda.empty_cache()
+
+
+def phase_slice22() -> None:
+    """Phases 46-48 in one temporary directory: the roots written, then
+    the torchrun run and the two ranks started, and this process's
+    one-process runs of both phases beside them, each phase timed."""
+    import concurrent.futures
+
+    from rgqa_tpu_torch.parallel import SINGLE
+    from rgqa_tpu_torch.tools import ddp_check
+
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_dp_") as tmp:
+        argv = ["--device", "cuda:0", "--full", "--batch", "32", "--spec", DP_SPEC, "--paths", DP_PATHS,
+                "--root", os.path.join(tmp, "dp_roots")]
+        ddp_check._roots(ddp_check._parser().parse_args([*argv, "--out", tmp]), SINGLE)
+        started = _start_torchrun(tmp)
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            spawn = pool.submit(ddp_check.launch, 2, [*argv, "--out", os.path.join(tmp, "dp_two")], timeout=600,
+                                env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+            timed("46 torchrun NCCL world 1", phase_nccl_world1, tmp, started)
+            timed("47-48 two gloo ranks", phase_two_ranks, tmp, argv, spawn, t0)
+
+
 def _reachable_acc(root: str) -> float:
     """The accuracy (the acc-fpr curve's: correct over answerable) of
     answering testdev's most frequent answer to every question."""
@@ -4805,6 +5050,10 @@ def phase_prepare_serve():
 
 def main() -> None:
     t0 = time.perf_counter()
+    if sys.argv[1:2] == ["--train-cli-rank"]:  # a child of phase 46, under torchrun
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _train_cli_rank(sys.argv[2:])
+        return
     kind, smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -4835,6 +5084,7 @@ def main() -> None:
         timed("35-36 new strategies", phase_new_strategies)
         timed("37-41 weight model, distill, verifier, compute_param", phase_slice19)
         timed("42-45 pretraining, VQA and NLVR2", phase_slice21)
+        timed("46-48 data parallel", phase_slice22)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")

@@ -30,6 +30,7 @@ import sys
 
 from rgqa_tpu_torch.config import parse_cli
 from rgqa_tpu_torch.distill import build_distill_split, build_ensemble_distill_split, teacher_pth
+from rgqa_tpu_torch.parallel import refuse_ranks
 from rgqa_tpu_torch.runner import GQARunner
 
 
@@ -47,6 +48,7 @@ def main(argv=None) -> list:
     extra.add_argument("--balance", action="store_true")
     own, rest = extra.parse_known_args(argv)
     cfg, ns = parse_cli(rest)
+    refuse_ranks("the distill CLI")
 
     ensemble = cfg.teacher_path.split(",") if cfg.teacher_path and "," in cfg.teacher_path else None
     if ensemble:

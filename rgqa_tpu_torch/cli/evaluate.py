@@ -40,6 +40,10 @@ the matcher have no confidence head and raise).  The gated scorers
 ``--ans_backbone``, any answerer (default: the detector's backbone, for
 the caption matcher lxmert, as the JAX CLI).
 
+Under N data-parallel ranks (``python -m torch.distributed.run
+--nproc_per_node N -m rgqa_tpu_torch.cli.evaluate ...``) each rank scores
+its rows of every batch; rank 0 writes the dumps and the results.
+
 Example:
     python -m rgqa_tpu_torch.cli.evaluate --synthetic --data_root /tmp/gqa \
         --test testdev --scorer energy --output /tmp/gqa_out
@@ -58,6 +62,7 @@ import os
 
 from rgqa_tpu_torch.config import RunConfig, parse_cli
 from rgqa_tpu_torch.data.dataset import GQADataset
+from rgqa_tpu_torch.parallel import initialize_distributed, on_main
 from rgqa_tpu_torch.runner import GQARunner
 
 ROI_SCORERS = ("odin", "maha")
@@ -128,6 +133,7 @@ def make_runner(cfg: RunConfig, device: str, scorer: str) -> GQARunner:
 
 def main(argv=None) -> dict:
     cfg, device, plan = parse_args(argv)
+    device = initialize_distributed(device) or device
     scorer = plan["scorer"]
     runner = make_runner(cfg, device, scorer)
     answerer = None
@@ -172,10 +178,14 @@ def main(argv=None) -> dict:
         else:
             results = runner.ood_evaluate(encoded, dump=dump)
         all_results[split] = results
-        with open(os.path.join(cfg.output, f"{split}_result.json"), "w") as f:
-            json.dump(results, f, indent=2)
-        print(split, json.dumps(results))
+        on_main(runner.mesh, _write_results, cfg.output, split, results)
     return all_results
+
+
+def _write_results(output: str, split: str, results: dict) -> None:
+    with open(os.path.join(output, f"{split}_result.json"), "w") as f:
+        json.dump(results, f, indent=2)
+    print(split, json.dumps(results))
 
 
 if __name__ == "__main__":

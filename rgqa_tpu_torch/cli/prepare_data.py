@@ -14,7 +14,8 @@ default 384 px; needs PIL), or with ``--pixel_transform clip``
 ``pixels_clip_<size>/`` (the CLIP scorer's rows, default 224 px; no
 ``--pixel_mode``).  It runs no device code, so it takes no
 ``--device``.  Not ported, and refused by name: ``--int8`` (the int8
-feature pack).
+feature pack).  Launched as N ranks (``torchrun``), rank 0 alone writes
+the root; the others return None.
 """
 
 from __future__ import annotations
@@ -62,8 +63,11 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def main(argv=None) -> dict:
-    """Write the data root; returns ``{"images": n, "pixels": n or None}``."""
+    """Write the data root; returns ``{"images": n, "pixels": n or None}``
+    (None on a rank other than 0)."""
     args = parse_args(argv)
+    if int(os.environ.get("RANK", "0") or 0) > 0:
+        return None
     from rgqa_tpu_torch.data.tsv import pack_obj_tsv
 
     os.makedirs(args.out, exist_ok=True)

@@ -14,6 +14,10 @@ last.  ``--wordMaskRate`` / ``--objMaskRate`` other than 0.15 are refused
 Example:
     python -m rgqa_tpu_torch.cli.pretrain --synthetic --data_root /tmp/gqa \
         --epochs 1 --batchSize 32 --lr 1e-4 --output /tmp/gqa_pretrain
+
+Under N data-parallel ranks: ``python -m torch.distributed.run
+--nproc_per_node N -m rgqa_tpu_torch.cli.pretrain ...`` (``--batchSize``
+the global batch).
 """
 
 from __future__ import annotations
@@ -21,11 +25,13 @@ from __future__ import annotations
 import json
 
 from rgqa_tpu_torch.config import parse_cli
+from rgqa_tpu_torch.parallel import initialize_distributed
 from rgqa_tpu_torch.pretrain.trainer import ALL_TASKS, PretrainRunner
 
 
 def main(argv=None) -> dict:
     cfg, ns = parse_cli(argv)
+    device = initialize_distributed(ns.device) or ns.device
     tasks = []
     if ns.task_mask_lm:
         tasks.append("mask_lm")
@@ -35,10 +41,11 @@ def main(argv=None) -> dict:
         tasks.extend(ns.visual_losses.split(","))
     if ns.task_qa:
         tasks.append("qa")
-    runner = PretrainRunner(cfg, tasks=tuple(tasks) or ALL_TASKS, device=ns.device,
+    runner = PretrainRunner(cfg, tasks=tuple(tasks) or ALL_TASKS, device=device,
                             word_mask_rate=ns.word_mask_rate, obj_mask_rate=ns.obj_mask_rate)
     history = runner.train()
-    print(json.dumps({"eval_loss": history["eval"]}))
+    if runner.mesh.is_main:
+        print(json.dumps({"eval_loss": history["eval"]}))
     return history
 
 

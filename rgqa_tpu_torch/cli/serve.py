@@ -67,6 +67,7 @@ import time
 from rgqa_tpu_torch.cli.evaluate import GATED_SCORERS, make_runner, refuse_unported
 from rgqa_tpu_torch.config import parse_cli
 from rgqa_tpu_torch.data.dataset import GQADataset
+from rgqa_tpu_torch.parallel import refuse_ranks
 
 # Questions per scoring wave: batches enough for the feed's prefetch and
 # the lag-1 fetch to reach steady state, few enough to bound latency and
@@ -176,6 +177,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     """Serve ``stdin`` (default ``sys.stdin``) to ``stdout``; returns the
     number of records answered (error records not counted)."""
     cfg, ns = parse_cli(argv)
+    refuse_ranks("the serve CLI")
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
     # --valid defaults to "valid", so --test is checked: the answer

@@ -69,6 +69,13 @@ Examples:
     python -m rgqa_tpu_torch.cli.train --synthetic --data_root /tmp/gqa \
         --strategy weight --update_weight_model --clip_path CLIP_DIR \
         --epochs 1 --batchSize 32 --output /tmp/gqa_weight_model_snap
+
+Data parallel over N ranks (``--batchSize`` stays the global batch; the
+world must divide it)::
+
+    python -m torch.distributed.run --nproc_per_node N -m rgqa_tpu_torch.cli.train ...
+
+one card a rank (NCCL), or with ``--device cpu`` N processes over gloo.
 """
 
 from __future__ import annotations
@@ -76,15 +83,18 @@ from __future__ import annotations
 import json
 
 from rgqa_tpu_torch.config import parse_cli
+from rgqa_tpu_torch.parallel import initialize_distributed
 from rgqa_tpu_torch.runner import GQARunner
 
 
 def main(argv=None) -> dict:
     cfg, ns = parse_cli(argv)
-    runner = GQARunner(cfg, device=ns.device)
+    device = initialize_distributed(ns.device) or ns.device
+    runner = GQARunner(cfg, device=device)
     history = runner.train()
-    print(json.dumps({"final_loss": history["loss"][-1] if history["loss"] else None,
-                      "valid": history["valid"]}))
+    if runner.mesh.is_main:
+        print(json.dumps({"final_loss": history["loss"][-1] if history["loss"] else None,
+                          "valid": history["valid"]}))
     return history
 
 

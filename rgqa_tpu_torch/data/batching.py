@@ -8,7 +8,13 @@ the final partial batch to the batch size (repeat-last-row) and reports
 how many rows are real, as in the JAX package.  ``device_prefetch`` stands in for the JAX feed: on CUDA it
 copies each batch from pinned host memory on a side stream, a few
 batches ahead of the consumer, so the copies overlap the forward.
-Chunked dispatch, the int8 feed and mesh sharding are not ported.
+Chunked dispatch and the int8 feed are not ported.
+
+Under N data-parallel ranks (``mesh``, a :class:`~rgqa_tpu_torch.
+parallel.Mesh`) every rank draws the same global indices from the same
+shuffle generator, pads the global batch as one process would, and
+gathers only its own contiguous rows from the pack: the batch's
+``question_ids`` and ``real`` stay the global batch's.
 """
 
 from __future__ import annotations
@@ -63,17 +69,25 @@ def batch_iterator(
     rng: Optional[np.random.Generator] = None,
     drop_last: bool = False,
     with_target: bool = False,
+    mesh=None,
 ) -> Iterator[Item]:
     """Yield ``(question_ids, host_batch, real_count)``, in dataset order
     or shuffled by ``rng``; a final partial batch is dropped
     (``drop_last``) or padded to ``batch_size``.  ``with_target`` adds
-    the training targets (``EncodedGQA.gather_batch``)."""
+    the training targets (``EncodedGQA.gather_batch``).  With a ``mesh``
+    of several ranks ``host_batch`` holds this rank's rows of the padded
+    global batch (the world must divide ``batch_size``)."""
+    world = 1 if mesh is None else mesh.world
     for idx in batch_indices(
         len(encoded), batch_size, shuffle=shuffle, rng=rng, drop_last=drop_last
     ):
         qids = [encoded.question_ids[i] for i in idx]
-        batch = encoded.gather_batch(idx, with_target=with_target)
         real = len(idx)
+        if world > 1:
+            padded = np.concatenate([idx, np.full(batch_size - real, idx[-1], idx.dtype)])
+            yield qids, encoded.gather_batch(padded[mesh.rows(batch_size)], with_target=with_target), real
+            continue
+        batch = encoded.gather_batch(idx, with_target=with_target)
         if real < batch_size:
             batch, real = pad_batch_to(batch, batch_size)
         yield qids, batch, real

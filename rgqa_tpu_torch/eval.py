@@ -8,9 +8,17 @@
 ``score_rows``, the answers by row, for the serving waves).
 
 ``ScoringMixin`` expects the host class to provide ``cfg``, ``device``,
-``model``, ``forward``, ``model_cfg``, ``label2ans``, ``train_set``, ``output``,
-``features``,
-``_encode`` and ``load``, i.e. :class:`rgqa_tpu_torch.runner.GQARunner`.
+``mesh``, ``model``, ``forward``, ``model_cfg``, ``label2ans``,
+``train_set``, ``output``, ``features``, ``_encode``, ``_on_main`` and
+``load``, i.e. :class:`rgqa_tpu_torch.runner.GQARunner`.
+
+Data parallel (the host's ``mesh`` of N ranks): :meth:`ScoringMixin.
+_map_eval` scores this rank's rows of each padded global batch and
+gathers every rank's outputs in global order, so every scorer, metric
+and decision sees the whole split on every rank, as one process would;
+rank 0 alone writes the dumps and caches.  The Mahalanobis fit sums over
+the gathered features of the whole train split; ODIN's input gradient
+stays per row; MC-dropout draws from the rank's own stream.
 The metrics and the prediction-JSON dump are ``rgqa_tpu_torch.metrics``,
 the port's copy of the JAX package's.  ``predict`` stands in for the JAX
 package's ``train/step.py::make_eval_step`` as well (through
@@ -50,6 +58,7 @@ from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
 from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset
 from rgqa_tpu_torch.data.images import GQAImageSource, PixelPack
 from rgqa_tpu_torch.data.synthetic import BASE_IMAGES, make_synthetic_pixel_pack
+from rgqa_tpu_torch.parallel.mesh import gather_rows
 from rgqa_tpu_torch.scorers import (
     apply_tau,
     calibrate_tau,
@@ -76,9 +85,10 @@ class ScoringMixin:
         """Run ``step_fn(batch)`` over a split; yield ``(qids, {key:
         numpy array}, real)``.  Outputs are fetched one batch behind the
         dispatch front, so the host's copy of batch i overlaps the
-        device's work on batch i+1."""
+        device's work on batch i+1.  Under several ranks each scores its
+        rows and the outputs are every rank's rows, gathered."""
         batches = device_prefetch(
-            batch_iterator(encoded, self.cfg.train.batch_size), self.device
+            batch_iterator(encoded, self.cfg.train.batch_size, mesh=self.mesh), self.device
         )
         round_feats = (self.cfg.train.use_bf16 and not getattr(step_fn, "needs_f32_inputs", False)
                        and (self.model_cfg.backbone == "butd" or getattr(step_fn, "bf16_feed", False)))
@@ -87,7 +97,7 @@ class ScoringMixin:
             if round_feats:  # the JAX feed's bf16 feats, promoted to f32 in the model
                 batch = dict(batch, feats=batch["feats"].to(torch.bfloat16).float())
             out = step_fn(batch)
-            current = (qids, {k: out[k] for k in select}, real)
+            current = (qids, {k: gather_rows(self.mesh, out[k]) for k in select}, real)
             if pending is not None:
                 yield _fetch(pending)
             pending = current
@@ -108,6 +118,7 @@ class ScoringMixin:
                 topk=2,
                 seed_list=ocfg.seed_list or (0, 1, 2, 3, 4),
                 mix=ocfg.mix_branched_score,
+                mesh=self.mesh,
             )
             if name == "maha":
                 opts["estimator"] = self.fit_maha_estimator()
@@ -121,7 +132,7 @@ class ScoringMixin:
             for qid, label in zip(qids, out["label"][:real]):
                 quesid2ans[qid] = self.label2ans[int(label)]
         if dump:
-            ClosedSetEvaluator(encoded.dataset.qid2label).dump_result(quesid2ans, dump)
+            self._on_main(ClosedSetEvaluator(encoded.dataset.qid2label).dump_result, quesid2ans, dump)
         return quesid2ans
 
     def evaluate(self, encoded: EncodedGQA) -> float:
@@ -146,7 +157,7 @@ class ScoringMixin:
                 quesid2ans[qid] = gold if gold in names else names[0]
         evaluator = ClosedSetEvaluator(encoded.dataset.qid2label)
         if dump:
-            evaluator.dump_result(quesid2ans, dump)
+            self._on_main(evaluator.dump_result, quesid2ans, dump)
         return evaluator.evaluate(quesid2ans)
 
     @staticmethod
@@ -168,7 +179,8 @@ class ScoringMixin:
             raise NotImplementedError(
                 "dump_attention reads LXMERT's cross-modal attention; "
                 f"--backbone {self.model_cfg.backbone} has none")
-        os.makedirs(out_dir, exist_ok=True)
+        if self.mesh.is_main:
+            os.makedirs(out_dir, exist_ok=True)
         n_layers = self.model_cfg.encoder.x_layers
 
         def viz_step(batch):
@@ -181,7 +193,8 @@ class ScoringMixin:
         written = 0
         for qids, out, real in self._map_eval(encoded, viz_step, keys):
             for row, qid in enumerate(qids[:real]):
-                np.savez(os.path.join(out_dir, f"{qid}.npz"), **{key: out[key][row] for key in keys})
+                if self.mesh.is_main:  # every rank counts alike and stops at the same row
+                    np.savez(os.path.join(out_dir, f"{qid}.npz"), **{key: out[key][row] for key in keys})
                 written += 1
                 if limit and written >= limit:
                     return written
@@ -206,7 +219,7 @@ class ScoringMixin:
             quesid2ans
         )
         if dump:
-            dump_predictions(quesid2ans, dump)
+            self._on_main(dump_predictions, quesid2ans, dump)
         return results
 
     def ood_evaluate(
@@ -268,10 +281,14 @@ class ScoringMixin:
         root = os.path.dirname(os.path.abspath(image_root))
         pack_dir = os.path.join(root, f"pixels_clip_{size}")
         meta = os.path.join(pack_dir, "meta.json")
-        if self.cfg.data.synthetic and not os.path.isfile(meta) and os.path.isfile(
-            os.path.join(root, BASE_IMAGES)
-        ):
-            make_synthetic_pixel_pack(root, size, transform="clip")
+
+        def write_pack():
+            if self.cfg.data.synthetic and not os.path.isfile(meta) and os.path.isfile(
+                os.path.join(root, BASE_IMAGES)
+            ):
+                make_synthetic_pixel_pack(root, size, transform="clip")
+
+        self._on_main(write_pack)
         if os.path.isfile(meta):
             pack = PixelPack(pack_dir)
             if pack.transform == "clip" and pack.size == size and pack.matches_source(image_root):
@@ -370,11 +387,12 @@ class ScoringMixin:
         def batches():
             # Pooled features and targets stay on the device: the fit's
             # sums run behind the forwards, with no sync until its end.
-            items = batch_iterator(train_set, self.cfg.train.batch_size, with_target=True)
+            # Under several ranks: every rank's rows, gathered.
+            items = batch_iterator(train_set, self.cfg.train.batch_size, with_target=True, mesh=self.mesh)
             for _, batch, real in device_prefetch(items, self.device):
                 with torch.no_grad():
                     pooled = self.forward(batch, deterministic=True)["pooled"]
-                yield pooled[:real], batch["target"][:real]
+                yield gather_rows(self.mesh, pooled)[:real], gather_rows(self.mesh, batch["target"])[:real]
 
         mcfg = self.model_cfg
         est = fit_estimator(
@@ -382,11 +400,7 @@ class ScoringMixin:
             feat_dim=mcfg.butd_hidden_dim if mcfg.backbone == "butd" else mcfg.encoder.hidden_size,
             device=self.device,
         )
-        with open(cache, "wb") as f:
-            pickle.dump(
-                {"mean": est.class_mean.cpu().numpy(), "precision": est.precision.cpu().numpy()},
-                f, protocol=pickle.HIGHEST_PROTOCOL,
-            )
+        self._on_main(_write_estimates, cache, est)
         return est
 
     def get_pseudo_labels(self, encoded: EncodedGQA, dump: Optional[str] = None) -> list[dict]:
@@ -400,9 +414,7 @@ class ScoringMixin:
             datum["label"] = {ans: float(score)}
             rows.append(datum)
         if dump:
-            with open(dump, "w") as f:
-                json.dump(rows, f)
-            print(f"{len(rows)} pseudo data have been saved in {dump}.")
+            self._on_main(_write_pseudo_labels, rows, dump)
         return rows
 
     def predict_with_thresh(self, encoded: EncodedGQA, dump: Optional[str] = None) -> dict:
@@ -423,9 +435,26 @@ class ScoringMixin:
         tau = calibrate_tau(targets, preds, scores, self.cfg.ood.target_acc)
         out = apply_tau(quesid2ans, tau)
         if dump:
-            with open(dump, "w") as f:
-                json.dump({q: [ans, float(score)] for q, (ans, score) in out.items()}, f)
+            self._on_main(_write_json, {q: [ans, float(score)] for q, (ans, score) in out.items()}, dump)
         return {"tau": tau, "quesid2ans": out}
+
+
+def _write_estimates(cache: str, est: MahaEstimator) -> None:
+    with open(cache, "wb") as f:
+        pickle.dump(
+            {"mean": est.class_mean.cpu().numpy(), "precision": est.precision.cpu().numpy()},
+            f, protocol=pickle.HIGHEST_PROTOCOL,
+        )
+
+
+def _write_json(obj, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def _write_pseudo_labels(rows: list, dump: str) -> None:
+    _write_json(rows, dump)
+    print(f"{len(rows)} pseudo data have been saved in {dump}.")
 
 
 def _check_decodable(img_ids, source, image_root: str, pack_dir: Optional[str], size,

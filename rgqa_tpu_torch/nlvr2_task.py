@@ -16,6 +16,12 @@ NLVR2 model's names (``lxrt_encoder.model.bert.*`` and ``logit_fc.0 / .2
 nlvr2_key_map``): the JAX package writes orbax directories and reads no
 NLVR2 ``.pth``.  ``--train_chunk`` / ``--eval_chunk`` > 1 and
 ``--feed_int8`` are refused by name, as on the other runners.
+
+Under N data-parallel ranks each rank takes its rows of every global
+batch (a row's two images stay together: the 2B-row fold is within the
+rank's rows), the gradients are averaged before the clip, predictions
+gather every rank's rows, and rank 0 alone writes the ``.pth`` files and
+the CSV.
 """
 
 from __future__ import annotations
@@ -37,6 +43,16 @@ from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.nlvr2 import Nlvr2Model
 from rgqa_tpu_torch.models.zoo import init_weights, module_mode
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel.mesh import (
+    SINGLE,
+    Mesh,
+    check_batch_size,
+    gather_rows,
+    make_mesh,
+    on_main,
+    reduce_gradients,
+    shard_params,
+)
 from rgqa_tpu_torch.runner import check_ported
 from rgqa_tpu_torch.train.optimizer import make_optimizer
 from rgqa_tpu_torch.train.step import global_norm_clip
@@ -94,6 +110,8 @@ class Nlvr2Runner:
         check_ported(cfg, train=True)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(self.device, model=cfg.mesh.model_axis)
+        check_batch_size(self.mesh, cfg.train.batch_size)
         root = cfg.data.data_root
         self.features = PackedFeatures(os.path.join(root, "features"))
         self.tokenizer = WordPieceTokenizer(load_vocab(os.path.join(root, "vocab.txt")))
@@ -103,10 +121,11 @@ class Nlvr2Runner:
         with self.device:
             self.model = Nlvr2Model(cfg.model.encoder, dtype)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(cfg.train.seed))
+        shard_params(self.mesh, self.model)
         self.model.eval()  # train() switches it to training mode for its epochs
         self.output = cfg.output
         os.makedirs(self.output, exist_ok=True)
-        dump_run_config(cfg, self.output)
+        on_main(self.mesh, dump_run_config, cfg, self.output)
 
     def forward(self, batch: dict, *, deterministic: Optional[bool] = None, **kw) -> dict:
         with module_mode(self.model, deterministic):
@@ -117,11 +136,15 @@ class Nlvr2Runner:
                  drop_last: bool = False):
         """Yield (uids, device batch, real).  A final partial batch is
         padded to ``batch_size`` by repeating its last row (``real``
-        counts the rows that are not padding) unless ``drop_last``."""
-        return device_prefetch(self._host_batches(encoded, batch_size, shuffle, rng, drop_last), self.device)
+        counts the rows that are not padding) unless ``drop_last``.  Under
+        several ranks the batch holds this rank's rows of the global
+        batch (``uids`` and ``real`` the global batch's)."""
+        return device_prefetch(self._host_batches(encoded, batch_size, shuffle, rng, drop_last, self.mesh),
+                               self.device)
 
     @staticmethod
-    def _host_batches(encoded: EncodedNLVR2, batch_size: int, shuffle: bool, rng, drop_last: bool):
+    def _host_batches(encoded: EncodedNLVR2, batch_size: int, shuffle: bool, rng, drop_last: bool,
+                      mesh: Mesh = SINGLE):
         order = np.arange(len(encoded))
         if shuffle:
             (rng or np.random.default_rng()).shuffle(order)
@@ -132,14 +155,17 @@ class Nlvr2Runner:
                 if drop_last:
                     return
                 idx = np.concatenate([idx, np.full(batch_size - real, idx[-1], idx.dtype)])
-            yield [encoded.uids[i] for i in idx[:real]], encoded.gather_batch(idx), real
+            rows = idx[mesh.rows(batch_size)]
+            yield [encoded.uids[i] for i in idx[:real]], encoded.gather_batch(rows), real
 
     def save(self, name: str) -> str:
-        """``<output>/<name>.pth`` (:func:`~rgqa_tpu_torch.checkpoint.convert.nlvr2_key_map`'s names)."""
+        """``<output>/<name>.pth`` (:func:`~rgqa_tpu_torch.checkpoint.convert.nlvr2_key_map`'s names;
+        rank 0 writes it)."""
         enc = self.cfg.model.encoder
         path = os.path.join(self.output, f"{name}.pth")
-        torch.save(to_reference_state_dict(self.model.state_dict(), backbone="nlvr2", l_layers=enc.l_layers,
-                                           x_layers=enc.x_layers, r_layers=enc.r_layers), path)
+        on_main(self.mesh, lambda: torch.save(to_reference_state_dict(
+            self.model.state_dict(), backbone="nlvr2", l_layers=enc.l_layers, x_layers=enc.x_layers,
+            r_layers=enc.r_layers), path))
         return path
 
     def train(self, train_split: str = "train", valid_split: str = "valid") -> dict:
@@ -150,17 +176,17 @@ class Nlvr2Runner:
         n_batches = len(train_set) // tcfg.batch_size
         optimizer = make_optimizer(tcfg.optim, self.model.parameters(), max(n_batches * tcfg.epochs, 1))
         params = [p for group in optimizer.param_groups for p in group["params"]]
-        rng = DropoutRng(device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
-                         host=torch.Generator().manual_seed(tcfg.seed))
+        rng = DropoutRng.for_rank(tcfg.seed, self.device, rank=self.mesh.rank, world=self.mesh.world)
 
         def step(batch: dict) -> torch.Tensor:
             logits = self.forward(batch, deterministic=False, rng=rng)["logits"].float()
             loss = F.cross_entropy(logits, batch["label"].long()) * 2  # CE x classes (nlvr2.py:77)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            (loss,) = reduce_gradients(self.mesh, params, [loss])
             global_norm_clip(params, tcfg.optim.grad_clip)
             optimizer.step()
-            return loss.detach()
+            return loss
 
         shuffle = np.random.default_rng(tcfg.seed)
         best = 0.0
@@ -181,13 +207,17 @@ class Nlvr2Runner:
         return history
 
     def predict(self, split: str) -> dict:
-        """``{uid: 0 | 1}``, at batch ``min(len(split), 32)``."""
+        """``{uid: 0 | 1}``, at batch ``min(len(split), 32)`` (rounded up to
+        a multiple of the world under several ranks, which gather their
+        rows)."""
         encoded = self.splits[split]
         uid2pred = {}
+        world = self.mesh.world
         with torch.inference_mode():
-            for uids, batch, real in self._batches(encoded, min(len(encoded), PREDICT_BATCH)):
+            for uids, batch, real in self._batches(encoded, -(-min(len(encoded), PREDICT_BATCH) // world) * world):
                 logits = self.forward(batch, deterministic=True)["logits"].float()
-                for uid, p in zip(uids, torch.argmax(logits, dim=-1)[:real].tolist()):
+                preds = gather_rows(self.mesh, torch.argmax(logits, dim=-1))
+                for uid, p in zip(uids, preds[:real].tolist()):
                     uid2pred[uid] = p
         return uid2pred
 
@@ -201,9 +231,15 @@ class Nlvr2Runner:
 
     def dump_csv(self, split: str, path: str) -> None:
         """The reference submission: ``identifier,{True|False}`` per row
-        (``nlvr2.py:150-156``; the uid where a row has no ``identifier``)."""
+        (``nlvr2.py:150-156``; the uid where a row has no ``identifier``;
+        rank 0 writes it)."""
         uid2row = {r["uid"]: r for r in self.splits[split].rows}
-        with open(path, "w") as f:
-            for uid, p in self.predict(split).items():
-                ident = uid2row[uid].get("identifier", uid)
-                f.write(f"{ident},{'True' if p else 'False'}\n")
+        preds = self.predict(split)
+
+        def write():
+            with open(path, "w") as f:
+                for uid, p in preds.items():
+                    ident = uid2row[uid].get("identifier", uid)
+                    f.write(f"{ident},{'True' if p else 'False'}\n")
+
+        on_main(self.mesh, write)

@@ -3,12 +3,19 @@ reference ``modeling.py:922-989``).
 
 Every loss reads f32 logits: the masked-LM log-softmax over the 30522
 words is taken in f32, as the JAX package casts before it.
+
+Data parallel (``mesh``): :func:`masked_ce` divides by the global batch's
+count of valid labels and scales the rank's sum by the world size, so
+that the ranks' mean is the global loss and their averaged gradient the
+global loss's; the visual losses are means over every RoI already.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from rgqa_tpu_torch.parallel.mesh import SINGLE, Mesh, all_sum
 
 __all__ = ["VISUAL_LOSS_CONFIG", "pretrain_loss", "masked_ce", "smooth_l1"]
 
@@ -21,13 +28,14 @@ VISUAL_LOSS_CONFIG = {
 }
 
 
-def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor, mesh: Mesh = SINGLE) -> torch.Tensor:
     """CrossEntropy(ignore_index=-1): the summed NLL of the valid entries
-    over ``max(n_valid, 1)``."""
+    over ``max(n_valid, 1)`` (``n_valid`` the global batch's under several
+    ranks)."""
     flat = logits.reshape(-1, logits.shape[-1]).float()
     labels = labels.reshape(-1).long()
     nll = F.cross_entropy(flat, labels, ignore_index=-1, reduction="sum")
-    return nll / torch.clamp((labels >= 0).sum(), min=1)
+    return nll * mesh.world / torch.clamp(all_sum(mesh, (labels >= 0).sum()), min=1)
 
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -54,6 +62,7 @@ def pretrain_loss(
     feat_mask=None,
     ans=None,
     tasks=("mask_lm", "matched", "obj", "attr", "feat", "qa"),
+    mesh: Mesh = SINGLE,
 ) -> tuple[torch.Tensor, dict]:
     """(total, {task: loss}) over the active tasks, in JAX's order and
     names.  ``outputs`` is ``LxmertPretraining``'s dict; the visual losses
@@ -61,9 +70,9 @@ def pretrain_loss(
     (``modeling.py:954-974``)."""
     parts = {}
     if "mask_lm" in tasks and lm_labels is not None:
-        parts["mask_lm"] = masked_ce(outputs["mlm"], lm_labels)
+        parts["mask_lm"] = masked_ce(outputs["mlm"], lm_labels, mesh)
     if "matched" in tasks and matched is not None:
-        parts["matched"] = masked_ce(outputs["matched"], matched)
+        parts["matched"] = masked_ce(outputs["matched"], matched, mesh)
     if feat_mask is not None:
         visn = outputs["visn"]
         for name, labels in (("obj", obj_labels), ("attr", attr_labels)):
@@ -74,7 +83,7 @@ def pretrain_loss(
             l2 = torch.mean(smooth_l1(visn["feat"].float(), feat_target), dim=-1)
             parts["feat"] = torch.mean(l2 * feat_mask) * VISUAL_LOSS_CONFIG["feat"][1]
     if "qa" in tasks and ans is not None:
-        parts["qa"] = masked_ce(outputs["qa"], ans)
+        parts["qa"] = masked_ce(outputs["qa"], ans, mesh)
     total = 0.0
     for v in parts.values():
         total = total + v

@@ -17,6 +17,11 @@ number of a step is drawn on the host first, from one
 tensors and Python ints), and the functions below apply given draws to
 the batch where it lies.  So no draw waits on the device, and the tests
 hand the apply step the JAX key chain's own draws.
+
+Data parallel: the draws are made for the global batch (``rows``) from
+the stream the ranks share; each rank applies its rows of them
+(:func:`local_pretrain_draws`), the matched roll is the global batch's
+and the RoI swaps pick from the global batch's pool (``mesh``).
 """
 
 from __future__ import annotations
@@ -25,8 +30,10 @@ from typing import Optional
 
 import torch
 
-__all__ = ["WORD_MASK_RATE", "OBJ_MASK_RATE", "VISUAL_TASKS", "draw_pretrain_masks", "mask_words",
-           "mask_objects", "matched_swap"]
+from rgqa_tpu_torch.parallel.mesh import SINGLE, Mesh, gather_rows, roll_rows
+
+__all__ = ["WORD_MASK_RATE", "OBJ_MASK_RATE", "VISUAL_TASKS", "draw_pretrain_masks", "local_pretrain_draws",
+           "mask_words", "mask_objects", "matched_swap"]
 
 # The rates the JAX runner masks at, whatever --wordMaskRate / --objMaskRate
 # say (its PretrainRunner never passes them; mask_objects fixes 0.15).
@@ -36,9 +43,10 @@ VISUAL_TASKS = ("obj", "attr", "feat")
 
 
 def draw_pretrain_masks(batch: dict, tasks, *, vocab_size: int,
-                        generator: Optional[torch.Generator] = None) -> dict:
+                        generator: Optional[torch.Generator] = None, rows: Optional[int] = None) -> dict:
     """The host draws of one pretraining step on ``batch`` (B rows of T
-    tokens, K RoIs), for the ``tasks`` that draw:
+    tokens, K RoIs; B is ``rows``, the global batch's, under several
+    ranks), for the ``tasks`` that draw:
 
     - ``matched``: ``flip`` (B,) bool (Bernoulli 0.5) and ``shift``, an
       int in [1, B);
@@ -48,6 +56,7 @@ def draw_pretrain_masks(batch: dict, tasks, *, vocab_size: int,
       and ``obj_pick`` (B, K) rows of the (B * K) pool.
     """
     b, t = batch["input_ids"].shape
+    b = rows or b
     k = batch["feats"].shape[1]
     draws = {}
     if "matched" in tasks:
@@ -62,6 +71,14 @@ def draw_pretrain_masks(batch: dict, tasks, *, vocab_size: int,
         draws["obj_kind"] = torch.rand(b, k, generator=generator)
         draws["obj_pick"] = torch.randint(0, b * k, (b, k), generator=generator)
     return draws
+
+
+def local_pretrain_draws(draws: dict, mesh: Mesh = SINGLE) -> dict:
+    """This rank's rows of the global batch's draws (``shift`` whole; the
+    pool rows ``obj_pick`` stay indices into the global pool)."""
+    if mesh.world == 1:
+        return draws
+    return {k: v if k == "shift" else v[mesh.rows(len(v))] for k, v in draws.items()}
 
 
 def _on(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -83,20 +100,22 @@ def mask_words(input_ids: torch.Tensor, maskable: torch.Tensor, draws: dict, *,
     return masked, labels
 
 
-def mask_objects(feats: torch.Tensor, draws: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def mask_objects(feats: torch.Tensor, draws: dict, mesh: Mesh = SINGLE) -> tuple[torch.Tensor, torch.Tensor]:
     """(masked feats, f32 ``feat_mask`` (B, K) of the selected RoIs); the
-    10% swaps take rows of the batch's own unmasked (B * K, D) pool."""
+    10% swaps take rows of the batch's own unmasked (B * K, D) pool (the
+    global batch's under several ranks)."""
     b, k, d = feats.shape
     selected = _on(draws["obj_sel"], feats) < OBJ_MASK_RATE
     kind = _on(draws["obj_kind"], feats)
-    random_feats = feats.reshape(-1, d)[_on(draws["obj_pick"], feats).reshape(-1)].reshape(b, k, d)
+    pool = gather_rows(mesh, feats).reshape(-1, d)
+    random_feats = pool[_on(draws["obj_pick"], feats).reshape(-1)].reshape(b, k, d)
     zero = (selected & (kind < 0.8))[..., None]
     swap = (selected & (kind >= 0.8) & (kind < 0.9))[..., None]
     masked = torch.where(zero, torch.zeros_like(feats), torch.where(swap, random_feats, feats))
     return masked, selected.to(torch.float32)
 
 
-def matched_swap(input_ids, input_mask, segment_ids, ans, draws: dict):
+def matched_swap(input_ids, input_mask, segment_ids, ans, draws: dict, mesh: Mesh = SINGLE):
     """Cross-modal matching negatives (``lxmert_data.py:171-178``): on the
     ``flip`` rows the text fields are the batch's rolled by ``shift``
     (images stay), ``matched`` 0 and the QA answer -1.  Returns (ids,
@@ -105,7 +124,7 @@ def matched_swap(input_ids, input_mask, segment_ids, ans, draws: dict):
     shift = draws["shift"]
 
     def swapped(x):
-        return torch.where(flip[:, None], torch.roll(x, shift, 0), x)
+        return torch.where(flip[:, None], roll_rows(mesh, x, shift), x)
 
     matched = 1 - flip.to(torch.int64)
     out_ans = torch.where(flip, torch.full_like(ans, -1), ans)

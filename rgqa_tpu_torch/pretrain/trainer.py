@@ -25,6 +25,13 @@ eval loss X`` and writes ``<output>/EpochNN_LXRT.pth``, and
 same names, less the suffix), which ``--loadLXMERTQA
 <output>/BEST_EVAL_LOSS`` reads in the GQA and VQA runners.
 
+Data parallel (``torchrun``, :mod:`rgqa_tpu_torch.parallel`): every rank
+reads its rows of each global batch (``--batchSize``, which the world
+divides) and draws the global batch's masks from the shared generator;
+the masked-LM, matched and QA losses divide by the global count of
+valid labels, the gradients are averaged before the clip, and the eval
+loss is the global batch's.  Rank 0 alone writes the ``.pth`` files.
+
 The special ids that are never masked are the vocabulary's ``[PAD]``,
 ``[UNK]``, ``[CLS]``, ``[SEP]`` and ``[MASK]``: the JAX runner keeps its
 step's default 0-4, the synthetic vocabulary's (the same ids there), which
@@ -57,6 +64,16 @@ from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.lxmert import LxmertPretraining
 from rgqa_tpu_torch.models.zoo import init_weights, module_mode
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel.mesh import (
+    SINGLE,
+    Mesh,
+    all_sum,
+    check_batch_size,
+    make_mesh,
+    on_main,
+    reduce_gradients,
+    shard_params,
+)
 from rgqa_tpu_torch.pretrain.answer_table import AnswerTable
 from rgqa_tpu_torch.pretrain.losses import pretrain_loss
 from rgqa_tpu_torch.pretrain.masking import (
@@ -64,6 +81,7 @@ from rgqa_tpu_torch.pretrain.masking import (
     VISUAL_TASKS,
     WORD_MASK_RATE,
     draw_pretrain_masks,
+    local_pretrain_draws,
     mask_objects,
     mask_words,
     matched_swap,
@@ -80,24 +98,27 @@ EVAL_MASK_SEED = 0  # every eval batch's masks: the JAX runner's PRNGKey(0)
 
 
 def apply_pretrain_masks(batch: dict, draws: dict, tasks=ALL_TASKS, *, mask_id: int = 4,
-                         special_ids=SPECIAL_IDS) -> dict:
+                         special_ids=SPECIAL_IDS, mesh: Mesh = SINGLE) -> dict:
     """The model inputs and the labels of one step from ``draws``, in the
     JAX step's order: the matched swap, then ``maskable = mask > 0 and not
     a special id`` on the *swapped* ids and mask, the word masking, the
     RoI masking.  Returns ``input_ids``, ``input_mask``, ``segment_ids``,
     ``feats`` (masked), ``ans`` and the labels ``lm_labels``, ``matched``,
-    ``feat_mask`` (None where their task is off)."""
+    ``feat_mask`` (None where their task is off).  Under several ranks
+    (``mesh``) ``batch`` is this rank's rows and ``draws`` the global
+    batch's."""
+    draws = local_pretrain_draws(draws, mesh)
     ids, mask, seg, ans = batch["input_ids"], batch["input_mask"], batch["segment_ids"], batch["ans"]
     matched = lm_labels = feat_mask = None
     if "matched" in tasks:
-        ids, mask, seg, matched, ans = matched_swap(ids, mask, seg, ans, draws)
+        ids, mask, seg, matched, ans = matched_swap(ids, mask, seg, ans, draws, mesh)
     if "mask_lm" in tasks:
         special = torch.tensor(special_ids, dtype=ids.dtype, device=ids.device)
         maskable = (mask > 0) & ~torch.isin(ids, special)
         ids, lm_labels = mask_words(ids, maskable, draws, mask_id=mask_id)
     feats = batch["feats"]
     if set(VISUAL_TASKS) & set(tasks):
-        feats, feat_mask = mask_objects(feats, draws)
+        feats, feat_mask = mask_objects(feats, draws, mesh)
     return {"input_ids": ids, "input_mask": mask, "segment_ids": seg, "feats": feats, "ans": ans,
             "lm_labels": lm_labels, "matched": matched, "feat_mask": feat_mask}
 
@@ -112,6 +133,7 @@ def make_pretrain_step(
     grad_clip: float = 5.0,
     rng: Optional[DropoutRng] = None,
     use_fused: Optional[bool] = None,
+    mesh: Mesh = SINGLE,
 ):
     """``(step, eval_loss)`` over dict batches with ``input_ids``,
     ``input_mask``, ``segment_ids``, ``feats``, ``boxes``, ``obj_id``,
@@ -122,29 +144,33 @@ def make_pretrain_step(
     ``grad_clip`` and ``optimizer``'s step; ``eval_loss(batch, draws) ->
     (total, {task: loss})`` the forward alone in eval mode.  ``draws``:
     :func:`~rgqa_tpu_torch.pretrain.masking.draw_pretrain_masks`'s.
-    ``use_fused=False`` runs the attention's plain versions."""
+    ``use_fused=False`` runs the attention's plain versions.  ``mesh``:
+    data parallel, ``batch`` this rank's rows, ``draws`` the global
+    batch's; ``step`` returns the global batch's losses, ``eval_loss``
+    this rank's share (the ranks' mean is the global loss)."""
     rng = rng or DropoutRng()
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def loss_fn(batch: dict, draws: dict, deterministic: bool):
-        m = apply_pretrain_masks(batch, draws, tasks, mask_id=mask_id, special_ids=special_ids)
+        m = apply_pretrain_masks(batch, draws, tasks, mask_id=mask_id, special_ids=special_ids, mesh=mesh)
         with module_mode(model, deterministic):
             out = model(m["input_ids"], m["input_mask"], m["segment_ids"], m["feats"], batch["boxes"],
                         rng=rng, use_fused=use_fused)
         return pretrain_loss(
             out, lm_labels=m["lm_labels"], matched=m["matched"], obj_labels=batch.get("obj_id"),
             attr_labels=batch.get("attr_id"), feat_target=batch["feats"].float(), feat_mask=m["feat_mask"],
-            ans=m["ans"], tasks=tasks,
+            ans=m["ans"], tasks=tasks, mesh=mesh,
         )
 
     def step(batch: dict, draws: dict) -> dict:
         total, parts = loss_fn(batch, draws, False)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        values = reduce_gradients(mesh, params, list(parts.values()))
         if grad_clip:
             global_norm_clip(params, grad_clip)
         optimizer.step()
-        return {k: v.detach() for k, v in parts.items()}
+        return dict(zip(parts, values))
 
     @torch.no_grad()
     def eval_loss(batch: dict, draws: dict):
@@ -174,9 +200,15 @@ class PretrainRunner:
         self.cfg = cfg
         self.tasks = tuple(tasks)
         self.device = resolve_device(device)
+        self.mesh = make_mesh(self.device, model=cfg.mesh.model_axis)
+        check_batch_size(self.mesh, cfg.train.batch_size)
         root = cfg.data.data_root
-        if cfg.data.synthetic and not os.path.exists(os.path.join(root, "trainval_ans2label.json")):
-            make_synthetic_gqa(root)
+
+        def write_root():
+            if cfg.data.synthetic and not os.path.exists(os.path.join(root, "trainval_ans2label.json")):
+                make_synthetic_gqa(root)
+
+        on_main(self.mesh, write_root)
         self.features = PackedFeatures(os.path.join(root, "features"))
         vocab = load_vocab(os.path.join(root, "vocab.txt"))
         self.tokenizer = WordPieceTokenizer(vocab)
@@ -208,6 +240,7 @@ class PretrainRunner:
             self.model = LxmertPretraining(cfg.model.encoder, num_answers=self.answer_table.num_answers,
                                            dtype=dtype)
         init_weights(self.model, torch.Generator(device=self.device).manual_seed(cfg.train.seed))
+        shard_params(self.mesh, self.model)
         self.model.eval()  # train() switches it to training mode for its steps
         # Per-row answer ids, computed once per encoded split.
         self._ans_cache: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -256,29 +289,33 @@ class PretrainRunner:
             return self._runner.host_batch(self._encoded, idx)
 
     def batches(self, encoded: EncodedGQA, batch_size: int, *, shuffle: bool, rng=None):
-        """Device batches of ``encoded``, the last partial one dropped."""
+        """Device batches of ``encoded``, the last partial one dropped
+        (this rank's rows of each under several ranks)."""
         items = batch_iterator(self._FeedView(self, encoded), batch_size, shuffle=shuffle, rng=rng,
-                               drop_last=True)
+                               drop_last=True, mesh=self.mesh)
         for _, batch, _ in device_prefetch(items, self.device):
             yield batch
 
     def train_draws(self, batch: dict, generator: torch.Generator) -> dict:
-        """A training step's masks, from the run's host generator."""
+        """A training step's masks, from the run's host generator (the
+        global batch's)."""
         return draw_pretrain_masks(batch, self.tasks, vocab_size=self.cfg.model.encoder.vocab_size,
-                                   generator=generator)
+                                   generator=generator, rows=len(batch["input_ids"]) * self.mesh.world)
 
     def eval_draws(self, batch: dict) -> dict:
         """An eval batch's masks: the same seed for every batch and epoch."""
         return draw_pretrain_masks(batch, self.tasks, vocab_size=self.cfg.model.encoder.vocab_size,
-                                   generator=torch.Generator().manual_seed(EVAL_MASK_SEED))
+                                   generator=torch.Generator().manual_seed(EVAL_MASK_SEED),
+                                   rows=len(batch["input_ids"]) * self.mesh.world)
 
     def save(self, name: str) -> str:
-        """``<output>/<name>_LXRT.pth``, a reference ``model_LXRT.pth``."""
+        """``<output>/<name>_LXRT.pth``, a reference ``model_LXRT.pth``
+        (rank 0 writes it)."""
         enc = self.cfg.model.encoder
         path = os.path.join(self.output, f"{name}_LXRT.pth")
-        torch.save(to_reference_state_dict(self.model.state_dict(), backbone="lxmert_pretrain",
-                                           l_layers=enc.l_layers, x_layers=enc.x_layers,
-                                           r_layers=enc.r_layers), path)
+        on_main(self.mesh, lambda: torch.save(to_reference_state_dict(
+            self.model.state_dict(), backbone="lxmert_pretrain", l_layers=enc.l_layers, x_layers=enc.x_layers,
+            r_layers=enc.r_layers), path))
         return path
 
     def train(self) -> dict:
@@ -288,11 +325,10 @@ class PretrainRunner:
         tcfg = self.cfg.train
         n_batches = len(self.train_set) // tcfg.batch_size
         optimizer = make_optimizer(tcfg.optim, self.model.parameters(), max(n_batches * tcfg.epochs, 1))
-        rng = DropoutRng(device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
-                         host=torch.Generator().manual_seed(tcfg.seed))
+        rng = DropoutRng.for_rank(tcfg.seed, self.device, rank=self.mesh.rank, world=self.mesh.world)
         step, eval_loss = make_pretrain_step(self.model, optimizer, tasks=self.tasks, mask_id=self.mask_id,
                                              special_ids=self.special_ids, grad_clip=tcfg.optim.grad_clip,
-                                             rng=rng)
+                                             rng=rng, mesh=self.mesh)
         shuffle = np.random.default_rng(tcfg.seed)
         best_eval = float("inf")
         history = {"train": [], "eval": []}
@@ -306,9 +342,12 @@ class PretrainRunner:
                 # Device scalars collect in a list and are read once at the end.
                 totals = [eval_loss(batch, self.eval_draws(batch))[0]
                           for batch in self.batches(self.valid_set, tcfg.batch_size, shuffle=False)]
+                if totals and self.mesh.world > 1:  # each rank's share: the global batches' totals
+                    totals = (all_sum(self.mesh, torch.stack(totals)) / self.mesh.world).unbind()
                 avg = float(np.mean([float(t) for t in totals])) if totals else 0.0
                 history["eval"].append(avg)
-                print(f"Epoch {epoch:02d}: train {train_parts} | eval loss {avg:.4f}", flush=True)
+                if self.mesh.is_main:
+                    print(f"Epoch {epoch:02d}: train {train_parts} | eval loss {avg:.4f}", flush=True)
                 if avg < best_eval:
                     best_eval = avg
                     self.save("BEST_EVAL_LOSS")

@@ -80,6 +80,17 @@ pack like the eval splits.  Randaug needs PIL and the JPEGs; without
 either the runner raises, naming ``--no_randaug`` (the machine with the
 card has no PIL, and the port's synthetic root has a pack but no JPEGs).
 
+Data parallel: under N ranks (``torchrun``, :mod:`rgqa_tpu_torch.parallel`)
+the runner takes the mesh of the process group; ``--batchSize`` is the
+global batch (the world must divide it), every rank reads its rows of
+each batch, the steps average their gradients (so a step means what the
+one-process step means at the same global batch), validation and
+scoring gather every rank's rows (every rank takes the same ``BEST``
+decision), rank 0 alone writes ``log.log``, the checkpoints and the
+caches (the others wait at a barrier), and ``LAST.state.pt`` keeps each
+rank's dropout stream for the resume.  ``--model_axis`` other than 1
+raises (tensor parallelism is not ported).
+
 Refused by flag name (:func:`check_ported`): chunked dispatch
 (``--train_chunk`` / ``--eval_chunk``), ``--feed_int8``, orbax inputs
 (reading them needs jax), and where the JAX package fails:
@@ -131,6 +142,14 @@ from rgqa_tpu_torch.eval import ScoringMixin, _check_decodable, decode_rgb
 from rgqa_tpu_torch.models.butd import build_glove_matrix, butd_split
 from rgqa_tpu_torch.models.zoo import build_model
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel.mesh import (
+    check_batch_size,
+    gather_objects,
+    gather_rows,
+    make_mesh,
+    on_main,
+    shard_params,
+)
 from rgqa_tpu_torch.pretrain.answer_table import AnswerTable
 from rgqa_tpu_torch.scorers.clip import ClipScorer, clip_resize_crop
 from rgqa_tpu_torch.train.adversarial import AdvConfig, make_adv_train_step
@@ -190,8 +209,18 @@ def check_ported(cfg: RunConfig, *, train: bool, extra: Optional[dict] = None) -
         raise NotImplementedError(f"not ported yet: {', '.join(named)}")
 
 
+def pth_path(path: str) -> str:
+    """``path``, or ``<path>.pth`` when ``path`` is not a file and that is
+    (the reference loads ``"%s.pth" % path``, and the recipe scripts pass
+    ``--load <run>/BEST``)."""
+    if not os.path.isfile(path) and os.path.isfile(path + ".pth"):
+        return path + ".pth"
+    return path
+
+
 class GQARunner(ScoringMixin):
-    """GQA task driver on one device (default: the card)."""
+    """The GQA task on one device (default: the card), or on each rank
+    of a data-parallel run."""
 
     def __init__(
         self, cfg: RunConfig, *, init_train: bool = True, f32_weights: bool = False,
@@ -200,13 +229,14 @@ class GQARunner(ScoringMixin):
         check_ported(cfg, train=init_train)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(self.device, model=cfg.mesh.model_axis)
+        check_batch_size(self.mesh, cfg.train.batch_size)
         data = cfg.data
         root = data.data_root
 
-        if data.synthetic and not os.path.exists(
-            os.path.join(root, "trainval_ans2label.json")
-        ):
-            make_synthetic_gqa(root)
+        # Rank 0 writes what is missing under the root (the synthetic data,
+        # BUTD's dictionary, a pixel pack); the other ranks then read it.
+        self._on_main(self._write_root)
         self.butd_word2idx = self._butd_dictionary(root) if cfg.model.backbone == "butd" else None
         self.image2caps = None
         if cfg.model.backbone == "caps":
@@ -250,13 +280,30 @@ class GQARunner(ScoringMixin):
         )
         self.model.eval()  # train() switches it to training mode for its epochs
         self.label2ans = self.dataset.label2ans
-        if self.butd_word2idx is not None:
-            self._load_glove_embeddings(root)
+        if self.butd_word2idx is not None and self.mesh.is_main:
+            self._load_glove_embeddings(root)  # shard_params gives the others rank 0's rows
         self._load_initial_weights()
+        shard_params(self.mesh, self.model)
 
         self.output = cfg.output
         os.makedirs(self.output, exist_ok=True)
-        dump_run_config(cfg, self.output)
+        self._on_main(dump_run_config, cfg, self.output)
+
+    def _write_root(self) -> None:
+        """What the data root lacks and this run writes: the synthetic
+        data (``--synthetic``), BUTD's dictionary and ViLT's pixel pack."""
+        cfg, root = self.cfg, self.cfg.data.data_root
+        if cfg.data.synthetic and not os.path.exists(os.path.join(root, "trainval_ans2label.json")):
+            make_synthetic_gqa(root)
+        if cfg.model.backbone == "butd":
+            self._butd_dictionary(root)
+        if cfg.model.backbone == "vilt":
+            self._image_source()
+
+    def _on_main(self, write, *args, **kw):
+        """``write(*args, **kw)`` on rank 0 alone; every rank then waits
+        for it (the others may read what it wrote)."""
+        return on_main(self.mesh, write, *args, **kw)
 
     def _load_initial_weights(self) -> None:
         """``--load``, else the pretrained starts (JAX
@@ -432,7 +479,9 @@ class GQARunner(ScoringMixin):
             keep_uq_target=m.uq_as_class,
         )
         if randaug:
-            encoded.image_augment_rng = np.random.default_rng(cfg.train.seed)
+            # Each rank augments its own rows: a stream of its own.
+            seed = cfg.train.seed if self.mesh.world == 1 else [cfg.train.seed, self.mesh.rank]
+            encoded.image_augment_rng = np.random.default_rng(seed)
         return encoded
 
     # ------------------------------------------------------------------
@@ -443,12 +492,14 @@ class GQARunner(ScoringMixin):
         """Load a reference GQA-LXMERT, UNITER, GQAViLT or GQA-BUTD ``.pth``
         or, for the caption matcher, an HF BERT / trained GQABERT (a file,
         or a directory holding ``pytorch_model.bin``) into the model (cast
-        to the model's dtype); keys it lacks stay at their init.  Returns
-        the reference keys it lacked."""
+        to the model's dtype); keys it lacks stay at their init.  ``path``
+        less its ``.pth`` takes the file (:func:`pth_path`).  Returns the
+        reference keys it lacked."""
+        path = pth_path(path)
         caps_dir = self.model_cfg.backbone == "caps" and os.path.isdir(path)
         if not os.path.isfile(path) and not caps_dir:
             raise NotImplementedError(
-                f"{path!r} is not a .pth file; loading orbax snapshots needs "
+                f"{path!r} is not a .pth file (nor is {path}.pth); loading orbax snapshots needs "
                 "jax and is not ported yet"
             )
         enc = self.model_cfg.encoder
@@ -465,8 +516,11 @@ class GQARunner(ScoringMixin):
         return missing
 
     def save(self, name: str) -> str:
-        """``<output>/<name>.pth`` in the reference GQA format."""
-        return save_reference_pth(self.model, self.model_cfg, os.path.join(self.output, f"{name}.pth"))
+        """``<output>/<name>.pth`` in the reference GQA format (rank 0
+        writes it)."""
+        path = os.path.join(self.output, f"{name}.pth")
+        self._on_main(save_reference_pth, self.model, self.model_cfg, path)
+        return path
 
     # ------------------------------------------------------------------
     # Training (gqa_conf.py:140-243)
@@ -514,13 +568,19 @@ class GQARunner(ScoringMixin):
             )
         if self.cfg.train.save_all:
             self._save_with(f"EPOCH_{epoch}", extra_save)
+        self._on_main(self._log, log_str)
+        if chart is not None:
+            self._on_main(self._write_chart, epoch, chart)
+        return best_valid
+
+    def _log(self, log_str: str) -> None:
         print(log_str, end="", flush=True)
         with open(os.path.join(self.output, "log.log"), "a") as f:
             f.write(log_str)
-        if chart is not None:
-            with open(os.path.join(self.output, "chart", f"epoch_{epoch}.pkl"), "wb") as f:
-                pickle.dump(self._chart_rows(chart), f, protocol=pickle.HIGHEST_PROTOCOL)
-        return best_valid
+
+    def _write_chart(self, epoch: int, chart: list) -> None:
+        with open(os.path.join(self.output, "chart", f"epoch_{epoch}.pkl"), "wb") as f:
+            pickle.dump(self._chart_rows(chart), f, protocol=pickle.HIGHEST_PROTOCOL)
 
     def _save_with(self, tag: str, extra_save=None) -> None:
         self.save(tag)
@@ -580,7 +640,7 @@ class GQARunner(ScoringMixin):
                 batches = device_prefetch(
                     batch_iterator(
                         self.train_set, tcfg.batch_size, shuffle=True, rng=shuffle,
-                        drop_last=True, with_target=True,
+                        drop_last=True, with_target=True, mesh=self.mesh,
                     ),
                     self.device,
                 )
@@ -589,18 +649,31 @@ class GQARunner(ScoringMixin):
                     aux = step(batch, **kw)
                     last_loss = aux["loss"]
                     if chart is not None:
-                        chart.append((qids, aux["score"][: len(qids)], aux["label"][: len(qids)]))
+                        chart.append(self._chart_step(qids, aux))
                     steps += 1
                 best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid, chart)
         finally:
             self.model.eval()
 
         self.save("LAST")
-        save_train_state(
-            os.path.join(self.output, "LAST.state.pt"), optimizer=optimizer, step=steps,
-            rng_state=rng.state(), shuffle=shuffle,
-        )
+        self._save_train_state(optimizer, steps, rng, shuffle)
         return history
+
+    def _chart_step(self, qids: list, aux: dict) -> tuple:
+        """A step's chart rows: the global batch's own questions (the
+        appended pseudo-UQ rows have none), every rank's rows gathered."""
+        n = len(qids)
+        return qids, gather_rows(self.mesh, aux["score"][: n // self.mesh.world]), \
+            gather_rows(self.mesh, aux["label"][: n // self.mesh.world])
+
+    def _save_train_state(self, optimizer, steps: int, rng: DropoutRng, shuffle) -> None:
+        """``LAST.state.pt``: the optimizer state, the step, the shuffle
+        and the dropout generators, each rank's (``rng_ranks``; ``rng`` is
+        rank 0's, the one-process layout)."""
+        states = gather_objects(self.mesh, rng.state())
+        self._on_main(save_train_state, os.path.join(self.output, "LAST.state.pt"), optimizer=optimizer,
+                      step=steps, rng_state=states[0], shuffle=shuffle,
+                      rng_ranks=states if self.mesh.world > 1 else None)
 
     def _train_state(self, resume: Optional[str]):
         """(the model's optimizer of ``--optim``, the dropout generators, the
@@ -610,15 +683,20 @@ class GQARunner(ScoringMixin):
         tcfg = self.cfg.train
         t_total = max(len(self.train_set) // tcfg.batch_size * tcfg.epochs, 1)
         optimizer = make_optimizer(tcfg.optim, self.model.parameters(), t_total)
-        rng = DropoutRng(
-            device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
-            host=torch.Generator().manual_seed(tcfg.seed),
-        )
+        rng = DropoutRng.for_rank(tcfg.seed, self.device, rank=self.mesh.rank, world=self.mesh.world)
         shuffle = np.random.default_rng(tcfg.seed)
         steps = 0
         if resume:
             self.load(os.path.join(self.output, f"{resume}.pth"))
             state = load_train_state(os.path.join(self.output, f"{resume}.state.pt"))
+            ranks = state.get("rng_ranks")
+            if self.mesh.world > 1:
+                if not ranks or len(ranks) != self.mesh.world:
+                    raise ValueError(
+                        f"resume {resume!r} under WORLD_SIZE {self.mesh.world}: the checkpoint keeps the "
+                        f"dropout streams of {len(ranks) if ranks else 1} rank(s); resume with that world size"
+                    )
+                state["rng"] = ranks[self.mesh.rank]
             fresh = [{k: v for k, v in g.items() if k not in ("params", "count")}
                      for g in optimizer.param_groups]
             optimizer.load_state_dict(state["optimizer"])
@@ -681,18 +759,20 @@ class GQARunner(ScoringMixin):
                 )
         step = make_weighted_clip_train_step(
             self.forward, clip_model, optimizer, clip_optimizer, temperature=cfg.ood.temperature,
-            grad_clip=tcfg.optim.grad_clip, rng=rng,
+            grad_clip=tcfg.optim.grad_clip, rng=rng, mesh=self.mesh,
         )
+        shard_params(self.mesh, clip_model)
 
         def with_clip_inputs(items):
             for qids, batch, real in items:
-                datums = [self.dataset.id2datum[q] for q in qids]
+                datums = [self.dataset.id2datum[q] for q in qids[self.mesh.rows(len(qids))]]
                 ids, mask = scorer.tokenizer.encode_batch([d["sent"] for d in datums], scorer.cfg.max_text_len)
                 pixels = anchor_pixels([d["img_id"] for d in datums])
                 yield qids, dict(batch, clip_ids=ids, clip_mask=mask, clip_pixels=pixels), real
 
         def save_clip(tag: str) -> None:
-            save_clip_state(os.path.join(self.output, f"{tag}_clip.pth"), clip_model, clip_optimizer, steps)
+            self._on_main(save_clip_state, os.path.join(self.output, f"{tag}_clip.pth"), clip_model,
+                          clip_optimizer, steps)
 
         if tcfg.chart:
             os.makedirs(os.path.join(self.output, "chart"), exist_ok=True)
@@ -707,12 +787,12 @@ class GQARunner(ScoringMixin):
                 chart = [] if tcfg.chart else None
                 batches = device_prefetch(with_clip_inputs(batch_iterator(
                     self.train_set, tcfg.batch_size, shuffle=True, rng=shuffle, drop_last=True,
-                    with_target=True)), self.device)
+                    with_target=True, mesh=self.mesh)), self.device)
                 for qids, batch, _ in batches:
                     aux = step(batch, int(shuffle.integers(1, len(qids))))
                     last_loss = aux["loss"]
                     if chart is not None:
-                        chart.append((qids, aux["score"], aux["label"]))
+                        chart.append(self._chart_step(qids, aux))
                     steps += 1
                 best_valid = self._epoch_end(epoch, epoch_start, last_loss, history, best_valid, chart,
                                              extra_save=save_clip)
@@ -721,12 +801,9 @@ class GQARunner(ScoringMixin):
             clip_model.eval()
             cleanup()
         self.save("LAST")
-        save_train_state(
-            os.path.join(self.output, "LAST.state.pt"), optimizer=optimizer, step=steps,
-            rng_state=rng.state(), shuffle=shuffle,
-        )
+        self._save_train_state(optimizer, steps, rng, shuffle)
         save_clip("LAST")
-        self._export_clip_params(clip_path, clip_model)
+        self._on_main(self._export_clip_params, clip_path, clip_model)
         return history
 
     def _export_clip_params(self, src_clip_path: str, clip_model) -> str:
@@ -755,7 +832,8 @@ class GQARunner(ScoringMixin):
         _check_decodable(decode, source, image_root, pack_dir, scorer.image_size, what="--update_weight_model")
         size = scorer.image_size
         row = {img_id: i for i, img_id in enumerate(decode)}
-        cache_path = os.path.join(self.output, "clip_pixels_u8.npy")
+        name = "clip_pixels_u8.npy" if self.mesh.world == 1 else f"clip_pixels_u8.rank{self.mesh.rank}.npy"
+        cache_path = os.path.join(self.output, name)
         cache = np.lib.format.open_memmap(cache_path, mode="w+", dtype=np.uint8, shape=(len(decode), size, size, 3))
         cached = np.zeros(len(decode), bool)
 
@@ -784,7 +862,7 @@ class GQARunner(ScoringMixin):
                 self.forward, teacher.forward, optimizer, lam=tcfg.lam,
                 mixup_mode=tcfg.mixup_mode or "mixup_v1", mixup_alpha=tcfg.mixup_alpha,
                 mixup_beta=tcfg.mixup_beta, lam1=tcfg.lam1, lam2=tcfg.lam2,
-                grad_clip=tcfg.optim.grad_clip, rng=rng,
+                grad_clip=tcfg.optim.grad_clip, rng=rng, mesh=self.mesh,
             )
         if tcfg.strategy == "adv":
             hidden = self.model_cfg.encoder.hidden_size
@@ -792,7 +870,7 @@ class GQARunner(ScoringMixin):
                             max_norm=tcfg.adv_max_norm, kl_weight=tcfg.adv_kl_weight,
                             norm_type=tcfg.adv_norm_type)
             return make_adv_train_step(self.forward, optimizer, lambda b: (*b["input_ids"].shape, hidden),
-                                       adv, grad_clip=tcfg.optim.grad_clip, rng=rng)
+                                       adv, grad_clip=tcfg.optim.grad_clip, rng=rng, mesh=self.mesh)
         return make_train_step(
             self.forward, optimizer, loss=tcfg.loss, sample_pair=tcfg.sample_pair,
             mixup_mode=tcfg.mixup_mode, mixup_alpha=tcfg.mixup_alpha, mixup_beta=tcfg.mixup_beta,
@@ -800,7 +878,7 @@ class GQARunner(ScoringMixin):
             energy=cfg.ood.scorer == "energy" and tcfg.m_in != 0, m_in=tcfg.m_in, m_out=tcfg.m_out,
             branched=m.branched or m.branched_layers, uq_as_class=m.uq_as_class,
             binary=tcfg.strategy in ("separate", "caption"), weighted_rp=tcfg.strategy == "weight",
-            grad_clip=tcfg.optim.grad_clip, rng=rng,
+            grad_clip=tcfg.optim.grad_clip, rng=rng, mesh=self.mesh,
         )
 
     def _teacher(self) -> "GQARunner":
@@ -813,8 +891,7 @@ class GQARunner(ScoringMixin):
         path = cfg.teacher_path
         if not path:
             raise ValueError("--strategy distill_online needs --teacher_path")
-        if not os.path.exists(path) and os.path.isfile(path + ".pth"):
-            path += ".pth"
+        path = pth_path(path)
         return GQARunner(
             dataclasses.replace(cfg, load=path, output=os.path.join(cfg.output, "teacher"),
                                 train=dataclasses.replace(cfg.train, strategy="conf")),
@@ -825,12 +902,14 @@ class GQARunner(ScoringMixin):
         """``--strategy weight``'s per-batch host work (``runner.py:665-676``):
         the roll ``shift`` from the run's shuffle generator, the anchor x
         rolled-question similarities and their weights ``exp((s - max s) /
-        --temperature)``, normalized."""
+        --temperature)``, normalized over the global batch (this rank's
+        rows of them under several ranks)."""
         shift = int(rng.integers(1, len(qids)))
         neg_qids = qids[-shift:] + qids[:-shift]  # np.roll order
         sims = similarity(qids, neg_qids)
         w = np.exp((sims - sims.max()) / self.cfg.ood.temperature)
-        weights = torch.from_numpy(np.ascontiguousarray(w / w.sum(), np.float32))
+        w = (w / w.sum())[self.mesh.rows(len(qids))]
+        weights = torch.from_numpy(np.ascontiguousarray(w, np.float32))
         return {"shift": shift, "neg_weights": weights.to(self.device, non_blocking=True)}
 
     def _weight_similarity(self):
@@ -914,7 +993,9 @@ class GQARunner(ScoringMixin):
         learned weights (:class:`~rgqa_tpu_torch.train.dual_loader.
         NegativeWeights`, SGD at ``--lr_w``; WOODS keeps them uniform), both
         from the run's one numpy generator, as in JAX.  Per epoch a
-        validation with ``BEST.pth``; ``LAST.pth`` at the end."""
+        validation with ``BEST.pth``; ``LAST.pth`` at the end.  Under
+        several ranks every rank draws the global negative indices and
+        reads its rows of them."""
         cfg, tcfg = self.cfg, self.cfg.train
         root = cfg.data.data_root
         pos_ds = GQADataset(root, cfg.data.train_pos, add_uq=True)
@@ -923,13 +1004,10 @@ class GQARunner(ScoringMixin):
         self.dataset = pos_ds
         t_total = max(len(pos_set) // tcfg.batch_size * tcfg.epochs, 1)
         optimizer = make_optimizer(tcfg.optim, self.model.parameters(), t_total)
-        rng = DropoutRng(
-            device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
-            host=torch.Generator().manual_seed(tcfg.seed),
-        )
+        rng = DropoutRng.for_rank(tcfg.seed, self.device, rank=self.mesh.rank, world=self.mesh.world)
         weighted = tcfg.strategy != "woods"
         step = make_minmax_step(self.forward, optimizer, weighted=weighted, grad_clip=tcfg.optim.grad_clip,
-                                rng=rng)
+                                rng=rng, mesh=self.mesh)
         weights = NegativeWeights(len(neg_set), tcfg.lr_w, device=self.device)
         shuffle = np.random.default_rng(tcfg.seed)
         best_valid = 0.0
@@ -940,8 +1018,9 @@ class GQARunner(ScoringMixin):
                 sampling_w = weights.sampling_weights()
                 last = math.nan
                 for _, pos, _ in batch_iterator(pos_set, tcfg.batch_size, shuffle=True, rng=shuffle,
-                                                drop_last=True, with_target=True):
-                    wids = sample_negative_indices(shuffle, sampling_w, tcfg.batch_size)
+                                                drop_last=True, with_target=True, mesh=self.mesh):
+                    wids = sample_negative_indices(shuffle, sampling_w, tcfg.batch_size)[
+                        self.mesh.rows(tcfg.batch_size)]
                     neg = neg_set.gather_batch(wids, with_target=True)
                     w_grads, aux = step(weights.values, to_device(pos, self.device), to_device(neg, self.device),
                                         torch.from_numpy(wids).to(self.device))
@@ -957,9 +1036,7 @@ class GQARunner(ScoringMixin):
                         best_valid = valid
                         self.save("BEST")
                     log_str += f"Epoch {epoch}: Valid {valid * 100:.2f}\n"
-                print(log_str, end="", flush=True)
-                with open(os.path.join(self.output, "log.log"), "a") as f:
-                    f.write(log_str)
+                self._on_main(self._log, log_str)
         finally:
             self.model.eval()
         self.save("LAST")

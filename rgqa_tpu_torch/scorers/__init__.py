@@ -13,6 +13,7 @@ the port's Porter stemmer) back ``--scorer frcnn``; ``make_scorer``
 builds none of these three, as in the JAX package.
 """
 
+from rgqa_tpu_torch.parallel.mesh import SINGLE
 from rgqa_tpu_torch.scorers.calibrate import apply_tau, calibrate_tau
 from rgqa_tpu_torch.scorers.core import (
     ensemble_merge,
@@ -51,7 +52,8 @@ __all__ = [
 def make_scorer(name: str, forward, **opts):
     """Build a scorer by name (the ``--scorer`` flag), with the JAX
     package's defaults: topk 2, temperature 1e5, noise 1e-4, seed list
-    (0, 1, 2, 3, 4); ``maha`` needs ``estimator``."""
+    (0, 1, 2, 3, 4); ``maha`` needs ``estimator``; ``mesh`` gives
+    MC-dropout a data-parallel rank's streams."""
     name = name.lower()
     if name == "msp":
         return make_msp_scorer(forward)
@@ -62,7 +64,7 @@ def make_scorer(name: str, forward, **opts):
             forward, temperature=opts.get("temperature", 1e5), noise=opts.get("noise", 1e-4)
         )
     if name == "dropout":
-        return make_dropout_scorer(forward, opts.get("seed_list", (0, 1, 2, 3, 4)))
+        return make_dropout_scorer(forward, opts.get("seed_list", (0, 1, 2, 3, 4)), mesh=opts.get("mesh", SINGLE))
     if name == "branched":
         return make_branched_scorer(forward, mix=opts.get("mix", False))
     if name == "maha":

@@ -31,6 +31,7 @@ from typing import Callable, Sequence
 import torch
 
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel.mesh import SINGLE, Mesh
 from rgqa_tpu_torch.train.losses import optax_sigmoid_bce
 
 __all__ = [
@@ -158,7 +159,7 @@ def majority_vote(labels: torch.Tensor) -> torch.Tensor:
     return labels.gather(0, best[None, :])[0]
 
 
-def make_dropout_scorer(forward, seed_list: Sequence[int]) -> Callable[[dict], dict]:
+def make_dropout_scorer(forward, seed_list: Sequence[int], mesh: Mesh = SINGLE) -> Callable[[dict], dict]:
     """MC-dropout (``gqa_dropout.py:92-118``): S = ``len(seed_list)``
     stochastic passes at the configured dropout, label = the majority
     vote of the per-pass argmaxes (:func:`majority_vote`), score = the
@@ -170,7 +171,10 @@ def make_dropout_scorer(forward, seed_list: Sequence[int]) -> Callable[[dict], d
     holds the contract, not the stream.  The module runs in training
     mode for the passes only (the adapter's ``deterministic=False``),
     under ``no_grad``: on LXMERT every attention call then goes to the
-    dropout kernel (#4), none to #1."""
+    dropout kernel (#4), none to #1.  Under several ranks (``mesh``) each
+    rank draws from its own stream of each pass
+    (:meth:`DropoutRng.for_rank`)."""
+    rank, world = mesh.rank, mesh.world
     seeds = [int(s) for s in seed_list]
 
     def score_fn(batch: dict) -> dict:
@@ -178,10 +182,7 @@ def make_dropout_scorer(forward, seed_list: Sequence[int]) -> Callable[[dict], d
         labels, maxp = [], []
         with torch.no_grad():
             for seed in seeds:
-                rng = DropoutRng(
-                    device=torch.Generator(device=device).manual_seed(seed),
-                    host=torch.Generator().manual_seed(seed),
-                )
+                rng = DropoutRng.for_rank(seed, device, rank=rank, world=world)
                 probs = torch.sigmoid(_logits(forward(batch, deterministic=False, rng=rng)))
                 labels.append(torch.argmax(probs, dim=-1))
                 maxp.append(torch.amax(probs, dim=-1))

@@ -16,6 +16,10 @@ before their LayerNorm and an image delta added to the RoI features (the
    (``gqa_adv.py:138-218``);
 3. one global clip-by-norm and one optimizer step.
 
+Data parallel (``mesh``): the deltas stay per row and on their rank; the
+model's gradient is averaged over the ranks before the clip (the losses
+are means over rows), and the returned loss is the global batch's.
+
 On the card the clean forward runs the attention kernel #1 and the inner
 passes #4 / #5 (at dropout 0: #1 / #3).
 """
@@ -27,6 +31,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel.mesh import SINGLE, Mesh, reduce_gradients
 from rgqa_tpu_torch.train.losses import bce_answer_loss
 
 __all__ = ["AdvConfig", "make_adv_train_step", "normalize_step", "project", "symmetric_kl"]
@@ -87,13 +92,15 @@ def make_adv_train_step(
     grad_clip: float = 5.0,
     rng: Optional[DropoutRng] = None,
     use_fused: Optional[bool] = None,
+    mesh: Mesh = SINGLE,
 ):
     """``step(batch) -> {"loss", "score", "label"}`` (the clean BCE, and
     the clean logits' top sigmoid and its answer), for LXMERT's forward
     adapter and the ``optimizer`` over its parameters (JAX
     ``make_adv_train_step``).  ``txt_delta_shape_of(batch)`` gives the
     (B, T, H) text delta's shape.  ``use_fused=False`` runs the
-    attention's plain versions."""
+    attention's plain versions.  ``mesh``: data parallel, ``batch`` this
+    rank's rows of the global batch."""
     from rgqa_tpu_torch.train.step import global_norm_clip
 
     rng = rng or DropoutRng()
@@ -122,12 +129,13 @@ def make_adv_train_step(
                                     cfg.max_norm, cfg.norm_type)
                     d_img = project(d_img + normalize_step(d_img.grad, cfg.lr_img, cfg.norm_type),
                                     cfg.max_norm, cfg.norm_type)
+        (clean,) = reduce_gradients(mesh, params, [bce_answer_loss(gt_logits, target)])
         if grad_clip and grad_clip > 0:
             global_norm_clip(params, grad_clip)
         optimizer.step()
         probs = torch.sigmoid(gt_logits)
         return {
-            "loss": bce_answer_loss(gt_logits, target),
+            "loss": clean,
             "score": torch.amax(probs, dim=-1),
             "label": torch.argmax(probs, dim=-1),
         }

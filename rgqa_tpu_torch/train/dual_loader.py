@@ -24,6 +24,15 @@ launches.
 
 WOODS (``gqa_woods.py:94-157``) is plain unweighted BCE over the pos and
 neg batches (``weighted=False``), with zero weight gradients.
+
+Data parallel (``mesh``): each rank takes its rows of the global
+positive batch and of the global negative draw (made from the shared
+generator), the weights are replicated on every rank, and the model's
+gradient and the weight gradient are averaged over the ranks in one
+all-reduce.  Every loss here is a mean over rows (the negative term's
+``sum / B`` at the rank's B), and the weights' normalizers are means
+over the whole weight vector, so no batch statistic crosses the ranks
+otherwise.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel.mesh import SINGLE, Mesh, reduce_gradients
 from rgqa_tpu_torch.train.losses import optax_sigmoid_bce
 
 __all__ = ["NegativeWeights", "make_minmax_step", "sample_negative_indices", "softplus"]
@@ -81,6 +91,7 @@ def make_minmax_step(
     grad_clip: float = 5.0,
     rng: Optional[DropoutRng] = None,
     use_fused: Optional[bool] = None,
+    mesh: Mesh = SINGLE,
 ):
     """``step(w_values, pos, neg, wids) -> (w_grads, aux)`` over a
     positive batch, a negative batch and the negatives' rows ``wids``
@@ -89,7 +100,9 @@ def make_minmax_step(
     caller owns the weights' optimizer, :class:`NegativeWeights`).
     ``aux``: ``loss`` (= ``loss_pos + loss_neg``), ``loss_pos``,
     ``loss_neg``, and ``score`` / ``label`` of the positive rows.
-    ``use_fused=False`` runs the attention's plain versions."""
+    ``use_fused=False`` runs the attention's plain versions.  ``mesh``:
+    data parallel, ``pos`` / ``neg`` / ``wids`` this rank's rows; the
+    returned losses and weight gradient are the global batch's."""
     from rgqa_tpu_torch.train.step import global_norm_clip
 
     rng = rng or DropoutRng()
@@ -115,9 +128,6 @@ def make_minmax_step(
                 loss_neg = torch.mean(per_elem) * k
             optimizer.zero_grad(set_to_none=True)
             (loss_pos + loss_neg).backward()
-        if grad_clip and grad_clip > 0:
-            global_norm_clip(params, grad_clip)
-        optimizer.step()
         if weighted:
             # d(-loss_neg)/dw at the pre-update parameters: the detached BCE.
             w = w_values.detach().requires_grad_(True)
@@ -125,11 +135,15 @@ def make_minmax_step(
             (w_grads,) = torch.autograd.grad(loss_w, w)
         else:
             w_grads = torch.zeros_like(w_values)
+        loss_pos, loss_neg, w_grads = reduce_gradients(mesh, params, [loss_pos, loss_neg, w_grads])
+        if grad_clip and grad_clip > 0:
+            global_norm_clip(params, grad_clip)
+        optimizer.step()
         probs = torch.sigmoid(lp.detach())
         aux = {
-            "loss": (loss_pos + loss_neg).detach(),
-            "loss_pos": loss_pos.detach(),
-            "loss_neg": loss_neg.detach(),
+            "loss": loss_pos + loss_neg,
+            "loss_pos": loss_pos,
+            "loss_neg": loss_neg,
             "label": torch.argmax(probs, dim=-1),
             "score": torch.amax(probs, dim=-1),
         }

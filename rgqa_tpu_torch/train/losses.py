@@ -11,6 +11,13 @@ would round past the hinge).  :func:`binary_loss` is
 the JAX train step's ``binary`` branch (``rgqa_tpu/train/step.py:410-416``):
 a separate detector's or the caption matcher's one logit against the
 is-answerable indicator.
+
+The means over a subset of rows (``row_mask``, the energy hinge's
+answerable and other rows) take ``mesh``, a data-parallel
+:class:`~rgqa_tpu_torch.parallel.Mesh`: under several ranks the count of
+selected rows is the global batch's, and the rank's sum is scaled by the
+world size, so that the ranks' mean is the global batch's loss
+(:mod:`rgqa_tpu_torch.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -18,6 +25,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from rgqa_tpu_torch.parallel.mesh import SINGLE, Mesh, all_sum
 
 __all__ = [
     "optax_sigmoid_bce",
@@ -30,11 +39,11 @@ __all__ = [
 ]
 
 
-def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor] = None, mesh: Mesh = SINGLE) -> torch.Tensor:
     if mask is None:
         return x.mean()
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (x * mask).sum() * mesh.world / torch.clamp(all_sum(mesh, mask.sum()), min=1.0)
 
 
 def optax_sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -44,23 +53,23 @@ def optax_sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tens
 
 
 def bce_answer_loss(
-    logits: torch.Tensor, targets: torch.Tensor, row_mask: Optional[torch.Tensor] = None
+    logits: torch.Tensor, targets: torch.Tensor, row_mask: Optional[torch.Tensor] = None, mesh: Mesh = SINGLE
 ) -> torch.Tensor:
     """Per-answer binary CE, scaled by the answer count; ``row_mask``
     averages over the selected rows only."""
     per_row = optax_sigmoid_bce(logits, targets).mean(dim=-1)
-    return _masked_mean(per_row, row_mask) * logits.shape[-1]
+    return _masked_mean(per_row, row_mask, mesh) * logits.shape[-1]
 
 
 def mce_answer_loss(
-    logits: torch.Tensor, targets: torch.Tensor, row_mask: Optional[torch.Tensor] = None
+    logits: torch.Tensor, targets: torch.Tensor, row_mask: Optional[torch.Tensor] = None, mesh: Mesh = SINGLE
 ) -> torch.Tensor:
     """Softmax CE against the argmax target (the first of tied maxima; a
     zero row's is answer 0), scaled by the answer count (``--mceLoss``,
     ``gqa_conf.py:194-196``)."""
     labels = torch.argmax(targets, dim=-1)
     per_row = -torch.log_softmax(logits, dim=-1).gather(-1, labels[:, None])[:, 0]
-    return _masked_mean(per_row, row_mask) * logits.shape[-1]
+    return _masked_mean(per_row, row_mask, mesh) * logits.shape[-1]
 
 
 def energy_of_logits(logits: torch.Tensor, mce: bool = False) -> torch.Tensor:
@@ -72,26 +81,27 @@ def energy_of_logits(logits: torch.Tensor, mce: bool = False) -> torch.Tensor:
 
 
 def energy_regularizer(
-    logits: torch.Tensor, id_mask: torch.Tensor, m_in: float, m_out: float, mce: bool = False
+    logits: torch.Tensor, id_mask: torch.Tensor, m_in: float, m_out: float, mce: bool = False, mesh: Mesh = SINGLE
 ) -> torch.Tensor:
     """The energy hinge (``gqa_energy.py:137-138``): ``0.1 * (mean over
     answerable rows of relu(-E - m_in)^2 + mean over the others of
     relu(m_out + E)^2)``, ``id_mask`` 1 on the answerable rows."""
     e = energy_of_logits(logits, mce=mce)
     id_mask = id_mask.to(e.dtype)
-    id_term = _masked_mean(torch.square(torch.relu(-e - m_in)), id_mask)
-    ood_term = _masked_mean(torch.square(torch.relu(m_out + e)), 1.0 - id_mask)
+    id_term = _masked_mean(torch.square(torch.relu(-e - m_in)), id_mask, mesh)
+    ood_term = _masked_mean(torch.square(torch.relu(m_out + e)), 1.0 - id_mask, mesh)
     return 0.1 * (id_term + ood_term)
 
 
 def branched_loss(
     logits: torch.Tensor, conf_logit: torch.Tensor, targets: torch.Tensor, id_mask: torch.Tensor,
     mce: bool = False,
+    mesh: Mesh = SINGLE,
 ) -> torch.Tensor:
     """The two-headed loss (``gqa_branched.py:130-143``): the answer loss
     over the answerable rows plus the mean BCE of the confidence logit
     (B,) against ``id_mask`` over every row."""
-    answer = (mce_answer_loss if mce else bce_answer_loss)(logits, targets, row_mask=id_mask)
+    answer = (mce_answer_loss if mce else bce_answer_loss)(logits, targets, row_mask=id_mask, mesh=mesh)
     return answer + optax_sigmoid_bce(conf_logit, id_mask.to(conf_logit.dtype)).mean()
 
 

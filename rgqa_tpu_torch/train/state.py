@@ -18,6 +18,7 @@
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,16 +43,17 @@ def save_reference_pth(model: nn.Module, cfg: ModelConfig, path: str) -> str:
 
 
 def save_train_state(path: str, *, optimizer, step: int, rng_state: dict,
-                     shuffle: np.random.Generator) -> str:
-    torch.save(
-        {
-            "optimizer": optimizer.state_dict(),
-            "step": int(step),
-            "rng": rng_state,
-            "shuffle": shuffle.bit_generator.state,
-        },
-        path,
-    )
+                     shuffle: np.random.Generator, rng_ranks: Optional[list] = None) -> str:
+    """``rng_ranks``: every rank's generator states, under several ranks."""
+    state = {
+        "optimizer": optimizer.state_dict(),
+        "step": int(step),
+        "rng": rng_state,
+        "shuffle": shuffle.bit_generator.state,
+    }
+    if rng_ranks is not None:
+        state["rng_ranks"] = rng_ranks
+    torch.save(state, path)
     return path
 
 

@@ -21,6 +21,18 @@ Gumbel picks, ``treemix_both``'s coin).  :func:`mixup_apply` then applies
 them to the batch where it lies: gathers, selects and targets.  So no
 draw waits on the device, nothing in a step reads a value back to the
 host, and the tests hand the JAX key chain's draws to the apply step.
+
+Data parallel (``mesh``, a :class:`~rgqa_tpu_torch.parallel.Mesh` of N
+ranks, each with its rows of the global batch): every draw is made for
+the global batch from the stream the ranks share, and each rank applies
+its rows of it (:func:`local_draws`); the rolls are of the global batch
+(:func:`~rgqa_tpu_torch.parallel.roll_rows`: a row's partner may lie on
+another rank); the weighted means take global sums; and the gradients
+are averaged over the ranks before the global clip
+(:func:`~rgqa_tpu_torch.parallel.reduce_gradients`), the step's loss
+values riding in the same all-reduce.  Each step then means what the
+one-process step means at the same global batch.  On one rank all of it
+is the one-process step.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import torch
 from rgqa_tpu_torch.device import exact_f32
 from rgqa_tpu_torch.ops.dropout import DropoutRng
 from rgqa_tpu_torch.ops.pixels import clip_normalize
+from rgqa_tpu_torch.parallel.mesh import SINGLE, Mesh, all_sum, gather_rows, reduce_gradients, roll_rows
 from rgqa_tpu_torch.train.losses import (
     bce_answer_loss,
     binary_loss,
@@ -43,7 +56,7 @@ from rgqa_tpu_torch.train.losses import (
     optax_sigmoid_bce,
 )
 
-__all__ = ["global_norm_clip", "rp_augment", "draw_mixup", "mixup_apply", "make_train_step",
+__all__ = ["global_norm_clip", "rp_augment", "draw_mixup", "local_draws", "mixup_apply", "make_train_step",
            "make_weighted_clip_train_step"]
 
 TEXT_KEYS = ("input_ids", "input_mask", "segment_ids", "token_ids")  # token_ids: BUTD's
@@ -60,15 +73,16 @@ def global_norm_clip(params, max_norm: float) -> torch.Tensor:
     return torch.nn.utils.clip_grad_norm_(params, max_norm)
 
 
-def rp_augment(batch: dict, shift: int) -> dict:
+def rp_augment(batch: dict, shift: int, mesh: Mesh = SINGLE) -> dict:
     """Random-pairing pseudo-UQ negatives (``gqa_conf.py:155-170``): the
     text fields rolled by ``shift`` rows (a different row is a different
     image with probability ~1 for shuffled batches), the vision fields
-    kept, appended below the batch with zero targets and ``id_mask``."""
+    kept, appended below the batch with zero targets and ``id_mask``.
+    Under several ranks the roll is the global batch's."""
     out = dict(batch)
     for k in TEXT_KEYS:
         if k in batch:
-            out[k] = torch.cat([batch[k], torch.roll(batch[k], shift, dims=0)], 0)
+            out[k] = torch.cat([batch[k], roll_rows(mesh, batch[k], shift)], 0)
     for k in VISION_KEYS:
         if k in batch:
             out[k] = torch.cat([batch[k], batch[k]], 0)
@@ -91,9 +105,10 @@ def _host_gumbel(host: Optional[torch.Generator], shape) -> torch.Tensor:
 
 
 def draw_mixup(batch: dict, mode: str, alpha: float, beta: float,
-               host: Optional[torch.Generator] = None) -> dict:
+               host: Optional[torch.Generator] = None, rows: Optional[int] = None) -> dict:
     """The host draws of one :func:`mixup_apply` call on ``batch`` (B rows,
-    N RoIs, T tokens, K parse spans), as CPU tensors and Python scalars:
+    or ``rows``, the global batch's, under several ranks; N RoIs, T
+    tokens, K parse spans), as CPU tensors and Python scalars:
 
     - ``treemix_both``: ``coin`` (True: the TreeMix splice as
       ``treemix_v2``, False: ``mixup_v2``), then that mode's draws;
@@ -111,7 +126,7 @@ def draw_mixup(batch: dict, mode: str, alpha: float, beta: float,
     if mode == "perturb":
         return {"perm": torch.randperm(batch["feats"].shape[1], generator=host)}
     text = next(batch[k] for k in ("input_ids", "token_ids") if k in batch)
-    b = text.shape[0]
+    b = rows or text.shape[0]
     draws = {"prop": _host_beta(host, alpha, beta, b)}
     if mode.startswith("treemix"):
         draws["pos_u"] = torch.rand(b, generator=host)
@@ -122,6 +137,18 @@ def draw_mixup(batch: dict, mode: str, alpha: float, beta: float,
         k = batch["parse_spans"].shape[1]
         draws["gumbel_a"], draws["gumbel_p"] = _host_gumbel(host, (b, k)), _host_gumbel(host, (b, k))
     return draws
+
+
+ROW_DRAWS = ("prop", "pos_u", "u", "gumbel_a", "gumbel_p")  # one entry per row of the global batch
+
+
+def local_draws(draws: dict, mesh: Mesh = SINGLE) -> dict:
+    """This rank's rows of the per-row draws of the global batch (the
+    shift, the coin and the RoI permutation are the batch's, whole)."""
+    if mesh.world == 1:
+        return draws
+    rows = mesh.rows(len(draws["prop"])) if "prop" in draws else None
+    return {k: v[rows] if k in ROW_DRAWS else v for k, v in draws.items()}
 
 
 def _roi_fields(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
@@ -140,7 +167,7 @@ def _appended(batch: dict, out: dict, pet_target: torch.Tensor) -> dict:
     return out
 
 
-def _treemix_apply(batch: dict, draws: dict, mode: str, lam1: float, lam2: float) -> dict:
+def _treemix_apply(batch: dict, draws: dict, mode: str, lam1: float, lam2: float, mesh: Mesh = SINGLE) -> dict:
     """The constituency splice (reference ``gqa_mixup_both.py``, JAX
     ``_treemix_augment``): with parse spans, a Gumbel-picked anchor
     subtree whose word ratio lies in (lam2, lam1) is replaced by a
@@ -166,7 +193,7 @@ def _treemix_apply(batch: dict, draws: dict, mode: str, lam1: float, lam2: float
         spans = batch["parse_spans"].long()  # (B, K, 2)
         sw = batch["parse_span_words"].float()
         nw = batch["parse_n_words"].float()
-        p_spans, p_sw = torch.roll(spans, shift, 0), torch.roll(sw, shift, 0)
+        p_spans, p_sw = roll_rows(mesh, spans, shift), roll_rows(mesh, sw, shift)
         nw_safe = torch.clamp(nw, min=1.0)[:, None]
         lo, hi = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (lam2, lam1))
 
@@ -194,7 +221,7 @@ def _treemix_apply(batch: dict, draws: dict, mode: str, lam1: float, lam2: float
     mixed = {}
     for k in text_keys:
         a = batch[k]
-        from_p = torch.roll(a, shift, 0).gather(1, idx_p)
+        from_p = roll_rows(mesh, a, shift).gather(1, idx_p)
         mixed[k] = torch.where(take_p, from_p, torch.where(take_suffix, a.gather(1, idx_s), a))
     if "input_mask" in batch:
         len_a = batch["input_mask"].to(torch.int32).sum(1)
@@ -211,7 +238,7 @@ def _treemix_apply(batch: dict, draws: dict, mode: str, lam1: float, lam2: float
 
 
 def mixup_apply(batch: dict, draws: dict, mode: str, *, uq_as_class: bool = False,
-                lam1: float = 0.5, lam2: float = 0.05) -> dict:
+                lam1: float = 0.5, lam2: float = 0.05, mesh: Mesh = SINGLE) -> dict:
     """Append pseudo-UQ rows to ``batch`` from :func:`draw_mixup`'s
     ``draws`` (JAX ``mixup_augment``; reference ``gqa_mixup_vis.py``,
     ``gqa_mixup_both.py``, ``gqa_ood.py``), on the batch's device:
@@ -233,11 +260,13 @@ def mixup_apply(batch: dict, draws: dict, mode: str, *, uq_as_class: bool = Fals
       ``mixup_v2`` by the draws' coin.
 
     The question text is the anchor's except under TreeMix; the appended
-    rows' ``id_mask`` is zero."""
+    rows' ``id_mask`` is zero.  Under several ranks (``mesh``) ``draws``
+    are this rank's rows (:func:`local_draws`) and the partner roll is
+    the global batch's."""
     if mode == "treemix_both":
         mode = "treemix_v2" if draws["coin"] else "mixup_v2"
     if mode.startswith("treemix"):
-        return _treemix_apply(batch, draws, mode, lam1, lam2)
+        return _treemix_apply(batch, draws, mode, lam1, lam2, mesh)
     feats, boxes = _roi_fields(batch)
     target = batch["target"]
     b, n = feats.shape[:2]
@@ -253,14 +282,14 @@ def mixup_apply(batch: dict, draws: dict, mode: str, *, uq_as_class: bool = Fals
     shift = draws["shift"]
     if mode.startswith("weighted_sum"):
         p3 = prop[:, None, None]
-        out["feats"] = torch.cat([feats, p3 * feats + (1.0 - p3) * torch.roll(feats, shift, 0)], 0)
+        out["feats"] = torch.cat([feats, p3 * feats + (1.0 - p3) * roll_rows(mesh, feats, shift)], 0)
         out["boxes"] = torch.cat([boxes, boxes], 0)
         pet = torch.zeros_like(target) if mode == "weighted_sum_v2" else target * prop[:, None]
         return _appended(batch, out, pet)
     u = draws["u"].to(feats.device)
     ranks = torch.argsort(torch.argsort(u, dim=1, stable=True), dim=1, stable=True)
     keep = (ranks < torch.floor(prop[:, None] * n))[..., None]
-    neg_feats, neg_boxes = torch.roll(feats, shift, 0), torch.roll(boxes, shift, 0)
+    neg_feats, neg_boxes = roll_rows(mesh, feats, shift), roll_rows(mesh, boxes, shift)
     base = torch.zeros_like(feats) if mode == "mixup_v3" else neg_feats
     out["feats"] = torch.cat([feats, torch.where(keep, feats, base)], 0)
     out["boxes"] = torch.cat([boxes, torch.where(keep, boxes, neg_boxes)], 0)
@@ -300,6 +329,7 @@ def make_train_step(
     grad_clip: float = 5.0,
     rng: Optional[DropoutRng] = None,
     use_fused: Optional[bool] = None,
+    mesh: Mesh = SINGLE,
 ):
     """``step(batch, shift=None, draws=None, neg_weights=None) -> {"loss",
     "score", "label"}``, tensors on the batch's device, for a model in
@@ -324,7 +354,13 @@ def make_train_step(
     ``m_out`` (logsumexp energies under MCE).  ``uq_as_class`` gives the
     mixup rows UQ-column targets.  (B,) logits count as (B, 1), as in
     the JAX step.  ``use_fused=False`` runs the attention's plain
-    versions."""
+    versions.
+
+    ``mesh``: data parallel over its ranks, ``batch`` this rank's rows of
+    the global batch; ``shift`` and ``draws`` are the global batch's (the
+    module's docstring), ``neg_weights`` this rank's rows of weights
+    normalized over the global batch.  The returned ``loss`` is the
+    global batch's, ``score`` / ``label`` this rank's rows'."""
     if loss not in ("bce", "mce"):
         raise ValueError(f"loss {loss!r}: bce or mce")
     mce = loss == "mce"
@@ -333,8 +369,8 @@ def make_train_step(
     precision = getattr(forward, "precision", contextlib.nullcontext)
 
     def weighted_rp_loss(batch: dict, shift: int, neg_weights: torch.Tensor):
-        loss_pos, per_row, lp = _pair_losses(forward, batch, shift, rng, use_fused)
-        return 0.5 * (loss_pos + _weighted_mean(per_row, neg_weights.to(torch.float32))), lp
+        loss_pos, per_row, lp = _pair_losses(forward, batch, shift, rng, use_fused, mesh)
+        return 0.5 * (loss_pos + _weighted_mean(per_row, neg_weights.to(torch.float32), mesh)), lp
 
     def step(batch: dict, shift: Optional[int] = None, draws: Optional[dict] = None,
              neg_weights: Optional[torch.Tensor] = None) -> dict:
@@ -345,12 +381,14 @@ def make_train_step(
                 total.backward()
             return _update(total, logits)
         if sample_pair:
-            b = next(batch[k] for k in TEXT_KEYS if k in batch).shape[0]
-            batch = rp_augment(batch, rng.shift(b) if shift is None else shift)
+            b = next(batch[k] for k in TEXT_KEYS if k in batch).shape[0] * mesh.world
+            batch = rp_augment(batch, rng.shift(b) if shift is None else shift, mesh)
         elif mixup_mode:
             if draws is None:
-                draws = draw_mixup(batch, mixup_mode, mixup_alpha, mixup_beta, rng.host)
-            batch = mixup_apply(batch, draws, mixup_mode, uq_as_class=uq_as_class, lam1=lam1, lam2=lam2)
+                b = next(batch[k] for k in ("input_ids", "token_ids") if k in batch).shape[0] * mesh.world
+                draws = draw_mixup(batch, mixup_mode, mixup_alpha, mixup_beta, rng.host, rows=b)
+            batch = mixup_apply(batch, local_draws(draws, mesh), mixup_mode, uq_as_class=uq_as_class,
+                                lam1=lam1, lam2=lam2, mesh=mesh)
         with precision():
             out = forward(batch, rng=rng, use_fused=use_fused)
             logits = out["logits"].to(torch.float32)
@@ -360,18 +398,20 @@ def make_train_step(
             if binary:
                 total = binary_loss(logits[:, 0], id_mask)
             elif branched:
-                total = branched_loss(logits, out["conf"].to(torch.float32), target, id_mask, mce=mce)
+                total = branched_loss(logits, out["conf"].to(torch.float32), target, id_mask, mce=mce,
+                                      mesh=mesh)
             elif mce:
                 total = mce_answer_loss(logits, target)
             else:
                 total = bce_answer_loss(logits, target)
             if energy:
-                total = total + energy_regularizer(logits, id_mask, m_in, m_out, mce=mce)
+                total = total + energy_regularizer(logits, id_mask, m_in, m_out, mce=mce, mesh=mesh)
             optimizer.zero_grad(set_to_none=True)
             total.backward()
         return _update(total, logits)
 
     def _update(total: torch.Tensor, logits: torch.Tensor) -> dict:
+        (total,) = reduce_gradients(mesh, params, [total])
         if grad_clip and grad_clip > 0:
             global_norm_clip(params, grad_clip)
         optimizer.step()
@@ -385,25 +425,29 @@ def _aux(total: torch.Tensor, logits: torch.Tensor) -> dict:
     return {"loss": total.detach(), "score": torch.amax(probs, dim=-1), "label": torch.argmax(probs, dim=-1)}
 
 
-def _pair_losses(forward, batch: dict, shift: int, rng: DropoutRng, use_fused: Optional[bool]):
+def _pair_losses(forward, batch: dict, shift: int, rng: DropoutRng, use_fused: Optional[bool], mesh: Mesh = SINGLE):
     """The weighted strategies' two forwards (JAX ``weighted_rp_loss``):
     (the positive rows' BCE x answers, each negative row's BCE x answers
     against zero targets, the positive f32 logits); the negatives are the
-    batch's images under its text fields rolled by ``shift``."""
+    batch's images under its text fields rolled by ``shift`` (the global
+    batch's roll under several ranks)."""
     lp = forward(batch, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
     k = lp.shape[-1]
     loss_pos = torch.mean(optax_sigmoid_bce(lp, batch["target"])) * k
     neg = dict(batch)
     for key in TEXT_KEYS:
         if key in batch:
-            neg[key] = torch.roll(batch[key], shift, dims=0)
+            neg[key] = roll_rows(mesh, batch[key], shift)
     ln = forward(neg, rng=rng, use_fused=use_fused)["logits"].to(torch.float32)
     per_row = torch.mean(optax_sigmoid_bce(ln, torch.zeros_like(ln)), dim=-1) * k
     return loss_pos, per_row, lp
 
 
-def _weighted_mean(per_row: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.sum(per_row * w) / torch.clamp(torch.sum(w), min=1e-8)
+def _weighted_mean(per_row: torch.Tensor, w: torch.Tensor, mesh: Mesh = SINGLE) -> torch.Tensor:
+    """``sum(w x l) / sum(w)`` over the global batch; under several ranks
+    the rank's share (its sum over the global sum of ``w``, times the
+    world size: the ranks' mean is the global mean)."""
+    return torch.sum(per_row * w) * mesh.world / torch.clamp(all_sum(mesh, torch.sum(w)), min=1e-8)
 
 
 def make_weighted_clip_train_step(
@@ -417,6 +461,7 @@ def make_weighted_clip_train_step(
     clip_grad_clip: float = 5.0,
     rng: Optional[DropoutRng] = None,
     use_fused: Optional[bool] = None,
+    mesh: Mesh = SINGLE,
 ):
     """``step(batch, shift) -> {"loss", "loss_w", "score", "label"}``: the
     joint min-max step of ``--strategy weight --update_weight_model``
@@ -438,7 +483,12 @@ def make_weighted_clip_train_step(
     optimizer's step.  A CLIP model computing in f32 runs the step, its
     backward included, without TF32 (:func:`~rgqa_tpu_torch.device.
     exact_f32`).  ``use_fused=False`` runs the attention's plain
-    versions in both models."""
+    versions in both models.
+
+    Under several ranks (``mesh``) the softmax is over the global batch:
+    each rank's similarities are gathered, every rank computes the
+    weights and CLIP's objective alike, and the model's weighted mean
+    takes its rows' weights (the module's docstring)."""
     rng = rng or DropoutRng()
     params = [p for group in optimizer.param_groups for p in group["params"]]
     clip_params = [p for group in clip_optimizer.param_groups for p in group["params"]]
@@ -450,22 +500,24 @@ def make_weighted_clip_train_step(
         if pixels.dtype == torch.uint8:
             pixels = clip_normalize(pixels)
         with clip_precision(), precision():
-            cos = clip_model.cosine(torch.roll(batch["clip_ids"], shift, dims=0),
-                                    torch.roll(batch["clip_mask"], shift, dims=0), pixels, use_fused=use_fused)
+            cos = clip_model.cosine(roll_rows(mesh, batch["clip_ids"], shift),
+                                    roll_rows(mesh, batch["clip_mask"], shift), pixels, use_fused=use_fused)
             sim = cos.to(torch.float32) * torch.exp(clip_model.logit_scale.detach().to(torch.float32))
-            w = torch.softmax(sim / temperature, dim=0)
-            loss_pos, per_row, lp = _pair_losses(forward, batch, shift, rng, use_fused)
-            loss_model = 0.5 * (loss_pos + _weighted_mean(per_row, w.detach()))
-            loss_clip = -_weighted_mean(per_row.detach(), w)
+            w_all = torch.softmax(gather_rows(mesh, sim) / temperature, dim=0)
+            w = w_all[mesh.rows(w_all.shape[0])]
+            loss_pos, per_row, lp = _pair_losses(forward, batch, shift, rng, use_fused, mesh)
+            loss_model = 0.5 * (loss_pos + _weighted_mean(per_row, w.detach(), mesh))
+            loss_clip = -_weighted_mean(gather_rows(mesh, per_row.detach()), w_all)
             optimizer.zero_grad(set_to_none=True)
             clip_optimizer.zero_grad(set_to_none=True)
             (loss_model + loss_clip).backward()
+        loss_model, loss_clip = reduce_gradients(mesh, params + clip_params, [loss_model, loss_clip])
         if grad_clip and grad_clip > 0:
             global_norm_clip(params, grad_clip)
         if clip_grad_clip and clip_grad_clip > 0:
             global_norm_clip(clip_params, clip_grad_clip)
         optimizer.step()
         clip_optimizer.step()
-        return dict(_aux(loss_model, lp), loss_w=-loss_clip.detach())
+        return dict(_aux(loss_model, lp), loss_w=-loss_clip)
 
     return step

@@ -32,6 +32,7 @@ import torch
 from rgqa_tpu_torch.data.batching import batch_iterator, to_device
 from rgqa_tpu_torch.metrics import RGQAEvaluator, dump_predictions
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel import refuse_ranks
 from rgqa_tpu_torch.scorers.core import make_msp_scorer
 from rgqa_tpu_torch.train.optimizer import make_optimizer
 from rgqa_tpu_torch.train.step import make_train_step
@@ -162,6 +163,7 @@ class VerifierTrainer:
     JAX's key is ``PRNGKey(0)``."""
 
     def __init__(self, verifier, answerer, topk: int = 5, seed: int = 0):
+        refuse_ranks("the verifier")  # one process: not ported to data parallelism yet
         self.verifier = verifier
         self.answerer = answerer
         self.topk = topk

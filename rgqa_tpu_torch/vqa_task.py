@@ -31,7 +31,12 @@ evaluate LXMERT on VQA-format data.
 - ``--train_chunk`` / ``--eval_chunk`` > 1 and ``--feed_int8`` are
   refused by name, as in the GQA runner.
 
-Everything runs on the card unless the caller asks for the CPU.
+Everything runs on the card unless the caller asks for the CPU.  Under
+N data-parallel ranks (``torchrun``, :mod:`rgqa_tpu_torch.parallel`) each
+rank trains on its rows of every global batch with the gradients
+averaged, predictions gather every rank's rows (the train score and the
+validation are the whole split's on every rank), and rank 0 alone writes
+the ``.pth`` files, ``log.log`` and the submission dumps.
 """
 
 from __future__ import annotations
@@ -56,8 +61,9 @@ from rgqa_tpu_torch.data.tsv import PackedFeatures
 from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.zoo import build_model
 from rgqa_tpu_torch.ops.dropout import DropoutRng
+from rgqa_tpu_torch.parallel.mesh import check_batch_size, gather_rows, make_mesh, on_main, shard_params
 from rgqa_tpu_torch.pretrain.answer_table import AnswerTable
-from rgqa_tpu_torch.runner import check_ported
+from rgqa_tpu_torch.runner import check_ported, pth_path
 from rgqa_tpu_torch.train.optimizer import make_optimizer
 from rgqa_tpu_torch.train.state import save_reference_pth
 from rgqa_tpu_torch.train.step import make_train_step
@@ -103,10 +109,16 @@ class VQARunner:
         })
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = make_mesh(self.device, model=cfg.mesh.model_axis)
+        check_batch_size(self.mesh, cfg.train.batch_size)
         data = cfg.data
         root = data.data_root
-        if data.synthetic and not os.path.exists(os.path.join(root, "trainval_ans2label.json")):
-            make_synthetic_vqa(root)
+
+        def write_root():
+            if data.synthetic and not os.path.exists(os.path.join(root, "trainval_ans2label.json")):
+                make_synthetic_vqa(root)
+
+        on_main(self.mesh, write_root)
         self.features = PackedFeatures(os.path.join(root, "features"))
         if data.tiny:
             self.features = self.features.truncate(512)
@@ -124,9 +136,10 @@ class VQARunner:
         )
         self.model.eval()  # train() switches it to training mode for its epochs
         self._load_initial_weights()
+        shard_params(self.mesh, self.model)
         self.output = cfg.output
         os.makedirs(self.output, exist_ok=True)
-        dump_run_config(cfg, self.output)
+        on_main(self.mesh, dump_run_config, cfg, self.output)
         self._encoded: dict[str, EncodedGQA] = {}
 
     def _load_initial_weights(self) -> None:
@@ -170,7 +183,7 @@ class VQARunner:
         return VQAEvaluator(self.encoded(split).dataset)
 
     def _batches(self, encoded: EncodedGQA, batch_size: int, **kw):
-        return device_prefetch(batch_iterator(encoded, batch_size, **kw), self.device)
+        return device_prefetch(batch_iterator(encoded, batch_size, mesh=self.mesh, **kw), self.device)
 
     # ------------------------------------------------------------------
 
@@ -185,9 +198,8 @@ class VQARunner:
         evaluator = self.evaluator(train_split)
         n_batches = max(len(train_set) // tcfg.batch_size, 1)
         optimizer = make_optimizer(tcfg.optim, self.model.parameters(), n_batches * tcfg.epochs)
-        rng = DropoutRng(device=torch.Generator(device=self.device).manual_seed(tcfg.seed),
-                         host=torch.Generator().manual_seed(tcfg.seed))
-        step = make_train_step(self.forward, optimizer, grad_clip=tcfg.optim.grad_clip, rng=rng)
+        rng = DropoutRng.for_rank(tcfg.seed, self.device, rank=self.mesh.rank, world=self.mesh.world)
+        step = make_train_step(self.forward, optimizer, grad_clip=tcfg.optim.grad_clip, rng=rng, mesh=self.mesh)
         shuffle = np.random.default_rng(tcfg.seed)
         best_valid = 0.0
         history = {"loss": [], "train": [], "valid": []}
@@ -209,7 +221,7 @@ class VQARunner:
                                                        drop_last=True, with_target=True):
                     aux = step(batch)
                     loss = aux["loss"]
-                    pending.append((qids, aux["label"], real))
+                    pending.append((qids, gather_rows(self.mesh, aux["label"]), real))
                     while len(pending) > 4:
                         drain(pending.popleft())
             finally:
@@ -230,15 +242,20 @@ class VQARunner:
                     f"Epoch {epoch}: Valid {valid_score * 100.0:0.2f}\n"
                     f"Epoch {epoch}: Best {best_valid * 100.0:0.2f}\n"
                 )
-            print(log_str, end="", flush=True)
-            with open(os.path.join(self.output, "log.log"), "a") as f:
-                f.write(log_str)
+            on_main(self.mesh, self._log, log_str)
         self.save("LAST")
         return history
 
+    def _log(self, log_str: str) -> None:
+        print(log_str, end="", flush=True)
+        with open(os.path.join(self.output, "log.log"), "a") as f:
+            f.write(log_str)
+
     def predict(self, split: str, dump: Optional[str] = None) -> dict:
         """``{question_id: answer}`` of the argmax logit, at batch
-        ``min(len(split), --batchSize)``; ``dump`` writes the submission."""
+        ``min(len(split), --batchSize)`` (rounded up to a multiple of the
+        world under several ranks, which gather their rows); ``dump``
+        writes the submission."""
         encoded = self.encoded(split)
         quesid2ans: dict = {}
 
@@ -249,16 +266,18 @@ class VQARunner:
 
         pending = None
         with torch.inference_mode():
-            for qids, batch, real in self._batches(encoded, min(len(encoded), self.cfg.train.batch_size)):
+            world = self.mesh.world
+            size = -(-min(len(encoded), self.cfg.train.batch_size) // world) * world
+            for qids, batch, real in self._batches(encoded, size):
                 logits = self.forward(batch, deterministic=True)["logits"].float()
-                current = (qids, torch.argmax(logits, dim=-1), real)
+                current = (qids, gather_rows(self.mesh, torch.argmax(logits, dim=-1)), real)
                 if pending is not None:  # one batch behind the dispatch front
                     fetch(pending)
                 pending = current
         if pending is not None:
             fetch(pending)
         if dump is not None:
-            self.evaluator(split).dump_result(quesid2ans, dump)
+            on_main(self.mesh, self.evaluator(split).dump_result, quesid2ans, dump)
         return quesid2ans
 
     def evaluate(self, split: str, dump: Optional[str] = None) -> float:
@@ -273,15 +292,22 @@ class VQARunner:
         return self.evaluator(split).evaluate(quesid2ans)
 
     def save(self, name: str) -> str:
-        """``<output>/<name>.pth`` in the reference GQA / VQA layout."""
-        return save_reference_pth(self.model, self.model_cfg, os.path.join(self.output, f"{name}.pth"))
+        """``<output>/<name>.pth`` in the reference GQA / VQA layout (rank 0
+        writes it)."""
+        path = os.path.join(self.output, f"{name}.pth")
+        on_main(self.mesh, save_reference_pth, self.model, self.model_cfg, path)
+        return path
 
     def load(self, path: str) -> list[str]:
         """A reference VQAModel (or GQA) ``.pth``: the same key layout
-        (``vqa_model.py:15-33``).  Returns the keys it lacked."""
+        (``vqa_model.py:15-33``); ``path`` less its ``.pth`` takes the file
+        (the recipe scripts' ``--load <run>/BEST``).  Returns the keys it
+        lacked."""
+        path = pth_path(path)
         if not os.path.isfile(path):
             raise NotImplementedError(
-                f"--load {path!r} is not a .pth file; loading orbax snapshots needs jax and is not ported yet"
+                f"--load {path!r} is not a .pth file (nor is {path}.pth); loading orbax snapshots needs jax "
+                "and is not ported yet"
             )
         enc = self.model_cfg.encoder
         sd, missing, unused = load_reference_pth(path, l_layers=enc.l_layers, x_layers=enc.x_layers,

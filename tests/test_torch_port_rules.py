@@ -17,8 +17,9 @@
 - The entry points run on the card unless asked for the CPU: without a
   card the runner, ``build_model`` (LXMERT, UNITER and ViLT), the
   train, evaluate and serve CLIs, and since slice 21 the pretraining,
-  VQA and NLVR2 runners and the pretraining and VQA CLIs raise when not
-  given the CPU (prepare-data runs no device code).
+  VQA and NLVR2 runners and the pretraining and VQA CLIs, and the
+  data-parallel check ``tools/ddp_check.py``, raise when not given the
+  CPU (prepare-data runs no device code).
 - The port's copies of framework-free JAX-package modules are held to
   their originals on the same inputs: the config parser (equal
   ``dataclasses.asdict``), the metrics (equal dicts, byte-equal dumps),
@@ -309,6 +310,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
     from rgqa_tpu_torch.nlvr2_task import Nlvr2Runner
     from rgqa_tpu_torch.pretrain.trainer import PretrainRunner
     from rgqa_tpu_torch.runner import GQARunner
+    from rgqa_tpu_torch.tools import ddp_check
     from rgqa_tpu_torch.vqa_task import VQARunner
 
     cfg, ns = port_config.parse_cli(["--data_root", str(tmp_path / "gqa"), "--synthetic",
@@ -339,6 +341,7 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
                                "--output", str(tmp_path / "p")]),
         lambda: vqa.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
                           "--output", str(tmp_path / "v")]),
+        lambda: ddp_check.main(["--root", str(tmp_path / "gqa"), "--out", str(tmp_path / "dp")]),
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             make()
