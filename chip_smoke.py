@@ -323,10 +323,10 @@ nonzero:
    through the kernels and the plain versions (34 launches of #1 and
    ``BWD_PER_STEP`` of #3 a step, losses within ``LOSS_RTOL``), at
    dropout 0.1 through #4 / #5 (34 and ``BWD_PER_STEP`` a step), ms per
-   step.  33: the train CLI with the flags of
+   step.  33: the train CLI with the commands of
    ``scripts/lxmert/train/{mixup,branched,energy,ood_finetune}.sh``
-   (``--chart`` on the last) and of UNITER's and BUTD's ``mixup.sh``,
-   one epoch each: launches of #4 / #5 a step and #1 a validation
+   (``--chart`` added on the last) and of UNITER's and BUTD's
+   ``mixup.sh`` as ``tools/recipes.py`` lists them, one epoch each: launches of #4 / #5 a step and #1 a validation
    forward (BUTD none), a ``BEST.pth`` that loads back with no key
    missing or unused, the chart pickle.  34: the evaluate CLI
    ``--scorer frcnn`` from phase 9's ``BEST.pth`` (``--fp32``, batch
@@ -346,8 +346,8 @@ nonzero:
    the plain versions (losses within ``LOSS_RTOL``), launches per step
    at dropout 0 and 0.1 held to ``NEW_STEP_LAUNCHES``, the wall and then
    the device time per step (``torch.profiler``).  36: the train CLI with the
-   flags of ``scripts/lxmert/train/{adv,resampling,poem,woods,
-   distill_online,weight}.sh``, one epoch each on a root of 128 train
+   commands of ``scripts/lxmert/train/{adv,resampling,poem,woods,
+   distill_online,weight}.sh`` (``tools/recipes.py``), one epoch each on a root of 128 train
    questions (the teacher a vanilla
    run's ``LAST``; ``weight`` with a random full-width HF CLIP
    directory, its pixels from the root's CLIP pack): launches per step
@@ -405,7 +405,23 @@ nonzero:
    encoder rows), one epoch on 128 synthetic pairs (34 #4, 32 #5 a step),
    ``evaluate`` and ``dump_csv`` (34 #1 a forward), one batch's f32 logits
    through the kernels and the plain versions within ``LOGIT_TOL``.
-46. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+46-49. data parallel (``rgqa_tpu_torch/parallel/``), full width.  46:
+   the train CLI under ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1`` (NCCL, world 1) against two one-process runs.
+   47-48: two gloo ranks on cuda:0 (``tools/ddp_check.py``) against one
+   process: RP, ``mixup_v1``, pretraining, the evaluate CLI with msp and
+   maha, RP at dropout 0.1.  49: on the same two ranks the serve CLI, the
+   distill CLI (cartography over two passes; two ensemble teachers) and
+   the verifier (an epoch, then its evaluation), each held to one
+   process with the launches per rank (the MC passes and the verifier
+   also at dropout 0.1, on #4 / #5), and the serve under torchrun at
+   world 1 on NCCL, byte for byte the one-process serve's lines.
+50. the recipe pair through ``rgqa_tpu_torch.tools.recipes``:
+   ``scripts/lxmert/train/vanilla.sh --synthetic --epochs 1`` then
+   ``scripts/lxmert/test/msp.sh --synthetic`` from its ``LAST.pth``, full
+   width on the card, each a process of its own: a ``LAST.pth`` that
+   loads back whole and each RGQA testdev subset's result and dump.
+51. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
    four experiment kernels the sum over their shapes and variants at
    batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -3504,24 +3520,26 @@ STRATEGY_STEPS = {
     "energy_mce": dict(step=dict(loss="mce", energy=True, m_in=25.0, m_out=0.0)),
     "uq_as_class": dict(step=dict(mixup_mode="mixup_v1", mixup_beta=5.0, uq_as_class=True), uq=True),
 }
-# Phase 33's train CLI runs: the scripts' flags (scripts/<backbone>/train/)
-# on the synthetic root, one epoch at the scripts' learning rate.
-STRATEGY_CLIS = {
-    "lxmert mixup.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
-                        "--mixup_mode", "mixup_v1", "--mixup_beta", "5", "--batchSize", "32", "--save_all"],
-    "lxmert branched.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
-                           "--branched", "--batchSize", "64"],
-    "lxmert energy.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
-                         "--scorer", "energy", "--m_in", "25", "--m_out", "0", "--batchSize", "64"],
-    "lxmert ood_finetune.sh": ["--train", "GQAUQ_train_questions_unsup_hard",
-                               "--valid", "GQAUQ_valid_questions_unsup_hard", "--uq_as_class",
-                               "--batchSize", "32", "--chart"],
-    "uniter mixup.sh": ["--backbone", "uniter", "--train",
-                        "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup", "--mixup_mode", "mixup_v1",
-                        "--mixup_beta", "5", "--batchSize", "32", "--save_all"],
-    "butd mixup.sh": ["--backbone", "butd", "--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup",
-                      "--mixup_mode", "mixup_v1", "--mixup_beta", "5", "--batchSize", "32", "--save_all"],
-}
+# Phase 33's train CLI runs: scripts/<backbone>/train/<name>, its command
+# as the recipe tool rewrites it for the port, with these flags after the
+# script's ("$@"): the synthetic root, one epoch; ood_finetune.sh also
+# dumps its chart.
+STRATEGY_SCRIPTS = (("lxmert", "mixup.sh", ()), ("lxmert", "branched.sh", ()), ("lxmert", "energy.sh", ()),
+                    ("lxmert", "ood_finetune.sh", ("--chart",)), ("uniter", "mixup.sh", ()), ("butd", "mixup.sh", ()))
+
+
+def recipe_argv(script: str, flags=(), **env) -> list:
+    """The port CLI's arguments of the one command that ``scripts/<script>``
+    runs with ``flags`` (its ``"$@"``) and the environment variables
+    ``env`` (``DATA_ROOT``, ``OUTPUT``, ...), through
+    ``rgqa_tpu_torch.tools.recipes``."""
+    from rgqa_tpu_torch.tools import recipes
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", script)
+    cmds = recipes.commands(path, list(flags), env=dict(os.environ, **env))
+    if len(cmds) != 1 or cmds[0][1:3] != ["-m", "rgqa_tpu_torch.cli.train"]:
+        raise AssertionError(f"{script}: the recipe tool lists {cmds}, want one train CLI command")
+    return cmds[0][3:]
 
 
 def _strategy_batches(root: str, n: int, answers: int, uq: bool, b: int = 32) -> list:
@@ -3670,10 +3688,12 @@ def phase_strategy_cli(tmp: str) -> None:
 
     phase = "strategy-cli"
     root = os.path.join(tmp, "gqa")
-    for name, flags in STRATEGY_CLIS.items():
-        out = os.path.join(tmp, name.replace(" ", "_"))
-        argv = ["--synthetic", "--data_root", root, "--epochs", "1", "--output", out, *flags]
+    for backbone_dir, script, extra in STRATEGY_SCRIPTS:
+        name = f"{backbone_dir} {script}"
+        argv = recipe_argv(f"{backbone_dir}/train/{script}", ["--synthetic", "--epochs", "1", *extra],
+                           DATA_ROOT=root, OUTPUT=tmp)
         cfg, _ = parse_cli(argv)
+        out = cfg.output
         backbone, batch = cfg.model.backbone, cfg.train.batch_size
         reset_counts()
         t0 = time.perf_counter()
@@ -3809,21 +3829,10 @@ for _pair in ("resampling", "woods", "weight"):
     NEW_STEP_LAUNCHES[_pair] = {
         0.0: _launches(fused_attention=2 * 34, fused_attention_bwd=2 * BWD_PER_STEP),
         RATE: _launches(fused_attention_dropout=2 * 34, fused_attention_dropout_bwd=2 * BWD_PER_STEP)}
-# Phase 36's train CLI runs: scripts/lxmert/train/<name>'s flags, one epoch.
-MINMAX_FLAGS = ["--train_pos", "GQAUQ_train_questions_unsup", "--train_neg", "GQAUQ_train_questions_unsup_hard",
-                "--batchSize", "32", "--lr", "1e-5", "--lr_w", "0.1"]
-NEW_STRATEGY_CLIS = {
-    "adv.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup", "--strategy", "adv",
-               "--adv_steps", "3", "--adv_lr_txt", "1e-3", "--adv_lr_img", "1e-3", "--adv_kl_weight", "1.5",
-               "--batchSize", "32", "--lr", "1e-5"],
-    "resampling.sh": ["--strategy", "resampling", *MINMAX_FLAGS],
-    "poem.sh": ["--strategy", "poem", *MINMAX_FLAGS],
-    "woods.sh": ["--strategy", "woods", *MINMAX_FLAGS],
-    "distill_online.sh": ["--strategy", "distill_online", "--teacher_path", "{vanilla}/LAST", "--mixup_mode",
-                          "mixup_v1", "--lam", "0.5", "--batchSize", "32", "--lr", "1e-5"],
-    "weight.sh": ["--train", "GQAUQ_train_questions_unsup,GQAUQ_valid_questions_unsup", "--strategy", "weight",
-                  "--clip_path", "{clip}", "--batchSize", "32", "--lr", "1e-5"],
-}
+# Phase 36's train CLI runs: scripts/lxmert/train/<name> through the
+# recipe tool, one epoch (distill_online.sh's TEACHER and weight.sh's
+# CLIP_PATH from the environment).
+NEW_STRATEGY_SCRIPTS = ("adv.sh", "resampling.sh", "poem.sh", "woods.sh", "distill_online.sh", "weight.sh")
 OPTIMS = (("adam", False), ("adamw", False), ("adamax", False), ("sgd", False), ("rms", False), ("bert", True))
 
 
@@ -4038,11 +4047,11 @@ def phase_new_strategy_cli(tmp: str) -> None:
     clip = _hf_clip_dir(os.path.join(tmp, "clip"), seed=3)
     per_step = {"adv.sh": NEW_STEP_LAUNCHES["adv"][RATE], "distill_online.sh":
                 NEW_STEP_LAUNCHES["distill_online"][RATE], "weight.sh": NEW_STEP_LAUNCHES["weight"][RATE]}
-    for name, flags in NEW_STRATEGY_CLIS.items():
-        out = os.path.join(tmp, name.replace(".sh", ""))
-        flags = [f.format(vanilla=vanilla, clip=clip) for f in flags]
-        argv = ["--synthetic", "--data_root", root, "--epochs", "1", "--output", out, *flags]
+    for name in NEW_STRATEGY_SCRIPTS:
+        argv = recipe_argv(f"lxmert/train/{name}", ["--synthetic", "--epochs", "1"], DATA_ROOT=root, OUTPUT=tmp,
+                           TEACHER=os.path.join(vanilla, "LAST"), CLIP_PATH=clip)
         cfg, _ = parse_cli(argv)
+        out = cfg.output
         batch = cfg.train.batch_size
         reset_counts()
         t0 = time.perf_counter()
@@ -4227,8 +4236,8 @@ def phase_weight_model_cli(tmp: str, root: str) -> tuple[str, str]:
     phase = "weight-model-cli"
     clip = _hf_clip_dir(os.path.join(tmp, "clip"), seed=4)
     out = os.path.join(tmp, "weight_model")
-    flags = [f.format(clip=clip) for f in NEW_STRATEGY_CLIS["weight.sh"]]
-    argv = ["--synthetic", "--data_root", root, "--epochs", "1", "--output", out, *flags, "--update_weight_model"]
+    argv = recipe_argv("lxmert/train/weight.sh", ["--synthetic", "--epochs", "1", "--output", out,
+                                                  "--update_weight_model"], DATA_ROOT=root, OUTPUT=tmp, CLIP_PATH=clip)
     cfg, _ = parse_cli(argv)
     reset_counts()
     t0 = time.perf_counter()
@@ -4766,7 +4775,10 @@ def phase_slice21() -> None:
 # against one process at the same global batch.  The torchrun run and the
 # two ranks start first and run beside this process's one-process runs.
 DP_SPEC = "64,96,32,64"  # the roots' images / train / valid / testdev rows: 3 RP steps of 32, 2 pretraining of 64
-DP_PATHS = "rp,mixup_v1,pretrain,eval_msp,eval_maha,rp_drop"
+DP_ENTRY_PATHS = ("serve", "distill_mc", "distill_ensemble", "verifier")  # phase 49, held to one process
+DP_DROP_PATHS = ("distill_mc_drop", "verifier_drop")  # phase 49 at dropout 0.1: each rank its own stream
+DP_PATHS = ",".join(("rp", "mixup_v1", "pretrain", "eval_msp", "eval_maha", "rp_drop", *DP_ENTRY_PATHS,
+                     *DP_DROP_PATHS))
 NCCL_RTOL = 1e-6  # torchrun at world 1 against one process (or the noise floor of two one-process runs)
 DP_RTOL = 1e-4  # two ranks against one process, f32; also the maha fit's moments
 DP_CONF_TOL = 1e-5  # the evaluate paths' confidences, two ranks against one process
@@ -4825,7 +4837,6 @@ def _start_torchrun(tmp: str):
     ``python -m torch.distributed.run --nproc_per_node 1`` started (the
     output to files, read once it ends)."""
     from rgqa_tpu_torch.data.synthetic import SyntheticSpec, make_synthetic_gqa
-    from rgqa_tpu_torch.tools.ddp_check import free_port
 
     n_images, n_train, n_valid, n_testdev = (int(x) for x in DP_SPEC.split(","))
     root = os.path.join(tmp, "nccl_gqa")
@@ -4834,8 +4845,8 @@ def _start_torchrun(tmp: str):
     argv = ["--data_root", root, "--sample_pair", "--epochs", "1", "--batchSize", "32"]
     out, err = (open(os.path.join(tmp, f"torchrun.{k}"), "w+") for k in ("out", "err"))
     proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", "1",
-         "--master_addr", "127.0.0.1", "--master_port", str(free_port()), os.path.abspath(__file__),
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nnodes", "1", "--nproc_per_node", "1",
+         os.path.abspath(__file__),
          "--train-cli-rank", *argv, "--output", os.path.join(tmp, "nccl_torchrun")],
         stdout=out, stderr=err, text=True,
         env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
@@ -4998,6 +5009,134 @@ def phase_two_ranks(tmp: str, argv: list, spawn, t0: float) -> None:
             a == b for a, b in zip(d0["seeds"], d1["seeds"])) or not d0["seeds"]:
         raise AssertionError(f"{phase}: dropout streams: shifts {d0['shifts']} / {d1['shifts']}, seeds alike")
     torch.cuda.empty_cache()
+    return one, two
+
+
+def _start_serve_torchrun(tmp: str, argv: list, init: str, started: dict) -> None:
+    """Phase 49's serve under ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1`` (NCCL, world 1), started once
+    ``init`` (the one-process run's ``rp/INIT.pth``) is whole: the serve
+    path's arguments and records (``ddp_check.serve_argv`` /
+    ``serve_records``) on stdin, its output to files."""
+    from rgqa_tpu_torch.tools import ddp_check
+
+    args = ddp_check._parser().parse_args([*argv, "--out", os.path.join(tmp, "dp_one")])
+    root = os.path.join(args.root, "gqa")
+    records = os.path.join(tmp, "serve_records.jsonl")
+    with open(records, "w") as f:
+        f.write("".join(line + "\n" for line in ddp_check.serve_records(root)))
+    deadline = time.monotonic() + 300
+    while not os.path.isfile(init) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    out, err = (open(os.path.join(tmp, f"serve_torchrun.{k}"), "w+") for k in ("out", "err"))
+    with open(records) as stdin:
+        started["proc"] = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nnodes", "1", "--nproc_per_node",
+             "1", "-m", "rgqa_tpu_torch.cli.serve",
+             *ddp_check.serve_argv(args, root, os.path.join(tmp, "serve_torchrun")), "--device", "cuda"],
+            stdin=stdin, stdout=out, stderr=err, text=True,
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+    started["files"] = (out, err)
+
+
+def _answers(lines: list) -> tuple[list, list]:
+    rows = [json.loads(line) for line in lines]
+    return [r for r in rows if "error" not in r], [r for r in rows if "error" in r]
+
+
+def phase_dp_entry_points(one: dict, two: list, started: dict) -> None:
+    """Phase 49: the serve CLI, the distill CLI (cartography over two
+    passes; two ensemble teachers) and the verifier (an epoch of training,
+    then its evaluation) on phase 47's two gloo ranks on cuda:0 against
+    one process, full width, f32, global batch 32: the serve's answers
+    and its two error lines as one process's, printed on rank 0 alone,
+    its printed confidences within one unit of the fourth decimal and the
+    unrounded ones within ``DP_CONF_TOL``; the distilled rows' ids and
+    labels equal and their scores within ``DP_CONF_TOL``; the verifier's
+    step losses within ``DP_RTOL`` and its confidences within
+    ``DP_CONF_TOL``; every path's launches alike on both ranks, nonzero.
+    At dropout 0.1 (``DP_DROP_PATHS``) the MC passes and the verifier's
+    steps run #4 (and #5), the ranks' results alike.  Then the serve
+    under torchrun at world 1 on NCCL
+    (:func:`_start_serve_torchrun`) prints the one-process serve's lines
+    byte for byte."""
+    phase = "dp-entry"
+    for path in DP_ENTRY_PATHS:
+        o, r0, r1 = one[path], two[0][path], two[1][path]
+        launches = [r0["launches"], r1["launches"]]
+        msg = f"{path}: seconds one process {o['seconds']:.1f}, rank 0 {r0['seconds']:.1f}; launches per rank " \
+              f"{[_shown(l) for l in launches]}"
+        if path == "verifier":
+            launches += [r0["train_launches"], r1["train_launches"]]
+            msg += f", training {[_shown(l) for l in launches[2:]]}"
+        if launches[0] != launches[1] or not any(launches[0].values()) or (len(launches) > 2 and (
+                launches[2] != launches[3] or not any(launches[2].values()))):
+            raise AssertionError(f"{phase}: {msg}: the ranks' launches differ or are none")
+        if path == "serve":
+            answers, errors = _answers(r0["lines"])
+            want, want_errors = _answers(o["lines"])
+            same = [(a["questionId"], a["prediction"]) for a in answers] == [
+                (a["questionId"], a["prediction"]) for a in want]
+            printed = max(abs(a["confidence"] - b["confidence"]) for a, b in zip(answers, want))
+            rel = max(abs(a[1] - b[1]) / max(abs(b[1]), 1e-12) for a, b in zip(r0["scores"], o["scores"]))
+            log(phase, f"{msg}; {len(answers)} answers as one process's: {same}; printed confidences max |d| "
+                f"{printed:.1e}, unrounded max rel {rel:.3e} (bound {DP_CONF_TOL})")
+            if (not same or errors != want_errors or len(errors) != 2 or r1["lines"] or printed > 1e-4 + 1e-9
+                    or rel > DP_CONF_TOL or [a[0] for a in r1["scores"]] != [a[0] for a in o["scores"]]):
+                raise AssertionError(f"{phase}: serve differs from one process")
+        elif path.startswith("distill"):
+            def key(rows):
+                return [(r["question_id"], r["img_id"], list(r["label"])) for r in rows]
+
+            def scores(rows):
+                return [v for r in rows for v in r["label"].values()]
+
+            rel = max((abs(a - b) / max(abs(b), 1e-12) for a, b in zip(scores(r0["rows"]), scores(o["rows"]))),
+                      default=0.0)
+            log(phase, f"{msg}; {len(o['rows'])} rows, ids and labels as one process's: "
+                f"{key(r0['rows']) == key(o['rows'])}; scores max rel {rel:.3e} (bound {DP_CONF_TOL})")
+            if (not o["rows"] or key(r0["rows"]) != key(o["rows"]) or key(r1["rows"]) != key(o["rows"])
+                    or rel > DP_CONF_TOL or not r0["written"]):
+                raise AssertionError(f"{phase}: {path} differs from one process")
+        else:
+            gap = _max_rel(r0["losses"], o["losses"])
+            rel = max(abs(a[2] - b[2]) / max(abs(b[2]), 1e-12) for a, b in zip(r0["scores"], o["scores"]))
+            log(phase, f"{msg}; {len(o['losses'])} step losses, one process {o['losses']}: ranks max rel "
+                f"{gap:.3e} (bound {DP_RTOL}); {len(o['scores'])} confidences max rel {rel:.3e} (bound "
+                f"{DP_CONF_TOL}); results {o['results']}")
+            if (gap > DP_RTOL or r0["losses"] != r1["losses"] or rel > DP_CONF_TOL or not all(
+                    math.isfinite(x) for x in o["losses"])
+                    or [a[:2] for a in r0["scores"]] != [a[:2] for a in o["scores"]]):
+                raise AssertionError(f"{phase}: verifier differs from one process")
+    for path in DP_DROP_PATHS:  # each rank draws its own passes, all report the global result
+        r0, r1 = two[0][path], two[1][path]
+        kinds = [k for k in ("train_launches", "launches") if k in r0]
+        key = "losses" if path == "verifier_drop" else "rows"
+        log(phase, f"{path} at dropout 0.1: launches per rank {[[_shown(r[k]) for k in kinds] for r in (r0, r1)]}; "
+            f"ranks agree: {r0[key] == r1[key]}" + (f"; losses {r0['losses']}" if key == "losses" else
+                                                    f"; {len(r0['rows'])} rows"))
+        if (r0[key] != r1[key] or not r0[key] or any(r0[k] != r1[k] for k in kinds)
+                or not r0[kinds[0]].get("fused_attention_dropout")):
+            raise AssertionError(f"{phase}: {path}: the ranks disagree or launched no #4")
+    proc = started.get("proc")
+    if proc is None:
+        raise AssertionError(f"{phase}: the torchrun serve never started (no INIT.pth)")
+    try:
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out, err = started["files"]
+    with out, err:
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    lines = [l for l in stdout.splitlines() if l.startswith("{")]
+    log(phase, f"serve under torchrun (NCCL, world 1): exit {proc.returncode}, {len(lines)} lines, byte for byte "
+        f"the one-process serve's: {lines == one['serve']['lines']}; {stderr.strip().splitlines()[-1:]}")
+    if proc.returncode != 0 or lines != one["serve"]["lines"]:
+        raise AssertionError(f"{phase}: torchrun serve exited {proc.returncode}:\n{stdout[-2000:]}\n{stderr[-3000:]}")
 
 
 def phase_slice22() -> None:
@@ -5015,11 +5154,66 @@ def phase_slice22() -> None:
         ddp_check._roots(ddp_check._parser().parse_args([*argv, "--out", tmp]), SINGLE)
         started = _start_torchrun(tmp)
         t0 = time.perf_counter()
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            spawn = pool.submit(ddp_check.launch, 2, [*argv, "--out", os.path.join(tmp, "dp_two")], timeout=600,
+        serve = {}
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            spawn = pool.submit(ddp_check.launch, 2, [*argv, "--out", os.path.join(tmp, "dp_two")],
                                 env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__))))
+            pool.submit(_start_serve_torchrun, tmp, argv, os.path.join(tmp, "dp_one", "rp", "INIT.pth"), serve)
             timed("46 torchrun NCCL world 1", phase_nccl_world1, tmp, started)
-            timed("47-48 two gloo ranks", phase_two_ranks, tmp, argv, spawn, t0)
+            one, two = timed("47-48 two gloo ranks", phase_two_ranks, tmp, argv, spawn, t0)
+            timed("49 serve, distill and the verifier on two ranks", phase_dp_entry_points, one, two, serve)
+
+
+# ---------------------------------------------------------------------------
+# Phase 50: the recipe scripts through the port's CLIs.
+# ---------------------------------------------------------------------------
+
+RECIPE_PAIR = (("lxmert/train/vanilla.sh", ["--synthetic", "--epochs", "1"]),
+               ("lxmert/test/msp.sh", ["--synthetic"]))
+RGQA_SUBSETS = ("ClipEasy", "ClipHard", "PTEasy", "PTHard")
+
+
+def phase_recipes() -> None:
+    """Phase 50: ``python -m rgqa_tpu_torch.tools.recipes`` runs
+    ``RECIPE_PAIR`` on the card, full width, on the default synthetic root
+    (its ``GQAUQ_*`` splits): the vanilla train recipe for an epoch
+    (``LAST.pth`` loads back with no key missing or unused), then the msp
+    test recipe from it (``LOAD``) over the four RGQA testdev subsets,
+    each a result with a finite AUAF and a dump of one row per
+    question."""
+    from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+    from rgqa_tpu_torch.data.dataset import GQADataset
+    from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
+
+    phase = "recipes"
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="rgqa_smoke_recipes_") as tmp:
+        root, snap = os.path.join(tmp, "gqa"), os.path.join(tmp, "snap")
+        make_synthetic_gqa(root)
+        env = dict(os.environ, DATA_ROOT=root, OUTPUT=snap, LOAD=os.path.join(snap, "lxmert", "vanilla", "LAST"),
+                   PYTHONPATH=here)
+        for script, flags in RECIPE_PAIR:
+            cmd = [sys.executable, "-m", "rgqa_tpu_torch.tools.recipes", os.path.join(here, "scripts", script), *flags]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+            log(phase, f"{' '.join(cmd[2:])}: exit {r.returncode} in {time.perf_counter() - t0:.1f} s; "
+                f"{r.stdout.strip().splitlines()[-1:]}")
+            if r.returncode != 0:
+                raise AssertionError(f"{phase}: {script} exited {r.returncode}:\n{r.stdout[-2000:]}\n"
+                                     f"{r.stderr[-3000:]}")
+        _, missing, unused = load_reference_pth(os.path.join(snap, "lxmert", "vanilla", "LAST.pth"))
+        if missing or unused:
+            raise AssertionError(f"{phase}: LAST.pth missing {missing[:3]}, unused {unused[:3]}")
+        results = {}
+        for subset in RGQA_SUBSETS:
+            split = f"GQAUQ_testdev_questions_{subset}"
+            with open(os.path.join(snap, "lxmert", "msp", f"{split}_result.json")) as f:
+                results[subset] = json.load(f)
+            with open(os.path.join(snap, "lxmert", "msp", f"{split}_predict.json")) as f:
+                rows = json.load(f)
+            if not math.isfinite(results[subset]["auaf"]) or len(rows) != len(GQADataset(root, split, add_uq=True).data):
+                raise AssertionError(f"{phase}: {split}: result {results[subset]}, {len(rows)} dumped rows")
+        log(phase, f"LAST.pth loads back whole; AUAF by subset {({k: v['auaf'] for k, v in results.items()})}")
 
 
 def _reachable_acc(root: str) -> float:
@@ -5084,7 +5278,8 @@ def main() -> None:
         timed("35-36 new strategies", phase_new_strategies)
         timed("37-41 weight model, distill, verifier, compute_param", phase_slice19)
         timed("42-45 pretraining, VQA and NLVR2", phase_slice21)
-        timed("46-48 data parallel", phase_slice22)
+        timed("46-49 data parallel", phase_slice22)
+        timed("50 recipes", phase_recipes)
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")

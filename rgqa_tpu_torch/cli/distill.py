@@ -11,7 +11,10 @@ writes the ensemble teachers' product-of-sigmoids pseudo-labels of the
 ``--train`` splits instead (each a ``.pth``, or the path less ``.pth``;
 an orbax snapshot directory is refused by name).  A student then trains
 on the split through ``rgqa_tpu_torch.cli.train --train <output_name>``.
-It runs on the card unless given ``--device cpu``.
+It runs on the card unless given ``--device cpu``, and on N ranks under
+``python -m torch.distributed.run --nproc_per_node N`` (each rank scores
+its rows of every global batch, ``--batchSize``; rank 0 writes the
+split).
 
 Examples:
     python -m rgqa_tpu_torch.cli.distill --synthetic --data_root /tmp/gqa \
@@ -30,7 +33,7 @@ import sys
 
 from rgqa_tpu_torch.config import parse_cli
 from rgqa_tpu_torch.distill import build_distill_split, build_ensemble_distill_split, teacher_pth
-from rgqa_tpu_torch.parallel import refuse_ranks
+from rgqa_tpu_torch.parallel import initialize_distributed, make_mesh
 from rgqa_tpu_torch.runner import GQARunner
 
 
@@ -48,22 +51,25 @@ def main(argv=None) -> list:
     extra.add_argument("--balance", action="store_true")
     own, rest = extra.parse_known_args(argv)
     cfg, ns = parse_cli(rest)
-    refuse_ranks("the distill CLI")
+    device = initialize_distributed(ns.device) or ns.device
+    mesh = make_mesh(device)  # a rank launched without joining raises here
 
     ensemble = cfg.teacher_path.split(",") if cfg.teacher_path and "," in cfg.teacher_path else None
     if ensemble:
         ensemble = [teacher_pth(p) for p in ensemble]  # refuses orbax before anything is built
-    runner = GQARunner(cfg, device=ns.device)
+    runner = GQARunner(cfg, device=device)
     out_path = os.path.join(cfg.data.data_root, f"{own.output_name}.json")
     if ensemble:
         rows = build_ensemble_distill_split(runner, ensemble, splits=cfg.data.train_splits, out_path=out_path)
-        print(f"wrote {len(rows)} ensemble-distilled rows to {out_path}")
-        return rows
-    rows = build_distill_split(
-        runner, n_candidates=own.n_candidates, passes=own.passes, out_path=out_path, balance=own.balance,
-        tau_aq_c=own.tau_aq_c, tau_aq_v=own.tau_aq_v, tau_uq_c=own.tau_uq_c, tau_uq_v=own.tau_uq_v,
-    )
-    print(f"wrote {len(rows)} distilled rows to {out_path}")
+        what = "ensemble-distilled"
+    else:
+        rows = build_distill_split(
+            runner, n_candidates=own.n_candidates, passes=own.passes, out_path=out_path, balance=own.balance,
+            tau_aq_c=own.tau_aq_c, tau_aq_v=own.tau_aq_v, tau_uq_c=own.tau_uq_c, tau_uq_v=own.tau_uq_v,
+        )
+        what = "distilled"
+    if mesh.is_main:
+        print(f"wrote {len(rows)} {what} rows to {out_path}")
     return rows
 
 

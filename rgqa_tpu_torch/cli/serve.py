@@ -48,6 +48,18 @@ by the record's place in its wave, so records that share a question id
 each count once with their own latency and get their own answer (the JAX
 serve keys both by question id, ``rgqa_tpu/cli/serve.py:198,213``).
 
+Data parallel: under ``python -m torch.distributed.run --nproc_per_node N``
+(``--device cpu``: N processes over gloo) rank 0 alone reads the input
+and forms the waves on its own clock; it broadcasts each wave's lines to
+the other ranks (then an end marker; an idle input sends an empty wave
+every ``_KEEPALIVE_S`` so that no rank's wait reaches the group's time
+limit).  Every rank parses the same lines and scores its rows of each
+padded global batch (``--batchSize``, which the world must divide), the
+outputs gathered in order; rank 0 alone prints the answers, the error
+lines, ``served N`` and ``--serve_stats`` (latency on rank 0's clock).
+``--scorer maha`` fits over the gathered train features and every rank
+reads the estimator that rank 0 caches.
+
 Example:
     printf '%s\\n' '{"question_id": "q1", "sent": "is there a car?", "img_id": "img00000"}' |
     python -m rgqa_tpu_torch.cli.serve --synthetic --data_root /tmp/gqa \\
@@ -67,12 +79,15 @@ import time
 from rgqa_tpu_torch.cli.evaluate import GATED_SCORERS, make_runner, refuse_unported
 from rgqa_tpu_torch.config import parse_cli
 from rgqa_tpu_torch.data.dataset import GQADataset
-from rgqa_tpu_torch.parallel import refuse_ranks
+from rgqa_tpu_torch.parallel import broadcast_objects, check_batch_size, initialize_distributed, make_mesh
 
 # Questions per scoring wave: batches enough for the feed's prefetch and
 # the lag-1 fetch to reach steady state, few enough to bound latency and
 # host memory.
 _WAVE_BATCHES = 64
+# Under several ranks: an idle input sends an empty wave this often, well
+# inside the group's time limit (parallel/distributed.py's JOIN_SECONDS).
+_KEEPALIVE_S = 60.0
 # Scorers the JAX serve cannot build (its make_scorer knows none of them).
 NOT_SERVED = ("clip", "match", "frcnn")
 
@@ -85,15 +100,16 @@ def _normalize(rec: dict) -> dict:
             "label": rec.get("label", {})}
 
 
-def _waves(lines, wave_size, timeout: float = 0.0):
+def _waves(lines, wave_size, timeout: float = 0.0, idle: float | None = None):
     """Group raw input lines into waves of ``(line, t_arrival)`` pairs.
 
     A reader thread only queues the lines as they arrive (all torch work
     stays on the caller's thread).  A wave goes out when it is full, or
     when its oldest record has waited ``timeout`` seconds with the input
     idle, so a lone record never waits for ``wave_size`` peers;
-    ``timeout=0`` waits for full waves.  An error reading the input is
-    raised on the consumer, after the wave that arrived before it."""
+    ``timeout=0`` waits for full waves.  ``idle``: an empty wave goes out
+    after that many seconds without a record.  An error reading the input
+    is raised on the consumer, after the wave that arrived before it."""
     q: _queue.Queue = _queue.Queue(maxsize=wave_size * 2)
     end = object()
 
@@ -111,7 +127,7 @@ def _waves(lines, wave_size, timeout: float = 0.0):
     threading.Thread(target=reader, daemon=True).start()
     wave: list = []
     while True:
-        wait = None
+        wait = None if wave else idle
         if wave and timeout > 0:
             wait = timeout - (time.perf_counter() - wave[0][1])
             if wait <= 0:
@@ -121,7 +137,9 @@ def _waves(lines, wave_size, timeout: float = 0.0):
         try:
             item = q.get(timeout=wait)
         except _queue.Empty:
-            continue  # the oldest record timed out: dispatch at the loop top
+            if not wave:
+                yield []  # idle: the keepalive
+            continue  # else the oldest record timed out: dispatch at the loop top
         if item is end:
             break
         if isinstance(item, BaseException):
@@ -173,11 +191,34 @@ def _parse(record: str, runner) -> dict:
     return row
 
 
+def _shared_waves(mesh, waves):
+    """Each wave's lines on every rank, beside their arrival times on
+    rank 0 (None elsewhere): rank 0 reads ``waves`` and broadcasts each
+    wave, then None at the end or on an input error, which rank 0 then
+    raises."""
+    while True:
+        wave, error = None, None
+        if mesh.is_main:
+            try:
+                wave = next(waves, None)
+            except Exception as e:  # end the other ranks first
+                error = e
+        lines = broadcast_objects(mesh, None if wave is None else [line for line, _ in wave])
+        if lines is None:
+            if error is not None:
+                raise error
+            return
+        yield lines, ([t for _, t in wave] if mesh.is_main else [None] * len(lines))
+
+
 def main(argv=None, stdin=None, stdout=None) -> int:
     """Serve ``stdin`` (default ``sys.stdin``) to ``stdout``; returns the
     number of records answered (error records not counted)."""
     cfg, ns = parse_cli(argv)
-    refuse_ranks("the serve CLI")
+    device = initialize_distributed(ns.device) or ns.device
+    mesh = make_mesh(device)  # a rank launched without joining raises here
+    check_batch_size(mesh, cfg.train.batch_size)
+    main_rank = mesh.is_main
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
     # --valid defaults to "valid", so --test is checked: the answer
@@ -192,33 +233,38 @@ def main(argv=None, stdin=None, stdout=None) -> int:
         raise SystemExit("--scorer separate and ensembles (--load a,b) are scored by the evaluate "
                          "CLI, as is --scorer caption; serve scores with one model")
 
-    runner = make_runner(cfg, ns.device, cfg.ood.scorer)
+    runner = make_runner(cfg, device, cfg.ood.scorer)
     scorer = runner.make_scorer()
     vocab = runner.dataset
 
     wave_size = cfg.train.batch_size * _WAVE_BATCHES
-    stats = _LatencyStats() if ns.serve_stats else None
+    stats = _LatencyStats() if ns.serve_stats and main_rank else None
+    waves = _waves(stdin, wave_size, timeout=float(ns.wave_timeout or 0.0),
+                   idle=_KEEPALIVE_S if mesh.world > 1 else None) if main_rank else None
     served = 0
-    for wave in _waves(stdin, wave_size, timeout=float(ns.wave_timeout or 0.0)):
+    for lines, times in _shared_waves(mesh, waves):
         rows, arrivals = [], []
-        for line, t_in in wave:
+        for line, t_in in zip(lines, times):
             try:
                 rows.append(_parse(line, runner))
                 arrivals.append(t_in)
             except Exception as e:  # report, never stop the stream
-                print(json.dumps({"record": line, "error": str(e)}), file=stdout)
+                if main_rank:
+                    print(json.dumps({"record": line, "error": str(e)}), file=stdout)
         if rows:
             ds = GQADataset.from_rows(rows, ans2label=vocab.ans2label, label2ans=vocab.label2ans,
                                       name="serve")
             answers = runner.score_rows(runner._encode(ds), scorer=scorer)
-            for row, t_in, (ans, score) in zip(rows, arrivals, answers):
+            for row, t_in, (ans, score) in zip(rows, arrivals, answers) if main_rank else ():
                 print(json.dumps({"questionId": row["question_id"], "prediction": ans,
                                   "confidence": round(float(score), 4)}), file=stdout)
                 if stats is not None:
                     stats.record(t_in)
             served += len(rows)
-        stdout.flush()
-    print(f"served {served} questions", file=sys.stderr)
+        if main_rank:
+            stdout.flush()
+    if main_rank:
+        print(f"served {served} questions", file=sys.stderr)
     if stats is not None:
         print(json.dumps({"latency": stats.summary()}), file=sys.stderr)
     return served

@@ -25,6 +25,15 @@ dropout 0 every pass is MSP and the split equals JAX's row for row).
 :func:`build_ensemble_distill_split` multiplies the teachers' sigmoid
 vectors (f32, as the JAX package's numpy does) from ``.pth`` checkpoints;
 an orbax snapshot directory is refused by name (reading orbax needs jax).
+
+Both split functions run on every rank of a data-parallel runner (its
+``mesh``): the candidates come from the shared host stream, every rank
+scores its rows of each global batch and gets every rank's outputs
+(``_map_eval``), each MC-dropout pass draws from the rank's own stream
+(so at dropout 0 N ranks give one process's rows), rank 0 writes the
+split and every rank returns its rows after a barrier.  The chart
+pickles that :func:`stats_from_charts` reads are written by rank 0 of a
+training run before its barrier (``GQARunner._epoch_end``).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 
 from rgqa_tpu_torch.data.dataset import GQADataset
+from rgqa_tpu_torch.parallel import on_main
 from rgqa_tpu_torch.scorers.core import make_dropout_scorer, make_msp_scorer
 
 __all__ = [
@@ -185,7 +195,8 @@ def build_distill_split(
     )
     encoded = runner._encode(tmp)
     pass_results = [
-        runner.score_split(encoded, scorer=make_dropout_scorer(runner.forward, seed_list=(seed + i,)))
+        runner.score_split(encoded, scorer=make_dropout_scorer(runner.forward, seed_list=(seed + i,),
+                                                               mesh=runner.mesh))
         for i in range(passes)
     ]
     stats = cartography_stats(pass_results)
@@ -193,9 +204,13 @@ def build_distill_split(
         cands, stats, balance=balance, n_original=len(runner.dataset.data), rng=rng, **taus,
     )
     rows = aq + uq
-    with open(out_path, "w") as f:
-        json.dump(rows, f)
+    on_main(runner.mesh, _write_json, rows, out_path)
     return rows
+
+
+def _write_json(obj, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
 
 
 def teacher_pth(path: str) -> str:
@@ -259,6 +274,5 @@ def build_ensemble_distill_split(
             "sent": data[qid]["sent"],
             "label": {label2ans[label]: float(score[label])},
         })
-    with open(out_path, "w") as f:
-        json.dump(final, f)
+    on_main(runner.mesh, _write_json, final, out_path)
     return final

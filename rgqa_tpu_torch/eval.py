@@ -17,7 +17,8 @@ _map_eval` scores this rank's rows of each padded global batch and
 gathers every rank's outputs in global order, so every scorer, metric
 and decision sees the whole split on every rank, as one process would;
 rank 0 alone writes the dumps and caches.  The Mahalanobis fit sums over
-the gathered features of the whole train split; ODIN's input gradient
+the gathered features of the whole train split, and every rank then
+reads the estimator that rank 0 cached; ODIN's input gradient
 stays per row; MC-dropout draws from the rank's own stream.
 The metrics and the prediction-JSON dump are ``rgqa_tpu_torch.metrics``,
 the port's copy of the JAX package's.  ``predict`` stands in for the JAX
@@ -369,9 +370,7 @@ class ScoringMixin:
         from bf16 serving weights is refused."""
         cache = os.path.join(self.output, "sample_estimates.pkl")
         if os.path.exists(cache):
-            with open(cache, "rb") as f:
-                data = pickle.load(f)
-            return estimator_from_numpy(data["mean"], data["precision"], self.device)
+            return _read_estimates(cache, self.device)
         dtypes = {p.dtype for p in self.model.parameters()}
         if dtypes != {torch.float32}:
             raise RuntimeError(
@@ -401,7 +400,8 @@ class ScoringMixin:
             device=self.device,
         )
         self._on_main(_write_estimates, cache, est)
-        return est
+        # Under several ranks each rank reads back what rank 0 cached.
+        return est if self.mesh.world == 1 else _read_estimates(cache, self.device)
 
     def get_pseudo_labels(self, encoded: EncodedGQA, dump: Optional[str] = None) -> list[dict]:
         """Teacher-label a split: each row's label becomes the scorer's
@@ -437,6 +437,12 @@ class ScoringMixin:
         if dump:
             self._on_main(_write_json, {q: [ans, float(score)] for q, (ans, score) in out.items()}, dump)
         return {"tau": tau, "quesid2ans": out}
+
+
+def _read_estimates(cache: str, device) -> MahaEstimator:
+    with open(cache, "rb") as f:
+        data = pickle.load(f)
+    return estimator_from_numpy(data["mean"], data["precision"], device)
 
 
 def _write_estimates(cache: str, est: MahaEstimator) -> None:

@@ -10,13 +10,13 @@ from rgqa_tpu_torch.parallel.distributed import (
     global_mesh,
     initialize_distributed,
     join_group,
-    refuse_ranks,
 )
 from rgqa_tpu_torch.parallel.mesh import (
     SINGLE,
     Mesh,
     all_sum,
     barrier,
+    broadcast_objects,
     check_batch_size,
     gather_objects,
     gather_rows,
@@ -42,10 +42,10 @@ __all__ = [
     "gather_rows",
     "roll_rows",
     "gather_objects",
+    "broadcast_objects",
     "barrier",
     "on_main",
     "initialize_distributed",
     "join_group",
     "global_mesh",
-    "refuse_ranks",
 ]

@@ -12,12 +12,15 @@ and gives each process ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 reads them and joins the group: NCCL on the card ``cuda:LOCAL_RANK``,
 gloo under ``--device cpu``.  Without them it does nothing and the run
 is one process, as before.  A failed join raises; nothing carries on as
-one process.  :func:`refuse_ranks` is for the entry points that do not
-run data parallel yet.
+one process.  Every join has a time limit (``JOIN_SECONDS`` unless the
+caller gives one), which is also the limit of each collective after it:
+a rank whose peers never come fails by name instead of waiting for
+ever.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -25,17 +28,26 @@ import torch
 import torch.distributed as dist
 
 from rgqa_tpu_torch.device import resolve_device
-from rgqa_tpu_torch.parallel.mesh import Mesh, env_world, make_mesh
+from rgqa_tpu_torch.parallel.mesh import Mesh, make_mesh
 
-__all__ = ["initialize_distributed", "join_group", "global_mesh", "refuse_ranks"]
+__all__ = ["initialize_distributed", "join_group", "global_mesh", "JOIN_SECONDS"]
 
 ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
+# The join's and every collective's time limit under torchrun: torch's
+# own default (30 minutes for gloo), which a rank waiting on rank 0's
+# host work (a fit, a dataset written once, a service's idle stdin) may
+# need.
+JOIN_SECONDS = 1800.0
 
 
-def join_group(backend: str, rank: int, world: int, init_method: str) -> None:
-    """Join the process group (``init_process_group``); raises on
+def join_group(backend: str, rank: int, world: int, init_method: Optional[str] = None, *,
+               store=None, timeout: float = JOIN_SECONDS) -> None:
+    """Join the process group (``init_process_group``) at ``init_method``
+    or through a ``store`` that another process hosts; the join and each
+    later collective fail after ``timeout`` seconds.  Raises on
     failure."""
-    dist.init_process_group(backend=backend, init_method=init_method, rank=rank, world_size=world)
+    dist.init_process_group(backend=backend, init_method=init_method, store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout))
 
 
 def initialize_distributed(device: Optional[torch.device | str] = None) -> Optional[torch.device]:
@@ -74,13 +86,3 @@ def global_mesh(model: int = 1) -> Mesh:
     """The mesh over every rank; ``model`` > 1 raises (tensor parallelism
     is not ported)."""
     return make_mesh(model=model)
-
-
-def refuse_ranks(what: str) -> None:
-    """Raise when this process is one of several ranks: ``what`` runs as
-    one process only."""
-    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else env_world()
-    if world > 1:
-        raise NotImplementedError(
-            f"{what} under WORLD_SIZE {world}: not ported to data parallelism yet; run it as one process"
-        )

@@ -21,6 +21,9 @@ rows of each global batch; the collectives are explicit:
 - :func:`all_sum` (global counts and sums), :func:`gather_rows` (the
   global batch's rows, in rank order) and :func:`roll_rows` (a roll of
   the global batch, which may bring a row from another rank).
+- :func:`gather_objects` (every rank's host object) and
+  :func:`broadcast_objects` (rank 0's: the serving waves that rank 0
+  alone reads).
 
 The convention that makes an N-rank step equal the one-process step at
 the same global batch: each rank's loss is a local term whose mean over
@@ -65,6 +68,7 @@ __all__ = [
     "gather_rows",
     "roll_rows",
     "gather_objects",
+    "broadcast_objects",
     "barrier",
     "on_main",
 ]
@@ -281,12 +285,24 @@ def gather_objects(mesh: Optional[Mesh], obj) -> list:
     return out
 
 
+def broadcast_objects(mesh: Optional[Mesh], obj):
+    """Rank 0's picklable ``obj`` on every rank (``obj`` of the other
+    ranks is ignored); ``obj`` itself on one rank."""
+    mesh = _mesh(mesh)
+    if mesh.world == 1:
+        return obj
+    box = [obj if mesh.is_main else None]
+    # NCCL carries the pickle on this rank's card, gloo on the host.
+    device = mesh.device if mesh.backend == "nccl" else None
+    dist.broadcast_object_list(box, src=0, group=mesh.group, device=device)
+    return box[0]
+
+
 def barrier(mesh: Optional[Mesh]) -> None:
     """Wait for every rank (after rank 0 writes what the others read)."""
     mesh = _mesh(mesh)
     if mesh.world > 1:
         dist.barrier(group=mesh.group)
-
 
 
 def on_main(mesh: Optional[Mesh], write, *args, **kw):

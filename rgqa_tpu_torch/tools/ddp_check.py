@@ -5,8 +5,11 @@
     python -m rgqa_tpu_torch.tools.ddp_check --world 2 --rank R --port P \\
         --device cpu --root DIR --out DIR --paths rp,mixup_v1,eval_msp
 
-Each rank joins the group at ``tcp://localhost:P`` with the given backend
-(none at ``--world 1``), rank 0 writes the synthetic roots under
+Each rank joins the group through the ``TCPStore`` at ``localhost:P``
+that :func:`launch` hosts (so the port is bound from the moment it is
+picked), with the given backend (none at ``--world 1``); the join and
+every collective fail after ``--timeout`` seconds.  Rank 0 writes the
+synthetic roots under
 ``--root`` (the others wait), and the paths run in order, each through
 the entry point a user calls (``GQARunner.train``, ``PretrainRunner``,
 ``VQARunner``, ``Nlvr2Runner``, ``cli.evaluate.main``) at the tiny widths
@@ -18,9 +21,11 @@ attention seeds, the mixup draws, the batches' question ids).  The
 evaluate paths report every question's answer and confidence at full
 precision, and rank 0's prediction dump (``eval_maha`` also the path of
 its fit's moments, ``maha_moments.pt``: the sums, counts and second
-moment that the covariance's inverse is taken from).  Every rank prints one
-``DDP_CHECK {json}`` line last; :func:`launch` spawns the ranks and
-collects those lines.  It imports nothing of JAX.
+moment that the covariance's inverse is taken from).  Each rank prints
+``DDP_CHECK_PATH <name>`` on stderr as a path starts, and one
+``DDP_CHECK {json}`` line last; :func:`launch` spawns the ranks within a
+deadline in proportion to the paths and collects those lines.  It
+imports nothing of JAX.
 
 Paths: ``rp``, ``mixup_v1``, ``treemix`` (``treemix_v2``), ``weighted_rp``
 (``--strategy weight``, caption-overlap weights), ``minmax``
@@ -33,18 +38,28 @@ CLIP checkpoint ``--clip_path``),
 same at any world size; maha's with the encoder's dense weights scaled,
 :func:`_varied_pth`), ``rp_drop`` (``rp`` at dropout 0.1), ``cli`` (the
 train CLI's ``main`` for an epoch of RP, then ``GQARunner.train(resume=
-"LAST")`` for another), and ``streams`` (the dropout streams' first
-draws, no model).  Without ``--device cpu`` it
-runs on the card, and raises without one.
+"LAST")`` for another), ``streams`` (the dropout streams' first
+draws, no model), ``serve`` (the serve CLI's ``main`` on the testdev
+split as JSONL with a malformed record and an unknown ``img_id``, from
+``INIT.pth``, msp: the printed lines and the unrounded scores),
+``distill_mc`` (the distill CLI, cartography over ``--passes 2`` from
+``INIT.pth``), ``distill_ensemble`` (the distill CLI with the teachers
+``rp``'s ``INIT.pth`` and ``LAST.pth``), ``verifier``
+(``VerifierTrainer``: an epoch of ``train`` of a one-logit verifier over
+the answerer ``INIT.pth``, then ``ood_evaluate``), and
+``distill_mc_drop`` / ``verifier_drop`` (the two at dropout 0.1: the
+passes and steps on #4 / #5, each rank on its own stream).  Without
+``--device cpu`` it runs on the card, and raises without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import datetime
+import io
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -54,16 +69,22 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["PATHS", "Recorder", "recording", "nlvr2_rows", "run", "launch", "free_port", "main"]
+__all__ = ["PATHS", "Recorder", "recording", "nlvr2_rows", "serve_records", "serve_argv", "run", "launch", "main"]
 
 PATHS = ("rp", "mixup_v1", "treemix", "weighted_rp", "minmax", "villa", "distill", "weight_model", "pretrain", "vqa",
-         "nlvr2", "eval_msp", "eval_maha", "rp_drop", "cli", "streams")
+         "nlvr2", "eval_msp", "eval_maha", "rp_drop", "cli", "streams", "serve", "distill_mc", "distill_ensemble",
+         "verifier", "distill_mc_drop", "verifier_drop")
+# The paths that end in _drop run at dropout 0.1 (attention dropout on #4 / #5).
+DROP = ["--dropout", "0.1"]
+# launch()'s deadline: the ranks' start and join, then this much a path.
+START_SECONDS = 60.0
+PATH_SECONDS = 60.0
 KERNELS = ("fused_attention", "fused_attention_bwd", "fused_attention_dropout", "fused_attention_dropout_bwd",
            "fused_attention_long", "fused_attention_long_bwd")
 TINY = ["--llayers", "1", "--xlayers", "1", "--rlayers", "1", "--hidden_size", "32", "--num_heads", "4"]
 GQA_PATHS = {
     "rp": ["--sample_pair"],
-    "rp_drop": ["--sample_pair", "--dropout", "0.1"],
+    "rp_drop": ["--sample_pair", *DROP],
     "mixup_v1": ["--mixup_mode", "mixup_v1", "--mixup_beta", "5"],
     "treemix": ["--mixup_mode", "treemix_v2"],
     "weighted_rp": ["--strategy", "weight"],
@@ -73,13 +94,6 @@ GQA_PATHS = {
     "distill": ["--strategy", "distill_online", "--mixup_mode", "mixup_v1"],
     "weight_model": ["--strategy", "weight", "--update_weight_model"],
 }
-
-
-def free_port() -> int:
-    """A TCP port on localhost that the OS picked as free."""
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _counts() -> dict:
@@ -300,6 +314,31 @@ def _varied_pth(src: str, dst: str, scale: float = 10.0) -> None:
                 for k, v in sd.items()}, dst)
 
 
+def serve_records(root: str) -> list:
+    """The serve path's input lines: the ``testdev`` split of ``root`` as
+    JSONL records, then a malformed record and one with an unknown
+    ``img_id``."""
+    with open(os.path.join(root, "testdev.json")) as f:
+        rows = json.load(f)
+    lines = [json.dumps({"question_id": r["question_id"], "sent": r["sent"], "img_id": r["img_id"]}) for r in rows]
+    return lines + ["{not json", json.dumps({"question_id": "q_unknown", "sent": "what is it ?",
+                                             "img_id": "no_such_image"})]
+
+
+def _base(args) -> list:
+    """The flags every path shares."""
+    return ["--batchSize", str(args.batch), "--epochs", "1", "--dropout", str(args.dropout), "--seed",
+            str(args.seed), "--lr", str(args.lr), "--fp32", *([] if args.full else TINY)]
+
+
+def serve_argv(args, root: str, out: str) -> list:
+    """The serve path's CLI arguments (less ``--device``) on ``root``,
+    writing under ``out``: ``rp``'s ``INIT.pth``, msp, one wave at the
+    end of the input."""
+    return ["--data_root", root, "--synthetic", "--test", "testdev", "--load",
+            os.path.join(args.out, "rp", "INIT.pth"), "--wave_timeout", "0", *_base(args), "--output", out]
+
+
 def _read_dump(path: str) -> list:
     with open(path) as f:
         rows = json.load(f)
@@ -308,9 +347,13 @@ def _read_dump(path: str) -> list:
 
 def run(args) -> dict:
     """Run ``args.paths`` on this rank; returns ``{path: record}``."""
-    from rgqa_tpu_torch.cli import evaluate
+    import torch.distributed as dist
+
+    from rgqa_tpu_torch.cli import distill as distill_cli
+    from rgqa_tpu_torch.cli import evaluate, serve
     from rgqa_tpu_torch.cli import train as train_cli
     from rgqa_tpu_torch.config import parse_cli
+    from rgqa_tpu_torch.data.dataset import GQADataset
     from rgqa_tpu_torch.device import resolve_device
     from rgqa_tpu_torch.eval import ScoringMixin
     from rgqa_tpu_torch.nlvr2_task import Nlvr2Runner
@@ -318,20 +361,24 @@ def run(args) -> dict:
     from rgqa_tpu_torch.pretrain.trainer import ALL_TASKS, PretrainRunner
     from rgqa_tpu_torch.runner import GQARunner
     from rgqa_tpu_torch.scorers import maha as maha_scorer
+    from rgqa_tpu_torch.verifier import VerifierTrainer
     from rgqa_tpu_torch.vqa_task import VQARunner
 
     device = resolve_device(args.device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    if args.world > 1:
-        join_group(args.backend, args.rank, args.world, f"tcp://localhost:{args.port}")
+    if args.world > 1:  # a client of the store that launch() hosts
+        store = dist.TCPStore("localhost", args.port, world_size=args.world, is_master=False,
+                              timeout=datetime.timedelta(seconds=args.timeout))
+        join_group(args.backend, args.rank, args.world, store=store, timeout=args.timeout)
     mesh = make_mesh(device)
+    dev = "cpu" if device.type == "cpu" else "cuda"
     gqa, vqa, maha_root = _roots(args, mesh)
-    size = [] if args.full else TINY
-    base = ["--batchSize", str(args.batch), "--epochs", "1", "--dropout", str(args.dropout), "--seed",
-            str(args.seed), "--lr", str(args.lr), "--fp32", *size]
+    base = _base(args)
+    init = os.path.join(args.out, "rp", "INIT.pth")
     out = {}
     for name in args.paths.split(","):
+        print(f"DDP_CHECK_PATH {name}", file=sys.stderr, flush=True)
         work = os.path.join(args.out, name)
         rec = Recorder(device, shifts=args.shifts if name == "rp" and args.shifts else None)
         t0 = time.perf_counter()
@@ -381,7 +428,6 @@ def run(args) -> dict:
                 record = {"history": Nlvr2Runner(cfg, splits, device=device).train()}
             elif name in ("eval_msp", "eval_maha"):
                 scorer = name.split("_")[1]
-                dev = "cpu" if device.type == "cpu" else "cuda"
                 load = os.path.join(args.out, "rp", "INIT")
                 if scorer == "maha":
                     load = os.path.join(args.out, "rp", "varied.pth")
@@ -409,6 +455,65 @@ def run(args) -> dict:
                     if moments:  # the fit's sums, counts and second moment, before any inverse
                         record["moments"] = os.path.join(work, "maha_moments.pt")
                         torch.save([m.cpu() for m in moments[0]], record["moments"])
+            elif name == "serve":
+                scored, score_rows = [], ScoringMixin.score_rows
+
+                def keep_rows(runner, encoded, scorer=None):
+                    rows = score_rows(runner, encoded, scorer)
+                    scored.extend(rows)
+                    return rows
+
+                printed = io.StringIO()
+                _reset()
+                with _patched([(ScoringMixin, "score_rows", keep_rows)]):
+                    served = serve.main([*serve_argv(args, gqa, work), "--device", dev],
+                                        stdin=iter([line + "\n" for line in serve_records(gqa)]), stdout=printed)
+                record = {"launches": _counts(), "served": served, "lines": printed.getvalue().splitlines(),
+                          "scores": [[a, float(c)] for a, c in scored]}
+            elif name in ("distill_mc", "distill_mc_drop", "distill_ensemble"):
+                # --output_name a path: the rows go to this run's folder, not the shared root.
+                argv = ["--data_root", gqa, "--synthetic", *base, "--device", dev, "--output", work,
+                        "--output_name", os.path.join(work, "rows")]
+                if name != "distill_ensemble":
+                    argv += ["--load", init, "--n_candidates", str(4 * args.batch + 3), "--passes", "2"]
+                    argv += DROP if name.endswith("_drop") else []
+                else:
+                    argv += ["--teacher_path", f"{init},{os.path.join(args.out, 'rp', 'LAST.pth')}"]
+                _reset()
+                rows = distill_cli.main(argv)
+                record = {"launches": _counts(), "rows": rows}
+                if mesh.is_main:
+                    with open(os.path.join(work, "rows.json")) as f:
+                        record["written"] = json.load(f) == rows
+            elif name in ("verifier", "verifier_drop"):
+                scored = {}
+                rejection = ScoringMixin._rejection_results
+
+                def keep(runner, encoded, quesid2ans, dump):
+                    scored.update(quesid2ans)
+                    return rejection(runner, encoded, quesid2ans, dump)
+
+                acfg, _ = parse_cli(["--data_root", gqa, "--synthetic", *base, "--load", init, "--output",
+                                     os.path.join(work, "answerer")])
+                vcfg, _ = parse_cli(["--data_root", gqa, "--synthetic", *base, "--strategy", "separate",
+                                     *(DROP if name.endswith("_drop") else []), "--output",
+                                     os.path.join(work, "verifier")])
+                answerer = GQARunner(acfg, init_train=False, device=device)
+                ver = GQARunner(vcfg, device=device)
+                trainer = VerifierTrainer(ver, answerer, topk=3, seed=5)
+                _reset()
+                losses = trainer.train(ver._encode(GQADataset(gqa, "train,train_uq", add_uq=True)), epochs=1,
+                                       batch_size=args.batch)
+                train_launches = _counts()
+                _reset()
+                with _patched([(ScoringMixin, "_rejection_results", keep)]):
+                    results = trainer.ood_evaluate(ver._encode(GQADataset(gqa, "testdev", add_uq=True)),
+                                                   dump=os.path.join(work, "testdev_predict.json"))
+                record = {"losses": losses, "train_launches": train_launches, "launches": _counts(),
+                          "results": {k: float(v) for k, v in results.items() if np.isscalar(v)},
+                          "scores": [[q, a, float(c)] for q, (a, c) in scored.items()]}
+                if mesh.is_main:
+                    record["dump"] = _read_dump(os.path.join(work, "testdev_predict.json"))
             elif name == "streams":
                 record = _streams(args, mesh, device)
             else:
@@ -425,7 +530,9 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--world", type=int, default=1)
     p.add_argument("--rank", type=int, default=0)
-    p.add_argument("--port", type=int, default=0)
+    p.add_argument("--port", type=int, default=0, help="the port of the TCPStore that launch() hosts")
+    p.add_argument("--timeout", type=float, default=600.0,
+                   help="seconds that the join and each collective may take before the rank fails")
     p.add_argument("--backend", default="gloo")
     p.add_argument("--device", default="cuda", help="cuda (the default; raises without a card), cuda:N or cpu")
     p.add_argument("--root", required=True, help="where the synthetic roots are written (rank 0)")
@@ -453,23 +560,50 @@ def main(argv=None) -> dict:
     return out
 
 
-def launch(world: int, argv: list, *, env: Optional[dict] = None, timeout: float = 600.0,
+def _paths_of(argv: list) -> list:
+    """The paths that ``argv`` asks for (the last ``--paths``, else all)."""
+    given = [argv[i + 1] for i, a in enumerate(argv[:-1]) if a == "--paths"]
+    return (given[-1] if given else ",".join(PATHS)).split(",")
+
+
+def _last_path(stderr: str) -> Optional[str]:
+    marks = [l.split(" ", 1)[1] for l in stderr.splitlines() if l.startswith("DDP_CHECK_PATH ")]
+    return marks[-1] if marks else None
+
+
+def launch(world: int, argv: list, *, env: Optional[dict] = None, path_seconds: float = PATH_SECONDS,
            cwd: Optional[str] = None) -> list:
-    """Spawn ``world`` ranks of this module with ``argv`` (and a free port)
-    and return each rank's ``DDP_CHECK`` record, in rank order.  A rank
-    that fails ends the others; its error is raised with their output."""
-    port = free_port()
+    """Spawn ``world`` ranks of this module with ``argv`` and return each
+    rank's ``DDP_CHECK`` record, in rank order.  This process hosts the
+    group's ``TCPStore`` on a port the OS picks, bound from the start, and
+    the ranks join it as clients.  The ranks have ``START_SECONDS`` plus
+    ``path_seconds`` for each path of ``argv`` (also each rank's
+    ``--timeout``); a rank that fails or is still running then ends the
+    others, and the error, with their output, names each rank's exit and
+    the path it was in."""
+    import torch.distributed as dist
+
+    budget = START_SECONDS + path_seconds * len(_paths_of(argv))
+    store = port = None
+    if world > 1:
+        store = dist.TCPStore("localhost", 0, world_size=world, is_master=True, wait_for_workers=False,
+                              timeout=datetime.timedelta(seconds=budget))
+        port = store.port
     # Each rank writes to files, not pipes: a rank whose output outgrew a
     # pipe's buffer would block on it while nothing reads until the end.
     logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in range(world)]
     procs = [subprocess.Popen([sys.executable, "-m", "rgqa_tpu_torch.tools.ddp_check", "--world", str(world),
-                               "--rank", str(r), "--port", str(port), *argv],
+                               "--rank", str(r), "--port", str(port or 0), "--timeout", str(budget), *argv],
                               stdout=logs[r][0], stderr=logs[r][1], text=True, env=env, cwd=cwd)
              for r in range(world)]
-    deadline = time.monotonic() + timeout
+    deadline = time.monotonic() + budget
+    late = False
     try:
         while any(p.poll() is None for p in procs):
-            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                late = True
                 break
             time.sleep(0.05)
     finally:
@@ -477,6 +611,7 @@ def launch(world: int, argv: list, *, env: Optional[dict] = None, timeout: float
             if p.poll() is None:
                 p.kill()
             p.wait()
+        del store
     records, errors = [], []
     for r, (p, (out, err)) in enumerate(zip(procs, logs)):
         with out, err:
@@ -485,7 +620,10 @@ def launch(world: int, argv: list, *, env: Optional[dict] = None, timeout: float
             stdout, stderr = out.read(), err.read()
         line = next((l for l in reversed(stdout.splitlines()) if l.startswith("DDP_CHECK ")), None)
         if p.returncode != 0 or line is None:
-            errors.append(f"rank {r} exited {p.returncode}:\n{stdout[-2000:]}\n{stderr[-4000:]}")
+            why = (f"still running at the deadline of {budget:.0f} s, killed" if late and p.returncode < 0
+                   else f"exited {p.returncode}")
+            errors.append(f"rank {r} of {world} {why} in path {_last_path(stderr)}:\n{stdout[-2000:]}\n"
+                          f"{stderr[-4000:]}")
         else:
             records.append(json.loads(line[len("DDP_CHECK "):]))
     if errors:

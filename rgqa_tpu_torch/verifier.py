@@ -19,6 +19,15 @@ the JAX class's API; its steps run the port's one-logit train step
 (``--strategy separate``'s: #4 / #5 at the verifier's dropout on the
 card) and its forwards #1.  The JAX package has no CLI for it, and
 neither has the port.
+
+Data parallel (the runners' ``mesh`` of N ranks, as the JAX trainer
+shards each statement batch over its mesh): every rank draws the shuffle,
+the wrong-proposal pick and the partner question of each global batch of
+``b`` questions from the shared host stream, runs the answerer's top-k on
+its own rows and gathers them, builds all ``3b`` statements and trains on
+its rows of them (the world must divide ``b``); the gradients are
+averaged before the clip and the loss is the global mean.  Evaluation
+scores through the verifier's ``_map_eval``, and rank 0 dumps.
 """
 
 from __future__ import annotations
@@ -30,9 +39,8 @@ import numpy as np
 import torch
 
 from rgqa_tpu_torch.data.batching import batch_iterator, to_device
-from rgqa_tpu_torch.metrics import RGQAEvaluator, dump_predictions
 from rgqa_tpu_torch.ops.dropout import DropoutRng
-from rgqa_tpu_torch.parallel import refuse_ranks
+from rgqa_tpu_torch.parallel import check_batch_size, gather_rows, make_mesh, shard_batch
 from rgqa_tpu_torch.scorers.core import make_msp_scorer
 from rgqa_tpu_torch.train.optimizer import make_optimizer
 from rgqa_tpu_torch.train.step import make_train_step
@@ -159,11 +167,13 @@ class VerifierTrainer:
     separate`` (a one-logit model) whose text inputs are statements.
     ``seed`` seeds the host generator of the shuffle, the wrong-proposal
     pick and the partner question (JAX's draws, in its order); the
-    verifier's dropout draws from a :class:`DropoutRng` seeded 0, where
-    JAX's key is ``PRNGKey(0)``."""
+    verifier's dropout draws from a :class:`DropoutRng` seeded 0 (the
+    rank's stream of it), where JAX's key is ``PRNGKey(0)``.  A process
+    launched as one of several ranks without joining raises, as the
+    runners do."""
 
     def __init__(self, verifier, answerer, topk: int = 5, seed: int = 0):
-        refuse_ranks("the verifier")  # one process: not ported to data parallelism yet
+        make_mesh()  # a rank launched without joining raises here
         self.verifier = verifier
         self.answerer = answerer
         self.topk = topk
@@ -183,11 +193,13 @@ class VerifierTrainer:
         """``epochs`` over ``encoded`` (the verifier's encoding of a split),
         ``batch_size`` questions a step, each giving three statements (3 x
         ``batch_size`` rows); returns each step's loss."""
-        ver, device = self.verifier, self.verifier.device
+        ver, device, mesh = self.verifier, self.verifier.device, self.verifier.mesh
+        check_batch_size(mesh, batch_size, "the verifier's batch_size")
         n_batches = len(encoded) // batch_size
         optimizer = make_optimizer(ver.cfg.train.optim, ver.model.parameters(), max(n_batches * epochs, 1))
-        rng = DropoutRng(device=torch.Generator(device=device).manual_seed(0), host=torch.Generator().manual_seed(0))
-        step = make_train_step(ver.forward, optimizer, binary=True, rng=rng)  # clip 5.0, as the JAX step
+        rng = DropoutRng.for_rank(0, device, rank=mesh.rank, world=mesh.world)
+        # Clip 5.0, as the JAX step; under several ranks after the gradients' average.
+        step = make_train_step(ver.forward, optimizer, binary=True, rng=rng, mesh=mesh)
         losses = []
         dataset = encoded.dataset
         label2ans = self.answerer.label2ans
@@ -196,10 +208,11 @@ class VerifierTrainer:
             for _ in range(epochs):
                 for qids, batch, _ in batch_iterator(encoded, batch_size, shuffle=True, rng=self.rng,
                                                      drop_last=True):
-                    with torch.no_grad():
-                        logits = self.answerer.forward(to_device(batch, self.answerer.device),
+                    with torch.no_grad():  # this rank's rows, every rank's proposals gathered
+                        logits = self.answerer.forward(to_device(shard_batch(mesh, batch), self.answerer.device),
                                                        deterministic=True)["logits"]
-                        proposals = torch.topk(logits.float(), self.topk, dim=-1).indices.cpu().numpy()
+                        top = torch.topk(logits.float(), self.topk, dim=-1).indices
+                        proposals = gather_rows(mesh, top).cpu().numpy()
                     sents, labels = [], []
                     b = len(qids)
                     for j, qid in enumerate(qids):
@@ -226,7 +239,7 @@ class VerifierTrainer:
                     vb = self._statement_batch(sents, tiled)
                     vb["target"] = np.zeros((3 * b, 1), np.float32)
                     vb["id_mask"] = np.asarray(labels, np.float32)
-                    losses.append(float(step(to_device(vb, device))["loss"]))
+                    losses.append(float(step(to_device(shard_batch(mesh, vb), device))["loss"]))
         finally:
             ver.model.eval()
         return losses
@@ -236,20 +249,28 @@ class VerifierTrainer:
         statement filled with the answer (``gqa_verifier.py``'s evaluation);
         the RGQA metric dict, and with ``dump`` the prediction JSON."""
         ver = self.verifier
-        verify = make_msp_scorer(ver.forward)
         answers = self.answerer.predict(self.answerer._encode(encoded.dataset))
+        sents = [fill_statement(self._template(q, encoded.dataset.id2datum[q]["sent"]), answers[q])
+                 for q in encoded.question_ids]
+        statements = _Statements(encoded, self._statement_batch(sents, {}))
         quesid2ans = {}
-        for qids, batch, real in batch_iterator(encoded, ver.cfg.train.batch_size):
-            sents = [fill_statement(self._template(q, encoded.dataset.id2datum[q]["sent"]), answers[q])
-                     for q in qids]
-            # The final batch is padded to full size; pad its statements too.
-            n_rows = batch["feats"].shape[0]
-            sents += [sents[-1]] * (n_rows - len(sents))
-            vb = self._statement_batch(sents, {k: batch[k] for k in ("feats", "boxes")})
-            scores = verify(to_device(vb, ver.device))["score"].float().cpu().numpy()[:real]
-            for qid, s in zip(qids, scores):
+        for qids, out, real in ver._map_eval(statements, make_msp_scorer(ver.forward), ("score",)):
+            for qid, s in zip(qids, out["score"][:real]):
                 quesid2ans[qid] = (answers[qid], float(s))
-        results = RGQAEvaluator(encoded.dataset.qid2label, tau=ver.cfg.ood.tau).evaluate_quesid2ans(quesid2ans)
-        if dump:
-            dump_predictions(quesid2ans, dump)
-        return results
+        return ver._rejection_results(encoded, quesid2ans, dump)
+
+
+class _Statements:
+    """``encoded``'s rows with the text fields of ``statements`` (one
+    statement a row): the RoI feats and boxes, and the question ids."""
+
+    def __init__(self, encoded, statements: dict):
+        self.encoded, self.statements = encoded, statements
+        self.question_ids = encoded.question_ids
+
+    def __len__(self) -> int:
+        return len(self.encoded)
+
+    def gather_batch(self, idx, with_target: bool = False) -> dict:
+        batch = self.encoded.gather_batch(idx)
+        return dict({k: batch[k] for k in ("feats", "boxes")}, **{k: v[idx] for k, v in self.statements.items()})

@@ -3,28 +3,39 @@ against the one-process port and the JAX runners.
 
 - Joining: without torchrun's environment ``initialize_distributed`` does
   nothing; with it (``--device cpu``) it joins a gloo group; ``--model_axis
-  2``, a global batch the world does not divide, a ``LOCAL_RANK`` past the
-  cards, and the one-process entry points (serve, distill, the verifier)
-  under ``WORLD_SIZE`` 2 raise by name (the counterparts of
+  2``, a global batch the world does not divide and a ``LOCAL_RANK`` past
+  the cards raise by name, and a process launched as one of two ranks that
+  never joined raises in every entry point (the runner, serve, distill,
+  the verifier) before it builds anything (the counterparts of
   ``tests/test_parallel_fullshape.py::TestInitializeMultihost``).
-- One spawn of two gloo ranks (``rgqa_tpu_torch.tools.ddp_check``, a free
-  port the OS picks, one torch thread each), beside one process of the same
-  tool at world 1: tiny widths, f32, dropout 0, global batch 8.  In order:
-  RP, ``mixup_v1``, TreeMix, weighted RP, a min-max strategy (resampling),
-  VILLA, ``distill_online``, ``--update_weight_model`` (a tiny CLIP trained
+- One spawn of two gloo ranks (``rgqa_tpu_torch.tools.ddp_check``, joined
+  through a store that the launching process hosts on a port the OS picks,
+  one torch thread each), beside one process of the same tool at world 1:
+  tiny widths, f32, dropout 0, global batch 8.  In order: RP, ``mixup_v1``,
+  TreeMix, weighted RP, a min-max strategy (resampling), VILLA,
+  ``distill_online``, ``--update_weight_model`` (a tiny CLIP trained
   beside the answerer: its objective too), pretraining (six tasks, batch
-  16), VQA, NLVR2,
-  evaluate with msp and maha, RP at dropout 0.1, the train CLI with a
-  resume.  Every step's global loss (the pretraining parts) and every
+  16), VQA, NLVR2, evaluate with msp and maha, RP at dropout 0.1, the train
+  CLI with a resume, the serve CLI (good records, a malformed one and an
+  unknown image), the distill CLI (cartography over two passes, and two
+  ensemble teachers) and the verifier (an epoch of training, then its
+  evaluation), the last two also at dropout 0.1, where each rank draws
+  its own passes and steps.  Every step's global loss (the pretraining parts) and every
   confidence is held to the one-process run at rtol 1e-5 (the runs differ
   by the order of the gradient sums: ~2e-7 here), and so are the maha
-  fit's moments, before the covariance's inverse.
-- RP training, pretraining and evaluate-msp are also held to the JAX
+  fit's moments, before the covariance's inverse; the serve's printed
+  confidences within one unit of the fourth decimal, its answers and
+  error lines equal.
+- RP training, pretraining, evaluate-msp and serve are also held to the JAX
   runners on their 8-device CPU mesh (``tests/conftest.py``): the JAX RP
-  runner loads the port's seeded init (``INIT.pth``), the port's
+  runner and serve load the port's seeded init (``INIT.pth``), the port's
   pretraining the JAX runner's params, and the ranks take the JAX key
   chains' rolls and masks; the bars are ``tests/test_train.py``'s
-  trajectory rtol 1e-4 and the dump's rtol 2e-4 / atol 2e-5.
+  trajectory rtol 1e-4 and the dump's rtol 2e-4 / atol 2e-5 (the serve's
+  printed confidences: atol 1.2e-4, one rounding unit more).
+- Every wait has a limit: the spawn's ranks ``PATH_SECONDS`` a path past
+  their start (``ddp_check.launch``, which names the path of a rank that
+  overruns), the wait for ``INIT.pth`` ``INIT_SECONDS``.
 - At dropout 0.1 the ranks' attention seeds and hidden-dropout bytes
   differ, and their shifts, shuffles and mixup draws agree; on one rank
   the streams are the one-process run's.
@@ -35,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import io
 import json
 import os
 import time
@@ -61,6 +73,12 @@ from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thr
 TRAIN_PATHS = ("rp", "mixup_v1", "treemix", "weighted_rp", "minmax", "villa", "distill", "weight_model", "pretrain",
                "vqa", "nlvr2", "cli")
 EVAL_PATHS = ("eval_msp", "eval_maha")
+DISTILL_PATHS = ("distill_mc", "distill_ensemble")
+# The spawn's limits.  A path takes 1-6 s alone on one core at these widths
+# (~95 s for the 20 paths and the ranks' start); the tier-1 run shares
+# the host with five other workers.
+PATH_SECONDS = 15.0
+INIT_SECONDS = 120.0
 RTOL = 1e-5  # two ranks against one process
 JAX_RTOL = 1e-4  # tests/test_train.py's trajectory bar
 SEED, BATCH, STEPS = 11, 8, 4  # the tool's seed and global batch; 32 train rows
@@ -78,6 +96,7 @@ def runs(tmp_path_factory):
     "jax": the JAX runners' results})."""
     jax = pytest.importorskip("jax")
     from rgqa_tpu import config as jax_config
+    from rgqa_tpu.cli import serve as jax_serve
     from rgqa_tpu.data import GQADataset as JaxDataset
     from rgqa_tpu.pretrain import PretrainRunner as JaxPretrainRunner
     from rgqa_tpu.runner import GQARunner as JaxRunner
@@ -118,13 +137,19 @@ def runs(tmp_path_factory):
                 "--pretrain_load", pre_init, "--draws", draws, "--clip_path", str(clip)]
         env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.path.dirname(os.path.dirname(__file__)))
         with concurrent.futures.ThreadPoolExecutor(2) as pool:
-            one = pool.submit(ddp_check.launch, 1, [*argv, "--out", str(tmp / "one")], env=env)
-            two = pool.submit(ddp_check.launch, 2, [*argv, "--out", str(tmp / "two")], env=env)
+            one, two = (pool.submit(ddp_check.launch, world, [*argv, "--out", str(tmp / name)], env=env,
+                                    path_seconds=PATH_SECONDS) for world, name in ((1, "one"), (2, "two")))
             # Meanwhile the JAX runners, on their 8-device mesh, from the same init.
             init = tmp / "one" / "rp" / "INIT.pth"
-            deadline = time.monotonic() + 300
+            deadline = time.monotonic() + INIT_SECONDS
             while not init.is_file() and not one.done() and time.monotonic() < deadline:
                 time.sleep(0.1)
+            if not init.is_file():
+                one.result() if one.done() else pytest.fail(f"no {init} within {INIT_SECONDS} s")
+            served = io.StringIO()
+            jax_serve.main(["--synthetic", "--data_root", gqa, "--test", "testdev", "--load", str(init),
+                            "--wave_timeout", "0", *FLAGS, "--output", str(tmp / "jax_serve")],
+                           stdin=iter([line + "\n" for line in ddp_check.serve_records(gqa)]), stdout=served)
             jcfg, _ = jax_config.parse_cli(["--data_root", gqa, "--synthetic", *FLAGS, "--sample_pair", "--load",
                                             str(init), "--output", str(tmp / "jax_rp")])
             jax_rp = JaxRunner(jcfg)
@@ -137,7 +162,8 @@ def runs(tmp_path_factory):
             jax_hist = jax_rp.train()
             pre_hist = jax_pre.train()
             results = {"one": _records(one.result())[0], "two": _records(two.result())}
-    results["jax"] = {"rp": jax_hist, "pretrain": pre_hist, "dump": jax_dump, "scores": jax_scores}
+    results["jax"] = {"rp": jax_hist, "pretrain": pre_hist, "dump": jax_dump, "scores": jax_scores,
+                      "serve": served.getvalue().splitlines()}
     return tmp, results
 
 
@@ -164,8 +190,8 @@ def test_without_torchrun_env_nothing_is_joined(monkeypatch):
 
 
 def test_torchrun_env_joins_a_gloo_group_on_the_cpu(monkeypatch):
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
-           "MASTER_PORT": str(ddp_check.free_port())}
+    # World 1: rank 0 hosts the store on a port the OS picks (0), bound at once.
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost", "MASTER_PORT": "0"}
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     try:
@@ -234,28 +260,35 @@ def test_a_local_rank_past_the_cards_raises(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["serve", "distill", "verifier", "runner"])
 def test_one_process_entry_points_refuse_several_ranks(entry, monkeypatch, tmp_path):
+    """A process launched as one of two ranks that never joined a group
+    raises in every entry point, as the runner does, before it builds
+    anything (the CLIs' join is skipped: a rank whose launcher left it
+    out)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
     argv = ["--data_root", str(tmp_path / "gqa"), "--synthetic", "--device", "cpu", "--output", str(tmp_path / "o")]
+    no_group = pytest.raises(RuntimeError, match="WORLD_SIZE is 2 but no process group is initialized")
     if entry == "serve":
         from rgqa_tpu_torch.cli import serve
 
-        with pytest.raises(NotImplementedError, match="the serve CLI under WORLD_SIZE 2"):
+        monkeypatch.setattr(serve, "initialize_distributed", lambda device: None)
+        with no_group:
             serve.main([*argv, "--test", "testdev"])
     elif entry == "distill":
         from rgqa_tpu_torch.cli import distill
 
-        with pytest.raises(NotImplementedError, match="the distill CLI under WORLD_SIZE 2"):
+        monkeypatch.setattr(distill, "initialize_distributed", lambda device: None)
+        with no_group:
             distill.main(argv)
     elif entry == "verifier":
         from rgqa_tpu_torch.verifier import VerifierTrainer
 
-        with pytest.raises(NotImplementedError, match="the verifier under WORLD_SIZE 2"):
+        with no_group:
             VerifierTrainer(None, None)
     else:  # a rank launched without joining never carries on alone
         from rgqa_tpu_torch.runner import GQARunner
 
         cfg, _ = port_config.parse_cli(argv)
-        with pytest.raises(RuntimeError, match="WORLD_SIZE is 2 but no process group"):
+        with no_group:
             GQARunner(cfg, device="cpu")
     assert not (tmp_path / "gqa").exists()
 
@@ -376,6 +409,80 @@ def test_two_rank_train_cli_writes_once_and_resumes(runs):
     np.testing.assert_allclose(got["resumed"]["loss"], one["resumed"]["loss"], rtol=RTOL)
     with open(tmp / "one" / "cli" / "LAST.state.pt", "rb") as f:
         assert "rng_ranks" not in torch.load(f, weights_only=True)  # one process: the old layout
+
+
+def _served(lines: list) -> tuple[list, list]:
+    """(the answers, the error records) of a serve's printed lines."""
+    rows = [json.loads(line) for line in lines]
+    return [r for r in rows if "error" not in r], [r for r in rows if "error" in r]
+
+
+def test_two_rank_serve_answers_like_one_process(runs):
+    _, res = runs
+    one, r0, r1 = res["one"]["serve"], res["two"][0]["serve"], res["two"][1]["serve"]
+    answers, errors = _served(r0["lines"])
+    want_answers, want_errors = _served(one["lines"])
+    assert r1["lines"] == [] and r0["served"] == r1["served"] == one["served"] == 24  # rank 0 alone prints
+    assert len(errors) == 2 and errors == want_errors  # each bad record answered once
+    assert [(a["questionId"], a["prediction"]) for a in answers] == [
+        (a["questionId"], a["prediction"]) for a in want_answers]
+    np.testing.assert_allclose([a["confidence"] for a in answers], [a["confidence"] for a in want_answers],
+                               rtol=0, atol=1e-4 + 1e-9)
+    for got in (r0, r1):  # every rank scores every row, unrounded
+        assert [row[0] for row in got["scores"]] == [row[0] for row in one["scores"]]
+        np.testing.assert_allclose([row[1] for row in got["scores"]], [row[1] for row in one["scores"]], rtol=RTOL)
+
+
+def test_two_rank_serve_matches_the_jax_serve(runs):
+    _, res = runs
+    answers, errors = _served(res["two"][0]["serve"]["lines"])
+    want_answers, want_errors = _served(res["jax"]["serve"])
+    assert [e["record"] for e in errors] == [e["record"] for e in want_errors] and len(errors) == 2
+    assert [(a["questionId"], a["prediction"]) for a in answers] == [
+        (a["questionId"], a["prediction"]) for a in want_answers]
+    np.testing.assert_allclose([a["confidence"] for a in answers], [a["confidence"] for a in want_answers],
+                               rtol=2e-4, atol=1.2e-4)
+
+
+@pytest.mark.parametrize("path", DISTILL_PATHS)
+def test_two_ranks_distill_like_one_process(runs, path):
+    _, res = runs
+    one, r0, r1 = res["one"][path], res["two"][0][path], res["two"][1][path]
+    assert one["rows"] and r0["written"] and one["written"] and "written" not in r1  # rank 0 alone writes
+    for got in (r0, r1):
+        assert [(r["question_id"], r["img_id"], list(r["label"])) for r in got["rows"]] == [
+            (r["question_id"], r["img_id"], list(r["label"])) for r in one["rows"]]
+        np.testing.assert_allclose([v for r in got["rows"] for v in r["label"].values()],
+                                   [v for r in one["rows"] for v in r["label"].values()], rtol=RTOL)
+
+
+def test_two_ranks_train_and_score_the_verifier_like_one_process(runs):
+    _, res = runs
+    one, r0, r1 = res["one"]["verifier"], res["two"][0]["verifier"], res["two"][1]["verifier"]
+    assert len(one["losses"]) == 6 and np.all(np.isfinite(one["losses"]))  # 48 rows of train and train_uq at batch 8
+    assert r0["losses"] == r1["losses"]  # every rank reports the global loss
+    np.testing.assert_allclose(r0["losses"], one["losses"], rtol=RTOL)
+    for got in (r0, r1):
+        assert [row[:2] for row in got["scores"]] == [row[:2] for row in one["scores"]]
+        np.testing.assert_allclose([row[2] for row in got["scores"]], [row[2] for row in one["scores"]], rtol=RTOL)
+    assert [row[:2] for row in r0["dump"]] == [row[:2] for row in one["dump"]] and "dump" not in r1
+    assert len(one["scores"]) == 24
+
+
+@pytest.mark.parametrize("path", ["distill_mc_drop", "verifier_drop"])
+def test_at_dropout_each_rank_draws_its_own_passes(runs, path):
+    """At dropout 0.1 each rank's MC-dropout passes and verifier steps
+    draw from its own stream, so two ranks do not repeat one process;
+    every rank still reports the global result."""
+    _, res = runs
+    one, r0, r1 = res["one"][path], res["two"][0][path], res["two"][1][path]
+    if path == "verifier_drop":
+        assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 6 and np.all(np.isfinite(r0["losses"]))
+        assert not np.allclose(r0["losses"], one["losses"], rtol=RTOL)
+        assert r0["scores"] == r1["scores"]
+    else:
+        assert r0["rows"] and r0["rows"] == r1["rows"]
+        assert r0["rows"] != one["rows"]
 
 
 # ---------------------------------------------------------------------------
