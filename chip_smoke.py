@@ -28,8 +28,8 @@ nonzero:
    lane up to 32 keys): registers and spills from ptxas, and the dynamic
    shared memory of their layouts at 20x20 (one key a lane), 36x36 and
    50x50, as the short bf16 bodies' line (reported, not held).
-3. kernels: the six attention kernels against their plain PyTorch
-   versions.  #2, the long-stream forward, and #3L, the long-stream
+3. kernels: the six attention kernels of slices 1-23 against their plain
+   PyTorch versions (4L / 5L: phase 51).  #2, the long-stream forward, and #3L, the long-stream
    backward (given #2's row statistics), at ViLT-B/32's shapes (165x165,
    185x185, and 65x185 / 185x65 for ragged query tiles), either side of
    256 keys where #2's f32 body changes (20x256, 256x256, 20x257,
@@ -421,11 +421,39 @@ nonzero:
    ``scripts/lxmert/test/msp.sh --synthetic`` from its ``LAST.pth``, full
    width on the card, each a process of its own: a ``LAST.pth`` that
    loads back whole and each RGQA testdev subset's result and dump.
-51. the kernels' JSON line (times: the sum over the LXMERT shapes, and
-   for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for the
-   four experiment kernels the sum over their shapes and variants at
-   batch 384), the nvidia-smi line, and last ``{"ok": true, "device":
-   {...}}``.
+51. long-stream dropout kernels (slice 24): 4L and 5L
+   (``fused_attention_dropout_long_cuda`` / ``_bwd_cuda``, the dropout
+   variants of #2 and #3L) against the plain pair at rate 0.1, f32 and
+   bf16: UNITER's 76 x 76 (40-token questions + 36 RoIs, its padded-text
+   mask) at batch 32 and 64; 165 x 165, 185 x 185, 65 x 185, 185 x 65 and
+   277 x 277 at batch 256; 597 x 597 at batch 64 (pad-patch masks, one
+   fully masked row); phase 3's bounds.  Rate 0 equals #2 / #3L bit for
+   bit (output, row statistics, gradients); 4L with its row statistics
+   gives the same output bits; ``<g, out> == <dv, v>`` within 2e-3 in
+   f32; two runs at 165 give equal bits; the mask read out through a
+   one-hot V (64 keys a call) equals ``dropout_keep_mask_ref`` bit for
+   bit in each body (f32 whole-row at 76, key-tiled at 277, the bf16
+   ``wgmma`` body at both), its kept fraction within 5 sigma.  bf16
+   CUDA-event times of 4L, 5L, the plain pair and SDPA with
+   ``dropout_p=0.1`` beside the bound, at every shape.
+52. UNITER at 76 tokens (``max_text_len`` 40), full width: RP steps at
+   dropout 0.1 through the kernels and the plain versions (12 4L and 12
+   5L launches a step, none of #4 / #5; ms a step in turns), one step's
+   loss (``LOSS_RTOL``) and gradients (relative L2 within
+   ``UNITER_LONG_GRAD_RTOL``) against the plain path on the same seeds,
+   and an MC-dropout batch of 256 (5 passes, 12 4L a pass, no 5L)
+   against its plain re-score (``CONF_TOL``).
+53. ``rgqa_tpu_torch.entry``: ``entry()`` (LXMERT 9/5/5 x 768, batch 8,
+   bf16) through the kernels (34 #1) against its plain run;
+   ``dryrun_multichip(2)`` and ``dryrun_multichip_fullshape(2)`` on two
+   gloo ranks on cuda:0, started before phase 52 and run beside it, each
+   with the JAX dry run's assertions, the tiny one's loss within
+   ``DP_RTOL`` of one process's at the global batch of 4.
+54. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+   for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for 4L / 5L
+   one call at UNITER-76's batch 32; for the four experiment kernels the
+   sum over their shapes and variants at batch 384), the nvidia-smi
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Needs the repository beside it; it imports nothing of JAX.  It must end
 within 1200 s on one H100, the kernels' build included.
@@ -513,6 +541,10 @@ KERNELS = {
     "fused_attention_long": ("rgqa_tpu_torch/csrc/fused_attention_long.cu", "rgqa_tpu/ops/attention.py:399"),
     # _fused_bwd_kernel at ViLT's streams (_fit_bwd_block's raised tiers).
     "fused_attention_long_bwd": ("rgqa_tpu_torch/csrc/fused_attention_long_bwd.cu", "rgqa_tpu/ops/attention.py:448"),
+    # 4L / 5L: _fused_drop_kernel / _fused_drop_bwd_kernel beyond 64 tokens.
+    "fused_attention_dropout_long": ("rgqa_tpu_torch/csrc/fused_attention_long.cu", "rgqa_tpu/ops/attention.py:641"),
+    "fused_attention_dropout_long_bwd": ("rgqa_tpu_torch/csrc/fused_attention_long_bwd.cu",
+                                         "rgqa_tpu/ops/attention.py:691"),
     # The experiment entry points' kernels (rgqa_tpu_torch/experiments).
     "dual_pair": ("rgqa_tpu_torch/csrc/xfuse.cu", "experiments/xfuse_exp.py:83"),
     "cat_call": ("rgqa_tpu_torch/csrc/xfuse.cu", "experiments/xfuse_exp.py:128"),
@@ -668,7 +700,8 @@ def phase_build():
 
 
 WGMMA_KERNEL = re.compile(r"headfold_wgmmaILi(\d+)E")  # headfold_wgmma<kNP>, kNP keys in the window
-LONG_WGMMA_KERNEL = re.compile(r"fused_attention_long_wgmmaILi(\d+)E")  # <kWG> warpgroups a block
+# <kWG, kDrop>: kWG warpgroups a block; kDrop 1 is 4L, #2 with the dropout.
+LONG_WGMMA_KERNEL = re.compile(r"fused_attention_long_wgmmaILi(\d+)ELb([01])E")
 EPI_KERNEL = re.compile(r"epilogue_bf16ILi(\d+)E")  # epilogue_bf16<kNP>, kNP keys in a window
 # The short bf16 bodies of #1 / #4 and #3 / #5: <kDrop, kNT>, kNT = SKP / 8.
 SHORT_BODY = re.compile(r"(fused_attention_(?:fwd|bwd)_short_bf16)ILb([01])ELi(\d+)E")
@@ -795,29 +828,32 @@ def _short_f32_smem(sq: int, skv: int, d: int, backward: bool) -> int:
     return 4 * (sq * max(ld, ldp) + 2 * skv * ld + small)
 
 
-def _long_ring_smem(wg: int) -> int:
+def _long_ring_smem(wg: int, drop: bool = False) -> int:
     """Dynamic shared memory of #2's bf16 body with ``wg`` warpgroups a
     block, as ``ring_smem_bytes`` in ``csrc/fused_attention_long.cu``
     lays it out: ``wg`` Q tiles and 3 ring stages each of K and V (64 x
-    64 bf16 a tile), 3 stages of 64 f32 bias, and one 1024-byte swizzle
-    period for the alignment."""
+    64 bf16 a tile), 3 stages of 64 f32 bias, with the dropout (4L) 3
+    stages of the keep words (64 ``wg`` rows x 4 u32), and one 1024-byte
+    swizzle period for the alignment."""
     tile, stages = 64 * 64 * 2, 3
-    return tile * (wg + 2 * stages) + 4 * 64 * stages + 1024
+    return tile * (wg + 2 * stages) + 4 * 64 * stages + drop * 4 * 64 * wg * 4 * stages + 1024
 
 
 def _long_wgmma_report(res) -> None:
-    """#2's bf16 body (``fused_attention_long_wgmma<kWG>``, one instance
-    per warpgroups a block): registers, spills and static shared memory
-    from the build log, the dynamic shared memory of its layout, and
-    HGMMA in its SASS; an instance without HGMMA fails the phase."""
-    res_by_wg = {int(m.group(1)): r for fn, r in _ptxas_resources(res.log).items()
+    """#2's and 4L's bf16 body (``fused_attention_long_wgmma<kWG, kDrop>``,
+    one instance per warpgroups a block and dropout): registers, spills
+    and static shared memory from the build log, the dynamic shared memory
+    of its layout, and HGMMA in its SASS; an instance without HGMMA fails
+    the phase."""
+    res_by_wg = {(int(m.group(1)), m.group(2) == "1"): r for fn, r in _ptxas_resources(res.log).items()
                  if (m := LONG_WGMMA_KERNEL.search(fn))}
     sass = _sass_hgmma(res.path)
-    hgmma = None if sass is None else {int(m.group(1)): c for fn, c in sass.items()
+    hgmma = None if sass is None else {(int(m.group(1)), m.group(2) == "1"): c for fn, c in sass.items()
                                        if (m := LONG_WGMMA_KERNEL.search(fn))}
     parts = []
     for wg in sorted(set(res_by_wg) | set(hgmma or {})):
-        part = f"{wg} warpgroups: {_long_ring_smem(wg)} B dynamic smem"
+        part = (f"{wg[0]} warpgroups{', dropout (4L)' if wg[1] else ''}: "
+                f"{_long_ring_smem(*wg)} B dynamic smem")
         if wg in res_by_wg:
             r = res_by_wg[wg]
             part += (f", {r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "
@@ -825,7 +861,7 @@ def _long_wgmma_report(res) -> None:
         if hgmma is not None:
             part += f", {hgmma.get(wg, 0)} HGMMA in SASS"
         parts.append(part)
-    log("build", "#2 bf16 body (fused_attention_long_wgmma<kWG>, wgmma): " + "; ".join(parts)
+    log("build", "#2 / 4L bf16 body (fused_attention_long_wgmma<kWG, kDrop>, wgmma): " + "; ".join(parts)
         + ("" if res.log else "; reused build, no ptxas log to read")
         + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
     if hgmma is not None and (not hgmma or not all(hgmma.values())):
@@ -893,15 +929,16 @@ def _attention_inputs(b, sq, skv, dtype, gen):
     return q, k, v, g, (1.0 - mask) * -10000.0
 
 
-def _uniter_bias(b, gen):
-    """UNITER's (B, 56) -10000 mask: questions of 4-20 tokens, the pads
-    after each masked in the middle of the keys, the 36 image keys kept;
-    row b // 2 fully masked."""
+def _uniter_bias(b, gen, text: int = UNITER_TEXT):
+    """UNITER's (B, text + 36) -10000 mask: questions of 4-``text`` tokens
+    (20: the 56-token stream; 40: the 76-token one), the pads after each
+    masked in the middle of the keys, the 36 image keys kept; row b // 2
+    fully masked."""
     import torch
 
-    lengths = torch.randint(4, UNITER_TEXT + 1, (b,), generator=gen, device="cuda")
-    bias = torch.zeros(b, UNITER[1], device="cuda")
-    bias[:, :UNITER_TEXT][torch.arange(UNITER_TEXT, device="cuda")[None, :] >= lengths[:, None]] = -10000.0
+    lengths = torch.randint(4, text + 1, (b,), generator=gen, device="cuda")
+    bias = torch.zeros(b, text + 36, device="cuda")
+    bias[:, :text][torch.arange(text, device="cuda")[None, :] >= lengths[:, None]] = -10000.0
     bias[b // 2] = -10000.0
     return bias
 
@@ -1570,11 +1607,13 @@ def _caps_pairs(batch: dict, rng) -> dict:
     return {"segment_ids": seg.astype(np.int32)}
 
 
-def _train_model(dropout: float, backbone: str, patch: int | None = None):
+def _train_model(dropout: float, backbone: str, patch: int | None = None, text: int | None = None):
     import torch
     from rgqa_tpu_torch.models.zoo import build_model, default_config
 
     cfg = default_config(backbone)
+    if text is not None:
+        cfg = dataclasses.replace(cfg, max_text_len=text)
     if backbone == "vilt":
         cfg = dataclasses.replace(cfg, max_text_len=VILT_TRAIN_TEXT)
     if backbone == "caps":
@@ -1619,11 +1658,12 @@ def _run_steps(model, forward, init, batches, use_fused, steps=None, binary=Fals
     return [float(x) for x in losses], ms
 
 
-def _step_launches(backbone: str, dropout: float) -> dict:
+def _step_launches(backbone: str, dropout: float, long: bool = False) -> dict:
     """Kernel launches per training step: LXMERT's 34 forward and
     ``BWD_PER_STEP`` backward attention calls, UNITER's 12 and 12, through
-    the dropout pair when dropout is on; ViLT's 12 and 12 through #2 and
-    #3L (no attention dropout)."""
+    the dropout pair when dropout is on (``long``: a stream past 64
+    tokens, #2 / #3L or 4L / 5L); ViLT's 12 and 12 through #2 and #3L (no
+    attention dropout)."""
     want = {name: 0 for name in KERNELS}
     if backbone == "vilt":
         want.update({"fused_attention_long": 12, "fused_attention_long_bwd": 12})
@@ -1631,6 +1671,9 @@ def _step_launches(backbone: str, dropout: float) -> dict:
         # Every layer's keys feed the pooled CLS: 12 backward calls too.
         pair = ("fused_attention", "fused_attention_bwd") if dropout == 0.0 else (
             "fused_attention_dropout", "fused_attention_dropout_bwd")
+        if long:
+            pair = tuple(name.replace("_bwd", "_long_bwd") if name.endswith("_bwd") else f"{name}_long"
+                         for name in pair)
         want.update(dict.fromkeys(pair, 12))
     elif dropout == 0.0:
         want.update({"fused_attention": 34, "fused_attention_bwd": BWD_PER_STEP})
@@ -1640,10 +1683,13 @@ def _step_launches(backbone: str, dropout: float) -> dict:
 
 
 def phase_train_steps(backbone: str = "lxmert", patch: int | None = None,
-                      dropouts=(0.0, RATE), n: int = 4, timed: int = 10, phase: str | None = None):
+                      dropouts=(0.0, RATE), n: int = 4, timed: int = 10, phase: str | None = None,
+                      text: int | None = None):
     """``n`` steps from one init through the kernels and through the plain
     versions at each dropout rate; ``timed`` more steps of each, in turns.
-    ``patch``: ViLT's patch size (16: the 597-token stream)."""
+    ``patch``: ViLT's patch size (16: the 597-token stream); ``text``:
+    the question length, where not the backbone's default (UNITER at
+    40: the 76-token stream)."""
     import torch
 
     phase = phase or ("train" if backbone == "lxmert" else f"{backbone}-train")
@@ -1652,7 +1698,7 @@ def phase_train_steps(backbone: str = "lxmert", patch: int | None = None,
     loss_rtol = CAPS_LOSS_RTOL if binary else LOSS_RTOL
     result = {}
     for dropout in dropouts:
-        cfg, model, forward = _train_model(dropout, backbone, patch)
+        cfg, model, forward = _train_model(dropout, backbone, patch, text)
         batches = _train_batches(cfg, n)
         init = {k: v.detach().clone() for k, v in model.state_dict().items()}
         reset_counts()
@@ -1662,7 +1708,7 @@ def phase_train_steps(backbone: str = "lxmert", patch: int | None = None,
         if read_counts() != counts:
             raise AssertionError("the plain steps launched a kernel")
         per_step = {name: c / n for name, c in counts.items()}
-        want = _step_launches(backbone, dropout)
+        want = _step_launches(backbone, dropout, long=text is not None and text + 36 > 64)
         rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
         if not all(math.isfinite(x) for x in k_losses + p_losses):
             raise AssertionError(f"non-finite losses {k_losses} {p_losses}")
@@ -5228,6 +5274,315 @@ def _reachable_acc(root: str) -> float:
     return collections.Counter(answerable).most_common(1)[0][1] / len(answerable)
 
 
+# ---------------------------------------------------------------------------
+# Phases 51-53 (slice 24): the long-stream dropout pair 4L / 5L, UNITER at a
+# 40-token question (a 76-token stream), the dry-run entry.
+# ---------------------------------------------------------------------------
+
+UNITER_LONG_TEXT = 40  # BUTD's question length in the config: 40 + 36 RoIs = 76 tokens
+UNITER_LONG = (UNITER_LONG_TEXT + 36,) * 2
+# 4L / 5L against the plain pair: UNITER's 76 tokens at a training step's
+# 32 and 64 rows, ViLT-B/32's streams and ragged query / key tiles, a
+# 512 px image's 277 tokens and 16 px patches' 597.  (shape, batch).
+DROP_LONG_CASES = ((UNITER_LONG, 32), (UNITER_LONG, 64), ((165, 165), 256), ((185, 185), 256),
+                   ((65, 185), 256), ((185, 65), 256), ((277, 277), 256), ((597, 597), 64))
+DROP_LONG_MAIN = (UNITER_LONG, 32)  # the JSON line's shape: the UNITER-76 step's calls
+DROP_LONG_ITERS = 20  # CUDA-event iterations a timing (4 timings a kernel, in turns)
+
+
+def _drop_long_readout(att, gen, s: int, dtype) -> str:
+    """4L's mask at ``s`` x ``s``, batch 32, read through q = k = 0 (P =
+    1 / s) and a one-hot V, 64 keys a call (a head holds 64 values):
+    out[b, i, h*D + c] > 0 iff keep(b, h, i, 64 p + c).  Equal to
+    ``dropout_keep_mask_ref`` bit for bit, kept fraction within 5 sigma."""
+    import torch
+
+    b, d = 32, E // HEADS
+    zeros = torch.zeros(b, s, E, device="cuda", dtype=dtype)
+    bias = torch.zeros(b, s, device="cuda")
+    seed = int(torch.randint(0, 2**62, (), generator=gen, device="cuda"))
+    got = torch.empty(b, HEADS, s, s, dtype=torch.bool, device="cuda")
+    for j0 in range(0, s, d):
+        n = min(d, s - j0)
+        v = torch.zeros(b, s, HEADS, d, device="cuda", dtype=dtype)
+        v[:, torch.arange(j0, j0 + n), :, torch.arange(n)] = 1.0
+        out = att.fused_attention_dropout_long_cuda(zeros, zeros, v.reshape(b, s, E), bias, HEADS, RATE, seed)
+        got[..., j0:j0 + n] = out.reshape(b, s, HEADS, d)[..., :n].permute(0, 2, 1, 3) > 0
+    want = att.dropout_keep_mask_ref(seed, b, HEADS, s, s, RATE, device="cuda")
+    if not torch.equal(got, want):
+        raise AssertionError(f"4L's mask ({dtype}, {s}x{s}) differs from dropout_keep_mask_ref in "
+                             f"{int((got != want).sum())} places")
+    keep_p = (256 - round(RATE * 256)) / 256
+    frac = got.float().mean().item()
+    sigma = math.sqrt(keep_p * (1 - keep_p) / got.numel())
+    if abs(frac - keep_p) >= 5 * sigma:
+        raise AssertionError(f"4L's kept fraction {frac} is {abs(frac - keep_p) / sigma:.2f} sigma from {keep_p}")
+    return (f"mask {str(dtype).split('.')[1]} {s}x{s} == dropout_keep_mask_ref, kept {frac:.6f} "
+            f"({abs(frac - keep_p) / sigma:.2f} sigma)")
+
+
+def phase_long_dropout_kernels():
+    """Phase 51: 4L / 5L against the plain pair (``attention_dropout_ref`` /
+    ``_bwd_ref``) at DROP_LONG_CASES, f32 and bf16, rate 0.1, padded-text
+    masks with one fully masked row; rate 0 equal to #2 / #3L bit for bit
+    (out, row statistics and gradients); ``<g, out> == <dv, v>`` in f32;
+    two runs at 165 tokens equal bit for bit; the mask read out in both
+    bodies of each dtype; per-call times of 4L, 5L, the plain pair and
+    SDPA with ``dropout_p`` in bf16.  Returns (errs, times) as phase 3."""
+    import torch
+    from rgqa_tpu_torch.ops import attention as att
+
+    gen = torch.Generator(device="cuda").manual_seed(2424)
+    errs, times = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for (sq, skv), b in DROP_LONG_CASES:
+            q, k, v, g, _ = _attention_inputs(b, sq, skv, dtype, gen)
+            bias = (_uniter_bias(b, gen, UNITER_LONG_TEXT) if (sq, skv) == UNITER_LONG
+                    else _pad_patch_bias(b, skv, gen))
+            seed = int(torch.randint(0, 2**62, (), generator=gen, device="cuda"))
+            out, lse = att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, RATE, seed, lse=True)
+            calls = {
+                "fused_attention_dropout_long": (
+                    lambda: att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, RATE, seed),
+                    lambda: att.attention_dropout_ref(q, k, v, bias, HEADS, RATE, seed)),
+                "fused_attention_dropout_long_bwd": (
+                    lambda: att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, RATE, seed, lse),
+                    lambda: att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS, RATE, seed)),
+            }
+            msgs = []
+            for name, (kernel, plain) in calls.items():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                msgs.append(_compare(name, dtype, got, want, errs))
+                del want
+            if not torch.equal(calls["fused_attention_dropout_long"][0](), out):
+                raise AssertionError(f"4L with row statistics differs at {dname} B={b} {sq}x{skv}")
+            # Rate 0 is #2 / #3L, bit for bit.
+            out0, lse0 = att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, 0.0, seed, lse=True)
+            ref0, ref_lse = att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)
+            bwd0 = att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, 0.0, seed, lse0)
+            ref_bwd = att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, ref_lse)
+            if not (torch.equal(out0, ref0) and torch.equal(lse0, ref_lse)
+                    and all(torch.equal(x, y) for x, y in zip(bwd0, ref_bwd))):
+                raise AssertionError(f"rate 0 of 4L/5L differs from #2/#3L at {dname} B={b} {sq}x{skv}")
+            del out0, lse0, ref0, ref_lse, bwd0, ref_bwd
+            msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + "; ".join(msgs)
+                   + "; 4L with statistics: equal bits; rate 0 == #2/#3L bit for bit")
+            if (sq, skv) == (165, 165):
+                for name, (kernel, _) in calls.items():
+                    first, again = kernel(), kernel()
+                    if isinstance(first, torch.Tensor):
+                        first, again = (first,), (again,)
+                    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+                        raise AssertionError(f"{name} reruns differ at {dname} B={b} {sq}x{skv}")
+                msg += "; 4L/5L reruns bit-identical"
+            if dtype == torch.float32:
+                dv = calls["fused_attention_dropout_long_bwd"][0]()[2]
+                lhs = (out.double() * g.double()).sum().item()
+                rhs = (dv.double() * v.double()).sum().item()
+                if not abs(lhs - rhs) <= 2e-3 * abs(lhs):
+                    raise AssertionError(f"<g, out> {lhs} != <dv, v> {rhs} at {dname} B={b} {sq}x{skv}")
+                msg += f"; <g,out>/<dv,v> - 1 = {lhs / rhs - 1:.1e}"
+                del dv
+            else:
+                lib = _sdpa_calls(q, k, v, g, bias)
+                drop_ms = cuda_ms(lib["drop"], iters=DROP_LONG_ITERS)
+                library = {"fused_attention_dropout_long": drop_ms,
+                           "fused_attention_dropout_long_bwd":
+                               cuda_ms(lib["drop_fwd_bwd"], iters=DROP_LONG_ITERS) - drop_ms}
+                for name, (kernel, plain) in calls.items():
+                    plain_ms, kernel_ms = in_turns(plain, kernel, iters=DROP_LONG_ITERS)
+                    bound, by = _bound_ms(name, b, sq, skv, q.element_size())
+                    times[(name, dname, sq, skv, b)] = (kernel_ms, plain_ms, library[name], bound, by)
+                msg += "; us kernel/plain/SDPA(dropout_p)/bound: " + ", ".join(
+                    f"{n.replace('fused_attention_dropout_long', '4L').replace('4L_bwd', '5L')} "
+                    + "/".join(f"{x * 1e3:.1f}" for x in times[(n, dname, sq, skv, b)][:4])
+                    for n in calls)
+            log("long-dropout", msg)
+            del q, k, v, g, bias, out, lse, calls, got
+            torch.cuda.empty_cache()
+        # Each body's mask: the f32 whole-row body (76) and key-tiled one
+        # (277); the bf16 wgmma body at both.
+        log("long-dropout", "; ".join(_drop_long_readout(att, gen, s, dtype) for s in (UNITER_LONG[0], 277)))
+    return errs, times
+
+
+# The UNITER-76 step's gradients, kernels against the plain versions at
+# the same seeds and masks: relative L2 error of all the gradients at
+# most UNITER_LONG_GRAD_RTOL (both compute in bf16; the kernels round P
+# and dS to bf16 where the plain versions keep f32, as for the losses'
+# LOSS_RTOL; 3.3e-3 measured on the H100).
+UNITER_LONG_GRAD_RTOL = 1e-2
+ENTRY_ITERS = 20  # forwards timed, kernels and plain in turns
+
+
+def _one_step_grads(model, forward, init, batch, use_fused):
+    """One RP step at dropout 0.1 from ``init`` with the seeds of
+    ``_run_steps`` and a zero learning rate: (loss, every gradient as the
+    step clipped it, flattened f32)."""
+    import torch
+    from rgqa_tpu_torch.ops.dropout import DropoutRng
+    from rgqa_tpu_torch.train.step import make_train_step
+
+    model.load_state_dict(init)
+    opt = torch.optim.SGD(model.parameters(), lr=0.0)
+    rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1), host=torch.Generator().manual_seed(1))
+    loss = make_train_step(forward, opt, sample_pair=True, rng=rng, use_fused=use_fused)(batch)["loss"]
+    grads = torch.cat([p.grad.float().flatten() for p in model.parameters() if p.grad is not None])
+    return float(loss), grads
+
+
+def phase_uniter_long() -> dict:
+    """Phase 52: UNITER with 40-token questions (a 76-token stream) at full
+    width: RP training steps through the kernels and the plain versions
+    (12 4L and 12 5L launches a step, no #4 / #5), one step's loss and
+    gradients held to the plain path's, and an MC-dropout batch of 256
+    (12 4L a pass, no 5L) held to the plain re-score.  Returns the
+    launches of the two steps through the kernels."""
+    import torch
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
+    from rgqa_tpu_torch.scorers.core import make_dropout_scorer
+
+    phase, per = "uniter76", UNITER_PER_FORWARD
+    steps = phase_train_steps("uniter", dropouts=(RATE,), n=2, timed=4, phase=phase, text=UNITER_LONG_TEXT)
+    counts = steps[RATE][0]
+
+    cfg, model, forward = _train_model(RATE, "uniter", text=UNITER_LONG_TEXT)
+    batch = _train_batches(cfg, 1)[0]
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    reset_counts()
+    k_loss, k_grads = _one_step_grads(model, forward, init, batch, None)
+    launched = read_counts()
+    p_loss, p_grads = _one_step_grads(model, forward, init, batch, False)
+    if read_counts() != launched:
+        raise AssertionError("the plain step launched a kernel")
+    rel = ((k_grads - p_grads).norm() / p_grads.norm()).item()
+    want = _step_launches("uniter", RATE, long=True)
+    log(phase, f"one RP step at dropout 0.1, batch 32 + RP, 76 tokens: loss kernels {k_loss:.6f}, plain "
+        f"{p_loss:.6f} (relative gap {abs(k_loss - p_loss) / abs(p_loss):.3e}, bound {LOSS_RTOL:.0e}); gradients' "
+        f"relative L2 gap {rel:.3e} over {p_grads.numel()} values (bound {UNITER_LONG_GRAD_RTOL:.0e}); "
+        f"launches {({k: v for k, v in launched.items() if v})}")
+    if launched != want:
+        raise AssertionError(f"launches {launched}, want {want}")
+    if not abs(k_loss - p_loss) <= LOSS_RTOL * abs(p_loss) or not rel <= UNITER_LONG_GRAD_RTOL:
+        raise AssertionError("the UNITER-76 step's loss or gradients left their bounds")
+    del model, forward, init, batch, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(default_config("uniter"), max_text_len=UNITER_LONG_TEXT)
+    model, forward = build_model(cfg, use_bf16=True, device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = to_device(_padded_text(example_batch(cfg, 256, seed=7), seed=8), "cuda")
+    plain = functools.partial(forward, use_fused=False)
+    score_k, score_p = make_dropout_scorer(forward, SEED_LIST), make_dropout_scorer(plain, SEED_LIST)
+    score_k(batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    got = score_k(batch)
+    torch.cuda.synchronize()
+    mc = read_counts()
+    ref = score_p(batch)
+    if read_counts() != mc:
+        raise AssertionError("the plain MC-dropout passes launched a kernel")
+    diff = (got["score"].float() - ref["score"].float()).abs().max().item()
+    agree = (got["label"] == ref["label"]).float().mean().item()
+    plain_ms, kernel_ms = in_turns(lambda: score_p(batch), lambda: score_k(batch), iters=3, warmup=1)
+    want = {**{k: 0 for k in KERNELS}, "fused_attention_dropout_long": per * len(SEED_LIST)}
+    log(phase, f"MC-dropout batch of 256 at 76 tokens ({len(SEED_LIST)} passes): launches "
+        f"{({k: v for k, v in mc.items() if v})}; max|score kernels - plain| {diff:.3e} (bound {CONF_TOL}); "
+        f"labels agree on {agree:.4f}; ms a batch kernels {kernel_ms:.3f}, plain {plain_ms:.3f}")
+    if mc != want:
+        raise AssertionError(f"MC-dropout launches {mc}, want {want}")
+    if not diff <= CONF_TOL or agree < MIN_LABEL_AGREEMENT:
+        raise AssertionError("the MC-dropout scores left their bound")
+    del model, forward, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_entry(dryruns) -> None:
+    """Phase 53: ``rgqa_tpu_torch.entry.entry()`` at full width (LXMERT,
+    batch 8, bf16) through the kernels and through the plain versions
+    (34 #1 a forward; MSP within CONF_TOL; the answers equal on the rows
+    whose plain top-2 margin exceeds twice the largest gap between the
+    two paths' probabilities), then the dry runs that ``dryruns``
+    (a future) ran on two gloo ranks on cuda:0 beside it, each held to
+    the JAX dry run's assertions, the tiny one's loss to one process's."""
+    import torch
+    from rgqa_tpu_torch import entry
+
+    phase = "entry"
+    fwd, (model, batch) = entry.entry()
+    fwd(model, batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    label, score = fwd(model, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    plain_label, plain_score = fwd(model, batch, use_fused=False)
+    if read_counts() != counts:
+        raise AssertionError("entry()'s plain forward launched a kernel")
+    with torch.inference_mode():
+        args = [batch[k] for k in ("input_ids", "input_mask", "segment_ids", "feats", "boxes")]
+        probs, plain_probs = (torch.sigmoid(model(*args, use_fused=fused)["logits"].float()) for fused in (None, False))
+    eps = (probs - plain_probs).abs().max().item()
+    top2 = plain_probs.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * eps
+    diff = (score - plain_score).abs().max().item()
+    plain_ms, kernel_ms = in_turns(lambda: fwd(model, batch, use_fused=False), lambda: fwd(model, batch),
+                                   iters=ENTRY_ITERS)
+    log(phase, f"entry(): LXMERT 9/5/5 x 768, batch 8, bf16: label {tuple(label.shape)}, launches "
+        f"{({k: v for k, v in counts.items() if v})}; max|MSP kernels - plain| {diff:.3e} (bound {CONF_TOL}); "
+        f"largest probability gap {eps:.3e}; answers equal on the {int(decided.sum())} of 8 rows with a top-2 "
+        f"margin over twice it: "
+        f"{bool((label == plain_label)[decided].all())}; ms a forward kernels {kernel_ms:.3f}, plain {plain_ms:.3f}")
+    if counts != {**{k: 0 for k in KERNELS}, "fused_attention": 34} or not diff <= CONF_TOL \
+            or not bool((label == plain_label)[decided].all()):
+        raise AssertionError("entry() through the kernels differs from its plain run")
+    del model, batch
+    torch.cuda.empty_cache()
+    one = entry.dryrun_step(entry.tiny_config(), 4, device=torch.device("cuda"))
+    for name, record, seconds in dryruns.result():
+        log(phase, f"{name}(2) on {record['backend']} ranks (rank 0 on {record['device']}) in {seconds:.1f} s: loss "
+            f"{record['loss']:.6f}, step {record['step']}, labels {len(record['label'])}, scores "
+            f"[{min(record['score']):.4f}, {max(record['score']):.4f}]")
+        if not math.isfinite(record["loss"]) or record["world"] != 2 or record["step"] != 1:
+            raise AssertionError(f"{name}: {record}")
+    tiny = dryruns.result()[0][1]
+    gap = abs(tiny["loss"] - one["loss"]) / abs(one["loss"])
+    log(phase, f"dryrun_multichip(2) against one process at the global batch of 4: loss {tiny['loss']:.6f} vs "
+        f"{one['loss']:.6f} (relative gap {gap:.3e}, bound {DP_RTOL:.0e}); labels equal: "
+        f"{tiny['label'] == one['label']}")
+    if not gap <= DP_RTOL or tiny["label"] != one["label"]:
+        raise AssertionError("dryrun_multichip(2) differs from one process")
+
+
+def _dryruns() -> list:
+    """dryrun_multichip(2) and dryrun_multichip_fullshape(2) on two gloo
+    ranks on the one card: [(name, record, seconds)]."""
+    from rgqa_tpu_torch import entry
+
+    out = []
+    for fn in (entry.dryrun_multichip, entry.dryrun_multichip_fullshape):
+        t0 = time.perf_counter()
+        out.append((fn.__name__, fn(2), time.perf_counter() - t0))
+    return out
+
+
+def phase_slice24() -> dict:
+    """Phases 52-53: the dry runs' ranks start first, beside UNITER-76 and
+    entry(); returns the UNITER-76 steps' launches."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        dryruns = pool.submit(_dryruns)
+        launches = timed("52 UNITER at 76 tokens", phase_uniter_long)
+        timed("53 entry and the dry runs", phase_entry, dryruns)
+    return launches
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, its run time logged under ``name``."""
     t0 = time.perf_counter()
@@ -5280,6 +5635,9 @@ def main() -> None:
         timed("42-45 pretraining, VQA and NLVR2", phase_slice21)
         timed("46-49 data parallel", phase_slice22)
         timed("50 recipes", phase_recipes)
+        drop_errs, drop_times = timed("51 long-stream dropout kernels", phase_long_dropout_kernels)
+        errs.update(drop_errs)
+        uniter_long_launches = phase_slice24()
     finally:
         shutil.rmtree(keep, ignore_errors=True)
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")
@@ -5291,6 +5649,9 @@ def main() -> None:
         "fused_attention_dropout_bwd": train_launches["fused_attention_dropout_bwd"],
         "fused_attention_long": vilt_launches,  # the ViLT evaluate path
         "fused_attention_long_bwd": vilt_train_launches["fused_attention_long_bwd"],  # the ViLT train CLI
+        # UNITER's RP steps at 40-token questions (phase 52)
+        "fused_attention_dropout_long": uniter_long_launches["fused_attention_dropout_long"],
+        "fused_attention_dropout_long_bwd": uniter_long_launches["fused_attention_dropout_long_bwd"],
         **exp_launches,  # the experiment entry points
     }
     rows = []
@@ -5304,6 +5665,17 @@ def main() -> None:
                 "ms": sum(t["kernel"] for t in per), "plain_ms": sum(t["plain"] for t in per),
                 "bound_ms": sum(t["bound"] for t in per), "bound_by": per[-1]["bound_by"],
                 "library_ms": sum(t["library"] for t in per),
+            })
+            continue
+        if name in ("fused_attention_dropout_long", "fused_attention_dropout_long_bwd"):
+            # One bf16 call at the UNITER-76 step's shape, batch 32 (CUDA events).
+            kernel_ms, plain_ms, library_ms, bound, by = drop_times[(name, "bfloat16", *DROP_LONG_MAIN[0],
+                                                                     DROP_LONG_MAIN[1])]
+            rows.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": errs[(name, "bfloat16")],
+                "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": library_ms,
             })
             continue
         # One bf16 call at each main-path shape, batch 256 (CUDA events).

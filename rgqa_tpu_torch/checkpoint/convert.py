@@ -83,7 +83,7 @@ from rgqa_tpu_torch.checkpoint.torch_import import (
     vilt_key_map,
 )
 
-__all__ = ["port_key", "from_jax_params", "nlvr2_key_map", "load_reference_pth", "to_reference_state_dict",
+__all__ = ["port_key", "from_jax_params", "jax_tree_backbone", "orbax_refusal", "is_orbax_dir", "lxrt_path", "nlvr2_key_map", "load_reference_pth", "to_reference_state_dict",
            "load_clip_state_dict", "save_clip_dir", "save_clip_state", "load_clip_state",
            "load_lxmert_pretrained", "load_lxmert_qa"]
 
@@ -145,15 +145,23 @@ def _count(names, stem: str) -> int:
     return sum(1 for n in names if re.fullmatch(rf"{stem}_\d+", n))
 
 
+def jax_tree_backbone(params: Mapping) -> str:
+    """Which model a flax param tree is, read off its top-level keys:
+    ``vilt``, ``uniter``, ``butd``, ``caps``, ``clip``,
+    ``lxmert_pretrain`` (LXMERT with its pretraining heads), ``nlvr2`` or
+    ``lxmert`` (GQA's, or VQA's: the same tree)."""
+    top = set(params)
+    return ("vilt" if "cls_token" in top else "uniter" if "uniter" in top
+            else "butd" if "gru_w_ih" in top else "caps" if "match_head" in top
+            else "clip" if "vision_model" in top else "lxmert_pretrain" if "mlm_head" in top
+            else "nlvr2" if "fc1" in top else "lxmert")
+
+
 def _key_map(flat: Mapping[tuple, Any], backbone: Optional[str]):
     """(backbone, key map) for a flattened flax tree; the backbone is read
     off the tree when not given."""
     if backbone is None:
-        top = {p[0] for p in flat}
-        backbone = ("vilt" if "cls_token" in top else "uniter" if "uniter" in top
-                    else "butd" if "gru_w_ih" in top else "caps" if "match_head" in top
-                    else "clip" if "vision_model" in top else "lxmert_pretrain" if "mlm_head" in top
-                    else "nlvr2" if "fc1" in top else "lxmert")
+        backbone = jax_tree_backbone(dict.fromkeys(p[0] for p in flat))
     if backbone == "clip":
         return backbone, clip_key_map(_count({p[1] for p in flat if p[0] == "vision_model"}, "layers"),
                                       _count({p[1] for p in flat if p[0] == "text_model"}, "layers"))
@@ -196,6 +204,38 @@ def _port_name(backbone: str, tkey: str, fpath: tuple) -> str:
     if backbone == "lxmert_pretrain" and not tkey.startswith("bert."):
         return tkey
     return port_key(fpath)
+
+
+# The offline export of the JAX package's orbax snapshots (the repository's
+# orbax_to_pth.py, run where jax and orbax are; the port never imports it).
+EXPORT_COMMAND = "python orbax_to_pth.py"
+
+
+def orbax_refusal(flag: str, path: str, export: str) -> NotImplementedError:
+    """The error for ``path`` given to ``flag`` where the JAX package
+    reads an orbax snapshot directory (any path that is not a ``.pth``
+    file) and no export ``export`` lies beside it: it names the command
+    that writes the file."""
+    return NotImplementedError(
+        f"{flag} an orbax snapshot directory ({path!r} is not a .pth file, and no {export} is beside it): the "
+        f"port reads no orbax.  Export it where jax and orbax are installed with `{EXPORT_COMMAND} {path}`, "
+        f"which writes {export}, then give the same {flag}"
+    )
+
+
+def is_orbax_dir(path: str) -> bool:
+    """Whether ``path`` is an orbax snapshot directory (its metadata
+    file)."""
+    return any(os.path.isfile(os.path.join(path, name)) for name in ("_METADATA", "_CHECKPOINT_METADATA"))
+
+
+def lxrt_path(path: str) -> str:
+    """A pretraining checkpoint's file: ``path`` when it is a file, else
+    ``<path>_LXRT.pth`` when that is (the reference's ``"%s_LXRT.pth"``
+    suffix, and the export of an orbax pretraining snapshot ``<path>``)."""
+    if not os.path.isfile(path) and os.path.isfile(path + "_LXRT.pth"):
+        return path + "_LXRT.pth"
+    return path
 
 
 def from_jax_params(params: Mapping, backbone: Optional[str] = None) -> dict[str, torch.Tensor]:

@@ -9,7 +9,7 @@ cartography thresholds (``--tau_aq_c``, ``--tau_aq_v``, ``--tau_uq_c``,
 ``<data_root>/<output_name>.json``.  With ``--teacher_path a,b,c`` it
 writes the ensemble teachers' product-of-sigmoids pseudo-labels of the
 ``--train`` splits instead (each a ``.pth``, or the path less ``.pth``;
-an orbax snapshot directory is refused by name).  A student then trains
+an orbax snapshot directory through its ``orbax_to_pth.py`` export).  A student then trains
 on the split through ``rgqa_tpu_torch.cli.train --train <output_name>``.
 It runs on the card unless given ``--device cpu``, and on N ranks under
 ``python -m torch.distributed.run --nproc_per_node N`` (each rank scores

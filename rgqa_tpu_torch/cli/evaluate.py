@@ -22,7 +22,8 @@ Scorers:
                (PIL); f32, ``--batchSize`` questions a CLIP forward
   match     -- ``softmax(matched)[:, 1]`` of LXMERT's pretraining heads
                from a reference ``model_LXRT.pth`` (``--loadLXMERT``; an
-               orbax directory is refused), f32, answers from the ``--load``
+               orbax directory through its ``<dir>_LXRT.pth`` export),
+               f32, answers from the ``--load``
                model
   frcnn     -- object coverage: 1 iff every noun of the question names
                an object the detector found in its image (the pack's

@@ -21,8 +21,10 @@
 // kernel's.  Longer f32 streams, every bf16 stream beyond 64 tokens (a
 // wgmma body of its own) and the long backward walk key tiles.  The
 // forward and backward bodies are templates on kDrop: the dropout kernels
-// are the same code with the mask applied, so at rate 0 (threshold 0, keep
-// scale 1) they compute bit for bit what the deterministic ones do.
+// (#4 / #5 here and in fused_attention_dropout.cu; 4L / 5L, the long
+// forward and backward with kDrop) are the same code with the mask
+// applied, so at rate 0 (threshold 0, keep scale 1) they compute bit for
+// bit what the deterministic ones do.
 //
 // The dropout mask is keyed on the element: keep(b, h, i, j) is byte
 // j % 16 of Philox4x32-10 at counter (j / 16, i, h, b) under the 64-bit
@@ -50,6 +52,7 @@ constexpr int kMaxDim = 64;
 constexpr int kTileQ = 64;
 constexpr int kLongWholeKv = 256;
 constexpr int kKvTile = 64;
+constexpr int kTileGroups = kKvTile / 16;  // keep_bits16 words of a row in a key tile
 
 struct Args {
   const void* q;        // (B, Sq, H*D), element strides below
@@ -126,6 +129,11 @@ __device__ __forceinline__ uint32_t keep_bits16(const Args& a, int b, int h, int
     bits |= static_cast<uint32_t>(byte >= static_cast<uint32_t>(a.threshold)) << s;
   }
   return bits;
+}
+
+// Keep bit of key j in a row's keep_bits16 words (ngr words a row).
+__device__ __forceinline__ bool keep_bit(const uint32_t* km, int ngr, int i, int j) {
+  return (km[i * ngr + (j >> 4)] >> (j & 15)) & 1u;
 }
 
 // ---------------------------------------------------------------------------
@@ -470,16 +478,21 @@ __device__ __forceinline__ FwdTile fwd_tile(const Args& a, size_t elem) {
 // rather than rounding operands to TF32, one thread per output element.
 // Shared memory, f32: Q (sq x ld), K, V (skv x ld), S/P (sq x (skv + 1)),
 // bias; ld = dim + 1 so that threads walking K rows hit distinct banks;
-// sq = tile_rows(a.sq).
-size_t fwd_f32_smem_bytes(int sq, int skv, int d) {
+// sq = tile_rows(a.sq); with the dropout (the long stream's 4L), the keep
+// bits after them (sq x ceil(skv / 16) u32).
+size_t fwd_f32_smem_bytes(int sq, int skv, int d, bool drop = false) {
   const size_t ld = d + 1;
-  return sizeof(float) * (sq * ld + 2 * skv * ld + sq * (skv + 1) + skv);
+  return sizeof(float) * (sq * ld + 2 * skv * ld + sq * (skv + 1) + skv +
+                          (drop ? sq * ((skv + 15) / 16) : 0));
 }
 
 // The body of block blk (blockIdx.x of a kernel that runs only this
 // problem); the experiments' kernels run two problems in one grid, or
-// add a structural mask.
-template <int kPerLane, int kThreads, typename Mask = NoMask>
+// add a structural mask.  kDrop (4L's f32 body up to kLongWholeKv keys):
+// the keep bits of the tile's rows drawn into shared memory while Q, K
+// and V load, one keep_bits16 call per row and 16 keys, and P dropped and
+// scaled after the softmax, whose sum is the undropped one's.
+template <int kPerLane, int kThreads, typename Mask = NoMask, bool kDrop = false>
 __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float* smem,
                                              const Mask& mask = Mask()) {
   const FwdTile f = fwd_tile(a, sizeof(float), blk);
@@ -491,6 +504,8 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
   float* vs = ks + skv * ld;
   float* ps = vs + skv * ld;
   float* bs = ps + tile_rows(a.sq) * ldp;
+  uint32_t* km = reinterpret_cast<uint32_t*>(bs + skv);
+  const int ngr = (skv + 15) / 16;
   const int tid = threadIdx.x;
 
   load_rows_f32(qs, ld, static_cast<const float*>(f.t.q) + b * a.q_bs + h * d, a.q_rs, sq, d,
@@ -500,6 +515,11 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
   load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + h * d, a.v_rs, skv, d,
                 tid, kThreads);
   for (int j = tid; j < skv; j += kThreads) bs[j] = a.bias[b * skv + j];
+  if (kDrop) {
+    for (int idx = tid; idx < sq * ngr; idx += kThreads) {
+      km[idx] = keep_bits16(a, b, h, q0 + idx / ngr, idx % ngr);
+    }
+  }
   __syncthreads();
 
   scores_f32(ps, ldp, qs, ks, ld, bs, f.t, tid, kThreads, mask);
@@ -507,7 +527,10 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
 
   float* lse = a.lse ? a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0) : nullptr;
   softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, tid / 32, kThreads / 32, tid % 32,
-                         [&](int i, int j, float p) { ps[i * ldp + j] = p; },
+                         [&](int i, int j, float p) {
+                           if (kDrop) p = keep_bit(km, ngr, i, j) ? p * a.keep_scale : 0.f;
+                           ps[i * ldp + j] = p;
+                         },
                          [&](int i, float m, float sum) {
                            if (lse) {
                              lse[2 * i] = m;
@@ -529,10 +552,10 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
   }
 }
 
-template <int kPerLane, int kThreads>
+template <int kPerLane, int kThreads, bool kDrop = false>
 __global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
   extern __shared__ float smem[];
-  fwd_f32_body<kPerLane, kThreads>(a, blockIdx.x, smem);
+  fwd_f32_body<kPerLane, kThreads, NoMask, kDrop>(a, blockIdx.x, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -751,11 +774,6 @@ __device__ __forceinline__ void store_tile_f32(float* out, long long rs, const f
       }
     }
   }
-}
-
-// Keep bit of key j in a row's keep_bits16 words (ngr words a row).
-__device__ __forceinline__ bool keep_bit(const uint32_t* km, int ngr, int i, int j) {
-  return (km[i * ngr + (j >> 4)] >> (j & 15)) & 1u;
 }
 
 // The keep bits of every query row and key group into km.

@@ -3,7 +3,9 @@
 //
 // Replaces the Pallas TPU kernels rgqa_tpu/ops/attention.py:
 // _fused_drop_kernel (forward) and _fused_drop_bwd_kernel (backward),
-// launched by _drop_call from the _fused_drop custom_vjp.  The forward is
+// launched by _drop_call from the _fused_drop custom_vjp, up to 64 tokens
+// (longer streams: 4L / 5L, in fused_attention_long.cu and
+// fused_attention_long_bwd.cu, with the same mask).  The forward is
 // fused_attention.cu's with P_drop = keep ? P * 256/(256-t) : 0 in place
 // of P; the backward is fused_attention_bwd.cu's with the forward's mask
 // replayed: dV = P_drop^T g, dP = keep ? (g V^T) * 256/(256-t) : 0, then

@@ -80,6 +80,23 @@
 // beyond, fused_attention_long_tiled_f32, the online softmax over key
 // tiles (scores in shared memory by tile, expf, fmaf in key order).
 //
+// 4L, the dropout variant (rgqa_fused_attention_dropout_long_fwd; the
+// Pallas _fused_drop_kernel where its stream is longer than 64 tokens,
+// UNITER's 76 with 40-token questions): every body above with kDrop, P
+// dropped and scaled (keep ? P * 256/(256-t) : 0) after the softmax,
+// whose sum, and the lse written for the backward, stay the undropped
+// P's.  The mask is fused_attention_dropout.cu's, keep_bits16 words (one
+// Philox4x32-10 call per query row and 16 keys), drawn into shared memory
+// beside each key tile as it is staged: in the bf16 body a third ring of
+// kWG * 64 rows x 4 words a stage, 2 calls a thread while the tile's
+// copies are in flight, published by the barrier that publishes the
+// tile; each lane reads the words of its two rows and takes the bits of
+// its m16n8 C-fragment columns (8 n + tq + (e & 1)).  That body then
+// holds 128 registers (118 without), no spills, 62-73 KB of shared
+// memory.  The f32 bodies draw the words of their query tile with the
+// tile (whole row) or with each key tile.  At rate 0 (t = 0, scale 1) 4L
+// computes #2's bits.
+//
 // Limits: any Sq and Skv, D <= 64 (the wrapper raises beyond that); f32
 // and bf16 inputs; the bias is a (B, Skv) f32 additive mask.  A fully
 // masked row (bias -10000 everywhere) has a finite max, hence a finite
@@ -103,22 +120,24 @@ constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * kRow * kTileQ;  // a 64-ro
 // Shared memory of a block of `wg` warpgroups: their Q tiles, then the
 // ring's K and V stages (each tile on a 1024-byte boundary, the
 // swizzle's period), then the ring's bias stages (kKvTile f32 each, -inf
-// past skv).  The launch adds one period so that the kernel can align
-// the tiles itself.
+// past skv), then, with the dropout (4L), the ring's keep bits (a stage:
+// wg * kTileQ query rows x kKvTile / 16 keep_bits16 words).  The launch
+// adds one period so that the kernel can align the tiles itself.
 struct RingLayout {
-  size_t k_off, v_off, b_off, bytes;
+  size_t k_off, v_off, b_off, m_off, bytes;
 };
 
-__host__ __device__ inline RingLayout ring_layout(int wg) {
+__host__ __device__ inline RingLayout ring_layout(int wg, bool drop) {
   RingLayout L;
   L.k_off = kTileBytes * wg;
   L.v_off = L.k_off + kTileBytes * kRingStages;
   L.b_off = L.v_off + kTileBytes * kRingStages;
-  L.bytes = L.b_off + sizeof(float) * kKvTile * kRingStages;
+  L.m_off = L.b_off + sizeof(float) * kKvTile * kRingStages;
+  L.bytes = L.m_off + (drop ? sizeof(uint32_t) * wg * kTileQ * kTileGroups * kRingStages : 0);
   return L;
 }
 
-size_t ring_smem_bytes(int wg) { return ring_layout(wg).bytes + kSwizzlePeriod; }
+size_t ring_smem_bytes(int wg, bool drop) { return ring_layout(wg, drop).bytes + kSwizzlePeriod; }
 
 // `rows` rows (< kTileQ: the rest zero) of d values of a strided bf16
 // source, row stride rs, into a 64-row tile at dst in the 128-byte
@@ -147,10 +166,14 @@ __device__ __forceinline__ void load_swizzled(__nv_bfloat16* dst, const __nv_bfl
 
 // Key tile kt (keys kt * kKvTile ..) of a (batch row, head) into ring
 // stage kt % kRingStages: K, V and the bias; one cp.async group, an empty
-// one when kt is past the last tile.
+// one when kt is past the last tile.  With kDrop, the keep bits of the
+// block's query rows (first * kTileQ ..) and the tile's keys too, drawn
+// while the copies are in flight, 2 keep_bits16 calls a thread: the
+// barrier that publishes the tile publishes them.
+template <bool kDrop = false>
 __device__ __forceinline__ void stage_ring(const Args& a, int b, int h, int kt,
                                            unsigned char* smem, const RingLayout& L, int tid,
-                                           int nthreads) {
+                                           int nthreads, int first = 0) {
   const int k0 = kt * kKvTile;
   if (k0 < a.skv) {
     const int st = kt % kRingStages, nk = min(a.skv - k0, kKvTile), d = a.dim;
@@ -168,6 +191,14 @@ __device__ __forceinline__ void stage_ring(const Args& a, int b, int h, int kt,
         bs[j] = -CUDART_INF_F;
       }
     }
+    if (kDrop) {
+      const int rows = nthreads / kMmaThreads * kTileQ;
+      uint32_t* km = reinterpret_cast<uint32_t*>(smem + L.m_off) + st * rows * kTileGroups;
+      for (int idx = tid; idx < rows * kTileGroups; idx += nthreads) {
+        const int i = first * kTileQ + idx / kTileGroups, c = idx % kTileGroups;
+        km[idx] = i < a.sq && k0 + 16 * c < a.skv ? keep_bits16(a, b, h, i, kt * kTileGroups + c) : 0u;
+      }
+    }
   }
   cp_async_commit();
 }
@@ -179,8 +210,10 @@ constexpr int ring_min_blocks(int wg) { return 4 / wg; }
 // One block per (batch row, head, group of kWG query tiles): warpgroup w
 // owns query tile group * kWG + w (rows past sq: it only loads and
 // syncs), and the block's threads stream the row's key tiles through the
-// ring together, so K and V are read once per group.
-template <int kWG>
+// ring together, so K and V are read once per group.  kDrop (4L): P
+// dropped and scaled after the row sums, which stay the undropped P's,
+// before its bf16 rounding into the A fragments of P V.
+template <int kWG, bool kDrop>
 __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
     fused_attention_long_wgmma(Args a) {
   static_assert(kWG == 1 || kWG == 2, "1 or 2 warpgroups a block");
@@ -188,7 +221,7 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
   extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to the swizzle's period below
   unsigned char* smem =
       smem_raw + ((kSwizzlePeriod - smem_u32(smem_raw) % kSwizzlePeriod) % kSwizzlePeriod);
-  const RingLayout L = ring_layout(kWG);
+  const RingLayout L = ring_layout(kWG, kDrop);
   const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
   const int bh = blockIdx.x / groups, b = bh / a.heads, h = bh % a.heads;
   const int first = blockIdx.x % groups * kWG;  // the group's first query tile
@@ -204,7 +237,7 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
   }
 #pragma unroll
   for (int kt = 0; kt < kRingStages - 1; ++kt) {
-    stage_ring(a, b, h, kt, smem, L, tid, kThreads);  // the Q tiles ride in tile 0's group
+    stage_ring<kDrop>(a, b, h, kt, smem, L, tid, kThreads, first);  // the Q tiles ride in tile 0's group
   }
 
   // A thread holds rows i0 = 16 warp + g and i0 + 8 of its warpgroup's
@@ -226,7 +259,7 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
     cp_async_wait_group<kRingStages - 2>();
     fence_proxy_async();
     __syncthreads();
-    stage_ring(a, b, h, kt + kRingStages - 1, smem, L, tid, kThreads);
+    stage_ring<kDrop>(a, b, h, kt + kRingStages - 1, smem, L, tid, kThreads, first);
     if (!active) continue;
     const int st = kt % kRingStages;
 
@@ -278,6 +311,22 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
       const float p = __expf(s[i] - ((i & 2) ? m1 : m0));
       s[i] = p;
       if (i & 2) l1 += p; else l0 += p;
+    }
+    if (kDrop) {
+      // The lane's rows' keep words, one per 16 keys: element e of column
+      // tile n is key 8 n + tq + (e & 1), bit 8 (n & 1) + tq + (e & 1) of
+      // word n / 2 of row i0 (e < 2) or i0 + 8.
+      const uint32_t* km = reinterpret_cast<const uint32_t*>(smem + L.m_off) +
+                           (st * kWG * kTileQ + wg * kTileQ + warp * 16 + g) * kTileGroups;
+#pragma unroll
+      for (int c = 0; c < kTileGroups; ++c) {
+        const uint32_t w0 = km[c], w1 = km[8 * kTileGroups + c];
+#pragma unroll
+        for (int i = 8 * c; i < 8 * c + 8; ++i) {
+          const int bit = 8 * ((i >> 2) & 1) + tq + (i & 1);
+          s[i] = (((i & 2) ? w1 : w0) >> bit) & 1u ? s[i] * a.keep_scale : 0.f;
+        }
+      }
     }
     uint32_t pa[4][4];
 #pragma unroll
@@ -345,18 +394,20 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
 
 // f32, CUDA cores.  Shared memory, f32, ld = dim + 1: Q (kTileQ x ld), K,
 // V (kKvTile x ld), the tile's scores / probabilities (kTileQ x (kKvTile +
-// 1)), bias (kKvTile), and per row the running max, sum and rescale
-// (kTileQ each).  Each thread keeps kTiledF32Elems (row, column) elements
-// of O in registers.
+// 1)), bias (kKvTile), per row the running max, sum and rescale (kTileQ
+// each), and with the dropout (4L) the tile's keep bits (kTileQ x
+// kTileGroups u32).  Each thread keeps kTiledF32Elems (row, column)
+// elements of O in registers.
 constexpr int kTiledF32Threads = 256;
 constexpr int kTiledF32Elems = kTileQ * kMaxDim / kTiledF32Threads;
 
-size_t tiled_f32_smem_bytes(int d) {
+size_t tiled_f32_smem_bytes(int d, bool drop) {
   const size_t ld = d + 1;
   return sizeof(float) * (kTileQ * ld + 2 * kKvTile * ld + kTileQ * (kKvTile + 1) + kKvTile +
-                          3 * kTileQ);
+                          3 * kTileQ + (drop ? kTileQ * kTileGroups : 0));
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f32(Args a) {
   extern __shared__ float smem[];
   const FwdTile f = fwd_tile(a, sizeof(float));
@@ -370,6 +421,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
   float* rm = bs + kKvTile;  // running max, sum and this tile's rescale per row
   float* rl = rm + kTileQ;
   float* rc = rl + kTileQ;
+  uint32_t* km = reinterpret_cast<uint32_t*>(rc + kTileQ);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   constexpr int kThreads = kTiledF32Threads, kWarps = kThreads / 32;
 
@@ -391,6 +443,12 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
     load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
                   a.v_rs, nk, d, tid, kThreads);
     for (int j = tid; j < nk; j += kThreads) bs[j] = a.bias[b * skv + k0 + j];
+    if (kDrop) {
+      for (int idx = tid; idx < sq * kTileGroups; idx += kThreads) {
+        const int c = idx % kTileGroups;
+        km[idx] = k0 + 16 * c < skv ? keep_bits16(a, b, h, q0 + idx / kTileGroups, k0 / 16 + c) : 0u;
+      }
+    }
     __syncthreads();
 
     // Scores as scores_f32 computes them: the same order of products.
@@ -416,8 +474,12 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
       const float mn = fmaxf(rm[i], mt);
       const float p0 = lane < nk ? expf(x0 - mn) : 0.f;
       const float p1 = lane + 32 < nk ? expf(x1 - mn) : 0.f;
-      if (lane < nk) pi[lane] = p0;
-      if (lane + 32 < nk) pi[lane + 32] = p1;
+      // The sum is the undropped P's; P V takes P dropped and scaled.
+      const auto dropped = [&](float p, int j) {
+        return !kDrop ? p : keep_bit(km, kTileGroups, i, j) ? p * a.keep_scale : 0.f;
+      };
+      if (lane < nk) pi[lane] = dropped(p0, lane);
+      if (lane + 32 < nk) pi[lane + 32] = dropped(p1, lane + 32);
       float sum = p0 + p1;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -465,10 +527,10 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
   }
 }
 
-template <int kWG>
+template <int kWG, bool kDrop>
 int launch_ring(const Args& a, int batch, cudaStream_t s) {
-  const auto kernel = fused_attention_long_wgmma<kWG>;
-  const size_t smem = ring_smem_bytes(kWG);
+  const auto kernel = fused_attention_long_wgmma<kWG, kDrop>;
+  const size_t smem = ring_smem_bytes(kWG, kDrop);
   if (const int err = allow_smem(kernel, smem)) return err;
   const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
   const unsigned blocks = static_cast<unsigned>(batch) * a.heads * static_cast<unsigned>(groups);
@@ -478,8 +540,23 @@ int launch_ring(const Args& a, int batch, cudaStream_t s) {
 
 // Two warpgroups a block (one when there is one query tile): at 118
 // registers two blocks share an SM, 4 warpgroups.
+template <bool kDrop>
 int launch_long_bf16(const Args& a, int batch, cudaStream_t s) {
-  return a.sq <= kTileQ ? launch_ring<1>(a, batch, s) : launch_ring<2>(a, batch, s);
+  return a.sq <= kTileQ ? launch_ring<1, kDrop>(a, batch, s) : launch_ring<2, kDrop>(a, batch, s);
+}
+
+template <bool kDrop>
+int launch_long_fwd(const Args& a, int dtype, int batch, cudaStream_t s) {
+  if (dtype == 1) return launch_long_bf16<kDrop>(a, batch, s);
+  if (dtype != 0) return -1;
+  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
+  if (a.skv > kLongWholeKv) {
+    return launch(fused_attention_long_tiled_f32<kDrop>, a, batch, kTiledF32Threads,
+                  tiled_f32_smem_bytes(a.dim, kDrop), s, tiles);
+  }
+  return launch(fused_attention_f32<kLongPerLane, kLongF32Threads, kDrop>, a, batch,
+                kLongF32Threads, fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim, kDrop), s,
+                tiles);
 }
 
 }  // namespace
@@ -503,16 +580,31 @@ int rgqa_fused_attention_long_fwd(
                      scale);
   a.out = out;
   a.lse = static_cast<float*>(lse);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_long_bf16(a, batch, s);
-  if (dtype != 0) return -1;
-  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
-  if (a.skv > kLongWholeKv) {
-    return launch(fused_attention_long_tiled_f32, a, batch, kTiledF32Threads,
-                  tiled_f32_smem_bytes(a.dim), s, tiles);
+  return launch_long_fwd<false>(a, dtype, batch, static_cast<cudaStream_t>(stream));
+}
+
+// 4L: as rgqa_fused_attention_long_fwd, plus the dropout arguments of
+// rgqa_fused_attention_dropout_fwd (fused_attention_dropout.cu): seed (64
+// bits), threshold t in [0, 255] and keep_scale = 256 / (256 - t).  lse,
+// when not null, receives the undropped scores' statistics, which the
+// backward (rgqa_fused_attention_dropout_long_bwd) takes.
+int rgqa_fused_attention_dropout_long_fwd(
+    const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,
+    int dtype, int batch, int sq, int skv, int heads, int dim,
+    long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+    long long v_bs, long long v_rs, float scale,
+    unsigned long long seed, int threshold, float keep_scale, void* stream) {
+  if (!within_long_limits(batch, sq, skv, heads, dim) || threshold < 0 || threshold > 255) {
+    return -1;
   }
-  return launch(fused_attention_f32<kLongPerLane, kLongF32Threads>, a, batch,
-                kLongF32Threads, fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim), s, tiles);
+  Args a = make_args(q, k, v, bias, sq, skv, heads, dim, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
+                     scale);
+  a.out = out;
+  a.lse = static_cast<float*>(lse);
+  a.seed = seed;
+  a.threshold = threshold;
+  a.keep_scale = keep_scale;
+  return launch_long_fwd<true>(a, dtype, batch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

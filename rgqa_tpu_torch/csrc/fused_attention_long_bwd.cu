@@ -86,6 +86,16 @@
 // the bound counts 5 (S and dP three times: once per sweep and once in the
 // dK/dV pass), and each block re-reads its row's other side from L2.
 //
+// 5L, the dropout variant (rgqa_fused_attention_dropout_long_bwd; the
+// Pallas _fused_drop_bwd_kernel beyond 64 tokens), given 4L's statistics:
+// every pass with kDrop replays 4L's mask (the section "The dropout"
+// below): dP dropped and scaled before D and dS in both passes, dV from
+// P dropped and scaled.  The dK/dV pass's warp holds 16 keys, one 16-key
+// group, so a lane takes bit g (or g + 8) of a query row's word.  The
+// keep words' two stages take 2 KB of shared memory a pass, so the bf16
+// dQ pass runs 3 blocks an SM where #3L's runs 4.  At rate 0 5L computes
+// #3L's bits.
+//
 // Limits: any Sq and Skv, D <= 64; the wrapper raises beyond them.  A
 // fully masked row (bias -10000 everywhere) has finite statistics, so its
 // P and gradients are finite.
@@ -98,24 +108,49 @@ constexpr int kF32TileQ = 32;   // query rows per f32 dQ block
 constexpr int kF32TileK = 32;   // keys per f32 dK/dV block, and per f32 dQ step
 constexpr int kF32ChunkQ = 64;  // query rows per f32 dK/dV step
 constexpr int kBwdF32Threads = 256;
+constexpr int kF32Groups = kF32TileK / 16;  // keep_bits16 words of a row in an f32 key tile
 
 __device__ __forceinline__ long long row_index(const Args& a, int b, int h, int i) {
   return (static_cast<long long>(b) * a.heads + h) * a.sq + i;
 }
 
 // ---------------------------------------------------------------------------
+// The dropout (5L, kDrop): each pass replays the forward's mask from the
+// seed, keep_bits16 words drawn into shared memory with each tile it
+// stages, while the tile's copies are in flight (2 calls a thread for a
+// 64 x 64 tile), published by the barrier that publishes the tile.  dP
+// is masked and scaled (dP_drop = keep ? dP * 256/(256-t) : 0) before D =
+// rowsum(dP_drop P) and dS = P (dP_drop - D); dV takes P_drop = keep ? P
+// * 256/(256-t) : 0; P, from the forward's statistics, is the undropped
+// softmax.
+// ---------------------------------------------------------------------------
+
+// The keep words of query rows i0 .. i0 + rows - 1 (i0 + r < sq) and the
+// `groups` 16-key groups from key k0 (those below skv) into km, row r's
+// word c at km[r * groups + c]; 0 elsewhere.
+__device__ __forceinline__ void draw_tile_bits(const Args& a, int b, int h, uint32_t* km, int i0,
+                                               int rows, int k0, int groups, int tid,
+                                               int nthreads) {
+  for (int idx = tid; idx < rows * groups; idx += nthreads) {
+    const int i = i0 + idx / groups, c = idx % groups;
+    km[idx] = i < a.sq && k0 + 16 * c < a.skv ? keep_bits16(a, b, h, i, k0 / 16 + c) : 0u;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16, the dQ pass.  Shared memory, bf16 unless noted, row stride DP + 8
 // (ldmatrix rows in distinct banks, 16-byte aligned): Qs, Gs (kTileQ x
 // DP) zero-padded; two stages of Ks, Vs (kKvTile x DP) zero-padded and
-// bias f32 (kKvTile, -inf past skv).
+// bias f32 (kKvTile, -inf past skv); with kDrop, two stages of the keep
+// words (kTileQ x kTileGroups u32).
 // ---------------------------------------------------------------------------
 
 struct DqLayout {
   int dp, ld;
-  size_t g_off, k_off, v_off, b_off, bytes;
+  size_t g_off, k_off, v_off, b_off, m_off, bytes;
 };
 
-__host__ __device__ inline DqLayout dq_layout(int d) {
+__host__ __device__ inline DqLayout dq_layout(int d, bool drop) {
   DqLayout L;
   L.dp = (d + 15) / 16 * 16;
   L.ld = L.dp + 8;
@@ -124,20 +159,29 @@ __host__ __device__ inline DqLayout dq_layout(int d) {
   L.k_off = L.g_off + bf * kTileQ * L.ld;
   L.v_off = L.k_off + 2 * bf * kKvTile * L.ld;
   L.b_off = L.v_off + 2 * bf * kKvTile * L.ld;
-  L.bytes = L.b_off + 2 * sizeof(float) * kKvTile;
+  L.m_off = L.b_off + 2 * sizeof(float) * kKvTile;
+  L.bytes = L.m_off + (drop ? 2 * sizeof(uint32_t) * kTileQ * kTileGroups : 0);
   return L;
 }
 
 // Key tile step % ktiles into stage `stage` (load_kv_tile), committed as
-// one group (an empty one when step is past the last).
+// one group (an empty one when step is past the last); with kDrop, the
+// keep words of the block's query rows (q0 ..) for it.
+template <bool kDrop>
 __device__ __forceinline__ void stage_keys(const Args& a, int b, int h, int step, int ktiles,
                                            unsigned char* smem_raw, const DqLayout& L,
-                                           int stage, int tid) {
+                                           int stage, int tid, int q0) {
   if (step < 2 * ktiles) {
-    load_kv_tile(a, b, h, step % ktiles * kKvTile,
+    const int k0 = step % ktiles * kKvTile;
+    load_kv_tile(a, b, h, k0,
                  reinterpret_cast<__nv_bfloat16*>(smem_raw + L.k_off) + stage * kKvTile * L.ld,
                  reinterpret_cast<__nv_bfloat16*>(smem_raw + L.v_off) + stage * kKvTile * L.ld,
                  reinterpret_cast<float*>(smem_raw + L.b_off) + stage * kKvTile, L.ld, L.dp, tid);
+    if (kDrop) {
+      draw_tile_bits(a, b, h,
+                     reinterpret_cast<uint32_t*>(smem_raw + L.m_off) + stage * kTileQ * kTileGroups,
+                     q0, kTileQ, k0, kTileGroups, tid, kMmaThreads);
+    }
   }
   cp_async_commit();
 }
@@ -162,14 +206,16 @@ __device__ __forceinline__ void product_16x16(float (&acc)[2][4],
 }
 
 // Registers capped for 4 blocks per SM (126 used; 3 blocks: 146 used and
-// 5% slower, PERF.md).
-__global__ void __launch_bounds__(kMmaThreads, 4) long_bwd_dq_bf16(Args a) {
+// 5% slower, PERF.md); with kDrop the keep words' stages take the shared
+// memory of a fourth block, so 3.
+template <bool kDrop>
+__global__ void __launch_bounds__(kMmaThreads, kDrop ? 3 : 4) long_bwd_dq_bf16(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const FwdTile f = fwd_tile(a, sizeof(__nv_bfloat16));
   const int b = f.b, h = f.h, q0 = f.q0;
   const int sq = f.t.sq, d = a.dim;
   const long long row = static_cast<long long>(a.heads) * d;  // g and dq row stride
-  const DqLayout L = dq_layout(d);
+  const DqLayout L = dq_layout(d, kDrop);
   const __nv_bfloat16* qs = reinterpret_cast<const __nv_bfloat16*>(smem_raw);
   const __nv_bfloat16* gs = reinterpret_cast<const __nv_bfloat16*>(smem_raw + L.g_off);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -181,7 +227,7 @@ __global__ void __launch_bounds__(kMmaThreads, 4) long_bwd_dq_bf16(Args a) {
   load_tile(reinterpret_cast<__nv_bfloat16*>(smem_raw + L.g_off), L.ld,
             static_cast<const __nv_bfloat16*>(a.g) + (static_cast<long long>(b) * a.sq + q0) * row + h * d,
             row, sq, kTileQ, d, L.dp, tid);
-  stage_keys(a, b, h, 0, ktiles, smem_raw, L, 0, tid);  // one group: Q, g and key tile 0
+  stage_keys<kDrop>(a, b, h, 0, ktiles, smem_raw, L, 0, tid, q0);  // one group: Q, g and key tile 0
 
   // Warp w owns query rows r0 .. r0 + 15; a lane holds rows r0 + g (e < 2)
   // and r0 + g + 8 (e >= 2).  Warps past the tile's rows take part in the
@@ -204,7 +250,7 @@ __global__ void __launch_bounds__(kMmaThreads, 4) long_bwd_dq_bf16(Args a) {
   for (int step = 0; step < 2 * ktiles; ++step) {
     const int stage = step & 1, k0 = step % ktiles * kKvTile;
     const int nk = min(a.skv - k0, kKvTile);
-    stage_keys(a, b, h, step + 1, ktiles, smem_raw, L, stage ^ 1, tid);
+    stage_keys<kDrop>(a, b, h, step + 1, ktiles, smem_raw, L, stage ^ 1, tid, q0);
     cp_async_wait_group<1>();
     __syncthreads();
     if (active) {
@@ -237,6 +283,21 @@ __global__ void __launch_bounds__(kMmaThreads, 4) long_bwd_dq_bf16(Args a) {
         float s[2][4], dp[2][4];
         product_16x16(s, qa, ks + kc * L.ld, L.ld, L.dp, lane);
         product_16x16(dp, ga, vs + kc * L.ld, L.ld, L.dp, lane);
+        if (kDrop) {
+          // Rows r0 + g (e < 2) and + 8, keys kc + 8 n + t + (e & 1): bits
+          // 8 n + t + (e & 1) of the rows' words for keys kc .. kc + 15.
+          const uint32_t* km = reinterpret_cast<const uint32_t*>(smem_raw + L.m_off) +
+                               (stage * kTileQ + r0 + g) * kTileGroups + kc / 16;
+          const uint32_t w0 = km[0], w1 = km[8 * kTileGroups];
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool kept = ((e < 2 ? w0 : w1) >> (8 * n + t + (e & 1))) & 1u;
+              dp[n][e] = kept ? dp[n][e] * a.keep_scale : 0.f;
+            }
+          }
+        }
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
 #pragma unroll
@@ -289,15 +350,16 @@ __global__ void __launch_bounds__(kMmaThreads, 4) long_bwd_dq_bf16(Args a) {
 // 8: Ks, Vs (kKvTile x DP) zero-padded; two stages of the query tile's Qs,
 // Gs (kTileQ x DP) zero-padded, and its statistics (m, log(sum)) and D
 // f32 (kTileQ x 2 and kTileQ; m +inf and D 0 past sq, so those rows' P and
-// dS are 0); bias f32 (kKvTile).
+// dS are 0); bias f32 (kKvTile); with kDrop, two stages of the query
+// tile's keep words for the block's keys (kTileQ x kTileGroups u32).
 // ---------------------------------------------------------------------------
 
 struct DkvLayout {
   int dp, ld;
-  size_t v_off, q_off, g_off, l_off, d_off, b_off, bytes;
+  size_t v_off, q_off, g_off, l_off, d_off, b_off, m_off, bytes;
 };
 
-__host__ __device__ inline DkvLayout dkv_layout(int d) {
+__host__ __device__ inline DkvLayout dkv_layout(int d, bool drop) {
   DkvLayout L;
   L.dp = (d + 15) / 16 * 16;
   L.ld = L.dp + 8;
@@ -308,15 +370,18 @@ __host__ __device__ inline DkvLayout dkv_layout(int d) {
   L.l_off = L.g_off + 2 * bf * kTileQ * L.ld;
   L.d_off = L.l_off + 2 * f * 2 * kTileQ;
   L.b_off = L.d_off + 2 * f * kTileQ;
-  L.bytes = L.b_off + f * kKvTile;
+  L.m_off = L.b_off + f * kKvTile;
+  L.bytes = L.m_off + (drop ? 2 * sizeof(uint32_t) * kTileQ * kTileGroups : 0);
   return L;
 }
 
 // Query tile qt into stage `stage` (Q, g, the statistics and D by
-// cp.async), committed as one group (an empty one past the last tile).
+// cp.async), committed as one group (an empty one past the last tile);
+// with kDrop, the tile's keep words for the block's keys (k0 ..).
+template <bool kDrop>
 __device__ __forceinline__ void stage_queries(const Args& a, int b, int h, int qt,
                                               unsigned char* smem_raw, const DkvLayout& L,
-                                              int stage, int tid) {
+                                              int stage, int tid, int k0) {
   const int c0 = qt * kTileQ;
   if (c0 < a.sq) {
     const int nq = min(a.sq - c0, kTileQ), d = a.dim;
@@ -341,10 +406,16 @@ __device__ __forceinline__ void stage_queries(const Args& a, int b, int h, int q
         ds[i] = 0.f;
       }
     }
+    if (kDrop) {
+      draw_tile_bits(a, b, h,
+                     reinterpret_cast<uint32_t*>(smem_raw + L.m_off) + stage * kTileQ * kTileGroups,
+                     c0, kTileQ, k0, kTileGroups, tid, kMmaThreads);
+    }
   }
   cp_async_commit();
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int sq = a.sq, skv = a.skv, d = a.dim;
@@ -352,7 +423,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
   const int bh = blockIdx.x / ktiles, b = bh / a.heads, h = bh % a.heads;
   const int k0 = blockIdx.x % ktiles * kKvTile, nk = min(skv - k0, kKvTile);
   const long long row = static_cast<long long>(a.heads) * d;
-  const DkvLayout L = dkv_layout(d);
+  const DkvLayout L = dkv_layout(d, kDrop);
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.v_off);
   float* bs = reinterpret_cast<float*>(smem_raw + L.b_off);
@@ -361,7 +432,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
   const int qtiles = (sq + kTileQ - 1) / kTileQ;
 
   load_kv_tile(a, b, h, k0, ks, vs, bs, L.ld, L.dp, tid);
-  stage_queries(a, b, h, 0, smem_raw, L, 0, tid);  // one group: K, V, bias and query tile 0
+  stage_queries<kDrop>(a, b, h, 0, smem_raw, L, 0, tid, k0);  // one group: K, V, bias and query tile 0
 
   // Warp w owns keys r0 .. r0 + 15 of the tile, as the rows of the
   // transposed products: a lane holds keys r0 + g (e < 2) and r0 + g + 8,
@@ -381,7 +452,7 @@ __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
 
   for (int qt = 0; qt < qtiles; ++qt) {
     const int stage = qt & 1, nq = min(sq - qt * kTileQ, kTileQ);
-    stage_queries(a, b, h, qt + 1, smem_raw, L, stage ^ 1, tid);
+    stage_queries<kDrop>(a, b, h, qt + 1, smem_raw, L, stage ^ 1, tid, k0);
     cp_async_wait_group<1>();
     __syncthreads();
     if (active) {
@@ -402,6 +473,10 @@ __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
           reinterpret_cast<const __nv_bfloat16*>(smem_raw + L.g_off) + stage * kTileQ * L.ld;
       const float* ls = reinterpret_cast<const float*>(smem_raw + L.l_off) + stage * 2 * kTileQ;
       const float* ds = reinterpret_cast<const float*>(smem_raw + L.d_off) + stage * kTileQ;
+      // The warp's 16 keys are one 16-key group of the keep words: key r0 +
+      // g (e < 2) or + 8 is bit g or g + 8 of word `warp` of a query row.
+      const uint32_t* km =
+          reinterpret_cast<const uint32_t*>(smem_raw + L.m_off) + stage * kTileQ * kTileGroups + warp;
       // 16 queries at a time: P^T, dP^T and dS^T for the warp's 16 keys,
       // then the k-step over those queries of dV and dK.
       for (int qc = 0; qc < nq; qc += 16) {
@@ -415,8 +490,14 @@ __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
             const int i = qc + n * 8 + t + (e & 1);
             const float x = pt[n][e] * a.scale + (e < 2 ? bias0 : bias1);
             const float p = __expf((x - ls[2 * i]) - ls[2 * i + 1]);
-            pt[n][e] = p;
-            dst[n][e] = p * (dst[n][e] - ds[i]);
+            if (kDrop) {
+              const bool kept = (km[i * kTileGroups] >> (g + 8 * (e >> 1))) & 1u;
+              pt[n][e] = kept ? p * a.keep_scale : 0.f;
+              dst[n][e] = p * ((kept ? dst[n][e] * a.keep_scale : 0.f) - ds[i]);
+            } else {
+              pt[n][e] = p;
+              dst[n][e] = p * (dst[n][e] - ds[i]);
+            }
           }
           db0 += dst[n][0] + dst[n][1];
           db1 += dst[n][2] + dst[n][3];
@@ -462,16 +543,17 @@ __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
 // f32, the dQ pass, CUDA cores.  Shared memory, f32, ld = dim + 1: Q, G
 // (kF32TileQ x ld), the key tile's K, V (kF32TileK x ld), P dP (first
 // sweep) or dS (second) (kF32TileQ x (kF32TileK + 1)), bias (kF32TileK),
-// each row's statistics (m, log(sum)) and D (kF32TileQ x 2 and kF32TileQ).
+// each row's statistics (m, log(sum)) and D (kF32TileQ x 2 and kF32TileQ),
+// and with kDrop the key tile's keep words (kF32TileQ x kF32Groups u32).
 // P = expf((s - m) - log(sum)), as softmax gives it up to a few ulp.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32DqElems = kF32TileQ * kMaxDim / kBwdF32Threads;
 
-size_t dq_f32_smem_bytes(int d) {
+size_t dq_f32_smem_bytes(int d, bool drop) {
   const size_t ld = d + 1, ldp = kF32TileK + 1;
-  return sizeof(float) *
-         (2 * kF32TileQ * ld + 2 * kF32TileK * ld + kF32TileQ * ldp + kF32TileK + 3 * kF32TileQ);
+  return sizeof(float) * (2 * kF32TileQ * ld + 2 * kF32TileK * ld + kF32TileQ * ldp + kF32TileK +
+                          3 * kF32TileQ + (drop ? kF32TileQ * kF32Groups : 0));
 }
 
 __device__ __forceinline__ float dot_f32(const float* x, const float* y, int d) {
@@ -481,6 +563,7 @@ __device__ __forceinline__ float dot_f32(const float* x, const float* y, int d) 
   return acc;
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dq_f32(Args a) {
   extern __shared__ float smem[];
   const int tiles = (a.sq + kF32TileQ - 1) / kF32TileQ;
@@ -496,6 +579,7 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dq_f32(Args a) {
   float* bs = ps + kF32TileQ * ldp;
   float* ls = bs + kF32TileK;
   float* dds = ls + 2 * kF32TileQ;
+  uint32_t* km = reinterpret_cast<uint32_t*>(dds + kF32TileQ);
   const int tid = threadIdx.x;
   constexpr int kThreads = kBwdF32Threads;
 
@@ -519,13 +603,15 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dq_f32(Args a) {
       load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
                     a.v_rs, nk, d, tid, kThreads);
       for (int j = tid; j < nk; j += kThreads) bs[j] = a.bias[b * skv + k0 + j];
+      if (kDrop) draw_tile_bits(a, b, h, km, q0, kF32TileQ, k0, kF32Groups, tid, kThreads);
       __syncthreads();
 
       for (int idx = tid; idx < sq * nk; idx += kThreads) {
         const int i = idx / nk, j = idx % nk;
         const float x = fmaf(dot_f32(qs + i * ld, ks + j * ld, d), a.scale, bs[j]);
         const float p = expf((x - ls[2 * i]) - ls[2 * i + 1]);
-        const float dp = dot_f32(gs + i * ld, vs + j * ld, d);
+        float dp = dot_f32(gs + i * ld, vs + j * ld, d);
+        if (kDrop) dp = keep_bit(km, kF32Groups, i, j) ? dp * a.keep_scale : 0.f;
         ps[i * ldp + j] = sweep == 0 ? p * dp : p * (dp - dds[i]);
       }
       __syncthreads();
@@ -567,18 +653,21 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dq_f32(Args a) {
 // f32, the dK/dV pass, CUDA cores.  Shared memory, f32: K, V (kF32TileK x
 // ld), the chunk's Q, G (kF32ChunkQ x ld), P^T and dS^T (kF32TileK x
 // (kF32ChunkQ + 1)), bias (kF32TileK), the chunk's statistics and D
-// (kF32ChunkQ x 2 and kF32ChunkQ).  Each thread accumulates kF32Elems (key, column) elements of dK
-// and dV over every query row in order.
+// (kF32ChunkQ x 2 and kF32ChunkQ), and with kDrop the chunk's keep words for
+// the block's keys (kF32ChunkQ x kF32Groups u32).  Each thread accumulates
+// kF32Elems (key, column) elements of dK and dV over every query row in
+// order.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Elems = kF32TileK * kMaxDim / kBwdF32Threads;
 
-size_t dkv_f32_smem_bytes(int d) {
+size_t dkv_f32_smem_bytes(int d, bool drop) {
   const size_t ld = d + 1, ldc = kF32ChunkQ + 1;
-  return sizeof(float) *
-         (2 * kF32TileK * ld + 2 * kF32ChunkQ * ld + 2 * kF32TileK * ldc + kF32TileK + 3 * kF32ChunkQ);
+  return sizeof(float) * (2 * kF32TileK * ld + 2 * kF32ChunkQ * ld + 2 * kF32TileK * ldc +
+                          kF32TileK + 3 * kF32ChunkQ + (drop ? kF32ChunkQ * kF32Groups : 0));
 }
 
+template <bool kDrop>
 __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dkv_f32(Args a) {
   extern __shared__ float smem[];
   const int sq = a.sq, skv = a.skv, d = a.dim, ld = d + 1, ldc = kF32ChunkQ + 1;
@@ -595,6 +684,7 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dkv_f32(Args a) {
   float* bs = dst + kF32TileK * ldc;
   float* ls = bs + kF32TileK;
   float* dds = ls + 2 * kF32ChunkQ;
+  uint32_t* km = reinterpret_cast<uint32_t*>(dds + kF32ChunkQ);
   const int tid = threadIdx.x;
   constexpr int kThreads = kBwdF32Threads;
 
@@ -621,6 +711,7 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dkv_f32(Args a) {
                   row, nq, d, tid, kThreads);
     for (int i = tid; i < 2 * nq; i += kThreads) ls[i] = a.lse[2 * row_index(a, b, h, c0) + i];
     for (int i = tid; i < nq; i += kThreads) dds[i] = a.dsum[row_index(a, b, h, c0 + i)];
+    if (kDrop) draw_tile_bits(a, b, h, km, c0, kF32ChunkQ, k0, kF32Groups, tid, kThreads);
     __syncthreads();
 
     // The same operations as the dQ pass, so the same P.
@@ -628,8 +719,15 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dkv_f32(Args a) {
       const int j = idx / nq, i = idx % nq;
       const float x = fmaf(dot_f32(qs + i * ld, ks + j * ld, d), a.scale, bs[j]);
       const float p = expf((x - ls[2 * i]) - ls[2 * i + 1]);
-      pt[j * ldc + i] = p;
-      dst[j * ldc + i] = p * (dot_f32(gs + i * ld, vs + j * ld, d) - dds[i]);
+      float dp = dot_f32(gs + i * ld, vs + j * ld, d);
+      if (kDrop) {
+        const bool kept = keep_bit(km, kF32Groups, i, j);
+        pt[j * ldc + i] = kept ? p * a.keep_scale : 0.f;
+        dp = kept ? dp * a.keep_scale : 0.f;
+      } else {
+        pt[j * ldc + i] = p;
+      }
+      dst[j * ldc + i] = p * (dp - dds[i]);
     }
     __syncthreads();
 
@@ -673,21 +771,22 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dkv_f32(Args a) {
 // Host side.
 // ---------------------------------------------------------------------------
 
+template <bool kDrop>
 int launch_long_bwd(const Args& a, float* dbias, int dtype, int batch, cudaStream_t s) {
   int err;
   if (dtype == 1) {
-    err = launch(long_bwd_dq_bf16, a, batch, kMmaThreads, dq_layout(a.dim).bytes, s,
+    err = launch(long_bwd_dq_bf16<kDrop>, a, batch, kMmaThreads, dq_layout(a.dim, kDrop).bytes, s,
                  (a.sq + kTileQ - 1) / kTileQ);
     if (err == 0) {
-      err = launch(long_bwd_dkv_bf16, a, batch, kMmaThreads, dkv_layout(a.dim).bytes, s,
-                   (a.skv + kKvTile - 1) / kKvTile);
+      err = launch(long_bwd_dkv_bf16<kDrop>, a, batch, kMmaThreads, dkv_layout(a.dim, kDrop).bytes,
+                   s, (a.skv + kKvTile - 1) / kKvTile);
     }
   } else if (dtype == 0) {
-    err = launch(long_bwd_dq_f32, a, batch, kBwdF32Threads, dq_f32_smem_bytes(a.dim), s,
-                 (a.sq + kF32TileQ - 1) / kF32TileQ);
+    err = launch(long_bwd_dq_f32<kDrop>, a, batch, kBwdF32Threads, dq_f32_smem_bytes(a.dim, kDrop),
+                 s, (a.sq + kF32TileQ - 1) / kF32TileQ);
     if (err == 0) {
-      err = launch(long_bwd_dkv_f32, a, batch, kBwdF32Threads, dkv_f32_smem_bytes(a.dim), s,
-                   (a.skv + kF32TileK - 1) / kF32TileK);
+      err = launch(long_bwd_dkv_f32<kDrop>, a, batch, kBwdF32Threads,
+                   dkv_f32_smem_bytes(a.dim, kDrop), s, (a.skv + kF32TileK - 1) / kF32TileK);
     }
   } else {
     return -1;
@@ -726,8 +825,37 @@ int rgqa_fused_attention_long_bwd(
   a.dbias_part = static_cast<float*>(dbias_part);
   a.lse = static_cast<float*>(lse);
   a.dsum = static_cast<float*>(dsum);
-  return launch_long_bwd(a, static_cast<float*>(dbias), dtype, batch,
-                         static_cast<cudaStream_t>(stream));
+  return launch_long_bwd<false>(a, static_cast<float*>(dbias), dtype, batch,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// 5L: as rgqa_fused_attention_long_bwd, plus the forward's dropout
+// arguments (rgqa_fused_attention_dropout_long_fwd), whose mask it
+// replays; lse is that forward's (the undropped scores' statistics).
+int rgqa_fused_attention_dropout_long_bwd(
+    const void* q, const void* k, const void* v, const void* bias, const void* g,
+    void* dq, void* dk, void* dv, void* dbias_part, void* dbias, void* lse, void* dsum,
+    int dtype, int batch, int sq, int skv, int heads, int dim,
+    long long q_bs, long long q_rs, long long k_bs, long long k_rs,
+    long long v_bs, long long v_rs, float scale,
+    unsigned long long seed, int threshold, float keep_scale, void* stream) {
+  if (!within_long_limits(batch, sq, skv, heads, dim, 32) || threshold < 0 || threshold > 255) {
+    return -1;
+  }
+  Args a = make_args(q, k, v, bias, sq, skv, heads, dim, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
+                     scale);
+  a.g = g;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  a.dbias_part = static_cast<float*>(dbias_part);
+  a.lse = static_cast<float*>(lse);
+  a.dsum = static_cast<float*>(dsum);
+  a.seed = seed;
+  a.threshold = threshold;
+  a.keep_scale = keep_scale;
+  return launch_long_bwd<true>(a, static_cast<float*>(dbias), dtype, batch,
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

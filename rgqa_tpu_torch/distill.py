@@ -24,7 +24,8 @@ not JAX's ``rbg`` stream, so it holds JAX's contract, not its stream (at
 dropout 0 every pass is MSP and the split equals JAX's row for row).
 :func:`build_ensemble_distill_split` multiplies the teachers' sigmoid
 vectors (f32, as the JAX package's numpy does) from ``.pth`` checkpoints;
-an orbax snapshot directory is refused by name (reading orbax needs jax).
+an orbax snapshot directory is read through its ``orbax_to_pth.py``
+export and refused, naming the command, without it.
 
 Both split functions run on every rank of a data-parallel runner (its
 ``mesh``): the candidates come from the shared host stream, every rank
@@ -45,6 +46,7 @@ from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
+from rgqa_tpu_torch.checkpoint.convert import orbax_refusal
 from rgqa_tpu_torch.data.dataset import GQADataset
 from rgqa_tpu_torch.parallel import on_main
 from rgqa_tpu_torch.scorers.core import make_dropout_scorer, make_msp_scorer
@@ -216,14 +218,13 @@ def _write_json(obj, path: str) -> None:
 def teacher_pth(path: str) -> str:
     """A teacher checkpoint as a ``.pth`` file: ``path``, or ``path +
     '.pth'`` when ``path`` is missing (a run's ``BEST`` / ``LAST``
-    name); an orbax snapshot directory is refused by name."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"not ported yet: --teacher_path an orbax snapshot directory ({path!r}; reading orbax needs "
-            "jax; give the .pth)"
-        )
-    if not os.path.exists(path) and os.path.isfile(path + ".pth"):
+    name, or the export of an orbax snapshot directory ``path``); an
+    orbax snapshot directory without its export is refused, naming the
+    command that writes it."""
+    if not os.path.isfile(path) and os.path.isfile(path + ".pth"):
         return path + ".pth"
+    if os.path.isdir(path):
+        raise orbax_refusal("--teacher_path", path, path + ".pth")
     return path
 
 

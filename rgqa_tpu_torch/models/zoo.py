@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rgqa_tpu_torch.checkpoint.convert import load_reference_pth
+from rgqa_tpu_torch.checkpoint.convert import load_reference_pth, lxrt_path, orbax_refusal
 from rgqa_tpu_torch.config import EncoderConfig, ModelConfig
 from rgqa_tpu_torch.data.images import rect_patch_mask
 from rgqa_tpu_torch.device import resolve_device
@@ -225,15 +225,15 @@ def load_pretraining(
     ``.pth`` (``model_LXRT.pth``, as ``import_lxmert_pretraining`` reads
     it: the tied decoder weight dropped), at ``cfg``'s depths; the QA
     head's width is the checkpoint's (9500 answers in the reference's).
-    Raises on a key the checkpoint lacks, and on an orbax snapshot
-    directory (the JAX CLI's ``--loadLXMERT``; reading orbax needs jax).
-    Returns the module and its forward adapter (LXMERT's batch keys,
-    ``deterministic`` and ``use_fused`` as :func:`build_model`'s)."""
+    ``path`` may be an orbax pretraining snapshot directory (the JAX CLI's
+    ``--loadLXMERT``) with its export ``<path>_LXRT.pth`` beside it.
+    Raises on a key the checkpoint lacks, and on such a directory without
+    its export (naming the command that writes it).  Returns the module
+    and its forward adapter (LXMERT's batch keys, ``deterministic`` and
+    ``use_fused`` as :func:`build_model`'s)."""
+    path = lxrt_path(path)
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"--loadLXMERT {path!r} is a directory: the JAX CLI reads an orbax snapshot there, which "
-            "needs jax and is not ported; give the reference pretraining .pth (model_LXRT.pth)"
-        )
+        raise orbax_refusal("--loadLXMERT", path, path + "_LXRT.pth")
     sd, missing, unused = load_reference_pth(
         path, backbone="lxmert_pretrain", l_layers=cfg.l_layers, x_layers=cfg.x_layers,
         r_layers=cfg.r_layers,
@@ -306,16 +306,28 @@ def _vilt_call(model, batch: dict, **kw) -> dict:
 
 
 def example_batch(
-    cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0, pixel_wire: str = "f32"
+    cfg: ModelConfig, batch_size: int = 8, *, seed: int = 0, pixel_wire: str = "f32",
+    with_target: bool = False,
 ) -> dict:
     """A synthetic fixed-shape numpy batch; the same draws as the JAX
     package's ``example_batch`` for lxmert, uniter (7-d ``boxes``), vilt
     (f32 ``pixels``, standard normal), butd (``token_ids`` (B, 40) in
-    place of the text fields) and caps (the text fields alone).  ``pixel_wire="u8"`` gives vilt the u8 wire
+    place of the text fields) and caps (the text fields alone), and with
+    ``with_target`` its one-hot ``target`` rows, drawn after them.
+    ``pixel_wire="u8"`` gives vilt the u8 wire
     instead: random ``pixels_u8``, and in three rows of four the
     ``pixel_rect`` of a 2:1, 3:2 or 4:3 image in pad mode, with its
     ``pixel_mask``."""
     rng = np.random.default_rng(seed)
+    batch = _example_inputs(cfg, batch_size, rng, pixel_wire)
+    if with_target:
+        target = np.zeros((batch_size, cfg.num_answers), np.float32)
+        target[np.arange(batch_size), rng.integers(0, cfg.num_answers, batch_size)] = 1.0
+        batch["target"] = target
+    return batch
+
+
+def _example_inputs(cfg: ModelConfig, batch_size: int, rng: np.random.Generator, pixel_wire: str) -> dict:
     t = cfg.max_text_len
     k = cfg.encoder.num_objects
     batch: dict[str, Any] = {}

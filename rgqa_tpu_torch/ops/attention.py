@@ -1,7 +1,7 @@
 """Multi-head attention on the natural (B, S, H*D) layout, forward and
 backward, with and without attention-probability dropout.
 
-Port of ``rgqa_tpu/ops/attention.py``.  Six hand-written Hopper kernels,
+Port of ``rgqa_tpu/ops/attention.py``.  Eight hand-written Hopper kernels,
 each with a plain PyTorch version beside it:
 
 | kernel (wrapper) | source | TPU kernel it replaces | plain version |
@@ -12,6 +12,8 @@ each with a plain PyTorch version beside it:
 | :func:`fused_attention_long_bwd_cuda` | ``csrc/fused_attention_long_bwd.cu`` | ``_fused_bwd_kernel`` at long streams (``_fit_bwd_block``'s raised tiers) | :func:`attention_bwd_ref` |
 | :func:`fused_attention_dropout_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_kernel`` | :func:`attention_dropout_ref` |
 | :func:`fused_attention_dropout_bwd_cuda` | ``csrc/fused_attention_dropout.cu`` | ``_fused_drop_bwd_kernel`` | :func:`attention_dropout_bwd_ref` |
+| :func:`fused_attention_dropout_long_cuda` | ``csrc/fused_attention_long.cu`` | ``_fused_drop_kernel`` at long streams | :func:`attention_dropout_ref` |
+| :func:`fused_attention_dropout_long_bwd_cuda` | ``csrc/fused_attention_long_bwd.cu`` | ``_fused_drop_bwd_kernel`` at long streams | :func:`attention_dropout_bwd_ref` |
 
 :func:`fused_attention` and :func:`fused_attention_dropout` are
 ``torch.autograd.Function``s (the ``_fused`` / ``_fused_drop``
@@ -29,11 +31,14 @@ will need the backward it also writes each row's softmax statistics (max
 and log-sum, whose sum is the log-sum-exp), which the long backward
 takes instead of recomputing the softmax: its dQ pass
 walks the key tiles (once for D = rowsum(dP P), once for dQ), its dK/dV
-pass the query tiles.  The dropout kernels take <= 64 only, and a
-longer stream raises ``NotImplementedError`` there: their long-stream
-versions are not ported, since no default path runs attention dropout
-beyond 64 tokens.  ``force_xla=True`` runs the plain forward under
-PyTorch's own autograd instead.
+pass the query tiles.  The dropout pair picks its kernels the same way
+(:func:`dropout_forward_kernel`, :func:`dropout_backward_kernel`): #4 /
+#5 up to 64 tokens, and beyond, 4L / 5L, the long forward and backward
+with the mask applied to P (the softmax sum and the row statistics stay
+the undropped P's) and replayed in both backward passes, at any length
+(UNITER's 76-token stream with 40-token questions).
+``force_xla=True`` runs the plain forward under PyTorch's own autograd
+instead.
 
 The dropout mask is keyed on the element: keep(b, h, i, j) is a pure
 function of a 64-bit seed and (b, h, i, j), one byte of a Philox4x32-10
@@ -88,6 +93,10 @@ __all__ = [
     "fused_attention_long_bwd_cuda",
     "fused_attention_dropout_cuda",
     "fused_attention_dropout_bwd_cuda",
+    "fused_attention_dropout_long_cuda",
+    "fused_attention_dropout_long_bwd_cuda",
+    "dropout_forward_kernel",
+    "dropout_backward_kernel",
 ]
 
 # The kernels' limits (csrc/attention_common.cuh kMaxSeq / kMaxDim): the
@@ -340,6 +349,26 @@ def backward_kernel(sq: int, skv: int, head_dim: int):
     return fused_attention_long_bwd_cuda if long else fused_attention_bwd_cuda
 
 
+def dropout_forward_kernel(sq: int, skv: int, head_dim: int):
+    """The dropout forward's wrapper, chosen as :func:`forward_kernel`
+    chooses: :func:`fused_attention_dropout_cuda` (#4) when both lengths
+    are <= MAX_SEQ, :func:`fused_attention_dropout_long_cuda` (4L) for
+    longer streams, at any length."""
+    long = sq > MAX_SEQ or skv > MAX_SEQ
+    _check_lengths("fused_attention_dropout", sq, skv, head_dim, long=long)
+    return fused_attention_dropout_long_cuda if long else fused_attention_dropout_cuda
+
+
+def dropout_backward_kernel(sq: int, skv: int, head_dim: int):
+    """The dropout backward's wrapper: :func:`fused_attention_dropout_bwd_cuda`
+    (#5) when both lengths are <= MAX_SEQ,
+    :func:`fused_attention_dropout_long_bwd_cuda` (5L, which takes the
+    forward's ``lse``) for longer streams."""
+    long = sq > MAX_SEQ or skv > MAX_SEQ
+    _check_lengths("the attention dropout backward", sq, skv, head_dim, long=long)
+    return fused_attention_dropout_long_bwd_cuda if long else fused_attention_dropout_bwd_cuda
+
+
 def _check(name, q, k, v, bias_kv, num_heads: int, g=None, *, long: bool = False) -> None:
     """Raise on anything the kernels do not take (``long``: the long
     forward's limits)."""
@@ -445,18 +474,25 @@ def fused_attention_long_cuda(q, k, v, bias_kv, num_heads: int, *, lse: bool = F
     f32 keeps the log-sum-exp only to 2^-10); ``out`` is the same either
     way.  ``fused_attention_long_cuda.launches`` counts the launches."""
     _check("fused_attention_long_cuda", q, k, v, bias_kv, num_heads, long=True)
+    result = _long_fwd("fused_attention_long", "rgqa_fused_attention_long_fwd", q, k, v, bias_kv, num_heads, lse)
+    fused_attention_long_cuda.launches += 1
+    return result
+
+
+def _long_fwd(name, symbol, q, k, v, bias_kv, num_heads: int, lse: bool, drop=None):
+    """Launch ``symbol`` of ``csrc/fused_attention_long.cu`` (#2, or 4L
+    with ``drop``); ``out``, or ``(out, lse)`` with the row statistics."""
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     stats = (
         torch.empty((q.shape[0], num_heads, q.shape[1], 2), dtype=torch.float32, device=q.device)
         if lse else None
     )
     _launch(
-        "fused_attention_long", "fused_attention_long", "rgqa_fused_attention_long_fwd",
+        name, "fused_attention_long", symbol,
         [q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_kv.data_ptr(), out.data_ptr(),
          None if stats is None else stats.data_ptr()],
-        q, k, v, num_heads,
+        q, k, v, num_heads, drop,
     )
-    fused_attention_long_cuda.launches += 1
     return (out, stats) if lse else out
 
 
@@ -496,19 +532,9 @@ def fused_attention_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
     return dq, dk, dv, dbias
 
 
-def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse):
-    """Launch ``csrc/fused_attention_long_bwd.cu``: the function of
-    :func:`fused_attention_bwd_cuda` for any Sq and Skv, given ``lse``,
-    the (B, H, Sq, 2) f32 row statistics of the forward
-    (``fused_attention_long_cuda(..., lse=True)``).  A pass over query
-    tiles walks the key tiles twice, for each row's D = rowsum(dP P) and
-    then for dq; a pass over key tiles walks the query tiles for dk, dv
-    and the dbias partials; then their head sum.  No atomics, so two runs
-    give identical gradients.  The same results as
-    :func:`fused_attention_bwd_cuda`;
-    ``fused_attention_long_bwd_cuda.launches`` counts the launches."""
-    name = "fused_attention_long_bwd_cuda"
-    _check(name, q, k, v, bias_kv, num_heads, g=g, long=True)
+def _long_bwd(name, symbol, q, k, v, bias_kv, g, num_heads: int, lse, drop=None):
+    """Check ``lse`` and launch ``symbol`` of ``csrc/fused_attention_long_bwd.cu``
+    (#3L, or 5L with ``drop``); (dq, dk, dv, dbias)."""
     want = (q.shape[0], num_heads, q.shape[1])
     if (
         lse.device != q.device or lse.dtype != torch.float32
@@ -522,13 +548,30 @@ def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse):
     # (B, H, Sq) f32 D = rowsum(dP P) that the dQ pass hands the dK/dV pass.
     dsum = torch.empty(want, dtype=torch.float32, device=q.device)
     _launch(
-        name.removesuffix("_cuda"), "fused_attention_long_bwd", "rgqa_fused_attention_long_bwd",
+        name.removesuffix("_cuda"), "fused_attention_long_bwd", symbol,
         _bwd_pointers(q, k, v, bias_kv, g, buffers) + [lse.data_ptr(), dsum.data_ptr()],
-        q, k, v, num_heads,
+        q, k, v, num_heads, drop,
     )
-    fused_attention_long_bwd_cuda.launches += 1
     dq, dk, dv, _, dbias = buffers
     return dq, dk, dv, dbias
+
+
+def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse):
+    """Launch ``csrc/fused_attention_long_bwd.cu``: the function of
+    :func:`fused_attention_bwd_cuda` for any Sq and Skv, given ``lse``,
+    the (B, H, Sq, 2) f32 row statistics of the forward
+    (``fused_attention_long_cuda(..., lse=True)``).  A pass over query
+    tiles walks the key tiles twice, for each row's D = rowsum(dP P) and
+    then for dq; a pass over key tiles walks the query tiles for dk, dv
+    and the dbias partials; then their head sum.  No atomics, so two runs
+    give identical gradients.  The same results as
+    :func:`fused_attention_bwd_cuda`;
+    ``fused_attention_long_bwd_cuda.launches`` counts the launches."""
+    name = "fused_attention_long_bwd_cuda"
+    _check(name, q, k, v, bias_kv, num_heads, g=g, long=True)
+    grads = _long_bwd(name, "rgqa_fused_attention_long_bwd", q, k, v, bias_kv, g, num_heads, lse)
+    fused_attention_long_bwd_cuda.launches += 1
+    return grads
 
 
 def fused_attention_dropout_cuda(q, k, v, bias_kv, num_heads: int, rate: float, seed: int):
@@ -568,9 +611,46 @@ def fused_attention_dropout_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, rate: 
     return dq, dk, dv, dbias
 
 
+def fused_attention_dropout_long_cuda(
+    q, k, v, bias_kv, num_heads: int, rate: float, seed: int, *, lse: bool = False
+):
+    """4L: launch the dropout forward of ``csrc/fused_attention_long.cu``,
+    :func:`fused_attention_long_cuda` with the keep mask of
+    :func:`dropout_keep_mask_ref` on P, at any Sq and Skv.  With
+    ``lse=True`` it returns ``(out, lse)``, the statistics of the
+    undropped scores, which :func:`fused_attention_dropout_long_bwd_cuda`
+    takes.  ``fused_attention_dropout_long_cuda.launches`` counts the
+    launches."""
+    name = "fused_attention_dropout_long_cuda"
+    _check(name, q, k, v, bias_kv, num_heads, long=True)
+    result = _long_fwd(name.removesuffix("_cuda"), "rgqa_fused_attention_dropout_long_fwd", q, k, v, bias_kv,
+                       num_heads, lse, _dropout_args(name, rate, seed))
+    fused_attention_dropout_long_cuda.launches += 1
+    return result
+
+
+def fused_attention_dropout_long_bwd_cuda(
+    q, k, v, bias_kv, g, num_heads: int, rate: float, seed: int, lse
+):
+    """5L: launch the dropout backward of ``csrc/fused_attention_long_bwd.cu``,
+    which replays 4L's mask from ``seed`` in both passes, given 4L's
+    ``lse``: (dq, dk, dv, dbias) as :func:`fused_attention_dropout_bwd_cuda`
+    returns them, at any Sq and Skv.
+    ``fused_attention_dropout_long_bwd_cuda.launches`` counts the launches."""
+    name = "fused_attention_dropout_long_bwd_cuda"
+    _check(name, q, k, v, bias_kv, num_heads, g=g, long=True)
+    drop = _dropout_args(name, rate, seed)
+    grads = _long_bwd(
+        name, "rgqa_fused_attention_dropout_long_bwd", q, k, v, bias_kv, g, num_heads, lse, drop
+    )
+    fused_attention_dropout_long_bwd_cuda.launches += 1
+    return grads
+
+
 for _wrapper in (
     fused_attention_cuda, fused_attention_long_cuda, fused_attention_bwd_cuda,
     fused_attention_long_bwd_cuda, fused_attention_dropout_cuda, fused_attention_dropout_bwd_cuda,
+    fused_attention_dropout_long_cuda, fused_attention_dropout_long_bwd_cuda,
 ):
     _wrapper.launches = 0
 
@@ -578,18 +658,6 @@ for _wrapper in (
 # ---------------------------------------------------------------------------
 # Differentiable entry points.
 # ---------------------------------------------------------------------------
-
-
-def _short_only(q, k) -> None:
-    """Raise ``NotImplementedError`` for a CUDA call of the dropout
-    kernels at a stream they do not take."""
-    sq, skv = q.shape[1], k.shape[1]
-    if sq > MAX_SEQ or skv > MAX_SEQ:
-        raise NotImplementedError(
-            f"attention with dropout at Sq={sq}, Skv={skv} (> {MAX_SEQ}) has no kernel: "
-            "the long-stream dropout pair is not ported, as no default path runs it "
-            "(an AttentionBlock model trained on a stream longer than 64 tokens would)"
-        )
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -627,26 +695,36 @@ class _FusedAttention(torch.autograd.Function):
 
 
 class _FusedAttentionDropout(torch.autograd.Function):
-    """``_fused_drop``'s custom_vjp: kernels #4 / #5 on CUDA, the plain
-    pair on the CPU; the backward replays the mask from the saved seed."""
+    """``_fused_drop``'s custom_vjp: on CUDA kernels #4 / #5 (Sq, Skv <=
+    64) or 4L / 5L (longer streams), the plain pair on the CPU; the
+    backward replays the mask from the saved seed.  On the long route the
+    forward writes and saves the row statistics for 5L only when an input
+    needs a gradient, as :class:`_FusedAttention` does (MC-dropout
+    scoring writes none)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_kv, num_heads, rate, seed):
         ctx.args = (num_heads, rate, seed)
-        ctx.save_for_backward(q, k, v, bias_kv)
         if q.device.type == "cpu":
+            ctx.save_for_backward(q, k, v, bias_kv)
             return attention_dropout_ref(q, k, v, bias_kv, num_heads, rate, seed)
-        _short_only(q, k)
-        return fused_attention_dropout_cuda(q, k, v, bias_kv, num_heads, rate, seed)
+        kernel = dropout_forward_kernel(q.shape[1], k.shape[1], q.shape[2] // num_heads)
+        if kernel is fused_attention_dropout_long_cuda and any(ctx.needs_input_grad[:4]):
+            out, lse = kernel(q, k, v, bias_kv, num_heads, rate, seed, lse=True)
+            ctx.save_for_backward(q, k, v, bias_kv, lse)
+            return out
+        ctx.save_for_backward(q, k, v, bias_kv)
+        return kernel(q, k, v, bias_kv, num_heads, rate, seed)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias_kv = ctx.saved_tensors
+        q, k, v, bias_kv, *lse = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
         if q.device.type == "cpu":
             grads = attention_dropout_bwd_ref(q, k, v, bias_kv, g, *ctx.args)
         else:
-            grads = fused_attention_dropout_bwd_cuda(q, k, v, bias_kv, g, *ctx.args)
+            kernel = dropout_backward_kernel(q.shape[1], k.shape[1], q.shape[2] // ctx.args[0])
+            grads = kernel(q, k, v, bias_kv, g, *ctx.args, *lse)
         return (*grads, None, None, None)
 
 
@@ -673,8 +751,9 @@ def fused_attention_dropout(
     """:func:`fused_attention` with attention-probability dropout at
     ``rate`` (quantized to 1/256), its mask a pure function of ``seed``
     and the element.  CUDA tensors go to kernels #4 and #5 (Sq, Skv <=
-    64), CPU tensors to their plain versions; ``force_xla=True`` runs
-    :func:`attention_dropout_ref` under PyTorch's autograd."""
+    64) or 4L and 5L (longer streams), CPU tensors to their plain
+    versions; ``force_xla=True`` runs :func:`attention_dropout_ref` under
+    PyTorch's autograd."""
     bias_kv = bias_vector(bias, q.shape[0], k.shape[1], device=q.device)
     if force_xla:
         return attention_dropout_ref(q, k, v, bias_kv, num_heads, float(rate), int(seed))

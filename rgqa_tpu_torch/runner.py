@@ -92,8 +92,10 @@ rank's dropout stream for the resume.  ``--model_axis`` other than 1
 raises (tensor parallelism is not ported).
 
 Refused by flag name (:func:`check_ported`): chunked dispatch
-(``--train_chunk`` / ``--eval_chunk``), ``--feed_int8``, orbax inputs
-(reading them needs jax), and where the JAX package fails:
+(``--train_chunk`` / ``--eval_chunk``), ``--feed_int8``, orbax snapshot
+directories without the export that ``orbax_to_pth.py`` writes beside
+them (the port reads no orbax; the error names the command), and where
+the JAX package fails:
 ``--strategy adv`` off LXMERT and the min-max strategies on the caption
 matcher.  An evaluation runner for ``--scorer match`` with ``--load`` takes ``--loadLXMERT`` (the match scorer's
 pretraining checkpoint, which the evaluate CLI loads) and leaves it out
@@ -123,10 +125,13 @@ import numpy as np
 import torch
 
 from rgqa_tpu_torch.checkpoint.convert import (
+    is_orbax_dir,
     load_clip_state,
     load_lxmert_pretrained,
     load_lxmert_qa,
     load_reference_pth,
+    lxrt_path,
+    orbax_refusal,
     save_clip_dir,
     save_clip_state,
 )
@@ -169,7 +174,8 @@ MINMAX = ("resampling", "poem", "woods")
 def check_ported(cfg: RunConfig, *, train: bool, extra: Optional[dict] = None) -> None:
     """Refuse, by flag, what the port does not run: chunked dispatch (not
     to port: one step a launch sequence here), the int8 feed and orbax
-    inputs (reading orbax needs jax); and where the JAX package fails:
+    snapshot directories without their ``orbax_to_pth.py`` export (the
+    port reads no orbax); and where the JAX package fails:
     ``--strategy adv`` off LXMERT (its delta hooks are LXMERT's), the
     min-max strategies on the caption matcher (its one logit does not
     broadcast with the answer targets in JAX ``train_minmax``); and
@@ -196,13 +202,13 @@ def check_ported(cfg: RunConfig, *, train: bool, extra: Optional[dict] = None) -
             f"--strategy {t.strategy} on --backbone caps (the JAX train_minmax fails there: the "
             "matcher's one logit does not broadcast with the answer targets)":
                 t.strategy in MINMAX and m.backbone == "caps",
-            "--teacher_path an orbax snapshot directory (reading orbax needs jax; give a .pth)":
-                t.strategy == "distill_online" and bool(cfg.teacher_path) and os.path.isdir(cfg.teacher_path),
         })
+        if t.strategy == "distill_online" and cfg.teacher_path and os.path.isdir(cfg.teacher_path) \
+                and not os.path.isfile(cfg.teacher_path + ".pth"):
+            raise orbax_refusal("--teacher_path", cfg.teacher_path, cfg.teacher_path + ".pth")
     for flag, path in (("--loadLXMERTQA", cfg.load_lxmert_qa), ("--loadLXMERT", cfg.load_lxmert)):
-        unported[f"{flag} an orbax snapshot directory (reading orbax needs jax; give the .pth)"] = (
-            bool(path) and os.path.isdir(path) and m.backbone == "lxmert"
-        )
+        if path and m.backbone == "lxmert" and os.path.isdir(lxrt_path(path)):
+            raise orbax_refusal(flag, path, path + "_LXRT.pth")
     unported.update(extra or {})
     named = [flag for flag, used in unported.items() if used]
     if named:
@@ -320,7 +326,7 @@ class GQARunner(ScoringMixin):
         elif cfg.load_lxmert and backbone == "lxmert":
             enc = self.model_cfg.encoder
             sd, missing, _ = load_lxmert_pretrained(
-                cfg.load_lxmert, l_layers=enc.l_layers, x_layers=enc.x_layers, r_layers=enc.r_layers)
+                lxrt_path(cfg.load_lxmert), l_layers=enc.l_layers, x_layers=enc.x_layers, r_layers=enc.r_layers)
             self.model.load_state_dict(sd, strict=False)
             print(f"Loaded LXMERT encoder ({len(missing)} keys left at init)")
         elif cfg.load_lxmert and backbone == "uniter":
@@ -496,12 +502,9 @@ class GQARunner(ScoringMixin):
         less its ``.pth`` takes the file (:func:`pth_path`).  Returns the
         reference keys it lacked."""
         path = pth_path(path)
-        caps_dir = self.model_cfg.backbone == "caps" and os.path.isdir(path)
+        caps_dir = self.model_cfg.backbone == "caps" and os.path.isdir(path) and not is_orbax_dir(path)
         if not os.path.isfile(path) and not caps_dir:
-            raise NotImplementedError(
-                f"{path!r} is not a .pth file (nor is {path}.pth); loading orbax snapshots needs "
-                "jax and is not ported yet"
-            )
+            raise orbax_refusal("--load", path, path + ".pth")
         enc = self.model_cfg.encoder
         sd, missing, unused = load_reference_pth(
             path, backbone=self.model_cfg.backbone, l_layers=enc.l_layers,

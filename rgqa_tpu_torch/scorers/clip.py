@@ -17,8 +17,11 @@ Copies of the JAX module's image functions: :func:`clip_resize_crop`
 (needs PIL, imported inside: the machine with the card has none, and
 feeds CLIP from a pixel pack), :func:`clip_normalize`,
 :func:`clip_preprocess` and :func:`clip_loss_weights`.  Not ported: the
-``transformers`` fallback (``backend="torch"``) and checkpoints exported
-as orbax trees (a ``jax_params/`` directory; refused by name).
+``transformers`` fallback (``backend="torch"``).  A directory with the
+JAX package's orbax ``jax_params/`` tree loads the ``pytorch_model.bin``
+that ``orbax_to_pth.py`` writes beside it (where the JAX package loads
+``jax_params/``); without it the directory is refused, naming the
+command.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from rgqa_tpu_torch.checkpoint.convert import load_clip_state_dict
+from rgqa_tpu_torch.checkpoint.convert import load_clip_state_dict, orbax_refusal
 from rgqa_tpu_torch.data.clip_tokenizer import ClipBPETokenizer
 from rgqa_tpu_torch.device import resolve_device
 from rgqa_tpu_torch.models.clip import ClipModel, clip_config_from_hf
@@ -95,12 +98,12 @@ class ClipScorer:
         device: Optional[torch.device | str] = None,
         use_fused: Optional[bool] = None,
     ):
-        if os.path.isdir(os.path.join(model_path, "jax_params")):
-            raise NotImplementedError(
-                f"{model_path!r} holds an orbax jax_params/ tree (a trained CLIP exported by the JAX "
-                "package); reading orbax needs jax and is not ported: give an HF checkpoint directory "
-                "(config.json + pytorch_model.bin + vocab.json + merges.txt)"
-            )
+        if os.path.isdir(os.path.join(model_path, "jax_params")) and not os.path.isfile(
+                os.path.join(model_path, "pytorch_model.bin")):
+            # The JAX export writes no .bin beside jax_params/: one there is
+            # orbax_to_pth.py's export of it, which is loaded in its place.
+            raise orbax_refusal("--clip_path", os.path.join(model_path, "jax_params"),
+                                os.path.join(model_path, "pytorch_model.bin"))
         self.model_path = model_path
         self.batch_size = batch_size
         self.use_fused = use_fused

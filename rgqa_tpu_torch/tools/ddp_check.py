@@ -80,7 +80,8 @@ DROP = ["--dropout", "0.1"]
 START_SECONDS = 60.0
 PATH_SECONDS = 60.0
 KERNELS = ("fused_attention", "fused_attention_bwd", "fused_attention_dropout", "fused_attention_dropout_bwd",
-           "fused_attention_long", "fused_attention_long_bwd")
+           "fused_attention_long", "fused_attention_long_bwd", "fused_attention_dropout_long",
+           "fused_attention_dropout_long_bwd")
 TINY = ["--llayers", "1", "--xlayers", "1", "--rlayers", "1", "--hidden_size", "32", "--num_heads", "4"]
 GQA_PATHS = {
     "rp": ["--sample_pair"],
@@ -572,18 +573,21 @@ def _last_path(stderr: str) -> Optional[str]:
 
 
 def launch(world: int, argv: list, *, env: Optional[dict] = None, path_seconds: float = PATH_SECONDS,
-           cwd: Optional[str] = None) -> list:
-    """Spawn ``world`` ranks of this module with ``argv`` and return each
-    rank's ``DDP_CHECK`` record, in rank order.  This process hosts the
+           cwd: Optional[str] = None, module: str = "rgqa_tpu_torch.tools.ddp_check", record: str = "DDP_CHECK ",
+           budget: Optional[float] = None) -> list:
+    """Spawn ``world`` ranks of this module (or of ``module``, which takes
+    the same ``--world`` / ``--rank`` / ``--port`` / ``--timeout`` flags
+    and prints a ``record`` line last) with ``argv`` and return each
+    rank's record, in rank order.  This process hosts the
     group's ``TCPStore`` on a port the OS picks, bound from the start, and
     the ranks join it as clients.  The ranks have ``START_SECONDS`` plus
-    ``path_seconds`` for each path of ``argv`` (also each rank's
-    ``--timeout``); a rank that fails or is still running then ends the
-    others, and the error, with their output, names each rank's exit and
-    the path it was in."""
+    ``path_seconds`` for each path of ``argv`` (or ``budget`` seconds;
+    also each rank's ``--timeout``); a rank that fails or is still
+    running then ends the others, and the error, with their output, names
+    each rank's exit and the path it was in."""
     import torch.distributed as dist
 
-    budget = START_SECONDS + path_seconds * len(_paths_of(argv))
+    budget = budget or START_SECONDS + path_seconds * len(_paths_of(argv))
     store = port = None
     if world > 1:
         store = dist.TCPStore("localhost", 0, world_size=world, is_master=True, wait_for_workers=False,
@@ -592,7 +596,7 @@ def launch(world: int, argv: list, *, env: Optional[dict] = None, path_seconds: 
     # Each rank writes to files, not pipes: a rank whose output outgrew a
     # pipe's buffer would block on it while nothing reads until the end.
     logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")) for _ in range(world)]
-    procs = [subprocess.Popen([sys.executable, "-m", "rgqa_tpu_torch.tools.ddp_check", "--world", str(world),
+    procs = [subprocess.Popen([sys.executable, "-m", module, "--world", str(world),
                                "--rank", str(r), "--port", str(port or 0), "--timeout", str(budget), *argv],
                               stdout=logs[r][0], stderr=logs[r][1], text=True, env=env, cwd=cwd)
              for r in range(world)]
@@ -618,14 +622,14 @@ def launch(world: int, argv: list, *, env: Optional[dict] = None, path_seconds: 
             out.seek(0)
             err.seek(0)
             stdout, stderr = out.read(), err.read()
-        line = next((l for l in reversed(stdout.splitlines()) if l.startswith("DDP_CHECK ")), None)
+        line = next((l for l in reversed(stdout.splitlines()) if l.startswith(record)), None)
         if p.returncode != 0 or line is None:
             why = (f"still running at the deadline of {budget:.0f} s, killed" if late and p.returncode < 0
                    else f"exited {p.returncode}")
             errors.append(f"rank {r} of {world} {why} in path {_last_path(stderr)}:\n{stdout[-2000:]}\n"
                           f"{stderr[-4000:]}")
         else:
-            records.append(json.loads(line[len("DDP_CHECK "):]))
+            records.append(json.loads(line[len(record):]))
     if errors:
         raise RuntimeError("\n".join(errors))
     return records

@@ -570,7 +570,8 @@ def _attention_launches() -> int:
     return sum(fn.launches for fn in (
         att.fused_attention_cuda, att.fused_attention_long_cuda, att.fused_attention_bwd_cuda,
         att.fused_attention_long_bwd_cuda, att.fused_attention_dropout_cuda,
-        att.fused_attention_dropout_bwd_cuda))
+        att.fused_attention_dropout_bwd_cuda, att.fused_attention_dropout_long_cuda,
+        att.fused_attention_dropout_long_bwd_cuda))
 
 
 def _profile(fns: dict, args, smi: str, out: str, *, unit: str) -> list:

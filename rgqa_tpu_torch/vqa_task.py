@@ -23,7 +23,8 @@ evaluate LXMERT on VQA-format data.
   ``indent=4, sort_keys=True`` (``vqa_data.py:154-188``): the JAX
   class's source.
 - Initial weights: ``--load`` a reference VQA / GQA ``.pth`` (an orbax
-  directory is refused by name, reading it needs jax), else
+  directory through its ``orbax_to_pth.py`` export ``<dir>.pth``; refused,
+  naming the command, without it), else
   ``--loadLXMERTQA <prefix>`` (``<prefix>_LXRT.pth`` when ``<prefix>``
   lacks ``.pth``): with ``<data_root>/all_ans.json`` the answer rows are
   transplanted by answer string, without it the encoder alone loads
@@ -51,7 +52,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rgqa_tpu_torch.checkpoint.convert import load_lxmert_pretrained, load_lxmert_qa, load_reference_pth
+from rgqa_tpu_torch.checkpoint.convert import (
+    load_lxmert_pretrained,
+    load_lxmert_qa,
+    load_reference_pth,
+    lxrt_path,
+    orbax_refusal,
+)
 from rgqa_tpu_torch.config import RunConfig, dump_run_config
 from rgqa_tpu_torch.data.batching import batch_iterator, device_prefetch
 from rgqa_tpu_torch.data.dataset import EncodedGQA, GQADataset, build_targets
@@ -165,7 +172,7 @@ class VQARunner:
             else:
                 sd, _, _ = load_lxmert_pretrained(path, **layers)
         elif cfg.load_lxmert:
-            sd, _, _ = load_lxmert_pretrained(cfg.load_lxmert, **layers)
+            sd, _, _ = load_lxmert_pretrained(lxrt_path(cfg.load_lxmert), **layers)
         else:
             return
         self.model.load_state_dict(sd, strict=False)
@@ -305,10 +312,7 @@ class VQARunner:
         lacked."""
         path = pth_path(path)
         if not os.path.isfile(path):
-            raise NotImplementedError(
-                f"--load {path!r} is not a .pth file (nor is {path}.pth); loading orbax snapshots needs jax "
-                "and is not ported yet"
-            )
+            raise orbax_refusal("--load", path, path + ".pth")
         enc = self.model_cfg.encoder
         sd, missing, unused = load_reference_pth(path, l_layers=enc.l_layers, x_layers=enc.x_layers,
                                                  r_layers=enc.r_layers)

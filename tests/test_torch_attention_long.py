@@ -562,11 +562,14 @@ def test_long_streams_raise_where_no_kernel_exists(cuda):
     assert ((got - want).abs() <= 2e-5).all()
     for a, w in zip(got_grads, want_grads):
         assert ((a - w).abs() <= 1e-4).all()
-    # The backward at 165 tokens reaches #3L; attention dropout has no
-    # long-stream kernel.
+    # The backward at 165 tokens reaches #3L; attention dropout there
+    # reaches 4L and 5L (no stream raises since they were ported).
     q = torch.zeros(2, 165, 768, device=cuda, requires_grad=True)
     before = att.fused_attention_long_bwd_cuda.launches
     att.fused_attention(q, q, q, None, num_heads=12).sum().backward()
     assert att.fused_attention_long_bwd_cuda.launches == before + 1
-    with pytest.raises(NotImplementedError, match="long-stream dropout pair is not ported"):
-        att.fused_attention_dropout(q, q, q, None, num_heads=12, rate=0.1, seed=1)
+    drops = (att.fused_attention_dropout_long_cuda.launches,
+             att.fused_attention_dropout_long_bwd_cuda.launches)
+    att.fused_attention_dropout(q, q, q, None, num_heads=12, rate=0.1, seed=1).sum().backward()
+    assert (att.fused_attention_dropout_long_cuda.launches,
+            att.fused_attention_dropout_long_bwd_cuda.launches) == (drops[0] + 1, drops[1] + 1)

@@ -21,8 +21,9 @@ within one rounding step.
   the JAX runner's and the JAX CLI's over one synthetic root and the
   CLIP pack the port's synthetic root writes; ``pack_pixels`` and
   ``prepare_data --pixel_transform clip`` against the JAX packer.
-- The refusals: an orbax ``jax_params/`` checkpoint, a checkpoint with a
-  missing key, ``--scorer clip`` without ``--clip_path``, and a root
+- The refusals: an orbax ``jax_params/`` checkpoint without the
+  ``pytorch_model.bin`` that ``orbax_to_pth.py`` writes beside it (with
+  it, the directory loads), a checkpoint with a missing key, ``--scorer clip`` without ``--clip_path``, and a root
   with neither a matching pack nor JPEGs and PIL (named, with the
   ``prepare_data`` command).
 - ``--scorer clip`` runs in a subprocess with jax and the JAX package
@@ -279,11 +280,17 @@ def test_clip_scorer_matches_jax(scorers):
 
 
 def test_checkpoint_refusals(clip_dir, tmp_path):
+    # A JAX export (clip_params/: jax_params/ and no .bin) is refused,
+    # naming the command that exports it; with that export's .bin beside
+    # jax_params/ the directory loads.
     orbax = tmp_path / "exported"
     shutil.copytree(clip_dir, orbax)
+    os.remove(orbax / "pytorch_model.bin")
     (orbax / "jax_params").mkdir()
-    with pytest.raises(NotImplementedError, match="orbax jax_params"):
+    with pytest.raises(NotImplementedError, match="--clip_path an orbax snapshot directory.*orbax_to_pth.py"):
         port_clip.ClipScorer(str(orbax), device="cpu")
+    shutil.copy(os.path.join(clip_dir, "pytorch_model.bin"), orbax / "pytorch_model.bin")
+    assert port_clip.ClipScorer(str(orbax), device="cpu").logit_scale > 0
     broken = tmp_path / "broken"
     shutil.copytree(clip_dir, broken)
     sd = torch.load(broken / "pytorch_model.bin", weights_only=True)

@@ -2,7 +2,8 @@
 
 - No module of ``rgqa_tpu_torch`` and not ``chip_smoke.py`` imports the
   JAX package, the JAX experiments (``experiments/``), jax, jaxlib, flax,
-  orbax or nltk (an AST scan; the blocked-import subprocesses of
+  orbax, nltk or the offline export ``orbax_to_pth.py``, which reads orbax
+  (an AST scan; the blocked-import subprocesses of
   ``tests/test_torch_slice.py`` and of this file import every module of
   the port and run the LXMERT and ViLT train and evaluate CLIs, the
   UNITER evaluate CLI, ``--scorer frcnn``, a ``--mixup_mode mixup_v1``
@@ -18,8 +19,10 @@
   card the runner, ``build_model`` (LXMERT, UNITER and ViLT), the
   train, evaluate and serve CLIs, and since slice 21 the pretraining,
   VQA and NLVR2 runners and the pretraining and VQA CLIs, and the
-  data-parallel check ``tools/ddp_check.py``, raise when not given the
-  CPU (prepare-data runs no device code).
+  data-parallel check ``tools/ddp_check.py``, and since slice 24 the
+  dry-run entry (``entry.py``: ``entry``, ``dryrun_multichip``,
+  ``dryrun_multichip_fullshape``), raise when not given the CPU
+  (prepare-data runs no device code).
 - The port's copies of framework-free JAX-package modules are held to
   their originals on the same inputs: the config parser (equal
   ``dataclasses.asdict``), the metrics (equal dicts, byte-equal dumps),
@@ -63,7 +66,7 @@ from rgqa_tpu_torch.data.synthetic import make_synthetic_gqa
 from test_torch_threads import one_torch_thread  # noqa: F401  (one intra-op thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"rgqa_tpu", "experiments", "jax", "jaxlib", "flax", "orbax", "nltk"}
+FORBIDDEN = {"rgqa_tpu", "experiments", "jax", "jaxlib", "flax", "orbax", "nltk", "orbax_to_pth"}
 EXPERIMENTS = ("xfuse_exp", "headfold_exp", "epilogue_exp")
 
 
@@ -305,6 +308,7 @@ def no_card():
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
+    from rgqa_tpu_torch import entry
     from rgqa_tpu_torch.cli import distill, evaluate, pretrain, serve, train, vqa
     from rgqa_tpu_torch.models.zoo import build_model, default_config
     from rgqa_tpu_torch.nlvr2_task import Nlvr2Runner
@@ -342,6 +346,10 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(no_card, tmp_path):
         lambda: vqa.main(["--synthetic", "--data_root", str(tmp_path / "gqa"),
                           "--output", str(tmp_path / "v")]),
         lambda: ddp_check.main(["--root", str(tmp_path / "gqa"), "--out", str(tmp_path / "dp")]),
+        lambda: entry.entry(),
+        lambda: entry.entry(entry.tiny_config()),
+        lambda: entry.dryrun_multichip(2),
+        lambda: entry.dryrun_multichip_fullshape(2),
     ):
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             make()
