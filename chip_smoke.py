@@ -455,6 +455,17 @@ nonzero:
    sum over their shapes and variants at batch 384), the nvidia-smi
    line, and last ``{"ok": true, "device": {...}}``.
 
+The order: phases 1-3, 51 and 13 (without its entry points) run first,
+alone on the card, since their times go into the kernels' line.  Then
+three lanes run side by side, each phase of a lane after the one before
+it: lane a in this process (4-12, 28-34, 52-53), lanes b (14-27, 35-36)
+and c (13's entry points, 37-50) each in a child process of its own
+(``chip_smoke.py --lane b|c``, in a session of its own, ended with what
+it started when the run ends), whose output is printed as it ends.  Each
+process keeps its own launch counts, so that a phase's reading sees only
+its own launches.  Each phase's time line gives the most card memory its
+process reserved.
+
 Needs the repository beside it; it imports nothing of JAX.  It must end
 within 1200 s on one H100, the kernels' build included.
 """
@@ -468,6 +479,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -695,6 +707,7 @@ def phase_build():
                 log("build", "  " + line.strip())
     _wgmma_report(results["headfold"])
     _long_wgmma_report(results["fused_attention_long"])
+    _long_bwd_report(results["fused_attention_long_bwd"])
     _epilogue_report(results["epilogue"])
     _short_body_report(results)
 
@@ -702,6 +715,8 @@ def phase_build():
 WGMMA_KERNEL = re.compile(r"headfold_wgmmaILi(\d+)E")  # headfold_wgmma<kNP>, kNP keys in the window
 # <kWG, kDrop>: kWG warpgroups a block; kDrop 1 is 4L, #2 with the dropout.
 LONG_WGMMA_KERNEL = re.compile(r"fused_attention_long_wgmmaILi(\d+)ELb([01])E")
+# <kDrop, kExact>: kDrop 1 is 5L; kExact 1 the route with D's sweep and dbias.
+LONG_BWD_KERNEL = re.compile(r"long_bwd_(dq|dkv)_bf16ILb([01])ELb([01])E")
 EPI_KERNEL = re.compile(r"epilogue_bf16ILi(\d+)E")  # epilogue_bf16<kNP>, kNP keys in a window
 # The short bf16 bodies of #1 / #4 and #3 / #5: <kDrop, kNT>, kNT = SKP / 8.
 SHORT_BODY = re.compile(r"(fused_attention_(?:fwd|bwd)_short_bf16)ILb([01])ELi(\d+)E")
@@ -828,32 +843,58 @@ def _short_f32_smem(sq: int, skv: int, d: int, backward: bool) -> int:
     return 4 * (sq * max(ld, ldp) + 2 * skv * ld + small)
 
 
-def _long_ring_smem(wg: int, drop: bool = False) -> int:
-    """Dynamic shared memory of #2's bf16 body with ``wg`` warpgroups a
-    block, as ``ring_smem_bytes`` in ``csrc/fused_attention_long.cu``
-    lays it out: ``wg`` Q tiles and 3 ring stages each of K and V (64 x
-    64 bf16 a tile), 3 stages of 64 f32 bias, with the dropout (4L) 3
-    stages of the keep words (64 ``wg`` rows x 4 u32), and one 1024-byte
-    swizzle period for the alignment."""
+def _long_ring_smem(wg: int) -> int:
+    """Dynamic shared memory of #2's and 4L's bf16 body with ``wg``
+    warpgroups a block, as ``ring_smem_bytes`` in
+    ``csrc/fused_attention_long.cu`` lays it out: ``wg`` Q tiles and 3
+    ring stages each of K and V (64 x 64 bf16 a tile), 3 stages of 64 f32
+    bias, and one 1024-byte swizzle period for the alignment (4L draws its
+    keep words in registers)."""
     tile, stages = 64 * 64 * 2, 3
-    return tile * (wg + 2 * stages) + 4 * 64 * stages + drop * 4 * 64 * wg * 4 * stages + 1024
+    return tile * (wg + 2 * stages) + 4 * 64 * stages + 1024
+
+
+def _long_bwd_smem(pass_: str) -> int:
+    """Dynamic shared memory of a bf16 pass of #3L / 5L, as
+    ``dq_smem_bytes`` / ``dkv_smem_bytes`` in
+    ``csrc/fused_attention_long_bwd.cu`` lay it out: two 64 x 64 bf16
+    tiles (Q and g, or K and V) and 3 ring stages of two more (K and V, or
+    Q and g), per stage 64 f32 of bias (dQ) or of statistics (m, log(sum))
+    and D (dK/dV), and one 1024-byte swizzle period."""
+    tile, stages = 64 * 64 * 2, 3
+    return tile * (2 + 2 * stages) + stages * 4 * 64 * (1 if pass_ == "dq" else 3) + 1024
+
+
+def _blocks_per_sm(res, symbol: str, n: int) -> list:
+    """A built library's occupancy entry point ``symbol``: blocks an SM of
+    its ``n`` bf16 instances (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at their shared memory); raises on a CUDA error."""
+    import ctypes
+
+    out = (ctypes.c_int * n)()
+    err = getattr(ctypes.CDLL(str(res.path)), symbol)(out)
+    if err:
+        raise AssertionError(f"{symbol} failed with CUDA error {err}")
+    return list(out)
 
 
 def _long_wgmma_report(res) -> None:
     """#2's and 4L's bf16 body (``fused_attention_long_wgmma<kWG, kDrop>``,
     one instance per warpgroups a block and dropout): registers, spills
     and static shared memory from the build log, the dynamic shared memory
-    of its layout, and HGMMA in its SASS; an instance without HGMMA fails
-    the phase."""
+    of its layout and blocks an SM, and HGMMA in its SASS; an instance
+    without HGMMA fails the phase."""
     res_by_wg = {(int(m.group(1)), m.group(2) == "1"): r for fn, r in _ptxas_resources(res.log).items()
                  if (m := LONG_WGMMA_KERNEL.search(fn))}
     sass = _sass_hgmma(res.path)
     hgmma = None if sass is None else {(int(m.group(1)), m.group(2) == "1"): c for fn, c in sass.items()
                                        if (m := LONG_WGMMA_KERNEL.search(fn))}
+    blocks = dict(zip(((1, False), (1, True), (2, False), (2, True)),
+                      _blocks_per_sm(res, "rgqa_fused_attention_long_occupancy", 4)))
     parts = []
     for wg in sorted(set(res_by_wg) | set(hgmma or {})):
         part = (f"{wg[0]} warpgroups{', dropout (4L)' if wg[1] else ''}: "
-                f"{_long_ring_smem(*wg)} B dynamic smem")
+                f"{_long_ring_smem(wg[0])} B dynamic smem, {blocks[wg]} blocks an SM")
         if wg in res_by_wg:
             r = res_by_wg[wg]
             part += (f", {r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "
@@ -866,6 +907,38 @@ def _long_wgmma_report(res) -> None:
         + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
     if hgmma is not None and (not hgmma or not all(hgmma.values())):
         raise AssertionError(f"#2's bf16 body has no HGMMA in some instance: {hgmma}")
+
+
+def _long_bwd_report(res) -> None:
+    """#3L's and 5L's bf16 passes (``long_bwd_{dq,dkv}_bf16<kDrop, kExact>``,
+    kExact the route with D's sweep and dbias): registers, spills and
+    static shared memory from the build log, their dynamic shared memory
+    and blocks an SM, and HGMMA in their SASS; an instance without HGMMA
+    fails the phase."""
+    def key(m):
+        return m.group(1), m.group(2) == "1", m.group(3) == "1"
+
+    res_by = {key(m): r for fn, r in _ptxas_resources(res.log).items() if (m := LONG_BWD_KERNEL.search(fn))}
+    sass = _sass_hgmma(res.path)
+    hgmma = None if sass is None else {key(m): c for fn, c in sass.items() if (m := LONG_BWD_KERNEL.search(fn))}
+    order = [(p, drop, exact) for p in ("dq", "dkv") for drop in (False, True) for exact in (False, True)]
+    blocks = dict(zip(order, _blocks_per_sm(res, "rgqa_fused_attention_long_bwd_occupancy", 8)))
+    parts = []
+    for k in sorted(set(res_by) | set(hgmma or {})):
+        part = (f"{k[0]} pass{' 5L' if k[1] else ' #3L'}, {'dbias' if k[2] else 'no dbias'}: "
+                f"{_long_bwd_smem(k[0])} B dynamic smem, {blocks[k]} blocks an SM")
+        if k in res_by:
+            r = res_by[k]
+            part += (f", {r['registers']} registers, spill {r['spill_stores']}/{r['spill_loads']} B "
+                     f"stores/loads, {r['smem']} B static smem")
+        if hgmma is not None:
+            part += f", {hgmma.get(k, 0)} HGMMA in SASS"
+        parts.append(part)
+    log("build", "#3L / 5L bf16 passes (long_bwd_{dq,dkv}_bf16<kDrop, kExact>, wgmma): " + "; ".join(parts)
+        + ("" if res.log else "; reused build, no ptxas log to read")
+        + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
+    if hgmma is not None and (len(hgmma) != 8 or not all(hgmma.values())):
+        raise AssertionError(f"#3L / 5L's bf16 passes lack HGMMA in some instance: {hgmma}")
 
 
 def _epilogue_report(res) -> None:
@@ -1275,10 +1348,11 @@ def _pad_patch_bias(b, skv, gen):
 
 def _long_kernel(att, gen, errs, times):
     """#2 and #3L against their plain versions at ViLT's shapes, either side
-    of 256 keys and beyond (277 and 597 tokens); #2 with its row
-    statistics gives the same output bits, and in f32 their log-sum-exp is
-    the plain scores'; #3L's two runs bit for bit; times at LONG_TIMED
-    (#3L in bf16)."""
+    of 256 keys and beyond (277 and 597 tokens), #3L on both routes (with
+    dbias, and without: D from #2's output); #2 with its row statistics
+    gives the same output bits, and in f32 their log-sum-exp is the plain
+    scores'; #3L's two runs bit for bit; times at LONG_TIMED (#3L in bf16,
+    without dbias, as ViLT's training step runs it)."""
     import torch
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1296,6 +1370,9 @@ def _long_kernel(att, gen, errs, times):
                         lambda: att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, lse),
                         lambda: att.attention_bwd_ref(q, k, v, bias, g, HEADS)),
                 }
+                # The route every model path runs: D from the output, no dbias.
+                no_dbias = lambda: att.fused_attention_long_bwd_cuda(  # noqa: E731
+                    q, k, v, bias, g, HEADS, lse, dbias=False, out=out)
                 msgs = []
                 for name, (kernel, plain) in calls.items():
                     got, want = kernel(), plain()
@@ -1305,8 +1382,13 @@ def _long_kernel(att, gen, errs, times):
                         raise AssertionError(f"#2 with row statistics differs at {dname} B={b} {sq}x{skv}")
                 if not all(torch.equal(a, c) for a, c in zip(got, calls["fused_attention_long_bwd"][0]())):
                     raise AssertionError(f"two runs of #3L differ at {dname} B={b} {sq}x{skv}")
+                got = no_dbias()
+                if got[3] is not None or not all(torch.equal(a, c) for a, c in zip(got[:3], no_dbias()[:3])):
+                    raise AssertionError(f"#3L without dbias returned dbias or differs twice at {dname} B={b} "
+                                         f"{sq}x{skv}")
+                msgs.append("without dbias " + _compare("fused_attention_long_bwd", dtype, got[:3], want[:3], errs))
                 msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + "; ".join(msgs)
-                       + "; #2 with statistics: equal bits; #3L twice: equal bits")
+                       + "; #2 with statistics: equal bits; #3L twice (both routes): equal bits")
                 if dtype == torch.float32:
                     msg += "; " + _lse_check(q, k, bias, lse)
                 if b > 7 and (sq, skv) in LONG_TIMED:
@@ -1317,8 +1399,9 @@ def _long_kernel(att, gen, errs, times):
                         library["fused_attention_long_bwd"] = (
                             cuda_ms(lib["fwd_bwd"]) - library["fused_attention_long"])
                         timed.append("fused_attention_long_bwd")
-                    for name in timed:
-                        plain_ms, kernel_ms = in_turns(calls[name][1], calls[name][0])
+                    for name in timed:  # #3L on the model's route
+                        kernel = no_dbias if name == "fused_attention_long_bwd" else calls[name][0]
+                        plain_ms, kernel_ms = in_turns(calls[name][1], kernel)
                         bound, _ = _bound_ms(name, b, sq, skv, q.element_size())
                         times[(name, dname, sq, skv)] = (kernel_ms, plain_ms, library[name], bound)
                     msg += "; us kernel/plain/library/bound: " + ", ".join(
@@ -2040,7 +2123,8 @@ def _held_shapes(att, gen, errs):
 
 
 def phase_experiments(errs, times):
-    """Phase 13; returns the entry points' launch counts."""
+    """Phase 13 in this process, before the lanes (its entry points:
+    :func:`_run_experiments`, in lane c)."""
     import torch
     from rgqa_tpu_torch.ops import attention as att
 
@@ -2089,9 +2173,7 @@ def phase_experiments(errs, times):
                 f"{k} {v * 1e3:.1f}" for k, v in row.items() if k != "bound_by") + f" (bound by {by})")
         torch.cuda.empty_cache()
 
-    launches = _run_experiments()
     _held_shapes(att, gen, errs)
-    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5284,10 +5366,10 @@ UNITER_LONG = (UNITER_LONG_TEXT + 36,) * 2
 # 4L / 5L against the plain pair: UNITER's 76 tokens at a training step's
 # 32 and 64 rows, ViLT-B/32's streams and ragged query / key tiles, a
 # 512 px image's 277 tokens and 16 px patches' 597.  (shape, batch).
-DROP_LONG_CASES = ((UNITER_LONG, 32), (UNITER_LONG, 64), ((165, 165), 256), ((185, 185), 256),
-                   ((65, 185), 256), ((185, 65), 256), ((277, 277), 256), ((597, 597), 64))
+DROP_LONG_CASES = ((UNITER_LONG, 32), (UNITER_LONG, 64), (UNITER_LONG, 256), ((165, 165), 256),
+                   ((185, 185), 256), ((65, 185), 256), ((185, 65), 256), ((277, 277), 256), ((597, 597), 64))
 DROP_LONG_MAIN = (UNITER_LONG, 32)  # the JSON line's shape: the UNITER-76 step's calls
-DROP_LONG_ITERS = 20  # CUDA-event iterations a timing (4 timings a kernel, in turns)
+DROP_LONG_ITERS = 20  # calls a device-time profile
 
 
 def _drop_long_readout(att, gen, s: int, dtype) -> str:
@@ -5324,13 +5406,29 @@ def _drop_long_readout(att, gen, s: int, dtype) -> str:
 def phase_long_dropout_kernels():
     """Phase 51: 4L / 5L against the plain pair (``attention_dropout_ref`` /
     ``_bwd_ref``) at DROP_LONG_CASES, f32 and bf16, rate 0.1, padded-text
-    masks with one fully masked row; rate 0 equal to #2 / #3L bit for bit
-    (out, row statistics and gradients); ``<g, out> == <dv, v>`` in f32;
-    two runs at 165 tokens equal bit for bit; the mask read out in both
-    bodies of each dtype; per-call times of 4L, 5L, the plain pair and
-    SDPA with ``dropout_p`` in bf16.  Returns (errs, times) as phase 3."""
+    masks with one fully masked row; 5L and #3L on both routes, the exact
+    one (D by a sweep, dbias) and the one every model path runs
+    (``dbias=False``: D from the forward's output, no dbias), dq / dk / dv
+    against the plain pair's; rate 0 equal to #2 / #3L bit for bit on
+    both routes (out, row statistics and gradients); ``<g, out> == <dv,
+    v>`` in f32; two runs at 165 tokens equal bit for bit; the mask read
+    out in both bodies of each dtype; per-call device times of 4L, 5L on
+    both routes, #3L on the model's and SDPA with ``dropout_p``, the plain
+    versions' by CUDA events, in bf16.  Returns (errs, times) as phase 3,
+    the times keyed by label ("4L", "5L" the model's route, "5L dbias",
+    "#3L")."""
     import torch
     from rgqa_tpu_torch.ops import attention as att
+    from rgqa_tpu_torch.tools.time_attention import device_us
+
+    def dev_ms(fn):
+        """Device time per call; CUDA events where the profiler lost events
+        three times (logged)."""
+        us = device_us(fn, DROP_LONG_ITERS, match=None)
+        if us is None:
+            log("long-dropout", "the profiler lost device events three times: CUDA events instead")
+            return cuda_ms(fn, iters=DROP_LONG_ITERS)
+        return us * 1e-3
 
     gen = torch.Generator(device="cuda").manual_seed(2424)
     errs, times = {}, {}
@@ -5342,43 +5440,59 @@ def phase_long_dropout_kernels():
                     else _pad_patch_bias(b, skv, gen))
             seed = int(torch.randint(0, 2**62, (), generator=gen, device="cuda"))
             out, lse = att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, RATE, seed, lse=True)
-            calls = {
-                "fused_attention_dropout_long": (
-                    lambda: att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, RATE, seed),
-                    lambda: att.attention_dropout_ref(q, k, v, bias, HEADS, RATE, seed)),
-                "fused_attention_dropout_long_bwd": (
-                    lambda: att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, RATE, seed, lse),
-                    lambda: att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS, RATE, seed)),
-            }
+            out2, lse2 = att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)
+            plain_bwd = functools.lru_cache(None)(lambda: att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS,
+                                                                                        RATE, seed))
+            plain3 = functools.lru_cache(None)(lambda: att.attention_bwd_ref(q, k, v, bias, g, HEADS))
+            # (label, kernel name, kernel, plain): the model's routes first.
+            calls = (
+                ("4L", "fused_attention_dropout_long",
+                 lambda: att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, RATE, seed),
+                 lambda: att.attention_dropout_ref(q, k, v, bias, HEADS, RATE, seed)),
+                ("5L", "fused_attention_dropout_long_bwd",
+                 lambda: att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, RATE, seed, lse,
+                                                                   dbias=False, out=out), plain_bwd),
+                ("5L dbias", "fused_attention_dropout_long_bwd",
+                 lambda: att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, RATE, seed, lse),
+                 plain_bwd),
+                ("#3L", "fused_attention_long_bwd",
+                 lambda: att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, lse2, dbias=False, out=out2),
+                 plain3),
+            )
             msgs = []
-            for name, (kernel, plain) in calls.items():
+            for label, name, kernel, plain in calls:
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
-                msgs.append(_compare(name, dtype, got, want, errs))
-                del want
-            if not torch.equal(calls["fused_attention_dropout_long"][0](), out):
+                if isinstance(got, tuple) and label != "5L dbias":
+                    if got[3] is not None:
+                        raise AssertionError(f"{label} without dbias returned a bias gradient")
+                    got, want = got[:3], want[:3]
+                msgs.append(label + " " + _compare(name, dtype, got, want, errs).split(" ", 1)[1])
+                del got
+            if not torch.equal(calls[0][2](), out):
                 raise AssertionError(f"4L with row statistics differs at {dname} B={b} {sq}x{skv}")
-            # Rate 0 is #2 / #3L, bit for bit.
+            # Rate 0 is #2 / #3L, bit for bit, on both routes.
             out0, lse0 = att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, 0.0, seed, lse=True)
-            ref0, ref_lse = att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)
-            bwd0 = att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, 0.0, seed, lse0)
-            ref_bwd = att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, ref_lse)
-            if not (torch.equal(out0, ref0) and torch.equal(lse0, ref_lse)
-                    and all(torch.equal(x, y) for x, y in zip(bwd0, ref_bwd))):
+            pairs = [(att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, 0.0, seed, lse0, **kw),
+                      att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, lse2, **kw3))
+                     for kw, kw3 in (({}, {}), ({"dbias": False, "out": out0}, {"dbias": False, "out": out2}))]
+            if not (torch.equal(out0, out2) and torch.equal(lse0, lse2)
+                    and all((x is None and y is None) or torch.equal(x, y)
+                            for got, ref in pairs for x, y in zip(got, ref))):
                 raise AssertionError(f"rate 0 of 4L/5L differs from #2/#3L at {dname} B={b} {sq}x{skv}")
-            del out0, lse0, ref0, ref_lse, bwd0, ref_bwd
+            del out0, lse0, pairs
             msg = (f"{dname} B={b} {sq}x{skv}: max|kernel-plain| " + "; ".join(msgs)
-                   + "; 4L with statistics: equal bits; rate 0 == #2/#3L bit for bit")
+                   + "; 4L with statistics: equal bits; rate 0 == #2/#3L bit for bit on both routes")
             if (sq, skv) == (165, 165):
-                for name, (kernel, _) in calls.items():
+                for label, _, kernel, _ in calls:
                     first, again = kernel(), kernel()
                     if isinstance(first, torch.Tensor):
                         first, again = (first,), (again,)
-                    if not all(torch.equal(x, y) for x, y in zip(first, again)):
-                        raise AssertionError(f"{name} reruns differ at {dname} B={b} {sq}x{skv}")
-                msg += "; 4L/5L reruns bit-identical"
+                    if not all((x is None and y is None) or torch.equal(x, y) for x, y in zip(first, again)):
+                        raise AssertionError(f"{label} reruns differ at {dname} B={b} {sq}x{skv}")
+                msg += "; 4L/5L/#3L reruns bit-identical"
             if dtype == torch.float32:
-                dv = calls["fused_attention_dropout_long_bwd"][0]()[2]
+                dv = calls[2][2]()[2]
                 lhs = (out.double() * g.double()).sum().item()
                 rhs = (dv.double() * v.double()).sum().item()
                 if not abs(lhs - rhs) <= 2e-3 * abs(lhs):
@@ -5387,20 +5501,23 @@ def phase_long_dropout_kernels():
                 del dv
             else:
                 lib = _sdpa_calls(q, k, v, g, bias)
-                drop_ms = cuda_ms(lib["drop"], iters=DROP_LONG_ITERS)
-                library = {"fused_attention_dropout_long": drop_ms,
-                           "fused_attention_dropout_long_bwd":
-                               cuda_ms(lib["drop_fwd_bwd"], iters=DROP_LONG_ITERS) - drop_ms}
-                for name, (kernel, plain) in calls.items():
-                    plain_ms, kernel_ms = in_turns(plain, kernel, iters=DROP_LONG_ITERS)
+                drop_ms = dev_ms(lib["drop"])
+                library = {"4L": drop_ms, "5L": dev_ms(lib["drop_fwd_bwd"]) - drop_ms}
+                library["5L dbias"] = library["#3L"] = library["5L"]
+                # The plain versions by CUDA events: hundreds of launches a
+                # call, which the profiler's buffers drop.
+                plain_ms = {"4L": cuda_ms(calls[0][3], iters=DROP_LONG_ITERS),
+                            "5L": cuda_ms(plain_bwd.__wrapped__, iters=DROP_LONG_ITERS)}
+                plain_ms["5L dbias"] = plain_ms["5L"]
+                plain_ms["#3L"] = cuda_ms(plain3.__wrapped__, iters=DROP_LONG_ITERS)
+                for label, name, kernel, _ in calls:
                     bound, by = _bound_ms(name, b, sq, skv, q.element_size())
-                    times[(name, dname, sq, skv, b)] = (kernel_ms, plain_ms, library[name], bound, by)
-                msg += "; us kernel/plain/SDPA(dropout_p)/bound: " + ", ".join(
-                    f"{n.replace('fused_attention_dropout_long', '4L').replace('4L_bwd', '5L')} "
-                    + "/".join(f"{x * 1e3:.1f}" for x in times[(n, dname, sq, skv, b)][:4])
-                    for n in calls)
+                    times[(label, dname, sq, skv, b)] = (dev_ms(kernel), plain_ms[label], library[label], bound, by)
+                msg += "; us kernel (device)/plain (events)/SDPA(dropout_p) (device)/bound: " + ", ".join(
+                    f"{label} " + "/".join(f"{x * 1e3:.1f}" for x in times[(label, dname, sq, skv, b)][:4])
+                    for label, *_ in calls)
             log("long-dropout", msg)
-            del q, k, v, g, bias, out, lse, calls, got
+            del q, k, v, g, bias, out, lse, out2, lse2, calls, plain_bwd, plain3
             torch.cuda.empty_cache()
         # Each body's mask: the f32 whole-row body (76) and key-tiled one
         # (277); the bf16 wgmma body at both.
@@ -5584,10 +5701,18 @@ def phase_slice24() -> dict:
 
 
 def timed(name: str, fn, *args):
-    """``fn(*args)``, its run time logged under ``name``."""
+    """``fn(*args)``, its run time logged under ``name`` with the most card
+    memory this process reserved since the last such line; the cache is
+    then emptied, so that the lanes beside share the card."""
     t0 = time.perf_counter()
     out = fn(*args)
-    log("time", f"{name}: {time.perf_counter() - t0:.1f} s")
+    seconds, peak = time.perf_counter() - t0, ""
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        peak = f" (at most {torch.cuda.max_memory_reserved() / 2**30:.1f} GiB reserved)"
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.empty_cache()
+    log("time", f"{name}: {seconds:.1f} s{peak}")
     return out
 
 
@@ -5597,49 +5722,152 @@ def phase_prepare_serve():
         phase_serve(tmp, *phase_prepare(tmp))
 
 
+# ---------------------------------------------------------------------------
+# The lanes: after the timed phases, three runs of phases side by side,
+# lane a in this process, b and c each in a child process.
+# ---------------------------------------------------------------------------
+
+LANE_SECONDS = 900  # the most a child lane may take once started
+
+
+def lane_b() -> dict:
+    timed("14 scorers", phase_scorers)
+    timed("15 scorer CLI", phase_scorer_cli)
+    timed("16-17 prepare and serve", phase_prepare_serve)
+    timed("18-22 UNITER", phase_uniter)
+    timed("23-27 BUTD and caps", phase_butd_caps)
+    timed("35-36 new strategies", phase_new_strategies)
+    return {}
+
+
+def lane_c() -> dict:
+    launches = timed("13 the experiment entry points", _run_experiments)
+    timed("37-41 weight model, distill, verifier, compute_param", phase_slice19)
+    timed("42-45 pretraining, VQA and NLVR2", phase_slice21)
+    timed("46-49 data parallel", phase_slice22)
+    timed("50 recipes", phase_recipes)
+    return {"experiments": launches}
+
+
+LANES = {"b": lane_b, "c": lane_c}
+
+
+def _lane_child(name: str, result: str) -> None:
+    """Child mode (``chip_smoke.py --lane NAME RESULT``): lane ``name``'s
+    phases under phase 1's settings, their results written to ``RESULT``
+    as JSON.  Should this script's main process end first (killed), the
+    lane ends itself and what it started."""
+    import threading
+
+    import torch
+
+    parent = os.getppid()
+
+    def orphaned():
+        while os.getppid() == parent:
+            time.sleep(1)
+        os.killpg(0, signal.SIGKILL)
+
+    threading.Thread(target=orphaned, daemon=True).start()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out = LANES[name]()
+    log("time", f"lane {name}: {time.perf_counter() - t0:.1f} s")
+    with open(result, "w") as f:
+        json.dump(out, f)
+
+
+class Lane:
+    """A child lane: ``chip_smoke.py --lane NAME`` in a session of its own
+    (so that :meth:`stop` ends the processes it starts too), its output to
+    a file that :meth:`join` prints."""
+
+    def __init__(self, name: str, tmp: str):
+        self.name = name
+        self.result = os.path.join(tmp, f"lane_{name}.json")
+        self.out = open(os.path.join(tmp, f"lane_{name}.log"), "w+")
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lane", name, self.result],
+                                     stdout=self.out, stderr=subprocess.STDOUT, text=True, start_new_session=True,
+                                     env=dict(os.environ, PYTHONUNBUFFERED="1"))  # its lines in order
+
+    def join(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=LANE_SECONDS)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.out.seek(0)
+        text = self.out.read()
+        print(f"[lane] lane {self.name}'s output, printed as it ends:", flush=True)
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        if rc != 0:
+            raise AssertionError(f"lane {self.name} " + ("ran past its time limit" if rc is None else
+                                                         f"exited {rc}") + f":\n{text[-3000:]}")
+        with open(self.result) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        """End the lane's process and whatever it started."""
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+        self.out.close()
+
+
 def main() -> None:
     t0 = time.perf_counter()
     if sys.argv[1:2] == ["--train-cli-rank"]:  # a child of phase 46, under torchrun
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         _train_cli_rank(sys.argv[2:])
         return
+    if sys.argv[1:2] == ["--lane"]:  # lane b or c, a child of this script
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        _lane_child(*sys.argv[2:4])
+        return
     kind, smi = phase_device()
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))  # so that the lanes are stopped
+    # The timed phases first, alone on the card: their times go into the
+    # kernels' line.
     timed("2 build", phase_build)
     errs, times = timed("3 kernels", phase_kernels)
-    timed("4 model", phase_model)
-    eval_launches = timed("5 evaluate", phase_main_path)
-    timed("6 vilt model", phase_vilt_model)
-    vilt_launches = timed("7 vilt evaluate", phase_main_path, "vilt", ("--backbone", "vilt"),
-                          "fused_attention_long", 12)
-    steps = timed("8 train steps", phase_train_steps)
+    drop_errs, drop_times = timed("51 long-stream dropout kernels", phase_long_dropout_kernels)
+    errs.update(drop_errs)
+    exp_times = {}
+    timed("13 experiments", phase_experiments, errs, exp_times)
     keep = tempfile.mkdtemp(prefix="rgqa_smoke_keep_")  # the train CLI's root and BEST.pth
+    lanes_dir = tempfile.mkdtemp(prefix="rgqa_smoke_lanes_")
+    lanes = []
     try:
+        lanes = [Lane(name, lanes_dir) for name in LANES]
+        log("lane", f"lanes {', '.join(LANES)} started beside lane a (this process)")
+        t1 = time.perf_counter()
+        timed("4 model", phase_model)
+        eval_launches = timed("5 evaluate", phase_main_path)
+        timed("6 vilt model", phase_vilt_model)
+        vilt_launches = timed("7 vilt evaluate", phase_main_path, "vilt", ("--backbone", "vilt"),
+                              "fused_attention_long", 12)
+        steps = timed("8 train steps", phase_train_steps)
         train_launches = timed("9 train", phase_train_path, keep)
         timed("10 vilt train steps", phase_train_steps, "vilt")
         vilt_train_launches = timed("11 vilt train", phase_vilt_train_path)
         timed("12 vilt long", phase_vilt_long)
-        exp_times = {}
-        exp_launches = timed("13 experiments", phase_experiments, errs, exp_times)
-        timed("14 scorers", phase_scorers)
-        timed("15 scorer CLI", phase_scorer_cli)
-        timed("16-17 prepare and serve", phase_prepare_serve)
-        timed("18-22 UNITER", phase_uniter)
-        timed("23-27 BUTD and caps", phase_butd_caps)
         timed("28-31 CLIP and match", phase_clip_match, keep)
         timed("32-34 strategies and frcnn", phase_strategies, keep)
-        timed("35-36 new strategies", phase_new_strategies)
-        timed("37-41 weight model, distill, verifier, compute_param", phase_slice19)
-        timed("42-45 pretraining, VQA and NLVR2", phase_slice21)
-        timed("46-49 data parallel", phase_slice22)
-        timed("50 recipes", phase_recipes)
-        drop_errs, drop_times = timed("51 long-stream dropout kernels", phase_long_dropout_kernels)
-        errs.update(drop_errs)
         uniter_long_launches = phase_slice24()
+        log("time", f"lane a: {time.perf_counter() - t1:.1f} s")
+        results = {lane.name: lane.join() for lane in lanes}
     finally:
+        for lane in lanes:
+            lane.stop()
         shutil.rmtree(keep, ignore_errors=True)
+        shutil.rmtree(lanes_dir, ignore_errors=True)
+    exp_launches = results["c"]["experiments"]
     log("time", f"all phases: {time.perf_counter() - t0:.1f} s")
 
     launches = {
@@ -5668,8 +5896,10 @@ def main() -> None:
             })
             continue
         if name in ("fused_attention_dropout_long", "fused_attention_dropout_long_bwd"):
-            # One bf16 call at the UNITER-76 step's shape, batch 32 (CUDA events).
-            kernel_ms, plain_ms, library_ms, bound, by = drop_times[(name, "bfloat16", *DROP_LONG_MAIN[0],
+            # One bf16 call at the UNITER-76 step's shape, batch 32, on the
+            # step's route (device time: at this batch events time the host).
+            label = "4L" if name == "fused_attention_dropout_long" else "5L"
+            kernel_ms, plain_ms, library_ms, bound, by = drop_times[(label, "bfloat16", *DROP_LONG_MAIN[0],
                                                                      DROP_LONG_MAIN[1])]
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,

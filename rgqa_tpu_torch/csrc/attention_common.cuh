@@ -3,10 +3,11 @@
 // (backward), fused_attention_dropout.cu (forward and backward with
 // dropout on the attention probabilities), and the long-stream forward
 // and backward (fused_attention_long.cu, fused_attention_long_bwd.cu),
-// which take the loaders, the mma.sync fragment helpers and the dbias
-// head sum from here, and the experiments' kernels (xfuse.cu runs the
-// forward bodies below on two problems or with a structural mask;
-// headfold.cu and epilogue.cu build on the helpers).
+// which take the cp.async helpers, the keep words and the dbias head sum
+// from here (their wgmma tiles from swizzled_tile.cuh), and the
+// experiments' kernels (xfuse.cu runs the forward bodies below on two
+// problems or with a structural mask; headfold.cu and epilogue.cu build
+// on the helpers).
 //
 // Every short kernel keeps a (batch row, head)'s whole problem in shared
 // memory (LXMERT's sequences are 20 and 36 tokens, heads 64 wide): the
@@ -60,7 +61,8 @@ struct Args {
   const void* v;        // (B, Skv, H*D)
   const float* bias;    // (B, Skv) additive mask, contiguous f32
   const void* g;        // backward: dL/d(out), contiguous (B, Sq, H*D)
-  void* out;            // forward: contiguous (B, Sq, H*D)
+  void* out;            // forward: contiguous (B, Sq, H*D); long backward: the
+                        // forward's output when D is taken from it (null: by a sweep)
   void* dq;             // backward: contiguous, the input dtype
   void* dk;
   void* dv;
@@ -69,7 +71,8 @@ struct Args {
                         // the row's max and the log of its softmax sum, whose sum is
                         // the log-sum-exp of its scores; written when not null;
                         // long backward: read, P = exp((s - m) - log(sum))
-  float* dsum;          // long backward: (B, H, Sq) f32 D = rowsum(dP P) scratch
+  float* dsum;          // long backward: (B, H, Sq, 2) f32 scratch of each row's
+                        // D = rowsum(dP P) (= rowsum(g o out)) and -(m + log(sum)) log2e
   int sq, skv, heads, dim;
   long long q_bs, q_rs, k_bs, k_rs, v_bs, v_rs;
   float scale;          // 1 / sqrt(dim)
@@ -115,25 +118,34 @@ __device__ __forceinline__ bool dropout_keep(const Args& a, int b, int h, int i,
 }
 
 // The keep bits of keys 16 c .. 16 c + 15 of query row i (bit s for key
-// 16 c + s): one Philox4x32-10 call, bit for bit dropout_keep's.
+// 16 c + s): one Philox4x32-10 call, bit for bit dropout_keep's.  Each
+// word's four byte tests at once: __vcmpgeu4 sets byte s to 0xFF where it
+// is >= t; times 0x00204081, bit 8 s of the masked result lands on bit 21
+// + s, no two partial products on one bit (the four bits of the word).
 __device__ __forceinline__ uint32_t keep_bits16(const Args& a, int b, int h, int i, int c) {
   const uint4 w = philox4x32_10(
       make_uint4(static_cast<uint32_t>(c), static_cast<uint32_t>(i), static_cast<uint32_t>(h),
                  static_cast<uint32_t>(b)),
       static_cast<uint32_t>(a.seed), static_cast<uint32_t>(a.seed >> 32));
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
-  uint32_t bits = 0;
-#pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    const uint32_t byte = (words[s >> 2] >> (8 * (s & 3))) & 0xFFu;
-    bits |= static_cast<uint32_t>(byte >= static_cast<uint32_t>(a.threshold)) << s;
-  }
-  return bits;
+  const uint32_t t4 = static_cast<uint32_t>(a.threshold) * 0x01010101u;
+  const auto four = [t4](uint32_t x) {
+    return ((__vcmpgeu4(x, t4) & 0x01010101u) * 0x00204081u >> 21) & 0xFu;
+  };
+  return four(w.x) | four(w.y) << 4 | four(w.z) << 8 | four(w.w) << 12;
 }
 
 // Keep bit of key j in a row's keep_bits16 words (ngr words a row).
 __device__ __forceinline__ bool keep_bit(const uint32_t* km, int ngr, int i, int j) {
   return (km[i * ngr + (j >> 4)] >> (j & 15)) & 1u;
+}
+
+// The keep words of a warp's rows in the m16n8 C layout are drawn once a
+// quad (the long bf16 bodies): the four lanes of a quad hold the same two
+// rows, so lane j of the quad draws the words of 16-key group j of a
+// 64-key tile for both, and each lane takes group c's word from quad
+// lane c by a shuffle.
+__device__ __forceinline__ uint32_t quad_word(uint32_t mine, int c, int lane) {
+  return __shfl_sync(0xffffffffu, mine, (lane & ~3) | c);
 }
 
 // ---------------------------------------------------------------------------
@@ -296,28 +308,6 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
     for (int i = tid; i < rows_p * dp; i += nthreads) {
       const int r = i / dp, c = i % dp;
       dst[r * ld + c] = (r < rows && c < d) ? src[r * rs + c] : zero;
-    }
-  }
-}
-
-// Key rows k0 .. k0 + kKvTile - 1 of a (batch row, head)'s K and V into
-// ks and vs (bf16, row stride ld, zero past skv) and their bias into bs
-// (f32, -inf past skv), all by cp.async (a plain load of the bias would
-// stall the block for a memory latency): a stage of the long backward's
-// rings; the caller commits the group.
-__device__ __forceinline__ void load_kv_tile(const Args& a, int b, int h, int k0,
-                                             __nv_bfloat16* ks, __nv_bfloat16* vs, float* bs,
-                                             int ld, int dp, int tid) {
-  const int nk = min(a.skv - k0, kKvTile), d = a.dim;
-  load_tile(ks, ld, static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d,
-            a.k_rs, nk, kKvTile, d, dp, tid);
-  load_tile(vs, ld, static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
-            a.v_rs, nk, kKvTile, d, dp, tid);
-  for (int j = tid; j < kKvTile; j += kMmaThreads) {
-    if (j < nk) {
-      cp_async4(bs + j, a.bias + b * a.skv + k0 + j);
-    } else {
-      bs[j] = -CUDART_INF_F;
     }
   }
 }
@@ -1696,6 +1686,14 @@ int allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+// Blocks of `threads` threads and smem bytes of dynamic shared memory
+// that an SM holds of kernel, into *out; the cudaError_t of the calls.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem, int* out) {
+  if (const int err = allow_smem(kernel, smem)) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem));
 }
 
 // One block per (batch row, head, query tile), the tile fastest.

@@ -37,7 +37,9 @@
 // - K, V and the bias stream through a ring of kRingStages = 3 stages
 //   that every thread of the block fills by cp.async, straight from the
 //   strided q, k, v of the fused QKV product into the 128-byte swizzle
-//   that wgmma reads (no copies in device memory): the loads of tiles
+//   that wgmma reads (no copies in device memory; swizzled_tile.cuh: at
+//   D = 64 a thread's chunks of a tile are one column of the swizzle, a
+//   start and a stride, no index arithmetic a chunk): the loads of tiles
 //   kt + 1 and kt + 2 are in flight while tile kt is computed, one
 //   barrier per tile; the group's two query tiles share each K / V load;
 // - S = Q K^T as wgmma m64n64k16 from shared memory, in registers (32 f32
@@ -49,9 +51,10 @@
 // S and P never touch shared memory.  Ragged tiles: the key tiles past
 // skv are zero with a -inf bias (P = 0), query rows past sq are zero and
 // not written, and a warpgroup whose tile lies past sq only loads and
-// syncs.  The body holds 118 registers and 67 KB of shared memory, so
+// syncs.  The body holds 128 registers and 67 KB of shared memory, so
 // two blocks share an SM: 4 warpgroups, which hide each other's softmax
-// and loads.
+// and loads.  The loader's fixed chunk columns made it 5-12% faster than
+// index arithmetic a chunk (PERF.md §6), bits unchanged.
 // Tried on the H100 in A/B builds of this file and dropped (PERF.md §6):
 // 3 warpgroups a block (every query tile of a 165-185-token row in one
 // block, K and V read once per row and head, but 153 registers and one
@@ -86,16 +89,23 @@
 // dropped and scaled (keep ? P * 256/(256-t) : 0) after the softmax,
 // whose sum, and the lse written for the backward, stay the undropped
 // P's.  The mask is fused_attention_dropout.cu's, keep_bits16 words (one
-// Philox4x32-10 call per query row and 16 keys), drawn into shared memory
-// beside each key tile as it is staged: in the bf16 body a third ring of
-// kWG * 64 rows x 4 words a stage, 2 calls a thread while the tile's
-// copies are in flight, published by the barrier that publishes the
-// tile; each lane reads the words of its two rows and takes the bits of
-// its m16n8 C-fragment columns (8 n + tq + (e & 1)).  That body then
-// holds 128 registers (118 without), no spills, 62-73 KB of shared
-// memory.  The f32 bodies draw the words of their query tile with the
-// tile (whole row) or with each key tile.  At rate 0 (t = 0, scale 1) 4L
-// computes #2's bits.
+// Philox4x32-10 call per query row and 16 keys).  In the bf16 body each
+// warpgroup draws its own rows' words in registers while the tensor
+// cores compute the tile's S (issued as an asynchronous group; the draw
+// is held ahead of the wait): quad lane j draws 16-key group j for the
+// lane's two rows, 2 calls a thread a tile, and each lane takes group c's
+// word from quad lane c by a shuffle and the bits of its m16n8 C-fragment
+// columns (8 n + tq + (e & 1)): no shared memory for the mask, 128
+// registers, no spills.  Tried and dropped (PERF.md §6): the parent's
+// draw into a ring stage of shared memory beside each tile, by every
+// thread before the tile's barrier (1-6% slower than this, with the same
+// loader); a producer warpgroup that issues the copies and draws the
+// words into that ring, published by the tile's barrier (a third
+// warpgroup a block: one block an SM, setmaxnreg cannot fit two; 22-77%
+// slower); one warpgroup a block up to 128 rows (3 blocks an SM at 76
+// tokens: 9-10% slower).  The f32
+// bodies draw the words of their query tile with the tile (whole row) or
+// with each key tile.  At rate 0 (t = 0, scale 1) 4L computes #2's bits.
 //
 // Limits: any Sq and Skv, D <= 64 (the wrapper raises beyond that); f32
 // and bf16 inputs; the bias is a (B, Skv) f32 additive mask.  A fully
@@ -104,6 +114,7 @@
 
 #include "attention_common.cuh"
 #include "wgmma.cuh"
+#include "swizzled_tile.cuh"
 
 namespace {
 
@@ -113,90 +124,48 @@ namespace {
 
 constexpr int kRingStages = 3;            // key tiles the ring holds
 static_assert(kRingStages >= 2, "the ring needs a stage in flight beside the one computed");
-constexpr int kRow = 64;                   // bf16 values in one 128-byte swizzled row
-constexpr unsigned kSwizzlePeriod = 1024;  // bytes: 8 swizzled rows
-constexpr size_t kTileBytes = sizeof(__nv_bfloat16) * kRow * kTileQ;  // a 64-row tile, 8 KB
 
 // Shared memory of a block of `wg` warpgroups: their Q tiles, then the
 // ring's K and V stages (each tile on a 1024-byte boundary, the
 // swizzle's period), then the ring's bias stages (kKvTile f32 each, -inf
-// past skv), then, with the dropout (4L), the ring's keep bits (a stage:
-// wg * kTileQ query rows x kKvTile / 16 keep_bits16 words).  The launch
-// adds one period so that the kernel can align the tiles itself.
+// past skv).  The launch adds one period so that the kernel can align the
+// tiles itself.
 struct RingLayout {
-  size_t k_off, v_off, b_off, m_off, bytes;
+  size_t k_off, v_off, b_off, bytes;
 };
 
-__host__ __device__ inline RingLayout ring_layout(int wg, bool drop) {
+__host__ __device__ inline RingLayout ring_layout(int wg) {
   RingLayout L;
   L.k_off = kTileBytes * wg;
   L.v_off = L.k_off + kTileBytes * kRingStages;
   L.b_off = L.v_off + kTileBytes * kRingStages;
-  L.m_off = L.b_off + sizeof(float) * kKvTile * kRingStages;
-  L.bytes = L.m_off + (drop ? sizeof(uint32_t) * wg * kTileQ * kTileGroups * kRingStages : 0);
+  L.bytes = L.b_off + sizeof(float) * kKvTile * kRingStages;
   return L;
 }
 
-size_t ring_smem_bytes(int wg, bool drop) { return ring_layout(wg, drop).bytes + kSwizzlePeriod; }
-
-// `rows` rows (< kTileQ: the rest zero) of d values of a strided bf16
-// source, row stride rs, into a 64-row tile at dst in the 128-byte
-// swizzle: 16-byte chunk c of row r at chunk c ^ (r % 8), zero past d.
-// cp.async where the source allows 16-byte copies; the caller commits,
-// waits, fences (fence_proxy_async) and syncs before wgmma reads it.
-__device__ __forceinline__ void load_swizzled(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                              long long rs, int d, int rows, int tid,
-                                              int nthreads) {
-  const bool vec = d % 8 == 0 && rs % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  for (int i = tid; i < kTileQ * 8; i += nthreads) {
-    const int r = i >> 3, c = i & 7;
-    __nv_bfloat16* chunk = dst + r * kRow + ((c ^ (r & 7)) << 3);
-    if (r < rows && c * 8 < d) {
-      const __nv_bfloat16* s = src + r * rs + c * 8;
-      if (vec) {
-        cp_async16(chunk, s);
-      } else {
-        for (int e = 0; e < 8; ++e) chunk[e] = c * 8 + e < d ? s[e] : __float2bfloat16(0.f);
-      }
-    } else {
-      *reinterpret_cast<uint4*>(chunk) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-}
+size_t ring_smem_bytes(int wg) { return ring_layout(wg).bytes + kSwizzlePeriod; }
 
 // Key tile kt (keys kt * kKvTile ..) of a (batch row, head) into ring
-// stage kt % kRingStages: K, V and the bias; one cp.async group, an empty
-// one when kt is past the last tile.  With kDrop, the keep bits of the
-// block's query rows (first * kTileQ ..) and the tile's keys too, drawn
-// while the copies are in flight, 2 keep_bits16 calls a thread: the
-// barrier that publishes the tile publishes them.
-template <bool kDrop = false>
+// stage kt % kRingStages by the block's kThreads threads: K, V and the
+// bias; one cp.async group, an empty one when kt is past the last tile.
+template <int kThreads>
 __device__ __forceinline__ void stage_ring(const Args& a, int b, int h, int kt,
-                                           unsigned char* smem, const RingLayout& L, int tid,
-                                           int nthreads, int first = 0) {
+                                           unsigned char* smem, const RingLayout& L, int tid) {
   const int k0 = kt * kKvTile;
   if (k0 < a.skv) {
     const int st = kt % kRingStages, nk = min(a.skv - k0, kKvTile), d = a.dim;
-    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.k_off + st * kTileBytes),
+    load_swizzled<kThreads>(reinterpret_cast<__nv_bfloat16*>(smem + L.k_off + st * kTileBytes),
                   static_cast<const __nv_bfloat16*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d,
-                  a.k_rs, d, nk, tid, nthreads);
-    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + L.v_off + st * kTileBytes),
+                  a.k_rs, d, nk, tid);
+    load_swizzled<kThreads>(reinterpret_cast<__nv_bfloat16*>(smem + L.v_off + st * kTileBytes),
                   static_cast<const __nv_bfloat16*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
-                  a.v_rs, d, nk, tid, nthreads);
+                  a.v_rs, d, nk, tid);
     float* bs = reinterpret_cast<float*>(smem + L.b_off) + st * kKvTile;
-    for (int j = tid; j < kKvTile; j += nthreads) {
+    for (int j = tid; j < kKvTile; j += kThreads) {
       if (j < nk) {
         cp_async4(bs + j, a.bias + static_cast<long long>(b) * a.skv + k0 + j);
       } else {
         bs[j] = -CUDART_INF_F;
-      }
-    }
-    if (kDrop) {
-      const int rows = nthreads / kMmaThreads * kTileQ;
-      uint32_t* km = reinterpret_cast<uint32_t*>(smem + L.m_off) + st * rows * kTileGroups;
-      for (int idx = tid; idx < rows * kTileGroups; idx += nthreads) {
-        const int i = first * kTileQ + idx / kTileGroups, c = idx % kTileGroups;
-        km[idx] = i < a.sq && k0 + 16 * c < a.skv ? keep_bits16(a, b, h, i, kt * kTileGroups + c) : 0u;
       }
     }
   }
@@ -218,10 +187,9 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
     fused_attention_long_wgmma(Args a) {
   static_assert(kWG == 1 || kWG == 2, "1 or 2 warpgroups a block");
   constexpr int kThreads = kWG * kMmaThreads;
-  extern __shared__ __align__(16) unsigned char smem_raw[];  // aligned to the swizzle's period below
-  unsigned char* smem =
-      smem_raw + ((kSwizzlePeriod - smem_u32(smem_raw) % kSwizzlePeriod) % kSwizzlePeriod);
-  const RingLayout L = ring_layout(kWG, kDrop);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = align_to_period(smem_raw);
+  const RingLayout L = ring_layout(kWG);
   const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
   const int bh = blockIdx.x / groups, b = bh / a.heads, h = bh % a.heads;
   const int first = blockIdx.x % groups * kWG;  // the group's first query tile
@@ -231,13 +199,13 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
 #pragma unroll
   for (int w = 0; w < kWG; ++w) {
     const int t0 = (first + w) * kTileQ;
-    load_swizzled(reinterpret_cast<__nv_bfloat16*>(smem + w * kTileBytes),
+    load_swizzled<kThreads>(reinterpret_cast<__nv_bfloat16*>(smem + w * kTileBytes),
                   static_cast<const __nv_bfloat16*>(a.q) + b * a.q_bs + t0 * a.q_rs + h * d,
-                  a.q_rs, d, max(0, min(kTileQ, a.sq - t0)), tid, kThreads);
+                  a.q_rs, d, max(0, min(kTileQ, a.sq - t0)), tid);
   }
 #pragma unroll
   for (int kt = 0; kt < kRingStages - 1; ++kt) {
-    stage_ring<kDrop>(a, b, h, kt, smem, L, tid, kThreads, first);  // the Q tiles ride in tile 0's group
+    stage_ring<kThreads>(a, b, h, kt, smem, L, tid);  // the Q tiles ride in tile 0's group
   }
 
   // A thread holds rows i0 = 16 warp + g and i0 + 8 of its warpgroup's
@@ -246,6 +214,7 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
   const int q0 = (first + wg) * kTileQ;
   const bool active = q0 < a.sq;
   const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2, tq = (lane & 3) * 2;
+  const int i0 = warp * 16 + g;
   const uint64_t dq = wgmma_desc_sw128(smem + wg * kTileBytes);
   float o[32];
 #pragma unroll
@@ -259,7 +228,7 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
     cp_async_wait_group<kRingStages - 2>();
     fence_proxy_async();
     __syncthreads();
-    stage_ring<kDrop>(a, b, h, kt + kRingStages - 1, smem, L, tid, kThreads, first);
+    stage_ring<kThreads>(a, b, h, kt + kRingStages - 1, smem, L, tid);
     if (!active) continue;
     const int st = kt % kRingStages;
 
@@ -272,6 +241,17 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
 #pragma unroll
     for (int kk = 0; kk < kMaxDim / 16; ++kk) WgmmaSS<64>::mma(s, dq + 2 * kk, dk + 2 * kk, 1);
     wgmma_commit();
+    // kDrop (4L): the tile's keep words are drawn while the tensor cores
+    // compute S: quad lane j draws 16-key group j of the tile for the
+    // lane's two rows (2 Philox calls a thread a tile); the empty asm
+    // holds the draw ahead of the wait.
+    uint32_t kw0 = 0u, kw1 = 0u;
+    if (kDrop) {
+      const int c = kt * kTileGroups + (lane & 3);
+      kw0 = keep_bits16(a, b, h, q0 + i0, c);
+      kw1 = keep_bits16(a, b, h, q0 + i0 + 8, c);
+      asm volatile("" : "+r"(kw0), "+r"(kw1));
+    }
     wgmma_wait<0>();
     fence_operands(s);
 
@@ -316,11 +296,9 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
       // The lane's rows' keep words, one per 16 keys: element e of column
       // tile n is key 8 n + tq + (e & 1), bit 8 (n & 1) + tq + (e & 1) of
       // word n / 2 of row i0 (e < 2) or i0 + 8.
-      const uint32_t* km = reinterpret_cast<const uint32_t*>(smem + L.m_off) +
-                           (st * kWG * kTileQ + wg * kTileQ + warp * 16 + g) * kTileGroups;
 #pragma unroll
       for (int c = 0; c < kTileGroups; ++c) {
-        const uint32_t w0 = km[c], w1 = km[8 * kTileGroups + c];
+        const uint32_t w0 = quad_word(kw0, c, lane), w1 = quad_word(kw1, c, lane);
 #pragma unroll
         for (int i = 8 * c; i < 8 * c + 8; ++i) {
           const int bit = 8 * ((i >> 2) & 1) + tq + (i & 1);
@@ -356,7 +334,6 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;  // a row's max term is 1: sum >= 1
-  const int i0 = warp * 16 + g;
   const long long out_rs = static_cast<long long>(a.heads) * d;
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out) +
                        (static_cast<long long>(b) * a.sq + q0) * out_rs + h * d;
@@ -530,7 +507,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
 template <int kWG, bool kDrop>
 int launch_ring(const Args& a, int batch, cudaStream_t s) {
   const auto kernel = fused_attention_long_wgmma<kWG, kDrop>;
-  const size_t smem = ring_smem_bytes(kWG, kDrop);
+  const size_t smem = ring_smem_bytes(kWG);
   if (const int err = allow_smem(kernel, smem)) return err;
   const int groups = ((a.sq + kTileQ - 1) / kTileQ + kWG - 1) / kWG;
   const unsigned blocks = static_cast<unsigned>(batch) * a.heads * static_cast<unsigned>(groups);
@@ -581,6 +558,19 @@ int rgqa_fused_attention_long_fwd(
   a.out = out;
   a.lse = static_cast<float*>(lse);
   return launch_long_fwd<false>(a, dtype, batch, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks an SM of the bf16 body at its shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out[0..3] the instances
+// <kWG, kDrop> = <1, 0>, <1, 1>, <2, 0>, <2, 1>.  Returns the first
+// cudaError_t (0 on success).
+int rgqa_fused_attention_long_occupancy(int* out) {
+  int err = 0;
+  err = err ? err : blocks_per_sm(fused_attention_long_wgmma<1, false>, kMmaThreads, ring_smem_bytes(1), out + 0);
+  err = err ? err : blocks_per_sm(fused_attention_long_wgmma<1, true>, kMmaThreads, ring_smem_bytes(1), out + 1);
+  err = err ? err : blocks_per_sm(fused_attention_long_wgmma<2, false>, 2 * kMmaThreads, ring_smem_bytes(2), out + 2);
+  err = err ? err : blocks_per_sm(fused_attention_long_wgmma<2, true>, 2 * kMmaThreads, ring_smem_bytes(2), out + 3);
+  return err;
 }
 
 // 4L: as rgqa_fused_attention_long_fwd, plus the dropout arguments of

@@ -1,8 +1,9 @@
 // Hopper's warpgroup matrix multiply (wgmma.mma_async, sm_90a) by inline
 // PTX: the descriptors of bf16 tiles in shared memory, the fences, and one
 // instruction wrapper per shape a kernel of the port runs: headfold.cu
-// (the head-fold experiment's bf16 body), fused_attention_long.cu (the
-// long-stream forward's bf16 body) and epilogue.cu (the attention
+// (the head-fold experiment's bf16 body), fused_attention_long.cu and
+// fused_attention_long_bwd.cu (the long-stream forward's bf16 body and
+// the backward's two bf16 passes) and epilogue.cu (the attention
 // epilogue's bf16 body).
 //
 // A warpgroup (4 warps, 128 threads) issues each instruction together: a

@@ -30,8 +30,11 @@ up to 256 keys and key tiles beyond); when autograd
 will need the backward it also writes each row's softmax statistics (max
 and log-sum, whose sum is the log-sum-exp), which the long backward
 takes instead of recomputing the softmax: its dQ pass
-walks the key tiles (once for D = rowsum(dP P), once for dQ), its dK/dV
-pass the query tiles.  The dropout pair picks its kernels the same way
+walks the key tiles, its dK/dV pass the query tiles.  Each row's D =
+rowsum(dP P) takes a sweep of the keys of its own when the bias takes a
+gradient; otherwise (every model path) the dQ pass takes it as
+rowsum(g o out) from the forward's saved output, and no dbias is
+computed.  The dropout pair picks its kernels the same way
 (:func:`dropout_forward_kernel`, :func:`dropout_backward_kernel`): #4 /
 #5 up to 64 tokens, and beyond, 4L / 5L, the long forward and backward
 with the mask applied to P (the softmax sum and the row statistics stay
@@ -532,9 +535,10 @@ def fused_attention_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
     return dq, dk, dv, dbias
 
 
-def _long_bwd(name, symbol, q, k, v, bias_kv, g, num_heads: int, lse, drop=None):
-    """Check ``lse`` and launch ``symbol`` of ``csrc/fused_attention_long_bwd.cu``
-    (#3L, or 5L with ``drop``); (dq, dk, dv, dbias)."""
+def _long_bwd(name, symbol, q, k, v, bias_kv, g, num_heads: int, lse, drop=None, *, dbias=True, out=None):
+    """Check ``lse`` (and, without ``dbias``, ``out``) and launch ``symbol``
+    of ``csrc/fused_attention_long_bwd.cu`` (#3L, or 5L with ``drop``);
+    (dq, dk, dv, dbias), dbias None without ``dbias``."""
     want = (q.shape[0], num_heads, q.shape[1])
     if (
         lse.device != q.device or lse.dtype != torch.float32
@@ -544,32 +548,49 @@ def _long_bwd(name, symbol, q, k, v, bias_kv, g, num_heads: int, lse, drop=None)
             f"{name}: lse must be the forward's contiguous {(*want, 2)} float32 tensor on "
             f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}"
         )
+    if dbias and out is not None:
+        raise ValueError(f"{name}: out is taken only with dbias=False (D from the forward's output)")
+    if not dbias and (
+        out is None or out.device != q.device or out.dtype != q.dtype or out.shape != q.shape
+        or not out.is_contiguous()
+    ):
+        got = "None" if out is None else f"{tuple(out.shape)} {out.dtype} on {out.device}"
+        raise ValueError(
+            f"{name}: dbias=False takes the forward's output, a contiguous {tuple(q.shape)} "
+            f"{q.dtype} tensor on {q.device}, as out; got {got}"
+        )
     buffers = _bwd_buffers(q, k, num_heads)
-    # (B, H, Sq) f32 D = rowsum(dP P) that the dQ pass hands the dK/dV pass.
-    dsum = torch.empty(want, dtype=torch.float32, device=q.device)
+    # (B, H, Sq, 2) f32: each row's D = rowsum(dP P) and -(m + log(sum))
+    # log2(e), which the dQ pass hands the dK/dV pass.
+    dsum = torch.empty((*want, 2), dtype=torch.float32, device=q.device)
     _launch(
         name.removesuffix("_cuda"), "fused_attention_long_bwd", symbol,
-        _bwd_pointers(q, k, v, bias_kv, g, buffers) + [lse.data_ptr(), dsum.data_ptr()],
+        _bwd_pointers(q, k, v, bias_kv, g, buffers)
+        + [lse.data_ptr(), dsum.data_ptr(), None if dbias else out.data_ptr()],
         q, k, v, num_heads, drop,
     )
-    dq, dk, dv, _, dbias = buffers
-    return dq, dk, dv, dbias
+    dq, dk, dv, _, dbias_sum = buffers
+    return dq, dk, dv, dbias_sum if dbias else None
 
 
-def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse):
+def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse, *, dbias: bool = True, out=None):
     """Launch ``csrc/fused_attention_long_bwd.cu``: the function of
     :func:`fused_attention_bwd_cuda` for any Sq and Skv, given ``lse``,
     the (B, H, Sq, 2) f32 row statistics of the forward
     (``fused_attention_long_cuda(..., lse=True)``).  A pass over query
-    tiles walks the key tiles twice, for each row's D = rowsum(dP P) and
-    then for dq; a pass over key tiles walks the query tiles for dk, dv
-    and the dbias partials; then their head sum.  No atomics, so two runs
-    give identical gradients.  The same results as
-    :func:`fused_attention_bwd_cuda`;
+    tiles walks the key tiles for dq, a pass over key tiles walks the
+    query tiles for dk and dv; both need each row's D = rowsum(dP P).
+    With ``dbias`` (the default) the first pass takes D in a sweep of
+    its own, the second writes the dbias partials, then their head sum.
+    With ``dbias=False`` it takes ``out``, the forward's output: in bf16
+    the first pass takes D = rowsum(g o out) and no sweep, no dbias is
+    written, and the fourth result is None (the f32 passes keep their
+    sweep).  No atomics, so two runs give identical gradients.
     ``fused_attention_long_bwd_cuda.launches`` counts the launches."""
     name = "fused_attention_long_bwd_cuda"
     _check(name, q, k, v, bias_kv, num_heads, g=g, long=True)
-    grads = _long_bwd(name, "rgqa_fused_attention_long_bwd", q, k, v, bias_kv, g, num_heads, lse)
+    grads = _long_bwd(name, "rgqa_fused_attention_long_bwd", q, k, v, bias_kv, g, num_heads, lse,
+                      dbias=dbias, out=out)
     fused_attention_long_bwd_cuda.launches += 1
     return grads
 
@@ -630,18 +651,20 @@ def fused_attention_dropout_long_cuda(
 
 
 def fused_attention_dropout_long_bwd_cuda(
-    q, k, v, bias_kv, g, num_heads: int, rate: float, seed: int, lse
+    q, k, v, bias_kv, g, num_heads: int, rate: float, seed: int, lse, *, dbias: bool = True, out=None
 ):
     """5L: launch the dropout backward of ``csrc/fused_attention_long_bwd.cu``,
     which replays 4L's mask from ``seed`` in both passes, given 4L's
     ``lse``: (dq, dk, dv, dbias) as :func:`fused_attention_dropout_bwd_cuda`
-    returns them, at any Sq and Skv.
+    returns them, at any Sq and Skv; ``dbias`` and ``out`` (4L's dropped
+    output) as :func:`fused_attention_long_bwd_cuda` takes them.
     ``fused_attention_dropout_long_bwd_cuda.launches`` counts the launches."""
     name = "fused_attention_dropout_long_bwd_cuda"
     _check(name, q, k, v, bias_kv, num_heads, g=g, long=True)
     drop = _dropout_args(name, rate, seed)
     grads = _long_bwd(
-        name, "rgqa_fused_attention_dropout_long_bwd", q, k, v, bias_kv, g, num_heads, lse, drop
+        name, "rgqa_fused_attention_dropout_long_bwd", q, k, v, bias_kv, g, num_heads, lse, drop,
+        dbias=dbias, out=out,
     )
     fused_attention_dropout_long_bwd_cuda.launches += 1
     return grads
@@ -660,37 +683,59 @@ for _wrapper in (
 # ---------------------------------------------------------------------------
 
 
+def _save_long(ctx, inputs, out, lse) -> None:
+    """What the long route's backward keeps: the inputs, the row
+    statistics and, when the bias takes no gradient (every model path:
+    ``bias_vector``'s mask), the output, from which the kernel takes D
+    without a sweep (the tensor that the out-projection keeps anyway)."""
+    ctx.long, ctx.dbias = True, ctx.needs_input_grad[3]
+    ctx.save_for_backward(*inputs, lse, *(() if ctx.dbias else (out,)))
+
+
+def _long_grads(ctx, kernel, g, *args):
+    """The long backward ``kernel`` on the saved tensors: the exact route
+    (dbias) or D from the saved output (dbias None)."""
+    q, k, v, bias_kv, lse, *out = ctx.saved_tensors
+    return kernel(q, k, v, bias_kv, g, *args, lse, dbias=ctx.dbias, out=out[0] if out else None)
+
+
 class _FusedAttention(torch.autograd.Function):
     """``_fused``'s custom_vjp: on CUDA kernels #1 forward and #3 backward
     (Sq, Skv <= 64) or #2 and #3L (longer streams), the plain pair on the
     CPU.  On the long route the forward also writes each row's softmax
     statistics, and saves them for #3L, when an input needs a gradient
     (``ctx.needs_input_grad``: inside ``forward`` autograd is off, so
-    ``torch.is_grad_enabled()`` says nothing); inference writes none."""
+    ``torch.is_grad_enabled()`` says nothing); inference writes none.
+    When the bias takes no gradient #3L takes D from the saved output and
+    returns None for the bias (``dbias=False``)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_kv, num_heads):
         ctx.num_heads = num_heads
+        ctx.long = False
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, bias_kv)
             return attention_natural_ref(q, k, v, bias_kv, num_heads)
         kernel = forward_kernel(q.shape[1], k.shape[1], q.shape[2] // num_heads)
         if kernel is fused_attention_long_cuda and any(ctx.needs_input_grad[:4]):
             out, lse = kernel(q, k, v, bias_kv, num_heads, lse=True)
-            ctx.save_for_backward(q, k, v, bias_kv, lse)
+            _save_long(ctx, (q, k, v, bias_kv), out, lse)
             return out
         ctx.save_for_backward(q, k, v, bias_kv)
         return kernel(q, k, v, bias_kv, num_heads)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias_kv, *lse = ctx.saved_tensors
-        g = g.to(q.dtype).contiguous()
-        if q.device.type == "cpu":
-            grads = attention_bwd_ref(q, k, v, bias_kv, g, ctx.num_heads)
+        g = g.to(ctx.saved_tensors[0].dtype).contiguous()
+        if ctx.long:
+            grads = _long_grads(ctx, fused_attention_long_bwd_cuda, g, ctx.num_heads)
         else:
-            kernel = backward_kernel(q.shape[1], k.shape[1], q.shape[2] // ctx.num_heads)
-            grads = kernel(q, k, v, bias_kv, g, ctx.num_heads, *lse)
+            q, k, v, bias_kv = ctx.saved_tensors
+            if q.device.type == "cpu":
+                grads = attention_bwd_ref(q, k, v, bias_kv, g, ctx.num_heads)
+            else:
+                kernel = backward_kernel(q.shape[1], k.shape[1], q.shape[2] // ctx.num_heads)
+                grads = kernel(q, k, v, bias_kv, g, ctx.num_heads)
         return (*grads, None)
 
 
@@ -700,31 +745,36 @@ class _FusedAttentionDropout(torch.autograd.Function):
     backward replays the mask from the saved seed.  On the long route the
     forward writes and saves the row statistics for 5L only when an input
     needs a gradient, as :class:`_FusedAttention` does (MC-dropout
-    scoring writes none)."""
+    scoring writes none), and 5L takes D from 4L's saved output when the
+    bias takes no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias_kv, num_heads, rate, seed):
         ctx.args = (num_heads, rate, seed)
+        ctx.long = False
         if q.device.type == "cpu":
             ctx.save_for_backward(q, k, v, bias_kv)
             return attention_dropout_ref(q, k, v, bias_kv, num_heads, rate, seed)
         kernel = dropout_forward_kernel(q.shape[1], k.shape[1], q.shape[2] // num_heads)
         if kernel is fused_attention_dropout_long_cuda and any(ctx.needs_input_grad[:4]):
             out, lse = kernel(q, k, v, bias_kv, num_heads, rate, seed, lse=True)
-            ctx.save_for_backward(q, k, v, bias_kv, lse)
+            _save_long(ctx, (q, k, v, bias_kv), out, lse)
             return out
         ctx.save_for_backward(q, k, v, bias_kv)
         return kernel(q, k, v, bias_kv, num_heads, rate, seed)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias_kv, *lse = ctx.saved_tensors
-        g = g.to(q.dtype).contiguous()
-        if q.device.type == "cpu":
-            grads = attention_dropout_bwd_ref(q, k, v, bias_kv, g, *ctx.args)
+        g = g.to(ctx.saved_tensors[0].dtype).contiguous()
+        if ctx.long:
+            grads = _long_grads(ctx, fused_attention_dropout_long_bwd_cuda, g, *ctx.args)
         else:
-            kernel = dropout_backward_kernel(q.shape[1], k.shape[1], q.shape[2] // ctx.args[0])
-            grads = kernel(q, k, v, bias_kv, g, *ctx.args, *lse)
+            q, k, v, bias_kv = ctx.saved_tensors
+            if q.device.type == "cpu":
+                grads = attention_dropout_bwd_ref(q, k, v, bias_kv, g, *ctx.args)
+            else:
+                kernel = dropout_backward_kernel(q.shape[1], k.shape[1], q.shape[2] // ctx.args[0])
+                grads = kernel(q, k, v, bias_kv, g, *ctx.args)
         return (*grads, None, None, None)
 
 

@@ -9,8 +9,10 @@ matcher or CLIP forward or training step goes on one CUDA card.
         adv|resampling|woods|distill_online|weight [--batch 32] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train --strategy weight
         --update_weight_model [--fp32] [--batch 32] [--out FILE.json]
-    python -m rgqa_tpu_torch.tools.profile_forward --scorers [--batch 256]
-        [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --scorers [NAME ...] [--backbone uniter]
+        [--batch 256] [--out FILE.json]
+    python -m rgqa_tpu_torch.tools.profile_forward --backbone uniter --text_len 40
+        (--train | --scorers dropout) [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --pretrain [--batch 256] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --vqa [--batch 32] [--out FILE.json]
 
@@ -56,7 +58,14 @@ its routes are ``kernel`` and ``plain``.  With
 (bf16 serving weights), kernels and plain versions: msp, energy, ODIN
 (T 1e5, noise 1e-4), Mahalanobis un-noised and noised (1e-2; the
 estimator fitted on four batches of pooled features with one-hot
-targets over 16 answers) and MC-dropout (seeds 0-4, dropout 0.1).
+targets over 16 answers) and MC-dropout (seeds 0-4, dropout 0.1);
+names after ``--scorers`` (msp, energy, odin, maha, "maha noised",
+dropout) pick some, and ``--backbone uniter`` scores full-width UNITER
+instead.  ``--text_len N`` sets the model's ``max_text_len`` (UNITER
+with 40-token questions attends over 76 tokens, the long dropout pair's
+stream: 12 4L and 12 5L a training step, 12 4L an MC-dropout pass),
+with each row's question cut to a random length of 4-N tokens, as the
+synthetic split encodes them.
 ``--pretrain`` runs the LXMERT pretraining step (``LxmertPretraining``
 with the reference's 9500-answer QA head, all six tasks, one set of
 host-drawn masks with BERT's special ids; batch 256, as
@@ -309,7 +318,32 @@ def _weight_model_cases(sizes, fp32: bool) -> dict:
     return cases
 
 
-def _train_cases(sizes, backbone: str, strategy: dict = None) -> dict:
+def _config(backbone: str, text_len):
+    """The full-width config of ``backbone``, at ``text_len`` when given."""
+    import dataclasses
+
+    cfg = default_config(backbone)
+    return cfg if text_len is None else dataclasses.replace(cfg, max_text_len=text_len)
+
+
+def _padded_text(batch: dict, seed: int = 1) -> dict:
+    """``batch`` with each row's question cut to a random length of 4-T
+    tokens (pad ids 0, mask 0 past it), as the synthetic split's encodings."""
+    import numpy as np
+
+    ids, mask = batch["input_ids"].copy(), batch["input_mask"].copy()
+    b, t = ids.shape
+    pad = np.arange(t)[None, :] >= np.random.default_rng(seed).integers(4, t + 1, b)[:, None]
+    ids[pad], mask[pad] = 0, 0
+    return dict(batch, input_ids=ids, input_mask=mask)
+
+
+def _example(cfg, size: int, text_len, **kw) -> dict:
+    batch = example_batch(cfg, size, seed=0, **kw)
+    return batch if text_len is None else _padded_text(batch)
+
+
+def _train_cases(sizes, backbone: str, strategy: dict = None, text_len=None) -> dict:
     """{(batch, "dropout d kernels" | "dropout d plain"): one training
     step}, each on its own full-width model (f32 masters, bf16 compute);
     ``strategy``, the step's mixup or branched options, replaces RP."""
@@ -321,7 +355,7 @@ def _train_cases(sizes, backbone: str, strategy: dict = None) -> dict:
     from rgqa_tpu_torch.train.optimizer import make_optimizer
     from rgqa_tpu_torch.train.step import make_train_step
 
-    base = default_config(backbone)
+    base = _config(backbone, text_len)
     if backbone == "vilt":
         base = dataclasses.replace(base, max_text_len=20)  # the train CLI's stream
     binary = backbone == "caps"  # the caption strategy: one logit, no RP
@@ -342,7 +376,7 @@ def _train_cases(sizes, backbone: str, strategy: dict = None) -> dict:
         rng = DropoutRng(device=torch.Generator(device="cuda").manual_seed(1),
                          host=torch.Generator().manual_seed(1))
         for size in sizes:
-            batch = example_batch(cfg, size, seed=0, pixel_wire="u8")
+            batch = _example(cfg, size, text_len, pixel_wire="u8")
             target = np.zeros((size, cfg.num_answers), np.float32)
             target[np.arange(size), np.arange(size) % cfg.num_answers] = 1.0
             id_mask = (np.arange(size) % 3 != 0).astype(np.float32)  # a third unanswerable
@@ -444,12 +478,20 @@ def _vqa_cases(sizes) -> dict:
     return cases
 
 
-def _scorer_cases(sizes) -> dict:
+SCORERS = (("msp", "msp", {}), ("energy", "energy", {}), ("odin", "odin", {}), ("maha", "maha", {}),
+           ("maha noised", "maha", {"noise": 1e-2}), ("dropout", "dropout", {}))
+
+
+def _scorer_cases(sizes, backbone: str = "lxmert", names=(), text_len=None) -> dict:
     """{(batch, "<scorer> kernels" | "<scorer> plain"): one scorer call}
-    on one full-width LXMERT with bf16 serving weights."""
+    on one full-width model (LXMERT unless ``backbone``) with bf16
+    serving weights; the scorers in ``names``, all when empty."""
     from rgqa_tpu_torch.scorers import fit_estimator, make_scorer
 
-    cfg = default_config()
+    unknown = set(names) - {n for n, _, _ in SCORERS}
+    if unknown:
+        raise SystemExit(f"profile_forward: unknown scorers {sorted(unknown)}")
+    cfg = _config(backbone, text_len)
     _, forward = build_model(cfg, use_bf16=True, device="cuda",
                              generator=torch.Generator(device="cuda").manual_seed(0))
     plain = functools.partial(forward, use_fused=False)
@@ -466,12 +508,12 @@ def _scorer_cases(sizes) -> dict:
             yield pooled, target
 
     cases = {}
+    chosen = [c for c in SCORERS if not names or c[0] in names]
     for size in sizes:
-        est = fit_estimator(fit_batches(size), cfg.num_answers, cfg.encoder.hidden_size)
-        batch = to_device(example_batch(cfg, size, seed=0), "cuda")
-        for name, kind, extra in (("msp", "msp", {}), ("energy", "energy", {}), ("odin", "odin", {}),
-                                  ("maha", "maha", {}), ("maha noised", "maha", {"noise": 1e-2}),
-                                  ("dropout", "dropout", {})):
+        est = (fit_estimator(fit_batches(size), cfg.num_answers, cfg.encoder.hidden_size)
+               if any(kind == "maha" for _, kind, _ in chosen) else None)
+        batch = to_device(_example(cfg, size, text_len), "cuda")
+        for name, kind, extra in chosen:
             for route, fwd in (("kernels", forward), ("plain", plain)):
                 scorer = make_scorer(kind, fwd, estimator=est, seed_list=(0, 1, 2, 3, 4), **extra)
                 cases[(size, f"{name} {route}")] = functools.partial(scorer, batch)
@@ -505,7 +547,10 @@ def main(argv=None) -> list:
     ap.add_argument("--backbone", choices=("lxmert", "uniter", "vilt", "butd", "caps", "clip"),
                     default="lxmert")
     ap.add_argument("--train", action="store_true", help="profile training steps")
-    ap.add_argument("--scorers", action="store_true", help="profile the rejection scorers (LXMERT)")
+    ap.add_argument("--scorers", nargs="*", default=None, metavar="NAME",
+                    help="profile the rejection scorers (all, or those named)")
+    ap.add_argument("--text_len", type=int, default=None,
+                    help="the model's max_text_len (UNITER at 40: a 76-token stream)")
     ap.add_argument("--pretrain", action="store_true", help="profile the LXMERT pretraining step")
     ap.add_argument("--vqa", action="store_true", help="profile the VQA fine-tuning step")
     ap.add_argument("--mixup_mode", default=None, help="with --train: the mixup / TreeMix step, no RP")
@@ -536,10 +581,11 @@ def main(argv=None) -> list:
     if args.train:
         strategy = ({"mixup_mode": args.mixup_mode, "mixup_beta": args.mixup_beta} if args.mixup_mode
                     else {"branched": True} if args.branched else {})
-        return _profile(_train_cases(args.batch or [32], args.backbone, strategy), args, smi, args.out,
-                        unit="step")
-    if args.scorers:
-        return _profile(_scorer_cases(args.batch or [256]), args, smi, args.out, unit="scorer call")
+        return _profile(_train_cases(args.batch or [32], args.backbone, strategy, args.text_len), args, smi,
+                        args.out, unit="step")
+    if args.scorers is not None:
+        return _profile(_scorer_cases(args.batch or [256], args.backbone, args.scorers, args.text_len), args,
+                        smi, args.out, unit="scorer call")
     if args.pretrain:
         return _profile(_pretrain_cases(args.batch or [256]), args, smi, args.out, unit="step")
     if args.vqa:
@@ -548,14 +594,14 @@ def main(argv=None) -> list:
     if args.backbone == "clip":
         with torch.inference_mode():
             return _profile(_clip_cases(args.batch or [256, 32]), args, smi, args.out, unit="forward")
-    cfg = default_config(args.backbone)
+    cfg = _config(args.backbone, args.text_len)
     model, forward = build_model(
         cfg, use_bf16=True, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(0),
     )
     fns = {}
     for size in args.batch or [256, 32]:
-        batch = to_device(example_batch(cfg, size, seed=0), "cuda")
+        batch = to_device(_example(cfg, size, args.text_len), "cuda")
         call = functools.partial(forward, batch)
         if args.backbone == "butd":
             fns[(size, "f32")], fns[(size, "tf32")] = call, _with_tf32(model, call)

@@ -2,9 +2,9 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
-        [--only long short_fwd short_bwd headfold epilogue uniter f32]
+        [--only long short_fwd short_bwd headfold epilogue uniter f32 long_dropout]
 
-Seven groups, all by default (``--only`` picks some):
+Eight groups, all by default (``--only`` picks some):
 
 - ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36,
   batch 256; #2 (``fused_attention_long_cuda``) at ViLT's 165x165,
@@ -54,6 +54,22 @@ Seven groups, all by default (``--only`` picks some):
   with a digest of the kernel's outputs: the inputs come from a generator
   seeded for this group alone, so two checkouts' equal digests mean
   bit-identical outputs;
+- ``long_dropout``: the long-stream pair with and without dropout, 4L
+  (``fused_attention_dropout_long_cuda``, rate 0.1), #2, 5L
+  (``fused_attention_dropout_long_bwd_cuda``) and #3L
+  (``fused_attention_long_bwd_cuda``), the backward on both routes where
+  the checkout has them (``dbias``: D by a sweep of its own and the bias
+  gradient; ``no dbias``: D from the forward's output, what every model
+  path runs), at ``LONG_DROPOUT_CASES`` (UNITER's 76 x 76 at batch 32, 64
+  and 256, 64 x 64 at 256 through the same long bodies, ViLT-B/32's 165,
+  185, 65 x 185 and 185 x 65 at 256, 277 at 256, 597 at 64), bf16, the
+  inputs and masks of ``chip_smoke.phase_long_dropout_kernels``, from a
+  generator seeded for this group alone; each beside its bound
+  (``chip_smoke._bound_ms``) and SDPA with ``dropout_p`` (forward; its
+  backward as forward + backward less forward), every time the device
+  time per call summed over every device event of the call, with max
+  |kernel - plain| and a digest of the outputs (equal digests across two
+  checkouts mean bit-identical outputs);
 
 the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
@@ -85,18 +101,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
 
-GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue", "uniter", "f32")
+GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue", "uniter", "f32", "long_dropout")
 E, HEADS = 768, 12
 
 
-def device_us(fn, iters: int, match: str | None = "fused_attention") -> float | None:
+def device_us(fn, iters: int, match: str | None = "fused_attention", by_kernel: dict | None = None) -> float | None:
     """Device time per call of ``fn``: the durations of the device events
     it causes whose name holds ``match`` (all of them when None), summed
     over ``iters`` calls under torch.profiler, after a warm-up step of as
     many calls that the profiler traces and discards (the first events of
     a profile are now and then lost).  A profile whose matching events are
     not a whole multiple of the calls lost some and is taken again; None
-    when three in a row did."""
+    when three in a row did.  ``by_kernel``, when given, receives each
+    matching kernel's share per call, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -112,8 +129,19 @@ def device_us(fn, iters: int, match: str | None = "fused_attention") -> float | 
                 if e.device_time_total > 0 and (match is None or match in e.key)]
         events = sum(e.count for e in rows)
         if events and events % iters == 0:
+            if by_kernel is not None:
+                by_kernel.update({_kernel_name(e.key): e.device_time_total / iters for e in rows})
             return sum(e.device_time_total for e in rows) / iters
     return None
+
+
+def _kernel_name(key: str) -> str:
+    """``long_bwd_dq_bf16<true, false>`` from a profiler key (namespace,
+    return type and arguments dropped)."""
+    import re
+
+    m = re.search(r"(\w+(?:<[^()]*>)?)\(", key)
+    return m.group(1) if m else key
 
 
 def _device(us: float | None) -> str:
@@ -155,7 +183,8 @@ def main(argv=None) -> None:
                "headfold": ("fused_attention", "headfold"),
                "epilogue": ("fused_attention", "epilogue"),
                "uniter": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout"),
-               "f32": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout")}
+               "f32": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout"),
+               "long_dropout": ("fused_attention_long", "fused_attention_long_bwd")}
     built = build_all(tuple(dict.fromkeys(n for grp in args.only for n in sources[grp])))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -183,6 +212,8 @@ def main(argv=None) -> None:
         _uniter(att, gen, args.iters, rate, seed)
     if "f32" in args.only:
         _f32(att, args.iters, rate, seed)
+    if "long_dropout" in args.only:
+        _long_dropout(att, args.iters, rate, seed)
 
 
 # #2's timed shapes: ViLT-B/32 at 384 px (165 training, 185 serving) and
@@ -405,10 +436,13 @@ def _uniter(att, gen, iters: int, rate: float, seed: int) -> None:
 
 def _digest(out) -> str:
     """The first 12 hex digits of the SHA-1 of an output's (or outputs')
-    bytes."""
+    bytes, None outputs skipped."""
+    import torch
+
     h = hashlib.sha1()
     for t in out if isinstance(out, tuple) else (out,):
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        if t is not None:  # the bias gradient that a route does not compute
+            h.update(t.detach().contiguous().flatten().view(torch.uint8).cpu().numpy().tobytes())
     return h.hexdigest()[:12]
 
 
@@ -458,6 +492,93 @@ def _f32(att, iters: int, rate: float, seed: int) -> None:
                   f"sdpa device {_device(lib_dev)}; bound {bound * 1e3:.1f} us ({by}); "
                   f"max|kernel-plain| {err:.3e}; digest {_digest(got)}", flush=True)
         del q, k, v, g, bias, lib
+        torch.cuda.empty_cache()
+
+
+def _blocks_per_sm() -> str:
+    """The long bf16 bodies' blocks an SM, from their sources' occupancy
+    entry points (absent from checkouts before them)."""
+    import ctypes
+
+    from rgqa_tpu_torch.ops._build import load_library
+
+    out = []
+    for src, sym, names in (
+            ("fused_attention_long", "rgqa_fused_attention_long_occupancy",
+             ("#2 1 WG", "4L 1 WG", "#2 2 WG", "4L 2 WG")),
+            ("fused_attention_long_bwd", "rgqa_fused_attention_long_bwd_occupancy",
+             ("dq #3L", "dq #3L dbias", "dq 5L", "dq 5L dbias", "dkv #3L", "dkv #3L dbias", "dkv 5L",
+              "dkv 5L dbias"))):
+        lib = load_library(src)
+        if not hasattr(lib, sym):
+            out.append(f"{src}: not reported")
+            continue
+        arr = (ctypes.c_int * len(names))()
+        err = getattr(lib, sym)(arr)
+        out.append(f"{src}: " + (f"error {err}" if err else ", ".join(f"{n} {v}" for n, v in zip(names, arr))))
+    return "; ".join(out)
+
+
+# (shape, batch) of the long_dropout group.
+LONG_DROPOUT_CASES = (((76, 76), 32), ((76, 76), 64), ((76, 76), 256), ((64, 64), 256),
+                      ((165, 165), 256), ((185, 185), 256), ((65, 185), 256), ((185, 65), 256),
+                      ((277, 277), 256), ((597, 597), 64))
+
+
+def _long_dropout(att, iters: int, rate: float, seed: int) -> None:
+    """4L / #2 / 5L / #3L at LONG_DROPOUT_CASES beside bound and SDPA."""
+    import torch
+
+    from chip_smoke import (UNITER_LONG_TEXT, _attention_inputs, _bound_ms, _pad_patch_bias, _sdpa_calls,
+                            _uniter_bias)
+
+    routes = {"dbias": {}}
+    if "dbias" in inspect.signature(att.fused_attention_long_bwd_cuda).parameters:
+        routes["no dbias"] = {"dbias": False}
+    print("blocks an SM: " + _blocks_per_sm(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    for (sq, skv), b in LONG_DROPOUT_CASES:
+        q, k, v, g, _ = _attention_inputs(b, sq, skv, torch.bfloat16, gen)
+        bias = (_uniter_bias(b, gen, UNITER_LONG_TEXT) if (sq, skv) == (76, 76)
+                else _pad_patch_bias(b, skv, gen))
+        out4, lse4 = att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, rate, seed, lse=True)
+        out2, lse2 = att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)
+        plain_drop = att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS, rate, seed)
+        plain = att.attention_bwd_ref(q, k, v, bias, g, HEADS)
+        calls = [("4L", lambda: att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, rate, seed),
+                  lambda: att.attention_dropout_ref(q, k, v, bias, HEADS, rate, seed)),
+                 ("#2", lambda: att.fused_attention_long_cuda(q, k, v, bias, HEADS),
+                  lambda: att.attention_natural_ref(q, k, v, bias, HEADS))]
+        for route, kw in routes.items():
+            kw5 = dict(kw, out=out4) if kw else kw
+            kw3 = dict(kw, out=out2) if kw else kw
+            calls += [(f"5L ({route})",
+                       lambda kw=kw5: att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, rate, seed,
+                                                                                lse4, **kw),
+                       lambda: plain_drop),
+                      (f"#3L ({route})",
+                       lambda kw=kw3: att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, lse2, **kw),
+                       lambda: plain)]
+        lib = _sdpa_calls(q, k, v, g, bias)
+        sdpa_fwd = device_us(lib["drop"], iters, match=None)
+        sdpa_all = device_us(lib["drop_fwd_bwd"], iters, match=None)
+        sdpa = {"fwd": sdpa_fwd,
+                "bwd": None if sdpa_fwd is None or sdpa_all is None else sdpa_all - sdpa_fwd}
+        for label, call, ref in calls:
+            backward = label.startswith(("5L", "#3L"))
+            got, want = call(), ref()
+            pairs = zip(got[:3], want[:3]) if backward else [(got, want)]
+            err = max((x.float() - w.float()).abs().max().item() for x, w in pairs)
+            name = "fused_attention_long_bwd" if backward else "fused_attention_long"
+            bound, by = _bound_ms(name, b, sq, skv, 2)
+            parts = {}
+            us = device_us(call, iters, match=None, by_kernel=parts)
+            split = " (" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")" if len(parts) > 1 else ""
+            print(f"bfloat16 B={b} {sq}x{skv} {label}: device {_device(us)}{split}, "
+                  f"bound {bound * 1e3:.1f} us ({by}), sdpa dropout {'bwd' if backward else 'fwd'} device "
+                  f"{_device(sdpa['bwd' if backward else 'fwd'])}; max|kernel-plain| {err:.3e}; "
+                  f"digest {_digest(got)}", flush=True)
+        del q, k, v, g, bias, out4, lse4, out2, lse2, plain_drop, plain, calls, lib
         torch.cuda.empty_cache()
 
 

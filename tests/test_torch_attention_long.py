@@ -44,7 +44,10 @@ Tests marked ``cuda`` hold the long-stream Hopper kernels
 (``csrc/fused_attention_long.cu``, ``csrc/fused_attention_long_bwd.cu``)
 to the plain versions at ViLT's shapes, either side of 256 keys, at
 277 and 597 tokens and (the forward) across the bf16 body's grid on the
-card, the backward's two runs bit for bit, and skip without one (run them there with
+card, the backward's two runs bit for bit, the backward's route without
+the bias gradient (D from the forward's output, no sweep) too, and the
+autograd Function's choice of route by whether the bias takes a
+gradient; they skip without one (run them there with
 ``python -m pytest --noconftest -m cuda tests/test_torch_attention_long.py``).
 """
 
@@ -573,3 +576,74 @@ def test_long_streams_raise_where_no_kernel_exists(cuda):
     att.fused_attention_dropout(q, q, q, None, num_heads=12, rate=0.1, seed=1).sum().backward()
     assert (att.fused_attention_dropout_long_cuda.launches,
             att.fused_attention_dropout_long_bwd_cuda.launches) == (drops[0] + 1, drops[1] + 1)
+
+
+def _card_bwd_inputs(cuda, b, sq, skv, dtype, seed):
+    """q, k, v (column views of one fused product), g and the bias on the
+    card, 12 heads of 64, as test_long_bwd_kernel_matches_plain_on_card
+    makes them."""
+    e = 768
+    q, k, v, bias = _inputs(b, sq, skv, e=e, seed=seed)
+    g = np.random.default_rng(seed + 1).standard_normal(q.shape, dtype=np.float32)
+    tdt = getattr(torch, dtype)
+    if sq == skv:
+        tq, tk, tv = torch.from_numpy(np.concatenate([q, k, v], -1)).to(cuda, tdt).split(e, -1)
+    else:
+        tq = torch.from_numpy(q).to(cuda, tdt)
+        tk, tv = torch.from_numpy(np.concatenate([k, v], -1)).to(cuda, tdt).split(e, -1)
+    return tq, tk, tv, torch.from_numpy(g).to(cuda, tdt), torch.from_numpy(bias).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,skv", [(76, 76)] + CARD_SHAPES + BEYOND_SHAPES)
+def test_long_bwd_without_dbias_matches_plain_on_card(cuda, sq, skv, dtype):
+    # The route every model path runs: D = rowsum(g o out) from the
+    # forward's output instead of a sweep, no bias gradient.
+    tq, tk, tv, tg, tbias = _card_bwd_inputs(cuda, 7, sq, skv, dtype, seed=sq * skv)
+    out, lse = att.fused_attention_long_cuda(tq, tk, tv, tbias, 12, lse=True)
+    before = att.fused_attention_long_bwd_cuda.launches
+    got = att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12, lse, dbias=False, out=out)
+    want = att.attention_bwd_ref(tq, tk, tv, tbias, tg, 12)
+    torch.cuda.synchronize()
+    assert att.fused_attention_long_bwd_cuda.launches == before + 1
+    assert got[3] is None
+    atol, rtol = BWD_CARD_TOL[dtype]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == w.dtype and torch.isfinite(a.float()).all(), name
+        err = (a.float() - w.float()).abs()
+        assert bool((err <= atol + rtol * w.float().abs()).all()), (
+            f"{name}: max |kernel - plain| {err.max().item():.3e} over {atol} + {rtol}|plain|")
+    again = att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12, lse, dbias=False, out=out)
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again[:3]))
+    with pytest.raises(ValueError, match="dbias=False takes the forward's output"):
+        att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12, lse, dbias=False)
+    with pytest.raises(ValueError, match="out is taken only with dbias=False"):
+        att.fused_attention_long_bwd_cuda(tq, tk, tv, tbias, tg, 12, lse, out=out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_grad", [True, False])
+@pytest.mark.parametrize("sq,skv", [(76, 76), (165, 165)])
+def test_long_autograd_takes_the_exact_route_for_a_bias_gradient(cuda, sq, skv, bias_grad):
+    # A bias that takes a gradient gets it from the exact route (D's sweep),
+    # within the bf16 dbias bound; one that does not gets None, and #3L
+    # takes D from the saved output.  q, k, v's gradients match the plain
+    # pair either way.
+    tq, tk, tv, tg, tbias = _card_bwd_inputs(cuda, 3, sq, skv, "bfloat16", seed=sq + 11)
+    leaves = [t.detach().clone().requires_grad_() for t in (tq, tk, tv)]
+    bias = tbias.clone().requires_grad_(bias_grad)
+    before = att.fused_attention_long_bwd_cuda.launches
+    att.fused_attention(*leaves, bias, num_heads=12).backward(tg)
+    assert att.fused_attention_long_bwd_cuda.launches == before + 1
+    want = att.attention_bwd_ref(tq, tk, tv, tbias, tg, 12)
+    atol, rtol = BWD_CARD_TOL["bfloat16"]
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        err = (leaf.grad.float() - w.float()).abs()
+        assert bool((err <= atol + rtol * w.float().abs()).all()), name
+    if bias_grad:
+        atol, rtol = BWD_CARD_TOL["dbias_bf16"]
+        err = (bias.grad - want[3]).abs()
+        assert bool((err <= atol + rtol * want[3].abs()).all()), err.max().item()
+    else:
+        assert bias.grad is None

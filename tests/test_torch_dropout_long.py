@@ -22,8 +22,11 @@ plain pair, which these tests hold:
   CPU dispatch to the plain pair at length.
 
 Tests marked ``cuda`` hold 4L / 5L under autograd to the plain pair and
-count their launches, and skip without a card (``python -m pytest
---noconftest -m cuda tests/test_torch_dropout_long.py`` there).
+count their launches, hold 5L on both of its routes (D by a sweep of its
+own with the bias gradient, or D from 4L's output without it) to the
+plain pair and at rate 0 to #3L bit for bit, and check that only a bias
+that takes a gradient gets one; they skip without a card (``python -m
+pytest --noconftest -m cuda tests/test_torch_dropout_long.py`` there).
 """
 
 from __future__ import annotations
@@ -282,3 +285,56 @@ def test_long_dropout_kernels_match_plain_on_card(cuda, s, dtype):
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), grads, want_grads):
         tol = (1e-3, 1e-4) if name == "dbias" and dtype == "bfloat16" else (atol, rtol)
         torch.testing.assert_close(a.float(), w.float(), atol=tol[0], rtol=tol[1], msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", PAIR_SHAPES)
+def test_5l_routes_match_plain_and_rate_0_is_3l_on_card(cuda, s, dtype):
+    # 5L on both routes (dbias: D by a sweep of its own; without: D from
+    # 4L's dropped output) against the plain pair, and at rate 0 equal to
+    # #3L on the same route bit for bit, with 4L equal to #2.
+    dt = getattr(torch, dtype)
+    q, k, v, g, bias = (t.to(cuda) for t in _pair_inputs(s, seed=s + 1, b=3))
+    q, k, v, g = (t.to(dt) for t in (q, k, v, g))
+    seed = 7 + s
+    out, lse = att.fused_attention_dropout_long_cuda(q, k, v, bias, PAIR_H, RATE, seed, lse=True)
+    want = att.attention_dropout_bwd_ref(q, k, v, bias, g, PAIR_H, RATE, seed)
+    atol, rtol = (1e-4, 0.0) if dtype == "float32" else (3e-2, 1e-2)
+    for kw in ({}, {"dbias": False, "out": out}):
+        got = att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, PAIR_H, RATE, seed, lse, **kw)
+        assert (got[3] is None) == bool(kw)
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(a.float(), w.float(), atol=atol, rtol=rtol, msg=name)
+    out0, lse0 = att.fused_attention_dropout_long_cuda(q, k, v, bias, PAIR_H, 0.0, seed, lse=True)
+    out2, lse2 = att.fused_attention_long_cuda(q, k, v, bias, PAIR_H, lse=True)
+    assert torch.equal(out0, out2) and torch.equal(lse0, lse2)
+    for kw0, kw2 in (({}, {}), ({"dbias": False, "out": out0}, {"dbias": False, "out": out2})):
+        got = att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, PAIR_H, 0.0, seed, lse0, **kw0)
+        ref = att.fused_attention_long_bwd_cuda(q, k, v, bias, g, PAIR_H, lse2, **kw2)
+        assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias_grad", [True, False])
+@pytest.mark.parametrize("s", PAIR_SHAPES)
+def test_5l_autograd_gives_dbias_only_to_a_bias_that_takes_one(cuda, s, bias_grad):
+    # bf16 under autograd: a bias with requires_grad takes the exact route
+    # and its gradient within the bf16 dbias bound; one without gets None
+    # (5L takes D from 4L's saved output).  q, k, v's gradients match the
+    # plain pair either way.
+    q, k, v, g, bias = (t.to(cuda) for t in _pair_inputs(s, seed=s + 2, b=3))
+    q, k, v, g = (t.bfloat16() for t in (q, k, v, g))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    tbias = bias.clone().requires_grad_(bias_grad)
+    seed = 11 + s
+    before = att.fused_attention_dropout_long_bwd_cuda.launches
+    att.fused_attention_dropout(*leaves, tbias, num_heads=PAIR_H, rate=RATE, seed=seed).backward(g)
+    assert att.fused_attention_dropout_long_bwd_cuda.launches == before + 1
+    want = att.attention_dropout_bwd_ref(q, k, v, bias, g, PAIR_H, RATE, seed)
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        torch.testing.assert_close(leaf.grad.float(), w.float(), atol=3e-2, rtol=1e-2, msg=name)
+    if bias_grad:
+        torch.testing.assert_close(tbias.grad, want[3], atol=1e-3, rtol=1e-4)
+    else:
+        assert tbias.grad is None

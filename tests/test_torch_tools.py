@@ -1,7 +1,8 @@
 """The port's card scripts, as far as the CPU reaches them: ``chip_smoke.py``
 refuses to run without a card or without the repository and imports
-nothing of JAX, ``tools/time_attention.py`` refuses to run without a card
-and takes its groups by name, and the forward profile's kernel classes."""
+nothing of JAX, ``tools/time_attention.py`` refuses to run without a card,
+takes its groups by name and names each kernel of a call, and the
+forward profile's kernel classes and its ``--text_len`` batches."""
 
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
     assert '"ok"' not in proc.stdout
 
 
-@pytest.mark.parametrize("only", [[], ["short_fwd"], ["long", "short_bwd"], ["headfold"], ["epilogue"]])
+@pytest.mark.parametrize("only", [[], ["short_fwd"], ["long", "short_bwd"], ["headfold"], ["epilogue"],
+                                  ["long_dropout"]])
 def test_time_attention_needs_a_card(only):
     if __import__("torch").cuda.is_available():
         pytest.skip("a card is present: the timing would run")
@@ -121,6 +123,12 @@ def test_time_attention_refuses_unknown_groups():
         ("void (anonymous namespace)::long_bwd_rows_bf16<24>((anonymous namespace)::Args)", "attention backward"),
         ("(anonymous namespace)::long_bwd_keys_bf16((anonymous namespace)::Args)", "attention backward"),
         ("(anonymous namespace)::long_bwd_keys_f32((anonymous namespace)::Args)", "attention backward"),
+        ("void (anonymous namespace)::long_bwd_dq_bf16<true, false>((anonymous namespace)::Args)",
+         "attention backward"),
+        ("void (anonymous namespace)::long_bwd_dkv_bf16<false, true>((anonymous namespace)::Args)",
+         "attention backward"),
+        ("void (anonymous namespace)::fused_attention_long_wgmma<2, true>((anonymous namespace)::Args)",
+         "attention kernel"),
         ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64_cublas", "matmul"),
         ("nvjet_tst_128x64_64x8_1x2_h_bz_TNN", "matmul"),
         ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<c10::BFloat16, float>", "layer norm"),
@@ -144,8 +152,11 @@ def test_profile_kernel_classes(name, cls):
 
 @pytest.mark.parametrize("flags", [[], ["--train"], ["--scorers"],
                                    ["--train", "--strategy", "weight", "--update_weight_model"],
-                                   ["--pretrain"], ["--vqa"]],
-                         ids=["forward", "train", "scorers", "weight_model", "pretrain", "vqa"])
+                                   ["--pretrain"], ["--vqa"],
+                                   ["--backbone", "uniter", "--text_len", "40", "--train"],
+                                   ["--backbone", "uniter", "--text_len", "40", "--scorers", "dropout"]],
+                         ids=["forward", "train", "scorers", "weight_model", "pretrain", "vqa",
+                              "uniter76_train", "uniter76_mc_dropout"])
 def test_profile_forward_needs_a_card(flags):
     if __import__("torch").cuda.is_available():
         pytest.skip("a card is present: the profile would run")
@@ -153,6 +164,53 @@ def test_profile_forward_needs_a_card(flags):
 
     with pytest.raises(SystemExit, match="no CUDA device"):
         profile_forward.main([*flags, "--iters", "1"])
+
+
+@pytest.mark.parametrize(
+    "key, name",
+    [
+        ("void (anonymous namespace)::long_bwd_dq_bf16<true, false>((anonymous namespace)::Args)",
+         "long_bwd_dq_bf16<true, false>"),
+        ("(anonymous namespace)::fused_attention_dbias_sum(float const*, float*, int, int, int)",
+         "fused_attention_dbias_sum"),
+        ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<float>, "
+         "std::array<char*, 1ul> >(int, at::native::FillFunctor<float>, std::array<char*, 1ul>)",
+         "vectorized_elementwise_kernel<4, at::native::FillFunctor<float>, std::array<char*, 1ul> >"),
+        ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD (Device -> Device)"),
+    ],
+)
+def test_time_attention_names_each_kernel_of_a_call(key, name):
+    # The long_dropout group splits a call's device time by kernel: the
+    # name without namespace, return type or arguments.
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("time_attention", TIME_ATTENTION)
+    ta = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ta)
+    assert ta._kernel_name(key) == name
+
+
+def test_profile_forward_text_len_pads_the_questions():
+    # --text_len sets UNITER's max_text_len (40: a 76-token stream) and
+    # cuts each row's question to 4-40 tokens, as the synthetic split.
+    from rgqa_tpu_torch.tools import profile_forward as pf
+
+    cfg = pf._config("uniter", 40)
+    assert cfg.max_text_len == 40 and pf._config("uniter", None).max_text_len != 40
+    batch = pf._example(cfg, 16, 40)
+    mask = batch["input_mask"]
+    assert mask.shape == (16, 40)
+    lengths = mask.sum(1)
+    assert lengths.min() >= 4 and lengths.max() <= 40 and len(set(lengths.tolist())) > 1
+    assert (batch["input_ids"][mask == 0] == 0).all()
+    assert (pf._example(cfg, 16, None)["input_mask"] == 1).all()
+
+
+def test_profile_forward_refuses_unknown_scorers():
+    from rgqa_tpu_torch.tools import profile_forward as pf
+
+    with pytest.raises(SystemExit, match="unknown scorers"):
+        pf._scorer_cases([8], "uniter", ["nope"], 40)
 
 
 def test_profile_serve_needs_a_card():
