@@ -27,7 +27,11 @@ nonzero:
    ``fused_attention_bwd_short_f32<kDrop, kPerLane>``, one softmax key a
    lane up to 32 keys): registers and spills from ptxas, and the dynamic
    shared memory of their layouts at 20x20 (one key a lane), 36x36 and
-   50x50, as the short bf16 bodies' line (reported, not held).
+   50x50, as the short bf16 bodies' line (reported, not held).  Since
+   slice 26 a line gives the long f32 bodies' instances (#2 / 4L
+   ``fused_attention_long_f32`` and ``_tiled_f32``, #3L / 5L
+   ``long_bwd_{dq,dkv}_f32``): registers and spills, and blocks an SM
+   from the sources' f32 occupancy entry points (reported, not held).
 3. kernels: the six attention kernels of slices 1-23 against their plain
    PyTorch versions (4L / 5L: phase 51).  #2, the long-stream forward, and #3L, the long-stream
    backward (given #2's row statistics), at ViLT-B/32's shapes (165x165,
@@ -59,8 +63,8 @@ nonzero:
    the same function (``scaled_dot_product_attention``: forward; forward
    plus backward less forward; with ``dropout_p``), at batch 256 (#3 and
    #5, and since slice 8 #1 and #4, in bf16 at batch 64 too; #2 and
-   #3L at 165, 185 and 277 tokens, batch 256, and 597 tokens, batch 64;
-   #3L in bf16 only: its f32 body is checked, not timed).  Slice 8
+   #3L at 165, 185 and 277 tokens, batch 256, and 597 tokens, batch 64,
+   f32 and bf16, #3L on the model's route, without dbias).  Slice 8
    redesigned #1 / #4's bf16 body (one pass in registers, the dropout
    mask drawn once per 16 keys): the checks above hold it as they held
    the first design, #1 and #4 are timed at batch 64 in bf16 too, and
@@ -433,9 +437,10 @@ nonzero:
    f32; two runs at 165 give equal bits; the mask read out through a
    one-hot V (64 keys a call) equals ``dropout_keep_mask_ref`` bit for
    bit in each body (f32 whole-row at 76, key-tiled at 277, the bf16
-   ``wgmma`` body at both), its kept fraction within 5 sigma.  bf16
-   CUDA-event times of 4L, 5L, the plain pair and SDPA with
-   ``dropout_p=0.1`` beside the bound, at every shape.
+   ``wgmma`` body at both), its kept fraction within 5 sigma.  Device
+   times of 4L, 5L (both routes), #3L and SDPA with ``dropout_p=0.1``,
+   the plain pair's CUDA-event times, beside the bound: bf16 at every
+   shape, f32 at UNITER-76's batch 32 and ViLT's 165 at batch 256.
 52. UNITER at 76 tokens (``max_text_len`` 40), full width: RP steps at
    dropout 0.1 through the kernels and the plain versions (12 4L and 12
    5L launches a step, none of #4 / #5; ms a step in turns), one step's
@@ -449,7 +454,17 @@ nonzero:
    gloo ranks on cuda:0, started before phase 52 and run beside it, each
    with the JAX dry run's assertions, the tiny one's loss within
    ``DP_RTOL`` of one process's at the global batch of 4.
-54. the kernels' JSON line (times: the sum over the LXMERT shapes, and
+54. the f32 model paths (slice 26) through the long f32 bodies, full
+   width under ``--fp32`` (f32 weights and products, no TF32): ViLT-B/32
+   RP steps at 185 tokens (40-token text), batch 32 + RP, at dropout 0.1
+   and 0 (12 #2 and 12 #3L a step at both: ViLT has no attention
+   dropout), and UNITER-76 RP steps at dropout 0.1 (12 4L and 12 5L),
+   each one step through the kernels and through the plain versions from
+   one init and the same seeds: the loss within ``F32_LOSS_RTOL``, every
+   gradient within ``F32_BAR`` (1e-4 + 1e-4 |plain|), ms a step in turns;
+   a ViLT evaluation forward at batch 256 (12 #2), its logits within
+   ``F32_BAR`` of the plain forward's.
+55. the kernels' JSON line (times: the sum over the LXMERT shapes, and
    for #2 and #3L over 165x165 and 185x185, bf16, batch 256; for 4L / 5L
    one call at UNITER-76's batch 32; for the four experiment kernels the
    sum over their shapes and variants at batch 384), the nvidia-smi
@@ -458,7 +473,7 @@ nonzero:
 The order: phases 1-3, 51 and 13 (without its entry points) run first,
 alone on the card, since their times go into the kernels' line.  Then
 three lanes run side by side, each phase of a lane after the one before
-it: lane a in this process (4-12, 28-34, 52-53), lanes b (14-27, 35-36)
+it: lane a in this process (4-12, 28-34, 52-54), lanes b (14-27, 35-36)
 and c (13's entry points, 37-50) each in a child process of its own
 (``chip_smoke.py --lane b|c``, in a session of its own, ended with what
 it started when the run ends), whose output is printed as it ends.  Each
@@ -708,6 +723,7 @@ def phase_build():
     _wgmma_report(results["headfold"])
     _long_wgmma_report(results["fused_attention_long"])
     _long_bwd_report(results["fused_attention_long_bwd"])
+    _long_f32_report(results)
     _epilogue_report(results["epilogue"])
     _short_body_report(results)
 
@@ -939,6 +955,32 @@ def _long_bwd_report(res) -> None:
         + ("" if hgmma is not None else "; cuobjdump not in the toolkit: SASS not read"))
     if hgmma is not None and (len(hgmma) != 8 or not all(hgmma.values())):
         raise AssertionError(f"#3L / 5L's bf16 passes lack HGMMA in some instance: {hgmma}")
+
+
+# The long f32 bodies: #2 / 4L fused_attention_long_f32<kDrop, kPerLane>
+# and fused_attention_long_tiled_f32<kDrop>, #3L / 5L long_bwd_{dq,dkv}_f32
+# <kDrop, kExact>.
+LONG_F32_KERNEL = re.compile(r"(fused_attention_long_f32|fused_attention_long_tiled_f32|long_bwd_dq_f32|"
+                             r"long_bwd_dkv_f32)I((?:L[bi]\d+E)+)")
+
+
+def _long_f32_report(results) -> None:
+    """Registers, spills and static shared memory of the long f32 bodies'
+    instances from the build log, and blocks an SM from the sources'
+    occupancy entry points at their dynamic shared memory (the forward's
+    whole-row body at 76, 185 and 256 keys); reported, not held."""
+    parts = []
+    for src in ("fused_attention_long", "fused_attention_long_bwd"):
+        for fn, r in sorted(_ptxas_resources(results[src].log).items()):
+            if m := LONG_F32_KERNEL.search(fn):
+                args = ", ".join(re.findall(r"L[bi](\d+)E", m.group(2)))
+                parts.append(f"{m.group(1)}<{args}>: {r['registers']} registers, spill "
+                             f"{r['spill_stores']}/{r['spill_loads']} B stores/loads")
+    fwd = _blocks_per_sm(results["fused_attention_long"], "rgqa_fused_attention_long_f32_occupancy", 4)
+    bwd = _blocks_per_sm(results["fused_attention_long_bwd"], "rgqa_fused_attention_long_bwd_f32_occupancy", 4)
+    log("build", "long f32 bodies: " + ("; ".join(parts) or "reused builds, no ptxas log") + "; blocks an SM: "
+        f"whole-row forward at 76 / 185 / 256 keys {fwd[0]} / {fwd[1]} / {fwd[2]}, key-tiled forward {fwd[3]}, "
+        f"dQ pass {bwd[0]} (dbias {bwd[1]}), dK/dV pass {bwd[2]} (dbias {bwd[3]})")
 
 
 def _epilogue_report(res) -> None:
@@ -1351,8 +1393,10 @@ def _long_kernel(att, gen, errs, times):
     of 256 keys and beyond (277 and 597 tokens), #3L on both routes (with
     dbias, and without: D from #2's output); #2 with its row statistics
     gives the same output bits, and in f32 their log-sum-exp is the plain
-    scores'; #3L's two runs bit for bit; times at LONG_TIMED (#3L in bf16,
-    without dbias, as ViLT's training step runs it)."""
+    scores'; #3L's two runs bit for bit; times at LONG_TIMED, f32 and bf16
+    (#3L without dbias, as ViLT's training step runs it; in f32 10 calls a
+    timing, the plain versions' hundreds of launches a call the most of
+    it)."""
     import torch
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -1392,16 +1436,15 @@ def _long_kernel(att, gen, errs, times):
                 if dtype == torch.float32:
                     msg += "; " + _lse_check(q, k, bias, lse)
                 if b > 7 and (sq, skv) in LONG_TIMED:
+                    kw = {} if dtype == torch.bfloat16 else {"iters": 10}
                     lib = _sdpa_calls(q, k, v, g, bias)
-                    library = {"fused_attention_long": cuda_ms(lib["fwd"])}
-                    timed = ["fused_attention_long"]
-                    if dtype == torch.bfloat16:
-                        library["fused_attention_long_bwd"] = (
-                            cuda_ms(lib["fwd_bwd"]) - library["fused_attention_long"])
-                        timed.append("fused_attention_long_bwd")
+                    library = {"fused_attention_long": cuda_ms(lib["fwd"], **kw)}
+                    library["fused_attention_long_bwd"] = (
+                        cuda_ms(lib["fwd_bwd"], **kw) - library["fused_attention_long"])
+                    timed = ["fused_attention_long", "fused_attention_long_bwd"]
                     for name in timed:  # #3L on the model's route
                         kernel = no_dbias if name == "fused_attention_long_bwd" else calls[name][0]
-                        plain_ms, kernel_ms = in_turns(calls[name][1], kernel)
+                        plain_ms, kernel_ms = in_turns(calls[name][1], kernel, **kw)
                         bound, _ = _bound_ms(name, b, sq, skv, q.element_size())
                         times[(name, dname, sq, skv)] = (kernel_ms, plain_ms, library[name], bound)
                     msg += "; us kernel/plain/library/bound: " + ", ".join(
@@ -1690,15 +1733,19 @@ def _caps_pairs(batch: dict, rng) -> dict:
     return {"segment_ids": seg.astype(np.int32)}
 
 
-def _train_model(dropout: float, backbone: str, patch: int | None = None, text: int | None = None):
+def _train_model(dropout: float, backbone: str, patch: int | None = None, text: int | None = None,
+                 fp32: bool = False):
+    """A full-width model for training steps: f32 master weights and bf16
+    compute (``fp32``: f32 compute, as ``--fp32``); ``text`` the question
+    length where not the backbone's (ViLT's default: the train CLI's)."""
     import torch
     from rgqa_tpu_torch.models.zoo import build_model, default_config
 
     cfg = default_config(backbone)
+    if backbone == "vilt" and text is None:
+        text = VILT_TRAIN_TEXT
     if text is not None:
         cfg = dataclasses.replace(cfg, max_text_len=text)
-    if backbone == "vilt":
-        cfg = dataclasses.replace(cfg, max_text_len=VILT_TRAIN_TEXT)
     if backbone == "caps":
         cfg = dataclasses.replace(cfg, num_answers=1)  # the match logit
     if patch is not None:
@@ -1706,7 +1753,7 @@ def _train_model(dropout: float, backbone: str, patch: int | None = None, text: 
     cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
         cfg.encoder, hidden_dropout=dropout, attention_dropout=dropout))
     model, forward = build_model(
-        cfg, use_bf16=True, device="cuda",
+        cfg, use_bf16=not fp32, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(0), train=True,
     )
     return cfg, model, forward
@@ -5369,6 +5416,8 @@ UNITER_LONG = (UNITER_LONG_TEXT + 36,) * 2
 DROP_LONG_CASES = ((UNITER_LONG, 32), (UNITER_LONG, 64), (UNITER_LONG, 256), ((165, 165), 256),
                    ((185, 185), 256), ((65, 185), 256), ((185, 65), 256), ((277, 277), 256), ((597, 597), 64))
 DROP_LONG_MAIN = (UNITER_LONG, 32)  # the JSON line's shape: the UNITER-76 step's calls
+# The f32 bodies are timed at UNITER-76's step and ViLT-B/32's 165 tokens.
+DROP_LONG_F32_TIMED = ((UNITER_LONG, 32), ((165, 165), 256))
 DROP_LONG_ITERS = 20  # calls a device-time profile
 
 
@@ -5414,7 +5463,8 @@ def phase_long_dropout_kernels():
     v>`` in f32; two runs at 165 tokens equal bit for bit; the mask read
     out in both bodies of each dtype; per-call device times of 4L, 5L on
     both routes, #3L on the model's and SDPA with ``dropout_p``, the plain
-    versions' by CUDA events, in bf16.  Returns (errs, times) as phase 3,
+    versions' by CUDA events, in bf16 at every shape and in f32 at
+    DROP_LONG_F32_TIMED.  Returns (errs, times) as phase 3,
     the times keyed by label ("4L", "5L" the model's route, "5L dbias",
     "#3L")."""
     import torch
@@ -5499,7 +5549,7 @@ def phase_long_dropout_kernels():
                     raise AssertionError(f"<g, out> {lhs} != <dv, v> {rhs} at {dname} B={b} {sq}x{skv}")
                 msg += f"; <g,out>/<dv,v> - 1 = {lhs / rhs - 1:.1e}"
                 del dv
-            else:
+            if dtype == torch.bfloat16 or ((sq, skv), b) in DROP_LONG_F32_TIMED:
                 lib = _sdpa_calls(q, k, v, g, bias)
                 drop_ms = dev_ms(lib["drop"])
                 library = {"4L": drop_ms, "5L": dev_ms(lib["drop_fwd_bwd"]) - drop_ms}
@@ -5700,6 +5750,109 @@ def phase_slice24() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 54 (slice 26): the f32 model paths through the long f32 bodies.
+# ---------------------------------------------------------------------------
+
+# The kernels against the plain versions in f32, on the same weights and
+# seeds: the f32 bodies sum their products in another order than the
+# plain einsums (a few 1e-6 apart at an attention output, phase 3), which
+# 12 layers carry into the loss at round-off's size: 1e-5 relative holds
+# it with room.  Every gradient, and a forward's logits, within the f32
+# bar 1e-4 + 1e-4 |plain| (TOL's f32 1e-4, plus a relative term for the
+# large ones).
+F32_LOSS_RTOL = 1e-5
+F32_BAR = (1e-4, 1e-4)
+VILT_F32_TEXT = 40  # ViLT-B/32 at 40-token text: the 185-token stream
+
+
+def _within_bar(got, want) -> tuple[float, bool]:
+    """max |got - want| and whether every element is within F32_BAR."""
+    diff = (got.float() - want.float()).abs()
+    return diff.max().item(), bool((diff <= F32_BAR[0] + F32_BAR[1] * want.float().abs()).all())
+
+
+def _f32_step(phase: str, backbone: str, dropout: float, text: int) -> dict:
+    """One RP step under ``--fp32`` (f32 weights and products) at batch 32
+    + RP, through the kernels and the plain versions from one init and the
+    same seeds: the loss within F32_LOSS_RTOL, every gradient within
+    F32_BAR, the launches a step; ms a step of each, in turns.  Returns the
+    launches."""
+    import torch
+
+    cfg, model, forward = _train_model(dropout, backbone, text=text, fp32=True)
+    batch = _train_batches(cfg, 1)[0]
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    reset_counts()
+    k_loss, k_grads = _one_step_grads(model, forward, init, batch, None)
+    launched = read_counts()
+    p_loss, p_grads = _one_step_grads(model, forward, init, batch, False)
+    if read_counts() != launched:
+        raise AssertionError(f"{phase}: the plain step launched a kernel")
+    want = _step_launches(backbone, dropout, long=backbone != "vilt")
+    gap = abs(k_loss - p_loss) / abs(p_loss)
+    err, ok = _within_bar(k_grads, p_grads)
+    t = [_run_steps(model, forward, init, [batch], fused, 4)[1] for fused in (False, None, None, False)]
+    plain_ms, kernel_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    stream = cfg.max_text_len + (36 if backbone != "vilt" else (cfg.vilt_image_size // cfg.vilt_patch_size) ** 2 + 1)
+    log(phase, f"{backbone} --fp32, {stream} tokens, dropout {dropout}, one RP step at batch 32 + RP: loss kernels "
+        f"{k_loss:.6f}, plain {p_loss:.6f} (relative gap {gap:.3e}, bound {F32_LOSS_RTOL:.0e}); gradients "
+        f"max|kernels - plain| {err:.3e} over {p_grads.numel()} values (bound {F32_BAR[0]:.0e} + "
+        f"{F32_BAR[1]:.0e} |plain|: {'held' if ok else 'LEFT'}); launches {({k: v for k, v in launched.items() if v})}; "
+        f"ms a step (3 after 1, in turns) kernels {kernel_ms:.3f}, plain {plain_ms:.3f}")
+    if launched != want:
+        raise AssertionError(f"{phase}: launches {launched}, want {want}")
+    if not gap <= F32_LOSS_RTOL or not ok:
+        raise AssertionError(f"{phase}: the {backbone} --fp32 step's loss or gradients left their bounds")
+    del model, forward, init, batch, k_grads, p_grads
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_f32_long_paths() -> None:
+    """Phase 54: ViLT-B/32 and UNITER-76 under ``--fp32`` through the long
+    f32 bodies: ViLT RP steps at 185 tokens at dropout 0.1 and 0 (12 #2
+    and 12 #3L a step: ViLT has no attention dropout), a ViLT evaluation
+    forward at batch 256 (12 #2, logits within F32_BAR of the plain
+    forward's), UNITER-76 RP steps at dropout 0.1 (12 4L and 12 5L)."""
+    import torch
+    from rgqa_tpu_torch.data.batching import to_device
+    from rgqa_tpu_torch.models.zoo import build_model, default_config, example_batch
+
+    phase = "f32-long"
+    for dropout in (RATE, 0.0):
+        _f32_step(phase, "vilt", dropout, VILT_F32_TEXT)
+    _f32_step(phase, "uniter", RATE, UNITER_LONG_TEXT)
+
+    cfg = dataclasses.replace(default_config("vilt"), max_text_len=VILT_F32_TEXT)
+    _, forward = build_model(cfg, use_bf16=False, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+    batch = to_device(_padded_text(example_batch(cfg, 256, seed=0, pixel_wire="u8")), "cuda")
+    with torch.inference_mode():
+        forward(batch)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        logits = forward(batch)["logits"]
+        torch.cuda.synchronize()
+        launched = read_counts()
+        plain = forward(batch, use_fused=False)["logits"]
+        if read_counts() != launched:
+            raise AssertionError(f"{phase}: the plain forward launched a kernel")
+        err, ok = _within_bar(logits, plain)
+        plain_ms, kernel_ms = in_turns(lambda: forward(batch, use_fused=False), lambda: forward(batch), iters=5,
+                                       warmup=1)
+    want = {**{k: 0 for k in KERNELS}, "fused_attention_long": cfg.encoder.num_layers}
+    log(phase, f"vilt --fp32 evaluation forward at batch 256, 185 tokens: launches "
+        f"{({k: v for k, v in launched.items() if v})}; max|logits kernels - plain| {err:.3e} (bound "
+        f"{F32_BAR[0]:.0e} + {F32_BAR[1]:.0e} |plain|, max|logit| {plain.abs().max().item():.3f}); finite "
+        f"{bool(torch.isfinite(logits).all())}; ms a forward kernels {kernel_ms:.3f}, plain {plain_ms:.3f}")
+    if launched != want or not ok or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{phase}: the ViLT --fp32 forward: launches {launched} (want {want}), logits "
+                             f"within the bar: {ok}")
+    del forward, batch, logits, plain
+    torch.cuda.empty_cache()
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, its run time logged under ``name`` with the most card
     memory this process reserved since the last such line; the cache is
@@ -5860,6 +6013,7 @@ def main() -> None:
         timed("28-31 CLIP and match", phase_clip_match, keep)
         timed("32-34 strategies and frcnn", phase_strategies, keep)
         uniter_long_launches = phase_slice24()
+        timed("54 f32 model paths", phase_f32_long_paths)
         log("time", f"lane a: {time.perf_counter() - t1:.1f} s")
         results = {lane.name: lane.join() for lane in lanes}
     finally:

@@ -14,18 +14,18 @@
 // forwards and the f32 backward run one block per (row, head), the bf16
 // backward one block per row and pair of heads, in turn; both bf16
 // bodies (fused_attention_fwd_short_bf16, fused_attention_bwd_short_bf16)
-// keep the score tiles and every product in registers.  The f32 forward
-// body also takes a query tile (kTileQ rows each): fused_attention_long.cu
-// runs it on a (batch row, head, query tile) grid for f32 streams of up
-// to kLongWholeKv keys, with each tile's complete softmax over every key;
-// at <= 64 query rows there is one tile and the body is the short
-// kernel's.  Longer f32 streams, every bf16 stream beyond 64 tokens (a
-// wgmma body of its own) and the long backward walk key tiles.  The
-// forward and backward bodies are templates on kDrop: the dropout kernels
-// (#4 / #5 here and in fused_attention_dropout.cu; 4L / 5L, the long
-// forward and backward with kDrop) are the same code with the mask
-// applied, so at rate 0 (threshold 0, keep scale 1) they compute bit for
-// bit what the deterministic ones do.
+// keep the score tiles and every product in registers; the short f32
+// bodies keep 4 x 4 tiles of each product in registers (tile_xyt,
+// tile_xy).  The long-stream kernels walk query tiles of kTileQ rows and
+// key tiles of kKvTile: the bf16 bodies on wgmma, the f32 bodies on the
+// short f32 bodies' register tiles (the forward with each row's complete
+// softmax up to kLongWholeKv keys).  The experiments' f32 forward body
+// (fwd_f32_body) also takes a query tile.  The forward and backward
+// bodies are templates on kDrop: the dropout kernels (#4 / #5 here and in
+// fused_attention_dropout.cu; 4L / 5L, the long forward and backward with
+// kDrop) are the same code with the mask applied, so at rate 0 (threshold
+// 0, keep scale 1) they compute bit for bit what the deterministic ones
+// do.
 //
 // The dropout mask is keyed on the element: keep(b, h, i, j) is byte
 // j % 16 of Philox4x32-10 at counter (j / 16, i, h, b) under the 64-bit
@@ -46,10 +46,9 @@ constexpr int kMaxSeq = 64;
 constexpr int kMaxDim = 64;
 // The long-stream kernels (fused_attention_long.cu,
 // fused_attention_long_bwd.cu): any number of query rows in tiles of
-// kTileQ and any number of keys.  Up to kLongWholeKv keys the f32
-// forward runs its whole-row body (kLongWholeKv / 32 keys per lane in the
-// softmax); beyond, in the bf16 forward and in the backward, keys come in
-// tiles of kKvTile.
+// kTileQ and any number of keys, in tiles of kKvTile.  Up to kLongWholeKv
+// keys the f32 forward takes each row's complete softmax (up to
+// kLongWholeKv / 32 keys per lane); beyond, an online softmax.
 constexpr int kTileQ = 64;
 constexpr int kLongWholeKv = 256;
 constexpr int kKvTile = 64;
@@ -417,26 +416,21 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&af)[4], const float (&x)[2][
 // Forward.  out[b, :, h*D:(h+1)*D] = softmax(q_h k_h^T * scale + bias) v_h,
 // with P (dropped and scaled when kDrop) rounded to the input dtype before
 // the PV product, as the Pallas _fused_kernel / _fused_drop_kernel.  The
-// whole-row f32 body of the long stream and of the experiments below; the
-// short f32 bodies of #1 / #4 and #3 / #5 after it; the short bf16 body
+// experiments' f32 body (fwd_f32_body: xfuse.cu's dual and cat kernels)
+// first; the short f32 bodies of #1 / #4 and #3 / #5 after it, whose tile
+// products the long f32 bodies (fused_attention_long.cu,
+// fused_attention_long_bwd.cu) take too; the short bf16 body
 // (fwd_short_body) after the backward.
 //
-// A long-stream block (fwd_tile; the f32 body here, the bf16 one in
-// fused_attention_long.cu), blockIdx.x = (b * heads + h) * tiles + tile,
-// computes the query rows [q0, q0 + rows) with q0 = tile * kTileQ: the
-// tile's Q, the row's whole K and V, and each query row's complete softmax
-// over all skv keys (one pass, no online rescaling), as the Pallas
-// query-tiled grid (_fused_qblocked_raw) does.  The tile index runs
-// fastest, so the tiles of one (row, head) run together.  Shared memory
-// is sized for tile_rows(sq) = min(sq, kTileQ) query rows.
+// fwd_f32_body's block (fwd_tile), blockIdx.x = (b * heads + h) * tiles +
+// tile, computes the query rows [q0, q0 + rows) with q0 = tile * kTileQ:
+// the tile's Q, the row's whole K and V, and each query row's complete
+// softmax over all skv keys (one pass, no online rescaling).  The tile
+// index runs fastest, so the tiles of one (row, head) run together.
+// Shared memory is sized for tile_rows(sq) = min(sq, kTileQ) query rows.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Threads = 256;
-// The long stream's f32 block holds one query tile and a whole row's K
-// and V, so one block fills an SM's shared memory: its warps alone hide
-// the latency of the shared-memory loads, hence four times the threads.
-constexpr int kLongF32Threads = 4 * kF32Threads;
-constexpr int kLongPerLane = kLongWholeKv / 32;
 
 __host__ __device__ inline int tile_rows(int sq) { return sq < kTileQ ? sq : kTileQ; }
 
@@ -468,21 +462,15 @@ __device__ __forceinline__ FwdTile fwd_tile(const Args& a, size_t elem) {
 // rather than rounding operands to TF32, one thread per output element.
 // Shared memory, f32: Q (sq x ld), K, V (skv x ld), S/P (sq x (skv + 1)),
 // bias; ld = dim + 1 so that threads walking K rows hit distinct banks;
-// sq = tile_rows(a.sq); with the dropout (the long stream's 4L), the keep
-// bits after them (sq x ceil(skv / 16) u32).
-size_t fwd_f32_smem_bytes(int sq, int skv, int d, bool drop = false) {
+// sq = tile_rows(a.sq).
+size_t fwd_f32_smem_bytes(int sq, int skv, int d) {
   const size_t ld = d + 1;
-  return sizeof(float) * (sq * ld + 2 * skv * ld + sq * (skv + 1) + skv +
-                          (drop ? sq * ((skv + 15) / 16) : 0));
+  return sizeof(float) * (sq * ld + 2 * skv * ld + sq * (skv + 1) + skv);
 }
 
-// The body of block blk (blockIdx.x of a kernel that runs only this
-// problem); the experiments' kernels run two problems in one grid, or
-// add a structural mask.  kDrop (4L's f32 body up to kLongWholeKv keys):
-// the keep bits of the tile's rows drawn into shared memory while Q, K
-// and V load, one keep_bits16 call per row and 16 keys, and P dropped and
-// scaled after the softmax, whose sum is the undropped one's.
-template <int kPerLane, int kThreads, typename Mask = NoMask, bool kDrop = false>
+// The body of block blk; the experiments' kernels run two problems in one
+// grid, or add a structural mask.
+template <int kPerLane, int kThreads, typename Mask = NoMask>
 __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float* smem,
                                              const Mask& mask = Mask()) {
   const FwdTile f = fwd_tile(a, sizeof(float), blk);
@@ -494,8 +482,6 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
   float* vs = ks + skv * ld;
   float* ps = vs + skv * ld;
   float* bs = ps + tile_rows(a.sq) * ldp;
-  uint32_t* km = reinterpret_cast<uint32_t*>(bs + skv);
-  const int ngr = (skv + 15) / 16;
   const int tid = threadIdx.x;
 
   load_rows_f32(qs, ld, static_cast<const float*>(f.t.q) + b * a.q_bs + h * d, a.q_rs, sq, d,
@@ -505,28 +491,13 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
   load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + h * d, a.v_rs, skv, d,
                 tid, kThreads);
   for (int j = tid; j < skv; j += kThreads) bs[j] = a.bias[b * skv + j];
-  if (kDrop) {
-    for (int idx = tid; idx < sq * ngr; idx += kThreads) {
-      km[idx] = keep_bits16(a, b, h, q0 + idx / ngr, idx % ngr);
-    }
-  }
   __syncthreads();
 
   scores_f32(ps, ldp, qs, ks, ld, bs, f.t, tid, kThreads, mask);
   __syncthreads();
 
-  float* lse = a.lse ? a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0) : nullptr;
   softmax_rows<kPerLane>(ps, ldp, sq, skv, sq, skv, tid / 32, kThreads / 32, tid % 32,
-                         [&](int i, int j, float p) {
-                           if (kDrop) p = keep_bit(km, ngr, i, j) ? p * a.keep_scale : 0.f;
-                           ps[i * ldp + j] = p;
-                         },
-                         [&](int i, float m, float sum) {
-                           if (lse) {
-                             lse[2 * i] = m;
-                             lse[2 * i + 1] = logf(sum);
-                           }
-                         });
+                         [&](int i, int j, float p) { ps[i * ldp + j] = p; });
   __syncthreads();
 
   const long long out_rs = static_cast<long long>(a.heads) * d;
@@ -540,12 +511,6 @@ __device__ __forceinline__ void fwd_f32_body(const Args& a, unsigned blk, float*
     for (int j = 0; j < skv; ++j) acc = fmaf(pi[j], vs[j * ld + c], acc);
     out[i * out_rs + c] = acc;
   }
-}
-
-template <int kPerLane, int kThreads, bool kDrop = false>
-__global__ void __launch_bounds__(kThreads) fused_attention_f32(Args a) {
-  extern __shared__ float smem[];
-  fwd_f32_body<kPerLane, kThreads, NoMask, kDrop>(a, blockIdx.x, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -610,6 +575,15 @@ __host__ __device__ inline int f32_ld(int n) {
   return (r / 4) % 2 ? r : r + 4;
 }
 
+// The long f32 bodies (fused_attention_long.cu, fused_attention_long_bwd.cu):
+// blocks of kLongF32Threads (16 x 16 tiles of 4 x 4 cover 64 x 64), every
+// tile of 64 rows (head dims or keys) at the row stride kF32Ld =
+// f32_ld(kMaxDim), kF32Tile floats.
+constexpr int kLongF32Threads = 256;
+constexpr int kF32Ld = 68;
+constexpr int kF32Tile = kTileQ * kF32Ld;
+static_assert(kTileQ == kKvTile && kMaxDim <= kF32Ld, "a key tile and a head fit a query tile's shape");
+
 // rows x d of a strided f32 source into shared memory (row stride ld, a
 // multiple of 4), by cp.async 16 bytes a copy where the source allows
 // (not committed), else one plain load at a time.
@@ -646,12 +620,17 @@ __device__ __forceinline__ void zero_tile(float (&acc)[4][4]) {
 // acc[m][n] = sum over c < d, in order, of x[xr[m]][c] y[yr[n]][c]: a
 // 4 x 4 tile of X Y^T (S, dP), rows of X and Y (row stride ld) in shared
 // memory; four terms a step from float4 reads, then the tail of d.
+// kUnroll steps unrolled (same bits): the long f32 bodies take 2, whose
+// next step's loads then overlap the current step's FMAs (3-10% faster a
+// call on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6); the short
+// ones keep 1.
+template <int kUnroll = 1>
 __device__ __forceinline__ void tile_xyt(float (&acc)[4][4], const float* x, const float* y,
                                          int ld, const int (&xr)[4], const int (&yr)[4],
                                          int d) {
   zero_tile(acc);
   const int d4 = d & ~3;
-#pragma unroll 1
+#pragma unroll (kUnroll)
   for (int c = 0; c < d4; c += 4) {
     float4 xv[4], yv[4];
 #pragma unroll
@@ -676,15 +655,18 @@ __device__ __forceinline__ void tile_xyt(float (&acc)[4][4], const float* x, con
   }
 }
 
-// acc[m][u] = sum over j < n, in order, of x[xr[m]][j] y[j][c0 + u]: a
+// acc[m][u] += sum over j < n, in order, of x'[xr[m]][j] y[j][c0 + u],
+// x' = x (kScaleX: x times xs, rounded, as a product's first operand): a
 // 4 x 4 tile of X Y (O = P V, dQ = dS K), X's rows (stride ldx) read four
 // terms a step as float4, Y's rows (stride ldy) at columns c0 .. c0 + 3.
-__device__ __forceinline__ void tile_xy(float (&acc)[4][4], const float* x, int ldx,
-                                        const int (&xr)[4], const float* y, int ldy, int c0,
-                                        int n) {
-  zero_tile(acc);
+// The chains go on from acc: a product over key or query tiles, one call a
+// tile, is one chain per output in index order.  kUnroll as tile_xyt's.
+template <bool kScaleX = false, int kUnroll = 1>
+__device__ __forceinline__ void tile_xy_acc(float (&acc)[4][4], const float* x, int ldx,
+                                            const int (&xr)[4], const float* y, int ldy, int c0,
+                                            int n, float xs = 1.f) {
   const int n4 = n & ~3;
-#pragma unroll 1
+#pragma unroll (kUnroll)
   for (int j = 0; j < n4; j += 4) {
     float4 xv[4], yv[4];
 #pragma unroll
@@ -695,7 +677,7 @@ __device__ __forceinline__ void tile_xy(float (&acc)[4][4], const float* x, int 
     for (int e = 0; e < 4; ++e) {
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
-        const float xm = f4(xv[m], e);
+        const float xm = kScaleX ? f4(xv[m], e) * xs : f4(xv[m], e);
         acc[m][0] = fmaf(xm, yv[e].x, acc[m][0]);
         acc[m][1] = fmaf(xm, yv[e].y, acc[m][1]);
         acc[m][2] = fmaf(xm, yv[e].z, acc[m][2]);
@@ -707,13 +689,21 @@ __device__ __forceinline__ void tile_xy(float (&acc)[4][4], const float* x, int 
     const float4 yv = lds4(y + j * ldy + c0);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
-      const float xm = x[xr[m] * ldx + j];
+      const float xm = kScaleX ? x[xr[m] * ldx + j] * xs : x[xr[m] * ldx + j];
       acc[m][0] = fmaf(xm, yv.x, acc[m][0]);
       acc[m][1] = fmaf(xm, yv.y, acc[m][1]);
       acc[m][2] = fmaf(xm, yv.z, acc[m][2]);
       acc[m][3] = fmaf(xm, yv.w, acc[m][3]);
     }
   }
+}
+
+// The same from zero.
+__device__ __forceinline__ void tile_xy(float (&acc)[4][4], const float* x, int ldx,
+                                        const int (&xr)[4], const float* y, int ldy, int c0,
+                                        int n) {
+  zero_tile(acc);
+  tile_xy_acc(acc, x, ldx, xr, y, ldy, c0, n);
 }
 
 // acc[n][u] = sum over i < rows, in order, of x'[i][j0 + n] y[i][c0 + u]

@@ -36,7 +36,7 @@
 // - f32 (fused_attention_fwd_short_f32): both products on the CUDA cores
 //   in exact f32 (fmaf, no TF32), each output one fmaf chain in the plain
 //   order, so the outputs are bit for bit those of one thread per output
-//   (fused_attention_f32).  One block per (row, head); each thread owns
+//   (the first f32 body, which the experiments keep as fwd_f32_body).  One block per (row, head); each thread owns
 //   4 x 4 tiles of S and of O in registers and reads its operands as
 //   float4, 8 FMAs a shared-memory load where one thread per output does
 //   0.5; V lands by cp.async while S = Q K^T runs.  Up to 32 keys the

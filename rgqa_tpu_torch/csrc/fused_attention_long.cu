@@ -76,12 +76,19 @@
 // re-read K and V), and a key-tiled body beyond, 64-key tiles through a
 // double-buffered ring with ldmatrix fragments (36 bytes spilled).
 //
-// f32, on the CUDA cores: up to kLongWholeKv = 256 keys the whole-row
-// body (attention_common.cuh, fused_attention_f32, one thread per output)
-// with query tiles, kLongPerLane = 8 keys per lane in the softmax and
-// kLongF32Threads = 1024 threads, exact to the plain version's order;
-// beyond, fused_attention_long_tiled_f32, the online softmax over key
-// tiles (scores in shared memory by tile, expf, fmaf in key order).
+// f32, on the CUDA cores in exact f32 (fmaf, no TF32), bit for bit the
+// first f32 bodies (one thread per output, both operands of every fmaf
+// from shared memory, a whole row's K and V in 216 KB of shared memory at
+// 256 keys; beyond, the same scalar scheme under an online softmax):
+// each thread owns 4 x 4 tiles of S and of O in registers and reads its
+// operands as float4 (8 FMAs a shared-memory load where the first bodies
+// did 0.5), K and V stream through a two-stage cp.async ring; up to
+// kLongWholeKv = 256 keys fused_attention_long_f32 takes each row's
+// complete softmax (S of the query tile in shared memory, 101.7 KB at 185
+// keys: two blocks an SM), beyond it fused_attention_long_tiled_f32 the
+// online softmax over key tiles (105.2 KB, two blocks an SM).  In f32 the
+// products bound the call: 320 / 402 us at 165 / 185 tokens, batch 256,
+// against 155 / 174 us of bytes (67 TFLOP/s, 3.35 TB/s).
 //
 // 4L, the dropout variant (rgqa_fused_attention_dropout_long_fwd; the
 // Pallas _fused_drop_kernel where its stream is longer than 64 tokens,
@@ -104,8 +111,9 @@
 // warpgroup a block: one block an SM, setmaxnreg cannot fit two; 22-77%
 // slower); one warpgroup a block up to 128 rows (3 blocks an SM at 76
 // tokens: 9-10% slower).  The f32
-// bodies draw the words of their query tile with the tile (whole row) or
-// with each key tile.  At rate 0 (t = 0, scale 1) 4L computes #2's bits.
+// bodies draw the words of their query tile while the first loads are in
+// flight (whole row), or each key tile's while its loads are (key-tiled),
+// into shared memory.  At rate 0 (t = 0, scale 1) 4L computes #2's bits.
 //
 // Limits: any Sq and Skv, D <= 64 (the wrapper raises beyond that); f32
 // and bf16 inputs; the bias is a (B, Skv) f32 additive mask.  A fully
@@ -369,80 +377,260 @@ __global__ void __launch_bounds__(kWG * kMmaThreads, ring_min_blocks(kWG))
   }
 }
 
-// f32, CUDA cores.  Shared memory, f32, ld = dim + 1: Q (kTileQ x ld), K,
-// V (kKvTile x ld), the tile's scores / probabilities (kTileQ x (kKvTile +
-// 1)), bias (kKvTile), per row the running max, sum and rescale (kTileQ
-// each), and with the dropout (4L) the tile's keep bits (kTileQ x
-// kTileGroups u32).  Each thread keeps kTiledF32Elems (row, column)
-// elements of O in registers.
-constexpr int kTiledF32Threads = 256;
-constexpr int kTiledF32Elems = kTileQ * kMaxDim / kTiledF32Threads;
+// ---------------------------------------------------------------------------
+// f32: the CUDA cores, 4 x 4 register tiles of exact f32 FMAs
+// (attention_common.cuh's tile_xyt / tile_xy_acc, the short f32 bodies'
+// products), one block of kLongF32Threads per (batch row, head, query tile
+// of kTileQ), the tile fastest.  Every tile in shared memory has the row
+// stride kF32Ld, and K and V come through a ring of two stages filled by
+// cp.async (the next tile lands while the current one's products run).  Each output is one
+// fmaf chain in the first bodies' order (S over the head dim, O over the
+// keys, both from 0 in ascending order), and the softmax is theirs, so
+// the outputs and the row statistics are bit for bit the first bodies'.
+// ---------------------------------------------------------------------------
 
-size_t tiled_f32_smem_bytes(int d, bool drop) {
-  const size_t ld = d + 1;
-  return sizeof(float) * (kTileQ * ld + 2 * kKvTile * ld + kTileQ * (kKvTile + 1) + kKvTile +
-                          3 * kTileQ + (drop ? kTileQ * kTileGroups : 0));
+// Up to kLongWholeKv keys (fused_attention_long_f32): Q; the ring's two
+// stages (the key tiles of K, then those of V); the row's S, then P
+// (kTileQ x f32_ld(skv)); the row's bias; with kDrop the tile's keep
+// words (kTileQ x ceil(skv / 16) u32), f32 offsets.  101.7 KB at 185
+// keys (two blocks an SM), 121.0 KB at 256 (one).
+struct WholeRowLayout {
+  int ldp, ngr;
+  size_t r_off, p_off, b_off, m_off, bytes;
+};
+
+__host__ __device__ inline WholeRowLayout whole_row_layout(int skv) {
+  WholeRowLayout L;
+  L.ldp = f32_ld(skv);
+  L.ngr = (skv + 15) / 16;
+  L.r_off = kF32Tile;
+  L.p_off = L.r_off + 2 * kF32Tile;
+  L.b_off = L.p_off + static_cast<size_t>(kTileQ) * L.ldp;
+  L.m_off = L.b_off + groups4(skv) * 4;
+  L.bytes = sizeof(float) * (L.m_off + static_cast<size_t>(kTileQ) * L.ngr);
+  return L;
+}
+
+// The tile's rows: S = Q K^T * scale + bias over the key tiles (thread
+// rows rg + RG m, keys kg + KG n of the tile, as the short forward), a
+// barrier, the row softmax (softmax_rows, the dropout in its emit, the
+// statistics from its sum), a barrier, O += P V over the value tiles
+// (rows rg + RG m, columns 4 cg ..), written once.  The ring streams K_0
+// .. K_{n-1}, V_0 .. V_{n-1}: V_0 lands under the last S tile.  kDrop
+// (4L): the tile's keep words are drawn while Q and the first key tile
+// are in flight.  kPerLane: keys a lane in the softmax (3, 4, 6 or 8 up to
+// 96, 128, 192 or 256 keys; a lane's empty keys add exact zeros, so every
+// width gives the same bits, and the fitted one spends no exp or division
+// on keys past the row).
+template <bool kDrop, int kPerLane>
+__global__ void __launch_bounds__(kLongF32Threads, 2) fused_attention_long_f32(Args a) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const int skv = a.skv, d = a.dim;
+  const WholeRowLayout L = whole_row_layout(skv);
+  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
+  const int bh = blockIdx.x / tiles, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = blockIdx.x % tiles * kTileQ, rows = min(a.sq - q0, kTileQ);
+  const int ldp = L.ldp, ktiles = (skv + kKvTile - 1) / kKvTile;
+  float* qs = smem_f32;
+  float* ring = smem_f32 + L.r_off;
+  float* ps = smem_f32 + L.p_off;
+  float* bs = smem_f32 + L.b_off;
+  uint32_t* km = reinterpret_cast<uint32_t*>(smem_f32 + L.m_off);
+  const int tid = threadIdx.x;
+  const int rg_n = groups4(rows), dg_n = groups4(d);
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_bs + h * d;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_bs + h * d;
+
+  // Tile t of the stream into stage t & 1: one cp.async group.
+  const auto stage = [&](int t) {
+    const bool key = t < ktiles;
+    const int k0 = (key ? t : t - ktiles) * kKvTile;
+    const long long rs = key ? a.k_rs : a.v_rs;
+    stage_rows_f32(ring + (t & 1) * kF32Tile, kF32Ld, (key ? kp : vp) + k0 * rs, rs,
+                   min(skv - k0, kKvTile), d, tid, kLongF32Threads);
+    cp_async_commit();
+  };
+
+  stage_rows_f32(qs, kF32Ld, static_cast<const float*>(a.q) + b * a.q_bs + q0 * a.q_rs + h * d, a.q_rs,
+                 rows, d, tid, kLongF32Threads);
+  for (int j = tid; j < skv; j += kLongF32Threads) {
+    cp_async4(bs + j, a.bias + static_cast<long long>(b) * skv + j);
+  }
+  stage(0);  // Q and the bias ride in the first key tile's group
+  if (kDrop) {
+    for (int idx = tid; idx < rows * L.ngr; idx += kLongF32Threads) {
+      km[idx] = keep_bits16(a, b, h, q0 + idx / L.ngr, idx % L.ngr);
+    }
+  }
+  float o[4][4];
+  zero_tile(o);
+  float* lse = a.lse ? a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0) : nullptr;
+
+  for (int t = 0; t < 2 * ktiles; ++t) {
+    // Tile t has landed and every thread is done with tile t - 1, whose
+    // stage the next load takes.
+    cp_async_wait_all();
+    __syncthreads();
+    if (t + 1 < 2 * ktiles) stage(t + 1);
+    if (t == ktiles) {  // every score is in: the softmax, then P V
+      softmax_rows<kPerLane>(ps, ldp, rows, skv, rows, skv, tid / 32, kLongF32Threads / 32, tid % 32,
+                             [&](int i, int j, float p) {
+                               if (kDrop) p = keep_bit(km, L.ngr, i, j) ? p * a.keep_scale : 0.f;
+                               ps[i * ldp + j] = p;
+                             },
+                             [&](int i, float m, float sum) {
+                               if (lse) {
+                                 lse[2 * i] = m;
+                                 lse[2 * i + 1] = logf(sum);
+                               }
+                             });
+      __syncthreads();
+    }
+    const float* tile = ring + (t & 1) * kF32Tile;
+    const int k0 = (t < ktiles ? t : t - ktiles) * kKvTile, nk = min(skv - k0, kKvTile);
+    int xr[4];
+    if (t < ktiles) {
+      const int kg_n = groups4(nk);
+      if (tid < rg_n * kg_n) {
+        const int rg = tid / kg_n, kg = tid % kg_n;
+        int yr[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          xr[m] = min(rg + rg_n * m, rows - 1);
+          yr[m] = min(kg + kg_n * m, nk - 1);
+        }
+        float acc[4][4];
+        tile_xyt<2>(acc, qs, tile, kF32Ld, xr, yr, d);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const int i = rg + rg_n * m, j = kg + kg_n * n;
+            if (i < rows && j < nk) {
+              float x = acc[m][n] * a.scale + bs[k0 + j];
+              ps[i * ldp + k0 + j] = x;
+            }
+          }
+        }
+      }
+    } else if (tid < rg_n * dg_n) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) xr[m] = min(tid / dg_n + rg_n * m, rows - 1);
+      tile_xy_acc<false, 2>(o, ps + k0, ldp, xr, tile, kF32Ld, 4 * (tid % dg_n), nk);
+    }
+  }
+  if (tid < rg_n * dg_n) {
+    const long long out_rs = static_cast<long long>(a.heads) * d;
+    store_tile_f32(static_cast<float*>(a.out) + (static_cast<long long>(b) * a.sq + q0) * out_rs + h * d,
+                   out_rs, o, tid / dg_n, rg_n, rows, 4 * (tid % dg_n), d);
+  }
+}
+
+// Beyond kLongWholeKv keys (fused_attention_long_tiled_f32), per key tile
+// of kKvTile: S into shared memory, the online softmax by warps (a row's
+// running max m, sum l and this tile's rescale c = exp(m_old - m_new)),
+// O = O c + P V in registers, O / l once at the end.  Shared memory: Q;
+// two ring stages of (K, V, bias); the tile's S / P; m, l, c per row; with
+// kDrop two stages of keep words (kTileQ x kTileGroups u32), the next
+// tile's drawn while its loads are in flight; 105.2 KB, two blocks an SM.
+constexpr int kTiledStage = 2 * kF32Tile + kKvTile;
+
+size_t tiled_f32_smem_bytes() {
+  return sizeof(float) * (2 * kF32Tile + 2 * kTiledStage + 3 * kTileQ + 2 * kTileQ * kTileGroups);
 }
 
 template <bool kDrop>
-__global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f32(Args a) {
-  extern __shared__ float smem[];
-  const FwdTile f = fwd_tile(a, sizeof(float));
-  const int b = f.b, h = f.h, q0 = f.q0;
-  const int sq = f.t.sq, skv = a.skv, d = a.dim, ld = d + 1, ldp = kKvTile + 1;
-  float* qs = smem;
-  float* ks = qs + kTileQ * ld;
-  float* vs = ks + kKvTile * ld;
-  float* ps = vs + kKvTile * ld;
-  float* bs = ps + kTileQ * ldp;
-  float* rm = bs + kKvTile;  // running max, sum and this tile's rescale per row
+__global__ void __launch_bounds__(kLongF32Threads, 2) fused_attention_long_tiled_f32(Args a) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const int skv = a.skv, d = a.dim;
+  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
+  const int bh = blockIdx.x / tiles, b = bh / a.heads, h = bh % a.heads;
+  const int q0 = blockIdx.x % tiles * kTileQ, rows = min(a.sq - q0, kTileQ);
+  const int ktiles = (skv + kKvTile - 1) / kKvTile;
+  float* qs = smem_f32;
+  float* ps = qs + kF32Tile;
+  float* ring = ps + kF32Tile;
+  float* rm = ring + 2 * kTiledStage;  // running max, sum and this tile's rescale per row
   float* rl = rm + kTileQ;
   float* rc = rl + kTileQ;
   uint32_t* km = reinterpret_cast<uint32_t*>(rc + kTileQ);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  constexpr int kThreads = kTiledF32Threads, kWarps = kThreads / 32;
+  constexpr int kWarps = kLongF32Threads / 32;
+  const int rg_n = groups4(rows), dg_n = groups4(d);
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_bs + h * d;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_bs + h * d;
 
-  load_rows_f32(qs, ld, static_cast<const float*>(f.t.q) + b * a.q_bs + h * d, a.q_rs, sq, d, tid,
-                kThreads);
-  for (int i = tid; i < kTileQ; i += kThreads) {
+  // Key tile t's K, V and bias into stage t & 1: one cp.async group.
+  const auto stage = [&](int t) {
+    float* st = ring + (t & 1) * kTiledStage;
+    const int k0 = t * kKvTile, nk = min(skv - k0, kKvTile);
+    stage_rows_f32(st, kF32Ld, kp + k0 * a.k_rs, a.k_rs, nk, d, tid, kLongF32Threads);
+    stage_rows_f32(st + kF32Tile, kF32Ld, vp + k0 * a.v_rs, a.v_rs, nk, d, tid, kLongF32Threads);
+    for (int j = tid; j < nk; j += kLongF32Threads) {
+      cp_async4(st + 2 * kF32Tile + j, a.bias + static_cast<long long>(b) * skv + k0 + j);
+    }
+    cp_async_commit();
+  };
+  // kDrop: key tile t's keep words of the tile's rows into stage t & 1.
+  const auto draw = [&](int t) {
+    uint32_t* w = km + (t & 1) * kTileQ * kTileGroups;
+    const int k0 = t * kKvTile;
+    for (int idx = tid; idx < rows * kTileGroups; idx += kLongF32Threads) {
+      const int c = idx % kTileGroups;
+      w[idx] = k0 + 16 * c < skv ? keep_bits16(a, b, h, q0 + idx / kTileGroups, k0 / 16 + c) : 0u;
+    }
+  };
+
+  stage_rows_f32(qs, kF32Ld, static_cast<const float*>(a.q) + b * a.q_bs + q0 * a.q_rs + h * d, a.q_rs,
+                 rows, d, tid, kLongF32Threads);
+  stage(0);  // Q rides in the first tile's group
+  for (int i = tid; i < kTileQ; i += kLongF32Threads) {
     rm[i] = -CUDART_INF_F;
     rl[i] = 0.f;
   }
-  float o[kTiledF32Elems];
+  if (kDrop) draw(0);
+  float o[4][4];
+  zero_tile(o);
+  int xr[4];
 #pragma unroll
-  for (int e = 0; e < kTiledF32Elems; ++e) o[e] = 0.f;
+  for (int m = 0; m < 4; ++m) xr[m] = min(tid / dg_n + rg_n * m, rows - 1);  // O's rows
 
-  for (int k0 = 0; k0 < skv; k0 += kKvTile) {
-    const int nk = min(skv - k0, kKvTile);
-    __syncthreads();  // the previous tile is done with K, V, P
-    load_rows_f32(ks, ld, static_cast<const float*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d,
-                  a.k_rs, nk, d, tid, kThreads);
-    load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
-                  a.v_rs, nk, d, tid, kThreads);
-    for (int j = tid; j < nk; j += kThreads) bs[j] = a.bias[b * skv + k0 + j];
-    if (kDrop) {
-      for (int idx = tid; idx < sq * kTileGroups; idx += kThreads) {
-        const int c = idx % kTileGroups;
-        km[idx] = k0 + 16 * c < skv ? keep_bits16(a, b, h, q0 + idx / kTileGroups, k0 / 16 + c) : 0u;
+  for (int t = 0; t < ktiles; ++t) {
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; every thread is done with tile t - 1
+    if (t + 1 < ktiles) {
+      stage(t + 1);
+      if (kDrop) draw(t + 1);
+    }
+    const float* st = ring + (t & 1) * kTiledStage;
+    const uint32_t* w = km + (t & 1) * kTileQ * kTileGroups;
+    const int k0 = t * kKvTile, nk = min(skv - k0, kKvTile), kg_n = groups4(nk);
+
+    // Scores in the first body's order of products.
+    if (tid < rg_n * kg_n) {
+      const int rg = tid / kg_n, kg = tid % kg_n;
+      int sr[4], yr[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        sr[m] = min(rg + rg_n * m, rows - 1);
+        yr[m] = min(kg + kg_n * m, nk - 1);
+      }
+      float acc[4][4];
+      tile_xyt<2>(acc, qs, st, kF32Ld, sr, yr, d);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int i = rg + rg_n * m, j = kg + kg_n * n;
+          if (i < rows && j < nk) ps[i * kF32Ld + j] = acc[m][n] * a.scale + st[2 * kF32Tile + j];
+        }
       }
     }
     __syncthreads();
 
-    // Scores as scores_f32 computes them: the same order of products.
-    for (int idx = tid; idx < sq * nk; idx += kThreads) {
-      const int i = idx / nk, j = idx % nk;
-      const float* qi = qs + i * ld;
-      const float* kj = ks + j * ld;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < d; ++c) acc = fmaf(qi[c], kj[c], acc);
-      ps[i * ldp + j] = acc * a.scale + bs[j];
-    }
-    __syncthreads();
-
     // Online softmax, one warp per row, keys lane and lane + 32.
-    for (int i = warp; i < sq; i += kWarps) {
-      float* pi = ps + i * ldp;
+    for (int i = warp; i < rows; i += kWarps) {
+      float* pi = ps + i * kF32Ld;
       const float x0 = lane < nk ? pi[lane] : -CUDART_INF_F;
       const float x1 = lane + 32 < nk ? pi[lane + 32] : -CUDART_INF_F;
       float mt = fmaxf(x0, x1);
@@ -453,7 +641,7 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
       const float p1 = lane + 32 < nk ? expf(x1 - mn) : 0.f;
       // The sum is the undropped P's; P V takes P dropped and scaled.
       const auto dropped = [&](float p, int j) {
-        return !kDrop ? p : keep_bit(km, kTileGroups, i, j) ? p * a.keep_scale : 0.f;
+        return !kDrop ? p : keep_bit(w, kTileGroups, i, j) ? p * a.keep_scale : 0.f;
       };
       if (lane < nk) pi[lane] = dropped(p0, lane);
       if (lane + 32 < nk) pi[lane + 32] = dropped(p1, lane + 32);
@@ -470,34 +658,31 @@ __global__ void __launch_bounds__(kTiledF32Threads) fused_attention_long_tiled_f
     }
     __syncthreads();
 
+    if (tid < rg_n * dg_n) {
 #pragma unroll
-    for (int e = 0; e < kTiledF32Elems; ++e) {
-      const int idx = tid + e * kThreads;
-      if (idx < sq * d) {
-        const int i = idx / d, c = idx % d;
-        const float* pi = ps + i * ldp;
-        float acc = o[e] * rc[i];
-#pragma unroll 4
-        for (int j = 0; j < nk; ++j) acc = fmaf(pi[j], vs[j * ld + c], acc);
-        o[e] = acc;
+      for (int m = 0; m < 4; ++m) {
+        const float c = rc[xr[m]];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) o[m][u] = o[m][u] * c;
       }
+      tile_xy_acc<false, 2>(o, ps, kF32Ld, xr, st + kF32Tile, kF32Ld, 4 * (tid % dg_n), nk);
     }
   }
 
-  const long long out_rs = static_cast<long long>(a.heads) * d;
-  float* out = static_cast<float*>(a.out) + static_cast<long long>(b) * a.sq * out_rs +
-               q0 * out_rs + h * d;
+  if (tid < rg_n * dg_n) {
 #pragma unroll
-  for (int e = 0; e < kTiledF32Elems; ++e) {
-    const int idx = tid + e * kThreads;
-    if (idx < sq * d) {
-      const int i = idx / d, c = idx % d;
-      out[i * out_rs + c] = o[e] / rl[i];
+    for (int m = 0; m < 4; ++m) {
+      const float l = rl[xr[m]];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[m][u] = o[m][u] / l;
     }
+    const long long out_rs = static_cast<long long>(a.heads) * d;
+    store_tile_f32(static_cast<float*>(a.out) + (static_cast<long long>(b) * a.sq + q0) * out_rs + h * d,
+                   out_rs, o, tid / dg_n, rg_n, rows, 4 * (tid % dg_n), d);
   }
   if (a.lse != nullptr) {
     float* lse = a.lse + 2 * ((static_cast<long long>(b) * a.heads + h) * a.sq + q0);
-    for (int i = tid; i < sq; i += kThreads) {
+    for (int i = tid; i < rows; i += kLongF32Threads) {
       lse[2 * i] = rm[i];
       lse[2 * i + 1] = logf(rl[i]);
     }
@@ -523,17 +708,24 @@ int launch_long_bf16(const Args& a, int batch, cudaStream_t s) {
 }
 
 template <bool kDrop>
+int launch_long_f32(const Args& a, int batch, cudaStream_t s) {
+  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
+  if (a.skv > kLongWholeKv) {
+    return launch(fused_attention_long_tiled_f32<kDrop>, a, batch, kLongF32Threads, tiled_f32_smem_bytes(), s,
+                  tiles);
+  }
+  const size_t smem = whole_row_layout(a.skv).bytes;
+  if (a.skv <= 3 * 32) return launch(fused_attention_long_f32<kDrop, 3>, a, batch, kLongF32Threads, smem, s, tiles);
+  if (a.skv <= 4 * 32) return launch(fused_attention_long_f32<kDrop, 4>, a, batch, kLongF32Threads, smem, s, tiles);
+  if (a.skv <= 6 * 32) return launch(fused_attention_long_f32<kDrop, 6>, a, batch, kLongF32Threads, smem, s, tiles);
+  return launch(fused_attention_long_f32<kDrop, 8>, a, batch, kLongF32Threads, smem, s, tiles);
+}
+
+template <bool kDrop>
 int launch_long_fwd(const Args& a, int dtype, int batch, cudaStream_t s) {
   if (dtype == 1) return launch_long_bf16<kDrop>(a, batch, s);
   if (dtype != 0) return -1;
-  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
-  if (a.skv > kLongWholeKv) {
-    return launch(fused_attention_long_tiled_f32<kDrop>, a, batch, kTiledF32Threads,
-                  tiled_f32_smem_bytes(a.dim, kDrop), s, tiles);
-  }
-  return launch(fused_attention_f32<kLongPerLane, kLongF32Threads, kDrop>, a, batch,
-                kLongF32Threads, fwd_f32_smem_bytes(tile_rows(a.sq), a.skv, a.dim, kDrop), s,
-                tiles);
+  return launch_long_f32<kDrop>(a, batch, s);
 }
 
 }  // namespace
@@ -570,6 +762,20 @@ int rgqa_fused_attention_long_occupancy(int* out) {
   err = err ? err : blocks_per_sm(fused_attention_long_wgmma<1, true>, kMmaThreads, ring_smem_bytes(1), out + 1);
   err = err ? err : blocks_per_sm(fused_attention_long_wgmma<2, false>, 2 * kMmaThreads, ring_smem_bytes(2), out + 2);
   err = err ? err : blocks_per_sm(fused_attention_long_wgmma<2, true>, 2 * kMmaThreads, ring_smem_bytes(2), out + 3);
+  return err;
+}
+
+// Blocks an SM of the f32 bodies at their shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out[0..2] the
+// whole-row body at 76, 185 and 256 keys, out[3] the key-tiled body (the
+// dropout instances take the same shared memory).  Returns the first
+// cudaError_t (0 on success).
+int rgqa_fused_attention_long_f32_occupancy(int* out) {
+  int err = 0;
+  err = err ? err : blocks_per_sm(fused_attention_long_f32<false, 3>, kLongF32Threads, whole_row_layout(76).bytes, out + 0);
+  err = err ? err : blocks_per_sm(fused_attention_long_f32<false, 6>, kLongF32Threads, whole_row_layout(185).bytes, out + 1);
+  err = err ? err : blocks_per_sm(fused_attention_long_f32<false, 8>, kLongF32Threads, whole_row_layout(256).bytes, out + 2);
+  err = err ? err : blocks_per_sm(fused_attention_long_tiled_f32<false>, kLongF32Threads, tiled_f32_smem_bytes(), out + 3);
   return err;
 }
 

@@ -39,8 +39,8 @@
 // - with dbias, fused_attention_dbias_sum (attention_common.cuh) adds the
 //   (B, H, Skv) partials over heads in head order, as the short backward.
 //
-// Two routes (kExact).  D = rowsum(dP P) is algebraically rowsum(g o out),
-// the forward's output, but from the bf16 output it moves dbias (a sum of
+// Two routes (kExact), in both dtypes.  D = rowsum(dP P) is algebraically
+// rowsum(g o out), the forward's output, but from the bf16 output it moves dbias (a sum of
 // 12 x Sq terms P_ij D_i) past its bound, 1e-3 + 1e-4 |plain|
 // (tests/test_torch_attention_long.py emulates it at ViLT's shapes).  No
 // model path differentiates the mask (bias_vector's), so:
@@ -94,19 +94,24 @@
 // mma.sync passes this replaced (#3L's and then 5L's) held fragments by
 // ldmatrix and took 9 products a score on every route.
 //
-// f32: the same two passes on the CUDA cores (fmaf in f32), query tiles
-// of 32 rows in the dQ pass and key tiles of 32 in the dK/dV pass, each
-// walking the other side in tiles, D always by its sweep; checked, not
-// timed.
+// f32 bodies (long_bwd_dq_f32 / long_bwd_dkv_f32 <kDrop, kExact>): the
+// same two passes and two routes on the CUDA cores in exact f32, 4 x 4
+// register tiles of each product from float4 reads of shared memory, the
+// other side through a two-stage cp.async ring (their section below).
+// The exact route is bit for bit the first f32 passes' (one thread per
+// score and per output, both operands of every fmaf from shared memory, 9
+// products a score on every route).
 //
 // What bounds it on an H100 (chip_smoke.py's _bound_ms: q, k, v, g read
 // and dq, dk, dv written once; 10 flops per score and head dim for S, dP,
 // dV, dQ, dK): bytes at ViLT-B/32's training stream, 165 / 185 tokens at
 // batch 256, 135.7 / 152.1 us; 228 us at 277 tokens; the products at 597
-// tokens, batch 64, 177 us; UNITER's 76 tokens at batch 32, 7.8 us.  Both
-// passes read their other side once per block (from L2 for a row's other
-// blocks) and compute S and dP twice: 7 products a score where the bound
-// counts 5.
+// tokens, batch 64, 177 us; UNITER's 76 tokens at batch 32, 7.8 us.  In
+// f32 (67 TFLOP/s on the CUDA cores) the products bound it at every one of
+// these shapes: 799 / 1004 us at 165 / 185, 2252 us at 277, 2615 us at
+// 597, 21.2 us at 76.  Both passes read their other side once per block
+// (from L2 for a row's other blocks) and compute S and dP twice: 7
+// products a score where the bound counts 5.
 //
 // 5L, the dropout variant (rgqa_fused_attention_dropout_long_bwd), given
 // 4L's statistics and, without dbias, 4L's dropped output: each pass
@@ -134,12 +139,6 @@
 
 namespace {
 
-constexpr int kF32TileQ = 32;   // query rows per f32 dQ block
-constexpr int kF32TileK = 32;   // keys per f32 dK/dV block, and per f32 dQ step
-constexpr int kF32ChunkQ = 64;  // query rows per f32 dK/dV step
-constexpr int kBwdF32Threads = 256;
-constexpr int kF32Groups = kF32TileK / 16;  // keep_bits16 words of a row in an f32 key tile
-
 __device__ __forceinline__ long long row_index(const Args& a, int b, int h, int i) {
   return (static_cast<long long>(b) * a.heads + h) * a.sq + i;
 }
@@ -149,9 +148,10 @@ __device__ __forceinline__ long long row_index(const Args& a, int b, int h, int 
 // seed.  dP is masked and scaled (dP_drop = keep ? dP * 256/(256-t) : 0)
 // before D = rowsum(dP_drop P) and dS = P (dP_drop - D); dV takes P_drop
 // = keep ? P * 256/(256-t) : 0; P, from the forward's statistics, is the
-// undropped softmax.  The f32 passes draw a tile's keep_bits16 words into
-// shared memory with the tile (draw_tile_bits); the bf16 passes draw
-// theirs in registers (their bodies below).
+// undropped softmax.  The f32 passes draw the next tile's keep_bits16
+// words into a stage of shared memory while its loads are in flight
+// (draw_tile_bits); the bf16 passes draw theirs in registers (their bodies
+// below).
 // ---------------------------------------------------------------------------
 
 // The keep words of query rows i0 .. i0 + rows - 1 (i0 + r < sq) and the
@@ -706,213 +706,311 @@ __global__ void __launch_bounds__(kMmaThreads, 3) long_bwd_dkv_bf16(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// f32, the dQ pass, CUDA cores.  Shared memory, f32, ld = dim + 1: Q, G
-// (kF32TileQ x ld), the key tile's K, V (kF32TileK x ld), P dP (first
-// sweep) or dS (second) (kF32TileQ x (kF32TileK + 1)), bias (kF32TileK),
-// each row's statistics (m, log(sum)) and D (kF32TileQ x 2 and kF32TileQ),
-// and with kDrop the key tile's keep words (kF32TileQ x kF32Groups u32).
-// P = expf((s - m) - log(sum)), as softmax gives it up to a few ulp.
+// f32: both passes on the CUDA cores in exact f32 (fmaf, no TF32), 4 x 4
+// register tiles (attention_common.cuh's tile_xyt / tile_xy_acc),
+// kLongF32Threads a block, every tile at the row stride kF32Ld, the other
+// side streamed through a ring of two stages by cp.async (the next tile
+// lands while the current one's products run).  kExact (a caller that
+// wants dbias) keeps the first f32 passes' arithmetic in their order, so
+// its dq, dk, dv and dbias are bit for bit theirs: the dQ pass sweeps the
+// keys for D first; P = expf((s scale + bias - m) - log(sum)); dS = P
+// (dP_drop - D); dQ and dK chains take dS scale in query or key order;
+// dbias the Kahan sums of dS over the query rows.  Without kExact (out
+// given, every model path) the dQ pass takes D = rowsum(g o out) from the
+// forward's f32 output in its prologue and sweeps once; no partials.
 // ---------------------------------------------------------------------------
 
-constexpr int kF32DqElems = kF32TileQ * kMaxDim / kBwdF32Threads;
+// The dQ pass, one block per (batch row, head, query tile of 64), the
+// tile fastest.  Shared memory, f32: the Q and g tiles; two ring stages of
+// (K, V, bias), dS over V once dP is done; each row's (m, log(sum)) and
+// D; with kDrop two stages of the key tile's keep words (kTileQ x
+// kTileGroups u32), the next tile's drawn while its loads are in flight.
+// 105.2 KB: two blocks an SM.
+constexpr int kDqStage = 2 * kF32Tile + kKvTile;
 
-size_t dq_f32_smem_bytes(int d, bool drop) {
-  const size_t ld = d + 1, ldp = kF32TileK + 1;
-  return sizeof(float) * (2 * kF32TileQ * ld + 2 * kF32TileK * ld + kF32TileQ * ldp + kF32TileK +
-                          3 * kF32TileQ + (drop ? kF32TileQ * kF32Groups : 0));
+size_t dq_f32_smem_bytes() {
+  return sizeof(float) * (2 * kF32Tile + 2 * kDqStage + 3 * kTileQ + 2 * kTileQ * kTileGroups);
 }
 
-__device__ __forceinline__ float dot_f32(const float* x, const float* y, int d) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < d; ++c) acc = fmaf(x[c], y[c], acc);
-  return acc;
-}
-
-template <bool kDrop>
-__global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dq_f32(Args a) {
-  extern __shared__ float smem[];
-  const int tiles = (a.sq + kF32TileQ - 1) / kF32TileQ;
+// Per key tile: S = Q K^T and dP = g V^T (thread rows rg + RG m, keys kg +
+// KG n), P, dP dropped, then (the D sweep) P dP_drop or dS scale = P
+// (dP_drop - D) scale in registers; a barrier (V is dead); the values over
+// V; a barrier; the row sums of P dP_drop (one thread a row, in key order)
+// or dQ += (dS scale) K (rows rg + RG m, columns 4 cg ..).
+template <bool kDrop, bool kExact>
+__global__ void __launch_bounds__(kLongF32Threads, 2) long_bwd_dq_f32(Args a) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const int tiles = (a.sq + kTileQ - 1) / kTileQ;
   const int bh = blockIdx.x / tiles, b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.x % tiles * kF32TileQ, sq = min(a.sq - q0, kF32TileQ);
-  const int skv = a.skv, d = a.dim, ld = d + 1, ldp = kF32TileK + 1;
-  const long long row = static_cast<long long>(a.heads) * d;
-  float* qs = smem;
-  float* gs = qs + kF32TileQ * ld;
-  float* ks = gs + kF32TileQ * ld;
-  float* vs = ks + kF32TileK * ld;
-  float* ps = vs + kF32TileK * ld;
-  float* bs = ps + kF32TileQ * ldp;
-  float* ls = bs + kF32TileK;
-  float* dds = ls + 2 * kF32TileQ;
-  uint32_t* km = reinterpret_cast<uint32_t*>(dds + kF32TileQ);
+  const int q0 = blockIdx.x % tiles * kTileQ, rows = min(a.sq - q0, kTileQ);
+  const int skv = a.skv, d = a.dim, ktiles = (skv + kKvTile - 1) / kKvTile;
+  const int steps = kExact ? 2 * ktiles : ktiles;
+  const long long row = static_cast<long long>(a.heads) * d;  // g, out and dq row stride
+  const long long r0 = row_index(a, b, h, q0);
+  float* qs = smem_f32;
+  float* gs = qs + kF32Tile;
+  float* ring = gs + kF32Tile;
+  float* ls = ring + 2 * kDqStage;  // (m, log(sum)) per row
+  float* dd = ls + 2 * kTileQ;      // D per row
+  uint32_t* km = reinterpret_cast<uint32_t*>(dd + kTileQ);
   const int tid = threadIdx.x;
-  constexpr int kThreads = kBwdF32Threads;
+  const int rg_n = groups4(rows), dg_n = groups4(d);
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_bs + h * d;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_bs + h * d;
 
-  load_rows_f32(qs, ld, static_cast<const float*>(a.q) + b * a.q_bs + q0 * a.q_rs + h * d,
-                a.q_rs, sq, d, tid, kThreads);
-  load_rows_f32(gs, ld,
-                static_cast<const float*>(a.g) + (static_cast<long long>(b) * a.sq + q0) * row + h * d,
-                row, sq, d, tid, kThreads);
-  for (int i = tid; i < 2 * sq; i += kThreads) ls[i] = a.lse[2 * row_index(a, b, h, q0) + i];
-  float dd = 0.f;  // thread i < sq: row i's D
-  float dq[kF32DqElems];
-#pragma unroll
-  for (int e = 0; e < kF32DqElems; ++e) dq[e] = 0.f;
+  // Step `step`'s key tile (step % ktiles): K, V and bias into stage step &
+  // 1, one cp.async group; kDrop: its keep words into stage step & 1.
+  const auto stage = [&](int step) {
+    float* st = ring + (step & 1) * kDqStage;
+    const int k0 = step % ktiles * kKvTile, nk = min(skv - k0, kKvTile);
+    stage_rows_f32(st, kF32Ld, kp + k0 * a.k_rs, a.k_rs, nk, d, tid, kLongF32Threads);
+    stage_rows_f32(st + kF32Tile, kF32Ld, vp + k0 * a.v_rs, a.v_rs, nk, d, tid, kLongF32Threads);
+    for (int j = tid; j < nk; j += kLongF32Threads) {
+      cp_async4(st + 2 * kF32Tile + j, a.bias + static_cast<long long>(b) * skv + k0 + j);
+    }
+    cp_async_commit();
+  };
+  const auto draw = [&](int step) {
+    draw_tile_bits(a, b, h, km + (step & 1) * kTileQ * kTileGroups, q0, rows, step % ktiles * kKvTile,
+                   kTileGroups, tid, kLongF32Threads);
+  };
 
-  for (int sweep = 0; sweep < 2; ++sweep) {
-    for (int k0 = 0; k0 < skv; k0 += kF32TileK) {
-      const int nk = min(skv - k0, kF32TileK);
-      __syncthreads();  // the previous step is done with K, V and P
-      load_rows_f32(ks, ld, static_cast<const float*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d,
-                    a.k_rs, nk, d, tid, kThreads);
-      load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d,
-                    a.v_rs, nk, d, tid, kThreads);
-      for (int j = tid; j < nk; j += kThreads) bs[j] = a.bias[b * skv + k0 + j];
-      if (kDrop) draw_tile_bits(a, b, h, km, q0, kF32TileQ, k0, kF32Groups, tid, kThreads);
-      __syncthreads();
-
-      for (int idx = tid; idx < sq * nk; idx += kThreads) {
-        const int i = idx / nk, j = idx % nk;
-        const float x = fmaf(dot_f32(qs + i * ld, ks + j * ld, d), a.scale, bs[j]);
-        const float p = expf((x - ls[2 * i]) - ls[2 * i + 1]);
-        float dp = dot_f32(gs + i * ld, vs + j * ld, d);
-        if (kDrop) dp = keep_bit(km, kF32Groups, i, j) ? dp * a.keep_scale : 0.f;
-        ps[i * ldp + j] = sweep == 0 ? p * dp : p * (dp - dds[i]);
-      }
-      __syncthreads();
-
-      if (sweep == 0) {
-        if (tid < sq) {
-          for (int j = 0; j < nk; ++j) dd += ps[tid * ldp + j];
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < kF32DqElems; ++e) {
-          const int idx = tid + e * kThreads;
-          if (idx < sq * d) {
-            const int i = idx / d, c = idx % d;
-            const float* dsi = ps + i * ldp;
-            float acc = dq[e];
+  stage_rows_f32(qs, kF32Ld, static_cast<const float*>(a.q) + b * a.q_bs + q0 * a.q_rs + h * d, a.q_rs,
+                 rows, d, tid, kLongF32Threads);
+  stage_rows_f32(gs, kF32Ld, static_cast<const float*>(a.g) + (static_cast<long long>(b) * a.sq + q0) * row + h * d,
+                 row, rows, d, tid, kLongF32Threads);
+  for (int i = tid; i < rows; i += kLongF32Threads) cp_async8(ls + 2 * i, a.lse + 2 * (r0 + i));
+  stage(0);  // Q, g and the statistics ride in the first tile's group
+  if (kDrop) draw(0);
+  if (!kExact) {
+    // D = rowsum(g o out) in f32: a quad of lanes a row, each a quarter of
+    // the head's dims, then the quad's sum.
+    static_assert(kLongF32Threads == 4 * kTileQ, "a quad of lanes a query row");
+    const int i = tid >> 2, c0 = (tid & 3) * 16;
+    float part = 0.f;
+    if (i < rows) {
+      const long long base = (static_cast<long long>(b) * a.sq + q0 + i) * row + h * d;
+      const float* gr = static_cast<const float*>(a.g) + base;
+      const float* orow = static_cast<const float*>(a.out) + base;
 #pragma unroll 4
-            for (int j = 0; j < nk; ++j) acc = fmaf(dsi[j] * a.scale, ks[j * ld + c], acc);
-            dq[e] = acc;
-          }
+      for (int c = c0; c < min(c0 + 16, d); ++c) part = fmaf(gr[c], orow[c], part);
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if ((tid & 3) == 0 && i < rows) {
+      dd[i] = part;  // read after the first barrier
+      a.dsum[2 * (r0 + i)] = part;
+    }
+  }
+  float dq[4][4];
+  zero_tile(dq);
+  float d_row = 0.f;  // kExact: thread i < rows sums row i's P dP_drop in key order
+
+  for (int step = 0; step < steps; ++step) {
+    // The step's tile has landed and every thread is done with step - 1,
+    // whose stage the next load takes.
+    cp_async_wait_all();
+    __syncthreads();
+    if (step + 1 < steps) {
+      stage(step + 1);
+      if (kDrop) draw(step + 1);
+    }
+    const bool sweep = kExact && step < ktiles;  // D's sweep, else dS and dQ
+    float* st = ring + (step & 1) * kDqStage;
+    const uint32_t* w = km + (step & 1) * kTileQ * kTileGroups;
+    const int nk = min(skv - step % ktiles * kKvTile, kKvTile), kg_n = groups4(nk);
+    const bool s_tile = tid < rg_n * kg_n;
+    const int rg = tid / kg_n, kg = tid % kg_n;
+    float val[4][4];
+    if (s_tile) {
+      int xr[4], yr[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        xr[m] = min(rg + rg_n * m, rows - 1);
+        yr[m] = min(kg + kg_n * m, nk - 1);
+      }
+      float dp[4][4];
+      tile_xyt<2>(val, qs, st, kF32Ld, xr, yr, d);
+      tile_xyt<2>(dp, gs, st + kF32Tile, kF32Ld, xr, yr, d);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int i = xr[m], j = yr[n];
+          const float x = fmaf(val[m][n], a.scale, st[2 * kF32Tile + j]);
+          const float p = expf((x - ls[2 * i]) - ls[2 * i + 1]);
+          float dpv = dp[m][n];
+          if (kDrop) dpv = keep_bit(w, kTileGroups, i, j) ? dpv * a.keep_scale : 0.f;
+          val[m][n] = sweep ? p * dpv : p * (dpv - dd[i]) * a.scale;
         }
       }
     }
-    if (sweep == 0 && tid < sq) {
-      dds[tid] = dd;  // read after the next barrier
-      a.dsum[2 * row_index(a, b, h, q0 + tid)] = dd;
+    __syncthreads();  // every thread is past V
+    float* ds = st + kF32Tile;
+    if (s_tile) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int i = rg + rg_n * m, j = kg + kg_n * n;
+          if (i < rows && j < nk) ds[i * kF32Ld + j] = val[m][n];
+        }
+      }
+    }
+    __syncthreads();
+    if (sweep) {
+      if (tid < rows) {
+        for (int j = 0; j < nk; ++j) d_row += ds[tid * kF32Ld + j];
+        if (step == ktiles - 1) {
+          dd[tid] = d_row;  // read after the next barrier
+          a.dsum[2 * (r0 + tid)] = d_row;
+        }
+      }
+    } else if (tid < rg_n * dg_n) {
+      int xr[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) xr[m] = min(tid / dg_n + rg_n * m, rows - 1);
+      tile_xy_acc<false, 2>(dq, ds, kF32Ld, xr, st, kF32Ld, 4 * (tid % dg_n), nk);
     }
   }
-
-  float* dqp = static_cast<float*>(a.dq) + (static_cast<long long>(b) * a.sq + q0) * row + h * d;
-#pragma unroll
-  for (int e = 0; e < kF32DqElems; ++e) {
-    const int idx = tid + e * kThreads;
-    if (idx < sq * d) dqp[idx / d * row + idx % d] = dq[e];
+  if (tid < rg_n * dg_n) {
+    store_tile_f32(static_cast<float*>(a.dq) + (static_cast<long long>(b) * a.sq + q0) * row + h * d, row, dq,
+                   tid / dg_n, rg_n, rows, 4 * (tid % dg_n), d);
   }
 }
 
-// ---------------------------------------------------------------------------
-// f32, the dK/dV pass, CUDA cores.  Shared memory, f32: K, V (kF32TileK x
-// ld), the chunk's Q, G (kF32ChunkQ x ld), P^T and dS^T (kF32TileK x
-// (kF32ChunkQ + 1)), bias (kF32TileK), the chunk's statistics and D
-// (kF32ChunkQ x 2 and kF32ChunkQ), and with kDrop the chunk's keep words for
-// the block's keys (kF32ChunkQ x kF32Groups u32).  Each thread accumulates
-// kF32Elems (key, column) elements of dK and dV over every query row in
-// order.
-// ---------------------------------------------------------------------------
+// The dK/dV pass, one block per (batch row, head, key tile of 64), on the
+// stream after the dQ pass.  Shared memory, f32: the K and V tiles; two
+// ring stages of (Q, g, each row's (m, log(sum)) and (D, -)); P_drop^T and
+// dS^T of the tile ([key][query]); the keys' bias; with kDrop two stages
+// of the query tile's keep words.  140.2 KB: one block an SM.
+constexpr int kDkvStage = 2 * kF32Tile + 4 * kTileQ;
 
-constexpr int kF32Elems = kF32TileK * kMaxDim / kBwdF32Threads;
-
-size_t dkv_f32_smem_bytes(int d, bool drop) {
-  const size_t ld = d + 1, ldc = kF32ChunkQ + 1;
-  return sizeof(float) * (2 * kF32TileK * ld + 2 * kF32ChunkQ * ld + 2 * kF32TileK * ldc +
-                          kF32TileK + 3 * kF32ChunkQ + (drop ? kF32ChunkQ * kF32Groups : 0));
+size_t dkv_f32_smem_bytes() {
+  return sizeof(float) * (4 * kF32Tile + 2 * kDkvStage + kKvTile + 2 * kTileQ * kTileGroups);
 }
 
-template <bool kDrop>
-__global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dkv_f32(Args a) {
-  extern __shared__ float smem[];
-  const int sq = a.sq, skv = a.skv, d = a.dim, ld = d + 1, ldc = kF32ChunkQ + 1;
-  const int ktiles = (skv + kF32TileK - 1) / kF32TileK;
+// Per query tile: S^T = K Q^T and dP^T = V g^T (thread keys rg + RG m,
+// queries kg + KG n), P^T, P_drop^T and dS^T = P (dP_drop - D) (times the
+// scale without kExact) into shared memory; a barrier; dV += P_drop^T g
+// and dK += dS^T Q (keys rg + RG m, columns 4 cg ..; kExact: dS^T times
+// the scale as the product's operand, as the first pass); kExact: one
+// thread a key adds its dS^T row to the Kahan sum in query order.
+template <bool kDrop, bool kExact>
+__global__ void __launch_bounds__(kLongF32Threads, 1) long_bwd_dkv_f32(Args a) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const int sq = a.sq, skv = a.skv, d = a.dim;
+  const int ktiles = (skv + kKvTile - 1) / kKvTile, qtiles = (sq + kTileQ - 1) / kTileQ;
   const int bh = blockIdx.x / ktiles, b = bh / a.heads, h = bh % a.heads;
-  const int k0 = blockIdx.x % ktiles * kF32TileK, nk = min(skv - k0, kF32TileK);
+  const int k0 = blockIdx.x % ktiles * kKvTile, nk = min(skv - k0, kKvTile);
   const long long row = static_cast<long long>(a.heads) * d;
-  float* ks = smem;
-  float* vs = ks + kF32TileK * ld;
-  float* qs = vs + kF32TileK * ld;
-  float* gs = qs + kF32ChunkQ * ld;
-  float* pt = gs + kF32ChunkQ * ld;
-  float* dst = pt + kF32TileK * ldc;
-  float* bs = dst + kF32TileK * ldc;
-  float* ls = bs + kF32TileK;
-  float* dds = ls + 2 * kF32ChunkQ;
-  uint32_t* km = reinterpret_cast<uint32_t*>(dds + kF32ChunkQ);
+  const long long r0 = row_index(a, b, h, 0);
+  float* ks = smem_f32;
+  float* vs = ks + kF32Tile;
+  float* pt = vs + kF32Tile;  // P_drop^T
+  float* dst = pt + kF32Tile;  // dS^T
+  float* ring = dst + kF32Tile;
+  float* bs = ring + 2 * kDkvStage;
+  uint32_t* km = reinterpret_cast<uint32_t*>(bs + kKvTile);
   const int tid = threadIdx.x;
-  constexpr int kThreads = kBwdF32Threads;
+  const int rk_n = groups4(nk), dg_n = groups4(d);
 
-  load_rows_f32(ks, ld, static_cast<const float*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d, a.k_rs,
-                nk, d, tid, kThreads);
-  load_rows_f32(vs, ld, static_cast<const float*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d, a.v_rs,
-                nk, d, tid, kThreads);
-  for (int j = tid; j < nk; j += kThreads) bs[j] = a.bias[b * skv + k0 + j];
+  // Query tile qt's Q, g, statistics and (D, -) into stage qt & 1, one
+  // cp.async group; kDrop: its keep words for the block's keys.
+  const auto stage = [&](int qt) {
+    float* st = ring + (qt & 1) * kDkvStage;
+    const int c0 = qt * kTileQ, nq = min(sq - c0, kTileQ);
+    stage_rows_f32(st, kF32Ld, static_cast<const float*>(a.q) + b * a.q_bs + c0 * a.q_rs + h * d, a.q_rs, nq, d,
+                   tid, kLongF32Threads);
+    stage_rows_f32(st + kF32Tile, kF32Ld,
+                   static_cast<const float*>(a.g) + (static_cast<long long>(b) * sq + c0) * row + h * d, row, nq,
+                   d, tid, kLongF32Threads);
+    for (int i = tid; i < nq; i += kLongF32Threads) {
+      cp_async8(st + 2 * kF32Tile + 2 * i, a.lse + 2 * (r0 + c0 + i));
+      cp_async8(st + 2 * kF32Tile + 2 * kTileQ + 2 * i, a.dsum + 2 * (r0 + c0 + i));
+    }
+    cp_async_commit();
+  };
+  const auto draw = [&](int qt) {
+    draw_tile_bits(a, b, h, km + (qt & 1) * kTileQ * kTileGroups, qt * kTileQ, kTileQ, k0, kTileGroups, tid,
+                   kLongF32Threads);
+  };
+
+  stage_rows_f32(ks, kF32Ld, static_cast<const float*>(a.k) + b * a.k_bs + k0 * a.k_rs + h * d, a.k_rs, nk, d,
+                 tid, kLongF32Threads);
+  stage_rows_f32(vs, kF32Ld, static_cast<const float*>(a.v) + b * a.v_bs + k0 * a.v_rs + h * d, a.v_rs, nk, d,
+                 tid, kLongF32Threads);
+  for (int j = tid; j < nk; j += kLongF32Threads) {
+    cp_async4(bs + j, a.bias + static_cast<long long>(b) * skv + k0 + j);
+  }
+  stage(0);  // K, V and the bias ride in the first tile's group
+  if (kDrop) draw(0);
 
   // dbias: up to Sq terms per key, whose sum reaches |50| at 20 keys:
   // compensated (Kahan), so its f32 error stays near one rounding of the
   // sum, as the plain version's pairwise sum.
-  float dk[kF32Elems], dv[kF32Elems], db = 0.f, db_c = 0.f;
+  float dk[4][4], dv[4][4], db = 0.f, db_c = 0.f;
+  zero_tile(dk);
+  zero_tile(dv);
+  int kr[4];  // dK's and dV's keys
 #pragma unroll
-  for (int e = 0; e < kF32Elems; ++e) dk[e] = dv[e] = 0.f;
+  for (int m = 0; m < 4; ++m) kr[m] = min(tid / dg_n + rk_n * m, nk - 1);
 
-  for (int c0 = 0; c0 < sq; c0 += kF32ChunkQ) {
-    const int nq = min(sq - c0, kF32ChunkQ);
-    __syncthreads();  // the previous chunk is done (and the first loads landed)
-    load_rows_f32(qs, ld, static_cast<const float*>(a.q) + b * a.q_bs + c0 * a.q_rs + h * d,
-                  a.q_rs, nq, d, tid, kThreads);
-    load_rows_f32(gs, ld,
-                  static_cast<const float*>(a.g) + (static_cast<long long>(b) * sq + c0) * row + h * d,
-                  row, nq, d, tid, kThreads);
-    for (int i = tid; i < 2 * nq; i += kThreads) ls[i] = a.lse[2 * row_index(a, b, h, c0) + i];
-    for (int i = tid; i < nq; i += kThreads) dds[i] = a.dsum[2 * row_index(a, b, h, c0 + i)];
-    if (kDrop) draw_tile_bits(a, b, h, km, c0, kF32ChunkQ, k0, kF32Groups, tid, kThreads);
-    __syncthreads();
-
-    // The same operations as the dQ pass, so the same P.
-    for (int idx = tid; idx < nk * nq; idx += kThreads) {
-      const int j = idx / nq, i = idx % nq;
-      const float x = fmaf(dot_f32(qs + i * ld, ks + j * ld, d), a.scale, bs[j]);
-      const float p = expf((x - ls[2 * i]) - ls[2 * i + 1]);
-      float dp = dot_f32(gs + i * ld, vs + j * ld, d);
-      if (kDrop) {
-        const bool kept = keep_bit(km, kF32Groups, i, j);
-        pt[j * ldc + i] = kept ? p * a.keep_scale : 0.f;
-        dp = kept ? dp * a.keep_scale : 0.f;
-      } else {
-        pt[j * ldc + i] = p;
-      }
-      dst[j * ldc + i] = p * (dp - dds[i]);
+  for (int qt = 0; qt < qtiles; ++qt) {
+    cp_async_wait_all();
+    __syncthreads();  // tile qt landed; every thread is done with tile qt - 1
+    if (qt + 1 < qtiles) {
+      stage(qt + 1);
+      if (kDrop) draw(qt + 1);
     }
-    __syncthreads();
-
+    const float* st = ring + (qt & 1) * kDkvStage;
+    const float* qs = st;
+    const float* gs = st + kF32Tile;
+    const float* ls = st + 2 * kF32Tile;
+    const float* dc = ls + 2 * kTileQ;
+    const uint32_t* w = km + (qt & 1) * kTileQ * kTileGroups;
+    const int nq = min(sq - qt * kTileQ, kTileQ), kq_n = groups4(nq);
+    if (tid < rk_n * kq_n) {
+      const int rg = tid / kq_n, kg = tid % kq_n;
+      int xr[4], yr[4];
 #pragma unroll
-    for (int e = 0; e < kF32Elems; ++e) {
-      const int idx = tid + e * kThreads;
-      if (idx < nk * d) {
-        const int j = idx / d, c = idx % d;
-        const float* pj = pt + j * ldc;
-        const float* dsj = dst + j * ldc;
-        for (int i = 0; i < nq; ++i) {
-          dv[e] = fmaf(pj[i], gs[i * ld + c], dv[e]);
-          dk[e] = fmaf(dsj[i] * a.scale, qs[i * ld + c], dk[e]);
+      for (int m = 0; m < 4; ++m) {
+        xr[m] = min(rg + rk_n * m, nk - 1);
+        yr[m] = min(kg + kq_n * m, nq - 1);
+      }
+      float s[4][4], dp[4][4];
+      tile_xyt<2>(s, ks, qs, kF32Ld, xr, yr, d);
+      tile_xyt<2>(dp, vs, gs, kF32Ld, xr, yr, d);
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int j = xr[m], i = yr[n];
+          const float x = fmaf(s[m][n], a.scale, bs[j]);
+          const float p = expf((x - ls[2 * i]) - ls[2 * i + 1]);
+          float dpv = dp[m][n], pv = p;
+          if (kDrop) {
+            const bool kept = keep_bit(w, kTileGroups, i, j);
+            pv = kept ? p * a.keep_scale : 0.f;
+            dpv = kept ? dpv * a.keep_scale : 0.f;
+          }
+          const float dsv = p * (dpv - dc[2 * i]);
+          if (rg + rk_n * m < nk && kg + kq_n * n < nq) {
+            pt[j * kF32Ld + i] = pv;
+            dst[j * kF32Ld + i] = kExact ? dsv : dsv * a.scale;
+          }
         }
       }
     }
-    if (tid < nk) {
+    __syncthreads();
+    if (tid < rk_n * dg_n) {
+      const int c0 = 4 * (tid % dg_n);
+      tile_xy_acc<false, 2>(dv, pt, kF32Ld, kr, gs, kF32Ld, c0, nq);
+      tile_xy_acc<kExact, 2>(dk, dst, kF32Ld, kr, qs, kF32Ld, c0, nq, a.scale);
+    }
+    if (kExact && tid < nk) {
       for (int i = 0; i < nq; ++i) {
-        const float y = dst[tid * ldc + i] - db_c;
+        const float y = dst[tid * kF32Ld + i] - db_c;
         const float t = db + y;
         db_c = (t - db) - y;
         db = t;
@@ -920,17 +1018,12 @@ __global__ void __launch_bounds__(kBwdF32Threads) long_bwd_dkv_f32(Args a) {
     }
   }
 
-  const long long kv0 = (static_cast<long long>(b) * skv + k0) * row + h * d;
-#pragma unroll
-  for (int e = 0; e < kF32Elems; ++e) {
-    const int idx = tid + e * kThreads;
-    if (idx < nk * d) {
-      const int j = idx / d, c = idx % d;
-      static_cast<float*>(a.dk)[kv0 + j * row + c] = dk[e];
-      static_cast<float*>(a.dv)[kv0 + j * row + c] = dv[e];
-    }
+  if (tid < rk_n * dg_n) {
+    const long long kv0 = (static_cast<long long>(b) * skv + k0) * row + h * d;
+    store_tile_f32(static_cast<float*>(a.dk) + kv0, row, dk, tid / dg_n, rk_n, nk, 4 * (tid % dg_n), d);
+    store_tile_f32(static_cast<float*>(a.dv) + kv0, row, dv, tid / dg_n, rk_n, nk, 4 * (tid % dg_n), d);
   }
-  if (tid < nk) a.dbias_part[(static_cast<long long>(b) * a.heads + h) * skv + k0 + tid] = db;
+  if (kExact && tid < nk) a.dbias_part[(static_cast<long long>(b) * a.heads + h) * skv + k0 + tid] = db;
 }
 
 // ---------------------------------------------------------------------------
@@ -948,25 +1041,26 @@ int launch_long_bwd_bf16(const Args& a, int batch, cudaStream_t s) {
                 (a.skv + kKvTile - 1) / kKvTile);
 }
 
+// The f32 passes of one route, as launch_long_bwd_bf16's.
+template <bool kDrop, bool kExact>
+int launch_long_bwd_f32(const Args& a, int batch, cudaStream_t s) {
+  const int err = launch(long_bwd_dq_f32<kDrop, kExact>, a, batch, kLongF32Threads, dq_f32_smem_bytes(), s,
+                         (a.sq + kTileQ - 1) / kTileQ);
+  if (err != 0) return err;
+  return launch(long_bwd_dkv_f32<kDrop, kExact>, a, batch, kLongF32Threads, dkv_f32_smem_bytes(), s,
+                (a.skv + kKvTile - 1) / kKvTile);
+}
+
 // a.out null: dbias wanted, so the exact route and the head sum of the
-// partials.  Otherwise the bf16 passes take D from a.out and leave dbias
-// unwritten; the f32 passes keep their sweep and write it either way.
+// partials.  Otherwise the passes of either dtype take D from a.out and
+// leave dbias unwritten.
 template <bool kDrop>
 int launch_long_bwd(const Args& a, float* dbias, int dtype, int batch, cudaStream_t s) {
-  int err;
-  if (dtype == 1) {
-    if (a.out != nullptr) return launch_long_bwd_bf16<kDrop, false>(a, batch, s);
-    err = launch_long_bwd_bf16<kDrop, true>(a, batch, s);
-  } else if (dtype == 0) {
-    err = launch(long_bwd_dq_f32<kDrop>, a, batch, kBwdF32Threads, dq_f32_smem_bytes(a.dim, kDrop),
-                 s, (a.sq + kF32TileQ - 1) / kF32TileQ);
-    if (err == 0) {
-      err = launch(long_bwd_dkv_f32<kDrop>, a, batch, kBwdF32Threads,
-                   dkv_f32_smem_bytes(a.dim, kDrop), s, (a.skv + kF32TileK - 1) / kF32TileK);
-    }
-  } else {
-    return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  if (a.out != nullptr) {
+    return dtype == 1 ? launch_long_bwd_bf16<kDrop, false>(a, batch, s) : launch_long_bwd_f32<kDrop, false>(a, batch, s);
   }
+  const int err = dtype == 1 ? launch_long_bwd_bf16<kDrop, true>(a, batch, s) : launch_long_bwd_f32<kDrop, true>(a, batch, s);
   if (err != 0) return err;
   return launch_dbias_sum(a.dbias_part, dbias, batch, a.heads, a.skv, s);
 }
@@ -979,11 +1073,12 @@ extern "C" {
 // plus lse, the forward's (batch, heads, sq, 2) f32 row statistics (m,
 // log(sum)) (rgqa_fused_attention_long_fwd), and dsum, a (batch, heads, sq, 2) f32
 // scratch for each row's (D, c) that the dQ pass hands the dK/dV pass (c
-// = -(m + log(sum)) log2e, read without dbias), and out: null when
-// dbias is wanted; else the forward's contiguous (B, Sq, heads * dim)
-// output, from which the bf16 passes take D = rowsum(g o out) without a
-// sweep and write no dbias (the f32 passes ignore it).  dtype 0 = float32,
-// 1 = bfloat16; q/k/v strides in elements, their last dimension
+// = -(m + log(sum)) log2e, read by the bf16 passes without dbias; the f32
+// passes write and read D alone), and out: null when dbias is wanted;
+// else the forward's contiguous (B, Sq, heads * dim) output, from which
+// the passes take D = rowsum(g o out) without a sweep and write no dbias
+// (dbias_part and dbias are then not read and may be null).  dtype 0 =
+// float32, 1 = bfloat16; q/k/v strides in elements, their last dimension
 // contiguous; g, dq, dk, dv contiguous (B, S, heads * dim) in the input
 // dtype; dbias_part (B, heads, Skv) f32 scratch, dbias the (B, Skv) f32
 // result.  Returns the cudaError_t of the launches (0 on success); -1 for
@@ -994,8 +1089,7 @@ int rgqa_fused_attention_long_bwd(
     const void* out, int dtype, int batch, int sq, int skv, int heads, int dim,
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, float scale, void* stream) {
-  // The f32 passes have the most blocks: tiles of 32 rows or keys.
-  if (!within_long_limits(batch, sq, skv, heads, dim, 32)) return -1;
+  if (!within_long_limits(batch, sq, skv, heads, dim)) return -1;
   Args a = make_args(q, k, v, bias, sq, skv, heads, dim, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,
                      scale);
   a.g = g;
@@ -1010,10 +1104,6 @@ int rgqa_fused_attention_long_bwd(
                                 static_cast<cudaStream_t>(stream));
 }
 
-// 5L: as rgqa_fused_attention_long_bwd, plus the forward's dropout
-// arguments (rgqa_fused_attention_dropout_long_fwd), whose mask it
-// replays; lse is that forward's (the undropped scores' statistics), out
-// its dropped output.
 // Blocks an SM of each bf16 pass at its shared memory
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor): out[0..3] the dQ pass
 // <kDrop, kExact> = <0, 0>, <0, 1>, <1, 0>, <1, 1>, out[4..7] the dK/dV
@@ -1032,6 +1122,23 @@ int rgqa_fused_attention_long_bwd_occupancy(int* out) {
   return err;
 }
 
+// Blocks an SM of each f32 pass at its shared memory: out[0..1] the dQ
+// pass <kDrop, kExact> = <0, 0>, <0, 1>, out[2..3] the dK/dV pass alike.
+// Returns the first cudaError_t (0 on success).
+int rgqa_fused_attention_long_bwd_f32_occupancy(int* out) {
+  const size_t dq = dq_f32_smem_bytes(), dkv = dkv_f32_smem_bytes();
+  int err = 0;
+  err = err ? err : blocks_per_sm(long_bwd_dq_f32<false, false>, kLongF32Threads, dq, out + 0);
+  err = err ? err : blocks_per_sm(long_bwd_dq_f32<false, true>, kLongF32Threads, dq, out + 1);
+  err = err ? err : blocks_per_sm(long_bwd_dkv_f32<false, false>, kLongF32Threads, dkv, out + 2);
+  err = err ? err : blocks_per_sm(long_bwd_dkv_f32<false, true>, kLongF32Threads, dkv, out + 3);
+  return err;
+}
+
+// 5L: as rgqa_fused_attention_long_bwd, plus the forward's dropout
+// arguments (rgqa_fused_attention_dropout_long_fwd), whose mask it
+// replays; lse is that forward's (the undropped scores' statistics), out
+// its dropped output.
 int rgqa_fused_attention_dropout_long_bwd(
     const void* q, const void* k, const void* v, const void* bias, const void* g,
     void* dq, void* dk, void* dv, void* dbias_part, void* dbias, void* lse, void* dsum,
@@ -1039,7 +1146,7 @@ int rgqa_fused_attention_dropout_long_bwd(
     long long q_bs, long long q_rs, long long k_bs, long long k_rs,
     long long v_bs, long long v_rs, float scale,
     unsigned long long seed, int threshold, float keep_scale, void* stream) {
-  if (!within_long_limits(batch, sq, skv, heads, dim, 32) || threshold < 0 || threshold > 255) {
+  if (!within_long_limits(batch, sq, skv, heads, dim) || threshold < 0 || threshold > 255) {
     return -1;
   }
   Args a = make_args(q, k, v, bias, sq, skv, heads, dim, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs,

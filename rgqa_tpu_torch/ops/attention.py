@@ -24,9 +24,10 @@ backward pick their kernels by length (:func:`forward_kernel`,
 :func:`backward_kernel`): Sq, Skv <= 64 the short kernels, longer
 streams the long ones, at any length (ViLT-B/32's 165-185 tokens, 277 at
 a 512 px image, 597 with 16 px patches; head dim <= 64 throughout).
-The long forward runs an online softmax over tiles of 64 keys (in bf16
-on Hopper's warpgroup products at every length; in f32 over whole rows
-up to 256 keys and key tiles beyond); when autograd
+The long forward walks tiles of 64 keys (in bf16 on Hopper's warpgroup
+products with an online softmax at every length; in f32 on the CUDA
+cores, each row's complete softmax up to 256 keys and an online one
+beyond); when autograd
 will need the backward it also writes each row's softmax statistics (max
 and log-sum, whose sum is the log-sum-exp), which the long backward
 takes instead of recomputing the softmax: its dQ pass
@@ -499,22 +500,25 @@ def _long_fwd(name, symbol, q, k, v, bias_kv, num_heads: int, lse: bool, drop=No
     return (out, stats) if lse else out
 
 
-def _bwd_buffers(q, k, num_heads: int):
+def _bwd_buffers(q, k, num_heads: int, dbias: bool = True):
+    """dq, dk, dv and, with ``dbias``, the dbias partials and their (B,
+    Skv) sum in order: (B, H, Skv) per head (f32 and long bodies), (B,
+    ceil(H / 2), Skv) per head pair (short bf16 body), in the same scratch;
+    without ``dbias`` (the long backward's route that computes none) the
+    last two are None."""
     b, skv = k.shape[:2]
+    grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=q.device) for t in (q, k, k))
+    if not dbias:
+        return (*grads, None, None)
     return (
-        torch.empty(q.shape, dtype=q.dtype, device=q.device),
-        torch.empty(k.shape, dtype=k.dtype, device=q.device),
-        torch.empty(k.shape, dtype=k.dtype, device=q.device),
-        # dbias partials, then their (B, Skv) sum in order: (B, H, Skv) per
-        # head (f32 and long bodies), (B, ceil(H / 2), Skv) per head pair
-        # (short bf16 body), in the same scratch
+        *grads,
         torch.empty((b, num_heads, skv), dtype=torch.float32, device=q.device),
         torch.empty((b, skv), dtype=torch.float32, device=q.device),
     )
 
 
 def _bwd_pointers(q, k, v, bias_kv, g, buffers):
-    return [t.data_ptr() for t in (q, k, v, bias_kv, g, *buffers)]
+    return [None if t is None else t.data_ptr() for t in (q, k, v, bias_kv, g, *buffers)]
 
 
 def fused_attention_bwd_cuda(q, k, v, bias_kv, g, num_heads: int):
@@ -559,9 +563,9 @@ def _long_bwd(name, symbol, q, k, v, bias_kv, g, num_heads: int, lse, drop=None,
             f"{name}: dbias=False takes the forward's output, a contiguous {tuple(q.shape)} "
             f"{q.dtype} tensor on {q.device}, as out; got {got}"
         )
-    buffers = _bwd_buffers(q, k, num_heads)
-    # (B, H, Sq, 2) f32: each row's D = rowsum(dP P) and -(m + log(sum))
-    # log2(e), which the dQ pass hands the dK/dV pass.
+    buffers = _bwd_buffers(q, k, num_heads, dbias)
+    # (B, H, Sq, 2) f32: each row's D = rowsum(dP P) and (bf16) -(m +
+    # log(sum)) log2(e), which the dQ pass hands the dK/dV pass.
     dsum = torch.empty((*want, 2), dtype=torch.float32, device=q.device)
     _launch(
         name.removesuffix("_cuda"), "fused_attention_long_bwd", symbol,
@@ -570,7 +574,7 @@ def _long_bwd(name, symbol, q, k, v, bias_kv, g, num_heads: int, lse, drop=None,
         q, k, v, num_heads, drop,
     )
     dq, dk, dv, _, dbias_sum = buffers
-    return dq, dk, dv, dbias_sum if dbias else None
+    return dq, dk, dv, dbias_sum
 
 
 def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse, *, dbias: bool = True, out=None):
@@ -582,10 +586,10 @@ def fused_attention_long_bwd_cuda(q, k, v, bias_kv, g, num_heads: int, lse, *, d
     query tiles for dk and dv; both need each row's D = rowsum(dP P).
     With ``dbias`` (the default) the first pass takes D in a sweep of
     its own, the second writes the dbias partials, then their head sum.
-    With ``dbias=False`` it takes ``out``, the forward's output: in bf16
-    the first pass takes D = rowsum(g o out) and no sweep, no dbias is
-    written, and the fourth result is None (the f32 passes keep their
-    sweep).  No atomics, so two runs give identical gradients.
+    With ``dbias=False`` it takes ``out``, the forward's output: in f32
+    and bf16 the first pass takes D = rowsum(g o out) and no sweep, no
+    dbias is computed (nor its scratch allocated), and the fourth result
+    is None.  No atomics, so two runs give identical gradients.
     ``fused_attention_long_bwd_cuda.launches`` counts the launches."""
     name = "fused_attention_long_bwd_cuda"
     _check(name, q, k, v, bias_kv, num_heads, g=g, long=True)

@@ -2,9 +2,10 @@
 matcher or CLIP forward or training step goes on one CUDA card.
 
     python -m rgqa_tpu_torch.tools.profile_forward [--backbone uniter|vilt|butd|caps|clip]
-        [--batch 256 32] [--iters 20] [--repeats 3] [--out FILE.json]
+        [--batch 256 32] [--text_len N] [--fp32] [--iters 20] [--repeats 3] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train [--backbone uniter|vilt|butd|caps]
-        [--batch 32] [--mixup_mode MODE [--mixup_beta B] | --branched] [--out FILE.json]
+        [--batch 32] [--text_len N] [--fp32] [--mixup_mode MODE [--mixup_beta B] | --branched]
+        [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train --strategy
         adv|resampling|woods|distill_online|weight [--batch 32] [--out FILE.json]
     python -m rgqa_tpu_torch.tools.profile_forward --train --strategy weight
@@ -63,9 +64,12 @@ names after ``--scorers`` (msp, energy, odin, maha, "maha noised",
 dropout) pick some, and ``--backbone uniter`` scores full-width UNITER
 instead.  ``--text_len N`` sets the model's ``max_text_len`` (UNITER
 with 40-token questions attends over 76 tokens, the long dropout pair's
-stream: 12 4L and 12 5L a training step, 12 4L an MC-dropout pass),
-with each row's question cut to a random length of 4-N tokens, as the
-synthetic split encodes them.
+stream: 12 4L and 12 5L a training step, 12 4L an MC-dropout pass; ViLT
+trains at 40 over 185 tokens, not the train CLI's 20), with each row's
+question cut to a random length of 4-N tokens, as the synthetic split
+encodes them.  ``--fp32`` runs the forward or the training step with f32
+weights and f32 products without TF32, as the CLIs' ``--fp32`` (the
+attention kernels' f32 bodies).
 ``--pretrain`` runs the LXMERT pretraining step (``LxmertPretraining``
 with the reference's 9500-answer QA head, all six tasks, one set of
 host-drawn masks with BERT's special ids; batch 256, as
@@ -343,10 +347,11 @@ def _example(cfg, size: int, text_len, **kw) -> dict:
     return batch if text_len is None else _padded_text(batch)
 
 
-def _train_cases(sizes, backbone: str, strategy: dict = None, text_len=None) -> dict:
+def _train_cases(sizes, backbone: str, strategy: dict = None, text_len=None, fp32: bool = False) -> dict:
     """{(batch, "dropout d kernels" | "dropout d plain"): one training
-    step}, each on its own full-width model (f32 masters, bf16 compute);
-    ``strategy``, the step's mixup or branched options, replaces RP."""
+    step}, each on its own full-width model (f32 masters, bf16 compute;
+    ``fp32``: f32 compute); ``strategy``, the step's mixup or branched
+    options, replaces RP."""
     import dataclasses
 
     import numpy as np
@@ -356,7 +361,7 @@ def _train_cases(sizes, backbone: str, strategy: dict = None, text_len=None) -> 
     from rgqa_tpu_torch.train.step import make_train_step
 
     base = _config(backbone, text_len)
-    if backbone == "vilt":
+    if backbone == "vilt" and text_len is None:
         base = dataclasses.replace(base, max_text_len=20)  # the train CLI's stream
     binary = backbone == "caps"  # the caption strategy: one logit, no RP
     if binary:
@@ -369,7 +374,7 @@ def _train_cases(sizes, backbone: str, strategy: dict = None, text_len=None) -> 
         cfg = base if dropout is None else dataclasses.replace(base, encoder=dataclasses.replace(
             base.encoder, hidden_dropout=dropout, attention_dropout=dropout))
         model, forward = build_model(
-            cfg, use_bf16=True, device="cuda", train=True,
+            cfg, use_bf16=not fp32, device="cuda", train=True,
             generator=torch.Generator(device="cuda").manual_seed(0),
         )
         opt = make_optimizer(OptimConfig(), model.parameters(), t_total=10**6)
@@ -561,7 +566,8 @@ def main(argv=None) -> list:
                     help="with --train: that strategy's own step (LXMERT)")
     ap.add_argument("--update_weight_model", action="store_true",
                     help="with --train --strategy weight: the joint step that trains CLIP too")
-    ap.add_argument("--fp32", action="store_true", help="with --update_weight_model: f32 compute")
+    ap.add_argument("--fp32", action="store_true",
+                    help="f32 compute (the forward, --train, or --update_weight_model)")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write every number to this JSON file")
@@ -581,8 +587,8 @@ def main(argv=None) -> list:
     if args.train:
         strategy = ({"mixup_mode": args.mixup_mode, "mixup_beta": args.mixup_beta} if args.mixup_mode
                     else {"branched": True} if args.branched else {})
-        return _profile(_train_cases(args.batch or [32], args.backbone, strategy, args.text_len), args, smi,
-                        args.out, unit="step")
+        return _profile(_train_cases(args.batch or [32], args.backbone, strategy, args.text_len, args.fp32), args,
+                        smi, args.out, unit="step")
     if args.scorers is not None:
         return _profile(_scorer_cases(args.batch or [256], args.backbone, args.scorers, args.text_len), args,
                         smi, args.out, unit="scorer call")
@@ -596,7 +602,7 @@ def main(argv=None) -> list:
             return _profile(_clip_cases(args.batch or [256, 32]), args, smi, args.out, unit="forward")
     cfg = _config(args.backbone, args.text_len)
     model, forward = build_model(
-        cfg, use_bf16=True, device="cuda",
+        cfg, use_bf16=not args.fp32, device="cuda",
         generator=torch.Generator(device="cuda").manual_seed(0),
     )
     fns = {}

@@ -2,9 +2,9 @@
 of kernel variants.
 
     python3 rgqa_tpu_torch/tools/time_attention.py [--iters 50]
-        [--only long short_fwd short_bwd headfold epilogue uniter f32 long_dropout]
+        [--only long short_fwd short_bwd headfold epilogue uniter f32 long_dropout f32_long]
 
-Eight groups, all by default (``--only`` picks some):
+Nine groups, all by default (``--only`` picks some):
 
 - ``long``: #1 (``fused_attention_cuda``) at LXMERT's 20x20 and 36x36,
   batch 256; #2 (``fused_attention_long_cuda``) at ViLT's 165x165,
@@ -70,6 +70,15 @@ Eight groups, all by default (``--only`` picks some):
   time per call summed over every device event of the call, with max
   |kernel - plain| and a digest of the outputs (equal digests across two
   checkouts mean bit-identical outputs);
+- ``f32_long``: the same four kernels in f32 (#2, 4L at rate 0.1, #3L and
+  5L on both routes) at ``F32_LONG_CASES`` (ViLT-B/32's 165, 185, 65 x
+  185 and 185 x 65, and 277, at batch 256; 597 at 64; UNITER's 76 x 76
+  at 32 and 256), the inputs and masks of ``long_dropout`` from a
+  generator seeded for this group alone; each beside its bound
+  (``chip_smoke._bound_ms`` at the f32 rate) and f32 SDPA's device time
+  (with ``dropout_p`` beside 4L / 5L; a backward as forward + backward
+  less forward), with max |kernel - plain| (dbias's apart on the route
+  that returns it) and a digest;
 
 the short groups with q, k, v as the model hands them (column views of
 the fused QKV or KV product), a quarter of the keys masked and one fully
@@ -101,7 +110,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from chip_smoke import cuda_ms  # noqa: E402  (the checkout this script lies in)
 
 
-GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue", "uniter", "f32", "long_dropout")
+GROUPS = ("long", "short_fwd", "short_bwd", "headfold", "epilogue", "uniter", "f32", "long_dropout", "f32_long")
 E, HEADS = 768, 12
 
 
@@ -184,7 +193,8 @@ def main(argv=None) -> None:
                "epilogue": ("fused_attention", "epilogue"),
                "uniter": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout"),
                "f32": ("fused_attention", "fused_attention_bwd", "fused_attention_dropout"),
-               "long_dropout": ("fused_attention_long", "fused_attention_long_bwd")}
+               "long_dropout": ("fused_attention_long", "fused_attention_long_bwd"),
+               "f32_long": ("fused_attention_long", "fused_attention_long_bwd")}
     built = build_all(tuple(dict.fromkeys(n for grp in args.only for n in sources[grp])))
     print(f"{att.__file__}; {smi}; build s " + ", ".join(f"{n} {r.seconds:.2f}" for n, r in built.items()))
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -214,6 +224,8 @@ def main(argv=None) -> None:
         _f32(att, args.iters, rate, seed)
     if "long_dropout" in args.only:
         _long_dropout(att, args.iters, rate, seed)
+    if "f32_long" in args.only:
+        _f32_long(att, args.iters, rate, seed)
 
 
 # #2's timed shapes: ViLT-B/32 at 384 px (165 training, 185 serving) and
@@ -578,6 +590,73 @@ def _long_dropout(att, iters: int, rate: float, seed: int) -> None:
                   f"bound {bound * 1e3:.1f} us ({by}), sdpa dropout {'bwd' if backward else 'fwd'} device "
                   f"{_device(sdpa['bwd' if backward else 'fwd'])}; max|kernel-plain| {err:.3e}; "
                   f"digest {_digest(got)}", flush=True)
+        del q, k, v, g, bias, out4, lse4, out2, lse2, plain_drop, plain, calls, lib
+        torch.cuda.empty_cache()
+
+
+# (shape, batch) of the f32_long group: ViLT-B/32's 165 / 185, ragged 65 x
+# 185 and 185 x 65, 277 at batch 256, 597 at 64; UNITER's 76 at 32 and 256.
+F32_LONG_CASES = (((165, 165), 256), ((185, 185), 256), ((65, 185), 256), ((185, 65), 256),
+                  ((277, 277), 256), ((597, 597), 64), ((76, 76), 32), ((76, 76), 256))
+
+
+def _f32_long(att, iters: int, rate: float, seed: int) -> None:
+    """#2 / 4L / #3L / 5L in f32 at F32_LONG_CASES beside f32 SDPA and the
+    bound, the backward on both routes, with max |kernel - plain| and a
+    digest of each kernel's outputs."""
+    import torch
+
+    from chip_smoke import UNITER_LONG_TEXT, _attention_inputs, _bound_ms, _pad_patch_bias, _sdpa_calls, _uniter_bias
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for (sq, skv), b in F32_LONG_CASES:
+        q, k, v, g, _ = _attention_inputs(b, sq, skv, torch.float32, gen)
+        bias = (_uniter_bias(b, gen, UNITER_LONG_TEXT) if (sq, skv) == (76, 76)
+                else _pad_patch_bias(b, skv, gen))
+        out4, lse4 = att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, rate, seed, lse=True)
+        out2, lse2 = att.fused_attention_long_cuda(q, k, v, bias, HEADS, lse=True)
+        plain_drop = att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS, rate, seed)
+        plain = att.attention_bwd_ref(q, k, v, bias, g, HEADS)
+        calls = [("#2", lambda: att.fused_attention_long_cuda(q, k, v, bias, HEADS),
+                  lambda: att.attention_natural_ref(q, k, v, bias, HEADS)),
+                 ("4L", lambda: att.fused_attention_dropout_long_cuda(q, k, v, bias, HEADS, rate, seed),
+                  lambda: att.attention_dropout_ref(q, k, v, bias, HEADS, rate, seed))]
+        for route, kw5, kw3 in (("no dbias", {"dbias": False, "out": out4}, {"dbias": False, "out": out2}),
+                                ("dbias", {}, {})):
+            calls += [(f"#3L ({route})",
+                       lambda kw=kw3: att.fused_attention_long_bwd_cuda(q, k, v, bias, g, HEADS, lse2, **kw),
+                       lambda: plain),
+                      (f"5L ({route})",
+                       lambda kw=kw5: att.fused_attention_dropout_long_bwd_cuda(q, k, v, bias, g, HEADS, rate, seed,
+                                                                                lse4, **kw),
+                       lambda: plain_drop)]
+        lib = _sdpa_calls(q, k, v, g, bias)
+        sdpa = {key: device_us(fn, iters, match=None) for key, fn in lib.items()}
+
+        def less(a, b):
+            return None if sdpa[a] is None or sdpa[b] is None else sdpa[a] - sdpa[b]
+
+        yardstick = {"#2": ("sdpa", sdpa["fwd"]), "4L": ("sdpa dropout", sdpa["drop"]),
+                     "#3L": ("sdpa bwd", less("fwd_bwd", "fwd")), "5L": ("sdpa dropout bwd", less("drop_fwd_bwd", "drop"))}
+        for label, call, ref in calls:
+            backward = label.startswith(("5L", "#3L"))
+            got, want = call(), ref()
+            pairs = zip(got[:3], want[:3]) if backward else [(got, want)]
+            err = max((x.float() - w.float()).abs().max().item() for x, w in pairs)
+            if backward and got[3] is not None:
+                err_db = (got[3] - want[3]).abs().max().item()
+                err_txt = f"max|kernel-plain| dq/dk/dv {err:.3e}, dbias {err_db:.3e}"
+            else:
+                err_txt = f"max|kernel-plain| {err:.3e}"
+            name = "fused_attention_long_bwd" if backward else "fused_attention_long"
+            bound, by = _bound_ms(name, b, sq, skv, 4)
+            parts = {}
+            us = device_us(call, iters, match=None, by_kernel=parts)
+            split = " (" + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")" if len(parts) > 1 else ""
+            lib_name, lib_us = yardstick[label.split(" ")[0]]
+            print(f"float32 B={b} {sq}x{skv} {label}: device {_device(us)}{split}, bound {bound * 1e3:.1f} us "
+                  f"({by}), {lib_name} device {_device(lib_us)}; {err_txt}; digest {_digest(got)}", flush=True)
+            del got, want
         del q, k, v, g, bias, out4, lse4, out2, lse2, plain_drop, plain, calls, lib
         torch.cuda.empty_cache()
 

@@ -30,7 +30,8 @@ backward.  The kernels' tiling, emulated step by step in plain torch
 (the key-tiled forward's online softmax and ``lse``; the backward's dQ
 pass with its two sweeps over key tiles and its dK/dV pass over query
 tiles, ragged last tiles and a fully masked row included), equals the
-plain versions within 1e-5 in f32.  And the reason the backward's D
+plain versions within 1e-5 in f32, and so does the route without dbias
+(D from the forward's f32 output, the dQ pass in one sweep).  And the reason the backward's D
 takes a sweep of its own: D from the forward's bf16 output would move
 dbias past its bound at ViLT's widths.
 
@@ -341,13 +342,15 @@ def _tiled_forward(scores, vh, p_dtype=None):
     return o / l[..., None], torch.stack([m, torch.log(l)], dim=-1)
 
 
-def _tiled_backward(scores, dps, lse, qh, kh, gh):
+def _tiled_backward(scores, dps, lse, qh, kh, gh, out=None):
     """The backward's two passes (csrc/fused_attention_long_bwd.cu), f32,
     tile by tile in the kernels' order, from the scores and dP = g V^T:
     the dQ pass per query tile sweeps the key tiles for D, then again for
     dS and dQ, 16 keys at a step; the dK/dV pass per key tile walks the
     query tiles, 16 queries at a step, for dV, dK and the column sums of
-    dS; dbias adds the heads in order."""
+    dS; dbias adds the heads in order.  With ``out``, the forward's (B, H,
+    Sq, D) output, the route without dbias: the dQ pass takes D =
+    rowsum(g o out) per query tile and sweeps the keys once."""
     b, h, sq, d = qh.shape
     skv = kh.shape[2]
     scale = 1.0 / math.sqrt(d)
@@ -361,7 +364,9 @@ def _tiled_backward(scores, dps, lse, qh, kh, gh):
     for i0 in range(0, sq, Q_TILE):
         i1 = min(i0 + Q_TILE, sq)
         dd = torch.zeros(b, h, i1 - i0)
-        for j0 in range(0, skv, STEP):  # first sweep: D
+        if out is not None:  # D from the output, no sweep
+            dd = (gh[:, :, i0:i1] * out[:, :, i0:i1]).sum(-1)
+        for j0 in range(0, skv if out is None else 0, STEP):  # first sweep: D
             p, dp = probs(i0, i1, j0, j0 + STEP)
             dd = dd + (p * dp).sum(-1)
         dsum[:, :, i0:i1] = dd
@@ -404,13 +409,20 @@ def test_tiled_algorithm_matches_plain_versions(sq, skv):
     # sqrt(d), where the forward divides: another rounding at d = 8; the
     # kernels compute one form in both) and their statistics.
     scores = products * (1.0 / math.sqrt(BWD_D)) + mask
-    _, stats = _tiled_forward(scores, vh)
-    dq, dk, dv, dbias = _tiled_backward(scores, gh @ vh.transpose(-1, -2), stats, qh, kh, gh)
+    out, stats = _tiled_forward(scores, vh)
+    dps = gh @ vh.transpose(-1, -2)
+    dq, dk, dv, dbias = _tiled_backward(scores, dps, stats, qh, kh, gh)
     want = att.attention_bwd_ref(q, k, v, bias, g, BWD_H)
     got = (_merge_heads(dq), _merge_heads(dk), _merge_heads(dv), dbias)
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
         assert torch.isfinite(a).all(), name
         torch.testing.assert_close(a, w, rtol=0, atol=1e-5, msg=name)
+    # The f32 route without dbias: D from the forward's f32 output, the dQ
+    # pass in one sweep; dq, dk, dv as close to the plain pair.
+    dq, dk, dv, _ = _tiled_backward(scores, dps, stats, qh, kh, gh, out=out)
+    for name, a, w in zip(("dq", "dk", "dv"), (_merge_heads(dq), _merge_heads(dk), _merge_heads(dv)), want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, w, rtol=0, atol=1e-5, msg=f"{name} (D from the output)")
 
 
 # The bf16 forward at ViLT's streams (165 / 185 training / serving, 65 x

@@ -17,9 +17,14 @@ batch 2: at UNITER's 76-token stream under its mask (questions of 4-40
 tokens padded before the 36 image keys, a fully masked row) and at
 ViLT-B/32's 165 / 185 and a 512 px image's 277 tokens under pad-patch
 masks; each held to the plain pair's dq / dk / dv within the card's
-bound.  And the plain pair's dq / dk / dv, through the autograd
-Functions, do not depend on whether the bias asks for a gradient; the
-wrapper refuses an ``out`` that does not go with its ``dbias``.
+bound.  The f32 passes take the same route: with P, the output and dS
+in f32 and D from the f32 output, the emulation is held to the plain
+pair's dq / dk / dv within the card's f32 bar, 1e-4 + 1e-4 |plain|, at
+the same shapes, dropped and undropped (``_emulated`` and ``_inputs``
+take the dtype).  And the plain pair's dq / dk / dv, through the
+autograd Functions, do not depend on whether the bias asks for a
+gradient; the wrapper refuses an ``out`` that does not go with its
+``dbias``.
 """
 
 from __future__ import annotations
@@ -37,15 +42,16 @@ HEADS, D = 12, 64
 E = HEADS * D
 RATE, SEED = 0.1, 0x5151_2525_7777
 BOUND = (3e-2, 1e-2)  # the card's bf16 bound on dq, dk, dv (atol, rtol)
+F32_BOUND = (1e-4, 1e-4)  # the card's f32 bar on the model route's dq, dk, dv
 SHAPES = [76, 165, 185, 277]
 
 
-def _inputs(s: int, seed: int, b: int = 2):
-    """bf16 q, k, v, g (B, s, 768) from numpy, and the f32 (B, s) -10000
+def _inputs(s: int, seed: int, b: int = 2, dtype=torch.bfloat16):
+    """q, k, v, g (B, s, 768) from numpy in ``dtype``, and the f32 (B, s) -10000
     mask: UNITER's at 76 tokens (40 text keys, questions of 4-40 tokens,
     36 image keys kept), ViLT's pad patches beyond; row 1 fully masked."""
     rng = np.random.default_rng(seed)
-    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, E), dtype=np.float32)).bfloat16()
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, s, E), dtype=np.float32)).to(dtype)
                   for _ in range(4))
     keys = np.arange(s)[None, :]
     if s == 76:
@@ -64,8 +70,13 @@ def _heads(t):
 
 
 def _emulated(q, k, v, bias, g, rate: float):
-    """dq, dk, dv as the bf16 passes compute them without the bias
-    gradient: D from the forward's bf16 output, as the card makes it."""
+    """dq, dk, dv as the passes of q's dtype compute them without the bias
+    gradient: D from the forward's output, as the card makes it (bf16: P
+    dropped, rounded and times V, the output rounded, dS and P_drop
+    rounded before their products; f32: every step in f32)."""
+    def rnd(t):
+        return t.to(q.dtype).float()
+
     qh, kh, vh, gh = (_heads(t) for t in (q, k, v, g))
     scale = 1.0 / math.sqrt(D)
     p = torch.softmax(qh @ kh.transpose(-1, -2) * scale + bias[:, None, None, :], dim=-1)
@@ -73,30 +84,47 @@ def _emulated(q, k, v, bias, g, rate: float):
     t, _ = att.keep_threshold(rate)
     keep_scale = 256.0 / (256 - t)
     p_drop = torch.where(keep, p * keep_scale, 0.0)
-    out = (p_drop.bfloat16().float() @ vh).bfloat16().float()  # the forward's output
+    out = rnd(rnd(p_drop) @ vh)  # the forward's output
     d_out = (gh * out).sum(-1, keepdim=True)
     dp = torch.where(keep, (gh @ vh.transpose(-1, -2)) * keep_scale, 0.0)
-    ds = (p * (dp - d_out) * scale).bfloat16().float()
+    ds = rnd(p * (dp - d_out) * scale)
     dq, dk = ds @ kh, ds.transpose(-1, -2) @ qh
-    dv = p_drop.bfloat16().float().transpose(-1, -2) @ gh
+    dv = rnd(p_drop).transpose(-1, -2) @ gh
     return tuple(x.transpose(1, 2).reshape(q.shape[0], -1, E) for x in (dq, dk, dv))
+
+
+def _route_errors(s: int, rate: float, dtype, bound):
+    """Max |emulated - plain| of dq, dk, dv at ``s`` tokens, each asserted
+    finite and within ``bound`` (atol, rtol) of the plain pair's."""
+    q, k, v, g, bias = _inputs(s, seed=s + int(rate * 10), dtype=dtype)
+    got = _emulated(q, k, v, bias, g, rate)
+    want = att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS, rate, SEED)
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.float()
+        err = (a - w).abs()
+        assert torch.isfinite(a).all(), name
+        assert bool((err <= bound[0] + bound[1] * w.abs()).all()), (
+            f"{name}: max |emulated - plain| {err.max().item():.3e}")
+        errs[name] = err.max().item()
+    return errs
 
 
 @pytest.mark.parametrize("rate", [RATE, 0.0], ids=["5L", "3L"])
 @pytest.mark.parametrize("s", SHAPES)
 def test_d_from_the_output_keeps_dq_dk_dv_within_the_card_bound(s, rate):
-    q, k, v, g, bias = _inputs(s, seed=s + int(rate * 10))
-    got = _emulated(q, k, v, bias, g, rate)
-    want = att.attention_dropout_bwd_ref(q, k, v, bias, g, HEADS, rate, SEED)
-    for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        w = w.float()
-        err = (a - w).abs()
-        assert torch.isfinite(a).all(), name
-        assert bool((err <= BOUND[0] + BOUND[1] * w.abs()).all()), (
-            f"{name}: max |emulated - plain| {err.max().item():.3e}")
+    for name, err in _route_errors(s, rate, torch.bfloat16, BOUND).items():
         # With room to spare: 3.4e-3 - 1.3e-2 at these seeds, where the
         # outputs reach 0.9 - 2.3.
-        assert err.max().item() < BOUND[0] / 2, (name, err.max().item())
+        assert err < BOUND[0] / 2, (name, err)
+
+
+@pytest.mark.parametrize("rate", [RATE, 0.0], ids=["5L", "3L"])
+@pytest.mark.parametrize("s", SHAPES)
+def test_f32_d_from_the_output_keeps_dq_dk_dv_within_the_f32_bar(s, rate):
+    # In f32 D from the output differs from rowsum(dP P) by round-off alone.
+    for name, err in _route_errors(s, rate, torch.float32, F32_BOUND).items():
+        assert err < F32_BOUND[0] / 10, (name, err)
 
 
 @pytest.mark.parametrize("dropout", [True, False], ids=["dropout", "no dropout"])
